@@ -1,0 +1,584 @@
+#!/usr/bin/env python3
+"""Drive paddle_tpu_torch on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py            # from the root of the repository
+
+Phases, each timed, none caught and passed over:
+
+1. environment: the card's name and power limit (``nvidia-smi``), the torch
+   and CUDA versions; fails without a CUDA device;
+2. build: every CUDA kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``
+   (one process per source, all at once) and the Triton kernels' first
+   compile;
+3. kernels: each kernel against its plain PyTorch version on the same CUDA
+   tensors, at the serving path's shapes (Llama-2-7B widths) and at GQA,
+   ragged, zero-length and int8 variants, with the tolerance stated; then
+   each one's time beside its bound, its plain version's and a library
+   call's where one PyTorch call computes the same function;
+4. kernel against plain, end to end: the 7B widths at 2 layers, served once
+   on the card (kernels) and once on the CPU (plain versions), same weights
+   and prompts: prefill logits within a stated tolerance, greedy streams
+   equal up to the first near-tie;
+5. serve: the ``"7b"`` preset at full depth (32 layers, bf16, random
+   weights from a seeded generator) through
+   ``PagedContinuousBatchingEngine.serve``: 8 prompts of 100-700 tokens,
+   32 new tokens each. Every kernel's launch count over that run is read
+   and held against the count the path implies.
+
+The line before the last is a JSON object describing every kernel; the
+last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
+writes a longer record (every comparison, every serve statistic) there.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PRESET = "7b"                   # the model whose widths every phase uses
+
+# H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor cores, and
+# fp32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# kernel-vs-plain tolerances on the card, |kernel - plain| <= atol + rtol *
+# |plain|. Both sides compute in fp32 and round once to bf16 at the end;
+# they differ by the order of fp32 sums (and FMA contraction), so an output
+# may land on the neighbouring bf16 value, which is at most 2^-7 of it
+# away: that is rtol. atol only covers outputs near zero, so it is set per
+# kernel well under the size of its outputs: rms_norm and fused_rope give
+# values near 1, the attention kernels values near 0.05 over ~1k keys,
+# where a dropped page or key tile, or P.V summed in bf16, moves an output
+# by more than 1e-3 (paged_decode's worst case within 2^-7 above was
+# 2.4e-4 at bf16 and int8, flash_fwd's 3.9e-3 at outputs near 0.5).
+BF16_STEP = 2.0 ** -7
+TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
+       "fused_rope": dict(atol=1e-3, rtol=BF16_STEP),
+       "flash_fwd": dict(atol=1e-4, rtol=BF16_STEP),
+       "paged_decode": dict(atol=1e-4, rtol=BF16_STEP)}
+LSE_ATOL = 1e-3                 # fp32 log-sum-exp, a few fp32 ulps of work
+# end to end (phase 4): bf16 activations on both sides, matmuls accumulated
+# in another order on the card than on the CPU; logits near 5-8 resolve to
+# 2^-5 in bf16 and two layers of such rounding reach a few steps
+LOGIT_ATOL = 0.125
+NEAR_TIE = 2 * LOGIT_ATOL       # top-2 margin under which greedy may flip
+
+REPLACES = {
+    "rms_norm": "paddle_tpu/ops/pallas_kernels.py:67",
+    "fused_rope": "paddle_tpu/ops/pallas_kernels.py:245",
+    "flash_fwd": "paddle_tpu/ops/flash_attention_kernel.py:331",
+    "paged_decode": "paddle_tpu/ops/paged_attention.py:268",
+}
+SOURCES = {
+    "rms_norm": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
+    "fused_rope": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
+    "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_fwd.cu"),
+    "paged_decode": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+SPIN_CYCLES = 4_000_000        # about 2 ms of GPU clock
+
+
+def time_ms(torch, fn, reps=20, warmup=3) -> float:
+    """Device time of one call: the median of ``reps`` calls, each between
+    two CUDA events. Each call is queued behind a GPU spin of about 2 ms,
+    so the host has enqueued the whole call before the device reaches it
+    and the events time the device's work, not the host's launch latency
+    (which the serve phase measures end to end)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+        torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+
+def bound(nbytes: float, flops: float, peak: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the peak rate of their type."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def check_close(torch, name, got, want, atol, rtol) -> float:
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version at "
+            f"{int(bad.sum())} elements, max |err| {err.max().item():.3g} "
+            f"(atol {atol}, rtol {rtol})")
+    return err.max().item()
+
+
+# -- phase 3: kernels against their plain versions ---------------------------
+
+
+def kernel_phase(torch, dev):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import llama_config, ops
+    from paddle_tpu_torch.models.llama import _rope_cos_sin
+
+    g = torch.Generator(device=dev).manual_seed(1234)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    mc = llama_config(PRESET)
+    H, NH, D = mc.hidden_size, mc.num_attention_heads, mc.head_dim
+    GQA = NH // 4                      # 32 query heads over 8 kv heads
+    rows = {}          # name -> record for the JSON line
+    cases = []         # every comparison made
+
+    # K1 rms_norm: prefill buckets and the decode batch
+    w = randn(H, scale=0.1) + 1.0
+    for shape in [(1, 128, H), (1, 512, H), (1, 1024, H), (8, 1, H)]:
+        x = randn(*shape, scale=2.0)
+        err = check_close(torch, f"rms_norm{shape}",
+                          ops.rms_norm(x, w, 1e-5),
+                          ops.rms_norm_ref(x, w, 1e-5), **TOL["rms_norm"])
+        cases.append(("rms_norm", str(shape), err))
+        if shape == (1, 512, H):
+            t = x.numel()
+            bms, by = bound(2 * t * 2 + H * 2, 4 * t, FP32_FLOPS)
+            lib = (time_ms(torch, lambda: F.rms_norm(x, (H,), w, 1e-5))
+                   if hasattr(F, "rms_norm") else None)
+            rows["rms_norm"] = dict(
+                shape=str(shape),
+                ms=time_ms(torch, lambda: ops.rms_norm(x, w, 1e-5)),
+                plain_ms=time_ms(torch,
+                                 lambda: ops.rms_norm_ref(x, w, 1e-5)),
+                bound_ms=bms, bound_by=by, library_ms=lib)
+
+    # K2 fused_rope: q (32 heads) and a GQA k (8 heads) at prefill widths
+    cos_full, sin_full = _rope_cos_sin(1024, D, 10000.0, bf, dev)
+    for s, heads in [(128, NH), (512, NH), (1024, NH), (512, GQA)]:
+        x = randn(1, s, heads, D)
+        c, sn = cos_full[:s], sin_full[:s]
+        err = check_close(torch, f"fused_rope S={s} H={heads}",
+                          ops.fused_rope(x, c, sn),
+                          ops.fused_rope_ref(x, c, sn),
+                          **TOL["fused_rope"])
+        cases.append(("fused_rope", f"[1,{s},{heads},{D}]", err))
+        if (s, heads) == (512, NH):
+            bms, by = bound(2 * x.numel() * 2 + 2 * s * (D // 2) * 2,
+                            3 * x.numel(), FP32_FLOPS)
+            rows["fused_rope"] = dict(
+                shape=f"[1,{s},{heads},{D}]",
+                ms=time_ms(torch, lambda: ops.fused_rope(x, c, sn)),
+                plain_ms=time_ms(torch,
+                                 lambda: ops.fused_rope_ref(x, c, sn)),
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+    # K3 flash forward: prefill buckets (causal MHA), GQA 32/8, a ragged
+    # length, queries fewer than keys, and a non-causal case
+    for sq, sk, hkv, causal in [(128, 128, NH, True), (512, 512, NH, True),
+                                (1024, 1024, NH, True),
+                                (512, 512, GQA, True), (700, 700, NH, True),
+                                (100, 300, GQA, True),
+                                (200, 200, NH, False)]:
+        q = randn(1, sq, NH, D)
+        k = randn(1, sk, hkv, D)
+        v = randn(1, sk, hkv, D)
+        out, lse = ops.flash_attention_bshd(q, k, v, causal=causal)
+        ref, lse_ref = ops.flash_attention_bshd_ref(q, k, v, causal=causal)
+        tag = f"Sq={sq} Sk={sk} Hkv={hkv} causal={causal}"
+        err = check_close(torch, f"flash_fwd {tag}", out, ref,
+                          **TOL["flash_fwd"])
+        check_close(torch, f"flash_fwd lse {tag}", lse, lse_ref, LSE_ATOL,
+                    0.0)
+        cases.append(("flash_fwd", tag, err))
+        if (sq, hkv, causal) == (512, NH, True):
+            pairs = (sum(min(sk, i + 1 + sk - sq) for i in range(sq))
+                     if causal else sq * sk)
+            nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
+                + lse.numel() * 4
+            bms, by = bound(nbytes, 4 * D * pairs * NH, BF16_FLOPS)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            rows["flash_fwd"] = dict(
+                shape=tag,
+                ms=time_ms(torch, lambda: ops.flash_attention_bshd(
+                    q, k, v, causal=True)),
+                plain_ms=time_ms(torch, lambda: ops.flash_attention_bshd_ref(
+                    q, k, v, causal=True), reps=5),
+                bound_ms=bms, bound_by=by,
+                library_ms=time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True)))
+
+    # K4 paged decode: the serving batch (8 rows, page 16, up to 1024
+    # tokens, one dead row), GQA 32/8, and int8 pools with scales
+    ps, maxp, num_pages = 16, 64, 512
+    lens_l = [1024, 900, 733, 512, 300, 129, 17, 0]
+    b = len(lens_l)
+    perm = torch.randperm(num_pages, generator=g, device=dev).int()
+    table = torch.full((b, maxp), -1, dtype=torch.int32, device=dev)
+    nxt = 0
+    for r, n in enumerate(lens_l):
+        k_pages = -(-n // ps)
+        table[r, :k_pages] = perm[nxt:nxt + k_pages]
+        nxt += k_pages
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    for hkv, int8 in [(NH, False), (GQA, False), (NH, True)]:
+        q = randn(b, NH, D)
+        if int8:
+            kp = torch.randint(-127, 128, (num_pages, ps, hkv, D),
+                               generator=g, device=dev, dtype=torch.int8)
+            vp = torch.randint(-127, 128, (num_pages, ps, hkv, D),
+                               generator=g, device=dev, dtype=torch.int8)
+            sc = (randn(num_pages, hkv, dtype=torch.float32).abs() + 0.1,
+                  randn(num_pages, hkv, dtype=torch.float32).abs() + 0.1)
+        else:
+            kp = randn(num_pages, ps, hkv, D)
+            vp = randn(num_pages, ps, hkv, D)
+            sc = ()
+        out = ops.paged_decode_mha(q, kp, vp, table, lens, *sc)
+        ref = ops.paged_decode_mha_ref(q, kp, vp, table, lens, *sc)
+        tag = f"B={b} Hkv={hkv} {'int8' if int8 else 'bf16'} lens={lens_l}"
+        err = check_close(torch, f"paged_decode {tag}", out, ref,
+                          **TOL["paged_decode"])
+        if out[-1].abs().max().item() != 0.0:
+            raise AssertionError("paged_decode: a zero-length row must "
+                                 "return zeros")
+        cases.append(("paged_decode", tag, err))
+        if hkv == NH and not int8:
+            tokens = sum(lens_l)
+            nbytes = (tokens * hkv * D * 2 * 2 + 2 * q.numel() * 2
+                      + table.numel() * 4 + b * 4)
+            bms, by = bound(nbytes, 4 * D * tokens * NH, BF16_FLOPS)
+            rows["paged_decode"] = dict(
+                shape=tag,
+                ms=time_ms(torch, lambda: ops.paged_decode_mha(
+                    q, kp, vp, table, lens)),
+                plain_ms=time_ms(torch, lambda: ops.paged_decode_mha_ref(
+                    q, kp, vp, table, lens), reps=5),
+                bound_ms=bms, bound_by=by, library_ms=None)
+    for name in rows:
+        rows[name]["max_abs_err"] = max(e for n, _, e in cases if n == name)
+    for name, tag, err in cases:
+        log(f"  {name:13s} {tag:60s} max|kernel-plain| {err:.3g} "
+            f"(atol {TOL[name]['atol']:g}, rtol 2^-7)")
+    return rows, cases
+
+
+# -- phase 4: kernel path against plain path, end to end ---------------------
+
+
+def e2e_phase(torch, dev, np):
+    from paddle_tpu_torch import (GenerationConfig, LlamaForCausalLM,
+                                  PagedContinuousBatchingEngine, llama_config)
+
+    cfg = llama_config(PRESET, num_hidden_layers=2, dtype="bfloat16")
+    gpu = LlamaForCausalLM(cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(7))
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (100, 37)]
+    rec = {"layers": 2, "prompts": [len(p) for p in prompts]}
+    errs = []
+    with torch.no_grad():
+        for p in prompts:
+            width = 1 << max(4, (len(p) - 1).bit_length())   # its bucket
+            ids = np.zeros((1, width), np.int32)
+            ids[0, :len(p)] = p
+            outs = []
+            for m, d in ((gpu, dev), (cpu, "cpu")):
+                lg, _ = m.forward_with_cache(
+                    torch.from_numpy(ids).to(d), m.init_cache(1, width), 0)
+                outs.append(lg[0, :len(p)].float().cpu())
+            errs.append((outs[0] - outs[1]).abs().max().item())
+    rec["prefill_logit_max_abs_err"] = max(errs)
+    if max(errs) > LOGIT_ATOL:
+        raise AssertionError(f"end to end: prefill logits differ by "
+                             f"{max(errs):.3g} > {LOGIT_ATOL}")
+    streams = []
+    for m in (gpu, cpu):
+        eng = PagedContinuousBatchingEngine(m, max_batch=2, num_pages=32,
+                                            page_size=16, max_pages=16)
+        streams.append(eng.serve(prompts, GenerationConfig(max_new_tokens=8),
+                                 segment_steps=4))
+    matched = []
+    with torch.no_grad():
+        for p, a, c in zip(prompts, *streams):
+            n = next((i for i in range(len(c)) if a[i] != c[i]), len(c))
+            matched.append(n)
+            if n < len(c):
+                seq = torch.from_numpy(
+                    np.concatenate([p, c[:n]]).astype(np.int64))[None]
+                top2 = cpu(seq)[0, -1].float().topk(2).values
+                margin = (top2[0] - top2[1]).item()
+                if margin >= NEAR_TIE:
+                    raise AssertionError(
+                        f"end to end: greedy streams split at token {n} "
+                        f"where the plain top-2 margin is {margin:.3g} "
+                        f">= {NEAR_TIE}")
+    rec["greedy_tokens_matched"] = matched
+    rec["greedy_tokens"] = [len(c) for c in streams[1]]
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 5: serve the 7B preset --------------------------------------------
+
+
+def serve_phase(torch, dev, np, profile=False):
+    from paddle_tpu_torch import (GenerationConfig, LlamaForCausalLM,
+                                  PagedContinuousBatchingEngine, llama_config,
+                                  ops)
+
+    cfg = llama_config(PRESET, dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = PagedContinuousBatchingEngine(model, max_batch=8, num_pages=512,
+                                        page_size=16, max_pages=64)
+    rng = np.random.RandomState(0)
+    plens = [100, 180, 260, 340, 420, 500, 600, 700]
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in plens]
+    gen = GenerationConfig(max_new_tokens=32)
+    # warm-up: one prompt per prefill bucket the run uses (cuBLAS and
+    # Triton pick and compile their kernels at first use)
+    eng.serve([prompts[-1][:n] for n in (100, 200, 400, 700)],
+              GenerationConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    p0, s0 = eng.prefills, eng.decode_steps
+    ops.reset_launch_counts()
+    outs = eng.serve(prompts, gen)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_pre, n_steps = eng.prefills - p0, eng.decode_steps - s0
+    L = cfg.num_hidden_layers
+    want = {"rms_norm": (2 * L + 1) * (n_pre + n_steps),
+            "fused_rope": 2 * L * n_pre, "flash_fwd": L * n_pre,
+            "paged_decode": L * n_steps}
+    log(f"  kernels: launches {counts} (prefills {n_pre}, decode steps "
+        f"{n_steps}, layers {L}); the path implies {want}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    for o in outs:
+        if len(o) != gen.max_new_tokens or not (
+                (o >= 0) & (o < cfg.vocab_size)).all():
+            raise AssertionError(f"serve: bad output {o!r}")
+    st = eng.serve_stats
+    tpot = [(f - t) / (len(o) - 1)
+            for t, f, o in zip(st["ttft_s"], st["finish_s"], outs)]
+    rec = {
+        "preset": PRESET, "layers": L, "dtype": "bfloat16",
+        "engine": "PagedContinuousBatchingEngine(max_batch=8, "
+                  "num_pages=512, page_size=16, max_pages=64)",
+        "prompt_lens": plens, "max_new_tokens": gen.max_new_tokens,
+        "model_init_s": init_s,
+        "ttft_s": st["ttft_s"], "ttft_p50_s": statistics.median(
+            st["ttft_s"]), "ttft_max_s": max(st["ttft_s"]),
+        "tpot_s": tpot, "tpot_p50_s": statistics.median(tpot),
+        "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
+        "decode_tokens": st["decode_tokens"], "decode_s": st["decode_s"],
+        "wall_s": st["wall_s"], "segments": st["segments"],
+        "prefills": n_pre, "decode_steps": n_steps, "launches": counts,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    if profile:
+        rec["profile"] = profile_serve(torch, eng, prompts, gen)
+    return rec
+
+
+# kernel name fragments -> where the device time goes
+_CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
+               ("fused_rope", ("_rope_kernel",)),
+               ("flash_fwd", ("flash_fwd_kernel",)),
+               ("paged_decode", ("paged_decode_kernel",)),
+               ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma",
+                                    "sm90_")),
+               ("indexing", ("index", "gather", "scatter")),
+               ("elementwise and other", ("",))]
+
+
+def profile_serve(torch, eng, prompts, gen):
+    """The same serve once more under ``torch.profiler``: device time by
+    kernel category and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.serve(prompts, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cats = {name: 0.0 for name, _ in _CATEGORIES}
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key] = (us, e.count)
+        low = e.key.lower()
+        cat = next(n for n, keys in _CATEGORIES
+                   if any(k in low for k in keys))
+        cats[cat] += us
+    busy = sum(cats.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    log(f"  profile: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%})")
+    for name, us in sorted(cats.items(), key=lambda kv: -kv[1]):
+        log(f"    {name:22s} {us / 1e3:9.2f} ms  {us / max(busy, 1):6.1%}")
+    for name, (us, n) in top:
+        log(f"    {us / 1e3:9.2f} ms  x{n:<6d} {name[:90]}")
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us,
+            "categories_ms": {k: v / 1e3 for k, v in cats.items()},
+            "top_kernels": [(k, us / 1e3, n) for k, (us, n) in top]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--record", metavar="PATH",
+                    help="write the run's full record there as JSON")
+    ap.add_argument("--profile", action="store_true",
+                    help="after the serve phase, serve again under "
+                         "torch.profiler and print where the device time "
+                         "goes")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    from paddle_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    record = {"phases": {}}
+    t_all = time.perf_counter()
+
+    # 1. environment
+    smi = smi_line()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    record.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda)
+
+    # 2. build
+    t = time.perf_counter()
+    build_s = _build.build_all()
+    for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
+        lib = _build.library_path(name)
+        for line in lib.with_name(lib.name + ".log").read_text().splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  {name}: {line.strip()}")
+    from paddle_tpu_torch import ops
+    x = torch.randn(2, 4, 8, 128, device=dev, dtype=torch.bfloat16)
+    ops.rms_norm(x, torch.ones(128, device=dev, dtype=torch.bfloat16))
+    ops.fused_rope(x, x[0, :, 0, :64], x[0, :, 0, 64:])
+    torch.cuda.synchronize()
+    record["phases"]["build"] = time.perf_counter() - t
+    log(f"[build] nvcc {build_s:.2f}s, with Triton's first compile "
+        f"{record['phases']['build']:.2f}s")
+
+    # 3. kernels against their plain versions
+    t = time.perf_counter()
+    rows, cases = kernel_phase(torch, dev)
+    record["kernel_cases"] = cases
+    record["phases"]["kernels"] = time.perf_counter() - t
+    for name, r in rows.items():
+        lib = ("null" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        log(f"  {name:13s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{smi}]")
+    log(f"[kernels] {record['phases']['kernels']:.1f}s")
+    # 4. kernel path against plain path, end to end
+    t = time.perf_counter()
+    record["e2e"] = e2e_phase(torch, dev, np)
+    record["phases"]["e2e"] = time.perf_counter() - t
+    log(f"[e2e] {json.dumps(record['e2e'])}")
+    log(f"[e2e] {record['phases']['e2e']:.1f}s")
+    # 5. serve the 7B preset
+    t = time.perf_counter()
+    sv = serve_phase(torch, dev, np, profile=args.profile)
+    record["serve"] = sv
+    record["phases"]["serve"] = time.perf_counter() - t
+    log(f"[serve] {PRESET} x{sv['layers']} bf16: TTFT p50 "
+        f"{sv['ttft_p50_s'] * 1e3:.1f} ms (max "
+        f"{sv['ttft_max_s'] * 1e3:.1f}), TPOT p50 "
+        f"{sv['tpot_p50_s'] * 1e3:.2f} ms, decode "
+        f"{sv['decode_tokens_per_s']:.1f} tok/s, peak "
+        f"{sv['peak_mem_gb']:.1f} GiB  [{smi}]")
+    log(f"[serve] {record['phases']['serve']:.1f}s")
+    record["total_s"] = time.perf_counter() - t_all
+
+    launches = sv["launches"]
+    kernels = []
+    for name in ("rms_norm", "fused_rope", "flash_fwd", "paged_decode"):
+        r = rows[name]
+        route, src = SOURCES[name]
+        kernels.append({
+            "name": name, "route": route, "source": src,
+            "replaces": REPLACES[name],
+            "launches": launches[name], **{k: r[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+        })
+    record["kernels"] = kernels
+    if args.record:
+        os.makedirs(os.path.dirname(os.path.abspath(args.record)),
+                    exist_ok=True)
+        with open(args.record, "w") as f:
+            json.dump(record, f, indent=1, default=str)
+    log(f"total {record['total_s']:.1f}s")
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""paddle_tpu_torch: the PyTorch / CUDA port of paddle_tpu for NVIDIA Hopper.
+
+The JAX package ``paddle_tpu`` stays the reference; this package imports
+neither it nor JAX. Its kernels are written by hand for ``sm_90a`` (CUDA C++
+built by ``nvcc`` and loaded with ``ctypes``, or Triton where a kernel is a
+plain elementwise pass or row reduction), each beside a plain PyTorch
+version with the same arithmetic.
+
+Device policy: entry points run on the CUDA card unless the caller passes
+``device="cpu"`` (:func:`get_device`); without CUDA they raise. A kernel
+wrapper takes its plain version only for CPU tensors; for CUDA tensors it
+launches its kernel or raises.
+
+Ported so far: paged greedy serving of the Llama causal LM
+(``models.llama``, ``inference.generation``) and its four kernels
+(``ops``): RMSNorm, rotary embedding, flash attention forward, paged
+decode attention.
+"""
+from .device import get_device
+from .inference.generation import (GenerationConfig,
+                                   PagedContinuousBatchingEngine)
+from .models import (LlamaConfig, LlamaForCausalLM, llama_config,
+                     load_paddle_params)
+
+__all__ = ["get_device", "LlamaConfig", "LlamaForCausalLM", "llama_config",
+           "load_paddle_params", "GenerationConfig",
+           "PagedContinuousBatchingEngine"]

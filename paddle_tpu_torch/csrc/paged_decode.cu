@@ -1,0 +1,207 @@
+// K4: paged decode attention for Hopper (sm_90a).
+//
+// Replaces paddle_tpu/ops/paged_attention.py::paged_decode_mha
+// (_paged_decode_kernel, launched through pl.pallas_call at
+// paged_attention.py:268).
+//
+// One decode step: for each row b and query head h,
+//   out[b, h] = softmax(q[b, h] . K^T / sqrt(D)) V
+// over the row's first lens[b] tokens. Token t of row b lives in page
+// page_table[b, t / page_size], at offset t % page_size, of the pools
+// [num_pages, page_size, Hkv, D]. Pools are bf16, or int8 with per-(page,
+// kv head) absmax scales (value = int8 * scale / 127). Query head h reads kv
+// head h / (Hq / Hkv). fp32 softmax and accumulation; a row with lens 0
+// returns zeros; a -1 table entry inside the length reads page 0, as the
+// TPU kernel does, and entries past the length are never read.
+//
+// What bounds it: every live token's K and V row is read once for 4 * D
+// flops per query head, about one flop per byte in bf16, so memory bandwidth
+// bounds it (the bytes are the live tokens' K and V, not the pool).
+//
+// Design: one block per (row, kv head) walks the row's pages in order with
+// an online softmax, reading its own page ids from the table. Each K and V
+// row is loaded once for all g query heads of the group: a warp takes one
+// token's K row (lanes across D) and produces the group's g scores, then one
+// thread per output column streams the page's V column. Only the g x
+// page_size scores pass through shared memory. There is no split of a long
+// context over several blocks yet: at B = 8 and 32 kv heads that is 256
+// blocks on 132 SMs, each walking its pages one after the other.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGroup = 8;
+constexpr float kQMax = 127.f;  // quantization/kv.py KV_QMAX
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const T* __restrict__ k_pool, const T* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ lens,
+                    __nv_bfloat16* __restrict__ out, int hq, int hkv,
+                    int page_size, int max_pages, float scale) {
+  constexpr int kPerLane = D / 32;
+  extern __shared__ float s_sm[];  // [group][page_size] scores of one page
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int group = hq / hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = lens[b];
+  const int n_pages = len <= 0 ? 0 : min((len + page_size - 1) / page_size,
+                                         max_pages);
+  const long long tok_stride = static_cast<long long>(hkv) * D;
+  const long long q_row = (static_cast<long long>(b) * hq + hk * group) * D;
+
+  float qv[kMaxGroup][kPerLane];
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g)
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e)
+      qv[g][e] = g < group ? __bfloat162float(
+                                 q[q_row + g * D + lane * kPerLane + e])
+                           : 0.f;
+
+  float m[kMaxGroup], l[kMaxGroup], acc[kMaxGroup];
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) {
+    m[g] = ptt::kNeg;
+    l[g] = 0.f;
+    acc[g] = 0.f;
+  }
+
+  for (int p = 0; p < n_pages; ++p) {
+    int pid = page_table[static_cast<long long>(b) * max_pages + p];
+    pid = pid < 0 ? 0 : pid;
+    const long long base =
+        static_cast<long long>(pid) * page_size * tok_stride +
+        static_cast<long long>(hk) * D;
+    const float kq = k_scale ? k_scale[pid * hkv + hk] / kQMax : 1.f;
+    const float vq = v_scale ? v_scale[pid * hkv + hk] / kQMax : 1.f;
+    const int t0 = p * page_size;
+    const int valid = min(page_size, len - t0);
+
+    // scores: warp w takes tokens w, w + kWarps, ...
+    for (int t = warp; t < valid; t += kWarps) {
+      const T* krow = k_pool + base + t * tok_stride + lane * kPerLane;
+      float kx[kPerLane];
+#pragma unroll
+      for (int e = 0; e < kPerLane; ++e) kx[e] = ptt::to_float(krow[e]) * kq;
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        if (g < group) {  // uniform across the warp
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < kPerLane; ++e) dot = fmaf(qv[g][e], kx[e], dot);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          if (lane == 0) s_sm[g * page_size + t] = dot * scale;
+        }
+      }
+    }
+    __syncthreads();
+
+    if (tid < D) {  // one thread per output column
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        if (g < group) {
+          float mx = m[g];
+          for (int t = 0; t < valid; ++t)
+            mx = fmaxf(mx, s_sm[g * page_size + t]);
+          const float alpha = expf(m[g] - mx);
+          acc[g] *= alpha;
+          l[g] *= alpha;
+          m[g] = mx;
+        }
+      }
+      const T* vcol = v_pool + base + tid;
+      for (int t = 0; t < valid; ++t) {
+        const float vv = ptt::to_float(vcol[t * tok_stride]) * vq;
+#pragma unroll
+        for (int g = 0; g < kMaxGroup; ++g) {
+          if (g < group) {
+            const float pr = expf(s_sm[g * page_size + t] - m[g]);
+            l[g] += pr;
+            acc[g] = fmaf(pr, vv, acc[g]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next page overwrites the scores
+  }
+
+  if (tid < D) {
+#pragma unroll
+    for (int g = 0; g < kMaxGroup; ++g)
+      if (g < group)
+        out[q_row + g * D + tid] =
+            __float2bfloat16(acc[g] / fmaxf(l[g], 1e-30f));
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* kp, const void* vp,
+                   const void* ks, const void* vs, const void* table,
+                   const void* lens, void* out, int batch, int hq, int hkv,
+                   int page_size, int max_pages, float scale,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (hq / hkv) * page_size;
+  const dim3 grid(hkv, batch);
+  paged_decode_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(table),
+      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out), hq,
+      hkv, page_size, max_pages, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
+             const void* vs, const void* table, const void* lens, void* out,
+             int batch, int hq, int hkv, int d, int page_size, int max_pages,
+             float scale, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch<T, 64>(q, kp, vp, ks, vs, table, lens, out, batch, hq,
+                           hkv, page_size, max_pages, scale, st);
+    case 128:
+      return launch<T, 128>(q, kp, vp, ks, vs, table, lens, out, batch, hq,
+                            hkv, page_size, max_pages, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// q [B, Hq, D] bf16; pools [P, page_size, Hkv, D]; page_table [B, max_pages]
+// int32; lens [B] int32; out [B, Hq, D] bf16. All contiguous.
+extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
+                                 const void* v_pool, const void* page_table,
+                                 const void* lens, void* out, int batch,
+                                 int hq, int hkv, int d, int page_size,
+                                 int max_pages, float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr,
+                                 page_table, lens, out, batch, hq, hkv, d,
+                                 page_size, max_pages, scale, stream);
+}
+
+// As above with int8 pools and their [P, Hkv] fp32 scales.
+extern "C" int paged_decode_int8(const void* q, const void* k_pool,
+                                 const void* v_pool, const void* k_scale,
+                                 const void* v_scale, const void* page_table,
+                                 const void* lens, void* out, int batch,
+                                 int hq, int hkv, int d, int page_size,
+                                 int max_pages, float scale, void* stream) {
+  return dispatch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                          lens, out, batch, hq, hkv, d, page_size, max_pages,
+                          scale, stream);
+}

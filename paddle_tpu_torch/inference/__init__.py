@@ -1,0 +1,7 @@
+from .generation import (ContinuousBatchingEngine, GenerationConfig,
+                         PagedContinuousBatchingEngine, prefill_buckets_for)
+from .paged_cache import PageAllocator, write_tokens
+
+__all__ = ["GenerationConfig", "ContinuousBatchingEngine",
+           "PagedContinuousBatchingEngine", "prefill_buckets_for",
+           "PageAllocator", "write_tokens"]

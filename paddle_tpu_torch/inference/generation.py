@@ -1,0 +1,473 @@
+"""Continuous-batching greedy serving over the paged KV cache.
+
+Port of the paged serving path of ``paddle_tpu/inference/generation.py``:
+``GenerationConfig``, length-bucketed prefill, and
+``ContinuousBatchingEngine`` / ``PagedContinuousBatchingEngine`` with
+reserved admission. Requests are admitted into free slots between decode
+SEGMENTS (one prefill each, its KV scattered into the page pool), decode
+runs ``n_steps`` steps over every slot with per-row lengths, and finished
+rows retire between segments.
+
+The reference compiles a segment into one ``lax.scan`` program; here a
+segment is a Python loop over steps whose tokens, lengths and flags stay on
+the device and come back to the host once per segment, as in the
+reference. Bucketed prefill pads exactly as the reference does, so greedy
+streams of the two agree.
+
+Not ported yet: sampled decoding (the port is greedy), optimistic admission and preemption, the prefix cache, chunked prefill,
+int8 pools, speculative decoding, LoRA, tensor parallelism, monitor and
+tracing, and the dense (non-paged) engine's decode.
+"""
+from __future__ import annotations
+
+import heapq
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .paged_cache import PageAllocator, write_tokens
+
+__all__ = ["GenerationConfig", "ContinuousBatchingEngine",
+           "PagedContinuousBatchingEngine", "prefill_buckets_for"]
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def prefill_buckets_for(spec, max_len: int, floor: int = 16):
+    """Normalize a ``prefill_buckets`` knob to a sorted tuple of pad
+    targets, or None (exact-length prefill). ``"auto"`` gives powers of two
+    from ``floor`` up to ``max_len``; an explicit sequence is deduped,
+    sorted and extended to cover ``max_len``."""
+    if spec is None:
+        return None
+    if isinstance(spec, str) and spec == "auto":
+        if int(floor) < 1:
+            raise ValueError(f"bucket floor must be >= 1, got {floor}")
+        out = []
+        b = int(floor)
+        while b < max_len:
+            out.append(b)
+            b *= 2
+        out.append(max_len)
+        return tuple(out)
+    out = sorted({int(b) for b in spec})
+    if not out or out[0] < 1:
+        raise ValueError(f"prefill_buckets must be positive ints, got "
+                         f"{spec!r}")
+    if out[-1] > max_len:
+        raise ValueError(
+            f"prefill bucket {out[-1]} exceeds max_len={max_len}")
+    if out[-1] < max_len:
+        out.append(max_len)
+    return tuple(out)
+
+
+def _bucket_for(buckets, plen: int) -> int:
+    """Smallest bucket >= plen (buckets sorted, last == max_len)."""
+    for b in buckets:
+        if b >= plen:
+            return b
+    return buckets[-1]
+
+
+def _pad_ids(ids: np.ndarray, width: int) -> np.ndarray:
+    """Right-pad [B, plen] token ids to [B, width] with id 0. Padded prefill
+    gives the exact-length result: causal masking keeps every real query
+    off the pad keys, logits are read at the true last position, and the
+    pad tail's KV is masked by every decode read and overwritten as the
+    sequence grows."""
+    plen = ids.shape[1]
+    if plen >= width:
+        return ids
+    return np.pad(ids, ((0, 0), (0, width - plen)))
+
+
+def _prompt_ids(prompt) -> np.ndarray:
+    """A prompt (tensor / ndarray / list) as int32 [1, plen]."""
+    if isinstance(prompt, torch.Tensor):
+        prompt = prompt.detach().cpu().numpy()
+    return np.asarray(prompt).astype(np.int32).reshape(1, -1)
+
+
+def _prompt_len(prompt) -> int:
+    return _prompt_ids(prompt).shape[1]
+
+
+def _sample_rows(logits: torch.Tensor) -> torch.Tensor:
+    """Next token per row of [B, V] logits: the greedy branch of the
+    reference's ``_sample_rows``, argmax with the first maximum on ties
+    (as ``jnp.argmax``)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _is_int(x) -> bool:
+    return not isinstance(x, bool) and isinstance(x, (int, np.integer))
+
+
+class GenerationConfig:
+    """Per-request decoding parameters, validated at construction (a
+    malformed config from the network must fail admission, never a shared
+    decode segment). Decoding is greedy: the reference's sampling settings
+    arrive with the sampled branch of ``_sample_rows``."""
+
+    def __init__(self, max_new_tokens: int = 64,
+                 eos_token_id: Optional[int] = None):
+        if not _is_int(max_new_tokens) or not 1 <= max_new_tokens <= _INT32_MAX:
+            raise ValueError(f"max_new_tokens must be an int in [1, 2**31), "
+                             f"got {max_new_tokens!r}")
+        if eos_token_id is not None and (
+                not _is_int(eos_token_id)
+                or not 0 <= eos_token_id <= _INT32_MAX):
+            raise ValueError(f"eos_token_id must be an int in [0, 2**31) or "
+                             f"None, got {eos_token_id!r}")
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_token_id = None if eos_token_id is None else int(eos_token_id)
+
+
+class ContinuousBatchingEngine:
+    """Continuous batching over ``max_batch`` cache slots, each with its
+    own length: admission and retirement happen between decode segments,
+    so new work starts without waiting for the longest running request.
+
+    This base class holds the admission, decode-segment and serve logic;
+    the cache layout hooks (``_make_caches``, ``_admit_cache``,
+    ``_fwd_decode``) belong to a subclass. Only the paged layout is ported
+    (:class:`PagedContinuousBatchingEngine`). The engine runs on its
+    model's device.
+
+    Host-side counters: ``prefills`` and ``decode_steps`` count the model
+    forwards run; ``serve_stats`` holds the timings of the last
+    :meth:`serve`."""
+
+    def __init__(self, model, max_batch: int, max_len: int,
+                 prefill_buckets="auto"):
+        self.model = model
+        self.device = model.device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.prefill_buckets = prefill_buckets_for(prefill_buckets, max_len)
+        self.prefills = 0
+        self.decode_steps = 0
+        self.serve_stats: Optional[dict] = None
+        self._segment_log: List[tuple] = []   # (seconds, tokens emitted)
+        self._init_decode_state()
+        self._slot_req: Dict[int, int] = {}   # slot -> request id
+        self._tokens: Dict[int, list] = {}    # request id -> generated ids
+        self._budget: Dict[int, int] = {}     # request id -> tokens left
+        self._cfg: Dict[int, GenerationConfig] = {}
+        self._finished: Dict[int, np.ndarray] = {}
+        self._next_req = 0
+
+    def _init_decode_state(self) -> None:
+        """Fresh device-side decode state: caches, per-slot length, last
+        token, done and active flags, eos id (-1 = none), free slots."""
+        mb, dev = self.max_batch, self.device
+        self.caches = self._make_caches()
+        self.lens = torch.zeros(mb, dtype=torch.int32, device=dev)
+        self.last = torch.zeros(mb, dtype=torch.int32, device=dev)
+        self.done_dev = torch.zeros(mb, dtype=torch.bool, device=dev)
+        self.active_dev = torch.zeros(mb, dtype=torch.bool, device=dev)
+        self.eos = torch.full((mb,), -1, dtype=torch.int32, device=dev)
+        self._free = list(range(mb))
+
+    # -- cache layout hooks (the paged subclass implements them) -------------
+    def _make_caches(self):
+        raise NotImplementedError(
+            "the dense-cache engine is not ported yet: use "
+            "PagedContinuousBatchingEngine")
+
+    def _admit_cache(self, slot: int, ids, plen: int, cfg):
+        raise NotImplementedError
+
+    def _fwd_decode(self, tok, lens, live):
+        raise NotImplementedError
+
+    # -- admission / retirement (host-side, between segments) ---------------
+    def _can_admit(self, prompt_len: int, cfg) -> bool:
+        return True
+
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def can_admit(self, prompt_len: int, cfg: GenerationConfig) -> bool:
+        """True iff ``add_request`` with this prompt length and config
+        would succeed right now."""
+        return (bool(self._free)
+                and prompt_len + cfg.max_new_tokens <= self.max_len
+                and self._can_admit(prompt_len, cfg))
+
+    def add_request(self, prompt_ids, cfg: GenerationConfig) -> int:
+        """Prefill one request into a free slot; returns the request id.
+        Raises if no slot (or, paged, no page reservation) is available —
+        probe :meth:`can_admit` to defer instead."""
+        if not self._free:
+            raise RuntimeError("no free slot; drain with decode_segment()")
+        ids = _prompt_ids(prompt_ids)
+        plen = ids.shape[1]
+        if plen + cfg.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt({plen}) + max_new_tokens({cfg.max_new_tokens}) "
+                f"exceeds engine max_len({self.max_len})")
+        if not self._can_admit(plen, cfg):
+            raise RuntimeError(
+                "page pool exhausted; drain with decode_segment()")
+        slot = heapq.heappop(self._free)
+        try:
+            rid = self._next_req
+            self._next_req += 1
+            last_logits = self._admit_cache(slot, ids, plen, cfg)
+            first = _sample_rows(last_logits)[0]
+            tok_done = (first == cfg.eos_token_id
+                        if cfg.eos_token_id is not None else False)
+            self._install_state(slot, plen, first, tok_done, cfg)
+        except BaseException:
+            # a failed admission must not leak the slot (or its pages)
+            self._abort_admit(slot)
+            raise
+        return self._register(slot, rid, first, tok_done, cfg)
+
+    def _install_state(self, slot: int, plen: int, first, tok_done,
+                       cfg) -> None:
+        self.lens[slot] = plen
+        self.last[slot] = first
+        self.done_dev[slot] = tok_done
+        self.active_dev[slot] = True
+        self.eos[slot] = -1 if cfg.eos_token_id is None else cfg.eos_token_id
+
+    def _register(self, slot: int, rid: int, first, tok_done, cfg) -> int:
+        """Host-side tail of an admission: record the request and retire
+        it at once when its first token already ends it."""
+        self._slot_req[slot] = rid
+        self._tokens[rid] = [int(first)]     # the admission's one host sync
+        self._budget[rid] = cfg.max_new_tokens - 1
+        self._cfg[rid] = cfg
+        if bool(tok_done) or self._budget[rid] <= 0:
+            self._retire(slot)
+        return rid
+
+    def _prefill_width(self, plen: int) -> int:
+        if self.prefill_buckets is None:
+            return plen
+        return _bucket_for(self.prefill_buckets, plen)
+
+    def _run_prefill(self, ids: np.ndarray, plen: int, mini):
+        """Pad the prompt to its bucket and prefill it into the dense
+        ``mini`` cache; returns (last-position logits [1, V], mini)."""
+        width = self._prefill_width(plen)
+        ids_t = torch.tensor(_pad_ids(ids, width), device=self.device)
+        with torch.no_grad():
+            logits, mini = self.model.forward_with_cache(ids_t, mini, 0)
+        self.prefills += 1
+        return logits[:, plen - 1], mini
+
+    def _abort_admit(self, slot: int) -> None:
+        heapq.heappush(self._free, slot)
+
+    def _retire(self, slot: int) -> None:
+        rid = self._slot_req.pop(slot)
+        self._finished[rid] = np.asarray(self._tokens.pop(rid), np.int32)
+        del self._budget[rid]
+        self._cfg.pop(rid, None)
+        self.active_dev[slot] = False
+        heapq.heappush(self._free, slot)   # lowest free slot admits first
+
+    def cancel_request(self, rid: int):
+        """Cancel an ACTIVE request between segments: its slot (and pages)
+        return to the pool at once and it never appears in
+        ``collect_finished()``. Returns its tokens so far, or None when
+        ``rid`` is not active."""
+        slot = next((s for s, r in self._slot_req.items() if r == rid), None)
+        if slot is None:
+            return None
+        out = np.asarray(self._tokens[rid], np.int32)
+        self._retire(slot)
+        self._finished.pop(rid, None)
+        return out
+
+    def collect_finished(self) -> Dict[int, np.ndarray]:
+        out, self._finished = self._finished, {}
+        return out
+
+    # -- decode ---------------------------------------------------------------
+    def decode_segment(self, n_steps: int) -> int:
+        """Run ``n_steps`` greedy decode steps over every slot, collect each
+        request's tokens and retire finished requests. Returns the number
+        of requests still active."""
+        if not self._slot_req:
+            return 0
+        t0 = time.perf_counter()
+        last, lens, done = self.last, self.lens, self.done_dev
+        toks = []
+        with torch.no_grad():
+            for _ in range(n_steps):
+                live = self.active_dev & ~done & (lens < self.max_len)
+                logits = self._fwd_decode(last[:, None], lens, live)
+                nxt = torch.where(live, _sample_rows(logits[:, 0]), last)
+                lens = lens + live.to(torch.int32)
+                done = (done | (live & (self.eos >= 0) & (nxt == self.eos))
+                        | (lens >= self.max_len))
+                toks.append(nxt)
+                last = nxt
+        self.decode_steps += n_steps
+        self.last, self.lens, self.done_dev = last, lens, done
+        # the segment's one device -> host readback
+        host = torch.stack(toks + [done.to(torch.int32)], dim=1).cpu().numpy()
+        toks_h, done_h = host[:, :n_steps], host[:, n_steps].astype(bool)
+        emitted = 0
+        for slot, rid in list(self._slot_req.items()):
+            rcfg = self._cfg[rid]
+            take = min(self._budget[rid], n_steps)
+            seq = toks_h[slot, :take].tolist()
+            if rcfg.eos_token_id is not None and rcfg.eos_token_id in seq:
+                seq = seq[:seq.index(rcfg.eos_token_id) + 1]
+            self._tokens[rid].extend(int(t) for t in seq)
+            self._budget[rid] -= len(seq)
+            emitted += len(seq)
+            if self._budget[rid] <= 0 or done_h[slot] or len(seq) < take:
+                self._retire(slot)
+        self._segment_log.append((time.perf_counter() - t0, emitted))
+        return len(self._slot_req)
+
+    def serve(self, prompts, cfg: Optional[GenerationConfig] = None,
+              segment_steps: int = 8) -> List[np.ndarray]:
+        """Continuous-batching loop: admits requests as slots (and pages)
+        free up, decoding in fixed segments. Returns the generated ids
+        (prompt not included) in submission order.
+
+        Afterwards ``serve_stats`` holds ``ttft_s`` and ``finish_s`` (per
+        prompt: seconds from the call to its first token, and to the
+        segment gap that collected its last one), ``decode_s`` and
+        ``decode_tokens`` (wall time of the decode segments and the tokens
+        they emitted), ``segments`` and ``wall_s``."""
+        cfg = cfg or GenerationConfig()
+        t0 = time.perf_counter()
+        self._segment_log = []
+        pending = list(enumerate(prompts))
+        order: Dict[int, int] = {}
+        first_at: Dict[int, float] = {}
+        done_at: Dict[int, float] = {}
+        results: Dict[int, np.ndarray] = {}
+        foreign: Dict[int, np.ndarray] = {}   # admitted outside this call
+        while len(results) < len(prompts):
+            while pending and self._free:
+                if (not self._can_admit(_prompt_len(pending[0][1]), cfg)
+                        and self._slot_req):
+                    break  # transient: defer to the next segment gap
+                # (with nothing active to drain, a request that does not
+                # fit can NEVER fit: add_request raises its loud error)
+                idx, p = pending.pop(0)
+                order[self.add_request(p, cfg)] = idx
+                first_at[idx] = time.perf_counter()   # after its host sync
+            self.decode_segment(segment_steps)
+            now = time.perf_counter()
+            for rid, seq in self.collect_finished().items():
+                if rid in order:
+                    idx = order.pop(rid)
+                    results[idx] = seq
+                    done_at[idx] = now
+                else:
+                    foreign[rid] = seq
+        self._finished.update(foreign)
+        self.serve_stats = {
+            "ttft_s": [first_at[i] - t0 for i in range(len(prompts))],
+            "finish_s": [done_at[i] - t0 for i in range(len(prompts))],
+            "decode_s": sum(s for s, _ in self._segment_log),
+            "decode_tokens": sum(n for _, n in self._segment_log),
+            "segments": len(self._segment_log),
+            "wall_s": time.perf_counter() - t0,
+        }
+        return [results[i] for i in range(len(prompts))]
+
+
+class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
+    """ContinuousBatchingEngine over a PAGED KV pool: cache slots are
+    page-table rows into shared per-layer pools, so the pools hold
+    ``num_pages * page_size`` tokens in flight in all, not
+    ``max_batch * max_len``, and any free page serves any slot.
+
+    Reserved admission: a request reserves its worst case (prompt +
+    max_new_tokens, capped at max_len) up front, so a running request can
+    never exhaust the pool mid-decode; ``serve`` defers admission while the
+    pool is transiently full. The page table lives on the host (numpy) and
+    is shipped to the device once per segment. ``debug_pages=True`` runs
+    the allocator's ``check()`` after every page operation and at every
+    segment.
+
+    This is the reference's ``admission_mode="reserved"`` with
+    ``prefix_cache=False`` and ``kv_dtype="bf16"`` (pools in the model's
+    dtype); its other admission modes, the prefix cache and int8 pools are
+    not ported yet."""
+
+    def __init__(self, model, max_batch: int, num_pages: int,
+                 page_size: int, max_pages: int, prefill_buckets="auto",
+                 debug_pages: bool = False):
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.alloc = PageAllocator(num_pages, page_size, max_batch,
+                                   max_pages, debug=debug_pages)
+        super().__init__(model, max_batch, max_len=max_pages * page_size,
+                         prefill_buckets=prefill_buckets)
+
+    def _table(self) -> torch.Tensor:
+        """A device copy of the host page table."""
+        return torch.tensor(self.alloc.page_table, device=self.device)
+
+    def _make_caches(self):
+        self.page_table_dev = self._table()
+        return self.model.init_paged_cache(self.num_pages, self.page_size)
+
+    def _fwd_decode(self, tok, lens, live):
+        logits, self.caches = self.model.forward_decode_paged(
+            tok, self.caches, self.page_table_dev, lens, live)
+        return logits
+
+    def _reserved(self, plen: int, cfg) -> int:
+        return min(plen + cfg.max_new_tokens, self.max_len)
+
+    def _can_admit(self, prompt_len: int, cfg) -> bool:
+        # any free slot owns zero pages, so capacity is slot-agnostic
+        probe = self._free[0] if self._free else 0
+        return self.alloc.can_fit(probe, self._reserved(prompt_len, cfg))
+
+    def _admit_cache(self, slot: int, ids, plen: int, cfg):
+        """Prefill into a dense mini cache sized to the prompt's bucket,
+        reserve the request's pages, scatter the KV rows into them; returns
+        the prompt's last-position logits."""
+        mini = self.model.init_cache(1, self._prefill_width(plen))
+        last_logits, mini = self._run_prefill(ids, plen, mini)
+        self.alloc.ensure(slot, self._reserved(plen, cfg))
+        self._install_mini(slot, mini, plen)
+        return last_logits
+
+    def _install_mini(self, slot: int, mini, plen: int) -> None:
+        """Scatter the mini cache's bucket-width rows into the slot's pages:
+        rows past plen land on reserved positions that the decode mask
+        hides and decode writes overwrite, or on unmapped pages, where
+        write_tokens drops them into the sink."""
+        width = min(self._prefill_width(plen), mini[0][0].shape[1])
+        pt = self._table()
+        slots = torch.full((width,), slot, dtype=torch.int32,
+                           device=self.device)
+        pos = torch.arange(width, dtype=torch.int32, device=self.device)
+        for (kp, vp), (mk, mv) in zip(self.caches, mini):
+            write_tokens(kp, vp, pt, slots, pos, mk[0, :width], mv[0, :width])
+
+    def _abort_admit(self, slot: int) -> None:
+        super()._abort_admit(slot)
+        self.alloc.free_slot(slot)   # release any reserved pages
+
+    def _retire(self, slot: int) -> None:
+        super()._retire(slot)
+        self.alloc.free_slot(slot)
+
+    def decode_segment(self, n_steps: int) -> int:
+        if not self._slot_req:
+            return 0
+        if self.alloc.debug:
+            self.alloc.check()
+        # reserved admission pre-covered every running request's worst
+        # case, so no growth can fail: just ship the table
+        self.page_table_dev = self._table()
+        return super().decode_segment(n_steps)

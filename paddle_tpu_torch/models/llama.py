@@ -1,0 +1,391 @@
+"""Llama-family causal LM in PyTorch (port of ``paddle_tpu/models/llama.py``).
+
+Architecture: RMSNorm / RoPE / GQA attention / SwiGLU, the Llama-2 recipe,
+with the reference's layouts: activations ``[B, S, H, D]``, linear weights
+``[in, out]`` applied as ``x @ W``, and the reference's parameter names, so
+``models/convert.py`` carries a JAX model's weights over as they are.
+
+Kernels on the path (each a Hopper kernel on the card, its plain version on
+the CPU): RMSNorm -> K1 ``rms_norm``; RoPE over the shared position tables
+(prefill) -> K2 ``fused_rope``; prefill attention -> K3 flash forward;
+decode attention over the page pool -> K4 ``paged_decode_mha``. The
+per-row RoPE of a decode step stays plain torch, as it is plain jnp in the
+reference.
+
+Serving forwards ported in this slice: ``forward_with_cache`` at
+``pos == 0`` (fresh prefill into a dense cache) and ``forward_decode_paged``
+over bf16 (model-dtype) page pools. Chunked prefill at an offset, int8
+pools, the dense ragged decode, speculative verify, LoRA and tensor
+parallelism are not ported yet and raise or are absent.
+
+Page pools carry one extra SINK page at index ``num_pages``: the
+reference's ``pool.at[page, offs].set(..., mode="drop")`` drops writes of
+dead rows and unmapped pages; here those writes are aimed at the sink page,
+which no page table maps, so every step writes the same shape (ready for
+CUDA-graph capture) and no valid page is touched.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import get_device
+from ..distributed.mp_layers import (ColumnParallelLinear,
+                                     ParallelCrossEntropy, RowParallelLinear,
+                                     VocabParallelEmbedding)
+from ..nn.layer.norm import RMSNorm
+from ..ops.attention import flash_attention
+from ..ops.fused_kernels import fused_rope
+from ..ops.paged_attention import paged_decode_mha
+from ._utils import IGNORE_INDEX, masked_lm_loss
+
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_config",
+           "apply_rotary_emb"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+Cache = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None  # GQA; None -> MHA
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "float32"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_key_value_heads or self.num_attention_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+
+_PRESETS = {
+    # name: (hidden, inter, layers, heads, kv_heads, vocab)
+    "tiny":  (64, 176, 2, 4, 4, 256),
+    "350m":  (1024, 2816, 24, 16, 16, 32000),
+    "1b3":   (2048, 5504, 24, 16, 16, 32000),
+    "7b":    (4096, 11008, 32, 32, 32, 32000),
+    "13b":   (5120, 13824, 40, 40, 40, 32000),
+    "65b":   (8192, 22016, 80, 64, 64, 32000),  # Llama-2-65B: MHA (kv=64)
+}
+
+
+def llama_config(preset: str = "tiny", **overrides) -> LlamaConfig:
+    h, i, l, a, kv, v = _PRESETS[preset]
+    cfg = LlamaConfig(hidden_size=h, intermediate_size=i, num_hidden_layers=l,
+                      num_attention_heads=a, num_key_value_heads=kv,
+                      vocab_size=v)
+    for k, val in overrides.items():
+        if not hasattr(cfg, k):
+            raise TypeError(f"unknown LlamaConfig field {k!r}")
+        setattr(cfg, k, val)
+    return cfg
+
+
+def _rope_cos_sin(seq_len: int, head_dim: int, theta: float,
+                  dtype: torch.dtype, device) -> Cache:
+    """RoPE tables [seq, head_dim // 2], computed in fp32 and cast."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
+
+
+def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE of x [B, S, H, D]. ``cos``/``sin`` are either the
+    shared position tables [S, D/2] (-> K2 ``fused_rope``) or per-row
+    angles already broadcast to x's rank, [B, 1, 1, D/2] on the decode path
+    (plain torch in x's dtype, as the reference's jnp form)."""
+    if cos.dim() == 2:
+        return fused_rope(x, cos, sin)
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        h, hd = config.hidden_size, config.head_dim
+        self.num_heads = config.num_attention_heads
+        self.kv_heads = config.kv_heads
+        kw = dict(device=device, dtype=dtype)
+        self.q_proj = ColumnParallelLinear(h, self.num_heads * hd,
+                                           has_bias=False, **kw)
+        self.k_proj = ColumnParallelLinear(h, self.kv_heads * hd,
+                                           has_bias=False, **kw)
+        self.v_proj = ColumnParallelLinear(h, self.kv_heads * hd,
+                                           has_bias=False, **kw)
+        self.o_proj = RowParallelLinear(self.num_heads * hd, h,
+                                        has_bias=False, **kw)
+
+    def _qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+        b, s = x.shape[0], x.shape[1]
+        hd = self.config.head_dim
+        qh = apply_rotary_emb(self.q_proj(x).view(b, s, self.num_heads, hd),
+                              cos, sin)
+        kh = apply_rotary_emb(self.k_proj(x).view(b, s, self.kv_heads, hd),
+                              cos, sin)
+        vh = self.v_proj(x).view(b, s, self.kv_heads, hd)
+        return qh, kh, vh
+
+    def _out(self, ctx: torch.Tensor) -> torch.Tensor:
+        b, s = ctx.shape[0], ctx.shape[1]
+        return self.o_proj(ctx.reshape(b, s, self.num_heads
+                                       * self.config.head_dim))
+
+    def forward(self, x, cos, sin):
+        # GQA stays grouped: K3 selects the shared kv head itself
+        qh, kh, vh = self._qkv(x, cos, sin)
+        return self._out(flash_attention(qh, kh, vh, causal=True))
+
+    def forward_with_cache(self, x, cos_full, sin_full, cache: Cache,
+                           pos: int):
+        """Fresh prefill: write the prompt's K/V into the dense cache
+        ``(k, v)`` [B, S_max, Hkv, hd] at [0, S) IN PLACE and attend
+        causally over the prompt alone (K3). Returns (out, cache)."""
+        if not (isinstance(pos, int) and pos == 0):
+            raise NotImplementedError(
+                "forward_with_cache at pos != 0 (chunked prefill, "
+                "prefix_chunk_attention) is not ported yet")
+        s = x.shape[1]
+        qh, kh, vh = self._qkv(x, cos_full[:s], sin_full[:s])
+        kc, vc = cache
+        kc[:, :s] = kh.to(kc.dtype)
+        vc[:, :s] = vh.to(vc.dtype)
+        return self._out(flash_attention(qh, kh, vh, causal=True)), cache
+
+    def forward_decode_paged(self, x, cos_full, sin_full, cache: Cache,
+                             page_table, lens, live):
+        """One paged decode step. x [B, 1, h]; ``cache`` is this layer's
+        (k, v) pools [num_pages + 1, page_size, Hkv, hd] (last page = sink);
+        lens [B] int32 tokens already cached per row; live [B] bool. Each
+        live row writes its new K/V IN PLACE at position lens[b]; dead rows
+        and unmapped pages write into the sink. Returns (out, cache)."""
+        if len(cache) != 2:
+            raise NotImplementedError(
+                "int8 page pools (quant_store_rows) are not ported yet")
+        b = x.shape[0]
+        kp, vp = cache
+        ps = kp.shape[1]
+        idx = lens.clamp(max=page_table.shape[1] * ps - 1).long()
+        c = cos_full[idx][:, None, None, :]         # [B, 1, 1, d2] per row
+        sn = sin_full[idx][:, None, None, :]
+        qh, kh, vh = self._qkv(x, c, sn)
+        page = page_table[torch.arange(b, device=idx.device), idx // ps]
+        page = torch.where(live & (page >= 0), page,
+                           kp.shape[0] - 1).long()
+        offs = idx % ps
+        kp[page, offs] = kh[:, 0].to(kp.dtype)
+        vp[page, offs] = vh[:, 0].to(vp.dtype)
+        ctx = paged_decode_mha(qh[:, 0], kp, vp, page_table,
+                               lens + live.to(lens.dtype))
+        return self._out(ctx[:, None]), cache
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        kw = dict(device=device, dtype=dtype)
+        self.gate_proj = ColumnParallelLinear(h, i, has_bias=False, **kw)
+        self.up_proj = ColumnParallelLinear(h, i, has_bias=False, **kw)
+        self.down_proj = RowParallelLinear(i, h, has_bias=False, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.self_attn = LlamaAttention(config, **kw)
+        self.mlp = LlamaMLP(config, **kw)
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       epsilon=config.rms_norm_eps, **kw)
+        self.post_attention_layernorm = RMSNorm(
+            config.hidden_size, epsilon=config.rms_norm_eps, **kw)
+
+    def forward(self, x, cos, sin):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward_with_cache(self, x, cos_full, sin_full, cache, pos):
+        attn, cache = self.self_attn.forward_with_cache(
+            self.input_layernorm(x), cos_full, sin_full, cache, pos)
+        x = x + attn
+        return x + self.mlp(self.post_attention_layernorm(x)), cache
+
+    def forward_decode_paged(self, x, cos_full, sin_full, cache,
+                             page_table, lens, live):
+        attn, cache = self.self_attn.forward_decode_paged(
+            self.input_layernorm(x), cos_full, sin_full, cache, page_table,
+            lens, live)
+        x = x + attn
+        return x + self.mlp(self.post_attention_layernorm(x)), cache
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=dtype)
+        self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
+                                                   config.hidden_size, **kw)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(config, **kw)
+                                     for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
+                            **kw)
+        self._rope = {}
+
+    def _tables(self, n: int, like: torch.Tensor) -> Cache:
+        """RoPE tables for positions [0, n) in like's dtype, kept per
+        (n, dtype, device): the decode loop asks for the same ones every
+        step."""
+        key = (n, like.dtype, like.device)
+        if key not in self._rope:
+            cfg = self.config
+            self._rope[key] = _rope_cos_sin(n, cfg.head_dim, cfg.rope_theta,
+                                            like.dtype, like.device)
+        return self._rope[key]
+
+    def forward(self, input_ids):
+        x = self.embed_tokens(input_ids)
+        cos, sin = self._tables(x.shape[1], x)
+        for layer in self.layers:
+            x = layer(x, cos, sin)
+        return self.norm(x)
+
+    def _new_kv(self, shape) -> List[Cache]:
+        p = self.embed_tokens.weight
+        return [(torch.zeros(shape, dtype=p.dtype, device=p.device),
+                 torch.zeros(shape, dtype=p.dtype, device=p.device))
+                for _ in range(self.config.num_hidden_layers)]
+
+    def init_cache(self, batch_size: int, max_len: int) -> List[Cache]:
+        """Per-layer dense KV caches [batch, max_len, Hkv, hd]."""
+        cfg = self.config
+        return self._new_kv((batch_size, max_len, cfg.kv_heads,
+                             cfg.head_dim))
+
+    def forward_with_cache(self, input_ids, caches, pos):
+        x = self.embed_tokens(input_ids)
+        cos_full, sin_full = self._tables(caches[0][0].shape[1], x)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.forward_with_cache(x, cos_full, sin_full, cache,
+                                                pos)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
+
+    def init_paged_cache(self, num_pages: int, page_size: int) -> List[Cache]:
+        """Per-layer page pools [num_pages + 1, page_size, Hkv, hd] in the
+        model's dtype (the reference's ``kv_dtype="bf16"``); index
+        ``num_pages`` is the sink page."""
+        cfg = self.config
+        return self._new_kv((num_pages + 1, page_size, cfg.kv_heads,
+                             cfg.head_dim))
+
+    def forward_decode_paged(self, input_ids, caches, page_table, lens, live):
+        x = self.embed_tokens(input_ids)
+        max_len = page_table.shape[1] * caches[0][0].shape[1]
+        cos_full, sin_full = self._tables(max_len, x)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.forward_decode_paged(
+                x, cos_full, sin_full, cache, page_table, lens, live)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama causal LM. Built on ``device`` (default: the CUDA card, see
+    :func:`paddle_tpu_torch.get_device`) in ``config.dtype``, with weights
+    drawn from ``generator`` (default: seed 0 on that device): normal with
+    std 0.02 (Llama-2's published initializer range), norm weights 1."""
+
+    IGNORE_INDEX = IGNORE_INDEX
+
+    def __init__(self, config: LlamaConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = config
+        dev = get_device(device)
+        kw = dict(device=dev, dtype=config.torch_dtype)
+        self.model = LlamaModel(config, **kw)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        ColumnParallelLinear(config.hidden_size,
+                                             config.vocab_size,
+                                             has_bias=False, **kw))
+        self.loss_fn = ParallelCrossEntropy(ignore_index=self.IGNORE_INDEX)
+        self.init_weights(generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.embed_tokens.weight.device
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None
+                     ) -> None:
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=generator)
+
+    def logits(self, hidden):
+        if self.lm_head is None:
+            return torch.matmul(hidden, self.model.embed_tokens.weight.T)
+        return self.lm_head(hidden)
+
+    def forward(self, input_ids, labels=None):
+        logits = self.logits(self.model(input_ids))
+        if labels is None:
+            return logits
+        loss = self.loss_fn(logits, labels)
+        return masked_lm_loss(loss, labels, self.IGNORE_INDEX)
+
+    def init_cache(self, batch_size: int, max_len: int):
+        return self.model.init_cache(batch_size, max_len)
+
+    def forward_with_cache(self, input_ids, caches, pos):
+        """(logits [B, S, V], caches) of a fresh prefill (pos == 0)."""
+        hidden, caches = self.model.forward_with_cache(input_ids, caches, pos)
+        return self.logits(hidden), caches
+
+    def init_paged_cache(self, num_pages: int, page_size: int):
+        return self.model.init_paged_cache(num_pages, page_size)
+
+    def forward_decode_paged(self, input_ids, caches, page_table, lens,
+                             live):
+        """(logits [B, 1, V], caches): one paged decode step (see
+        LlamaAttention.forward_decode_paged)."""
+        hidden, caches = self.model.forward_decode_paged(
+            input_ids, caches, page_table, lens, live)
+        return self.logits(hidden), caches

@@ -1,0 +1,37 @@
+"""The port's kernels and the plain PyTorch versions beside them.
+
+Every kernel wrapper carries a ``launches`` integer that it increments
+where it launches its kernel and nowhere else; ``KERNELS`` names them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from .attention import flash_attention
+from .flash_attention_kernel import (flash_attention_bshd,
+                                     flash_attention_bshd_ref)
+from .fused_kernels import (fused_rope, fused_rope_ref, rms_norm,
+                            rms_norm_ref)
+from .paged_attention import paged_decode_mha, paged_decode_mha_ref
+
+__all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+           "flash_attention", "flash_attention_bshd",
+           "flash_attention_bshd_ref", "fused_rope", "fused_rope_ref",
+           "rms_norm", "rms_norm_ref", "paged_decode_mha",
+           "paged_decode_mha_ref"]
+
+KERNELS = {
+    "rms_norm": rms_norm,
+    "fused_rope": fused_rope,
+    "flash_fwd": flash_attention_bshd,
+    "paged_decode": paged_decode_mha,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

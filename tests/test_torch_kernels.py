@@ -1,0 +1,242 @@
+"""The plain versions of paddle_tpu_torch's four kernels against the JAX
+Pallas kernels they replace, run in interpret mode on the CPU.
+
+On a CPU tensor each kernel wrapper of the port runs its plain PyTorch
+version, which repeats the Hopper kernel's arithmetic; the Hopper kernels
+themselves are held against these plain versions on the card by
+``chip_smoke.py``.
+
+Tolerance: everything here is float32 on both sides, and both sides do the
+same fp32 arithmetic; only the order of the sums differs (XLA's reductions
+and interpret-mode block loops against ATen's, an online softmax against a
+one-shot one). That moves results by a few fp32 ulps at these magnitudes
+(|x| <~ 10), so atol = rtol = 1e-5 holds with margin and a wrong mask,
+scale, page or head mapping misses it by orders of magnitude.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import pallas_kernels as pk
+from paddle_tpu.ops.flash_attention_kernel import _fwd_impl
+from paddle_tpu.ops.paged_attention import paged_decode_mha as jax_paged
+from paddle_tpu.ops.pallas import _chunked_attention
+from paddle_tpu.quantization import kv as jax_kv
+from paddle_tpu_torch import ops
+from paddle_tpu_torch.ops import paged_attention as port_paged
+from paddle_tpu_torch.ops.attention import flash_attention
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# -- K1 rms_norm -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 64), (7, 128), (1, 3, 96)])
+def test_rms_norm_matches_pallas(shape):
+    rng = np.random.RandomState(0)
+    x = (rng.randn(*shape) * 3).astype(np.float32)
+    w = rng.randn(shape[-1]).astype(np.float32)
+    ref = pk.rms_norm(jnp.asarray(x), jnp.asarray(w), eps=1e-5)
+    out = ops.rms_norm(_t(x), _t(w), 1e-5)
+    np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+
+
+def test_rms_norm_bf16_casts_once_at_the_end():
+    # the Pallas kernel's math: fp32 throughout, one cast of the product
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(4, 64).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.randn(64).astype(np.float32)).bfloat16()
+    out = ops.rms_norm(x, w, 1e-6)
+    xf, wf = x.float(), w.float()
+    want = (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + 1e-6)
+            * wf).bfloat16()
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, want)
+
+
+# -- K2 fused_rope -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 8, 4, 16), (1, 13, 3, 32)])
+def test_fused_rope_matches_pallas(b, s, h, d):
+    rng = np.random.RandomState(2)
+    x = rng.randn(b, s, h, d).astype(np.float32)
+    ang = rng.rand(s, d // 2).astype(np.float32) * 6.0
+    cos, sin = np.cos(ang), np.sin(ang)
+    ref = pk.fused_rope(jnp.asarray(x), jnp.asarray(cos), jnp.asarray(sin))
+    out = ops.fused_rope(_t(x), _t(cos), _t(sin))
+    np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+
+
+def test_fused_rope_rejects_mismatched_tables():
+    x = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError):
+        ops.fused_rope(x, torch.zeros(5, 4), torch.zeros(5, 4))
+
+
+# -- K3 flash attention forward ----------------------------------------------
+
+
+def _qkv(b, sq, sk, hq, hkv, d, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, sq, hq, d).astype(np.float32),
+            rng.randn(b, sk, hkv, d).astype(np.float32),
+            rng.randn(b, sk, hkv, d).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 2)])
+@pytest.mark.parametrize("sq,sk", [(16, 16), (8, 32)])
+def test_flash_matches_pallas_kernel(causal, hq, hkv, sq, sk):
+    """Block-divisible lengths: the Pallas kernel itself (interpret mode),
+    output and lse, bottom-right causal alignment when sq < sk."""
+    q, k, v = _qkv(2, sq, sk, hq, hkv, 16, seed=hq + sq)
+    tr = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))  # noqa: E731
+    scale = 1.0 / math.sqrt(16)
+    out_j, lse_j = _fwd_impl(tr(q), tr(k), tr(v), jnp.zeros((1,), jnp.int32),
+                             causal, scale, 0.0, 8, 8, True)
+    out, lse = ops.flash_attention_bshd(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(out.numpy(), _np(out_j).transpose(0, 2, 1, 3),
+                               **TOL)
+    np.testing.assert_allclose(lse.numpy(), _np(lse_j)[..., 0], **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(13, 13), (5, 21), (600, 600)])
+def test_flash_matches_chunked_attention_ragged(causal, sq, sk):
+    """Ragged lengths (no block divides them): ``_chunked_attention``, the
+    reference's path for those, with kv heads repeated as it repeats
+    them. 600 keys split into two chunks of 300 on both sides."""
+    q, k, v = _qkv(1, sq, sk, 4, 2, 8, seed=sq)
+    tr = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))  # noqa: E731
+    kr = np.repeat(k, 2, axis=2)
+    vr = np.repeat(v, 2, axis=2)
+    ref = _chunked_attention(tr(q), tr(kr), tr(vr), causal,
+                             1.0 / math.sqrt(8))
+    out = flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(out.numpy(), _np(ref).transpose(0, 2, 1, 3),
+                               **TOL)
+
+
+def test_flash_causal_rows_without_keys_give_zeros():
+    # sq > sk, bottom-right: the first sq - sk queries see no key at all
+    q, k, v = _qkv(1, 6, 2, 2, 2, 8, seed=5)
+    out, lse = ops.flash_attention_bshd(_t(q), _t(k), _t(v), causal=True)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert torch.equal(out[:, :4], torch.zeros_like(out[:, :4]))
+
+
+def test_flash_dropout_raises():
+    q, k, v = (torch.zeros(1, 4, 2, 8) for _ in range(3))
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, k, v, causal=True, dropout_p=0.1)
+
+
+# -- K4 paged decode attention -----------------------------------------------
+
+
+def _paged_case(lens, hq, hkv, d=16, ps=4, maxp=6, seed=0, int8=False):
+    """Pools with a fragmented page assignment (rows interleave their
+    pages), -1 past each row's pages, random K/V everywhere else."""
+    rng = np.random.RandomState(seed)
+    b = len(lens)
+    num_pages = b * maxp + 3
+    perm = rng.permutation(num_pages)
+    table = np.full((b, maxp), -1, np.int32)
+    nxt = 0
+    for p in range(maxp):
+        for r in range(b):
+            if p * ps < lens[r]:
+                table[r, p] = perm[nxt]
+                nxt += 1
+    shape = (num_pages, ps, hkv, d)
+    if int8:
+        kp = rng.randint(-127, 128, shape).astype(np.int8)
+        vp = rng.randint(-127, 128, shape).astype(np.int8)
+        ks = (rng.rand(num_pages, hkv) * 3 + jax_kv.KV_SCALE_FLOOR
+              ).astype(np.float32)
+        vs = (rng.rand(num_pages, hkv) * 3 + jax_kv.KV_SCALE_FLOOR
+              ).astype(np.float32)
+    else:
+        kp = rng.randn(*shape).astype(np.float32)
+        vp = rng.randn(*shape).astype(np.float32)
+        ks = vs = None
+    q = rng.randn(b, hq, d).astype(np.float32)
+    return q, kp, vp, table, np.asarray(lens, np.int32), ks, vs
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 2)])
+def test_paged_decode_matches_pallas(hq, hkv, int8):
+    lens = [0, 1, 5, 13, 24, 7]       # 0 = dead slot; 24 = every page
+    q, kp, vp, table, ln, ks, vs = _paged_case(lens, hq, hkv, seed=hq,
+                                               int8=int8)
+    scales = () if ks is None else (jnp.asarray(ks), jnp.asarray(vs))
+    ref = jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                    jnp.asarray(table), jnp.asarray(ln), *scales)
+    tscales = () if ks is None else (_t(ks), _t(vs))
+    out = ops.paged_decode_mha(_t(q), _t(kp), _t(vp), _t(table), _t(ln),
+                               *tscales)
+    np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))   # len 0 -> zeros
+
+
+def test_paged_decode_ignores_pages_past_length():
+    """Entries past a row's length are never read: garbage ids there (and
+    garbage in the pages they name) change nothing."""
+    q, kp, vp, table, ln, _, _ = _paged_case([3, 9], 4, 2, seed=7)
+    base = ops.paged_decode_mha(_t(q), _t(kp), _t(vp), _t(table), _t(ln))
+    t2 = table.copy()
+    t2[0, 1:] = 0
+    t2[1, 3:] = 1
+    out = ops.paged_decode_mha(_t(q), _t(kp), _t(vp), _t(t2), _t(ln))
+    np.testing.assert_allclose(out.numpy(), base.numpy(), **TOL)
+
+
+def test_int8_constants_are_the_reference_ones():
+    assert port_paged.KV_QMAX == jax_kv.KV_QMAX
+    assert port_paged.KV_SCALE_FLOOR == jax_kv.KV_SCALE_FLOOR
+
+
+# -- wrappers: the plain version is for CPU tensors only ---------------------
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    ops.reset_launch_counts()
+    x = torch.randn(2, 3, 4, 8)
+    ops.rms_norm(x, torch.ones(8))
+    ops.fused_rope(x, torch.ones(3, 4), torch.zeros(3, 4))
+    ops.flash_attention_bshd(x, x, x, causal=True)
+    ops.paged_decode_mha(x[:, 0], x, x, torch.zeros(2, 1, dtype=torch.int32),
+                         torch.ones(2, dtype=torch.int32))
+    assert ops.launch_counts() == {"rms_norm": 0, "fused_rope": 0,
+                                   "flash_fwd": 0, "paged_decode": 0}
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    """A tensor off the CPU launches the kernel or raises: here (no CUDA)
+    a ``meta`` tensor stands in for any non-CPU device."""
+    x = torch.empty(2, 3, 4, 8, device="meta")
+    t = torch.empty(2, 1, dtype=torch.int32, device="meta")
+    n = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ops.rms_norm(x, torch.empty(8, device="meta"))
+    with pytest.raises(ValueError):
+        ops.fused_rope(x, torch.empty(3, 4, device="meta"),
+                       torch.empty(3, 4, device="meta"))
+    with pytest.raises(ValueError):
+        ops.flash_attention_bshd(x, x, x)
+    with pytest.raises(ValueError):
+        ops.paged_decode_mha(x[:, 0], x, x, t, n)
