@@ -12,18 +12,31 @@ Phases, each timed, none caught and passed over:
    compile;
 3. kernels: each kernel against its plain PyTorch version on the same CUDA
    tensors, at the serving path's shapes (Llama-2-7B widths) and at GQA,
-   ragged, zero-length and int8 variants, with the tolerance stated; then
-   each one's time beside its bound, its plain version's and a library
-   call's where one PyTorch call computes the same function;
+   ragged, zero-length and int8 variants, the flash forward with dropout,
+   and the two flash backward kernels at the training shape (8 x 2048,
+   8 heads of 128, causal) and at GQA, ragged, Sq < Sk, Sq > Sk and dropout
+   variants, with the tolerance stated; then each one's time beside its
+   bound, its plain version's and a library call's where one PyTorch call
+   computes the same function;
 4. kernel against plain, end to end: the 7B widths at 2 layers, served once
    on the card (kernels) and once on the CPU (plain versions), same weights
    and prompts: prefill logits within a stated tolerance, greedy streams
-   equal up to the first near-tie;
+   equal up to the first near-tie; then the training configuration's
+   widths at 2 layers, one Layer-API backward and one AdamW train step on
+   the card and on the CPU from the same weights and batch: loss,
+   gradients and updated parameters within stated tolerances;
 5. serve: the ``"7b"`` preset at full depth (32 layers, bf16, random
    weights from a seeded generator) through
    ``PagedContinuousBatchingEngine.serve``: 8 prompts of 100-700 tokens,
    32 new tokens each. Every kernel's launch count over that run is read
-   and held against the count the path implies.
+   and held against the count the path implies;
+6. train: the repo's training configuration (``bench.py``: llama 350m with
+   8 heads of 128, 24 layers, bf16, batch 8 x 2048, full recompute, AdamW
+   lr 1e-4, clip 1.0) through ``build_train_step``, one warm-up step and
+   ``TRAIN_STEPS`` timed ones on one batch made from ``--seed``: step time,
+   tokens/s, MFU and peak memory; the loss must be finite at every step and
+   fall; every kernel's launch count over the timed steps is held against
+   the count the path implies.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -40,7 +53,15 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PRESET = "7b"                   # the model whose widths every phase uses
+SEED = 1234                     # dropout seed of the kernel checks
+PRESET = "7b"                   # the model whose widths the serve phases use
+# the training configuration (bench.py:117-124) and its batch
+TRAIN = dict(preset="350m", overrides=dict(
+    dtype="bfloat16", num_attention_heads=8, num_key_value_heads=8,
+    max_position_embeddings=2048, recompute="full"),
+    batch=8, seq=2048, lr=1e-4, clip=1.0)
+TRAIN_STEPS = 3                 # timed steps after one warm-up step
+TRAIN_E2E = dict(layers=2, batch=1, seq=512)   # phase 4's card-vs-CPU step
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor cores, and
 # fp32 outside the tensor cores
@@ -59,28 +80,52 @@ FP32_FLOPS = 67e12
 # by more than 1e-3 (paged_decode's worst case within 2^-7 above was
 # 2.4e-4 at bf16 and int8, flash_fwd's 3.9e-3 at outputs near 0.5).
 BF16_STEP = 2.0 ** -7
+# The flash backward kernels are held to the same limit as flash_fwd: both
+# sides run the same fp32 arithmetic on the same bf16 inputs, lse and delta
+# and round once to bf16, with identical dropout masks (the hash is exact),
+# so only the order of the fp32 sums differs and an output may land on the
+# neighbouring bf16 value; a wrong mask, scale, tile or head mapping moves
+# gradients of order 0.01-1 by far more than that.
 TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "fused_rope": dict(atol=1e-3, rtol=BF16_STEP),
        "flash_fwd": dict(atol=1e-4, rtol=BF16_STEP),
-       "paged_decode": dict(atol=1e-4, rtol=BF16_STEP)}
+       "paged_decode": dict(atol=1e-4, rtol=BF16_STEP),
+       "flash_bwd_dq": dict(atol=1e-4, rtol=BF16_STEP),
+       "flash_bwd_dkv": dict(atol=1e-4, rtol=BF16_STEP)}
 LSE_ATOL = 1e-3                 # fp32 log-sum-exp, a few fp32 ulps of work
 # end to end (phase 4): bf16 activations on both sides, matmuls accumulated
 # in another order on the card than on the CPU; logits near 5-8 resolve to
 # 2^-5 in bf16 and two layers of such rounding reach a few steps
 LOGIT_ATOL = 0.125
 NEAR_TIE = 2 * LOGIT_ATOL       # top-2 margin under which greedy may flip
+# training end to end (phase 4), bf16 on both sides. The loss (about
+# ln 32000 = 10.4) is an fp32 mean of bf16 logits that differ by a few bf16
+# steps of 2^-5 in either direction, which average out: 2e-2 absolute.
+# Gradients: every product rounds to bf16 on both sides in another order,
+# a relative error of a few 2^-8 per element that partly averages over a
+# tensor; 2e-2 of each gradient's norm. Parameters after one AdamW step at
+# lr 1e-4: an element moves by at most about lr (1 + weight decay), and
+# where the two gradients differ in sign it can move the other way, so
+# 2.5 lr plus one bf16 step of the parameter (rtol 2^-7).
+TRAIN_LOSS_ATOL = 2e-2
+TRAIN_GRAD_RTOL = 2e-2
+TRAIN_PARAM_ATOL = 2.5 * TRAIN["lr"]
 
 REPLACES = {
     "rms_norm": "paddle_tpu/ops/pallas_kernels.py:67",
     "fused_rope": "paddle_tpu/ops/pallas_kernels.py:245",
     "flash_fwd": "paddle_tpu/ops/flash_attention_kernel.py:331",
     "paged_decode": "paddle_tpu/ops/paged_attention.py:268",
+    "flash_bwd_dq": "paddle_tpu/ops/flash_attention_kernel.py:497",
+    "flash_bwd_dkv": "paddle_tpu/ops/flash_attention_kernel.py:519",
 }
 SOURCES = {
     "rms_norm": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
     "fused_rope": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
     "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_fwd.cu"),
     "paged_decode": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu"),
+    "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu"),
+    "flash_bwd_dkv": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu"),
 }
 
 
@@ -205,29 +250,34 @@ def kernel_phase(torch, dev):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
     # K3 flash forward: prefill buckets (causal MHA), GQA 32/8, a ragged
-    # length, queries fewer than keys, and a non-causal case
-    for sq, sk, hkv, causal in [(128, 128, NH, True), (512, 512, NH, True),
-                                (1024, 1024, NH, True),
-                                (512, 512, GQA, True), (700, 700, NH, True),
-                                (100, 300, GQA, True),
-                                (200, 200, NH, False)]:
+    # length, queries fewer than keys, a non-causal case, and dropout 0.1
+    # (the kernel and the plain version draw the same mask from the seed)
+    for sq, sk, hkv, causal, p in [(128, 128, NH, True, 0.0),
+                                   (512, 512, NH, True, 0.0),
+                                   (1024, 1024, NH, True, 0.0),
+                                   (512, 512, GQA, True, 0.0),
+                                   (700, 700, NH, True, 0.0),
+                                   (100, 300, GQA, True, 0.0),
+                                   (200, 200, NH, False, 0.0),
+                                   (512, 512, NH, True, 0.1),
+                                   (300, 700, GQA, False, 0.1)]:
         q = randn(1, sq, NH, D)
         k = randn(1, sk, hkv, D)
         v = randn(1, sk, hkv, D)
-        out, lse = ops.flash_attention_bshd(q, k, v, causal=causal)
-        ref, lse_ref = ops.flash_attention_bshd_ref(q, k, v, causal=causal)
-        tag = f"Sq={sq} Sk={sk} Hkv={hkv} causal={causal}"
+        out, lse = ops.flash_attention_bshd(q, k, v, causal, None, p, SEED)
+        ref, lse_ref = ops.flash_attention_bshd_ref(q, k, v, causal, None, p,
+                                                    SEED)
+        tag = f"Sq={sq} Sk={sk} Hkv={hkv} causal={causal} dropout={p}"
         err = check_close(torch, f"flash_fwd {tag}", out, ref,
                           **TOL["flash_fwd"])
         check_close(torch, f"flash_fwd lse {tag}", lse, lse_ref, LSE_ATOL,
                     0.0)
         cases.append(("flash_fwd", tag, err))
-        if (sq, hkv, causal) == (512, NH, True):
-            pairs = (sum(min(sk, i + 1 + sk - sq) for i in range(sq))
-                     if causal else sq * sk)
+        if (sq, hkv, causal, p) == (512, NH, True, 0.0):
             nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
                 + lse.numel() * 4
-            bms, by = bound(nbytes, 4 * D * pairs * NH, BF16_FLOPS)
+            bms, by = bound(nbytes, 4 * D * causal_pairs(sq, sk) * NH,
+                            BF16_FLOPS)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             rows["flash_fwd"] = dict(
                 shape=tag,
@@ -239,6 +289,8 @@ def kernel_phase(torch, dev):
                 library_ms=time_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True)))
+
+    flash_bwd_cases(torch, ops, F, randn, rows, cases)
 
     # K4 paged decode: the serving batch (8 rows, page 16, up to 1024
     # tokens, one dead row), GQA 32/8, and int8 pools with scales
@@ -290,9 +342,86 @@ def kernel_phase(torch, dev):
     for name in rows:
         rows[name]["max_abs_err"] = max(e for n, _, e in cases if n == name)
     for name, tag, err in cases:
-        log(f"  {name:13s} {tag:60s} max|kernel-plain| {err:.3g} "
+        log(f"  {name:13s} {tag:66s} max|kernel-plain| {err:.3g} "
             f"(atol {TOL[name]['atol']:g}, rtol 2^-7)")
     return rows, cases
+
+
+def causal_pairs(sq: int, sk: int) -> int:
+    """(query, key) pairs a bottom-right causal mask lets through."""
+    return sum(max(0, min(sk, i + 1 + sk - sq)) for i in range(sq))
+
+
+def flash_bwd_cases(torch, ops, F, randn, rows, cases):
+    """flash_bwd_dq and flash_bwd_dkv against ``flash_attention_bwd_ref``
+    on the same q, k, v, dO, out and lse: the training shape (8 x 2048, 8
+    heads of 128, causal), GQA 8/2, a ragged length, Sq < Sk, Sq > Sk
+    (whose first Sq - Sk rows see no key and must get exactly zero dq),
+    head_dim 64, and dropout 0.1 causal and not."""
+    from paddle_tpu_torch.ops.flash_attention_kernel import _delta
+
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    NH = TRAIN["overrides"]["num_attention_heads"]
+    for b, sq, sk, hq, hkv, d, causal, p in [
+            (B, S, S, NH, NH, 128, True, 0.0),
+            (2, 512, 512, NH, 2, 128, True, 0.0),
+            (1, 700, 700, NH, NH, 128, True, 0.0),
+            (1, 300, 1000, NH, 2, 128, True, 0.0),
+            (1, 1000, 300, NH, NH, 128, True, 0.0),
+            (1, 256, 256, 4, 4, 64, True, 0.0),
+            (2, 512, 512, NH, NH, 128, True, 0.1),
+            (1, 200, 333, NH, 2, 128, False, 0.1)]:
+        q, do = randn(b, sq, hq, d), randn(b, sq, hq, d)
+        k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, d)
+        out, lse = ops.flash_attention_bshd(q, k, v, causal, None, p, SEED)
+        delta = _delta(out, do)
+        args = (causal, None, p, SEED)
+        dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
+        rdq, rdk, rdv = ops.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                    *args)
+        tag = (f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
+               f"causal={causal} dropout={p}")
+        errs = {"flash_bwd_dq": check_close(torch, f"flash_bwd_dq {tag}",
+                                            dq, rdq, **TOL["flash_bwd_dq"]),
+                "flash_bwd_dkv": max(
+                    check_close(torch, f"flash_bwd_dkv dk {tag}", dk, rdk,
+                                **TOL["flash_bwd_dkv"]),
+                    check_close(torch, f"flash_bwd_dkv dv {tag}", dv, rdv,
+                                **TOL["flash_bwd_dkv"]))}
+        if causal and sq > sk and dq[:, :sq - sk].abs().max().item() != 0.0:
+            raise AssertionError("flash_bwd_dq: rows with no key must get "
+                                 "a zero gradient")
+        for name, err in errs.items():
+            cases.append((name, tag, err))
+        if (b, sq) != (B, S):
+            continue
+        # the training shape: times and bounds
+        pairs = causal_pairs(sq, sk) * hq * b
+        io = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
+            + (lse.numel() + delta.numel()) * 4
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        do_lib = do.transpose(1, 2).contiguous()
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), do_lib, retain_graph=True))
+        plain_ms = time_ms(torch, lambda: ops.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, *args), reps=3, warmup=1)
+        bms, by = bound(io + dq.numel() * 2, 6 * d * pairs, BF16_FLOPS)
+        rows["flash_bwd_dq"] = dict(
+            shape=tag, ms=time_ms(torch, lambda: ops.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, *args)),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        bms, by = bound(io + (dk.numel() + dv.numel()) * 2, 8 * d * pairs,
+                        BF16_FLOPS)
+        rows["flash_bwd_dkv"] = dict(
+            shape=tag, ms=time_ms(torch, lambda: ops.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, *args)),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        rows["flash_fwd"]["train_shape_ms"] = time_ms(
+            torch, lambda: ops.flash_attention_bshd(q, k, v, causal=True))
+        del qt, kt, vt, o_lib
 
 
 # -- phase 4: kernel path against plain path, end to end ---------------------
@@ -355,6 +484,165 @@ def e2e_phase(torch, dev, np):
     return rec
 
 
+def train_config(llama_config, **over):
+    return llama_config(TRAIN["preset"], **{**TRAIN["overrides"], **over})
+
+
+def rel_err(torch, got, want) -> float:
+    """||got - want|| / ||want|| in fp32 (0 when both are 0)."""
+    got, want = got.float(), want.float()
+    den = want.norm().item()
+    num = (got - want).norm().item()
+    return num / den if den else num
+
+
+def train_e2e_phase(torch, dev, np):
+    """The training widths at 2 layers: the Layer API's backward (full
+    recompute) and one ``build_train_step`` AdamW step, on the card with
+    the kernels and on the CPU with the plain versions, from the same bf16
+    weights and batch."""
+    from paddle_tpu_torch import (LlamaForCausalLM, build_train_step,
+                                  llama_config)
+
+    cfg = train_config(llama_config, num_hidden_layers=TRAIN_E2E["layers"])
+    gpu = LlamaForCausalLM(cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(11))
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.RandomState(11)
+    tok = rng.randint(0, cfg.vocab_size,
+                      (TRAIN_E2E["batch"], TRAIN_E2E["seq"] + 1))
+    ids = torch.from_numpy(tok[:, :-1].astype(np.int64))
+    labels = torch.from_numpy(tok[:, 1:].astype(np.int64))
+    rec = {"layers": cfg.num_hidden_layers, "batch": TRAIN_E2E["batch"],
+           "seq": TRAIN_E2E["seq"]}
+
+    def compare(what, losses, models, grads_only):
+        err = abs(losses[0] - losses[1])
+        # the Layer API's loss is a bf16 tensor: one bf16 step more
+        atol = TRAIN_LOSS_ATOL + (BF16_STEP * abs(losses[1]) if grads_only
+                                  else 0.0)
+        if not (np.isfinite(losses).all() and err <= atol):
+            raise AssertionError(f"{what}: loss {losses[0]} on the card, "
+                                 f"{losses[1]} on the CPU")
+        g = {k: rel_err(torch, p.grad.cpu(), models[1].get_parameter(k).grad)
+             for k, p in models[0].named_parameters()}
+        worst = max(g, key=g.get)
+        if g[worst] > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{what}: gradient of {worst} differs by "
+                                 f"{g[worst]:.3g} of its norm")
+        out = {"loss_card": losses[0], "loss_cpu": losses[1],
+               "loss_abs_err": err, "grad_max_rel_err": g[worst],
+               "grad_worst": worst}
+        if grads_only:
+            return out
+        pmax = 0.0
+        for k, p in models[0].named_parameters():
+            want = models[1].get_parameter(k).detach()
+            got = p.detach().cpu()
+            pmax = max(pmax, check_close(
+                torch, f"{what}: updated {k}", got, want, TRAIN_PARAM_ATOL,
+                BF16_STEP))
+        out["param_max_abs_err"] = pmax
+        return out
+
+    # the Layer API: forward with the loss, then backward
+    losses = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        m.train()
+        loss = m(ids.to(d), labels.to(d))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    rec["layer_api"] = compare("layer API backward", losses, (gpu, cpu),
+                               True)
+    # the functional AdamW step
+    losses = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        step, init = build_train_step(cfg, lr=TRAIN["lr"],
+                                      clip_norm=TRAIN["clip"], remat="full",
+                                      device=d)
+        losses.append(float(step(m, init(m), ids, labels)))
+    rec["train_step"] = compare("train step", losses, (gpu, cpu), False)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_phase(torch, dev, np, seed, profile=False):
+    """The training configuration at full depth: a warm-up step, then
+    TRAIN_STEPS timed steps on one batch made from ``seed``."""
+    from paddle_tpu_torch import (LlamaForCausalLM, build_train_step,
+                                  llama_config, ops)
+    from paddle_tpu_torch.models.llama_functional import build_loss_fn
+
+    cfg = train_config(llama_config)
+    L, B, S = cfg.num_hidden_layers, TRAIN["batch"], TRAIN["seq"]
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(seed)
+    tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S + 1)))
+    ids, labels = tok[:, :-1].to(dev), tok[:, 1:].to(dev)
+    step, init = build_train_step(cfg, lr=TRAIN["lr"],
+                                  clip_norm=TRAIN["clip"], remat="full",
+                                  device=dev)
+    state = init(model)
+    losses = [float(step(model, state, ids, labels))]      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = step(model, state, ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        final = float(build_loss_fn(cfg, remat="none")(model, ids, labels))
+    losses.append(final)
+    prof = (profile_run(torch, lambda: step(model, state, ids, labels))
+            if profile else None)
+    n = TRAIN_STEPS
+    want = {"rms_norm": n * (4 * L + 1), "fused_rope": n * 6 * L,
+            "flash_fwd": n * 2 * L, "paged_decode": 0,
+            "flash_bwd_dq": n * L, "flash_bwd_dkv": n * L}
+    log(f"  kernels: launches {counts} over {n} steps of {L} layers; the "
+        f"path implies {want}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    if not final < losses[1]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = B * S
+    step_s = statistics.median(times)
+    hd, H = cfg.head_dim, cfg.num_attention_heads
+    pairs = causal_pairs(S, S) * H * B * L
+    attn_model = 3 * 4 * hd * pairs          # forward QK and PV, x3
+    attn_run = (2 * 4 + 6 + 8) * hd * pairs  # fwd twice, dq, dkv kernels
+    rec = {"config": f"{TRAIN['preset']} {TRAIN['overrides']}",
+           "layers": L, "batch": B, "seq": S, "params": n_params,
+           "model_init_s": init_s, "losses": losses, "step_s": times,
+           "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+           "mfu": 6 * n_params * tokens / step_s / BF16_FLOPS,
+           "mfu_with_attention": (6 * n_params * tokens + attn_model)
+           / step_s / BF16_FLOPS,
+           "attention_flops_model": attn_model,
+           "attention_flops_executed": attn_run,
+           "peak_mem_gb": peak, "launches": counts}
+    if prof:
+        rec["profile"] = prof
+    del model, state
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phase 5: serve the 7B preset --------------------------------------------
 
 
@@ -390,7 +678,8 @@ def serve_phase(torch, dev, np, profile=False):
     L = cfg.num_hidden_layers
     want = {"rms_norm": (2 * L + 1) * (n_pre + n_steps),
             "fused_rope": 2 * L * n_pre, "flash_fwd": L * n_pre,
-            "paged_decode": L * n_steps}
+            "paged_decode": L * n_steps, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
     log(f"  kernels: launches {counts} (prefills {n_pre}, decode steps "
         f"{n_steps}, layers {L}); the path implies {want}")
     if counts != want:
@@ -418,7 +707,7 @@ def serve_phase(torch, dev, np, profile=False):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     if profile:
-        rec["profile"] = profile_serve(torch, eng, prompts, gen)
+        rec["profile"] = profile_run(torch, lambda: eng.serve(prompts, gen))
     return rec
 
 
@@ -426,6 +715,8 @@ def serve_phase(torch, dev, np, profile=False):
 _CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
                ("fused_rope", ("_rope_kernel",)),
                ("flash_fwd", ("flash_fwd_kernel",)),
+               ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+               ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                ("paged_decode", ("paged_decode_kernel",)),
                ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma",
                                     "sm90_")),
@@ -433,15 +724,15 @@ _CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
                ("elementwise and other", ("",))]
 
 
-def profile_serve(torch, eng, prompts, gen):
-    """The same serve once more under ``torch.profiler``: device time by
-    kernel category and the device's busy share of the wall time."""
+def profile_run(torch, run):
+    """``run()`` once more under ``torch.profiler``: device time by kernel
+    category and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.serve(prompts, gen)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     cats = {name: 0.0 for name, _ in _CATEGORIES}
@@ -476,9 +767,12 @@ def main(argv=None) -> int:
     ap.add_argument("--record", metavar="PATH",
                     help="write the run's full record there as JSON")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve phase, serve again under "
-                         "torch.profiler and print where the device time "
+                    help="after the serve and train phases, serve again "
+                         "and take one more train step under "
+                         "torch.profiler, and print where the device time "
                          "goes")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the train phase's weights and batch")
     args = ap.parse_args(argv)
 
     import torch
@@ -532,12 +826,16 @@ def main(argv=None) -> int:
         log(f"  {name:13s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{smi}]")
+    log(f"  flash_fwd at the training shape: kernel "
+        f"{rows['flash_fwd']['train_shape_ms']:.4f} ms  [{smi}]")
     log(f"[kernels] {record['phases']['kernels']:.1f}s")
     # 4. kernel path against plain path, end to end
     t = time.perf_counter()
     record["e2e"] = e2e_phase(torch, dev, np)
+    log(f"[e2e] serve {json.dumps(record['e2e'])}")
+    record["train_e2e"] = train_e2e_phase(torch, dev, np)
     record["phases"]["e2e"] = time.perf_counter() - t
-    log(f"[e2e] {json.dumps(record['e2e'])}")
+    log(f"[e2e] train {json.dumps(record['train_e2e'])}")
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
@@ -551,17 +849,33 @@ def main(argv=None) -> int:
         f"{sv['decode_tokens_per_s']:.1f} tok/s, peak "
         f"{sv['peak_mem_gb']:.1f} GiB  [{smi}]")
     log(f"[serve] {record['phases']['serve']:.1f}s")
+    # 6. train the 350m configuration
+    t = time.perf_counter()
+    tr = train_phase(torch, dev, np, args.seed, profile=args.profile)
+    record["train"] = tr
+    record["phases"]["train"] = time.perf_counter() - t
+    log(f"[train] {tr['config']} x{tr['layers']}, {tr['batch']}x{tr['seq']}"
+        f" tokens, {tr['params']} params: step {tr['step_s_median']:.4f} s "
+        f"(steps {tr['step_s']}), {tr['tokens_per_s']:.1f} tokens/s, MFU "
+        f"{tr['mfu']:.4f} (6 N tokens; {tr['mfu_with_attention']:.4f} with "
+        f"{tr['attention_flops_model']:.4g} attention FLOPs), peak "
+        f"{tr['peak_mem_gb']:.2f} GiB, losses {tr['losses']}  [{smi}]")
+    log(f"[train] {record['phases']['train']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
-    launches = sv["launches"]
     kernels = []
-    for name in ("rms_norm", "fused_rope", "flash_fwd", "paged_decode"):
+    for name in ("rms_norm", "fused_rope", "flash_fwd", "paged_decode",
+                 "flash_bwd_dq", "flash_bwd_dkv"):
         r = rows[name]
         route, src = SOURCES[name]
+        by_path = {"serve": sv["launches"][name],
+                   "train": tr["launches"][name]}
         kernels.append({
             "name": name, "route": route, "source": src,
             "replaces": REPLACES[name],
-            "launches": launches[name], **{k: r[k] for k in (
+            # this slice's path (train) where the kernel runs there
+            "launches": by_path["train"] or by_path["serve"],
+            "launches_by_path": by_path, **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
         })

@@ -10,6 +10,10 @@
 // with fp32 softmax and accumulation. The causal mask is bottom-right
 // aligned: query i attends keys <= i + (Sk - Sq). Query head h reads kv head
 // h / (Hq / Hkv) (GQA). Any lengths: the ragged edge is masked here.
+// Dropout (p > 0) keeps the softmax normalizer over the undropped
+// probabilities and drops entries of P.V only, scaled by 1 / (1 - p), with
+// the keep-mask of _keep_mask (ptt::Dropout, a hash of the global
+// coordinates, so it does not depend on the tile sizes).
 //
 // What bounds it: at prefill lengths one head does 4 * Sq * Sk * D flops
 // (half that causal) on (2 Sq + 2 Sk) * D * 2 bytes, hundreds of flops per
@@ -59,26 +63,6 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage rows [r0, r0 + rows) of a [*, D] operand transposed into dst [D][rows],
-// zero past `limit`. Consecutive threads take consecutive rows of one 16-byte
-// chunk, so the shared-memory stores do not conflict.
-template <int D, int kRows>
-__device__ __forceinline__ void stage_transposed(
-    __nv_bfloat16* dst, const __nv_bfloat16* src, long long row_stride,
-    int r0, int limit) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int r = c % kRows, ch = c / kRows;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride +
-                                            ch * 8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(ch * 8 + i) * kRows + r] = e[i];
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -86,8 +70,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  Strides qs, Strides ks, Strides vs, Strides os, int sq,
-                 int sk, int hq, int group, float scale, int causal) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+                 int sk, int hq, int group, float scale, int causal,
+                 ptt::Dropout drop) {
   constexpr int kCols = D / 16;   // output columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_t = reinterpret_cast<__nv_bfloat16*>(smem);  // [D][kBQ]
@@ -101,8 +85,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + (h / group) * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + (h / group) * vs.h;
+  const uint32_t hkey = drop.head_key(b, h);
 
-  stage_transposed<D, kBQ>(q_t, qb, qs.s, q0, sq);
+  ptt::stage_transposed<D, kBQ, kThreads>(q_t, qb, qs.s, q0, sq);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -123,14 +108,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's readers are done
-    stage_transposed<D, kBK>(k_t, kb, ks.s, k0, sk);
-    for (int c = tid; c < kBK * kChunks; c += kThreads) {
-      const int r = c / kChunks, ch = c % kChunks;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < sk)
-        val = *reinterpret_cast<const uint4*>(vb + (k0 + r) * vs.s + ch * 8);
-      *reinterpret_cast<uint4*>(v_s + r * D + ch * 8) = val;
-    }
+    ptt::stage_transposed<D, kBK, kThreads>(k_t, kb, ks.s, k0, sk);
+    ptt::stage_rows<D, kBK, kThreads>(v_s, vb, vs.s, k0, sk);
     __syncthreads();
 
     float s[4][4];
@@ -172,8 +151,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        sum += p;
+        sum += p;  // the normalizer sums the undropped p
+        float pv = p;
+        if (drop.on)  // only P.V sees the mask
+          pv = drop.keep(hkey, qpos, k0 + tx + 16 * j) ? p * drop.scale
+                                                        : 0.f;
+        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] = pv;
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = l[i] * alpha + row_sum(sum);
@@ -216,7 +199,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int batch, int sq, int sk, int hq, int hkv,
                    Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, ptt::Dropout drop, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -228,14 +211,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), qs, ks, vs, os, sq, sk, hq, hq / hkv, scale,
-      causal);
+      causal, drop);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Strides are in elements. q/k/v/o rows must be 16-byte aligned (the wrapper
-// checks). Returns cudaGetLastError() after the launch.
+// checks). Dropout: seed, keep threshold, 1 / (1 - p), on (see
+// ptt::Dropout). Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int batch, int sq, int sk,
                               int hq, int hkv, int d, long long qsb,
@@ -243,17 +227,20 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               long long kss, long long ksh, long long vsb,
                               long long vss, long long vsh, long long osb,
                               long long oss, long long osh, float scale,
-                              int causal, void* stream) {
+                              int causal, unsigned int seed,
+                              unsigned int thresh, float drop_scale,
+                              int dropout, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
+  const ptt::Dropout drop{seed, thresh, drop_scale, dropout};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
       return launch<64>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs, ks, vs,
-                        os, scale, causal, st);
+                        os, scale, causal, drop, st);
     case 128:
       return launch<128>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs, ks, vs,
-                         os, scale, causal, st);
+                         os, scale, causal, drop, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -7,10 +7,14 @@ with the reference's layouts: activations ``[B, S, H, D]``, linear weights
 
 Kernels on the path (each a Hopper kernel on the card, its plain version on
 the CPU): RMSNorm -> K1 ``rms_norm``; RoPE over the shared position tables
-(prefill) -> K2 ``fused_rope``; prefill attention -> K3 flash forward;
-decode attention over the page pool -> K4 ``paged_decode_mha``. The
-per-row RoPE of a decode step stays plain torch, as it is plain jnp in the
-reference.
+(training and prefill) -> K2 ``fused_rope``; training and prefill attention
+-> K3 flash forward, with the ``flash_bwd_dq``/``flash_bwd_dkv`` kernels in
+its backward; decode attention over the page pool -> K4
+``paged_decode_mha``. The per-row RoPE of a decode step stays plain torch,
+as it is plain jnp in the reference. Every kernel wrapper on the training
+path is differentiable, so ``model(ids, labels).backward()`` reaches every
+parameter; ``config.recompute = "full"`` recomputes each decoder layer in
+the backward (``distributed.fleet.recompute``) while the model trains.
 
 Serving forwards ported in this slice: ``forward_with_cache`` at
 ``pos == 0`` (fresh prefill into a dense cache) and ``forward_decode_paged``
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import get_device
+from ..distributed.fleet.recompute import recompute
 from ..distributed.mp_layers import (ColumnParallelLinear,
                                      ParallelCrossEntropy, RowParallelLinear,
                                      VocabParallelEmbedding)
@@ -65,6 +70,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "float32"
+    # remat policy for the decoder stack while training ("none" | "full")
+    recompute: str = "none"
 
     @property
     def head_dim(self) -> int:
@@ -274,10 +281,16 @@ class LlamaModel(nn.Module):
         return self._rope[key]
 
     def forward(self, input_ids):
+        if self.config.recompute not in ("none", "full"):
+            raise ValueError(f"recompute must be 'none' or 'full', got "
+                             f"{self.config.recompute!r}")
         x = self.embed_tokens(input_ids)
         cos, sin = self._tables(x.shape[1], x)
         for layer in self.layers:
-            x = layer(x, cos, sin)
+            if self.config.recompute == "full" and self.training:
+                x = recompute(layer, x, cos, sin)
+            else:
+                x = layer(x, cos, sin)
         return self.norm(x)
 
     def _new_kv(self, shape) -> List[Cache]:

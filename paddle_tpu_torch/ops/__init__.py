@@ -9,14 +9,20 @@ from typing import Dict
 
 from .attention import flash_attention
 from .flash_attention_kernel import (flash_attention_bshd,
-                                     flash_attention_bshd_ref)
+                                     flash_attention_bshd_ref,
+                                     flash_attention_bwd,
+                                     flash_attention_bwd_dkv,
+                                     flash_attention_bwd_dq,
+                                     flash_attention_bwd_ref)
 from .fused_kernels import (fused_rope, fused_rope_ref, rms_norm,
                             rms_norm_ref)
 from .paged_attention import paged_decode_mha, paged_decode_mha_ref
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "flash_attention", "flash_attention_bshd",
-           "flash_attention_bshd_ref", "fused_rope", "fused_rope_ref",
+           "flash_attention_bshd_ref", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "fused_rope", "fused_rope_ref",
            "rms_norm", "rms_norm_ref", "paged_decode_mha",
            "paged_decode_mha_ref"]
 
@@ -25,6 +31,8 @@ KERNELS = {
     "fused_rope": fused_rope,
     "flash_fwd": flash_attention_bshd,
     "paged_decode": paged_decode_mha,
+    "flash_bwd_dq": flash_attention_bwd_dq,
+    "flash_bwd_dkv": flash_attention_bwd_dkv,
 }
 
 

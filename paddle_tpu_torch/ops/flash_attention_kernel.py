@@ -1,17 +1,23 @@
-"""K3: flash attention forward (CUDA C++, ``csrc/flash_fwd.cu``) beside its
-plain PyTorch version.
+"""Flash attention on Hopper: K3 forward (``csrc/flash_fwd.cu``) and the two
+backward kernels (``csrc/flash_bwd.cu``), each beside its plain PyTorch
+version, and the ``torch.autograd.Function`` that joins them.
 
-Port of the forward half of
-``paddle_tpu/ops/flash_attention_kernel.py::flash_attention_bhsd``
-(``_fwd_kernel``/``_fwd_impl``, pallas_call at :331). The port keeps the
-repo's ``[B, S, H, D]`` activation layout and hands the kernel its strides,
-so no transpose happens around it. Bottom-right causal alignment (query i
-attends keys <= i + Sk - Sq), GQA through kv head = h // (Hq / Hkv), fp32
-softmax and accumulation, any lengths (the kernel masks the ragged edge).
-The TPU kernel's in-kernel dropout is not ported yet: it belongs with the
-backward kernels of the training slice.
+Port of ``paddle_tpu/ops/flash_attention_kernel.py::flash_attention_bhsd``:
+``_fwd_kernel``/``_fwd_impl`` (pallas_call at :331), ``_bwd_dq_kernel``
+(:497), ``_bwd_dkv_kernel`` (:519) and the ``custom_vjp`` ``_flash``
+(:559-582). The port keeps the repo's ``[B, S, H, D]`` activation layout
+and hands the kernels its strides, so no transpose happens around them.
+Bottom-right causal alignment (query i attends keys <= i + Sk - Sq), GQA
+through kv head = h // (Hq / Hkv), fp32 softmax and accumulation, any
+lengths (the kernels mask the ragged edge).
 
-The wrapper takes the plain version only for CPU tensors; a CUDA tensor
+Dropout is the TPU kernel's counter hash (``_mix``/``_keep_mask``, a
+murmur3 finalizer over seed, batch, query head and the global (q, k)
+coordinates), reproduced bit for bit here and in the CUDA kernels, so the
+masks of the kernels, of the plain versions and of the JAX package agree
+exactly at the same seed, whatever the tile sizes.
+
+The wrappers take the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
 """
 from __future__ import annotations
@@ -24,10 +30,60 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_bshd", "flash_attention_bshd_ref"]
+__all__ = ["flash_attention_bshd", "flash_attention_bshd_ref",
+           "flash_attention_bwd", "flash_attention_bwd_ref",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "FlashAttention"]
 
-_NEG = -1e30            # the kernel's mask value: no inf - inf NaNs
-_HEAD_DIMS = (64, 128)  # instantiated in csrc/flash_fwd.cu
+_NEG = -1e30            # the kernels' mask value: no inf - inf NaNs
+_HEAD_DIMS = (64, 128)  # instantiated in csrc/flash_fwd.cu and flash_bwd.cu
+_U32 = 0xFFFFFFFF
+_CHUNK = 512            # rows or keys per step of the plain versions
+
+
+# ---------------------------------------------------------------------------
+# Dropout: the counter hash (uint32 arithmetic in int64, masked after every
+# multiply: the low 32 bits of a product survive int64 wrap-around)
+# ---------------------------------------------------------------------------
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _U32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _U32
+    return x ^ (x >> 16)
+
+
+def _threshold(dropout_p: float) -> int:
+    return min(int(dropout_p * 4294967296.0), 4294967295)
+
+
+def _keep_mask(seed, b, h, q0, k0, bq: int, bk: int, dropout_p: float,
+               device=None) -> torch.Tensor:
+    """Keep-mask of the (bq, bk) score block whose top-left element is the
+    global (q0, k0), for batch ``b`` and query head ``h``: deterministic in
+    (seed, b, h, global q, global k). ``b`` and ``h`` may be int64 tensors
+    that broadcast in front of the block ([..., 1, 1])."""
+    def u32(v):
+        return torch.as_tensor(v, dtype=torch.int64, device=device) & _U32
+
+    s0 = _mix(u32(seed) ^ ((u32(b) * 0x9E3779B9) & _U32)
+              ^ ((u32(h) * 0x85EBCA77) & _U32))
+    qi = (u32(q0) + torch.arange(bq, device=device)[:, None]) & _U32
+    ki = (u32(k0) + torch.arange(bk, device=device)[None, :]) & _U32
+    bits = _mix(_mix((qi + s0) & _U32) ^ ki)
+    return bits >= _threshold(dropout_p)     # P(keep) = 1 - dropout_p
+
+
+def _check_dropout(dropout_p: float) -> None:
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
 
 
 def _check_shapes(q, k, v):
@@ -42,42 +98,66 @@ def _check_shapes(q, k, v):
             f"batch/head dim mismatch: {tuple(q.shape)} vs {tuple(k.shape)}")
 
 
+def _bhsd(x: torch.Tensor, hq: int) -> torch.Tensor:
+    """[B, S, H, D] -> fp32 [B, Hq, S, D], kv heads repeated for GQA."""
+    t = x.transpose(1, 2).float()
+    return t.repeat_interleave(hq // t.shape[1], dim=1) if t.shape[1] != hq \
+        else t
+
+
+def _valid(q0, q1, k0, k1, sq, sk, causal, device):
+    """Score-block validity: bottom-right causal (query i sees keys
+    <= i + Sk - Sq), all true when not causal."""
+    if not causal:
+        return torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                          device=device)
+    qpos = torch.arange(q0, q1, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    return kpos <= qpos + (sk - sq)
+
+
+def _heads(b: int, h: int, device):
+    return (torch.arange(b, device=device)[:, None, None, None],
+            torch.arange(h, device=device)[None, :, None, None])
+
+
 def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = False,
                              sm_scale: Optional[float] = None,
-                             chunk: int = 512
+                             dropout_p: float = 0.0, seed: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K3: the online-softmax recurrence over key chunks
     of ``paddle_tpu/ops/pallas.py::_chunked_attention``, in fp32 (the
-    kernel's arithmetic), GQA by repeating kv heads. Returns ``(out
+    kernel's arithmetic), GQA by repeating kv heads. With dropout the
+    normalizer sums the undropped probabilities and only P.V sees the
+    mask, scaled by 1 / (1 - p), as ``_fwd_kernel`` does. Returns ``(out
     [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] fp32)``."""
     _check_shapes(q, k, v)
+    _check_dropout(dropout_p)
     b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk = k.shape[1]
+    dev = q.device
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    qt = q.transpose(1, 2).float()                     # [B, Hq, Sq, D]
-    kt = k.transpose(1, 2).float()
-    vt = v.transpose(1, 2).float()
-    if hkv != hq:
-        kt = kt.repeat_interleave(hq // hkv, dim=1)
-        vt = vt.repeat_interleave(hq // hkv, dim=1)
-    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
-    m = torch.full((b, hq, sq), _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    nchunk = max(1, -(-sk // chunk))
+    qt, kt, vt = _bhsd(q, hq), _bhsd(k, hq), _bhsd(v, hq)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, hq, sq), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    bi, hi = _heads(b, hq, dev)
+    nchunk = max(1, -(-sk // _CHUNK))
     csize = -(-sk // nchunk)
     for c0 in range(0, sk, csize):
         c1 = min(c0 + csize, sk)
         s = torch.einsum("bhqd,bhkd->bhqk", qt, kt[:, :, c0:c1]) * scale
-        kpos = torch.arange(c0, c1, device=q.device)[None, :]
-        valid = (kpos <= qpos + (sk - sq)) if causal else \
-            torch.ones((sq, c1 - c0), dtype=torch.bool, device=q.device)
+        valid = _valid(0, sq, c0, c1, sq, sk, causal, dev)
         s = s.masked_fill(~valid, _NEG)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None]).masked_fill(~valid, 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
+        if dropout_p > 0.0:
+            keep = _keep_mask(seed, bi, hi, 0, c0, sq, c1 - c0, dropout_p,
+                              dev)
+            p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_p))
         acc = acc * alpha[..., None] + torch.einsum(
             "bhqk,bhkd->bhqd", p, vt[:, :, c0:c1])
         m = m_new
@@ -86,64 +166,255 @@ def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
     return out, m + torch.log(l_safe)
 
 
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in fp32, [B, Hq, Sq] (``_bwd_impl`` :481)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = False,
+                            sm_scale: Optional[float] = None,
+                            dropout_p: float = 0.0, seed: int = 0):
+    """Plain version of the two backward kernels (``_bwd_impl``,
+    :475-551), in fp32 over chunks of query rows: P is recomputed from
+    the saved lse, rows with no key re-masked to 0, dS = P (dP - delta)
+    (with dropout, dS = P_drop dP - P delta), dQ = dS K scale, dK = dS^T Q
+    scale, dV = P_drop^T dO, dK and dV summed over each GQA group.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    _check_shapes(q, k, v)
+    _check_dropout(dropout_p)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qt, kt, vt, dot = _bhsd(q, hq), _bhsd(k, hq), _bhsd(v, hq), _bhsd(do, hq)
+    delta = _delta(out, do)
+    dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, hq, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, hq, sk, d), dtype=torch.float32, device=dev)
+    bi, hi = _heads(b, hq, dev)
+    for r0 in range(0, sq, _CHUNK):
+        r1 = min(r0 + _CHUNK, sq)
+        qc, doc = qt[:, :, r0:r1], dot[:, :, r0:r1]
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kt) * scale
+        valid = _valid(r0, r1, 0, sk, sq, sk, causal, dev)
+        p = torch.exp(s.masked_fill(~valid, _NEG)
+                      - lse[:, :, r0:r1, None].float())
+        p = p.masked_fill(~valid, 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", doc, vt)
+        dl = delta[:, :, r0:r1, None]
+        if dropout_p > 0.0:
+            keep = _keep_mask(seed, bi, hi, r0, 0, r1 - r0, sk, dropout_p,
+                              dev)
+            pd = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_p))
+            ds = pd * dp - p * dl
+        else:
+            pd = p
+            ds = p * (dp - dl)
+        dq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds, kt) * scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
+        dv += torch.einsum("bhqk,bhqd->bhkd", pd, doc)
+    g = hq // hkv
+    dk = dk.view(b, hkv, g, sk, d).sum(2)
+    dv = dv.view(b, hkv, g, sk, d).sum(2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
 def _vec_ready(x: torch.Tensor) -> torch.Tensor:
-    """The kernel reads rows as 16-byte vectors: unit stride on D, every
+    """The kernels read rows as 16-byte vectors: unit stride on D, every
     other stride a multiple of 8 elements, a 16-byte aligned base."""
     ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
           and all(st % 8 == 0 for st in x.stride()[:-1]))
     return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.flash_fwd_bf16
+def _check_cuda(what: str, *ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"{what}: no kernel for devices "
+                         f"{', '.join(str(t.device) for t in ts)}")
+    if any(t.dtype != torch.bfloat16 for t in ts):
+        raise ValueError(f"{what}: the kernel takes bf16, got "
+                         f"{'/'.join(str(t.dtype) for t in ts)}")
+    if ts[0].shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{what}: the kernel takes head_dim in "
+                         f"{_HEAD_DIMS}, got {ts[0].shape[-1]}")
+
+
+def _dropout_args(dropout_p: float, seed: int):
+    """(seed as uint32, keep threshold, 1 / (1 - p), dropout on)."""
+    return (ctypes.c_uint32(int(seed) & _U32),
+            ctypes.c_uint32(_threshold(dropout_p)),
+            ctypes.c_float(1.0 / (1.0 - dropout_p)), int(dropout_p > 0.0))
+
+
+def _strides(*ts: torch.Tensor):
+    return [s for t in ts for s in t.stride()[:3]]
+
+
+def _bind(lib: ctypes.CDLL, name: str, n_ptr: int, n_ll: int):
+    """Entry point ``name``: n_ptr pointers, 6 ints (batch, sq, sk, hq, hkv,
+    d), n_ll strides, then scale, causal, the dropout arguments and the
+    stream."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 12
-                       + [ctypes.c_float, i, p])
+        u, f = ctypes.c_uint32, ctypes.c_float
+        fn.argtypes = ([p] * n_ptr + [i] * 6 + [ll] * n_ll
+                       + [f, i, u, u, f, i, p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _launch(source: str, entry: str, ptrs, shape, strides, scale, causal,
+            dropout_p, seed, device) -> None:
+    """Call ``entry`` of the library built from ``csrc/<source>.cu`` on
+    the current stream and raise if the launch was refused."""
+    lib = _build.load(source)
+    fn = _bind(lib, entry, len(ptrs), len(strides))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*ptrs, *shape, *strides, ctypes.c_float(scale),
+                 int(bool(causal)), *_dropout_args(dropout_p, seed), stream)
+    _build.check(lib, err, entry)
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = False,
-                         sm_scale: Optional[float] = None
+                         sm_scale: Optional[float] = None,
+                         dropout_p: float = 0.0, seed: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward over q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D]
-    (K3). Returns ``(out [B, Sq, Hq, D], lse [B, Hq, Sq] fp32)``."""
+    (K3), with in-kernel dropout at ``dropout_p`` from ``seed``. Returns
+    ``(out [B, Sq, Hq, D], lse [B, Hq, Sq] fp32)``; not differentiable
+    (:class:`FlashAttention` is)."""
     _check_shapes(q, k, v)
+    _check_dropout(dropout_p)
     if q.device.type == "cpu":
-        return flash_attention_bshd_ref(q, k, v, causal, sm_scale)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash attention: no kernel for devices "
-                         f"{q.device}, {k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"flash attention kernel takes bf16, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+        return flash_attention_bshd_ref(q, k, v, causal, sm_scale,
+                                        dropout_p, seed)
+    _check_cuda("flash attention", q, k, v)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {d}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:      # an empty grid is not a launch
         return out, lse
     q, k, v = _vec_ready(q), _vec_ready(k), _vec_ready(v)
-    lib = _build.load("flash_fwd")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _bind(lib)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, sq, sk, hq, hkv, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            float(scale), int(bool(causal)), stream)
-    _build.check(lib, err, "flash_fwd_bf16")
+    _launch("flash_fwd", "flash_fwd_bf16",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr()], (b, sq, sk, hq, hkv, d),
+            _strides(q, k, v, out), scale, causal, dropout_p, seed, q.device)
     flash_attention_bshd.launches += 1
     return out, lse
 
 
 flash_attention_bshd.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
+                           sm_scale: Optional[float] = None,
+                           dropout_p: float = 0.0, seed: int = 0
+                           ) -> torch.Tensor:
+    """dq [B, Sq, Hq, D] bf16 from the ``flash_bwd_dq`` kernel: one block
+    per (batch, query head, 64-query tile), looping over key tiles. CUDA
+    tensors only: the plain version is :func:`flash_attention_bwd_ref`."""
+    _check_shapes(q, k, v)
+    _check_cuda("flash_bwd_dq", q, k, v, do)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    q, k, v, do = (_vec_ready(t) for t in (q, k, v, do))
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    _launch("flash_bwd", "flash_bwd_dq_bf16",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()],
+            (b, sq, sk, hq, hkv, d), _strides(q, k, v, do, dq), scale,
+            causal, dropout_p, seed, q.device)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
+                            sm_scale: Optional[float] = None,
+                            dropout_p: float = 0.0, seed: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B, Sk, Hkv, D] bf16 from the ``flash_bwd_dkv`` kernel:
+    one block per (batch, kv head, 64-key tile), looping over the query
+    heads of its group and the query tiles with fp32 accumulators (no
+    atomics). CUDA tensors only."""
+    _check_shapes(q, k, v)
+    _check_cuda("flash_bwd_dkv", q, k, v, do)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, hkv, d), dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    q, k, v, do = (_vec_ready(t) for t in (q, k, v, do))
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    _launch("flash_bwd", "flash_bwd_dkv_bf16",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
+            (b, sq, sk, hq, hkv, d), _strides(q, k, v, do, dk, dv), scale,
+            causal, dropout_p, seed, q.device)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        dropout_p: float = 0.0, seed: int = 0):
+    """(dq, dk, dv) of flash attention from the saved ``out`` and ``lse``:
+    the plain version for CPU tensors, the two backward kernels for CUDA
+    tensors (delta = rowsum(dO * O) is computed here, outside the kernels,
+    as ``_bwd_impl`` does)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                       sm_scale, dropout_p, seed)
+    delta = _delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
+                                dropout_p, seed)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                     sm_scale, dropout_p, seed)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the counterpart of ``_flash`` with
+    ``_flash_fwd``/``_flash_bwd``): K3 forward, and a backward that runs
+    the two backward kernels on CUDA tensors and their plain version on
+    CPU tensors, never autograd through the plain forward. Saves
+    ``(q, k, v, out, lse)`` and the seed, so the backward regenerates the
+    forward's dropout mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float],
+                dropout_p: float, seed: int):
+        out, lse = flash_attention_bshd(q, k, v, causal, sm_scale,
+                                        dropout_p, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, dropout_p, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None

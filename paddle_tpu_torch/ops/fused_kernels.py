@@ -8,6 +8,12 @@ output once, with no tensor-core work and no reuse to stage in shared
 memory: memory bandwidth bounds them, and Triton's one-program-per-row form
 says that directly, which is why these two are Triton and not CUDA C++.
 
+Both are differentiable, as the JAX package's ``custom_vjp``s are: the
+RMSNorm backward is a plain PyTorch copy of ``_rms_vjp_bwd`` (:88-100, XLA
+in the JAX package, so no kernel is owed), and the RoPE backward runs K2
+again on (dO, cos, -sin), a rotation by -theta (``_rope_vjp_bwd``,
+:269-273).
+
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises. ``triton`` is imported inside the launch, so
 this module imports where Triton is absent.
@@ -77,10 +83,9 @@ def _rms_norm_kernel(x_ptr, w_ptr, y_ptr, x_row_stride, y_row_stride,
              (x * r * w).to(y_ptr.dtype.element_ty), mask=mask)
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """y = x / sqrt(mean(x^2, -1) + eps) * w over x [..., H]; one Triton
-    program per row (K1)."""
+def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return rms_norm_ref(x, weight, eps)
     _require_cuda("rms_norm", x, weight)
@@ -101,6 +106,40 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
                 BLOCK=block, num_warps=min(max(block // 512, 1), 16))
         rms_norm.launches += 1
     return y.reshape(x.shape)
+
+
+def _rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                  eps: float):
+    """(dx, dw) of y = x r w, r = rsqrt(mean(x^2) + eps), in fp32, each cast
+    once: dx = w g r - x r^3 / H sum(g w x), dw = sum over rows of g x r."""
+    xf, gf, wf = x.float(), g.float(), w.float()
+    h = xf.shape[-1]
+    r = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    gw = gf * wf
+    dx = gw * r - xf * (r.pow(3) / h) * (gw * xf).sum(-1, keepdim=True)
+    dw = (gf * xf * r).reshape(-1, h).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _rms_norm_bwd(x, w, g, ctx.eps)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """y = x / sqrt(mean(x^2, -1) + eps) * w over x [..., H]; one Triton
+    program per row (K1). Differentiable in x and w."""
+    return _RMSNorm.apply(x, weight, eps)
 
 
 rms_norm.launches = 0
@@ -145,11 +184,9 @@ def _rope_kernel(x_ptr, cos_ptr, sin_ptr, o_ptr, seq, n_heads, half,
     tl.store(ob + half + ds, (x2 * c + x1 * sn).to(ty), mask=mask)
 
 
-def fused_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """Rotary embedding of x [B, S, H, D] by shared position tables cos/sin
-    [S, D/2] (K2): one Triton program per (batch, position, head block),
-    indexing the two halves of D directly."""
+def _rope_fwd(x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor) -> torch.Tensor:
+    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
     b, s, h, d = x.shape
     if d % 2 or cos.shape != (s, d // 2) or sin.shape != (s, d // 2):
         raise ValueError(
@@ -175,6 +212,27 @@ def fused_rope(x: torch.Tensor, cos: torch.Tensor,
                 BLOCK_H=block_h, BLOCK_D=_next_pow2(d // 2), num_warps=4)
         fused_rope.launches += 1
     return out
+
+
+class _Rope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _rope_fwd(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        return _rope_fwd(g, cos, -sin), None, None   # no table gradient
+
+
+def fused_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding of x [B, S, H, D] by shared position tables cos/sin
+    [S, D/2] (K2): one Triton program per (batch, position, head block),
+    indexing the two halves of D directly. Differentiable in x; the
+    backward launches K2 with -sin."""
+    return _Rope.apply(x, cos, sin)
 
 
 fused_rope.launches = 0

@@ -139,9 +139,14 @@ def test_flash_causal_rows_without_keys_give_zeros():
 
 
 def test_flash_dropout_raises():
+    """Dropout is ported (its parity tests are in test_torch_training.py);
+    what still raises is a rate outside [0, 1)."""
     q, k, v = (torch.zeros(1, 4, 2, 8) for _ in range(3))
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v, causal=True, dropout_p=0.1)
+    for p in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout_p"):
+            flash_attention(q, k, v, causal=True, dropout_p=p)
+    out = flash_attention(q, k, v, causal=True, dropout_p=0.1, seed=3)
+    assert out.shape == q.shape
 
 
 # -- K4 paged decode attention -----------------------------------------------
@@ -221,8 +226,11 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.flash_attention_bshd(x, x, x, causal=True)
     ops.paged_decode_mha(x[:, 0], x, x, torch.zeros(2, 1, dtype=torch.int32),
                          torch.ones(2, dtype=torch.int32))
+    out, lse = ops.flash_attention_bshd(x, x, x, causal=True)
+    ops.flash_attention_bwd(x, x, x, out, lse, x, True)
     assert ops.launch_counts() == {"rms_norm": 0, "fused_rope": 0,
-                                   "flash_fwd": 0, "paged_decode": 0}
+                                   "flash_fwd": 0, "paged_decode": 0,
+                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
@@ -240,3 +248,10 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         ops.flash_attention_bshd(x, x, x)
     with pytest.raises(ValueError):
         ops.paged_decode_mha(x[:, 0], x, x, t, n)
+    lse = torch.empty(2, 4, 3, device="meta")
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(x, x, x, x, lse, x)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd_dq(x, x, x, x, lse, lse)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd_dkv(x, x, x, x, lse, lse)
