@@ -12,31 +12,47 @@ Phases, each timed, none caught and passed over:
    compile;
 3. kernels: each kernel against its plain PyTorch version on the same CUDA
    tensors, at the serving path's shapes (Llama-2-7B widths) and at GQA,
-   ragged, zero-length and int8 variants, the flash forward with dropout,
-   and the two flash backward kernels at the training shape (8 x 2048,
-   8 heads of 128, causal) and at GQA, ragged, Sq < Sk, Sq > Sk and dropout
-   variants, with the tolerance stated; then each one's time beside its
-   bound, its plain version's and a library call's where one PyTorch call
-   computes the same function;
+   ragged, zero-length, int8 and fp32 variants, LayerNorm at 4096 x 4096
+   with and without residual and bias and at a hidden size that is not a
+   power of two, the flash forward with dropout, and the two flash
+   backward kernels at the training shape (8 x 2048, 8 heads of 128,
+   causal) and at GQA, ragged, Sq < Sk, Sq > Sk and dropout variants, with
+   the tolerance stated; then each one's time beside its bound, its plain
+   version's and a library call's where one PyTorch call computes the same
+   function;
 4. kernel against plain, end to end: the 7B widths at 2 layers, served once
    on the card (kernels) and once on the CPU (plain versions), same weights
-   and prompts: prefill logits within a stated tolerance, greedy streams
-   equal up to the first near-tie; then the training configuration's
-   widths at 2 layers, one Layer-API backward and one AdamW train step on
-   the card and on the CPU from the same weights and batch: loss,
-   gradients and updated parameters within stated tolerances;
+   and prompts, through the paged engine, ``CausalLMEngine.generate`` and
+   the dense ``ContinuousBatchingEngine``: prefill logits within a stated
+   tolerance, greedy streams equal up to the first near-tie; then
+   ``FusedMultiTransformer`` at the GPT-3 6.7B widths (batch 1 x 128): the
+   context pass and 8 ragged decode steps within a stated tolerance of the
+   CPU's, and each decode step within it of the card's own context pass at
+   that position; then the training configuration's widths at 2 layers,
+   one Layer-API backward and one AdamW train step on the card and on the
+   CPU from the same weights and batch: loss, gradients and updated
+   parameters within stated tolerances;
 5. serve: the ``"7b"`` preset at full depth (32 layers, bf16, random
    weights from a seeded generator) through
    ``PagedContinuousBatchingEngine.serve``: 8 prompts of 100-700 tokens,
-   32 new tokens each. Every kernel's launch count over that run is read
-   and held against the count the path implies;
+   32 new tokens each; then the same model through
+   ``CausalLMEngine.generate`` (8 prompts of 512 tokens, 32 new tokens)
+   and the dense ``ContinuousBatchingEngine.serve`` (the paged run's
+   prompts), with the first token where the dense and paged streams part.
+   Every kernel's launch count over each run is read and held against the
+   count the path implies;
 6. train: the repo's training configuration (``bench.py``: llama 350m with
    8 heads of 128, 24 layers, bf16, batch 8 x 2048, full recompute, AdamW
    lr 1e-4, clip 1.0) through ``build_train_step``, one warm-up step and
    ``TRAIN_STEPS`` timed ones on one batch made from ``--seed``: step time,
    tokens/s, MFU and peak memory; the loss must be finite at every step and
    fall; every kernel's launch count over the timed steps is held against
-   the count the path implies.
+   the count the path implies;
+7. fused transformer: ``incubate.nn.FusedMultiTransformer`` at the GPT-3
+   6.7B widths (``FMT``: hidden 4096, 32 layers, 32 heads, FFN 16384,
+   bf16): a 512-token context pass of batch 8 into caches of 1024, then
+   ``FMT["steps"]`` decode steps at ragged ``seq_lens``; every output
+   finite, launch counts held against the path's.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -62,6 +78,16 @@ TRAIN = dict(preset="350m", overrides=dict(
     batch=8, seq=2048, lr=1e-4, clip=1.0)
 TRAIN_STEPS = 3                 # timed steps after one warm-up step
 TRAIN_E2E = dict(layers=2, batch=1, seq=512)   # phase 4's card-vs-CPU step
+# phase 5's dense-cache runs on the 7B model: CausalLMEngine.generate on
+# GEN["batch"] prompts of GEN["plen"] tokens, and the dense engine's slots
+GEN = dict(batch=8, plen=512, new=32, max_len=1024)
+DENSE = dict(max_batch=8, max_len=1024)
+# GPT-3 6.7B widths (paddle_tpu/models/gpt.py:54, preset "6b7": hidden
+# 4096, 32 layers, 32 heads, FFN 4 x hidden) as a FusedMultiTransformer,
+# with phase 7's batch, context, cache length and decode steps
+FMT = dict(hidden=4096, layers=32, heads=32, ffn=16384, batch=8, context=512,
+           max_len=1024, steps=32)
+FMT_E2E = dict(layers=2, batch=1, seq=128, steps=8)   # phase 4's twin
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor cores, and
 # fp32 outside the tensor cores
@@ -86,18 +112,32 @@ BF16_STEP = 2.0 ** -7
 # so only the order of the fp32 sums differs and an output may land on the
 # neighbouring bf16 value; a wrong mask, scale, tile or head mapping moves
 # gradients of order 0.01-1 by far more than that.
+# decode_mha is held as paged_decode (the same fp32 online softmax over
+# ~1k keys, outputs near 0.05, where a skipped tile or a wrong kv head moves
+# an output by more than 1e-3); its fp32 case has the same limit, far above
+# the fp32 sum-order error. fused_layer_norm is held as rms_norm (outputs
+# near 1 after normalization; a wrong mean, variance or padded lane moves
+# them by far more than one bf16 step).
 TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "fused_rope": dict(atol=1e-3, rtol=BF16_STEP),
        "flash_fwd": dict(atol=1e-4, rtol=BF16_STEP),
        "paged_decode": dict(atol=1e-4, rtol=BF16_STEP),
        "flash_bwd_dq": dict(atol=1e-4, rtol=BF16_STEP),
-       "flash_bwd_dkv": dict(atol=1e-4, rtol=BF16_STEP)}
+       "flash_bwd_dkv": dict(atol=1e-4, rtol=BF16_STEP),
+       "decode_mha": dict(atol=1e-4, rtol=BF16_STEP),
+       "fused_layer_norm": dict(atol=1e-3, rtol=BF16_STEP)}
 LSE_ATOL = 1e-3                 # fp32 log-sum-exp, a few fp32 ulps of work
 # end to end (phase 4): bf16 activations on both sides, matmuls accumulated
 # in another order on the card than on the CPU; logits near 5-8 resolve to
 # 2^-5 in bf16 and two layers of such rounding reach a few steps
 LOGIT_ATOL = 0.125
 NEAR_TIE = 2 * LOGIT_ATOL       # top-2 margin under which greedy may flip
+# FusedMultiTransformer end to end (phase 4), bf16 on both sides: outputs
+# are the residual stream (|x| up to ~6 at 2 layers, std ~1.2), where a
+# bf16 step is 2^-5; two layers of bf16 rounding in another order reach a
+# few steps (bf16 against fp32 on the CPU differs by up to 0.05 at these
+# widths), so four steps
+FMT_ATOL = 0.125
 # training end to end (phase 4), bf16 on both sides. The loss (about
 # ln 32000 = 10.4) is an fp32 mean of bf16 logits that differ by a few bf16
 # steps of 2^-5 in either direction, which average out: 2e-2 absolute.
@@ -118,6 +158,8 @@ REPLACES = {
     "paged_decode": "paddle_tpu/ops/paged_attention.py:268",
     "flash_bwd_dq": "paddle_tpu/ops/flash_attention_kernel.py:497",
     "flash_bwd_dkv": "paddle_tpu/ops/flash_attention_kernel.py:519",
+    "decode_mha": "paddle_tpu/ops/pallas_kernels.py:368",
+    "fused_layer_norm": "paddle_tpu/ops/pallas_kernels.py:144",
 }
 SOURCES = {
     "rms_norm": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
@@ -126,7 +168,11 @@ SOURCES = {
     "paged_decode": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu"),
     "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu"),
     "flash_bwd_dkv": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu"),
+    "decode_mha": ("cuda", "paddle_tpu_torch/csrc/decode_mha.cu"),
+    "fused_layer_norm": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
 }
+PATHS = ("serve", "generate", "dense_serve", "train", "fmt")
+SLICE_PATHS = ("generate", "dense_serve", "fmt")     # this slice's own
 
 
 def log(*a):
@@ -339,12 +385,96 @@ def kernel_phase(torch, dev):
                 plain_ms=time_ms(torch, lambda: ops.paged_decode_mha_ref(
                     q, kp, vp, table, lens), reps=5),
                 bound_ms=bms, bound_by=by, library_ms=None)
+    decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev)
+    layer_norm_cases(torch, ops, F, randn, rows, cases, H)
     for name in rows:
         rows[name]["max_abs_err"] = max(e for n, _, e in cases if n == name)
     for name, tag, err in cases:
         log(f"  {name:13s} {tag:66s} max|kernel-plain| {err:.3g} "
             f"(atol {TOL[name]['atol']:g}, rtol 2^-7)")
     return rows, cases
+
+
+def decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
+    """K7 against ``decode_mha_ref``: the 7B serve batch (8 rows of a
+    1024-long cache, 32 heads of 128, lens up to 1024 with a dead row), GQA
+    32/8, a cache of 700 (no tile divides it) and fp32 inputs."""
+    bf = torch.bfloat16
+    serve_lens = [1024, 900, 733, 512, 300, 129, 17, 0]
+    for s_max, hkv, dtype, lens_l in [
+            (1024, NH, bf, serve_lens), (1024, NH // 4, bf, serve_lens),
+            (700, NH, bf, [700, 650, 513, 333, 64, 63, 1, 0]),
+            (1024, NH, torch.float32, serve_lens)]:
+        b = len(lens_l)
+        q = randn(b, NH, D, dtype=dtype)
+        k = randn(b, s_max, hkv, D, dtype=dtype)
+        v = randn(b, s_max, hkv, D, dtype=dtype)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        out = ops.decode_mha(q, k, v, lens)
+        tag = (f"B={b} S={s_max} Hkv={hkv} {str(dtype)[6:]} "
+               f"lens={lens_l}")
+        err = check_close(torch, f"decode_mha {tag}", out,
+                          ops.decode_mha_ref(q, k, v, lens),
+                          **TOL["decode_mha"])
+        if out[-1].abs().max().item() != 0.0:
+            raise AssertionError("decode_mha: a zero-length row must return "
+                                 "zeros")
+        cases.append(("decode_mha", tag, err))
+        if (s_max, hkv, dtype) != (1024, NH, bf):
+            continue
+        tokens = sum(lens_l)
+        nbytes = tokens * hkv * D * 2 * 2 + 2 * q.numel() * 2 + b * 4
+        bms, by = bound(nbytes, 4 * D * tokens * NH, BF16_FLOPS)
+        # the library's masked SDPA over [B, H, 1, S] (heads-first copies
+        # made outside the timing)
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        mask = (torch.arange(s_max, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        rows["decode_mha"] = dict(
+            shape=tag,
+            ms=time_ms(torch, lambda: ops.decode_mha(q, k, v, lens)),
+            plain_ms=time_ms(torch, lambda: ops.decode_mha_ref(
+                q, k, v, lens), reps=5),
+            bound_ms=bms, bound_by=by,
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=mask)))
+
+
+def layer_norm_cases(torch, ops, F, randn, rows, cases, H):
+    """K8 against ``fused_layer_norm_ref`` on 4096 rows of the 7B hidden
+    size, with and without residual and bias, and at 5120 (not a power of
+    two: the kernel's padded lanes must stay out of the variance)."""
+    n = 4096
+    for h, res, bias in [(H, False, False), (H, True, False),
+                         (H, False, True), (H, True, True),
+                         (5120, False, False), (5120, True, True)]:
+        x = randn(n, h, scale=2.0) + 0.5
+        r = randn(n, h) if res else None
+        bb = randn(h, scale=0.5) if bias else None
+        gamma, beta = randn(h, scale=0.1) + 1.0, randn(h, scale=0.1)
+        args = (x, r, bb, gamma, beta, 1e-5)
+        tag = f"[{n},{h}] residual={res} bias={bias}"
+        err = check_close(torch, f"fused_layer_norm {tag}",
+                          ops.fused_layer_norm(*args),
+                          ops.fused_layer_norm_ref(*args),
+                          **TOL["fused_layer_norm"])
+        cases.append(("fused_layer_norm", tag, err))
+        if h != H:
+            continue
+        if res and bias:
+            rows["fused_layer_norm"]["residual_bias_ms"] = time_ms(
+                torch, lambda: ops.fused_layer_norm(*args))
+        elif not (res or bias):
+            bms, by = bound(2 * x.numel() * 2 + 2 * h * 2, 8 * x.numel(),
+                            FP32_FLOPS)
+            rows["fused_layer_norm"] = dict(
+                shape=tag,
+                ms=time_ms(torch, lambda: ops.fused_layer_norm(*args)),
+                plain_ms=time_ms(torch,
+                                 lambda: ops.fused_layer_norm_ref(*args)),
+                bound_ms=bms, bound_by=by,
+                library_ms=time_ms(torch, lambda: F.layer_norm(
+                    x, (h,), gamma, beta, 1e-5)))
 
 
 def causal_pairs(sq: int, sk: int) -> int:
@@ -427,8 +557,31 @@ def flash_bwd_cases(torch, ops, F, randn, rows, cases):
 # -- phase 4: kernel path against plain path, end to end ---------------------
 
 
+def matched_tokens(torch, np, cpu, prompts, card, plain) -> list:
+    """Per prompt, how many leading tokens the card's greedy stream shares
+    with the CPU's; raises where they part although the plain model's top-2
+    margin there is at least NEAR_TIE."""
+    matched = []
+    with torch.no_grad():
+        for p, a, c in zip(prompts, card, plain):
+            n = next((i for i in range(len(c)) if a[i] != c[i]), len(c))
+            matched.append(n)
+            if n < len(c):
+                seq = torch.from_numpy(
+                    np.concatenate([p, c[:n]]).astype(np.int64))[None]
+                top2 = cpu(seq)[0, -1].float().topk(2).values
+                margin = (top2[0] - top2[1]).item()
+                if margin >= NEAR_TIE:
+                    raise AssertionError(
+                        f"end to end: greedy streams split at token {n} "
+                        f"where the plain top-2 margin is {margin:.3g} "
+                        f">= {NEAR_TIE}")
+    return matched
+
+
 def e2e_phase(torch, dev, np):
-    from paddle_tpu_torch import (GenerationConfig, LlamaForCausalLM,
+    from paddle_tpu_torch import (CausalLMEngine, ContinuousBatchingEngine,
+                                  GenerationConfig, LlamaForCausalLM,
                                   PagedContinuousBatchingEngine, llama_config)
 
     cfg = llama_config(PRESET, num_hidden_layers=2, dtype="bfloat16")
@@ -456,29 +609,73 @@ def e2e_phase(torch, dev, np):
     if max(errs) > LOGIT_ATOL:
         raise AssertionError(f"end to end: prefill logits differ by "
                              f"{max(errs):.3g} > {LOGIT_ATOL}")
+    gen = GenerationConfig(max_new_tokens=8)
     streams = []
     for m in (gpu, cpu):
         eng = PagedContinuousBatchingEngine(m, max_batch=2, num_pages=32,
                                             page_size=16, max_pages=16)
-        streams.append(eng.serve(prompts, GenerationConfig(max_new_tokens=8),
-                                 segment_steps=4))
-    matched = []
-    with torch.no_grad():
-        for p, a, c in zip(prompts, *streams):
-            n = next((i for i in range(len(c)) if a[i] != c[i]), len(c))
-            matched.append(n)
-            if n < len(c):
-                seq = torch.from_numpy(
-                    np.concatenate([p, c[:n]]).astype(np.int64))[None]
-                top2 = cpu(seq)[0, -1].float().topk(2).values
-                margin = (top2[0] - top2[1]).item()
-                if margin >= NEAR_TIE:
-                    raise AssertionError(
-                        f"end to end: greedy streams split at token {n} "
-                        f"where the plain top-2 margin is {margin:.3g} "
-                        f">= {NEAR_TIE}")
-    rec["greedy_tokens_matched"] = matched
+        streams.append(eng.serve(prompts, gen, segment_steps=4))
+    rec["greedy_tokens_matched"] = matched_tokens(torch, np, cpu, prompts,
+                                                  *streams)
     rec["greedy_tokens"] = [len(c) for c in streams[1]]
+    # the dense-cache paths at the same 2 layers: generate on both prompts
+    # cut to the shorter one's length, and the dense engine on both
+    plen = min(len(p) for p in prompts)
+    ids = np.stack([p[:plen] for p in prompts])
+    outs = [CausalLMEngine(m, max_batch=2, max_len=256).generate(ids, gen)
+            for m in (gpu, cpu)]
+    rec["generate_tokens_matched"] = matched_tokens(
+        torch, np, cpu, list(ids), *[o[:, plen:] for o in outs])
+    streams = [ContinuousBatchingEngine(m, max_batch=2, max_len=256).serve(
+        prompts, gen, segment_steps=4) for m in (gpu, cpu)]
+    rec["dense_tokens_matched"] = matched_tokens(torch, np, cpu, prompts,
+                                                 *streams)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fmt_e2e_phase(torch, dev):
+    """FusedMultiTransformer at the 6.7B widths and 2 layers, batch 1 x
+    128, on the card and on the CPU from the same bf16 weights and inputs:
+    the context pass into caches, then FMT_E2E["steps"] ragged decode
+    steps; and on the card, each decode step against its own context pass
+    over all the tokens at that position."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+
+    e, nh, ff = FMT["hidden"], FMT["heads"], FMT["ffn"]
+    L, b, s, n = (FMT_E2E[k] for k in ("layers", "batch", "seq", "steps"))
+    bf = torch.bfloat16
+    gpu = FusedMultiTransformer(e, nh, ff, num_layers=L, device=dev,
+                                dtype=bf,
+                                generator=torch.Generator(dev).manual_seed(13))
+    cpu = FusedMultiTransformer(e, nh, ff, num_layers=L, device="cpu",
+                                dtype=bf)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    x = torch.randn(b, s + n, e,
+                    generator=torch.Generator().manual_seed(13)).to(bf)
+    outs = []
+    with torch.no_grad():
+        for m, d in ((gpu, dev), (cpu, "cpu")):
+            caches = m.make_caches(L, b, s + n, nh, e // nh, bf, d)
+            y, caches = m(x[:, :s].to(d), caches=caches)
+            steps = []
+            for t in range(n):
+                yd, caches = m(x[:, s + t:s + t + 1].to(d), caches=caches,
+                               time_step=s + t, seq_lens=torch.full(
+                                   (b,), s + t, dtype=torch.int32, device=d))
+                steps.append(yd)
+            outs.append((y.float().cpu(), torch.cat(steps, 1).float().cpu()))
+        full = gpu(x.to(dev))[:, s:].float().cpu()
+    errs = {"context_max_abs_err": (outs[0][0] - outs[1][0]).abs().max(),
+            "decode_max_abs_err": (outs[0][1] - outs[1][1]).abs().max(),
+            "decode_vs_context_max_abs_err": (outs[0][1] - full).abs().max()}
+    rec = {"layers": L, "batch": b, "context": s, "decode_steps": n,
+           **{k: v.item() for k, v in errs.items()}}
+    for k, v in rec.items():
+        if k.endswith("err") and not v <= FMT_ATOL:     # NaN fails too
+            raise AssertionError(f"fused transformer end to end: {k} {v} "
+                                 f"> {FMT_ATOL}")
     del gpu, cpu
     torch.cuda.empty_cache()
     return rec
@@ -608,13 +805,10 @@ def train_phase(torch, dev, np, seed, profile=False):
     prof = (profile_run(torch, lambda: step(model, state, ids, labels))
             if profile else None)
     n = TRAIN_STEPS
-    want = {"rms_norm": n * (4 * L + 1), "fused_rope": n * 6 * L,
-            "flash_fwd": n * 2 * L, "paged_decode": 0,
-            "flash_bwd_dq": n * L, "flash_bwd_dkv": n * L}
-    log(f"  kernels: launches {counts} over {n} steps of {L} layers; the "
-        f"path implies {want}")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
+    check_launches(counts, expect(
+        counts, rms_norm=n * (4 * L + 1), fused_rope=n * 6 * L,
+        flash_fwd=n * 2 * L, flash_bwd_dq=n * L, flash_bwd_dkv=n * L),
+        f"{n} steps of {L} layers")
     if not np.isfinite(losses).all():
         raise AssertionError(f"train: non-finite loss in {losses}")
     if not final < losses[1]:
@@ -646,7 +840,56 @@ def train_phase(torch, dev, np, seed, profile=False):
 # -- phase 5: serve the 7B preset --------------------------------------------
 
 
+def expect(counts: dict, **want) -> dict:
+    """Every kernel's launch count the path implies: ``want``, 0 for the
+    rest."""
+    return {name: want.get(name, 0) for name in counts}
+
+
+def check_launches(counts: dict, want: dict, what: str) -> None:
+    log(f"  kernels: launches {counts} ({what}); the path implies {want}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+
+
+def serve_stats(eng, outs, vocab: int, n_new: int) -> dict:
+    """TTFT, TPOT and decode rate of an engine's last ``serve``; raises on
+    an output of the wrong length or outside the vocabulary."""
+    for o in outs:
+        if len(o) != n_new or not ((o >= 0) & (o < vocab)).all():
+            raise AssertionError(f"serve: bad output {o!r}")
+    st = eng.serve_stats
+    tpot = [(f - t) / (len(o) - 1)
+            for t, f, o in zip(st["ttft_s"], st["finish_s"], outs)]
+    return {"ttft_s": st["ttft_s"],
+            "ttft_p50_s": statistics.median(st["ttft_s"]),
+            "ttft_max_s": max(st["ttft_s"]), "tpot_s": tpot,
+            "tpot_p50_s": statistics.median(tpot),
+            "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
+            "decode_tokens": st["decode_tokens"], "decode_s": st["decode_s"],
+            "wall_s": st["wall_s"], "segments": st["segments"]}
+
+
+def run_engine(torch, ops, eng, prompts, gen):
+    """One warm-up serve (a prompt per prefill bucket the run uses: cuBLAS
+    and Triton pick and compile their kernels at first use), then the
+    counted serve. Returns (outputs, launch counts, prefills, decode
+    steps)."""
+    from paddle_tpu_torch import GenerationConfig
+
+    eng.serve([prompts[-1][:n] for n in (100, 200, 400, 700)],
+              GenerationConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    p0, s0 = eng.prefills, eng.decode_steps
+    ops.reset_launch_counts()
+    outs = eng.serve(prompts, gen)
+    torch.cuda.synchronize()
+    return outs, ops.launch_counts(), eng.prefills - p0, eng.decode_steps - s0
+
+
 def serve_phase(torch, dev, np, profile=False):
+    """The 7B preset through the paged engine, then the same model through
+    ``CausalLMEngine.generate`` and the dense engine."""
     from paddle_tpu_torch import (GenerationConfig, LlamaForCausalLM,
                                   PagedContinuousBatchingEngine, llama_config,
                                   ops)
@@ -664,60 +907,196 @@ def serve_phase(torch, dev, np, profile=False):
     prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in plens]
     gen = GenerationConfig(max_new_tokens=32)
-    # warm-up: one prompt per prefill bucket the run uses (cuBLAS and
-    # Triton pick and compile their kernels at first use)
-    eng.serve([prompts[-1][:n] for n in (100, 200, 400, 700)],
-              GenerationConfig(max_new_tokens=2))
-    torch.cuda.synchronize()
-    p0, s0 = eng.prefills, eng.decode_steps
-    ops.reset_launch_counts()
-    outs = eng.serve(prompts, gen)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    n_pre, n_steps = eng.prefills - p0, eng.decode_steps - s0
+    outs, counts, n_pre, n_steps = run_engine(torch, ops, eng, prompts, gen)
     L = cfg.num_hidden_layers
-    want = {"rms_norm": (2 * L + 1) * (n_pre + n_steps),
-            "fused_rope": 2 * L * n_pre, "flash_fwd": L * n_pre,
-            "paged_decode": L * n_steps, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
-    log(f"  kernels: launches {counts} (prefills {n_pre}, decode steps "
-        f"{n_steps}, layers {L}); the path implies {want}")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
-    for o in outs:
-        if len(o) != gen.max_new_tokens or not (
-                (o >= 0) & (o < cfg.vocab_size)).all():
-            raise AssertionError(f"serve: bad output {o!r}")
-    st = eng.serve_stats
-    tpot = [(f - t) / (len(o) - 1)
-            for t, f, o in zip(st["ttft_s"], st["finish_s"], outs)]
+    check_launches(counts, expect(
+        counts, rms_norm=(2 * L + 1) * (n_pre + n_steps),
+        fused_rope=2 * L * n_pre, flash_fwd=L * n_pre,
+        paged_decode=L * n_steps),
+        f"prefills {n_pre}, decode steps {n_steps}, layers {L}")
     rec = {
         "preset": PRESET, "layers": L, "dtype": "bfloat16",
         "engine": "PagedContinuousBatchingEngine(max_batch=8, "
                   "num_pages=512, page_size=16, max_pages=64)",
         "prompt_lens": plens, "max_new_tokens": gen.max_new_tokens,
         "model_init_s": init_s,
-        "ttft_s": st["ttft_s"], "ttft_p50_s": statistics.median(
-            st["ttft_s"]), "ttft_max_s": max(st["ttft_s"]),
-        "tpot_s": tpot, "tpot_p50_s": statistics.median(tpot),
-        "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
-        "decode_tokens": st["decode_tokens"], "decode_s": st["decode_s"],
-        "wall_s": st["wall_s"], "segments": st["segments"],
+        **serve_stats(eng, outs, cfg.vocab_size, gen.max_new_tokens),
         "prefills": n_pre, "decode_steps": n_steps, "launches": counts,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     if profile:
         rec["profile"] = profile_run(torch, lambda: eng.serve(prompts, gen))
+    del eng
+    torch.cuda.empty_cache()
+    gen_rec = generate_phase(torch, np, model, profile)
+    dense_rec = dense_serve_phase(torch, np, model, prompts, outs, profile)
+    del model
+    torch.cuda.empty_cache()
+    return rec, gen_rec, dense_rec
+
+
+def generate_phase(torch, np, model, profile=False):
+    """``CausalLMEngine.generate`` on GEN["batch"] prompts of GEN["plen"]
+    tokens: one batched prefill, then GEN["new"] - 1 one-token steps."""
+    from paddle_tpu_torch import CausalLMEngine, GenerationConfig, ops
+
+    cfg = model.config
+    L, b, plen, new = (cfg.num_hidden_layers, GEN["batch"], GEN["plen"],
+                       GEN["new"])
+    ids = np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                           (b, plen)).astype(np.int32)
+    eng = CausalLMEngine(model, max_batch=b, max_len=GEN["max_len"])
+    eng.generate(ids, GenerationConfig(max_new_tokens=2))      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = eng.generate(ids, GenerationConfig(max_new_tokens=new))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = new - 1
+    check_launches(counts, expect(
+        counts, rms_norm=(2 * L + 1) * (1 + steps),
+        fused_rope=2 * L * (1 + steps), flash_fwd=L, decode_mha=L * steps),
+        f"1 prefill of {b} x {plen}, {steps} steps, layers {L}")
+    if (out.shape != (b, plen + new) or not (out[:, :plen] == ids).all()
+            or not ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate: bad output {out!r}")
+    st = eng.generate_stats
+    rec = {"engine": f"CausalLMEngine(max_batch={b}, "
+                     f"max_len={GEN['max_len']})",
+           "batch": b, "prompt_len": plen, "max_new_tokens": new,
+           "ttft_s": st["ttft_s"], "decode_s": st["decode_s"],
+           "tpot_s": st["decode_s"] / steps,
+           "decode_tokens_per_s": b * steps / st["decode_s"],
+           "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if profile:
+        rec["profile"] = profile_run(torch, lambda: eng.generate(
+            ids, GenerationConfig(max_new_tokens=new)))
+    return rec
+
+
+def dense_serve_phase(torch, np, model, prompts, paged_outs, profile=False):
+    """The dense ``ContinuousBatchingEngine`` on the paged run's prompts;
+    the first token where each dense stream parts from the paged one is
+    recorded (K4 and K7 sum in other orders, so near-ties may flip)."""
+    from paddle_tpu_torch import (ContinuousBatchingEngine, GenerationConfig,
+                                  ops)
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    eng = ContinuousBatchingEngine(model, **DENSE)
+    gen = GenerationConfig(max_new_tokens=32)
+    outs, counts, n_pre, n_steps = run_engine(torch, ops, eng, prompts, gen)
+    check_launches(counts, expect(
+        counts, rms_norm=(2 * L + 1) * (n_pre + n_steps),
+        fused_rope=2 * L * n_pre, flash_fwd=L * n_pre,
+        decode_mha=L * n_steps),
+        f"prefills {n_pre}, decode steps {n_steps}, layers {L}")
+    splits = [next((i for i in range(len(d)) if d[i] != p[i]), len(d))
+              for d, p in zip(outs, paged_outs)]
+    margins = []        # the uncached model's top-2 margin at each split
+    with torch.no_grad():
+        for p, d, n in zip(prompts, outs, splits):
+            if n == len(d):
+                margins.append(None)
+                continue
+            seq = torch.from_numpy(np.concatenate([p, d[:n]]).astype(
+                np.int64))[None].to(model.device)
+            top2 = model(seq)[0, -1].float().topk(2).values
+            margins.append((top2[0] - top2[1]).item())
+    rec = {"engine": f"ContinuousBatchingEngine(max_batch="
+                     f"{DENSE['max_batch']}, max_len={DENSE['max_len']})",
+           **serve_stats(eng, outs, cfg.vocab_size, gen.max_new_tokens),
+           "prefills": n_pre, "decode_steps": n_steps, "launches": counts,
+           "first_split_from_paged": splits, "split_top2_margins": margins}
+    if profile:
+        rec["profile"] = profile_run(torch, lambda: eng.serve(prompts, gen))
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fmt_phase(torch, dev, profile=False):
+    """FusedMultiTransformer at the GPT-3 6.7B widths: a warm-up, then a
+    context pass of FMT["batch"] x FMT["context"] tokens into caches of
+    FMT["max_len"] and FMT["steps"] decode steps with ragged seq_lens
+    (row i holds context - i context / batch tokens)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+
+    e, nh, ff, L = FMT["hidden"], FMT["heads"], FMT["ffn"], FMT["layers"]
+    b, s, n = FMT["batch"], FMT["context"], FMT["steps"]
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    m = FusedMultiTransformer(e, nh, ff, num_layers=L, device=dev, dtype=bf,
+                              generator=torch.Generator(dev).manual_seed(21))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(dev).manual_seed(22)
+    src = torch.randn(b, s, e, generator=g, device=dev).to(bf)
+    xs = torch.randn(n, b, 1, e, generator=g, device=dev).to(bf)
+    lens0 = torch.tensor([s - s // b * i for i in range(b)],
+                         dtype=torch.int32, device=dev)
+    caches = m.make_caches(L, b, FMT["max_len"], nh, e // nh, bf, dev)
+
+    def run(steps):
+        """(context ms, per-step ms, every output finite)."""
+        finite = []
+        with torch.no_grad():
+            t = time.perf_counter()
+            y, _ = m(src, caches=caches)
+            finite.append(torch.isfinite(y).all())
+            torch.cuda.synchronize()
+            ctx_ms = (time.perf_counter() - t) * 1e3
+            step_ms = []
+            for i in range(steps):
+                t = time.perf_counter()
+                y, _ = m(xs[i], caches=caches, time_step=s + i,
+                         seq_lens=lens0 + i)
+                finite.append(torch.isfinite(y).all())
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+        return ctx_ms, step_ms, bool(torch.stack(finite).all())
+
+    run(2)                                                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ctx_ms, step_ms, finite = run(n)
+    counts = ops.launch_counts()
+    check_launches(counts, expect(counts, fused_layer_norm=2 * L * (1 + n),
+                                  flash_fwd=L, decode_mha=L * n),
+                   f"1 context pass, {n} decode steps, layers {L}")
+    if not finite:
+        raise AssertionError("fused transformer: non-finite output")
+    step = statistics.median(step_ms)
+    rec = {"config": "GPT-3 6.7B widths (paddle_tpu/models/gpt.py:54 "
+                     "'6b7'): hidden 4096, 32 layers, 32 heads, FFN 16384, "
+                     "bf16, random weights",
+           "layers": L, "batch": b, "context": s, "max_len": FMT["max_len"],
+           "decode_steps": n, "params": sum(p.numel()
+                                             for p in m.parameters()),
+           "model_init_s": init_s, "context_ms": ctx_ms,
+           "context_tokens_per_s": b * s / ctx_ms * 1e3,
+           "decode_step_ms": step_ms, "decode_step_ms_median": step,
+           "decode_tokens_per_s": b / step * 1e3, "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if profile:
+        rec["profile"] = profile_run(torch, lambda: run(n))
+    del m, caches
+    torch.cuda.empty_cache()
     return rec
 
 
 # kernel name fragments -> where the device time goes
 _CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
+               ("fused_layer_norm", ("_layer_norm_kernel",)),
                ("fused_rope", ("_rope_kernel",)),
                ("flash_fwd", ("flash_fwd_kernel",)),
                ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
                ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                ("paged_decode", ("paged_decode_kernel",)),
+               ("decode_mha", ("decode_mha_kernel",)),
                ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma",
                                     "sm90_")),
                ("indexing", ("index", "gather", "scatter")),
@@ -767,9 +1146,9 @@ def main(argv=None) -> int:
     ap.add_argument("--record", metavar="PATH",
                     help="write the run's full record there as JSON")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve and train phases, serve again "
-                         "and take one more train step under "
-                         "torch.profiler, and print where the device time "
+                    help="after each serve, generate, train and fused "
+                         "transformer phase, run it once more under "
+                         "torch.profiler and print where the device time "
                          "goes")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the train phase's weights and batch")
@@ -810,6 +1189,7 @@ def main(argv=None) -> int:
     x = torch.randn(2, 4, 8, 128, device=dev, dtype=torch.bfloat16)
     ops.rms_norm(x, torch.ones(128, device=dev, dtype=torch.bfloat16))
     ops.fused_rope(x, x[0, :, 0, :64], x[0, :, 0, 64:])
+    ops.fused_layer_norm(x)
     torch.cuda.synchronize()
     record["phases"]["build"] = time.perf_counter() - t
     log(f"[build] nvcc {build_s:.2f}s, with Triton's first compile "
@@ -819,6 +1199,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     rows, cases = kernel_phase(torch, dev)
     record["kernel_cases"] = cases
+    record["kernel_rows"] = rows
     record["phases"]["kernels"] = time.perf_counter() - t
     for name, r in rows.items():
         lib = ("null" if r["library_ms"] is None
@@ -826,28 +1207,41 @@ def main(argv=None) -> int:
         log(f"  {name:13s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{smi}]")
+    ln_rb = rows["fused_layer_norm"]["residual_bias_ms"]
     log(f"  flash_fwd at the training shape: kernel "
-        f"{rows['flash_fwd']['train_shape_ms']:.4f} ms  [{smi}]")
+        f"{rows['flash_fwd']['train_shape_ms']:.4f} ms; fused_layer_norm "
+        f"with residual and bias {ln_rb:.4f} ms  [{smi}]")
     log(f"[kernels] {record['phases']['kernels']:.1f}s")
     # 4. kernel path against plain path, end to end
     t = time.perf_counter()
     record["e2e"] = e2e_phase(torch, dev, np)
     log(f"[e2e] serve {json.dumps(record['e2e'])}")
+    record["fmt_e2e"] = fmt_e2e_phase(torch, dev)
+    log(f"[e2e] fused transformer {json.dumps(record['fmt_e2e'])}")
     record["train_e2e"] = train_e2e_phase(torch, dev, np)
     record["phases"]["e2e"] = time.perf_counter() - t
     log(f"[e2e] train {json.dumps(record['train_e2e'])}")
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
-    sv = serve_phase(torch, dev, np, profile=args.profile)
-    record["serve"] = sv
+    sv, gn, ds = serve_phase(torch, dev, np, profile=args.profile)
+    record.update(serve=sv, generate=gn, dense_serve=ds)
     record["phases"]["serve"] = time.perf_counter() - t
-    log(f"[serve] {PRESET} x{sv['layers']} bf16: TTFT p50 "
-        f"{sv['ttft_p50_s'] * 1e3:.1f} ms (max "
-        f"{sv['ttft_max_s'] * 1e3:.1f}), TPOT p50 "
-        f"{sv['tpot_p50_s'] * 1e3:.2f} ms, decode "
-        f"{sv['decode_tokens_per_s']:.1f} tok/s, peak "
-        f"{sv['peak_mem_gb']:.1f} GiB  [{smi}]")
+    for what, r in (("paged", sv), ("dense", ds)):
+        log(f"[serve] {PRESET} x{sv['layers']} bf16, {what} engine: TTFT p50 "
+            f"{r['ttft_p50_s'] * 1e3:.1f} ms (max "
+            f"{r['ttft_max_s'] * 1e3:.1f}), TPOT p50 "
+            f"{r['tpot_p50_s'] * 1e3:.2f} ms, decode "
+            f"{r['decode_tokens_per_s']:.1f} tok/s  [{smi}]")
+    log(f"[serve] dense streams part from the paged ones at tokens "
+        f"{ds['first_split_from_paged']} (of 32), where the top-2 logit "
+        f"margins are {ds['split_top2_margins']}; peak "
+        f"{sv['peak_mem_gb']:.1f} GiB")
+    log(f"[serve] {PRESET} generate {gn['batch']} x {gn['prompt_len']} + "
+        f"{gn['max_new_tokens']}: TTFT {gn['ttft_s'] * 1e3:.1f} ms, TPOT "
+        f"{gn['tpot_s'] * 1e3:.2f} ms, decode "
+        f"{gn['decode_tokens_per_s']:.1f} tok/s, peak "
+        f"{gn['peak_mem_gb']:.1f} GiB  [{smi}]")
     log(f"[serve] {record['phases']['serve']:.1f}s")
     # 6. train the 350m configuration
     t = time.perf_counter()
@@ -861,20 +1255,32 @@ def main(argv=None) -> int:
         f"{tr['attention_flops_model']:.4g} attention FLOPs), peak "
         f"{tr['peak_mem_gb']:.2f} GiB, losses {tr['losses']}  [{smi}]")
     log(f"[train] {record['phases']['train']:.1f}s")
+    # 7. the fused transformer at the 6.7B widths
+    t = time.perf_counter()
+    fm = fmt_phase(torch, dev, profile=args.profile)
+    record["fmt"] = fm
+    record["phases"]["fmt"] = time.perf_counter() - t
+    log(f"[fmt] {fm['config']}, batch {fm['batch']}: context pass of "
+        f"{fm['context']} tokens {fm['context_ms']:.1f} ms, decode step "
+        f"{fm['decode_step_ms_median']:.2f} ms (median of "
+        f"{fm['decode_steps']}), {fm['decode_tokens_per_s']:.1f} tok/s, "
+        f"peak {fm['peak_mem_gb']:.1f} GiB  [{smi}]")
+    log(f"[fmt] {record['phases']['fmt']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
     kernels = []
-    for name in ("rms_norm", "fused_rope", "flash_fwd", "paged_decode",
-                 "flash_bwd_dq", "flash_bwd_dkv"):
+    runs = dict(serve=sv, generate=gn, dense_serve=ds, train=tr, fmt=fm)
+    for name in SOURCES:
         r = rows[name]
         route, src = SOURCES[name]
-        by_path = {"serve": sv["launches"][name],
-                   "train": tr["launches"][name]}
+        by_path = {p: runs[p]["launches"][name] for p in PATHS}
         kernels.append({
             "name": name, "route": route, "source": src,
             "replaces": REPLACES[name],
-            # this slice's path (train) where the kernel runs there
-            "launches": by_path["train"] or by_path["serve"],
+            # this slice's paths where the kernel runs there, else the
+            # earlier path that runs it
+            "launches": (sum(by_path[p] for p in SLICE_PATHS)
+                         or by_path["train"] or by_path["serve"]),
             "launches_by_path": by_path, **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

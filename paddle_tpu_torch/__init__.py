@@ -11,20 +11,24 @@ Device policy: entry points run on the CUDA card unless the caller passes
 wrapper takes its plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.
 
-Ported so far: paged greedy serving of the Llama causal LM
-(``models.llama``, ``inference.generation``) and its training, through
-the Layer API (``model(ids, labels).backward()``, with ``recompute``) and
-the functional AdamW step (``models.llama_functional.build_train_step``,
-``optimizer.functional``); their six kernels (``ops``): RMSNorm, rotary
-embedding, flash attention forward with dropout, its two backward kernels,
-paged decode attention.
+Ported so far: greedy inference of the Llama causal LM (``models.llama``,
+``inference.generation``: the offline ``CausalLMEngine.generate`` and the
+dense and paged continuous-batching engines), its training, through the
+Layer API (``model(ids, labels).backward()``, with ``recompute``) and the
+functional AdamW step (``models.llama_functional.build_train_step``,
+``optimizer.functional``), and the incubate ``FusedMultiTransformer``
+(``incubate.nn``); their eight kernels (``ops``): RMSNorm, LayerNorm,
+rotary embedding, flash attention forward with dropout, its two backward
+kernels, paged and dense-cache decode attention.
 """
 from .device import get_device
-from .inference.generation import (GenerationConfig,
+from .inference.generation import (CausalLMEngine, ContinuousBatchingEngine,
+                                   GenerationConfig,
                                    PagedContinuousBatchingEngine)
 from .models import (LlamaConfig, LlamaForCausalLM, build_train_step,
                      llama_config, load_paddle_params, load_stacked_params)
 
 __all__ = ["get_device", "LlamaConfig", "LlamaForCausalLM", "llama_config",
            "load_paddle_params", "load_stacked_params", "build_train_step",
-           "GenerationConfig", "PagedContinuousBatchingEngine"]
+           "GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
+           "PagedContinuousBatchingEngine"]

@@ -21,6 +21,87 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
+__device__ __forceinline__ float to_float(float x) { return x; }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+
+// One tile of single-query decode attention for the `group` query heads
+// that share one kv head (paged_decode.cu: a page; decode_mha.cu: 64 cache
+// rows), folded into their fp32 online softmax (m, l, acc). k and v point
+// at column 0 of the tile's first token; token t's row is t * k_stride (v:
+// v_stride) further on, and `valid` tokens are live. Each K row is loaded
+// once for the whole group: warp w takes tokens w, w + kWarps, ... (lanes
+// across D, kPerLane = D / 32 columns each) and leaves the group's scores in
+// s_sm [group][s_cap]; then thread c < D streams column c of V and keeps
+// column c of each head's accumulator. Values are scaled by kq / vq after
+// the load (int8 pools; 1 otherwise). Both barriers are inside, so every
+// thread of the block must call it.
+template <typename T, int D, int kMaxGroup, int kThreads>
+__device__ __forceinline__ void decode_tile(
+    const T* __restrict__ k, const T* __restrict__ v, long long k_stride,
+    long long v_stride, int valid, float kq, float vq,
+    float (&qv)[kMaxGroup][D / 32], int group, float scale,
+    float* s_sm, int s_cap, float (&m)[kMaxGroup], float (&l)[kMaxGroup],
+    float (&acc)[kMaxGroup]) {
+  constexpr int kPerLane = D / 32;
+  constexpr int kWarps = kThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int t = warp; t < valid; t += kWarps) {
+    const T* krow = k + t * k_stride + lane * kPerLane;
+    float kx[kPerLane];
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) kx[e] = to_float(krow[e]) * kq;
+#pragma unroll
+    for (int g = 0; g < kMaxGroup; ++g) {
+      if (g < group) {  // uniform across the warp
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < kPerLane; ++e) dot = fmaf(qv[g][e], kx[e], dot);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (lane == 0) s_sm[g * s_cap + t] = dot * scale;
+      }
+    }
+  }
+  __syncthreads();
+
+  if (tid < D) {  // one thread per output column
+#pragma unroll
+    for (int g = 0; g < kMaxGroup; ++g) {
+      if (g < group) {
+        float mx = m[g];
+        for (int t = 0; t < valid; ++t) mx = fmaxf(mx, s_sm[g * s_cap + t]);
+        const float alpha = expf(m[g] - mx);
+        acc[g] *= alpha;
+        l[g] *= alpha;
+        m[g] = mx;
+      }
+    }
+    const T* vcol = v + tid;
+    for (int t = 0; t < valid; ++t) {
+      const float vv = to_float(vcol[t * v_stride]) * vq;
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        if (g < group) {
+          const float pr = expf(s_sm[g * s_cap + t] - m[g]);
+          l[g] += pr;
+          acc[g] = fmaf(pr, vv, acc[g]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // the next tile overwrites the scores
+}
 
 // Rows [r0, r0 + kRows) of a [*, D] bf16 operand (row stride in elements,
 // unit stride on D, 16-byte aligned rows) into shared memory, zero past

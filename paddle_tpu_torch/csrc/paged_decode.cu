@@ -22,8 +22,9 @@
 // an online softmax, reading its own page ids from the table. Each K and V
 // row is loaded once for all g query heads of the group: a warp takes one
 // token's K row (lanes across D) and produces the group's g scores, then one
-// thread per output column streams the page's V column. Only the g x
-// page_size scores pass through shared memory. There is no split of a long
+// thread per output column streams the page's V column (ptt::decode_tile in
+// common.cuh, shared with decode_mha.cu). Only the g x page_size scores
+// pass through shared memory. There is no split of a long
 // context over several blocks yet: at B = 8 and 32 kv heads that is 256
 // blocks on 132 SMs, each walking its pages one after the other.
 #include "common.cuh"
@@ -31,7 +32,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;
 constexpr float kQMax = 127.f;  // quantization/kv.py KV_QMAX
 
@@ -49,7 +49,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ float s_sm[];  // [group][page_size] scores of one page
   const int hk = blockIdx.x, b = blockIdx.y;
   const int group = hq / hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int len = lens[b];
   const int n_pages = len <= 0 ? 0 : min((len + page_size - 1) / page_size,
                                          max_pages);
@@ -81,57 +81,10 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         static_cast<long long>(hk) * D;
     const float kq = k_scale ? k_scale[pid * hkv + hk] / kQMax : 1.f;
     const float vq = v_scale ? v_scale[pid * hkv + hk] / kQMax : 1.f;
-    const int t0 = p * page_size;
-    const int valid = min(page_size, len - t0);
-
-    // scores: warp w takes tokens w, w + kWarps, ...
-    for (int t = warp; t < valid; t += kWarps) {
-      const T* krow = k_pool + base + t * tok_stride + lane * kPerLane;
-      float kx[kPerLane];
-#pragma unroll
-      for (int e = 0; e < kPerLane; ++e) kx[e] = ptt::to_float(krow[e]) * kq;
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < group) {  // uniform across the warp
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < kPerLane; ++e) dot = fmaf(qv[g][e], kx[e], dot);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          if (lane == 0) s_sm[g * page_size + t] = dot * scale;
-        }
-      }
-    }
-    __syncthreads();
-
-    if (tid < D) {  // one thread per output column
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < group) {
-          float mx = m[g];
-          for (int t = 0; t < valid; ++t)
-            mx = fmaxf(mx, s_sm[g * page_size + t]);
-          const float alpha = expf(m[g] - mx);
-          acc[g] *= alpha;
-          l[g] *= alpha;
-          m[g] = mx;
-        }
-      }
-      const T* vcol = v_pool + base + tid;
-      for (int t = 0; t < valid; ++t) {
-        const float vv = ptt::to_float(vcol[t * tok_stride]) * vq;
-#pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
-          if (g < group) {
-            const float pr = expf(s_sm[g * page_size + t] - m[g]);
-            l[g] += pr;
-            acc[g] = fmaf(pr, vv, acc[g]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next page overwrites the scores
+    const int valid = min(page_size, len - p * page_size);
+    ptt::decode_tile<T, D, kMaxGroup, kThreads>(
+        k_pool + base, v_pool + base, tok_stride, tok_stride, valid, kq, vq,
+        qv, group, scale, s_sm, page_size, m, l, acc);
   }
 
   if (tid < D) {

@@ -1,7 +1,8 @@
-from .generation import (ContinuousBatchingEngine, GenerationConfig,
-                         PagedContinuousBatchingEngine, prefill_buckets_for)
+from .generation import (CausalLMEngine, ContinuousBatchingEngine,
+                         GenerationConfig, PagedContinuousBatchingEngine,
+                         prefill_buckets_for)
 from .paged_cache import PageAllocator, write_tokens
 
-__all__ = ["GenerationConfig", "ContinuousBatchingEngine",
+__all__ = ["GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
            "PagedContinuousBatchingEngine", "prefill_buckets_for",
            "PageAllocator", "write_tokens"]

@@ -1,22 +1,24 @@
-"""Continuous-batching greedy serving over the paged KV cache.
+"""Greedy generation and continuous-batching serving over dense and paged
+KV caches.
 
-Port of the paged serving path of ``paddle_tpu/inference/generation.py``:
-``GenerationConfig``, length-bucketed prefill, and
-``ContinuousBatchingEngine`` / ``PagedContinuousBatchingEngine`` with
-reserved admission. Requests are admitted into free slots between decode
-SEGMENTS (one prefill each, its KV scattered into the page pool), decode
-runs ``n_steps`` steps over every slot with per-row lengths, and finished
-rows retire between segments.
+Port of ``paddle_tpu/inference/generation.py``: ``GenerationConfig``,
+length-bucketed prefill, the offline batch generator ``CausalLMEngine``,
+and ``ContinuousBatchingEngine`` (dense ``[max_batch, max_len]`` caches,
+one slot per row) / ``PagedContinuousBatchingEngine`` (a shared page pool,
+reserved admission). The engines admit requests into free slots between
+decode SEGMENTS (one prefill each, its KV put into the slot's cache rows or
+pages), decode ``n_steps`` steps over every slot with per-row lengths, and
+retire finished rows between segments.
 
-The reference compiles a segment into one ``lax.scan`` program; here a
-segment is a Python loop over steps whose tokens, lengths and flags stay on
-the device and come back to the host once per segment, as in the
-reference. Bucketed prefill pads exactly as the reference does, so greedy
-streams of the two agree.
+The reference compiles a segment (and ``generate``'s decode loop) into one
+``lax.scan`` program; here each is a Python loop over steps whose tokens,
+lengths and flags stay on the device and come back to the host once per
+segment (once per ``generate``), as in the reference. Bucketed prefill pads
+exactly as the reference does, so greedy streams of the two agree.
 
-Not ported yet: sampled decoding (the port is greedy), optimistic admission and preemption, the prefix cache, chunked prefill,
-int8 pools, speculative decoding, LoRA, tensor parallelism, monitor and
-tracing, and the dense (non-paged) engine's decode.
+Not ported yet: sampled decoding (the port is greedy), chunked prefill,
+speculative decoding, optimistic admission and preemption, the prefix
+cache, int8 pools, LoRA, tensor parallelism, monitor and tracing.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 
 from .paged_cache import PageAllocator, write_tokens
 
-__all__ = ["GenerationConfig", "ContinuousBatchingEngine",
+__all__ = ["GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
            "PagedContinuousBatchingEngine", "prefill_buckets_for"]
 
 _INT32_MAX = 2 ** 31 - 1
@@ -65,7 +67,10 @@ def prefill_buckets_for(spec, max_len: int, floor: int = 16):
 
 
 def _bucket_for(buckets, plen: int) -> int:
-    """Smallest bucket >= plen (buckets sorted, last == max_len)."""
+    """Smallest bucket >= plen (buckets sorted, last == max_len); plen
+    itself when ``buckets`` is None (exact-length prefill)."""
+    if buckets is None:
+        return plen
     for b in buckets:
         if b >= plen:
             return b
@@ -126,16 +131,94 @@ class GenerationConfig:
         self.eos_token_id = None if eos_token_id is None else int(eos_token_id)
 
 
+class CausalLMEngine:
+    """Offline greedy generation for a causal LM exposing ``init_cache`` /
+    ``forward_with_cache``: one bucketed prefill of the whole batch into
+    dense caches of ``max_len``, then one-token steps at ``pos = plen,
+    plen + 1, ...`` (K7 over the cache). Runs on its model's device.
+
+    Usage::
+
+        eng = CausalLMEngine(model, max_batch=8, max_len=2048)
+        out_ids = eng.generate(prompt_ids, GenerationConfig(max_new_tokens=64))
+
+    After each :meth:`generate`, ``generate_stats`` holds ``ttft_s`` (the
+    call to the first tokens on the host), ``decode_s`` (the rest of the
+    call) and ``decode_steps``."""
+
+    def __init__(self, model, max_batch: int, max_len: int,
+                 prefill_buckets="auto"):
+        self.model = model
+        self.device = model.device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.prefill_buckets = prefill_buckets_for(prefill_buckets, max_len)
+        self.generate_stats: Optional[dict] = None
+
+    def generate(self, input_ids,
+                 config: Optional[GenerationConfig] = None) -> np.ndarray:
+        """input_ids [B, prompt_len] (tensor, ndarray or nested lists).
+        Returns int32 [B, prompt_len + max_new_tokens]: the prompt, then
+        the greedy tokens; a row that emits eos stays on eos."""
+        cfg = config or GenerationConfig()
+        if isinstance(input_ids, torch.Tensor):
+            input_ids = input_ids.detach().cpu().numpy()
+        ids = np.asarray(input_ids).astype(np.int32)
+        b, plen = ids.shape
+        if b > self.max_batch:
+            raise ValueError(f"batch {b} exceeds max_batch={self.max_batch} "
+                             f"the engine was built for")
+        if plen + cfg.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt({plen}) + max_new_tokens({cfg.max_new_tokens}) "
+                f"exceeds engine max_len({self.max_len})")
+        t0 = time.perf_counter()
+        width = _bucket_for(self.prefill_buckets, plen)
+        with torch.no_grad():
+            caches = self.model.init_cache(b, self.max_len)
+            logits, caches = self.model.forward_with_cache(
+                torch.tensor(_pad_ids(ids, width), device=self.device),
+                caches, 0)
+            tok = _sample_rows(logits[:, plen - 1])
+            first = tok.cpu().numpy()[:, None]     # on the host: TTFT ends
+            t1 = time.perf_counter()
+            eos = cfg.eos_token_id
+            done = (tok == eos if eos is not None
+                    else torch.zeros_like(tok, dtype=torch.bool))
+            toks = []
+            for pos in range(plen, plen + cfg.max_new_tokens - 1):
+                logits, caches = self.model.forward_with_cache(
+                    tok[:, None], caches, pos)
+                tok = _sample_rows(logits[:, 0])
+                if eos is not None:
+                    tok = torch.where(done, eos, tok)
+                    done = done | (tok == eos)
+                toks.append(tok)
+            rest = (torch.stack(toks, 1).cpu().numpy() if toks
+                    else np.zeros((b, 0), np.int32))
+        gen = np.concatenate([first, rest], axis=1)
+        self.generate_stats = {"ttft_s": t1 - t0,
+                               "decode_s": time.perf_counter() - t1,
+                               "decode_steps": cfg.max_new_tokens - 1}
+        return np.concatenate([ids, gen], axis=1)
+
+
 class ContinuousBatchingEngine:
     """Continuous batching over ``max_batch`` cache slots, each with its
     own length: admission and retirement happen between decode segments,
     so new work starts without waiting for the longest running request.
 
-    This base class holds the admission, decode-segment and serve logic;
-    the cache layout hooks (``_make_caches``, ``_admit_cache``,
-    ``_fwd_decode``) belong to a subclass. Only the paged layout is ported
-    (:class:`PagedContinuousBatchingEngine`). The engine runs on its
-    model's device.
+    This class holds the admission, decode-segment and serve logic, and
+    the dense cache layout: per-layer caches ``[max_batch, max_len, Hkv,
+    hd]``, slot s owning row s; a request prefills at its bucket width
+    straight into its slot's rows, and each decode step is the model's
+    ``forward_decode_ragged`` (K7 with per-row lengths). Rows past a
+    request's length may hold an earlier request's K/V: every read is
+    masked by the length and decode overwrites them, as the reference's
+    zero rows past the bucket are. :class:`PagedContinuousBatchingEngine`
+    replaces the layout hooks (``_make_caches``, ``_admit_cache``,
+    ``_fwd_decode``) with a page pool. The engine runs on its model's
+    device.
 
     Host-side counters: ``prefills`` and ``decode_steps`` count the model
     forwards run; ``serve_stats`` holds the timings of the last
@@ -172,17 +255,21 @@ class ContinuousBatchingEngine:
         self.eos = torch.full((mb,), -1, dtype=torch.int32, device=dev)
         self._free = list(range(mb))
 
-    # -- cache layout hooks (the paged subclass implements them) -------------
+    # -- cache layout hooks (dense here; the paged subclass replaces them) ---
     def _make_caches(self):
-        raise NotImplementedError(
-            "the dense-cache engine is not ported yet: use "
-            "PagedContinuousBatchingEngine")
+        return self.model.init_cache(self.max_batch, self.max_len)
 
     def _admit_cache(self, slot: int, ids, plen: int, cfg):
-        raise NotImplementedError
+        """Prefill the prompt at its bucket width straight into the slot's
+        rows of every layer cache; returns the last-position logits."""
+        rows = [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.caches]
+        last_logits, _ = self._run_prefill(ids, plen, rows)
+        return last_logits
 
     def _fwd_decode(self, tok, lens, live):
-        raise NotImplementedError
+        logits, self.caches = self.model.forward_decode_ragged(
+            tok, self.caches, lens, live)
+        return logits
 
     # -- admission / retirement (host-side, between segments) ---------------
     def _can_admit(self, prompt_len: int, cfg) -> bool:
@@ -248,8 +335,6 @@ class ContinuousBatchingEngine:
         return rid
 
     def _prefill_width(self, plen: int) -> int:
-        if self.prefill_buckets is None:
-            return plen
         return _bucket_for(self.prefill_buckets, plen)
 
     def _run_prefill(self, ids: np.ndarray, plen: int, mini):

@@ -7,20 +7,24 @@ with the reference's layouts: activations ``[B, S, H, D]``, linear weights
 
 Kernels on the path (each a Hopper kernel on the card, its plain version on
 the CPU): RMSNorm -> K1 ``rms_norm``; RoPE over the shared position tables
-(training and prefill) -> K2 ``fused_rope``; training and prefill attention
--> K3 flash forward, with the ``flash_bwd_dq``/``flash_bwd_dkv`` kernels in
-its backward; decode attention over the page pool -> K4
-``paged_decode_mha``. The per-row RoPE of a decode step stays plain torch,
-as it is plain jnp in the reference. Every kernel wrapper on the training
-path is differentiable, so ``model(ids, labels).backward()`` reaches every
+(training, prefill and the S == 1 step of ``forward_with_cache``) -> K2
+``fused_rope``; training and prefill attention -> K3 flash forward, with
+the ``flash_bwd_dq``/``flash_bwd_dkv`` kernels in its backward; decode
+attention over the page pool -> K4 ``paged_decode_mha``, over a dense cache
+-> K7 ``decode_mha`` (through ``ops._decode.gqa_decode_attention``). The
+per-row RoPE of a ragged or paged decode step stays plain torch, as it is
+plain jnp in the reference. Every kernel wrapper on the training path is
+differentiable, so ``model(ids, labels).backward()`` reaches every
 parameter; ``config.recompute = "full"`` recomputes each decoder layer in
 the backward (``distributed.fleet.recompute``) while the model trains.
 
-Serving forwards ported in this slice: ``forward_with_cache`` at
-``pos == 0`` (fresh prefill into a dense cache) and ``forward_decode_paged``
-over bf16 (model-dtype) page pools. Chunked prefill at an offset, int8
-pools, the dense ragged decode, speculative verify, LoRA and tensor
-parallelism are not ported yet and raise or are absent.
+Serving forwards ported: ``forward_with_cache`` as a fresh prefill
+(``pos == 0``) or a one-token step at any ``pos`` into a dense cache,
+``forward_decode_ragged`` (per-row lengths over a dense cache) and
+``forward_decode_paged`` over bf16 (model-dtype) page pools. Chunked
+prefill at an offset, int8 pools, speculative verify, LoRA and tensor
+parallelism are not ported yet and raise or are absent. Cache writes
+happen in place.
 
 Page pools carry one extra SINK page at index ``num_pages``: the
 reference's ``pool.at[page, offs].set(..., mode="drop")`` drops writes of
@@ -43,6 +47,7 @@ from ..distributed.mp_layers import (ColumnParallelLinear,
                                      ParallelCrossEntropy, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..nn.layer.norm import RMSNorm
+from ..ops._decode import gqa_decode_attention
 from ..ops.attention import flash_attention
 from ..ops.fused_kernels import fused_rope
 from ..ops.paged_attention import paged_decode_mha
@@ -169,21 +174,63 @@ class LlamaAttention(nn.Module):
         qh, kh, vh = self._qkv(x, cos, sin)
         return self._out(flash_attention(qh, kh, vh, causal=True))
 
-    def forward_with_cache(self, x, cos_full, sin_full, cache: Cache,
-                           pos: int):
-        """Fresh prefill: write the prompt's K/V into the dense cache
-        ``(k, v)`` [B, S_max, Hkv, hd] at [0, S) IN PLACE and attend
-        causally over the prompt alone (K3). Returns (out, cache)."""
+    def forward_with_cache(self, x, cos_full, sin_full, cache: Cache, pos):
+        """Attend over the dense cache ``(k, v)`` [B, S_max, Hkv, hd],
+        writing this call's K/V IN PLACE at [pos, pos + S). S == 1 is a
+        decode step at any ``pos`` (a Python int or a 0-d tensor): every
+        row attends [0, pos] through K7. S > 1 is a fresh prefill (pos ==
+        0): causal attention over the prompt alone (K3). Returns (out,
+        cache)."""
+        b, s = x.shape[0], x.shape[1]
+        kc, vc = cache
+        if s == 1:
+            if isinstance(pos, torch.Tensor):
+                at = pos.reshape(1).long().to(x.device)
+                qh, kh, vh = self._qkv(x, cos_full.index_select(0, at),
+                                       sin_full.index_select(0, at))
+                kc.index_copy_(1, at, kh.to(kc.dtype))
+                vc.index_copy_(1, at, vh.to(vc.dtype))
+                lens = (at + 1).to(torch.int32).expand(b)
+            else:
+                qh, kh, vh = self._qkv(x, cos_full[pos:pos + 1],
+                                       sin_full[pos:pos + 1])
+                kc[:, pos] = kh[:, 0].to(kc.dtype)
+                vc[:, pos] = vh[:, 0].to(vc.dtype)
+                lens = torch.full((b,), pos + 1, dtype=torch.int32,
+                                  device=x.device)
+            ctx = gqa_decode_attention(qh[:, 0], kc, vc, lens)
+            return self._out(ctx[:, None]), cache
         if not (isinstance(pos, int) and pos == 0):
             raise NotImplementedError(
-                "forward_with_cache at pos != 0 (chunked prefill, "
-                "prefix_chunk_attention) is not ported yet")
-        s = x.shape[1]
+                "forward_with_cache with S > 1 at pos != 0 (chunked "
+                "prefill, prefix_chunk_attention) is not ported yet")
         qh, kh, vh = self._qkv(x, cos_full[:s], sin_full[:s])
-        kc, vc = cache
         kc[:, :s] = kh.to(kc.dtype)
         vc[:, :s] = vh.to(vc.dtype)
         return self._out(flash_attention(qh, kh, vh, causal=True)), cache
+
+    def forward_decode_ragged(self, x, cos_full, sin_full, cache: Cache,
+                              lens, live):
+        """One decode step with per-row lengths over the dense cache. x [B,
+        1, h]; lens [B] int32 tokens already in each row's cache; live [B]
+        bool. Row b rotates and writes its K/V at min(lens[b], S_max - 1)
+        IN PLACE (a dead row re-writes the cell it read) and attends
+        lens[b] + live[b] positions (K7). Returns (out, cache)."""
+        b = x.shape[0]
+        kc, vc = cache
+        idx = lens.clamp(max=kc.shape[1] - 1).long()
+        c = cos_full[idx][:, None, None, :]         # [B, 1, 1, d2] per row
+        sn = sin_full[idx][:, None, None, :]
+        qh, kh, vh = self._qkv(x, c, sn)
+        ar = torch.arange(b, device=idx.device)
+        keep = live[:, None, None]
+        kw = torch.where(keep, kh[:, 0].to(kc.dtype), kc[ar, idx])
+        vw = torch.where(keep, vh[:, 0].to(vc.dtype), vc[ar, idx])
+        kc[ar, idx] = kw
+        vc[ar, idx] = vw
+        ctx = gqa_decode_attention(qh[:, 0], kc, vc,
+                                   lens + live.to(lens.dtype))
+        return self._out(ctx[:, None]), cache
 
     def forward_decode_paged(self, x, cos_full, sin_full, cache: Cache,
                              page_table, lens, live):
@@ -244,6 +291,13 @@ class LlamaDecoderLayer(nn.Module):
     def forward_with_cache(self, x, cos_full, sin_full, cache, pos):
         attn, cache = self.self_attn.forward_with_cache(
             self.input_layernorm(x), cos_full, sin_full, cache, pos)
+        x = x + attn
+        return x + self.mlp(self.post_attention_layernorm(x)), cache
+
+    def forward_decode_ragged(self, x, cos_full, sin_full, cache, lens,
+                              live):
+        attn, cache = self.self_attn.forward_decode_ragged(
+            self.input_layernorm(x), cos_full, sin_full, cache, lens, live)
         x = x + attn
         return x + self.mlp(self.post_attention_layernorm(x)), cache
 
@@ -312,6 +366,16 @@ class LlamaModel(nn.Module):
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.forward_with_cache(x, cos_full, sin_full, cache,
                                                 pos)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
+
+    def forward_decode_ragged(self, input_ids, caches, lens, live):
+        x = self.embed_tokens(input_ids)
+        cos_full, sin_full = self._tables(caches[0][0].shape[1], x)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.forward_decode_ragged(x, cos_full, sin_full,
+                                                   cache, lens, live)
             new_caches.append(cache)
         return self.norm(x), new_caches
 
@@ -388,8 +452,16 @@ class LlamaForCausalLM(nn.Module):
         return self.model.init_cache(batch_size, max_len)
 
     def forward_with_cache(self, input_ids, caches, pos):
-        """(logits [B, S, V], caches) of a fresh prefill (pos == 0)."""
+        """(logits [B, S, V], caches): a fresh prefill (pos == 0) or a
+        one-token step at ``pos`` (see LlamaAttention.forward_with_cache)."""
         hidden, caches = self.model.forward_with_cache(input_ids, caches, pos)
+        return self.logits(hidden), caches
+
+    def forward_decode_ragged(self, input_ids, caches, lens, live):
+        """(logits [B, 1, V], caches): one decode step with per-row lengths
+        over dense caches (see LlamaAttention.forward_decode_ragged)."""
+        hidden, caches = self.model.forward_decode_ragged(input_ids, caches,
+                                                          lens, live)
         return self.logits(hidden), caches
 
     def init_paged_cache(self, num_pages: int, page_size: int):

@@ -1,18 +1,20 @@
-"""K1 ``rms_norm`` and K2 ``fused_rope``: Triton kernels beside their plain
-PyTorch versions.
+"""K1 ``rms_norm``, K8 ``fused_layer_norm`` and K2 ``fused_rope``: Triton
+kernels beside their plain PyTorch versions.
 
 Port of ``paddle_tpu/ops/pallas_kernels.py::rms_norm`` (``_rms_kernel``,
-pallas_call at :67) and ``::fused_rope`` (``_rope_kernel``, pallas_call at
-:245). Both are single passes that read each input once and write each
-output once, with no tensor-core work and no reuse to stage in shared
-memory: memory bandwidth bounds them, and Triton's one-program-per-row form
-says that directly, which is why these two are Triton and not CUDA C++.
+pallas_call at :67), ``::fused_layer_norm`` (``_ln_kernel``, pallas_call in
+``_ln_fwd_impl`` at :144) and ``::fused_rope`` (``_rope_kernel``,
+pallas_call at :245). All three are single passes that read each input once
+and write each output once, with no tensor-core work and no reuse to stage
+in shared memory: memory bandwidth bounds them, and Triton's
+one-program-per-row form says that directly, which is why they are Triton
+and not CUDA C++.
 
-Both are differentiable, as the JAX package's ``custom_vjp``s are: the
-RMSNorm backward is a plain PyTorch copy of ``_rms_vjp_bwd`` (:88-100, XLA
-in the JAX package, so no kernel is owed), and the RoPE backward runs K2
-again on (dO, cos, -sin), a rotation by -theta (``_rope_vjp_bwd``,
-:269-273).
+All are differentiable, as the JAX package's ``custom_vjp``s are: the
+RMSNorm and LayerNorm backwards are plain PyTorch copies of
+``_rms_vjp_bwd`` (:88-100) and ``_ln_vjp_bwd`` (:173-197), XLA in the JAX
+package, so no kernel is owed; the RoPE backward runs K2 again on (dO, cos,
+-sin), a rotation by -theta (``_rope_vjp_bwd``, :269-273).
 
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises. ``triton`` is imported inside the launch, so
@@ -22,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm", "rms_norm_ref", "fused_rope", "fused_rope_ref"]
+__all__ = ["rms_norm", "rms_norm_ref", "fused_layer_norm",
+           "fused_layer_norm_ref", "fused_rope", "fused_rope_ref"]
 
 tl = None      # triton.language, bound by _jit at the first launch
 _kernels = {}
@@ -143,6 +146,149 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 
 rms_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: LayerNorm with optional bias and residual
+# ---------------------------------------------------------------------------
+
+
+def _ln_input(x, residual, bias):
+    """z = x [+ bias] [+ residual] in fp32, the order of ``_ln_kernel``."""
+    z = x.float()
+    if bias is not None:
+        z = z + bias.float()
+    if residual is not None:
+        z = z + residual.float()
+    return z
+
+
+def fused_layer_norm_ref(x: torch.Tensor, residual=None, bias=None,
+                         gamma=None, beta=None,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of K8: LN(x [+ bias] [+ residual]) * gamma + beta over
+    the last dim, two-pass fp32 mean and variance, cast to x's dtype at the
+    end (``_ln_kernel``'s math). gamma and beta default to ones and
+    zeros."""
+    z = _ln_input(x, residual, bias)
+    zc = z - z.mean(-1, keepdim=True)
+    y = zc * torch.rsqrt(zc.pow(2).mean(-1, keepdim=True) + eps)
+    if gamma is not None:
+        y = y * gamma.float()
+    if beta is not None:
+        y = y + beta.float()
+    return y.to(x.dtype)
+
+
+def _layer_norm_kernel(x_ptr, r_ptr, b_ptr, g_ptr, beta_ptr, y_ptr,
+                       x_row_stride, r_row_stride, y_row_stride, n_cols, eps,
+                       HAS_RES: tl.constexpr, HAS_BIAS: tl.constexpr,
+                       BLOCK: tl.constexpr):
+    row = tl.program_id(0)
+    cols = tl.arange(0, BLOCK)
+    mask = cols < n_cols
+    z = tl.load(x_ptr + row * x_row_stride + cols, mask=mask,
+                other=0.0).to(tl.float32)
+    if HAS_BIAS:
+        z += tl.load(b_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+    if HAS_RES:
+        z += tl.load(r_ptr + row * r_row_stride + cols, mask=mask,
+                     other=0.0).to(tl.float32)
+    mean = tl.sum(z, axis=0) / n_cols
+    zc = tl.where(mask, z - mean, 0.0)      # padded lanes stay out of var
+    rstd = tl.rsqrt(tl.sum(zc * zc, axis=0) / n_cols + eps)
+    g = tl.load(g_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+    beta = tl.load(beta_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+    tl.store(y_ptr + row * y_row_stride + cols,
+             (zc * rstd * g + beta).to(y_ptr.dtype.element_ty), mask=mask)
+
+
+def _rows(t: torch.Tensor, h: int) -> torch.Tensor:
+    t2 = t.reshape(-1, h)
+    return t2 if t2.stride(-1) == 1 else t2.contiguous()
+
+
+def _layer_norm_fwd(x: torch.Tensor, residual, bias, gamma: torch.Tensor,
+                    beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """K8 on a CUDA tensor, its plain version on a CPU tensor."""
+    h = x.shape[-1]
+    if (gamma.shape != (h,) or beta.shape != (h,)
+            or (bias is not None and bias.shape != (h,))
+            or (residual is not None and residual.shape != x.shape)):
+        raise ValueError(f"fused_layer_norm: residual, bias, gamma and beta "
+                         f"must match x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return fused_layer_norm_ref(x, residual, bias, gamma, beta, eps)
+    _require_cuda("fused_layer_norm", x, gamma, beta,
+                  *[t for t in (residual, bias) if t is not None])
+    x2 = _rows(x, h)
+    r2 = _rows(residual, h) if residual is not None else x2
+    y = torch.empty((x2.shape[0], h), dtype=x.dtype, device=x.device)
+    if x2.shape[0]:
+        block = _next_pow2(h)
+        with torch.cuda.device(x.device):
+            _jit(_layer_norm_kernel)[(x2.shape[0],)](
+                x2, r2, (bias if bias is not None else gamma).contiguous(),
+                gamma.contiguous(), beta.contiguous(), y, x2.stride(0),
+                r2.stride(0), y.stride(0), h, float(eps),
+                HAS_RES=residual is not None, HAS_BIAS=bias is not None,
+                BLOCK=block, num_warps=min(max(block // 512, 1), 16))
+        fused_layer_norm.launches += 1
+    return y.reshape(x.shape)
+
+
+def _layer_norm_bwd(x, residual, bias, gamma, g, eps: float):
+    """(dx, dresidual, dbias, dgamma, dbeta): a plain copy of
+    ``_ln_vjp_bwd`` (:173-197), fp32 throughout, each cast once."""
+    h = x.shape[-1]
+    z = _ln_input(x, residual, bias)
+    zc = z - z.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(zc.pow(2).mean(-1, keepdim=True) + eps)
+    xhat = zc * rstd
+    gf = g.float()
+    dgamma = (gf * xhat).reshape(-1, h).sum(0)
+    dbeta = gf.reshape(-1, h).sum(0)
+    dxhat = gf * gamma.float()
+    dz = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dres = dz.to(residual.dtype) if residual is not None else None
+    dbias = (dz.reshape(-1, h).sum(0).to(bias.dtype) if bias is not None
+             else None)
+    return (dz.to(x.dtype), dres, dbias, dgamma.to(gamma.dtype),
+            dbeta.to(gamma.dtype))
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, residual, bias, gamma, beta, eps):
+        ctx.save_for_backward(x, residual, bias, gamma)
+        ctx.eps = eps
+        return _layer_norm_fwd(x, residual, bias, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, residual, bias, gamma = ctx.saved_tensors
+        return (*_layer_norm_bwd(x, residual, bias, gamma, g, ctx.eps), None)
+
+
+def fused_layer_norm(x: torch.Tensor, residual=None, bias=None, gamma=None,
+                     beta=None, eps: float = 1e-5) -> torch.Tensor:
+    """LN(x [+ bias] [+ residual]) * gamma + beta over x [..., H] (K8): one
+    Triton program per row, the same form as K1 (a row reduction and an
+    elementwise pass, memory-bound, no tensor-core work: why Triton and not
+    CUDA C++). gamma and beta default to ones and zeros of x's dtype, as in
+    ``pallas_kernels.fused_layer_norm`` (:209-213). Differentiable in every
+    tensor; the backward is plain PyTorch, as it is XLA in the JAX
+    package."""
+    h = x.shape[-1]
+    if gamma is None:
+        gamma = torch.ones(h, dtype=x.dtype, device=x.device)
+    if beta is None:
+        beta = torch.zeros(h, dtype=x.dtype, device=x.device)
+    return _LayerNorm.apply(x, residual, bias, gamma, beta, eps)
+
+
+fused_layer_norm.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -131,12 +131,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_library_names_follow_the_sources():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["flash_bwd", "flash_fwd", "paged_decode"]
+    assert names == ["decode_mha", "flash_bwd", "flash_fwd", "paged_decode"]
     paths = [_build.library_path(n) for n in names]
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert all(p.name.startswith(f"{n}-") for n, p in zip(names, paths))
-    assert len(set(paths)) == 3
-    assert _build.library_path("flash_bwd") == paths[0]      # stable hash
+    assert len(set(paths)) == 4
+    assert _build.library_path("flash_bwd") == paths[1]      # stable hash
 
 
 def _run_smoke(cwd):
@@ -172,7 +172,14 @@ def test_public_names():
             assert getattr(mod, name) is not None
     assert set(ops.KERNELS) == {"rms_norm", "fused_rope", "flash_fwd",
                                 "paged_decode", "flash_bwd_dq",
-                                "flash_bwd_dkv"}
+                                "flash_bwd_dkv", "decode_mha",
+                                "fused_layer_norm"}
+    assert {"CausalLMEngine", "ContinuousBatchingEngine"} <= set(
+        paddle_tpu_torch.__all__)
+    from paddle_tpu_torch.incubate import nn as incubate_nn
+    for mod in (incubate_nn, incubate_nn.functional):
+        for name in mod.__all__:
+            assert getattr(mod, name) is not None
 
 
 @pytest.mark.parametrize("module", [
@@ -183,3 +190,29 @@ def test_training_modules_are_checked(module):
     """The modules of the training slice are among the sources the
     no-JAX checks read."""
     assert ROOT / module in _sources()
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch/ops/decode_attention.py",
+    "paddle_tpu_torch/ops/_decode.py",
+    "paddle_tpu_torch/ops/fused_kernels.py",
+    "paddle_tpu_torch/incubate/__init__.py",
+    "paddle_tpu_torch/incubate/nn/__init__.py",
+    "paddle_tpu_torch/incubate/nn/functional/__init__.py",
+    "paddle_tpu_torch/incubate/nn/layer/__init__.py",
+    "paddle_tpu_torch/incubate/nn/layer/fused_transformer.py"])
+def test_dense_inference_modules_are_checked(module):
+    """The modules of the dense-cache inference slice are among the
+    sources the no-JAX checks read."""
+    assert ROOT / module in _sources()
+
+
+def test_decode_kernel_source_is_built_and_standalone():
+    """``csrc/decode_mha.cu`` is one of the sources ``build_all`` compiles,
+    includes nothing of PyTorch (plain C entry points, ctypes) and names
+    the TPU kernel it replaces."""
+    src = (_build.CSRC / "decode_mha.cu").read_text()
+    assert "decode_mha" in [p.stem for p in _build.CSRC.glob("*.cu")]
+    assert "torch" not in src and '#include "common.cuh"' in src
+    assert "pallas_kernels.py::decode_mha" in src
+    assert 'extern "C" int NAME' in src

@@ -228,9 +228,12 @@ def test_cpu_calls_do_not_count_as_launches():
                          torch.ones(2, dtype=torch.int32))
     out, lse = ops.flash_attention_bshd(x, x, x, causal=True)
     ops.flash_attention_bwd(x, x, x, out, lse, x, True)
+    ops.decode_mha(x[:, 0], x, x, torch.ones(2, dtype=torch.int32))
+    ops.fused_layer_norm(x, x)
     assert ops.launch_counts() == {"rms_norm": 0, "fused_rope": 0,
                                    "flash_fwd": 0, "paged_decode": 0,
-                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                   "decode_mha": 0, "fused_layer_norm": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
@@ -255,3 +258,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         ops.flash_attention_bwd_dq(x, x, x, x, lse, lse)
     with pytest.raises(ValueError):
         ops.flash_attention_bwd_dkv(x, x, x, x, lse, lse)
+    with pytest.raises(ValueError):
+        ops.decode_mha(x[:, 0], x, x, n)
+    with pytest.raises(ValueError):
+        ops.fused_layer_norm(x, x)
