@@ -16,10 +16,16 @@ Phases, each timed, none caught and passed over:
    with and without residual and bias and at a hidden size that is not a
    power of two, the flash forward with dropout, and the two flash
    backward kernels at the training shape (8 x 2048, 8 heads of 128,
-   causal) and at GQA, ragged, Sq < Sk, Sq > Sk and dropout variants, with
-   the tolerance stated; then each one's time beside its bound, its plain
-   version's and a library call's where one PyTorch call computes the same
-   function;
+   causal) and at GQA, ragged, Sq < Sk, Sq > Sk and dropout variants,
+   ``fused_linear_param_grad_add`` at the seven linears of a Llama-2-7B
+   layer (4096 tokens) and ragged, fp32 and bf16/fp16-dweight variants,
+   ``grouped_matmul`` at the ERNIE-MoE "large" expert GEMMs (8192 rows, 64
+   groups of skewed sizes, empty ones included, fp32 and bf16 out), the
+   stock-layout ``paged_attention`` at the 7B decode shape (MHA, GQA, soft
+   cap) and the head-batched flash route at the training shape (forward
+   and backward, bitwise the per-head kernels' result), with the tolerance
+   stated; then each one's time beside its bound, its plain version's and
+   a library call's where one PyTorch call computes the same function;
 4. kernel against plain, end to end: the 7B widths at 2 layers, served once
    on the card (kernels) and once on the CPU (plain versions), same weights
    and prompts, through the paged engine, ``CausalLMEngine.generate`` and
@@ -31,7 +37,10 @@ Phases, each timed, none caught and passed over:
    that position; then the training configuration's widths at 2 layers,
    one Layer-API backward and one AdamW train step on the card and on the
    CPU from the same weights and batch: loss, gradients and updated
-   parameters within stated tolerances;
+   parameters within stated tolerances; then the card's step once more
+   from the same weights with ``FLAGS_flash_head_batched`` on: the route
+   taken at every flash forward, and loss, gradients and parameters
+   bitwise those of the step without the flag;
 5. serve: the ``"7b"`` preset at full depth (32 layers, bf16, random
    weights from a seeded generator) through
    ``PagedContinuousBatchingEngine.serve``: 8 prompts of 100-700 tokens,
@@ -47,12 +56,24 @@ Phases, each timed, none caught and passed over:
    ``TRAIN_STEPS`` timed ones on one batch made from ``--seed``: step time,
    tokens/s, MFU and peak memory; the loss must be finite at every step and
    fall; every kernel's launch count over the timed steps is held against
-   the count the path implies;
+   the count the path implies; then one more step with
+   ``FLAGS_flash_head_batched`` on, timed, its launch and route counts
+   held against the path's;
 7. fused transformer: ``incubate.nn.FusedMultiTransformer`` at the GPT-3
    6.7B widths (``FMT``: hidden 4096, 32 layers, 32 heads, FFN 16384,
    bf16): a 512-token context pass of batch 8 into caches of 1024, then
    ``FMT["steps"]`` decode steps at ragged ``seq_lens``; every output
-   finite, launch counts held against the path's.
+   finite, launch counts held against the path's;
+8. kernel ops, this slice's main path: the JAX package's public kernel ops
+   at full widths, through the port's entry points: the main-gradient
+   accumulation of one Llama-2-7B decoder layer's seven linears
+   (``fused_linear_param_grad_add``), the expert FFN of an ERNIE-MoE
+   "large" layer on 4096 routed tokens (two ``grouped_matmul``), one
+   decode step of the 7B model's 32 layers through the stock
+   ``paged_attention`` and one attention forward and backward at the
+   training shape under ``FLAGS_flash_head_batched``; launch and route
+   counts held against the path's, outputs finite and held against the
+   plain versions.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -88,6 +109,21 @@ DENSE = dict(max_batch=8, max_len=1024)
 FMT = dict(hidden=4096, layers=32, heads=32, ffn=16384, batch=8, context=512,
            max_len=1024, steps=32)
 FMT_E2E = dict(layers=2, batch=1, seq=128, steps=8)   # phase 4's twin
+# phases 3 and 8: fused_linear_param_grad_add at the seven linears of one
+# decoder layer of the PRESET model over a batch of 8 x 512 tokens
+GRAD_ADD_TOKENS = (8, 512)
+# ERNIE-MoE "large" (paddle_tpu/models/ernie.py:56-61: hidden 1024, 64
+# experts, FFN 4 x hidden) routing 4096 tokens to 2 experts each: 8192 rows
+MOE = dict(hidden=1024, ffn=4096, experts=64, top_k=2, tokens=4096)
+# the stock-layout paged_attention at the serve shape of the paged_decode
+# row (pools [Hkv, pages, page, D]), pages_per_compute_block 8, and the
+# soft cap of its capped case; phase 8 decodes one step of all layers
+# K4's serve batch in phase 3 (8 rows, page 16, up to 1024 tokens, one
+# dead row) over a pool of 512 pages
+PAGED = dict(page=16, max_pages=64, pages=512,
+             lens=[1024, 900, 733, 512, 300, 129, 17, 0])
+STOCK = dict(page=16, pages=512, pages_per_seq=64, ppcb=8, soft_cap=5.0,
+             lens=[1024, 900, 733, 512, 300, 129, 17, 0])
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor cores, and
 # fp32 outside the tensor cores
@@ -118,6 +154,17 @@ BF16_STEP = 2.0 ** -7
 # the fp32 sum-order error. fused_layer_norm is held as rms_norm (outputs
 # near 1 after normalization; a wrong mean, variance or padded lane moves
 # them by far more than one bf16 step).
+# fused_linear_param_grad_add and grouped_matmul sum products of bf16
+# inputs, exact in fp32, in fp32 over T = 4096 or K = 1024-4096 terms;
+# with unit inputs the outputs are of order sqrt(T) = 64 (up to about 300),
+# and the two sides' sums, in other orders, differ by a few fp32 ulps of the
+# partial sums per element: the largest of 16-45M outputs came to 2.1e-3 on
+# the card, so atol is 1e-2. A bf16 accumulator (2^-9 of a running sum near
+# 60 at each of 128 chunks, about 1 in all), a dropped chunk of 32 T or K
+# terms (about 6) or rows multiplied by another group's weights (about 40)
+# miss it by two orders of magnitude or more. grouped_matmul's bf16 output:
+# one bf16 step. The stock paged_attention runs K4 and the head-batched
+# route K3/K5/K6: their limits.
 TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "fused_rope": dict(atol=1e-3, rtol=BF16_STEP),
        "flash_fwd": dict(atol=1e-4, rtol=BF16_STEP),
@@ -125,7 +172,12 @@ TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "flash_bwd_dq": dict(atol=1e-4, rtol=BF16_STEP),
        "flash_bwd_dkv": dict(atol=1e-4, rtol=BF16_STEP),
        "decode_mha": dict(atol=1e-4, rtol=BF16_STEP),
-       "fused_layer_norm": dict(atol=1e-3, rtol=BF16_STEP)}
+       "fused_layer_norm": dict(atol=1e-3, rtol=BF16_STEP),
+       "grad_add": dict(atol=1e-2, rtol=1e-5),
+       "grouped_matmul": dict(atol=1e-2, rtol=1e-5),
+       "grouped_matmul_bf16": dict(atol=1e-3, rtol=BF16_STEP),
+       "paged_attention": dict(atol=1e-4, rtol=BF16_STEP),
+       "flash_hb": dict(atol=1e-4, rtol=BF16_STEP)}
 LSE_ATOL = 1e-3                 # fp32 log-sum-exp, a few fp32 ulps of work
 # end to end (phase 4): bf16 activations on both sides, matmuls accumulated
 # in another order on the card than on the CPU; logits near 5-8 resolve to
@@ -160,6 +212,10 @@ REPLACES = {
     "flash_bwd_dkv": "paddle_tpu/ops/flash_attention_kernel.py:519",
     "decode_mha": "paddle_tpu/ops/pallas_kernels.py:368",
     "fused_layer_norm": "paddle_tpu/ops/pallas_kernels.py:144",
+    "grad_add": "paddle_tpu/ops/pallas_kernels.py:439",
+    "grouped_matmul": "paddle_tpu/ops/pallas.py:231",
+    "flash_hb": "paddle_tpu/ops/flash_attention_hb.py:167",
+    "paged_attention": "paddle_tpu/ops/pallas.py:216",
 }
 SOURCES = {
     "rms_norm": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
@@ -170,9 +226,18 @@ SOURCES = {
     "flash_bwd_dkv": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu"),
     "decode_mha": ("cuda", "paddle_tpu_torch/csrc/decode_mha.cu"),
     "fused_layer_norm": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
+    "grad_add": ("cuda", "paddle_tpu_torch/csrc/grad_add.cu"),
+    "grouped_matmul": ("cuda", "paddle_tpu_torch/csrc/grouped_matmul.cu"),
 }
-PATHS = ("serve", "generate", "dense_serve", "train", "fmt")
-SLICE_PATHS = ("generate", "dense_serve", "fmt")     # this slice's own
+# the routes onto kernels of another row (their calls, not launches)
+ROUTE_SOURCES = {
+    "flash_hb": ("cuda", "paddle_tpu_torch/ops/flash_attention_hb.py"),
+    "paged_attention": ("cuda", "paddle_tpu_torch/ops/paged_attention.py"),
+}
+PATHS = ("serve", "generate", "dense_serve", "train", "fmt", "train_hb",
+         "ops")
+SLICE_PATHS = ("ops", "train_hb")                     # this slice's own
+EARLIER_PATHS = (("generate", "dense_serve", "fmt"), ("train",), ("serve",))
 
 
 def log(*a):
@@ -236,19 +301,14 @@ def check_close(torch, name, got, want, atol, rtol) -> float:
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
-def kernel_phase(torch, dev):
+def kernel_phase(torch, dev, np):
     import torch.nn.functional as F
 
     from paddle_tpu_torch import llama_config, ops
     from paddle_tpu_torch.models.llama import _rope_cos_sin
 
-    g = torch.Generator(device=dev).manual_seed(1234)
+    g, randn = seeded_randn(torch, dev)
     bf = torch.bfloat16
-
-    def randn(*shape, dtype=bf, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
-            dtype)
-
     mc = llama_config(PRESET)
     H, NH, D = mc.hidden_size, mc.num_attention_heads, mc.head_dim
     GQA = NH // 4                      # 32 query heads over 8 kv heads
@@ -338,32 +398,10 @@ def kernel_phase(torch, dev):
 
     flash_bwd_cases(torch, ops, F, randn, rows, cases)
 
-    # K4 paged decode: the serving batch (8 rows, page 16, up to 1024
-    # tokens, one dead row), GQA 32/8, and int8 pools with scales
-    ps, maxp, num_pages = 16, 64, 512
-    lens_l = [1024, 900, 733, 512, 300, 129, 17, 0]
-    b = len(lens_l)
-    perm = torch.randperm(num_pages, generator=g, device=dev).int()
-    table = torch.full((b, maxp), -1, dtype=torch.int32, device=dev)
-    nxt = 0
-    for r, n in enumerate(lens_l):
-        k_pages = -(-n // ps)
-        table[r, :k_pages] = perm[nxt:nxt + k_pages]
-        nxt += k_pages
-    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-    for hkv, int8 in [(NH, False), (GQA, False), (NH, True)]:
-        q = randn(b, NH, D)
-        if int8:
-            kp = torch.randint(-127, 128, (num_pages, ps, hkv, D),
-                               generator=g, device=dev, dtype=torch.int8)
-            vp = torch.randint(-127, 128, (num_pages, ps, hkv, D),
-                               generator=g, device=dev, dtype=torch.int8)
-            sc = (randn(num_pages, hkv, dtype=torch.float32).abs() + 0.1,
-                  randn(num_pages, hkv, dtype=torch.float32).abs() + 0.1)
-        else:
-            kp = randn(num_pages, ps, hkv, D)
-            vp = randn(num_pages, ps, hkv, D)
-            sc = ()
+    # K4 paged decode: the serving batch, GQA 32/8, and int8 pools
+    table, lens, k4_cases = paged_decode_inputs(torch, g, randn, dev, NH, D)
+    lens_l, b = PAGED["lens"], len(PAGED["lens"])
+    for hkv, int8, q, kp, vp, sc in k4_cases:
         out = ops.paged_decode_mha(q, kp, vp, table, lens, *sc)
         ref = ops.paged_decode_mha_ref(q, kp, vp, table, lens, *sc)
         tag = f"B={b} Hkv={hkv} {'int8' if int8 else 'bf16'} lens={lens_l}"
@@ -387,12 +425,86 @@ def kernel_phase(torch, dev):
                 bound_ms=bms, bound_by=by, library_ms=None)
     decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev)
     layer_norm_cases(torch, ops, F, randn, rows, cases, H)
+    grad_add_cases(torch, ops, randn, rows, cases, mc)
+    grouped_matmul_cases(torch, np, ops, randn, rows, cases, dev)
+    stock_paged_cases(torch, ops, rows, cases, dev, NH, D)
+    hb_route_cases(torch, ops, F, randn, rows, cases)
     for name in rows:
         rows[name]["max_abs_err"] = max(e for n, _, e in cases if n == name)
     for name, tag, err in cases:
         log(f"  {name:13s} {tag:66s} max|kernel-plain| {err:.3g} "
-            f"(atol {TOL[name]['atol']:g}, rtol 2^-7)")
+            f"(atol {TOL[name]['atol']:g}, rtol {TOL[name]['rtol']:.3g})")
     return rows, cases
+
+
+def seeded_randn(torch, dev, seed=SEED):
+    """(generator, randn): ``randn(*shape, dtype=bf16, scale=1.0)`` draws
+    from the generator on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+    return g, randn
+
+
+def paged_decode_inputs(torch, g, randn, dev, nh, d):
+    """K4's serve-shape inputs: the page table and lengths of PAGED's
+    batch (pages in a random order), then ``(hkv, int8, q, k_pool, v_pool,
+    scales)`` for MHA, GQA nh/(nh/4) and int8 pools with scales."""
+    ps, maxp, num_pages = PAGED["page"], PAGED["max_pages"], PAGED["pages"]
+    b = len(PAGED["lens"])
+    perm = torch.randperm(num_pages, generator=g, device=dev).int()
+    table = torch.full((b, maxp), -1, dtype=torch.int32, device=dev)
+    nxt = 0
+    for r, n in enumerate(PAGED["lens"]):
+        k_pages = -(-n // ps)
+        table[r, :k_pages] = perm[nxt:nxt + k_pages]
+        nxt += k_pages
+    lens = torch.tensor(PAGED["lens"], dtype=torch.int32, device=dev)
+    cases = []
+    for hkv, int8 in [(nh, False), (nh // 4, False), (nh, True)]:
+        q = randn(b, nh, d)
+        if int8:
+            kp = torch.randint(-127, 128, (num_pages, ps, hkv, d),
+                               generator=g, device=dev, dtype=torch.int8)
+            vp = torch.randint(-127, 128, (num_pages, ps, hkv, d),
+                               generator=g, device=dev, dtype=torch.int8)
+            sc = (randn(num_pages, hkv, dtype=torch.float32).abs() + 0.1,
+                  randn(num_pages, hkv, dtype=torch.float32).abs() + 0.1)
+        else:
+            kp = randn(num_pages, ps, hkv, d)
+            vp = randn(num_pages, ps, hkv, d)
+            sc = ()
+        cases.append((hkv, int8, q, kp, vp, sc))
+    return table, lens, cases
+
+
+def paged_decode_times(tree: str) -> dict:
+    """K4 of the checkout at ``tree`` at the serve shape of phase 3 (MHA,
+    GQA and int8): its device time (the median of 50 calls) and its largest
+    difference from that checkout's plain version. Run for two checkouts
+    in turns, each in a fresh process, it compares them on one card."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from paddle_tpu_torch import llama_config, ops
+
+    dev = torch.device("cuda")
+    mc = llama_config(PRESET)
+    g, randn = seeded_randn(torch, dev)
+    table, lens, cases = paged_decode_inputs(
+        torch, g, randn, dev, mc.num_attention_heads, mc.head_dim)
+    out = {"tree": os.path.abspath(tree), "card": smi_line()}
+    for hkv, int8, q, kp, vp, sc in cases:
+        name = "int8" if int8 else f"bf16_hkv{hkv}"
+        got = ops.paged_decode_mha(q, kp, vp, table, lens, *sc)
+        want = ops.paged_decode_mha_ref(q, kp, vp, table, lens, *sc)
+        out[f"{name}_max_abs_err"] = (got.float() - want.float()).abs().max(
+        ).item()
+        out[f"{name}_ms"] = time_ms(torch, lambda: ops.paged_decode_mha(
+            q, kp, vp, table, lens, *sc), reps=50)
+    return out
 
 
 def decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
@@ -475,6 +587,325 @@ def layer_norm_cases(torch, ops, F, randn, rows, cases, H):
                 bound_ms=bms, bound_by=by,
                 library_ms=time_ms(torch, lambda: F.layer_norm(
                     x, (h,), gamma, beta, 1e-5)))
+
+
+def seven_linears(mc):
+    """(name, K, N, count) of one decoder layer's linears: the weight
+    [in, out] of q/k/v/o, gate/up and down."""
+    h, i = mc.hidden_size, mc.intermediate_size
+    return [("q/k/v/o", h, h, 4), ("gate/up", h, i, 2), ("down", i, h, 1)]
+
+
+def grad_add_library(torch):
+    """(what, fn(dw, x2, dy2)): the one PyTorch call that computes
+    dw + x2^T dy2 from bf16 operands into fp32, where this PyTorch has it
+    (``addmm`` with ``out_dtype``, PyTorch 2.8 and later); else (reason,
+    None)."""
+    a = torch.ones(16, 16, device="cuda", dtype=torch.bfloat16)
+    try:
+        torch.addmm(torch.zeros(16, 16, device="cuda"), a.t(), a,
+                    out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as ex:
+        return (f"none: torch.addmm takes no out_dtype here ({ex})"[:200],
+                None)
+    return ("torch.addmm(dw, x2.t(), dy2, out_dtype=torch.float32)",
+            lambda dw, x2, dy2: torch.addmm(dw, x2.t(), dy2,
+                                            out_dtype=torch.float32))
+
+
+def grad_add_cases(torch, ops, randn, rows, cases, mc):
+    """K9 against ``fused_linear_param_grad_add_ref``: the seven linears of
+    one decoder layer (bf16 x and dy over GRAD_ADD_TOKENS tokens, fp32
+    dweight), then ragged sizes with fp32 inputs and a bf16 dweight, and
+    sizes no 8-column chunk divides with an fp16 dweight. The caller's
+    dweight must come back unchanged. The row is the whole layer: times
+    and bounds summed over the seven."""
+    b, s = GRAD_ADD_TOKENS
+    t = b * s
+    lib_what, lib_fn = grad_add_library(torch)
+    row = dict(shape=f"7 linears of a {PRESET} layer, T={t}, bf16 x/dy, "
+                     f"fp32 dweight", ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, bound_by="operations", library=lib_what,
+               per_linear={})
+    for name, k, n, count in seven_linears(mc):
+        x, dy = randn(b, s, k), randn(b, s, n)
+        dw = randn(k, n, dtype=torch.float32)
+        before = dw.clone()
+        out = ops.fused_linear_param_grad_add(x, dy, dw)
+        tag = f"{name} T={t} K={k} N={n} bf16 dw=fp32"
+        err = check_close(torch, f"grad_add {tag}", out,
+                          ops.fused_linear_param_grad_add_ref(x, dy, dw),
+                          **TOL["grad_add"])
+        if not torch.equal(dw, before):
+            raise AssertionError("grad_add: the caller's dweight changed")
+        cases.append(("grad_add", tag, err))
+        x2, dy2 = x.reshape(t, k), dy.reshape(t, n)
+        bms, by = bound((t * k + t * n) * 2 + 2 * k * n * 4, 2 * t * k * n,
+                        BF16_FLOPS)
+        lib = (None if lib_fn is None
+               else time_ms(torch, lambda: lib_fn(dw, x2, dy2)))
+        one = dict(
+            ms=time_ms(torch, lambda: ops.fused_linear_param_grad_add(
+                x, dy, dw)),
+            plain_ms=time_ms(
+                torch, lambda: ops.fused_linear_param_grad_add_ref(x, dy, dw),
+                reps=5),
+            library_ms=lib, bound_ms=bms, bound_by=by, count=count)
+        row["per_linear"][name] = one
+        for key in ("ms", "plain_ms", "bound_ms"):
+            row[key] += count * one[key]
+        row["library_ms"] = (None if lib is None
+                             else row["library_ms"] + count * lib)
+    rows["grad_add"] = row
+    for t, k, n, in_dt, dw_dt in [
+            (1000, 96, 200, torch.float32, torch.bfloat16),
+            (777, 100, 36, torch.bfloat16, torch.float16)]:
+        x, dy = randn(t, k, dtype=in_dt), randn(t, n, dtype=in_dt)
+        dw = randn(k, n, dtype=dw_dt)
+        before = dw.clone()
+        tag = (f"ragged T={t} K={k} N={n} {str(in_dt)[6:]} "
+               f"dw={str(dw_dt)[6:]}")
+        err = check_close(torch, f"grad_add {tag}",
+                          ops.fused_linear_param_grad_add(x, dy, dw),
+                          ops.fused_linear_param_grad_add_ref(x, dy, dw),
+                          **TOL["grad_add"])
+        if not torch.equal(dw, before):
+            raise AssertionError("grad_add: the caller's dweight changed")
+        cases.append(("grad_add", tag, err))
+
+
+def moe_group_sizes(np, rows: int, groups: int, seed: int,
+                    empty_first: bool):
+    """A skewed draw of ``groups`` sizes summing to ``rows``: multinomial
+    over Dirichlet(0.3) weights, with group 0 (or a middle group) emptied
+    into its neighbour, so at least one group is empty."""
+    rng = np.random.RandomState(seed)
+    sizes = rng.multinomial(rows, rng.dirichlet(np.full(groups, 0.3)))
+    e = 0 if empty_first else groups // 2
+    sizes[e + 1] += sizes[e]
+    sizes[e] = 0
+    return sizes.astype(np.int32)
+
+
+def grouped_matmul_library(torch, lhs, rhs, sizes, want):
+    """Time of ``torch._grouped_mm`` on the same operands, fp32 out where
+    it takes that, else bf16 out (PyTorch 2.11 writes bf16 for bf16
+    inputs), where this PyTorch has it and its result agrees with the
+    plain version; else None and the reason."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this PyTorch has no torch._grouped_mm (no single call)"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    reason = ""
+    for what, out_dt in (("fp32 out", torch.float32), ("bf16 out", None)):
+        try:
+            got = torch._grouped_mm(lhs, rhs, offs=offs, out_dtype=out_dt)
+        except (TypeError, RuntimeError) as ex:
+            reason += f"{what}: {str(ex).splitlines()[0][:100]}; "
+            continue
+        err = (got.float() - want.float()).abs().max().item()
+        if err > 1.0:       # several bf16 steps of outputs near 100
+            reason += f"{what}: result differs by {err:.3g}; "
+            continue
+        ms = time_ms(torch, lambda: torch._grouped_mm(lhs, rhs, offs=offs,
+                                                      out_dtype=out_dt))
+        return ms, f"torch._grouped_mm(lhs, rhs, offs), {what}"
+    return None, "torch._grouped_mm refused these operands: " + reason
+
+
+def grouped_matmul_cases(torch, np, ops, randn, rows, cases, dev):
+    """K10 against ``grouped_matmul_ref`` at the ERNIE-MoE "large" expert
+    GEMMs: up [M, hidden] x [E, hidden, ffn] with the first group empty,
+    down [M, ffn] x [E, ffn, hidden] with a middle group empty, skewed
+    sizes summing to M (group edges fall inside 128-row tiles), fp32 out,
+    and the up GEMM with bf16 out and with fp32 inputs (timed apart as
+    ``fp32_up``). The row is the bf16 up and down GEMMs."""
+    e, f, g = MOE["hidden"], MOE["ffn"], MOE["experts"]
+    m = MOE["tokens"] * MOE["top_k"]
+    row = dict(shape=f"ERNIE-MoE large up+down: M={m}, {g} groups, "
+                     f"{e}<->{f}, bf16 in, fp32 out", ms=0.0, plain_ms=0.0,
+               bound_ms=0.0, bound_by="bytes", library_ms=0.0,
+               library="", per_gemm={})
+    for name, k, n, first in (("up", e, f, True), ("down", f, e, False)):
+        sizes_np = moe_group_sizes(np, m, g, seed=41 + k, empty_first=first)
+        sizes = torch.from_numpy(sizes_np).to(dev)
+        lhs, rhs = randn(m, k), randn(g, k, n)
+        straddle = sum(1 for c in np.cumsum(sizes_np)[:-1] if c % 128)
+        for out_dt in ((torch.float32, torch.bfloat16) if name == "up"
+                       else (torch.float32,)):
+            out = ops.grouped_matmul(lhs, rhs, sizes, out_dt)
+            want = ops.grouped_matmul_ref(lhs, rhs, sizes, out_dt)
+            kname = ("grouped_matmul" if out_dt == torch.float32
+                     else "grouped_matmul_bf16")
+            tag = (f"{name} M={m} K={k} N={n} G={g} empty="
+                   f"{int((sizes_np == 0).sum())} edges-in-tiles={straddle} "
+                   f"out={str(out_dt)[6:]}")
+            cases.append((kname, tag, check_close(
+                torch, f"grouped_matmul {tag}", out, want, **TOL[kname])))
+        live = int((sizes_np > 0).sum())
+        if name == "up":      # fp32 inputs: the CUDA-core instance
+            l32, r32 = lhs.float(), rhs.float()
+            tag = f"up M={m} K={k} N={n} G={g} fp32 in, fp32 out"
+            cases.append(("grouped_matmul", tag, check_close(
+                torch, f"grouped_matmul {tag}", ops.grouped_matmul(
+                    l32, r32, sizes), ops.grouped_matmul_ref(l32, r32, sizes),
+                **TOL["grouped_matmul"])))
+            bms, by = bound(m * k * 4 + live * k * n * 4 + m * n * 4 + g * 4,
+                            2 * m * k * n, FP32_FLOPS)
+            row["fp32_up"] = dict(
+                ms=time_ms(torch, lambda: ops.grouped_matmul(l32, r32,
+                                                             sizes)),
+                plain_ms=time_ms(torch, lambda: ops.grouped_matmul_ref(
+                    l32, r32, sizes), reps=5),
+                bound_ms=bms, bound_by=by)
+            del l32, r32
+        bms, by = bound(m * k * 2 + live * k * n * 2 + m * n * 4 + g * 4,
+                        2 * m * k * n, BF16_FLOPS)
+        lib, lib_what = grouped_matmul_library(torch, lhs, rhs, sizes,
+                                               ops.grouped_matmul_ref(
+                                                   lhs, rhs, sizes))
+        one = dict(
+            ms=time_ms(torch, lambda: ops.grouped_matmul(lhs, rhs, sizes)),
+            plain_ms=time_ms(torch, lambda: ops.grouped_matmul_ref(
+                lhs, rhs, sizes), reps=5),
+            bound_ms=bms, bound_by=by, library_ms=lib, library=lib_what,
+            sizes=sizes_np.tolist())
+        row["per_gemm"][name] = one
+        for key in ("ms", "plain_ms", "bound_ms"):
+            row[key] += one[key]
+        row["library"] += f"{name}: {lib_what}. "
+        row["library_ms"] = (None if lib is None or row["library_ms"] is None
+                             else row["library_ms"] + lib)
+        if by == "operations":
+            row["bound_by"] = "operations"
+        del lhs, rhs
+    rows["grouped_matmul"] = row
+
+
+def stock_paged_pools(torch, g, dev, hkv, d):
+    """Stock-layout pools [Hkv, pages, page, D] (bf16, unit normal) and a
+    page table [B, pages_per_seq] of distinct pages up to each length,
+    other valid page ids past it (the stock contract: every entry a page)."""
+    ps, pages, maxp = STOCK["page"], STOCK["pages"], STOCK["pages_per_seq"]
+    b = len(STOCK["lens"])
+    perm = torch.randperm(pages, generator=g, device=dev).int()
+    table = torch.randint(0, pages, (b, maxp), generator=g, device=dev,
+                          dtype=torch.int32)
+    nxt = 0
+    for r, n in enumerate(STOCK["lens"]):
+        k = -(-n // ps)
+        table[r, :k] = perm[nxt:nxt + k]
+        nxt += k
+    kp = torch.randn(hkv, pages, ps, d, generator=g, device=dev).bfloat16()
+    vp = torch.randn(hkv, pages, ps, d, generator=g, device=dev).bfloat16()
+    return kp, vp, table
+
+
+def stock_paged_cases(torch, ops, rows, cases, dev, nh, d):
+    """The stock-layout ``paged_attention`` (K4 through permuted views,
+    scale 1) against its plain version at the 7B decode shape: q already
+    scaled by 1/sqrt(D) as a caller of the stock kernel scales it, MHA and
+    GQA 32/8; then unscaled q with the logits soft-capped. The dead row
+    must return zeros."""
+    g = torch.Generator(device=dev).manual_seed(4321)
+    lens_l = STOCK["lens"]
+    b = len(lens_l)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    kw = dict(pages_per_compute_block=STOCK["ppcb"])
+    for hkv, cap in [(nh, None), (nh // 4, None), (nh, STOCK["soft_cap"])]:
+        kp, vp, table = stock_paged_pools(torch, g, dev, hkv, d)
+        q = torch.randn(b, nh, d, generator=g, device=dev)
+        q = (q if cap else q / d ** 0.5).bfloat16()
+        kw["attn_logits_soft_cap"] = cap
+        out = ops.paged_attention(q, kp, vp, lens, table, **kw)
+        tag = f"B={b} Hkv={hkv} stock layout, scale 1, soft cap {cap}"
+        err = check_close(torch, f"paged_attention {tag}", out,
+                          ops.paged_attention_ref(q, kp, vp, lens, table,
+                                                  **kw),
+                          **TOL["paged_attention"])
+        if out[-1].abs().max().item() != 0.0:
+            raise AssertionError("paged_attention: a zero-length row must "
+                                 "return zeros")
+        cases.append(("paged_attention", tag, err))
+        if hkv == nh and cap is None:
+            tokens = sum(lens_l)
+            nbytes = (tokens * hkv * d * 2 * 2 + 2 * q.numel() * 2
+                      + table.numel() * 4 + b * 4)
+            bms, by = bound(nbytes, 4 * d * tokens * nh, BF16_FLOPS)
+            rows["paged_attention"] = dict(
+                shape=tag,
+                ms=time_ms(torch, lambda: ops.paged_attention(
+                    q, kp, vp, lens, table, **kw)),
+                plain_ms=time_ms(torch, lambda: ops.paged_attention_ref(
+                    q, kp, vp, lens, table, **kw), reps=5),
+                bound_ms=bms, bound_by=by, library_ms=None,
+                library="none: no single PyTorch call reads K/V through a "
+                        "page table")
+        del kp, vp
+
+
+class hb_flag:
+    """``with hb_flag(on):`` sets FLAGS_flash_head_batched for the block
+    and puts the old value back after it."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        from paddle_tpu_torch import get_flags, set_flags
+        self.old = get_flags("FLAGS_flash_head_batched")
+        set_flags({"FLAGS_flash_head_batched": self.on})
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch import set_flags
+        set_flags(self.old)
+        return False
+
+
+def hb_route_cases(torch, ops, F, randn, rows, cases):
+    """The head-batched route at the training shape (8 x 2048, 8 heads of
+    128, causal), reached through ``flash_attention`` with the flag on:
+    out, dq, dk and dv bitwise those of the per-head kernels called
+    directly, and out within flash_fwd's limit of the plain forward."""
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    nh = TRAIN["overrides"]["num_attention_heads"]
+    d = 128
+    q, k, v, do = (randn(b, s, nh, d) for _ in range(4))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    ops.reset_launch_counts()
+    with hb_flag(True):
+        out = ops.flash_attention(qr, kr, vr, causal=True)
+        grads = torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)
+    if ops.route_calls()["flash_hb"] != 1:
+        raise AssertionError("flash_attention did not take the head-batched "
+                             "route with the flag on")
+    ref_out, lse = ops.flash_attention_bshd(q, k, v, causal=True)
+    ref_grads = ops.flash_attention_bwd(q, k, v, ref_out, lse, do, True)
+    for what, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (ref_out, *ref_grads)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"flash_hb: {what} is not bitwise the "
+                                 f"per-head kernels'")
+    plain, _ = ops.flash_attention_bshd_ref(q, k, v, causal=True)
+    tag = f"B={b} S={s} H={nh} D={d} causal, fwd+bwd bitwise per-head"
+    cases.append(("flash_hb", tag, check_close(
+        torch, f"flash_hb {tag}", out, plain, **TOL["flash_hb"])))
+    nbytes = 4 * q.numel() * 2 + lse.numel() * 4          # q, k, v, out
+    bms, by = bound(nbytes, 4 * d * causal_pairs(s, s) * nh * b, BF16_FLOPS)
+    with hb_flag(True), torch.no_grad():
+        ms = time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True))
+    with hb_flag(True):
+        bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qr, kr, vr), do, retain_graph=True))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rows["flash_hb"] = dict(
+        shape=tag, ms=ms, bwd_ms=bwd_ms,
+        plain_ms=time_ms(torch, lambda: ops.flash_attention_bshd_ref(
+            q, k, v, causal=True), reps=3, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        library="F.scaled_dot_product_attention causal, forward")
+    del qr, kr, vr, out, grads
 
 
 def causal_pairs(sq: int, sk: int) -> int:
@@ -754,15 +1185,59 @@ def train_e2e_phase(torch, dev, np):
                                True)
     # the functional AdamW step
     losses = []
+    start = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
     for m, d in ((gpu, dev), (cpu, "cpu")):
         step, init = build_train_step(cfg, lr=TRAIN["lr"],
                                       clip_norm=TRAIN["clip"], remat="full",
                                       device=d)
         losses.append(float(step(m, init(m), ids, labels)))
     rec["train_step"] = compare("train step", losses, (gpu, cpu), False)
+    rec["train_step_hb"] = hb_step_bitwise(torch, gpu, cfg, start, ids,
+                                           labels, losses[0])
     del gpu, cpu
     torch.cuda.empty_cache()
     return rec
+
+
+def hb_step_bitwise(torch, model, cfg, start, ids, labels, loss_off):
+    """The card's train step once more from the weights ``start`` with
+    FLAGS_flash_head_batched on: one route call per flash forward (2 L
+    under full recompute), K5 and K6 L times each, and the loss, every
+    gradient and every updated parameter bitwise those of the step that
+    just ran without the flag (the same kernels on the same inputs)."""
+    from paddle_tpu_torch import build_train_step, ops
+
+    dev = model.device
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    model.load_state_dict(start)
+    step, init = build_train_step(cfg, lr=TRAIN["lr"],
+                                  clip_norm=TRAIN["clip"], remat="full",
+                                  device=dev)
+    state = init(model)
+    ops.reset_launch_counts()
+    with hb_flag(True):
+        loss = float(step(model, state, ids.to(dev), labels.to(dev)))
+    torch.cuda.synchronize()
+    counts, routes = ops.launch_counts(), ops.route_calls()
+    L = cfg.num_hidden_layers
+    check_launches(counts, expect(
+        counts, rms_norm=4 * L + 1, fused_rope=6 * L, flash_fwd=2 * L,
+        flash_bwd_dq=L, flash_bwd_dkv=L),
+        f"1 step of {L} layers with FLAGS_flash_head_batched")
+    if routes != {"flash_hb": 2 * L, "paged_attention": 0}:
+        raise AssertionError(f"head-batched route calls {routes}, the step "
+                             f"implies {2 * L}")
+    if loss != loss_off:
+        raise AssertionError(f"head-batched step: loss {loss} != {loss_off}")
+    for k, p in model.named_parameters():
+        if not torch.equal(p.grad, grads[k]):
+            raise AssertionError(f"head-batched step: gradient of {k} "
+                                 f"differs")
+        if not torch.equal(p.detach(), params[k]):
+            raise AssertionError(f"head-batched step: updated {k} differs")
+    return {"loss": loss, "route_calls": routes, "launches": counts,
+            "bitwise": True}
 
 
 def train_phase(torch, dev, np, seed, profile=False):
@@ -802,13 +1277,29 @@ def train_phase(torch, dev, np, seed, profile=False):
     with torch.no_grad():
         final = float(build_loss_fn(cfg, remat="none")(model, ids, labels))
     losses.append(final)
-    prof = (profile_run(torch, lambda: step(model, state, ids, labels))
-            if profile else None)
     n = TRAIN_STEPS
     check_launches(counts, expect(
         counts, rms_norm=n * (4 * L + 1), fused_rope=n * 6 * L,
         flash_fwd=n * 2 * L, flash_bwd_dq=n * L, flash_bwd_dkv=n * L),
         f"{n} steps of {L} layers")
+    # one more step with the head-batched route on
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    with hb_flag(True):
+        loss_hb = float(step(model, state, ids, labels))
+    torch.cuda.synchronize()
+    hb_s = time.perf_counter() - t
+    hb_counts, hb_routes = ops.launch_counts(), ops.route_calls()
+    check_launches(hb_counts, expect(
+        hb_counts, rms_norm=4 * L + 1, fused_rope=6 * L, flash_fwd=2 * L,
+        flash_bwd_dq=L, flash_bwd_dkv=L),
+        f"1 step of {L} layers with FLAGS_flash_head_batched")
+    if hb_routes != {"flash_hb": 2 * L, "paged_attention": 0}:
+        raise AssertionError(f"train: head-batched route calls {hb_routes}")
+    if not np.isfinite(loss_hb):
+        raise AssertionError(f"train: non-finite head-batched loss {loss_hb}")
+    prof = (profile_run(torch, lambda: step(model, state, ids, labels))
+            if profile else None)
     if not np.isfinite(losses).all():
         raise AssertionError(f"train: non-finite loss in {losses}")
     if not final < losses[1]:
@@ -829,7 +1320,9 @@ def train_phase(torch, dev, np, seed, profile=False):
            / step_s / BF16_FLOPS,
            "attention_flops_model": attn_model,
            "attention_flops_executed": attn_run,
-           "peak_mem_gb": peak, "launches": counts}
+           "peak_mem_gb": peak, "launches": counts,
+           "hb_step_s": hb_s, "hb_loss": loss_hb, "hb_launches": hb_counts,
+           "hb_route_calls": hb_routes}
     if prof:
         rec["profile"] = prof
     del model, state
@@ -1088,6 +1581,142 @@ def fmt_phase(torch, dev, profile=False):
     return rec
 
 
+# -- phase 8: the kernel ops at full widths (this slice's main path) --------
+
+
+def ops_phase(torch, dev, np):
+    """The JAX package's public kernel ops at full widths, through the
+    port's entry points, each kernel counted: the main-gradient
+    accumulation of one decoder layer's seven linears, the expert FFN of an
+    ERNIE-MoE "large" layer on MOE["tokens"] routed tokens, one decode step
+    of every layer of the PRESET model through the stock paged_attention,
+    and one attention forward and backward at the training shape under
+    FLAGS_flash_head_batched. Counts are read just after; the outputs are
+    then held against the plain versions."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import llama_config, ops
+
+    mc = llama_config(PRESET)
+    g = torch.Generator(device=dev).manual_seed(51)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    # inputs, made before the counted run
+    b, s = GRAD_ADD_TOKENS
+    lin = seven_linears(mc)
+    acts = {k: randn(b, s, k) for k in {k for _, k, _, _ in lin}}
+    grads = {(name, i): randn(b, s, n) for name, _, n, c in lin
+             for i in range(c)}
+    main = {(name, i): torch.zeros(k, n, device=dev)
+            for name, k, n, c in lin for i in range(c)}
+    e, f, ne = MOE["hidden"], MOE["ffn"], MOE["experts"]
+    tokens, top_k = MOE["tokens"], MOE["top_k"]
+    x_moe = randn(tokens, e)
+    gate_w = randn(e, ne, scale=e ** -0.5)
+    gate_bias = randn(ne, dtype=torch.float32, scale=0.5)   # uneven experts
+    w1, w2 = randn(ne, e, f, scale=e ** -0.5), randn(ne, f, e, scale=f ** -0.5)
+    L, nh, d = mc.num_hidden_layers, mc.num_attention_heads, mc.head_dim
+    pools = [stock_paged_pools(torch, g, dev, mc.num_key_value_heads, d)
+             for _ in range(L)]
+    lens = torch.tensor(STOCK["lens"], dtype=torch.int32, device=dev)
+    q_dec = randn(L, len(STOCK["lens"]), nh, d, scale=d ** -0.5)
+    tb, ts = TRAIN["batch"], TRAIN["seq"]
+    th = TRAIN["overrides"]["num_attention_heads"]
+    qa, ka, va = (randn(tb, ts, th, 128).requires_grad_() for _ in range(3))
+    doa = randn(tb, ts, th, 128)
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    # 1. main gradients of the layer's seven linears
+    k_in = {"q/k/v/o": mc.hidden_size, "gate/up": mc.hidden_size,
+            "down": mc.intermediate_size}
+    for key, dw in main.items():
+        main[key] = ops.fused_linear_param_grad_add(acts[k_in[key[0]]],
+                                                    grads[key], dw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # 2. the MoE expert FFN: top-2 routing, rows sorted by expert (the
+    # group sizes stay on the card), up, GELU, down, gate-weighted combine
+    logits = x_moe.float() @ gate_w.float() + gate_bias
+    gate_p, expert = torch.topk(torch.softmax(logits, -1), top_k, dim=-1)
+    order = torch.argsort(expert.reshape(-1), stable=True)
+    sizes = torch.bincount(expert.reshape(-1), minlength=ne).int()
+    xs = x_moe[order // top_k]
+    h = ops.grouped_matmul(xs, w1, sizes)
+    y = ops.grouped_matmul(F.gelu(h).to(bf), w2, sizes)
+    moe_out = torch.zeros(tokens, e, device=dev).index_add_(
+        0, order // top_k, y * gate_p.reshape(-1)[order, None])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # 3. one decode step of every layer through the stock paged_attention
+    dec = [ops.paged_attention(q_dec[i], kp, vp, lens, table,
+                               pages_per_compute_block=STOCK["ppcb"])
+           for i, (kp, vp, table) in enumerate(pools)]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    # 4. attention forward and backward at the training shape, head-batched
+    with hb_flag(True):
+        att = ops.flash_attention(qa, ka, va, causal=True)
+        att_grads = torch.autograd.grad(att, (qa, ka, va), doa)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    counts, routes = ops.launch_counts(), ops.route_calls()
+
+    n_lin = sum(c for _, _, _, c in lin)
+    check_launches(counts, expect(
+        counts, grad_add=n_lin, grouped_matmul=2, paged_decode=L,
+        flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1),
+        f"{n_lin} linears, 1 MoE FFN, {L} stock decode layers, 1 attention")
+    if routes != {"flash_hb": 1, "paged_attention": L}:
+        raise AssertionError(f"kernel ops: route calls {routes}, the path "
+                             f"implies flash_hb 1, paged_attention {L}")
+    # what came out: finite, of its shape, and equal to the plain versions
+    errs = {}
+    key = ("down", 0)
+    errs["grad_add"] = check_close(
+        torch, "ops: main gradient of down", main[key],
+        ops.fused_linear_param_grad_add_ref(
+            acts[mc.intermediate_size], grads[key],
+            torch.zeros_like(main[key])), **TOL["grad_add"])
+    h_ref = ops.grouped_matmul_ref(xs, w1, sizes)
+    errs["grouped_matmul"] = max(
+        check_close(torch, "ops: MoE up", h, h_ref, **TOL["grouped_matmul"]),
+        check_close(torch, "ops: MoE down", y, ops.grouped_matmul_ref(
+            F.gelu(h).to(bf), w2, sizes), **TOL["grouped_matmul"]))
+    errs["paged_attention"] = max(check_close(
+        torch, f"ops: stock decode layer {i}", dec[i],
+        ops.paged_attention_ref(q_dec[i], *pools[i][:2], lens, pools[i][2],
+                                pages_per_compute_block=STOCK["ppcb"]),
+        **TOL["paged_attention"]) for i in (0, L - 1))
+    plain, _ = ops.flash_attention_bshd_ref(qa.detach(), ka.detach(),
+                                            va.detach(), causal=True)
+    errs["flash_hb"] = check_close(torch, "ops: head-batched attention", att,
+                                   plain, **TOL["flash_hb"])
+    shapes_ok = (moe_out.shape == (tokens, e) and att.shape == qa.shape
+                 and all(o.shape == (len(STOCK["lens"]), nh, d) for o in dec)
+                 and bool(torch.isfinite(moe_out).all())
+                 and all(bool(torch.isfinite(t).all()) for t in att_grads))
+    if not shapes_ok:
+        raise AssertionError("kernel ops: an output is non-finite or of the "
+                             "wrong shape")
+    rec = {"model": f"{PRESET} widths (linears, stock decode), ERNIE-MoE "
+                    f"large (experts), {TRAIN['preset']}/h128 training "
+                    f"attention",
+           "linears": n_lin, "tokens": b * s, "moe_rows": tokens * top_k,
+           "moe_group_sizes": sizes.tolist(), "decode_layers": L,
+           "grad_add_s": t1 - t0, "moe_s": t2 - t1, "stock_decode_s": t3 - t2,
+           "attention_s": t4 - t3, "launches": counts, "route_calls": routes,
+           "max_abs_err": errs}
+    del acts, grads, main, pools, w1, w2, qa, ka, va
+    torch.cuda.empty_cache()
+    return rec
+
+
 # kernel name fragments -> where the device time goes
 _CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
                ("fused_layer_norm", ("_layer_norm_kernel",)),
@@ -1097,6 +1726,8 @@ _CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
                ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                ("paged_decode", ("paged_decode_kernel",)),
                ("decode_mha", ("decode_mha_kernel",)),
+               ("grad_add", ("grad_add_",)),
+               ("grouped_matmul", ("grouped_matmul_kernel",)),
                ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma",
                                     "sm90_")),
                ("indexing", ("index", "gather", "scatter")),
@@ -1141,6 +1772,31 @@ def profile_run(torch, run):
             "top_kernels": [(k, us / 1e3, n) for k, (us, n) in top]}
 
 
+def kernel_entries(rows: dict, runs: dict) -> list:
+    """The JSON line's entries: every kernel, then the two routes (their
+    calls in place of launches), each with its phase-3 numbers. A kernel's
+    ``launches`` are its count over this slice's paths where it runs there,
+    else over the earlier paths that run it."""
+    def entry(name, route, src, by_path):
+        r = rows[name]
+        launches = next((n for n in (sum(by_path.get(p, 0) for p in ps)
+                                     for ps in (SLICE_PATHS,)
+                                     + EARLIER_PATHS) if n), 0)
+        return {"name": name, "route": route, "source": src,
+                "replaces": REPLACES[name], "launches": launches,
+                "launches_by_path": by_path, **{k: r[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
+
+    out = [entry(name, route, src, {p: runs[p]["launches"][name]
+                                    for p in PATHS})
+           for name, (route, src) in SOURCES.items()]
+    out += [entry(name, route, src, {p: runs[p]["route_calls"][name]
+                                     for p in SLICE_PATHS})
+            for name, (route, src) in ROUTE_SOURCES.items()]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--record", metavar="PATH",
@@ -1152,6 +1808,11 @@ def main(argv=None) -> int:
                          "goes")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the train phase's weights and batch")
+    ap.add_argument("--paged-decode-times", metavar="TREE",
+                    help="only time the paged decode kernel of the checkout "
+                         "at TREE at the serve shape and print one JSON "
+                         "line (to compare checkouts, run it for each in "
+                         "turns)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1159,6 +1820,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if args.paged_decode_times:
+        log(json.dumps(paged_decode_times(args.paged_decode_times)))
+        return 0
     sys.path.insert(0, ROOT)
     import numpy as np
 
@@ -1183,7 +1847,8 @@ def main(argv=None) -> int:
     for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
         lib = _build.library_path(name)
         for line in lib.with_name(lib.name + ".log").read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill")):
                 log(f"  {name}: {line.strip()}")
     from paddle_tpu_torch import ops
     x = torch.randn(2, 4, 8, 128, device=dev, dtype=torch.bfloat16)
@@ -1197,7 +1862,7 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     t = time.perf_counter()
-    rows, cases = kernel_phase(torch, dev)
+    rows, cases = kernel_phase(torch, dev, np)
     record["kernel_cases"] = cases
     record["kernel_rows"] = rows
     record["phases"]["kernels"] = time.perf_counter() - t
@@ -1209,8 +1874,23 @@ def main(argv=None) -> int:
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{smi}]")
     ln_rb = rows["fused_layer_norm"]["residual_bias_ms"]
     log(f"  flash_fwd at the training shape: kernel "
-        f"{rows['flash_fwd']['train_shape_ms']:.4f} ms; fused_layer_norm "
+        f"{rows['flash_fwd']['train_shape_ms']:.4f} ms, through the "
+        f"head-batched route {rows['flash_hb']['ms']:.4f} ms (backward "
+        f"{rows['flash_hb']['bwd_ms']:.4f} ms); fused_layer_norm "
         f"with residual and bias {ln_rb:.4f} ms  [{smi}]")
+    for name, part in (("grad_add", "per_linear"),
+                       ("grouped_matmul", "per_gemm")):
+        for what, r in rows[name][part].items():
+            lib = ("null" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            log(f"  {name} {what}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{smi}]")
+        log(f"  {name} library: {rows[name]['library']}")
+    r = rows["grouped_matmul"]["fp32_up"]
+    log(f"  grouped_matmul up, fp32 in: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})  [{smi}]")
     log(f"[kernels] {record['phases']['kernels']:.1f}s")
     # 4. kernel path against plain path, end to end
     t = time.perf_counter()
@@ -1266,25 +1946,27 @@ def main(argv=None) -> int:
         f"{fm['decode_steps']}), {fm['decode_tokens_per_s']:.1f} tok/s, "
         f"peak {fm['peak_mem_gb']:.1f} GiB  [{smi}]")
     log(f"[fmt] {record['phases']['fmt']:.1f}s")
+    log(f"[train] with FLAGS_flash_head_batched: step {tr['hb_step_s']:.4f} s"
+        f", loss {tr['hb_loss']}, route calls {tr['hb_route_calls']}  "
+        f"[{smi}]")
+    # 8. the kernel ops at full widths: this slice's main path
+    t = time.perf_counter()
+    op = ops_phase(torch, dev, np)
+    record["ops"] = op
+    record["phases"]["ops"] = time.perf_counter() - t
+    log(f"[ops] {op['linears']} main gradients of T={op['tokens']} "
+        f"{op['grad_add_s'] * 1e3:.1f} ms, MoE FFN of {op['moe_rows']} rows "
+        f"{op['moe_s'] * 1e3:.1f} ms, stock decode of {op['decode_layers']} "
+        f"layers {op['stock_decode_s'] * 1e3:.1f} ms, head-batched attention "
+        f"fwd+bwd {op['attention_s'] * 1e3:.1f} ms (host clock); max errors "
+        f"{op['max_abs_err']}  [{smi}]")
+    log(f"[ops] {record['phases']['ops']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
-    kernels = []
-    runs = dict(serve=sv, generate=gn, dense_serve=ds, train=tr, fmt=fm)
-    for name in SOURCES:
-        r = rows[name]
-        route, src = SOURCES[name]
-        by_path = {p: runs[p]["launches"][name] for p in PATHS}
-        kernels.append({
-            "name": name, "route": route, "source": src,
-            "replaces": REPLACES[name],
-            # this slice's paths where the kernel runs there, else the
-            # earlier path that runs it
-            "launches": (sum(by_path[p] for p in SLICE_PATHS)
-                         or by_path["train"] or by_path["serve"]),
-            "launches_by_path": by_path, **{k: r[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
-        })
+    runs = dict(serve=sv, generate=gn, dense_serve=ds, train=tr, fmt=fm,
+                ops=op, train_hb=dict(launches=tr["hb_launches"],
+                                      route_calls=tr["hb_route_calls"]))
+    kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),

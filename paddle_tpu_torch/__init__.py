@@ -19,16 +19,22 @@ functional AdamW step (``models.llama_functional.build_train_step``,
 ``optimizer.functional``), and the incubate ``FusedMultiTransformer``
 (``incubate.nn``); their eight kernels (``ops``): RMSNorm, LayerNorm,
 rotary embedding, flash attention forward with dropout, its two backward
-kernels, paged and dense-cache decode attention.
+kernels, paged and dense-cache decode attention. Also the JAX package's
+public kernel ops that no model calls yet: ``fused_linear_param_grad_add``
+and ``grouped_matmul`` (two more kernels), the stock-layout
+``paged_attention`` (over the paged decode kernel) and the head-batched
+flash route under ``FLAGS_flash_head_batched`` (``get_flags``,
+``set_flags``).
 """
 from .device import get_device
+from .framework import get_flags, set_flags
 from .inference.generation import (CausalLMEngine, ContinuousBatchingEngine,
                                    GenerationConfig,
                                    PagedContinuousBatchingEngine)
 from .models import (LlamaConfig, LlamaForCausalLM, build_train_step,
                      llama_config, load_paddle_params, load_stacked_params)
 
-__all__ = ["get_device", "LlamaConfig", "LlamaForCausalLM", "llama_config",
+__all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausalLM", "llama_config",
            "load_paddle_params", "load_stacked_params", "build_train_step",
            "GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
            "PagedContinuousBatchingEngine"]

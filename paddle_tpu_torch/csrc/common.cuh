@@ -43,13 +43,15 @@ __device__ __forceinline__ float from_float<float>(float x) {
 // across D, kPerLane = D / 32 columns each) and leaves the group's scores in
 // s_sm [group][s_cap]; then thread c < D streams column c of V and keeps
 // column c of each head's accumulator. Values are scaled by kq / vq after
-// the load (int8 pools; 1 otherwise). Both barriers are inside, so every
-// thread of the block must call it.
+// the load (int8 pools; 1 otherwise). A score is q.k * scale, then
+// soft_cap * tanh(score / soft_cap) where soft_cap > 0 (the stock TPU
+// paged-attention kernel's attn_logits_soft_cap; 0 turns it off). Both
+// barriers are inside, so every thread of the block must call it.
 template <typename T, int D, int kMaxGroup, int kThreads>
 __device__ __forceinline__ void decode_tile(
     const T* __restrict__ k, const T* __restrict__ v, long long k_stride,
     long long v_stride, int valid, float kq, float vq,
-    float (&qv)[kMaxGroup][D / 32], int group, float scale,
+    float (&qv)[kMaxGroup][D / 32], int group, float scale, float soft_cap,
     float* s_sm, int s_cap, float (&m)[kMaxGroup], float (&l)[kMaxGroup],
     float (&acc)[kMaxGroup]) {
   constexpr int kPerLane = D / 32;
@@ -69,7 +71,11 @@ __device__ __forceinline__ void decode_tile(
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (lane == 0) s_sm[g * s_cap + t] = dot * scale;
+        if (lane == 0) {
+          float sc = dot * scale;
+          if (soft_cap > 0.f) sc = soft_cap * tanhf(sc / soft_cap);
+          s_sm[g * s_cap + t] = sc;
+        }
       }
     }
   }

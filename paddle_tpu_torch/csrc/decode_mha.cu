@@ -76,7 +76,7 @@ decode_mha_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   for (int t0 = 0; t0 < len; t0 += kTile) {
     ptt::decode_tile<T, D, kMaxGroup, kThreads>(
         kb + t0 * ks.s, vb + t0 * vs.s, ks.s, vs.s, min(kTile, len - t0), 1.f,
-        1.f, qv, group, scale, s_sm, kTile, m, l, acc);
+        1.f, qv, group, scale, 0.f, s_sm, kTile, m, l, acc);
   }
 
   if (tid < D) {

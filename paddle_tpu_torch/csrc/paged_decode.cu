@@ -4,15 +4,25 @@
 // (_paged_decode_kernel, launched through pl.pallas_call at
 // paged_attention.py:268).
 //
+// Also the Hopper counterpart of JAX's stock TPU paged-attention kernel
+// (paddle_tpu/ops/pallas.py::paged_attention): its pools are
+// [Hkv, num_pages, page_size, D] and it neither scales q nor leaves the
+// logits uncapped, so the kernel reads the pools through strides and takes
+// the scale and an optional logit soft cap as arguments.
+//
 // One decode step: for each row b and query head h,
-//   out[b, h] = softmax(q[b, h] . K^T / sqrt(D)) V
-// over the row's first lens[b] tokens. Token t of row b lives in page
-// page_table[b, t / page_size], at offset t % page_size, of the pools
-// [num_pages, page_size, Hkv, D]. Pools are bf16, or int8 with per-(page,
-// kv head) absmax scales (value = int8 * scale / 127). Query head h reads kv
-// head h / (Hq / Hkv). fp32 softmax and accumulation; a row with lens 0
-// returns zeros; a -1 table entry inside the length reads page 0, as the
-// TPU kernel does, and entries past the length are never read.
+//   out[b, h] = softmax(cap(q[b, h] . K^T * scale)) V
+// over the row's first lens[b] tokens, with cap(s) = c tanh(s / c) for a
+// soft cap c > 0 and cap(s) = s for c = 0. Token t of row b lives in page
+// page_table[b, t / page_size], at offset t % page_size, of the pools, read
+// through the page, token and kv-head strides in elements that K and V
+// share (unit stride on D): [num_pages, page_size, Hkv, D] for the engines,
+// [Hkv, num_pages, page_size, D] for the stock layout. Pools are bf16, or int8 with
+// per-(page, kv head) absmax scales [num_pages, Hkv] (value = int8 * scale /
+// 127). Query head h reads kv head h / (Hq / Hkv). fp32 softmax and
+// accumulation; a row with lens 0 returns zeros; a -1 table entry inside the
+// length reads page 0, as the TPU kernel does, and entries past the length
+// are never read.
 //
 // What bounds it: every live token's K and V row is read once for 4 * D
 // flops per query head, about one flop per byte in bf16, so memory bandwidth
@@ -35,7 +45,17 @@ constexpr int kThreads = 128;
 constexpr int kMaxGroup = 8;
 constexpr float kQMax = 127.f;  // quantization/kv.py KV_QMAX
 
-template <typename T, int D>
+struct PoolStrides {
+  long long page, tok, head;  // elements; D has unit stride
+};
+
+// kStrided: the pools are read through the strides in st and the logits
+// capped by soft_cap, as the arguments say (the stock layout, or a soft
+// cap). Otherwise the pools are the engines' contiguous [P, page_size, Hkv,
+// D], addressed from hkv and D (shifts by log2(D); strides read from the
+// parameters made the engines' decode measurably slower), and uncapped, so
+// the tanh drops out.
+template <typename T, int D, bool kStrided>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ k_pool, const T* __restrict__ v_pool,
@@ -44,7 +64,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ page_table,
                     const int* __restrict__ lens,
                     __nv_bfloat16* __restrict__ out, int hq, int hkv,
-                    int page_size, int max_pages, float scale) {
+                    int page_size, int max_pages, PoolStrides st,
+                    float scale, float soft_cap) {
   constexpr int kPerLane = D / 32;
   extern __shared__ float s_sm[];  // [group][page_size] scores of one page
   const int hk = blockIdx.x, b = blockIdx.y;
@@ -53,7 +74,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int len = lens[b];
   const int n_pages = len <= 0 ? 0 : min((len + page_size - 1) / page_size,
                                          max_pages);
-  const long long tok_stride = static_cast<long long>(hkv) * D;
+  const long long tok_stride =
+      kStrided ? st.tok : static_cast<long long>(hkv) * D;
   const long long q_row = (static_cast<long long>(b) * hq + hk * group) * D;
 
   float qv[kMaxGroup][kPerLane];
@@ -77,14 +99,16 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     int pid = page_table[static_cast<long long>(b) * max_pages + p];
     pid = pid < 0 ? 0 : pid;
     const long long base =
-        static_cast<long long>(pid) * page_size * tok_stride +
-        static_cast<long long>(hk) * D;
+        kStrided ? pid * st.page + hk * st.head
+                 : static_cast<long long>(pid) * page_size * tok_stride +
+                       static_cast<long long>(hk) * D;
     const float kq = k_scale ? k_scale[pid * hkv + hk] / kQMax : 1.f;
     const float vq = v_scale ? v_scale[pid * hkv + hk] / kQMax : 1.f;
     const int valid = min(page_size, len - p * page_size);
     ptt::decode_tile<T, D, kMaxGroup, kThreads>(
         k_pool + base, v_pool + base, tok_stride, tok_stride, valid, kq, vq,
-        qv, group, scale, s_sm, page_size, m, l, acc);
+        qv, group, scale, kStrided ? soft_cap : 0.f, s_sm, page_size, m, l,
+        acc);
   }
 
   if (tid < D) {
@@ -100,16 +124,21 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* ks, const void* vs, const void* table,
                    const void* lens, void* out, int batch, int hq, int hkv,
-                   int page_size, int max_pages, float scale,
-                   cudaStream_t stream) {
+                   int page_size, int max_pages, PoolStrides st,
+                   float scale, float soft_cap, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (hq / hkv) * page_size;
   const dim3 grid(hkv, batch);
-  paged_decode_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const bool engine_layout = st.page == 1LL * page_size * hkv * D &&
+                             st.tok == 1LL * hkv * D && st.head == D &&
+                             soft_cap == 0.f;
+  auto kernel = engine_layout ? paged_decode_kernel<T, D, false>
+                              : paged_decode_kernel<T, D, true>;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out), hq,
-      hkv, page_size, max_pages, scale);
+      hkv, page_size, max_pages, st, scale, soft_cap);
   return cudaGetLastError();
 }
 
@@ -117,17 +146,18 @@ template <typename T>
 int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
              const void* vs, const void* table, const void* lens, void* out,
              int batch, int hq, int hkv, int d, int page_size, int max_pages,
-             float scale, void* stream) {
+             PoolStrides st, float scale, float soft_cap, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxGroup)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
       return launch<T, 64>(q, kp, vp, ks, vs, table, lens, out, batch, hq,
-                           hkv, page_size, max_pages, scale, st);
+                           hkv, page_size, max_pages, st, scale, soft_cap, s);
     case 128:
       return launch<T, 128>(q, kp, vp, ks, vs, table, lens, out, batch, hq,
-                            hkv, page_size, max_pages, scale, st);
+                            hkv, page_size, max_pages, st, scale, soft_cap,
+                            s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -135,26 +165,37 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
 
 }  // namespace
 
-// q [B, Hq, D] bf16; pools [P, page_size, Hkv, D]; page_table [B, max_pages]
-// int32; lens [B] int32; out [B, Hq, D] bf16. All contiguous.
+// q [B, Hq, D] bf16, contiguous; pools with unit stride on D and the
+// element strides page_stride, tok_stride, head_stride of their page, token
+// and kv-head dims, the same for K and V; page_table [B, max_pages] int32;
+// lens [B] int32; out [B, Hq, D] bf16. soft_cap 0 leaves the logits
+// uncapped.
 extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
                                  const void* v_pool, const void* page_table,
                                  const void* lens, void* out, int batch,
                                  int hq, int hkv, int d, int page_size,
-                                 int max_pages, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr,
-                                 page_table, lens, out, batch, hq, hkv, d,
-                                 page_size, max_pages, scale, stream);
+                                 int max_pages, long long page_stride,
+                                 long long tok_stride, long long head_stride,
+                                 float scale, float soft_cap, void* stream) {
+  return dispatch<__nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, page_table, lens, out, batch, hq,
+      hkv, d, page_size, max_pages,
+      PoolStrides{page_stride, tok_stride, head_stride}, scale, soft_cap,
+      stream);
 }
 
-// As above with int8 pools and their [P, Hkv] fp32 scales.
+// As above with int8 pools and their [P, Hkv] fp32 scales (contiguous).
 extern "C" int paged_decode_int8(const void* q, const void* k_pool,
                                  const void* v_pool, const void* k_scale,
                                  const void* v_scale, const void* page_table,
                                  const void* lens, void* out, int batch,
                                  int hq, int hkv, int d, int page_size,
-                                 int max_pages, float scale, void* stream) {
-  return dispatch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, page_table,
-                          lens, out, batch, hq, hkv, d, page_size, max_pages,
-                          scale, stream);
+                                 int max_pages, long long page_stride,
+                                 long long tok_stride, long long head_stride,
+                                 float scale, float soft_cap, void* stream) {
+  return dispatch<int8_t>(
+      q, k_pool, v_pool, k_scale, v_scale, page_table, lens, out, batch, hq,
+      hkv, d, page_size, max_pages,
+      PoolStrides{page_stride, tok_stride, head_stride}, scale, soft_cap,
+      stream);
 }

@@ -7,6 +7,10 @@ not divide the lengths. Here the kernels read ``[B, S, H, D]`` through
 their strides and take any length, so the dispatch is only the device rule:
 the CPU runs the plain versions, CUDA runs K3 forward and the two backward
 kernels, through :class:`~.flash_attention_kernel.FlashAttention`.
+
+Under ``FLAGS_flash_head_batched`` the router takes the head-batched route
+(``flash_attention_hb.py``) where :func:`supports_hb` holds, and only on
+the card, as the JAX router takes it only on the TPU (:131-141).
 """
 from __future__ import annotations
 
@@ -14,9 +18,20 @@ from typing import Optional
 
 import torch
 
+from ..framework.flags import get_flags
+from .flash_attention_hb import flash_attention_bshd_hb, supports_hb
 from .flash_attention_kernel import FlashAttention
 
 __all__ = ["flash_attention"]
+
+_HB = "FLAGS_flash_head_batched"
+
+
+def _use_hb(q: torch.Tensor, k: torch.Tensor, dropout_p: float) -> bool:
+    """The router's branch: the flag set, CUDA tensors, and shapes the
+    head-batched route supports."""
+    return (bool(get_flags(_HB)[_HB]) and q.device.type == "cuda"
+            and supports_hb(q.shape, k.shape, dropout_p))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -28,5 +43,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dropout_p`` drops attention probabilities with the kernels' counter
     hash keyed by ``seed`` (default 0), the same mask in the forward and
     the backward. Differentiable. Returns [B, Sq, Hq, D]."""
+    if _use_hb(q, k, dropout_p):
+        return flash_attention_bshd_hb(q, k, v, causal=causal,
+                                       sm_scale=sm_scale)
     return FlashAttention.apply(q, k, v, causal, sm_scale, float(dropout_p),
                                 0 if seed is None else int(seed))

@@ -1,14 +1,23 @@
 """K4: paged decode attention (CUDA C++, ``csrc/paged_decode.cu``) beside
-its plain PyTorch version.
+its plain PyTorch version, and the stock ``paged_attention`` API over it.
 
 Port of ``paddle_tpu/ops/paged_attention.py::paged_decode_mha`` (pallas_call
 at :268) and its plain twin ``_paged_decode_ref`` (:126). The KV cache is a
 shared pool of pages ``[num_pages, page_size, Hkv, D]``; a row's cache is its
 row of ``page_table`` (page ids in order, -1 unmapped). bf16 pools, or int8
 pools with per-(page, kv head) absmax scales (``quantization/kv.py``
-conventions, copied below).
+conventions, copied below). The kernel reads the pools through their
+strides, so a view in another layout is read in place.
 
-The wrapper takes the plain version only for CPU tensors; a CUDA tensor
+:func:`paged_attention` ports ``paddle_tpu/ops/pallas.py::paged_attention``
+(:216-228), which calls JAX's stock TPU paged-attention kernel
+(``jax.experimental.pallas.ops.tpu.paged_attention``). That kernel differs
+from ``paged_decode_mha`` in three ways, all taken care of here: its pools
+are ``[Hkv, num_pages, page_size, D]`` (handed to K4 as a permuted view), it
+does not scale q by ``1/sqrt(D)`` (K4 runs with scale 1), and it takes an
+optional logit soft cap ``c tanh(s / c)`` (K4's ``soft_cap``).
+
+The wrappers take the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
 """
 from __future__ import annotations
@@ -21,8 +30,8 @@ import torch
 
 from . import _build
 
-__all__ = ["paged_decode_mha", "paged_decode_mha_ref", "KV_QMAX",
-           "KV_SCALE_FLOOR"]
+__all__ = ["paged_decode_mha", "paged_decode_mha_ref", "paged_attention",
+           "paged_attention_ref", "KV_QMAX", "KV_SCALE_FLOOR"]
 
 # int8 KV conventions (copied from paddle_tpu/quantization/kv.py):
 # value = int8 * scale / KV_QMAX; scales never drop below the floor
@@ -46,15 +55,32 @@ def _check_args(q, k_pool, v_pool, k_scale, v_scale):
         raise ValueError(f"Hq={h} not a multiple of Hkv={hkv}")
 
 
+def _scale_and_cap(d: int, sm_scale, soft_cap):
+    """(scale, soft cap) as the kernel takes them: 1/sqrt(D) by default,
+    cap 0 for none. A cap of c and of -c cap alike (c tanh(s / c) is even
+    in c); 0 is refused (the stock kernel divides by it)."""
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+    if soft_cap is None:
+        return scale, 0.0
+    if float(soft_cap) == 0.0:
+        raise ValueError("soft_cap must be non-zero (None turns it off)")
+    return scale, abs(float(soft_cap))
+
+
 def paged_decode_mha_ref(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, page_table: torch.Tensor,
                          seq_lens: torch.Tensor,
                          k_scale: Optional[torch.Tensor] = None,
-                         v_scale: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
-    """Plain version of K4: gather each row's pages dense and run a masked
-    fp32 softmax (``_paged_decode_ref``). Rows with length 0 give zeros."""
+                         v_scale: Optional[torch.Tensor] = None, *,
+                         sm_scale: Optional[float] = None,
+                         soft_cap: Optional[float] = None) -> torch.Tensor:
+    """Plain version of K4: gather each row's pages dense (indexing the
+    pools as they are, views included) and run a masked fp32 softmax
+    (``_paged_decode_ref``) of the scores times ``sm_scale`` (default
+    1/sqrt(D)), soft-capped where ``soft_cap`` is given. Rows with length 0
+    give zeros."""
     _check_args(q, k_pool, v_pool, k_scale, v_scale)
+    scale, cap = _scale_and_cap(q.shape[2], sm_scale, soft_cap)
     b, h, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     idx = page_table.long().clamp_min(0)                  # [B, maxp]
@@ -69,7 +95,9 @@ def paged_decode_mha_ref(q: torch.Tensor, k_pool: torch.Tensor,
     if h != hkv:
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
-    s = torch.einsum("bhd,blhd->blh", q.float(), k) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bhd,blhd->blh", q.float(), k) * scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
     mask = (torch.arange(n, device=q.device)[None, :, None]
             < seq_lens.to(q.device).long()[:, None, None])
     s = s.masked_fill(~mask, -1e30)
@@ -82,7 +110,7 @@ def _bind(lib: ctypes.CDLL, quant: bool):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p] * (7 if quant else 5) + [p] + [i] * 6
-                       + [ctypes.c_float, p])
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 2 + [p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -91,18 +119,25 @@ def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, page_table: torch.Tensor,
                      seq_lens: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     v_scale: Optional[torch.Tensor] = None, *,
+                     sm_scale: Optional[float] = None,
+                     soft_cap: Optional[float] = None) -> torch.Tensor:
     """One decode step of attention over a paged KV pool (K4).
 
     q [B, Hq, D]; k_pool/v_pool [P, page_size, Hkv, D] (Hq a multiple of
-    Hkv); page_table [B, max_pages] int32 (-1 unmapped; entries past a
+    Hkv), any strides, the same for both, with a unit stride on D (read in
+    place, never copied); page_table [B, max_pages] int32 (-1 unmapped; entries past a
     row's length are never read); seq_lens [B] int32 (the new token's K/V
     already written at seq_lens - 1); k_scale/v_scale [P, Hkv] fp32 for
-    int8 pools. Returns [B, Hq, D] in q's dtype."""
+    int8 pools. Scores are q.k times ``sm_scale`` (default 1/sqrt(D)),
+    then ``soft_cap * tanh(s / soft_cap)`` where a soft cap is given.
+    Returns [B, Hq, D] in q's dtype."""
     _check_args(q, k_pool, v_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_mha_ref(q, k_pool, v_pool, page_table, seq_lens,
-                                    k_scale, v_scale)
+                                    k_scale, v_scale, sm_scale=sm_scale,
+                                    soft_cap=soft_cap)
+    scale, cap = _scale_and_cap(q.shape[2], sm_scale, soft_cap)
     quant = k_scale is not None
     devs = {t.device for t in (q, k_pool, v_pool, page_table, seq_lens)
             + ((k_scale, v_scale) if quant else ())}
@@ -131,10 +166,15 @@ def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(
             f"page_table {tuple(page_table.shape)} / seq_lens "
             f"{tuple(seq_lens.shape)} do not match batch {b}")
+    if k_pool.stride() != v_pool.stride() or k_pool.stride(3) != 1:
+        raise ValueError(
+            f"paged decode kernel takes K and V pools of the same strides "
+            f"with a unit stride on head_dim, got {k_pool.stride()} and "
+            f"{v_pool.stride()}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if b == 0:
         return out
-    args = [q.contiguous(), k_pool.contiguous(), v_pool.contiguous()]
+    args = [q.contiguous(), k_pool, v_pool]
     if quant:
         args += [k_scale.contiguous(), v_scale.contiguous()]
     args += [page_table.contiguous(), seq_lens.contiguous()]
@@ -143,10 +183,127 @@ def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _bind(lib, quant)(
             *[t.data_ptr() for t in args], out.data_ptr(), b, h, hkv, d, ps,
-            page_table.shape[1], 1.0 / math.sqrt(d), stream)
+            page_table.shape[1], *k_pool.stride()[:3], scale, cap, stream)
     _build.check(lib, err, "paged_decode")
     paged_decode_mha.launches += 1
     return out
 
 
 paged_decode_mha.launches = 0
+
+
+# the stock kernel's default mask value (paged_attention_kernel.py)
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _stock_pools(q, k_pages, v_pages, lengths, page_indices, mask_value,
+                 pages_per_compute_block, megacore_mode):
+    """The stock kernel's argument checks (paged_attention_kernel.py
+    :441-483), then its pools as ``[P, page_size, Hkv, D]`` views."""
+    if not mask_value <= DEFAULT_MASK_VALUE:
+        # the stock kernel adds mask_value to the logits of the tokens past
+        # a row's length inside its last compute block; from the default
+        # down, exp() of those logits is 0 and they drop out exactly, as
+        # here. Above it they take weight, from pages past the length.
+        raise ValueError(
+            f"paged_attention leaves tokens past a row's length out "
+            f"exactly, which the stock kernel does for a mask_value of at "
+            f"most DEFAULT_MASK_VALUE ({DEFAULT_MASK_VALUE:g}); got "
+            f"{mask_value}")
+    for t in (k_pages, v_pages):
+        if not t.dtype.is_floating_point:
+            raise TypeError(
+                f"paged_attention takes unquantized pools, got {t.dtype}: "
+                "int8 pools with scales go through paged_decode_mha")
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError(
+            f"paged_attention takes q [B, H, D] and pools [Hkv, P, "
+            f"page_size, D], got {tuple(q.shape)}, {tuple(k_pages.shape)}")
+    b, hq, d = q.shape
+    hkv, _, _, d_k = k_pages.shape
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(f"k_pages and v_pages must have the same shape. Got "
+                         f"{tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
+    if hq % hkv:
+        raise ValueError("Number of Q heads must be divisible by number of "
+                         f"KV heads. Got {hq} and {hkv}.")
+    if d_k != d:
+        raise ValueError("head_dim of Q must be the same as that of K/V. Got "
+                         f"{d} and {d_k}.")
+    if page_indices.dim() != 2:
+        raise ValueError("page_indices must be [batch, pages_per_sequence], "
+                         f"got {tuple(page_indices.shape)}")
+    if page_indices.shape[1] % pages_per_compute_block:
+        raise ValueError(
+            "pages_per_compute_block must be divisible by pages per "
+            f"sequence. Got {pages_per_compute_block} and "
+            f"{page_indices.shape[1]}.")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError("`lengths` and `q` must have the same batch size")
+    if page_indices.shape[0] != b:
+        raise ValueError("`page_indices` and `q` must have the same batch "
+                         "size")
+    if lengths.dtype != torch.int32:
+        raise ValueError(f"The dtype of `lengths` must be int32. Got "
+                         f"{lengths.dtype}")
+    if megacore_mode == "kv_head":
+        if hkv % 2:
+            raise ValueError("number of KV heads must be even when "
+                             "megacore_mode is 'kv_head'")
+    elif megacore_mode == "batch":
+        if b % 2:
+            raise ValueError("batch size must be even when megacore_mode is "
+                             "'batch'")
+    elif megacore_mode is not None:
+        raise ValueError("megacore_mode must be one of ['kv_head', 'batch', "
+                         "None]")
+    return k_pages.permute(1, 2, 0, 3), v_pages.permute(1, 2, 0, 3)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, lengths: torch.Tensor,
+                    page_indices: torch.Tensor, *,
+                    mask_value: float = DEFAULT_MASK_VALUE,
+                    attn_logits_soft_cap: Optional[float] = None,
+                    pages_per_compute_block: int,
+                    megacore_mode: Optional[str] = None,
+                    inline_seq_dim: bool = True) -> torch.Tensor:
+    """Decode-time attention over paged KV in the layout of JAX's stock TPU
+    kernel, through K4.
+
+    q [B, H, D]; k_pages/v_pages [Hkv, P, page_size, D]; lengths [B] int32;
+    page_indices [B, pages_per_sequence] int32 (entries past a row's
+    length are never read). Scores are q.k with no 1/sqrt(D) (the stock
+    kernel leaves the scaling to its caller), soft-capped as
+    ``c tanh(s / c)`` where ``attn_logits_soft_cap`` is c. Tokens past a
+    row's length are left out exactly, which is what the stock kernel's
+    ``mask_value`` does at its default and below; a larger ``mask_value``
+    raises ``ValueError``. Rows of length 0 give zeros.
+    ``pages_per_compute_block``, ``megacore_mode`` and ``inline_seq_dim``
+    are the TPU kernel's tiling hints: checked as the stock kernel checks
+    them, with no effect here. Quantized pools raise ``TypeError``.
+    Returns [B, H, D] in q's dtype."""
+    kp, vp = _stock_pools(q, k_pages, v_pages, lengths, page_indices,
+                          mask_value, pages_per_compute_block, megacore_mode)
+    paged_attention.calls += 1
+    return paged_decode_mha(q, kp, vp, page_indices, lengths, sm_scale=1.0,
+                            soft_cap=attn_logits_soft_cap)
+
+
+paged_attention.calls = 0
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, lengths: torch.Tensor,
+                        page_indices: torch.Tensor, *,
+                        mask_value: float = DEFAULT_MASK_VALUE,
+                        attn_logits_soft_cap: Optional[float] = None,
+                        pages_per_compute_block: int,
+                        megacore_mode: Optional[str] = None,
+                        inline_seq_dim: bool = True) -> torch.Tensor:
+    """Plain version of :func:`paged_attention`: K4's plain version on the
+    same permuted views, with scale 1 and the soft cap."""
+    kp, vp = _stock_pools(q, k_pages, v_pages, lengths, page_indices,
+                          mask_value, pages_per_compute_block, megacore_mode)
+    return paged_decode_mha_ref(q, kp, vp, page_indices, lengths,
+                                sm_scale=1.0, soft_cap=attn_logits_soft_cap)

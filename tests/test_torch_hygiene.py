@@ -131,11 +131,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_library_names_follow_the_sources():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["decode_mha", "flash_bwd", "flash_fwd", "paged_decode"]
+    assert names == ["decode_mha", "flash_bwd", "flash_fwd", "grad_add",
+                     "grouped_matmul", "paged_decode"]
     paths = [_build.library_path(n) for n in names]
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert all(p.name.startswith(f"{n}-") for n, p in zip(names, paths))
-    assert len(set(paths)) == 4
+    assert len(set(paths)) == 6
     assert _build.library_path("flash_bwd") == paths[1]      # stable hash
 
 
@@ -173,7 +174,9 @@ def test_public_names():
     assert set(ops.KERNELS) == {"rms_norm", "fused_rope", "flash_fwd",
                                 "paged_decode", "flash_bwd_dq",
                                 "flash_bwd_dkv", "decode_mha",
-                                "fused_layer_norm"}
+                                "fused_layer_norm", "grad_add",
+                                "grouped_matmul"}
+    assert set(ops.ROUTES) == {"flash_hb", "paged_attention"}
     assert {"CausalLMEngine", "ContinuousBatchingEngine"} <= set(
         paddle_tpu_torch.__all__)
     from paddle_tpu_torch.incubate import nn as incubate_nn
@@ -216,3 +219,33 @@ def test_decode_kernel_source_is_built_and_standalone():
     assert "torch" not in src and '#include "common.cuh"' in src
     assert "pallas_kernels.py::decode_mha" in src
     assert 'extern "C" int NAME' in src
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch/framework/__init__.py",
+    "paddle_tpu_torch/framework/flags.py",
+    "paddle_tpu_torch/ops/flash_attention_hb.py",
+    "paddle_tpu_torch/ops/attention.py",
+    "paddle_tpu_torch/ops/grad_add.py",
+    "paddle_tpu_torch/ops/grouped_matmul.py",
+    "paddle_tpu_torch/ops/paged_attention.py"])
+def test_kernel_ops_modules_are_checked(module):
+    """The modules of the kernel-ops slice are among the sources the no-JAX
+    checks read."""
+    assert ROOT / module in _sources()
+
+
+@pytest.mark.parametrize("name,replaces", [
+    ("grad_add", "pallas_kernels.py::fused_linear_param_grad_add"),
+    ("grouped_matmul", "ops/pallas.py::grouped_matmul")])
+def test_gemm_kernel_sources_are_built_and_standalone(name, replaces):
+    """K9 and K10 are sources ``build_all`` compiles, include nothing of
+    PyTorch (plain C entry points, ctypes), name the TPU kernel they
+    replace, and call no library GEMM: their products are mma.sync."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    assert name in [p.stem for p in _build.CSRC.glob("*.cu")]
+    assert "torch" not in src and '#include "mma.cuh"' in src
+    assert replaces in src and f'extern "C" int {name}(' in src
+    assert "mma_bf16_16816" in src
+    for lib in ("cublas", "cutlass", "cute::"):
+        assert lib not in src.lower()

@@ -13,6 +13,7 @@ one-shot one). That moves results by a few fp32 ulps at these magnitudes
 (|x| <~ 10), so atol = rtol = 1e-5 holds with margin and a wrong mask,
 scale, page or head mapping misses it by orders of magnitude.
 """
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -26,8 +27,10 @@ from paddle_tpu.ops.paged_attention import paged_decode_mha as jax_paged
 from paddle_tpu.ops.pallas import _chunked_attention
 from paddle_tpu.quantization import kv as jax_kv
 from paddle_tpu_torch import ops
-from paddle_tpu_torch.ops import paged_attention as port_paged
 from paddle_tpu_torch.ops.attention import flash_attention
+
+# the module: ``ops.paged_attention`` is the stock function
+port_paged = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -230,10 +233,13 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.flash_attention_bwd(x, x, x, out, lse, x, True)
     ops.decode_mha(x[:, 0], x, x, torch.ones(2, dtype=torch.int32))
     ops.fused_layer_norm(x, x)
+    ops.fused_linear_param_grad_add(x, x, torch.zeros(8, 8))
+    ops.grouped_matmul(x[0, 0], x[0].transpose(1, 2), torch.tensor([1, 1, 2]))
     assert ops.launch_counts() == {"rms_norm": 0, "fused_rope": 0,
                                    "flash_fwd": 0, "paged_decode": 0,
                                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                                   "decode_mha": 0, "fused_layer_norm": 0}
+                                   "decode_mha": 0, "fused_layer_norm": 0,
+                                   "grad_add": 0, "grouped_matmul": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
@@ -262,3 +268,8 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         ops.decode_mha(x[:, 0], x, x, n)
     with pytest.raises(ValueError):
         ops.fused_layer_norm(x, x)
+    with pytest.raises(ValueError):
+        ops.fused_linear_param_grad_add(x, x, torch.empty(8, 8,
+                                                          device="meta"))
+    with pytest.raises(ValueError):
+        ops.grouped_matmul(x[0, 0], x[0].transpose(1, 2), n[:1].expand(3))
