@@ -16,7 +16,9 @@ Phases, each timed, none caught and passed over:
    with and without residual and bias and at a hidden size that is not a
    power of two, the flash forward with dropout, and the two flash
    backward kernels at the training shape (8 x 2048, 8 heads of 128,
-   causal) and at GQA, ragged, Sq < Sk, Sq > Sk and dropout variants,
+   causal) and at GQA (8/2 and 8/1), ragged (700, 2047), Sq < Sk, Sq > Sk,
+   head_dim 64 and dropout variants, each launched twice and held bitwise
+   equal to itself,
    ``fused_linear_param_grad_add`` at the seven linears of a Llama-2-7B
    layer (4096 tokens) and ragged, fp32 and bf16/fp16-dweight variants,
    ``grouped_matmul`` at the ERNIE-MoE "large" expert GEMMs (8192 rows, 64
@@ -78,6 +80,13 @@ Phases, each timed, none caught and passed over:
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
 writes a longer record (every comparison, every serve statistic) there.
+
+Two options only time kernels of the checkout at TREE, in a process of
+their own, and print one JSON line: ``--paged-decode-times TREE`` (K4 at
+the serve shape) and ``--flash-bwd-times TREE`` (K5, K6 and K3 at the
+training shape). Run for a parent and a change in turns (parent, change,
+change, parent), each in a fresh process, they compare two trees on one
+card.
 """
 from __future__ import annotations
 
@@ -142,12 +151,21 @@ FP32_FLOPS = 67e12
 # by more than 1e-3 (paged_decode's worst case within 2^-7 above was
 # 2.4e-4 at bf16 and int8, flash_fwd's 3.9e-3 at outputs near 0.5).
 BF16_STEP = 2.0 ** -7
-# The flash backward kernels are held to the same limit as flash_fwd: both
-# sides run the same fp32 arithmetic on the same bf16 inputs, lse and delta
-# and round once to bf16, with identical dropout masks (the hash is exact),
-# so only the order of the fp32 sums differs and an output may land on the
-# neighbouring bf16 value; a wrong mask, scale, tile or head mapping moves
-# gradients of order 0.01-1 by far more than that.
+# The flash backward kernels and their plain version run the same
+# arithmetic on the same bf16 inputs, lse and delta, with identical dropout
+# masks (the hash is exact), and round dS and P_drop to bf16 before the
+# second products, as the JAX kernels do. Where the two sides' fp32 dS (or
+# P_drop) differ in the last ulps, which the cancellation in dP - delta
+# makes common, that rounding can land on neighbouring bf16 values: one
+# term of one sum moves by 2^-8 of itself, and a small output by up to
+# dozens of its own bf16 steps. The plain version in fp32 shows the same
+# against itself evaluated in fp64 (85, 49 and 27 elements of dq, dk and dv
+# past flash_fwd's limit at the training shape, up to 0.0156), so such
+# flips are no fault. So flash_fwd's limit holds for all but a share of
+# 1e-3 of the elements (up to 1.8e-4 measured), and every element is
+# within 2^-5 (0.0156 measured, at outputs up to 5.7): a wrong mask, scale,
+# tile or head mapping moves whole rows or tiles of gradients of order
+# 0.01-1, which neither bound lets through.
 # decode_mha is held as paged_decode (the same fp32 online softmax over
 # ~1k keys, outputs near 0.05, where a skipped tile or a wrong kv head moves
 # an output by more than 1e-3); its fp32 case has the same limit, far above
@@ -169,8 +187,10 @@ TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "fused_rope": dict(atol=1e-3, rtol=BF16_STEP),
        "flash_fwd": dict(atol=1e-4, rtol=BF16_STEP),
        "paged_decode": dict(atol=1e-4, rtol=BF16_STEP),
-       "flash_bwd_dq": dict(atol=1e-4, rtol=BF16_STEP),
-       "flash_bwd_dkv": dict(atol=1e-4, rtol=BF16_STEP),
+       "flash_bwd_dq": dict(atol=1e-4, rtol=BF16_STEP, outside=1e-3,
+                            cap=2.0 ** -5),
+       "flash_bwd_dkv": dict(atol=1e-4, rtol=BF16_STEP, outside=1e-3,
+                             cap=2.0 ** -5),
        "decode_mha": dict(atol=1e-4, rtol=BF16_STEP),
        "fused_layer_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "grad_add": dict(atol=1e-2, rtol=1e-5),
@@ -284,18 +304,27 @@ def bound(nbytes: float, flops: float, peak: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def check_close(torch, name, got, want, atol, rtol) -> float:
+def check_close(torch, name, got, want, atol, rtol, outside=0.0,
+                cap=None) -> float:
+    """Max |got - want|; raises unless |got - want| <= atol + rtol |want|
+    holds for all but a share ``outside`` of the elements and every
+    element is within ``cap`` (where given)."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
-    if bad.any():
+    share, worst = bad.float().mean().item(), err.max().item()
+    if share > outside or (cap is not None and worst > cap):
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version at "
-            f"{int(bad.sum())} elements, max |err| {err.max().item():.3g} "
-            f"(atol {atol}, rtol {rtol})")
-    return err.max().item()
+            f"{int(bad.sum())} elements ({share:.2g} of them, {outside:g} "
+            f"allowed), max |err| {worst:.3g} (atol {atol}, rtol {rtol}, "
+            f"cap {cap})")
+    if outside:
+        log(f"  {name}: {int(bad.sum())} elements ({share:.2g}) past atol "
+            f"+ rtol |plain|, max |err| {worst:.3g} (cap {cap:g})")
+    return worst
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -913,12 +942,62 @@ def causal_pairs(sq: int, sk: int) -> int:
     return sum(max(0, min(sk, i + 1 + sk - sq)) for i in range(sq))
 
 
+def flash_bwd_train_inputs(torch, randn):
+    """q, k, v, dO at the training shape (TRAIN: 8 x 2048, 8 heads of
+    128), then the causal forward's out and lse and delta."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.flash_attention_kernel import _delta
+
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    nh = TRAIN["overrides"]["num_attention_heads"]
+    q, k, v, do = (randn(b, s, nh, 128) for _ in range(4))
+    out, lse = ops.flash_attention_bshd(q, k, v, causal=True)
+    return q, k, v, do, out, lse, _delta(out, do)
+
+
+def flash_bwd_times(tree: str) -> dict:
+    """K5, K6 and K3 of the checkout at ``tree`` at the training shape
+    (causal): their device times (the median of 20 calls) and K5's and
+    K6's largest difference from that checkout's plain backward. Run for
+    two checkouts in turns, each in a fresh process, it compares them on
+    one card."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from paddle_tpu_torch import ops
+
+    _, randn = seeded_randn(torch, torch.device("cuda"))
+    q, k, v, do, out, lse, delta = flash_bwd_train_inputs(torch, randn)
+    res = {"tree": os.path.abspath(tree), "card": smi_line()}
+    # K3 first, before the backward kernels' longer runs warm the card
+    res["flash_fwd_ms"] = time_ms(torch, lambda: ops.flash_attention_bshd(
+        q, k, v, causal=True))
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+    want = ops.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
+    res["flash_bwd_dq_max_abs_err"] = (dq.float() - want[0].float()).abs(
+    ).max().item()
+    res["flash_bwd_dkv_max_abs_err"] = max(
+        (got.float() - w.float()).abs().max().item()
+        for got, w in zip((dk, dv), want[1:]))
+    del want
+    res["flash_bwd_dq_ms"] = time_ms(torch, lambda: ops.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, True))
+    res["flash_bwd_dkv_ms"] = time_ms(
+        torch, lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   True))
+    return res
+
+
 def flash_bwd_cases(torch, ops, F, randn, rows, cases):
     """flash_bwd_dq and flash_bwd_dkv against ``flash_attention_bwd_ref``
     on the same q, k, v, dO, out and lse: the training shape (8 x 2048, 8
-    heads of 128, causal), GQA 8/2, a ragged length, Sq < Sk, Sq > Sk
-    (whose first Sq - Sk rows see no key and must get exactly zero dq),
-    head_dim 64, and dropout 0.1 causal and not."""
+    heads of 128, causal), GQA 8/2 and 8/1, ragged lengths (700, and 2047,
+    which cuts through the last 64-row tile of both kernels), Sq < Sk, Sq >
+    Sk (whose first Sq - Sk rows see no key and must get exactly zero dq),
+    head_dim 64 with and without dropout, and dropout 0.1 causal and not.
+    Each kernel is launched twice on the same inputs, and the two results
+    must be bitwise equal (no atomics: the sums run in a fixed order)."""
     from paddle_tpu_torch.ops.flash_attention_kernel import _delta
 
     B, S = TRAIN["batch"], TRAIN["seq"]
@@ -926,19 +1005,35 @@ def flash_bwd_cases(torch, ops, F, randn, rows, cases):
     for b, sq, sk, hq, hkv, d, causal, p in [
             (B, S, S, NH, NH, 128, True, 0.0),
             (2, 512, 512, NH, 2, 128, True, 0.0),
+            (2, 512, 512, NH, 1, 128, True, 0.0),
             (1, 700, 700, NH, NH, 128, True, 0.0),
+            (1, 2047, 2047, NH, NH, 128, True, 0.0),
             (1, 300, 1000, NH, 2, 128, True, 0.0),
             (1, 1000, 300, NH, NH, 128, True, 0.0),
             (1, 256, 256, 4, 4, 64, True, 0.0),
+            (2, 700, 700, NH, 2, 64, True, 0.1),
             (2, 512, 512, NH, NH, 128, True, 0.1),
             (1, 200, 333, NH, 2, 128, False, 0.1)]:
-        q, do = randn(b, sq, hq, d), randn(b, sq, hq, d)
-        k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, d)
-        out, lse = ops.flash_attention_bshd(q, k, v, causal, None, p, SEED)
-        delta = _delta(out, do)
+        if (b, sq) == (B, S):
+            q, k, v, do, out, lse, delta = flash_bwd_train_inputs(torch,
+                                                                  randn)
+        else:
+            q, do = randn(b, sq, hq, d), randn(b, sq, hq, d)
+            k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, d)
+            out, lse = ops.flash_attention_bshd(q, k, v, causal, None, p,
+                                                SEED)
+            delta = _delta(out, do)
         args = (causal, None, p, SEED)
         dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args)
         dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
+        again = (ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args),
+                 *ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                              *args))
+        for what, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+            if not torch.equal(x, y):
+                raise AssertionError(f"flash backward: two launches gave "
+                                     f"different {what}")
+        del again
         rdq, rdk, rdv = ops.flash_attention_bwd_ref(q, k, v, out, lse, do,
                                                     *args)
         tag = (f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
@@ -1813,6 +1908,11 @@ def main(argv=None) -> int:
                          "at TREE at the serve shape and print one JSON "
                          "line (to compare checkouts, run it for each in "
                          "turns)")
+    ap.add_argument("--flash-bwd-times", metavar="TREE",
+                    help="only time the flash backward kernels and the "
+                         "flash forward of the checkout at TREE at the "
+                         "training shape and print one JSON line (to "
+                         "compare checkouts, run it for each in turns)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1822,6 +1922,9 @@ def main(argv=None) -> int:
         return 1
     if args.paged_decode_times:
         log(json.dumps(paged_decode_times(args.paged_decode_times)))
+        return 0
+    if args.flash_bwd_times:
+        log(json.dumps(flash_bwd_times(args.flash_bwd_times)))
         return 0
     sys.path.insert(0, ROOT)
     import numpy as np

@@ -1,5 +1,5 @@
 // Flash attention backward for Hopper (sm_90a): flash_bwd_dq and
-// flash_bwd_dkv.
+// flash_bwd_dkv, on the tensor cores.
 //
 // Replaces paddle_tpu/ops/flash_attention_kernel.py::_bwd_dq_kernel and
 // ::_bwd_dkv_kernel, launched by _bwd_impl through pl.pallas_call
@@ -11,65 +11,179 @@
 //   P  = exp(q k^T * scale - lse), 0 where masked (rows with no key included)
 //   dP = dO v^T
 //   dS = P (dP - delta), or with dropout P_drop dP - P delta
-//   dq = dS k * scale                      (flash_bwd_dq)
-//   dk = sum over the GQA group of dS^T q * scale,
-//   dv = sum over the GQA group of P_drop^T dO         (flash_bwd_dkv)
-// with P_drop = P * keep / (1 - p) from the forward's hash (ptt::Dropout),
-// fp32 throughout, bf16 outputs. Causal masks are bottom-right aligned
+//   dq = bf16(dS) k * scale                      (flash_bwd_dq)
+//   dk = sum over the GQA group of bf16(dS)^T q * scale,
+//   dv = sum over the GQA group of bf16(P_drop)^T dO  (flash_bwd_dkv)
+// with P_drop = P * keep / (1 - p) from the forward's hash (ptt::Dropout).
+// P_drop and dS are rounded to bf16 before the second products, as the JAX
+// kernels round them to the input dtype (:405, :455, :458); every product
+// sums in fp32, outputs are bf16. Causal masks are bottom-right aligned
 // (query i attends keys <= i + Sk - Sq), as in K3.
 //
-// What bounds them: per (batch, head) dq does 3 and dk/dv 4 products of
-// 2 * Sq * Sk * D flops (half that causal) on a few (S * D) bf16 arrays:
-// hundreds of flops per byte at training lengths, so operations bound them.
+// What bounds them: operations. Per causal (query, key) pair dq does 3
+// products of 2 D flops (6 D) and dk/dv 4 (8 D), on a few S x D bf16 arrays
+// per (batch, head): at training lengths hundreds of flops per byte, far
+// above the card's ridge, so the bound is the bf16 tensor-core rate (989
+// TFLOP/s dense).
 //
-// Design. The TPU grids carry their accumulators across the innermost grid
-// axis in VMEM; here a block loops over that axis itself.
-// - flash_bwd_dq: one block per (batch, query head, 64-query tile) stages its
-//   Q and dO tiles once and walks the 64-key tiles up to the causal diagonal,
-//   keeping dq (64 x D) in fp32 registers.
-// - flash_bwd_dkv: one block per (batch, kv head, 64-key tile) stages its K
-//   and V tiles once and walks every query head of its GQA group and every
-//   query tile at or below the diagonal, keeping dk and dv in fp32 registers
-//   for the whole walk: that takes the place of the TPU's (g, iq)-innermost
-//   grid and needs no atomics. Its shared memory (K, V, Q, dO tiles in both
-//   orientations and two fp32 64 x 64 tiles, 137 KB at D = 128) is above
-//   48 KB, so it is dynamic and raised with cudaFuncSetAttribute.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns score rows ty + 16 i and
-// columns tx + 16 j (i, j < 4), and output rows ty + 16 i, columns tx + 16 c.
-// Operands read along D by the score loops are staged transposed ([D][64])
-// so a half-warp reads consecutive entries; operands read along rows by the
-// accumulation loops are staged row-major. As in K3, the products are fp32
-// FMAs on the CUDA cores; mma.sync / wgmma are the next step.
+// Design. Every product is a bf16 mma.sync m16n8k16 with fp32 accumulators
+// (csrc/mma.cuh), and a warp owns 16 rows of the block's 64: query rows in
+// flash_bwd_dq, key rows in flash_bwd_dkv.
+// - flash_bwd_dq: one block per (query head, batch, 64-query tile) keeps its
+//   Q and dO tiles in shared memory and walks the 64-key tiles up to the
+//   causal diagonal, K and V streamed through two cp.async buffers (the next
+//   tile loads while this one multiplies). Per tile a warp forms S = Q K^T
+//   and dP = dO V^T (16 x 64 each) in registers, turns them into dS there,
+//   rounds it to bf16 straight into the A fragments of dq += dS K, and keeps
+//   dq (16 x D fp32) in registers for the whole walk.
+// - flash_bwd_dkv: one block per (kv head, batch, 64-key tile) keeps its K
+//   and V tiles in shared memory and walks every query head of its GQA group
+//   and every query tile at or below the diagonal, Q, dO, lse and delta
+//   streamed through two cp.async buffers. A warp forms S^T = K Q^T and
+//   dP^T = V dO^T for 32 queries at a time (the 64-query tile in two halves,
+//   so S^T, dP^T and the dk/dv accumulators, 2 x 16 x D fp32, stay in
+//   registers) and feeds P_drop^T and dS^T, in bf16, to dv += P_drop^T dO
+//   and dk += dS^T Q. The walk over the group and the query tiles takes the
+//   place of the TPU's (g, iq)-innermost grid: dk and dv are summed in one
+//   block in a fixed order, with no atomics, so a launch is deterministic.
+// Operand orientations come from ldmatrix with or without .trans on the
+// row-major [rows][D] tiles: no tile is transposed in memory or staged
+// twice. Shared rows are padded by 16 bytes (conflict-free ldmatrix); one
+// block takes 102-103 KB at D = 128, so two blocks share an SM. Only the
+// tiles the causal diagonal or a ragged edge cuts test each entry; tiles
+// wholly above the diagonal are skipped per warp. The blocks of the
+// heaviest causal tiles (last query tiles, first key tiles) launch first.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kB = 64;         // queries and keys per tile
-constexpr int kThreads = 256;
-constexpr int kPStride = 80;   // fp32 row stride of the score tiles
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // rows a block owns: queries or keys
+constexpr int kTile = 64;           // rows of each streamed tile
+constexpr int kHalf = 32;           // flash_bwd_dkv: queries per score pass
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, s, h;
 };
 
 template <int D>
-constexpr size_t dq_smem_bytes() {  // q_t, do_t, k_t, v_t, k_s; ds_s
-  return sizeof(__nv_bfloat16) * 5 * D * kB + sizeof(float) * kB * kPStride;
+__host__ __device__ constexpr int pitch() {  // 16 bytes of row padding
+  return D + 8;
 }
 
 template <int D>
-constexpr size_t dkv_smem_bytes() {  // k_t, v_t, q_t, do_t, q_s, do_s;
-                                     // p_s, ds_s; lse_s, delta_s
-  return sizeof(__nv_bfloat16) * 6 * D * kB +
-         sizeof(float) * (2 * kB * kPStride + 2 * kB);
+constexpr size_t dq_smem_bytes() {  // q_s, do_s; k_s, v_s double-buffered
+  return sizeof(__nv_bfloat16) * (2 * kRows + 4 * kTile) * pitch<D>();
 }
 
-// P and dS of one score entry (see the header).
-__device__ __forceinline__ void p_and_ds(float s, float dp, float lse,
-                                         float delta, bool valid, bool keep,
-                                         const ptt::Dropout& drop, float scale,
-                                         float* pd, float* ds) {
-  const float p = valid ? expf(s * scale - lse) : 0.f;
+template <int D>
+constexpr size_t dkv_smem_bytes() {  // k_s, v_s; q_s, do_s, lse_s, dl_s x2
+  return sizeof(__nv_bfloat16) * (2 * kRows + 4 * kTile) * pitch<D>() +
+         sizeof(float) * 4 * kTile;
+}
+
+// 4 bytes from global to shared memory, asynchronously (lse and delta rows
+// need not be 16-byte aligned); src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   ptt::smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragments of a 16 x (8 N) bf16 operand from the fp32 accumulators of
+// the product that made it: the accumulator layout of n-tiles 2k and 2k + 1
+// is the A layout of k-step k.
+template <int N>
+__device__ __forceinline__ void to_a_frags(const float (&c)[N][4],
+                                           uint32_t (&a)[N / 2][4]) {
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    a[k][0] = pack_bf16(c[2 * k][0], c[2 * k][1]);
+    a[k][1] = pack_bf16(c[2 * k][2], c[2 * k][3]);
+    a[k][2] = pack_bf16(c[2 * k + 1][0], c[2 * k + 1][1]);
+    a[k][3] = pack_bf16(c[2 * k + 1][2], c[2 * k + 1][3]);
+  }
+}
+
+// Two 16-row products over D whose B operands share their rows: c0 += A0
+// B0^T and c1 += A1 B1^T, where A0, A1 are the warp's 16 rows (a_row0..) of
+// the [rows][P] tiles a0, a1, and B0, B1 rows b_row0.. b_row0 + 8 N - 1 of
+// the [rows][P] tiles b0, b1 (non-transposed ldmatrix gives the
+// column-major B fragment of a row-major [n][k] tile).
+template <int D, int N>
+__device__ __forceinline__ void scores(const __nv_bfloat16* a0,
+                                       const __nv_bfloat16* a1, int a_row0,
+                                       const __nv_bfloat16* b0,
+                                       const __nv_bfloat16* b1, int b_row0,
+                                       float (&c0)[N][4], float (&c1)[N][4]) {
+  constexpr int P = pitch<D>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c0[j][e] = c1[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t f0[4], f1[4];
+    const int ar = a_row0 + (lane & 15), ac = kk * 16 + (lane >> 4) * 8;
+    ptt::ldmatrix_x4(f0, a0 + ar * P + ac);
+    ptt::ldmatrix_x4(f1, a1 + ar * P + ac);
+#pragma unroll
+    for (int jp = 0; jp < N / 2; ++jp) {
+      const int br = b_row0 + jp * 16 + (lane & 7) + (lane >> 4) * 8;
+      const int bc = kk * 16 + ((lane >> 3) & 1) * 8;
+      uint32_t r0[4], r1[4];
+      ptt::ldmatrix_x4(r0, b0 + br * P + bc);
+      ptt::ldmatrix_x4(r1, b1 + br * P + bc);
+      ptt::mma_bf16_16816(c0[2 * jp], f0, r0[0], r0[1]);
+      ptt::mma_bf16_16816(c0[2 * jp + 1], f0, r0[2], r0[3]);
+      ptt::mma_bf16_16816(c1[2 * jp], f1, r1[0], r1[1]);
+      ptt::mma_bf16_16816(c1[2 * jp + 1], f1, r1[2], r1[3]);
+    }
+  }
+}
+
+// acc[D / 8] += A (16 x 16 K, bf16 fragments) x B, B rows b_row0.. b_row0 +
+// 16 K - 1 of a row-major [rows][P] tile b_s (transposed ldmatrix gives the
+// column-major B fragment of a row-major [k][n] tile).
+template <int D, int K>
+__device__ __forceinline__ void accumulate(const uint32_t (&a)[K][4],
+                                           const __nv_bfloat16* b_s,
+                                           int b_row0, float (&acc)[D / 8][4]) {
+  constexpr int P = pitch<D>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      const int br = b_row0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int bc = np * 16 + (lane >> 4) * 8;
+      uint32_t r[4];
+      ptt::ldmatrix_x4_trans(r, b_s + br * P + bc);
+      ptt::mma_bf16_16816(acc[2 * np], a[kk], r[0], r[1]);
+      ptt::mma_bf16_16816(acc[2 * np + 1], a[kk], r[2], r[3]);
+    }
+  }
+}
+
+// P_drop and dS of one score entry from the raw score s = q.k and dp = dO.v
+// (see the header); lse2 is lse * log2(e), scale2 the softmax scale times
+// log2(e).
+__device__ __forceinline__ void p_and_ds(float s, float dp, float lse2,
+                                         float delta, float scale2,
+                                         bool valid, bool keep,
+                                         const ptt::Dropout& drop, float* pd,
+                                         float* ds) {
+  const float p = valid ? exp2f(fmaf(s, scale2, -lse2)) : 0.f;
   if (drop.on) {
     *pd = keep ? p * drop.scale : 0.f;
     *ds = *pd * dp - p * delta;
@@ -79,8 +193,22 @@ __device__ __forceinline__ void p_and_ds(float s, float dp, float lse,
   }
 }
 
+// rows [r, r + 1] of an fp32 accumulator to bf16 with a scale: lane 4 g + c
+// holds row g (e = 0, 1) and row g + 8 (e = 2, 3), columns 8 j + 2 c, + 1.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store_rows(__nv_bfloat16* row, int half,
+                                           const float (&acc)[D / 8][4],
+                                           float scale) {
+  const int c2 = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c2) =
+        __floats2bfloat162_rn(acc[j][2 * half] * scale,
+                              acc[j][2 * half + 1] * scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -91,123 +219,110 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     Strides vs, Strides dos, Strides dqs, int sq, int sk,
                     int hq, int group, float scale, int causal,
                     ptt::Dropout drop) {
-  constexpr int kCols = D / 16;
+  constexpr int P = pitch<D>();
+  constexpr int kN = kTile / 8;  // n-tiles of a score row
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_t = reinterpret_cast<__nv_bfloat16*>(smem);  // [D][kB]
-  __nv_bfloat16* do_t = q_t + D * kB;                             // [D][kB]
-  __nv_bfloat16* k_t = do_t + D * kB;                             // [D][kB]
-  __nv_bfloat16* v_t = k_t + D * kB;                              // [D][kB]
-  __nv_bfloat16* k_s = v_t + D * kB;                              // [kB][D]
-  float* ds_s = reinterpret_cast<float*>(k_s + kB * D);  // [kB][kPStride]
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][P]
+  __nv_bfloat16* do_s = q_s + kRows * P;                          // [kRows][P]
+  __nv_bfloat16* k_s = do_s + kRows * P;                    // [2][kTile][P]
+  __nv_bfloat16* v_s = k_s + 2 * kTile * P;                 // [2][kTile][P]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // heavy tiles first
+  const int qw0 = q0 + warp * 16;                        // the warp's rows
   const int offset = sk - sq;
   const __nv_bfloat16* kb = k + b * ks.b + (h / group) * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + (h / group) * vs.h;
-  const uint32_t hkey = drop.head_key(b, h);
 
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
-  ptt::stage_transposed<D, kB, kThreads>(q_t, qb, qs.s, q0, sq);
-  ptt::stage_transposed<D, kB, kThreads>(do_t, dob, dos.s, q0, sq);
-
-  float lse_r[4], delta_r[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    const long long row = (static_cast<long long>(b) * hq + h) * sq + qpos;
-    lse_r[i] = qpos < sq ? lse[row] : 0.f;
-    delta_r[i] = qpos < sq ? delta[row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_tiles = (sk + kB - 1) / kB;
+  int n_tiles = (sk + kTile - 1) / kTile;
   if (causal) {  // tiles above the diagonal hold no valid key (:408-412)
-    const int last_key = q0 + kB - 1 + offset;
-    n_tiles = min(n_tiles, last_key < 0 ? 0 : last_key / kB + 1);
+    const int last_key = q0 + kRows - 1 + offset;
+    n_tiles = min(n_tiles, last_key < 0 ? 0 : last_key / kTile + 1);
   }
+
+  ptt::stage_tile<kRows, D, P, kThreads>(q_s, q + b * qs.b + h * qs.h, qs.s,
+                                         q0, sq, 0, D, true);
+  ptt::stage_tile<kRows, D, P, kThreads>(
+      do_s, dout + b * dos.b + h * dos.h, dos.s, q0, sq, 0, D, true);
+  auto stage_kv = [&](int t) {
+    const int off = (t & 1) * kTile * P;
+    ptt::stage_tile<kTile, D, P, kThreads>(k_s + off, kb, ks.s, t * kTile,
+                                           sk, 0, D, true);
+    ptt::stage_tile<kTile, D, P, kThreads>(v_s + off, vb, vs.s, t * kTile,
+                                           sk, 0, D, true);
+  };
+  if (n_tiles > 0) stage_kv(0);
+  ptt::cp_async_commit();
+
+  // this thread's two rows: qw0 + g and qw0 + g + 8
+  const uint32_t hkey = drop.head_key(b, h);
+  float lse2[2], dlt[2];
+  uint32_t row_hash[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qw0 + g + 8 * r;
+    const long long row = (static_cast<long long>(b) * hq + h) * sq + qpos;
+    lse2[r] = qpos < sq ? lse[row] * kLog2e : 0.f;
+    dlt[r] = qpos < sq ? delta[row] : 0.f;
+    row_hash[r] = ptt::mix(static_cast<uint32_t>(qpos) + hkey);
+  }
+  const float scale2 = scale * kLog2e;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kB;
-    __syncthreads();  // the previous tile's readers are done
-    ptt::stage_transposed<D, kB, kThreads>(k_t, kb, ks.s, k0, sk);
-    ptt::stage_transposed<D, kB, kThreads>(v_t, vb, vs.s, k0, sk);
-    ptt::stage_rows<D, kB, kThreads>(k_s, kb, ks.s, k0, sk);
+    if (t + 1 < n_tiles) stage_kv(t + 1);
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<1>();  // tile t (and Q, dO) have landed
     __syncthreads();
-
-    float s[4][4], dp[4][4];
+    const int k0 = t * kTile;
+    const __nv_bfloat16* kt = k_s + (t & 1) * kTile * P;
+    const __nv_bfloat16* vt = v_s + (t & 1) * kTile * P;
+    // warp-uniform: skip a tile wholly above the diagonal or past Sq
+    if (qw0 < sq && !(causal && k0 > qw0 + 15 + offset)) {
+      float s[kN][4], dp[kN][4];
+      scores<D, kN>(q_s, do_s, warp * 16, kt, vt, 0, s, dp);
+      const bool edge = qw0 + 15 >= sq || k0 + kTile > sk ||
+                        (causal && k0 + kTile - 1 > qw0 + offset);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kN; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = __bfloat162float(q_t[d * kB + ty + 16 * i]);
-        dov[i] = __bfloat162float(do_t[d * kB + ty + 16 * i]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = __bfloat162float(k_t[d * kB + tx + 16 * j]);
-        vv[j] = __bfloat162float(v_t[d * kB + tx + 16 * j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int qpos = qw0 + g + 8 * r, kpos = k0 + 8 * j + c2 + (e & 1);
+          const bool valid = !edge || (qpos < sq && kpos < sk &&
+                                       (!causal || kpos <= qpos + offset));
+          const bool keep =
+              drop.on && ptt::mix(row_hash[r] ^ static_cast<uint32_t>(kpos)) >=
+                             drop.thresh;
+          float pd;
+          p_and_ds(s[j][e], dp[j][e], lse2[r], dlt[r], scale2, valid, keep,
+                   drop, &pd, &dp[j][e]);
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool valid = qpos < sq && kpos < sk &&
-                           (!causal || kpos <= qpos + offset);
-        const bool keep = drop.on && drop.keep(hkey, qpos, kpos);
-        float pd, ds;
-        p_and_ds(s[i][j], dp[i][j], lse_r[i], delta_r[i], valid, keep, drop,
-                 scale, &pd, &ds);
-        ds_s[(ty + 16 * i) * kPStride + tx + 16 * j] = ds;
       }
+      uint32_t a_ds[kN / 2][4];
+      to_a_frags<kN>(dp, a_ds);
+      accumulate<D, kN / 2>(a_ds, kt, 0, acc);
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int key = 0; key < kB; ++key) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = ds_s[(ty + 16 * i) * kPStride + key];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float kk = __bfloat162float(k_s[key * D + tx + 16 * c]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(dsv[i], kk, acc[i][c]);
-      }
-    }
+    __syncthreads();  // the next stage overwrites this buffer
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= sq) continue;
-    __nv_bfloat16* row = dq + b * dqs.b + qpos * dqs.s + h * dqs.h;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      row[tx + 16 * c] = __float2bfloat16(acc[i][c] * scale);
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qw0 + g + 8 * r;
+    if (qpos < sq)
+      store_rows<D>(dq + b * dqs.b + qpos * dqs.s + h * dqs.h, r, acc, scale);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -219,137 +334,139 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      Strides vs, Strides dos, Strides dks, Strides dvs,
                      int sq, int sk, int hq, int group, float scale,
                      int causal, ptt::Dropout drop) {
-  constexpr int kCols = D / 16;
+  constexpr int P = pitch<D>();
+  constexpr int kN = kHalf / 8;  // n-tiles of a score pass
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_t = reinterpret_cast<__nv_bfloat16*>(smem);  // [D][kB]
-  __nv_bfloat16* v_t = k_t + D * kB;                              // [D][kB]
-  __nv_bfloat16* q_t = v_t + D * kB;                              // [D][kB]
-  __nv_bfloat16* do_t = q_t + D * kB;                             // [D][kB]
-  __nv_bfloat16* q_s = do_t + D * kB;                             // [kB][D]
-  __nv_bfloat16* do_s = q_s + kB * D;                             // [kB][D]
-  float* p_s = reinterpret_cast<float*>(do_s + kB * D);  // [kB keys][stride]
-  float* ds_s = p_s + kB * kPStride;                      // [kB keys][stride]
-  float* lse_s = ds_s + kB * kPStride;                    // [kB queries]
-  float* delta_s = lse_s + kB;                            // [kB queries]
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][P]
+  __nv_bfloat16* v_s = k_s + kRows * P;                           // [kRows][P]
+  __nv_bfloat16* q_s = v_s + kRows * P;                     // [2][kTile][P]
+  __nv_bfloat16* do_s = q_s + 2 * kTile * P;                // [2][kTile][P]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile * P);  // [2][kTile]
+  float* dl_s = lse_s + 2 * kTile;                                // [2][kTile]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * kB, hk = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kRows;  // the first key tiles are the heaviest
+  const int kw0 = k0 + warp * 16;     // the warp's keys
   const int offset = sk - sq;
 
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-  ptt::stage_transposed<D, kB, kThreads>(k_t, kb, ks.s, k0, sk);
-  ptt::stage_transposed<D, kB, kThreads>(v_t, vb, vs.s, k0, sk);
+  ptt::stage_tile<kRows, D, P, kThreads>(k_s, k + b * ks.b + hk * ks.h, ks.s,
+                                         k0, sk, 0, D, true);
+  ptt::stage_tile<kRows, D, P, kThreads>(v_s, v + b * vs.b + hk * vs.h, vs.s,
+                                         k0, sk, 0, D, true);
 
-  float acc_k[4][kCols], acc_v[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  // the walk: (group head gg, query tile iq) for iq from the first tile
+  // with a query at or below this key tile (:461-465)
+  const int n_qtiles = (sq + kTile - 1) / kTile;
+  const int iq0 = causal && k0 > offset ? min((k0 - offset) / kTile, n_qtiles)
+                                        : 0;
+  const int per_head = n_qtiles - iq0;
+  const int n_items = group * per_head;
+  auto stage_q = [&](int it) {
+    const int hh = hk * group + it / per_head;
+    const int qq0 = (iq0 + it % per_head) * kTile;
+    const int buf = it & 1;
+    ptt::stage_tile<kTile, D, P, kThreads>(q_s + buf * kTile * P,
+                                           q + b * qs.b + hh * qs.h, qs.s,
+                                           qq0, sq, 0, D, true);
+    ptt::stage_tile<kTile, D, P, kThreads>(do_s + buf * kTile * P,
+                                           dout + b * dos.b + hh * dos.h,
+                                           dos.s, qq0, sq, 0, D, true);
+    const long long row0 = (static_cast<long long>(b) * hq + hh) * sq + qq0;
+    for (int i = threadIdx.x; i < 2 * kTile; i += kThreads) {
+      const int r = i % kTile;
+      const bool in = qq0 + r < sq;
+      const float* src = (i < kTile ? lse : delta) + (in ? row0 + r : 0);
+      float* dst = (i < kTile ? lse_s : dl_s) + buf * kTile + r;
+      cp_async4(dst, src, in ? 4 : 0);
+    }
+  };
+  if (n_items > 0) stage_q(0);
+  ptt::cp_async_commit();
 
-  const int n_qtiles = (sq + kB - 1) / kB;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const uint32_t hkey = drop.head_key(b, h);
-    const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-    const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
-    const long long row0 = (static_cast<long long>(b) * hq + h) * sq;
-    for (int iq = 0; iq < n_qtiles; ++iq) {
-      const int q0 = iq * kB;
-      // tiles whose every query sits above this key tile (:461-465)
-      if (causal && k0 > q0 + kB - 1 + offset) continue;
-      __syncthreads();  // the previous tile's readers are done
-      ptt::stage_transposed<D, kB, kThreads>(q_t, qb, qs.s, q0, sq);
-      ptt::stage_transposed<D, kB, kThreads>(do_t, dob, dos.s, q0, sq);
-      ptt::stage_rows<D, kB, kThreads>(q_s, qb, qs.s, q0, sq);
-      ptt::stage_rows<D, kB, kThreads>(do_s, dob, dos.s, q0, sq);
-      if (tid < kB) {
-        const bool in = q0 + tid < sq;
-        lse_s[tid] = in ? lse[row0 + q0 + tid] : 0.f;
-        delta_s[tid] = in ? delta[row0 + q0 + tid] : 0.f;
-      }
-      __syncthreads();
+  const float scale2 = scale * kLog2e;
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
 
-      // transposed scores: s[i][j] for key ty + 16 i, query tx + 16 j
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = __bfloat162float(k_t[d * kB + ty + 16 * i]);
-          vv[i] = __bfloat162float(v_t[d * kB + ty + 16 * i]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = __bfloat162float(q_t[d * kB + tx + 16 * j]);
-          dov[j] = __bfloat162float(do_t[d * kB + tx + 16 * j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
-          }
-      }
+  for (int it = 0; it < n_items; ++it) {
+    if (it + 1 < n_items) stage_q(it + 1);
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<1>();  // item it (and K, V) have landed
+    __syncthreads();
+    const int hh = hk * group + it / per_head;
+    const int qq0 = (iq0 + it % per_head) * kTile;
+    const int buf = it & 1;
+    const __nv_bfloat16* qt = q_s + buf * kTile * P;
+    const __nv_bfloat16* dot = do_s + buf * kTile * P;
+    const float* lt = lse_s + buf * kTile;
+    const float* dlt = dl_s + buf * kTile;
+    const uint32_t hkey = drop.head_key(b, hh);
 
+#pragma unroll 1
+    for (int half = 0; half < kTile / kHalf; ++half) {
+      const int qa = qq0 + half * kHalf, qb = qa + kHalf - 1;
+      // warp-uniform: skip a pass wholly above the diagonal or past the end
+      if (kw0 >= sk || qa >= sq || (causal && kw0 > qb + offset)) continue;
+      float st[kN][4], dpt[kN][4];
+      scores<D, kN>(k_s, v_s, warp * 16, qt, dot, half * kHalf, st, dpt);
+      const bool edge = kw0 + 15 >= sk || qb >= sq ||
+                        (causal && kw0 + 15 > qa + offset);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + ty + 16 * i;
+      for (int j = 0; j < kN; ++j) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qi = tx + 16 * j, qpos = q0 + qi;
-          const bool valid = qpos < sq && kpos < sk &&
-                             (!causal || kpos <= qpos + offset);
-          const bool keep = drop.on && drop.keep(hkey, qpos, kpos);
-          float pd, ds;
-          p_and_ds(s[i][j], dp[i][j], lse_s[qi], delta_s[qi], valid, keep,
-                   drop, scale, &pd, &ds);
-          p_s[(ty + 16 * i) * kPStride + qi] = pd;
-          ds_s[(ty + 16 * i) * kPStride + qi] = ds;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int qq = 0; qq < kB; ++qq) {
-        float pv[4], dsv[4];
+        for (int cc = 0; cc < 2; ++cc) {  // this thread's two query columns
+          const int ql = half * kHalf + 8 * j + c2 + cc, qpos = qq0 + ql;
+          const float lse2 = lt[ql] * kLog2e, dl = dlt[ql];
+          const uint32_t col_hash =
+              drop.on ? ptt::mix(static_cast<uint32_t>(qpos) + hkey) : 0u;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = p_s[(ty + 16 * i) * kPStride + qq];
-          dsv[i] = ds_s[(ty + 16 * i) * kPStride + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const float dov = __bfloat162float(do_s[qq * D + tx + 16 * c]);
-          const float qv = __bfloat162float(q_s[qq * D + tx + 16 * c]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc_v[i][c] = fmaf(pv[i], dov, acc_v[i][c]);
-            acc_k[i][c] = fmaf(dsv[i], qv, acc_k[i][c]);
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + cc, kpos = kw0 + g + 8 * r;
+            const bool valid = !edge || (qpos < sq && kpos < sk &&
+                                         (!causal || kpos <= qpos + offset));
+            const bool keep =
+                drop.on && ptt::mix(col_hash ^ static_cast<uint32_t>(kpos)) >=
+                               drop.thresh;
+            p_and_ds(st[j][e], dpt[j][e], lse2, dl, scale2, valid, keep,
+                     drop, &st[j][e], &dpt[j][e]);
           }
         }
       }
+      uint32_t a_p[kN / 2][4], a_ds[kN / 2][4];
+      to_a_frags<kN>(st, a_p);
+      to_a_frags<kN>(dpt, a_ds);
+      accumulate<D, kN / 2>(a_p, dot, half * kHalf, acc_v);
+      accumulate<D, kN / 2>(a_ds, qt, half * kHalf, acc_k);
     }
+    __syncthreads();  // the next stage overwrites this buffer
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty + 16 * i;
-    if (kpos >= sk) continue;
-    __nv_bfloat16* krow = dk + b * dks.b + kpos * dks.s + hk * dks.h;
-    __nv_bfloat16* vrow = dv + b * dvs.b + kpos * dvs.s + hk * dvs.h;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      krow[tx + 16 * c] = __float2bfloat16(acc_k[i][c] * scale);
-      vrow[tx + 16 * c] = __float2bfloat16(acc_v[i][c]);
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = kw0 + g + 8 * r;
+    if (kpos < sk) {
+      store_rows<D>(dk + b * dks.b + kpos * dks.s + hk * dks.h, r, acc_k,
+                    scale);
+      store_rows<D>(dv + b * dvs.b + kpos * dvs.s + hk * dvs.h, r, acc_v,
+                    1.f);
     }
   }
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  // room for two blocks per SM
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 template <int D>
@@ -360,11 +477,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       Strides dqs, float scale, int causal, ptt::Dropout drop,
                       cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = set_smem(flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kB - 1) / kB, hq, batch);
+  const dim3 grid(hq, batch, (sq + kRows - 1) / kRows);
   flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -384,11 +499,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        Strides dos, Strides dks, Strides dvs, float scale,
                        int causal, ptt::Dropout drop, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = set_smem(flash_bwd_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sk + kB - 1) / kB, hkv, batch);
+  const dim3 grid(hkv, batch, (sk + kRows - 1) / kRows);
   flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -402,10 +515,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Strides are in elements; q/k/v/dO rows must be 16-byte aligned (the
-// wrapper checks); lse and delta are contiguous [B, Hq, Sq] fp32. Dropout:
-// seed, keep threshold, 1 / (1 - p), on (see ptt::Dropout). Each returns
-// cudaGetLastError() after its launch.
+// Strides are in elements; q/k/v/dO rows must be 16-byte aligned and every
+// non-unit stride a multiple of 8 elements (the wrapper checks); dq, dk, dv
+// rows 4-byte aligned; lse and delta are contiguous [B, Hq, Sq] fp32.
+// Dropout: seed, keep threshold, 1 / (1 - p), on (see ptt::Dropout). Each
+// returns cudaGetLastError() after its launch.
 extern "C" int flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int batch, int sq, int sk,
@@ -452,9 +566,9 @@ extern "C" int flash_bwd_dkv_bf16(
                             hq, hkv, qs, ks, vs, dos, dks, dvs, scale, causal,
                             drop, st);
     case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, sq, sk,
-                             hq, hkv, qs, ks, vs, dos, dks, dvs, scale, causal,
-                             drop, st);
+      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, sq,
+                             sk, hq, hkv, qs, ks, vs, dos, dks, dvs, scale,
+                             causal, drop, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

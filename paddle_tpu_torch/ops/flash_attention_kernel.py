@@ -171,6 +171,11 @@ def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded to ``dtype`` and back."""
+    return x.to(dtype).float()
+
+
 def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = False,
                             sm_scale: Optional[float] = None,
                             dropout_p: float = 0.0, seed: int = 0):
@@ -178,7 +183,10 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = False,
     :475-551), in fp32 over chunks of query rows: P is recomputed from
     the saved lse, rows with no key re-masked to 0, dS = P (dP - delta)
     (with dropout, dS = P_drop dP - P delta), dQ = dS K scale, dK = dS^T Q
-    scale, dV = P_drop^T dO, dK and dV summed over each GQA group.
+    scale, dV = P_drop^T dO, dK and dV summed over each GQA group. dS and
+    P_drop are rounded to the inputs' dtypes before the second products,
+    as the JAX kernels do (``ds.astype(k.dtype)`` :405, ``pd.astype(
+    do.dtype)`` :455, ``ds.astype(q.dtype)`` :458; a no-op in fp32).
     Returns (dq, dk, dv) in the dtypes of q, k, v."""
     _check_shapes(q, k, v)
     _check_dropout(dropout_p)
@@ -210,9 +218,11 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = False,
         else:
             pd = p
             ds = p * (dp - dl)
-        dq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds, kt) * scale
-        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
-        dv += torch.einsum("bhqk,bhqd->bhkd", pd, doc)
+        dq[:, :, r0:r1] = torch.einsum(
+            "bhqk,bhkd->bhqd", _rounded(ds, k.dtype), kt) * scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype),
+                           qc) * scale
+        dv += torch.einsum("bhqk,bhqd->bhkd", _rounded(pd, do.dtype), doc)
     g = hq // hkv
     dk = dk.view(b, hkv, g, sk, d).sum(2)
     dv = dv.view(b, hkv, g, sk, d).sum(2)
@@ -323,8 +333,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                            dropout_p: float = 0.0, seed: int = 0
                            ) -> torch.Tensor:
     """dq [B, Sq, Hq, D] bf16 from the ``flash_bwd_dq`` kernel: one block
-    per (batch, query head, 64-query tile), looping over key tiles. CUDA
-    tensors only: the plain version is :func:`flash_attention_bwd_ref`."""
+    per (query head, batch, 64-query tile), looping over key tiles on the
+    tensor cores. CUDA tensors only: the plain version is
+    :func:`flash_attention_bwd_ref`."""
     _check_shapes(q, k, v)
     _check_cuda("flash_bwd_dq", q, k, v, do)
     b, sq, hq, d = q.shape
@@ -352,9 +363,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                             dropout_p: float = 0.0, seed: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, Sk, Hkv, D] bf16 from the ``flash_bwd_dkv`` kernel:
-    one block per (batch, kv head, 64-key tile), looping over the query
-    heads of its group and the query tiles with fp32 accumulators (no
-    atomics). CUDA tensors only."""
+    one block per (kv head, batch, 64-key tile), looping over the query
+    heads of its group and the query tiles on the tensor cores with fp32
+    accumulators (no atomics). CUDA tensors only."""
     _check_shapes(q, k, v)
     _check_cuda("flash_bwd_dkv", q, k, v, do)
     b, sq, hq, d = q.shape

@@ -3,7 +3,9 @@
 - The dropout keep-mask of the port equals the JAX kernel's bit for bit.
 - Flash attention forward and backward (the port's plain versions, through
   its autograd Function) against the Pallas kernels in interpret mode and
-  ``jax.vjp``, with and without dropout at the same seed.
+  ``jax.vjp``, with and without dropout at the same seed; and the plain
+  backward in bf16, which rounds dS and P_drop where the Pallas kernels do
+  (its own tolerance, stated in the test).
 - RMSNorm and RoPE gradients against ``jax.vjp`` of the Pallas wrappers.
 - AdamW, the global-norm clip and SGD against ``paddle_tpu.optimizer.
   functional`` over three updates.
@@ -125,6 +127,53 @@ def test_flash_fwd_bwd_match_pallas(sq, sk, hq, hkv, causal, dropout,
     for got, want in zip((qt.grad, kt.grad, vt.grad), grads_j):
         np.testing.assert_allclose(got.numpy(),
                                    _np(want).transpose(0, 2, 1, 3), **TOL)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("sq,sk,hq,hkv,d", [(64, 64, 2, 2, 64),
+                                            (64, 64, 4, 1, 16),
+                                            (48, 64, 4, 2, 16)])
+def test_flash_bwd_plain_rounds_like_pallas_in_bf16(sq, sk, hq, hkv, d,
+                                                    dropout):
+    """bf16, causal, GQA: the plain backward on the Pallas forward's out
+    and lse against the Pallas backward kernels in interpret mode (16 x 16
+    blocks) under ``jax.vjp``. Both round dS and P_drop to bf16 before the
+    second products and sum in fp32, so they agree but where a score's
+    fp32 value differs by an ulp across a bf16 rounding boundary, which
+    moves one output by a fraction of a bf16 step (6.1e-5 at most over
+    these cases). Tolerance: atol 1e-3, rtol 2^-8 (half a bf16 step).
+    Without the rounding the plain version is one to several bf16 steps
+    away (0.0039-0.0625 at outputs up to 9)."""
+    q, k, v, do = _flash_case(1, sq, sk, hq, hkv, d, seed=sq + hkv + d)
+    seed, scale = 5, 1.0 / math.sqrt(d)
+    bf = jnp.bfloat16
+    qj, kj, vj, doj = (jnp.asarray(a.transpose(0, 2, 1, 3), bf)
+                       for a in (q, k, v, do))
+
+    def jf(q_, k_, v_):
+        return jax_flash.flash_attention_bhsd(
+            q_, k_, v_, causal=True, dropout_p=dropout, seed=seed,
+            block_q=16, block_k=16, interpret=True)
+
+    _, vjp = jax.vjp(jf, qj, kj, vj)
+    grads_j = vjp(doj)
+    out_j, lse_j = jax_flash._fwd_impl(
+        qj, kj, vj, jnp.asarray([seed], jnp.int32), True, scale, dropout,
+        16, 16, True)
+
+    def tt(a):      # [B, H, S, D] bf16 -> [B, S, H, D] bf16
+        return torch.tensor(_np(a.astype(jnp.float32)).transpose(0, 2, 1, 3),
+                            dtype=torch.bfloat16)
+
+    grads = fk.flash_attention_bwd_ref(
+        tt(qj), tt(kj), tt(vj), tt(out_j), torch.tensor(_np(lse_j)[..., 0]),
+        tt(doj), True, None, dropout, seed)
+    for got, want in zip(grads, grads_j):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            got.float().numpy(),
+            _np(want.astype(jnp.float32)).transpose(0, 2, 1, 3),
+            atol=1e-3, rtol=2.0 ** -8)
 
 
 def test_flash_bwd_rows_without_keys_get_zero_dq():
