@@ -26,8 +26,14 @@ Phases, each timed, none caught and passed over:
    stock-layout ``paged_attention`` at the 7B decode shape (MHA, GQA, soft
    cap) and the head-batched flash route at the training shape (forward
    and backward, bitwise the per-head kernels' result), with the tolerance
-   stated; then each one's time beside its bound, its plain version's and
-   a library call's where one PyTorch call computes the same function;
+   stated; the attention kernels' other instances beside them: fp32 and
+   fp16 flash forward and backward (head dims 64, 128 and the zero-padded
+   16 and 96), the bf16 flash kernels at head dims 16 and 96, and the
+   decode kernels (K4, K7) in fp32 and fp16, at head dims 16 and 96 and at
+   a GQA group of 16; the flash forward is launched twice in every case and
+   held bitwise equal to itself; then each one's time beside its bound, its
+   plain version's and a library call's where one PyTorch call computes the
+   same function;
 4. kernel against plain, end to end: the 7B widths at 2 layers, served once
    on the card (kernels) and once on the CPU (plain versions), same weights
    and prompts, through the paged engine, ``CausalLMEngine.generate`` and
@@ -42,7 +48,13 @@ Phases, each timed, none caught and passed over:
    parameters within stated tolerances; then the card's step once more
    from the same weights with ``FLAGS_flash_head_batched`` on: the route
    taken at every flash forward, and loss, gradients and parameters
-   bitwise those of the step without the flag;
+   bitwise those of the step without the flag; then fp32 on the card
+   against the CPU (this slice's path, every kernel it runs counted): the
+   ``"tiny"`` Llama preset (head dim 16) through its forward, a Layer-API
+   backward, one ``build_train_step`` step, ``CausalLMEngine.generate``
+   and the paged engine's greedy stream, and a 2-layer fp32
+   ``FusedMultiTransformer`` at the 6.7B widths, each within a stated
+   tolerance;
 5. serve: the ``"7b"`` preset at full depth (32 layers, bf16, random
    weights from a seeded generator) through
    ``PagedContinuousBatchingEngine.serve``: 8 prompts of 100-700 tokens,
@@ -118,6 +130,10 @@ DENSE = dict(max_batch=8, max_len=1024)
 FMT = dict(hidden=4096, layers=32, heads=32, ffn=16384, batch=8, context=512,
            max_len=1024, steps=32)
 FMT_E2E = dict(layers=2, batch=1, seq=128, steps=8)   # phase 4's twin
+# phase 4's fp32 path: the "tiny" Llama preset (hidden 64, 2 layers, 4
+# heads of 16, vocab 256, fp32 by default), a batch for the forward,
+# backward and train step, and prompts for generate and the paged engine
+F32 = dict(preset="tiny", batch=2, seq=64, prompts=(40, 23), new=8)
 # phases 3 and 8: fused_linear_param_grad_add at the seven linears of one
 # decoder layer of the PRESET model over a batch of 8 x 512 tokens
 GRAD_ADD_TOKENS = (8, 512)
@@ -151,6 +167,21 @@ FP32_FLOPS = 67e12
 # by more than 1e-3 (paged_decode's worst case within 2^-7 above was
 # 2.4e-4 at bf16 and int8, flash_fwd's 3.9e-3 at outputs near 0.5).
 BF16_STEP = 2.0 ** -7
+# the suffix of each dtype's entry point
+ENTRY = {"torch.bfloat16": "bf16", "torch.float16": "f16",
+         "torch.float32": "f32"}
+# K3 and its plain version round P to bf16 before P.V, at the running max
+# of each 64-key tile, as the JAX kernel does. Where the two sides' fp32
+# scores differ in the last ulps (sums in another order), that rounding can
+# land on neighbouring bf16 values of one P: an output moves by up to a
+# bf16 step of its own size or of a neighbour's. The plain version in fp32
+# shows the same against itself in fp64 (42 elements of 16.7M past the
+# limit at the training shape, 43 for the kernel against fp64, 61 for the
+# kernel against the plain version; at most 1.5e-5 of the elements over 13
+# shapes, max 0.0078 at outputs near 1; measured on an H100), so such
+# flips are no fault. So flash_fwd's limit holds for all but a share of 1e-4 of
+# the elements, and every element is within 2^-5: a wrong mask, scale, tile
+# or head mapping moves whole rows of outputs of order 0.05-1.
 # The flash backward kernels and their plain version run the same
 # arithmetic on the same bf16 inputs, lse and delta, with identical dropout
 # masks (the hash is exact), and round dS and P_drop to bf16 before the
@@ -185,7 +216,8 @@ BF16_STEP = 2.0 ** -7
 # route K3/K5/K6: their limits.
 TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "fused_rope": dict(atol=1e-3, rtol=BF16_STEP),
-       "flash_fwd": dict(atol=1e-4, rtol=BF16_STEP),
+       "flash_fwd": dict(atol=1e-4, rtol=BF16_STEP, outside=1e-4,
+                         cap=2.0 ** -5),
        "paged_decode": dict(atol=1e-4, rtol=BF16_STEP),
        "flash_bwd_dq": dict(atol=1e-4, rtol=BF16_STEP, outside=1e-3,
                             cap=2.0 ** -5),
@@ -197,7 +229,8 @@ TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "grouped_matmul": dict(atol=1e-2, rtol=1e-5),
        "grouped_matmul_bf16": dict(atol=1e-3, rtol=BF16_STEP),
        "paged_attention": dict(atol=1e-4, rtol=BF16_STEP),
-       "flash_hb": dict(atol=1e-4, rtol=BF16_STEP)}
+       "flash_hb": dict(atol=1e-4, rtol=BF16_STEP, outside=1e-4,
+                        cap=2.0 ** -5)}
 LSE_ATOL = 1e-3                 # fp32 log-sum-exp, a few fp32 ulps of work
 # end to end (phase 4): bf16 activations on both sides, matmuls accumulated
 # in another order on the card than on the CPU; logits near 5-8 resolve to
@@ -222,6 +255,21 @@ FMT_ATOL = 0.125
 TRAIN_LOSS_ATOL = 2e-2
 TRAIN_GRAD_RTOL = 2e-2
 TRAIN_PARAM_ATOL = 2.5 * TRAIN["lr"]
+# fp32 end to end (phase 4): both sides compute in fp32 (the card's matmuls
+# with TF32 off), in other orders, so results differ by a few fp32 ulps of
+# the partial sums: about 1e-6 relative. Logits and the loss: 1e-4, which
+# a bf16 rounding anywhere on the path (2^-8 relative) or a dropped key
+# would exceed at the tiny model's logits; gradients: 1e-4 of each
+# gradient's norm; parameters after one AdamW step: 5% of lr (lr m / (sqrt
+# v + eps) turns a 1e-6 relative gradient difference into up to ~1e-2 of lr
+# where |g| is within a few eps of zero), as the CPU tests hold them; the
+# FMT residual stream (|x| up to ~6): 1e-3. Greedy streams may part only at
+# a top-2 margin under 1e-3.
+F32_ATOL = 1e-4
+F32_GRAD_RTOL = 1e-4
+F32_PARAM_ATOL = 0.05 * TRAIN["lr"]
+F32_NEAR_TIE = 1e-3
+FMT_F32_ATOL = 1e-3
 
 REPLACES = {
     "rms_norm": "paddle_tpu/ops/pallas_kernels.py:67",
@@ -255,9 +303,11 @@ ROUTE_SOURCES = {
     "paged_attention": ("cuda", "paddle_tpu_torch/ops/paged_attention.py"),
 }
 PATHS = ("serve", "generate", "dense_serve", "train", "fmt", "train_hb",
-         "ops")
-SLICE_PATHS = ("ops", "train_hb")                     # this slice's own
-EARLIER_PATHS = (("generate", "dense_serve", "fmt"), ("train",), ("serve",))
+         "ops", "f32")
+SLICE_PATHS = ("train", "f32")                        # this slice's own
+EARLIER_PATHS = (("ops", "train_hb"), ("generate", "dense_serve", "fmt"),
+                 ("serve",))
+ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
 
 def log(*a):
@@ -384,46 +434,74 @@ def kernel_phase(torch, dev, np):
                                  lambda: ops.fused_rope_ref(x, c, sn)),
                 bound_ms=bms, bound_by=by, library_ms=None)
 
-    # K3 flash forward: prefill buckets (causal MHA), GQA 32/8, a ragged
-    # length, queries fewer than keys, a non-causal case, and dropout 0.1
-    # (the kernel and the plain version draw the same mask from the seed)
-    for sq, sk, hkv, causal, p in [(128, 128, NH, True, 0.0),
-                                   (512, 512, NH, True, 0.0),
-                                   (1024, 1024, NH, True, 0.0),
-                                   (512, 512, GQA, True, 0.0),
-                                   (700, 700, NH, True, 0.0),
-                                   (100, 300, GQA, True, 0.0),
-                                   (200, 200, NH, False, 0.0),
-                                   (512, 512, NH, True, 0.1),
-                                   (300, 700, GQA, False, 0.1)]:
-        q = randn(1, sq, NH, D)
-        k = randn(1, sk, hkv, D)
-        v = randn(1, sk, hkv, D)
+    # K3 flash forward: prefill buckets (causal MHA), GQA 32/8, ragged
+    # lengths (700, and 2047, which cuts the last tile of queries and of
+    # keys), queries fewer than keys, a non-causal case, dropout 0.1 (the
+    # kernel and the plain version draw the same mask from the seed); then
+    # the other instances: head dims 16 and 96 (zero-padded to 64 and 128
+    # around the kernel), fp16 and fp32 (flash_f32.cu) at 128, 64 and 16.
+    # Each is launched twice and must give bitwise-equal results.
+    f32, f16 = torch.float32, torch.float16
+    peak = {bf: BF16_FLOPS, f16: BF16_FLOPS, f32: FP32_FLOPS}
+    for sq, sk, hkv, causal, p, d, dt in [
+            (128, 128, NH, True, 0.0, D, bf), (512, 512, NH, True, 0.0, D, bf),
+            (1024, 1024, NH, True, 0.0, D, bf),
+            (512, 512, GQA, True, 0.0, D, bf),
+            (700, 700, NH, True, 0.0, D, bf),
+            (2047, 2047, NH, True, 0.0, D, bf),
+            (100, 300, GQA, True, 0.0, D, bf),
+            (200, 200, NH, False, 0.0, D, bf),
+            (512, 512, NH, True, 0.1, D, bf),
+            (300, 700, GQA, False, 0.1, D, bf),
+            (256, 300, 2, True, 0.1, 16, bf),
+            (256, 300, GQA, True, 0.0, 96, bf),
+            (512, 512, NH, True, 0.0, D, f32),
+            (300, 700, GQA, False, 0.1, 64, f32),
+            (130, 130, 2, True, 0.0, 16, f32),
+            (512, 512, NH, True, 0.0, D, f16),
+            (700, 700, GQA, True, 0.1, D, f16),
+            (256, 300, 2, True, 0.0, 16, f16)]:
+        q = randn(1, sq, NH, d, dtype=dt)
+        k = randn(1, sk, hkv, d, dtype=dt)
+        v = randn(1, sk, hkv, d, dtype=dt)
         out, lse = ops.flash_attention_bshd(q, k, v, causal, None, p, SEED)
+        again = ops.flash_attention_bshd(q, k, v, causal, None, p, SEED)
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError("flash_fwd: two launches gave different "
+                                 "results")
         ref, lse_ref = ops.flash_attention_bshd_ref(q, k, v, causal, None, p,
                                                     SEED)
-        tag = f"Sq={sq} Sk={sk} Hkv={hkv} causal={causal} dropout={p}"
+        tag = (f"Sq={sq} Sk={sk} Hkv={hkv} D={d} {str(dt)[6:]} "
+               f"causal={causal} dropout={p}")
         err = check_close(torch, f"flash_fwd {tag}", out, ref,
                           **TOL["flash_fwd"])
         check_close(torch, f"flash_fwd lse {tag}", lse, lse_ref, LSE_ATOL,
                     0.0)
         cases.append(("flash_fwd", tag, err))
-        if (sq, hkv, causal, p) == (512, NH, True, 0.0):
-            nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
-                + lse.numel() * 4
-            bms, by = bound(nbytes, 4 * D * causal_pairs(sq, sk) * NH,
-                            BF16_FLOPS)
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            rows["flash_fwd"] = dict(
-                shape=tag,
-                ms=time_ms(torch, lambda: ops.flash_attention_bshd(
-                    q, k, v, causal=True)),
-                plain_ms=time_ms(torch, lambda: ops.flash_attention_bshd_ref(
-                    q, k, v, causal=True), reps=5),
-                bound_ms=bms, bound_by=by,
-                library_ms=time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True)))
+        if (sq, hkv, causal, p, d) != (512, NH, True, 0.0, D):
+            continue
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+            * q.element_size() + lse.numel() * 4
+        flops = 4 * D * causal_pairs(sq, sk) * NH
+        timed = dict(shape=tag, ms=time_ms(torch, lambda: ops.
+                                           flash_attention_bshd(
+                                               q, k, v, causal=True)),
+                     plain_ms=time_ms(torch, lambda: ops.
+                                      flash_attention_bshd_ref(
+                                          q, k, v, causal=True), reps=5))
+        bms, by = bound(nbytes, flops, peak[dt])
+        if dt != bf:        # another instance, with its own bound
+            entry = f"flash_fwd_{ENTRY[str(dt)]}"
+            rows["flash_fwd"]["instances"][entry] = dict(
+                **timed, bound_ms=bms, bound_by=by, max_abs_err=err)
+            continue
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rows["flash_fwd"] = dict(
+            **timed, bound_ms=bms, bound_by=by,
+            library_ms=time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)),
+            instances={})
 
     flash_bwd_cases(torch, ops, F, randn, rows, cases)
 
@@ -451,7 +529,8 @@ def kernel_phase(torch, dev, np):
                     q, kp, vp, table, lens)),
                 plain_ms=time_ms(torch, lambda: ops.paged_decode_mha_ref(
                     q, kp, vp, table, lens), reps=5),
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=None, instances={})
+    paged_instance_cases(torch, ops, randn, rows, cases, table, lens, NH, D)
     decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev)
     layer_norm_cases(torch, ops, F, randn, rows, cases, H)
     grad_add_cases(torch, ops, randn, rows, cases, mc)
@@ -509,6 +588,48 @@ def paged_decode_inputs(torch, g, randn, dev, nh, d):
     return table, lens, cases
 
 
+def paged_instance_cases(torch, ops, randn, rows, cases, table, lens, nh,
+                         d_full):
+    """K4's other instances on the serve batch's page table: fp32 query
+    and pools at head dim 128 (timed against the fp32 bound) and 16, fp16
+    at 128 (timed) and 96, and bf16 at head dims 16 (its tile at width 32,
+    lanes past 16 masked) and 96 (width 128), with GQA groups of 16 (two
+    blocks per kv head) and 4."""
+    num_pages, ps = PAGED["pages"], PAGED["page"]
+    b = len(PAGED["lens"])
+    f32, f16 = torch.float32, torch.float16
+    for dt, d, hkv in [(f32, d_full, nh), (f32, 16, nh // 16),
+                       (f16, d_full, nh), (f16, 96, nh // 16),
+                       (torch.bfloat16, 16, nh // 16),
+                       (torch.bfloat16, 96, nh // 4)]:
+        q = randn(b, nh, d, dtype=dt)
+        kp = randn(num_pages, ps, hkv, d, dtype=dt)
+        vp = randn(num_pages, ps, hkv, d, dtype=dt)
+        out = ops.paged_decode_mha(q, kp, vp, table, lens)
+        tag = (f"B={b} Hq={nh} Hkv={hkv} D={d} {str(dt)[6:]} "
+               f"lens={PAGED['lens']}")
+        err = check_close(torch, f"paged_decode {tag}", out,
+                          ops.paged_decode_mha_ref(q, kp, vp, table, lens),
+                          **TOL["paged_decode"])
+        if out[-1].abs().max().item() != 0.0:
+            raise AssertionError("paged_decode: a zero-length row must "
+                                 "return zeros")
+        cases.append(("paged_decode", tag, err))
+        if d == d_full:
+            tokens, es = sum(PAGED["lens"]), q.element_size()
+            nbytes = (tokens * hkv * d * es * 2 + 2 * q.numel() * es
+                      + table.numel() * 4 + b * 4)
+            bms, by = bound(nbytes, 4 * d * tokens * nh,
+                            FP32_FLOPS if dt == f32 else BF16_FLOPS)
+            rows["paged_decode"]["instances"][
+                f"paged_decode_{ENTRY[str(dt)]}"] = dict(
+                shape=tag, ms=time_ms(torch, lambda: ops.paged_decode_mha(
+                    q, kp, vp, table, lens)),
+                plain_ms=time_ms(torch, lambda: ops.paged_decode_mha_ref(
+                    q, kp, vp, table, lens), reps=5),
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
 def paged_decode_times(tree: str) -> dict:
     """K4 of the checkout at ``tree`` at the serve shape of phase 3 (MHA,
     GQA and int8): its device time (the median of 50 calls) and its largest
@@ -539,20 +660,29 @@ def paged_decode_times(tree: str) -> dict:
 def decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
     """K7 against ``decode_mha_ref``: the 7B serve batch (8 rows of a
     1024-long cache, 32 heads of 128, lens up to 1024 with a dead row), GQA
-    32/8, a cache of 700 (no tile divides it) and fp32 inputs."""
-    bf = torch.bfloat16
+    32/8, a cache of 700 (no tile divides it) and fp32 inputs; then head
+    dims 16 (the tile at width 32, lanes past 16 masked) and 96 (width
+    128), in bf16, fp16 and fp32, with a GQA group of 16 (two blocks per
+    kv head)."""
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     serve_lens = [1024, 900, 733, 512, 300, 129, 17, 0]
-    for s_max, hkv, dtype, lens_l in [
-            (1024, NH, bf, serve_lens), (1024, NH // 4, bf, serve_lens),
-            (700, NH, bf, [700, 650, 513, 333, 64, 63, 1, 0]),
-            (1024, NH, torch.float32, serve_lens)]:
+    for s_max, hkv, dtype, lens_l, d in [
+            (1024, NH, bf, serve_lens, D), (1024, NH // 4, bf, serve_lens, D),
+            (700, NH, bf, [700, 650, 513, 333, 64, 63, 1, 0], D),
+            (1024, NH, f32, serve_lens, D),
+            (1024, NH, f16, serve_lens, D),
+            (1024, NH // 16, f16, serve_lens, 96),
+            (1024, NH // 16, bf, serve_lens, 16),
+            (1024, NH // 16, f32, serve_lens, 96),
+            (700, NH, bf, [700, 650, 513, 333, 64, 63, 1, 0], 96),
+            (700, NH // 4, f32, [700, 650, 513, 333, 64, 63, 1, 0], 16)]:
         b = len(lens_l)
-        q = randn(b, NH, D, dtype=dtype)
-        k = randn(b, s_max, hkv, D, dtype=dtype)
-        v = randn(b, s_max, hkv, D, dtype=dtype)
+        q = randn(b, NH, d, dtype=dtype)
+        k = randn(b, s_max, hkv, d, dtype=dtype)
+        v = randn(b, s_max, hkv, d, dtype=dtype)
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
         out = ops.decode_mha(q, k, v, lens)
-        tag = (f"B={b} S={s_max} Hkv={hkv} {str(dtype)[6:]} "
+        tag = (f"B={b} S={s_max} Hkv={hkv} D={d} {str(dtype)[6:]} "
                f"lens={lens_l}")
         err = check_close(torch, f"decode_mha {tag}", out,
                           ops.decode_mha_ref(q, k, v, lens),
@@ -561,7 +691,19 @@ def decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
             raise AssertionError("decode_mha: a zero-length row must return "
                                  "zeros")
         cases.append(("decode_mha", tag, err))
-        if (s_max, hkv, dtype) != (1024, NH, bf):
+        if (s_max, hkv, d) == (1024, NH, D) and dtype != bf:
+            tokens, es = sum(lens_l), q.element_size()
+            bms, by = bound(tokens * hkv * d * es * 2 + 2 * q.numel() * es
+                            + b * 4, 4 * d * tokens * NH,
+                            FP32_FLOPS if dtype == f32 else BF16_FLOPS)
+            rows["decode_mha"]["instances"][
+                f"decode_mha_{ENTRY[str(dtype)]}"] = dict(
+                shape=tag, ms=time_ms(torch, lambda: ops.decode_mha(
+                    q, k, v, lens)),
+                plain_ms=time_ms(torch, lambda: ops.decode_mha_ref(
+                    q, k, v, lens), reps=5),
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+        if (s_max, hkv, dtype, d) != (1024, NH, bf, D):
             continue
         tokens = sum(lens_l)
         nbytes = tokens * hkv * D * 2 * 2 + 2 * q.numel() * 2 + b * 4
@@ -578,7 +720,7 @@ def decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
                 q, k, v, lens), reps=5),
             bound_ms=bms, bound_by=by,
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kt, vt, attn_mask=mask)))
+                q[:, :, None], kt, vt, attn_mask=mask)), instances={})
 
 
 def layer_norm_cases(torch, ops, F, randn, rows, cases, H):
@@ -720,7 +862,9 @@ def grouped_matmul_library(torch, lhs, rhs, sizes, want):
     """Time of ``torch._grouped_mm`` on the same operands, fp32 out where
     it takes that, else bf16 out (PyTorch 2.11 writes bf16 for bf16
     inputs), where this PyTorch has it and its result agrees with the
-    plain version; else None and the reason."""
+    plain version within the limit of the kernel's own bf16 output
+    (``TOL["grouped_matmul_bf16"]``: one bf16 step of each output); else
+    None and the reason."""
     if not hasattr(torch, "_grouped_mm"):
         return None, "this PyTorch has no torch._grouped_mm (no single call)"
     offs = torch.cumsum(sizes, 0, dtype=torch.int32)
@@ -731,9 +875,11 @@ def grouped_matmul_library(torch, lhs, rhs, sizes, want):
         except (TypeError, RuntimeError) as ex:
             reason += f"{what}: {str(ex).splitlines()[0][:100]}; "
             continue
-        err = (got.float() - want.float()).abs().max().item()
-        if err > 1.0:       # several bf16 steps of outputs near 100
-            reason += f"{what}: result differs by {err:.3g}; "
+        diff = (got.float() - want.float()).abs()
+        tol = TOL["grouped_matmul_bf16"]
+        if (diff > tol["atol"] + tol["rtol"] * want.float().abs()).any():
+            reason += (f"{what}: result differs by "
+                       f"{diff.max().item():.3g}; ")
             continue
         ms = time_ms(torch, lambda: torch._grouped_mm(lhs, rhs, offs=offs,
                                                       out_dtype=out_dt))
@@ -995,40 +1141,60 @@ def flash_bwd_cases(torch, ops, F, randn, rows, cases):
     heads of 128, causal), GQA 8/2 and 8/1, ragged lengths (700, and 2047,
     which cuts through the last 64-row tile of both kernels), Sq < Sk, Sq >
     Sk (whose first Sq - Sk rows see no key and must get exactly zero dq),
-    head_dim 64 with and without dropout, and dropout 0.1 causal and not.
+    head_dim 64 with and without dropout, and dropout 0.1 causal and not;
+    then the other instances: head dims 16 and 96 in bf16 (zero-padded to
+    64 and 128 around the kernels, through ``flash_attention_bwd``, which
+    pads once for both), fp16, and fp32 (flash_f32.cu) at 128, 64 and 16.
     Each kernel is launched twice on the same inputs, and the two results
     must be bitwise equal (no atomics: the sums run in a fixed order)."""
     from paddle_tpu_torch.ops.flash_attention_kernel import _delta
 
     B, S = TRAIN["batch"], TRAIN["seq"]
     NH = TRAIN["overrides"]["num_attention_heads"]
-    for b, sq, sk, hq, hkv, d, causal, p in [
-            (B, S, S, NH, NH, 128, True, 0.0),
-            (2, 512, 512, NH, 2, 128, True, 0.0),
-            (2, 512, 512, NH, 1, 128, True, 0.0),
-            (1, 700, 700, NH, NH, 128, True, 0.0),
-            (1, 2047, 2047, NH, NH, 128, True, 0.0),
-            (1, 300, 1000, NH, 2, 128, True, 0.0),
-            (1, 1000, 300, NH, NH, 128, True, 0.0),
-            (1, 256, 256, 4, 4, 64, True, 0.0),
-            (2, 700, 700, NH, 2, 64, True, 0.1),
-            (2, 512, 512, NH, NH, 128, True, 0.1),
-            (1, 200, 333, NH, 2, 128, False, 0.1)]:
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    for b, sq, sk, hq, hkv, d, causal, p, dt in [
+            (B, S, S, NH, NH, 128, True, 0.0, bf),
+            (2, 512, 512, NH, 2, 128, True, 0.0, bf),
+            (2, 512, 512, NH, 1, 128, True, 0.0, bf),
+            (1, 700, 700, NH, NH, 128, True, 0.0, bf),
+            (1, 2047, 2047, NH, NH, 128, True, 0.0, bf),
+            (1, 300, 1000, NH, 2, 128, True, 0.0, bf),
+            (1, 1000, 300, NH, NH, 128, True, 0.0, bf),
+            (1, 256, 256, 4, 4, 64, True, 0.0, bf),
+            (2, 700, 700, NH, 2, 64, True, 0.1, bf),
+            (2, 512, 512, NH, NH, 128, True, 0.1, bf),
+            (1, 200, 333, NH, 2, 128, False, 0.1, bf),
+            (2, 256, 300, 4, 2, 16, True, 0.1, bf),
+            (1, 256, 300, NH, 2, 96, True, 0.0, bf),
+            (2, 512, 512, NH, 2, 128, True, 0.0, f32),
+            (2, 300, 700, 4, 2, 64, False, 0.1, f32),
+            (2, 130, 130, 4, 4, 16, True, 0.0, f32),
+            (2, 512, 512, NH, 2, 128, True, 0.0, f16),
+            (2, 700, 700, NH, 2, 64, True, 0.1, f16),
+            (1, 256, 300, 4, 2, 96, True, 0.0, f16)]:
         if (b, sq) == (B, S):
             q, k, v, do, out, lse, delta = flash_bwd_train_inputs(torch,
                                                                   randn)
         else:
-            q, do = randn(b, sq, hq, d), randn(b, sq, hq, d)
-            k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, d)
+            q, do = randn(b, sq, hq, d, dtype=dt), randn(b, sq, hq, d,
+                                                         dtype=dt)
+            k, v = randn(b, sk, hkv, d, dtype=dt), randn(b, sk, hkv, d,
+                                                         dtype=dt)
             out, lse = ops.flash_attention_bshd(q, k, v, causal, None, p,
                                                 SEED)
             delta = _delta(out, do)
         args = (causal, None, p, SEED)
-        dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args)
-        dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
-        again = (ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args),
-                 *ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                              *args))
+        if d in (64, 128):
+            dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args)
+            dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 *args)
+            again = (ops.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                *args),
+                     *ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  *args))
+        else:
+            dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, do, *args)
+            again = ops.flash_attention_bwd(q, k, v, out, lse, do, *args)
         for what, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
             if not torch.equal(x, y):
                 raise AssertionError(f"flash backward: two launches gave "
@@ -1037,7 +1203,7 @@ def flash_bwd_cases(torch, ops, F, randn, rows, cases):
         rdq, rdk, rdv = ops.flash_attention_bwd_ref(q, k, v, out, lse, do,
                                                     *args)
         tag = (f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
-               f"causal={causal} dropout={p}")
+               f"{str(dt)[6:]} causal={causal} dropout={p}")
         errs = {"flash_bwd_dq": check_close(torch, f"flash_bwd_dq {tag}",
                                             dq, rdq, **TOL["flash_bwd_dq"]),
                 "flash_bwd_dkv": max(
@@ -1050,6 +1216,24 @@ def flash_bwd_cases(torch, ops, F, randn, rows, cases):
                                  "a zero gradient")
         for name, err in errs.items():
             cases.append((name, tag, err))
+        if dt != bf and d == 128:      # the other instances' times
+            pairs = causal_pairs(sq, sk) * hq * b
+            es = q.element_size()
+            io = (q.numel() + k.numel() + v.numel() + do.numel()) * es \
+                + (lse.numel() + delta.numel()) * 4
+            plain_ms = time_ms(torch, lambda: ops.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, *args), reps=3, warmup=1)
+            for name, fn, n_out, flops in (
+                    ("flash_bwd_dq", lambda: ops.flash_attention_bwd_dq(
+                        q, k, v, do, lse, delta, *args), dq.numel(), 6),
+                    ("flash_bwd_dkv", lambda: ops.flash_attention_bwd_dkv(
+                        q, k, v, do, lse, delta, *args),
+                     dk.numel() + dv.numel(), 8)):
+                bms, by = bound(io + n_out * es, flops * d * pairs,
+                                FP32_FLOPS if dt == f32 else BF16_FLOPS)
+                rows[name]["instances"][f"{name}_{ENTRY[str(dt)]}"] = dict(
+                    shape=tag, ms=time_ms(torch, fn), plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, max_abs_err=errs[name])
         if (b, sq) != (B, S):
             continue
         # the training shape: times and bounds
@@ -1068,13 +1252,15 @@ def flash_bwd_cases(torch, ops, F, randn, rows, cases):
         rows["flash_bwd_dq"] = dict(
             shape=tag, ms=time_ms(torch, lambda: ops.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, *args)),
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            instances={})
         bms, by = bound(io + (dk.numel() + dv.numel()) * 2, 8 * d * pairs,
                         BF16_FLOPS)
         rows["flash_bwd_dkv"] = dict(
             shape=tag, ms=time_ms(torch, lambda: ops.flash_attention_bwd_dkv(
                 q, k, v, do, lse, delta, *args)),
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            instances={})
         rows["flash_fwd"]["train_shape_ms"] = time_ms(
             torch, lambda: ops.flash_attention_bshd(q, k, v, causal=True))
         del qt, kt, vt, o_lib
@@ -1083,10 +1269,11 @@ def flash_bwd_cases(torch, ops, F, randn, rows, cases):
 # -- phase 4: kernel path against plain path, end to end ---------------------
 
 
-def matched_tokens(torch, np, cpu, prompts, card, plain) -> list:
+def matched_tokens(torch, np, cpu, prompts, card, plain,
+                   near_tie=NEAR_TIE) -> list:
     """Per prompt, how many leading tokens the card's greedy stream shares
     with the CPU's; raises where they part although the plain model's top-2
-    margin there is at least NEAR_TIE."""
+    margin there is at least ``near_tie``."""
     matched = []
     with torch.no_grad():
         for p, a, c in zip(prompts, card, plain):
@@ -1097,11 +1284,11 @@ def matched_tokens(torch, np, cpu, prompts, card, plain) -> list:
                     np.concatenate([p, c[:n]]).astype(np.int64))[None]
                 top2 = cpu(seq)[0, -1].float().topk(2).values
                 margin = (top2[0] - top2[1]).item()
-                if margin >= NEAR_TIE:
+                if margin >= near_tie:
                     raise AssertionError(
                         f"end to end: greedy streams split at token {n} "
                         f"where the plain top-2 margin is {margin:.3g} "
-                        f">= {NEAR_TIE}")
+                        f">= {near_tie}")
     return matched
 
 
@@ -1161,17 +1348,18 @@ def e2e_phase(torch, dev, np):
     return rec
 
 
-def fmt_e2e_phase(torch, dev):
+def fmt_e2e_phase(torch, dev, bf=None, atol=FMT_ATOL):
     """FusedMultiTransformer at the 6.7B widths and 2 layers, batch 1 x
-    128, on the card and on the CPU from the same bf16 weights and inputs:
-    the context pass into caches, then FMT_E2E["steps"] ragged decode
-    steps; and on the card, each decode step against its own context pass
-    over all the tokens at that position."""
+    128, on the card and on the CPU from the same weights and inputs in
+    ``bf`` (default bf16): the context pass into caches, then
+    FMT_E2E["steps"] ragged decode steps; and on the card, each decode
+    step against its own context pass over all the tokens at that
+    position; every difference within ``atol``."""
     from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
 
     e, nh, ff = FMT["hidden"], FMT["heads"], FMT["ffn"]
     L, b, s, n = (FMT_E2E[k] for k in ("layers", "batch", "seq", "steps"))
-    bf = torch.bfloat16
+    bf = bf or torch.bfloat16
     gpu = FusedMultiTransformer(e, nh, ff, num_layers=L, device=dev,
                                 dtype=bf,
                                 generator=torch.Generator(dev).manual_seed(13))
@@ -1197,11 +1385,11 @@ def fmt_e2e_phase(torch, dev):
             "decode_max_abs_err": (outs[0][1] - outs[1][1]).abs().max(),
             "decode_vs_context_max_abs_err": (outs[0][1] - full).abs().max()}
     rec = {"layers": L, "batch": b, "context": s, "decode_steps": n,
-           **{k: v.item() for k, v in errs.items()}}
+           "dtype": str(bf), **{k: v.item() for k, v in errs.items()}}
     for k, v in rec.items():
-        if k.endswith("err") and not v <= FMT_ATOL:     # NaN fails too
+        if k.endswith("err") and not v <= atol:     # NaN fails too
             raise AssertionError(f"fused transformer end to end: {k} {v} "
-                                 f"> {FMT_ATOL}")
+                                 f"> {atol}")
     del gpu, cpu
     torch.cuda.empty_cache()
     return rec
@@ -1291,6 +1479,108 @@ def train_e2e_phase(torch, dev, np):
                                            labels, losses[0])
     del gpu, cpu
     torch.cuda.empty_cache()
+    return rec
+
+
+def f32_phase(torch, dev, np):
+    """This slice's path: fp32 on the card against the CPU. The "tiny"
+    Llama preset (fp32, head dim 16: the flash kernels' fp32 instances at
+    width 64, the decode kernels' at width 32) from the same weights: the
+    forward's logits, a Layer-API backward with full recompute, one
+    ``build_train_step`` AdamW step, ``CausalLMEngine.generate`` and the
+    paged engine's greedy stream; then a 2-layer fp32 FusedMultiTransformer
+    at the 6.7B widths (head dim 128). Every kernel's launches over the
+    path are read just after it, and each kernel the path runs must have
+    launched."""
+    from paddle_tpu_torch import (CausalLMEngine, GenerationConfig,
+                                  LlamaForCausalLM,
+                                  PagedContinuousBatchingEngine,
+                                  build_train_step, llama_config, ops)
+
+    cfg = llama_config(F32["preset"])
+    if cfg.torch_dtype != torch.float32:
+        raise AssertionError(f"the {F32['preset']} preset is not fp32")
+    gpu = LlamaForCausalLM(cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(17))
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    start = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
+    cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    rng = np.random.RandomState(17)
+    tok = rng.randint(0, cfg.vocab_size, (F32["batch"], F32["seq"] + 1))
+    ids = torch.from_numpy(tok[:, :-1].astype(np.int64))
+    labels = torch.from_numpy(tok[:, 1:].astype(np.int64))
+    rec = {"config": f"{F32['preset']}: hidden {cfg.hidden_size}, "
+                     f"{cfg.num_hidden_layers} layers, "
+                     f"{cfg.num_attention_heads} heads of {cfg.head_dim}, "
+                     f"fp32", "batch": F32["batch"], "seq": F32["seq"]}
+    models = (gpu, cpu)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = [m(ids.to(d)).cpu() for m, d in ((gpu, dev), (cpu, "cpu"))]
+    rec["logit_max_abs_err"] = check_close(
+        torch, "fp32 tiny Llama: logits", logits[0], logits[1], F32_ATOL,
+        F32_ATOL)
+    losses = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        m.train()
+        loss = m(ids.to(d), labels.to(d))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    g = {k: rel_err(torch, p.grad.cpu(), cpu.get_parameter(k).grad)
+         for k, p in gpu.named_parameters()}
+    worst = max(g, key=g.get)
+    if abs(losses[0] - losses[1]) > F32_ATOL or g[worst] > F32_GRAD_RTOL:
+        raise AssertionError(f"fp32 tiny Llama: loss {losses}, gradient of "
+                             f"{worst} off by {g[worst]:.3g} of its norm")
+    rec["layer_api"] = {"losses": losses, "grad_max_rel_err": g[worst],
+                        "grad_worst": worst}
+    for m in models:
+        m.zero_grad(set_to_none=True)
+    losses = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        step, init = build_train_step(cfg, lr=TRAIN["lr"],
+                                      clip_norm=TRAIN["clip"], remat="full",
+                                      device=d)
+        losses.append(float(step(m, init(m), ids, labels)))
+    if abs(losses[0] - losses[1]) > F32_ATOL:
+        raise AssertionError(f"fp32 tiny Llama train step: loss {losses}")
+    pmax = max(check_close(
+        torch, f"fp32 train step: updated {k}", p.detach().cpu(),
+        cpu.get_parameter(k).detach(), F32_PARAM_ATOL, 1e-5)
+        for k, p in gpu.named_parameters())
+    rec["train_step"] = {"losses": losses, "param_max_abs_err": pmax}
+    for m in models:
+        m.eval()
+    gen = GenerationConfig(max_new_tokens=F32["new"])
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in F32["prompts"]]
+    plen = min(F32["prompts"])
+    pids = np.stack([p[:plen] for p in prompts])
+    outs = [CausalLMEngine(m, max_batch=2, max_len=128).generate(pids, gen)
+            for m in models]
+    rec["generate_tokens_matched"] = matched_tokens(
+        torch, np, cpu, list(pids), *[o[:, plen:] for o in outs],
+        near_tie=F32_NEAR_TIE)
+    streams = [PagedContinuousBatchingEngine(
+        m, max_batch=2, num_pages=32, page_size=16, max_pages=8).serve(
+            prompts, gen, segment_steps=4) for m in models]
+    rec["paged_tokens_matched"] = matched_tokens(
+        torch, np, cpu, prompts, *streams, near_tie=F32_NEAR_TIE)
+    del gpu, cpu, models
+    rec["fmt"] = fmt_e2e_phase(torch, dev, torch.float32, FMT_F32_ATOL)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rec["launches"] = counts
+    ran = ("rms_norm", "fused_rope", "flash_fwd", "flash_bwd_dq",
+           "flash_bwd_dkv", "paged_decode", "decode_mha", "fused_layer_norm")
+    log(f"  kernels: launches {counts} (the fp32 path); each of {ran} "
+        f"must have launched, no other")
+    if any(counts[k] == 0 for k in ran) or any(
+            n for k, n in counts.items() if k not in ran):
+        raise AssertionError(f"fp32 path: launch counts {counts}")
     return rec
 
 
@@ -1871,7 +2161,9 @@ def kernel_entries(rows: dict, runs: dict) -> list:
     """The JSON line's entries: every kernel, then the two routes (their
     calls in place of launches), each with its phase-3 numbers. A kernel's
     ``launches`` are its count over this slice's paths where it runs there,
-    else over the earlier paths that run it."""
+    else over the earlier paths that run it; a route's count over the
+    paths that take the routes. ``instances`` holds the phase-3 numbers of
+    a kernel's other entry points (fp32)."""
     def entry(name, route, src, by_path):
         r = rows[name]
         launches = next((n for n in (sum(by_path.get(p, 0) for p in ps)
@@ -1881,13 +2173,13 @@ def kernel_entries(rows: dict, runs: dict) -> list:
                 "replaces": REPLACES[name], "launches": launches,
                 "launches_by_path": by_path, **{k: r[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
+                    "library_ms")}, "instances": r.get("instances", {})}
 
     out = [entry(name, route, src, {p: runs[p]["launches"][name]
                                     for p in PATHS})
            for name, (route, src) in SOURCES.items()]
     out += [entry(name, route, src, {p: runs[p]["route_calls"][name]
-                                     for p in SLICE_PATHS})
+                                     for p in ROUTE_PATHS})
             for name, (route, src) in ROUTE_SOURCES.items()]
     return out
 
@@ -1975,6 +2267,11 @@ def main(argv=None) -> int:
         log(f"  {name:13s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{smi}]")
+        for entry, ri in r.get("instances", {}).items():
+            log(f"  {name:13s} {entry} {ri['shape']}: kernel "
+                f"{ri['ms']:.4f} ms, plain {ri['plain_ms']:.4f} ms, bound "
+                f"{ri['bound_ms']:.4f} ms ({ri['bound_by']}), max|err| "
+                f"{ri['max_abs_err']:.3g}  [{smi}]")
     ln_rb = rows["fused_layer_norm"]["residual_bias_ms"]
     log(f"  flash_fwd at the training shape: kernel "
         f"{rows['flash_fwd']['train_shape_ms']:.4f} ms, through the "
@@ -2002,8 +2299,10 @@ def main(argv=None) -> int:
     record["fmt_e2e"] = fmt_e2e_phase(torch, dev)
     log(f"[e2e] fused transformer {json.dumps(record['fmt_e2e'])}")
     record["train_e2e"] = train_e2e_phase(torch, dev, np)
-    record["phases"]["e2e"] = time.perf_counter() - t
     log(f"[e2e] train {json.dumps(record['train_e2e'])}")
+    record["f32"] = f32_phase(torch, dev, np)
+    record["phases"]["e2e"] = time.perf_counter() - t
+    log(f"[e2e] fp32 {json.dumps(record['f32'])}")
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
@@ -2068,7 +2367,8 @@ def main(argv=None) -> int:
 
     runs = dict(serve=sv, generate=gn, dense_serve=ds, train=tr, fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
-                                      route_calls=tr["hb_route_calls"]))
+                                      route_calls=tr["hb_route_calls"]),
+                f32=record["f32"])
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -18,6 +19,7 @@ constexpr float kNeg = -1e30f;  // large-negative mask value: no inf - inf NaNs
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
@@ -30,19 +32,26 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
+}
+template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
 
-// One tile of single-query decode attention for the `group` query heads
-// that share one kv head (paged_decode.cu: a page; decode_mha.cu: 64 cache
-// rows), folded into their fp32 online softmax (m, l, acc). k and v point
-// at column 0 of the tile's first token; token t's row is t * k_stride (v:
-// v_stride) further on, and `valid` tokens are live. Each K row is loaded
-// once for the whole group: warp w takes tokens w, w + kWarps, ... (lanes
-// across D, kPerLane = D / 32 columns each) and leaves the group's scores in
-// s_sm [group][s_cap]; then thread c < D streams column c of V and keeps
-// column c of each head's accumulator. Values are scaled by kq / vq after
+// One tile of single-query decode attention for the `group` (at most
+// kMaxGroup) query heads that share one kv head (paged_decode.cu: a page;
+// decode_mha.cu: 64 cache rows), folded into their fp32 online softmax (m,
+// l, acc). k and v point at column 0 of the tile's first token; token t's
+// row is t * k_stride (v: v_stride) further on, and `valid` tokens are
+// live. Rows hold d <= D live columns: the tile is instantiated at D = 32,
+// 64 or 128 and a narrower head masks its lanes past d (no padded copy of
+// the cache). Each K row is loaded once for the whole group: warp w takes
+// tokens w, w + kWarps, ... (lanes across D, kPerLane = D / 32 columns
+// each) and leaves the group's scores in s_sm [group][s_cap]; then thread
+// c < d streams column c of V and keeps column c of each head's
+// accumulator. Values are scaled by kq / vq after
 // the load (int8 pools; 1 otherwise). A score is q.k * scale, then
 // soft_cap * tanh(score / soft_cap) where soft_cap > 0 (the stock TPU
 // paged-attention kernel's attn_logits_soft_cap; 0 turns it off). Both
@@ -50,7 +59,7 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <typename T, int D, int kMaxGroup, int kThreads>
 __device__ __forceinline__ void decode_tile(
     const T* __restrict__ k, const T* __restrict__ v, long long k_stride,
-    long long v_stride, int valid, float kq, float vq,
+    long long v_stride, int valid, int d, float kq, float vq,
     float (&qv)[kMaxGroup][D / 32], int group, float scale, float soft_cap,
     float* s_sm, int s_cap, float (&m)[kMaxGroup], float (&l)[kMaxGroup],
     float (&acc)[kMaxGroup]) {
@@ -61,7 +70,8 @@ __device__ __forceinline__ void decode_tile(
     const T* krow = k + t * k_stride + lane * kPerLane;
     float kx[kPerLane];
 #pragma unroll
-    for (int e = 0; e < kPerLane; ++e) kx[e] = to_float(krow[e]) * kq;
+    for (int e = 0; e < kPerLane; ++e)
+      kx[e] = lane * kPerLane + e < d ? to_float(krow[e]) * kq : 0.f;
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g) {
       if (g < group) {  // uniform across the warp
@@ -81,7 +91,7 @@ __device__ __forceinline__ void decode_tile(
   }
   __syncthreads();
 
-  if (tid < D) {  // one thread per output column
+  if (tid < d) {  // one thread per output column
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g) {
       if (g < group) {
@@ -107,45 +117,6 @@ __device__ __forceinline__ void decode_tile(
     }
   }
   __syncthreads();  // the next tile overwrites the scores
-}
-
-// Rows [r0, r0 + kRows) of a [*, D] bf16 operand (row stride in elements,
-// unit stride on D, 16-byte aligned rows) into shared memory, zero past
-// `limit`, by kThreads threads. stage_transposed writes dst [D][kRows]:
-// consecutive threads take consecutive rows of one 16-byte chunk, so the
-// shared-memory stores do not conflict. stage_rows writes dst [kRows][D].
-template <int D, int kRows, int kThreads>
-__device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst,
-                                                 const __nv_bfloat16* src,
-                                                 long long row_stride, int r0,
-                                                 int limit) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int r = c % kRows, ch = c / kRows;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride +
-                                            ch * 8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(ch * 8 + i) * kRows + r] = e[i];
-  }
-}
-
-template <int D, int kRows, int kThreads>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long row_stride, int r0,
-                                           int limit) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride +
-                                            ch * 8);
-    *reinterpret_cast<uint4*>(dst + r * D + ch * 8) = val;
-  }
 }
 
 // Attention dropout: the counter hash of

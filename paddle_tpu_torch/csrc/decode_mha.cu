@@ -12,7 +12,11 @@
 // their strides (unit stride on D). Query head h reads kv head h / (Hq /
 // Hkv). fp32 softmax and accumulation, one rounding to the output type at
 // the end; a row with length 0 returns zeros (the divide is guarded as the
-// TPU kernel's max(l, 1e-30)). bf16 or fp32 inputs.
+// TPU kernel's max(l, 1e-30)). bf16, fp16 or fp32 inputs, any D <= 128
+// (the tile is instantiated at 32, 64 and 128 and masks the lanes past D),
+// any GQA group (a block takes at most 8 query heads of a group; larger
+// groups are split over blocks, each loading the K/V rows once for its
+// heads).
 //
 // What bounds it: each live token's K and V row is read once for 4 * D
 // flops per query head of its group, about one flop per byte in bf16, so
@@ -24,7 +28,8 @@
 // (kv head, row) walks that row's cache in tiles of 64 tokens up to
 // ceil(len / 64), masking the ragged tail, with the online softmax in
 // registers (ptt::decode_tile, shared with paged_decode.cu): every K and V
-// row is loaded once for all query heads of its GQA group. No split of a
+// row is loaded once for all query heads of its GQA group (for the block's
+// 8 where a group is larger). No split of a
 // long row over several blocks yet: at B = 8 and 32 kv heads that is 256
 // blocks on 132 SMs, each walking its tiles one after the other, so the
 // kernel is latency-bound far above its bandwidth bound.
@@ -40,28 +45,35 @@ struct CacheStrides {
   long long b, s, h;  // elements; D has unit stride
 };
 
+// Width D is the instance (32, 64 or 128), d <= D the head dim; block
+// (hk * n_split + part, b) takes query heads hk * group + 8 part .. of kv
+// head hk.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_mha_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                   const T* __restrict__ v_cache, const int* __restrict__ lens,
-                  T* __restrict__ out, int hq, int hkv, int s_max,
+                  T* __restrict__ out, int hq, int hkv, int d, int s_max,
                   CacheStrides ks, CacheStrides vs, float scale) {
   constexpr int kPerLane = D / 32;
   __shared__ float s_sm[kMaxGroup * kTile];  // [group][kTile] scores
-  const int hk = blockIdx.x, b = blockIdx.y;
   const int group = hq / hkv;
+  const int n_split = (group + kMaxGroup - 1) / kMaxGroup;
+  const int hk = blockIdx.x / n_split, b = blockIdx.y;
+  const int g0 = (blockIdx.x % n_split) * kMaxGroup;
+  const int ng = min(kMaxGroup, group - g0);  // this block's query heads
   const int tid = threadIdx.x, lane = tid & 31;
   const int len = max(0, min(lens[b], s_max));
-  const long long q_row = (static_cast<long long>(b) * hq + hk * group) * D;
+  const long long q_row =
+      (static_cast<long long>(b) * hq + hk * group + g0) * d;
 
   float qv[kMaxGroup][kPerLane];
 #pragma unroll
   for (int g = 0; g < kMaxGroup; ++g)
 #pragma unroll
-    for (int e = 0; e < kPerLane; ++e)
-      qv[g][e] = g < group ? ptt::to_float(
-                                 q[q_row + g * D + lane * kPerLane + e])
-                           : 0.f;
+    for (int e = 0; e < kPerLane; ++e) {
+      const int c = lane * kPerLane + e;
+      qv[g][e] = g < ng && c < d ? ptt::to_float(q[q_row + g * d + c]) : 0.f;
+    }
 
   float m[kMaxGroup], l[kMaxGroup], acc[kMaxGroup];
 #pragma unroll
@@ -75,15 +87,15 @@ decode_mha_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   const T* vb = v_cache + b * vs.b + hk * vs.h;
   for (int t0 = 0; t0 < len; t0 += kTile) {
     ptt::decode_tile<T, D, kMaxGroup, kThreads>(
-        kb + t0 * ks.s, vb + t0 * vs.s, ks.s, vs.s, min(kTile, len - t0), 1.f,
-        1.f, qv, group, scale, 0.f, s_sm, kTile, m, l, acc);
+        kb + t0 * ks.s, vb + t0 * vs.s, ks.s, vs.s, min(kTile, len - t0), d,
+        1.f, 1.f, qv, ng, scale, 0.f, s_sm, kTile, m, l, acc);
   }
 
-  if (tid < D) {
+  if (tid < d) {
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g)
-      if (g < group)
-        out[q_row + g * D + tid] =
+      if (g < ng)
+        out[q_row + g * d + tid] =
             ptt::from_float<T>(acc[g] / fmaxf(l[g], 1e-30f));
   }
 }
@@ -91,13 +103,14 @@ decode_mha_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* lens, void* out, int batch, int hq, int hkv,
-                   int s_max, CacheStrides ks, CacheStrides vs, float scale,
-                   cudaStream_t stream) {
-  const dim3 grid(hkv, batch);
+                   int d, int s_max, CacheStrides ks, CacheStrides vs,
+                   float scale, cudaStream_t stream) {
+  const int group = hq / hkv;
+  const dim3 grid(hkv * ((group + kMaxGroup - 1) / kMaxGroup), batch);
   decode_mha_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int*>(lens),
-      static_cast<T*>(out), hq, hkv, s_max, ks, vs, scale);
+      static_cast<T*>(out), hq, hkv, d, s_max, ks, vs, scale);
   return cudaGetLastError();
 }
 
@@ -106,20 +119,20 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* lens,
              void* out, int batch, int hq, int hkv, int d, int s_max,
              long long ksb, long long kss, long long ksh, long long vsb,
              long long vss, long long vsh, float scale, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxGroup)
+  if (hkv <= 0 || hq % hkv != 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const CacheStrides ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  switch (d) {
-    case 64:
-      return launch<T, 64>(q, kc, vc, lens, out, batch, hq, hkv, s_max, ks,
-                           vs, scale, st);
-    case 128:
-      return launch<T, 128>(q, kc, vc, lens, out, batch, hq, hkv, s_max, ks,
-                            vs, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d <= 32)
+    return launch<T, 32>(q, kc, vc, lens, out, batch, hq, hkv, d, s_max, ks,
+                         vs, scale, st);
+  if (d <= 64)
+    return launch<T, 64>(q, kc, vc, lens, out, batch, hq, hkv, d, s_max, ks,
+                         vs, scale, st);
+  if (d <= 128)
+    return launch<T, 128>(q, kc, vc, lens, out, batch, hq, hkv, d, s_max, ks,
+                          vs, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -139,4 +152,5 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* lens,
   }
 
 DECODE_MHA_ENTRY(decode_mha_bf16, __nv_bfloat16)
+DECODE_MHA_ENTRY(decode_mha_f16, __half)
 DECODE_MHA_ENTRY(decode_mha_f32, float)

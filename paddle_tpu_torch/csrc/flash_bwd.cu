@@ -5,19 +5,20 @@
 // ::_bwd_dkv_kernel, launched by _bwd_impl through pl.pallas_call
 // (flash_attention_kernel.py:497 and :519).
 //
-// For q [B, Sq, Hq, D], k, v [B, Sk, Hkv, D], dO [B, Sq, Hq, D] in bf16 (any
-// batch/sequence/head strides, unit stride on D), the forward's lse and
-// delta = rowsum(dO * O) ([B, Hq, Sq] fp32, contiguous):
+// For q [B, Sq, Hq, D], k, v [B, Sk, Hkv, D], dO [B, Sq, Hq, D] in bf16 or
+// fp16 (any batch/sequence/head strides, unit stride on D; fp32 is
+// flash_f32.cu), the forward's lse and delta = rowsum(dO * O) ([B, Hq, Sq]
+// fp32, contiguous):
 //   P  = exp(q k^T * scale - lse), 0 where masked (rows with no key included)
 //   dP = dO v^T
 //   dS = P (dP - delta), or with dropout P_drop dP - P delta
-//   dq = bf16(dS) k * scale                      (flash_bwd_dq)
-//   dk = sum over the GQA group of bf16(dS)^T q * scale,
-//   dv = sum over the GQA group of bf16(P_drop)^T dO  (flash_bwd_dkv)
+//   dq = rnd(dS) k * scale                      (flash_bwd_dq)
+//   dk = sum over the GQA group of rnd(dS)^T q * scale,
+//   dv = sum over the GQA group of rnd(P_drop)^T dO  (flash_bwd_dkv)
 // with P_drop = P * keep / (1 - p) from the forward's hash (ptt::Dropout).
-// P_drop and dS are rounded to bf16 before the second products, as the JAX
-// kernels round them to the input dtype (:405, :455, :458); every product
-// sums in fp32, outputs are bf16. Causal masks are bottom-right aligned
+// rnd rounds P_drop and dS to the input dtype before the second products,
+// as the JAX kernels do (:405, :455, :458); every product sums in fp32,
+// outputs are in the input dtype. Causal masks are bottom-right aligned
 // (query i attends keys <= i + Sk - Sq), as in K3.
 //
 // What bounds them: operations. Per causal (query, key) pair dq does 3
@@ -26,7 +27,7 @@
 // above the card's ridge, so the bound is the bf16 tensor-core rate (989
 // TFLOP/s dense).
 //
-// Design. Every product is a bf16 mma.sync m16n8k16 with fp32 accumulators
+// Design. Every product is an mma.sync m16n8k16 with fp32 accumulators
 // (csrc/mma.cuh), and a warp owns 16 rows of the block's 64: query rows in
 // flash_bwd_dq, key rows in flash_bwd_dkv.
 // - flash_bwd_dq: one block per (query head, batch, 64-query tile) keeps its
@@ -69,19 +70,19 @@ struct Strides {
   long long b, s, h;
 };
 
-template <int D>
-__host__ __device__ constexpr int pitch() {  // 16 bytes of row padding
-  return D + 8;
-}
+using ptt::accumulate;
+using ptt::pitch;
+using ptt::store_rows;
+using ptt::to_a_frags;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {  // q_s, do_s; k_s, v_s double-buffered
-  return sizeof(__nv_bfloat16) * (2 * kRows + 4 * kTile) * pitch<D>();
+  return 2 * (2 * kRows + 4 * kTile) * pitch<D>();
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {  // k_s, v_s; q_s, do_s, lse_s, dl_s x2
-  return sizeof(__nv_bfloat16) * (2 * kRows + 4 * kTile) * pitch<D>() +
+  return 2 * (2 * kRows + 4 * kTile) * pitch<D>() +
          sizeof(float) * 4 * kTile;
 }
 
@@ -94,36 +95,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragments of a 16 x (8 N) bf16 operand from the fp32 accumulators of
-// the product that made it: the accumulator layout of n-tiles 2k and 2k + 1
-// is the A layout of k-step k.
-template <int N>
-__device__ __forceinline__ void to_a_frags(const float (&c)[N][4],
-                                           uint32_t (&a)[N / 2][4]) {
-#pragma unroll
-  for (int k = 0; k < N / 2; ++k) {
-    a[k][0] = pack_bf16(c[2 * k][0], c[2 * k][1]);
-    a[k][1] = pack_bf16(c[2 * k][2], c[2 * k][3]);
-    a[k][2] = pack_bf16(c[2 * k + 1][0], c[2 * k + 1][1]);
-    a[k][3] = pack_bf16(c[2 * k + 1][2], c[2 * k + 1][3]);
-  }
-}
-
 // Two 16-row products over D whose B operands share their rows: c0 += A0
 // B0^T and c1 += A1 B1^T, where A0, A1 are the warp's 16 rows (a_row0..) of
 // the [rows][P] tiles a0, a1, and B0, B1 rows b_row0.. b_row0 + 8 N - 1 of
 // the [rows][P] tiles b0, b1 (non-transposed ldmatrix gives the
 // column-major B fragment of a row-major [n][k] tile).
-template <int D, int N>
-__device__ __forceinline__ void scores(const __nv_bfloat16* a0,
-                                       const __nv_bfloat16* a1, int a_row0,
-                                       const __nv_bfloat16* b0,
-                                       const __nv_bfloat16* b1, int b_row0,
+template <typename T, int D, int N>
+__device__ __forceinline__ void scores(const T* a0, const T* a1, int a_row0,
+                                       const T* b0, const T* b1, int b_row0,
                                        float (&c0)[N][4], float (&c1)[N][4]) {
   constexpr int P = pitch<D>();
   const int lane = threadIdx.x & 31;
@@ -144,33 +123,10 @@ __device__ __forceinline__ void scores(const __nv_bfloat16* a0,
       uint32_t r0[4], r1[4];
       ptt::ldmatrix_x4(r0, b0 + br * P + bc);
       ptt::ldmatrix_x4(r1, b1 + br * P + bc);
-      ptt::mma_bf16_16816(c0[2 * jp], f0, r0[0], r0[1]);
-      ptt::mma_bf16_16816(c0[2 * jp + 1], f0, r0[2], r0[3]);
-      ptt::mma_bf16_16816(c1[2 * jp], f1, r1[0], r1[1]);
-      ptt::mma_bf16_16816(c1[2 * jp + 1], f1, r1[2], r1[3]);
-    }
-  }
-}
-
-// acc[D / 8] += A (16 x 16 K, bf16 fragments) x B, B rows b_row0.. b_row0 +
-// 16 K - 1 of a row-major [rows][P] tile b_s (transposed ldmatrix gives the
-// column-major B fragment of a row-major [k][n] tile).
-template <int D, int K>
-__device__ __forceinline__ void accumulate(const uint32_t (&a)[K][4],
-                                           const __nv_bfloat16* b_s,
-                                           int b_row0, float (&acc)[D / 8][4]) {
-  constexpr int P = pitch<D>();
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk) {
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      const int br = b_row0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int bc = np * 16 + (lane >> 4) * 8;
-      uint32_t r[4];
-      ptt::ldmatrix_x4_trans(r, b_s + br * P + bc);
-      ptt::mma_bf16_16816(acc[2 * np], a[kk], r[0], r[1]);
-      ptt::mma_bf16_16816(acc[2 * np + 1], a[kk], r[2], r[3]);
+      ptt::mma_16816<T>(c0[2 * jp], f0, r0[0], r0[1]);
+      ptt::mma_16816<T>(c0[2 * jp + 1], f0, r0[2], r0[3]);
+      ptt::mma_16816<T>(c1[2 * jp], f1, r1[0], r1[1]);
+      ptt::mma_16816<T>(c1[2 * jp + 1], f1, r1[2], r1[3]);
     }
   }
 }
@@ -193,39 +149,23 @@ __device__ __forceinline__ void p_and_ds(float s, float dp, float lse2,
   }
 }
 
-// rows [r, r + 1] of an fp32 accumulator to bf16 with a scale: lane 4 g + c
-// holds row g (e = 0, 1) and row g + 8 (e = 2, 3), columns 8 j + 2 c, + 1.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* row, int half,
-                                           const float (&acc)[D / 8][4],
-                                           float scale) {
-  const int c2 = (threadIdx.x & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c2) =
-        __floats2bfloat162_rn(acc[j][2 * half] * scale,
-                              acc[j][2 * half + 1] * scale);
-}
-
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, Strides qs, Strides ks,
+                    T* __restrict__ dq, Strides qs, Strides ks,
                     Strides vs, Strides dos, Strides dqs, int sq, int sk,
                     int hq, int group, float scale, int causal,
                     ptt::Dropout drop) {
   constexpr int P = pitch<D>();
   constexpr int kN = kTile / 8;  // n-tiles of a score row
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][P]
-  __nv_bfloat16* do_s = q_s + kRows * P;                          // [kRows][P]
-  __nv_bfloat16* k_s = do_s + kRows * P;                    // [2][kTile][P]
-  __nv_bfloat16* v_s = k_s + 2 * kTile * P;                 // [2][kTile][P]
+  T* q_s = reinterpret_cast<T*>(smem);  // [kRows][P]
+  T* do_s = q_s + kRows * P;            // [kRows][P]
+  T* k_s = do_s + kRows * P;            // [2][kTile][P]
+  T* v_s = k_s + 2 * kTile * P;         // [2][kTile][P]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
@@ -233,8 +173,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // heavy tiles first
   const int qw0 = q0 + warp * 16;                        // the warp's rows
   const int offset = sk - sq;
-  const __nv_bfloat16* kb = k + b * ks.b + (h / group) * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + (h / group) * vs.h;
+  const T* kb = k + b * ks.b + (h / group) * ks.h;
+  const T* vb = v + b * vs.b + (h / group) * vs.h;
 
   int n_tiles = (sk + kTile - 1) / kTile;
   if (causal) {  // tiles above the diagonal hold no valid key (:408-412)
@@ -282,12 +222,12 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     ptt::cp_async_wait<1>();  // tile t (and Q, dO) have landed
     __syncthreads();
     const int k0 = t * kTile;
-    const __nv_bfloat16* kt = k_s + (t & 1) * kTile * P;
-    const __nv_bfloat16* vt = v_s + (t & 1) * kTile * P;
+    const T* kt = k_s + (t & 1) * kTile * P;
+    const T* vt = v_s + (t & 1) * kTile * P;
     // warp-uniform: skip a tile wholly above the diagonal or past Sq
     if (qw0 < sq && !(causal && k0 > qw0 + 15 + offset)) {
       float s[kN][4], dp[kN][4];
-      scores<D, kN>(q_s, do_s, warp * 16, kt, vt, 0, s, dp);
+      scores<T, D, kN>(q_s, do_s, warp * 16, kt, vt, 0, s, dp);
       const bool edge = qw0 + 15 >= sq || k0 + kTile > sk ||
                         (causal && k0 + kTile - 1 > qw0 + offset);
 #pragma unroll
@@ -307,8 +247,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
       uint32_t a_ds[kN / 2][4];
-      to_a_frags<kN>(dp, a_ds);
-      accumulate<D, kN / 2>(a_ds, kt, 0, acc);
+      to_a_frags<T, kN>(dp, a_ds);
+      accumulate<T, D, kN / 2>(a_ds, kt, 0, acc);
     }
     __syncthreads();  // the next stage overwrites this buffer
   }
@@ -317,30 +257,29 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int qpos = qw0 + g + 8 * r;
     if (qpos < sq)
-      store_rows<D>(dq + b * dqs.b + qpos * dqs.s + h * dqs.h, r, acc, scale);
+      store_rows<T, D>(dq + b * dqs.b + qpos * dqs.s + h * dqs.h, r, acc,
+                       scale);
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, Strides qs, Strides ks,
+                     T* __restrict__ dk, T* __restrict__ dv, Strides qs,
+                     Strides ks,
                      Strides vs, Strides dos, Strides dks, Strides dvs,
                      int sq, int sk, int hq, int group, float scale,
                      int causal, ptt::Dropout drop) {
   constexpr int P = pitch<D>();
   constexpr int kN = kHalf / 8;  // n-tiles of a score pass
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][P]
-  __nv_bfloat16* v_s = k_s + kRows * P;                           // [kRows][P]
-  __nv_bfloat16* q_s = v_s + kRows * P;                     // [2][kTile][P]
-  __nv_bfloat16* do_s = q_s + 2 * kTile * P;                // [2][kTile][P]
+  T* k_s = reinterpret_cast<T*>(smem);  // [kRows][P]
+  T* v_s = k_s + kRows * P;             // [kRows][P]
+  T* q_s = v_s + kRows * P;             // [2][kTile][P]
+  T* do_s = q_s + 2 * kTile * P;        // [2][kTile][P]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile * P);  // [2][kTile]
   float* dl_s = lse_s + 2 * kTile;                                // [2][kTile]
 
@@ -400,8 +339,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     const int hh = hk * group + it / per_head;
     const int qq0 = (iq0 + it % per_head) * kTile;
     const int buf = it & 1;
-    const __nv_bfloat16* qt = q_s + buf * kTile * P;
-    const __nv_bfloat16* dot = do_s + buf * kTile * P;
+    const T* qt = q_s + buf * kTile * P;
+    const T* dot = do_s + buf * kTile * P;
     const float* lt = lse_s + buf * kTile;
     const float* dlt = dl_s + buf * kTile;
     const uint32_t hkey = drop.head_key(b, hh);
@@ -412,7 +351,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       // warp-uniform: skip a pass wholly above the diagonal or past the end
       if (kw0 >= sk || qa >= sq || (causal && kw0 > qb + offset)) continue;
       float st[kN][4], dpt[kN][4];
-      scores<D, kN>(k_s, v_s, warp * 16, qt, dot, half * kHalf, st, dpt);
+      scores<T, D, kN>(k_s, v_s, warp * 16, qt, dot, half * kHalf, st, dpt);
       const bool edge = kw0 + 15 >= sk || qb >= sq ||
                         (causal && kw0 + 15 > qa + offset);
 #pragma unroll
@@ -437,10 +376,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
       uint32_t a_p[kN / 2][4], a_ds[kN / 2][4];
-      to_a_frags<kN>(st, a_p);
-      to_a_frags<kN>(dpt, a_ds);
-      accumulate<D, kN / 2>(a_p, dot, half * kHalf, acc_v);
-      accumulate<D, kN / 2>(a_ds, qt, half * kHalf, acc_k);
+      to_a_frags<T, kN>(st, a_p);
+      to_a_frags<T, kN>(dpt, a_ds);
+      accumulate<T, D, kN / 2>(a_p, dot, half * kHalf, acc_v);
+      accumulate<T, D, kN / 2>(a_ds, qt, half * kHalf, acc_k);
     }
     __syncthreads();  // the next stage overwrites this buffer
   }
@@ -449,9 +388,9 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int kpos = kw0 + g + 8 * r;
     if (kpos < sk) {
-      store_rows<D>(dk + b * dks.b + kpos * dks.s + hk * dks.h, r, acc_k,
+      store_rows<T, D>(dk + b * dks.b + kpos * dks.s + hk * dks.h, r, acc_k,
                     scale);
-      store_rows<D>(dv + b * dvs.b + kpos * dvs.s + hk * dvs.h, r, acc_v,
+      store_rows<T, D>(dv + b * dvs.b + kpos * dvs.s + hk * dvs.h, r, acc_v,
                     1.f);
     }
   }
@@ -469,7 +408,7 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int batch, int sq, int sk, int hq, int hkv,
@@ -477,21 +416,19 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       Strides dqs, float scale, int causal, ptt::Dropout drop,
                       cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = set_smem(flash_bwd_dq_kernel<D>, smem);
+  cudaError_t err = set_smem(flash_bwd_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(hq, batch, (sq + kRows - 1) / kRows);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), qs, ks, vs, dos, dqs, sq, sk, hq,
-      hq / hkv, scale, causal, drop);
+      static_cast<T*>(dq), qs, ks, vs, dos, dqs, sq, sk, hq, hq / hkv, scale,
+      causal, drop);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int batch, int sq, int sk, int hq,
@@ -499,77 +436,114 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        Strides dos, Strides dks, Strides dvs, float scale,
                        int causal, ptt::Dropout drop, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = set_smem(flash_bwd_dkv_kernel<D>, smem);
+  cudaError_t err = set_smem(flash_bwd_dkv_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(hkv, batch, (sk + kRows - 1) / kRows);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), qs,
-      ks, vs, dos, dks, dvs, sq, sk, hq, hq / hkv, scale, causal, drop);
+      static_cast<T*>(dk), static_cast<T*>(dv), qs, ks, vs, dos, dks, dvs, sq,
+      sk, hq, hq / hkv, scale, causal, drop);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dq, int batch,
+                int sq, int sk, int hq, int hkv, int d,
+                const long long (&st)[15], float scale, int causal,
+                ptt::Dropout drop, void* stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, dos{st[9], st[10], st[11]},
+      dqs{st[12], st[13], st[14]};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, batch, sq, sk,
+                              hq, hkv, qs, ks, vs, dos, dqs, scale, causal,
+                              drop, s);
+    case 128:
+      return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, batch, sq, sk,
+                               hq, hkv, qs, ks, vs, dos, dqs, scale, causal,
+                               drop, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int dispatch_dkv(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, int batch, int sq, int sk, int hq,
+                 int hkv, int d, const long long (&st)[18], float scale,
+                 int causal, ptt::Dropout drop, void* stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, dos{st[9], st[10], st[11]},
+      dks{st[12], st[13], st[14]}, dvs{st[15], st[16], st[17]};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, batch, sq,
+                               sk, hq, hkv, qs, ks, vs, dos, dks, dvs, scale,
+                               causal, drop, s);
+    case 128:
+      return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, batch, sq,
+                                sk, hq, hkv, qs, ks, vs, dos, dks, dvs, scale,
+                                causal, drop, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Strides are in elements; q/k/v/dO rows must be 16-byte aligned and every
 // non-unit stride a multiple of 8 elements (the wrapper checks); dq, dk, dv
-// rows 4-byte aligned; lse and delta are contiguous [B, Hq, Sq] fp32.
-// Dropout: seed, keep threshold, 1 / (1 - p), on (see ptt::Dropout). Each
-// returns cudaGetLastError() after its launch.
-extern "C" int flash_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int batch, int sq, int sk,
-    int hq, int hkv, int d, long long qsb, long long qss, long long qsh,
-    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, long long dosb, long long doss, long long dosh,
-    long long dqsb, long long dqss, long long dqsh, float scale, int causal,
-    unsigned int seed, unsigned int thresh, float drop_scale, int dropout,
-    void* stream) {
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      dos{dosb, doss, dosh}, dqs{dqsb, dqss, dqsh};
-  const ptt::Dropout drop{seed, thresh, drop_scale, dropout};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, sq, sk, hq,
-                           hkv, qs, ks, vs, dos, dqs, scale, causal, drop, st);
-    case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, sq, sk, hq,
-                            hkv, qs, ks, vs, dos, dqs, scale, causal, drop,
-                            st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// rows 4-byte aligned; lse and delta are contiguous [B, Hq, Sq] fp32; d is
+// 64 or 128 (the wrapper zero-pads other head dims). Dropout: seed, keep
+// threshold, 1 / (1 - p), on (see ptt::Dropout). Each returns
+// cudaGetLastError() after its launch. The *_bf16 entry points take bf16
+// tensors, the *_f16 ones fp16.
+#define FLASH_BWD_DQ_ENTRY(NAME, T)                                          \
+  extern "C" int NAME(                                                       \
+      const void* q, const void* k, const void* v, const void* dout,         \
+      const void* lse, const void* delta, void* dq, int batch, int sq,       \
+      int sk, int hq, int hkv, int d, long long qsb, long long qss,          \
+      long long qsh, long long ksb, long long kss, long long ksh,            \
+      long long vsb, long long vss, long long vsh, long long dosb,           \
+      long long doss, long long dosh, long long dqsb, long long dqss,        \
+      long long dqsh, float scale, int causal, unsigned int seed,            \
+      unsigned int thresh, float drop_scale, int dropout, void* stream) {    \
+    const long long st[15] = {qsb, qss,  qsh,  ksb,  kss,  ksh,  vsb,  vss,  \
+                              vsh, dosb, doss, dosh, dqsb, dqss, dqsh};      \
+    return dispatch_dq<T>(q, k, v, dout, lse, delta, dq, batch, sq, sk, hq,  \
+                          hkv, d, st, scale, causal,                         \
+                          ptt::Dropout{seed, thresh, drop_scale, dropout},   \
+                          stream);                                           \
   }
-}
 
-extern "C" int flash_bwd_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int batch, int sq,
-    int sk, int hq, int hkv, int d, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, long long dosb, long long doss,
-    long long dosh, long long dksb, long long dkss, long long dksh,
-    long long dvsb, long long dvss, long long dvsh, float scale, int causal,
-    unsigned int seed, unsigned int thresh, float drop_scale, int dropout,
-    void* stream) {
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      dos{dosb, doss, dosh}, dks{dksb, dkss, dksh}, dvs{dvsb, dvss, dvsh};
-  const ptt::Dropout drop{seed, thresh, drop_scale, dropout};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, sq, sk,
-                            hq, hkv, qs, ks, vs, dos, dks, dvs, scale, causal,
-                            drop, st);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, sq,
-                             sk, hq, hkv, qs, ks, vs, dos, dks, dvs, scale,
-                             causal, drop, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_BWD_DKV_ENTRY(NAME, T)                                         \
+  extern "C" int NAME(                                                       \
+      const void* q, const void* k, const void* v, const void* dout,         \
+      const void* lse, const void* delta, void* dk, void* dv, int batch,     \
+      int sq, int sk, int hq, int hkv, int d, long long qsb, long long qss,  \
+      long long qsh, long long ksb, long long kss, long long ksh,            \
+      long long vsb, long long vss, long long vsh, long long dosb,           \
+      long long doss, long long dosh, long long dksb, long long dkss,        \
+      long long dksh, long long dvsb, long long dvss, long long dvsh,        \
+      float scale, int causal, unsigned int seed, unsigned int thresh,       \
+      float drop_scale, int dropout, void* stream) {                         \
+    const long long st[18] = {qsb,  qss,  qsh,  ksb,  kss,  ksh,             \
+                              vsb,  vss,  vsh,  dosb, doss, dosh,            \
+                              dksb, dkss, dksh, dvsb, dvss, dvsh};           \
+    return dispatch_dkv<T>(q, k, v, dout, lse, delta, dk, dv, batch, sq, sk, \
+                           hq, hkv, d, st, scale, causal,                    \
+                           ptt::Dropout{seed, thresh, drop_scale, dropout},  \
+                           stream);                                          \
   }
-}
+
+FLASH_BWD_DQ_ENTRY(flash_bwd_dq_bf16, __nv_bfloat16)
+FLASH_BWD_DQ_ENTRY(flash_bwd_dq_f16, __half)
+FLASH_BWD_DKV_ENTRY(flash_bwd_dkv_bf16, __nv_bfloat16)
+FLASH_BWD_DKV_ENTRY(flash_bwd_dkv_f16, __half)

@@ -9,6 +9,12 @@ token per row over caches ``[B, S, Hkv, D]``, each row attending its first
 (Hq a multiple of Hkv) itself, so both branches of the TPU dispatch become
 this one kernel.
 
+The kernel takes bf16, fp16 and fp32, any head dim up to 128 (its tile is
+instantiated at 32, 64 and 128 and masks the columns past D, so the cache
+is never copied) and any GQA group (groups of more than 8 query heads are
+split over blocks); :func:`kernel_for` is the dispatch. Other dtypes and
+head dims above 128 raise ``ValueError``.
+
 The wrapper takes the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
 """
@@ -21,11 +27,27 @@ import torch
 
 from . import _build
 
-__all__ = ["decode_mha", "decode_mha_ref"]
+__all__ = ["decode_mha", "decode_mha_ref", "kernel_for"]
 
-_HEAD_DIMS = (64, 128)   # instantiated in csrc/decode_mha.cu
-_MAX_GROUP = 8           # query heads per kv head the kernel holds
-_ENTRY = {torch.bfloat16: "decode_mha_bf16", torch.float32: "decode_mha_f32"}
+_WIDTHS = (32, 64, 128)  # the tile's instances in csrc/decode_mha.cu
+_MAX_GROUP = 8           # query heads of a group one block holds
+_ENTRY = {torch.bfloat16: "decode_mha_bf16", torch.float16: "decode_mha_f16",
+          torch.float32: "decode_mha_f32"}
+
+
+def kernel_for(dtype: torch.dtype, d: int, group: int):
+    """K7's dispatch for q and caches of ``dtype``, head dim ``d`` and
+    ``group`` query heads per kv head: ``(entry point, instantiated width,
+    blocks per (kv head, row))``. Raises ``ValueError`` for a dtype
+    without a kernel and head dims outside 1..128."""
+    if dtype not in _ENTRY:
+        raise ValueError(f"decode_mha: no kernel for {dtype}; the kernel "
+                         f"takes bfloat16, float16 and float32")
+    width = next((w for w in _WIDTHS if 0 < d <= w), None)
+    if width is None:
+        raise ValueError(f"decode_mha: the kernel takes head_dim 1 to "
+                         f"{_WIDTHS[-1]}, got {d}")
+    return _ENTRY[dtype], width, -(-group // _MAX_GROUP)
 
 
 def _check_args(q, k_cache, v_cache, seq_lens):
@@ -88,20 +110,15 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     devs = {t.device for t in (q, k_cache, v_cache, seq_lens)}
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"decode_mha: no kernel for devices {devs}")
-    if q.dtype not in _ENTRY or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(
-            f"decode_mha kernel takes bf16 or fp32 q and caches of q's dtype, "
-            f"got {q.dtype}, {k_cache.dtype}/{v_cache.dtype}")
+            f"decode_mha kernel takes caches of q's dtype, got {q.dtype}, "
+            f"{k_cache.dtype}/{v_cache.dtype}")
     if seq_lens.dtype != torch.int32:
         raise ValueError("decode_mha kernel takes int32 seq_lens")
     b, hq, d = q.shape
     s_max, hkv = k_cache.shape[1], k_cache.shape[2]
-    if d not in _HEAD_DIMS or hq // hkv > _MAX_GROUP:
-        raise ValueError(
-            f"decode_mha kernel takes head_dim in {_HEAD_DIMS} and at most "
-            f"{_MAX_GROUP} query heads per kv head, got D={d}, "
-            f"group={hq // hkv}")
+    entry, _, _ = kernel_for(q.dtype, d, hq // hkv)
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if b == 0 or hq == 0:
         return out
@@ -112,7 +129,7 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lib = _build.load("decode_mha")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bind(lib, _ENTRY[q.dtype])(
+        err = _bind(lib, entry)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             seq_lens.data_ptr(), out.data_ptr(), b, hq, hkv, d, s_max,
             *k_cache.stride()[:3], *v_cache.stride()[:3],

@@ -1,6 +1,7 @@
 """Flash attention on Hopper: K3 forward (``csrc/flash_fwd.cu``) and the two
-backward kernels (``csrc/flash_bwd.cu``), each beside its plain PyTorch
-version, and the ``torch.autograd.Function`` that joins them.
+backward kernels (``csrc/flash_bwd.cu``), with their fp32 instances
+(``csrc/flash_f32.cu``), each beside its plain PyTorch version, and the
+``torch.autograd.Function`` that joins them.
 
 Port of ``paddle_tpu/ops/flash_attention_kernel.py::flash_attention_bhsd``:
 ``_fwd_kernel``/``_fwd_impl`` (pallas_call at :331), ``_bwd_dq_kernel``
@@ -16,6 +17,15 @@ murmur3 finalizer over seed, batch, query head and the global (q, k)
 coordinates), reproduced bit for bit here and in the CUDA kernels, so the
 masks of the kernels, of the plain versions and of the JAX package agree
 exactly at the same seed, whatever the tile sizes.
+
+Kernels exist for bf16 and fp16 (tensor cores) and fp32 (CUDA cores) at
+head dims 64 and 128; :func:`kernel_for` is the dispatch. Any other head
+dim up to 128 is zero-padded to the next of those widths around the
+kernels, with the softmax scale of the real one, and the outputs sliced
+back: zero columns add nothing to a score, their output columns and
+gradients are zero, so the padding is exact (``_sublane_plan``'s ``pad``
+mode of the JAX kernel). Other dtypes and head dims above 128 raise
+``ValueError``.
 
 The wrappers take the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
@@ -33,12 +43,25 @@ from . import _build
 __all__ = ["flash_attention_bshd", "flash_attention_bshd_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "FlashAttention"]
+           "FlashAttention", "kernel_for"]
 
 _NEG = -1e30            # the kernels' mask value: no inf - inf NaNs
-_HEAD_DIMS = (64, 128)  # instantiated in csrc/flash_fwd.cu and flash_bwd.cu
 _U32 = 0xFFFFFFFF
-_CHUNK = 512            # rows or keys per step of the plain versions
+_CHUNK = 512            # query rows per step of the plain backward
+_KEY_TILE = 64          # keys per tile of K3 (kBK in csrc/flash_fwd.cu)
+_WIDTHS = (64, 128)     # head dims the kernels are instantiated at
+# (kernel, dtype) -> (library built from csrc/<library>.cu, entry point)
+_ENTRIES = {
+    ("flash_fwd", torch.bfloat16): ("flash_fwd", "flash_fwd_bf16"),
+    ("flash_fwd", torch.float16): ("flash_fwd", "flash_fwd_f16"),
+    ("flash_fwd", torch.float32): ("flash_f32", "flash_fwd_f32"),
+    ("flash_bwd_dq", torch.bfloat16): ("flash_bwd", "flash_bwd_dq_bf16"),
+    ("flash_bwd_dq", torch.float16): ("flash_bwd", "flash_bwd_dq_f16"),
+    ("flash_bwd_dq", torch.float32): ("flash_f32", "flash_bwd_dq_f32"),
+    ("flash_bwd_dkv", torch.bfloat16): ("flash_bwd", "flash_bwd_dkv_bf16"),
+    ("flash_bwd_dkv", torch.float16): ("flash_bwd", "flash_bwd_dkv_f16"),
+    ("flash_bwd_dkv", torch.float32): ("flash_f32", "flash_bwd_dkv_f32"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -126,12 +149,15 @@ def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
                              sm_scale: Optional[float] = None,
                              dropout_p: float = 0.0, seed: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K3: the online-softmax recurrence over key chunks
-    of ``paddle_tpu/ops/pallas.py::_chunked_attention``, in fp32 (the
-    kernel's arithmetic), GQA by repeating kv heads. With dropout the
-    normalizer sums the undropped probabilities and only P.V sees the
-    mask, scaled by 1 / (1 - p), as ``_fwd_kernel`` does. Returns ``(out
-    [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] fp32)``."""
+    """Plain version of K3: the online-softmax recurrence of
+    ``_fwd_kernel`` over K3's tiles of ``_KEY_TILE`` keys, in fp32 (the
+    kernel's arithmetic), GQA by repeating kv heads. The running max is
+    updated per tile, and P = exp(s - m) (after dropout and the 1 / (1 -
+    p) scale) is rounded to v's dtype before P.V, as the JAX kernel rounds
+    it (``pv.astype(v.dtype)``, :292; a no-op in fp32), while the
+    normalizer sums the unrounded fp32 p. With dropout only P.V sees the
+    mask. Returns ``(out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq]
+    fp32)``."""
     _check_shapes(q, k, v)
     _check_dropout(dropout_p)
     b, sq, hq, d = q.shape
@@ -143,10 +169,8 @@ def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
     m = torch.full((b, hq, sq), _NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
     bi, hi = _heads(b, hq, dev)
-    nchunk = max(1, -(-sk // _CHUNK))
-    csize = -(-sk // nchunk)
-    for c0 in range(0, sk, csize):
-        c1 = min(c0 + csize, sk)
+    for c0 in range(0, sk, _KEY_TILE):
+        c1 = min(c0 + _KEY_TILE, sk)
         s = torch.einsum("bhqd,bhkd->bhqk", qt, kt[:, :, c0:c1]) * scale
         valid = _valid(0, sq, c0, c1, sq, sk, causal, dev)
         s = s.masked_fill(~valid, _NEG)
@@ -159,7 +183,7 @@ def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
                               dev)
             p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_p))
         acc = acc * alpha[..., None] + torch.einsum(
-            "bhqk,bhkd->bhqd", p, vt[:, :, c0:c1])
+            "bhqk,bhkd->bhqd", _rounded(p, v.dtype), vt[:, :, c0:c1])
         m = m_new
     l_safe = l.clamp_min(1e-30)
     out = (acc / l_safe[..., None]).to(q.dtype).transpose(1, 2).contiguous()
@@ -243,17 +267,47 @@ def _vec_ready(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
-def _check_cuda(what: str, *ts: torch.Tensor) -> None:
+def kernel_for(kernel: str, dtype: torch.dtype,
+               d: int) -> Tuple[str, str, int]:
+    """The dispatch of ``kernel`` ("flash_fwd", "flash_bwd_dq" or
+    "flash_bwd_dkv") for inputs of ``dtype`` and head dim ``d``: ``(library,
+    entry point, width)``, where ``width`` is the instantiated head dim the
+    inputs are zero-padded to. Raises ``ValueError`` for a dtype without a
+    kernel (other than bf16, fp16 and fp32) and for head dims outside
+    1..128."""
+    entry = _ENTRIES.get((kernel, dtype))
+    if entry is None:
+        raise ValueError(
+            f"{kernel}: no kernel for {dtype}; the kernels take bfloat16, "
+            f"float16 and float32")
+    width = next((w for w in _WIDTHS if 0 < d <= w), None)
+    if width is None:
+        raise ValueError(f"{kernel}: the kernels take head_dim 1 to "
+                         f"{_WIDTHS[-1]}, got {d}")
+    return entry[0], entry[1], width
+
+
+def _check_cuda(kernel: str, *ts: torch.Tensor) -> Tuple[str, str, int]:
+    """Device and dtype checks of a launch; returns :func:`kernel_for`."""
     dev = ts[0].device
     if dev.type != "cuda" or any(t.device != dev for t in ts):
-        raise ValueError(f"{what}: no kernel for devices "
+        raise ValueError(f"{kernel}: no kernel for devices "
                          f"{', '.join(str(t.device) for t in ts)}")
-    if any(t.dtype != torch.bfloat16 for t in ts):
-        raise ValueError(f"{what}: the kernel takes bf16, got "
+    if any(t.dtype != ts[0].dtype for t in ts):
+        raise ValueError(f"{kernel}: the kernel takes one dtype, got "
                          f"{'/'.join(str(t.dtype) for t in ts)}")
-    if ts[0].shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"{what}: the kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {ts[0].shape[-1]}")
+    return kernel_for(kernel, ts[0].dtype, ts[0].shape[-1])
+
+
+def _padded(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x zero-padded on D to ``width``, with the rows the kernels read."""
+    if x.shape[-1] != width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    return _vec_ready(x)
+
+
+def _sliced(x: torch.Tensor, d: int) -> torch.Tensor:
+    return x if x.shape[-1] == d else x[..., :d]
 
 
 def _dropout_args(dropout_p: float, seed: int):
@@ -308,21 +362,21 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bshd_ref(q, k, v, causal, sm_scale,
                                         dropout_p, seed)
-    _check_cuda("flash attention", q, k, v)
+    lib, entry, w = _check_cuda("flash_fwd", q, k, v)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, hq, w), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:      # an empty grid is not a launch
-        return out, lse
-    q, k, v = _vec_ready(q), _vec_ready(k), _vec_ready(v)
-    _launch("flash_fwd", "flash_fwd_bf16",
+        return _sliced(out, d), lse
+    q, k, v = (_padded(t, w) for t in (q, k, v))
+    _launch(lib, entry,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr()], (b, sq, sk, hq, hkv, d),
+             lse.data_ptr()], (b, sq, sk, hq, hkv, w),
             _strides(q, k, v, out), scale, causal, dropout_p, seed, q.device)
     flash_attention_bshd.launches += 1
-    return out, lse
+    return _sliced(out, d), lse
 
 
 flash_attention_bshd.launches = 0
@@ -332,27 +386,27 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                            sm_scale: Optional[float] = None,
                            dropout_p: float = 0.0, seed: int = 0
                            ) -> torch.Tensor:
-    """dq [B, Sq, Hq, D] bf16 from the ``flash_bwd_dq`` kernel: one block
-    per (query head, batch, 64-query tile), looping over key tiles on the
-    tensor cores. CUDA tensors only: the plain version is
-    :func:`flash_attention_bwd_ref`."""
+    """dq [B, Sq, Hq, D] in q's dtype from the ``flash_bwd_dq`` kernel: one
+    block per (query head, batch, 64-query tile), looping over key tiles
+    (bf16 and fp16 on the tensor cores, fp32 on the CUDA cores). CUDA
+    tensors only: the plain version is :func:`flash_attention_bwd_ref`."""
     _check_shapes(q, k, v)
-    _check_cuda("flash_bwd_dq", q, k, v, do)
+    lib, entry, w = _check_cuda("flash_bwd_dq", q, k, v, do)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, sq, hq, w), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
-        return dq
-    q, k, v, do = (_vec_ready(t) for t in (q, k, v, do))
+        return _sliced(dq, d)
+    q, k, v, do = (_padded(t, w) for t in (q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    _launch("flash_bwd", "flash_bwd_dq_bf16",
+    _launch(lib, entry,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()],
-            (b, sq, sk, hq, hkv, d), _strides(q, k, v, do, dq), scale,
+            (b, sq, sk, hq, hkv, w), _strides(q, k, v, do, dq), scale,
             causal, dropout_p, seed, q.device)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return _sliced(dq, d)
 
 
 flash_attention_bwd_dq.launches = 0
@@ -362,28 +416,28 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                             sm_scale: Optional[float] = None,
                             dropout_p: float = 0.0, seed: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) [B, Sk, Hkv, D] bf16 from the ``flash_bwd_dkv`` kernel:
-    one block per (kv head, batch, 64-key tile), looping over the query
-    heads of its group and the query tiles on the tensor cores with fp32
-    accumulators (no atomics). CUDA tensors only."""
+    """(dk, dv) [B, Sk, Hkv, D] in k's dtype from the ``flash_bwd_dkv``
+    kernel: one block per (kv head, batch, 64-key tile), looping over the
+    query heads of its group and the query tiles with fp32 accumulators (no
+    atomics). CUDA tensors only."""
     _check_shapes(q, k, v)
-    _check_cuda("flash_bwd_dkv", q, k, v, do)
+    lib, entry, w = _check_cuda("flash_bwd_dkv", q, k, v, do)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, sk, hkv, d), dtype=v.dtype, device=v.device)
+    dk = torch.empty((b, sk, hkv, w), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, hkv, w), dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
-        return dk, dv
-    q, k, v, do = (_vec_ready(t) for t in (q, k, v, do))
+        return _sliced(dk, d), _sliced(dv, d)
+    q, k, v, do = (_padded(t, w) for t in (q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    _launch("flash_bwd", "flash_bwd_dkv_bf16",
+    _launch(lib, entry,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-            (b, sq, sk, hq, hkv, d), _strides(q, k, v, do, dk, dv), scale,
+            (b, sq, sk, hq, hkv, w), _strides(q, k, v, do, dk, dv), scale,
             causal, dropout_p, seed, q.device)
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return _sliced(dk, d), _sliced(dv, d)
 
 
 flash_attention_bwd_dkv.launches = 0
@@ -395,16 +449,21 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
     """(dq, dk, dv) of flash attention from the saved ``out`` and ``lse``:
     the plain version for CPU tensors, the two backward kernels for CUDA
     tensors (delta = rowsum(dO * O) is computed here, outside the kernels,
-    as ``_bwd_impl`` does)."""
+    as ``_bwd_impl`` does; a head dim between the kernels' widths is
+    padded here once for both kernels)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
                                        sm_scale, dropout_p, seed)
+    _, _, w = _check_cuda("flash_bwd_dq", q, k, v, do)
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     delta = _delta(out, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
+    q, k, v, do = (_padded(t, w) for t in (q, k, v, do))
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale,
                                 dropout_p, seed)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
-                                     sm_scale, dropout_p, seed)
-    return dq, dk, dv
+                                     scale, dropout_p, seed)
+    return _sliced(dq, d), _sliced(dk, d), _sliced(dv, d)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -6,8 +6,14 @@ at :268) and its plain twin ``_paged_decode_ref`` (:126). The KV cache is a
 shared pool of pages ``[num_pages, page_size, Hkv, D]``; a row's cache is its
 row of ``page_table`` (page ids in order, -1 unmapped). bf16 pools, or int8
 pools with per-(page, kv head) absmax scales (``quantization/kv.py``
-conventions, copied below). The kernel reads the pools through their
-strides, so a view in another layout is read in place.
+conventions, copied below) under a bf16 query, fp16 or fp32 pools under a
+query of their dtype. The kernel reads the pools through their strides, so
+a view in another layout is read in place. Any head dim up to 128 (the
+tile is instantiated at 32, 64 and 128 and masks the columns past D, so no
+pool is copied) and any GQA group (more than 8 query heads a group are
+split over blocks); :func:`kernel_for` is the dispatch. Other dtype
+pairings (int8 pools under an fp16 or fp32 query, mixed float types) and
+head dims above 128 raise ``ValueError``.
 
 :func:`paged_attention` ports ``paddle_tpu/ops/pallas.py::paged_attention``
 (:216-228), which calls JAX's stock TPU paged-attention kernel
@@ -31,15 +37,40 @@ import torch
 from . import _build
 
 __all__ = ["paged_decode_mha", "paged_decode_mha_ref", "paged_attention",
-           "paged_attention_ref", "KV_QMAX", "KV_SCALE_FLOOR"]
+           "paged_attention_ref", "kernel_for", "KV_QMAX", "KV_SCALE_FLOOR"]
 
 # int8 KV conventions (copied from paddle_tpu/quantization/kv.py):
 # value = int8 * scale / KV_QMAX; scales never drop below the floor
 KV_QMAX = 127.0
 KV_SCALE_FLOOR = 1e-8
 
-_HEAD_DIMS = (64, 128)   # instantiated in csrc/paged_decode.cu
-_MAX_GROUP = 8           # query heads per kv head the kernel holds
+_WIDTHS = (32, 64, 128)  # the tile's instances in csrc/paged_decode.cu
+_MAX_GROUP = 8           # query heads of a group one block holds
+# (query dtype, pool dtype) -> entry point
+_ENTRY = {(torch.bfloat16, torch.bfloat16): "paged_decode_bf16",
+          (torch.bfloat16, torch.int8): "paged_decode_int8",
+          (torch.float16, torch.float16): "paged_decode_f16",
+          (torch.float32, torch.float32): "paged_decode_f32"}
+
+
+def kernel_for(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
+               group: int):
+    """K4's dispatch for a query of ``q_dtype`` over pools of
+    ``pool_dtype``, head dim ``d`` and ``group`` query heads per kv head:
+    ``(entry point, instantiated width, blocks per (row, kv head))``.
+    Raises ``ValueError`` for a pairing without a kernel and head dims
+    outside 1..128."""
+    entry = _ENTRY.get((q_dtype, pool_dtype))
+    if entry is None:
+        raise ValueError(
+            f"paged decode: no kernel for a {q_dtype} query over "
+            f"{pool_dtype} pools; the kernel takes bf16 over bf16 or int8, "
+            f"fp16 over fp16 and fp32 over fp32")
+    width = next((w for w in _WIDTHS if 0 < d <= w), None)
+    if width is None:
+        raise ValueError(f"paged decode: the kernel takes head_dim 1 to "
+                         f"{_WIDTHS[-1]}, got {d}")
+    return entry, width, -(-group // _MAX_GROUP)
 
 
 def _check_args(q, k_pool, v_pool, k_scale, v_scale):
@@ -105,8 +136,8 @@ def paged_decode_mha_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.einsum("blh,blhd->bhd", p, v).to(q.dtype)
 
 
-def _bind(lib: ctypes.CDLL, quant: bool):
-    fn = lib.paged_decode_int8 if quant else lib.paged_decode_bf16
+def _bind(lib: ctypes.CDLL, entry: str, quant: bool):
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p] * (7 if quant else 5) + [p] + [i] * 6
@@ -143,12 +174,11 @@ def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
             + ((k_scale, v_scale) if quant else ())}
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"paged decode: no kernel for devices {devs}")
-    pool_dtype = torch.int8 if quant else torch.bfloat16
-    if (q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype
-            or v_pool.dtype != pool_dtype):
+    if k_pool.dtype != v_pool.dtype or quant != (k_pool.dtype == torch.int8):
         raise ValueError(
-            f"paged decode kernel takes a bf16 query and {pool_dtype} pools, "
-            f"got {q.dtype}, {k_pool.dtype}/{v_pool.dtype}")
+            f"paged decode kernel takes K and V pools of one dtype, int8 "
+            f"with scales and others without, got {k_pool.dtype}/"
+            f"{v_pool.dtype}, scales {'given' if quant else 'none'}")
     if quant and (k_scale.dtype != torch.float32
                   or v_scale.dtype != torch.float32):
         raise ValueError("paged decode kernel takes fp32 scales")
@@ -157,11 +187,7 @@ def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
                          "seq_lens")
     b, h, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    if d not in _HEAD_DIMS or h // hkv > _MAX_GROUP:
-        raise ValueError(
-            f"paged decode kernel takes head_dim in {_HEAD_DIMS} and at most "
-            f"{_MAX_GROUP} query heads per kv head, got D={d}, "
-            f"group={h // hkv}")
+    entry, _, _ = kernel_for(q.dtype, k_pool.dtype, d, h // hkv)
     if page_table.shape[0] != b or seq_lens.shape != (b,):
         raise ValueError(
             f"page_table {tuple(page_table.shape)} / seq_lens "
@@ -181,7 +207,7 @@ def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
     lib = _build.load("paged_decode")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bind(lib, quant)(
+        err = _bind(lib, entry, quant)(
             *[t.data_ptr() for t in args], out.data_ptr(), b, h, hkv, d, ps,
             page_table.shape[1], *k_pool.stride()[:3], scale, cap, stream)
     _build.check(lib, err, "paged_decode")

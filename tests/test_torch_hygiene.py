@@ -131,12 +131,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_library_names_follow_the_sources():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["decode_mha", "flash_bwd", "flash_fwd", "grad_add",
-                     "grouped_matmul", "paged_decode"]
+    assert names == ["decode_mha", "flash_bwd", "flash_f32", "flash_fwd",
+                     "grad_add", "grouped_matmul", "paged_decode"]
     paths = [_build.library_path(n) for n in names]
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert all(p.name.startswith(f"{n}-") for n, p in zip(names, paths))
-    assert len(set(paths)) == 6
+    assert len(set(paths)) == 7
     assert _build.library_path("flash_bwd") == paths[1]      # stable hash
 
 

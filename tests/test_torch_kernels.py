@@ -218,6 +218,108 @@ def test_int8_constants_are_the_reference_ones():
     assert port_paged.KV_SCALE_FLOOR == jax_kv.KV_SCALE_FLOOR
 
 
+# -- the wrappers' dispatch: entry point, width, or the documented refusal --
+
+
+port_decode = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
+port_flash = importlib.import_module(
+    "paddle_tpu_torch.ops.flash_attention_kernel")
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
+@pytest.mark.parametrize("dtype,lib,suffix", [
+    (torch.bfloat16, None, "bf16"), (torch.float16, None, "f16"),
+    (torch.float32, "flash_f32", "f32")])
+@pytest.mark.parametrize("d,width", [(1, 64), (16, 64), (64, 64), (96, 128),
+                                     (128, 128)])
+def test_flash_dispatch_table(kernel, dtype, lib, suffix, d, width):
+    """bf16 and fp16 go to the tensor-core kernels of flash_fwd.cu and
+    flash_bwd.cu, fp32 to the CUDA-core instances of flash_f32.cu; a head
+    dim is padded to the next instantiated width, 64 or 128."""
+    bf16_lib = "flash_fwd" if kernel == "flash_fwd" else "flash_bwd"
+    assert port_flash.kernel_for(kernel, dtype, d) == (
+        lib or bf16_lib, f"{kernel}_{suffix}", width)
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
+def test_flash_dispatch_refusals(kernel):
+    """fp64 and head dims above 128 (or empty) have no kernel."""
+    with pytest.raises(ValueError, match="no kernel for torch.float64"):
+        port_flash.kernel_for(kernel, torch.float64, 64)
+    for d in (0, 129, 256):
+        with pytest.raises(ValueError, match="head_dim 1 to 128"):
+            port_flash.kernel_for(kernel, torch.bfloat16, d)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "decode_mha_bf16"),
+                                         (torch.float16, "decode_mha_f16"),
+                                         (torch.float32, "decode_mha_f32")])
+@pytest.mark.parametrize("d,width", [(16, 32), (32, 32), (64, 64), (96, 128),
+                                     (128, 128)])
+@pytest.mark.parametrize("group,blocks", [(1, 1), (8, 1), (9, 2), (16, 2)])
+def test_decode_mha_dispatch_table(dtype, entry, d, width, group, blocks):
+    """K7: the tile's width (32, 64 or 128, lanes past D masked) and one
+    block per 8 query heads of a group."""
+    assert port_decode.kernel_for(dtype, d, group) == (entry, width, blocks)
+
+
+@pytest.mark.parametrize("qd,pd,entry", [
+    (torch.bfloat16, torch.bfloat16, "paged_decode_bf16"),
+    (torch.bfloat16, torch.int8, "paged_decode_int8"),
+    (torch.float16, torch.float16, "paged_decode_f16"),
+    (torch.float32, torch.float32, "paged_decode_f32")])
+@pytest.mark.parametrize("d,width", [(16, 32), (64, 64), (96, 128),
+                                     (128, 128)])
+@pytest.mark.parametrize("group,blocks", [(1, 1), (4, 1), (16, 2),
+                                          (17, 3)])
+def test_paged_decode_dispatch_table(qd, pd, entry, d, width, group, blocks):
+    assert port_paged.kernel_for(qd, pd, d, group) == (entry, width, blocks)
+
+
+def test_decode_dispatch_refusals():
+    """fp64, int8 pools under an fp16 or fp32 query, mixed float types and
+    head dims above 128 have no kernel."""
+    with pytest.raises(ValueError, match="no kernel for torch.float64"):
+        port_decode.kernel_for(torch.float64, 64, 1)
+    with pytest.raises(ValueError, match="head_dim 1 to 128"):
+        port_decode.kernel_for(torch.bfloat16, 256, 1)
+    for qd, pd in ((torch.float64, torch.float64),
+                   (torch.float32, torch.int8), (torch.float16, torch.int8),
+                   (torch.bfloat16, torch.float32),
+                   (torch.float16, torch.bfloat16)):
+        with pytest.raises(ValueError, match="no kernel for a"):
+            port_paged.kernel_for(qd, pd, 64, 1)
+    with pytest.raises(ValueError, match="head_dim 1 to 128"):
+        port_paged.kernel_for(torch.float32, torch.float32, 160, 1)
+
+
+@pytest.mark.parametrize("d", [16, 96])
+def test_decode_plain_versions_take_any_head_dim_and_group(d):
+    """The plain versions the kernels are held against on the card at the
+    new widths and a group of 16: K7's against the JAX package's grouped
+    einsum branch, K4's against the Pallas kernel in interpret mode."""
+    from paddle_tpu.ops import _decode as jax_decode
+
+    rng = np.random.RandomState(d)
+    b, s, hkv, g = 3, 40, 2, 16
+    q = rng.randn(b, hkv * g, d).astype(np.float32)
+    kc = rng.randn(b, s, hkv, d).astype(np.float32)
+    vc = rng.randn(b, s, hkv, d).astype(np.float32)
+    lens = np.asarray([40, 17, 0], np.int32)
+    ref = jax_decode.gqa_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens))
+    out = ops.decode_mha(_t(q), _t(kc), _t(vc), _t(lens))
+    np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+    q, kp, vp, table, ln, _, _ = _paged_case([0, 9, 24], hkv * g, hkv, d=d,
+                                             seed=d)
+    ref = jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                    jnp.asarray(table), jnp.asarray(ln))
+    out = ops.paged_decode_mha(_t(q), _t(kp), _t(vp), _t(table), _t(ln))
+    np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+
+
 # -- wrappers: the plain version is for CPU tensors only ---------------------
 
 

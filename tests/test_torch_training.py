@@ -176,6 +176,114 @@ def test_flash_bwd_plain_rounds_like_pallas_in_bf16(sq, sk, hq, hkv, d,
             atol=1e-3, rtol=2.0 ** -8)
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("sq,sk,hq,hkv,d", [(128, 128, 2, 2, 64),
+                                            (128, 128, 4, 1, 16),
+                                            (64, 192, 4, 2, 16)])
+def test_flash_fwd_plain_rounds_like_pallas_in_bf16(sq, sk, hq, hkv, d,
+                                                    dropout):
+    """bf16, causal, MHA and GQA, Sq <= Sk: the plain forward against the
+    Pallas forward (``_fwd_impl``, interpret mode) with key blocks of 64,
+    K3's key tile (every length here is a multiple of 64, so
+    ``_pick_block`` takes 64). Both update the running max per 64-key
+    tile, round P (after dropout and its 1 / (1 - p) scale) to bf16 at
+    that max before P.V and sum the normalizer over the unrounded p, so
+    they agree but where a score's fp32 value differs by an ulp across a
+    bf16 rounding boundary of P, which moves an output by a bf16 step or
+    less: bitwise in 4 of the 6 cases, 9.8e-4 at most (at an output near
+    0.2). Tolerance: atol 1e-3, rtol 2^-8 (half a bf16 step) on out, 1e-5
+    on the fp32 lse. Without the rounding the plain version is up to
+    0.0156 away at 36-42% of the outputs, and rounding at the running max
+    of 512-key chunks up to 0.0039 at 6-23%."""
+    q, k, v, _ = _flash_case(1, sq, sk, hq, hkv, d, seed=sq + hkv + d)
+    seed, scale = 5, 1.0 / math.sqrt(d)
+    qj, kj, vj = (jnp.asarray(a.transpose(0, 2, 1, 3), jnp.bfloat16)
+                  for a in (q, k, v))
+    out_j, lse_j = jax_flash._fwd_impl(
+        qj, kj, vj, jnp.asarray([seed], jnp.int32), True, scale, dropout,
+        64, 64, True)
+
+    def tt(a):      # [B, H, S, D] bf16 -> [B, S, H, D] bf16
+        return torch.tensor(_np(a.astype(jnp.float32)).transpose(0, 2, 1, 3),
+                            dtype=torch.bfloat16)
+
+    out, lse = fk.flash_attention_bshd_ref(tt(qj), tt(kj), tt(vj), True,
+                                           None, dropout, seed)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        out.float().numpy(),
+        _np(out_j.astype(jnp.float32)).transpose(0, 2, 1, 3),
+        atol=1e-3, rtol=2.0 ** -8)
+    np.testing.assert_allclose(lse.numpy(), _np(lse_j)[..., 0], **TOL)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("sq,sk,hq,hkv,d", [(128, 128, 2, 2, 64),
+                                            (128, 128, 4, 1, 16),
+                                            (64, 192, 4, 2, 16)])
+def test_flash_fwd_plain_rounds_like_pallas_in_fp16(sq, sk, hq, hkv, d,
+                                                    dropout):
+    """As the bf16 test above, in fp16 (the dtype of the fp16 kernels): P
+    is rounded to fp16 at each 64-key tile's running max on both sides.
+    They agree but for single flips of P's rounding, one fp16 step of an
+    output at most (1.2e-4 at outputs near 0.2, at 0.06-0.24% of them).
+    Tolerance: atol 2e-4, rtol 2^-11 (half an fp16 step). Without the
+    rounding the plain version is up to 0.002 away at 35-42% of the
+    outputs."""
+    q, k, v, _ = _flash_case(1, sq, sk, hq, hkv, d, seed=sq + hkv + d)
+    seed, scale = 5, 1.0 / math.sqrt(d)
+    qj, kj, vj = (jnp.asarray(a.transpose(0, 2, 1, 3), jnp.float16)
+                  for a in (q, k, v))
+    out_j, lse_j = jax_flash._fwd_impl(
+        qj, kj, vj, jnp.asarray([seed], jnp.int32), True, scale, dropout,
+        64, 64, True)
+
+    def tt(a):      # [B, H, S, D] fp16 -> [B, S, H, D] fp16
+        return torch.tensor(_np(a.astype(jnp.float32)).transpose(0, 2, 1, 3),
+                            dtype=torch.float16)
+
+    out, lse = fk.flash_attention_bshd_ref(tt(qj), tt(kj), tt(vj), True,
+                                           None, dropout, seed)
+    assert out.dtype == torch.float16
+    np.testing.assert_allclose(
+        out.float().numpy(),
+        _np(out_j.astype(jnp.float32)).transpose(0, 2, 1, 3),
+        atol=2e-4, rtol=2.0 ** -11)
+    np.testing.assert_allclose(lse.numpy(), _np(lse_j)[..., 0], **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,width", [(16, 64), (96, 128)])
+def test_flash_zero_padding_of_d_is_exact(d, width, dtype):
+    """What the wrappers do on the card for a head dim between the
+    kernels' widths: zero-pad q, k, v and dO to the width, run with the
+    real head dim's scale, slice the outputs back. The padded columns add
+    nothing to a score, so the plain forward and backward on padded
+    inputs equal the unpadded ones (the same fp32 sums, with zeros; atol
+    = rtol = 1e-5 in fp32, where only the order of the sums may change,
+    and a bf16 step, 2^-7, in bf16), and the padded columns of out, dq,
+    dk and dv are exactly zero."""
+    q, k, v, do = (_t(a).to(dtype) for a in
+                   _flash_case(2, 40, 72, 4, 2, d, seed=d))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fk.flash_attention_bshd_ref(q, k, v, True, None, 0.1, 3)
+    grads = fk.flash_attention_bwd_ref(q, k, v, out, lse, do, True, None,
+                                       0.1, 3)
+    qp, kp, vp, dop = (fk._padded(t, width) for t in (q, k, v, do))
+    assert qp.shape[-1] == width
+    out_p, lse_p = fk.flash_attention_bshd_ref(qp, kp, vp, True, scale,
+                                               0.1, 3)
+    grads_p = fk.flash_attention_bwd_ref(qp, kp, vp, out_p, lse_p, dop,
+                                         True, scale, 0.1, 3)
+    tol = TOL if dtype == torch.float32 else dict(atol=1e-5,
+                                                  rtol=2.0 ** -7)
+    np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), **TOL)
+    for got, want in zip((out_p,) + grads_p, (out,) + grads):
+        assert torch.equal(got[..., d:], torch.zeros_like(got[..., d:]))
+        np.testing.assert_allclose(fk._sliced(got, d).float().numpy(),
+                                   want.float().numpy(), **tol)
+
+
 def test_flash_bwd_rows_without_keys_get_zero_dq():
     q, k, v, do = _flash_case(1, 12, 4, 2, 2, 8, seed=3)
     qt = _t(q).requires_grad_()
@@ -185,19 +293,19 @@ def test_flash_bwd_rows_without_keys_get_zero_dq():
 
 
 def test_flash_dropout_mask_does_not_depend_on_chunking():
-    """The plain forward steps over keys in chunks of 512; the hash keys
-    on global coordinates, so a different chunking drops the same
-    entries."""
+    """The plain forward steps over keys in K3's tiles of 64; the hash
+    keys on global coordinates, so a different tiling drops the same
+    entries (fp32: the tile changes only the order of the sums)."""
     q, k, v, _ = _flash_case(1, 40, 1100, 2, 2, 8, seed=4)
     a, _ = fk.flash_attention_bshd_ref(_t(q), _t(k), _t(v), False, None,
                                        0.3, 9)
-    old = fk._CHUNK
+    old = fk._KEY_TILE
     try:
-        fk._CHUNK = 64
+        fk._KEY_TILE = 512
         b, _ = fk.flash_attention_bshd_ref(_t(q), _t(k), _t(v), False, None,
                                            0.3, 9)
     finally:
-        fk._CHUNK = old
+        fk._KEY_TILE = old
     np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
