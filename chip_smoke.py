@@ -30,8 +30,11 @@ Phases, each timed, none caught and passed over:
    fp16 flash forward and backward (head dims 64, 128 and the zero-padded
    16 and 96), the bf16 flash kernels at head dims 16 and 96, and the
    decode kernels (K4, K7) in fp32 and fp16, at head dims 16 and 96 and at
-   a GQA group of 16; the flash forward is launched twice in every case and
-   held bitwise equal to itself; then each one's time beside its bound, its
+   a GQA group of 16, and at the edges of their splits of the context
+   (rows ending on a split's boundary, shorter than one split, of length 1
+   and 0, a capacity no split divides) and at batch 1 over 4096 tokens;
+   the flash forward and every decode case are launched twice and held
+   bitwise equal to themselves; then each one's time beside its bound, its
    plain version's and a library call's where one PyTorch call computes the
    same function;
 4. kernel against plain, end to end: the 7B widths at 2 layers, served once
@@ -94,11 +97,11 @@ last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
 writes a longer record (every comparison, every serve statistic) there.
 
 Two options only time kernels of the checkout at TREE, in a process of
-their own, and print one JSON line: ``--paged-decode-times TREE`` (K4 at
-the serve shape) and ``--flash-bwd-times TREE`` (K5, K6 and K3 at the
-training shape). Run for a parent and a change in turns (parent, change,
-change, parent), each in a fresh process, they compare two trees on one
-card.
+their own, and print one JSON line: ``--paged-decode-times TREE`` (K4
+and K7 at the serve shape and at batch 1 over 4096 tokens) and
+``--flash-bwd-times TREE`` (K5, K6 and K3 at the training shape). Run
+for a parent and a change in turns (parent, change, change, parent), each
+in a fresh process, they compare two trees on one card.
 """
 from __future__ import annotations
 
@@ -147,6 +150,12 @@ MOE = dict(hidden=1024, ffn=4096, experts=64, top_k=2, tokens=4096)
 # dead row) over a pool of 512 pages
 PAGED = dict(page=16, max_pages=64, pages=512,
              lens=[1024, 900, 733, 512, 300, 129, 17, 0])
+# K4's and K7's split-edge cases (phase 3): at the serve shape's capacity
+# of 1024 and at one no split divides (K7: S = 700; K4: 44 pages of 16),
+# rows of the lengths edge_lens() takes from each case's own split plan
+SPLIT_EDGE_CAPS = {"decode_mha": (1024, 700), "paged_decode": (1024, 704)}
+# the batch-1 case of K4 and K7 (phase 3, timed): Llama-2's context
+BATCH1_CTX = 4096
 STOCK = dict(page=16, pages=512, pages_per_seq=64, ppcb=8, soft_cap=5.0,
              lens=[1024, 900, 733, 512, 300, 129, 17, 0])
 
@@ -304,9 +313,9 @@ ROUTE_SOURCES = {
 }
 PATHS = ("serve", "generate", "dense_serve", "train", "fmt", "train_hb",
          "ops", "f32")
-SLICE_PATHS = ("train", "f32")                        # this slice's own
-EARLIER_PATHS = (("ops", "train_hb"), ("generate", "dense_serve", "fmt"),
-                 ("serve",))
+# this slice's own: the decode paths, which run K4 and K7
+SLICE_PATHS = ("serve", "generate", "dense_serve", "fmt")
+EARLIER_PATHS = (("train", "f32"), ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
 
@@ -505,11 +514,13 @@ def kernel_phase(torch, dev, np):
 
     flash_bwd_cases(torch, ops, F, randn, rows, cases)
 
-    # K4 paged decode: the serving batch, GQA 32/8, and int8 pools
+    # K4 paged decode: the serving batch, GQA 32/8, and int8 pools; each
+    # decode case is launched twice and must give bitwise-equal results
     table, lens, k4_cases = paged_decode_inputs(torch, g, randn, dev, NH, D)
     lens_l, b = PAGED["lens"], len(PAGED["lens"])
     for hkv, int8, q, kp, vp, sc in k4_cases:
-        out = ops.paged_decode_mha(q, kp, vp, table, lens, *sc)
+        out = twice(torch, "paged_decode", lambda: ops.paged_decode_mha(
+            q, kp, vp, table, lens, *sc))
         ref = ops.paged_decode_mha_ref(q, kp, vp, table, lens, *sc)
         tag = f"B={b} Hkv={hkv} {'int8' if int8 else 'bf16'} lens={lens_l}"
         err = check_close(torch, f"paged_decode {tag}", out, ref,
@@ -531,6 +542,7 @@ def kernel_phase(torch, dev, np):
                     q, kp, vp, table, lens), reps=5),
                 bound_ms=bms, bound_by=by, library_ms=None, instances={})
     paged_instance_cases(torch, ops, randn, rows, cases, table, lens, NH, D)
+    paged_edge_cases(torch, ops, g, randn, rows, cases, dev, NH, D)
     decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev)
     layer_norm_cases(torch, ops, F, randn, rows, cases, H)
     grad_add_cases(torch, ops, randn, rows, cases, mc)
@@ -545,6 +557,38 @@ def kernel_phase(torch, dev, np):
     return rows, cases
 
 
+def twice(torch, name, fn):
+    """``fn()`` launched twice; the two results must be bitwise equal (the
+    kernels use no atomics). Returns the first."""
+    out = fn()
+    if not torch.equal(out, fn()):
+        raise AssertionError(f"{name}: two launches gave different results")
+    return out
+
+
+def split_of(ops, batch, hkv, group, ctx, unit=64):
+    """(tokens per split, splits): the plan the K4/K7 wrappers take."""
+    return ops.decode_attention.split_plan(batch, hkv, group, ctx,
+                                           torch_sm_count(), unit)
+
+
+def split_tag(ops, batch, hkv, group, ctx, unit=64) -> str:
+    return "split {}x{}".format(*split_of(ops, batch, hkv, group, ctx, unit))
+
+
+def edge_lens(split: int, cap: int) -> list:
+    """8 row lengths at the edges of splits of ``split`` tokens over a
+    capacity ``cap``: the capacity, two splits and one (on boundaries), one
+    past and one short of a boundary, half a split, 1 and 0."""
+    return [min(cap, n) for n in (cap, 2 * split, split, split + 1,
+                                  split - 1, split // 2, 1, 0)]
+
+
+def torch_sm_count() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def seeded_randn(torch, dev, seed=SEED):
     """(generator, randn): ``randn(*shape, dtype=bf16, scale=1.0)`` draws
     from the generator on ``dev``."""
@@ -556,20 +600,28 @@ def seeded_randn(torch, dev, seed=SEED):
     return g, randn
 
 
+def paged_table(torch, g, dev, lens_l, max_pages, num_pages):
+    """A page table [B, max_pages] of distinct pages in a random order up
+    to each length, -1 past it, and the lengths as a tensor."""
+    ps = PAGED["page"]
+    perm = torch.randperm(num_pages, generator=g, device=dev).int()
+    table = torch.full((len(lens_l), max_pages), -1, dtype=torch.int32,
+                       device=dev)
+    nxt = 0
+    for r, n in enumerate(lens_l):
+        k_pages = -(-n // ps)
+        table[r, :k_pages] = perm[nxt:nxt + k_pages]
+        nxt += k_pages
+    return table, torch.tensor(lens_l, dtype=torch.int32, device=dev)
+
+
 def paged_decode_inputs(torch, g, randn, dev, nh, d):
     """K4's serve-shape inputs: the page table and lengths of PAGED's
     batch (pages in a random order), then ``(hkv, int8, q, k_pool, v_pool,
     scales)`` for MHA, GQA nh/(nh/4) and int8 pools with scales."""
     ps, maxp, num_pages = PAGED["page"], PAGED["max_pages"], PAGED["pages"]
     b = len(PAGED["lens"])
-    perm = torch.randperm(num_pages, generator=g, device=dev).int()
-    table = torch.full((b, maxp), -1, dtype=torch.int32, device=dev)
-    nxt = 0
-    for r, n in enumerate(PAGED["lens"]):
-        k_pages = -(-n // ps)
-        table[r, :k_pages] = perm[nxt:nxt + k_pages]
-        nxt += k_pages
-    lens = torch.tensor(PAGED["lens"], dtype=torch.int32, device=dev)
+    table, lens = paged_table(torch, g, dev, PAGED["lens"], maxp, num_pages)
     cases = []
     for hkv, int8 in [(nh, False), (nh // 4, False), (nh, True)]:
         q = randn(b, nh, d)
@@ -594,18 +646,24 @@ def paged_instance_cases(torch, ops, randn, rows, cases, table, lens, nh,
     and pools at head dim 128 (timed against the fp32 bound) and 16, fp16
     at 128 (timed) and 96, and bf16 at head dims 16 (its tile at width 32,
     lanes past 16 masked) and 96 (width 128), with GQA groups of 16 (two
-    blocks per kv head) and 4."""
+    blocks per kv head) and 4; head dim 20 in bf16 (rows not 16-byte
+    aligned) and in fp16 as a view of rows of 32 (a partial last
+    16-byte chunk)."""
     num_pages, ps = PAGED["pages"], PAGED["page"]
     b = len(PAGED["lens"])
     f32, f16 = torch.float32, torch.float16
     for dt, d, hkv in [(f32, d_full, nh), (f32, 16, nh // 16),
                        (f16, d_full, nh), (f16, 96, nh // 16),
                        (torch.bfloat16, 16, nh // 16),
-                       (torch.bfloat16, 96, nh // 4)]:
+                       (torch.bfloat16, 96, nh // 4),
+                       (torch.bfloat16, 20, nh // 4),
+                       (f16, (20, 32), nh)]:
+        d, width = d if isinstance(d, tuple) else (d, d)   # as in K7's
         q = randn(b, nh, d, dtype=dt)
-        kp = randn(num_pages, ps, hkv, d, dtype=dt)
-        vp = randn(num_pages, ps, hkv, d, dtype=dt)
-        out = ops.paged_decode_mha(q, kp, vp, table, lens)
+        kp = randn(num_pages, ps, hkv, width, dtype=dt)[..., :d]
+        vp = randn(num_pages, ps, hkv, width, dtype=dt)[..., :d]
+        out = twice(torch, "paged_decode", lambda: ops.paged_decode_mha(
+            q, kp, vp, table, lens))
         tag = (f"B={b} Hq={nh} Hkv={hkv} D={d} {str(dt)[6:]} "
                f"lens={PAGED['lens']}")
         err = check_close(torch, f"paged_decode {tag}", out,
@@ -630,11 +688,79 @@ def paged_instance_cases(torch, ops, randn, rows, cases, table, lens, nh,
                 bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
+def paged_edge_cases(torch, ops, g, randn, rows, cases, dev, nh, d):
+    """K4's split-edge cases (edge_lens at SPLIT_EDGE_CAPS) in bf16, MHA
+    and GQA nh/(nh/4), and int8 pools over the capacity no split divides;
+    then the batch-1 case, one row of BATCH1_CTX tokens over nh heads,
+    timed against its bound as the instance ``batch1``."""
+    ps, num_pages = PAGED["page"], PAGED["pages"]
+    unit = sys.modules["paddle_tpu_torch.ops.paged_attention"].split_unit(ps)
+    bf = torch.bfloat16
+    full, odd = SPLIT_EDGE_CAPS["paged_decode"]
+    for cap, hkv, int8 in [(full, nh, False), (full, nh // 4, False),
+                           (odd, nh, False), (odd, nh // 4, True)]:
+        b = 8
+        lens_l = edge_lens(split_of(ops, b, hkv, nh // hkv, cap, unit)[0],
+                           cap)
+        table, lens = paged_table(torch, g, dev, lens_l, cap // ps,
+                                  num_pages)
+        q = randn(b, nh, d)
+        if int8:
+            kp, vp = (torch.randint(-127, 128, (num_pages, ps, hkv, d),
+                                    generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            sc = tuple(randn(num_pages, hkv, dtype=torch.float32).abs() + 0.1
+                       for _ in range(2))
+        else:
+            kp, vp, sc = randn(num_pages, ps, hkv, d), randn(
+                num_pages, ps, hkv, d), ()
+        out = twice(torch, "paged_decode", lambda: ops.paged_decode_mha(
+            q, kp, vp, table, lens, *sc))
+        tag = (f"B={b} Hkv={hkv} {'int8' if int8 else 'bf16'} cap={cap} "
+               f"{split_tag(ops, b, hkv, nh // hkv, cap, unit)} "
+               f"lens={lens_l}")
+        err = check_close(torch, f"paged_decode {tag}", out,
+                          ops.paged_decode_mha_ref(q, kp, vp, table, lens,
+                                                   *sc),
+                          **TOL["paged_decode"])
+        if out[-1].abs().max().item() != 0.0:
+            raise AssertionError("paged_decode: a zero-length row must "
+                                 "return zeros")
+        cases.append(("paged_decode", tag, err))
+    # batch 1 at BATCH1_CTX tokens
+    n_pages = BATCH1_CTX // ps
+    table, lens = paged_table(torch, g, dev, [BATCH1_CTX], n_pages, n_pages)
+    q = randn(1, nh, d)
+    kp, vp = randn(n_pages, ps, nh, d, dtype=bf), randn(n_pages, ps, nh, d,
+                                                         dtype=bf)
+    out = twice(torch, "paged_decode", lambda: ops.paged_decode_mha(
+        q, kp, vp, table, lens))
+    tag = (f"B=1 Hkv={nh} D={d} bf16 "
+           f"{split_tag(ops, 1, nh, 1, BATCH1_CTX, unit)} lens=[{BATCH1_CTX}]")
+    err = check_close(torch, f"paged_decode {tag}", out,
+                      ops.paged_decode_mha_ref(q, kp, vp, table, lens),
+                      **TOL["paged_decode"])
+    cases.append(("paged_decode", tag, err))
+    bms, by = bound(BATCH1_CTX * nh * d * 2 * 2 + 2 * q.numel() * 2
+                    + table.numel() * 4 + 4, 4 * d * BATCH1_CTX * nh,
+                    BF16_FLOPS)
+    rows["paged_decode"]["instances"]["batch1"] = dict(
+        shape=tag, ms=time_ms(torch, lambda: ops.paged_decode_mha(
+            q, kp, vp, table, lens)),
+        plain_ms=time_ms(torch, lambda: ops.paged_decode_mha_ref(
+            q, kp, vp, table, lens), reps=5),
+        bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
 def paged_decode_times(tree: str) -> dict:
-    """K4 of the checkout at ``tree`` at the serve shape of phase 3 (MHA,
-    GQA and int8): its device time (the median of 50 calls) and its largest
-    difference from that checkout's plain version. Run for two checkouts
-    in turns, each in a fresh process, it compares them on one card."""
+    """The decode kernels of the checkout at ``tree``: K4 at the serve shape
+    of phase 3 (MHA, GQA and int8), K7 at the same shape (MHA and GQA
+    32/8), and both at the batch-1 case (one row of BATCH1_CTX tokens, 32
+    heads of 128): each one's device time (the median of 50 calls) and its
+    largest difference from that checkout's plain version. Only the
+    wrappers' public signatures are used, so a parent tree runs it as well.
+    Run for two checkouts in turns, each in a fresh process, it compares
+    them on one card."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -642,18 +768,36 @@ def paged_decode_times(tree: str) -> dict:
 
     dev = torch.device("cuda")
     mc = llama_config(PRESET)
+    nh, d = mc.num_attention_heads, mc.head_dim
     g, randn = seeded_randn(torch, dev)
-    table, lens, cases = paged_decode_inputs(
-        torch, g, randn, dev, mc.num_attention_heads, mc.head_dim)
+    table, lens, cases = paged_decode_inputs(torch, g, randn, dev, nh, d)
     out = {"tree": os.path.abspath(tree), "card": smi_line()}
+
+    def timed(name, fn, ref):
+        out[f"{name}_max_abs_err"] = (fn().float() - ref().float()).abs(
+        ).max().item()
+        out[f"{name}_ms"] = time_ms(torch, fn, reps=50)
+
     for hkv, int8, q, kp, vp, sc in cases:
-        name = "int8" if int8 else f"bf16_hkv{hkv}"
-        got = ops.paged_decode_mha(q, kp, vp, table, lens, *sc)
-        want = ops.paged_decode_mha_ref(q, kp, vp, table, lens, *sc)
-        out[f"{name}_max_abs_err"] = (got.float() - want.float()).abs().max(
-        ).item()
-        out[f"{name}_ms"] = time_ms(torch, lambda: ops.paged_decode_mha(
-            q, kp, vp, table, lens, *sc), reps=50)
+        timed("int8" if int8 else f"bf16_hkv{hkv}",
+              lambda: ops.paged_decode_mha(q, kp, vp, table, lens, *sc),
+              lambda: ops.paged_decode_mha_ref(q, kp, vp, table, lens, *sc))
+    s_max = PAGED["max_pages"] * PAGED["page"]
+    for hkv in (nh, nh // 4):
+        q = randn(len(PAGED["lens"]), nh, d)
+        k, v = (randn(len(PAGED["lens"]), s_max, hkv, d) for _ in range(2))
+        timed(f"decode_mha_hkv{hkv}", lambda: ops.decode_mha(q, k, v, lens),
+              lambda: ops.decode_mha_ref(q, k, v, lens))
+    del k, v, cases
+    n_pages = BATCH1_CTX // PAGED["page"]
+    table, lens = paged_table(torch, g, dev, [BATCH1_CTX], n_pages, n_pages)
+    q = randn(1, nh, d)
+    kp, vp = (randn(n_pages, PAGED["page"], nh, d) for _ in range(2))
+    timed("batch1_paged", lambda: ops.paged_decode_mha(q, kp, vp, table, lens),
+          lambda: ops.paged_decode_mha_ref(q, kp, vp, table, lens))
+    k, v = (t.reshape(1, BATCH1_CTX, nh, d) for t in (kp, vp))
+    timed("batch1_decode_mha", lambda: ops.decode_mha(q, k, v, lens),
+          lambda: ops.decode_mha_ref(q, k, v, lens))
     return out
 
 
@@ -663,34 +807,70 @@ def decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
     32/8, a cache of 700 (no tile divides it) and fp32 inputs; then head
     dims 16 (the tile at width 32, lanes past 16 masked) and 96 (width
     128), in bf16, fp16 and fp32, with a GQA group of 16 (two blocks per
-    kv head)."""
+    kv head); head dim 20, whose cache rows are not 16-byte aligned (the
+    kernel's element-wise loads) or, read as a view of rows of 32, end in
+    a partial 16-byte chunk; the split-edge cases (edge_lens at
+    SPLIT_EDGE_CAPS, MHA and GQA 32/8); and
+    the batch-1 case, one row of BATCH1_CTX tokens, timed against its bound
+    and the masked SDPA as the instance ``batch1``. Each case is launched
+    twice and must give bitwise-equal results."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     serve_lens = [1024, 900, 733, 512, 300, 129, 17, 0]
+    full, odd = SPLIT_EDGE_CAPS["decode_mha"]
+    edge = None          # the lengths edge_lens() takes from the case's plan
     for s_max, hkv, dtype, lens_l, d in [
             (1024, NH, bf, serve_lens, D), (1024, NH // 4, bf, serve_lens, D),
             (700, NH, bf, [700, 650, 513, 333, 64, 63, 1, 0], D),
+            (full, NH, bf, edge, D), (full, NH // 4, bf, edge, D),
+            (odd, NH, bf, edge, D), (odd, NH // 4, f16, edge, D),
+            (BATCH1_CTX, NH, bf, [BATCH1_CTX], D),
             (1024, NH, f32, serve_lens, D),
             (1024, NH, f16, serve_lens, D),
             (1024, NH // 16, f16, serve_lens, 96),
             (1024, NH // 16, bf, serve_lens, 16),
             (1024, NH // 16, f32, serve_lens, 96),
             (700, NH, bf, [700, 650, 513, 333, 64, 63, 1, 0], 96),
-            (700, NH // 4, f32, [700, 650, 513, 333, 64, 63, 1, 0], 16)]:
+            (700, NH // 4, f32, [700, 650, 513, 333, 64, 63, 1, 0], 16),
+            (1024, NH // 16, bf, serve_lens, 20),
+            (1024, NH // 4, f16, serve_lens, (20, 32))]:
+        # d = (head dim, row width): a view of the first d columns of
+        # wider rows, read in place
+        d, width = d if isinstance(d, tuple) else (d, d)
+        if lens_l is edge:
+            lens_l = edge_lens(split_of(ops, 8, hkv, NH // hkv, s_max)[0],
+                               s_max)
         b = len(lens_l)
         q = randn(b, NH, d, dtype=dtype)
-        k = randn(b, s_max, hkv, d, dtype=dtype)
-        v = randn(b, s_max, hkv, d, dtype=dtype)
+        k = randn(b, s_max, hkv, width, dtype=dtype)[..., :d]
+        v = randn(b, s_max, hkv, width, dtype=dtype)[..., :d]
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-        out = ops.decode_mha(q, k, v, lens)
+        out = twice(torch, "decode_mha", lambda: ops.decode_mha(
+            q, k, v, lens))
         tag = (f"B={b} S={s_max} Hkv={hkv} D={d} {str(dtype)[6:]} "
-               f"lens={lens_l}")
+               f"{split_tag(ops, b, hkv, NH // hkv, s_max)} lens={lens_l}")
         err = check_close(torch, f"decode_mha {tag}", out,
                           ops.decode_mha_ref(q, k, v, lens),
                           **TOL["decode_mha"])
-        if out[-1].abs().max().item() != 0.0:
+        if lens_l[-1] == 0 and out[-1].abs().max().item() != 0.0:
             raise AssertionError("decode_mha: a zero-length row must return "
                                  "zeros")
         cases.append(("decode_mha", tag, err))
+        if s_max == BATCH1_CTX:
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+            bms, by = bound(BATCH1_CTX * hkv * d * 2 * 2 + 2 * q.numel() * 2
+                            + 4, 4 * d * BATCH1_CTX * NH, BF16_FLOPS)
+            rows["decode_mha"]["instances"]["batch1"] = dict(
+                shape=tag, ms=time_ms(torch, lambda: ops.decode_mha(
+                    q, k, v, lens)),
+                plain_ms=time_ms(torch, lambda: ops.decode_mha_ref(
+                    q, k, v, lens), reps=5),
+                library_ms=time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], kt, vt)),
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+            continue
+        if lens_l != serve_lens:
+            continue
         if (s_max, hkv, d) == (1024, NH, D) and dtype != bf:
             tokens, es = sum(lens_l), q.element_size()
             bms, by = bound(tokens * hkv * d * es * 2 + 2 * q.numel() * es
@@ -991,7 +1171,8 @@ def stock_paged_cases(torch, ops, rows, cases, dev, nh, d):
         q = torch.randn(b, nh, d, generator=g, device=dev)
         q = (q if cap else q / d ** 0.5).bfloat16()
         kw["attn_logits_soft_cap"] = cap
-        out = ops.paged_attention(q, kp, vp, lens, table, **kw)
+        out = twice(torch, "paged_attention", lambda: ops.paged_attention(
+            q, kp, vp, lens, table, **kw))
         tag = f"B={b} Hkv={hkv} stock layout, scale 1, soft cap {cap}"
         err = check_close(torch, f"paged_attention {tag}", out,
                           ops.paged_attention_ref(q, kp, vp, lens, table,
@@ -2109,8 +2290,10 @@ _CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
                ("flash_fwd", ("flash_fwd_kernel",)),
                ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
                ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-               ("paged_decode", ("paged_decode_kernel",)),
-               ("decode_mha", ("decode_mha_kernel",)),
+               ("paged_decode", ("paged_decode_kernel",
+                                 "paged_decode_combine_kernel")),
+               ("decode_mha", ("decode_mha_kernel",
+                               "decode_mha_combine_kernel")),
                ("grad_add", ("grad_add_",)),
                ("grouped_matmul", ("grouped_matmul_kernel",)),
                ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma",
@@ -2196,10 +2379,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the train phase's weights and batch")
     ap.add_argument("--paged-decode-times", metavar="TREE",
-                    help="only time the paged decode kernel of the checkout "
-                         "at TREE at the serve shape and print one JSON "
-                         "line (to compare checkouts, run it for each in "
-                         "turns)")
+                    help="only time the decode kernels (paged and dense) of "
+                         "the checkout at TREE at the serve shape and at "
+                         "batch 1 and print one JSON line (to compare "
+                         "checkouts, run it for each in turns)")
     ap.add_argument("--flash-bwd-times", metavar="TREE",
                     help="only time the flash backward kernels and the "
                          "flash forward of the checkout at TREE at the "

@@ -1,37 +1,14 @@
 // Tensor-core building blocks of the GEMM-shaped kernels (grad_add.cu,
 // grouped_matmul.cu) and the flash kernels (flash_fwd.cu, flash_bwd.cu):
-// cp.async staging into shared memory, ldmatrix fragment loads and the
-// bf16 (or fp16) mma.sync m16n8k16 with fp32 accumulation.
+// staging into shared memory (cp.async, in common.cuh), ldmatrix fragment
+// loads and the bf16 (or fp16) mma.sync m16n8k16 with fp32 accumulation.
 // Plain Ampere-style warp MMAs, which sm_90a runs; wgmma and TMA are for a
 // later, faster version.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace ptt {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; src_bytes 0
-// writes 16 zero bytes and reads nothing (src must still be a valid
-// address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
 // i (16 contiguous bytes each). Without .trans lane l receives, in r[i],

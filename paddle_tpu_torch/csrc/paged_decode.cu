@@ -32,146 +32,177 @@
 // flops per query head, about one flop per byte in bf16, so memory bandwidth
 // bounds it (the bytes are the live tokens' K and V, not the pool).
 //
-// Design: one block per (row, kv head) walks the row's pages in order with
-// an online softmax, reading its own page ids from the table (a group of
-// more than 8 query heads takes one block per 8). Each K and V row is
-// loaded once for all g query heads of the block: a warp takes one token's
-// K row (lanes across D) and produces the g scores, then one
-// thread per output column streams the page's V column (ptt::decode_tile in
-// common.cuh, shared with decode_mha.cu). Only the g x page_size scores
-// pass through shared memory. There is no split of a long
-// context over several blocks yet: at B = 8 and 32 kv heads that is 256
-// blocks on 132 SMs, each walking its pages one after the other.
+// Design: as K7 (decode_mha.cu), flash-decoding over ptt::decode_split in
+// common.cuh: block (kv head x group part, row, split) walks its split of
+// `split` tokens (a multiple of the page size, from the shapes alone: the
+// capacity max_pages * page_size, never the lengths) in 64-token tiles (32
+// in fp32) that may span several pages, each token's K and V rows found
+// through the row's page-table entry and prefetched by cp.async, and
+// leaves (m, l, acc) for its query heads; paged_decode_combine_kernel
+// (ptt::decode_combine) merges the splits in split order, or, with one
+// split, the block writes the output itself. int8 pools fold the K scale
+// into the score and the V scale into p. Blocks whose split starts past a
+// row's length return at once. No atomics: two launches give bitwise-equal
+// outputs. This file only says where a token's K and V rows are.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxGroup = 8;
 constexpr float kQMax = 127.f;  // quantization/kv.py KV_QMAX
 
 struct PoolStrides {
   long long page, tok, head;  // elements; D has unit stride
 };
 
-// kStrided: the pools are read through the strides in st and the logits
+template <typename Tq, typename T>
+struct Params {
+  const Tq* q;
+  const T* k;
+  const T* v;
+  const float* k_scale;  // [P, Hkv], int8 pools only
+  const float* v_scale;
+  const int* table;
+  const int* lens;
+  Tq* out;
+  int hq, hkv, d, page_size, max_pages, split;
+  PoolStrides st;
+  float scale, soft_cap;
+  bool vec;  // every pool row 16-byte aligned
+  float* part_acc;
+  float* part_m;
+  float* part_l;
+};
+
+// Token t of one (row, kv head): page table[t / page_size] (-1 reads page
+// 0), offset t % page_size; k and v point at the kv head of page 0.
+template <typename T>
+struct PageRows {
+  const T* k;
+  const T* v;
+  const int* table;  // the row's page ids
+  const float* k_scale;
+  const float* v_scale;
+  long long page_stride, tok_stride;
+  int page_size, hkv, hk;
+  __device__ __forceinline__ int page(int t) const {
+    const int pid = table[t / page_size];
+    return pid < 0 ? 0 : pid;
+  }
+  __device__ __forceinline__ ptt::KVRow<T> row(int t) const {
+    const long long off =
+        page(t) * page_stride + (t % page_size) * tok_stride;
+    return {k + off, v + off};
+  }
+  __device__ __forceinline__ void scales(int t, float& kq, float& vq) const {
+    const long long i = static_cast<long long>(page(t)) * hkv + hk;
+    kq = k_scale[i] / kQMax;
+    vq = v_scale[i] / kQMax;
+  }
+};
+
+// kStrided: the pools are read through the strides in p.st and the logits
 // capped by soft_cap, as the arguments say (the stock layout, a soft cap,
 // or a head dim d narrower than the instance's width D). Otherwise the
 // pools are the engines' contiguous [P, page_size, Hkv, D], addressed from
-// hkv and D (shifts by log2(D); strides read from the parameters made the
-// engines' decode measurably slower), and uncapped, so the tanh drops out.
-// Block (hk * n_split + part, b) takes query heads hk * group + 8 part ..
-template <typename Tq, typename T, int D, bool kStrided>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const Tq* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ lens, Tq* __restrict__ out,
-                    int hq, int hkv, int d, int page_size, int max_pages,
-                    PoolStrides st, float scale, float soft_cap) {
-  constexpr int kPerLane = D / 32;
-  extern __shared__ float s_sm[];  // [group][page_size] scores of one page
-  const int group = hq / hkv;
-  const int n_split = (group + kMaxGroup - 1) / kMaxGroup;
-  const int hk = blockIdx.x / n_split, b = blockIdx.y;
-  const int g0 = (blockIdx.x % n_split) * kMaxGroup;
-  const int ng = min(kMaxGroup, group - g0);  // this block's query heads
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int len = lens[b];
-  const int n_pages = len <= 0 ? 0 : min((len + page_size - 1) / page_size,
-                                         max_pages);
-  const long long tok_stride =
-      kStrided ? st.tok : static_cast<long long>(hkv) * D;
-  const long long q_row =
-      (static_cast<long long>(b) * hq + hk * group + g0) * d;
+// hkv and D, uncapped, so the tanh drops out. kG: the query heads a block
+// holds at most (1, 4 or 8).
+template <typename Tq, typename T, int D, int kG, bool kStrided>
+__global__ void __launch_bounds__(ptt::kDecodeThreads)
+paged_decode_kernel(const Params<Tq, T> p) {
+  const ptt::DecodeBlock blk = ptt::decode_block(p.hq, p.hkv);
+  const int cap = p.max_pages * p.page_size;
+  const int len = max(0, min(p.lens[blk.b], cap));
+  const long long tok =
+      kStrided ? p.st.tok : static_cast<long long>(p.hkv) * D;
+  const long long page = kStrided ? p.st.page : tok * p.page_size;
+  const long long head = (kStrided ? p.st.head : D) * blk.hk;
+  const PageRows<T> src{p.k + head,
+                        p.v + head,
+                        p.table + static_cast<long long>(blk.b) * p.max_pages,
+                        p.k_scale,
+                        p.v_scale,
+                        page,
+                        tok,
+                        p.page_size,
+                        p.hkv,
+                        blk.hk};
+  ptt::decode_split<Tq, T, D, kG, sizeof(T) == 1>(
+      src, blk, p.q, p.out, kStrided ? p.d : D, len, p.split, p.scale,
+      kStrided ? p.soft_cap : 0.f, p.vec, p.part_acc, p.part_m, p.part_l);
+}
 
-  float qv[kMaxGroup][kPerLane];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      const int c = lane * kPerLane + e;
-      qv[g][e] = g < ng && c < d ? ptt::to_float(q[q_row + g * d + c]) : 0.f;
-    }
+template <typename Tq>
+__global__ void __launch_bounds__(ptt::kDecodeThreads)
+paged_decode_combine_kernel(const float* part_acc, const float* part_m,
+                            const float* part_l, const int* lens, Tq* out,
+                            int hq, int d, int cap, int split) {
+  ptt::decode_combine(part_acc, part_m, part_l, lens, out, hq, d, cap, split);
+}
 
-  float m[kMaxGroup], l[kMaxGroup], acc[kMaxGroup];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    m[g] = ptt::kNeg;
-    l[g] = 0.f;
-    acc[g] = 0.f;
-  }
-
-  for (int p = 0; p < n_pages; ++p) {
-    int pid = page_table[static_cast<long long>(b) * max_pages + p];
-    pid = pid < 0 ? 0 : pid;
-    const long long base =
-        kStrided ? pid * st.page + hk * st.head
-                 : static_cast<long long>(pid) * page_size * tok_stride +
-                       static_cast<long long>(hk) * D;
-    const float kq = k_scale ? k_scale[pid * hkv + hk] / kQMax : 1.f;
-    const float vq = v_scale ? v_scale[pid * hkv + hk] / kQMax : 1.f;
-    const int valid = min(page_size, len - p * page_size);
-    ptt::decode_tile<T, D, kMaxGroup, kThreads>(
-        k_pool + base, v_pool + base, tok_stride, tok_stride, valid,
-        kStrided ? d : D, kq, vq, qv, ng, scale, kStrided ? soft_cap : 0.f,
-        s_sm, page_size, m, l, acc);
-  }
-
-  if (tid < d) {
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < ng)
-        out[q_row + g * d + tid] =
-            ptt::from_float<Tq>(acc[g] / fmaxf(l[g], 1e-30f));
-  }
+template <typename Tq, typename T, int D, int kG>
+cudaError_t launch(const Params<Tq, T>& p, int batch, cudaStream_t stream) {
+  const int group = p.hq / p.hkv;
+  const int cap = p.max_pages * p.page_size;
+  const dim3 grid(p.hkv * ((group + ptt::kMaxDecodeGroup - 1) /
+                           ptt::kMaxDecodeGroup),
+                  batch, ptt::decode_splits(cap, p.split));
+  const bool engine_layout =
+      p.d == D && p.st.page == 1LL * p.page_size * p.hkv * D &&
+      p.st.tok == 1LL * p.hkv * D && p.st.head == D && p.soft_cap == 0.f;
+  auto kernel = engine_layout ? paged_decode_kernel<Tq, T, D, kG, false>
+                              : paged_decode_kernel<Tq, T, D, kG, true>;
+  return ptt::launch_split_decode(
+      kernel, paged_decode_combine_kernel<Tq>,
+      ptt::DecodeShape<T, D, kG>::kSmem, grid, stream, p.part_acc, p.part_m,
+      p.part_l, p.lens, p.out, p.hq, p.d, cap, p.split, p);
 }
 
 template <typename Tq, typename T, int D>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* ks, const void* vs, const void* table,
-                   const void* lens, void* out, int batch, int hq, int hkv,
-                   int d, int page_size, int max_pages, PoolStrides st,
-                   float scale, float soft_cap, cudaStream_t stream) {
-  const int group = hq / hkv;
-  const size_t smem = sizeof(float) * min(group, kMaxGroup) * page_size;
-  const dim3 grid(hkv * ((group + kMaxGroup - 1) / kMaxGroup), batch);
-  const bool engine_layout = d == D && st.page == 1LL * page_size * hkv * D &&
-                             st.tok == 1LL * hkv * D && st.head == D &&
-                             soft_cap == 0.f;
-  auto kernel = engine_layout ? paged_decode_kernel<Tq, T, D, false>
-                              : paged_decode_kernel<Tq, T, D, true>;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tq*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(lens), static_cast<Tq*>(out), hq, hkv, d,
-      page_size, max_pages, st, scale, soft_cap);
-  return cudaGetLastError();
+cudaError_t launch_width(const Params<Tq, T>& p, int batch,
+                         cudaStream_t st) {
+  const int heads = min(p.hq / p.hkv, ptt::kMaxDecodeGroup);
+  if (heads == 1) return launch<Tq, T, D, 1>(p, batch, st);
+  if (heads <= 4) return launch<Tq, T, D, 4>(p, batch, st);
+  return launch<Tq, T, D, 8>(p, batch, st);
 }
 
 template <typename Tq, typename T>
 int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
              const void* vs, const void* table, const void* lens, void* out,
              int batch, int hq, int hkv, int d, int page_size, int max_pages,
-             PoolStrides st, float scale, float soft_cap, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || d <= 0)
+             PoolStrides st, float scale, float soft_cap, int split,
+             void* part_acc, void* part_m, void* part_l, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || d <= 0 || page_size <= 0 || split <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr long long kAlign = 16 / sizeof(T);  // elements in 16 bytes
+  const bool vec = ptt::aligned16(kp) && ptt::aligned16(vp) &&
+                   st.page % kAlign == 0 && st.tok % kAlign == 0 &&
+                   st.head % kAlign == 0;
+  const Params<Tq, T> p{static_cast<const Tq*>(q),
+                        static_cast<const T*>(kp),
+                        static_cast<const T*>(vp),
+                        static_cast<const float*>(ks),
+                        static_cast<const float*>(vs),
+                        static_cast<const int*>(table),
+                        static_cast<const int*>(lens),
+                        static_cast<Tq*>(out),
+                        hq,
+                        hkv,
+                        d,
+                        page_size,
+                        max_pages,
+                        split,
+                        st,
+                        scale,
+                        soft_cap,
+                        vec,
+                        static_cast<float*>(part_acc),
+                        static_cast<float*>(part_m),
+                        static_cast<float*>(part_l)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 32)
-    return launch<Tq, T, 32>(q, kp, vp, ks, vs, table, lens, out, batch, hq,
-                             hkv, d, page_size, max_pages, st, scale,
-                             soft_cap, s);
-  if (d <= 64)
-    return launch<Tq, T, 64>(q, kp, vp, ks, vs, table, lens, out, batch, hq,
-                             hkv, d, page_size, max_pages, st, scale,
-                             soft_cap, s);
-  if (d <= 128)
-    return launch<Tq, T, 128>(q, kp, vp, ks, vs, table, lens, out, batch, hq,
-                              hkv, d, page_size, max_pages, st, scale,
-                              soft_cap, s);
+  if (d <= 32) return launch_width<Tq, T, 32>(p, batch, s);
+  if (d <= 64) return launch_width<Tq, T, 64>(p, batch, s);
+  if (d <= 128) return launch_width<Tq, T, 128>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -181,19 +212,24 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
 // element strides page_stride, tok_stride, head_stride of their page, token
 // and kv-head dims, the same for K and V; page_table [B, max_pages] int32;
 // lens [B] int32; out [B, Hq, D] bf16. soft_cap 0 leaves the logits
-// uncapped.
+// uncapped. split: tokens a block takes (a multiple of page_size); with
+// more than one split of max_pages * page_size, part_acc [splits, B, Hq, D]
+// and part_m, part_l [splits, B, Hq] are fp32 workspace (unused, may be
+// null, with one). Returns cudaGetLastError() after the launches.
 extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
                                  const void* v_pool, const void* page_table,
                                  const void* lens, void* out, int batch,
                                  int hq, int hkv, int d, int page_size,
                                  int max_pages, long long page_stride,
                                  long long tok_stride, long long head_stride,
-                                 float scale, float soft_cap, void* stream) {
+                                 float scale, float soft_cap, int split,
+                                 void* part_acc, void* part_m, void* part_l,
+                                 void* stream) {
   return dispatch<__nv_bfloat16, __nv_bfloat16>(
       q, k_pool, v_pool, nullptr, nullptr, page_table, lens, out, batch, hq,
       hkv, d, page_size, max_pages,
       PoolStrides{page_stride, tok_stride, head_stride}, scale, soft_cap,
-      stream);
+      split, part_acc, part_m, part_l, stream);
 }
 
 // As above with int8 pools and their [P, Hkv] fp32 scales (contiguous).
@@ -204,12 +240,14 @@ extern "C" int paged_decode_int8(const void* q, const void* k_pool,
                                  int hq, int hkv, int d, int page_size,
                                  int max_pages, long long page_stride,
                                  long long tok_stride, long long head_stride,
-                                 float scale, float soft_cap, void* stream) {
+                                 float scale, float soft_cap, int split,
+                                 void* part_acc, void* part_m, void* part_l,
+                                 void* stream) {
   return dispatch<__nv_bfloat16, int8_t>(
       q, k_pool, v_pool, k_scale, v_scale, page_table, lens, out, batch, hq,
       hkv, d, page_size, max_pages,
       PoolStrides{page_stride, tok_stride, head_stride}, scale, soft_cap,
-      stream);
+      split, part_acc, part_m, part_l, stream);
 }
 
 // As paged_decode_bf16 with query, pools and output all fp16 (_f16) or all
@@ -220,12 +258,15 @@ extern "C" int paged_decode_int8(const void* q, const void* k_pool,
                       int batch, int hq, int hkv, int d, int page_size,      \
                       int max_pages, long long page_stride,                  \
                       long long tok_stride, long long head_stride,           \
-                      float scale, float soft_cap, void* stream) {           \
+                      float scale, float soft_cap, int split,                \
+                      void* part_acc, void* part_m, void* part_l,            \
+                      void* stream) {                                        \
     return dispatch<T, T>(q, k_pool, v_pool, nullptr, nullptr, page_table,   \
                           lens, out, batch, hq, hkv, d, page_size,           \
                           max_pages,                                         \
                           PoolStrides{page_stride, tok_stride, head_stride}, \
-                          scale, soft_cap, stream);                          \
+                          scale, soft_cap, split, part_acc, part_m, part_l,  \
+                          stream);                                           \
   }
 
 PAGED_DECODE_ENTRY(paged_decode_f16, __half)

@@ -23,6 +23,13 @@ are ``[Hkv, num_pages, page_size, D]`` (handed to K4 as a permuted view), it
 does not scale q by ``1/sqrt(D)`` (K4 runs with scale 1), and it takes an
 optional logit soft cap ``c tanh(s / c)`` (K4's ``soft_cap``).
 
+K4 splits each row's context over blocks as K7 does (flash-decoding, a
+second kernel combines the splits), with the split from
+``decode_attention.split_plan`` on the pool's capacity ``max_pages *
+page_size`` in multiples of the page size, never from ``seq_lens``;
+:func:`paged_decode_partials_ref` is the plain version of the per-split
+partials, for the tests.
+
 The wrappers take the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
 """
@@ -35,9 +42,12 @@ from typing import Optional
 import torch
 
 from . import _build
+from .decode_attention import (_TILE, _sm_count, _workspace,
+                               decode_partials_ref, split_plan)
 
 __all__ = ["paged_decode_mha", "paged_decode_mha_ref", "paged_attention",
-           "paged_attention_ref", "kernel_for", "KV_QMAX", "KV_SCALE_FLOOR"]
+           "paged_attention_ref", "kernel_for", "KV_QMAX", "KV_SCALE_FLOOR",
+           "paged_decode_partials_ref", "split_unit"]
 
 # int8 KV conventions (copied from paddle_tpu/quantization/kv.py):
 # value = int8 * scale / KV_QMAX; scales never drop below the floor
@@ -73,6 +83,12 @@ def kernel_for(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
     return entry, width, -(-group // _MAX_GROUP)
 
 
+def split_unit(page_size: int) -> int:
+    """What K4's splits are a multiple of: whole pages, and a whole
+    64-token tile of the kernel where pages divide it."""
+    return page_size * max(1, _TILE // page_size)
+
+
 def _check_args(q, k_pool, v_pool, k_scale, v_scale):
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale or neither")
@@ -98,6 +114,20 @@ def _scale_and_cap(d: int, sm_scale, soft_cap):
     return scale, abs(float(soft_cap))
 
 
+def _gather(k_pool, v_pool, page_table, k_scale, v_scale):
+    """Each row's pages dense, dequantized, fp32: K and V [B, max_pages *
+    page_size, Hkv, D] (a -1 entry reads page 0)."""
+    b, maxp = page_table.shape
+    ps, hkv, d = k_pool.shape[1:]
+    idx = page_table.long().clamp_min(0)          # [B, maxp]
+    k = k_pool[idx].float()                       # [B, maxp, ps, Hkv, D]
+    v = v_pool[idx].float()
+    if k_scale is not None:
+        k = k * (k_scale[idx].float() / KV_QMAX)[:, :, None, :, None]
+        v = v * (v_scale[idx].float() / KV_QMAX)[:, :, None, :, None]
+    return k.reshape(b, maxp * ps, hkv, d), v.reshape(b, maxp * ps, hkv, d)
+
+
 def paged_decode_mha_ref(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, page_table: torch.Tensor,
                          seq_lens: torch.Tensor,
@@ -113,16 +143,9 @@ def paged_decode_mha_ref(q: torch.Tensor, k_pool: torch.Tensor,
     _check_args(q, k_pool, v_pool, k_scale, v_scale)
     scale, cap = _scale_and_cap(q.shape[2], sm_scale, soft_cap)
     b, h, d = q.shape
-    ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    idx = page_table.long().clamp_min(0)                  # [B, maxp]
-    k = k_pool[idx].float()                               # [B, maxp, ps, Hkv, D]
-    v = v_pool[idx].float()
-    if k_scale is not None:
-        k = k * (k_scale[idx].float() / KV_QMAX)[:, :, None, :, None]
-        v = v * (v_scale[idx].float() / KV_QMAX)[:, :, None, :, None]
-    n = idx.shape[1] * ps
-    k = k.reshape(b, n, hkv, d)
-    v = v.reshape(b, n, hkv, d)
+    hkv = k_pool.shape[2]
+    k, v = _gather(k_pool, v_pool, page_table, k_scale, v_scale)
+    n = k.shape[1]
     if h != hkv:
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
@@ -136,12 +159,29 @@ def paged_decode_mha_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.einsum("blh,blhd->bhd", p, v).to(q.dtype)
 
 
+def paged_decode_partials_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, page_table: torch.Tensor,
+                              seq_lens: torch.Tensor,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None, *,
+                              split: int, sm_scale: Optional[float] = None,
+                              soft_cap: Optional[float] = None):
+    """Plain version of K4's per-split partials before the combine (see
+    ``decode_attention.decode_partials_ref``) over each row's gathered
+    pages: ``(acc [splits, B, Hq, D], m, l [splits, B, Hq])``, fp32."""
+    _check_args(q, k_pool, v_pool, k_scale, v_scale)
+    scale, cap = _scale_and_cap(q.shape[2], sm_scale, soft_cap)
+    k, v = _gather(k_pool, v_pool, page_table, k_scale, v_scale)
+    return decode_partials_ref(q, k, v, seq_lens, split, scale, cap)
+
+
 def _bind(lib: ctypes.CDLL, entry: str, quant: bool):
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p] * (7 if quant else 5) + [p] + [i] * 6
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 2 + [p])
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 2
+                       + [i] + [p] * 4)
         fn.restype = ctypes.c_int
     return fn
 
@@ -204,12 +244,17 @@ def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
     if quant:
         args += [k_scale.contiguous(), v_scale.contiguous()]
     args += [page_table.contiguous(), seq_lens.contiguous()]
+    maxp = page_table.shape[1]
+    split, n = split_plan(b, hkv, h // hkv, maxp * ps, _sm_count(q.device),
+                          split_unit(ps))
+    part = _workspace(n, b, h, d, q.device)
     lib = _build.load("paged_decode")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bind(lib, entry, quant)(
             *[t.data_ptr() for t in args], out.data_ptr(), b, h, hkv, d, ps,
-            page_table.shape[1], *k_pool.stride()[:3], scale, cap, stream)
+            maxp, *k_pool.stride()[:3], scale, cap, split,
+            *[t if t is None else t.data_ptr() for t in part], stream)
     _build.check(lib, err, "paged_decode")
     paged_decode_mha.launches += 1
     return out

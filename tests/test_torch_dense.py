@@ -38,6 +38,7 @@ from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
 from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.ops import _build, fused_kernels
+from paddle_tpu_torch.ops import decode_attention as port_decode
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
 
 from test_torch_engine import _assert_margins, _prompts
@@ -118,6 +119,40 @@ def test_decode_mha_reads_strided_caches_and_ignores_the_tail():
     v2[1, 11:] = -1e3
     out = ops.decode_mha(_t(q), _t(k2), _t(v2), _t(lens))
     np.testing.assert_allclose(view.numpy(), out.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("lens,hq,hkv,s_max,split", [
+    ([192, 128, 64, 65, 63], 4, 4, 192, 64),  # on split boundaries, and by 1
+    ([1, 0, 17, 63], 8, 1, 128, 64),          # shorter than a split; group 8
+    ([40, 17, 1, 0], 9, 1, 64, 64),           # group 9: one split
+    ([64, 33, 32, 0], 16, 1, 64, 32),         # group 16
+    ([700, 576, 384, 193, 1, 0], 4, 4, 700, 192)])  # capacity 700
+def test_decode_split_combine_matches_pallas(lens, hq, hkv, s_max, split):
+    """K7's split algebra on the CPU: per-split partials and their combine,
+    with the partials of splits past each row's length poisoned (the
+    combine must not read them), against the Pallas kernel in interpret mode
+    (GQA as MHA over caches repeated to the query heads: the TPU kernel was
+    MHA-only) and the unsplit plain version, at atol 1e-5."""
+    q, k, v, ln = _decode_case(lens, hq, hkv, s_max=s_max, seed=len(lens))
+    acc, m, l = port_decode.decode_partials_ref(_t(q), _t(k), _t(v),
+                                                _t(ln), split)
+    assert acc.shape[0] == -(-s_max // split)
+    live = -(-_t(ln).long() // split)
+    for r in range(len(lens)):
+        acc[live[r]:, r] = m[live[r]:, r] = l[live[r]:, r] = float("nan")
+    out = port_decode.combine_partials_ref(acc, m, l, _t(ln), split,
+                                           torch.float32)
+    want = ops.decode_mha_ref(_t(q), _t(k), _t(v), _t(ln))
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    g = hq // hkv
+    block = next(bs for bs in (64, 100, 32) if s_max % bs == 0)
+    ref = pk.decode_mha(jnp.asarray(q), jnp.asarray(np.repeat(k, g, 2)),
+                        jnp.asarray(np.repeat(v, g, 2)), jnp.asarray(ln),
+                        block_s=block)
+    np.testing.assert_allclose(out.numpy(), _val(ref), **TOL)
+    for r, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(out[r], torch.zeros_like(out[r]))
 
 
 def test_decode_mha_rejects_bad_shapes():

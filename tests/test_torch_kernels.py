@@ -213,6 +213,88 @@ def test_paged_decode_ignores_pages_past_length():
     np.testing.assert_allclose(out.numpy(), base.numpy(), **TOL)
 
 
+# -- the split of the context over blocks (K4, K7) ---------------------------
+
+
+@pytest.mark.parametrize("batch,hkv,group,ctx,unit", [
+    (8, 32, 1, 1024, 64),      # the 7B serve batch
+    (1, 32, 1, 4096, 64),      # batch 1 at Llama-2's context
+    (8, 8, 4, 1024, 64),       # GQA 32/8
+    (8, 32, 1, 700, 64),       # a capacity no split divides
+    (3, 2, 16, 40, 64),        # shorter than one unit: one split
+    (2, 1, 9, 24, 4),          # K4 unit of page size 4
+    (64, 32, 1, 1024, 64),     # the unsplit grid fills the card already
+    (1, 1, 1, 0, 64),          # an empty cache
+    (4, 8, 1, 1024, 128),      # K4 unit of page size 128
+    (1, 32, 1, 704, 64)])      # 44 pages of 16
+def test_split_plan_covers_the_context_once(batch, hkv, group, ctx, unit):
+    """Every position of the capacity lies in exactly one split, splits are
+    whole units, one split where the plan says so; the plan is a function
+    of ints (shapes) alone, so no length is ever read back from the card."""
+    split, n = port_decode.split_plan(batch, hkv, group, ctx, 132, unit)
+    assert type(split) is int and type(n) is int
+    assert split > 0 and split % unit == 0 and n >= 1
+    owner = np.arange(ctx) // split
+    assert np.array_equal(np.bincount(owner, minlength=n)[:n - 1],
+                          np.full(n - 1, split))
+    assert owner.max(initial=0) == n - 1 if ctx else n == 1
+    blocks = batch * hkv * -(-group // 8)
+    target = port_decode._BLOCKS_PER_SM * 132
+    if blocks >= target or ctx <= unit:
+        assert n == 1
+    else:   # within 2x of the target, never past it, or the smallest splits
+        assert blocks * n >= target / 2 or split == unit
+        assert blocks * (n - 1) < target
+    assert port_decode.split_plan(batch, hkv, group, ctx, 132, unit) == (
+        split, n)
+
+
+@pytest.mark.parametrize("ps", [1, 4, 16, 20, 48, 64, 128])
+def test_k4_split_unit_is_whole_pages(ps):
+    unit = port_paged.split_unit(ps)
+    assert unit % ps == 0 and unit >= min(ps, 64)
+    if 64 % ps == 0:
+        assert unit == 64      # a whole tile of the kernel
+
+
+@pytest.mark.parametrize("lens,hq,hkv,ps,maxp,split,int8,cap", [
+    ([24, 16, 8, 9, 7], 4, 4, 4, 6, 8, False, None),   # on split boundaries
+    ([5, 1, 0, 3], 8, 1, 4, 6, 8, False, None),        # shorter than a split
+    ([24, 13, 1, 0], 9, 1, 4, 6, 8, True, None),       # int8 with scales
+    ([24, 20, 7, 16, 0], 16, 1, 4, 6, 12, False, 5.0),  # soft cap, group 16
+    ([700, 600, 120, 60, 1, 0], 2, 2, 20, 35, 60, False, None)])  # cap 700
+def test_paged_split_combine_matches_pallas(lens, hq, hkv, ps, maxp, split,
+                                            int8, cap):
+    """K4's split algebra on the CPU: per-split partials and their combine,
+    with the partials of splits past each row's length poisoned (the
+    combine must not read them), against the Pallas kernel in interpret
+    mode (uncapped; the stock kernel's cap has no Pallas twin here) and the
+    unsplit plain version, at atol 1e-5."""
+    q, kp, vp, table, ln, ks, vs = _paged_case(lens, hq, hkv, ps=ps,
+                                               maxp=maxp, seed=len(lens),
+                                               int8=int8)
+    tscales = () if ks is None else (_t(ks), _t(vs))
+    args = (_t(q), _t(kp), _t(vp), _t(table), _t(ln), *tscales)
+    acc, m, l = port_paged.paged_decode_partials_ref(*args, split=split,
+                                                     soft_cap=cap)
+    assert acc.shape[0] == -(-(maxp * ps) // split)
+    live = -(-_t(ln).long() // split)
+    for r in range(len(lens)):
+        acc[live[r]:, r] = m[live[r]:, r] = l[live[r]:, r] = float("nan")
+    out = port_decode.combine_partials_ref(acc, m, l, _t(ln), split,
+                                           torch.float32)
+    want = ops.paged_decode_mha_ref(*args, soft_cap=cap)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    if cap is None:
+        scales = () if ks is None else (jnp.asarray(ks), jnp.asarray(vs))
+        ref = jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                        jnp.asarray(table), jnp.asarray(ln), *scales)
+        np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+    for r, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(out[r], torch.zeros_like(out[r]))
+
+
 def test_int8_constants_are_the_reference_ones():
     assert port_paged.KV_QMAX == jax_kv.KV_QMAX
     assert port_paged.KV_SCALE_FLOOR == jax_kv.KV_SCALE_FLOOR
