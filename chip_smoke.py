@@ -20,9 +20,14 @@ Phases, each timed, none caught and passed over:
    head_dim 64 and dropout variants, each launched twice and held bitwise
    equal to itself,
    ``fused_linear_param_grad_add`` at the seven linears of a Llama-2-7B
-   layer (4096 tokens) and ragged, fp32 and bf16/fp16-dweight variants,
-   ``grouped_matmul`` at the ERNIE-MoE "large" expert GEMMs (8192 rows, 64
-   groups of skewed sizes, empty ones included, fp32 and bf16 out), the
+   layer (4096 tokens) on its Hopper instance (TMA and wgmma) and on its
+   mma.sync instance, and ragged, fp32 and bf16/fp16-dweight variants on
+   each instance, ``grouped_matmul`` at the ERNIE-MoE "large" expert GEMMs
+   (8192 rows, 64 groups of skewed sizes, empty ones included, fp32 and
+   bf16 out) on its Hopper and mma.sync instances, its tile schedule as
+   the card builds it against ``group_tile_schedule`` and its tile passes,
+   fp32 inputs and ragged sizes on each instance (each GEMM case launched
+   twice and held bitwise equal), the
    stock-layout ``paged_attention`` at the 7B decode shape (MHA, GQA, soft
    cap) and the head-batched flash route at the training shape (forward
    and backward, bitwise the per-head kernels' result), with the tolerance
@@ -89,25 +94,29 @@ Phases, each timed, none caught and passed over:
    decode step of the 7B model's 32 layers through the stock
    ``paged_attention`` and one attention forward and backward at the
    training shape under ``FLAGS_flash_head_batched``; launch and route
-   counts held against the path's, outputs finite and held against the
-   plain versions.
+   counts held against the path's, K9 and K10 on their Hopper instances,
+   outputs finite and held against the plain versions.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
 writes a longer record (every comparison, every serve statistic) there.
 
-Two options only time kernels of the checkout at TREE, in a process of
+Three options only time kernels of the checkout at TREE, in a process of
 their own, and print one JSON line: ``--paged-decode-times TREE`` (K4
-and K7 at the serve shape and at batch 1 over 4096 tokens) and
-``--flash-bwd-times TREE`` (K5, K6 and K3 at the training shape). Run
+and K7 at the serve shape and at batch 1 over 4096 tokens),
+``--flash-bwd-times TREE`` (K5, K6 and K3 at the training shape) and
+``--gemm-times TREE`` (K9 at the seven linears of a 7B layer, K10 at the
+MoE up and down GEMMs with fp32 and with bf16 out). Run
 for a parent and a change in turns (parent, change, change, parent), each
 in a fresh process, they compare two trees on one card.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -964,33 +973,67 @@ def grad_add_library(torch):
                                             out_dtype=torch.float32))
 
 
+def grad_add_instance(torch, inst, x, dy, dw):
+    """``fn()`` launching K9's instance ``inst`` on x, dy and dw directly
+    (the instance the dispatch would not choose for these operands), for
+    comparing instances on the same inputs; not counted as a launch."""
+    ga = importlib.import_module("paddle_tpu_torch.ops.grad_add")
+    x2, dy2 = x.reshape(-1, x.shape[-1]), dy.reshape(-1, dy.shape[-1])
+
+    def fn():
+        out = torch.empty(dw.shape, dtype=torch.float32, device=dw.device)
+        ga._launch(inst, x2, dy2, dw, out)
+        return out
+    return fn
+
+
 def grad_add_cases(torch, ops, randn, rows, cases, mc):
     """K9 against ``fused_linear_param_grad_add_ref``: the seven linears of
     one decoder layer (bf16 x and dy over GRAD_ADD_TOKENS tokens, fp32
-    dweight), then ragged sizes with fp32 inputs and a bf16 dweight, and
-    sizes no 8-column chunk divides with an fp16 dweight. The caller's
-    dweight must come back unchanged. The row is the whole layer: times
-    and bounds summed over the seven."""
+    dweight) on the Hopper instance, and the same seven through the
+    mma.sync instance; then ragged sizes on each instance: fp32 inputs with
+    a bf16 dweight, bf16 widths that are multiples of 8 but not of the
+    tiles (TMA, bf16 dweight), and widths no 8-column chunk divides with an
+    fp16 dweight (mma.sync); then the fp32 instance at q/k/v/o. Every case
+    is launched twice and held bitwise equal, and the caller's dweight must
+    come back unchanged. The row is the whole layer: times and bounds
+    summed over the seven."""
+    ga = importlib.import_module("paddle_tpu_torch.ops.grad_add")
     b, s = GRAD_ADD_TOKENS
     t = b * s
     lib_what, lib_fn = grad_add_library(torch)
     row = dict(shape=f"7 linears of a {PRESET} layer, T={t}, bf16 x/dy, "
                      f"fp32 dweight", ms=0.0, plain_ms=0.0, library_ms=0.0,
                bound_ms=0.0, bound_by="operations", library=lib_what,
-               per_linear={})
+               instance="wgmma", per_linear={})
+    mma = dict(shape=row["shape"] + ", mma.sync instance", ms=0.0,
+               plain_ms=0.0, bound_ms=0.0, bound_by="operations",
+               max_abs_err=0.0)
     for name, k, n, count in seven_linears(mc):
         x, dy = randn(b, s, k), randn(b, s, n)
         dw = randn(k, n, dtype=torch.float32)
         before = dw.clone()
-        out = ops.fused_linear_param_grad_add(x, dy, dw)
-        tag = f"{name} T={t} K={k} N={n} bf16 dw=fp32"
-        err = check_close(torch, f"grad_add {tag}", out,
-                          ops.fused_linear_param_grad_add_ref(x, dy, dw),
+        x2, dy2 = x.reshape(t, k), dy.reshape(t, n)
+        inst = ga.kernel_for(x.dtype, t, k, n, (k, n),
+                             (x.data_ptr(), dy.data_ptr()))
+        if inst != "wgmma":
+            raise AssertionError(f"grad_add {name}: dispatch chose {inst}, "
+                                 f"not the Hopper instance")
+        out = twice(torch, "grad_add", lambda: ops.fused_linear_param_grad_add(
+            x, dy, dw))
+        tag = f"{name} T={t} K={k} N={n} bf16 dw=fp32 ({inst})"
+        want = ops.fused_linear_param_grad_add_ref(x, dy, dw)
+        err = check_close(torch, f"grad_add {tag}", out, want,
                           **TOL["grad_add"])
         if not torch.equal(dw, before):
             raise AssertionError("grad_add: the caller's dweight changed")
         cases.append(("grad_add", tag, err))
-        x2, dy2 = x.reshape(t, k), dy.reshape(t, n)
+        old = grad_add_instance(torch, "mma_sync", x, dy, dw)
+        tag = f"{name} T={t} K={k} N={n} bf16 dw=fp32 (mma_sync)"
+        mma_err = check_close(torch, f"grad_add {tag}", twice(
+            torch, "grad_add", old), want, **TOL["grad_add"])
+        cases.append(("grad_add", tag, mma_err))
+        del want
         bms, by = bound((t * k + t * n) * 2 + 2 * k * n * 4, 2 * t * k * n,
                         BF16_FLOPS)
         lib = (None if lib_fn is None
@@ -1001,28 +1044,57 @@ def grad_add_cases(torch, ops, randn, rows, cases, mc):
             plain_ms=time_ms(
                 torch, lambda: ops.fused_linear_param_grad_add_ref(x, dy, dw),
                 reps=5),
-            library_ms=lib, bound_ms=bms, bound_by=by, count=count)
+            library_ms=lib, bound_ms=bms, bound_by=by, count=count,
+            mma_sync_ms=time_ms(torch, old))
         row["per_linear"][name] = one
         for key in ("ms", "plain_ms", "bound_ms"):
             row[key] += count * one[key]
+        mma["ms"] += count * one["mma_sync_ms"]
+        mma["max_abs_err"] = max(mma["max_abs_err"], mma_err)
         row["library_ms"] = (None if lib is None
                              else row["library_ms"] + count * lib)
+    mma.update(plain_ms=row["plain_ms"], bound_ms=row["bound_ms"])
+    row["instances"] = {"mma_sync": mma}
     rows["grad_add"] = row
-    for t, k, n, in_dt, dw_dt in [
-            (1000, 96, 200, torch.float32, torch.bfloat16),
-            (777, 100, 36, torch.bfloat16, torch.float16)]:
+    for t, k, n, in_dt, dw_dt, want_inst in [
+            (1000, 96, 200, torch.float32, torch.bfloat16, "f32"),
+            (1000, 200, 136, torch.bfloat16, torch.bfloat16, "wgmma"),
+            (777, 100, 36, torch.bfloat16, torch.float16, "mma_sync")]:
         x, dy = randn(t, k, dtype=in_dt), randn(t, n, dtype=in_dt)
         dw = randn(k, n, dtype=dw_dt)
         before = dw.clone()
+        inst = ga.kernel_for(in_dt, t, k, n, (k, n),
+                             (x.data_ptr(), dy.data_ptr()))
+        if inst != want_inst:
+            raise AssertionError(f"grad_add T={t} K={k} N={n}: dispatch "
+                                 f"chose {inst}, not {want_inst}")
         tag = (f"ragged T={t} K={k} N={n} {str(in_dt)[6:]} "
-               f"dw={str(dw_dt)[6:]}")
-        err = check_close(torch, f"grad_add {tag}",
-                          ops.fused_linear_param_grad_add(x, dy, dw),
+               f"dw={str(dw_dt)[6:]} ({inst})")
+        err = check_close(torch, f"grad_add {tag}", twice(
+            torch, "grad_add", lambda: ops.fused_linear_param_grad_add(
+                x, dy, dw)),
                           ops.fused_linear_param_grad_add_ref(x, dy, dw),
                           **TOL["grad_add"])
         if not torch.equal(dw, before):
             raise AssertionError("grad_add: the caller's dweight changed")
         cases.append(("grad_add", tag, err))
+    # the fp32 instance at q/k/v/o
+    t, k = b * s, mc.hidden_size
+    n = k
+    x, dy = randn(t, k, dtype=torch.float32), randn(t, n, dtype=torch.float32)
+    dw = randn(k, n, dtype=torch.float32)
+    fn = lambda: ops.fused_linear_param_grad_add(x, dy, dw)  # noqa: E731
+    tag = f"q/k/v/o T={t} K={k} N={n} float32 dw=fp32 (f32)"
+    err = check_close(torch, f"grad_add {tag}", twice(torch, "grad_add", fn),
+                      ops.fused_linear_param_grad_add_ref(x, dy, dw),
+                      **TOL["grad_add"])
+    cases.append(("grad_add", tag, err))
+    bms, by = bound((t * k + t * n) * 4 + 2 * k * n * 4, 2 * t * k * n,
+                    FP32_FLOPS)
+    row["instances"]["f32"] = dict(
+        shape=tag, ms=time_ms(torch, fn, reps=10),
+        plain_ms=time_ms(torch, lambda: ops.fused_linear_param_grad_add_ref(
+            x, dy, dw), reps=5), bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
 def moe_group_sizes(np, rows: int, groups: int, seed: int,
@@ -1067,72 +1139,222 @@ def grouped_matmul_library(torch, lhs, rhs, sizes, want):
     return None, "torch._grouped_mm refused these operands: " + reason
 
 
+def gemm_times(tree: str) -> dict:
+    """K9 and K10 of the checkout at ``tree``: K9 at the seven linears of a
+    PRESET layer over GRAD_ADD_TOKENS tokens (bf16 x and dy, fp32 dweight)
+    and K10 at the ERNIE-MoE up and down GEMMs (phase 3's operands and
+    group sizes) with fp32 and with bf16 out: each one's device time (the
+    median of 20 calls) and its largest difference from that checkout's
+    plain version. Only the wrappers' public signatures are used, so a
+    parent tree runs it as well. Run for two checkouts in turns, each in a
+    fresh process, it compares them on one card."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from paddle_tpu_torch import llama_config, ops
+
+    dev = torch.device("cuda")
+    _, randn = seeded_randn(torch, dev)
+    res = {"tree": os.path.abspath(tree), "card": smi_line()}
+
+    def timed(key, fn, ref):
+        res[f"{key}_max_abs_err"] = (fn().float() - ref().float()).abs(
+        ).max().item()
+        res[f"{key}_ms"] = time_ms(torch, fn)
+        return res[f"{key}_ms"]
+
+    b, s = GRAD_ADD_TOKENS
+    res["grad_add_layer_ms"] = 0.0
+    for name, k, n, count in seven_linears(llama_config(PRESET)):
+        x, dy = randn(b * s, k), randn(b * s, n)
+        dw = randn(k, n, dtype=torch.float32)
+        res["grad_add_layer_ms"] += count * timed(
+            f"grad_add_{name}",
+            lambda: ops.fused_linear_param_grad_add(x, dy, dw),
+            lambda: ops.fused_linear_param_grad_add_ref(x, dy, dw))
+    e, f, g = MOE["hidden"], MOE["ffn"], MOE["experts"]
+    m = MOE["tokens"] * MOE["top_k"]
+    for name, k, n, first in (("up", e, f, True), ("down", f, e, False)):
+        sizes = torch.from_numpy(moe_group_sizes(
+            np, m, g, seed=41 + k, empty_first=first)).to(dev)
+        lhs, rhs = randn(m, k), randn(g, k, n)
+        for out_dt in (torch.float32, torch.bfloat16):
+            key = f"grouped_matmul_{ENTRY[str(out_dt)]}_out"
+            ms = timed(f"{key}_{name}",
+                       lambda: ops.grouped_matmul(lhs, rhs, sizes, out_dt),
+                       lambda: ops.grouped_matmul_ref(lhs, rhs, sizes,
+                                                      out_dt))
+            res[f"{key}_ms"] = res.get(f"{key}_ms", 0.0) + ms
+    return res
+
+
+def grouped_matmul_instance(torch, inst, lhs, rhs, sizes,
+                            out_dt=None, sched=None):
+    """``fn()`` launching K10's instance ``inst`` directly (the instance the
+    dispatch would not choose for these operands), with the schedule into
+    ``sched`` where given; not counted as a launch."""
+    gm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    (m, _), (g, _, n) = lhs.shape, rhs.shape
+    ends = torch.cumsum(sizes, 0, dtype=torch.int32)
+    if sched is None and inst != "mma_sync":
+        sched = torch.empty(3 * gm.max_row_tiles(m, g), dtype=torch.int32,
+                            device=lhs.device)
+
+    def fn():
+        out = torch.empty((m, n), dtype=out_dt or torch.float32,
+                          device=lhs.device)
+        gm._launch(inst, lhs, rhs, ends, out, sched)
+        return out
+    return fn
+
+
 def grouped_matmul_cases(torch, np, ops, randn, rows, cases, dev):
     """K10 against ``grouped_matmul_ref`` at the ERNIE-MoE "large" expert
     GEMMs: up [M, hidden] x [E, hidden, ffn] with the first group empty,
     down [M, ffn] x [E, ffn, hidden] with a middle group empty, skewed
-    sizes summing to M (group edges fall inside 128-row tiles), fp32 out,
-    and the up GEMM with bf16 out and with fp32 inputs (timed apart as
-    ``fp32_up``). The row is the bf16 up and down GEMMs."""
+    sizes summing to M (group edges fall inside 128-row tiles), on the
+    Hopper instance with fp32 and with bf16 out, and on the mma.sync
+    instance; the up GEMM with fp32 inputs (the fp32 instance); then
+    ragged sizes on each instance (groups past the sum, C-ref-5). The
+    schedule the card builds is held against ``group_tile_schedule`` as
+    integers. Every case is launched twice and held bitwise equal. The row
+    is the bf16 up and down GEMMs with fp32 out; ``bf16_out`` beside it is
+    the same pair writing bf16, as ``torch._grouped_mm`` does."""
+    gm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    f32, bf = torch.float32, torch.bfloat16
     e, f, g = MOE["hidden"], MOE["ffn"], MOE["experts"]
     m = MOE["tokens"] * MOE["top_k"]
-    row = dict(shape=f"ERNIE-MoE large up+down: M={m}, {g} groups, "
-                     f"{e}<->{f}, bf16 in, fp32 out", ms=0.0, plain_ms=0.0,
+    shape = f"ERNIE-MoE large up+down: M={m}, {g} groups, {e}<->{f}, bf16 in"
+    row = dict(shape=shape + ", fp32 out", ms=0.0, plain_ms=0.0,
                bound_ms=0.0, bound_by="bytes", library_ms=0.0,
-               library="", per_gemm={})
+               library="", instance="wgmma", per_gemm={})
+    bf16_out = dict(shape=shape + ", bf16 out", ms=0.0, plain_ms=0.0,
+                    bound_ms=0.0, bound_by="bytes", library_ms=0.0,
+                    max_abs_err=0.0)
+    mma = dict(shape=shape + ", fp32 out, mma.sync instance", ms=0.0,
+               plain_ms=0.0, bound_ms=0.0, bound_by="bytes", max_abs_err=0.0)
+    row["instances"] = {"bf16_out": bf16_out, "mma_sync": mma}
     for name, k, n, first in (("up", e, f, True), ("down", f, e, False)):
         sizes_np = moe_group_sizes(np, m, g, seed=41 + k, empty_first=first)
         sizes = torch.from_numpy(sizes_np).to(dev)
         lhs, rhs = randn(m, k), randn(g, k, n)
         straddle = sum(1 for c in np.cumsum(sizes_np)[:-1] if c % 128)
-        for out_dt in ((torch.float32, torch.bfloat16) if name == "up"
-                       else (torch.float32,)):
-            out = ops.grouped_matmul(lhs, rhs, sizes, out_dt)
-            want = ops.grouped_matmul_ref(lhs, rhs, sizes, out_dt)
-            kname = ("grouped_matmul" if out_dt == torch.float32
+        inst = gm.kernel_for(bf, k, n, (lhs.stride(0), rhs.stride(0),
+                                        rhs.stride(1)),
+                             (lhs.data_ptr(), rhs.data_ptr()))
+        if inst != "wgmma":
+            raise AssertionError(f"grouped_matmul {name}: dispatch chose "
+                                 f"{inst}, not the Hopper instance")
+        # the schedule the card builds, as integers
+        sched = torch.empty(3 * gm.max_row_tiles(m, g), dtype=torch.int32,
+                            device=dev)
+        grouped_matmul_instance(torch, "wgmma", lhs, rhs, sizes,
+                                sched=sched)()
+        card = sched.view(-1, 3).tolist()
+        want_sched = [list(t) for t in gm.group_tile_schedule(
+            np.cumsum(sizes_np).tolist(), m)]
+        if card != want_sched + [[-1, 0, 0]] * (len(card) - len(want_sched)):
+            raise AssertionError(f"grouped_matmul {name}: the card's tile "
+                                 f"schedule differs from "
+                                 f"group_tile_schedule's")
+        passes = gm.tile_passes(sizes_np.tolist(), m)
+        log(f"  grouped_matmul {name}: schedule of {len(want_sched)} tiles "
+            f"(grid {len(card)} row tiles) equal to group_tile_schedule's; "
+            f"tile passes made {passes['made']}, by the mma.sync walk "
+            f"{passes['walk']}, needed {passes['needed']}")
+        want32 = ops.grouped_matmul_ref(lhs, rhs, sizes)
+        for out_dt in (f32, bf):
+            out = twice(torch, "grouped_matmul",
+                        lambda: ops.grouped_matmul(lhs, rhs, sizes, out_dt))
+            want = (want32 if out_dt == f32
+                    else ops.grouped_matmul_ref(lhs, rhs, sizes, out_dt))
+            kname = ("grouped_matmul" if out_dt == f32
                      else "grouped_matmul_bf16")
             tag = (f"{name} M={m} K={k} N={n} G={g} empty="
                    f"{int((sizes_np == 0).sum())} edges-in-tiles={straddle} "
-                   f"out={str(out_dt)[6:]}")
-            cases.append((kname, tag, check_close(
-                torch, f"grouped_matmul {tag}", out, want, **TOL[kname])))
+                   f"out={str(out_dt)[6:]} ({inst})")
+            err = check_close(torch, f"grouped_matmul {tag}", out, want,
+                              **TOL[kname])
+            cases.append((kname, tag, err))
+            if out_dt == bf:
+                bf16_out["max_abs_err"] = max(bf16_out["max_abs_err"], err)
+        old = grouped_matmul_instance(torch, "mma_sync", lhs, rhs, sizes)
+        tag = f"{name} M={m} K={k} N={n} G={g} out=float32 (mma_sync)"
+        mma_err = check_close(torch, f"grouped_matmul {tag}", twice(
+            torch, "grouped_matmul", old), want32, **TOL["grouped_matmul"])
+        cases.append(("grouped_matmul", tag, mma_err))
+        mma["max_abs_err"] = max(mma["max_abs_err"], mma_err)
         live = int((sizes_np > 0).sum())
         if name == "up":      # fp32 inputs: the CUDA-core instance
             l32, r32 = lhs.float(), rhs.float()
-            tag = f"up M={m} K={k} N={n} G={g} fp32 in, fp32 out"
-            cases.append(("grouped_matmul", tag, check_close(
-                torch, f"grouped_matmul {tag}", ops.grouped_matmul(
-                    l32, r32, sizes), ops.grouped_matmul_ref(l32, r32, sizes),
-                **TOL["grouped_matmul"])))
+            tag = f"up M={m} K={k} N={n} G={g} fp32 in, fp32 out (f32)"
+            fn = lambda: ops.grouped_matmul(l32, r32, sizes)  # noqa: E731
+            err = check_close(torch, f"grouped_matmul {tag}", twice(
+                torch, "grouped_matmul", fn), ops.grouped_matmul_ref(
+                    l32, r32, sizes), **TOL["grouped_matmul"])
+            cases.append(("grouped_matmul", tag, err))
             bms, by = bound(m * k * 4 + live * k * n * 4 + m * n * 4 + g * 4,
                             2 * m * k * n, FP32_FLOPS)
-            row["fp32_up"] = dict(
-                ms=time_ms(torch, lambda: ops.grouped_matmul(l32, r32,
-                                                             sizes)),
+            row["instances"]["f32"] = dict(
+                shape=tag, ms=time_ms(torch, fn),
                 plain_ms=time_ms(torch, lambda: ops.grouped_matmul_ref(
                     l32, r32, sizes), reps=5),
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, max_abs_err=err)
             del l32, r32
         bms, by = bound(m * k * 2 + live * k * n * 2 + m * n * 4 + g * 4,
                         2 * m * k * n, BF16_FLOPS)
+        bms16, _ = bound(m * k * 2 + live * k * n * 2 + m * n * 2 + g * 4,
+                         2 * m * k * n, BF16_FLOPS)
         lib, lib_what = grouped_matmul_library(torch, lhs, rhs, sizes,
-                                               ops.grouped_matmul_ref(
-                                                   lhs, rhs, sizes))
+                                               want32)
+        del want32
         one = dict(
             ms=time_ms(torch, lambda: ops.grouped_matmul(lhs, rhs, sizes)),
             plain_ms=time_ms(torch, lambda: ops.grouped_matmul_ref(
                 lhs, rhs, sizes), reps=5),
             bound_ms=bms, bound_by=by, library_ms=lib, library=lib_what,
-            sizes=sizes_np.tolist())
+            bf16_out_ms=time_ms(torch, lambda: ops.grouped_matmul(
+                lhs, rhs, sizes, bf)),
+            bf16_out_bound_ms=bms16, mma_sync_ms=time_ms(torch, old),
+            tile_passes=passes, sizes=sizes_np.tolist())
         row["per_gemm"][name] = one
         for key in ("ms", "plain_ms", "bound_ms"):
             row[key] += one[key]
+        bf16_out["ms"] += one["bf16_out_ms"]
+        bf16_out["bound_ms"] += bms16
+        mma["ms"] += one["mma_sync_ms"]
         row["library"] += f"{name}: {lib_what}. "
         row["library_ms"] = (None if lib is None or row["library_ms"] is None
                              else row["library_ms"] + lib)
         if by == "operations":
             row["bound_by"] = "operations"
         del lhs, rhs
+    for part in (bf16_out, mma):
+        part["plain_ms"] = row["plain_ms"]
+    bf16_out.update(library_ms=row["library_ms"], library=row["library"])
+    mma["bound_ms"] = row["bound_ms"]
+    # ragged: widths TMA takes but no tile divides (wgmma), widths it does
+    # not take (mma_sync), fp32 widths no 16-byte load divides (f32); 108
+    # of 300 rows in groups, the rest the last group's (C-ref-5)
+    sz = [0, 5, 100, 0, 3]
+    for k, n, dt, want_inst in [(72, 136, bf, "wgmma"),
+                                (100, 36, bf, "mma_sync"),
+                                (70, 36, f32, "f32")]:
+        sizes = torch.tensor(sz, dtype=torch.int32, device=dev)
+        lhs, rhs = randn(300, k, dtype=dt), randn(len(sz), k, n, dtype=dt)
+        inst = gm.kernel_for(dt, k, n, (lhs.stride(0), rhs.stride(0),
+                                        rhs.stride(1)),
+                             (lhs.data_ptr(), rhs.data_ptr()))
+        if inst != want_inst:
+            raise AssertionError(f"grouped_matmul K={k} N={n}: dispatch "
+                                 f"chose {inst}, not {want_inst}")
+        tag = f"ragged M=300 K={k} N={n} sizes={sz} {str(dt)[6:]} ({inst})"
+        cases.append(("grouped_matmul", tag, check_close(
+            torch, f"grouped_matmul {tag}", twice(
+                torch, "grouped_matmul", lambda: ops.grouped_matmul(
+                    lhs, rhs, sizes)), ops.grouped_matmul_ref(
+                        lhs, rhs, sizes), **TOL["grouped_matmul"])))
     rows["grouped_matmul"] = row
 
 
@@ -2214,7 +2436,8 @@ def ops_phase(torch, dev, np):
     sizes = torch.bincount(expert.reshape(-1), minlength=ne).int()
     xs = x_moe[order // top_k]
     h = ops.grouped_matmul(xs, w1, sizes)
-    y = ops.grouped_matmul(F.gelu(h).to(bf), w2, sizes)
+    act = F.gelu(h).to(bf)
+    y = ops.grouped_matmul(act, w2, sizes)
     moe_out = torch.zeros(tokens, e, device=dev).index_add_(
         0, order // top_k, y * gate_p.reshape(-1)[order, None])
     torch.cuda.synchronize()
@@ -2241,6 +2464,20 @@ def ops_phase(torch, dev, np):
     if routes != {"flash_hb": 1, "paged_attention": L}:
         raise AssertionError(f"kernel ops: route calls {routes}, the path "
                              f"implies flash_hb 1, paged_attention {L}")
+    # the instances the dispatch took: the Hopper ones for every launch
+    ga = importlib.import_module("paddle_tpu_torch.ops.grad_add")
+    gm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    instances = {"grad_add": sorted({ga.kernel_for(
+        bf, b * s, k_in[key[0]], grads[key].shape[-1],
+        (k_in[key[0]], grads[key].shape[-1]),
+        (acts[k_in[key[0]]].data_ptr(), grads[key].data_ptr()))
+        for key in main}), "grouped_matmul": sorted({gm.kernel_for(
+            bf, a.shape[1], w.shape[2], (a.stride(0), w.stride(0),
+                                         w.stride(1)),
+            (a.data_ptr(), w.data_ptr())) for a, w in ((xs, w1), (act, w2))})}
+    if instances != {"grad_add": ["wgmma"], "grouped_matmul": ["wgmma"]}:
+        raise AssertionError(f"kernel ops: the dispatch took {instances}, "
+                             f"not the Hopper instances")
     # what came out: finite, of its shape, and equal to the plain versions
     errs = {}
     key = ("down", 0)
@@ -2253,7 +2490,7 @@ def ops_phase(torch, dev, np):
     errs["grouped_matmul"] = max(
         check_close(torch, "ops: MoE up", h, h_ref, **TOL["grouped_matmul"]),
         check_close(torch, "ops: MoE down", y, ops.grouped_matmul_ref(
-            F.gelu(h).to(bf), w2, sizes), **TOL["grouped_matmul"]))
+            act, w2, sizes), **TOL["grouped_matmul"]))
     errs["paged_attention"] = max(check_close(
         torch, f"ops: stock decode layer {i}", dec[i],
         ops.paged_attention_ref(q_dec[i], *pools[i][:2], lens, pools[i][2],
@@ -2277,8 +2514,8 @@ def ops_phase(torch, dev, np):
            "moe_group_sizes": sizes.tolist(), "decode_layers": L,
            "grad_add_s": t1 - t0, "moe_s": t2 - t1, "stock_decode_s": t3 - t2,
            "attention_s": t4 - t3, "launches": counts, "route_calls": routes,
-           "max_abs_err": errs}
-    del acts, grads, main, pools, w1, w2, qa, ka, va
+           "instances": instances, "max_abs_err": errs}
+    del acts, grads, main, pools, w1, w2, act, qa, ka, va
     torch.cuda.empty_cache()
     return rec
 
@@ -2300,6 +2537,60 @@ _CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
                                     "sm90_")),
                ("indexing", ("index", "gather", "scatter")),
                ("elementwise and other", ("",))]
+
+
+# SASS opcodes counted per kernel of the GEMM libraries (phase 2)
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA")
+
+
+def sass_opcodes(sass: str) -> dict:
+    """Per kernel function of ``cuobjdump -sass`` output: how many
+    instructions of each of SASS_OPS its code holds."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None and "*/" in line:
+            words = [w for w in line.split("*/", 1)[1].split()
+                     if not w.startswith("@")]
+            op = words[0].split(".")[0] if words else ""
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
+
+
+def kernel_label(mangled: str) -> str:
+    """``grad_add_wgmma_kernel<bf16>`` from a GEMM kernel's mangled name:
+    the kernel and the type of its template argument (fp32, bf16, fp16)."""
+    tail = mangled.split("_cu_", 1)[-1]
+    m = re.search(r"(?:grad_add|grouped_matmul)\w*?kernel(?:_[a-z0-9]+)?"
+                  r"(?=[IE])", tail)
+    if m is None:
+        return mangled
+    rest = tail[m.end():m.end() + 20]
+    arg = ("" if not rest.startswith("I") else "<fp32>" if rest[1] == "f"
+           else "<bf16>" if "bfloat16" in rest else "<fp16>")
+    return m.group(0) + arg
+
+
+def gemm_sass(build) -> dict:
+    """SASS counts of K9's and K10's kernels; raises unless every Hopper
+    instance holds HGMMA and UTMALDG (its products are wgmma, its loads
+    TMA)."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    out = {}
+    for name in ("grad_add", "grouped_matmul"):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(build.library_path(name))], check=True,
+            capture_output=True, text=True, timeout=300).stdout
+        for fn, c in sass_opcodes(sass).items():
+            key = kernel_label(fn)
+            out[key] = c
+            if "wgmma" in fn and not (c["HGMMA"] and c["UTMALDG"]):
+                raise AssertionError(f"{key}: no HGMMA or UTMALDG in its "
+                                     f"SASS: {c}")
+    return out
 
 
 def profile_run(torch, run):
@@ -2356,7 +2647,8 @@ def kernel_entries(rows: dict, runs: dict) -> list:
                 "replaces": REPLACES[name], "launches": launches,
                 "launches_by_path": by_path, **{k: r[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}, "instances": r.get("instances", {})}
+                    "library_ms")}, "instance": r.get("instance"),
+                "instances": r.get("instances", {})}
 
     out = [entry(name, route, src, {p: runs[p]["launches"][name]
                                     for p in PATHS})
@@ -2383,6 +2675,12 @@ def main(argv=None) -> int:
                          "the checkout at TREE at the serve shape and at "
                          "batch 1 and print one JSON line (to compare "
                          "checkouts, run it for each in turns)")
+    ap.add_argument("--gemm-times", metavar="TREE",
+                    help="only time the GEMM kernels (K9 at the seven "
+                         "linears of a 7B layer, K10 at the MoE up and down "
+                         "GEMMs with fp32 and bf16 out) of the checkout at "
+                         "TREE and print one JSON line (to compare "
+                         "checkouts, run it for each in turns)")
     ap.add_argument("--flash-bwd-times", metavar="TREE",
                     help="only time the flash backward kernels and the "
                          "flash forward of the checkout at TREE at the "
@@ -2400,6 +2698,9 @@ def main(argv=None) -> int:
         return 0
     if args.flash_bwd_times:
         log(json.dumps(flash_bwd_times(args.flash_bwd_times)))
+        return 0
+    if args.gemm_times:
+        log(json.dumps(gemm_times(args.gemm_times)))
         return 0
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -2428,6 +2729,9 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "Compiling entry",
                                        "spill")):
                 log(f"  {name}: {line.strip()}")
+    record["sass"] = gemm_sass(_build)
+    for fn, c in record["sass"].items():
+        log(f"  sass {fn}: {c}")
     from paddle_tpu_torch import ops
     x = torch.randn(2, 4, 8, 128, device=dev, dtype=torch.bfloat16)
     ops.rms_norm(x, torch.ones(128, device=dev, dtype=torch.bfloat16))
@@ -2470,10 +2774,10 @@ def main(argv=None) -> int:
                 f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{smi}]")
         log(f"  {name} library: {rows[name]['library']}")
-    r = rows["grouped_matmul"]["fp32_up"]
-    log(f"  grouped_matmul up, fp32 in: kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']})  [{smi}]")
+    r = rows["grouped_matmul"]["instances"]["bf16_out"]
+    log(f"  grouped_matmul up+down with bf16 out: kernel {r['ms']:.4f} ms, "
+        f"library {r['library_ms']} ms (bf16 out), bound "
+        f"{r['bound_ms']:.4f} ms  [{smi}]")
     log(f"[kernels] {record['phases']['kernels']:.1f}s")
     # 4. kernel path against plain path, end to end
     t = time.perf_counter()

@@ -18,19 +18,36 @@
 // Design: the TPU grid (nK, nN, nT) keeps T innermost and carries the fp32
 // tile in VMEM scratch across it. Here a block owns one output tile and
 // walks T itself, so the accumulator stays in registers and each tile is
-// written once. bf16 inputs: a 128 x 128 tile, 8 warps of 64 x 32, T in
-// chunks of 32 staged by cp.async into two shared-memory buffers (the next
-// chunk loads while this one multiplies). x is [T, K] row-major, so the
-// tile's rows are T and its columns K: ldmatrix.trans turns those rows into
-// the row-major A fragment of x^T, and dy's [T, N] rows into the column-
-// major B fragment, for mma.sync m16n8k16 with fp32 accumulation. Ragged
-// K, N and T are zero-filled at the load and masked at the store. fp32
-// inputs: a 64 x 64 tile of 4 x 4 register micro-tiles over T chunks of 16
-// in shared memory, fp32 FMAs.
+// written once, and no sum is split over blocks (no atomics: two launches
+// give bitwise-equal results). Three instances;
+// ops/grad_add.py::kernel_for chooses and calls its entry point.
+//
+// grad_add_wgmma (bf16 x and dy TMA can read: 16-byte aligned bases, row
+// strides multiples of 16 bytes, K and N multiples of 8): wgmma.cuh's
+// mainloop over a 128 x 256 tile (rows k0.. of x^T, columns n0.. of dy), T
+// in chunks of 64 through 4 TMA stages; x^T and dy are both MN-major
+// (their rows are T), read as boxes of [64 T rows][64 columns] with the
+// descriptors' transpose bits; blocks walked in bands of row tiles
+// (band_raster) so the blocks in flight share x's and dy's panels in L2;
+// the epilogue reads dweight once and writes dweight + acc in fp32. At K =
+// N = 4096 the 512 tiles make 3.9 waves over 132 SMs (a persistent tile
+// loop is later work).
+//
+// grad_add (bf16 operands TMA cannot take, and fp32): bf16 inputs: a 128 x
+// 128 tile, 8 warps of 64 x 32, T in chunks of 32 staged by cp.async into
+// two shared-memory buffers (the next chunk loads while this one
+// multiplies). x is [T, K] row-major, so the tile's rows are T and its
+// columns K: ldmatrix.trans turns those rows into the row-major A fragment
+// of x^T, and dy's [T, N] rows into the column-major B fragment, for
+// mma.sync m16n8k16 with fp32 accumulation. Ragged K, N and T are
+// zero-filled at the load and masked at the store. fp32 inputs: 128 x 128
+// tiles of 8 x 8 register micro-tiles over T chunks of 16 (mma.cuh), fp32
+// FMAs, the next chunk's 16-byte loads in flight while one multiplies.
 #include <cuda_fp16.h>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -42,6 +59,16 @@ __device__ __forceinline__ float dw_load(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float dw_load(const __half* p) {
   return __half2float(*p);
+}
+// dweight[o], dweight[o + 1] (o even, the row's width even)
+__device__ __forceinline__ float2 dw_load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 dw_load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 dw_load2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
 // -- bf16 inputs: tensor cores ----------------------------------------------
@@ -142,50 +169,89 @@ grad_add_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// -- fp32 inputs: CUDA cores ------------------------------------------------
+// -- bf16 through TMA: wgmma ------------------------------------------------
 
-constexpr int kFM = 64, kFN = 64, kFT = 16;
+constexpr int kWN = 256, kWStages = 4;  // tile columns, pipeline stages
+using WTile = ptt::sm90::Tile<kWN, kWStages>;
 
 template <typename DW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ptt::sm90::kThreads, 1)
+grad_add_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                      const __grid_constant__ CUtensorMap dy_map,
+                      const DW* __restrict__ dw, float* __restrict__ out,
+                      int T, int K, int N, int tiles_m, int tiles_n) {
+  int tm, tn;
+  ptt::band_raster(blockIdx.x, tiles_m, tiles_n, tm, tn);
+  const int k0 = tm * ptt::sm90::kBM, n0 = tn * kWN;
+  if (threadIdx.x == 0) {
+    ptt::sm90::tma_prefetch(&x_map);
+    ptt::sm90::tma_prefetch(&dy_map);
+  }
+  ptt::sm90::gemm_tile<false, kWN, kWStages>(
+      T, K - k0,
+      [&](uint8_t* a, uint8_t* b, uint64_t* bar, int t0) {
+        ptt::sm90::tma_load_2d(a, &x_map, bar, k0, t0);
+        ptt::sm90::tma_load_2d(a + ptt::sm90::kBoxBytes, &x_map, bar, k0 + 64,
+                               t0);
+#pragma unroll
+        for (int h = 0; h < kWN / 64; ++h)
+          ptt::sm90::tma_load_2d(b + h * ptt::sm90::kBoxBytes, &dy_map, bar,
+                                 n0 + 64 * h, t0);
+      },
+      [&](const float(&acc)[kWN / 2], int cons) {
+#pragma unroll
+        for (int j = 0; j < kWN / 4; ++j) {
+          const int row = k0 + ptt::sm90::acc_row(cons, j);
+          const int col = n0 + ptt::sm90::acc_col(j);
+          if (row < K && col < N) {  // N % 8 == 0: col + 1 < N too
+            const long long o = static_cast<long long>(row) * N + col;
+            const float2 d = dw_load2(dw + o);
+            *reinterpret_cast<float2*>(out + o) =
+                make_float2(d.x + acc[2 * j], d.y + acc[2 * j + 1]);
+          }
+        }
+      });
+}
+
+// -- fp32 inputs: CUDA cores ------------------------------------------------
+
+template <typename DW>
+__global__ void __launch_bounds__(ptt::kF32Threads)
 grad_add_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                     const DW* __restrict__ dw, float* __restrict__ out, int T,
-                    int K, int N, long long ldx, long long ldy) {
-  __shared__ float xs[kFT][kFM];
-  __shared__ float ds[kFT][kFN];
-  const int n0 = blockIdx.x * kFN, k0 = blockIdx.y * kFM;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // 16 x 16
-  float acc[4][4] = {};
-  for (int t0 = 0; t0 < T; t0 += kFT) {
-    for (int i = threadIdx.x; i < kFT * kFM; i += kThreads) {
-      const int t = i / kFM, c = i % kFM;
-      xs[t][c] = (t0 + t < T && k0 + c < K) ? x[(t0 + t) * ldx + k0 + c]
-                                            : 0.f;
-      ds[t][c] = (t0 + t < T && n0 + c < N) ? dy[(t0 + t) * ldy + n0 + c]
-                                            : 0.f;
-    }
+                    int K, int N, long long ldx, long long ldy, int tiles_m,
+                    int tiles_n, bool vec) {
+  __shared__ __align__(16) float xs[ptt::kF32Depth * ptt::kF32Pitch];
+  __shared__ __align__(16) float ds[ptt::kF32Depth * ptt::kF32Pitch];
+  int tm, tn;
+  ptt::band_raster(blockIdx.x, tiles_m, tiles_n, tm, tn);
+  const int k0 = tm * ptt::kF32Tile, n0 = tn * ptt::kF32Tile;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float4 vx[2], vd[2];
+  ptt::f32_fetch_rows(vx, x, ldx, 0, T, k0, K, vec);
+  ptt::f32_fetch_rows(vd, dy, ldy, 0, T, n0, N, vec);
+  for (int t0 = 0; t0 < T; t0 += ptt::kF32Depth) {
+    __syncthreads();  // the last chunk's products are done
+    ptt::f32_put_rows(xs, vx);
+    ptt::f32_put_rows(ds, vd);
     __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kFT; ++t) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[t][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ds[t][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    if (t0 + ptt::kF32Depth < T) {
+      ptt::f32_fetch_rows(vx, x, ldx, t0 + ptt::kF32Depth, T, k0, K, vec);
+      ptt::f32_fetch_rows(vd, dy, ldy, t0 + ptt::kF32Depth, T, n0, N, vec);
     }
-    __syncthreads();
+    ptt::f32_chunk(acc, xs, ds);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = k0 + ptt::f32_row(i);
     if (row >= K) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + ptt::f32_col(j);
       if (col < N) {
         const long long o = static_cast<long long>(row) * N + col;
         out[o] = dw_load(dw + o) + acc[i][j];
@@ -199,10 +265,17 @@ cudaError_t launch(const void* x, const void* dy, const void* dw, float* out,
                    int T, int K, int N, long long ldx, long long ldy,
                    int in_f32, cudaStream_t st) {
   if (in_f32) {
-    const dim3 grid((N + kFN - 1) / kFN, (K + kFM - 1) / kFM);
-    grad_add_f32_kernel<DW><<<grid, kThreads, 0, st>>>(
+    const int tiles_m = (K + ptt::kF32Tile - 1) / ptt::kF32Tile;
+    const int tiles_n = (N + ptt::kF32Tile - 1) / ptt::kF32Tile;
+    // 16-byte loads: 4-column chunks wholly inside or outside
+    const bool vec = K % 4 == 0 && N % 4 == 0 && ldx % 4 == 0 &&
+                     ldy % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+    grad_add_f32_kernel<DW><<<tiles_m * tiles_n, ptt::kF32Threads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy),
-        static_cast<const DW*>(dw), out, T, K, N, ldx, ldy);
+        static_cast<const DW*>(dw), out, T, K, N, ldx, ldy, tiles_m, tiles_n,
+        vec);
   } else {
     // 16-byte rows: cp.async of whole 8-column chunks
     const bool vec = K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 &&
@@ -218,12 +291,43 @@ cudaError_t launch(const void* x, const void* dy, const void* dw, float* out,
   return cudaGetLastError();
 }
 
+template <typename DW>
+cudaError_t launch_wgmma(const void* x, const void* dy, const void* dw,
+                         float* out, int T, int K, int N, long long ldx,
+                         long long ldy, cudaStream_t st) {
+  namespace h = ptt::sm90;
+  CUtensorMap x_map, dy_map;
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(T)};
+  const cuuint64_t dy_dims[2] = {static_cast<cuuint64_t>(N),
+                                 static_cast<cuuint64_t>(T)};
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(ldx) * 2};
+  const cuuint64_t dy_strides[1] = {static_cast<cuuint64_t>(ldy) * 2};
+  const cuuint32_t box[2] = {64, h::kBK};
+  cudaError_t err = h::bf16_tensor_map(&x_map, x, 2, x_dims, x_strides, box);
+  if (err == cudaSuccess)
+    err = h::bf16_tensor_map(&dy_map, dy, 2, dy_dims, dy_strides, box);
+  if (err != cudaSuccess) return err;
+  auto kernel = grad_add_wgmma_kernel<DW>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WTile::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles_m = (K + h::kBM - 1) / h::kBM;
+  const int tiles_n = (N + kWN - 1) / kWN;
+  kernel<<<tiles_m * tiles_n, h::kThreads, WTile::kSmemBytes, st>>>(
+      x_map, dy_map, static_cast<const DW*>(dw), out, T, K, N, tiles_m,
+      tiles_n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [T, K] and dy [T, N] with row strides ldx, ldy (unit column stride),
 // both bf16 (in_f32 = 0) or both fp32 (in_f32 = 1); dweight [K, N]
 // contiguous, fp32 (dw_dtype 0), bf16 (1) or fp16 (2); out [K, N] fp32
-// contiguous. Returns cudaGetLastError() after the launch.
+// contiguous. The mma.sync instance for bf16, the CUDA-core one for fp32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int grad_add(const void* x, const void* dy, const void* dweight,
                         void* out, int T, int K, int N, long long ldx,
                         long long ldy, int in_f32, int dw_dtype,
@@ -238,6 +342,30 @@ extern "C" int grad_add(const void* x, const void* dy, const void* dweight,
                                    in_f32, st);
     case 2:
       return launch<__half>(x, dy, dweight, o, T, K, N, ldx, ldy, in_f32, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same arguments, bf16 x and dy TMA can read (in_f32 = 0, 16-byte
+// aligned bases, ldx and ldy multiples of 8, K and N multiples of 8, T >
+// 0).
+extern "C" int grad_add_wgmma(const void* x, const void* dy,
+                              const void* dweight, void* out, int T, int K,
+                              int N, long long ldx, long long ldy, int in_f32,
+                              int dw_dtype, void* stream) {
+  if (in_f32 || T <= 0 || K % 8 || N % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  switch (dw_dtype) {
+    case 0:
+      return launch_wgmma<float>(x, dy, dweight, o, T, K, N, ldx, ldy, st);
+    case 1:
+      return launch_wgmma<__nv_bfloat16>(x, dy, dweight, o, T, K, N, ldx, ldy,
+                                         st);
+    case 2:
+      return launch_wgmma<__half>(x, dy, dweight, o, T, K, N, ldx, ldy, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,10 @@
-// Tensor-core building blocks of the GEMM-shaped kernels (grad_add.cu,
+// Building blocks of the GEMM-shaped kernels (grad_add.cu,
 // grouped_matmul.cu) and the flash kernels (flash_fwd.cu, flash_bwd.cu):
 // staging into shared memory (cp.async, in common.cuh), ldmatrix fragment
-// loads and the bf16 (or fp16) mma.sync m16n8k16 with fp32 accumulation.
-// Plain Ampere-style warp MMAs, which sm_90a runs; wgmma and TMA are for a
-// later, faster version.
+// loads and the bf16 (or fp16) mma.sync m16n8k16 with fp32 accumulation
+// (Ampere-style warp MMAs, which sm_90a runs; the GEMM kernels' Hopper
+// instances are in wgmma.cuh); then the GEMM kernels' block raster and
+// their fp32 tile on the CUDA cores.
 #pragma once
 
 #include "common.cuh"
@@ -174,6 +175,130 @@ __device__ __forceinline__ void store_rows(T* row, int half,
   for (int j = 0; j < D / 8; ++j)
     *reinterpret_cast<uint32_t*>(row + 8 * j + c2) =
         pack2<T>(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+}
+
+// -- GEMM kernels (K9, K10): block raster ------------------------------------
+
+// Block b of a grid of tiles_m x tiles_n output tiles, walked in bands of
+// kBand row tiles: within a band the column tiles are the outer loop and
+// the band's row tiles the inner one, so the blocks in flight together
+// share the band's A rows and each column's B slab (read from memory once,
+// then from L2).
+constexpr int kBand = 8;
+__device__ __forceinline__ void band_raster(int b, int tiles_m, int tiles_n,
+                                            int& tm, int& tn) {
+  const int per_band = kBand * tiles_n;
+  const int band = b / per_band, rest = b - band * per_band;
+  const int rows = min(kBand, tiles_m - band * kBand);
+  tn = rest / rows;
+  tm = band * kBand + rest % rows;
+}
+
+// -- GEMM kernels (K9, K10): fp32 on the CUDA cores ---------------------------
+//
+// A 128 x 128 output tile in a block of 256 threads, each holding 8 x 8
+// outputs in registers: thread 16 ty + tx holds rows 8 ty .. 8 ty + 7 (a
+// warp holds 16 whole rows) and columns 4 tx .. 4 tx + 3 and 64 + 4 tx ..
+// 64 + 4 tx + 3. A chunk of kF32Depth steps of the reduction sits in shared
+// memory depth-major for both operands, a_s[t][m] and b_s[t][n], in rows of
+// kF32Pitch floats (16-byte aligned; the padding spreads the transposing
+// stores of K10's lhs over the banks). Every product is an fp32 FMA, as the
+// JAX kernels' fp32 products.
+constexpr int kF32Tile = 128, kF32Depth = 16, kF32Pitch = kF32Tile + 4;
+constexpr int kF32Threads = 256;
+
+__device__ __forceinline__ int f32_row(int i) {
+  return 8 * (threadIdx.x >> 4) + i;
+}
+__device__ __forceinline__ int f32_col(int j) {
+  return (j & 4) * 16 + 4 * (threadIdx.x & 15) + (j & 3);
+}
+
+// acc += the chunk's products.
+__device__ __forceinline__ void f32_chunk(float (&acc)[8][8],
+                                          const float* a_s,
+                                          const float* b_s) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int t = 0; t < kF32Depth; ++t) {
+    const float* ar = a_s + t * kF32Pitch + 8 * ty;
+    const float* br = b_s + t * kF32Pitch + 4 * tx;
+    const float4 a0 = *reinterpret_cast<const float4*>(ar);
+    const float4 a1 = *reinterpret_cast<const float4*>(ar + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(br);
+    const float4 b1 = *reinterpret_cast<const float4*>(br + 64);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Elements c .. c + 3 of row r of a row-major fp32 operand, zero past
+// (rows, cols). vec: one 16-byte load (the operand's rows are 16-byte
+// aligned and cols % 4 == 0, so the four are all inside or all outside);
+// else element by element.
+__device__ __forceinline__ float4 f32_load4(const float* src, long long ld,
+                                            int r, int rows, int c, int cols,
+                                            bool vec) {
+  if (vec)
+    return r < rows && c < cols
+               ? *reinterpret_cast<const float4*>(src + r * ld + c)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v[e] = r < rows && c + e < cols ? src[r * ld + c + e] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// A chunk whose rows are the reduction (x, dy, rhs[g]): [kF32Depth rows
+// r0 ..][128 columns c0 ..], two float4 a thread, fetched into registers
+// (the next chunk's loads fly while this one multiplies) and then put.
+__device__ __forceinline__ void f32_fetch_rows(float4 (&v)[2],
+                                               const float* src, long long ld,
+                                               int r0, int rows, int c0,
+                                               int cols, bool vec) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = threadIdx.x + kF32Threads * h;
+    v[h] = f32_load4(src, ld, r0 + (q >> 5), rows, c0 + (q & 31) * 4, cols,
+                     vec);
+  }
+}
+__device__ __forceinline__ void f32_put_rows(float* s, const float4 (&v)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = threadIdx.x + kF32Threads * h;
+    *reinterpret_cast<float4*>(s + (q >> 5) * kF32Pitch + (q & 31) * 4) =
+        v[h];
+  }
+}
+// A chunk of an operand whose rows are the output rows (K10's lhs [M, K]):
+// [128 rows r0 ..][kF32Depth columns d0 ..], put transposed.
+__device__ __forceinline__ void f32_fetch_cols(float4 (&v)[2],
+                                               const float* src, long long ld,
+                                               int r0, int rows, int d0,
+                                               int depth, bool vec) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = threadIdx.x + kF32Threads * h;
+    v[h] = f32_load4(src, ld, r0 + (q >> 2), rows, d0 + (q & 3) * 4, depth,
+                     vec);
+  }
+}
+__device__ __forceinline__ void f32_put_cols(float* s, const float4 (&v)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = threadIdx.x + kF32Threads * h;
+    float* d = s + (q & 3) * 4 * kF32Pitch + (q >> 2);
+    d[0] = v[h].x;
+    d[kF32Pitch] = v[h].y;
+    d[2 * kF32Pitch] = v[h].z;
+    d[3 * kF32Pitch] = v[h].w;
+  }
 }
 
 }  // namespace ptt

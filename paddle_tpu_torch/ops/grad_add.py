@@ -8,21 +8,51 @@ function returns a new fp32 array (its ``input_output_aliases`` donate
 nothing under ``jax.jit``), so the port returns a new fp32 tensor and
 leaves the caller's ``dweight`` as it was.
 
+The kernel has three instances (``csrc/grad_add.cu``), and
+:func:`kernel_for` is the dispatch: bf16 operands TMA can read go to the
+Hopper instance (TMA and ``wgmma``), other bf16 operands to the
+``mma.sync`` one, fp32 operands to the CUDA cores. No instance splits the
+sum over T across blocks, so two launches give bitwise-equal results.
+
 The wrapper takes the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 
 from . import _build
 
-__all__ = ["fused_linear_param_grad_add", "fused_linear_param_grad_add_ref"]
+__all__ = ["fused_linear_param_grad_add", "fused_linear_param_grad_add_ref",
+           "kernel_for"]
 
 _IN_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _DW_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the C entry point of each instance
+_ENTRIES = {"wgmma": "grad_add_wgmma", "mma_sync": "grad_add",
+            "f32": "grad_add"}
+
+
+def kernel_for(dtype: torch.dtype, t: int, k: int, n: int,
+               strides: Sequence[int], ptrs: Sequence[int]) -> str:
+    """K9's dispatch for x [t, k] and dy [t, n] of ``dtype``, with
+    ``strides`` their row strides in elements and ``ptrs`` their data
+    pointers: "wgmma" for bf16 operands TMA can read (t > 0, k and n
+    multiples of 8, the strides multiples of 8 elements, i.e. 16 bytes,
+    the pointers 16-byte aligned), "mma_sync" for other bf16 operands,
+    "f32" for fp32 ones. Raises ``ValueError`` for other dtypes."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"fused_linear_param_grad_add: no kernel for "
+                         f"{dtype}; the kernel takes bfloat16 and float32")
+    tma = (t > 0 and k % 8 == 0 and n % 8 == 0
+           and all(st % 8 == 0 for st in strides)
+           and all(p % 16 == 0 for p in ptrs))
+    return "wgmma" if tma else "mma_sync"
 
 
 def _flatten(x: torch.Tensor, dy: torch.Tensor, dweight: torch.Tensor):
@@ -55,6 +85,26 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
         else t.contiguous()
 
 
+def _launch(instance: str, x2: torch.Tensor, dy2: torch.Tensor,
+            dw: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of ``instance`` on CUDA tensors (x2 and dy2 as
+    :func:`_rows` gives them, dw and out contiguous); raises on a CUDA
+    error."""
+    (t, k), n = x2.shape, dy2.shape[1]
+    lib = _build.load("grad_add")
+    fn = getattr(lib, _ENTRIES[instance])
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 4 + [i] * 3 + [ll] * 2 + [i] * 2 + [p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x2.data_ptr(), dy2.data_ptr(), dw.data_ptr(), out.data_ptr(),
+                 t, k, n, x2.stride(0), dy2.stride(0), _IN_DTYPES[x2.dtype],
+                 _DW_DTYPES[dw.dtype], stream)
+    _build.check(lib, err, _ENTRIES[instance])
+
+
 def fused_linear_param_grad_add(x: torch.Tensor, dy: torch.Tensor,
                                 dweight: torch.Tensor) -> torch.Tensor:
     """``dweight + x^T dy`` as a new fp32 [K, N] tensor (K9): x [..., K]
@@ -81,18 +131,9 @@ def fused_linear_param_grad_add(x: torch.Tensor, dy: torch.Tensor,
     if out.numel() == 0:      # an empty grid is not a launch
         return out
     x2, dy2, dw = _rows(x2), _rows(dy2), dweight.contiguous()
-    lib = _build.load("grad_add")
-    fn = lib.grad_add
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 4 + [i] * 3 + [ll] * 2 + [i] * 2 + [p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x2.data_ptr(), dy2.data_ptr(), dw.data_ptr(), out.data_ptr(),
-                 t, k, n, x2.stride(0), dy2.stride(0), _IN_DTYPES[x.dtype],
-                 _DW_DTYPES[dweight.dtype], stream)
-    _build.check(lib, err, "grad_add")
+    instance = kernel_for(x2.dtype, t, k, n, (x2.stride(0), dy2.stride(0)),
+                          (x2.data_ptr(), dy2.data_ptr()))
+    _launch(instance, x2, dy2, dw, out)
     fused_linear_param_grad_add.launches += 1
     return out
 

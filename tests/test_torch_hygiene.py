@@ -241,11 +241,15 @@ def test_kernel_ops_modules_are_checked(module):
 def test_gemm_kernel_sources_are_built_and_standalone(name, replaces):
     """K9 and K10 are sources ``build_all`` compiles, include nothing of
     PyTorch (plain C entry points, ctypes), name the TPU kernel they
-    replace, and call no library GEMM: their products are mma.sync."""
+    replace, and call no library GEMM: their products are mma.sync and,
+    in the Hopper instances (entry points ``<name>_wgmma``), wgmma through
+    the shared mainloop of ``wgmma.cuh``."""
     src = (_build.CSRC / f"{name}.cu").read_text()
     assert name in [p.stem for p in _build.CSRC.glob("*.cu")]
     assert "torch" not in src and '#include "mma.cuh"' in src
     assert replaces in src and f'extern "C" int {name}(' in src
     assert "mma_bf16_16816" in src
+    assert '#include "wgmma.cuh"' in src and "sm90::gemm_tile<" in src
+    assert f'extern "C" int {name}_wgmma(' in src
     for lib in ("cublas", "cutlass", "cute::"):
         assert lib not in src.lower()

@@ -39,8 +39,11 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.framework import flags as port_flags
 from paddle_tpu_torch.ops import _build, attention
 
-# the module: ``ops.paged_attention`` is the stock function
+# the modules: ``ops.paged_attention`` and ``ops.grouped_matmul`` are the
+# functions
 port_paged = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
+port_gmm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+port_grad_add = importlib.import_module("paddle_tpu_torch.ops.grad_add")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_STEP_TOL = dict(atol=1e-5, rtol=2.0 ** -7)
@@ -168,6 +171,181 @@ def test_grouped_matmul_checks_and_counts_no_cpu_launch():
     with pytest.raises(ValueError):
         ops.grouped_matmul(m, torch.empty(2, 3, 5, device="meta"),
                            torch.empty(2, dtype=torch.int32, device="meta"))
+
+
+# -- K10's tile schedule and the GEMM kernels' dispatch ----------------------
+
+
+def _segments(sizes, m):
+    """numpy: each row's group as the JAX fallback assigns it
+    (``clip(#{g: r >= start_g} - 1)``, so rows past the sum take the last
+    group, C-ref-5)."""
+    sizes = np.asarray(sizes, np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    seg = (np.arange(m)[:, None] >= starts[None, :]).sum(1) - 1
+    return np.clip(seg, 0, len(sizes) - 1)
+
+
+def _schedule_oracle(sizes, m, bm):
+    """numpy: runs of bm rows from each group's first row."""
+    seg, tiles = _segments(sizes, m), []
+    for grp in range(len(sizes)):
+        rows = np.flatnonzero(seg == grp)
+        for i in range(0, len(rows), bm):
+            tiles.append((grp, int(rows[i]), int(rows[i:i + bm][-1]) + 1))
+    return tiles
+
+
+_MOE_SIZES = np.random.RandomState(7).multinomial(
+    8192, np.random.RandomState(8).dirichlet(np.full(64, 0.3))).tolist()
+
+
+@pytest.mark.parametrize("sizes,m,bm", [
+    ([0, 3, 5, 4], 12, 4),           # first group empty
+    ([3, 0, 0, 9], 12, 4),           # middle groups empty
+    ([5, 7, 0], 12, 4),              # last group empty, sum == M
+    ([12], 12, 5),                   # one group, M not a multiple of bm
+    ([2, 3, 1], 12, 4),              # sum < M: rows 6..11 take the last group
+    ([0, 4, 0, 0], 9, 2),            # sum < M with empty groups after it
+    ([5, 10], 8, 4),                 # sum > M: the last group is cut
+    ([300, 1, 0, 299, 100], 700, 128),
+    (_MOE_SIZES, 8192, 128),         # 64 skewed groups, the MoE shape
+])
+def test_group_tile_schedule_matches_numpy(sizes, m, bm):
+    """The schedule the Hopper and fp32 instances of K10 walk: every row is
+    stored by exactly one tile, of its own group (the fallback's
+    assignment); tiles start at their group's first row, bm rows apart;
+    the count never exceeds the grid's ceil(M / bm) + G - 1 row tiles."""
+    ends = np.cumsum(sizes).tolist()
+    sched = port_gmm.group_tile_schedule(ends, m, bm)
+    assert sched == _schedule_oracle(sizes, m, bm)
+    seg, stored = _segments(sizes, m), np.zeros(m, np.int64)
+    for grp, r0, r1 in sched:
+        assert 0 < r1 - r0 <= bm
+        assert (seg[r0:r1] == grp).all()
+        stored[r0:r1] += 1
+    assert (stored == 1).all()
+    assert len(sched) <= port_gmm.max_row_tiles(m, len(sizes), bm)
+    passes = port_gmm.tile_passes(sizes, m, bm)
+    walk = sum(len(set(seg[t:t + bm].tolist())) for t in range(0, m, bm))
+    assert passes == {"made": len(sched), "walk": walk,
+                      "needed": -(-m // bm)}
+
+
+def test_max_row_tiles_bounds_every_draw_and_is_reached():
+    """The grid is a function of (M, G) alone: it covers every draw of
+    group sizes, and sizes that leave one row past each tile boundary
+    reach it, so no smaller grid would do."""
+    m, g, bm = 1000, 9, 128
+    rng = np.random.RandomState(0)
+    grid = port_gmm.max_row_tiles(m, g, bm)
+    for _ in range(200):
+        sizes = rng.multinomial(m, rng.dirichlet(np.full(g, 0.5)))
+        assert len(port_gmm.group_tile_schedule(
+            np.cumsum(sizes).tolist(), m, bm)) <= grid
+    worst = [1] * (g - 1) + [m - (g - 1)]
+    assert len(port_gmm.group_tile_schedule(
+        np.cumsum(worst).tolist(), m, bm)) == grid
+
+
+_GOOD = 1 << 20           # a 16-byte aligned pointer
+
+
+@pytest.mark.parametrize("dtype,k,n,strides,ptrs,want", [
+    (torch.bfloat16, 1024, 4096, (1024, 1024 * 4096, 4096), (_GOOD,) * 2,
+     "wgmma"),                                   # the MoE up GEMM
+    (torch.bfloat16, 72, 136, (72, 72 * 136, 136), (_GOOD,) * 2, "wgmma"),
+    (torch.bfloat16, 1024, 4096, (1032, 1024 * 4096, 4096), (_GOOD,) * 2,
+     "wgmma"),                                   # padded rows, 16-byte pitch
+    (torch.bfloat16, 100, 36, (100, 3600, 36), (_GOOD,) * 2, "mma_sync"),
+    (torch.bfloat16, 1024, 36, (1024, 1024 * 36, 36), (_GOOD,) * 2,
+     "mma_sync"),                                # N % 8
+    (torch.bfloat16, 1024, 4096, (1028, 1024 * 4096, 4096), (_GOOD,) * 2,
+     "mma_sync"),                                # lhs pitch not 16 bytes
+    (torch.bfloat16, 1024, 4096, (1024, 1024 * 4096 + 4, 4096),
+     (_GOOD,) * 2, "mma_sync"),                  # group stride
+    (torch.bfloat16, 1024, 4096, (1024, 1024 * 4096, 4096),
+     (_GOOD, _GOOD + 8), "mma_sync"),            # rhs base not aligned
+    (torch.bfloat16, 0, 4096, (0, 0, 4096), (_GOOD,) * 2, "mma_sync"),
+    (torch.float32, 1024, 4096, (1024, 1024 * 4096, 4096), (_GOOD,) * 2,
+     "f32"),
+    (torch.float32, 70, 36, (70, 70 * 36, 36), (_GOOD + 4,) * 2, "f32"),
+])
+def test_grouped_matmul_kernel_for(dtype, k, n, strides, ptrs, want):
+    assert port_gmm.kernel_for(dtype, k, n, strides, ptrs) == want
+
+
+@pytest.mark.parametrize("dtype,t,k,n,strides,ptrs,want", [
+    (torch.bfloat16, 4096, 4096, 11008, (4096, 11008), (_GOOD,) * 2,
+     "wgmma"),                                   # the 7B gate/up linear
+    (torch.bfloat16, 1000, 200, 136, (200, 136), (_GOOD,) * 2, "wgmma"),
+    (torch.bfloat16, 1000, 200, 136, (208, 136), (_GOOD,) * 2, "wgmma"),
+    (torch.bfloat16, 777, 100, 36, (100, 36), (_GOOD,) * 2, "mma_sync"),
+    (torch.bfloat16, 777, 96, 36, (96, 36), (_GOOD,) * 2, "mma_sync"),
+    (torch.bfloat16, 777, 96, 32, (100, 32), (_GOOD,) * 2, "mma_sync"),
+    (torch.bfloat16, 777, 96, 32, (96, 32), (_GOOD + 2, _GOOD),
+     "mma_sync"),                                # x base not aligned
+    (torch.bfloat16, 0, 96, 32, (96, 32), (_GOOD,) * 2, "mma_sync"),
+    (torch.float32, 1000, 96, 200, (96, 200), (_GOOD,) * 2, "f32"),
+    (torch.float32, 777, 100, 36, (101, 36), (_GOOD + 4,) * 2, "f32"),
+])
+def test_grad_add_kernel_for(dtype, t, k, n, strides, ptrs, want):
+    assert port_grad_add.kernel_for(dtype, t, k, n, strides, ptrs) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+def test_gemm_kernel_for_refuses_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="no kernel"):
+        port_gmm.kernel_for(dtype, 64, 64, (64, 64 * 64, 64), (_GOOD,) * 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        port_grad_add.kernel_for(dtype, 64, 64, 64, (64, 64), (_GOOD,) * 2)
+
+
+def test_gemm_wrappers_dispatch_through_kernel_for(monkeypatch):
+    """On CUDA tensors the wrappers launch the instance ``kernel_for``
+    names (with the schedule's workspace for "wgmma" and "f32", sized from
+    the shapes); a CUDA tensor is stood in for by patching the device
+    checks' view of the device and the launch."""
+    seen = []
+    monkeypatch.setattr(port_gmm, "_launch", lambda inst, lhs, rhs, ends,
+                        out, sched: seen.append(
+                            (inst, None if sched is None else sched.numel())))
+    monkeypatch.setattr(port_grad_add, "_launch", lambda inst, *a: seen.append(
+        (inst, None)))
+
+    class Cuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+
+    def cuda(t):
+        return t.as_subclass(Cuda)
+
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **kw:
+                        cuda(torch.zeros(*a, **kw)))
+    monkeypatch.setattr(torch, "cumsum", lambda t, dim, dtype=None: t.to(
+        dtype))
+    lhs = cuda(torch.zeros(300, 72, dtype=torch.bfloat16))
+    sizes = cuda(torch.tensor([0, 5, 100, 0, 3]))
+    port_gmm.grouped_matmul(lhs, cuda(torch.zeros(5, 72, 136,
+                                                  dtype=torch.bfloat16)),
+                            sizes)
+    port_gmm.grouped_matmul(cuda(torch.zeros(300, 100, dtype=torch.bfloat16)),
+                            cuda(torch.zeros(5, 100, 36,
+                                             dtype=torch.bfloat16)), sizes)
+    port_gmm.grouped_matmul(cuda(torch.zeros(300, 70)),
+                            cuda(torch.zeros(5, 70, 36)), sizes)
+    grid = 3 * port_gmm.max_row_tiles(300, 5)
+    assert seen == [("wgmma", grid), ("mma_sync", None), ("f32", grid)]
+    seen.clear()
+    for t, k, n, dt in [(64, 200, 136, torch.bfloat16),
+                        (64, 100, 36, torch.bfloat16),
+                        (64, 100, 36, torch.float32)]:
+        ops.fused_linear_param_grad_add(
+            cuda(torch.zeros(t, k, dtype=dt)), cuda(torch.zeros(t, n,
+                                                                dtype=dt)),
+            cuda(torch.zeros(k, n)))
+    assert [i for i, _ in seen] == ["wgmma", "mma_sync", "f32"]
 
 
 # -- s1 paged_attention (stock layout over K4) -------------------------------
