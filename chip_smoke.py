@@ -8,11 +8,21 @@ Phases, each timed, none caught and passed over:
 1. environment: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions; fails without a CUDA device;
 2. build: every CUDA kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``
-   (one process per source, all at once) and the Triton kernels' first
-   compile;
+   (one process per source, all at once; ptxas's registers and spills of
+   every kernel) and the Triton kernel's first compile; the SASS of the
+   GEMM kernels (HGMMA and UTMALDG in every Hopper instance) and of
+   ``norm_rope.cu`` (128-bit global loads and stores in every vector-path
+   instance of K1 and K2), either missing failing the run;
 3. kernels: each kernel against its plain PyTorch version on the same CUDA
    tensors, at the serving path's shapes (Llama-2-7B widths) and at GQA,
-   ragged, zero-length, int8 and fp32 variants, LayerNorm at 4096 x 4096
+   ragged, zero-length, int8 and fp32 variants; ``rms_norm`` and
+   ``fused_rope`` at every shape the main paths give them (the train
+   step's, a serve prefill's, ``generate``'s prefill and decode step),
+   each timed with its host time per call, and at hidden 5120, 8192 and
+   20, head dim 20 and 16, fp16 and fp32, fp32 weights and tables, a
+   strided q view and misaligned rows, each launched twice and held
+   bitwise equal; int8 pools of the paged decode kernel under fp16 and
+   fp32 queries; LayerNorm at 4096 x 4096
    with and without residual and bias and at a hidden size that is not a
    power of two, the flash forward with dropout, and the two flash
    backward kernels at the training shape (8 x 2048, 8 heads of 128,
@@ -101,12 +111,14 @@ The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
 writes a longer record (every comparison, every serve statistic) there.
 
-Three options only time kernels of the checkout at TREE, in a process of
+Four options only time kernels of the checkout at TREE, in a process of
 their own, and print one JSON line: ``--paged-decode-times TREE`` (K4
 and K7 at the serve shape and at batch 1 over 4096 tokens),
-``--flash-bwd-times TREE`` (K5, K6 and K3 at the training shape) and
+``--flash-bwd-times TREE`` (K5, K6 and K3 at the training shape),
 ``--gemm-times TREE`` (K9 at the seven linears of a 7B layer, K10 at the
-MoE up and down GEMMs with fp32 and with bf16 out). Run
+MoE up and down GEMMs with fp32 and with bf16 out) and
+``--norm-rope-times TREE`` (K1 and K2 at every main-path shape: device
+time and host time per call). Run
 for a parent and a change in turns (parent, change, change, parent), each
 in a fresh process, they compare two trees on one card.
 """
@@ -304,8 +316,8 @@ REPLACES = {
     "paged_attention": "paddle_tpu/ops/pallas.py:216",
 }
 SOURCES = {
-    "rms_norm": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
-    "fused_rope": ("triton", "paddle_tpu_torch/ops/fused_kernels.py"),
+    "rms_norm": ("cuda", "paddle_tpu_torch/csrc/norm_rope.cu"),
+    "fused_rope": ("cuda", "paddle_tpu_torch/csrc/norm_rope.cu"),
     "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_fwd.cu"),
     "paged_decode": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu"),
     "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu"),
@@ -402,7 +414,6 @@ def kernel_phase(torch, dev, np):
     import torch.nn.functional as F
 
     from paddle_tpu_torch import llama_config, ops
-    from paddle_tpu_torch.models.llama import _rope_cos_sin
 
     g, randn = seeded_randn(torch, dev)
     bf = torch.bfloat16
@@ -412,45 +423,7 @@ def kernel_phase(torch, dev, np):
     rows = {}          # name -> record for the JSON line
     cases = []         # every comparison made
 
-    # K1 rms_norm: prefill buckets and the decode batch
-    w = randn(H, scale=0.1) + 1.0
-    for shape in [(1, 128, H), (1, 512, H), (1, 1024, H), (8, 1, H)]:
-        x = randn(*shape, scale=2.0)
-        err = check_close(torch, f"rms_norm{shape}",
-                          ops.rms_norm(x, w, 1e-5),
-                          ops.rms_norm_ref(x, w, 1e-5), **TOL["rms_norm"])
-        cases.append(("rms_norm", str(shape), err))
-        if shape == (1, 512, H):
-            t = x.numel()
-            bms, by = bound(2 * t * 2 + H * 2, 4 * t, FP32_FLOPS)
-            lib = (time_ms(torch, lambda: F.rms_norm(x, (H,), w, 1e-5))
-                   if hasattr(F, "rms_norm") else None)
-            rows["rms_norm"] = dict(
-                shape=str(shape),
-                ms=time_ms(torch, lambda: ops.rms_norm(x, w, 1e-5)),
-                plain_ms=time_ms(torch,
-                                 lambda: ops.rms_norm_ref(x, w, 1e-5)),
-                bound_ms=bms, bound_by=by, library_ms=lib)
-
-    # K2 fused_rope: q (32 heads) and a GQA k (8 heads) at prefill widths
-    cos_full, sin_full = _rope_cos_sin(1024, D, 10000.0, bf, dev)
-    for s, heads in [(128, NH), (512, NH), (1024, NH), (512, GQA)]:
-        x = randn(1, s, heads, D)
-        c, sn = cos_full[:s], sin_full[:s]
-        err = check_close(torch, f"fused_rope S={s} H={heads}",
-                          ops.fused_rope(x, c, sn),
-                          ops.fused_rope_ref(x, c, sn),
-                          **TOL["fused_rope"])
-        cases.append(("fused_rope", f"[1,{s},{heads},{D}]", err))
-        if (s, heads) == (512, NH):
-            bms, by = bound(2 * x.numel() * 2 + 2 * s * (D // 2) * 2,
-                            3 * x.numel(), FP32_FLOPS)
-            rows["fused_rope"] = dict(
-                shape=f"[1,{s},{heads},{D}]",
-                ms=time_ms(torch, lambda: ops.fused_rope(x, c, sn)),
-                plain_ms=time_ms(torch,
-                                 lambda: ops.fused_rope_ref(x, c, sn)),
-                bound_ms=bms, bound_by=by, library_ms=None)
+    norm_rope_cases(torch, ops, F, randn, rows, cases, mc, dev)
 
     # K3 flash forward: prefill buckets (causal MHA), GQA 32/8, ragged
     # lengths (700, and 2047, which cuts the last tile of queries and of
@@ -566,6 +539,270 @@ def kernel_phase(torch, dev, np):
     return rows, cases
 
 
+def host_us(torch, fn, n=200, rounds=5, warmup=10) -> float:
+    """Host time of one call: ``n`` calls back to back, no synchronize
+    between them, the wall clock over them / n, after a warm-up; the
+    median of ``rounds`` such runs. Where the device takes longer than the
+    host per call, the launch queue fills and this reads the device's time
+    instead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per_call.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def kernel_ms(torch, fn, n=50, windows=3) -> float:
+    """Device time of one call as ``torch.profiler`` reads it: the kernels'
+    own time, summed over ``n`` calls, / n; the median over ``windows``
+    such profiles of those that recorded the most kernels (a profile now
+    and then comes back with some of the device's events missing). It
+    leaves out what ``time_ms`` counts besides the kernels (the device's
+    start of each launch between the two events; ``floor_ms`` measures
+    it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []           # (kernels recorded, ms a call)
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+                count += e.count
+        seen.append((count, us / n / 1e3))
+    most = max(c for c, _ in seen)
+    return statistics.median(ms for c, ms in seen if c == most)
+
+
+def floor_ms(torch, dev) -> float:
+    """``time_ms`` of a kernel that does nothing of note (one element
+    incremented): what the events count besides the work."""
+    one = torch.zeros(1, device=dev)
+    return time_ms(torch, lambda: one.add_(1.0), reps=50)
+
+
+def rope_tables(torch, s, d, dtype, dev):
+    """RoPE tables cos, sin [s, d/2] (theta 10000), the model's formula."""
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=dev) / d))
+    f = torch.outer(torch.arange(s, dtype=torch.float32, device=dev), inv)
+    return torch.cos(f).to(dtype), torch.sin(f).to(dtype)
+
+
+def main_tables(torch, n, d, dev):
+    """K2's tables on a main path: rows [0, n) of bf16 tables of 2048
+    positions, or row 700 alone (a decode step's)."""
+    c, sn = rope_tables(torch, 2048, d, torch.bfloat16, dev)
+    off = 700 if n == 1 else 0
+    return c[off:off + n], sn[off:off + n]
+
+
+def norm_rope_shapes(mc):
+    """K1's and K2's shapes on the main paths, ``(name, shape)`` and
+    ``(name, x shape, table rows)``: the train step (TRAIN's widths and
+    batch; K2's backward runs the same shape with -sin), a serve prefill
+    of 512 tokens and ``generate``'s prefill of GEN's batch (PRESET's
+    widths), and a decode step of that batch (K2: ``generate``'s, one
+    table row that every row shares). The first of each list after the
+    train step, the prefill, is the row phase 3 reports."""
+    tc = train_config(importlib.import_module(
+        "paddle_tpu_torch").llama_config)
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    h, nh, d = mc.hidden_size, mc.num_attention_heads, mc.head_dim
+    gb, gp = GEN["batch"], GEN["plen"]
+    k1 = [("train", (b, s, tc.hidden_size)), ("prefill", (1, 512, h)),
+          ("generate_prefill", (gb, gp, h)), ("decode", (gb, 1, h))]
+    k2 = [("train", (b, s, tc.num_attention_heads, tc.head_dim), s),
+          ("prefill", (1, 512, nh, d), 512), ("decode", (gb, 1, nh, d), 1)]
+    return k1, k2
+
+
+def rms_bound(x, w):
+    t = x.numel()
+    return bound(2 * t * x.element_size() + w.numel() * w.element_size(),
+                 4 * t, FP32_FLOPS)
+
+
+def rope_bound(x, c):
+    return bound(2 * x.numel() * x.element_size()
+                 + 2 * c.numel() * c.element_size(), 3 * x.numel(),
+                 FP32_FLOPS)
+
+
+def norm_rope_cases(torch, ops, F, randn, rows, cases, mc, dev):
+    """K1 and K2 against their plain versions: every main-path shape of
+    norm_rope_shapes (timed: device time, bound, plain version, library
+    call, host time per call), then the other widths and forms: K1 at
+    hidden 5120 and 8192 (two warps a row), fp32 at 4096 and 5120 (two and
+    four), hidden 20 (element-wise), the tiny preset's fp32 64, fp16, fp32
+    weights under bf16 x, rows of a wider tensor (a row stride of 2 H) and
+    rows one element off alignment (element-wise); K2 at the prefill's GQA
+    k and buckets 128 and 1024, the backward's -sin, a q view of a fused
+    [1, 512, 48, 128] projection (strides of 48 heads), head dim 20
+    (element-wise), the tiny preset's fp32 head dim 16, fp16, fp32 tables
+    under bf16 x. Each case is launched twice and must be bitwise equal;
+    each names the path rms_norm_kernel_for / rope_kernel_for chose."""
+    fk = importlib.import_module("paddle_tpu_torch.ops.fused_kernels")
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    k1, k2 = norm_rope_shapes(mc)
+    H = mc.hidden_size
+
+    def rms_case(tag, x, w, timed=None):
+        x2 = x.reshape(-1, x.shape[-1])
+        path = fk.rms_norm_kernel_for(x.dtype, x2.shape[0], x.shape[-1],
+                                      x2.stride(0),
+                                      (x2.data_ptr(), w.data_ptr()))
+        out = twice(torch, "rms_norm", lambda: ops.rms_norm(x, w, 1e-5))
+        err = check_close(torch, f"rms_norm {tag}", out,
+                          ops.rms_norm_ref(x, w, 1e-5), **TOL["rms_norm"])
+        cases.append(("rms_norm", f"{tag} {str(x.dtype)[6:]} {path}", err))
+        if timed is None:
+            return
+        bms, by = rms_bound(x, w)
+        lib = (time_ms(torch, lambda: F.rms_norm(x, (x.shape[-1],), w, 1e-5))
+               if hasattr(F, "rms_norm") else None)
+        r = dict(shape=f"x {list(x.shape)} {str(x.dtype)[6:]} {path}",
+                 ms=time_ms(torch, lambda: ops.rms_norm(x, w, 1e-5)),
+                 kernel_ms=kernel_ms(torch, lambda: ops.rms_norm(x, w,
+                                                                 1e-5)),
+                 plain_ms=time_ms(torch, lambda: ops.rms_norm_ref(x, w,
+                                                                  1e-5)),
+                 bound_ms=bms, bound_by=by, library_ms=lib,
+                 host_us=host_us(torch, lambda: ops.rms_norm(x, w, 1e-5)),
+                 max_abs_err=err)
+        if timed == "prefill":
+            rows["rms_norm"] = dict(r, instances={})
+        else:
+            rows["rms_norm"]["instances"][timed] = r
+
+    def rope_case(tag, x, c, sn, timed=None):
+        xs = [st if n > 1 else 0 for n, st in zip(x.shape[:3], x.stride())]
+        path = fk.rope_kernel_for(
+            x.dtype, c.dtype if c.dtype == x.dtype else f32, tuple(x.shape),
+            xs, [t.stride(0) if t.shape[0] > 1 else 0 for t in (c, sn)],
+            (x.data_ptr(), c.data_ptr(), sn.data_ptr()))
+        out = twice(torch, "fused_rope", lambda: ops.fused_rope(x, c, sn))
+        err = check_close(torch, f"fused_rope {tag}", out,
+                          ops.fused_rope_ref(x, c, sn), **TOL["fused_rope"])
+        cases.append(("fused_rope", f"{tag} {str(x.dtype)[6:]} {path}", err))
+        if timed is None:
+            return
+        bms, by = rope_bound(x, c)
+        r = dict(shape=f"x {list(x.shape)} {str(x.dtype)[6:]}, tables "
+                       f"{list(c.shape)} {path}",
+                 ms=time_ms(torch, lambda: ops.fused_rope(x, c, sn)),
+                 kernel_ms=kernel_ms(torch, lambda: ops.fused_rope(x, c,
+                                                                   sn)),
+                 plain_ms=time_ms(torch, lambda: ops.fused_rope_ref(x, c,
+                                                                    sn)),
+                 bound_ms=bms, bound_by=by, library_ms=None,
+                 host_us=host_us(torch, lambda: ops.fused_rope(x, c, sn)),
+                 max_abs_err=err)
+        if timed == "prefill":
+            rows["fused_rope"] = dict(r, instances={})
+        else:
+            rows["fused_rope"]["instances"][timed] = r
+
+    # main-path shapes, the prefill first (the row), then the others
+    for name, shape in sorted(k1, key=lambda c: c[0] != "prefill"):
+        x = randn(*shape, scale=2.0)
+        w = randn(shape[-1], scale=0.1) + 1.0
+        rms_case(f"{name} {list(shape)}", x, w, timed=name)
+        del x
+    for shape, dt in [((1, 128, H), bf), ((1, 1024, H), bf),
+                      ((1, 300, H), bf), ((4, 64, 5120), bf),
+                      ((2, 16, 8192), bf), ((4, 8, 4096), f32),
+                      ((4, 8, 5120), f32), ((3, 7, 20), bf),
+                      ((2, 64, 64), f32), ((8, 1, H), f16)]:
+        x = randn(*shape, scale=2.0, dtype=dt)
+        rms_case(f"{list(shape)}", x,
+                 randn(shape[-1], scale=0.1, dtype=dt) + 1.0)
+    x = randn(1, 512, H, scale=2.0)
+    rms_case("[1, 512, H] fp32 weights", x,
+             randn(H, scale=0.1, dtype=f32) + 1.0)
+    wide = randn(64, 2 * H, scale=2.0)
+    w = randn(H, scale=0.1) + 1.0
+    rms_case("rows of a [64, 2 H] tensor", wide[:, :H], w)
+    rms_case("rows one element off alignment", wide[:, 1:H + 1], w)
+
+    for name, shape, n_tab in sorted(k2, key=lambda c: c[0] != "prefill"):
+        x = randn(*shape)
+        c, sn = main_tables(torch, n_tab, shape[-1], dev)
+        rope_case(f"{name} {list(shape)}", x, c, sn, timed=name)
+        if name == "train":
+            rope_case(f"{name} backward (-sin) {list(shape)}", x, c, -sn)
+        del x
+    nh, d = mc.num_attention_heads, mc.head_dim
+    for shape, dt, tab_dt in [((1, 512, nh // 4, d), bf, bf),
+                              ((1, 128, nh, d), bf, bf),
+                              ((1, 1024, nh, d), bf, bf),
+                              ((2, 33, 4, 20), bf, bf),
+                              ((2, 64, 4, 16), f32, f32),
+                              ((1, 512, nh, d), f16, f16),
+                              ((1, 64, nh, d), bf, f32)]:
+        x = randn(*shape, dtype=dt)
+        c, sn = rope_tables(torch, shape[1], shape[-1], tab_dt, dev)
+        rope_case(f"{list(shape)} tables {str(tab_dt)[6:]}", x, c, sn)
+    qkv = randn(1, 512, nh + nh // 2, d)
+    c, sn = rope_tables(torch, 512, d, bf, dev)
+    rope_case(f"q view [1, 512, {nh}, {d}] of a fused "
+              f"[1, 512, {nh + nh // 2}, {d}]", qkv[:, :, :nh], c, sn)
+
+
+def norm_rope_times(tree: str) -> dict:
+    """K1 and K2 of the checkout at ``tree`` at each main-path shape of
+    norm_rope_shapes: the device time of one call (``_ms``: the median of
+    50, each between two events behind the 2 ms spin; ``_kernel_ms``: the
+    kernels' own time as the profiler reads it), the host time per call
+    (``_host_us``: host_us) and the largest difference from that
+    checkout's plain version; and ``floor_ms``, what the events read for a
+    kernel that does nothing of note. Only the wrappers' public signatures
+    are used, so a parent tree runs it as well. Run for two checkouts in
+    turns, each in a fresh process, it compares them on one card."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from paddle_tpu_torch import llama_config, ops
+
+    dev = torch.device("cuda")
+    _, randn = seeded_randn(torch, dev)
+    res = {"tree": os.path.abspath(tree), "card": smi_line()}
+    k1, k2 = norm_rope_shapes(llama_config(PRESET))
+
+    def timed(key, fn, ref):
+        res[f"{key}_max_abs_err"] = (fn().float() - ref().float()).abs(
+        ).max().item()
+        res[f"{key}_ms"] = time_ms(torch, fn, reps=50)
+        res[f"{key}_kernel_ms"] = kernel_ms(torch, fn)
+        res[f"{key}_host_us"] = host_us(torch, fn)
+
+    res["floor_ms"] = floor_ms(torch, dev)
+    for name, shape in k1:
+        x = randn(*shape, scale=2.0)
+        w = randn(shape[-1], scale=0.1) + 1.0
+        timed(f"rms_norm_{name}", lambda: ops.rms_norm(x, w, 1e-5),
+              lambda: ops.rms_norm_ref(x, w, 1e-5))
+    for name, shape, n_tab in k2:
+        x = randn(*shape)
+        c, sn = main_tables(torch, n_tab, shape[-1], dev)
+        timed(f"fused_rope_{name}", lambda: ops.fused_rope(x, c, sn),
+              lambda: ops.fused_rope_ref(x, c, sn))
+    return res
+
+
 def twice(torch, name, fn):
     """``fn()`` launched twice; the two results must be bitwise equal (the
     kernels use no atomics). Returns the first."""
@@ -657,7 +894,7 @@ def paged_instance_cases(torch, ops, randn, rows, cases, table, lens, nh,
     lanes past 16 masked) and 96 (width 128), with GQA groups of 16 (two
     blocks per kv head) and 4; head dim 20 in bf16 (rows not 16-byte
     aligned) and in fp16 as a view of rows of 32 (a partial last
-    16-byte chunk)."""
+    16-byte chunk); int8 pools under fp16 and fp32 queries."""
     num_pages, ps = PAGED["pages"], PAGED["page"]
     b = len(PAGED["lens"])
     f32, f16 = torch.float32, torch.float16
@@ -694,6 +931,44 @@ def paged_instance_cases(torch, ops, randn, rows, cases, table, lens, nh,
                     q, kp, vp, table, lens)),
                 plain_ms=time_ms(torch, lambda: ops.paged_decode_mha_ref(
                     q, kp, vp, table, lens), reps=5),
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+    # int8 pools with scales under an fp16 query (MHA) and an fp32 one (GQA
+    # nh/(nh/4)), as the JAX package's engine stores them under a model of
+    # that dtype; both timed, and fp32 again at head dim 16 (width 32)
+    g = torch.Generator(device=table.device).manual_seed(SEED + 8)
+    for dt, d, hkv in [(f16, d_full, nh), (f32, d_full, nh // 4),
+                       (f32, 16, nh // 16)]:
+        q = randn(b, nh, d, dtype=dt)
+        kp, vp = (torch.randint(-127, 128, (num_pages, ps, hkv, d),
+                                generator=g, device=table.device,
+                                dtype=torch.int8) for _ in range(2))
+        sc = tuple(randn(num_pages, hkv, dtype=f32).abs() + 0.1
+                   for _ in range(2))
+        out = twice(torch, "paged_decode", lambda: ops.paged_decode_mha(
+            q, kp, vp, table, lens, *sc))
+        tag = (f"B={b} Hq={nh} Hkv={hkv} D={d} int8 pools, "
+               f"{str(dt)[6:]} query lens={PAGED['lens']}")
+        err = check_close(torch, f"paged_decode {tag}", out,
+                          ops.paged_decode_mha_ref(q, kp, vp, table, lens,
+                                                   *sc),
+                          **TOL["paged_decode"])
+        if out.dtype != dt or out[-1].abs().max().item() != 0.0:
+            raise AssertionError("paged_decode: the output takes the "
+                                 "query's dtype, and a zero-length row "
+                                 "returns zeros")
+        cases.append(("paged_decode", tag, err))
+        if d == d_full:
+            tokens, es = sum(PAGED["lens"]), q.element_size()
+            nbytes = (tokens * hkv * d * 2 + 2 * q.numel() * es
+                      + 2 * num_pages * hkv * 4 + table.numel() * 4 + b * 4)
+            bms, by = bound(nbytes, 4 * d * tokens * nh,
+                            FP32_FLOPS if dt == f32 else BF16_FLOPS)
+            rows["paged_decode"]["instances"][
+                f"paged_decode_int8_{ENTRY[str(dt)]}"] = dict(
+                shape=tag, ms=time_ms(torch, lambda: ops.paged_decode_mha(
+                    q, kp, vp, table, lens, *sc)),
+                plain_ms=time_ms(torch, lambda: ops.paged_decode_mha_ref(
+                    q, kp, vp, table, lens, *sc), reps=5),
                 bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
@@ -2521,9 +2796,9 @@ def ops_phase(torch, dev, np):
 
 
 # kernel name fragments -> where the device time goes
-_CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
+_CATEGORIES = [("rms_norm", ("rms_norm_vec_kernel", "rms_norm_elem_kernel")),
                ("fused_layer_norm", ("_layer_norm_kernel",)),
-               ("fused_rope", ("_rope_kernel",)),
+               ("fused_rope", ("rope_vec_kernel", "rope_elem_kernel")),
                ("flash_fwd", ("flash_fwd_kernel",)),
                ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
                ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
@@ -2539,24 +2814,28 @@ _CATEGORIES = [("rms_norm", ("_rms_norm_kernel",)),
                ("elementwise and other", ("",))]
 
 
-# SASS opcodes counted per kernel of the GEMM libraries (phase 2)
+# SASS opcodes counted per kernel (phase 2), and the 128-bit global loads
+# and stores (LDG and STG with a .128 modifier)
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA")
+SASS_WIDE = ("LDG.128", "STG.128")
 
 
 def sass_opcodes(sass: str) -> dict:
     """Per kernel function of ``cuobjdump -sass`` output: how many
-    instructions of each of SASS_OPS its code holds."""
+    instructions of each of SASS_OPS and SASS_WIDE its code holds."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            counts[fn] = dict.fromkeys(SASS_OPS + SASS_WIDE, 0)
         elif fn is not None and "*/" in line:
             words = [w for w in line.split("*/", 1)[1].split()
                      if not w.startswith("@")]
-            op = words[0].split(".")[0] if words else ""
-            if op in counts[fn]:
-                counts[fn][op] += 1
+            parts = words[0].split(".") if words else [""]
+            if parts[0] in SASS_OPS:
+                counts[fn][parts[0]] += 1
+            elif parts[0] in ("LDG", "STG") and "128" in parts:
+                counts[fn][f"{parts[0]}.128"] += 1
     return counts
 
 
@@ -2590,6 +2869,34 @@ def gemm_sass(build) -> dict:
             if "wgmma" in fn and not (c["HGMMA"] and c["UTMALDG"]):
                 raise AssertionError(f"{key}: no HGMMA or UTMALDG in its "
                                      f"SASS: {c}")
+    return out
+
+
+def norm_rope_sass(build) -> dict:
+    """SASS counts of K1's and K2's kernels, by demangled name where the
+    toolkit's ``cu++filt`` is there; raises unless every vector-path
+    instance (``rms_norm_vec_kernel``, ``rope_vec_kernel``) moves x and
+    its output with 128-bit global loads and stores."""
+    bin_dir = os.path.dirname(build.find_nvcc())
+    sass = subprocess.run(
+        [os.path.join(bin_dir, "cuobjdump"), "-sass",
+         str(build.library_path("norm_rope"))], check=True,
+        capture_output=True, text=True, timeout=300).stdout
+    counts = sass_opcodes(sass)
+    filt = os.path.join(bin_dir, "cu++filt")
+    names = list(counts)
+    if os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(names), check=True,
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    out = {}
+    for fn, name in zip(counts, names):
+        c = counts[fn]
+        out[name] = {k: c[k] for k in ("FFMA",) + SASS_WIDE}
+        if ("vec_kernel" in fn
+                and not (c["LDG.128"] and c["STG.128"])):
+            raise AssertionError(f"{name}: no 128-bit global load or store "
+                                 f"in its SASS: {out[name]}")
     return out
 
 
@@ -2681,6 +2988,11 @@ def main(argv=None) -> int:
                          "GEMMs with fp32 and bf16 out) of the checkout at "
                          "TREE and print one JSON line (to compare "
                          "checkouts, run it for each in turns)")
+    ap.add_argument("--norm-rope-times", metavar="TREE",
+                    help="only time rms_norm and fused_rope of the checkout "
+                         "at TREE at the main paths' shapes (device ms and "
+                         "host us per call) and print one JSON line (to "
+                         "compare checkouts, run it for each in turns)")
     ap.add_argument("--flash-bwd-times", metavar="TREE",
                     help="only time the flash backward kernels and the "
                          "flash forward of the checkout at TREE at the "
@@ -2701,6 +3013,9 @@ def main(argv=None) -> int:
         return 0
     if args.gemm_times:
         log(json.dumps(gemm_times(args.gemm_times)))
+        return 0
+    if args.norm_rope_times:
+        log(json.dumps(norm_rope_times(args.norm_rope_times)))
         return 0
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -2730,6 +3045,7 @@ def main(argv=None) -> int:
                                        "spill")):
                 log(f"  {name}: {line.strip()}")
     record["sass"] = gemm_sass(_build)
+    record["sass"].update(norm_rope_sass(_build))
     for fn, c in record["sass"].items():
         log(f"  sass {fn}: {c}")
     from paddle_tpu_torch import ops
@@ -2751,14 +3067,20 @@ def main(argv=None) -> int:
     for name, r in rows.items():
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
+        host = (f", host {r['host_us']:.2f} us a call" if "host_us" in r
+                else "")
         log(f"  {name:13s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{smi}]")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){host}  [{smi}]")
         for entry, ri in r.get("instances", {}).items():
+            lib = ("" if ri.get("library_ms") is None
+                   else f", library {ri['library_ms']:.4f} ms")
+            host = (f", host {ri['host_us']:.2f} us a call"
+                    if "host_us" in ri else "")
             log(f"  {name:13s} {entry} {ri['shape']}: kernel "
-                f"{ri['ms']:.4f} ms, plain {ri['plain_ms']:.4f} ms, bound "
-                f"{ri['bound_ms']:.4f} ms ({ri['bound_by']}), max|err| "
-                f"{ri['max_abs_err']:.3g}  [{smi}]")
+                f"{ri['ms']:.4f} ms, plain {ri['plain_ms']:.4f} ms{lib}, "
+                f"bound {ri['bound_ms']:.4f} ms ({ri['bound_by']}), max|err| "
+                f"{ri['max_abs_err']:.3g}{host}  [{smi}]")
     ln_rb = rows["fused_layer_norm"]["residual_bias_ms"]
     log(f"  flash_fwd at the training shape: kernel "
         f"{rows['flash_fwd']['train_shape_ms']:.4f} ms, through the "

@@ -17,9 +17,9 @@
 // page_table[b, t / page_size], at offset t % page_size, of the pools, read
 // through the page, token and kv-head strides in elements that K and V
 // share (unit stride on D): [num_pages, page_size, Hkv, D] for the engines,
-// [Hkv, num_pages, page_size, D] for the stock layout. Pools are bf16 under
-// a bf16 query, int8 with per-(page, kv head) absmax scales [num_pages, Hkv]
-// (value = int8 * scale / 127) under a bf16 query, or fp16 or fp32 under a
+// [Hkv, num_pages, page_size, D] for the stock layout. Pools are int8 with
+// per-(page, kv head) absmax scales [num_pages, Hkv] (value = int8 * scale
+// / 127) under a bf16, fp16 or fp32 query, or bf16, fp16 or fp32 under a
 // query of the same type; the output takes the query's type. Any D <= 128
 // (the tile is instantiated at 32, 64 and 128 and masks the lanes past D)
 // and any GQA group (a block takes at most 8 query heads; larger groups are
@@ -232,23 +232,31 @@ extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
       split, part_acc, part_m, part_l, stream);
 }
 
-// As above with int8 pools and their [P, Hkv] fp32 scales (contiguous).
-extern "C" int paged_decode_int8(const void* q, const void* k_pool,
-                                 const void* v_pool, const void* k_scale,
-                                 const void* v_scale, const void* page_table,
-                                 const void* lens, void* out, int batch,
-                                 int hq, int hkv, int d, int page_size,
-                                 int max_pages, long long page_stride,
-                                 long long tok_stride, long long head_stride,
-                                 float scale, float soft_cap, int split,
-                                 void* part_acc, void* part_m, void* part_l,
-                                 void* stream) {
-  return dispatch<__nv_bfloat16, int8_t>(
-      q, k_pool, v_pool, k_scale, v_scale, page_table, lens, out, batch, hq,
-      hkv, d, page_size, max_pages,
-      PoolStrides{page_stride, tok_stride, head_stride}, scale, soft_cap,
-      split, part_acc, part_m, part_l, stream);
-}
+// As above with int8 pools and their [P, Hkv] fp32 scales (contiguous),
+// under a bf16 query (_int8), an fp16 one (_int8_f16) or an fp32 one
+// (_int8_f32); the output takes the query's type.
+#define PAGED_DECODE_INT8_ENTRY(NAME, Tq)                                    \
+  extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool, \
+                      const void* k_scale, const void* v_scale,              \
+                      const void* page_table, const void* lens, void* out,   \
+                      int batch, int hq, int hkv, int d, int page_size,      \
+                      int max_pages, long long page_stride,                  \
+                      long long tok_stride, long long head_stride,           \
+                      float scale, float soft_cap, int split,                \
+                      void* part_acc, void* part_m, void* part_l,            \
+                      void* stream) {                                        \
+    return dispatch<Tq, int8_t>(q, k_pool, v_pool, k_scale, v_scale,         \
+                                page_table, lens, out, batch, hq, hkv, d,    \
+                                page_size, max_pages,                        \
+                                PoolStrides{page_stride, tok_stride,         \
+                                            head_stride},                    \
+                                scale, soft_cap, split, part_acc, part_m,    \
+                                part_l, stream);                             \
+  }
+
+PAGED_DECODE_INT8_ENTRY(paged_decode_int8, __nv_bfloat16)
+PAGED_DECODE_INT8_ENTRY(paged_decode_int8_f16, __half)
+PAGED_DECODE_INT8_ENTRY(paged_decode_int8_f32, float)
 
 // As paged_decode_bf16 with query, pools and output all fp16 (_f16) or all
 // fp32 (_f32).

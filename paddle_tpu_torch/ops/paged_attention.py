@@ -4,16 +4,17 @@ its plain PyTorch version, and the stock ``paged_attention`` API over it.
 Port of ``paddle_tpu/ops/paged_attention.py::paged_decode_mha`` (pallas_call
 at :268) and its plain twin ``_paged_decode_ref`` (:126). The KV cache is a
 shared pool of pages ``[num_pages, page_size, Hkv, D]``; a row's cache is its
-row of ``page_table`` (page ids in order, -1 unmapped). bf16 pools, or int8
-pools with per-(page, kv head) absmax scales (``quantization/kv.py``
-conventions, copied below) under a bf16 query, fp16 or fp32 pools under a
-query of their dtype. The kernel reads the pools through their strides, so
-a view in another layout is read in place. Any head dim up to 128 (the
-tile is instantiated at 32, 64 and 128 and masks the columns past D, so no
-pool is copied) and any GQA group (more than 8 query heads a group are
-split over blocks); :func:`kernel_for` is the dispatch. Other dtype
-pairings (int8 pools under an fp16 or fp32 query, mixed float types) and
-head dims above 128 raise ``ValueError``.
+row of ``page_table`` (page ids in order, -1 unmapped). int8 pools with
+per-(page, kv head) absmax scales (``quantization/kv.py`` conventions,
+copied below) under a bf16, fp16 or fp32 query (the JAX package stores int8
+pages under the model's own dtype, fp32 for its ``"tiny"`` preset, and
+dequantizes to fp32 whatever the query's type), or bf16, fp16 or fp32 pools
+under a query of their dtype. The kernel reads the pools through their
+strides, so a view in another layout is read in place. Any head dim up to
+128 (the tile is instantiated at 32, 64 and 128 and masks the columns past
+D, so no pool is copied) and any GQA group (more than 8 query heads a group
+are split over blocks); :func:`kernel_for` is the dispatch. Mixed float
+types, fp64 and head dims above 128 raise ``ValueError``.
 
 :func:`paged_attention` ports ``paddle_tpu/ops/pallas.py::paged_attention``
 (:216-228), which calls JAX's stock TPU paged-attention kernel
@@ -59,6 +60,8 @@ _MAX_GROUP = 8           # query heads of a group one block holds
 # (query dtype, pool dtype) -> entry point
 _ENTRY = {(torch.bfloat16, torch.bfloat16): "paged_decode_bf16",
           (torch.bfloat16, torch.int8): "paged_decode_int8",
+          (torch.float16, torch.int8): "paged_decode_int8_f16",
+          (torch.float32, torch.int8): "paged_decode_int8_f32",
           (torch.float16, torch.float16): "paged_decode_f16",
           (torch.float32, torch.float32): "paged_decode_f32"}
 
@@ -74,8 +77,9 @@ def kernel_for(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
     if entry is None:
         raise ValueError(
             f"paged decode: no kernel for a {q_dtype} query over "
-            f"{pool_dtype} pools; the kernel takes bf16 over bf16 or int8, "
-            f"fp16 over fp16 and fp32 over fp32")
+            f"{pool_dtype} pools; the kernel takes int8 pools under a bf16, "
+            f"fp16 or fp32 query and bf16, fp16 or fp32 pools under a query "
+            f"of their dtype")
     width = next((w for w in _WIDTHS if 0 < d <= w), None)
     if width is None:
         raise ValueError(f"paged decode: the kernel takes head_dim 1 to "

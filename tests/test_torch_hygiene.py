@@ -132,11 +132,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_library_names_follow_the_sources():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert names == ["decode_mha", "flash_bwd", "flash_f32", "flash_fwd",
-                     "grad_add", "grouped_matmul", "paged_decode"]
+                     "grad_add", "grouped_matmul", "norm_rope",
+                     "paged_decode"]
     paths = [_build.library_path(n) for n in names]
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert all(p.name.startswith(f"{n}-") for n, p in zip(names, paths))
-    assert len(set(paths)) == 7
+    assert len(set(paths)) == 8
     assert _build.library_path("flash_bwd") == paths[1]      # stable hash
 
 
@@ -253,3 +254,29 @@ def test_gemm_kernel_sources_are_built_and_standalone(name, replaces):
     assert f'extern "C" int {name}_wgmma(' in src
     for lib in ("cublas", "cutlass", "cute::"):
         assert lib not in src.lower()
+
+
+def test_norm_rope_kernel_source_is_built_and_standalone():
+    """K1 and K2 are one source ``build_all`` compiles, which includes only
+    headers of ``csrc/`` (nothing of PyTorch: plain C entry points, ctypes),
+    names the TPU kernels it replaces, and returns ``cudaGetLastError()``
+    right after every launch; nothing of K1 or K2 is Triton any more."""
+    src = (_build.CSRC / "norm_rope.cu").read_text()
+    assert "norm_rope" in [p.stem for p in _build.CSRC.glob("*.cu")]
+    includes = [ln.split(None, 1)[1] for ln in src.splitlines()
+                if ln.startswith("#include")]
+    assert includes and all(
+        inc.startswith('"') and (_build.CSRC / inc.strip('"')).is_file()
+        for inc in includes), includes
+    assert "torch" not in src
+    assert "pallas_kernels.py::rms_norm" in src
+    assert "pallas_kernels.py::fused_rope" in src
+    assert 'extern "C" int rms_norm(' in src
+    assert 'extern "C" int fused_rope(' in src
+    launches = src.split("<<<")[1:]
+    assert len(launches) == 4
+    for rest in launches:
+        after = rest.split(";", 1)[1].lstrip()
+        assert after.startswith("return cudaGetLastError();"), after[:80]
+    fk = (PORT / "ops" / "fused_kernels.py").read_text()
+    assert "def _rms_norm_kernel" not in fk and "def _rope_kernel" not in fk

@@ -89,6 +89,183 @@ def test_fused_rope_rejects_mismatched_tables():
         ops.fused_rope(x, torch.zeros(5, 4), torch.zeros(5, 4))
 
 
+# -- K1/K2 on the card: paths and grids (csrc/norm_rope.cu) -------------------
+
+
+fused = importlib.import_module("paddle_tpu_torch.ops.fused_kernels")
+SMS = 132                                  # an H100's SMs
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+ALIGNED = (0x7f0000000000,) * 4            # 16-byte-aligned pointers
+
+
+def _covered_once(n, teams):
+    """Team t of ``teams`` walks items t, t + teams, .. below n, as the
+    kernels' loops do; True if every item is taken exactly once."""
+    if n == 0:
+        return True
+    taken = np.concatenate([np.arange(t, n, teams) for t in range(teams)])
+    return bool((np.bincount(taken, minlength=n) == 1).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("h", [20, 64, 1024, 4096, 5120, 8192])
+@pytest.mark.parametrize("rows", [0, 1, 8, 512, 16384])
+def test_rms_norm_plan_covers_every_row_once(rows, h, dtype):
+    """K1's grid: each row taken by one team exactly once, every 16-byte
+    chunk of a row by one lane of its team (a warp for rows up to 2 KB, 8
+    warps for wider ones; the smallest power of two of chunks a lane), and
+    no more blocks than the SMs hold at once."""
+    path = fused.rms_norm_kernel_for(dtype, rows, h, h, ALIGNED[:3])
+    w, n, blocks = fused.rms_norm_plan(rows, h, dtype, path, SMS)
+    es = torch.empty((), dtype=dtype).element_size()
+    assert path == ("vec" if h * es % 16 == 0 else "elem")
+    if path == "vec":
+        chunks = h * es // 16
+        assert w == (1 if chunks <= 32 * 4 else 8)
+        assert n in (1, 2, 4, 8) and (w == 8 or n <= 4)
+        assert 32 * w * n >= chunks             # the team's lanes cover it
+        assert n == 1 or 32 * w * (n // 2) < chunks
+        cap = SMS * fused._RMS_BLOCKS_PER_SM[(w, n)]
+        lanes = np.zeros(chunks, int)
+        for tl in range(32 * w):                # lane in the team
+            for j in range(n):
+                c = j * 32 * w + tl
+                if c < chunks:
+                    lanes[c] += 1
+        assert (lanes == 1).all()
+    else:
+        assert (w, n) == (1, 0)
+        cap = SMS * fused._RMS_ELEM_BLOCKS_PER_SM
+    assert blocks <= cap and (blocks > 0) == (rows > 0)
+    assert _covered_once(rows, blocks * max(1, 4 // w))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("heads,d", [(32, 128), (8, 128), (40, 128),
+                                     (4, 16), (3, 20), (2, 64)])
+@pytest.mark.parametrize("positions", [0, 1, 8, 512, 16384])
+@pytest.mark.parametrize("rows_of", ["two rows", "one position a row"])
+def test_rope_plan_covers_every_position_once(rows_of, positions, heads, d,
+                                              dtype):
+    """K2's grid: on the vector path every (b, s, head, 16-byte chunk of a
+    half) taken by exactly one thread (grid (ceil(s / T), b, ceil(h / P)),
+    block (C, P, T)), on the element-wise path every (b, s) by one block,
+    striding, and each (head, pair) by one of its threads; blocks of at
+    most 256 threads."""
+    if rows_of == "two rows":
+        b, s = (2, positions // 2) if positions > 1 else (1, positions)
+    else:
+        b, s = positions, 1
+    path = fused.rope_kernel_for(dtype, dtype, (b, s, heads, d),
+                                 [s * heads * d, heads * d, d],
+                                 [d // 2] * 2, ALIGNED)
+    per_block, teams, grid_s, grid_b, grid_h = fused.rope_plan(
+        b, s, heads, d, dtype, path, SMS)
+    es = torch.empty((), dtype=dtype).element_size()
+    half = d // 2
+    assert path == ("vec" if half * es % 16 == 0 else "elem")
+    if path == "vec":
+        c = half * es // 16
+        assert 0 < per_block <= heads and 0 < teams <= max(s, 1)
+        assert c * per_block * teams <= 256 and grid_b == b
+        taken = np.zeros((b, s, heads, c), int)
+        for gs in range(grid_s):
+            for t in range(teams):
+                ss = gs * teams + t
+                for gh in range(grid_h):
+                    for p in range(per_block):
+                        hh = gh * per_block + p
+                        if ss < s and hh < heads:
+                            taken[:, ss, hh, :] += 1
+        assert (taken == 1).all()
+    else:
+        assert (per_block, teams, grid_h) == (0, 1, 1)
+        slots = np.zeros(heads * half, int)
+        for t in range(256):
+            slots[t::256] += 1
+        assert (slots == 1).all()
+        cap = SMS * min(32, 2048 // 256)
+        assert grid_s * grid_b <= cap and grid_b <= 65535
+        assert (grid_s * grid_b > 0) == (positions > 0)
+        assert _covered_once(b, grid_b) and _covered_once(s, grid_s)
+
+
+@pytest.mark.parametrize("dtype,h,stride,ptrs,path", [
+    (torch.bfloat16, 4096, 4096, ALIGNED[:3], "vec"),
+    (torch.float16, 1024, 2048, ALIGNED[:3], "vec"),     # rows of a wider x
+    (torch.float32, 64, 64, ALIGNED[:3], "vec"),
+    (torch.float32, 8192, 8192, ALIGNED[:3], "vec"),     # 32 KB, 8 warps
+    (torch.bfloat16, 16384, 16384, ALIGNED[:3], "vec"),
+    (torch.float32, 16384, 16384, ALIGNED[:3], "elem"),  # wider than that
+    (torch.bfloat16, 20, 20, ALIGNED[:3], "elem"),       # 40-byte rows
+    (torch.bfloat16, 4096, 4097, ALIGNED[:3], "elem"),   # row stride
+    (torch.bfloat16, 4096, 4096, (ALIGNED[0] + 2,) + ALIGNED[:2], "elem"),
+    (torch.float32, 4096, 4096, ALIGNED[:2] + (ALIGNED[0] + 8,), "elem")])
+def test_rms_norm_kernel_for_table(dtype, h, stride, ptrs, path):
+    """K1's path: vector where every row is whole aligned 16-byte chunks
+    8 warps can hold (32 KB), element-wise otherwise."""
+    assert fused.rms_norm_kernel_for(dtype, 512, h, stride, ptrs) == path
+
+
+def test_vector_paths_count_in_32_bits():
+    """Tensors whose offsets pass 2^31 - 1 elements take the element-wise
+    paths, which count in 64 bits."""
+    big = 2 ** 31 // 4096
+    assert fused.rms_norm_kernel_for(torch.bfloat16, big - 1, 4096, 4096,
+                                     ALIGNED[:3]) == "vec"
+    assert fused.rms_norm_kernel_for(torch.bfloat16, big, 4096, 4096,
+                                     ALIGNED[:3]) == "elem"
+    assert fused.rms_norm_kernel_for(torch.bfloat16, big // 2 + 1, 4096, 8192,
+                                     ALIGNED[:3]) == "elem"
+    strides = (0, 32 * 128, 128)                # positions of 4096
+    assert fused.rope_kernel_for(torch.bfloat16, torch.bfloat16,
+                                 (1, big + 1, 32, 128), strides, (64, 64),
+                                 ALIGNED) == "elem"
+    assert fused.rope_kernel_for(torch.bfloat16, torch.bfloat16,
+                                 (1, big - 1, 32, 128), strides, (64, 64),
+                                 ALIGNED) == "vec"
+    assert fused.rope_kernel_for(torch.bfloat16, torch.bfloat16,
+                                 (70000, 1, 1, 128), (128, 128, 128), (0, 0),
+                                 ALIGNED) == "elem"   # the batch fits no grid
+
+
+@pytest.mark.parametrize("dtype,tab,d,xs,ts,ptrs,path", [
+    (torch.bfloat16, torch.bfloat16, 128, (0, 4096, 128), (64, 64), ALIGNED,
+     "vec"),
+    (torch.bfloat16, torch.bfloat16, 128, (0, 6144, 128), (0, 0), ALIGNED,
+     "vec"),                                 # a q view, one table row
+    (torch.float32, torch.float32, 16, (0, 64, 16), (8, 8), ALIGNED, "vec"),
+    (torch.bfloat16, torch.float32, 128, (0, 4096, 128), (64, 64), ALIGNED,
+     "vec"),                                 # fp32 tables
+    (torch.float16, torch.float16, 16, (0, 64, 16), (8, 8), ALIGNED, "vec"),
+    (torch.bfloat16, torch.bfloat16, 20, (0, 80, 20), (10, 10), ALIGNED,
+     "elem"),                                # 20-byte halves
+    (torch.bfloat16, torch.bfloat16, 128, (0, 4096, 130), (64, 64), ALIGNED,
+     "elem"),                                # head stride
+    (torch.bfloat16, torch.float32, 128, (0, 4096, 128), (66, 66), ALIGNED,
+     "elem"),                                # table row stride
+    (torch.bfloat16, torch.bfloat16, 128, (0, 4096, 128), (64, 64),
+     ALIGNED[:1] + (ALIGNED[0] + 2,) + ALIGNED[2:], "elem")])
+def test_rope_kernel_for_table(dtype, tab, d, xs, ts, ptrs, path):
+    """K2's path: vector where each half of D is whole aligned 16-byte
+    chunks of x, tables and output, element-wise otherwise."""
+    assert fused.rope_kernel_for(dtype, tab, (2, 64, 32, d), xs, ts,
+                                 ptrs) == path
+
+
+def test_norm_rope_kernel_for_refusals():
+    """fp64 and integer inputs have no kernel, nor an odd head dim."""
+    for dt in (torch.float64, torch.int32, torch.int8):
+        with pytest.raises(ValueError, match=f"no kernel for {dt}"):
+            fused.rms_norm_kernel_for(dt, 8, 64, 64, ALIGNED[:3])
+        with pytest.raises(ValueError, match=f"no kernel for {dt}"):
+            fused.rope_kernel_for(dt, dt, (1, 2, 1, 64), (0, 64, 64),
+                                  (32, 32), ALIGNED)
+    with pytest.raises(ValueError, match="odd head dim"):
+        fused.rope_kernel_for(torch.bfloat16, torch.bfloat16, (1, 2, 1, 15),
+                              (0, 15, 15), (7, 7), ALIGNED)
+
+
 # -- K3 flash attention forward ----------------------------------------------
 
 
@@ -198,6 +375,34 @@ def test_paged_decode_matches_pallas(hq, hkv, int8):
     out = ops.paged_decode_mha(_t(q), _t(kp), _t(vp), _t(table), _t(ln),
                                *tscales)
     np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))   # len 0 -> zeros
+
+
+@pytest.mark.parametrize("qdt,atol,rtol", [
+    (np.float16, 1e-5, 2.0 ** -10),   # both round fp32 to fp16 once
+    (np.float32, 1e-5, 1e-5)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+def test_paged_decode_int8_pools_under_fp16_and_fp32_queries(hq, hkv, qdt,
+                                                             atol, rtol):
+    """int8 pools with scales under an fp16 or an fp32 query, as the JAX
+    package's engine stores them under a model of that dtype: the port's
+    plain version (which the kernels' int8_f16 and int8_f32 instances are
+    held against on the card) against the Pallas kernel in interpret mode,
+    which dequantizes to fp32 whatever the query's type. The output takes
+    the query's type on both sides; in fp16 the two fp32 results may round
+    to neighbouring fp16 values, one fp16 step (2^-10 relative) apart."""
+    lens = [0, 1, 5, 13, 24, 7]
+    q, kp, vp, table, ln, ks, vs = _paged_case(lens, hq, hkv, seed=11 + hq,
+                                               int8=True)
+    q = q.astype(qdt)
+    ref = jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                    jnp.asarray(table), jnp.asarray(ln), jnp.asarray(ks),
+                    jnp.asarray(vs))
+    out = ops.paged_decode_mha(_t(q), _t(kp), _t(vp), _t(table), _t(ln),
+                               _t(ks), _t(vs))
+    assert out.dtype == _t(q).dtype and str(ref.dtype) == str(q.dtype)
+    np.testing.assert_allclose(_np(out.float().numpy()), _np(ref),
+                               atol=atol, rtol=rtol)
     assert torch.equal(out[0], torch.zeros_like(out[0]))   # len 0 -> zeros
 
 
@@ -350,6 +555,8 @@ def test_decode_mha_dispatch_table(dtype, entry, d, width, group, blocks):
 @pytest.mark.parametrize("qd,pd,entry", [
     (torch.bfloat16, torch.bfloat16, "paged_decode_bf16"),
     (torch.bfloat16, torch.int8, "paged_decode_int8"),
+    (torch.float16, torch.int8, "paged_decode_int8_f16"),
+    (torch.float32, torch.int8, "paged_decode_int8_f32"),
     (torch.float16, torch.float16, "paged_decode_f16"),
     (torch.float32, torch.float32, "paged_decode_f32")])
 @pytest.mark.parametrize("d,width", [(16, 32), (64, 64), (96, 128),
@@ -361,14 +568,13 @@ def test_paged_decode_dispatch_table(qd, pd, entry, d, width, group, blocks):
 
 
 def test_decode_dispatch_refusals():
-    """fp64, int8 pools under an fp16 or fp32 query, mixed float types and
-    head dims above 128 have no kernel."""
+    """fp64, mixed float types and head dims above 128 have no kernel."""
     with pytest.raises(ValueError, match="no kernel for torch.float64"):
         port_decode.kernel_for(torch.float64, 64, 1)
     with pytest.raises(ValueError, match="head_dim 1 to 128"):
         port_decode.kernel_for(torch.bfloat16, 256, 1)
     for qd, pd in ((torch.float64, torch.float64),
-                   (torch.float32, torch.int8), (torch.float16, torch.int8),
+                   (torch.float64, torch.int8),
                    (torch.bfloat16, torch.float32),
                    (torch.float16, torch.bfloat16)):
         with pytest.raises(ValueError, match="no kernel for a"):
