@@ -52,11 +52,15 @@ Phases, each timed, none caught and passed over:
    bitwise equal to themselves; then each one's time beside its bound, its
    plain version's and a library call's where one PyTorch call computes the
    same function;
-4. kernel against plain, end to end: the 7B widths at 2 layers, served once
-   on the card (kernels) and once on the CPU (plain versions), same weights
-   and prompts, through the paged engine, ``CausalLMEngine.generate`` and
-   the dense ``ContinuousBatchingEngine``: prefill logits within a stated
-   tolerance, greedy streams equal up to the first near-tie; then
+4. kernel against plain, end to end: the 7B widths at 2 layers, on the card
+   (kernels) and on the CPU (plain versions), same weights and prompts,
+   through the paged engine with bf16 and with int8 pools,
+   ``CausalLMEngine.generate`` and the dense ``ContinuousBatchingEngine``:
+   prefill logits within a stated tolerance; on the card each engine
+   warmed (its decode program captured as a CUDA graph), its greedy
+   streams bitwise those of the same engine run uncaptured on the card,
+   again after ``reset_state()``, with no capture after ``warmup()``; the
+   card's streams equal the CPU's up to the first near-tie; then
    ``FusedMultiTransformer`` at the GPT-3 6.7B widths (batch 1 x 128): the
    context pass and 8 ragged decode steps within a stated tolerance of the
    CPU's, and each decode step within it of the card's own context pass at
@@ -76,12 +80,18 @@ Phases, each timed, none caught and passed over:
 5. serve: the ``"7b"`` preset at full depth (32 layers, bf16, random
    weights from a seeded generator) through
    ``PagedContinuousBatchingEngine.serve``: 8 prompts of 100-700 tokens,
-   32 new tokens each; then the same model through
-   ``CausalLMEngine.generate`` (8 prompts of 512 tokens, 32 new tokens)
-   and the dense ``ContinuousBatchingEngine.serve`` (the paged run's
-   prompts), with the first token where the dense and paged streams part.
-   Every kernel's launch count over each run is read and held against the
-   count the path implies;
+   32 new tokens each, with bf16 pools and again with int8 pools (the
+   first token where the int8 streams part from the bf16 ones, and the
+   pools' bytes); then the same model through ``CausalLMEngine.generate``
+   (8 prompts of 512 tokens, 32 new tokens) and the dense
+   ``ContinuousBatchingEngine.serve`` (the paged run's prompts), with the
+   first token where the dense and paged streams part. Each engine is
+   built, then ``warmup()``-ed (``warmup(8)``; ``generate``'s engine
+   ``warmup(batch=8)``), then runs: its decode programs replay captured
+   CUDA graphs, the capture count must not move over the run, and every
+   kernel's launch count over it (each replay credited with the launches
+   its graph holds) is held against the count the path implies; the
+   captures, their seconds and their pools' bytes are recorded;
 6. train: the repo's training configuration (``bench.py``: llama 350m with
    8 heads of 128, 24 layers, bf16, batch 8 x 2048, full recompute, AdamW
    lr 1e-4, clip 1.0) through ``build_train_step``, one warm-up step and
@@ -111,8 +121,11 @@ The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
 writes a longer record (every comparison, every serve statistic) there.
 
-Four options only time kernels of the checkout at TREE, in a process of
-their own, and print one JSON line: ``--paged-decode-times TREE`` (K4
+``--serve-times TREE`` runs only phase 5's serves and ``generate`` with the
+package of the checkout at TREE, each engine warmed as that checkout
+allows, and prints one JSON line of TTFT, TPOT and decode tokens/s. Four
+options only time kernels of the checkout at TREE, in a process of their
+own, and print one JSON line: ``--paged-decode-times TREE`` (K4
 and K7 at the serve shape and at batch 1 over 4096 tokens),
 ``--flash-bwd-times TREE`` (K5, K6 and K3 at the training shape),
 ``--gemm-times TREE`` (K9 at the seven linears of a 7B layer, K10 at the
@@ -332,10 +345,10 @@ ROUTE_SOURCES = {
     "flash_hb": ("cuda", "paddle_tpu_torch/ops/flash_attention_hb.py"),
     "paged_attention": ("cuda", "paddle_tpu_torch/ops/paged_attention.py"),
 }
-PATHS = ("serve", "generate", "dense_serve", "train", "fmt", "train_hb",
-         "ops", "f32")
-# this slice's own: the decode paths, which run K4 and K7
-SLICE_PATHS = ("serve", "generate", "dense_serve", "fmt")
+PATHS = ("serve", "serve_int8", "generate", "dense_serve", "train", "fmt",
+         "train_hb", "ops", "f32")
+# the decode paths, which run K4 and K7: phase 5's through captured graphs
+SLICE_PATHS = ("serve", "serve_int8", "generate", "dense_serve", "fmt")
 EARLIER_PATHS = (("train", "f32"), ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
@@ -2001,26 +2014,51 @@ def e2e_phase(torch, dev, np):
         raise AssertionError(f"end to end: prefill logits differ by "
                              f"{max(errs):.3g} > {LOGIT_ATOL}")
     gen = GenerationConfig(max_new_tokens=8)
-    streams = []
-    for m in (gpu, cpu):
-        eng = PagedContinuousBatchingEngine(m, max_batch=2, num_pages=32,
-                                            page_size=16, max_pages=16)
-        streams.append(eng.serve(prompts, gen, segment_steps=4))
-    rec["greedy_tokens_matched"] = matched_tokens(torch, np, cpu, prompts,
-                                                  *streams)
-    rec["greedy_tokens"] = [len(c) for c in streams[1]]
-    # the dense-cache paths at the same 2 layers: generate on both prompts
-    # cut to the shorter one's length, and the dense engine on both
     plen = min(len(p) for p in prompts)
     ids = np.stack([p[:plen] for p in prompts])
-    outs = [CausalLMEngine(m, max_batch=2, max_len=256).generate(ids, gen)
-            for m in (gpu, cpu)]
-    rec["generate_tokens_matched"] = matched_tokens(
-        torch, np, cpu, list(ids), *[o[:, plen:] for o in outs])
-    streams = [ContinuousBatchingEngine(m, max_batch=2, max_len=256).serve(
-        prompts, gen, segment_steps=4) for m in (gpu, cpu)]
-    rec["dense_tokens_matched"] = matched_tokens(torch, np, cpu, prompts,
-                                                 *streams)
+    engines = {
+        "greedy": lambda m: PagedContinuousBatchingEngine(
+            m, max_batch=2, num_pages=32, page_size=16, max_pages=16),
+        "int8": lambda m: PagedContinuousBatchingEngine(
+            m, max_batch=2, num_pages=32, page_size=16, max_pages=16,
+            kv_dtype="int8"),
+        "dense": lambda m: ContinuousBatchingEngine(m, max_batch=2,
+                                                    max_len=256),
+        # generate on both prompts cut to the shorter one's length
+        "generate": lambda m: CausalLMEngine(m, max_batch=2, max_len=256),
+    }
+    rec["graphs"] = {}
+    for name, make in engines.items():
+        if name == "generate":
+            def run(e):
+                return list(e.generate(ids, gen)[:, plen:])
+            warm, firsts = 2, list(ids)
+        else:
+            def run(e):
+                return e.serve(prompts, gen, segment_steps=4)
+            warm, firsts = 4, prompts
+        eager = make(gpu)
+        eager.programs.capture = False
+        want = run(eager)
+        eng = make(gpu)
+        eng.warmup(warm)
+        before = dict(eng.programs.captures)
+        got = run(eng)
+        eng.reset_state()
+        again = run(eng)
+        for what, out in (("graphed", got), ("after reset_state", again)):
+            if [o.tolist() for o in out] != [w.tolist() for w in want]:
+                raise AssertionError(
+                    f"end to end, {name}: the {what} streams {out} differ "
+                    f"from the uncaptured ones {want} on the card")
+        if eng.programs.captures != before:
+            raise AssertionError(f"end to end, {name}: captures "
+                                 f"{eng.programs.captures} after warmup's "
+                                 f"{before}")
+        rec["graphs"][name] = {str(k): n for k, n in before.items()}
+        rec[f"{name}_tokens_matched"] = matched_tokens(
+            torch, np, cpu, firsts, got, run(make(cpu)))
+        del eager, eng
     del gpu, cpu
     torch.cuda.empty_cache()
     return rec
@@ -2426,26 +2464,83 @@ def serve_stats(eng, outs, vocab: int, n_new: int) -> dict:
             "wall_s": st["wall_s"], "segments": st["segments"]}
 
 
-def run_engine(torch, ops, eng, prompts, gen):
-    """One warm-up serve (a prompt per prefill bucket the run uses: cuBLAS
-    and Triton pick and compile their kernels at first use), then the
-    counted serve. Returns (outputs, launch counts, prefills, decode
-    steps)."""
-    from paddle_tpu_torch import GenerationConfig
+def graphs_record(eng, warm: dict) -> dict:
+    """An engine's ``warmup()`` seconds and its captured programs: captures,
+    capture seconds and the private pool's bytes per key."""
+    g = eng.programs
+    rec = {"warmup_s": warm, "captures": {str(k): n for k, n in
+                                          g.captures.items()},
+           "capture_s": {str(k): v for k, v in g.capture_s.items()},
+           "pool_bytes": {str(k): v for k, v in g.pool_bytes.items()}}
+    log(f"  graphs: {rec['captures']}, capture {rec['capture_s']} s, pool "
+        f"{rec['pool_bytes']} bytes; warmup {warm['total']:.2f} s")
+    return rec
 
-    eng.serve([prompts[-1][:n] for n in (100, 200, 400, 700)],
-              GenerationConfig(max_new_tokens=2))
+
+def counted_run(torch, ops, eng, run):
+    """``run()`` on a warmed engine, counted: its outputs and every
+    kernel's launches (a graph's replays credited). Raises if the run
+    captured anything."""
     torch.cuda.synchronize()
-    p0, s0 = eng.prefills, eng.decode_steps
+    before = dict(eng.programs.captures)
     ops.reset_launch_counts()
-    outs = eng.serve(prompts, gen)
+    out = run()
     torch.cuda.synchronize()
-    return outs, ops.launch_counts(), eng.prefills - p0, eng.decode_steps - s0
+    counts = ops.launch_counts()
+    if eng.programs.captures != before:
+        raise AssertionError(f"captures {eng.programs.captures} after "
+                             f"warmup's {before}")
+    return out, counts
+
+
+def run_engine(torch, ops, eng, prompts, gen):
+    """``eng.warmup(8)`` (every prefill bucket run once, the serve's
+    8-step segment captured), then the counted serve. Returns (outputs,
+    launch counts, prefills, decode steps, the graphs' record)."""
+    warm = eng.warmup(8)
+    p0, s0 = eng.prefills, eng.decode_steps
+    outs, counts = counted_run(torch, ops, eng,
+                               lambda: eng.serve(prompts, gen))
+    return (outs, counts, eng.prefills - p0, eng.decode_steps - s0,
+            graphs_record(eng, warm))
+
+
+def check_serve_launches(counts, L, n_pre, n_steps, decode):
+    check_launches(counts, expect(
+        counts, rms_norm=(2 * L + 1) * (n_pre + n_steps),
+        fused_rope=2 * L * n_pre, flash_fwd=L * n_pre,
+        **{decode: L * n_steps}),
+        f"prefills {n_pre}, decode steps {n_steps}, layers {L}")
+
+
+def first_splits(torch, np, model, prompts, outs, ref_outs):
+    """Per prompt, the first token where ``outs`` parts from ``ref_outs``
+    (its length where they agree throughout), and the uncached model's
+    top-2 margin there."""
+    splits = [next((i for i in range(len(d)) if d[i] != p[i]), len(d))
+              for d, p in zip(outs, ref_outs)]
+    margins = []
+    with torch.no_grad():
+        for p, d, n in zip(prompts, outs, splits):
+            if n == len(d):
+                margins.append(None)
+                continue
+            seq = torch.from_numpy(np.concatenate([p, d[:n]]).astype(
+                np.int64))[None].to(model.device)
+            top2 = model(seq)[0, -1].float().topk(2).values
+            margins.append((top2[0] - top2[1]).item())
+    return splits, margins
+
+
+def pool_gb(eng) -> float:
+    return sum(t.numel() * t.element_size() for entry in eng.caches
+               for t in entry) / 1e9
 
 
 def serve_phase(torch, dev, np, profile=False):
-    """The 7B preset through the paged engine, then the same model through
-    ``CausalLMEngine.generate`` and the dense engine."""
+    """The 7B preset through the paged engine, bf16 then int8 pools, then
+    the same model through ``CausalLMEngine.generate`` and the dense
+    engine; each engine warmed before its counted run."""
     from paddle_tpu_torch import (GenerationConfig, LlamaForCausalLM,
                                   PagedContinuousBatchingEngine, llama_config,
                                   ops)
@@ -2456,44 +2551,59 @@ def serve_phase(torch, dev, np, profile=False):
                              generator=torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = PagedContinuousBatchingEngine(model, max_batch=8, num_pages=512,
-                                        page_size=16, max_pages=64)
     rng = np.random.RandomState(0)
     plens = [100, 180, 260, 340, 420, 500, 600, 700]
     prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in plens]
     gen = GenerationConfig(max_new_tokens=32)
-    outs, counts, n_pre, n_steps = run_engine(torch, ops, eng, prompts, gen)
     L = cfg.num_hidden_layers
-    check_launches(counts, expect(
-        counts, rms_norm=(2 * L + 1) * (n_pre + n_steps),
-        fused_rope=2 * L * n_pre, flash_fwd=L * n_pre,
-        paged_decode=L * n_steps),
-        f"prefills {n_pre}, decode steps {n_steps}, layers {L}")
-    rec = {
-        "preset": PRESET, "layers": L, "dtype": "bfloat16",
-        "engine": "PagedContinuousBatchingEngine(max_batch=8, "
-                  "num_pages=512, page_size=16, max_pages=64)",
-        "prompt_lens": plens, "max_new_tokens": gen.max_new_tokens,
-        "model_init_s": init_s,
-        **serve_stats(eng, outs, cfg.vocab_size, gen.max_new_tokens),
-        "prefills": n_pre, "decode_steps": n_steps, "launches": counts,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-    }
-    if profile:
-        rec["profile"] = profile_run(torch, lambda: eng.serve(prompts, gen))
-    del eng
-    torch.cuda.empty_cache()
+    recs = []
+    for kv in ("bf16", "int8"):
+        eng = PagedContinuousBatchingEngine(model, max_batch=8,
+                                            num_pages=512, page_size=16,
+                                            max_pages=64, kv_dtype=kv)
+        outs, counts, n_pre, n_steps, graphs = run_engine(
+            torch, ops, eng, prompts, gen)
+        check_serve_launches(counts, L, n_pre, n_steps, "paged_decode")
+        rec = {
+            "preset": PRESET, "layers": L, "dtype": "bfloat16",
+            "engine": f"PagedContinuousBatchingEngine(max_batch=8, "
+                      f"num_pages=512, page_size=16, max_pages=64, "
+                      f"kv_dtype={kv!r})",
+            "prompt_lens": plens, "max_new_tokens": gen.max_new_tokens,
+            "model_init_s": init_s,
+            **serve_stats(eng, outs, cfg.vocab_size, gen.max_new_tokens),
+            "prefills": n_pre, "decode_steps": n_steps, "launches": counts,
+            "graphs": graphs, "pool_gb": pool_gb(eng),
+            "page_cost": eng.kv_page_cost(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        }
+        if kv == "int8":
+            splits, margins = first_splits(torch, np, model, prompts, outs,
+                                           recs[0]["outs"])
+            rec.update(first_split_from_bf16=splits,
+                       split_top2_margins=margins)
+        if profile:
+            rec["profile"] = profile_run(torch,
+                                         lambda: eng.serve(prompts, gen))
+        rec["outs"] = outs
+        recs.append(rec)
+        del eng
+        torch.cuda.empty_cache()
+    outs = recs[0]["outs"]
+    for r in recs:
+        del r["outs"]
     gen_rec = generate_phase(torch, np, model, profile)
     dense_rec = dense_serve_phase(torch, np, model, prompts, outs, profile)
     del model
     torch.cuda.empty_cache()
-    return rec, gen_rec, dense_rec
+    return recs[0], recs[1], gen_rec, dense_rec
 
 
 def generate_phase(torch, np, model, profile=False):
     """``CausalLMEngine.generate`` on GEN["batch"] prompts of GEN["plen"]
-    tokens: one batched prefill, then GEN["new"] - 1 one-token steps."""
+    tokens, the engine warmed at that batch: one batched prefill, then
+    GEN["new"] - 1 replays of the captured step."""
     from paddle_tpu_torch import CausalLMEngine, GenerationConfig, ops
 
     cfg = model.config
@@ -2502,13 +2612,11 @@ def generate_phase(torch, np, model, profile=False):
     ids = np.random.RandomState(1).randint(0, cfg.vocab_size,
                                            (b, plen)).astype(np.int32)
     eng = CausalLMEngine(model, max_batch=b, max_len=GEN["max_len"])
-    eng.generate(ids, GenerationConfig(max_new_tokens=2))      # warm-up
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    out = eng.generate(ids, GenerationConfig(max_new_tokens=new))
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    warm = eng.warmup(batch=b)
+    out, counts = counted_run(torch, ops, eng, lambda: eng.generate(
+        ids, GenerationConfig(max_new_tokens=new)))
+    graphs = graphs_record(eng, warm)
     steps = new - 1
     check_launches(counts, expect(
         counts, rms_norm=(2 * L + 1) * (1 + steps),
@@ -2524,11 +2632,13 @@ def generate_phase(torch, np, model, profile=False):
            "ttft_s": st["ttft_s"], "decode_s": st["decode_s"],
            "tpot_s": st["decode_s"] / steps,
            "decode_tokens_per_s": b * steps / st["decode_s"],
-           "launches": counts,
+           "launches": counts, "graphs": graphs,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     if profile:
         rec["profile"] = profile_run(torch, lambda: eng.generate(
             ids, GenerationConfig(max_new_tokens=new)))
+    del eng
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -2543,34 +2653,93 @@ def dense_serve_phase(torch, np, model, prompts, paged_outs, profile=False):
     L = cfg.num_hidden_layers
     eng = ContinuousBatchingEngine(model, **DENSE)
     gen = GenerationConfig(max_new_tokens=32)
-    outs, counts, n_pre, n_steps = run_engine(torch, ops, eng, prompts, gen)
-    check_launches(counts, expect(
-        counts, rms_norm=(2 * L + 1) * (n_pre + n_steps),
-        fused_rope=2 * L * n_pre, flash_fwd=L * n_pre,
-        decode_mha=L * n_steps),
-        f"prefills {n_pre}, decode steps {n_steps}, layers {L}")
-    splits = [next((i for i in range(len(d)) if d[i] != p[i]), len(d))
-              for d, p in zip(outs, paged_outs)]
-    margins = []        # the uncached model's top-2 margin at each split
-    with torch.no_grad():
-        for p, d, n in zip(prompts, outs, splits):
-            if n == len(d):
-                margins.append(None)
-                continue
-            seq = torch.from_numpy(np.concatenate([p, d[:n]]).astype(
-                np.int64))[None].to(model.device)
-            top2 = model(seq)[0, -1].float().topk(2).values
-            margins.append((top2[0] - top2[1]).item())
+    outs, counts, n_pre, n_steps, graphs = run_engine(torch, ops, eng,
+                                                      prompts, gen)
+    check_serve_launches(counts, L, n_pre, n_steps, "decode_mha")
+    splits, margins = first_splits(torch, np, model, prompts, outs,
+                                   paged_outs)
     rec = {"engine": f"ContinuousBatchingEngine(max_batch="
                      f"{DENSE['max_batch']}, max_len={DENSE['max_len']})",
            **serve_stats(eng, outs, cfg.vocab_size, gen.max_new_tokens),
            "prefills": n_pre, "decode_steps": n_steps, "launches": counts,
-           "first_split_from_paged": splits, "split_top2_margins": margins}
+           "graphs": graphs, "first_split_from_paged": splits,
+           "split_top2_margins": margins}
     if profile:
         rec["profile"] = profile_run(torch, lambda: eng.serve(prompts, gen))
     del eng
     torch.cuda.empty_cache()
     return rec
+
+
+def serve_times(tree: str) -> dict:
+    """Phase 5's runs with the package of the checkout at ``tree``: the 7B
+    preset through the paged engine (and with int8 pools where that
+    checkout takes ``kv_dtype``), the dense engine and
+    ``CausalLMEngine.generate``, each engine warmed first as that checkout
+    allows (``warmup()`` where it has one, else a warm-up serve of a
+    prompt per prefill bucket, or a 2-token ``generate``, as phase 5 did
+    before ``warmup()`` existed). TTFT p50, TPOT p50 and decode tokens/s
+    of each run. Only public names are used, so a parent tree runs it as
+    well. Run for two checkouts in turns, each in a fresh process, it
+    compares them on one card."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from paddle_tpu_torch import (CausalLMEngine, ContinuousBatchingEngine,
+                                  GenerationConfig, LlamaForCausalLM,
+                                  PagedContinuousBatchingEngine, llama_config)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = llama_config(PRESET, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=torch.Generator(dev).manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (100, 180, 260, 340, 420, 500, 600, 700)]
+    gen = GenerationConfig(max_new_tokens=32)
+    paged = dict(max_batch=8, num_pages=512, page_size=16, max_pages=64)
+    engines = [("paged", lambda: PagedContinuousBatchingEngine(model,
+                                                               **paged))]
+    if "kv_dtype" in inspect.signature(
+            PagedContinuousBatchingEngine).parameters:
+        engines.append(("int8", lambda: PagedContinuousBatchingEngine(
+            model, kv_dtype="int8", **paged)))
+    engines.append(("dense", lambda: ContinuousBatchingEngine(model,
+                                                               **DENSE)))
+    res = {"tree": os.path.abspath(tree), "card": smi_line()}
+    for name, make in engines:
+        eng = make()
+        if hasattr(eng, "warmup"):
+            eng.warmup(8)
+        else:
+            eng.serve([prompts[-1][:n] for n in (100, 200, 400, 700)],
+                      GenerationConfig(max_new_tokens=2))
+        torch.cuda.synchronize()
+        st = serve_stats(eng, eng.serve(prompts, gen), cfg.vocab_size,
+                         gen.max_new_tokens)
+        res[name] = {k: st[k] for k in ("ttft_p50_s", "tpot_p50_s",
+                                        "decode_tokens_per_s")}
+        del eng
+        torch.cuda.empty_cache()
+    b, new = GEN["batch"], GEN["new"]
+    ids = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (b, GEN["plen"])).astype(np.int32)
+    eng = CausalLMEngine(model, max_batch=b, max_len=GEN["max_len"])
+    if hasattr(eng, "warmup"):
+        eng.warmup(batch=b)
+    else:
+        eng.generate(ids, GenerationConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    eng.generate(ids, GenerationConfig(max_new_tokens=new))
+    st = eng.generate_stats
+    res["generate"] = {"ttft_s": st["ttft_s"],
+                       "tpot_s": st["decode_s"] / (new - 1),
+                       "decode_tokens_per_s": b * (new - 1) / st["decode_s"]}
+    return res
 
 
 def fmt_phase(torch, dev, profile=False):
@@ -2988,6 +3157,12 @@ def main(argv=None) -> int:
                          "GEMMs with fp32 and bf16 out) of the checkout at "
                          "TREE and print one JSON line (to compare "
                          "checkouts, run it for each in turns)")
+    ap.add_argument("--serve-times", metavar="TREE",
+                    help="only run phase 5's serves and generate with the "
+                         "package of the checkout at TREE, each engine "
+                         "warmed first, and print one JSON line of TTFT, "
+                         "TPOT and decode tokens/s (to compare checkouts, "
+                         "run it for each in turns)")
     ap.add_argument("--norm-rope-times", metavar="TREE",
                     help="only time rms_norm and fused_rope of the checkout "
                          "at TREE at the main paths' shapes (device ms and "
@@ -3013,6 +3188,9 @@ def main(argv=None) -> int:
         return 0
     if args.gemm_times:
         log(json.dumps(gemm_times(args.gemm_times)))
+        return 0
+    if args.serve_times:
+        log(json.dumps(serve_times(args.serve_times)))
         return 0
     if args.norm_rope_times:
         log(json.dumps(norm_rope_times(args.norm_rope_times)))
@@ -3115,15 +3293,19 @@ def main(argv=None) -> int:
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
-    sv, gn, ds = serve_phase(torch, dev, np, profile=args.profile)
-    record.update(serve=sv, generate=gn, dense_serve=ds)
+    sv, sq, gn, ds = serve_phase(torch, dev, np, profile=args.profile)
+    record.update(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds)
     record["phases"]["serve"] = time.perf_counter() - t
-    for what, r in (("paged", sv), ("dense", ds)):
+    for what, r in (("paged", sv), ("paged int8-pool", sq), ("dense", ds)):
         log(f"[serve] {PRESET} x{sv['layers']} bf16, {what} engine: TTFT p50 "
             f"{r['ttft_p50_s'] * 1e3:.1f} ms (max "
             f"{r['ttft_max_s'] * 1e3:.1f}), TPOT p50 "
             f"{r['tpot_p50_s'] * 1e3:.2f} ms, decode "
             f"{r['decode_tokens_per_s']:.1f} tok/s  [{smi}]")
+    log(f"[serve] pools: bf16 {sv['pool_gb']:.3f} GB, int8 "
+        f"{sq['pool_gb']:.3f} GB (scales included); int8 streams part from "
+        f"the bf16 ones at tokens {sq['first_split_from_bf16']} (of 32), "
+        f"top-2 margins there {sq['split_top2_margins']}")
     log(f"[serve] dense streams part from the paged ones at tokens "
         f"{ds['first_split_from_paged']} (of 32), where the top-2 logit "
         f"margins are {ds['split_top2_margins']}; peak "
@@ -3174,7 +3356,8 @@ def main(argv=None) -> int:
     log(f"[ops] {record['phases']['ops']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
-    runs = dict(serve=sv, generate=gn, dense_serve=ds, train=tr, fmt=fm,
+    runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
+                train=tr, fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
                 f32=record["f32"])

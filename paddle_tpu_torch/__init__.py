@@ -13,7 +13,9 @@ launches its kernel or raises.
 
 Ported so far: greedy inference of the Llama causal LM (``models.llama``,
 ``inference.generation``: the offline ``CausalLMEngine.generate`` and the
-dense and paged continuous-batching engines), its training, through the
+dense and paged continuous-batching engines, their decode captured as CUDA
+graphs with ``warmup()`` and ``reset_state()``, and int8 KV pools on the
+paged engine, ``quantization.kv``), its training, through the
 Layer API (``model(ids, labels).backward()``, with ``recompute``) and the
 functional AdamW step (``models.llama_functional.build_train_step``,
 ``optimizer.functional``), and the incubate ``FusedMultiTransformer``

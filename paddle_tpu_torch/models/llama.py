@@ -21,10 +21,13 @@ the backward (``distributed.fleet.recompute``) while the model trains.
 Serving forwards ported: ``forward_with_cache`` as a fresh prefill
 (``pos == 0``) or a one-token step at any ``pos`` into a dense cache,
 ``forward_decode_ragged`` (per-row lengths over a dense cache) and
-``forward_decode_paged`` over bf16 (model-dtype) page pools. Chunked
-prefill at an offset, int8 pools, speculative verify, LoRA and tensor
-parallelism are not ported yet and raise or are absent. Cache writes
-happen in place.
+``forward_decode_paged`` over page pools in the model's dtype or in int8
+with per-(page, kv head) scales (quantize on store,
+``quantization/kv.py``; K4 dequantizes inside the kernel). Chunked
+prefill at an offset, speculative verify, LoRA and tensor parallelism are
+not ported yet and raise or are absent. Cache writes happen in place, so
+a decode step reads and writes the same storage every time (what a
+captured CUDA graph needs).
 
 Page pools carry one extra SINK page at index ``num_pages``: the
 reference's ``pool.at[page, offs].set(..., mode="drop")`` drops writes of
@@ -51,6 +54,7 @@ from ..ops._decode import gqa_decode_attention
 from ..ops.attention import flash_attention
 from ..ops.fused_kernels import fused_rope
 from ..ops.paged_attention import paged_decode_mha
+from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR, quant_store_rows
 from ._utils import IGNORE_INDEX, masked_lm_loss
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_config",
@@ -232,18 +236,18 @@ class LlamaAttention(nn.Module):
                                    lens + live.to(lens.dtype))
         return self._out(ctx[:, None]), cache
 
-    def forward_decode_paged(self, x, cos_full, sin_full, cache: Cache,
+    def forward_decode_paged(self, x, cos_full, sin_full, cache,
                              page_table, lens, live):
         """One paged decode step. x [B, 1, h]; ``cache`` is this layer's
-        (k, v) pools [num_pages + 1, page_size, Hkv, hd] (last page = sink);
-        lens [B] int32 tokens already cached per row; live [B] bool. Each
-        live row writes its new K/V IN PLACE at position lens[b]; dead rows
-        and unmapped pages write into the sink. Returns (out, cache)."""
-        if len(cache) != 2:
-            raise NotImplementedError(
-                "int8 page pools (quant_store_rows) are not ported yet")
+        (k, v) pools [num_pages + 1, page_size, Hkv, hd] (last page = sink),
+        or (k, v, k_scale, v_scale) for int8 pools with scales
+        [num_pages + 1, Hkv] fp32; lens [B] int32 tokens already cached per
+        row; live [B] bool. Each live row writes its new K/V IN PLACE at
+        position lens[b] (int8: quantized against the page's running
+        absmax, which may re-quantize the page); dead rows and unmapped
+        pages write into the sink. Returns (out, cache)."""
         b = x.shape[0]
-        kp, vp = cache
+        kp, vp = cache[0], cache[1]
         ps = kp.shape[1]
         idx = lens.clamp(max=page_table.shape[1] * ps - 1).long()
         c = cos_full[idx][:, None, None, :]         # [B, 1, 1, d2] per row
@@ -253,10 +257,15 @@ class LlamaAttention(nn.Module):
         page = torch.where(live & (page >= 0), page,
                            kp.shape[0] - 1).long()
         offs = idx % ps
-        kp[page, offs] = kh[:, 0].to(kp.dtype)
-        vp[page, offs] = vh[:, 0].to(vp.dtype)
+        scales = cache[2:]
+        if scales:
+            quant_store_rows(kp, scales[0], page, offs, kh[:, 0])
+            quant_store_rows(vp, scales[1], page, offs, vh[:, 0])
+        else:
+            kp[page, offs] = kh[:, 0].to(kp.dtype)
+            vp[page, offs] = vh[:, 0].to(vp.dtype)
         ctx = paged_decode_mha(qh[:, 0], kp, vp, page_table,
-                               lens + live.to(lens.dtype))
+                               lens + live.to(lens.dtype), *scales)
         return self._out(ctx[:, None]), cache
 
 
@@ -326,7 +335,10 @@ class LlamaModel(nn.Module):
     def _tables(self, n: int, like: torch.Tensor) -> Cache:
         """RoPE tables for positions [0, n) in like's dtype, kept per
         (n, dtype, device): the decode loop asks for the same ones every
-        step."""
+        step. They are built at first use, so a decode step runs once
+        eagerly before it is captured into a CUDA graph (the engines'
+        ``inference/_graphs.py`` does), and a replay reads the same
+        tables."""
         key = (n, like.dtype, like.device)
         if key not in self._rope:
             cfg = self.config
@@ -379,13 +391,29 @@ class LlamaModel(nn.Module):
             new_caches.append(cache)
         return self.norm(x), new_caches
 
-    def init_paged_cache(self, num_pages: int, page_size: int) -> List[Cache]:
-        """Per-layer page pools [num_pages + 1, page_size, Hkv, hd] in the
-        model's dtype (the reference's ``kv_dtype="bf16"``); index
-        ``num_pages`` is the sink page."""
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         kv_dtype: str = "bf16") -> list:
+        """Per-layer page pools [num_pages + 1, page_size, Hkv, hd]; index
+        ``num_pages`` is the sink page. ``kv_dtype="bf16"`` keeps them in
+        the model's dtype, as (k, v); ``"int8"`` gives (k, v, k_scale,
+        v_scale): int8 zeros and fp32 scales [num_pages + 1, Hkv] at
+        ``KV_SCALE_FLOOR``, as the reference's int8 layout (plus the
+        sink's row)."""
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
         cfg = self.config
-        return self._new_kv((num_pages + 1, page_size, cfg.kv_heads,
-                             cfg.head_dim))
+        shape = (num_pages + 1, page_size, cfg.kv_heads, cfg.head_dim)
+        if kv_dtype == "bf16":
+            return self._new_kv(shape)
+        dev = self.embed_tokens.weight.device
+        return [(torch.zeros(shape, dtype=torch.int8, device=dev),
+                 torch.zeros(shape, dtype=torch.int8, device=dev),
+                 torch.full(shape[:1] + shape[2:3], KV_SCALE_FLOOR,
+                            dtype=torch.float32, device=dev),
+                 torch.full(shape[:1] + shape[2:3], KV_SCALE_FLOOR,
+                            dtype=torch.float32, device=dev))
+                for _ in range(cfg.num_hidden_layers)]
 
     def forward_decode_paged(self, input_ids, caches, page_table, lens, live):
         x = self.embed_tokens(input_ids)
@@ -464,8 +492,9 @@ class LlamaForCausalLM(nn.Module):
                                                           lens, live)
         return self.logits(hidden), caches
 
-    def init_paged_cache(self, num_pages: int, page_size: int):
-        return self.model.init_paged_cache(num_pages, page_size)
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         kv_dtype: str = "bf16"):
+        return self.model.init_paged_cache(num_pages, page_size, kv_dtype)
 
     def forward_decode_paged(self, input_ids, caches, page_table, lens,
                              live):

@@ -5,8 +5,8 @@ Port of ``paddle_tpu/ops/paged_attention.py::paged_decode_mha`` (pallas_call
 at :268) and its plain twin ``_paged_decode_ref`` (:126). The KV cache is a
 shared pool of pages ``[num_pages, page_size, Hkv, D]``; a row's cache is its
 row of ``page_table`` (page ids in order, -1 unmapped). int8 pools with
-per-(page, kv head) absmax scales (``quantization/kv.py`` conventions,
-copied below) under a bf16, fp16 or fp32 query (the JAX package stores int8
+per-(page, kv head) absmax scales (the conventions and constants of
+``quantization/kv.py``) under a bf16, fp16 or fp32 query (the JAX package stores int8
 pages under the model's own dtype, fp32 for its ``"tiny"`` preset, and
 dequantizes to fp32 whatever the query's type), or bf16, fp16 or fp32 pools
 under a query of their dtype. The kernel reads the pools through their
@@ -42,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..quantization.kv import KV_QMAX, KV_SCALE_FLOOR
 from . import _build
 from .decode_attention import (_TILE, _sm_count, _workspace,
                                decode_partials_ref, split_plan)
@@ -49,11 +50,6 @@ from .decode_attention import (_TILE, _sm_count, _workspace,
 __all__ = ["paged_decode_mha", "paged_decode_mha_ref", "paged_attention",
            "paged_attention_ref", "kernel_for", "KV_QMAX", "KV_SCALE_FLOOR",
            "paged_decode_partials_ref", "split_unit"]
-
-# int8 KV conventions (copied from paddle_tpu/quantization/kv.py):
-# value = int8 * scale / KV_QMAX; scales never drop below the floor
-KV_QMAX = 127.0
-KV_SCALE_FLOOR = 1e-8
 
 _WIDTHS = (32, 64, 128)  # the tile's instances in csrc/paged_decode.cu
 _MAX_GROUP = 8           # query heads of a group one block holds

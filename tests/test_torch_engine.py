@@ -133,15 +133,19 @@ def test_admission_limits_and_unported_modes():
     with pytest.raises(RuntimeError):
         eng.add_request(np.zeros(9, np.int32), cfg)
     assert eng.free_slots() == 2 and eng.alloc.free_pages == 4
-    # the reference's sampling, admission-mode, prefix-cache and int8-pool
-    # settings are not options of the port until their code is ported
+    # the reference's sampling, admission-mode and prefix-cache settings
+    # are not options of the port until their code is ported; kv_dtype is
+    # (int8 pools), and takes the reference's values only
     with pytest.raises(TypeError):
         GenerationConfig(max_new_tokens=2, do_sample=True)
-    for bad in (dict(admission_mode="optimistic"), dict(prefix_cache=True),
-                dict(kv_dtype="int8")):
+    for bad in (dict(admission_mode="optimistic"), dict(prefix_cache=True)):
         with pytest.raises(TypeError):
             PagedContinuousBatchingEngine(tm, max_batch=1, num_pages=4,
                                           page_size=4, max_pages=2, **bad)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        PagedContinuousBatchingEngine(tm, max_batch=1, num_pages=4,
+                                      page_size=4, max_pages=2,
+                                      kv_dtype="fp8")
 
 
 def test_write_tokens_drops_unmapped_writes():

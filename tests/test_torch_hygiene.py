@@ -236,6 +236,16 @@ def test_kernel_ops_modules_are_checked(module):
     assert ROOT / module in _sources()
 
 
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch/quantization/__init__.py",
+    "paddle_tpu_torch/quantization/kv.py",
+    "paddle_tpu_torch/inference/_graphs.py"])
+def test_serving_state_modules_are_checked(module):
+    """The modules of the int8-pool and captured-decode slice are among the
+    sources the no-JAX checks read."""
+    assert ROOT / module in _sources()
+
+
 @pytest.mark.parametrize("name,replaces", [
     ("grad_add", "pallas_kernels.py::fused_linear_param_grad_add"),
     ("grouped_matmul", "ops/pallas.py::grouped_matmul")])
