@@ -49,9 +49,13 @@ Phases, each timed, none caught and passed over:
    (rows ending on a split's boundary, shorter than one split, of length 1
    and 0, a capacity no split divides) and at batch 1 over 4096 tokens;
    the flash forward and every decode case are launched twice and held
-   bitwise equal to themselves; then each one's time beside its bound, its
-   plain version's and a library call's where one PyTorch call computes the
-   same function;
+   bitwise equal to themselves; K3's prefix-chunk instance (chunked
+   prefill) at the 7B widths, chunks of 256 of a 700-token prompt into a
+   cache of 1024 (offsets 0, 256, 512, the last chunk partial), MHA and GQA
+   32/8, bf16, fp16 and fp32: against its plain version, launched twice,
+   and its rows bitwise K3 causal's one-shot rows; then each one's time
+   beside its bound, its plain version's and a library call's where one
+   PyTorch call computes the same function;
 4. kernel against plain, end to end: the 7B widths at 2 layers, on the card
    (kernels) and on the CPU (plain versions), same weights and prompts,
    through the paged engine with bf16 and with int8 pools,
@@ -64,17 +68,28 @@ Phases, each timed, none caught and passed over:
    ``FusedMultiTransformer`` at the GPT-3 6.7B widths (batch 1 x 128): the
    context pass and 8 ragged decode steps within a stated tolerance of the
    CPU's, and each decode step within it of the card's own context pass at
-   that position; then the training configuration's widths at 2 layers,
-   one Layer-API backward and one AdamW train step on the card and on the
-   CPU from the same weights and batch: loss, gradients and updated
-   parameters within stated tolerances; then the card's step once more
+   that position; chunked prefill and sampling at 2 layers:
+   ``CausalLMEngine(prefill_chunk=64)`` and a chunked paged admission
+   against the CPU (last logits within the stated tolerance, greedy streams
+   up to a near-tie) and against the card's one-shot prefill, a sampled
+   ``generate`` and a mixed greedy and sampled paged serve captured against
+   uncaptured on the card (bitwise), and one seeded request served alone
+   and in a mixed batch (the same tokens); then the training
+   configuration's widths at 2 layers, one Layer-API backward and one
+   AdamW train step on the card and on the CPU from the same weights and
+   batch: loss, gradients and updated parameters within stated
+   tolerances; then the card's step once more
    from the same weights with ``FLAGS_flash_head_batched`` on: the route
    taken at every flash forward, and loss, gradients and parameters
-   bitwise those of the step without the flag; then fp32 on the card
+   bitwise those of the step without the flag; C-check-1: 30 AdamW steps of
+   that 2-layer model on the card and on the CPU from the same weights, a
+   fresh batch each step, the per-step loss gap and whether it grows (a
+   measurement); then fp32 on the card
    against the CPU (this slice's path, every kernel it runs counted): the
    ``"tiny"`` Llama preset (head dim 16) through its forward, a Layer-API
    backward, one ``build_train_step`` step, ``CausalLMEngine.generate``
-   and the paged engine's greedy stream, and a 2-layer fp32
+   (one-shot and in chunks of 32) and the paged engine's greedy stream,
+   and a 2-layer fp32
    ``FusedMultiTransformer`` at the 6.7B widths, each within a stated
    tolerance;
 5. serve: the ``"7b"`` preset at full depth (32 layers, bf16, random
@@ -85,11 +100,18 @@ Phases, each timed, none caught and passed over:
    pools' bytes); then the same model through ``CausalLMEngine.generate``
    (8 prompts of 512 tokens, 32 new tokens) and the dense
    ``ContinuousBatchingEngine.serve`` (the paged run's prompts), with the
-   first token where the dense and paged streams part. Each engine is
-   built, then ``warmup()``-ed (``warmup(8)``; ``generate``'s engine
-   ``warmup(batch=8)``), then runs: its decode programs replay captured
-   CUDA graphs, the capture count must not move over the run, and every
-   kernel's launch count over it (each replay credited with the launches
+   first token where the dense and paged streams part; and this slice's
+   serves: the paged engine with ``prefill_chunk=256`` serving the same 8
+   prompts through the serving scheduler's gap loop (one ``admit_chunk`` of
+   the admission in flight, then one ``decode_segment(8)``), greedy (the
+   first token where its streams part from the one-shot serve's), then
+   sampled (temperature 0.8, top-k 50, top-p 0.95, seed = request index;
+   TPOT against the greedy serve). Each engine is built, then
+   ``warmup()``-ed (``warmup(8)``: greedy and sampled segments;
+   ``generate``'s engine ``warmup(batch=8)``: greedy and sampled steps),
+   then runs: its decode programs replay captured CUDA graphs, the capture
+   count must not move over the run, and every kernel's launch count over
+   it (each replay credited with the launches
    its graph holds) is held against the count the path implies; the
    captures, their seconds and their pools' bytes are recorded;
 6. train: the repo's training configuration (``bench.py``: llama 350m with
@@ -161,6 +183,16 @@ TRAIN_E2E = dict(layers=2, batch=1, seq=512)   # phase 4's card-vs-CPU step
 # GEN["batch"] prompts of GEN["plen"] tokens, and the dense engine's slots
 GEN = dict(batch=8, plen=512, new=32, max_len=1024)
 DENSE = dict(max_batch=8, max_len=1024)
+# chunked prefill at the 7B widths (phases 3 and 5): chunks of 256 tokens
+# into the paged engine's dense mini cache of max_len = 1024 rows; phase 3
+# cuts a prompt of 700 tokens (chunks at 0, 256, 512, the last one 188 real
+# rows); phase 4 runs chunks of 64 at 2 layers
+PREFIX = dict(chunk=256, cache=1024, prompt=700, e2e_chunk=64)
+# phase 5's sampled serve (and phase 4's sampled runs): each request's seed
+# is its index
+SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95)
+# C-check-1 (phase 4): train steps of the 2-layer bf16 model, card and CPU
+DRIFT_STEPS = 30
 # GPT-3 6.7B widths (paddle_tpu/models/gpt.py:54, preset "6b7": hidden
 # 4096, 32 layers, 32 heads, FFN 4 x hidden) as a FusedMultiTransformer,
 # with phase 7's batch, context, cache length and decode steps
@@ -274,6 +306,9 @@ TOL = {"rms_norm": dict(atol=1e-3, rtol=BF16_STEP),
        "paged_attention": dict(atol=1e-4, rtol=BF16_STEP),
        "flash_hb": dict(atol=1e-4, rtol=BF16_STEP, outside=1e-4,
                         cap=2.0 ** -5)}
+# K3's prefix-chunk instance runs K3's arithmetic (its rows are bitwise K3
+# causal's), so it is held to K3's limit
+TOL["flash_fwd_prefix"] = TOL["flash_fwd"]
 LSE_ATOL = 1e-3                 # fp32 log-sum-exp, a few fp32 ulps of work
 # end to end (phase 4): bf16 activations on both sides, matmuls accumulated
 # in another order on the card than on the CPU; logits near 5-8 resolve to
@@ -318,6 +353,7 @@ REPLACES = {
     "rms_norm": "paddle_tpu/ops/pallas_kernels.py:67",
     "fused_rope": "paddle_tpu/ops/pallas_kernels.py:245",
     "flash_fwd": "paddle_tpu/ops/flash_attention_kernel.py:331",
+    "flash_fwd_prefix": "paddle_tpu/ops/pallas.py:167",
     "paged_decode": "paddle_tpu/ops/paged_attention.py:268",
     "flash_bwd_dq": "paddle_tpu/ops/flash_attention_kernel.py:497",
     "flash_bwd_dkv": "paddle_tpu/ops/flash_attention_kernel.py:519",
@@ -332,6 +368,7 @@ SOURCES = {
     "rms_norm": ("cuda", "paddle_tpu_torch/csrc/norm_rope.cu"),
     "fused_rope": ("cuda", "paddle_tpu_torch/csrc/norm_rope.cu"),
     "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_fwd.cu"),
+    "flash_fwd_prefix": ("cuda", "paddle_tpu_torch/csrc/flash_fwd.cu"),
     "paged_decode": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu"),
     "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu"),
     "flash_bwd_dkv": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu"),
@@ -345,10 +382,12 @@ ROUTE_SOURCES = {
     "flash_hb": ("cuda", "paddle_tpu_torch/ops/flash_attention_hb.py"),
     "paged_attention": ("cuda", "paddle_tpu_torch/ops/paged_attention.py"),
 }
-PATHS = ("serve", "serve_int8", "generate", "dense_serve", "train", "fmt",
-         "train_hb", "ops", "f32")
-# the decode paths, which run K4 and K7: phase 5's through captured graphs
-SLICE_PATHS = ("serve", "serve_int8", "generate", "dense_serve", "fmt")
+PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
+         "serve_sampled", "train", "fmt", "train_hb", "ops", "f32")
+# the decode paths, which run K4 and K7 (phase 5's through captured graphs),
+# and this slice's chunked and sampled serves
+SLICE_PATHS = ("serve", "serve_int8", "generate", "dense_serve",
+               "serve_chunked", "serve_sampled", "fmt")
 EARLIER_PATHS = (("train", "f32"), ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
@@ -507,6 +546,7 @@ def kernel_phase(torch, dev, np):
                     qt, kt, vt, is_causal=True)),
             instances={})
 
+    prefix_cases(torch, ops, F, randn, rows, cases, NH, D, dev)
     flash_bwd_cases(torch, ops, F, randn, rows, cases)
 
     # K4 paged decode: the serving batch, GQA 32/8, and int8 pools; each
@@ -550,6 +590,76 @@ def kernel_phase(torch, dev, np):
         log(f"  {name:13s} {tag:66s} max|kernel-plain| {err:.3g} "
             f"(atol {TOL[name]['atol']:g}, rtol {TOL[name]['rtol']:.3g})")
     return rows, cases
+
+
+def prefix_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
+    """K3's prefix-chunk instance at the chunked serve's shape (7B widths,
+    batch 1, chunks of PREFIX["chunk"] into a cache of PREFIX["cache"]
+    rows): a prompt of PREFIX["prompt"] tokens in chunks at 0, 256 and 512
+    (the last one partial, its pad rows' K/V written as the engine writes
+    them), MHA and GQA 32/8, in bf16, fp16 and fp32. Each chunk is launched
+    twice (bitwise), held against its plain version at K3's limit, and its
+    real rows must be bitwise the rows of K3 causal over the whole prompt
+    (the one-shot prefill) on the card. Timed at the last chunk (offset
+    512: 256 queries, 188 of them the prompt's, over 768 keys) in each
+    dtype, MHA, beside its bound (the chunk's causal pairs), its plain
+    version and SDPA with the boolean mask over [C, pos + C]."""
+    c, w, n = PREFIX["chunk"], PREFIX["cache"], PREFIX["prompt"]
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    peak = {bf: BF16_FLOPS, f16: BF16_FLOPS, f32: FP32_FLOPS}
+    for dt in (bf, f16, f32):
+        for hkv in (NH, NH // 4):
+            q = randn(1, n, NH, D, dtype=dt)
+            k = randn(1, n, hkv, D, dtype=dt)
+            v = randn(1, n, hkv, D, dtype=dt)
+            one, _ = ops.flash_attention_bshd(q, k, v, causal=True)
+            kc = randn(1, w, hkv, D, dtype=dt)     # rows past n: pad K/V
+            vc = randn(1, w, hkv, D, dtype=dt)
+            kc[:, :n], vc[:, :n] = k, v
+            for pos in range(0, n, c):
+                r = min(c, n - pos)
+                qc = randn(1, c, NH, D, dtype=dt)
+                qc[:, :r] = q[:, pos:pos + r]
+                at = torch.tensor(pos, dtype=torch.int32, device=dev)
+                out = twice(torch, "flash_fwd_prefix",
+                            lambda: ops.prefix_chunk_attention(qc, kc, vc,
+                                                               at))
+                ref = ops.prefix_chunk_attention_ref(qc, kc, vc, at)
+                tag = (f"C={c} pos={pos} rows={r} W={w} Hkv={hkv} D={D} "
+                       f"{str(dt)[6:]}")
+                err = check_close(torch, f"flash_fwd_prefix {tag}", out,
+                                  ref, **TOL["flash_fwd_prefix"])
+                if not torch.equal(out[:, :r], one[:, pos:pos + r]):
+                    raise AssertionError(
+                        f"flash_fwd_prefix {tag}: the chunk's rows differ "
+                        f"from K3 causal's one-shot rows")
+                cases.append(("flash_fwd_prefix", tag, err))
+                if pos + c < n or hkv != NH:
+                    continue        # timed: the last chunk, MHA
+                nbytes = (2 * qc.numel() + 2 * (pos + c) * hkv * D) \
+                    * qc.element_size()
+                flops = 4 * D * causal_pairs(c, pos + c) * NH
+                bms, by = bound(nbytes, flops, peak[dt])
+                timed = dict(
+                    shape=tag, bound_ms=bms, bound_by=by, max_abs_err=err,
+                    bitwise_one_shot=True,
+                    ms=time_ms(torch, lambda: ops.prefix_chunk_attention(
+                        qc, kc, vc, at)),
+                    plain_ms=time_ms(torch, lambda: ops.
+                                     prefix_chunk_attention_ref(
+                                         qc, kc, vc, at), reps=5))
+                if dt != bf:
+                    rows["flash_fwd_prefix"]["instances"][
+                        f"flash_fwd_prefix_{ENTRY[str(dt)]}"] = timed
+                    continue
+                qt = qc.transpose(1, 2)
+                kt, vt = (t[:, :pos + c].transpose(1, 2) for t in (kc, vc))
+                mask = (torch.arange(pos + c, device=dev)[None, :]
+                        <= pos + torch.arange(c, device=dev)[:, None])
+                timed["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask))
+                rows["flash_fwd_prefix"] = dict(**timed, instances={})
 
 
 def host_us(torch, fn, n=200, rounds=5, warmup=10) -> float:
@@ -2059,8 +2169,149 @@ def e2e_phase(torch, dev, np):
         rec[f"{name}_tokens_matched"] = matched_tokens(
             torch, np, cpu, firsts, got, run(make(cpu)))
         del eager, eng
+    rec["chunked_sampled"] = chunk_sample_e2e(torch, np, gpu, cpu)
     del gpu, cpu
     torch.cuda.empty_cache()
+    return rec
+
+
+def chunked_logits(torch, np, m, ids, chunk, width):
+    """Last-position logits [B, V] (fp32, on the CPU) of ``ids`` prefilled
+    through ``forward_with_cache`` in chunks of ``chunk`` at device offsets
+    (the last chunk padded), into a cache of ``width`` rows."""
+    dev = m.device
+    caches = m.init_cache(ids.shape[0], width)
+    with torch.no_grad():
+        for pos in range(0, ids.shape[1], chunk):
+            part = ids[:, pos:pos + chunk]
+            ids_c = np.zeros((ids.shape[0], chunk), np.int32)
+            ids_c[:, :part.shape[1]] = part
+            lg, caches = m.forward_with_cache(
+                torch.from_numpy(ids_c).to(dev), caches,
+                torch.tensor(pos, dtype=torch.int32, device=dev))
+    return lg[:, part.shape[1] - 1].float().cpu()
+
+
+def gap_admit(eng, prompts, cfgs, steps=4):
+    """Request 1 admitted at once, request 0 admitted chunk by chunk with a
+    decode segment between chunks, then both decoded to the end. Returns
+    (the two streams in prompt order, the chunked admission's last logits
+    [1, V] fp32 on the CPU)."""
+    other = eng.add_request(prompts[1], cfgs[1])
+    adm = eng.begin_admit(prompts[0], cfgs[0])
+    while not eng.admit_chunk(adm):
+        eng.decode_segment(steps)
+    logits = adm.last_logits.float().cpu()
+    while eng.decode_segment(steps):
+        pass
+    done = eng.collect_finished()
+    return [done[adm.rid], done[other]], logits
+
+
+def chunk_sample_e2e(torch, np, gpu, cpu):
+    """Chunked prefill and sampling at 2 layers of the 7B widths (this
+    slice's paths): the card's kernels against the CPU's plain versions,
+    and the card's captured programs against the same run uncaptured.
+
+    - ``CausalLMEngine(prefill_chunk=64)`` on 2 prompts of 150 tokens
+      (chunks at 0, 64, 128, the last partial): last-position logits
+      within LOGIT_ATOL of the CPU's and of the card's one-shot prefill;
+      greedy streams against the CPU's (up to a near-tie) and against the
+      card's one-shot engine's (first split recorded, and only at a
+      near-tie).
+    - A chunked paged admission (chunks of 64, a decode segment of another
+      request between chunks): its last logits and both greedy streams
+      against the CPU's.
+    - A sampled ``generate`` and a mixed greedy and sampled paged serve,
+      warmed (captured) against uncaptured on the card: bitwise.
+    - One seeded sampled request served alone and inside the mixed batch
+      (another slot, other batch-mates): the same tokens."""
+    from paddle_tpu_torch import (CausalLMEngine, GenerationConfig,
+                                  PagedContinuousBatchingEngine)
+
+    chunk, vocab = PREFIX["e2e_chunk"], gpu.config.vocab_size
+    rng = np.random.RandomState(12)
+    ids = rng.randint(0, vocab, (2, 150)).astype(np.int32)
+    short = rng.randint(0, vocab, (37,)).astype(np.int32)
+    greedy = GenerationConfig(max_new_tokens=8)
+    rec = {"chunk": chunk, "prompt_lens": [150, 37]}
+    card = chunked_logits(torch, np, gpu, ids, chunk, 256)
+    plain = chunked_logits(torch, np, cpu, ids, chunk, 256)
+    with torch.no_grad():
+        wide = np.zeros((2, 256), np.int32)
+        wide[:, :150] = ids
+        one, _ = gpu.forward_with_cache(torch.from_numpy(wide).to(
+            gpu.device), gpu.init_cache(2, 256), 0)
+    one = one[:, 149].float().cpu()
+    rec["generate_logit_err_cpu"] = (card - plain).abs().max().item()
+    rec["generate_logit_err_one_shot"] = (card - one).abs().max().item()
+    if max(rec["generate_logit_err_cpu"],
+           rec["generate_logit_err_one_shot"]) > LOGIT_ATOL:
+        raise AssertionError(f"chunked prefill: logits {rec} beyond "
+                             f"{LOGIT_ATOL}")
+
+    def lm(m, c=chunk):
+        return CausalLMEngine(m, max_batch=2, max_len=256, prefill_chunk=c)
+
+    streams = [list(lm(m).generate(ids, greedy)[:, 150:])
+               for m in (gpu, cpu)]
+    rec["generate_tokens_matched"] = matched_tokens(torch, np, cpu,
+                                                    list(ids), *streams)
+    one_shot = list(lm(gpu, None).generate(ids, greedy)[:, 150:])
+    splits, margins = first_splits(torch, np, gpu, list(ids), streams[0],
+                                   one_shot)
+    rec.update(generate_first_split_from_one_shot=splits,
+               generate_split_top2_margins=margins)
+    if any(mg is not None and mg >= NEAR_TIE for mg in margins):
+        raise AssertionError(f"chunked generate parts from the one-shot "
+                             f"one at {splits}, margins {margins}")
+
+    def paged(m, capture=True, batch=2):
+        eng = PagedContinuousBatchingEngine(
+            m, max_batch=batch, num_pages=48, page_size=16, max_pages=16,
+            prefill_chunk=chunk)
+        eng.programs.capture = capture
+        return eng
+
+    outs = [gap_admit(paged(m), [ids[0], short], [greedy, greedy])
+            for m in (gpu, cpu)]
+    rec["admit_logit_err_cpu"] = (outs[0][1] - outs[1][1]).abs().max().item()
+    if rec["admit_logit_err_cpu"] > LOGIT_ATOL:
+        raise AssertionError(f"chunked admission: logits differ by "
+                             f"{rec['admit_logit_err_cpu']:.3g}")
+    rec["admit_tokens_matched"] = matched_tokens(
+        torch, np, cpu, [ids[0], short], outs[0][0], outs[1][0])
+
+    sampled = [GenerationConfig(max_new_tokens=8, seed=s, **SAMPLED)
+               for s in (1, 2)]
+    warm = lm(gpu)
+    warm.warmup(batch=2)
+    before = dict(warm.programs.captures)
+    eager = lm(gpu)
+    eager.programs.capture = False
+    got, want = (e.generate(ids, sampled[0]) for e in (warm, eager))
+    if got.tolist() != want.tolist() or warm.programs.captures != before:
+        raise AssertionError(f"sampled generate: captured {got.tolist()} "
+                             f"against uncaptured {want.tolist()}, captures "
+                             f"{warm.programs.captures} after {before}")
+    mixed_p = [ids[1], short, ids[0]]
+    mixed_c = [sampled[0], greedy, sampled[1]]
+    warm = paged(gpu, batch=3)
+    warm.warmup(4)
+    before = dict(warm.programs.captures)
+    got = [o.tolist() for o in warm.serve(mixed_p, mixed_c,
+                                          segment_steps=4)]
+    want = [o.tolist() for o in paged(gpu, False, 3).serve(
+        mixed_p, mixed_c, segment_steps=4)]
+    if got != want or warm.programs.captures != before:
+        raise AssertionError(f"sampled paged serve: captured {got} against "
+                             f"uncaptured {want}")
+    alone = warm.serve([ids[0]], [sampled[1]], segment_steps=4)[0].tolist()
+    if alone != got[2] or warm.programs.captures != before:
+        raise AssertionError(f"a seeded request alone {alone} and in a "
+                             f"mixed batch {got[2]}")
+    rec.update(sampled_serve_streams=got, sampled_alone=alone,
+               captures=dict((str(k), n) for k, n in before.items()))
     return rec
 
 
@@ -2193,8 +2444,56 @@ def train_e2e_phase(torch, dev, np):
     rec["train_step"] = compare("train step", losses, (gpu, cpu), False)
     rec["train_step_hb"] = hb_step_bitwise(torch, gpu, cfg, start, ids,
                                            labels, losses[0])
+    rec["drift"] = train_drift(torch, np, (gpu, cpu), cfg, start)
     del gpu, cpu
     torch.cuda.empty_cache()
+    return rec
+
+
+def train_drift(torch, np, models, cfg, start):
+    """C-check-1: DRIFT_STEPS AdamW steps of the 2-layer bf16 model from the
+    same weights, a fresh seeded batch each step, on the card (kernels, with
+    their bf16 roundings of P, dS and P_drop) and on the CPU (plain
+    versions). Per step the loss on each side and their gap; whether the
+    gap grows (its mean over the last 10 steps above twice the first 10's
+    and above TRAIN_LOSS_ATOL); the parameters' largest relative gap at
+    the end. A measurement, not a gate: only a non-finite loss fails."""
+    from paddle_tpu_torch import build_train_step
+
+    losses = ([], [])
+    for m, out in zip(models, losses):
+        m.load_state_dict({k: v.to(m.device) for k, v in start.items()})
+        m.zero_grad(set_to_none=True)
+        step, init = build_train_step(cfg, lr=TRAIN["lr"],
+                                      clip_norm=TRAIN["clip"], remat="full",
+                                      device=m.device)
+        state = init(m)
+        r = np.random.RandomState(13)
+        for _ in range(DRIFT_STEPS):
+            tok = r.randint(0, cfg.vocab_size,
+                            (TRAIN_E2E["batch"], TRAIN_E2E["seq"] + 1))
+            ids = torch.from_numpy(tok[:, :-1].astype(np.int64))
+            labels = torch.from_numpy(tok[:, 1:].astype(np.int64))
+            out.append(float(step(m, state, ids, labels)))
+    gap = [abs(a - b) for a, b in zip(*losses)]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"C-check-1: losses {losses}")
+    first, last = float(np.mean(gap[:10])), float(np.mean(gap[-10:]))
+    slope = float(np.polyfit(np.arange(len(gap)), gap, 1)[0])
+    params = {k: rel_err(torch, p.detach().cpu(),
+                         models[1].get_parameter(k).detach())
+              for k, p in models[0].named_parameters()}
+    worst = max(params, key=params.get)
+    rec = {"steps": DRIFT_STEPS, "loss_card": losses[0],
+           "loss_cpu": losses[1], "loss_gap": gap,
+           "gap_mean_first10": first, "gap_mean_last10": last,
+           "gap_slope_per_step": slope,
+           "grows": bool(last > 2 * first and last > TRAIN_LOSS_ATOL),
+           "param_max_rel_err": params[worst], "param_worst": worst}
+    log(f"  C-check-1: {DRIFT_STEPS} steps, loss gap per step "
+        f"{[round(x, 5) for x in gap]}; mean first 10 {first:.5f}, last 10 "
+        f"{last:.5f}, slope {slope:.2e}/step, grows: {rec['grows']}; "
+        f"parameters' largest relative gap {params[worst]:.3g} ({worst})")
     return rec
 
 
@@ -2279,6 +2578,14 @@ def f32_phase(torch, dev, np):
     rec["generate_tokens_matched"] = matched_tokens(
         torch, np, cpu, list(pids), *[o[:, plen:] for o in outs],
         near_tie=F32_NEAR_TIE)
+    # the longer prompt prefilled in chunks of 32 (K3's fp32 prefix-chunk
+    # instance at width 64)
+    long = prompts[0][None]
+    outs = [CausalLMEngine(m, max_batch=1, max_len=128, prefill_chunk=32
+                           ).generate(long, gen) for m in models]
+    rec["chunked_generate_tokens_matched"] = matched_tokens(
+        torch, np, cpu, list(long), *[o[:, long.shape[1]:] for o in outs],
+        near_tie=F32_NEAR_TIE)
     streams = [PagedContinuousBatchingEngine(
         m, max_batch=2, num_pages=32, page_size=16, max_pages=8).serve(
             prompts, gen, segment_steps=4) for m in models]
@@ -2290,8 +2597,9 @@ def f32_phase(torch, dev, np):
     rec["seconds"] = time.perf_counter() - t0
     counts = ops.launch_counts()
     rec["launches"] = counts
-    ran = ("rms_norm", "fused_rope", "flash_fwd", "flash_bwd_dq",
-           "flash_bwd_dkv", "paged_decode", "decode_mha", "fused_layer_norm")
+    ran = ("rms_norm", "fused_rope", "flash_fwd", "flash_fwd_prefix",
+           "flash_bwd_dq", "flash_bwd_dkv", "paged_decode", "decode_mha",
+           "fused_layer_norm")
     log(f"  kernels: launches {counts} (the fp32 path); each of {ran} "
         f"must have launched, no other")
     if any(counts[k] == 0 for k in ran) or any(
@@ -2593,11 +2901,124 @@ def serve_phase(torch, dev, np, profile=False):
     outs = recs[0]["outs"]
     for r in recs:
         del r["outs"]
+    chunk_recs = chunked_serve_phase(torch, np, model, prompts, outs,
+                                     profile)
     gen_rec = generate_phase(torch, np, model, profile)
     dense_rec = dense_serve_phase(torch, np, model, prompts, outs, profile)
     del model
     torch.cuda.empty_cache()
-    return recs[0], recs[1], gen_rec, dense_rec
+    return (recs[0], recs[1], gen_rec, dense_rec) + chunk_recs
+
+
+def gap_serve(eng, prompts, cfgs, segment_steps=8):
+    """The serving scheduler's gap (``paddle_tpu/serving/scheduler.py``
+    :1761-1995) over an engine built with ``prefill_chunk``: while no
+    admission is in flight and the oldest pending request fits, begin its
+    admission; run one chunk of the admission in flight; then one decode
+    segment over the live requests. One admission is in flight at a time
+    (its dense mini cache is 512 MiB at the 7B widths). Returns the
+    outputs in submission order and sets ``eng.serve_stats`` as
+    ``serve()`` does (TTFT from the call to the first token on the host,
+    decode time and tokens of the segments)."""
+    t0 = time.perf_counter()
+    pending = list(range(len(prompts)))
+    inflight = None
+    order, first_at, done_at, results = {}, {}, {}, {}
+    decode_s, segments = 0.0, 0
+    while len(results) < len(prompts):
+        if inflight is None and pending:
+            if eng.can_admit(len(prompts[pending[0]]), cfgs[pending[0]]):
+                idx = pending.pop(0)
+                inflight = (idx, eng.begin_admit(prompts[idx], cfgs[idx]))
+            elif len(order) == len(results):
+                raise RuntimeError("gap loop: a request that can never be "
+                                   "admitted")
+        if inflight is not None and eng.admit_chunk(inflight[1]):
+            order[inflight[1].rid] = inflight[0]
+            first_at[inflight[0]] = time.perf_counter()
+            inflight = None
+        if len(order) > len(results):
+            t = time.perf_counter()
+            eng.decode_segment(segment_steps)
+            decode_s += time.perf_counter() - t
+            segments += 1
+        now = time.perf_counter()
+        for rid, seq in eng.collect_finished().items():
+            results[order[rid]] = seq
+            done_at[order[rid]] = now
+    n = len(prompts)
+    eng.serve_stats = {
+        "ttft_s": [first_at[i] - t0 for i in range(n)],
+        "finish_s": [done_at[i] - t0 for i in range(n)],
+        "decode_s": decode_s,
+        "decode_tokens": sum(len(results[i]) - 1 for i in range(n)),
+        "segments": segments, "wall_s": time.perf_counter() - t0}
+    return [results[i] for i in range(n)]
+
+
+def chunked_serve_phase(torch, np, model, prompts, paged_outs,
+                        profile=False):
+    """This slice's serves on the 7B model: the paged engine built with
+    ``prefill_chunk=PREFIX["chunk"]``, warmed (both segment programs
+    captured, the chunk program run once), serves phase 5's 8 prompts
+    through the gap loop of :func:`gap_serve`, greedy, then sampled
+    (SAMPLED, seed = request index). Each counted run captures nothing and
+    its launches are held against the path's: one prefill chunk per
+    ``admit_chunk`` (K3's prefix-chunk instance in every layer, no one-shot
+    prefill), one paged decode step per segment step. The greedy streams'
+    first split from the one-shot serve's is recorded with its top-2
+    margin; TPOT of the sampled serve against the greedy one."""
+    from paddle_tpu_torch import (GenerationConfig,
+                                  PagedContinuousBatchingEngine, ops)
+
+    cfg = model.config
+    L, n_new = cfg.num_hidden_layers, 32
+    eng = PagedContinuousBatchingEngine(
+        model, max_batch=8, num_pages=512, page_size=16, max_pages=64,
+        prefill_chunk=PREFIX["chunk"])
+    warm = eng.warmup(8)
+    graphs = graphs_record(eng, warm)
+    runs = {"greedy": [GenerationConfig(max_new_tokens=n_new)] * 8,
+            "sampled": [GenerationConfig(max_new_tokens=n_new, seed=i,
+                                         **SAMPLED) for i in range(8)]}
+    recs = []
+    for name, cfgs in runs.items():
+        c0, s0 = eng.prefill_chunks, eng.decode_steps
+        torch.cuda.reset_peak_memory_stats()
+        outs, counts = counted_run(torch, ops, eng, lambda: gap_serve(
+            eng, prompts, cfgs))
+        n_chunks, n_steps = eng.prefill_chunks - c0, eng.decode_steps - s0
+        check_launches(counts, expect(
+            counts, rms_norm=(2 * L + 1) * (n_chunks + n_steps),
+            fused_rope=2 * L * n_chunks, flash_fwd_prefix=L * n_chunks,
+            paged_decode=L * n_steps),
+            f"{name}: chunks {n_chunks}, decode steps {n_steps}, layers {L}")
+        rec = {"engine": f"PagedContinuousBatchingEngine(max_batch=8, "
+                         f"num_pages=512, page_size=16, max_pages=64, "
+                         f"prefill_chunk={PREFIX['chunk']})",
+               "loop": "gap loop: one admit_chunk, then one "
+                         "decode_segment(8)",
+               "configs": name if name == "greedy" else
+               f"{SAMPLED}, seed = request index",
+               **serve_stats(eng, outs, cfg.vocab_size, n_new),
+               "chunks": n_chunks, "decode_steps": n_steps,
+               "launches": counts, "graphs": graphs,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if name == "greedy":
+            splits, margins = first_splits(torch, np, model, prompts, outs,
+                                           paged_outs)
+            rec.update(first_split_from_one_shot=splits,
+                       split_top2_margins=margins)
+            if profile:
+                rec["profile"] = profile_run(torch, lambda: gap_serve(
+                    eng, prompts, cfgs))
+        else:
+            rec["tpot_p50_over_greedy"] = (rec["tpot_p50_s"]
+                                           / recs[0]["tpot_p50_s"])
+        recs.append(rec)
+    del eng
+    torch.cuda.empty_cache()
+    return tuple(recs)
 
 
 def generate_phase(torch, np, model, profile=False):
@@ -3287,16 +3708,25 @@ def main(argv=None) -> int:
     log(f"[e2e] fused transformer {json.dumps(record['fmt_e2e'])}")
     record["train_e2e"] = train_e2e_phase(torch, dev, np)
     log(f"[e2e] train {json.dumps(record['train_e2e'])}")
+    dr = record["train_e2e"]["drift"]
+    log(f"[e2e] C-check-1: {dr['steps']} steps of 2 layers, loss gap mean "
+        f"{dr['gap_mean_first10']:.5f} over the first 10 and "
+        f"{dr['gap_mean_last10']:.5f} over the last 10, grows: "
+        f"{dr['grows']}  [{smi}]")
     record["f32"] = f32_phase(torch, dev, np)
     record["phases"]["e2e"] = time.perf_counter() - t
     log(f"[e2e] fp32 {json.dumps(record['f32'])}")
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
-    sv, sq, gn, ds = serve_phase(torch, dev, np, profile=args.profile)
-    record.update(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds)
+    sv, sq, gn, ds, sc, ss = serve_phase(torch, dev, np,
+                                         profile=args.profile)
+    record.update(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
+                  serve_chunked=sc, serve_sampled=ss)
     record["phases"]["serve"] = time.perf_counter() - t
-    for what, r in (("paged", sv), ("paged int8-pool", sq), ("dense", ds)):
+    for what, r in (("paged", sv), ("paged int8-pool", sq), ("dense", ds),
+                    ("paged chunked (gap loop)", sc),
+                    ("paged chunked, sampled (gap loop)", ss)):
         log(f"[serve] {PRESET} x{sv['layers']} bf16, {what} engine: TTFT p50 "
             f"{r['ttft_p50_s'] * 1e3:.1f} ms (max "
             f"{r['ttft_max_s'] * 1e3:.1f}), TPOT p50 "
@@ -3306,6 +3736,10 @@ def main(argv=None) -> int:
         f"{sq['pool_gb']:.3f} GB (scales included); int8 streams part from "
         f"the bf16 ones at tokens {sq['first_split_from_bf16']} (of 32), "
         f"top-2 margins there {sq['split_top2_margins']}")
+    log(f"[serve] chunked streams part from the one-shot ones at tokens "
+        f"{sc['first_split_from_one_shot']} (of 32), top-2 margins there "
+        f"{sc['split_top2_margins']}; {sc['chunks']} chunks; sampled TPOT "
+        f"p50 {ss['tpot_p50_over_greedy']:.3f}x the greedy one")
     log(f"[serve] dense streams part from the paged ones at tokens "
         f"{ds['first_split_from_paged']} (of 32), where the top-2 logit "
         f"margins are {ds['split_top2_margins']}; peak "
@@ -3357,7 +3791,7 @@ def main(argv=None) -> int:
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
-                train=tr, fmt=fm,
+                serve_chunked=sc, serve_sampled=ss, train=tr, fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
                 f32=record["f32"])

@@ -11,11 +11,13 @@ Device policy: entry points run on the CUDA card unless the caller passes
 wrapper takes its plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.
 
-Ported so far: greedy inference of the Llama causal LM (``models.llama``,
+Ported so far: inference of the Llama causal LM (``models.llama``,
 ``inference.generation``: the offline ``CausalLMEngine.generate`` and the
 dense and paged continuous-batching engines, their decode captured as CUDA
-graphs with ``warmup()`` and ``reset_state()``, and int8 KV pools on the
-paged engine, ``quantization.kv``), its training, through the
+graphs with ``warmup()`` and ``reset_state()``, int8 KV pools on the
+paged engine, ``quantization.kv``, chunked prefill and chunked admission,
+and greedy or sampled decoding per request, ``inference.sampling``), its
+training, through the
 Layer API (``model(ids, labels).backward()``, with ``recompute``) and the
 functional AdamW step (``models.llama_functional.build_train_step``,
 ``optimizer.functional``), and the incubate ``FusedMultiTransformer``

@@ -23,6 +23,9 @@
 // of 80 floats (the two rows a warp touches fall in disjoint banks).
 // - flash_fwd_f32: one block per (64-query tile, query head, batch) walks
 //   the 64-key tiles up to the causal diagonal with an online softmax.
+//   flash_fwd_prefix_f32 is its prefix-chunk instance (kPos), the fp32 twin
+//   of flash_fwd.cu's: the diagonal's offset read from *pos on the device,
+//   the keys capped at min(Sk, *pos + Sq).
 // - flash_bwd_dq_f32: one block per (64-query tile, query head, batch)
 //   walks the key tiles, keeping dq in registers.
 // - flash_bwd_dkv_f32: one block per (64-key tile, kv head, batch) walks
@@ -147,13 +150,14 @@ constexpr size_t dkv_smem() {  // k_s, v_s, q_s, do_s; p_s, ds_s; lse, delta
   return sizeof(float) * (4 * kB * pitch<D>() + 2 * kB * kPStride + 2 * kB);
 }
 
-template <int D>
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, Strides qs, Strides ks,
-                     Strides vs, Strides os, int sq, int sk, int hq,
-                     int group, float scale, int causal, ptt::Dropout drop) {
+                     float* __restrict__ lse, const int* __restrict__ pos,
+                     Strides qs, Strides ks, Strides vs, Strides os, int sq,
+                     int sk_cap, int hq, int group, float scale, int causal,
+                     ptt::Dropout drop) {
   constexpr int kCols = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);  // [kB][D + 1]
@@ -163,7 +167,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
-  const int offset = sk - sq;
+  const int offset = kPos ? *pos : sk_cap - sq;
+  const int sk = kPos ? min(sk_cap, offset + sq) : sk_cap;
   const float* kb = k + b * ks.b + (h / group) * ks.h;
   const float* vb = v + b * vs.b + (h / group) * vs.h;
   const uint32_t hkey = drop.head_key(b, h);
@@ -426,19 +431,43 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D>
+template <int D, bool kPos>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v,
-                       float* o, float* lse, int batch, int sq, int sk,
-                       int hq, int hkv, Strides qs, Strides ks, Strides vs,
-                       Strides os, float scale, int causal, ptt::Dropout drop,
-                       cudaStream_t stream) {
-  cudaError_t err = set_smem(flash_fwd_f32_kernel<D>, fwd_smem<D>());
+                       float* o, float* lse, const int* pos, int batch,
+                       int sq, int sk, int hq, int hkv, Strides qs,
+                       Strides ks, Strides vs, Strides os, float scale,
+                       int causal, ptt::Dropout drop, cudaStream_t stream) {
+  cudaError_t err = set_smem(flash_fwd_f32_kernel<D, kPos>, fwd_smem<D>());
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kB - 1) / kB, hq, batch);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(
-      q, k, v, o, lse, qs, ks, vs, os, sq, sk, hq, hq / hkv, scale, causal,
-      drop);
+  flash_fwd_f32_kernel<D, kPos><<<grid, kThreads, fwd_smem<D>(), stream>>>(
+      q, k, v, o, lse, pos, qs, ks, vs, os, sq, sk, hq, hq / hkv, scale,
+      causal, drop);
   return cudaGetLastError();
+}
+
+template <bool kPos>
+int dispatch_fwd(const void* q, const void* k, const void* v, void* o,
+                 void* lse, const int* pos, int batch, int sq, int sk, int hq,
+                 int hkv, int d, const Strides (&st)[4], float scale,
+                 int causal, ptt::Dropout drop, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v);
+  float *fo = static_cast<float*>(o), *fl = static_cast<float*>(lse);
+  switch (d) {
+    case 64:
+      return launch_fwd<64, kPos>(fq, fk, fv, fo, fl, pos, batch, sq, sk, hq,
+                                  hkv, st[0], st[1], st[2], st[3], scale,
+                                  causal, drop, s);
+    case 128:
+      return launch_fwd<128, kPos>(fq, fk, fv, fo, fl, pos, batch, sq, sk,
+                                   hq, hkv, st[0], st[1], st[2], st[3],
+                                   scale, causal, drop, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int D>
@@ -491,24 +520,28 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              int causal, unsigned int seed,
                              unsigned int thresh, float drop_scale,
                              int dropout, void* stream) {
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      os{osb, oss, osh};
-  const ptt::Dropout drop{seed, thresh, drop_scale, dropout};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *fq = static_cast<const float*>(q),
-              *fk = static_cast<const float*>(k),
-              *fv = static_cast<const float*>(v);
-  float *fo = static_cast<float*>(o), *fl = static_cast<float*>(lse);
-  switch (d) {
-    case 64:
-      return launch_fwd<64>(fq, fk, fv, fo, fl, batch, sq, sk, hq, hkv, qs,
-                            ks, vs, os, scale, causal, drop, st);
-    case 128:
-      return launch_fwd<128>(fq, fk, fv, fo, fl, batch, sq, sk, hq, hkv, qs,
-                             ks, vs, os, scale, causal, drop, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Strides st[4] = {{qsb, qss, qsh}, {ksb, kss, ksh}, {vsb, vss, vsh},
+                         {osb, oss, osh}};
+  return dispatch_fwd<false>(q, k, v, o, lse, nullptr, batch, sq, sk, hq, hkv,
+                             d, st, scale, causal,
+                             ptt::Dropout{seed, thresh, drop_scale, dropout},
+                             stream);
+}
+
+// K3's prefix-chunk instance in fp32: the arguments of flash_fwd_prefix_bf16
+// (flash_fwd.cu) with fp32 tensors; pos is a device pointer to one int32.
+extern "C" int flash_fwd_prefix_f32(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* pos, int batch, int sq, int sk, int hq, int hkv, int d,
+    long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, long long osb,
+    long long oss, long long osh, float scale, int, unsigned int,
+    unsigned int, float, int, void* stream) {
+  const Strides st[4] = {{qsb, qss, qsh}, {ksb, kss, ksh}, {vsb, vss, vsh},
+                         {osb, oss, osh}};
+  return dispatch_fwd<true>(q, k, v, o, lse, static_cast<const int*>(pos),
+                            batch, sq, sk, hq, hkv, d, st, scale, 1,
+                            ptt::Dropout{0u, 0u, 1.f, 0}, stream);
 }
 
 extern "C" int flash_bwd_dq_f32(

@@ -41,6 +41,24 @@
 // above a warp's diagonal are skipped by that warp. The blocks of the last
 // query tiles (the longest causal walks) launch first. No atomics: two
 // launches give bitwise-equal results.
+//
+// The prefix-chunk instance (flash_fwd_prefix_*, kPos) is the same kernel for
+// chunked prefill, the port of
+// paddle_tpu/ops/pallas.py::prefix_chunk_attention (:167-213, the
+// absolute-position mask of _chunked_attention, :33-93; XLA on the TPU):
+// q is one chunk of C queries whose row i sits at absolute position pos + i,
+// k and v a cache of W rows whose first pos + C are written, and row i
+// attends keys <= pos + i. The kernel reads pos from device memory, so the
+// host never learns it and a captured program can replay at any offset: the
+// grid stays (heads, batch, C / 64), each block walks key tiles from 0 to the
+// one holding its last query's diagonal, and the key rows it stages stop at
+// min(W, pos + C). That is the causal instance with Sk = min(W, pos + C) and
+// the diagonal's offset pos in place of Sk - Sq, so a row's tiles, their
+// masks and its arithmetic are those of the same row in a one-shot causal
+// prefill: the rows agree bitwise. A query block that starts off a multiple
+// of 64 cuts key tiles elsewhere than the one-shot grid does; a masked entry
+// contributes an exact 0, and a tile wholly masked for a row leaves its m
+// and l as they were (alpha = 1).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -60,14 +78,15 @@ constexpr size_t smem_bytes() {  // q_s; k_s, v_s double-buffered
   return 2 * (kRows + 4 * kBK) * ptt::pitch<D>();
 }
 
-// T: __nv_bfloat16 or __half
-template <typename T, int D>
+// T: __nv_bfloat16 or __half. kPos: the prefix-chunk instance, which takes
+// the diagonal's offset from *pos (and caps the keys at *pos + sq).
+template <typename T, int D, bool kPos>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse,
+                 float* __restrict__ lse, const int* __restrict__ pos,
                  Strides qs, Strides ks, Strides vs, Strides os, int sq,
-                 int sk, int hq, int group, float scale, int causal,
+                 int sk_cap, int hq, int group, float scale, int causal,
                  ptt::Dropout drop) {
   constexpr int P = ptt::pitch<D>();
   constexpr int kN = kBK / 8;  // n-tiles of a score row
@@ -82,7 +101,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // heavy tiles first
   const int qw0 = q0 + warp * 16;                        // the warp's rows
-  const int offset = sk - sq;
+  const int offset = kPos ? *pos : sk_cap - sq;
+  const int sk = kPos ? min(sk_cap, offset + sq) : sk_cap;
   const T* kb = k + b * ks.b + (h / group) * ks.h;
   const T* vb = v + b * vs.b + (h / group) * vs.h;
 
@@ -239,43 +259,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPos>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int batch, int sq, int sk, int hq, int hkv,
-                   Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                   int causal, ptt::Dropout drop, cudaStream_t stream) {
+                   void* lse, const int* pos, int batch, int sq, int sk,
+                   int hq, int hkv, Strides qs, Strides ks, Strides vs,
+                   Strides os, float scale, int causal, ptt::Dropout drop,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, D, kPos>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, kPos>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid(hq, batch, (sq + kRows - 1) / kRows);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D, kPos><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      qs, ks, vs, os, sq, sk, hq, hq / hkv, scale, causal, drop);
+      pos, qs, ks, vs, os, sq, sk, hq, hq / hkv, scale, causal, drop);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPos>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
-             int batch, int sq, int sk, int hq, int hkv, int d,
-             const long long (&st)[12], float scale, int causal,
+             const int* pos, int batch, int sq, int sk, int hq, int hkv,
+             int d, const long long (&st)[12], float scale, int causal,
              ptt::Dropout drop, void* stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs, ks,
-                           vs, os, scale, causal, drop, s);
+      return launch<T, 64, kPos>(q, k, v, o, lse, pos, batch, sq, sk, hq, hkv,
+                                 qs, ks, vs, os, scale, causal, drop, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs, ks,
-                            vs, os, scale, causal, drop, s);
+      return launch<T, 128, kPos>(q, k, v, o, lse, pos, batch, sq, sk, hq,
+                                  hkv, qs, ks, vs, os, scale, causal, drop, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -301,11 +322,35 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
                       void* stream) {                                        \
     const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,                  \
                               vsb, vss, vsh, osb, oss, osh};                 \
-    return dispatch<T>(q, k, v, o, lse, batch, sq, sk, hq, hkv, d, st,       \
-                       scale, causal,                                        \
-                       ptt::Dropout{seed, thresh, drop_scale, dropout},      \
-                       stream);                                              \
+    return dispatch<T, false>(q, k, v, o, lse, nullptr, batch, sq, sk, hq,  \
+                              hkv, d, st, scale, causal,                     \
+                              ptt::Dropout{seed, thresh, drop_scale,         \
+                                           dropout},                         \
+                              stream);                                       \
   }
 
 FLASH_FWD_ENTRY(flash_fwd_bf16, __nv_bfloat16)
 FLASH_FWD_ENTRY(flash_fwd_f16, __half)
+
+// The prefix-chunk instance: the arguments of flash_fwd_bf16 with pos, a
+// device pointer to one int32 (the chunk's first absolute position), after
+// lse; sq is the chunk's length C and sk the cache's capacity W. Causal by
+// construction: causal and the dropout arguments are taken and ignored.
+#define FLASH_FWD_PREFIX_ENTRY(NAME, T)                                      \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
+                      void* lse, const void* pos, int batch, int sq, int sk, \
+                      int hq, int hkv, int d, long long qsb, long long qss,  \
+                      long long qsh, long long ksb, long long kss,           \
+                      long long ksh, long long vsb, long long vss,           \
+                      long long vsh, long long osb, long long oss,           \
+                      long long osh, float scale, int, unsigned int,         \
+                      unsigned int, float, int, void* stream) {              \
+    const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,                  \
+                              vsb, vss, vsh, osb, oss, osh};                 \
+    return dispatch<T, true>(q, k, v, o, lse, static_cast<const int*>(pos),  \
+                             batch, sq, sk, hq, hkv, d, st, scale, 1,        \
+                             ptt::Dropout{0u, 0u, 1.f, 0}, stream);          \
+  }
+
+FLASH_FWD_PREFIX_ENTRY(flash_fwd_prefix_bf16, __nv_bfloat16)
+FLASH_FWD_PREFIX_ENTRY(flash_fwd_prefix_f16, __half)

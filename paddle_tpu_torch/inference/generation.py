@@ -1,14 +1,29 @@
-"""Greedy generation and continuous-batching serving over dense and paged
-KV caches.
+"""Generation and continuous-batching serving over dense and paged KV
+caches.
 
-Port of ``paddle_tpu/inference/generation.py``: ``GenerationConfig``,
-length-bucketed prefill, the offline batch generator ``CausalLMEngine``,
-and ``ContinuousBatchingEngine`` (dense ``[max_batch, max_len]`` caches,
-one slot per row) / ``PagedContinuousBatchingEngine`` (a shared page pool,
-reserved admission). The engines admit requests into free slots between
-decode SEGMENTS (one prefill each, its KV put into the slot's cache rows or
+Port of ``paddle_tpu/inference/generation.py``: ``GenerationConfig`` (with
+the sampling settings), length-bucketed and chunked prefill, the offline
+batch generator ``CausalLMEngine``, and ``ContinuousBatchingEngine`` (dense
+``[max_batch, max_len]`` caches, one slot per row) /
+``PagedContinuousBatchingEngine`` (a shared page pool, reserved
+admission). The engines admit requests into free slots between decode
+SEGMENTS (one prefill each, its KV put into the slot's cache rows or
 pages), decode ``n_steps`` steps over every slot with per-row lengths, and
-retire finished rows between segments.
+retire finished rows between segments. With ``prefill_chunk=C`` a request
+can also be admitted chunk by chunk across segment gaps
+(:meth:`ContinuousBatchingEngine.begin_admit`, ``admit_chunk``,
+``abort_admit``), each chunk one fixed-shape prefill at a device offset
+(K3's prefix-chunk instance), and ``CausalLMEngine`` prefills prompts
+longer than C in chunks.
+
+Sampling (``inference/sampling.py``): each request's temperature, top-k,
+top-p, sample flag and seed are per-slot device vectors, so one program
+serves any mix of configs; a sampled row draws by a counter hash of its
+seed and the token's position, so its tokens do not depend on its
+batch-mates. The reference branches inside its compiled segment
+(``lax.cond``) to skip the sampling filter for an all-greedy batch; a CUDA
+graph cannot branch on a device value, so here the host picks the program:
+a segment (and ``generate``'s step) has a greedy graph and a sampled one.
 
 The reference compiles a segment (and ``generate``'s decode loop) into one
 ``lax.scan`` program and ``warmup()`` compiles it ahead of the requests;
@@ -23,10 +38,9 @@ Tokens, lengths and flags stay on the device and come back to the host once
 per segment (once per ``generate``), as in the reference. Bucketed prefill
 pads exactly as the reference does, so greedy streams of the two agree.
 
-Not ported yet: sampled decoding (the port is greedy), chunked prefill,
-prefill capture, speculative decoding, optimistic admission and
-preemption, the prefix cache, LoRA, tensor parallelism, monitor and
-tracing.
+Not ported yet: prefill capture, speculative decoding, optimistic
+admission and preemption, the prefix cache, LoRA, tensor parallelism,
+monitor and tracing.
 """
 from __future__ import annotations
 
@@ -40,6 +54,7 @@ import torch
 from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR
 from ._graphs import GraphCache
 from .paged_cache import PageAllocator, write_tokens, write_tokens_q
+from .sampling import SlotSampling, sample_rows
 
 __all__ = ["GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
            "PagedContinuousBatchingEngine", "prefill_buckets_for"]
@@ -76,6 +91,35 @@ def prefill_buckets_for(spec, max_len: int, floor: int = 16):
     return tuple(out)
 
 
+def _normalize_prefill_chunk(prefill_chunk, max_len: int):
+    """Validate the ``prefill_chunk`` engine knob (shared by all engines):
+    None, or a positive int that divides ``max_len``. Chunks start at
+    multiples of C, so divisibility is what keeps every (padded) chunk
+    window [pos, pos + C) inside the cache."""
+    if prefill_chunk is None:
+        return None
+    if isinstance(prefill_chunk, bool) or not isinstance(
+            prefill_chunk, (int, np.integer)) or prefill_chunk < 1:
+        raise ValueError(
+            f"prefill_chunk must be a positive int or None, got "
+            f"{prefill_chunk!r}")
+    if max_len % int(prefill_chunk) != 0:
+        raise ValueError(
+            f"max_len({max_len}) must be a multiple of "
+            f"prefill_chunk({int(prefill_chunk)}) — a final chunk "
+            "overhanging the cache would clamp and corrupt earlier KV")
+    return int(prefill_chunk)
+
+
+def _chunks(ids: np.ndarray, C: int, start: int = 0):
+    """The fixed-shape chunks of prompt ``ids`` [B, plen] from ``start``:
+    (offset, [B, C] ids, real rows r); only the final chunk may be partial,
+    and it is right-padded with id 0."""
+    for pos in range(start, ids.shape[1], C):
+        chunk = ids[:, pos:pos + C]
+        yield pos, _pad_ids(chunk, C), chunk.shape[1]
+
+
 def _bucket_for(buckets, plen: int) -> int:
     """Smallest bucket >= plen (buckets sorted, last == max_len); plen
     itself when ``buckets`` is None (exact-length prefill)."""
@@ -110,13 +154,6 @@ def _prompt_len(prompt) -> int:
     return _prompt_ids(prompt).shape[1]
 
 
-def _sample_rows(logits: torch.Tensor) -> torch.Tensor:
-    """Next token per row of [B, V] logits: the greedy branch of the
-    reference's ``_sample_rows``, argmax with the first maximum on ties
-    (as ``jnp.argmax``)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
-
-
 def _is_int(x) -> bool:
     return not isinstance(x, bool) and isinstance(x, (int, np.integer))
 
@@ -124,28 +161,54 @@ def _is_int(x) -> bool:
 class GenerationConfig:
     """Per-request decoding parameters, validated at construction (a
     malformed config from the network must fail admission, never a shared
-    decode segment). Decoding is greedy: the reference's sampling settings
-    arrive with the sampled branch of ``_sample_rows``."""
+    decode segment), with the reference's checks value for value.
+    ``do_sample=False`` decodes greedily; ``do_sample=True`` draws from
+    softmax(logits / temperature) filtered to the top-k logits (0: all) and
+    then to the top-p mass, with the noise stream of ``seed``. The
+    reference's ``speculative``, ``draft_k`` and ``adapter`` are not
+    ported and are not accepted."""
 
-    def __init__(self, max_new_tokens: int = 64,
-                 eos_token_id: Optional[int] = None):
-        if not _is_int(max_new_tokens) or not 1 <= max_new_tokens <= _INT32_MAX:
+    def __init__(self, max_new_tokens: int = 64, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0, do_sample: bool = False,
+                 eos_token_id: Optional[int] = None, seed: int = 0):
+        if not _is_int(max_new_tokens) or not (1 <= max_new_tokens
+                                               <= _INT32_MAX):
             raise ValueError(f"max_new_tokens must be an int in [1, 2**31), "
                              f"got {max_new_tokens!r}")
+        if not (isinstance(temperature, (int, float, np.floating))
+                and temperature > 0):
+            # `not (x > 0)` also rejects NaN
+            raise ValueError(f"temperature must be > 0, got {temperature!r}")
+        if not _is_int(top_k) or not 0 <= top_k <= _INT32_MAX:
+            raise ValueError(f"top_k must be an int in [0, 2**31) (0 "
+                             f"disables), got {top_k!r}")
+        if not (isinstance(top_p, (int, float, np.floating))
+                and 0 < top_p <= 1):
+            raise ValueError(f"top_p must satisfy 0 < top_p <= 1, got "
+                             f"{top_p!r}")
         if eos_token_id is not None and (
                 not _is_int(eos_token_id)
                 or not 0 <= eos_token_id <= _INT32_MAX):
             raise ValueError(f"eos_token_id must be an int in [0, 2**31) or "
                              f"None, got {eos_token_id!r}")
+        if not _is_int(seed):
+            raise ValueError(f"seed must be an int, got {seed!r}")
         self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.do_sample = bool(do_sample)
         self.eos_token_id = None if eos_token_id is None else int(eos_token_id)
+        self.seed = int(seed)
 
 
 class CausalLMEngine:
-    """Offline greedy generation for a causal LM exposing ``init_cache`` /
+    """Offline generation for a causal LM exposing ``init_cache`` /
     ``forward_with_cache``: one bucketed prefill of the whole batch into
-    dense caches, then one-token steps at ``pos = plen, plen + 1, ...``
-    (K7 over the cache). Runs on its model's device.
+    dense caches (or, for a prompt longer than ``prefill_chunk``, one
+    fixed-shape prefill per chunk at a device offset), then one-token steps
+    at ``pos = plen, plen + 1, ...`` (K7 over the cache), greedy or sampled
+    per the config. Runs on its model's device.
 
     The engine owns its caches, ``[max_batch, max_len]`` per layer,
     allocated once; a call of batch ``b`` uses their first ``b`` rows,
@@ -154,7 +217,10 @@ class CausalLMEngine:
     from a device counter and writes its token into a device history, so on
     the card it is one CUDA graph per batch size, captured at its first
     call (or by :meth:`warmup`) and replayed ``max_new_tokens - 1`` times:
-    the same graph serves every prompt length, eos and token budget.
+    the same graph serves every prompt length, eos and token budget. A
+    sampled call replays a second graph per batch size (key ``("step", b,
+    "sampled")``), whose sampling parameters are device vectors; row b
+    draws with the stream of seed ``config.seed + b``.
 
     Usage::
 
@@ -169,16 +235,20 @@ class CausalLMEngine:
     captures per key."""
 
     def __init__(self, model, max_batch: int, max_len: int,
-                 prefill_buckets="auto"):
+                 prefill_buckets="auto",
+                 prefill_chunk: Optional[int] = None):
         self.model = model
         self.device = model.device
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_buckets = prefill_buckets_for(prefill_buckets, max_len)
+        self.prefill_chunk = _normalize_prefill_chunk(prefill_chunk, max_len)
         self.generate_stats: Optional[dict] = None
         self.programs = GraphCache(self.device)
         dev, mb = self.device, max_batch
         self._caches = model.init_cache(mb, max_len)
+        self._samp = SlotSampling(mb, dev)
+        self._chunk_pos = torch.zeros((), dtype=torch.int32, device=dev)
         self._tok = torch.zeros(mb, dtype=torch.int32, device=dev)
         self._done = torch.zeros(mb, dtype=torch.bool, device=dev)
         self._eos = torch.full((), -1, dtype=torch.int32, device=dev)
@@ -197,6 +267,29 @@ class CausalLMEngine:
             self._rows(ids.shape[0]), 0)
         return logits
 
+    def _chunk(self, chunk: np.ndarray, pos: int) -> torch.Tensor:
+        """One prefill chunk [b, C] at offset ``pos`` into the first b rows
+        of the caches; the offset goes to the device (``_chunk_pos``), so
+        the program is the same at every offset. Returns the logits [b, C,
+        V]."""
+        self._chunk_pos.fill_(pos)
+        logits, _ = self.model.forward_with_cache(
+            torch.tensor(chunk, device=self.device),
+            self._rows(chunk.shape[0]), self._chunk_pos)
+        return logits
+
+    def _run_prefill(self, ids: np.ndarray) -> torch.Tensor:
+        """The prompt's prefill: in chunks of ``prefill_chunk`` when the
+        prompt is longer, else padded to its bucket. Returns the
+        last-position logits [b, V]."""
+        plen, C = ids.shape[1], self.prefill_chunk
+        if C is not None and plen > C:
+            for pos, chunk, r in _chunks(ids, C):
+                logits = self._chunk(chunk, pos)
+            return logits[:, r - 1]
+        return self._prefill(ids, _bucket_for(self.prefill_buckets,
+                                              plen))[:, plen - 1]
+
     def _install(self, b: int, tok: torch.Tensor, plen: int,
                  eos: Optional[int]) -> None:
         """The step's device state for a call: first tokens, done flags,
@@ -206,13 +299,16 @@ class CausalLMEngine:
         self._done[:b].copy_(tok == self._eos)
         self._pos.fill_(plen)
 
-    def _step(self, b: int) -> None:
+    def _step(self, b: int, sampled: bool = False) -> None:
         """One token for rows [0, b): feed ``_tok`` at ``_pos``, write the
-        greedy choice (eos once a row is done) into ``_tok`` and the
-        history at ``_pos + 1``, advance ``_pos``."""
+        next token (greedy, or drawn with the rows' sampling vectors when
+        ``sampled``; eos once a row is done) into ``_tok`` and the history
+        at ``_pos + 1``, advance ``_pos``."""
         logits, _ = self.model.forward_with_cache(
             self._tok[:b, None], self._rows(b), self._pos)
-        nxt = _sample_rows(logits[:, 0])
+        nxt = sample_rows(logits[:, 0],
+                          self._samp.view(slice(0, b)) if sampled else None,
+                          self._pos + 1)
         done = self._done[:b]
         has_eos = self._eos >= 0
         nxt = torch.where(done & has_eos, self._eos, nxt)
@@ -224,10 +320,11 @@ class CausalLMEngine:
 
     def warmup(self, batch: int) -> Dict[str, float]:
         """Run the step's state install, capture the step at this batch
-        size, and run one prefill of ``batch`` rows per bucket (cuBLAS's
-        and the kernels' first use at each width; prefill is not
-        captured), so a :meth:`generate` of ``batch`` rows captures
-        nothing. Returns ``{program: seconds}``."""
+        size (greedy and sampled), and run one prefill of ``batch`` rows
+        per bucket and, with ``prefill_chunk``, one chunk (cuBLAS's and the
+        kernels' first use at each width; prefill is not captured), so a
+        :meth:`generate` of ``batch`` rows captures nothing. Returns
+        ``{program: seconds}``."""
         if not 1 <= batch <= self.max_batch:
             raise ValueError(f"batch must be in [1, {self.max_batch}], got "
                              f"{batch}")
@@ -239,13 +336,21 @@ class CausalLMEngine:
             t0 = time.perf_counter()
             self._install(batch, self._tok[:batch].clone(), 0, None)
             out["admit_state"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self.programs.run(("step", batch), lambda: self._step(batch))
-            out[f"step_{batch}"] = time.perf_counter() - t0
+            for sampled in (False, True):
+                t0 = time.perf_counter()
+                self.programs.run(self._step_key(batch, sampled),
+                                  lambda: self._step(batch, sampled))
+                name = f"step_{batch}" + ("_sampled" if sampled else "")
+                out[name] = time.perf_counter() - t0
             for w in self.prefill_buckets or ():
                 t0 = time.perf_counter()
                 self._prefill(np.zeros((batch, w), np.int32), w)
                 out[f"prefill_{w}"] = time.perf_counter() - t0
+            if self.prefill_chunk is not None:
+                t0 = time.perf_counter()
+                self._chunk(np.zeros((batch, self.prefill_chunk), np.int32),
+                            0)
+                out["prefill_chunk"] = time.perf_counter() - t0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out["total"] = time.perf_counter() - t_all
@@ -259,15 +364,22 @@ class CausalLMEngine:
             for k, v in self._caches:
                 k.zero_()
                 v.zero_()
-            for t in (self._tok, self._done, self._pos, self._hist):
+            for t in (self._tok, self._done, self._pos, self._hist,
+                      self._chunk_pos):
                 t.zero_()
             self._eos.fill_(-1)
+            self._samp.reset()
+
+    @staticmethod
+    def _step_key(b: int, sampled: bool):
+        return ("step", b, "sampled") if sampled else ("step", b)
 
     def generate(self, input_ids,
                  config: Optional[GenerationConfig] = None) -> np.ndarray:
         """input_ids [B, prompt_len] (tensor, ndarray or nested lists).
         Returns int32 [B, prompt_len + max_new_tokens]: the prompt, then
-        the greedy tokens; a row that emits eos stays on eos."""
+        the generated tokens (greedy, or sampled under ``config.do_sample``);
+        a row that emits eos stays on eos."""
         cfg = config or GenerationConfig()
         if isinstance(input_ids, torch.Tensor):
             input_ids = input_ids.detach().cpu().numpy()
@@ -281,22 +393,51 @@ class CausalLMEngine:
                 f"prompt({plen}) + max_new_tokens({cfg.max_new_tokens}) "
                 f"exceeds engine max_len({self.max_len})")
         t0 = time.perf_counter()
-        n = cfg.max_new_tokens
+        n, sampled = cfg.max_new_tokens, cfg.do_sample
         with torch.no_grad():
-            logits = self._prefill(ids, _bucket_for(self.prefill_buckets,
-                                                    plen))
-            tok = _sample_rows(logits[:, plen - 1])
+            last = self._run_prefill(ids)
+            samp = at = None
+            if sampled:
+                self._samp.set(slice(0, b), cfg, torch.from_numpy(
+                    (cfg.seed + np.arange(b, dtype=np.int64)) % 2 ** 32))
+                samp = self._samp.view(slice(0, b))
+                at = torch.full((b,), plen, dtype=torch.int64,
+                                device=self.device)
+            tok = sample_rows(last, samp, at)
             first = tok.cpu().numpy()[:, None]     # on the host: TTFT ends
             t1 = time.perf_counter()
             self._install(b, tok, plen, cfg.eos_token_id)
+            key = self._step_key(b, sampled)
             for _ in range(n - 1):
-                self.programs.run(("step", b), lambda: self._step(b))
+                self.programs.run(key, lambda: self._step(b, sampled))
             rest = self._hist[:b, plen + 1:plen + n].cpu().numpy()
         gen = np.concatenate([first, rest], axis=1)
         self.generate_stats = {"ttft_s": t1 - t0,
                                "decode_s": time.perf_counter() - t1,
                                "decode_steps": n - 1}
         return np.concatenate([ids, gen], axis=1)
+
+
+class _ChunkedAdmission:
+    """Host-side state of one chunked admission in flight. The slot (and,
+    paged, the request's worst-case pages) is already claimed; ``mini``
+    (a dense ``max_len`` cache) takes the prompt's KV chunk by chunk until
+    the final chunk installs it and the request goes live under ``rid``.
+    Drive with ``engine.admit_chunk``; reclaim with ``engine.abort_admit``."""
+
+    __slots__ = ("rid", "slot", "ids", "plen", "cfg", "mini", "off",
+                 "closed", "last_logits")
+
+    def __init__(self, rid, slot, ids, plen, cfg, mini, off=0):
+        self.rid = rid
+        self.slot = slot
+        self.ids = ids
+        self.plen = plen
+        self.cfg = cfg
+        self.mini = mini
+        self.off = off            # the next chunk's offset
+        self.closed = False
+        self.last_logits = None
 
 
 class ContinuousBatchingEngine:
@@ -313,19 +454,30 @@ class ContinuousBatchingEngine:
     masked by the length and decode overwrites them, as the reference's
     zero rows past the bucket are. :class:`PagedContinuousBatchingEngine`
     replaces the layout hooks (``_make_caches``, ``_admit_cache``,
-    ``_warm_prefill``, ``_fwd_decode``) with a page pool. The engine runs
-    on its model's device.
+    ``_warm_prefill``, ``_fwd_decode``, ``_install_mini``,
+    ``_reserve_admit``) with a page pool. The engine runs on its model's
+    device.
 
-    A decode segment of ``n`` steps is one program keyed on ``n`` alone:
-    on the card a CUDA graph, captured at the key's first segment or by
-    :meth:`warmup`, and replayed after that (``programs``, a
+    A decode segment of ``n`` steps is one program keyed on ``n`` and on
+    whether any live request samples (``("segment", n)`` greedy,
+    ``("segment", n, "sampled")`` with the sampling filter): on the card a
+    CUDA graph, captured at the key's first segment or by :meth:`warmup`,
+    and replayed after that (``programs``, a
     :class:`~paddle_tpu_torch.inference._graphs.GraphCache`, counts the
     captures). It reads and writes only storage allocated once: the
     caches, the per-slot state (``lens``, ``last``, ``done_dev``,
-    ``active_dev``, ``eos``) and a ``[max_batch, n + 1]`` output buffer of
-    tokens and done flags, read back once a segment. :meth:`reset_state`
-    drops every request and resets that storage in place, keeping the
-    graphs.
+    ``active_dev``, ``eos``, the sampling vectors ``samp``) and a
+    ``[max_batch, n + 1]`` output buffer of tokens and done flags, read
+    back once a segment. :meth:`reset_state` drops every request and
+    resets that storage in place, keeping the graphs.
+
+    ``prefill_chunk=C`` (a divisor of ``max_len``) enables chunked
+    admission: :meth:`begin_admit` claims a slot (and pages) for a
+    request, each :meth:`admit_chunk` runs one fixed-shape prefill chunk of
+    C tokens into the admission's dense ``max_len`` mini cache at a device
+    offset, and the final chunk installs it and makes the request live, so
+    a caller can interleave decode segments between the chunks of a long
+    prompt; :meth:`abort_admit` gives the claim back.
 
     Usage::
 
@@ -333,18 +485,21 @@ class ContinuousBatchingEngine:
         eng.warmup(segment_steps=8)          # optional: capture ahead
         outs = eng.serve(prompts, GenerationConfig(max_new_tokens=32))
 
-    Host-side counters: ``prefills`` and ``decode_steps`` count the model
-    forwards run (warmup's included); ``serve_stats`` holds the timings
-    of the last :meth:`serve`."""
+    Host-side counters: ``prefills``, ``prefill_chunks`` and
+    ``decode_steps`` count the model forwards run (warmup's included);
+    ``serve_stats`` holds the timings of the last :meth:`serve`."""
 
     def __init__(self, model, max_batch: int, max_len: int,
-                 prefill_buckets="auto"):
+                 prefill_buckets="auto",
+                 prefill_chunk: Optional[int] = None):
         self.model = model
         self.device = model.device
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_buckets = prefill_buckets_for(prefill_buckets, max_len)
+        self.prefill_chunk = _normalize_prefill_chunk(prefill_chunk, max_len)
         self.prefills = 0
+        self.prefill_chunks = 0
         self.decode_steps = 0
         self.serve_stats: Optional[dict] = None
         self._segment_log: List[tuple] = []   # (seconds, tokens emitted)
@@ -360,8 +515,9 @@ class ContinuousBatchingEngine:
 
     def _init_decode_state(self) -> None:
         """Allocate the device-side decode state, once: caches, per-slot
-        length, last token, done and active flags, eos id (-1 = none);
-        and the free slots."""
+        length, last token, done and active flags, eos id (-1 = none), the
+        per-slot sampling vectors and the chunk offset; and the free
+        slots."""
         mb, dev = self.max_batch, self.device
         self.caches = self._make_caches()
         self.lens = torch.zeros(mb, dtype=torch.int32, device=dev)
@@ -369,12 +525,16 @@ class ContinuousBatchingEngine:
         self.done_dev = torch.zeros(mb, dtype=torch.bool, device=dev)
         self.active_dev = torch.zeros(mb, dtype=torch.bool, device=dev)
         self.eos = torch.full((mb,), -1, dtype=torch.int32, device=dev)
+        self.samp = SlotSampling(mb, dev)
+        self._chunk_pos = torch.zeros((), dtype=torch.int32, device=dev)
         self._free = list(range(mb))
 
     def reset_state(self) -> None:
         """Drop every request and reset the decode state to its initial
         values IN PLACE: caches zeroed (int8 scales back to the floor),
-        lengths, last tokens and flags zeroed, eos ids -1, every slot free.
+        lengths, last tokens and flags zeroed, eos ids -1, every slot
+        greedy and free. Chunked admissions in flight are dropped: their
+        objects no longer hold a claim (admit_chunk on one is undefined).
         Captured graphs hold these tensors' addresses, so nothing is
         reallocated and the graphs are kept: a restart costs no capture.
         Request ids are not reused: ``_next_req`` carries on."""
@@ -384,9 +544,11 @@ class ContinuousBatchingEngine:
                     t.zero_()
                 for t in entry[2:]:
                     t.fill_(KV_SCALE_FLOOR)
-            for t in (self.lens, self.last, self.done_dev, self.active_dev):
+            for t in (self.lens, self.last, self.done_dev, self.active_dev,
+                      self._chunk_pos):
                 t.zero_()
             self.eos.fill_(-1)
+            self.samp.reset()
         self._free = list(range(self.max_batch))
         self._slot_req.clear()
         self._tokens.clear()
@@ -404,6 +566,19 @@ class ContinuousBatchingEngine:
         rows = [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.caches]
         last_logits, _ = self._run_prefill(ids, plen, rows)
         return last_logits
+
+    def _reserve_admit(self, slot: int, plen: int, cfg) -> None:
+        """Claim what an admission needs beyond the slot, up front, so a
+        chunked admission cannot fail for capacity halfway through (dense:
+        nothing; the paged engine reserves the worst-case pages)."""
+
+    def _install_mini(self, slot: int, mini, plen: int) -> None:
+        """Copy a chunked admission's mini cache (its first ``plen`` rows)
+        into the slot's rows of every layer cache."""
+        with torch.no_grad():
+            for (k, v), (mk, mv) in zip(self.caches, mini):
+                k[slot, :plen].copy_(mk[0, :plen])
+                v[slot, :plen].copy_(mv[0, :plen])
 
     def _warm_prefill(self, width: int) -> None:
         """Warmup's prefill at one bucket: a zero prompt into the rows of
@@ -435,6 +610,24 @@ class ContinuousBatchingEngine:
         """Prefill one request into a free slot; returns the request id.
         Raises if no slot (or, paged, no page reservation) is available —
         probe :meth:`can_admit` to defer instead."""
+        ids = self._check_admit(prompt_ids, cfg)
+        plen = ids.shape[1]
+        slot = heapq.heappop(self._free)
+        try:
+            rid = self._next_req
+            self._next_req += 1
+            last_logits = self._admit_cache(slot, ids, plen, cfg)
+            first, tok_done = self._sample_first(slot, plen, last_logits, cfg)
+            self._install_state(slot, plen, first, tok_done, cfg)
+        except BaseException:
+            # a failed admission must not leak the slot (or its pages)
+            self._abort_admit(slot)
+            raise
+        return self._register(slot, rid, first, tok_done, cfg)
+
+    def _check_admit(self, prompt_ids, cfg):
+        """The prompt as int32 [1, plen], after the checks every admission
+        makes: a free slot, the length within ``max_len``, and capacity."""
         if not self._free:
             raise RuntimeError("no free slot; drain with decode_segment()")
         ids = _prompt_ids(prompt_ids)
@@ -446,20 +639,112 @@ class ContinuousBatchingEngine:
         if not self._can_admit(plen, cfg):
             raise RuntimeError(
                 "page pool exhausted; drain with decode_segment()")
+        return ids
+
+    def begin_admit(self, prompt_ids, cfg: GenerationConfig
+                    ) -> _ChunkedAdmission:
+        """Start a CHUNKED admission: claim a slot and (paged) the
+        request's worst-case pages up front, so a partial admission can
+        neither leak capacity nor run out of it, and return the admission.
+        The caller drives one fixed-shape prefill chunk per
+        :meth:`admit_chunk`, with decode segments in between. Raises like
+        :meth:`add_request` when the request cannot be admitted now, and
+        RuntimeError on an engine built without ``prefill_chunk``."""
+        if self.prefill_chunk is None:
+            raise RuntimeError(
+                "chunked admission needs an engine built with "
+                "prefill_chunk=<tokens>")
+        ids = self._check_admit(prompt_ids, cfg)
+        plen = ids.shape[1]
         slot = heapq.heappop(self._free)
         try:
-            rid = self._next_req
-            self._next_req += 1
-            last_logits = self._admit_cache(slot, ids, plen, cfg)
-            first = _sample_rows(last_logits)[0]
-            tok_done = (first == cfg.eos_token_id
-                        if cfg.eos_token_id is not None else False)
-            self._install_state(slot, plen, first, tok_done, cfg)
+            mini, start = self._begin_admit_cache(slot, ids, plen, cfg)
         except BaseException:
-            # a failed admission must not leak the slot (or its pages)
             self._abort_admit(slot)
             raise
-        return self._register(slot, rid, first, tok_done, cfg)
+        rid = self._next_req
+        self._next_req += 1
+        return _ChunkedAdmission(rid, slot, ids, plen, cfg, mini, off=start)
+
+    def _begin_admit_cache(self, slot: int, ids, plen: int, cfg):
+        """Claim a chunked admission's capacity and build its mini cache:
+        returns ``(mini, first chunk's offset)``. Every chunk program runs
+        at the fixed (C, max_len) shapes, so all chunked admissions share
+        one program (the paged engine pays a dense mini slab for the
+        admission's lifetime)."""
+        self._reserve_admit(slot, plen, cfg)
+        return self.model.init_cache(1, self.max_len), 0
+
+    def _run_chunk(self, chunk: np.ndarray, mini, pos: int, r: int):
+        """One prefill chunk [1, C] at offset ``pos`` (on the device, in
+        ``_chunk_pos``) into ``mini``; returns the logits at its last real
+        row ``r - 1`` [1, V]."""
+        self._chunk_pos.fill_(pos)
+        with torch.no_grad():
+            logits, _ = self.model.forward_with_cache(
+                torch.tensor(chunk, device=self.device), mini,
+                self._chunk_pos)
+        self.prefill_chunks += 1
+        return logits[:, r - 1]
+
+    def admit_chunk(self, adm: _ChunkedAdmission) -> bool:
+        """Run ONE prefill chunk of an admission started with
+        :meth:`begin_admit`. Returns True when the admission completed: the
+        request is live in its slot under ``adm.rid`` with its first token
+        drawn. On any failure the claimed capacity is given back and the
+        admission is closed."""
+        if adm.closed:
+            raise RuntimeError("admission already completed or aborted")
+        C = self.prefill_chunk
+        try:
+            chunk = adm.ids[:, adm.off:adm.off + C]
+            r = chunk.shape[1]
+            adm.last_logits = self._run_chunk(_pad_ids(chunk, C), adm.mini,
+                                              adm.off, r)
+            last = adm.off + r >= adm.plen
+            adm.off += C
+            if not last:
+                return False
+            self._install_mini(adm.slot, adm.mini, adm.plen)
+            first, tok_done = self._sample_first(adm.slot, adm.plen,
+                                                 adm.last_logits, adm.cfg)
+            self._install_state(adm.slot, adm.plen, first, tok_done, adm.cfg)
+        except BaseException:
+            adm.closed = True
+            adm.mini = None
+            self._abort_admit(adm.slot)
+            raise
+        adm.closed = True
+        adm.mini = None     # the slab goes back to the allocator
+        self._register(adm.slot, adm.rid, first, tok_done, adm.cfg)
+        return True
+
+    def abort_admit(self, adm: _ChunkedAdmission) -> None:
+        """Abandon a chunked admission in flight: the slot and any page
+        reservation return to the pool. Idempotent; the admission is
+        closed either way."""
+        if adm.closed:
+            return
+        adm.closed = True
+        adm.mini = None
+        self._abort_admit(adm.slot)
+
+    def _sample_first(self, slot: int, plen: int, last_logits, cfg):
+        """The admission's first token from the prompt's last-position
+        logits [1, V]: the slot takes the request's sampling parameters,
+        and a sampled request draws the token at position ``plen`` from
+        its seed's stream. Returns (first token, done flag), on the
+        device."""
+        self.samp.set(slot, cfg, cfg.seed % 2 ** 32)
+        samp = at = None
+        if cfg.do_sample:
+            samp = self.samp.view(slice(slot, slot + 1))
+            at = torch.full((1,), plen, dtype=torch.int64,
+                            device=self.device)
+        first = sample_rows(last_logits, samp, at)[0]
+        tok_done = (first == cfg.eos_token_id
+                    if cfg.eos_token_id is not None else False)
+        return first, tok_done
 
     def _install_state(self, slot: int, plen: int, first, tok_done,
                        cfg) -> None:
@@ -522,16 +807,21 @@ class ContinuousBatchingEngine:
         return out
 
     # -- decode ---------------------------------------------------------------
-    def _segment(self, n_steps: int, out: torch.Tensor) -> None:
-        """``n_steps`` greedy steps over every slot: the segment's program.
-        Reads and writes the static slot state; writes each step's tokens
-        into ``out[:, :n_steps]`` and the done flags into
-        ``out[:, n_steps]``."""
+    def _segment(self, n_steps: int, out: torch.Tensor,
+                 sampled: bool = False) -> None:
+        """``n_steps`` decode steps over every slot: the segment's program,
+        greedy, or with each slot's sampling vectors when ``sampled`` (a
+        greedy slot still takes the argmax). Reads and writes the static
+        slot state; writes each step's tokens into ``out[:, :n_steps]`` and
+        the done flags into ``out[:, n_steps]``."""
         last, lens, done = self.last, self.lens, self.done_dev
+        samp = self.samp if sampled else None
         for i in range(n_steps):
             live = self.active_dev & ~done & (lens < self.max_len)
             logits = self._fwd_decode(last[:, None], lens, live)
-            nxt = torch.where(live, _sample_rows(logits[:, 0]), last)
+            # the drawn token sits at position lens + 1 (last is at lens)
+            nxt = torch.where(live, sample_rows(logits[:, 0], samp, lens + 1),
+                              last)
             lens = lens + live.to(torch.int32)
             done = (done | (live & (self.eos >= 0) & (nxt == self.eos))
                     | (lens >= self.max_len))
@@ -542,27 +832,37 @@ class ContinuousBatchingEngine:
         self.lens.copy_(lens)
         self.done_dev.copy_(done)
 
-    def _run_segment(self, n_steps: int) -> torch.Tensor:
+    @staticmethod
+    def _segment_key(n_steps: int, sampled: bool):
+        return ("segment", n_steps, "sampled") if sampled \
+            else ("segment", n_steps)
+
+    def _run_segment(self, n_steps: int,
+                     sampled: bool = False) -> torch.Tensor:
         """Run the segment program of ``n_steps`` (replay, or run and
-        capture); returns its output buffer."""
+        capture), greedy or sampled; returns its output buffer (shared by
+        the two programs of a length)."""
         out = self._seg_out.get(n_steps)
         if out is None:
             out = self._seg_out[n_steps] = torch.zeros(
                 (self.max_batch, n_steps + 1), dtype=torch.int32,
                 device=self.device)
         with torch.no_grad():
-            self.programs.run(("segment", n_steps),
-                              lambda: self._segment(n_steps, out))
+            self.programs.run(self._segment_key(n_steps, sampled),
+                              lambda: self._segment(n_steps, out, sampled))
         return out
 
     def decode_segment(self, n_steps: int) -> int:
-        """Run ``n_steps`` greedy decode steps over every slot, collect each
-        request's tokens and retire finished requests. Returns the number
-        of requests still active."""
+        """Run ``n_steps`` decode steps over every slot, collect each
+        request's tokens and retire finished requests. Each request decodes
+        under its own config; the sampled program runs only when a live
+        request samples. Returns the number of requests still active."""
         if not self._slot_req:
             return 0
         t0 = time.perf_counter()
-        out = self._run_segment(n_steps)
+        sampled = any(self._cfg[rid].do_sample
+                      for rid in self._slot_req.values())
+        out = self._run_segment(n_steps, sampled)
         self.decode_steps += n_steps
         host = out.cpu().numpy()     # the segment's one device -> host read
         toks_h, done_h = host[:, :n_steps], host[:, n_steps].astype(bool)
@@ -584,12 +884,13 @@ class ContinuousBatchingEngine:
     def warmup(self, segment_steps: Optional[int] = None) -> Dict[str, float]:
         """Run every program a request can reach ahead of the requests, on
         an idle engine: the slot-state install; when ``segment_steps`` is
-        given, the segment of that length, which is captured (with every
-        slot inactive it changes nothing); and one prefill per bucket
-        (cuBLAS's and the kernels' first use at each width; prefill is not
-        captured). A serve with that segment length then captures nothing.
-        Returns ``{program: seconds}``. Raises RuntimeError on a busy
-        engine."""
+        given, the segment of that length, greedy and sampled, each
+        captured (with every slot inactive it changes nothing); one prefill
+        per bucket and, with ``prefill_chunk``, one chunk (cuBLAS's and the
+        kernels' first use at each width; prefill is not captured). A serve
+        with that segment length then captures nothing, whatever its
+        configs. Returns ``{program: seconds}``. Raises RuntimeError on a
+        busy engine."""
         if self._slot_req:
             raise RuntimeError("warmup() needs an idle engine")
         t_all = time.perf_counter()
@@ -601,32 +902,47 @@ class ContinuousBatchingEngine:
         self.active_dev[0] = False
         out["admit_state"] = time.perf_counter() - t0
         if segment_steps is not None:
-            # the capture first: it empties PyTorch's allocator cache,
+            # the captures first: they empty PyTorch's allocator cache,
             # which the prefills then fill for the requests to reuse
-            t0 = time.perf_counter()
-            self._run_segment(segment_steps)
-            out[f"segment_{segment_steps}"] = time.perf_counter() - t0
+            for sampled in (False, True):
+                t0 = time.perf_counter()
+                self._run_segment(segment_steps, sampled)
+                name = f"segment_{segment_steps}" + ("_sampled" if sampled
+                                                     else "")
+                out[name] = time.perf_counter() - t0
         for w in self.prefill_buckets or ():
             t0 = time.perf_counter()
             self._warm_prefill(w)
             out[f"prefill_{w}"] = time.perf_counter() - t0
+        if self.prefill_chunk is not None:
+            # one chunk into a throwaway mini: the chunk program's first use
+            t0 = time.perf_counter()
+            self._run_chunk(np.zeros((1, self.prefill_chunk), np.int32),
+                            self.model.init_cache(1, self.max_len), 0, 1)
+            out["prefill_chunk"] = time.perf_counter() - t0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out["total"] = time.perf_counter() - t_all
         return out
 
-    def serve(self, prompts, cfg: Optional[GenerationConfig] = None,
+    def serve(self, prompts, cfg=None,
               segment_steps: int = 8) -> List[np.ndarray]:
         """Continuous-batching loop: admits requests as slots (and pages)
-        free up, decoding in fixed segments. Returns the generated ids
-        (prompt not included) in submission order.
+        free up, decoding in fixed segments. ``cfg`` is one
+        :class:`GenerationConfig` for every prompt, or a sequence of one
+        per prompt (greedy and sampled requests may mix). Returns the
+        generated ids (prompt not included) in submission order.
 
         Afterwards ``serve_stats`` holds ``ttft_s`` and ``finish_s`` (per
         prompt: seconds from the call to its first token, and to the
         segment gap that collected its last one), ``decode_s`` and
         ``decode_tokens`` (wall time of the decode segments and the tokens
         they emitted), ``segments`` and ``wall_s``."""
-        cfg = cfg or GenerationConfig()
+        cfgs = (list(cfg) if isinstance(cfg, (list, tuple))
+                else [cfg or GenerationConfig()] * len(prompts))
+        if len(cfgs) != len(prompts):
+            raise ValueError(f"{len(cfgs)} configs for {len(prompts)} "
+                             f"prompts")
         t0 = time.perf_counter()
         self._segment_log = []
         pending = list(enumerate(prompts))
@@ -637,13 +953,14 @@ class ContinuousBatchingEngine:
         foreign: Dict[int, np.ndarray] = {}   # admitted outside this call
         while len(results) < len(prompts):
             while pending and self._free:
-                if (not self._can_admit(_prompt_len(pending[0][1]), cfg)
+                idx0, p0 = pending[0]
+                if (not self._can_admit(_prompt_len(p0), cfgs[idx0])
                         and self._slot_req):
                     break  # transient: defer to the next segment gap
                 # (with nothing active to drain, a request that does not
                 # fit can NEVER fit: add_request raises its loud error)
                 idx, p = pending.pop(0)
-                order[self.add_request(p, cfg)] = idx
+                order[self.add_request(p, cfgs[idx])] = idx
                 first_at[idx] = time.perf_counter()   # after its host sync
             self.decode_segment(segment_steps)
             now = time.perf_counter()
@@ -689,13 +1006,19 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     any write lands in them. :meth:`set_kv_dtype` swaps it on an idle
     engine; :meth:`kv_page_cost` prices a page.
 
+    A chunked admission (``prefill_chunk``) reserves the request's pages at
+    :meth:`begin_admit`, fills a dense ``max_len`` mini cache chunk by
+    chunk and installs it into the pages (bf16 or int8) with the final
+    chunk; :meth:`abort_admit` frees the reserved pages.
+
     This is the reference's ``admission_mode="reserved"`` with
     ``prefix_cache=False``; its other admission modes and the prefix cache
     are not ported yet."""
 
     def __init__(self, model, max_batch: int, num_pages: int,
                  page_size: int, max_pages: int, prefill_buckets="auto",
-                 debug_pages: bool = False, kv_dtype: str = "bf16"):
+                 debug_pages: bool = False, kv_dtype: str = "bf16",
+                 prefill_chunk: Optional[int] = None):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
@@ -706,7 +1029,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                                    max_pages, debug=debug_pages,
                                    kv_dtype=kv_dtype)
         super().__init__(model, max_batch, max_len=max_pages * page_size,
-                         prefill_buckets=prefill_buckets)
+                         prefill_buckets=prefill_buckets,
+                         prefill_chunk=prefill_chunk)
 
     def _init_decode_state(self) -> None:
         super()._init_decode_state()
@@ -790,9 +1114,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         the prompt's last-position logits."""
         mini = self.model.init_cache(1, self._prefill_width(plen))
         last_logits, mini = self._run_prefill(ids, plen, mini)
-        self.alloc.ensure(slot, self._reserved(plen, cfg))
+        self._reserve_admit(slot, plen, cfg)
         self._install_mini(slot, mini, plen)
         return last_logits
+
+    def _reserve_admit(self, slot: int, plen: int, cfg) -> None:
+        self.alloc.ensure(slot, self._reserved(plen, cfg))
 
     def _warm_prefill(self, width: int) -> None:
         """Warmup's prefill and install at one bucket: slot 0 is free and
@@ -843,12 +1170,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         super().reset_state()
         self._sync_table()
 
-    def _run_segment(self, n_steps: int) -> torch.Tensor:
+    def _run_segment(self, n_steps: int,
+                     sampled: bool = False) -> torch.Tensor:
         # pages claimed in the gap get their scales floored, and the
         # device table takes the gap's allocations, before the segment
         self._flush_fresh_scales()
         self._sync_table()
-        return super()._run_segment(n_steps)
+        return super()._run_segment(n_steps, sampled)
 
     def decode_segment(self, n_steps: int) -> int:
         if self._slot_req and self.alloc.debug:

@@ -9,7 +9,8 @@ Kernels on the path (each a Hopper kernel on the card, its plain version on
 the CPU): RMSNorm -> K1 ``rms_norm``; RoPE over the shared position tables
 (training, prefill and the S == 1 step of ``forward_with_cache``) -> K2
 ``fused_rope``; training and prefill attention -> K3 flash forward, with
-the ``flash_bwd_dq``/``flash_bwd_dkv`` kernels in its backward; decode
+the ``flash_bwd_dq``/``flash_bwd_dkv`` kernels in its backward; a prefill
+chunk's attention -> K3's prefix-chunk instance; decode
 attention over the page pool -> K4 ``paged_decode_mha``, over a dense cache
 -> K7 ``decode_mha`` (through ``ops._decode.gqa_decode_attention``). The
 per-row RoPE of a ragged or paged decode step stays plain torch, as it is
@@ -19,13 +20,14 @@ parameter; ``config.recompute = "full"`` recomputes each decoder layer in
 the backward (``distributed.fleet.recompute``) while the model trains.
 
 Serving forwards ported: ``forward_with_cache`` as a fresh prefill
-(``pos == 0``) or a one-token step at any ``pos`` into a dense cache,
+(``pos == 0``), a chunk of a prefill at any ``pos`` (an int or a 0-d device
+tensor: chunked prefill) or a one-token step at any ``pos`` into a dense
+cache,
 ``forward_decode_ragged`` (per-row lengths over a dense cache) and
 ``forward_decode_paged`` over page pools in the model's dtype or in int8
 with per-(page, kv head) scales (quantize on store,
-``quantization/kv.py``; K4 dequantizes inside the kernel). Chunked
-prefill at an offset, speculative verify, LoRA and tensor parallelism are
-not ported yet and raise or are absent. Cache writes happen in place, so
+``quantization/kv.py``; K4 dequantizes inside the kernel). Speculative
+verify, LoRA and tensor parallelism are not ported yet and are absent. Cache writes happen in place, so
 a decode step reads and writes the same storage every time (what a
 captured CUDA graph needs).
 
@@ -51,7 +53,7 @@ from ..distributed.mp_layers import (ColumnParallelLinear,
                                      VocabParallelEmbedding)
 from ..nn.layer.norm import RMSNorm
 from ..ops._decode import gqa_decode_attention
-from ..ops.attention import flash_attention
+from ..ops.attention import flash_attention, prefix_chunk_attention
 from ..ops.fused_kernels import fused_rope
 from ..ops.paged_attention import paged_decode_mha
 from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR, quant_store_rows
@@ -182,9 +184,13 @@ class LlamaAttention(nn.Module):
         """Attend over the dense cache ``(k, v)`` [B, S_max, Hkv, hd],
         writing this call's K/V IN PLACE at [pos, pos + S). S == 1 is a
         decode step at any ``pos`` (a Python int or a 0-d tensor): every
-        row attends [0, pos] through K7. S > 1 is a fresh prefill (pos ==
-        0): causal attention over the prompt alone (K3). Returns (out,
-        cache)."""
+        row attends [0, pos] through K7. S > 1 at ``pos == 0`` given as an
+        int is a fresh prefill: causal attention over the prompt alone
+        (K3). S > 1 at any other ``pos`` (an int, or a 0-d tensor, which
+        stays on the device) is a chunk of a prefill: RoPE from the tables
+        at ``pos + arange(S)``, K/V written at those rows, and
+        :func:`prefix_chunk_attention` over the cache's written prefix (K3's
+        prefix-chunk instance). Returns (out, cache)."""
         b, s = x.shape[0], x.shape[1]
         kc, vc = cache
         if s == 1:
@@ -205,9 +211,14 @@ class LlamaAttention(nn.Module):
             ctx = gqa_decode_attention(qh[:, 0], kc, vc, lens)
             return self._out(ctx[:, None]), cache
         if not (isinstance(pos, int) and pos == 0):
-            raise NotImplementedError(
-                "forward_with_cache with S > 1 at pos != 0 (chunked "
-                "prefill, prefix_chunk_attention) is not ported yet")
+            p0 = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+            at = (p0.long() + torch.arange(s, device=x.device))
+            qh, kh, vh = self._qkv(x, cos_full.index_select(0, at),
+                                   sin_full.index_select(0, at))
+            kc.index_copy_(1, at, kh.to(kc.dtype))
+            vc.index_copy_(1, at, vh.to(vc.dtype))
+            ctx = prefix_chunk_attention(qh, kc, vc, p0)
+            return self._out(ctx), cache
         qh, kh, vh = self._qkv(x, cos_full[:s], sin_full[:s])
         kc[:, :s] = kh.to(kc.dtype)
         vc[:, :s] = vh.to(vc.dtype)
@@ -480,8 +491,10 @@ class LlamaForCausalLM(nn.Module):
         return self.model.init_cache(batch_size, max_len)
 
     def forward_with_cache(self, input_ids, caches, pos):
-        """(logits [B, S, V], caches): a fresh prefill (pos == 0) or a
-        one-token step at ``pos`` (see LlamaAttention.forward_with_cache)."""
+        """(logits [B, S, V], caches): a fresh prefill (pos == 0), a chunk
+        of a prefill at ``pos`` (an int or a 0-d device tensor, passed
+        through unchanged) or a one-token step at ``pos`` (see
+        LlamaAttention.forward_with_cache)."""
         hidden, caches = self.model.forward_with_cache(input_ids, caches, pos)
         return self.logits(hidden), caches
 

@@ -16,6 +16,8 @@ from .decode_attention import decode_mha, decode_mha_ref
 from .flash_attention_hb import flash_attention_bshd_hb, supports_hb
 from .flash_attention_kernel import (flash_attention_bshd,
                                      flash_attention_bshd_ref,
+                                     prefix_chunk_attention,
+                                     prefix_chunk_attention_ref,
                                      flash_attention_bwd,
                                      flash_attention_bwd_dkv,
                                      flash_attention_bwd_dq,
@@ -31,7 +33,9 @@ from .paged_attention import (paged_attention, paged_attention_ref,
 
 __all__ = ["KERNELS", "ROUTES", "launch_counts", "reset_launch_counts",
            "route_calls", "flash_attention", "flash_attention_bshd",
-           "flash_attention_bshd_ref", "flash_attention_bwd",
+           "flash_attention_bshd_ref", "prefix_chunk_attention",
+           "prefix_chunk_attention_ref",
+           "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_bshd_hb",
            "supports_hb", "fused_rope", "fused_rope_ref",
@@ -47,6 +51,7 @@ KERNELS = {
     "rms_norm": rms_norm,
     "fused_rope": fused_rope,
     "flash_fwd": flash_attention_bshd,
+    "flash_fwd_prefix": prefix_chunk_attention,
     "paged_decode": paged_decode_mha,
     "flash_bwd_dq": flash_attention_bwd_dq,
     "flash_bwd_dkv": flash_attention_bwd_dkv,

@@ -11,6 +11,11 @@ kernels, through :class:`~.flash_attention_kernel.FlashAttention`.
 Under ``FLAGS_flash_head_batched`` the router takes the head-batched route
 (``flash_attention_hb.py``) where :func:`supports_hb` holds, and only on
 the card, as the JAX router takes it only on the TPU (:131-141).
+
+:func:`prefix_chunk_attention`, the port of
+``paddle_tpu/ops/pallas.py::prefix_chunk_attention`` (:167-213), chunked
+prefill's attention, is K3's prefix-chunk instance itself (defined in
+``flash_attention_kernel.py``): no routing stands before it.
 """
 from __future__ import annotations
 
@@ -20,9 +25,9 @@ import torch
 
 from ..framework.flags import get_flags
 from .flash_attention_hb import flash_attention_bshd_hb, supports_hb
-from .flash_attention_kernel import FlashAttention
+from .flash_attention_kernel import FlashAttention, prefix_chunk_attention
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "prefix_chunk_attention"]
 
 _HB = "FLAGS_flash_head_batched"
 

@@ -27,6 +27,15 @@ gradients are zero, so the padding is exact (``_sublane_plan``'s ``pad``
 mode of the JAX kernel). Other dtypes and head dims above 128 raise
 ``ValueError``.
 
+K3's prefix-chunk instance (:func:`prefix_chunk_attention`, entry points
+``flash_fwd_prefix_*``) runs chunked prefill: the port of
+``paddle_tpu/ops/pallas.py::prefix_chunk_attention`` (:167-213), queries at
+absolute positions ``[pos, pos + C)`` over a cache whose first ``pos + C``
+rows are written, with ``pos`` read from a device tensor by the kernel, so
+the wrapper never syncs with the host. It is K3 causal with Sk = pos + C,
+so its rows are bitwise the rows of a one-shot causal prefill of the same
+prompt, on the card and in the plain versions.
+
 The wrappers take the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
 """
@@ -41,6 +50,7 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_bshd", "flash_attention_bshd_ref",
+           "prefix_chunk_attention", "prefix_chunk_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "FlashAttention", "kernel_for"]
@@ -55,6 +65,12 @@ _ENTRIES = {
     ("flash_fwd", torch.bfloat16): ("flash_fwd", "flash_fwd_bf16"),
     ("flash_fwd", torch.float16): ("flash_fwd", "flash_fwd_f16"),
     ("flash_fwd", torch.float32): ("flash_f32", "flash_fwd_f32"),
+    ("flash_fwd_prefix", torch.bfloat16): ("flash_fwd",
+                                           "flash_fwd_prefix_bf16"),
+    ("flash_fwd_prefix", torch.float16): ("flash_fwd",
+                                          "flash_fwd_prefix_f16"),
+    ("flash_fwd_prefix", torch.float32): ("flash_f32",
+                                          "flash_fwd_prefix_f32"),
     ("flash_bwd_dq", torch.bfloat16): ("flash_bwd", "flash_bwd_dq_bf16"),
     ("flash_bwd_dq", torch.float16): ("flash_bwd", "flash_bwd_dq_f16"),
     ("flash_bwd_dq", torch.float32): ("flash_f32", "flash_bwd_dq_f32"),
@@ -128,15 +144,16 @@ def _bhsd(x: torch.Tensor, hq: int) -> torch.Tensor:
         else t
 
 
-def _valid(q0, q1, k0, k1, sq, sk, causal, device):
-    """Score-block validity: bottom-right causal (query i sees keys
-    <= i + Sk - Sq), all true when not causal."""
+def _valid(q0, q1, k0, k1, offset, causal, device):
+    """Score-block validity: causal with query i seeing keys <= i +
+    ``offset`` (bottom-right alignment: offset = Sk - Sq), all true when
+    not causal."""
     if not causal:
         return torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
                           device=device)
     qpos = torch.arange(q0, q1, device=device)[:, None]
     kpos = torch.arange(k0, k1, device=device)[None, :]
-    return kpos <= qpos + (sk - sq)
+    return kpos <= qpos + offset
 
 
 def _heads(b: int, h: int, device):
@@ -160,19 +177,35 @@ def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
     fp32)``."""
     _check_shapes(q, k, v)
     _check_dropout(dropout_p)
+    return _fwd_ref(q, k, v, causal, sm_scale, dropout_p, seed,
+                    k.shape[1] - q.shape[1])
+
+
+def _fwd_ref(q, k, v, causal, sm_scale, dropout_p, seed, offset):
+    """The plain forward's tile walk, causal with query i seeing keys <= i
+    + ``offset``. Every tile is ``_KEY_TILE`` keys wide, the last one
+    zero-padded past Sk and masked there, as the kernel stages it: a row's
+    sums then run over the same tiles whatever Sk is, so a chunk's rows
+    equal the one-shot rows bitwise."""
     b, sq, hq, d = q.shape
     sk = k.shape[1]
     dev = q.device
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     qt, kt, vt = _bhsd(q, hq), _bhsd(k, hq), _bhsd(v, hq)
+    pad = -sk % _KEY_TILE
+    if pad:
+        kt, vt = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                  for t in (kt, vt))
     acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
     m = torch.full((b, hq, sq), _NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
     bi, hi = _heads(b, hq, dev)
     for c0 in range(0, sk, _KEY_TILE):
-        c1 = min(c0 + _KEY_TILE, sk)
+        c1 = c0 + _KEY_TILE
         s = torch.einsum("bhqd,bhkd->bhqk", qt, kt[:, :, c0:c1]) * scale
-        valid = _valid(0, sq, c0, c1, sq, sk, causal, dev)
+        valid = _valid(0, sq, c0, c1, offset, causal, dev)
+        if c1 > sk:
+            valid = valid & (torch.arange(c0, c1, device=dev) < sk)
         s = s.masked_fill(~valid, _NEG)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None]).masked_fill(~valid, 0.0)
@@ -188,6 +221,26 @@ def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
     l_safe = l.clamp_min(1e-30)
     out = (acc / l_safe[..., None]).to(q.dtype).transpose(1, 2).contiguous()
     return out, m + torch.log(l_safe)
+
+
+def prefix_chunk_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, pos,
+                               sm_scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """Plain version of K3's prefix-chunk instance: query row i of the
+    chunk q [B, C, Hq, D] sits at absolute position ``pos + i`` and
+    attends the cache's keys ``<= pos + i``, of which the first
+    ``min(W, pos + C)`` rows of k/v_cache [B, W, Hkv, D] are read. It is
+    :func:`flash_attention_bshd_ref`'s tile walk (64-key tiles from key 0,
+    P rounded to v's dtype at each tile's running max), so its rows equal
+    the rows of a one-shot causal prefill of the same prompt. ``pos`` is an
+    int or a 0-d tensor. Returns [B, C, Hq, D] in q's dtype."""
+    _check_shapes(q, k_cache, v_cache)
+    p = int(pos)
+    sk = min(k_cache.shape[1], p + q.shape[1])
+    out, _ = _fwd_ref(q, k_cache[:, :sk], v_cache[:, :sk], True, sm_scale,
+                      0.0, 0, p)
+    return out
 
 
 def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -228,7 +281,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = False,
         r1 = min(r0 + _CHUNK, sq)
         qc, doc = qt[:, :, r0:r1], dot[:, :, r0:r1]
         s = torch.einsum("bhqd,bhkd->bhqk", qc, kt) * scale
-        valid = _valid(r0, r1, 0, sk, sq, sk, causal, dev)
+        valid = _valid(r0, r1, 0, sk, sk - sq, causal, dev)
         p = torch.exp(s.masked_fill(~valid, _NEG)
                       - lse[:, :, r0:r1, None].float())
         p = p.masked_fill(~valid, 0.0)
@@ -269,9 +322,9 @@ def _vec_ready(x: torch.Tensor) -> torch.Tensor:
 
 def kernel_for(kernel: str, dtype: torch.dtype,
                d: int) -> Tuple[str, str, int]:
-    """The dispatch of ``kernel`` ("flash_fwd", "flash_bwd_dq" or
-    "flash_bwd_dkv") for inputs of ``dtype`` and head dim ``d``: ``(library,
-    entry point, width)``, where ``width`` is the instantiated head dim the
+    """The dispatch of ``kernel`` ("flash_fwd", "flash_fwd_prefix",
+    "flash_bwd_dq" or "flash_bwd_dkv") for inputs of ``dtype`` and head
+    dim ``d``: ``(library, entry point, width)``, where ``width`` is the instantiated head dim the
     inputs are zero-padded to. Raises ``ValueError`` for a dtype without a
     kernel (other than bf16, fp16 and fp32) and for head dims outside
     1..128."""
@@ -380,6 +433,42 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bshd.launches = 0
+
+
+def prefix_chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """K3's prefix-chunk instance: the chunk q [B, C, Hq, D] at absolute
+    positions ``[pos, pos + C)`` attends causally over k/v_cache [B, W,
+    Hkv, D] (GQA allowed), whose first ``pos + C`` rows hold the prompt's
+    K/V; rows past ``min(W, pos + C)`` are never read. ``pos`` is a 0-d
+    int32 tensor on q's device (an int is copied there); the kernel reads
+    it from device memory and the wrapper never reads it back, so a CUDA
+    graph may capture the call. Returns [B, C, Hq, D] in q's dtype; not
+    differentiable (the serving path runs under ``no_grad``)."""
+    _check_shapes(q, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return prefix_chunk_attention_ref(q, k_cache, v_cache, pos, sm_scale)
+    lib, entry, w = _check_cuda("flash_fwd_prefix", q, k_cache, v_cache)
+    b, sq, hq, d = q.shape
+    sk, hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    pos = torch.as_tensor(pos, dtype=torch.int32,
+                          device=q.device).reshape(()).contiguous()
+    out = torch.empty((b, sq, hq, w), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return _sliced(out, d)
+    q, k, v = (_padded(t, w) for t in (q, k_cache, v_cache))
+    _launch(lib, entry,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), pos.data_ptr()], (b, sq, sk, hq, hkv, w),
+            _strides(q, k, v, out), scale, True, 0.0, 0, q.device)
+    prefix_chunk_attention.launches += 1
+    return _sliced(out, d)
+
+
+prefix_chunk_attention.launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,

@@ -133,11 +133,12 @@ def test_admission_limits_and_unported_modes():
     with pytest.raises(RuntimeError):
         eng.add_request(np.zeros(9, np.int32), cfg)
     assert eng.free_slots() == 2 and eng.alloc.free_pages == 4
-    # the reference's sampling, admission-mode and prefix-cache settings
-    # are not options of the port until their code is ported; kv_dtype is
-    # (int8 pools), and takes the reference's values only
+    # the reference's speculative-decoding, admission-mode and
+    # prefix-cache settings are not options of the port until their code
+    # is ported (sampling is); kv_dtype is (int8 pools), and takes the
+    # reference's values only
     with pytest.raises(TypeError):
-        GenerationConfig(max_new_tokens=2, do_sample=True)
+        GenerationConfig(max_new_tokens=2, speculative=True)
     for bad in (dict(admission_mode="optimistic"), dict(prefix_cache=True)):
         with pytest.raises(TypeError):
             PagedContinuousBatchingEngine(tm, max_batch=1, num_pages=4,

@@ -173,6 +173,7 @@ def test_public_names():
         for name in mod.__all__:
             assert getattr(mod, name) is not None
     assert set(ops.KERNELS) == {"rms_norm", "fused_rope", "flash_fwd",
+                                "flash_fwd_prefix",
                                 "paged_decode", "flash_bwd_dq",
                                 "flash_bwd_dkv", "decode_mha",
                                 "fused_layer_norm", "grad_add",
@@ -244,6 +245,32 @@ def test_serving_state_modules_are_checked(module):
     """The modules of the int8-pool and captured-decode slice are among the
     sources the no-JAX checks read."""
     assert ROOT / module in _sources()
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch/inference/sampling.py",
+    "paddle_tpu_torch/inference/generation.py",
+    "paddle_tpu_torch/ops/flash_attention_kernel.py"])
+def test_chunked_prefill_and_sampling_modules_are_checked(module):
+    """The modules of the chunked-prefill and sampling slice are among the
+    sources the no-JAX checks read."""
+    assert ROOT / module in _sources()
+
+
+@pytest.mark.parametrize("source,entries", [
+    ("flash_fwd", ("flash_fwd_prefix_bf16", "flash_fwd_prefix_f16")),
+    ("flash_f32", ("flash_fwd_prefix_f32",))])
+def test_prefix_chunk_instance_is_in_the_built_sources(source, entries):
+    """K3's prefix-chunk instance is built from the K3 sources that
+    ``build_all`` compiles, names the function it ports, and reads the
+    chunk's offset through a device pointer."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    assert source in [p.stem for p in _build.CSRC.glob("*.cu")]
+    assert "torch" not in src and "kPos ? *pos" in src
+    for entry in entries:
+        assert entry in src
+    assert "prefix_chunk_attention" in (_build.CSRC / "flash_fwd.cu"
+                                        ).read_text()
 
 
 @pytest.mark.parametrize("name,replaces", [

@@ -617,6 +617,7 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.rms_norm(x, torch.ones(8))
     ops.fused_rope(x, torch.ones(3, 4), torch.zeros(3, 4))
     ops.flash_attention_bshd(x, x, x, causal=True)
+    ops.prefix_chunk_attention(x, x, x, torch.tensor(1, dtype=torch.int32))
     ops.paged_decode_mha(x[:, 0], x, x, torch.zeros(2, 1, dtype=torch.int32),
                          torch.ones(2, dtype=torch.int32))
     out, lse = ops.flash_attention_bshd(x, x, x, causal=True)
@@ -626,7 +627,8 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.fused_linear_param_grad_add(x, x, torch.zeros(8, 8))
     ops.grouped_matmul(x[0, 0], x[0].transpose(1, 2), torch.tensor([1, 1, 2]))
     assert ops.launch_counts() == {"rms_norm": 0, "fused_rope": 0,
-                                   "flash_fwd": 0, "paged_decode": 0,
+                                   "flash_fwd": 0, "flash_fwd_prefix": 0,
+                                   "paged_decode": 0,
                                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                    "decode_mha": 0, "fused_layer_norm": 0,
                                    "grad_add": 0, "grouped_matmul": 0}

@@ -72,15 +72,17 @@ def test_warmed_streams_equal_unwarmed_and_reference(kind):
     eng = port(tm, **kw)
     out = eng.warmup(segment_steps=4)
     assert set(out) == {f"prefill_{b}" for b in eng.prefill_buckets} | {
-        "admit_state", "segment_4", "total"}
-    assert eng.programs.captures == {("segment", 4): 1}
+        "admit_state", "segment_4", "segment_4_sampled", "total"}
+    assert eng.programs.captures == {("segment", 4): 1,
+                                     ("segment", 4, "sampled"): 1}
     assert eng.free_slots() == 2 and not eng.collect_finished()
     got = _serve(eng, prompts)
     assert _serve(port(tm, **kw), prompts) == got
     want = ref(jm, **kw).serve(prompts, JaxGenCfg(max_new_tokens=10),
                                segment_steps=4)
     assert got == [np.asarray(w).tolist() for w in want]
-    assert eng.programs.captures == {("segment", 4): 1}
+    assert eng.programs.captures == {("segment", 4): 1,
+                                     ("segment", 4, "sampled"): 1}
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
@@ -160,8 +162,9 @@ def test_generate_warmup_reset_and_programs():
     eng = CausalLMEngine(tm, max_batch=4, max_len=48)
     out = eng.warmup(batch=3)
     assert set(out) == {"prefill_16", "prefill_32", "prefill_48",
-                        "admit_state", "step_3", "total"}
-    assert eng.programs.captures == {("step", 3): 1}
+                        "admit_state", "step_3", "step_3_sampled", "total"}
+    warmed = {("step", 3): 1, ("step", 3, "sampled"): 1}
+    assert eng.programs.captures == warmed
     got = eng.generate(ids, GenerationConfig(max_new_tokens=10))
     assert got.tolist() == CausalLMEngine(tm, max_batch=4, max_len=48
                                           ).generate(
@@ -178,9 +181,9 @@ def test_generate_warmup_reset_and_programs():
     longer = np.concatenate([ids, ids[:, :11]], axis=1)
     eng.generate(longer, GenerationConfig(max_new_tokens=3))
     eng.generate(ids[:, :2], GenerationConfig(max_new_tokens=1))
-    assert eng.programs.captures == {("step", 3): 1}
+    assert eng.programs.captures == warmed
     eng.generate(ids[:2], GenerationConfig(max_new_tokens=4))
-    assert eng.programs.captures == {("step", 3): 1, ("step", 2): 1}
+    assert eng.programs.captures == {**warmed, ("step", 2): 1}
     tensors = [t for kv in eng._caches for t in kv] + [
         eng._tok, eng._done, eng._eos, eng._pos, eng._hist]
     ptrs = [t.data_ptr() for t in tensors]
@@ -190,6 +193,6 @@ def test_generate_warmup_reset_and_programs():
     assert int(eng._pos) == 0 and int(eng._eos) == -1
     assert eng.generate(ids, GenerationConfig(max_new_tokens=10)
                         ).tolist() == got.tolist()
-    assert eng.programs.captures == {("step", 3): 1, ("step", 2): 1}
+    assert eng.programs.captures == {**warmed, ("step", 2): 1}
     with pytest.raises(ValueError, match="batch"):
         eng.warmup(batch=5)
