@@ -106,7 +106,20 @@ Phases, each timed, none caught and passed over:
    the admission in flight, then one ``decode_segment(8)``), greedy (the
    first token where its streams part from the one-shot serve's), then
    sampled (temperature 0.8, top-k 50, top-p 0.95, seed = request index;
-   TPOT against the greedy serve). Each engine is built, then
+   TPOT against the greedy serve); then the serving front over that
+   engine (reset, its graphs kept): ``Server(segment_steps=8,
+   warmup=True)`` serving the 8 prompts from 8 client threads at once,
+   streamed (TTFT and TPOT from the handles beside the gap loop's, the
+   first token where its streams part from the gap loop's, no capture
+   after warmup, launches held against the path's); ``serve_http`` with
+   the monitor on (one unstreamed and one streamed ``POST /generate``,
+   equal, ``/healthz``, ``/metrics`` with the device-memory series,
+   ``/stats``), then the graphs dropped and a fresh ``Server(warmup=True)``
+   capturing them anew while a thread scrapes ``/metrics`` in a loop; and
+   the fault leg: the engine behind ``FaultyEngine``, the second decode
+   segment failing, one restart, every request finished, its streams
+   against the fault-free serve's, the recovery seconds. Each engine is
+   built, then
    ``warmup()``-ed (``warmup(8)``: greedy and sampled segments;
    ``generate``'s engine ``warmup(batch=8)``: greedy and sampled steps),
    then runs: its decode programs replay captured CUDA graphs, the capture
@@ -191,6 +204,10 @@ PREFIX = dict(chunk=256, cache=1024, prompt=700, e2e_chunk=64)
 # phase 5's sampled serve (and phase 4's sampled runs): each request's seed
 # is its index
 SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95)
+# phase 5's /metrics scraper beside a Server's warmup: a scrape every 10 ms
+# (back to back, each scrape's host time, about 2.6 ms on the 7B serve's
+# registry, holds the GIL the scheduler thread's capture needs)
+SCRAPE_PAUSE_S = 0.01
 # C-check-1 (phase 4): train steps of the 2-layer bf16 model, card and CPU
 DRIFT_STEPS = 30
 # GPT-3 6.7B widths (paddle_tpu/models/gpt.py:54, preset "6b7": hidden
@@ -383,11 +400,11 @@ ROUTE_SOURCES = {
     "paged_attention": ("cuda", "paddle_tpu_torch/ops/paged_attention.py"),
 }
 PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
-         "serve_sampled", "train", "fmt", "train_hb", "ops", "f32")
+         "serve_sampled", "server", "train", "fmt", "train_hb", "ops", "f32")
 # the decode paths, which run K4 and K7 (phase 5's through captured graphs),
-# and this slice's chunked and sampled serves
+# the chunked and sampled serves, and the serving front's Server serve
 SLICE_PATHS = ("serve", "serve_int8", "generate", "dense_serve",
-               "serve_chunked", "serve_sampled", "fmt")
+               "serve_chunked", "serve_sampled", "server", "fmt")
 EARLIER_PATHS = (("train", "f32"), ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
@@ -2902,7 +2919,7 @@ def serve_phase(torch, dev, np, profile=False):
     for r in recs:
         del r["outs"]
     chunk_recs = chunked_serve_phase(torch, np, model, prompts, outs,
-                                     profile)
+                                     profile)   # and the Server's legs
     gen_rec = generate_phase(torch, np, model, profile)
     dense_rec = dense_serve_phase(torch, np, model, prompts, outs, profile)
     del model
@@ -3015,10 +3032,306 @@ def chunked_serve_phase(torch, np, model, prompts, paged_outs,
         else:
             rec["tpot_p50_over_greedy"] = (rec["tpot_p50_s"]
                                            / recs[0]["tpot_p50_s"])
+        rec["outs"] = outs
         recs.append(rec)
+    gap_outs = recs[0]["outs"]
+    for r in recs:
+        del r["outs"]
+    eng.reset_state()
+    server_rec = server_phase(torch, np, model, prompts, eng, gap_outs,
+                              recs[0], profile)
     del eng
     torch.cuda.empty_cache()
-    return tuple(recs)
+    return tuple(recs) + (server_rec,)
+
+
+def serve_clients(srv, prompts, cfg, wait_s=600.0):
+    """Submit every prompt from a client thread of its own, all at once
+    (a barrier), each streaming its tokens. Returns (outputs, handles) in
+    prompt order; raises what a client raised, or if one did not finish
+    within ``wait_s``."""
+    import threading
+
+    import numpy as np
+
+    n = len(prompts)
+    outs, handles, errors = [None] * n, [None] * n, []
+    start = threading.Barrier(n)
+
+    def client(i):
+        try:
+            start.wait(wait_s)
+            handles[i] = srv.submit(prompts[i], cfg)
+            outs[i] = np.asarray(list(handles[i].stream(timeout=wait_s)),
+                                 np.int32)
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(wait_s)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a client did not finish in {wait_s} s")
+    return outs, handles
+
+
+def handle_stats(handles, outs, vocab, n_new, seg0, eng) -> dict:
+    """TTFT (submit to the first streamed token) and TPOT ((finish - first
+    token) / (n - 1)) from the handles' stamps, and the decode rate of the
+    engine's segments since ``seg0``; raises on an output of the wrong
+    length or outside the vocabulary."""
+    for o in outs:
+        if len(o) != n_new or not ((o >= 0) & (o < vocab)).all():
+            raise AssertionError(f"server: bad output {o!r}")
+    ttft = [h.first_token_ts - h.submit_ts for h in handles]
+    tpot = [(h.finish_ts - h.first_token_ts) / (len(o) - 1)
+            for h, o in zip(handles, outs)]
+    segs = eng._segment_log[seg0:]
+    dec_s, dec_n = sum(t for t, _ in segs), sum(k for _, k in segs)
+    return {"ttft_s": ttft, "ttft_p50_s": statistics.median(ttft),
+            "ttft_max_s": max(ttft), "tpot_s": tpot,
+            "tpot_p50_s": statistics.median(tpot),
+            "decode_tokens_per_s": dec_n / dec_s, "decode_tokens": dec_n,
+            "decode_s": dec_s, "segments": len(segs)}
+
+
+def http_json(url, body=None, timeout=300):
+    """(status, body bytes) of a GET (``body`` None) or a JSON POST."""
+    from urllib.error import HTTPError
+    from urllib.request import Request, urlopen
+
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with urlopen(Request(url, data=data), timeout=timeout) as r:
+            return r.status, r.read()
+    except HTTPError as e:
+        return e.code, e.read()
+
+
+def server_phase(torch, np, model, prompts, eng, gap_outs, gap_rec,
+                 profile=False):
+    """This slice's serving front on the 7B model, over the gap loop's
+    engine (``prefill_chunk=PREFIX["chunk"]``, reset, its graphs kept):
+
+    - serve: ``Server(eng, segment_steps=8, warmup=True)``, the 8 prompts
+      submitted from 8 client threads at once, 32 greedy tokens each,
+      streamed; TTFT and TPOT from the handles, beside the gap loop's;
+      the first token where each stream parts from the gap loop's (with
+      its top-2 margin); no capture after warmup; launches held against
+      the path's (a prompt up to the chunk admits in one prefill, a longer
+      one chunk by chunk); with ``profile``, the serve once more under
+      ``torch.profiler``;
+    - HTTP: ``serve_http`` on 127.0.0.1 with the monitor on, one
+      unstreamed and one streamed ``POST /generate`` (the same request:
+      the same tokens), ``GET /healthz`` (200, ``ok``), ``/metrics`` (the
+      serving and device-memory series) and ``/stats``; then the engine's
+      graphs dropped and a fresh ``Server(warmup=True)`` capturing them
+      anew while a thread scrapes ``/metrics`` in a loop: the capture
+      succeeds (each segment program captured once more) and a request
+      after it captures nothing;
+    - fault: the engine behind ``FaultyEngine`` with a plan that fails the
+      second ``decode_segment``; the 8 prompts again: one restart, every
+      request finished (its replay re-prefills prompt + emitted tokens),
+      the streams against the fault-free serve's, no capture after
+      warmup, the recovery seconds.
+
+    Every server and HTTP front is shut down and joined before it
+    returns."""
+    import threading
+
+    from paddle_tpu_torch import GenerationConfig, monitor, ops
+    from paddle_tpu_torch.inference.generation import EngineFault
+    from paddle_tpu_torch.serving import Server, serve_http
+    from paddle_tpu_torch.testing import FaultPlan, FaultyEngine
+
+    cfg = model.config
+    L, n_new, vocab = cfg.num_hidden_layers, 32, cfg.vocab_size
+    gen = GenerationConfig(max_new_tokens=n_new)
+    rec = {"engine": gap_rec["engine"],
+           "server": "Server(eng, segment_steps=8, warmup=True)",
+           "clients": len(prompts)}
+
+    # -- serve ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    srv = Server(eng, segment_steps=8, warmup=True)
+    try:
+        if not srv.wait_ready(600) or srv.status != "ok":
+            raise AssertionError(f"server warmup: status {srv.status}")
+        rec["warmup_s"] = time.perf_counter() - t0
+        p0, c0, s0 = eng.prefills, eng.prefill_chunks, eng.decode_steps
+        seg0 = len(eng._segment_log)
+        (outs, handles), counts = counted_run(
+            torch, ops, eng, lambda: serve_clients(srv, prompts, gen))
+        n_pre, n_chunks = eng.prefills - p0, eng.prefill_chunks - c0
+        n_steps = eng.decode_steps - s0
+        check_launches(counts, expect(
+            counts, rms_norm=(2 * L + 1) * (n_pre + n_chunks + n_steps),
+            fused_rope=2 * L * (n_pre + n_chunks), flash_fwd=L * n_pre,
+            flash_fwd_prefix=L * n_chunks, paged_decode=L * n_steps),
+            f"server: prefills {n_pre}, chunks {n_chunks}, decode steps "
+            f"{n_steps}, layers {L}")
+        rec.update(handle_stats(handles, outs, vocab, n_new, seg0, eng),
+                   prefills=n_pre, chunks=n_chunks, decode_steps=n_steps,
+                   launches=counts, captures_after_warmup=0)
+        if profile:
+            rec["profile"] = profile_run(
+                torch, lambda: serve_clients(srv, prompts, gen))
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    if srv.status != "stopped":
+        raise AssertionError(f"server did not stop: {srv.status}")
+    splits, margins = first_splits(torch, np, model, prompts, outs, gap_outs)
+    rec.update(gap_ttft_p50_s=gap_rec["ttft_p50_s"],
+               gap_tpot_p50_s=gap_rec["tpot_p50_s"],
+               first_split_from_gap=splits, split_top2_margins=margins)
+
+    # -- HTTP ----------------------------------------------------------------
+    http = {}
+    monitor.enable()
+    try:
+        srv = Server(eng, segment_steps=8)
+        httpd = serve_http(srv)
+        try:
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            body = {"prompt": prompts[1].tolist(), "max_new_tokens": 16}
+            code, raw = http_json(url + "/generate", body)
+            if code != 200:
+                raise AssertionError(f"POST /generate: {code} {raw[:300]}")
+            plain = json.loads(raw)["tokens"]
+            code, raw = http_json(url + "/generate", dict(body, stream=True))
+            lines = [json.loads(ln) for ln in raw.splitlines()]
+            streamed = [ln["token"] for ln in lines[:-1]]
+            if (code != 200 or lines[-1].get("status") != "finished"
+                    or streamed != plain or len(plain) != 16):
+                raise AssertionError(f"streamed {streamed} ({code}, "
+                                     f"{lines[-1]}) != unstreamed {plain}")
+            code, raw = http_json(url + "/healthz")
+            health = json.loads(raw)
+            if code != 200 or health["status"] != "ok":
+                raise AssertionError(f"/healthz {code} {health}")
+            code, raw = http_json(url + "/metrics")
+            prom = raw.decode()
+            want = ("paddle_tpu_serving_requests_total",
+                    "paddle_tpu_serving_ttft_seconds_bucket",
+                    "paddle_tpu_generated_tokens_total",
+                    'paddle_tpu_hbm_bytes{device="cuda:0",kind="bytes_in_use"}')
+            missing = [w for w in want if w not in prom]
+            if code != 200 or missing:
+                raise AssertionError(f"/metrics {code} lacks {missing}")
+            code, raw = http_json(url + "/stats")
+            stats = json.loads(raw)
+            if code != 200 or stats["metrics"]["ttft"]["*"]["count"] != 2:
+                raise AssertionError(f"/stats {code} {stats}")
+            http.update(tokens=plain, healthz=health,
+                        ttft_p50_ms=stats["metrics"]["ttft"]["*"]["p50"]
+                        * 1e3)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            srv.shutdown(drain=False, timeout=120)
+        if plain != outs[1][:16].tolist():
+            http["first_split_from_serve"] = next(
+                i for i, (a, b) in enumerate(zip(plain, outs[1])) if a != b)
+        # a second warmup, capturing anew, beside a /metrics scraper
+        eng.programs.clear()
+        caps0 = dict(eng.programs.captures)
+        scraper = monitor.start_http_server(port=0)
+        stop, scrapes, errors = threading.Event(), [], []
+
+        def scrape():
+            u = f"http://127.0.0.1:{scraper.server_address[1]}/metrics"
+            while not stop.is_set():
+                try:
+                    code, raw = http_json(u, timeout=60)
+                    if code != 200 or b"paddle_tpu_hbm_bytes" not in raw:
+                        raise AssertionError(f"scrape: {code}")
+                    scrapes.append(time.perf_counter())
+                except BaseException as e:      # re-raised below
+                    errors.append(e)
+                    return
+                time.sleep(SCRAPE_PAUSE_S)
+
+        th = threading.Thread(target=scrape, daemon=True)
+        th.start()
+        try:
+            while not scrapes and not errors and th.is_alive():
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            srv = Server(eng, segment_steps=8, warmup=True)
+            try:
+                ready = srv.wait_ready(600)
+                t1 = time.perf_counter()
+                if not ready or srv.status != "ok":
+                    raise AssertionError(f"warmup beside a scraper: "
+                                         f"status {srv.status}")
+                caps1 = dict(eng.programs.captures)
+                h = srv.submit(prompts[0], GenerationConfig(max_new_tokens=8))
+                if len(h.result(timeout=600)) != 8:
+                    raise AssertionError("request after the second warmup")
+            finally:
+                srv.shutdown(drain=False, timeout=120)
+        finally:
+            stop.set()
+            th.join(120)
+            scraper.shutdown()
+            scraper.server_close()
+        if errors:
+            raise errors[0]
+        during = sum(1 for ts in scrapes if t0 <= ts <= t1)
+        grew = {str(k): caps1.get(k, 0) - caps0.get(k, 0)
+                for k in set(caps1) | set(caps0)}
+        if (grew != {"('segment', 8)": 1, "('segment', 8, 'sampled')": 1}
+                or eng.programs.captures != caps1 or during < 1):
+            raise AssertionError(
+                f"second warmup: captures grew {grew}, then "
+                f"{eng.programs.captures} against {caps1}; {during} "
+                f"scrapes during it")
+        http.update(rewarm_s=t1 - t0, scrapes_during_rewarm=during,
+                    scrape_pause_s=SCRAPE_PAUSE_S, captures_grew=grew)
+    finally:
+        monitor.reset()
+        monitor.disable()
+    rec["http"] = http
+
+    # -- fault ---------------------------------------------------------------
+    plan = FaultPlan().raise_at("decode", nth=2,
+                                exc=EngineFault("injected device fault"))
+    srv = Server(FaultyEngine(eng, plan), segment_steps=8, warmup=True)
+    try:
+        if not srv.wait_ready(600) or srv.status != "ok":
+            raise AssertionError(f"fault leg warmup: status {srv.status}")
+        caps = dict(eng.programs.captures)
+        f_outs, f_handles = serve_clients(srv, prompts, gen)
+        fs = srv.fault_stats()
+        if (srv.restarts != 1 or plan.injected != [("decode", 2, "raise")]
+                or any(h.status != "finished" for h in f_handles)
+                or eng.programs.captures != caps):
+            raise AssertionError(
+                f"fault leg: restarts {srv.restarts}, injected "
+                f"{plan.injected}, statuses "
+                f"{[h.status for h in f_handles]}, captures "
+                f"{eng.programs.captures} against {caps}")
+        for o in f_outs:
+            if len(o) != n_new or not ((o >= 0) & (o < vocab)).all():
+                raise AssertionError(f"fault leg: bad output {o!r}")
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+        del eng.__dict__["_run_prefill"]        # FaultyEngine's shadow
+    splits, margins = first_splits(torch, np, model, prompts, f_outs, outs)
+    rec["fault"] = {"plan": "raise EngineFault at decode_segment call 2",
+                    "restarts": srv.restarts, "faults": {
+                        f"{k[0]}/{k[1]}": n for k, n in fs["faults"].items()},
+                    "recovery_s": fs["recovery_s"],
+                    "replays": [h._replays for h in f_handles],
+                    "first_split_from_serve": splits,
+                    "split_top2_margins": margins,
+                    "captures_after_warmup": 0}
+    return rec
 
 
 def generate_phase(torch, np, model, profile=False):
@@ -3719,10 +4032,10 @@ def main(argv=None) -> int:
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
-    sv, sq, gn, ds, sc, ss = serve_phase(torch, dev, np,
-                                         profile=args.profile)
+    sv, sq, gn, ds, sc, ss, sr = serve_phase(torch, dev, np,
+                                             profile=args.profile)
     record.update(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
-                  serve_chunked=sc, serve_sampled=ss)
+                  serve_chunked=sc, serve_sampled=ss, server=sr)
     record["phases"]["serve"] = time.perf_counter() - t
     for what, r in (("paged", sv), ("paged int8-pool", sq), ("dense", ds),
                     ("paged chunked (gap loop)", sc),
@@ -3740,6 +4053,26 @@ def main(argv=None) -> int:
         f"{sc['first_split_from_one_shot']} (of 32), top-2 margins there "
         f"{sc['split_top2_margins']}; {sc['chunks']} chunks; sampled TPOT "
         f"p50 {ss['tpot_p50_over_greedy']:.3f}x the greedy one")
+    log(f"[serve] Server over the chunked engine, {sr['clients']} client "
+        f"threads: TTFT p50 {sr['ttft_p50_s'] * 1e3:.1f} ms (max "
+        f"{sr['ttft_max_s'] * 1e3:.1f}; gap loop "
+        f"{sr['gap_ttft_p50_s'] * 1e3:.1f}), TPOT p50 "
+        f"{sr['tpot_p50_s'] * 1e3:.2f} ms (gap loop "
+        f"{sr['gap_tpot_p50_s'] * 1e3:.2f}), decode "
+        f"{sr['decode_tokens_per_s']:.1f} tok/s, warmup "
+        f"{sr['warmup_s']:.2f} s, captures after warmup 0; streams part "
+        f"from the gap loop's at {sr['first_split_from_gap']} (of 32), "
+        f"top-2 margins {sr['split_top2_margins']}  [{smi}]")
+    hr, fr = sr["http"], sr["fault"]
+    log(f"[serve] Server HTTP: /generate streamed == unstreamed (16 tokens), "
+        f"/healthz ok, /metrics and /stats served; a second warmup "
+        f"re-captured {hr['captures_grew']} in {hr['rewarm_s']:.2f} s "
+        f"beside {hr['scrapes_during_rewarm']} /metrics scrapes")
+    log(f"[serve] Server fault leg: restarts {fr['restarts']}, faults "
+        f"{fr['faults']}, recovery {fr['recovery_s']} s, replays "
+        f"{fr['replays']}; streams part from the fault-free serve's at "
+        f"{fr['first_split_from_serve']} (of 32), top-2 margins "
+        f"{fr['split_top2_margins']}  [{smi}]")
     log(f"[serve] dense streams part from the paged ones at tokens "
         f"{ds['first_split_from_paged']} (of 32), where the top-2 logit "
         f"margins are {ds['split_top2_margins']}; peak "
@@ -3791,7 +4124,8 @@ def main(argv=None) -> int:
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
-                serve_chunked=sc, serve_sampled=ss, train=tr, fmt=fm,
+                serve_chunked=sc, serve_sampled=ss, server=sr, train=tr,
+                fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
                 f32=record["f32"])

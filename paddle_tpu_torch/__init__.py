@@ -28,8 +28,20 @@ public kernel ops that no model calls yet: ``fused_linear_param_grad_add``
 and ``grouped_matmul`` (two more kernels), the stock-layout
 ``paged_attention`` (over the paged decode kernel) and the head-batched
 flash route under ``FLAGS_flash_head_batched`` (``get_flags``,
-``set_flags``).
+``set_flags``). The online serving front over the engines (``serving``:
+``Server``, ``RequestQueue``, the overload control plane and
+``serve_http``) with the host modules it needs: the metrics registry and
+SLO digests (``monitor``, ``monitor.slo``, ``monitor.provenance``), the
+request trace ring and flight recorder (``tracing``) and deterministic
+fault injection (``testing``), switched by ``FLAGS_enable_monitor`` and
+``FLAGS_enable_trace``.
+
+``serving``, ``monitor``, ``tracing``, ``testing`` and ``profiler`` load on
+first access (``paddle_tpu_torch.serving``), as in the reference; nothing
+imports ``http.server`` before ``serve_http`` is called.
 """
+import importlib as _importlib
+
 from .device import get_device
 from .framework import get_flags, set_flags
 from .inference.generation import (CausalLMEngine, ContinuousBatchingEngine,
@@ -42,3 +54,12 @@ __all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausa
            "load_paddle_params", "load_stacked_params", "build_train_step",
            "GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
            "PagedContinuousBatchingEngine"]
+
+# subpackages that load on first access (PEP 562), as the reference's do
+_LAZY_SUBMODULES = {"serving", "monitor", "tracing", "testing", "profiler"}
+
+
+def __getattr__(name):
+    if name in _LAZY_SUBMODULES:
+        return _importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,13 +2,17 @@
 
 A typed registry whose defaults a ``FLAGS_*`` environment variable
 overrides, parsed by the type of the default as the JAX package does.
-Only the flags the port reads are defined (``FLAGS_flash_head_batched``,
-the head-batched flash route). Unknown flags are accepted and stored, so
-scripts written against the reference's ``set_flags`` keep working, but
-nothing reads them: the reference's other flags (``FLAGS_use_pallas_kernels``,
-``FLAGS_check_nan_inf`` and the rest) have no effect here yet, and neither
-have the side effects of its ``set_flags`` on the amp state, the monitor,
-tracing and the ledger, modules the port does not have.
+Only the flags the port reads are defined: ``FLAGS_flash_head_batched``
+(the head-batched flash route), ``FLAGS_enable_monitor`` (the metrics
+registry, ``paddle_tpu_torch.monitor``) and ``FLAGS_enable_trace`` (the
+request trace ring, ``paddle_tpu_torch.tracing``); :func:`set_flags` pushes
+the last two to their modules, as the reference's does. Unknown flags are
+accepted and stored, so scripts written against the reference's
+``set_flags`` keep working, but nothing reads them: the reference's other
+flags (``FLAGS_use_pallas_kernels``, ``FLAGS_check_nan_inf``,
+``FLAGS_enable_ledger`` and the rest) have no effect here yet, and neither
+has its ``set_flags`` push to the amp state and the program ledger, modules
+the port does not have.
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ def define_flag(name: str, default, help_: str = ""):
 # the flags the port reads, with the reference's defaults; the reference's
 # other flags are defined by the slices that come to read them
 define_flag("FLAGS_flash_head_batched", False)    # ops/attention.py
+define_flag("FLAGS_enable_monitor", False)        # monitor/__init__.py
+define_flag("FLAGS_enable_trace", False)          # tracing/__init__.py
 
 
 def get_flags(flags: Union[str, List[str]]) -> Dict[str, Any]:
@@ -52,6 +58,16 @@ def get_flags(flags: Union[str, List[str]]) -> Dict[str, Any]:
 
 
 def set_flags(flags: Dict[str, Any]) -> None:
-    """Store every ``name: value`` of ``flags``."""
+    """Store every ``name: value`` of ``flags``, and push
+    ``FLAGS_enable_monitor`` / ``FLAGS_enable_trace`` to the monitor and
+    the trace ring (their fast-path bools)."""
     for k, v in flags.items():
         _REGISTRY[k] = v
+    if "FLAGS_enable_monitor" in flags:
+        from ..monitor import _sync_enabled
+
+        _sync_enabled(bool(flags["FLAGS_enable_monitor"]))
+    if "FLAGS_enable_trace" in flags:
+        from ..tracing import _sync_enabled as _sync_trace
+
+        _sync_trace(bool(flags["FLAGS_enable_trace"]))

@@ -18,7 +18,10 @@ On a CUDA device the first call of a key runs the function eagerly on a side
 stream (the call's real work, and the warm-up a capture needs: cuBLAS's
 workspace, kernel builds, tables built at first use), then captures it
 without running it; every later call replays. A failed capture raises:
-nothing retries eagerly. A CPU device is the caller asking for the CPU: the
+nothing retries eagerly. The capture runs in ``thread_local`` error mode, so
+another thread's CUDA calls (a metrics scrape beside a serving scheduler's
+warmup) cannot invalidate it; the calling thread owns the engine and makes
+no other CUDA call meanwhile. A CPU device is the caller asking for the CPU: the
 function runs eagerly on every call, and a key's first run counts as its
 capture, so the bookkeeping is the same on both devices.
 
@@ -100,7 +103,10 @@ class GraphCache:
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            # thread_local: only this thread's CUDA calls can invalidate
+            # the capture; the serving front's HTTP threads (a /metrics
+            # scrape during a Server's warmup) do not
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 fn()
         finally:
             after = launch_counts()

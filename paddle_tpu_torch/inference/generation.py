@@ -38,9 +38,21 @@ Tokens, lengths and flags stay on the device and come back to the host once
 per segment (once per ``generate``), as in the reference. Bucketed prefill
 pads exactly as the reference does, so greedy streams of the two agree.
 
-Not ported yet: prefill capture, speculative decoding, optimistic
-admission and preemption, the prefix cache, LoRA, tensor parallelism,
-monitor and tracing.
+Serving seams (for ``serving/scheduler.py::Server``): the fault taxonomy
+(:class:`RequestFault`, :class:`EngineFault`, :func:`classify_fault`,
+:class:`PagePoolExhausted`), the host-side probes ``can_admit``,
+``free_slots``, ``load()`` and ``partial_tokens``, and the reference's
+monitor series (``paddle_tpu_requests_total``,
+``paddle_tpu_generated_tokens_total``, ``paddle_tpu_prefill_requests_total``,
+``paddle_tpu_prefill_chunks_total``, ``paddle_tpu_prefill_warmup_seconds``,
+``paddle_tpu_kv_admission_seconds``, ``paddle_tpu_decode_tokens_per_sec``,
+per engine label ``_monitor_engine``) and trace events (``engine.prefill``,
+``engine.segment``), each behind the module's one enabled bool and none
+reading the device.
+
+Not ported yet: prefill capture, speculative decoding (ROADMAP A7, and
+with it the spec-draft counter), optimistic admission and preemption
+(A4c), the prefix cache (A4c), LoRA (A8), tensor parallelism (A11).
 """
 from __future__ import annotations
 
@@ -51,15 +63,93 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import monitor
+from .. import tracing as trace
 from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR
 from ._graphs import GraphCache
 from .paged_cache import PageAllocator, write_tokens, write_tokens_q
 from .sampling import SlotSampling, sample_rows
 
 __all__ = ["GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
-           "PagedContinuousBatchingEngine", "prefill_buckets_for"]
+           "PagedContinuousBatchingEngine", "prefill_buckets_for",
+           "RequestFault", "EngineFault", "REQUEST_SITES", "classify_fault",
+           "PagePoolExhausted", "ADMISSION_MODES"]
 
 _INT32_MAX = 2 ** 31 - 1
+
+
+# -- fault taxonomy (the serving scheduler's containment contract) ----------
+#
+# For every exception an engine call raises, the scheduler needs to know
+# how much state it poisons:
+#
+# - REQUEST-scoped: one request's admission went wrong (a prompt the model
+#   chokes on, a prefill error). The engine's abort guards already
+#   reclaimed the slot and pages, and everyone else's device state is
+#   coherent: fail THAT request with its cause, keep serving.
+# - ENGINE-scoped: device state is suspect (an error inside a decode
+#   segment, which writes every slot's cache). The engine is reset
+#   (`reset_state`) and the requests in flight replayed. This covers
+#   faults that leave the CUDA context usable; a sticky CUDA error (an
+#   illegal address) poisons the context, the reset raises, and the
+#   scheduler fails what it holds.
+# - FATAL: process-level signals (KeyboardInterrupt/SystemExit) that must
+#   never be swallowed by a recovery loop.
+
+class RequestFault(RuntimeError):
+    """A fault scoped to ONE request: fail that request with its cause
+    and keep serving everyone else (the engine's device state is
+    coherent: admission abort guards reclaimed any claimed capacity).
+    Raise it from code running single-request work (the admission,
+    prefill and chunk seams). At a BATCH-wide seam (a decode segment over
+    every slot) there is no single request to pin it on, so a supervisor
+    treats it as engine-scoped there."""
+
+
+class EngineFault(RuntimeError):
+    """A fault that poisons the ENGINE's device state (e.g. a device
+    error mid decode segment): the supervisor resets the state
+    (:meth:`ContinuousBatchingEngine.reset_state`) and replays the
+    requests in flight from their prompt + tokens emitted so far."""
+
+
+# seams where an unclassified exception defaults to request scope: the
+# engine was doing single-request work behind an abort guard, so shared
+# device state was never touched
+REQUEST_SITES = frozenset({"admit", "prefill", "chunk"})
+
+# the reference's paged-engine admission policies; the port has
+# "reserved" only ("optimistic" waits for ROADMAP A4c)
+ADMISSION_MODES = ("reserved", "optimistic")
+
+
+class PagePoolExhausted(RuntimeError):
+    """Page growth could not be satisfied, or a request can never fit the
+    pool. ``rids`` names the requests concerned. With reserved admission
+    (the port's only mode) the serving scheduler raises it as the cause of
+    a replay that can never be admitted again."""
+
+    def __init__(self, rids, message: str):
+        super().__init__(message)
+        self.rids = list(rids)
+
+
+def classify_fault(exc: BaseException, site: str = "decode") -> str:
+    """Blast radius of ``exc`` raised at serving seam ``site``:
+    ``"request"`` / ``"engine"`` / ``"fatal"``.
+
+    Explicit :class:`RequestFault` / :class:`EngineFault` win over the
+    site default; anything unclassified is request-scoped at the
+    single-request seams (:data:`REQUEST_SITES`: admission work runs
+    behind abort guards that reclaim capacity) and engine-scoped at the
+    batch-wide ones (``decode``, ``collect``, ``cancel``)."""
+    if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+        return "fatal"
+    if isinstance(exc, EngineFault):
+        return "engine"
+    if isinstance(exc, RequestFault):
+        return "request"
+    return "request" if site in REQUEST_SITES else "engine"
 
 
 def prefill_buckets_for(spec, max_len: int, floor: int = 16):
@@ -426,9 +516,10 @@ class _ChunkedAdmission:
     Drive with ``engine.admit_chunk``; reclaim with ``engine.abort_admit``."""
 
     __slots__ = ("rid", "slot", "ids", "plen", "cfg", "mini", "off",
-                 "closed", "last_logits")
+                 "closed", "last_logits", "t0")
 
     def __init__(self, rid, slot, ids, plen, cfg, mini, off=0):
+        self.t0 = time.perf_counter()    # the admission latency's start
         self.rid = rid
         self.slot = slot
         self.ids = ids
@@ -487,7 +578,10 @@ class ContinuousBatchingEngine:
 
     Host-side counters: ``prefills``, ``prefill_chunks`` and
     ``decode_steps`` count the model forwards run (warmup's included);
-    ``serve_stats`` holds the timings of the last :meth:`serve`."""
+    ``serve_stats`` holds the timings of the last :meth:`serve`;
+    :meth:`load` is the host-side snapshot a serving front reads.
+    ``_monitor_engine`` labels this engine's monitor series; :meth:`close`
+    retires them."""
 
     def __init__(self, model, max_batch: int, max_len: int,
                  prefill_buckets="auto",
@@ -512,6 +606,9 @@ class ContinuousBatchingEngine:
         self._cfg: Dict[int, GenerationConfig] = {}
         self._finished: Dict[int, np.ndarray] = {}
         self._next_req = 0
+        # per-engine label: engines side by side publish their series
+        # side by side
+        self._monitor_engine = monitor.instance_label("engine")
 
     def _init_decode_state(self) -> None:
         """Allocate the device-side decode state, once: caches, per-slot
@@ -555,6 +652,8 @@ class ContinuousBatchingEngine:
         self._budget.clear()
         self._cfg.clear()
         self._finished.clear()
+        if monitor.enabled():
+            self._requests_counter().labels(event="engine_reset").inc()
 
     # -- cache layout hooks (dense here; the paged subclass replaces them) ---
     def _make_caches(self):
@@ -585,7 +684,7 @@ class ContinuousBatchingEngine:
         slot 0, which is free, so its KV is dead weight that the next
         admission overwrites."""
         rows = [(k[:1], v[:1]) for k, v in self.caches]
-        self._run_prefill(np.zeros((1, width), np.int32), width, rows)
+        self._prefill_forward(np.zeros((1, width), np.int32), width, rows)
 
     def _fwd_decode(self, tok, lens, live):
         logits, _ = self.model.forward_decode_ragged(tok, self.caches, lens,
@@ -597,7 +696,29 @@ class ContinuousBatchingEngine:
         return True
 
     def free_slots(self) -> int:
+        """Number of free cache slots right now: the public capacity
+        probe (with :meth:`can_admit`) for serving schedulers."""
         return len(self._free)
+
+    def load(self) -> dict:
+        """Host-side load snapshot: ``{"free_slots", "active_slots",
+        "max_batch", "max_len", "tp_degree"}`` plus, paged, ``{"free_pages",
+        "total_pages", "occupancy", "kv_dtype"}``. All host bookkeeping
+        kept between segments: no device sync, so a health endpoint can
+        read it while the scheduler thread is inside a decode segment.
+        The reference's ``tp`` and ``lora`` blocks come with tensor
+        parallelism and LoRA (ROADMAP A11, A8)."""
+        out = {"free_slots": len(self._free),
+               "active_slots": len(self._slot_req),
+               "max_batch": self.max_batch,
+               "max_len": self.max_len,
+               "tp_degree": 1}
+        alloc = getattr(self, "alloc", None)
+        if alloc is not None:
+            out["free_pages"] = alloc.free_pages
+            out["total_pages"] = alloc.num_pages
+            out["occupancy"] = round(alloc.occupancy, 4)
+        return out
 
     def can_admit(self, prompt_len: int, cfg: GenerationConfig) -> bool:
         """True iff ``add_request`` with this prompt length and config
@@ -610,6 +731,7 @@ class ContinuousBatchingEngine:
         """Prefill one request into a free slot; returns the request id.
         Raises if no slot (or, paged, no page reservation) is available —
         probe :meth:`can_admit` to defer instead."""
+        t0 = time.perf_counter()
         ids = self._check_admit(prompt_ids, cfg)
         plen = ids.shape[1]
         slot = heapq.heappop(self._free)
@@ -623,7 +745,7 @@ class ContinuousBatchingEngine:
             # a failed admission must not leak the slot (or its pages)
             self._abort_admit(slot)
             raise
-        return self._register(slot, rid, first, tok_done, cfg)
+        return self._register(slot, rid, first, tok_done, cfg, t0)
 
     def _check_admit(self, prompt_ids, cfg):
         """The prompt as int32 [1, plen], after the checks every admission
@@ -664,6 +786,7 @@ class ContinuousBatchingEngine:
             raise
         rid = self._next_req
         self._next_req += 1
+        self._count_prefill("chunked")
         return _ChunkedAdmission(rid, slot, ids, plen, cfg, mini, off=start)
 
     def _begin_admit_cache(self, slot: int, ids, plen: int, cfg):
@@ -703,6 +826,12 @@ class ContinuousBatchingEngine:
                                               adm.off, r)
             last = adm.off + r >= adm.plen
             adm.off += C
+            if monitor.enabled():
+                monitor.counter(
+                    "paddle_tpu_prefill_chunks_total",
+                    "fixed-shape prefill chunks run by chunked "
+                    "admissions", ("engine",)).labels(
+                    engine=self._monitor_engine).inc()
             if not last:
                 return False
             self._install_mini(adm.slot, adm.mini, adm.plen)
@@ -716,7 +845,7 @@ class ContinuousBatchingEngine:
             raise
         adm.closed = True
         adm.mini = None     # the slab goes back to the allocator
-        self._register(adm.slot, adm.rid, first, tok_done, adm.cfg)
+        self._register(adm.slot, adm.rid, first, tok_done, adm.cfg, adm.t0)
         return True
 
     def abort_admit(self, adm: _ChunkedAdmission) -> None:
@@ -754,23 +883,55 @@ class ContinuousBatchingEngine:
         self.active_dev[slot] = True
         self.eos[slot] = -1 if cfg.eos_token_id is None else cfg.eos_token_id
 
-    def _register(self, slot: int, rid: int, first, tok_done, cfg) -> int:
-        """Host-side tail of an admission: record the request and retire
-        it at once when its first token already ends it."""
+    def _register(self, slot: int, rid: int, first, tok_done, cfg,
+                  t0: float) -> int:
+        """Host-side tail of an admission: record the request, retire it
+        at once when its first token already ends it, count the
+        admission (``t0``: when it began)."""
         self._slot_req[slot] = rid
         self._tokens[rid] = [int(first)]     # the admission's one host sync
         self._budget[rid] = cfg.max_new_tokens - 1
         self._cfg[rid] = cfg
         if bool(tok_done) or self._budget[rid] <= 0:
             self._retire(slot)
+        if monitor.enabled():
+            monitor.histogram(
+                "paddle_tpu_kv_admission_seconds",
+                "add_request latency: prefill + cache install + slot "
+                "state update").observe(time.perf_counter() - t0)
+            self._requests_counter().labels(event="admitted").inc()
+            # the prompt's first generated token is drawn HERE, not in a
+            # decode segment: count it so tokens_total means tokens
+            self._tokens_counter().inc()
         return rid
 
     def _prefill_width(self, plen: int) -> int:
         return _bucket_for(self.prefill_buckets, plen)
 
+    def _count_prefill(self, bucket) -> None:
+        if monitor.enabled():
+            monitor.counter(
+                "paddle_tpu_prefill_requests_total",
+                "admission prefills by engine and padded bucket width "
+                "('chunked' = chunked admission)",
+                ("engine", "bucket")).labels(
+                engine=self._monitor_engine, bucket=str(bucket)).inc()
+
     def _run_prefill(self, ids: np.ndarray, plen: int, mini):
-        """Pad the prompt to its bucket and prefill it into the dense
-        ``mini`` cache; returns (last-position logits [1, V], mini)."""
+        """An admission's one-shot prefill: pad the prompt to its bucket
+        and prefill it into the dense ``mini`` cache, counted per bucket;
+        returns (last-position logits [1, V], mini)."""
+        width = self._prefill_width(plen)
+        self._count_prefill(width if self.prefill_buckets is not None
+                            else "exact")
+        if trace.enabled():
+            # the bucket CHOICE explains a prefill's latency class
+            trace.event("engine.prefill", engine=self._monitor_engine,
+                        plen=plen, bucket=width)
+        return self._prefill_forward(ids, plen, mini)
+
+    def _prefill_forward(self, ids: np.ndarray, plen: int, mini):
+        """The prefill forward itself (admissions and warmup)."""
         width = self._prefill_width(plen)
         ids_t = torch.tensor(_pad_ids(ids, width), device=self.device)
         with torch.no_grad():
@@ -781,13 +942,15 @@ class ContinuousBatchingEngine:
     def _abort_admit(self, slot: int) -> None:
         heapq.heappush(self._free, slot)
 
-    def _retire(self, slot: int) -> None:
+    def _retire(self, slot: int, event: str = "finished") -> None:
         rid = self._slot_req.pop(slot)
         self._finished[rid] = np.asarray(self._tokens.pop(rid), np.int32)
         del self._budget[rid]
         self._cfg.pop(rid, None)
         self.active_dev[slot] = False
         heapq.heappush(self._free, slot)   # lowest free slot admits first
+        if monitor.enabled():
+            self._requests_counter().labels(event=event).inc()
 
     def cancel_request(self, rid: int):
         """Cancel an ACTIVE request between segments: its slot (and pages)
@@ -798,9 +961,47 @@ class ContinuousBatchingEngine:
         if slot is None:
             return None
         out = np.asarray(self._tokens[rid], np.int32)
-        self._retire(slot)
+        self._retire(slot, event="cancelled")
         self._finished.pop(rid, None)
         return out
+
+    def partial_tokens(self, rid: int, start: int = 0):
+        """Copy of the tokens generated so far for an ACTIVE request, from
+        position ``start`` (the streaming hook: a scheduler passes the
+        count it already pushed, so each gap copies one segment's delta),
+        or None when ``rid`` is not active. Host lists only."""
+        toks = self._tokens.get(rid)
+        return None if toks is None else list(toks[start:])
+
+    # -- monitor instruments (the reference's names and help) ---------------
+    @staticmethod
+    def _requests_counter():
+        return monitor.counter(
+            "paddle_tpu_requests_total",
+            "serving requests by lifecycle event", ("event",))
+
+    @staticmethod
+    def _tokens_counter():
+        return monitor.counter(
+            "paddle_tpu_generated_tokens_total",
+            "tokens generated by the continuous-batching engines "
+            "(admission first-token + decode segments)")
+
+    @staticmethod
+    def _tokens_per_sec_gauge():
+        return monitor.gauge(
+            "paddle_tpu_decode_tokens_per_sec",
+            "emitted tokens / wall time of the latest decode "
+            "segment (includes host collect), per engine", ("engine",))
+
+    def close(self) -> None:
+        """Retire this engine's per-instance monitor series (idempotent;
+        a dropped engine must not export its last tokens/sec forever)."""
+        self._tokens_per_sec_gauge().remove(engine=self._monitor_engine)
+        for name in ("paddle_tpu_prefill_requests_total",
+                     "paddle_tpu_prefill_chunks_total",
+                     "paddle_tpu_prefill_warmup_seconds"):
+            monitor.remove_series(name, engine=self._monitor_engine)
 
     def collect_finished(self) -> Dict[int, np.ndarray]:
         out, self._finished = self._finished, {}
@@ -859,6 +1060,7 @@ class ContinuousBatchingEngine:
         request samples. Returns the number of requests still active."""
         if not self._slot_req:
             return 0
+        n_live = len(self._slot_req)
         t0 = time.perf_counter()
         sampled = any(self._cfg[rid].do_sample
                       for rid in self._slot_req.values())
@@ -878,7 +1080,17 @@ class ContinuousBatchingEngine:
             emitted += len(seq)
             if self._budget[rid] <= 0 or done_h[slot] or len(seq) < take:
                 self._retire(slot)
-        self._segment_log.append((time.perf_counter() - t0, emitted))
+        dt = time.perf_counter() - t0
+        self._segment_log.append((dt, emitted))
+        if monitor.enabled():
+            self._tokens_counter().inc(emitted)
+            self._tokens_per_sec_gauge().labels(
+                engine=self._monitor_engine).set(
+                emitted / dt if dt > 0 else 0.0)
+        if trace.enabled():
+            trace.record("engine.segment", dur_ns=int(dt * 1e9),
+                         engine=self._monitor_engine, steps=n_steps,
+                         active=n_live, emitted=emitted)
         return len(self._slot_req)
 
     def warmup(self, segment_steps: Optional[int] = None) -> Dict[str, float]:
@@ -923,6 +1135,12 @@ class ContinuousBatchingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out["total"] = time.perf_counter() - t_all
+        if monitor.enabled():
+            monitor.gauge(
+                "paddle_tpu_prefill_warmup_seconds",
+                "wall seconds engine.warmup() spent pre-compiling the "
+                "serving-path programs", ("engine",)).labels(
+                engine=self._monitor_engine).set(out["total"])
         return out
 
     def serve(self, prompts, cfg=None,
@@ -1012,8 +1230,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     chunk; :meth:`abort_admit` frees the reserved pages.
 
     This is the reference's ``admission_mode="reserved"`` with
-    ``prefix_cache=False``; its other admission modes and the prefix cache
-    are not ported yet."""
+    ``prefix_cache=False``: :attr:`admission_mode` reads ``"reserved"``,
+    and setting ``"optimistic"`` raises NotImplementedError (ROADMAP A4c,
+    with preemption and the prefix cache)."""
 
     def __init__(self, model, max_batch: int, num_pages: int,
                  page_size: int, max_pages: int, prefill_buckets="auto",
@@ -1121,12 +1340,33 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _reserve_admit(self, slot: int, plen: int, cfg) -> None:
         self.alloc.ensure(slot, self._reserved(plen, cfg))
 
+    @property
+    def admission_mode(self) -> str:
+        """The admission policy: ``"reserved"``, the port's only one."""
+        return "reserved"
+
+    @admission_mode.setter
+    def admission_mode(self, mode: str) -> None:
+        if mode not in ADMISSION_MODES:
+            raise ValueError(f"admission_mode must be one of "
+                             f"{ADMISSION_MODES}, got {mode!r}")
+        if mode != "reserved":
+            raise NotImplementedError(
+                f"admission_mode={mode!r} is not ported yet (ROADMAP A4c: "
+                f"optimistic admission, page growth and preemption); the "
+                f"port's paged engine admits 'reserved'")
+
+    def load(self) -> dict:
+        out = super().load()
+        out["kv_dtype"] = self.kv_dtype
+        return out
+
     def _warm_prefill(self, width: int) -> None:
         """Warmup's prefill and install at one bucket: slot 0 is free and
         owns no pages, so every row of the install goes to the sink."""
         mini = self.model.init_cache(1, width)
-        _, mini = self._run_prefill(np.zeros((1, width), np.int32), width,
-                                    mini)
+        _, mini = self._prefill_forward(np.zeros((1, width), np.int32),
+                                        width, mini)
         self._install_mini(0, mini, width)
 
     def _install_mini(self, slot: int, mini, plen: int) -> None:
@@ -1156,8 +1396,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         super()._abort_admit(slot)
         self.alloc.free_slot(slot)   # release any reserved pages
 
-    def _retire(self, slot: int) -> None:
-        super()._retire(slot)
+    def _retire(self, slot: int, event: str = "finished") -> None:
+        super()._retire(slot, event)
         self.alloc.free_slot(slot)
 
     def reset_state(self) -> None:

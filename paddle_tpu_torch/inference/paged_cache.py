@@ -125,6 +125,15 @@ class PageAllocator:
     def used_pages(self) -> int:
         return self.num_pages - len(self._free)
 
+    @property
+    def occupancy(self) -> float:
+        """Fraction of the pool owned by slots right now (0.0 on an empty
+        pool): what ``load()`` and the serving ``pressure`` surface
+        report."""
+        if not self.num_pages:
+            return 0.0
+        return self.used_pages / self.num_pages
+
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 

@@ -1,0 +1,355 @@
+"""paddle_tpu_torch.tracing: per-request lifecycle tracing and the fault
+flight recorder.
+
+Port of ``paddle_tpu/tracing/__init__.py``, the same ring, event shape and
+export. (The package is ``tracing``, not ``trace``, as in the reference,
+where ``paddle.trace`` is a math op; call sites alias it as ``trace``.)
+
+The monitor (``paddle_tpu_torch.monitor``) answers "how is serving doing
+in AGGREGATE" with counters and histograms; THIS package answers the two
+questions serving is debugged with:
+
+- *"request 17's TTFT was terrible: which phase ate the time?"*: every
+  serving seam (queue enqueue/dequeue/expire, admission with the prefill
+  bucket and each chunked-prefill chunk, the inter-segment gap, decode
+  segments with step counts, replay / restart / backoff, fault
+  classification) records a structured span or instant event keyed by
+  request id into one process-wide bounded ring buffer, and a request's
+  ordered timeline is assembled ON DEMAND (``RequestHandle.timeline()``,
+  ``Server.request_timeline(rid)``, the HTTP ``GET /trace?rid=`` debug
+  endpoint), never maintained eagerly;
+- *"what was the engine doing in the seconds before it died?"*: the same
+  ring IS the **flight recorder**: :func:`dump` writes the last N events
+  to a file, and the serving scheduler auto-dumps on engine-scoped
+  faults, ``degraded`` watchdog flips and shed storms, surfacing the dump
+  path in ``/healthz`` and ``Server.fault_stats()``.
+
+Cost model, the same bar as ``FLAGS_enable_monitor``: every recording
+entry point checks one module-level bool first, so with tracing off the
+instrumented paths pay a branch (plus one no-op context manager on the
+span sites) and nothing else. Recording granularity is per
+request-lifecycle edge and per decode segment, never per token and never
+per kernel; no recording site reads the device.
+
+Event shape (dict form, what every surface returns)::
+
+    {"phase": "admit", "rid": "server0:3", "ts_ns": ..., "dur_ns": ...,
+     **attrs}                      # dur_ns == 0 marks an instant event
+
+``rid`` is the SERVING-layer request key (``<server_label>:<handle id>``
+for scheduler-driven requests, unique across concurrent servers in one
+process), NOT the engine rid: engine rids change across replay/restart
+while the handle id does not, which is why a timeline survives both.
+Batch-wide events (decode segments) carry the live handles under
+``attrs["rids"]`` and are included in each of those requests' timelines.
+
+Export: :func:`export_chrome` / :func:`dump` write Chrome-trace /
+Perfetto JSON through the profiler's shared writer
+(:func:`paddle_tpu_torch.profiler.write_chrome_trace`): open the file in
+``chrome://tracing`` or https://ui.perfetto.dev, or feed it to
+``tools/monitor_report.py --trace FILE`` for a per-phase latency table.
+A dump's ``otherData.env`` is :func:`paddle_tpu_torch.monitor.provenance.
+env_stamp`.
+
+Enable via ``FLAGS_enable_trace=1`` in the environment,
+``paddle_tpu_torch.set_flags({"FLAGS_enable_trace": True})``, or
+:func:`enable` here. The ring is bounded (default 65536 events,
+:func:`configure`); old events drop silently, so a timeline for a
+long-finished request may be partial: the price of a black box that can
+stay on forever. Dumps go to :func:`configure`'s ``dump_dir``, else the
+system temp directory (``TMPDIR``).
+"""
+from __future__ import annotations
+
+import itertools
+import os
+import re
+import tempfile
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+__all__ = [
+    "enable", "disable", "enabled", "configure", "clear",
+    "event", "span", "record", "events", "timeline",
+    "export_chrome", "dump", "NULL_SPAN",
+    "DEFAULT_CAPACITY",
+]
+
+DEFAULT_CAPACITY = 65536
+
+_enabled = False  # synced from FLAGS_enable_trace below
+_lock = threading.Lock()
+# ring entries: (ts_ns, dur_ns, rid, phase, attrs_or_None). One bounded
+# deque is both the per-request event store AND the flight recorder —
+# timelines are assembled on demand by scanning it, so the hot path is
+# a single locked append
+_ring: deque = deque(maxlen=DEFAULT_CAPACITY)
+_dump_dir: Optional[str] = None     # None -> tempfile.gettempdir()
+_dump_seq = itertools.count()
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def _sync_enabled(value: bool) -> None:
+    """Flag push target (framework.flags.set_flags) — flips the
+    fast-path bool. No hooks to install: call sites check
+    :func:`enabled` themselves at serving-seam granularity."""
+    global _enabled
+    _enabled = bool(value)
+
+
+def enable(capacity: Optional[int] = None,
+           dump_dir: Optional[str] = None) -> None:
+    """Turn tracing on (equivalent to
+    ``set_flags({"FLAGS_enable_trace": True})``); optionally
+    :func:`configure` the ring capacity / flight-dump directory
+    first."""
+    if capacity is not None or dump_dir is not None:
+        configure(capacity=capacity, dump_dir=dump_dir)
+    from ..framework.flags import set_flags
+
+    set_flags({"FLAGS_enable_trace": True})
+
+
+def disable() -> None:
+    from ..framework.flags import set_flags
+
+    set_flags({"FLAGS_enable_trace": False})
+
+
+def configure(capacity: Optional[int] = None,
+              dump_dir: Optional[str] = None) -> None:
+    """Set the ring capacity (events kept globally — the flight
+    recorder's N; the newest tail survives a shrink) and/or the
+    directory flight dumps are written to (default: the system temp
+    dir)."""
+    global _ring, _dump_dir
+    with _lock:
+        if capacity is not None:
+            if capacity < 1:
+                raise ValueError(
+                    f"capacity must be >= 1, got {capacity}")
+            if capacity != _ring.maxlen:
+                # rebuild (never re-point): a shrink must DROP the
+                # oldest events, keeping the newest tail that fits —
+                # deque(iterable, maxlen=n) keeps the last n items
+                _ring = deque(_ring, maxlen=capacity)
+        if dump_dir is not None:
+            _dump_dir = dump_dir
+
+
+def clear() -> None:
+    """Drop every buffered event (capacity and enablement unchanged)."""
+    with _lock:
+        _ring.clear()
+
+
+# -- recording ---------------------------------------------------------------
+
+
+def record(phase: str, rid=None, dur_ns: int = 0, **attrs) -> None:
+    """Low-level append: one event with an explicit duration (0 = an
+    instant). Call sites that already measured a wall time use this;
+    everyone else uses :func:`event` / :func:`span`. No-op while
+    disabled."""
+    if not _enabled:
+        return
+    ev = (time.perf_counter_ns() - int(dur_ns), int(dur_ns), rid, phase,
+          attrs or None)
+    with _lock:
+        _ring.append(ev)
+
+
+def event(phase: str, rid=None, **attrs) -> None:
+    """One instant event (``dur_ns == 0``). No-op while disabled."""
+    if not _enabled:
+        return
+    ev = (time.perf_counter_ns(), 0, rid, phase, attrs or None)
+    with _lock:
+        _ring.append(ev)
+
+
+class _Span:
+    """Context manager recording one complete event on exit, stamped
+    with its entry time (so timelines sort spans by when they BEGAN)."""
+
+    __slots__ = ("_phase", "_rid", "_attrs", "_t0")
+
+    def __init__(self, phase, rid, attrs):
+        self._phase = phase
+        self._rid = rid
+        self._attrs = attrs or None
+        self._t0 = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self._t0 is not None and _enabled:
+            ev = (self._t0, time.perf_counter_ns() - self._t0,
+                  self._rid, self._phase, self._attrs)
+            with _lock:
+                _ring.append(ev)
+        return False
+
+
+class _NullSpan:
+    """Shared no-op span for the disabled path — entering/exiting costs
+    two trivial method calls and zero allocation."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+def span(phase: str, rid=None, **attrs):
+    """Span context manager::
+
+        with trace.span("admit", rid=key, plen=plen, bucket=width):
+            engine.add_request(...)
+
+    Returns :data:`NULL_SPAN` while disabled (near-zero)."""
+    if not _enabled:
+        return NULL_SPAN
+    return _Span(phase, rid, attrs)
+
+
+# -- assembly ----------------------------------------------------------------
+
+
+def _to_dict(ev) -> Dict[str, Any]:
+    ts, dur, rid, phase, attrs = ev
+    d: Dict[str, Any] = dict(attrs) if attrs else {}
+    # the four fixed keys win over attr-name collisions
+    d["phase"] = phase
+    d["rid"] = rid
+    d["ts_ns"] = ts
+    d["dur_ns"] = dur
+    return d
+
+
+def events(rid=None, limit: Optional[int] = None) -> List[Dict[str, Any]]:
+    """Snapshot of the ring (insertion order — spans land at their END
+    time; sort by ``ts_ns`` for begin-time order). ``rid`` filters like
+    :func:`timeline`; ``limit`` keeps only the newest N."""
+    with _lock:
+        snap = list(_ring)
+    if rid is not None:
+        snap = [e for e in snap if _matches(e, rid)]
+    if limit is not None:
+        snap = snap[-limit:]
+    return [_to_dict(e) for e in snap]
+
+
+def _matches(ev, rid) -> bool:
+    if ev[2] == rid:
+        return True
+    attrs = ev[4]
+    if attrs is None:
+        return False
+    rids = attrs.get("rids")
+    return rids is not None and rid in rids
+
+
+def timeline(rid) -> List[Dict[str, Any]]:
+    """One request's ordered event timeline, assembled on demand:
+    every event recorded with this ``rid`` plus the batch-wide events
+    (decode segments) that carried it in their ``rids`` attr, sorted
+    by begin time. May be PARTIAL for old requests — the ring is
+    bounded (see :func:`configure`)."""
+    with _lock:
+        snap = [e for e in _ring if _matches(e, rid)]
+    snap.sort(key=lambda e: e[0])
+    return [_to_dict(e) for e in snap]
+
+
+# -- export ------------------------------------------------------------------
+
+
+def _chrome_events(snap) -> List[dict]:
+    out = []
+    pid = os.getpid()
+    for ts, dur, rid, phase, attrs in snap:
+        ev = {"name": phase, "ts": ts / 1e3, "pid": pid, "tid": 0,
+              "cat": "serving"}
+        if dur:
+            ev["ph"] = "X"
+            ev["dur"] = dur / 1e3
+        else:
+            ev["ph"] = "i"
+            ev["s"] = "g"
+        args = dict(attrs) if attrs else {}
+        if rid is not None:
+            args["rid"] = rid
+        if args:
+            # Perfetto chokes on non-JSON values; everything we record
+            # is already json-able (str/int/float/bool/tuples)
+            ev["args"] = {k: (list(v) if isinstance(v, tuple) else v)
+                          for k, v in args.items()}
+        out.append(ev)
+    return out
+
+
+def export_chrome(path: str, rid=None,
+                  other: Optional[dict] = None) -> str:
+    """Write the buffered events (optionally one request's) as
+    Chrome-trace/Perfetto JSON via the profiler's shared writer;
+    returns ``path``."""
+    from ..profiler import write_chrome_trace
+
+    with _lock:
+        snap = list(_ring)
+    if rid is not None:
+        snap = [e for e in snap if _matches(e, rid)]
+    snap.sort(key=lambda e: e[0])
+    return write_chrome_trace(path, _chrome_events(snap), other=other)
+
+
+def dump(reason: str, path: Optional[str] = None) -> Optional[str]:
+    """FLIGHT RECORDER dump: write the last N events (the whole ring)
+    plus ``reason`` metadata to ``path`` (default
+    ``<dump_dir>/paddle_tpu_flight_<pid>_<seq>_<reason>.json``) and
+    return the path, or None while tracing is disabled (no black box
+    was recording). The serving scheduler calls this on engine-scoped
+    faults, watchdog ``degraded`` flips and shed storms."""
+    if not _enabled:
+        return None
+    if path is None:
+        safe = re.sub(r"[^A-Za-z0-9_.-]+", "_", reason)[:64] or "dump"
+        path = os.path.join(
+            _dump_dir or tempfile.gettempdir(),
+            f"paddle_tpu_flight_{os.getpid()}_{next(_dump_seq)}"
+            f"_{safe}.json")
+    from ..monitor.provenance import env_stamp
+
+    return export_chrome(path, other={
+        "reason": reason,
+        "dumped_at_unix": time.time(),
+        "pid": os.getpid(),
+        # chain of custody: which machine/backend/rev produced this
+        # black box — without it a dump cannot be tied to a config
+        "env": env_stamp(),
+    })
+
+
+# -- flag sync (import-time): FLAGS_enable_trace may already be set via
+#    the environment; importing the package honors it ------------------------
+def _init_from_flags():
+    from ..framework.flags import get_flags
+
+    _sync_enabled(get_flags("FLAGS_enable_trace")["FLAGS_enable_trace"])
+
+
+_init_from_flags()

@@ -317,3 +317,77 @@ def test_norm_rope_kernel_source_is_built_and_standalone():
         assert after.startswith("return cudaGetLastError();"), after[:80]
     fk = (PORT / "ops" / "fused_kernels.py").read_text()
     assert "def _rms_norm_kernel" not in fk and "def _rope_kernel" not in fk
+
+
+SERVING_MODULES = {
+    "paddle_tpu_torch/monitor/__init__.py": [
+        "Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
+        "register_callback", "enable", "disable", "enabled", "snapshot",
+        "render_prometheus", "write_jsonl", "reset", "remove_series",
+        "start_http_server", "http_payload", "instance_label"],
+    "paddle_tpu_torch/monitor/slo.py": None,
+    "paddle_tpu_torch/monitor/provenance.py": ["env_stamp"],
+    "paddle_tpu_torch/tracing/__init__.py": [
+        "enable", "disable", "enabled", "configure", "clear", "event",
+        "span", "record", "events", "timeline", "export_chrome", "dump",
+        "NULL_SPAN", "DEFAULT_CAPACITY"],
+    "paddle_tpu_torch/profiler/__init__.py": ["write_chrome_trace"],
+    "paddle_tpu_torch/testing/__init__.py": [
+        "SITES", "FaultPlan", "FaultyEngine", "InjectedFault",
+        "retry_under_load"],
+    "paddle_tpu_torch/testing/faults.py": [
+        "SITES", "FaultPlan", "FaultyEngine", "InjectedFault"],
+    "paddle_tpu_torch/serving/__init__.py": [
+        "Server", "serve_http", "RequestHandle", "RequestQueue",
+        "RequestRejected", "QueueFull", "RequestCancelled",
+        "DeadlineExpired", "RequestFailed", "RequestFault", "EngineFault",
+        "classify_fault", "PagePoolExhausted", "PreemptionBudgetExceeded",
+        "SLOPolicy", "ControlPolicy", "ControlPlane", "ElasticController",
+        "RUNG_ACTIONS", "QUEUED", "RUNNING", "FINISHED", "CANCELLED",
+        "EXPIRED", "FAILED"],
+    "paddle_tpu_torch/serving/queue.py": None,
+    "paddle_tpu_torch/serving/control.py": [
+        "ControlPolicy", "ControlPlane", "ElasticController",
+        "RUNG_ACTIONS", "max_burn"],
+    "paddle_tpu_torch/serving/scheduler.py": [
+        "Server", "PreemptionBudgetExceeded"],
+    "paddle_tpu_torch/serving/http.py": ["serve_http"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(SERVING_MODULES))
+def test_serving_front_modules_are_checked(module):
+    """The modules of the serving-front slice are among the sources the
+    no-JAX checks read, and each one's public names are the intended
+    ones (None: the reference module's ``__all__``, unchanged)."""
+    import importlib
+
+    assert ROOT / module in _sources()
+    name = module[:-3].replace("/", ".").removesuffix(".__init__")
+    mod = importlib.import_module(name)
+    want = SERVING_MODULES[module]
+    if want is None:
+        ref = importlib.import_module(name.replace("paddle_tpu_torch",
+                                                   "paddle_tpu"))
+        want = ref.__all__
+    assert sorted(mod.__all__) == sorted(want)
+    for n in mod.__all__:
+        assert hasattr(mod, n), n
+
+
+def test_serving_imports_lazily_and_without_http_server():
+    """``paddle_tpu_torch.serving`` loads on first access and imports no
+    ``http.server`` until ``serve_http`` is called; the serving modules
+    import neither JAX nor the reference (the blocked-import check above
+    imports them too)."""
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "import paddle_tpu_torch as pt\n"
+            "assert 'paddle_tpu_torch.serving' not in sys.modules\n"
+            "srv = pt.serving.Server\n"
+            "assert 'http.server' not in sys.modules, 'eager http.server'\n"
+            "assert 'jax' not in sys.modules\n"
+            "print(srv.__module__)" % str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "paddle_tpu_torch.serving.scheduler"

@@ -648,7 +648,8 @@ def test_flags_match_the_reference_registry(monkeypatch):
     default and environment parsing, and no flag that nothing reads."""
     jax_reg, port_reg = (_fresh(m)._REGISTRY for m in (jax_flags,
                                                         port_flags))
-    assert set(port_reg) == {"FLAGS_flash_head_batched"}
+    assert set(port_reg) == {"FLAGS_flash_head_batched",
+                             "FLAGS_enable_monitor", "FLAGS_enable_trace"}
     for name in port_reg:
         assert port_reg[name] == jax_reg[name]
     assert port_reg["FLAGS_flash_head_batched"] is False
