@@ -53,7 +53,11 @@ Phases, each timed, none caught and passed over:
    prefill) at the 7B widths, chunks of 256 of a 700-token prompt into a
    cache of 1024 (offsets 0, 256, 512, the last chunk partial), MHA and GQA
    32/8, bf16, fp16 and fp32: against its plain version, launched twice,
-   and its rows bitwise K3 causal's one-shot rows; then each one's time
+   and its rows bitwise K3 causal's one-shot rows; the same instance at
+   the shapes a warm prefix-cache admission gives it (WARM_TAIL: tails
+   under one query tile, offsets where the diagonal starts mid-tile, the
+   odd offset of a fully cached prompt, an offset clamped to max_len - C),
+   held the same way; then each one's time
    beside its bound, its plain version's and a library call's where one
    PyTorch call computes the same function;
 4. kernel against plain, end to end: the 7B widths at 2 layers, on the card
@@ -74,7 +78,10 @@ Phases, each timed, none caught and passed over:
    up to a near-tie) and against the card's one-shot prefill, a sampled
    ``generate`` and a mixed greedy and sampled paged serve captured against
    uncaptured on the card (bitwise), and one seeded request served alone
-   and in a mixed batch (the same tokens); then the training
+   and in a mixed batch (the same tokens); the prefix cache and
+   preemption at 2 layers (PREFIX_E2E: warm streams against cold and
+   preempted against unpreempted on the card, the card against the CPU);
+   then the training
    configuration's widths at 2 layers, one Layer-API backward and one
    AdamW train step on the card and on the CPU from the same weights and
    batch: loss, gradients and updated parameters within stated
@@ -118,8 +125,15 @@ Phases, each timed, none caught and passed over:
    capturing them anew while a thread scrapes ``/metrics`` in a loop; and
    the fault leg: the engine behind ``FaultyEngine``, the second decode
    segment failing, one restart, every request finished, its streams
-   against the fault-free serve's, the recovery seconds. Each engine is
-   built, then
+   against the fault-free serve's, the recovery seconds; and the prefix
+   and pressure legs: SHARED's 8 prompts sharing a 512-token system
+   prefix through an engine with ``prefix_cache=True``, twice (the
+   second round resident whole, copy-on-write), counters against the
+   traffic's, streams and TTFT against a prefix-off serve; then
+   ``Server(admission_mode="optimistic")`` over the cache with
+   ``prefill_chunk=256`` at the smallest pool a search finds in which all
+   8 finish under preemption, its streams against a reserved engine's.
+   Each engine is built, then
    ``warmup()``-ed (``warmup(8)``: greedy and sampled segments;
    ``generate``'s engine ``warmup(batch=8)``: greedy and sampled steps),
    then runs: its decode programs replay captured CUDA graphs, the capture
@@ -201,6 +215,35 @@ DENSE = dict(max_batch=8, max_len=1024)
 # cuts a prompt of 700 tokens (chunks at 0, 256, 512, the last one 188 real
 # rows); phase 4 runs chunks of 64 at 2 layers
 PREFIX = dict(chunk=256, cache=1024, prompt=700, e2e_chunk=64)
+# K3's prefix-chunk instance at warm prefix-cache tails (phase 3): (offset,
+# tail bucket width, prompt length) into the mini cache of PREFIX["cache"]
+# rows — a tail under one 64-row query tile at a tile-aligned offset (the
+# 512-token system prefix of phase 5's prefix leg), offsets at a page
+# boundary inside a tile (528, 608, 544), the odd offset plen - 1 of a fully
+# cached prompt (one real row), and an offset clamped to max_len - C
+WARM_TAIL = ((512, 16, 528), (528, 32, 550), (527, 16, 528),
+             (608, 64, 700), (544, 128, 630), (768, 256, 900),
+             (512, 64, 576))
+WARM_TAIL_TIMED = (512, 64, 576)
+# phase 5's prefix and pressure legs: 8 prompts sharing one seeded system
+# prefix of 512 tokens, with seeded suffixes of 16-200 tokens; 32 new tokens
+# a request in the prefix leg, 192 in the pressure leg, whose pool search
+# steps by PRESSURE_STEP pages at most PRESSURE_TRIES times. 64 new tokens
+# cannot preempt there: an admission needs its whole claim free (the shared
+# 32 pages included) but takes only its private pages, so at least 32 pages
+# stay free behind it, and 8 requests grow by at most 3 pages each over 64
+# tokens
+SHARED = dict(prefix=512, suffix=(16, 200), new=32, pressure_new=192,
+              seed=5)
+PRESSURE_STEP = 8
+PRESSURE_TRIES = 8
+# phase 4's prefix and pressure legs at 2 layers: a 48-token shared prefix,
+# 4 suffixes, pages of 8 tokens, 8 new tokens; under pressure 24 new tokens
+# in a pool of 27 pages (one preemption: the page history does not depend
+# on the weights; the fewest decode steps of the pools and budgets that
+# preempt, since the CPU side's time is most of phase 4's)
+PREFIX_E2E = dict(prefix=48, suffixes=(9, 20, 30, 14), page=8, new=8,
+                  pressure_new=24, pool=27)
 # phase 5's sampled serve (and phase 4's sampled runs): each request's seed
 # is its index
 SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95)
@@ -400,11 +443,14 @@ ROUTE_SOURCES = {
     "paged_attention": ("cuda", "paddle_tpu_torch/ops/paged_attention.py"),
 }
 PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
-         "serve_sampled", "server", "train", "fmt", "train_hb", "ops", "f32")
+         "serve_sampled", "server", "serve_prefix", "server_pressure",
+         "train", "fmt", "train_hb", "ops", "f32")
 # the decode paths, which run K4 and K7 (phase 5's through captured graphs),
-# the chunked and sampled serves, and the serving front's Server serve
+# the chunked and sampled serves, the serving front's Server serve, and the
+# prefix-cache and memory-pressure legs
 SLICE_PATHS = ("serve", "serve_int8", "generate", "dense_serve",
-               "serve_chunked", "serve_sampled", "server", "fmt")
+               "serve_chunked", "serve_sampled", "server", "serve_prefix",
+               "server_pressure", "fmt")
 EARLIER_PATHS = (("train", "f32"), ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
@@ -564,6 +610,7 @@ def kernel_phase(torch, dev, np):
             instances={})
 
     prefix_cases(torch, ops, F, randn, rows, cases, NH, D, dev)
+    warm_tail_cases(torch, ops, F, randn, rows, cases, NH, D, dev)
     flash_bwd_cases(torch, ops, F, randn, rows, cases)
 
     # K4 paged decode: the serving batch, GQA 32/8, and int8 pools; each
@@ -677,6 +724,73 @@ def prefix_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
                     torch, lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask))
                 rows["flash_fwd_prefix"] = dict(**timed, instances={})
+
+
+def warm_tail_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
+    """K3's prefix-chunk instance at the shapes a warm prefix-cache
+    admission gives it (the tail of a prompt whose head is resident, at the
+    tail's bucket width ``C`` and the device offset ``pos``, into the
+    ``max_len`` = PREFIX["cache"] rows of the engine's mini cache):
+    WARM_TAIL's (pos, C, prompt length) cases — chunks smaller than one
+    64-row query tile, offsets where the diagonal starts mid-tile, the odd
+    offset plen - 1 of a fully cached prompt (one real row), and the offset
+    clamped to max_len - C — MHA and GQA 32/8, in bf16, fp16 and fp32. Each
+    launched twice (bitwise), held against its plain version at K3's limit,
+    and its real rows bitwise the rows of K3 causal over the whole prompt
+    (the cold one-shot prefill). WARM_TAIL_TIMED, bf16 MHA, is timed beside
+    its bound, its plain version and SDPA with the boolean mask."""
+    w = PREFIX["cache"]
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    for dt in (bf, f16, f32):
+        for hkv in (NH, NH // 4):
+            for pos, c, n in WARM_TAIL:
+                r = min(c, n - pos)
+                q = randn(1, n, NH, D, dtype=dt)
+                k = randn(1, n, hkv, D, dtype=dt)
+                v = randn(1, n, hkv, D, dtype=dt)
+                one, _ = ops.flash_attention_bshd(q, k, v, causal=True)
+                kc = randn(1, w, hkv, D, dtype=dt)   # rows past n: junk
+                vc = randn(1, w, hkv, D, dtype=dt)
+                kc[:, :n], vc[:, :n] = k, v
+                qc = randn(1, c, NH, D, dtype=dt)
+                qc[:, :r] = q[:, pos:pos + r]
+                at = torch.tensor(pos, dtype=torch.int32, device=dev)
+                out = twice(torch, "flash_fwd_prefix",
+                            lambda: ops.prefix_chunk_attention(qc, kc, vc,
+                                                               at))
+                ref = ops.prefix_chunk_attention_ref(qc, kc, vc, at)
+                tag = (f"warm tail C={c} pos={pos} rows={r} W={w} "
+                       f"Hkv={hkv} D={D} {str(dt)[6:]}")
+                err = check_close(torch, f"flash_fwd_prefix {tag}", out,
+                                  ref, **TOL["flash_fwd_prefix"])
+                if not torch.equal(out[:, :r], one[:, pos:pos + r]):
+                    raise AssertionError(
+                        f"flash_fwd_prefix {tag}: the tail's rows differ "
+                        f"from K3 causal's one-shot rows")
+                cases.append(("flash_fwd_prefix", tag, err))
+                if (pos, c, n) != WARM_TAIL_TIMED or dt != bf \
+                        or hkv != NH:
+                    continue
+                nbytes = (2 * qc.numel() + 2 * (pos + c) * hkv * D) \
+                    * qc.element_size()
+                flops = 4 * D * causal_pairs(c, pos + c) * NH
+                bms, by = bound(nbytes, flops, BF16_FLOPS)
+                qt = qc.transpose(1, 2)
+                kt, vt = (t[:, :pos + c].transpose(1, 2) for t in (kc, vc))
+                mask = (torch.arange(pos + c, device=dev)[None, :]
+                        <= pos + torch.arange(c, device=dev)[:, None])
+                rows["flash_fwd_prefix"]["instances"][
+                    "flash_fwd_prefix_bf16 warm tail"] = dict(
+                    shape=tag, bound_ms=bms, bound_by=by, max_abs_err=err,
+                    bitwise_one_shot=True,
+                    ms=time_ms(torch, lambda: ops.prefix_chunk_attention(
+                        qc, kc, vc, at)),
+                    plain_ms=time_ms(torch, lambda: ops.
+                                     prefix_chunk_attention_ref(
+                                         qc, kc, vc, at), reps=5),
+                    library_ms=time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask)))
 
 
 def host_us(torch, fn, n=200, rounds=5, warmup=10) -> float:
@@ -2187,8 +2301,98 @@ def e2e_phase(torch, dev, np):
             torch, np, cpu, firsts, got, run(make(cpu)))
         del eager, eng
     rec["chunked_sampled"] = chunk_sample_e2e(torch, np, gpu, cpu)
+    rec["prefix_pressure"] = prefix_pressure_e2e(torch, np, gpu, cpu)
     del gpu, cpu
     torch.cuda.empty_cache()
+    return rec
+
+
+def prefix_pressure_e2e(torch, np, gpu, cpu):
+    """This slice's legs at 2 layers of the 7B widths (PREFIX_E2E): four
+    prompts sharing a 48-token prefix, then the same prompts cut inside
+    their last full block, through a paged engine with ``prefix_cache=True``
+    (warm admissions, copy-on-write of a partial shared page), and the
+    prompts again through an optimistic engine with the cache on and a pool
+    of PREFIX_E2E["pool"] pages (preemption and replay inside ``serve``).
+    On the card, each engine warmed: warm streams equal to the prefix-off
+    engine's and preempted streams equal to unpreempted ones, token for
+    token (first split and its margin recorded where one parts, and the
+    phase fails), no capture after warmup; and the card's streams against
+    the same engines' on the CPU (up to a near-tie)."""
+    from paddle_tpu_torch import (GenerationConfig,
+                                  PagedContinuousBatchingEngine)
+
+    vocab, ps = gpu.config.vocab_size, PREFIX_E2E["page"]
+    rng = np.random.RandomState(13)
+    shared = rng.randint(0, vocab, (PREFIX_E2E["prefix"],))
+    prompts = [np.concatenate([shared, rng.randint(0, vocab, (m,))]).astype(
+        np.int32) for m in PREFIX_E2E["suffixes"]]
+    cut = cut_prompts(prompts, ps)
+    gen = GenerationConfig(max_new_tokens=PREFIX_E2E["new"])
+    long = GenerationConfig(max_new_tokens=PREFIX_E2E["pressure_new"])
+    kw = dict(max_batch=4, page_size=ps, max_pages=256 // ps)
+
+    def legs(m, warm):
+        """(prefix-on streams of both rounds, their counters, the optimistic
+        engine's streams and preemptions) on model ``m``."""
+        eng = PagedContinuousBatchingEngine(m, num_pages=64,
+                                            prefix_cache=True, **kw)
+        opt = PagedContinuousBatchingEngine(
+            m, num_pages=PREFIX_E2E["pool"], prefix_cache=True,
+            admission_mode="optimistic", kv_watermark=1.0, **kw)
+        caps = []
+        for e in (eng, opt):
+            if warm:
+                e.warmup(4)
+            caps.append(dict(e.programs.captures))
+        rounds = [eng.serve(p, gen, segment_steps=4) for p in (prompts, cut)]
+        pressed = opt.serve(prompts, long, segment_steps=4)
+        if warm and [eng.programs.captures,
+                     opt.programs.captures] != caps:
+            raise AssertionError(f"prefix e2e: captures after warmup "
+                                 f"{eng.programs.captures}, "
+                                 f"{opt.programs.captures}")
+        a = eng.alloc
+        for e in (eng, opt):
+            e.alloc.check()
+        return (rounds, dict(hits=a.prefix_hits, cow=a.cow_copies,
+                             saved=a.prefix_tokens_saved),
+                pressed, opt.alloc.preemptions)
+
+    rec = {"prefix": PREFIX_E2E["prefix"], "prompt_lens": [
+        len(p) for p in prompts], "cut_lens": [len(p) for p in cut],
+        "pool_pages": PREFIX_E2E["pool"]}
+    t0 = time.perf_counter()
+    rounds, counters, pressed, preempts = legs(gpu, True)
+    if preempts < 1 or counters["cow"] < 1 or counters["hits"] < 7:
+        raise AssertionError(f"prefix e2e: counters {counters}, "
+                             f"preemptions {preempts}")
+    plain = PagedContinuousBatchingEngine(gpu, num_pages=64, **kw)
+    plain.warmup(4)
+    cold = [plain.serve(p, gen, segment_steps=4) for p in (prompts, cut)]
+    unpressed = plain.serve(prompts, long, segment_steps=4)
+    for i, (p, w, c) in enumerate(zip((prompts, cut), rounds, cold)):
+        splits, margins = equal_streams(torch, np, gpu, p, w, c,
+                                        f"prefix e2e round {i + 1}")
+        rec[f"round{i + 1}_first_split_from_cold"] = splits
+        rec[f"round{i + 1}_split_top2_margins"] = margins
+    splits, margins = equal_streams(torch, np, gpu, prompts, pressed,
+                                    unpressed, "pressure e2e")
+    rec.update(preempted_first_split_from_unpreempted=splits,
+               preempted_split_top2_margins=margins, counters=counters,
+               preemptions=preempts, card_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    c_rounds, c_counters, c_pressed, c_preempts = legs(cpu, False)
+    rec["cpu_s"] = time.perf_counter() - t0
+    if c_counters != counters:
+        raise AssertionError(f"prefix e2e: CPU counters {c_counters} != "
+                             f"the card's {counters}")
+    for i, (p, w, c) in enumerate(zip((prompts, cut), rounds, c_rounds)):
+        rec[f"round{i + 1}_tokens_matched_cpu"] = matched_tokens(
+            torch, np, cpu, p, w, c)
+    rec["pressure_tokens_matched_cpu"] = matched_tokens(
+        torch, np, cpu, prompts, pressed, c_pressed)
+    rec["cpu_preemptions"] = c_preempts
     return rec
 
 
@@ -2922,9 +3126,17 @@ def serve_phase(torch, dev, np, profile=False):
                                      profile)   # and the Server's legs
     gen_rec = generate_phase(torch, np, model, profile)
     dense_rec = dense_serve_phase(torch, np, model, prompts, outs, profile)
+    t0 = time.perf_counter()
+    prefix_rec, shared, long_outs = prefix_serve_phase(torch, np, model,
+                                                       profile)
+    prefix_rec["leg_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pressure_rec = pressure_serve_phase(torch, np, model, shared, long_outs)
+    pressure_rec["leg_s"] = time.perf_counter() - t0
     del model
     torch.cuda.empty_cache()
-    return (recs[0], recs[1], gen_rec, dense_rec) + chunk_recs
+    return ((recs[0], recs[1], gen_rec, dense_rec) + chunk_recs
+            + (prefix_rec, pressure_rec))
 
 
 def gap_serve(eng, prompts, cfgs, segment_steps=8):
@@ -3045,25 +3257,37 @@ def chunked_serve_phase(torch, np, model, prompts, paged_outs,
     return tuple(recs) + (server_rec,)
 
 
-def serve_clients(srv, prompts, cfg, wait_s=600.0):
-    """Submit every prompt from a client thread of its own, all at once
-    (a barrier), each streaming its tokens. Returns (outputs, handles) in
-    prompt order; raises what a client raised, or if one did not finish
-    within ``wait_s``."""
+def serve_clients(srv, prompts, cfg, wait_s=600.0, tolerate=()):
+    """Submit every prompt from a client thread of its own, in prompt order
+    (each thread after the one before it, so the queue's order, and with
+    it the scheduler's history, is the same in every run), each streaming
+    its tokens at once. Returns (outputs, handles) in prompt order; raises
+    what a client raised, or if one did not finish within ``wait_s``. A
+    request failing with a cause of a type in ``tolerate`` is not raised:
+    its output is None and its handle FAILED."""
     import threading
 
     import numpy as np
 
+    from paddle_tpu_torch.serving import RequestFailed
+
     n = len(prompts)
     outs, handles, errors = [None] * n, [None] * n, []
-    start = threading.Barrier(n)
+    turn = [threading.Event() for _ in range(n + 1)]
+    turn[0].set()
 
     def client(i):
         try:
-            start.wait(wait_s)
-            handles[i] = srv.submit(prompts[i], cfg)
+            turn[i].wait(wait_s)
+            try:
+                handles[i] = srv.submit(prompts[i], cfg)
+            finally:
+                turn[i + 1].set()
             outs[i] = np.asarray(list(handles[i].stream(timeout=wait_s)),
                                  np.int32)
+        except RequestFailed as e:
+            if not isinstance(e.__cause__, tuple(tolerate)):
+                errors.append(e)
         except BaseException as e:          # re-raised below
             errors.append(e)
 
@@ -3331,6 +3555,345 @@ def server_phase(torch, np, model, prompts, eng, gap_outs, gap_rec,
                     "first_split_from_serve": splits,
                     "split_top2_margins": margins,
                     "captures_after_warmup": 0}
+    return rec
+
+
+def shared_prefix_prompts(np, vocab, n=8):
+    """SHARED's traffic: ``n`` prompts that share one seeded system prefix
+    and end in distinct seeded suffixes (chat and few-shot traffic)."""
+    rng = np.random.RandomState(SHARED["seed"])
+    system = rng.randint(0, vocab, (SHARED["prefix"],))
+    lens = rng.randint(SHARED["suffix"][0], SHARED["suffix"][1] + 1, n)
+    return [np.concatenate([system, rng.randint(0, vocab, (m,))]).astype(
+        np.int32) for m in lens]
+
+
+def cut_prompts(prompts, ps):
+    """Each prompt cut inside its last full ``ps``-token block, 1 to 15
+    tokens short of the block's end: a second round of these is resident
+    whole (its full blocks and a partial block of the first round's), so a
+    warm admission recomputes only the last token, at the odd offset plen -
+    1, and copies the partial page on write before decode appends to it."""
+    out = []
+    for i, p in enumerate(prompts):
+        f = (len(p) // ps) * ps
+        out.append(p[:f - 1 - i % 15].copy())
+    return out
+
+
+def expected_prefix(np, rounds, ps, max_len, buckets):
+    """The prefix cache's counters computed from the traffic alone: for
+    each admission in order, its coverage is the longest run of resident
+    full blocks (every full block of an earlier prompt is resident: the
+    pool never evicts in these legs) extended by a partial match into the
+    next full block of an earlier prompt. Returns per round ``{"hits",
+    "tokens_saved", "cow", "warm", "cold"}``, as the engine counts them (a
+    hit recomputes from min(coverage, plen - 1), pulled down so its tail
+    bucket fits max_len; a hit ending mid-page copies that page)."""
+    def lcp(a, b):
+        n = min(len(a), len(b))
+        d = np.nonzero(a[:n] != b[:n])[0]
+        return int(d[0]) if len(d) else n
+
+    seen, out = [], []
+    for prompts in rounds:
+        r = dict(hits=0, tokens_saved=0, cow=0)
+        for p in prompts:
+            cov = 0
+            for q in seen:
+                full = (len(q) // ps) * ps
+                L = min(lcp(p, q), full)
+                m = (L // ps) * ps
+                cov = max(cov, L if m < full else m)
+            plen = len(p)
+            if cov:
+                c_cmp = min(cov, plen - 1)
+                wt = next(b for b in buckets if b >= plen - c_cmp)
+                r["hits"] += 1
+                r["tokens_saved"] += min(c_cmp, max_len - wt)
+                p0 = cov if cov < plen else plen
+                r["cow"] += int(p0 % ps != 0)
+            seen.append(p)
+        r["warm"] = r["hits"]
+        r["cold"] = len(prompts) - r["hits"]
+        out.append(r)
+    return out
+
+
+def check_streams(torch, np, model, prompts, outs, ref_outs, what):
+    """Where each of ``outs`` first parts from ``ref_outs`` and the top-2
+    margin there; raises where one parts at a margin of NEAR_TIE or more
+    (a split below it is a near-tie of bf16 GEMMs at another M)."""
+    splits, margins = first_splits(torch, np, model, prompts, outs, ref_outs)
+    bad = [(s, mg) for s, mg in zip(splits, margins)
+           if mg is not None and mg >= NEAR_TIE]
+    if bad:
+        raise AssertionError(f"{what}: streams part from the reference at "
+                             f"{splits}, margins {margins}")
+    return splits, margins
+
+
+def equal_streams(torch, np, model, prompts, outs, ref_outs, what):
+    """Where each of ``outs`` first parts from ``ref_outs`` and the top-2
+    margin there; raises unless every stream equals its reference token for
+    token."""
+    splits, margins = first_splits(torch, np, model, prompts, outs, ref_outs)
+    if ([np.asarray(o).tolist() for o in outs]
+            != [np.asarray(r).tolist() for r in ref_outs]):
+        raise AssertionError(f"{what}: streams part from the reference at "
+                             f"{splits}, margins {margins}")
+    return splits, margins
+
+
+def prefix_serve_phase(torch, np, model, profile=False):
+    """This slice's prefix leg on the 7B model: the paged engine with
+    ``prefix_cache=True``, warmed, serves SHARED's 8 prompts (32 greedy
+    tokens each), then the same prompts cut inside their last full block;
+    both rounds' streams against the prefix-off engine's serve of the same
+    prompts (first splits and margins), the prefix counters against the
+    ones computed from the traffic, every kernel's launches against the
+    path's (K3 causal per cold admission, its prefix-chunk instance per
+    warm one, K4 per decode step), no capture after warmup, and the
+    allocator's invariants at the end. Returns (the leg's record, the
+    prompts, the prefix-off engine's 64-token streams of them)."""
+    from paddle_tpu_torch import (GenerationConfig,
+                                  PagedContinuousBatchingEngine, ops)
+
+    cfg = model.config
+    L, vocab, n_new = cfg.num_hidden_layers, cfg.vocab_size, SHARED["new"]
+    kw = dict(max_batch=8, num_pages=512, page_size=16, max_pages=64)
+    prompts = shared_prefix_prompts(np, vocab)
+    cut = cut_prompts(prompts, kw["page_size"])
+    gen = GenerationConfig(max_new_tokens=n_new)
+    ref = PagedContinuousBatchingEngine(model, **kw)
+    ref.warmup(8)
+    ref_outs, ref_stats = [], []
+    for ps_ in (prompts, cut):
+        ref_outs.append(ref.serve(ps_, gen))
+        ref_stats.append(serve_stats(ref, ref_outs[-1], vocab, n_new))
+    long_outs = ref.serve(prompts, GenerationConfig(
+        max_new_tokens=SHARED["pressure_new"]))
+    if profile:
+        off_profile = profile_run(torch, lambda: ref.serve(cut, gen))
+    del ref
+    eng = PagedContinuousBatchingEngine(model, prefix_cache=True, **kw)
+    warm = eng.warmup(8)
+    graphs = graphs_record(eng, warm)
+    want = expected_prefix(np, (prompts, cut), kw["page_size"], eng.max_len,
+                           eng.prefill_buckets)
+    rec = {"engine": "PagedContinuousBatchingEngine(max_batch=8, "
+                     "num_pages=512, page_size=16, max_pages=64, "
+                     "prefix_cache=True)",
+           "prefix": SHARED["prefix"], "prompt_lens": [len(p) for p in
+                                                       prompts],
+           "cut_lens": [len(p) for p in cut], "max_new_tokens": n_new,
+           "graphs": graphs, "rounds": []}
+    a = eng.alloc
+    for i, (ps_, w) in enumerate(zip((prompts, cut), want)):
+        h0, t0, c0 = a.prefix_hits, a.prefix_tokens_saved, a.cow_copies
+        p0, q0, s0 = eng.prefills, eng.warm_prefills, eng.decode_steps
+        outs, counts = counted_run(torch, ops, eng,
+                                   lambda: eng.serve(ps_, gen))
+        n_pre, n_warm = eng.prefills - p0, eng.warm_prefills - q0
+        n_steps = eng.decode_steps - s0
+        got = dict(hits=a.prefix_hits - h0,
+                   tokens_saved=a.prefix_tokens_saved - t0,
+                   cow=a.cow_copies - c0, warm=n_warm, cold=n_pre - n_warm)
+        if got != w:
+            raise AssertionError(f"prefix leg round {i + 1}: counters {got}"
+                                 f" != {w} computed from the traffic")
+        check_launches(counts, expect(
+            counts, rms_norm=(2 * L + 1) * (n_pre + n_steps),
+            fused_rope=2 * L * n_pre, flash_fwd=L * (n_pre - n_warm),
+            flash_fwd_prefix=L * n_warm, paged_decode=L * n_steps),
+            f"prefix round {i + 1}: cold {n_pre - n_warm}, warm {n_warm}, "
+            f"decode steps {n_steps}, layers {L}")
+        splits, margins = check_streams(torch, np, model, ps_, outs,
+                                        ref_outs[i],
+                                        f"prefix leg round {i + 1}")
+        st = serve_stats(eng, outs, vocab, n_new)
+        rec["rounds"].append(dict(
+            **st, counters=got, launches=counts, decode_steps=n_steps,
+            first_split_from_prefix_off=splits, split_top2_margins=margins,
+            prefix_off_ttft_p50_s=ref_stats[i]["ttft_p50_s"],
+            prefix_off_tpot_p50_s=ref_stats[i]["tpot_p50_s"]))
+        rec.setdefault("launches", {})
+        for k, n in counts.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + n
+    if profile:
+        # the second round once more (every admission warm again), beside
+        # the prefix-off serve of the same prompts
+        rec.update(profile=profile_run(torch, lambda: eng.serve(cut, gen)),
+                   prefix_off_profile=off_profile)
+    a.check()
+    if a.used_pages or eng.free_slots() != 8:
+        raise AssertionError(f"prefix leg: {a.used_pages} pages still used")
+    rec.update(cached_pages=a.cached_pages, prefix_lookups=a.prefix_lookups)
+    del eng
+    torch.cuda.empty_cache()
+    return rec, prompts, long_outs
+
+
+def pressure_try(torch, model, prompts, pool, gen):
+    """One run of the pressure leg at a pool of ``pool`` pages: a fresh
+    engine and ``Server``, warmed, then SHARED's prompts from 8 client
+    threads, counted. Returns a dict of the run (its engine under
+    ``"eng"``)."""
+    from paddle_tpu_torch import PagedContinuousBatchingEngine, ops
+    from paddle_tpu_torch.serving import Server
+    from paddle_tpu_torch.serving.scheduler import PreemptionBudgetExceeded
+
+    eng = PagedContinuousBatchingEngine(
+        model, max_batch=8, num_pages=pool, page_size=16, max_pages=64,
+        prefix_cache=True, prefill_chunk=PREFIX["chunk"], kv_watermark=1.0)
+    t0 = time.perf_counter()
+    srv = Server(eng, segment_steps=8, warmup=True,
+                 admission_mode="optimistic")
+    try:
+        if not srv.wait_ready(600) or srv.status != "ok":
+            raise AssertionError(f"pressure leg warmup: {srv.status}")
+        run = dict(eng=eng, pool=pool, warmup_s=time.perf_counter() - t0,
+                   p0=eng.prefills, q0=eng.warm_prefills,
+                   c0=eng.prefill_chunks, s0=eng.decode_steps,
+                   seg0=len(eng._segment_log))
+        # a request failing its preemption budget says "pool too small"
+        (run["outs"], run["handles"]), run["counts"] = counted_run(
+            torch, ops, eng, lambda: serve_clients(
+                srv, prompts, gen, tolerate=(PreemptionBudgetExceeded,)))
+        run.update(pressure=srv.pressure(), faults=srv.fault_stats())
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    run["not_finished"] = [h.status for h in run["handles"]
+                           if h.status != "finished"]
+    return run
+
+
+def pressure_serve_phase(torch, np, model, prompts, ref_outs):
+    """This slice's pressure leg on the 7B model: ``Server(segment_steps=8,
+    warmup=True, admission_mode="optimistic")`` over a paged engine with
+    ``prefix_cache=True``, ``prefill_chunk=PREFIX["chunk"]`` and
+    ``kv_watermark=1.0`` (admissions crowd the pool, so growth, not the
+    watermark, meets the pressure), SHARED's 8 prompts from 8 client
+    threads, SHARED["pressure_new"] greedy tokens each. The pool is the
+    smallest the search finds in which all 8 finish under pressure: on a
+    1-layer model of the same widths, from the larger of the largest
+    request's worst case (prompt + tokens, in pages) and the least pool
+    that can preempt (the shared pages plus enough live requests to
+    outgrow them) up by PRESSURE_STEP pages until a run has at least one
+    preemption and no request failed its ``max_preemptions`` budget; then
+    the 32-layer model at that pool (a step up, at most twice, if its run
+    differs). There: no FAILED handle, ``pressure()`` reporting the
+    preemptions, no capture after warmup, launches against
+    the path's, and the streams against the prefix-off reserved
+    engine's."""
+    import dataclasses
+
+    from paddle_tpu_torch import GenerationConfig, LlamaForCausalLM
+
+    cfg = model.config
+    L, vocab = cfg.num_hidden_layers, cfg.vocab_size
+    n_new, ps = SHARED["pressure_new"], 16
+    gen = GenerationConfig(max_new_tokens=n_new)
+    least = max(-(-(len(p) + n_new) // ps) for p in prompts)
+    # a lower bound of the pools that can preempt. An admission needs its
+    # whole claim (prompt + one page) free, the shared prefix's pages
+    # included, but takes only its private pages, so at least the shared
+    # pages stay free behind the last admission of the live set, and each
+    # live request grows by at most `grow` pages after it: preempting
+    # needs k live requests with k * grow > shared. Their pool holds the
+    # shared pages, k - 1 private parts (claim less shared) and one whole
+    # claim: at least the k smallest claims less k - 2 times the shared
+    shared = SHARED["prefix"] // ps
+    grow = -(-(n_new - ps) // ps) + 1
+    k = shared // grow + 1
+    claims = sorted(-(-(len(p) + ps) // ps) for p in prompts)
+    start = max(least, sum(claims[:k]) - (k - 2) * shared)
+    # the search runs on a 1-layer model of the same widths: the pool's
+    # history depends on the prompts, the page size and the queue's order,
+    # not on the weights or the depth, and its runs take a fraction of the
+    # 32-layer model's time
+    small = LlamaForCausalLM(
+        dataclasses.replace(cfg, num_hidden_layers=1), device=model.device,
+        generator=torch.Generator(model.device).manual_seed(3))
+    search = []
+    pool = start
+    while True:
+        t0 = time.perf_counter()
+        run = pressure_try(torch, small, prompts, pool, gen)
+        search.append(dict(pool=pool, preemptions=run["eng"].alloc.preemptions,
+                           not_finished=run["not_finished"],
+                           s=time.perf_counter() - t0))
+        log(f"  pressure search (1 layer): {search[-1]}")
+        if not run["not_finished"] and search[-1]["preemptions"]:
+            break
+        if len(search) == PRESSURE_TRIES:
+            raise AssertionError(f"pressure leg: no pool in {search} "
+                                 f"finished all 8 requests under pressure")
+        pool += PRESSURE_STEP
+    del run, small
+    torch.cuda.empty_cache()
+    tries = []
+    for k in range(3):
+        t0 = time.perf_counter()
+        run = pressure_try(torch, model, prompts, pool + k * PRESSURE_STEP,
+                           gen)
+        eng = run["eng"]
+        tries.append(dict(pool=run["pool"],
+                          preemptions=eng.alloc.preemptions,
+                          not_finished=run["not_finished"],
+                          s=time.perf_counter() - t0))
+        log(f"  pressure leg: {tries[-1]}")
+        if not run["not_finished"] and eng.alloc.preemptions:
+            break
+        del run, eng
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"pressure leg: the 32-layer runs {tries} "
+                             f"after the search {search}")
+    outs, handles, counts = run["outs"], run["handles"], run["counts"]
+    n_pre, n_warm = eng.prefills - run["p0"], eng.warm_prefills - run["q0"]
+    n_chunks = eng.prefill_chunks - run["c0"]
+    n_steps = eng.decode_steps - run["s0"]
+    check_launches(counts, expect(
+        counts, rms_norm=(2 * L + 1) * (n_pre + n_chunks + n_steps),
+        fused_rope=2 * L * (n_pre + n_chunks),
+        flash_fwd=L * (n_pre - n_warm),
+        flash_fwd_prefix=L * (n_chunks + n_warm),
+        paged_decode=L * n_steps),
+        f"pressure leg: prefills {n_pre} ({n_warm} warm), chunks "
+        f"{n_chunks}, decode steps {n_steps}, layers {L}")
+    a, pr, fs = eng.alloc, run["pressure"], run["faults"]
+    if (pr["preemptions"] != a.preemptions
+            or pr["admission_mode"] != "optimistic"
+            or sum(h._preempts for h in handles) < 1
+            or fs["restarts"] or fs["faults"]):
+        raise AssertionError(f"pressure leg: preemptions {a.preemptions}, "
+                             f"pressure() {pr}, faults {fs}")
+    a.check()
+    if a.used_pages or eng.free_slots() != 8:
+        raise AssertionError(f"pressure leg: {a.used_pages} pages used")
+    splits, margins = check_streams(torch, np, model, prompts, outs,
+                                    ref_outs, "pressure leg")
+    rec = {"engine": f"PagedContinuousBatchingEngine(max_batch=8, "
+                     f"num_pages={run['pool']}, page_size=16, max_pages=64, "
+                     f"prefix_cache=True, prefill_chunk={PREFIX['chunk']}, "
+                     f"kv_watermark=1.0)",
+           "server": "Server(eng, segment_steps=8, warmup=True, "
+                     "admission_mode='optimistic')",
+           "pool_pages": run["pool"], "least_pool_pages": least,
+           "search_start_pages": start, "search_1_layer": search,
+           "tries": tries,
+           "max_new_tokens": n_new,
+           "warmup_s": run["warmup_s"],
+           **handle_stats(handles, outs, vocab, n_new, run["seg0"], eng),
+           "preemptions": a.preemptions,
+           "handle_preempts": [h._preempts for h in handles],
+           "pressure": pr, "prefills": n_pre, "warm_prefills": n_warm,
+           "chunks": n_chunks, "decode_steps": n_steps, "launches": counts,
+           "first_split_from_reserved": splits, "split_top2_margins": margins,
+           "captures_after_warmup": 0}
+    del run, eng
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -4032,10 +4595,11 @@ def main(argv=None) -> int:
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
-    sv, sq, gn, ds, sc, ss, sr = serve_phase(torch, dev, np,
-                                             profile=args.profile)
+    sv, sq, gn, ds, sc, ss, sr, sp, sx = serve_phase(torch, dev, np,
+                                                     profile=args.profile)
     record.update(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
-                  serve_chunked=sc, serve_sampled=ss, server=sr)
+                  serve_chunked=sc, serve_sampled=ss, server=sr,
+                  serve_prefix=sp, server_pressure=sx)
     record["phases"]["serve"] = time.perf_counter() - t
     for what, r in (("paged", sv), ("paged int8-pool", sq), ("dense", ds),
                     ("paged chunked (gap loop)", sc),
@@ -4073,6 +4637,24 @@ def main(argv=None) -> int:
         f"{fr['replays']}; streams part from the fault-free serve's at "
         f"{fr['first_split_from_serve']} (of 32), top-2 margins "
         f"{fr['split_top2_margins']}  [{smi}]")
+    for i, r in enumerate(sp["rounds"]):
+        log(f"[serve] prefix leg round {i + 1} (prefix_cache=True, "
+            f"{sp['prefix']}-token shared prefix): TTFT p50 "
+            f"{r['ttft_p50_s'] * 1e3:.1f} ms (prefix off "
+            f"{r['prefix_off_ttft_p50_s'] * 1e3:.1f}), TPOT p50 "
+            f"{r['tpot_p50_s'] * 1e3:.2f} ms (prefix off "
+            f"{r['prefix_off_tpot_p50_s'] * 1e3:.2f}), counters "
+            f"{r['counters']}; streams part from the prefix-off ones at "
+            f"{r['first_split_from_prefix_off']} (of 32), top-2 margins "
+            f"{r['split_top2_margins']}  [{smi}]")
+    log(f"[serve] pressure leg: pool {sx['pool_pages']} pages (tries "
+        f"{sx['tries']}), preemptions {sx['preemptions']} (per request "
+        f"{sx['handle_preempts']}), TTFT p50 {sx['ttft_p50_s'] * 1e3:.1f} "
+        f"ms, TPOT p50 {sx['tpot_p50_s'] * 1e3:.2f} ms, decode "
+        f"{sx['decode_tokens_per_s']:.1f} tok/s; streams part from the "
+        f"reserved engine's at {sx['first_split_from_reserved']} (of "
+        f"{sx['max_new_tokens']}), top-2 margins "
+        f"{sx['split_top2_margins']}  [{smi}]")
     log(f"[serve] dense streams part from the paged ones at tokens "
         f"{ds['first_split_from_paged']} (of 32), where the top-2 logit "
         f"margins are {ds['split_top2_margins']}; peak "
@@ -4124,7 +4706,8 @@ def main(argv=None) -> int:
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
-                serve_chunked=sc, serve_sampled=ss, server=sr, train=tr,
+                serve_chunked=sc, serve_sampled=ss, server=sr,
+                serve_prefix=sp, server_pressure=sx, train=tr,
                 fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),

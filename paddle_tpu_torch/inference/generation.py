@@ -5,8 +5,9 @@ Port of ``paddle_tpu/inference/generation.py``: ``GenerationConfig`` (with
 the sampling settings), length-bucketed and chunked prefill, the offline
 batch generator ``CausalLMEngine``, and ``ContinuousBatchingEngine`` (dense
 ``[max_batch, max_len]`` caches, one slot per row) /
-``PagedContinuousBatchingEngine`` (a shared page pool, reserved
-admission). The engines admit requests into free slots between decode
+``PagedContinuousBatchingEngine`` (a shared page pool with reserved or
+optimistic admission, preemption and an automatic prefix cache). The
+engines admit requests into free slots between decode
 SEGMENTS (one prefill each, its KV put into the slot's cache rows or
 pages), decode ``n_steps`` steps over every slot with per-row lengths, and
 retire finished rows between segments. With ``prefill_chunk=C`` a request
@@ -51,8 +52,8 @@ per engine label ``_monitor_engine``) and trace events (``engine.prefill``,
 reading the device.
 
 Not ported yet: prefill capture, speculative decoding (ROADMAP A7, and
-with it the spec-draft counter), optimistic admission and preemption
-(A4c), the prefix cache (A4c), LoRA (A8), tensor parallelism (A11).
+with it the spec-draft counter), LoRA (A8, which salts the prefix hashes),
+the KV-page export and import (A10), tensor parallelism (A11).
 """
 from __future__ import annotations
 
@@ -67,7 +68,9 @@ from .. import monitor
 from .. import tracing as trace
 from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR
 from ._graphs import GraphCache
-from .paged_cache import PageAllocator, write_tokens, write_tokens_q
+from .paged_cache import (PageAllocator, copy_page, copy_page_q,
+                          gather_pages, gather_pages_q, scatter_rows,
+                          scatter_rows_q)
 from .sampling import SlotSampling, sample_rows
 
 __all__ = ["GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
@@ -118,16 +121,17 @@ class EngineFault(RuntimeError):
 # device state was never touched
 REQUEST_SITES = frozenset({"admit", "prefill", "chunk"})
 
-# the reference's paged-engine admission policies; the port has
-# "reserved" only ("optimistic" waits for ROADMAP A4c)
+# the paged engine's admission policies (the reference's)
 ADMISSION_MODES = ("reserved", "optimistic")
 
 
 class PagePoolExhausted(RuntimeError):
     """Page growth could not be satisfied, or a request can never fit the
-    pool. ``rids`` names the requests concerned. With reserved admission
-    (the port's only mode) the serving scheduler raises it as the cause of
-    a replay that can never be admitted again."""
+    pool. ``rids`` names the requests concerned. An optimistic paged
+    engine raises it from ``decode_segment`` when the gap left a live
+    request uncovered (never a silently dropped write); the serving
+    scheduler fails with it a request that cannot grow even with the pool
+    to itself, or whose replay can never be admitted again."""
 
     def __init__(self, rids, message: str):
         super().__init__(message)
@@ -577,7 +581,9 @@ class ContinuousBatchingEngine:
         outs = eng.serve(prompts, GenerationConfig(max_new_tokens=32))
 
     Host-side counters: ``prefills``, ``prefill_chunks`` and
-    ``decode_steps`` count the model forwards run (warmup's included);
+    ``decode_steps`` count the model forwards run (warmup's included;
+    ``warm_prefills`` counts the paged engine's prefix-cache hits among
+    the prefills, whose tail runs at an offset);
     ``serve_stats`` holds the timings of the last :meth:`serve`;
     :meth:`load` is the host-side snapshot a serving front reads.
     ``_monitor_engine`` labels this engine's monitor series; :meth:`close`
@@ -593,6 +599,7 @@ class ContinuousBatchingEngine:
         self.prefill_buckets = prefill_buckets_for(prefill_buckets, max_len)
         self.prefill_chunk = _normalize_prefill_chunk(prefill_chunk, max_len)
         self.prefills = 0
+        self.warm_prefills = 0
         self.prefill_chunks = 0
         self.decode_steps = 0
         self.serve_stats: Optional[dict] = None
@@ -798,17 +805,24 @@ class ContinuousBatchingEngine:
         self._reserve_admit(slot, plen, cfg)
         return self.model.init_cache(1, self.max_len), 0
 
-    def _run_chunk(self, chunk: np.ndarray, mini, pos: int, r: int):
-        """One prefill chunk [1, C] at offset ``pos`` (on the device, in
-        ``_chunk_pos``) into ``mini``; returns the logits at its last real
+    def _offset_forward(self, ids: np.ndarray, mini, pos: int, r: int):
+        """One fixed-shape prefill window ``ids`` [1, W] at offset ``pos``
+        (on the device, in ``_chunk_pos``, so the program is the same at
+        every offset) into ``mini``; returns the logits at its last real
         row ``r - 1`` [1, V]."""
         self._chunk_pos.fill_(pos)
         with torch.no_grad():
             logits, _ = self.model.forward_with_cache(
-                torch.tensor(chunk, device=self.device), mini,
+                torch.tensor(ids, device=self.device), mini,
                 self._chunk_pos)
-        self.prefill_chunks += 1
         return logits[:, r - 1]
+
+    def _run_chunk(self, chunk: np.ndarray, mini, pos: int, r: int):
+        """One prefill chunk [1, C] at offset ``pos`` into ``mini``;
+        returns the logits at its last real row ``r - 1`` [1, V]."""
+        logits = self._offset_forward(chunk, mini, pos, r)
+        self.prefill_chunks += 1
+        return logits
 
     def admit_chunk(self, adm: _ChunkedAdmission) -> bool:
         """Run ONE prefill chunk of an admission started with
@@ -952,18 +966,34 @@ class ContinuousBatchingEngine:
         if monitor.enabled():
             self._requests_counter().labels(event=event).inc()
 
+    def _evict_active(self, rid: int, event: str):
+        """The reclaim that cancel and preemption share: retire ``rid``'s
+        slot (its capacity back to the pool, the request never in
+        ``collect_finished()``) and return its tokens so far (int32), or
+        None when ``rid`` is not active."""
+        slot = next((s for s, r in self._slot_req.items() if r == rid), None)
+        if slot is None:
+            return None
+        out = np.asarray(self._tokens[rid], np.int32)
+        self._retire(slot, event=event)
+        self._finished.pop(rid, None)
+        return out
+
     def cancel_request(self, rid: int):
         """Cancel an ACTIVE request between segments: its slot (and pages)
         return to the pool at once and it never appears in
         ``collect_finished()``. Returns its tokens so far, or None when
         ``rid`` is not active."""
-        slot = next((s for s, r in self._slot_req.items() if r == rid), None)
-        if slot is None:
-            return None
-        out = np.asarray(self._tokens[rid], np.int32)
-        self._retire(slot, event="cancelled")
-        self._finished.pop(rid, None)
-        return out
+        return self._evict_active(rid, "cancelled")
+
+    def grow_for_segment(self, n_steps: int) -> List[int]:
+        """Pre-segment capacity hook: grow every live request's cache
+        coverage for the coming ``n_steps``-step segment and return the
+        request ids that could NOT be covered (the caller preempts victims
+        before decoding). Dense slabs and reserved paged pools cover the
+        worst case at admission, so here it does nothing; the paged
+        engine's optimistic mode overrides it."""
+        return []
 
     def partial_tokens(self, rid: int, start: int = 0):
         """Copy of the tokens generated so far for an ACTIVE request, from
@@ -1002,6 +1032,9 @@ class ContinuousBatchingEngine:
                      "paddle_tpu_prefill_chunks_total",
                      "paddle_tpu_prefill_warmup_seconds"):
             monitor.remove_series(name, engine=self._monitor_engine)
+        alloc = getattr(self, "alloc", None)
+        if alloc is not None:
+            alloc.close()
 
     def collect_finished(self) -> Dict[int, np.ndarray]:
         out, self._finished = self._finished, {}
@@ -1132,6 +1165,7 @@ class ContinuousBatchingEngine:
             self._run_chunk(np.zeros((1, self.prefill_chunk), np.int32),
                             self.model.init_cache(1, self.max_len), 0, 1)
             out["prefill_chunk"] = time.perf_counter() - t0
+        out.update(self._warmup_prefix())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out["total"] = time.perf_counter() - t_all
@@ -1143,6 +1177,11 @@ class ContinuousBatchingEngine:
                 engine=self._monitor_engine).set(out["total"])
         return out
 
+    def _warmup_prefix(self) -> Dict[str, float]:
+        """Warmup's prefix-cache programs (the paged engine with
+        ``prefix_cache=True``); nothing here."""
+        return {}
+
     def serve(self, prompts, cfg=None,
               segment_steps: int = 8) -> List[np.ndarray]:
         """Continuous-batching loop: admits requests as slots (and pages)
@@ -1151,11 +1190,19 @@ class ContinuousBatchingEngine:
         per prompt (greedy and sampled requests may mix). Returns the
         generated ids (prompt not included) in submission order.
 
+        Under an optimistic paged engine each gap grows the live mappings
+        and, when the pool is dry, preempts the YOUNGEST of this call's
+        requests (never the oldest: forward progress) and queues its
+        ``prompt + generated`` again with the budget reduced, so a tight
+        pool degrades to lower concurrency (a greedy resume is the
+        unpreempted stream). Only a request the pool cannot hold even
+        alone raises :class:`PagePoolExhausted`.
+
         Afterwards ``serve_stats`` holds ``ttft_s`` and ``finish_s`` (per
         prompt: seconds from the call to its first token, and to the
         segment gap that collected its last one), ``decode_s`` and
         ``decode_tokens`` (wall time of the decode segments and the tokens
-        they emitted), ``segments`` and ``wall_s``."""
+        they emitted), ``segments``, ``preemptions`` and ``wall_s``."""
         cfgs = (list(cfg) if isinstance(cfg, (list, tuple))
                 else [cfg or GenerationConfig()] * len(prompts))
         if len(cfgs) != len(prompts):
@@ -1164,28 +1211,70 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         self._segment_log = []
         pending = list(enumerate(prompts))
+        replay_cfg: Dict[int, GenerationConfig] = {}  # budget reduced
+        prefix: Dict[int, list] = {}   # tokens emitted before a preemption
         order: Dict[int, int] = {}
         first_at: Dict[int, float] = {}
         done_at: Dict[int, float] = {}
         results: Dict[int, np.ndarray] = {}
         foreign: Dict[int, np.ndarray] = {}   # admitted outside this call
+        preempted = 0
         while len(results) < len(prompts):
             while pending and self._free:
                 idx0, p0 = pending[0]
-                if (not self._can_admit(_prompt_len(p0), cfgs[idx0])
+                if (not self._can_admit(_prompt_len(p0),
+                                        replay_cfg.get(idx0, cfgs[idx0]))
                         and self._slot_req):
                     break  # transient: defer to the next segment gap
                 # (with nothing active to drain, a request that does not
                 # fit can NEVER fit: add_request raises its loud error)
                 idx, p = pending.pop(0)
-                order[self.add_request(p, cfgs[idx])] = idx
-                first_at[idx] = time.perf_counter()   # after its host sync
+                order[self.add_request(
+                    p, replay_cfg.get(idx, cfgs[idx]))] = idx
+                first_at.setdefault(idx, time.perf_counter())
+            # the gap's memory-pressure relief (see the docstring)
+            while True:
+                short = self.grow_for_segment(segment_steps)
+                if not short:
+                    break
+                ours = sorted(r for r in self._slot_req.values()
+                              if r in order)
+                if len(ours) < 2:
+                    # the oldest survivor alone, or a foreign row this call
+                    # must not touch: decode_segment raises if it stays
+                    # short
+                    break
+                toks = self.preempt_request(ours[-1])     # the youngest
+                preempted += 1
+                idx = order.pop(ours[-1])
+                pre = prefix.pop(idx, []) + [int(t) for t in toks]
+                # the budget is measured against the ORIGINAL config:
+                # ``pre`` is the whole history, so a replay config's
+                # already reduced budget would count the first prefix twice
+                c0 = cfgs[idx]
+                remaining = c0.max_new_tokens - len(pre)
+                if remaining < 1 or (c0.eos_token_id is not None and pre
+                                     and pre[-1] == c0.eos_token_id):
+                    results[idx] = np.asarray(pre, np.int32)
+                    done_at[idx] = time.perf_counter()
+                    continue
+                prefix[idx] = pre
+                kw = dict(vars(c0))
+                kw["max_new_tokens"] = remaining
+                replay_cfg[idx] = GenerationConfig(**kw)
+                # replays admit before new work: they held pages when the
+                # pressure hit
+                pending.insert(0, (idx, np.concatenate(
+                    [_prompt_ids(prompts[idx])[0],
+                     np.asarray(pre, np.int32)])))
             self.decode_segment(segment_steps)
             now = time.perf_counter()
             for rid, seq in self.collect_finished().items():
                 if rid in order:
                     idx = order.pop(rid)
-                    results[idx] = seq
+                    pre = prefix.pop(idx, None)
+                    results[idx] = seq if pre is None else np.concatenate(
+                        [np.asarray(pre, np.int32), seq])
                     done_at[idx] = now
                 else:
                     foreign[rid] = seq
@@ -1196,6 +1285,7 @@ class ContinuousBatchingEngine:
             "decode_s": sum(s for s, _ in self._segment_log),
             "decode_tokens": sum(n for _, n in self._segment_log),
             "segments": len(self._segment_log),
+            "preemptions": preempted,
             "wall_s": time.perf_counter() - t0,
         }
         return [results[i] for i in range(len(prompts))]
@@ -1207,49 +1297,102 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     ``num_pages * page_size`` tokens in flight in all, not
     ``max_batch * max_len``, and any free page serves any slot.
 
-    Reserved admission: a request reserves its worst case (prompt +
-    max_new_tokens, capped at max_len) up front, so a running request can
-    never exhaust the pool mid-decode; ``serve`` defers admission while the
-    pool is transiently full. The page table lives on the host (numpy); a
-    device copy, allocated once, is refreshed by a synchronous copy (the
-    host rewrites its table between segments) before every install and
-    every segment. ``debug_pages=True`` runs the allocator's ``check()``
-    after every page operation and at every segment.
+    Two ``admission_mode`` policies (a plain attribute; the ``Server``
+    sets it on an idle engine):
 
-    ``kv_dtype="bf16"`` keeps the pools in the model's dtype;
+    - ``"reserved"`` (default): a request reserves its worst case (prompt
+      + max_new_tokens, capped at max_len) up front, so a running request
+      can never exhaust the pool mid-decode;
+    - ``"optimistic"``: admission claims the prompt plus ONE page of
+      headroom, and :meth:`grow_for_segment` grows each live slot per gap
+      (capped by the request's remaining budget). When growth cannot be
+      satisfied the caller relieves the pressure: :meth:`preempt_request`
+      reclaims a victim's slot and pages like ``cancel_request`` and
+      returns its tokens for a replay. ``decode_segment`` raises
+      :class:`PagePoolExhausted` if the pressure was left unhandled, never
+      a silently dropped write. ``kv_watermark`` (a fraction of the pool)
+      pauses NEW admissions while the pool is crowded, so preemption is
+      the fallback, not the steady state.
+
+    ``prefix_cache=True`` turns on automatic prefix caching
+    (``inference/paged_cache.py``): admission hashes the prompt in
+    page_size-token blocks, maps resident blocks READ-ONLY into the new
+    slot's row and prefills only the uncached tail, at a device offset
+    through K3's prefix-chunk instance over the gathered cached KV; the
+    first write into a shared page (a suffix that diverges mid-block, or
+    decode appending into a partial shared tail page) goes through
+    copy-on-write in the gap. Retirement releases references; released
+    cached pages park in an LRU the pool reclaims on demand. A warm greedy
+    admission gives the cold stream: the gathered prefix is the KV the
+    first prefill wrote, and the tail rides the offset program that
+    chunked admission already holds equal to one-shot prefill.
+    ``prefix_pause`` (a host bool, the serving control plane's brownout
+    rung 4) sends new admissions down the cold path.
+
+    The page table lives on the host (numpy); a device copy, allocated
+    once, is refreshed by a synchronous copy before every install and
+    every segment, and the pools are only ever written in place (a
+    captured segment holds their addresses). ``debug_pages=True`` runs the
+    allocator's ``check()`` after every page operation and at every
+    segment, plus a coverage check of every live slot.
+
     ``kv_dtype="int8"`` stores int8 pages with per-(page, kv head) fp32
-    running-absmax scales (``quantization/kv.py``): the install and every
-    decode step quantize on store, K4 dequantizes inside the kernel, and
-    freshly claimed pages' scales are reset to the floor in the gap before
-    any write lands in them. :meth:`set_kv_dtype` swaps it on an idle
-    engine; :meth:`kv_page_cost` prices a page.
+    running-absmax scales (``quantization/kv.py``): installs and decode
+    steps quantize on store, K4 dequantizes inside the kernel, freshly
+    claimed pages' scales are reset to the floor in the gap before any
+    write, and a copy-on-write copies the scales with the rows.
+    :meth:`set_kv_dtype` swaps it on an idle engine; :meth:`kv_page_cost`
+    prices a page.
 
-    A chunked admission (``prefill_chunk``) reserves the request's pages at
-    :meth:`begin_admit`, fills a dense ``max_len`` mini cache chunk by
-    chunk and installs it into the pages (bf16 or int8) with the final
-    chunk; :meth:`abort_admit` frees the reserved pages.
-
-    This is the reference's ``admission_mode="reserved"`` with
-    ``prefix_cache=False``: :attr:`admission_mode` reads ``"reserved"``,
-    and setting ``"optimistic"`` raises NotImplementedError (ROADMAP A4c,
-    with preemption and the prefix cache)."""
+    A chunked admission (``prefill_chunk``) claims its pages at
+    :meth:`begin_admit` (with the prefix cache: maps the cached pages and
+    copies the partial shared page then), fills a dense ``max_len`` mini
+    cache chunk by chunk and installs it with the final chunk;
+    :meth:`abort_admit` releases the claim."""
 
     def __init__(self, model, max_batch: int, num_pages: int,
                  page_size: int, max_pages: int, prefill_buckets="auto",
                  debug_pages: bool = False, kv_dtype: str = "bf16",
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 admission_mode: str = "reserved",
+                 kv_watermark: float = 0.9, prefix_cache: bool = False):
+        if admission_mode not in ADMISSION_MODES:
+            raise ValueError(
+                f"admission_mode must be one of {ADMISSION_MODES}, got "
+                f"{admission_mode!r}")
+        if not (isinstance(kv_watermark, (int, float))
+                and 0 < kv_watermark <= 1):
+            raise ValueError(
+                f"kv_watermark must satisfy 0 < w <= 1 (fraction of the "
+                f"page pool), got {kv_watermark!r}")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
+        self.admission_mode = admission_mode
+        self.kv_watermark = float(kv_watermark)
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_pause = False
         self.num_pages = num_pages
         self.page_size = page_size
         self.kv_dtype = kv_dtype
+        # slot -> warm-admission record ({"ids", "c_map", "hashes",
+        # "saved"}), staged between an admission's prefill and its install
+        self._prefix_stash: Dict[int, dict] = {}
+        # the segment length a clean grow_for_segment covered:
+        # decode_segment consumes it and skips its re-check
+        self._growth_stamp: Optional[int] = None
+        # the gap's one host copy of (lens, done), shared by every
+        # grow_for_segment call of the gap; a segment or an admission
+        # clears it
+        self._gap_sync = None
         self.alloc = PageAllocator(num_pages, page_size, max_batch,
                                    max_pages, debug=debug_pages,
+                                   prefix_cache=prefix_cache,
                                    kv_dtype=kv_dtype)
         super().__init__(model, max_batch, max_len=max_pages * page_size,
                          prefill_buckets=prefill_buckets,
                          prefill_chunk=prefill_chunk)
+        self._measure_quant_savings()
 
     def _init_decode_state(self) -> None:
         super()._init_decode_state()
@@ -1271,11 +1414,24 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             tok, self.caches, self.page_table_dev, lens, live)
         return logits
 
+    def _measure_quant_savings(self) -> None:
+        """Price the int8 layout from the real pools: the bytes a page
+        would take at 2 bytes an element minus what its int8 rows and
+        scales take; the allocator adds it per claimed page
+        (``paddle_tpu_kv_quant_bytes_saved_total``)."""
+        if self.kv_dtype != "int8":
+            self.alloc.bytes_saved_per_page = 0
+            return
+        cost = self.kv_page_cost()
+        self.alloc.bytes_saved_per_page = max(
+            cost["bf16_equiv_bytes_per_page"] - cost["bytes_per_page"], 0)
+
     def _flush_fresh_scales(self) -> None:
         """Reset freshly claimed pages' scale rows to the floor (int8): a
         previous owner's absmax must not coarsen a new page. One masked
         fill per scale tensor, of a fixed shape, in the gap before an
-        install or a segment."""
+        install or a segment. A copy-on-write's page is not on the queue:
+        its scales are the copied ones."""
         if self.kv_dtype != "int8":
             return
         fresh = self.alloc.take_fresh_scales()
@@ -1291,7 +1447,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def set_kv_dtype(self, kv_dtype: str) -> None:
         """Swap the pool storage dtype on an idle engine: rebuilds the
-        pools, and drops the graphs that held the old ones (the next
+        pools (the cached prefix KV dies with them, so the content index
+        is cleared), and drops the graphs that held the old ones (the next
         segment, or :meth:`warmup`, captures anew)."""
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
@@ -1305,9 +1462,14 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # at once would double the KV memory at its peak
         self.caches = None
         self.programs.clear()
+        self.alloc.clear_prefix_index()
         self.alloc.set_kv_dtype(kv_dtype)
         self.kv_dtype = kv_dtype
+        self._prefix_stash.clear()
+        self._growth_stamp = None
+        self._gap_sync = None
         self.caches = self._make_caches()
+        self._measure_quant_savings()
 
     def kv_page_cost(self) -> dict:
         """Device bytes of one page under the current storage dtype, scales
@@ -1319,47 +1481,238 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         return {"bytes_per_page": total, "bf16_equiv_bytes_per_page":
                 2 * elems}
 
+    def load(self) -> dict:
+        out = super().load()
+        out["kv_dtype"] = self.kv_dtype
+        return out
+
+    # -- admission ------------------------------------------------------------
     def _reserved(self, plen: int, cfg) -> int:
         return min(plen + cfg.max_new_tokens, self.max_len)
 
+    def _optimistic_claim(self, plen: int, cfg) -> int:
+        """Tokens an OPTIMISTIC admission claims up front: the prompt plus
+        one page of headroom (the first decode step writes at ``plen``),
+        never more than the reserved worst case."""
+        return min(plen + self.page_size, self._reserved(plen, cfg))
+
+    def _claim(self, plen: int, cfg) -> int:
+        return (self._reserved(plen, cfg)
+                if self.admission_mode == "reserved"
+                else self._optimistic_claim(plen, cfg))
+
     def _can_admit(self, prompt_len: int, cfg) -> bool:
-        # any free slot owns zero pages, so capacity is slot-agnostic
+        # any free slot owns zero pages, so capacity is slot-agnostic. The
+        # prefix cache never tightens the probe: a warm admission claims
+        # at most what a cold one would, and when the pool cannot also
+        # spare a partial hit's copy-on-write page the hit degrades to
+        # full blocks, so a yes here means add_request cannot fail for
+        # capacity
         probe = self._free[0] if self._free else 0
-        return self.alloc.can_fit(probe, self._reserved(prompt_len, cfg))
+        claim = self._claim(prompt_len, cfg)
+        if not self.alloc.can_fit(probe, claim):
+            return False
+        if self.admission_mode == "optimistic" and self._slot_req:
+            # the high watermark: while running requests crowd the pool,
+            # NEW admissions wait rather than force preemptions. An idle
+            # pool skips it, so a lone request can always admit
+            used_after = self.alloc.used_pages + self.alloc.pages_for(claim)
+            if used_after > self.kv_watermark * self.num_pages:
+                return False
+        return True
+
+    def _reserve_admit(self, slot: int, plen: int, cfg) -> None:
+        self.alloc.ensure(slot, self._claim(plen, cfg))
+
+    def _lookup_degraded(self, slot: int, ids, plen: int, cfg):
+        """The warm-admission preamble of both admission paths: the longest
+        resident cached prefix, degraded to full blocks when the pool
+        cannot spare the partial page's copy-on-write. Returns ``(pids,
+        c_map, hashes)``."""
+        pids, c_map, hashes = self.alloc.lookup_prefix(ids[0])
+        pids, c_map = self._degrade_partial_hit(slot, plen, cfg, pids, c_map)
+        return pids, c_map, hashes
+
+    def _degrade_partial_hit(self, slot: int, plen: int, cfg, pids,
+                             c_map: int):
+        """A hit ending mid-page maps a page the request must copy before
+        its first write: one page beyond its claim. When the pool cannot
+        spare it, keep only the full blocks (a request whose worst case
+        exactly fills the pool must still admit, cache or no cache)."""
+        ps = self.page_size
+        if not pids or c_map % ps == 0:
+            return pids, c_map
+        if self.alloc.can_fit(slot, self._claim(plen, cfg) + ps):
+            return pids, c_map
+        return pids[:-1], (c_map // ps) * ps
 
     def _admit_cache(self, slot: int, ids, plen: int, cfg):
-        """Prefill into a dense mini cache sized to the prompt's bucket,
-        reserve the request's pages, scatter the KV rows into them; returns
-        the prompt's last-position logits."""
+        """A one-shot admission's prefill and install; returns the prompt's
+        last-position logits. With the prefix cache, a hit takes the warm
+        path (:meth:`_admit_cache_warm`); else the prompt prefills at its
+        bucket width into a dense mini cache, the request's pages are
+        claimed and the KV rows scattered into them."""
+        if self.prefix_cache and not self.prefix_pause:
+            pids, c_map, hashes = self._lookup_degraded(slot, ids, plen, cfg)
+            self._prefix_stash[slot] = {"ids": ids, "c_map": c_map,
+                                        "hashes": hashes,
+                                        "saved": min(c_map, plen - 1)}
+            if c_map > 0:
+                return self._admit_cache_warm(slot, ids, plen, cfg, pids,
+                                              c_map)
         mini = self.model.init_cache(1, self._prefill_width(plen))
         last_logits, mini = self._run_prefill(ids, plen, mini)
         self._reserve_admit(slot, plen, cfg)
         self._install_mini(slot, mini, plen)
         return last_logits
 
-    def _reserve_admit(self, slot: int, plen: int, cfg) -> None:
-        self.alloc.ensure(slot, self._reserved(plen, cfg))
+    def _admit_cache_warm(self, slot: int, ids, plen: int, cfg, pids,
+                          c_map: int):
+        """A prefix-cache hit: gather the cached prefix KV from its pages
+        into a ``max_len`` mini cache (a pure copy), prefill only the tail
+        at the device offset ``c_cmp`` (K3's prefix-chunk instance at the
+        tail's bucket width), then map the cached pages read-only, claim
+        the rest and install the tail. The last prompt token always
+        recomputes (its logits give the first token), even when the whole
+        prompt is resident (its KV write is then masked out)."""
+        c_cmp = min(c_map, plen - 1)
+        wt = (plen - c_cmp if self.prefill_buckets is None
+              else _bucket_for(self.prefill_buckets, plen - c_cmp))
+        # the tail writes mini rows [c_cmp, c_cmp + wt): pull the start
+        # DOWN where the bucket would overhang max_len; the extra cached
+        # positions recompute to the same values and are never installed
+        c_cmp = min(c_cmp, self.max_len - wt)
+        self._prefix_stash[slot]["saved"] = c_cmp
+        tail = plen - c_cmp
+        mini = self.model.init_cache(1, self.max_len)
+        self._gather_mini(mini, pids)
+        self._count_prefill("warm")
+        if trace.enabled():
+            trace.event("engine.prefill", engine=self._monitor_engine,
+                        plen=plen, bucket="warm", cached=c_cmp)
+        last_logits = self._offset_forward(_pad_ids(ids[:, c_cmp:], wt),
+                                           mini, c_cmp, tail)
+        self.prefills += 1
+        self.warm_prefills += 1
+        self.alloc.map_shared(slot, pids)
+        self._reserve_admit(slot, plen, cfg)
+        self._install_mini(slot, mini, plen)
+        return last_logits
 
-    @property
-    def admission_mode(self) -> str:
-        """The admission policy: ``"reserved"``, the port's only one."""
-        return "reserved"
+    def _gather_mini(self, mini, pids) -> None:
+        """Copy the resident pages ``pids`` into the head of a ``max_len``
+        mini cache, every layer, in place. The page vector is padded with
+        -1 to the full table width (one shape for every admission); the
+        sink rows it reads sit past the cached coverage."""
+        row = np.full((self.alloc.page_table.shape[1],), -1, np.int64)
+        row[:len(pids)] = pids
+        pages = torch.from_numpy(row).to(self.device)
+        with torch.no_grad():
+            for entry, (mk, mv) in zip(self.caches, mini):
+                if self.kv_dtype == "int8":
+                    gather_pages_q(*entry, pages, mk, mv)
+                else:
+                    gather_pages(*entry, pages, mk, mv)
 
-    @admission_mode.setter
-    def admission_mode(self, mode: str) -> None:
-        if mode not in ADMISSION_MODES:
-            raise ValueError(f"admission_mode must be one of "
-                             f"{ADMISSION_MODES}, got {mode!r}")
-        if mode != "reserved":
-            raise NotImplementedError(
-                f"admission_mode={mode!r} is not ported yet (ROADMAP A4c: "
-                f"optimistic admission, page growth and preemption); the "
-                f"port's paged engine admits 'reserved'")
+    def _cow_page(self, slot: int, page_idx: int) -> None:
+        """Copy-on-write of ``slot``'s shared page at ``page_idx``: claim a
+        fresh page (allocator), copy the rows (and int8 scales) on the
+        device, swap the table entry (the device table takes it at the
+        next sync)."""
+        old, new = self.alloc.cow(slot, page_idx)
+        with torch.no_grad():
+            for entry in self.caches:
+                if self.kv_dtype == "int8":
+                    copy_page_q(*entry, old, new)
+                else:
+                    copy_page(*entry, old, new)
+        self.alloc.note_scale_copied(new)
 
-    def load(self) -> dict:
-        out = super().load()
-        out["kv_dtype"] = self.kv_dtype
-        return out
+    def _install_mini(self, slot: int, mini, plen: int) -> None:
+        """Install an admission's mini cache into the slot's pages. Cold:
+        scatter the bucket-width rows (rows past plen land on claimed
+        positions that the decode mask hides and decode overwrites, or on
+        unmapped pages, where they go to the sink; int8 pools take only
+        the rows below plen). Warm: :meth:`_install_mini_warm`. With the
+        prefix cache, the prompt's full private blocks are then indexed
+        for later admissions."""
+        self._flush_fresh_scales()
+        info = (self._prefix_stash.pop(slot, None)
+                if self.prefix_cache else None)
+        if info is not None and info["c_map"] > 0:
+            self._install_mini_warm(slot, mini, plen, info)
+        else:
+            self._sync_table()
+            width = min(self._prefill_width(plen), mini[0][0].shape[1])
+            pt = self.page_table_dev
+            with torch.no_grad():
+                for entry, (mk, mv) in zip(self.caches, mini):
+                    if self.kv_dtype == "int8":
+                        scatter_rows_q(*entry, pt, slot, 0, plen, mk, mv,
+                                       width=width)
+                    else:
+                        scatter_rows(*entry, pt, slot, 0, width, mk, mv,
+                                     width=width)
+        if info is not None:
+            ps = self.page_size
+            self.alloc.register_blocks(slot, info["hashes"], info["ids"][0],
+                                       info["c_map"] // ps, plen // ps)
+            if info["c_map"] > 0:
+                self.alloc.count_prefix_hit(info["saved"])
+
+    def _install_mini_warm(self, slot: int, mini, plen: int,
+                           info: dict) -> None:
+        """Install a warm admission's UNCACHED suffix: copy-on-write the
+        shared page the first write lands in (a suffix diverging
+        mid-block, or, for a fully cached prompt, the partial tail page
+        decode appends into), then scatter exactly the rows ``[c_map,
+        plen)``. Shared pages are never written."""
+        ps = self.page_size
+        c_map = info["c_map"]
+        # the first position this slot will EVER write
+        p0 = c_map if c_map < plen else plen
+        if p0 % ps and self.alloc.needs_cow(slot, p0):
+            self._cow_page(slot, p0 // ps)
+        self._sync_table()
+        if c_map >= plen:
+            return
+        width = (plen - c_map if self.prefill_buckets is None
+                 else _bucket_for(self.prefill_buckets, plen - c_map))
+        width = min(width, mini[0][0].shape[1])
+        pt = self.page_table_dev
+        with torch.no_grad():
+            for entry, (mk, mv) in zip(self.caches, mini):
+                if self.kv_dtype == "int8":
+                    scatter_rows_q(*entry, pt, slot, c_map, plen, mk, mv,
+                                   width=width)
+                else:
+                    scatter_rows(*entry, pt, slot, c_map, plen, mk, mv,
+                                 width=width)
+
+    def _begin_admit_cache(self, slot: int, ids, plen: int, cfg):
+        """A chunked admission's claim. With the prefix cache it maps the
+        cached pages, claims the rest, copies the partial shared page
+        EAGERLY (the claim is atomic with the reservation; the install
+        runs gaps later and its spare page must not be taken meanwhile)
+        and starts the chunk cursor at the cached coverage aligned down to
+        C; the ``[start, c_map)`` sliver recomputes and is not
+        installed."""
+        if not self.prefix_cache or self.prefix_pause:
+            return super()._begin_admit_cache(slot, ids, plen, cfg)
+        pids, c_map, hashes = self._lookup_degraded(slot, ids, plen, cfg)
+        C = self.prefill_chunk
+        start = (min(c_map, plen - 1) // C) * C
+        self._prefix_stash[slot] = {"ids": ids, "c_map": c_map,
+                                    "hashes": hashes, "saved": start}
+        self.alloc.map_shared(slot, pids)
+        self._reserve_admit(slot, plen, cfg)
+        p0 = c_map if c_map < plen else plen
+        if p0 % self.page_size and self.alloc.needs_cow(slot, p0):
+            self._cow_page(slot, p0 // self.page_size)
+        mini = self.model.init_cache(1, self.max_len)
+        if pids:
+            self._gather_mini(mini, pids)
+        return mini, start
 
     def _warm_prefill(self, width: int) -> None:
         """Warmup's prefill and install at one bucket: slot 0 is free and
@@ -1369,32 +1722,54 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                                         width, mini)
         self._install_mini(0, mini, width)
 
-    def _install_mini(self, slot: int, mini, plen: int) -> None:
-        """Scatter the mini cache's bucket-width rows into the slot's pages:
-        rows past plen land on reserved positions that the decode mask
-        hides and decode writes overwrite, or on unmapped pages, where
-        write_tokens drops them into the sink. int8 pools take only the
-        rows below plen (``limit``), after the fresh pages' scales are
-        reset."""
-        self._flush_fresh_scales()
-        self._sync_table()
-        width = min(self._prefill_width(plen), mini[0][0].shape[1])
-        pt = self.page_table_dev
-        slots = torch.full((width,), slot, dtype=torch.int32,
-                           device=self.device)
-        pos = torch.arange(width, dtype=torch.int32, device=self.device)
+    def _warmup_prefix(self) -> Dict[str, float]:
+        """The first use of every program a WARM admission runs (with
+        ``prefix_cache``): the page gather, the copy-on-write page copy,
+        and per prefill bucket one tail prefill at an offset (K3's
+        prefix-chunk instance at that width) and its masked scatter. All
+        value-neutral: nothing is mapped, every scatter row is masked out
+        (limit 0), and page 0 is copied onto itself. Nothing is
+        captured."""
+        if not self.prefix_cache:
+            return {}
+        out = {}
+        t0 = time.perf_counter()
+        mini = self.model.init_cache(1, self.max_len)
+        self._gather_mini(mini, [])
         with torch.no_grad():
-            for entry, (mk, mv) in zip(self.caches, mini):
+            for entry in self.caches:
                 if self.kv_dtype == "int8":
-                    write_tokens_q(*entry, pt, slots, pos, mk[0, :width],
-                                   mv[0, :width], limit=plen)
+                    copy_page_q(*entry, 0, 0)
                 else:
-                    write_tokens(*entry, pt, slots, pos, mk[0, :width],
-                                 mv[0, :width])
+                    copy_page(*entry, 0, 0)
+        out["prefix_gather_copy"] = time.perf_counter() - t0
+        self._sync_table()
+        pt = self.page_table_dev
+        for w in self.prefill_buckets or ():
+            t0 = time.perf_counter()
+            self._offset_forward(np.zeros((1, w), np.int32), mini, 0, 1)
+            with torch.no_grad():
+                for entry, (mk, mv) in zip(self.caches, mini):
+                    if self.kv_dtype == "int8":
+                        scatter_rows_q(*entry, pt, 0, 0, 0, mk, mv, width=w)
+                    else:
+                        scatter_rows(*entry, pt, 0, 0, 0, mk, mv, width=w)
+            out[f"prefix_warm_{w}"] = time.perf_counter() - t0
+        return out
 
     def _abort_admit(self, slot: int) -> None:
         super()._abort_admit(slot)
-        self.alloc.free_slot(slot)   # release any reserved pages
+        self._prefix_stash.pop(slot, None)
+        self.alloc.free_slot(slot)   # release any claimed pages
+
+    def _register(self, slot: int, rid: int, first, tok_done, cfg,
+                  t0: float) -> int:
+        # a new live slot may be uncovered for the next segment (an
+        # optimistic claim stops at prompt + one page): a growth stamp
+        # from before it is stale, and so is the gap's (lens, done) copy
+        self._growth_stamp = None
+        self._gap_sync = None
+        return super()._register(slot, rid, first, tok_done, cfg, t0)
 
     def _retire(self, slot: int, event: str = "finished") -> None:
         super()._retire(slot, event)
@@ -1402,13 +1777,73 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def reset_state(self) -> None:
         """As the dense engine's, and every slot's pages go back to the
-        pool, the fresh-scale queue is drained, the scales are back at the
-        floor and the device page table is unmapped, all in place."""
+        pool, the prefix index is cleared (the zeroed pools hold no cached
+        KV), the fresh-scale queue is drained, the scales are back at the
+        floor and the device page table is unmapped, all in place: the
+        graphs are kept."""
         for slot in range(self.max_batch):
             self.alloc.free_slot(slot)
+        self.alloc.clear_prefix_index()
         self.alloc.take_fresh_scales()
+        self._prefix_stash.clear()
+        self._growth_stamp = None
+        self._gap_sync = None
         super().reset_state()
         self._sync_table()
+
+    # -- optimistic-mode memory pressure (host-side, between segments) -------
+    def grow_for_segment(self, n_steps: int) -> List[int]:
+        """Grow every live slot's mapping to cover the coming
+        ``n_steps``-step segment (optimistic mode; nothing in reserved
+        mode). Returns the request ids whose growth could NOT be covered:
+        the pool is dry and the caller must preempt (or meet
+        :class:`PagePoolExhausted` from ``decode_segment``).
+
+        OLDEST request first (ascending rid), so pressure lands on the
+        youngest work. A row's target is capped by its remaining budget:
+        a segment keeps at most ``min(n_steps, budget)`` of its tokens,
+        and the steps past that write to uncovered positions (the sink)
+        and read clamped pages, making tokens the host discards. No
+        partial growth: a slot covers its whole target or joins the short
+        list. The gap's one host read of ``lens`` and ``done`` is cached
+        in ``_gap_sync`` for the gap's later calls."""
+        if self.admission_mode != "optimistic" or not self._slot_req:
+            return []
+        if self._gap_sync is None:
+            both = torch.stack([self.lens, self.done_dev.to(torch.int32)])
+            self._gap_sync = both.cpu().numpy()
+        lens, done = self._gap_sync
+        short = []
+        for slot, rid in sorted(self._slot_req.items(), key=lambda kv: kv[1]):
+            if done[slot]:
+                continue       # a frozen row never writes
+            target = min(int(lens[slot]) + min(n_steps, self._budget[rid]),
+                         self.max_len)
+            if self.alloc.can_fit(slot, target):
+                self.alloc.ensure(slot, target)
+            else:
+                short.append(rid)
+        # a clean pass covers the coming segment: decode_segment(n_steps)
+        # may skip its re-check until the slot set changes or it runs
+        self._growth_stamp = n_steps if not short else None
+        if short and trace.enabled():
+            trace.event("engine.grow_short", engine=self._monitor_engine,
+                        engine_rids=tuple(short),
+                        free_pages=self.alloc.free_pages)
+        return short
+
+    def preempt_request(self, rid: int, reason: str = "pressure"):
+        """Preempt an ACTIVE request under memory pressure: reclaim its slot
+        AND pages at once (``cancel_request``'s reclaim) and return its
+        tokens so far (int32); the caller replays ``prompt + tokens``
+        through a normal admission later. None when ``rid`` is not active.
+        The request never appears in ``collect_finished()``; the pool's
+        ``paddle_tpu_kv_preemptions_total{reason}`` counts it. Call from
+        the thread driving the engine, between segments."""
+        out = self._evict_active(rid, "preempted")
+        if out is not None:
+            self.alloc.count_preemption(reason)
+        return out
 
     def _run_segment(self, n_steps: int,
                      sampled: bool = False) -> torch.Tensor:
@@ -1419,8 +1854,35 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         return super()._run_segment(n_steps, sampled)
 
     def decode_segment(self, n_steps: int) -> int:
-        if self._slot_req and self.alloc.debug:
+        if not self._slot_req:
+            return 0
+        if self.admission_mode == "optimistic":
+            # the last guard: a caller that skipped pressure relief fails
+            # LOUDLY here, never by a write dropped past the mapped pages.
+            # After a clean grow_for_segment(n_steps) in this gap the
+            # re-check is skipped (the stamp is single-shot)
+            short = ([] if self._growth_stamp == n_steps
+                     else self.grow_for_segment(n_steps))
+            self._growth_stamp = None
+            self._gap_sync = None      # the segment advances lens/done
+            if short:
+                raise PagePoolExhausted(
+                    short,
+                    f"page pool exhausted in the inter-segment gap: "
+                    f"requests {short} cannot grow for the next "
+                    f"{n_steps}-step segment ({self.alloc.available_pages} "
+                    f"pages reclaimable) — preempt victims "
+                    f"(preempt_request) or grow num_pages")
+        if self.alloc.debug:
+            self._flush_fresh_scales()
             self.alloc.check()
-        # reserved admission pre-covered every running request's worst
-        # case, so no growth can fail
+            if self.kv_dtype == "int8":
+                # layer 0 stands for all: one program writes them all
+                self.alloc.check_scales(self.caches[0][2],
+                                        self.caches[0][3])
+            lens = self.lens.cpu().numpy()
+            done = self.done_dev.cpu().numpy()
+            for slot in self._slot_req:
+                if not done[slot]:
+                    self.alloc.check_coverage(slot, int(lens[slot]))
         return super().decode_segment(n_steps)

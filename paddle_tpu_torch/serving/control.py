@@ -28,11 +28,11 @@ signals that already exist and move levers that already exist:
       rung 3: disable speculative decoding on FUTURE admissions
       rung 4: pause prefix-cache admission (no new CoW/shared pages)
 
-  In the port, rungs 3 and 4 act on features its engines do not have
-  yet: ``spec_off`` does nothing until speculative decoding lands
-  (ROADMAP A7), ``prefix_pause`` nothing until the prefix cache does
-  (A4c). The ladder still moves through them, so its decisions and its
-  ``/healthz`` block are the reference's.
+  In the port, rung 3 acts on a feature its engines do not have yet:
+  ``spec_off`` does nothing until speculative decoding lands (ROADMAP
+  A7). The ladder still moves through it, so its decisions and its
+  ``/healthz`` block are the reference's. Rung 4 flips the paged
+  engine's ``prefix_pause``.
 
   Engagement is immediate (overload is urgent: the ladder can jump
   several rungs in one tick); DISENGAGEMENT is hysteretic — one rung

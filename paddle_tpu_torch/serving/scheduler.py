@@ -13,7 +13,9 @@ drives the stepwise API (``add_request`` / ``decode_segment`` /
            RuntimeError); prompts longer than the engine's
            ``prefill_chunk`` admit chunk-by-chunk across gaps, so a
            long prompt never monopolizes the gap and running requests'
-           TPOT stays flat
+           TPOT stays flat → relieve KV memory pressure (optimistic
+           paged admission: grow every live slot's pages for the coming
+           segment, preempting victims while the pool is dry)
     step:  one decode segment over every occupied slot (on the card, the
            replay of the segment's captured CUDA graph)
     drain: stream new tokens to handles, finish retired requests
@@ -51,6 +53,16 @@ segment's read-back raises, recovery's ``reset_state()`` raises again, and
 the loop ends in ``_finalize``, which fails every handle it holds with the
 cause (and touches the engine no more). It never hangs.
 
+MEMORY PRESSURE (paged engine, ``admission_mode="optimistic"``): a
+preempted request's slot and pages are reclaimed at once and its handle
+parks on the same replay list as an engine restart's, re-admitting through
+the normal bucketed/chunked prefill with its tokens intact; a request is
+preempted at most ``max_preemptions`` times (past that it fails with
+:class:`PreemptionBudgetExceeded`), and one the pool cannot hold even alone
+fails ALONE with ``PagePoolExhausted``. ``pressure()``/``/healthz`` report
+occupancy, parked-waiting counts, the preemption total and the prefix
+cache's counters.
+
 Replays. A greedy replay re-prefills prompt plus emitted tokens as one
 longer prompt, at another bucket width than the tokens were decoded at;
 on the card cuBLAS picks its GEMM algorithms by M, so a replayed greedy
@@ -72,9 +84,7 @@ What the port's engines lack fails at construction or at the call, never
 silently: ``draft_k``, ``spec_mode`` and ``speculative`` (speculative
 decoding, ROADMAP A7); :meth:`Server.load_adapter` / ``unload_adapter``
 (LoRA, A8); :meth:`Server.export_kv` / ``import_kv`` (the KV-page handoff,
-A10); ``admission_mode="optimistic"`` and ``max_preemptions`` (optimistic
-admission and preemption, A4c); :meth:`Server.profile` (the program
-ledger, A9b).
+A10); :meth:`Server.profile` (the program ledger, A9b).
 """
 from __future__ import annotations
 
@@ -99,11 +109,10 @@ __all__ = ["Server", "PreemptionBudgetExceeded"]
 
 
 class PreemptionBudgetExceeded(RuntimeError):
-    """The reference's cause for a request preempted under KV memory
-    pressure more often than its ``max_preemptions`` budget allows. The
-    port's engines do not preempt yet (ROADMAP A4c), so nothing raises it
-    here; the name is public so code catching it runs against both
-    packages."""
+    """A request was preempted under KV memory pressure more often than
+    its ``max_preemptions`` budget allows: it is THRASHING (admitted,
+    preempted, replayed, preempted again...) and fails with this as its
+    cause instead of cycling through the pool forever."""
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -179,9 +188,10 @@ class Server:
     Engine knobs:
 
     - ``admission_mode`` — convenience mirror of the paged engine's
-      knob; ``"reserved"`` (the port's one mode) is accepted,
-      ``"optimistic"`` raises NotImplementedError at construction
-      (ROADMAP A4c), and so does ``max_preemptions``;
+      knob (``"reserved"``/``"optimistic"``), set on an idle engine;
+    - ``max_preemptions`` — memory-pressure preemptions any ONE request
+      may survive (optimistic mode); past it the request fails with
+      :class:`PreemptionBudgetExceeded`;
     - ``kv_dtype`` — convenience mirror of the paged engine's KV
       storage dtype (``"bf16"``/``"int8"``; None leaves the engine's
       own setting), through its idle-only ``set_kv_dtype``. ``"int8"``
@@ -238,6 +248,12 @@ class Server:
     the device, and none catches an error of the engine's.
     """
 
+    # preemption-storm flight-dump trigger: this many preemptions inside
+    # the sliding window dumps the ring once per window — no single
+    # preemption is a fault, but a thrashing pool is a postmortem's state
+    STORM_PREEMPTS = 8
+    STORM_WINDOW_S = 5.0
+
     # shed-storm flight-dump trigger (control plane): this many shed
     # 429s inside the sliding window dumps the ring once per window —
     # each 429 is the control plane working as intended, but a reject
@@ -254,7 +270,7 @@ class Server:
                  restart_backoff_max_s: float = 2.0,
                  max_replays: int = 2,
                  stall_timeout_s: Optional[float] = None,
-                 max_preemptions: Optional[int] = None,
+                 max_preemptions: int = 5,
                  admission_mode: Optional[str] = None,
                  age_after_s: Optional[float] = None,
                  draft_k: Optional[int] = None,
@@ -279,18 +295,16 @@ class Server:
                 "beats once per idle_wait_s")
         if max_restarts < 0 or max_replays < 0:
             raise ValueError("max_restarts/max_replays must be >= 0")
-        if max_preemptions is not None:
-            raise _not_ported("max_preemptions (memory-pressure "
-                              "preemption)", "A4c")
+        if max_preemptions < 0:
+            raise ValueError("max_preemptions must be >= 0")
         if draft_k is not None or spec_mode is not None or speculative:
             raise _not_ported("speculative decoding (draft_k, spec_mode, "
                               "speculative)", "A7")
         if admission_mode is not None:
             # convenience mirror of the paged engine's knob: set it
             # here (before the scheduler thread starts) instead of at
-            # engine construction ("optimistic" raises there, ROADMAP
-            # A4c). getattr/setattr so a FaultyEngine proxy routes to
-            # the wrapped engine.
+            # engine construction. getattr/setattr so a FaultyEngine
+            # proxy routes to the wrapped engine.
             if admission_mode not in ADMISSION_MODES:
                 raise ValueError(
                     f"admission_mode must be one of {ADMISSION_MODES}, "
@@ -387,6 +401,7 @@ class Server:
         self.restart_backoff_s = restart_backoff_s
         self.restart_backoff_max_s = restart_backoff_max_s
         self.max_replays = max_replays
+        self.max_preemptions = max_preemptions
         self.stall_timeout_s = stall_timeout_s
         self.queue = RequestQueue(max_queue, age_after_s=age_after_s)
         # per-server label: concurrent servers (multi-model processes)
@@ -418,6 +433,10 @@ class Server:
         self._flight_dumps = []           # flight-recorder dump paths
         #                                   (fault_stats / healthz
         #                                   read them)
+        self._preempt_ts = []             # recent preemption stamps for
+        #                                   the storm trigger (scheduler
+        #                                   thread only)
+        self._last_storm_dump = -1e18
         self._shed_lock = threading.Lock()
         self._shed_ts = []                # guarded-by: self._shed_lock
         #                                   recent shed-429 stamps for
@@ -431,10 +450,10 @@ class Server:
         #                                   fault_stats())
         self._recovery_s = []             # guarded-by: self._lock
         self._waiting_on_pages = 0        # preempted handles parked on
-        #                                   the replay list: 0 until
-        #                                   preemption lands (ROADMAP
-        #                                   A4c); the pressure surface
-        #                                   and its gauge report it
+        #                                   the replay list right now
+        #                                   (pressure surface; scheduler
+        #                                   thread writes, healthz reads
+        #                                   — an int store is atomic)
         self._degraded_reason: Optional[str] = None   # guarded-by: self._lock
         self._stall_flag = False          # guarded-by: self._lock
         #                                   (degraded BY the watchdog)
@@ -693,7 +712,9 @@ class Server:
         "degraded": reason-or-None,
         "flight_dumps": [flight-recorder dump paths]}`` (dumps are
         written on engine-scoped faults, watchdog ``degraded`` flips,
-        a dying scheduler and shed storms — empty unless
+        a dying scheduler, preemption storms (>= ``STORM_PREEMPTS``
+        preemptions within ``STORM_WINDOW_S``) and shed storms — empty
+        unless
         ``FLAGS_enable_trace`` was on when the trigger fired)."""
         with self._lock:
             return {"faults": dict(self._fault_counts),
@@ -721,8 +742,8 @@ class Server:
 
     def export_kv(self, tokens, salt: bytes = b"",
                   timeout: Optional[float] = 30.0) -> dict:
-        """Export cached KV pages: not ported yet (ROADMAP A10, with the
-        prefix cache of A4c)."""
+        """Export cached KV pages: not ported yet (ROADMAP A10, built on
+        the prefix index)."""
         raise _not_ported("the KV-page handoff (export_kv)", "A10")
 
     def import_kv(self, payload: dict,
@@ -830,12 +851,15 @@ class Server:
         """KV memory-pressure snapshot (None for a dense engine):
         ``{"admission_mode", "kv_dtype", "occupancy", "free_pages",
         "waiting_on_pages", "preemptions"}`` — what ``/healthz``
-        reports so an operator can tell memory pressure apart from the
-        stall/fault ``degraded`` reason. ``waiting_on_pages`` and
-        ``preemptions`` stay 0 until preemption is ported (ROADMAP
-        A4c), and the reference's prefix-cache fields and int8 byte
-        savings come with the prefix cache (A4c). Host-side and
-        monitor-independent, like :meth:`fault_stats`."""
+        reports so an operator can tell "degraded by memory pressure"
+        (occupancy near 1.0, preemptions climbing, requests parked
+        waiting on pages) apart from the stall/fault ``degraded``
+        reason. int8 pools add ``kv_quant_bytes_saved``; with the prefix
+        cache on the dict also carries ``{"prefix_cache": True,
+        "cached_pages", "shared_pages", "prefix_hits", "prefix_lookups",
+        "prefix_tokens_saved"}`` (parked pages are reclaimable capacity,
+        not occupancy). Host-side and monitor-independent, like
+        :meth:`fault_stats`."""
         alloc = getattr(self.engine, "alloc", None)
         if alloc is None:
             return None
@@ -849,8 +873,22 @@ class Server:
             "occupancy": round(alloc.occupancy, 4),
             "free_pages": alloc.free_pages,
             "waiting_on_pages": self._waiting_on_pages,
-            "preemptions": getattr(alloc, "preemptions", 0),
+            "preemptions": alloc.preemptions,
         }
+        if getattr(alloc, "kv_dtype", "bf16") == "int8":
+            out["kv_quant_bytes_saved"] = alloc.quant_bytes_saved
+        if getattr(alloc, "prefix_cache", False):
+            # parked pages are reclaimable capacity (free + cached is
+            # what admission can claim); shared counts the refcount > 1
+            # multiplier; hits and tokens saved are lifetime totals
+            out.update({
+                "prefix_cache": True,
+                "cached_pages": alloc.cached_pages,
+                "shared_pages": alloc.shared_pages,
+                "prefix_hits": alloc.prefix_hits,
+                "prefix_lookups": alloc.prefix_lookups,
+                "prefix_tokens_saved": alloc.prefix_tokens_saved,
+            })
         return out
 
     # -- monitor helpers -----------------------------------------------------
@@ -1548,12 +1586,16 @@ class Server:
         return True
 
     def _admit_replays(self) -> None:
-        """Re-admit requests surviving an engine restart FIRST (before
-        new queue work): they already held capacity when the fault hit.
-        With reserved admission a replay reserves exactly what the
-        original did (prompt + full budget), so the reset engine always
-        has room. At worst a replay longer than ``prefill_chunk`` waits
-        its turn behind the single in-flight chunked admission.
+        """Re-admit requests surviving an engine restart OR a
+        memory-pressure preemption FIRST (before new queue work): they
+        already held capacity when the fault or preemption hit. With
+        reserved admission a replay reserves exactly what the original
+        did (prompt + full budget), so the reset engine always has room;
+        with optimistic admission the claim is prompt + one page and a
+        replay defers while the pool is crowded (new-queue admission
+        stays paused until every replay is back in). At worst a replay
+        longer than ``prefill_chunk`` waits its turn behind the single
+        in-flight chunked admission.
 
         A replay re-prefills ``prompt + tokens emitted so far`` (the
         bucketed/chunked machinery treats it like any prompt) with the
@@ -1564,10 +1606,11 @@ class Server:
         stream, since its draws are a hash of (seed, position) — the
         reference's moves to a fresh one. The admission deadline applies
         only to a handle that never COMPLETED an admission
-        (``engine_rid is None``): once a request admitted, the deadline
-        was met and a replay must not expire it. Deferral is O(1) — the
-        O(plen) replay-prompt build only happens on the gap that
-        actually admits."""
+        (``engine_rid is None`` — a pressure-abort of its in-flight
+        chunked claim parked it here): once a request admitted, the
+        deadline was met and a replay must not expire it. Deferral is
+        O(1) — the O(plen) replay-prompt build only happens on the gap
+        that actually admits."""
         pending, self._replay = self._replay, []
         still = []
         chunk = getattr(self.engine, "prefill_chunk", None)
@@ -1615,7 +1658,9 @@ class Server:
                             == self.engine.max_batch):
                         # the engine is completely IDLE and the replay
                         # still cannot fit: prompt + generated has
-                        # outgrown what the pool can EVER hold — fail
+                        # outgrown what the pool can EVER hold (a
+                        # preempted request's replay prompt includes
+                        # every emitted token) — fail
                         # loudly with the typed cause instead of
                         # deferring forever against an empty engine
                         h._finish(FAILED, PagePoolExhausted(
@@ -1641,9 +1686,9 @@ class Server:
                 # the full history
                 h._engine_base = n_toks
                 if trace.enabled():
-                    # re-admission after an engine restart: the
-                    # timeline shows replay -> admit(replay=True) ->
-                    # segments
+                    # re-admission after an engine restart OR a
+                    # memory-pressure preemption: the timeline shows
+                    # replay -> admit(replay=True) -> segments
                     trace.event("replay", rid=h._trace_rid,
                                 emitted=n_toks, replays=h._replays,
                                 preempts=h._preempts)
@@ -1664,9 +1709,13 @@ class Server:
         ``_admitting`` is held for the WHOLE gap: at several points a
         handle lives only in locals (mid-admission, mid-replay, the
         chunk-abort window) and a timed ``drain()`` must never see
-        "queue empty, nothing active" through one of them. (The
-        reference's pressure relief, which grows slots and preempts in
-        optimistic mode, waits for ROADMAP A4c.)"""
+        "queue empty, nothing active" through one of them.
+
+        Pressure relief runs LAST (optimistic paged mode): every slot the
+        coming segment will write is grown now, preempting victims while
+        the pool is dry, so ``decode_segment``'s own exhaustion guard
+        (:class:`PagePoolExhausted`, an engine-scoped fault) never fires
+        under this scheduler."""
         self._admitting = True
         # the gap span only when there is WORK: an idle loop gaps ~50x/s
         # and would drown the flight ring in empty spans
@@ -1676,6 +1725,7 @@ class Server:
         try:
             with (trace.span("gap") if busy else trace.NULL_SPAN):
                 self._gap_body()
+            self._relieve_pressure()
             if self.control is not None:
                 # observe->act loop last, on the post-admission state
                 # (rate-limited inside ControlPlane.tick): pure host
@@ -1879,9 +1929,8 @@ class Server:
         ALREADY-QUEUED entries into the penalty band (new arrivals 429
         at submit), rung transitions trace/export and flip the one
         engine-side actuator (prefix-cache admission pause, a host
-        bool; it acts on an engine with a prefix cache, which the
-        port's engines get with ROADMAP A4c — until then rung 4 only
-        shows in the trace, the gauge and ``/healthz``)."""
+        bool — the paused path is the already warmed cold admission, so
+        no rung captures anything)."""
         dec = self.control.tick(
             time.monotonic(),
             queue_depth=self.queue.depth,
@@ -1917,6 +1966,159 @@ class Server:
                 # owns the engine; getattr/setattr routes through a
                 # FaultyEngine proxy to the wrapped engine.
                 self.engine.prefix_pause = dec["rung"] >= 4
+
+    # -- memory pressure (optimistic paged mode; scheduler thread) -----------
+    def _relieve_pressure(self) -> None:
+        """Resolve KV memory pressure in the gap (optimistic admission
+        only; nothing otherwise): grow every live slot's pages for the
+        coming segment and, while the pool cannot cover the growth,
+        PREEMPT victims — most SLO headroom first (no admission deadline
+        before any deadline, then furthest from it), ties by lowest
+        priority (highest value) then youngest, NEVER the oldest
+        surviving request, so the head of the line always makes progress
+        and pressure cannot deadlock or livelock the loop. A victim's
+        slot and pages are reclaimed at once
+        (``engine.preempt_request``) and its handle parks on the replay
+        list (the engine-restart machinery), bounded per request by
+        ``max_preemptions``. A request the pool cannot cover even ALONE
+        fails with :class:`PagePoolExhausted` as its cause: a contained,
+        request-scoped event, not an engine restart."""
+        if getattr(self.engine, "admission_mode", None) != "optimistic":
+            return
+        sp = trace.NULL_SPAN
+        if trace.enabled() and (self._active or self._adm is not None):
+            sp = trace.span("gap.pressure", active=len(self._active))
+        with sp:
+            self._relieve_pressure_body()
+
+    def _relieve_pressure_body(self) -> None:
+        eng = self.engine
+        while True:
+            short = self._guard(
+                "pressure",
+                lambda: eng.grow_for_segment(self.segment_steps))
+            if not short:
+                break
+            # age is the HANDLE's submit time, not the engine rid: a
+            # replay re-admits under a fresh rid but keeps its seniority
+            oldest = (min(self._active,
+                          key=lambda r: (self._active[r].submit_ts,
+                                         self._active[r].id))
+                      if self._active else None)
+            cands = [r for r in self._active if r != oldest]
+            if cands:
+                now = time.monotonic()
+                victim = max(cands, key=lambda r: (
+                    (float("inf") if self._active[r].deadline is None
+                     else self._active[r].deadline - now),
+                    self._active[r].priority,
+                    self._active[r].submit_ts,
+                    self._active[r].id))
+                self._preempt(victim, "pressure")
+                continue
+            if self._adm is not None:
+                # the last capacity holder left is the in-flight chunked
+                # admission's claim: abort it (slot AND pages back) and
+                # park its handle (before the abort guard: if the abort
+                # faults, recovery finds it in _replay); the replay
+                # restarts its prefill from the start
+                adm, h = self._adm
+                self._adm = None
+                alloc = getattr(eng, "alloc", None)
+                if alloc is not None:
+                    alloc.count_preemption("pressure")
+                self._park_preempted(h)
+                self._guard("cancel", lambda: eng.abort_admit(adm))
+                continue
+            # nothing left to preempt: the short request cannot grow even
+            # with the pool to itself, and a replay would meet the same
+            # wall forever, so it fails with the typed cause
+            progressed = False
+            for rid in short:
+                toks = self._guard(
+                    "pressure",
+                    lambda rid=rid: eng.preempt_request(
+                        rid, reason="unsatisfiable"))
+                h = self._active.pop(rid, None)
+                if toks is None and h is None:
+                    continue       # foreign or stale rid: nothing owned
+                progressed = True
+                if h is None:
+                    continue       # a request driven outside this server
+                if toks is not None:
+                    self._push_delta(
+                        h, list(toks[h._n_pushed - h._engine_base:]))
+                h._finish(FAILED, PagePoolExhausted(
+                    [rid],
+                    f"request {h.id} cannot grow its KV mapping even with "
+                    f"the pool to itself (prompt+generated="
+                    f"{h.prompt_len + h._n_pushed} tokens, pool="
+                    f"{eng.num_pages}x{eng.page_size} tokens) — grow "
+                    f"num_pages or lower max_new_tokens"))
+                self._count("failed")
+                self._slo_fail(h)
+            if not progressed:
+                # a short rid this scheduler neither owns nor can
+                # reclaim: decode_segment's own guard surfaces it
+                break
+        self._waiting_on_pages = sum(
+            1 for h in self._replay if h._preempts > 0)
+
+    def _preempt(self, rid: int, reason: str) -> None:
+        """Preempt ONE active request: the engine reclaims its slot and
+        pages (``preempt_request``), its tokens so far are pushed to the
+        handle FIRST (the replay prompt is prompt + ALL generated
+        tokens), then the handle parks for replay."""
+        toks = self._guard(
+            "pressure", lambda: self.engine.preempt_request(rid, reason))
+        h = self._active.pop(rid, None)
+        if h is None:
+            return
+        if toks is not None:
+            self._push_delta(h, list(toks[h._n_pushed - h._engine_base:]))
+        self._park_preempted(h)
+
+    def _park_preempted(self, h: RequestHandle) -> None:
+        """Park a preempted handle on the replay list (the next gap's
+        ``_admit_replays`` re-prefills prompt + generated), enforcing its
+        ``max_preemptions`` budget: past it the request fails with
+        :class:`PreemptionBudgetExceeded`. A cancel-requested handle
+        finishes CANCELLED instead. Dumps the flight ring once per
+        ``STORM_WINDOW_S`` when ``STORM_PREEMPTS`` preemptions land in
+        one window."""
+        if h._cancel_requested:
+            h._finish(CANCELLED)
+            self._count("cancelled")
+            return
+        h._preempts += 1
+        self._count("preempted")
+        if trace.enabled():
+            trace.event("preempt", rid=h._trace_rid, preempts=h._preempts,
+                        emitted=h._n_pushed)
+        now = time.monotonic()
+        self._preempt_ts.append(now)
+        cut = now - self.STORM_WINDOW_S
+        while self._preempt_ts and self._preempt_ts[0] < cut:
+            self._preempt_ts.pop(0)
+        if (len(self._preempt_ts) >= self.STORM_PREEMPTS
+                and now - self._last_storm_dump > self.STORM_WINDOW_S):
+            if trace.enabled():
+                trace.event("preempt.storm", count=len(self._preempt_ts),
+                            window_s=self.STORM_WINDOW_S)
+            # re-arm only on a WRITTEN dump: a trip with tracing off must
+            # not burn the window before an operator turns tracing on
+            if self._flight_dump("preemption_storm") is not None:
+                self._last_storm_dump = now
+        if h._preempts > self.max_preemptions:
+            h._finish(FAILED, PreemptionBudgetExceeded(
+                f"request {h.id} preempted {h._preempts} times under KV "
+                f"memory pressure (max_preemptions={self.max_preemptions}):"
+                f" the pool is too small for this request mix — grow "
+                f"num_pages, lower kv_watermark, or raise max_preemptions"))
+            self._count("failed")
+            self._slo_fail(h)
+            return
+        self._replay.append(h)
 
     def _push_delta(self, h: RequestHandle, toks) -> None:
         """Push newly generated tokens (scheduler thread only);

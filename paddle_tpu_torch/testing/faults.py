@@ -23,10 +23,10 @@ Sites (the seams a serving scheduler drives):
   :class:`~paddle_tpu_torch.inference.generation.EngineFault` here drives the
   supervised-recovery path, a hang drives the stall watchdog);
 - ``"collect"`` — ``collect_finished``;
-- ``"preempt"`` — ``preempt_request``, the paged engine's
-  memory-pressure victim reclaim. The site is kept so a plan's schedule
-  is the reference's, but the port's engines have no preemption yet
-  (ROADMAP A4c), so nothing calls it.
+- ``"preempt"`` — ``preempt_request`` (the paged engine's
+  memory-pressure victim reclaim): an injected fault here fails the
+  scheduler's pressure-relief loop mid-preemption, the window where a
+  victim's handle is between the engine and the replay list.
 
 Determinism: every seam call increments a per-site counter under a
 lock, and rules fire on exact 1-based call indices (``nth``/``times``),
@@ -318,3 +318,7 @@ class FaultyEngine:
     def collect_finished(self, *a, **kw):
         self.plan.fire("collect")
         return self._engine.collect_finished(*a, **kw)
+
+    def preempt_request(self, *a, **kw):
+        self.plan.fire("preempt")
+        return self._engine.preempt_request(*a, **kw)

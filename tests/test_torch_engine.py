@@ -133,16 +133,22 @@ def test_admission_limits_and_unported_modes():
     with pytest.raises(RuntimeError):
         eng.add_request(np.zeros(9, np.int32), cfg)
     assert eng.free_slots() == 2 and eng.alloc.free_pages == 4
-    # the reference's speculative-decoding, admission-mode and
-    # prefix-cache settings are not options of the port until their code
-    # is ported (sampling is); kv_dtype is (int8 pools), and takes the
-    # reference's values only
+    # the reference's speculative-decoding settings are not options of
+    # the port until their code is ported (sampling is); the admission
+    # mode, the prefix cache and kv_dtype are, and take the reference's
+    # values only
     with pytest.raises(TypeError):
         GenerationConfig(max_new_tokens=2, speculative=True)
-    for bad in (dict(admission_mode="optimistic"), dict(prefix_cache=True)):
-        with pytest.raises(TypeError):
-            PagedContinuousBatchingEngine(tm, max_batch=1, num_pages=4,
-                                          page_size=4, max_pages=2, **bad)
+    for kw in (dict(admission_mode="optimistic"), dict(prefix_cache=True)):
+        e = PagedContinuousBatchingEngine(tm, max_batch=1, num_pages=4,
+                                          page_size=4, max_pages=2, **kw)
+        assert e.admission_mode == kw.get("admission_mode", "reserved")
+        assert e.prefix_cache == e.alloc.prefix_cache == kw.get(
+            "prefix_cache", False)
+    with pytest.raises(ValueError, match="admission_mode"):
+        PagedContinuousBatchingEngine(tm, max_batch=1, num_pages=4,
+                                      page_size=4, max_pages=2,
+                                      admission_mode="eager")
     with pytest.raises(ValueError, match="kv_dtype"):
         PagedContinuousBatchingEngine(tm, max_batch=1, num_pages=4,
                                       page_size=4, max_pages=2,

@@ -628,8 +628,19 @@ def test_warmup_then_no_capture(pair):
     (dict(speculative=True), "A7"), (dict(max_preemptions=3), "A4c"),
     (dict(admission_mode="optimistic"), "A4c")])
 def test_missing_features_fail_at_construction(kw, item):
+    """Speculative decoding (A7) fails at construction; the memory-pressure
+    knobs of A4c are ported and take effect on the engine."""
     model, _ = tiny_model()
     eng = paged_engine(model)
+    if item == "A4c":
+        srv = Server(eng, start=False, **kw)
+        try:
+            assert srv.max_preemptions == kw.get("max_preemptions", 5)
+            assert eng.admission_mode == kw.get("admission_mode",
+                                                "reserved")
+        finally:
+            srv.shutdown(drain=False)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"not ported yet \\(ROADMAP {item}"):
         Server(eng, start=False, **kw)

@@ -18,9 +18,11 @@ harness (``paddle_tpu_torch.testing.faults``):
   flight recorder, and the overload control plane (unit and wired into the
   Server).
 
-Not here, with the items that bring them: preemption storms (ROADMAP
-A4c), ``NetworkFaultPlan`` and the elastic fleet's router (A10), the
-``serve_bench`` chaos soak (A3). Every Server is shut down in ``finally``.
+The preemption scenarios (the storm dump, ``PreemptionBudgetExceeded``,
+``FaultyEngine`` at ``"preempt"``) are in ``tests/test_torch_kv_pressure.py``.
+Not here, with the items that bring them: ``NetworkFaultPlan`` and the
+elastic fleet's router (A10), the ``serve_bench`` chaos soak (A3). Every
+Server is shut down in ``finally``.
 """
 import importlib.util
 import json
