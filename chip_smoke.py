@@ -81,6 +81,13 @@ Phases, each timed, none caught and passed over:
    and in a mixed batch (the same tokens); the prefix cache and
    preemption at 2 layers (PREFIX_E2E: warm streams against cold and
    preempted against unpreempted on the card, the card against the CPU);
+   speculative decoding at 2 layers (SPEC: the paged engine with bf16 and
+   int8 pools and the dense engine, ``draft_k=4``, host, device and
+   ``"self"`` modes, and host and device with oracle drafts, the plain
+   streams, so that drafts are accepted: captured against uncaptured
+   bitwise, spec against plain on the card up to a near-tie, the card
+   against the CPU, no capture after warmup, the decode kernel's launches
+   W times a layer a verify step);
    then the training
    configuration's widths at 2 layers, one Layer-API backward and one
    AdamW train step on the card and on the CPU from the same weights and
@@ -132,7 +139,15 @@ Phases, each timed, none caught and passed over:
    traffic's, streams and TTFT against a prefix-off serve; then
    ``Server(admission_mode="optimistic")`` over the cache with
    ``prefill_chunk=256`` at the smallest pool a search finds in which all
-   8 finish under preemption, its streams against a reserved engine's.
+   8 finish under preemption, its streams against a reserved engine's;
+   and speculative decoding through the serving front: ``Server(
+   segment_steps=8, warmup=True, draft_k=4, speculative=True)`` over the
+   ``Server`` leg's engine in host and in device mode, with n-gram drafts
+   and with oracle drafts (the plain ``Server``'s streams), the 8 prompts
+   from 8 client threads: TTFT, TPOT, tokens per forward and the accepted
+   share beside the plain ``Server``'s, where the streams part from its
+   (failing at a top-2 margin of NEAR_TIE or more), K4's launches a
+   verify step held at layers x W.
    Each engine is built, then
    ``warmup()``-ed (``warmup(8)``: greedy and sampled segments;
    ``generate``'s engine ``warmup(batch=8)``: greedy and sampled steps),
@@ -244,6 +259,11 @@ PRESSURE_TRIES = 8
 # preempt, since the CPU side's time is most of phase 4's)
 PREFIX_E2E = dict(prefix=48, suffixes=(9, 20, 30, 14), page=8, new=8,
                   pressure_new=24, pool=27)
+# speculative decoding (phase 4 at 2 layers, phase 5's Server at 7B): the
+# draft window (verify steps of draft_k + 1 tokens); phase 4 runs every
+# engine in each (spec_mode, spec_draft) pair and, on the CPU, the first
+SPEC = dict(draft_k=4, modes=(("host", "ngram"), ("device", "ngram"),
+                              ("device", "self")))
 # phase 5's sampled serve (and phase 4's sampled runs): each request's seed
 # is its index
 SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95)
@@ -442,15 +462,18 @@ ROUTE_SOURCES = {
     "flash_hb": ("cuda", "paddle_tpu_torch/ops/flash_attention_hb.py"),
     "paged_attention": ("cuda", "paddle_tpu_torch/ops/paged_attention.py"),
 }
+SPEC_PATHS = ("server_spec_host", "server_spec_device",
+              "server_spec_oracle_host", "server_spec_oracle_device")
 PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
-         "serve_sampled", "server", "serve_prefix", "server_pressure",
-         "train", "fmt", "train_hb", "ops", "f32")
+         "serve_sampled", "server", "serve_prefix",
+         "server_pressure") + SPEC_PATHS + ("train", "fmt", "train_hb",
+                                             "ops", "f32")
 # the decode paths, which run K4 and K7 (phase 5's through captured graphs),
-# the chunked and sampled serves, the serving front's Server serve, and the
-# prefix-cache and memory-pressure legs
+# the chunked and sampled serves, the serving front's Server serve, the
+# prefix-cache and memory-pressure legs, and the speculative Server serves
 SLICE_PATHS = ("serve", "serve_int8", "generate", "dense_serve",
                "serve_chunked", "serve_sampled", "server", "serve_prefix",
-               "server_pressure", "fmt")
+               "server_pressure") + SPEC_PATHS + ("fmt",)
 EARLIER_PATHS = (("train", "f32"), ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
@@ -2269,6 +2292,7 @@ def e2e_phase(torch, dev, np):
         "generate": lambda m: CausalLMEngine(m, max_batch=2, max_len=256),
     }
     rec["graphs"] = {}
+    card_plain = {}
     for name, make in engines.items():
         if name == "generate":
             def run(e):
@@ -2299,11 +2323,198 @@ def e2e_phase(torch, dev, np):
         rec["graphs"][name] = {str(k): n for k, n in before.items()}
         rec[f"{name}_tokens_matched"] = matched_tokens(
             torch, np, cpu, firsts, got, run(make(cpu)))
+        card_plain[name] = got
         del eager, eng
+    rec["spec"] = spec_e2e(torch, np, gpu, cpu, prompts, gen,
+                           {name: (engines[name], card_plain[name])
+                            for name in ("greedy", "int8", "dense")})
     rec["chunked_sampled"] = chunk_sample_e2e(torch, np, gpu, cpu)
     rec["prefix_pressure"] = prefix_pressure_e2e(torch, np, gpu, cpu)
     del gpu, cpu
     torch.cuda.empty_cache()
+    return rec
+
+
+def check_spec_launches(counts, L, W, n_pre, n_steps, n_verify, decode,
+                        what, **more):
+    """A speculating serve's launches: the prefills' (one-shot), and per
+    model forward (prefill, plain step or verify step) one rms_norm a norm;
+    the decode kernel once a layer a plain step and W times a layer a
+    verify step (once per window position)."""
+    check_launches(counts, expect(
+        counts, rms_norm=(2 * L + 1) * (n_pre + n_steps + n_verify
+                                        + more.get("n_chunks", 0)),
+        fused_rope=2 * L * (n_pre + more.get("n_chunks", 0)),
+        flash_fwd=L * n_pre,
+        flash_fwd_prefix=L * more.get("n_chunks", 0),
+        **{decode: L * (n_steps + W * n_verify)}),
+        f"{what}: prefills {n_pre}, chunks {more.get('n_chunks', 0)}, "
+        f"decode steps {n_steps}, verify steps {n_verify} of {W} tokens, "
+        f"layers {L}")
+
+
+def oracle_drafts(np, eng, prompts, streams):
+    """Make ``eng`` draft from known streams (the plain engine's): a
+    request whose prompt is ``prompts[i]`` gets ``streams[i]`` as its
+    drafts, through a host proposer that reads them off the stream
+    (``spec_mode="host"``) and through a history ring seeded with the
+    stream and then its first token again, so the device lookup's suffix
+    match continues it (``"device"``). With random weights the model's
+    text never repeats, so n-gram drafts are all rejected; this forces
+    the accepting path (several tokens a verify step, the int8 commit of
+    several rows, the ring's shift) while every emitted token stays the
+    model's own. Shadows two engine methods on the instance; returns the
+    function that removes them."""
+    from paddle_tpu_torch.inference.ngram import NgramProposer
+
+    known = {tuple(np.asarray(p).tolist()): [int(t) for t in st]
+             for p, st in zip(prompts, streams)}
+
+    class Oracle(NgramProposer):
+        def __init__(self, ctx, k, stream, plen):
+            super().__init__(ctx, k, 1)
+            self.stream, self.plen = stream, plen
+
+        def propose(self, k=None):
+            k = self.k if k is None else int(k)
+            self.proposed += k
+            at = len(self.ctx) - self.plen    # the tokens emitted so far
+            d = self.stream[at:at + k] or [self.ctx[-1]]
+            return (d + [d[-1]] * k)[:k]
+
+    init_spec, install = eng._init_spec, eng._install_state
+
+    def oracle_init_spec(rid, ids, first, cfg):
+        init_spec(rid, ids, first, cfg)
+        st = known.get(tuple(np.asarray(ids).reshape(-1).tolist()))
+        prop = eng._spec.get(rid)
+        if prop is not None and st is not None:
+            eng._spec[rid] = Oracle(prop.ctx, prop.k, st, np.size(ids))
+
+    def oracle_install(slot, plen, first, tok_done, cfg, ids=None):
+        install(slot, plen, first, tok_done, cfg, ids)
+        st = None if ids is None else known.get(
+            tuple(np.asarray(ids).reshape(-1).tolist()))
+        if st is not None:
+            ring = st + st[:1]
+            eng.hist[slot, :len(ring)] = eng.hist.new_tensor(ring)
+            eng.hist_len[slot] = len(ring)
+
+    eng._init_spec, eng._install_state = oracle_init_spec, oracle_install
+
+    def restore():
+        del eng.__dict__["_init_spec"], eng.__dict__["_install_state"]
+    return restore
+
+
+def spec_e2e(torch, np, gpu, cpu, prompts, gen, plain):
+    """Speculative decoding at 2 layers of the 7B widths: the paged engine
+    with bf16 and with int8 pools and the dense engine (``plain[name]``:
+    its maker and the card's plain greedy streams), each with
+    ``draft_k=SPEC["draft_k"]`` in every (spec_mode, spec_draft) of
+    SPEC["modes"], every request opted in. On the card: the engine run
+    uncaptured, then warmed (its spec programs captured) and run again
+    and after ``reset_state()``, both bitwise the uncaptured streams, no
+    capture after warmup, the launches held against the path's (the
+    decode kernel W times a layer a verify step); the first token where
+    the spec streams part from the plain ones, with the top-2 margin there
+    (the phase fails at a margin of NEAR_TIE or more). On the CPU the same
+    engine in the first mode: each mode's card streams against its, up to
+    a near-tie. Random weights reject every n-gram draft, so each engine
+    runs again in host and device mode with oracle drafts (the card's
+    plain streams, :func:`oracle_drafts`), uncaptured and captured: the
+    two bitwise equal, spec against plain as above, launches the path's,
+    and drafts accepted (the phase fails if none is)."""
+    from paddle_tpu_torch import GenerationConfig, ops
+
+    k = SPEC["draft_k"]
+    L, W = gpu.config.num_hidden_layers, k + 1
+    spec = GenerationConfig(max_new_tokens=gen.max_new_tokens,
+                            speculative=True)
+    rec = {"draft_k": k, "max_new_tokens": spec.max_new_tokens}
+    t_card = t_cpu = 0.0
+
+    def serve(make, m, mode, draft, capture=True, warm=False, oracle=None):
+        """(engine, streams) of a fresh ``make(m)`` in the mode (with
+        ``oracle``, the streams its drafts come from)."""
+        e = make(m)
+        e.programs.capture = capture
+        e.draft_k, e.spec_mode, e.spec_draft = k, mode, draft
+        if oracle is not None:
+            oracle_drafts(np, e, prompts, oracle)
+        if warm:
+            e.warmup(4)
+        return e, (None if warm else e.serve(prompts, spec,
+                                             segment_steps=4))
+
+    def spec_run(name, tag, make, plain_outs, mode, draft, oracle=None):
+        """The uncaptured and the warmed run of one engine and mode, held
+        against each other, the path's launches and the plain streams;
+        returns (the warmed run's streams, its record)."""
+        want = serve(make, gpu, mode, draft, capture=False,
+                     oracle=oracle)[1]
+        eng = serve(make, gpu, mode, draft, warm=True, oracle=oracle)[0]
+        before = dict(eng.programs.captures)
+        n0 = (eng.prefills, eng.decode_steps, eng.verify_steps)
+        got, counts = counted_run(torch, ops, eng, lambda: eng.serve(
+            prompts, spec, segment_steps=4))
+        n_pre, n_steps, n_verify = (a - b for a, b in zip(
+            (eng.prefills, eng.decode_steps, eng.verify_steps), n0))
+        check_spec_launches(counts, L, W, n_pre, n_steps, n_verify,
+                            "decode_mha" if name == "dense"
+                            else "paged_decode", f"spec e2e {tag}")
+        st = eng.spec_stats()
+        eng.reset_state()
+        again = eng.serve(prompts, spec, segment_steps=4)
+        for what, out in (("graphed", got), ("after reset_state", again)):
+            if [o.tolist() for o in out] != [w.tolist() for w in want]:
+                raise AssertionError(
+                    f"spec e2e {tag}: the {what} streams {out} differ "
+                    f"from the uncaptured ones {want} on the card")
+        if eng.programs.captures != before:
+            raise AssertionError(f"spec e2e {tag}: captures "
+                                 f"{eng.programs.captures} after "
+                                 f"warmup's {before}")
+        splits, margins = first_splits(torch, np, gpu, prompts, got,
+                                       plain_outs)
+        for n, mg in zip(splits, margins):
+            if mg is not None and mg >= NEAR_TIE:
+                raise AssertionError(
+                    f"spec e2e {tag}: spec and plain streams part at "
+                    f"token {n} where the top-2 margin is {mg:.3g} >= "
+                    f"{NEAR_TIE}")
+        if oracle is not None and st["accepted"] < 1:
+            raise AssertionError(f"spec e2e {tag}: no oracle draft was "
+                                 f"accepted ({st})")
+        return got, {"first_split_from_plain": splits,
+                     "split_top2_margins": margins,
+                     "graphs": {str(key): n for key, n in before.items()},
+                     "verify_steps": n_verify, "launches": counts,
+                     "tokens_per_forward": st["tokens_per_forward"],
+                     "acceptance_rate": st["acceptance_rate"]}
+
+    for name, (make, plain_outs) in plain.items():
+        t0 = time.perf_counter()
+        cpu_outs = serve(make, cpu, *SPEC["modes"][0])[1]
+        t_cpu += time.perf_counter() - t0
+        rec[f"{name}_tokens_matched_cpu"] = {}
+        for mode, draft in SPEC["modes"]:
+            t0 = time.perf_counter()
+            tag = f"{name}_{mode}_{draft}"
+            got, rec[tag] = spec_run(name, tag, make, plain_outs, mode,
+                                     draft)
+            t_card += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec[f"{name}_tokens_matched_cpu"][f"{mode}_{draft}"] = \
+                matched_tokens(torch, np, cpu, prompts, got, cpu_outs)
+            t_cpu += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for mode in ("host", "device"):
+            tag = f"{name}_{mode}_oracle"
+            rec[tag] = spec_run(name, tag, make, plain_outs, mode, "ngram",
+                                oracle=plain_outs)[1]
+        t_card += time.perf_counter() - t0
+    rec.update(card_s=t_card, cpu_s=t_cpu)
     return rec
 
 
@@ -3123,7 +3334,7 @@ def serve_phase(torch, dev, np, profile=False):
     for r in recs:
         del r["outs"]
     chunk_recs = chunked_serve_phase(torch, np, model, prompts, outs,
-                                     profile)   # and the Server's legs
+                                     profile)   # and the Servers' legs
     gen_rec = generate_phase(torch, np, model, profile)
     dense_rec = dense_serve_phase(torch, np, model, prompts, outs, profile)
     t0 = time.perf_counter()
@@ -3250,11 +3461,13 @@ def chunked_serve_phase(torch, np, model, prompts, paged_outs,
     for r in recs:
         del r["outs"]
     eng.reset_state()
-    server_rec = server_phase(torch, np, model, prompts, eng, gap_outs,
-                              recs[0], profile)
+    server_rec, server_outs = server_phase(torch, np, model, prompts, eng,
+                                           gap_outs, recs[0], profile)
+    spec_recs = spec_server_phase(torch, np, model, prompts, eng,
+                                  server_outs, server_rec, profile)
     del eng
     torch.cuda.empty_cache()
-    return tuple(recs) + (server_rec,)
+    return tuple(recs) + (server_rec,) + spec_recs
 
 
 def serve_clients(srv, prompts, cfg, wait_s=600.0, tolerate=()):
@@ -3555,7 +3768,113 @@ def server_phase(torch, np, model, prompts, eng, gap_outs, gap_rec,
                     "first_split_from_serve": splits,
                     "split_top2_margins": margins,
                     "captures_after_warmup": 0}
-    return rec
+    return rec, outs
+
+
+def spec_server_phase(torch, np, model, prompts, eng, plain_outs, plain_rec,
+                      profile=False):
+    """Speculative decoding through the serving front on the 7B model, over
+    the Server legs' engine (reset, its graphs kept): ``Server(eng,
+    segment_steps=8, warmup=True, draft_k=SPEC["draft_k"], spec_mode=mode,
+    speculative=True)`` for mode "host" and "device", the 8 prompts from 8
+    client threads, 32 greedy tokens each (every request speculates by the
+    server's default). For each: TTFT and TPOT from the handles beside the
+    plain Server's, tokens per forward and the accepted share of the
+    drafts (``spec_stats``, this serve's), the first token where each
+    stream parts from the plain Server's with its top-2 margin (the phase
+    fails at a margin of NEAR_TIE or more), no capture after warmup, the
+    launches held against the path's and K4's launches per verify step
+    against layers x W. Random weights reject every n-gram draft, so both
+    modes run again with oracle drafts (the plain Server's streams,
+    :func:`oracle_drafts`): what a verify step costs when its drafts are
+    accepted. With ``profile``, the device-mode serves once more under
+    ``torch.profiler``. Returns the records of host, device, host with
+    oracle drafts and device with oracle drafts."""
+    from paddle_tpu_torch import GenerationConfig, ops
+    from paddle_tpu_torch.serving import Server
+
+    cfg = model.config
+    k = SPEC["draft_k"]
+    L, W, n_new = cfg.num_hidden_layers, k + 1, 32
+    gen = GenerationConfig(max_new_tokens=n_new)
+    recs = []
+    for mode, oracle in (("host", False), ("device", False), ("host", True),
+                         ("device", True)):
+        eng.reset_state()
+        restore = (oracle_drafts(np, eng, prompts, plain_outs) if oracle
+                   else (lambda: None))
+        t0 = time.perf_counter()
+        srv = Server(eng, segment_steps=8, warmup=True, draft_k=k,
+                     spec_mode=mode, speculative=True)
+        try:
+            if not srv.wait_ready(600) or srv.status != "ok":
+                raise AssertionError(f"spec server ({mode}) warmup: status "
+                                     f"{srv.status}")
+            warmup_s = time.perf_counter() - t0
+            n0 = (eng.prefills, eng.prefill_chunks, eng.decode_steps,
+                  eng.verify_steps)
+            st0 = eng.spec_stats()
+            seg0 = len(eng._segment_log)
+            (outs, handles), counts = counted_run(
+                torch, ops, eng, lambda: serve_clients(srv, prompts, gen))
+            n_pre, n_chunks, n_steps, n_verify = (a - b for a, b in zip(
+                (eng.prefills, eng.prefill_chunks, eng.decode_steps,
+                 eng.verify_steps), n0))
+            check_spec_launches(counts, L, W, n_pre, n_steps, n_verify,
+                                "paged_decode", f"spec server ({mode})",
+                                n_chunks=n_chunks)
+            k4_per_verify = ((counts["paged_decode"] - L * n_steps)
+                             / max(n_verify, 1))
+            if n_verify < 1 or k4_per_verify != L * W:
+                raise AssertionError(
+                    f"spec server ({mode}): {n_verify} verify steps, K4 "
+                    f"{k4_per_verify} launches a verify step, not "
+                    f"{L} x {W}")
+            st1 = eng.spec_stats()
+            d = {key: st1[key] - st0[key] for key in (
+                "proposed", "accepted", "forwards", "slot_steps",
+                "emitted", "host_syncs")}
+            rec = {"server": f"Server(eng, segment_steps=8, warmup=True, "
+                             f"draft_k={k}, spec_mode={mode!r}, "
+                             f"speculative=True)",
+                   "drafts": ("oracle: the plain Server's streams" if oracle
+                              else "n-gram prompt lookup"),
+                   "warmup_s": warmup_s,
+                   **handle_stats(handles, outs, cfg.vocab_size, n_new,
+                                  seg0, eng),
+                   "prefills": n_pre, "chunks": n_chunks,
+                   "decode_steps": n_steps, "verify_steps": n_verify,
+                   "launches": counts, "k4_launches_per_verify": k4_per_verify,
+                   "spec": d,
+                   "tokens_per_forward": d["emitted"] / max(d["slot_steps"],
+                                                            1),
+                   "accepted_share": d["accepted"] / max(d["proposed"], 1),
+                   "captures_after_warmup": 0,
+                   "plain_ttft_p50_s": plain_rec["ttft_p50_s"],
+                   "plain_tpot_p50_s": plain_rec["tpot_p50_s"]}
+            if profile and mode == "device":
+                rec["profile"] = profile_run(
+                    torch, lambda: serve_clients(srv, prompts, gen))
+        finally:
+            srv.shutdown(drain=False, timeout=120)
+            restore()
+        if srv.status != "stopped":
+            raise AssertionError(f"spec server did not stop: {srv.status}")
+        if oracle and d["accepted"] < 1:
+            raise AssertionError(f"spec server ({mode}): no oracle draft "
+                                 f"was accepted ({d})")
+        splits, margins = first_splits(torch, np, model, prompts, outs,
+                                       plain_outs)
+        for n, m in zip(splits, margins):
+            if m is not None and m >= NEAR_TIE:
+                raise AssertionError(
+                    f"spec server ({mode}): stream parts from the plain "
+                    f"Server's at token {n}, top-2 margin {m:.3g} >= "
+                    f"{NEAR_TIE}")
+        rec.update(first_split_from_plain=splits, split_top2_margins=margins)
+        recs.append(rec)
+    eng.draft_k = 0
+    return tuple(recs)
 
 
 def shared_prefix_prompts(np, vocab, n=8):
@@ -4595,11 +4914,12 @@ def main(argv=None) -> int:
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
-    sv, sq, gn, ds, sc, ss, sr, sp, sx = serve_phase(torch, dev, np,
-                                                     profile=args.profile)
+    (sv, sq, gn, ds, sc, ss, sr, *spec_recs,
+     sp, sx) = serve_phase(torch, dev, np, profile=args.profile)
+    spec_runs = dict(zip(SPEC_PATHS, spec_recs))
     record.update(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
                   serve_chunked=sc, serve_sampled=ss, server=sr,
-                  serve_prefix=sp, server_pressure=sx)
+                  serve_prefix=sp, server_pressure=sx, **spec_runs)
     record["phases"]["serve"] = time.perf_counter() - t
     for what, r in (("paged", sv), ("paged int8-pool", sq), ("dense", ds),
                     ("paged chunked (gap loop)", sc),
@@ -4627,6 +4947,20 @@ def main(argv=None) -> int:
         f"{sr['warmup_s']:.2f} s, captures after warmup 0; streams part "
         f"from the gap loop's at {sr['first_split_from_gap']} (of 32), "
         f"top-2 margins {sr['split_top2_margins']}  [{smi}]")
+    for r in spec_recs:
+        log(f"[serve] {r['server']}, {r['drafts']} drafts, "
+            f"{sr['clients']} client threads: TTFT "
+            f"p50 {r['ttft_p50_s'] * 1e3:.1f} ms (plain Server "
+            f"{r['plain_ttft_p50_s'] * 1e3:.1f}), TPOT p50 "
+            f"{r['tpot_p50_s'] * 1e3:.2f} ms (plain "
+            f"{r['plain_tpot_p50_s'] * 1e3:.2f}), decode "
+            f"{r['decode_tokens_per_s']:.1f} tok/s, tokens per forward "
+            f"{r['tokens_per_forward']:.3f}, accepted share "
+            f"{r['accepted_share']:.3f}, verify steps {r['verify_steps']}, "
+            f"K4 launches a verify step {r['k4_launches_per_verify']:.0f}; "
+            f"streams part from the plain Server's at "
+            f"{r['first_split_from_plain']} (of 32), top-2 margins "
+            f"{r['split_top2_margins']}  [{smi}]")
     hr, fr = sr["http"], sr["fault"]
     log(f"[serve] Server HTTP: /generate streamed == unstreamed (16 tokens), "
         f"/healthz ok, /metrics and /stats served; a second warmup "
@@ -4707,7 +5041,7 @@ def main(argv=None) -> int:
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
                 serve_chunked=sc, serve_sampled=ss, server=sr,
-                serve_prefix=sp, server_pressure=sx, train=tr,
+                serve_prefix=sp, server_pressure=sx, **spec_runs, train=tr,
                 fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),

@@ -121,3 +121,9 @@ class GraphCache:
         """Drop every graph (the tensors they hold were replaced); the next
         call of each key captures it again and counts once more."""
         self._graphs.clear()
+
+    def drop(self, which: Callable[[Hashable], bool]) -> None:
+        """Drop the graphs of the keys ``which`` selects (an engine knob
+        they depend on changed); the others are kept."""
+        for key in [k for k in self._graphs if which(k)]:
+            del self._graphs[key]

@@ -51,9 +51,23 @@ per engine label ``_monitor_engine``) and trace events (``engine.prefill``,
 ``engine.segment``), each behind the module's one enabled bool and none
 reading the device.
 
-Not ported yet: prefill capture, speculative decoding (ROADMAP A7, and
-with it the spec-draft counter), LoRA (A8, which salts the prefix hashes),
-the KV-page export and import (A10), tensor parallelism (A11).
+Speculative decoding (lossless n-gram prompt lookup, ``inference/ngram.py``):
+``CausalLMEngine.generate_speculative`` offline, and on the continuous
+engines a per-slot capability (``draft_k > 0`` and a request's
+``speculative`` opt-in): while a live request speculates, a segment runs
+verify steps of ``draft_k + 1`` tokens per row (the model's
+``forward_decode_spec`` / ``forward_decode_spec_paged``: K7 or K4 once per
+window position), in ``spec_mode="host"`` one captured step a verify with
+the host's proposers between them (key ``("spec_step", draft_k)``), in
+``"device"`` one captured program a segment proposing from per-slot
+history rings (key ``("spec_device", n_steps, draft_k, spec_draft)``);
+each has a sampled twin, in which a sampled row draws its one token a step.
+Every emitted token is the model's own pick; drafts decide only how many a
+forward yields. ``spec_stats()`` and the ``paddle_tpu_spec_draft_tokens_total``
+series count them.
+
+Not ported yet: prefill capture, LoRA (ROADMAP A8, which salts the prefix
+hashes), the KV-page export and import (A10), tensor parallelism (A11).
 """
 from __future__ import annotations
 
@@ -66,8 +80,9 @@ import torch
 
 from .. import monitor
 from .. import tracing as trace
-from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR
+from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR, quant_store_rows
 from ._graphs import GraphCache
+from .ngram import NgramProposer, propose_device
 from .paged_cache import (PageAllocator, copy_page, copy_page_q,
                           gather_pages, gather_pages_q, scatter_rows,
                           scatter_rows_q)
@@ -76,7 +91,8 @@ from .sampling import SlotSampling, sample_rows
 __all__ = ["GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
            "PagedContinuousBatchingEngine", "prefill_buckets_for",
            "RequestFault", "EngineFault", "REQUEST_SITES", "classify_fault",
-           "PagePoolExhausted", "ADMISSION_MODES"]
+           "PagePoolExhausted", "ADMISSION_MODES", "SPEC_MODES",
+           "SPEC_DRAFTS", "NgramProposer"]
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -123,6 +139,18 @@ REQUEST_SITES = frozenset({"admit", "prefill", "chunk"})
 
 # the paged engine's admission policies (the reference's)
 ADMISSION_MODES = ("reserved", "optimistic")
+
+# speculative decoding's execution modes: "host" proposes on the host and
+# reads acceptance back after every verify step; "device" runs propose,
+# verify and accept for a whole segment in one program (the per-slot
+# history ring is the draft source), read back once a segment
+SPEC_MODES = ("host", "device")
+
+# device mode's draft sources: "ngram" = the suffix-match lookup over the
+# slot's history ring (ngram.propose_device); "self" = the verify forward's
+# trailing greedy tokens as the next step's drafts (the ring still drafts
+# each segment's first step)
+SPEC_DRAFTS = ("ngram", "self")
 
 
 class PagePoolExhausted(RuntimeError):
@@ -252,19 +280,34 @@ def _is_int(x) -> bool:
     return not isinstance(x, bool) and isinstance(x, (int, np.integer))
 
 
+def _check_draft_k(draft_k) -> None:
+    if not _is_int(draft_k) or not 0 <= draft_k <= 256:
+        raise ValueError(f"draft_k must be an int in [0, 256] (0 disables "
+                         f"speculative decoding), got {draft_k!r}")
+
+
+def _check_choice(name: str, value, choices) -> None:
+    if value not in choices:
+        raise ValueError(f"{name} must be one of {choices}, got {value!r}")
+
+
 class GenerationConfig:
     """Per-request decoding parameters, validated at construction (a
     malformed config from the network must fail admission, never a shared
     decode segment), with the reference's checks value for value.
     ``do_sample=False`` decodes greedily; ``do_sample=True`` draws from
     softmax(logits / temperature) filtered to the top-k logits (0: all) and
-    then to the top-p mass, with the noise stream of ``seed``. The
-    reference's ``speculative``, ``draft_k`` and ``adapter`` are not
-    ported and are not accepted."""
+    then to the top-p mass, with the noise stream of ``seed``.
+    ``speculative=True`` opts a greedy request into speculative decoding on
+    an engine built with ``draft_k > 0`` (a sampled request decodes plain:
+    lossless acceptance needs the argmax target); ``draft_k`` caps this
+    request's draft window (None: the engine's). The reference's
+    ``adapter`` (LoRA, ROADMAP A8) is not ported and is not accepted."""
 
     def __init__(self, max_new_tokens: int = 64, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0, do_sample: bool = False,
-                 eos_token_id: Optional[int] = None, seed: int = 0):
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 speculative: bool = False, draft_k: Optional[int] = None):
         if not _is_int(max_new_tokens) or not (1 <= max_new_tokens
                                                <= _INT32_MAX):
             raise ValueError(f"max_new_tokens must be an int in [1, 2**31), "
@@ -287,6 +330,12 @@ class GenerationConfig:
                              f"None, got {eos_token_id!r}")
         if not _is_int(seed):
             raise ValueError(f"seed must be an int, got {seed!r}")
+        if draft_k is not None and (not _is_int(draft_k)
+                                    or not 1 <= draft_k <= 256):
+            # far above any useful window: an absurd value fails at
+            # admission, never captures an absurd program
+            raise ValueError(f"draft_k must be an int in [1, 256] or None "
+                             f"(engine default), got {draft_k!r}")
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -294,6 +343,8 @@ class GenerationConfig:
         self.do_sample = bool(do_sample)
         self.eos_token_id = None if eos_token_id is None else int(eos_token_id)
         self.seed = int(seed)
+        self.speculative = bool(speculative)
+        self.draft_k = None if draft_k is None else int(draft_k)
 
 
 class CausalLMEngine:
@@ -322,6 +373,9 @@ class CausalLMEngine:
         eng.warmup(batch=8)                  # optional: capture ahead
         out_ids = eng.generate(prompt_ids, GenerationConfig(max_new_tokens=64))
 
+    :meth:`generate_speculative` decodes one greedy prompt with n-gram
+    drafts verified in one forward each, eagerly.
+
     After each :meth:`generate`, ``generate_stats`` holds ``ttft_s`` (the
     call to the first tokens on the host), ``decode_s`` (the rest of the
     call) and ``decode_steps``; ``programs`` (a
@@ -343,6 +397,7 @@ class CausalLMEngine:
         self._caches = model.init_cache(mb, max_len)
         self._samp = SlotSampling(mb, dev)
         self._chunk_pos = torch.zeros((), dtype=torch.int32, device=dev)
+        self._spec_pos = torch.zeros((), dtype=torch.int32, device=dev)
         self._tok = torch.zeros(mb, dtype=torch.int32, device=dev)
         self._done = torch.zeros(mb, dtype=torch.bool, device=dev)
         self._eos = torch.full((), -1, dtype=torch.int32, device=dev)
@@ -459,7 +514,7 @@ class CausalLMEngine:
                 k.zero_()
                 v.zero_()
             for t in (self._tok, self._done, self._pos, self._hist,
-                      self._chunk_pos):
+                      self._chunk_pos, self._spec_pos):
                 t.zero_()
             self._eos.fill_(-1)
             self._samp.reset()
@@ -510,6 +565,108 @@ class CausalLMEngine:
                                "decode_s": time.perf_counter() - t1,
                                "decode_steps": n - 1}
         return np.concatenate([ids, gen], axis=1)
+
+    # -- speculative decoding -------------------------------------------------
+    def _verify(self, tokens, pos: int) -> torch.Tensor:
+        """One verify forward of ``tokens`` (a list, the window) at offset
+        ``pos`` into row 0 of the caches, the offset on the device; returns
+        the greedy token of every window position (int64, on the host).
+        A window of one token is the one-token step (K7), a wider one a
+        prefill chunk at an offset (K3's prefix-chunk instance)."""
+        self._spec_pos.fill_(pos)
+        logits, _ = self.model.forward_with_cache(
+            torch.tensor([tokens], dtype=torch.int32, device=self.device),
+            self._rows(1), self._spec_pos)
+        return logits[0].argmax(-1).cpu().numpy()
+
+    def generate_speculative(self, input_ids,
+                             config: Optional[GenerationConfig] = None,
+                             draft_k: int = 8,
+                             ngram_max: int = 3) -> np.ndarray:
+        """LOSSLESS n-gram (prompt lookup) speculative decoding of one
+        prompt: propose ``draft_k`` tokens by continuing the longest recent
+        suffix match found earlier in the context (``ngram.NgramProposer``),
+        verify all of them in ONE forward of ``draft_k + 1`` tokens at the
+        cache's offset, and accept the matched prefix plus the model's own
+        next token, so each forward yields 1 to ``draft_k + 1`` tokens.
+        Every emitted token is the model's greedy pick: the output is
+        :meth:`generate`'s greedy continuation wherever the wide verify
+        forward and the one-token step agree on the argmax (their matmuls
+        run at other M, so logits may differ in the last bits; a stream can
+        part only at a near-tie). Where fewer than ``draft_k + 1`` rows of
+        ``max_len`` remain, plain one-token steps finish the stream.
+
+        Greedy only, batch 1. Runs eagerly, one host read a verify step.
+        Rejected drafts leave stale cache rows past the accepted length;
+        the next verify overwrites them and every read is position masked.
+        ``last_spec_stats`` holds ``forwards`` (prefill included),
+        ``tokens``, ``accepted_draft_tokens`` and ``tokens_per_forward``.
+        Returns int32 [1, prompt_len + max_new_tokens]."""
+        cfg = config or GenerationConfig()
+        if cfg.do_sample:
+            raise ValueError(
+                "speculative decoding here is greedy-only (lossless "
+                "acceptance needs the argmax target); use generate() "
+                "for sampling")
+        if isinstance(input_ids, torch.Tensor):
+            input_ids = input_ids.detach().cpu().numpy()
+        ids = np.asarray(input_ids).astype(np.int32)
+        if ids.ndim == 1:
+            ids = ids[None]
+        b, plen = ids.shape
+        if b != 1:
+            raise ValueError("speculative decoding serves B=1 requests")
+        if plen + cfg.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt({plen}) + max_new_tokens({cfg.max_new_tokens}) "
+                f"exceeds engine max_len({self.max_len})")
+        eos = cfg.eos_token_id
+        with torch.no_grad():
+            out = [int(self._run_prefill(ids)[0].argmax())]
+            prop = NgramProposer([int(t) for t in ids[0]] + [out[0]],
+                                 draft_k, ngram_max)
+            pos = plen                  # tokens the cache holds
+            forwards, extra = 1, 0      # the prefill; tokens beyond 1/forward
+            while (len(out) < cfg.max_new_tokens
+                   and (eos is None or out[-1] != eos)
+                   and pos + 1 + draft_k <= self.max_len):
+                draft = prop.propose()
+                greedy = self._verify([out[-1]] + draft, pos)
+                forwards += 1
+                m = 0
+                while m < draft_k and int(greedy[m]) == draft[m]:
+                    m += 1
+                before = len(out)
+                for t in draft[:m] + [int(greedy[m])]:
+                    out.append(t)
+                    prop.extend([t])
+                    if (len(out) >= cfg.max_new_tokens
+                            or (eos is not None and t == eos)):
+                        break
+                extra += len(out) - before - 1
+                # the cache gained the window's first 1 + m rows; the last
+                # accepted token is the model's own pick, not yet cached
+                pos += 1 + m
+            # the tail: one-token steps where max_len has no room for a
+            # whole window
+            while (len(out) < cfg.max_new_tokens
+                   and (eos is None or out[-1] != eos)
+                   and pos + 1 <= self.max_len - 1):
+                out.append(int(self._verify([out[-1]], pos)[0]))
+                forwards += 1
+                prop.extend([out[-1]])
+                pos += 1
+        budget = max(cfg.max_new_tokens, 1)
+        if eos is not None and eos in out:
+            # generate() keeps a finished row on eos
+            i = out.index(eos)
+            out = out[:i + 1] + [eos] * (budget - i - 1)
+        out = out[:budget]
+        self.last_spec_stats = {"forwards": forwards, "tokens": len(out),
+                                "accepted_draft_tokens": extra,
+                                "tokens_per_forward":
+                                    len(out) / max(forwards, 1)}
+        return np.concatenate([ids, np.asarray([out], np.int32)], axis=1)
 
 
 class _ChunkedAdmission:
@@ -580,8 +737,17 @@ class ContinuousBatchingEngine:
         eng.warmup(segment_steps=8)          # optional: capture ahead
         outs = eng.serve(prompts, GenerationConfig(max_new_tokens=32))
 
-    Host-side counters: ``prefills``, ``prefill_chunks`` and
-    ``decode_steps`` count the model forwards run (warmup's included;
+    Speculative decoding (``draft_k > 0``, ``ngram_max``, ``spec_mode``,
+    ``spec_draft``, ``spec_history``; the first three and ``spec_draft``
+    settable on an idle engine, see :meth:`decode_segment`): a greedy
+    request with ``speculative=True`` keeps up to ``min(its draft_k,
+    draft_k) + 1`` tokens per verify forward, and its stream is the plain
+    greedy one wherever the verify forward and the one-token step agree on
+    the argmax. :meth:`spec_stats` holds the accounting.
+
+    Host-side counters: ``prefills``, ``prefill_chunks``,
+    ``decode_steps`` and ``verify_steps`` count the model forwards run
+    (warmup's included;
     ``warm_prefills`` counts the paged engine's prefix-cache hits among
     the prefills, whose tail runs at an offset);
     ``serve_stats`` holds the timings of the last :meth:`serve`;
@@ -591,17 +757,48 @@ class ContinuousBatchingEngine:
 
     def __init__(self, model, max_batch: int, max_len: int,
                  prefill_buckets="auto",
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 draft_k: int = 0, ngram_max: int = 3,
+                 spec_mode: str = "host", spec_draft: str = "ngram",
+                 spec_history: int = 128):
+        _check_draft_k(draft_k)
+        _check_choice("spec_mode", spec_mode, SPEC_MODES)
+        _check_choice("spec_draft", spec_draft, SPEC_DRAFTS)
+        if not _is_int(spec_history) or not 8 <= spec_history <= 65536:
+            raise ValueError(
+                f"spec_history must be an int in [8, 65536] (the device "
+                f"history-ring width), got {spec_history!r}")
+        if not _is_int(ngram_max) or ngram_max < 1:
+            raise ValueError(
+                f"ngram_max must be a positive int, got {ngram_max!r}")
         self.model = model
         self.device = model.device
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_buckets = prefill_buckets_for(prefill_buckets, max_len)
         self.prefill_chunk = _normalize_prefill_chunk(prefill_chunk, max_len)
+        # speculative decoding: the draft window (0: off), the n-gram
+        # length, the execution mode and device mode's draft source are
+        # idle-only knobs (the properties below); the history ring's width
+        # is fixed at construction
+        self._draft_k = int(draft_k)
+        self.ngram_max = int(ngram_max)
+        self._spec_mode = spec_mode
+        self._spec_draft = spec_draft
+        self.spec_history = int(spec_history)
+        self._spec: Dict[int, NgramProposer] = {}   # rid -> proposer
+        # engine-lifetime accounting (spec_stats): proposed and accepted
+        # draft tokens, verify forwards that served a live row, slot
+        # participations, tokens the spec segments emitted, and host mode's
+        # per-verify-step reads
+        self._spec_totals = {"proposed": 0, "accepted": 0, "forwards": 0,
+                             "slot_steps": 0, "emitted": 0, "host_syncs": 0}
+        self._spec_buf: Dict[tuple, torch.Tensor] = {}
         self.prefills = 0
         self.warm_prefills = 0
         self.prefill_chunks = 0
         self.decode_steps = 0
+        self.verify_steps = 0
         self.serve_stats: Optional[dict] = None
         self._segment_log: List[tuple] = []   # (seconds, tokens emitted)
         self.programs = GraphCache(self.device)
@@ -620,8 +817,12 @@ class ContinuousBatchingEngine:
     def _init_decode_state(self) -> None:
         """Allocate the device-side decode state, once: caches, per-slot
         length, last token, done and active flags, eos id (-1 = none), the
-        per-slot sampling vectors and the chunk offset; and the free
-        slots."""
+        per-slot sampling vectors, draft window (0: plain decode) and
+        token-history ring, and the chunk offset; and the free slots. The
+        ring holds each slot's LAST ``spec_history`` tokens of prompt and
+        output, left-aligned, ``hist_len`` of them valid (device mode's
+        draft source); it is allocated whatever the knobs, so switching
+        them on an idle engine needs no new state."""
         mb, dev = self.max_batch, self.device
         self.caches = self._make_caches()
         self.lens = torch.zeros(mb, dtype=torch.int32, device=dev)
@@ -630,8 +831,59 @@ class ContinuousBatchingEngine:
         self.active_dev = torch.zeros(mb, dtype=torch.bool, device=dev)
         self.eos = torch.full((mb,), -1, dtype=torch.int32, device=dev)
         self.samp = SlotSampling(mb, dev)
+        self.spec_k = torch.zeros(mb, dtype=torch.int32, device=dev)
+        self.hist = torch.zeros((mb, self.spec_history), dtype=torch.int32,
+                                device=dev)
+        self.hist_len = torch.zeros(mb, dtype=torch.int32, device=dev)
         self._chunk_pos = torch.zeros((), dtype=torch.int32, device=dev)
         self._free = list(range(mb))
+
+    # -- the speculative-decoding knobs (idle-only) ---------------------------
+    @property
+    def draft_k(self) -> int:
+        """The engine's draft window (0: speculative decoding off): the
+        verify step's width is ``draft_k + 1``. Set on an idle engine only;
+        a change drops the captured programs that depend on it."""
+        return self._draft_k
+
+    @draft_k.setter
+    def draft_k(self, value: int) -> None:
+        _check_draft_k(value)
+        self._set_spec_knob("_draft_k", int(value))
+
+    @property
+    def spec_mode(self) -> str:
+        """``"host"`` or ``"device"`` (:data:`SPEC_MODES`); idle-only."""
+        return self._spec_mode
+
+    @spec_mode.setter
+    def spec_mode(self, value: str) -> None:
+        _check_choice("spec_mode", value, SPEC_MODES)
+        self._set_spec_knob("_spec_mode", value)
+
+    @property
+    def spec_draft(self) -> str:
+        """Device mode's draft source, ``"ngram"`` or ``"self"``
+        (:data:`SPEC_DRAFTS`); idle-only."""
+        return self._spec_draft
+
+    @spec_draft.setter
+    def spec_draft(self, value: str) -> None:
+        _check_choice("spec_draft", value, SPEC_DRAFTS)
+        self._set_spec_knob("_spec_draft", value)
+
+    def _set_spec_knob(self, name: str, value) -> None:
+        if getattr(self, name) == value:
+            return
+        if self._slot_req:
+            raise RuntimeError(f"{name[1:]} can only be changed on an idle "
+                               f"engine")
+        setattr(self, name, value)
+        # the spec programs captured under the old value go with their
+        # scratch (their keys name the value, so nothing would replay them)
+        self.programs.drop(lambda key: key[0] in ("spec_step",
+                                                  "spec_device"))
+        self._spec_buf.clear()
 
     def reset_state(self) -> None:
         """Drop every request and reset the decode state to its initial
@@ -641,7 +893,8 @@ class ContinuousBatchingEngine:
         objects no longer hold a claim (admit_chunk on one is undefined).
         Captured graphs hold these tensors' addresses, so nothing is
         reallocated and the graphs are kept: a restart costs no capture.
-        Request ids are not reused: ``_next_req`` carries on."""
+        Request ids are not reused: ``_next_req`` carries on, and
+        ``spec_stats()`` keeps its engine-lifetime totals."""
         with torch.no_grad():
             for entry in self.caches:
                 for t in entry[:2]:
@@ -649,7 +902,8 @@ class ContinuousBatchingEngine:
                 for t in entry[2:]:
                     t.fill_(KV_SCALE_FLOOR)
             for t in (self.lens, self.last, self.done_dev, self.active_dev,
-                      self._chunk_pos):
+                      self._chunk_pos, self.spec_k, self.hist,
+                      self.hist_len):
                 t.zero_()
             self.eos.fill_(-1)
             self.samp.reset()
@@ -658,6 +912,7 @@ class ContinuousBatchingEngine:
         self._tokens.clear()
         self._budget.clear()
         self._cfg.clear()
+        self._spec.clear()         # the proposers die with their slots
         self._finished.clear()
         if monitor.enabled():
             self._requests_counter().labels(event="engine_reset").inc()
@@ -747,11 +1002,12 @@ class ContinuousBatchingEngine:
             self._next_req += 1
             last_logits = self._admit_cache(slot, ids, plen, cfg)
             first, tok_done = self._sample_first(slot, plen, last_logits, cfg)
-            self._install_state(slot, plen, first, tok_done, cfg)
+            self._install_state(slot, plen, first, tok_done, cfg, ids)
         except BaseException:
             # a failed admission must not leak the slot (or its pages)
             self._abort_admit(slot)
             raise
+        self._init_spec(rid, ids, first, cfg)
         return self._register(slot, rid, first, tok_done, cfg, t0)
 
     def _check_admit(self, prompt_ids, cfg):
@@ -851,7 +1107,8 @@ class ContinuousBatchingEngine:
             self._install_mini(adm.slot, adm.mini, adm.plen)
             first, tok_done = self._sample_first(adm.slot, adm.plen,
                                                  adm.last_logits, adm.cfg)
-            self._install_state(adm.slot, adm.plen, first, tok_done, adm.cfg)
+            self._install_state(adm.slot, adm.plen, first, tok_done, adm.cfg,
+                                adm.ids)
         except BaseException:
             adm.closed = True
             adm.mini = None
@@ -859,6 +1116,7 @@ class ContinuousBatchingEngine:
             raise
         adm.closed = True
         adm.mini = None     # the slab goes back to the allocator
+        self._init_spec(adm.rid, adm.ids, first, adm.cfg)
         self._register(adm.slot, adm.rid, first, tok_done, adm.cfg, adm.t0)
         return True
 
@@ -890,12 +1148,58 @@ class ContinuousBatchingEngine:
         return first, tok_done
 
     def _install_state(self, slot: int, plen: int, first, tok_done,
-                       cfg) -> None:
+                       cfg, ids=None) -> None:
+        """The slot's device state for a new request: length, first token,
+        flags, eos, draft window and history ring. ``ids`` (the prompt,
+        when the caller has it) seeds the ring with the prompt's last
+        ``spec_history - 1`` tokens and the first token; a replayed request
+        admits ``prompt + generated``, so its ring is rebuilt as its host
+        proposer's context is."""
         self.lens[slot] = plen
         self.last[slot] = first
         self.done_dev[slot] = tok_done
         self.active_dev[slot] = True
         self.eos[slot] = -1 if cfg.eos_token_id is None else cfg.eos_token_id
+        self.spec_k[slot] = self._spec_k_for(cfg)
+        H = self.spec_history
+        hrow = np.zeros(H, np.int32)
+        hlen = 0
+        if ids is not None:
+            tail = np.asarray(ids, np.int32).reshape(-1)[-(H - 1):]
+            hrow[:len(tail)] = tail
+            hlen = len(tail) + 1
+        self.hist[slot].copy_(torch.from_numpy(hrow))
+        if hlen:
+            self.hist[slot, hlen - 1] = first
+        self.hist_len[slot] = hlen
+
+    def _init_spec(self, rid: int, ids, first, cfg) -> None:
+        """The request's host n-gram proposer (speculating requests only),
+        seeded with the prompt and the first token. A replayed request
+        admits ``prompt + generated`` as its prompt, so its proposer is
+        rebuilt from the whole context (the index is a function of it).
+        Runs before ``_register``, so a request retired at once has its
+        proposer popped by ``_retire``."""
+        k = self._spec_k_for(cfg)
+        if k > 0:
+            self._spec[rid] = NgramProposer(
+                [int(t) for t in np.asarray(ids).reshape(-1)] + [int(first)],
+                k, self.ngram_max)
+
+    def _spec_k_for(self, cfg) -> int:
+        """The draft window of a request under ``cfg`` (0: plain decode):
+        it needs an engine with ``draft_k > 0``, a ``speculative`` opt-in
+        and a greedy request. The request's own ``draft_k`` caps the
+        engine's, never widens it (the verify width is the engine's)."""
+        if not self.draft_k or not cfg.speculative or cfg.do_sample:
+            return 0
+        return (self.draft_k if cfg.draft_k is None
+                else min(cfg.draft_k, self.draft_k))
+
+    def _spec_k_of(self, rid: int) -> int:
+        """The draft window of an ACTIVE request (0: plain)."""
+        prop = self._spec.get(rid)
+        return 0 if prop is None else prop.k
 
     def _register(self, slot: int, rid: int, first, tok_done, cfg,
                   t0: float) -> int:
@@ -961,6 +1265,7 @@ class ContinuousBatchingEngine:
         self._finished[rid] = np.asarray(self._tokens.pop(rid), np.int32)
         del self._budget[rid]
         self._cfg.pop(rid, None)
+        self._spec.pop(rid, None)
         self.active_dev[slot] = False
         heapq.heappush(self._free, slot)   # lowest free slot admits first
         if monitor.enabled():
@@ -1018,6 +1323,16 @@ class ContinuousBatchingEngine:
             "(admission first-token + decode segments)")
 
     @staticmethod
+    def _spec_tokens_counter():
+        return monitor.counter(
+            "paddle_tpu_spec_draft_tokens_total",
+            "speculative-decode draft tokens by engine and outcome "
+            "(proposed = host n-gram drafts sent to verification; "
+            "accepted = drafts the model's own greedy continuation "
+            "confirmed — acceptance rate is accepted/proposed)",
+            ("engine", "outcome"))
+
+    @staticmethod
     def _tokens_per_sec_gauge():
         return monitor.gauge(
             "paddle_tpu_decode_tokens_per_sec",
@@ -1030,7 +1345,8 @@ class ContinuousBatchingEngine:
         self._tokens_per_sec_gauge().remove(engine=self._monitor_engine)
         for name in ("paddle_tpu_prefill_requests_total",
                      "paddle_tpu_prefill_chunks_total",
-                     "paddle_tpu_prefill_warmup_seconds"):
+                     "paddle_tpu_prefill_warmup_seconds",
+                     "paddle_tpu_spec_draft_tokens_total"):
             monitor.remove_series(name, engine=self._monitor_engine)
         alloc = getattr(self, "alloc", None)
         if alloc is not None:
@@ -1081,23 +1397,422 @@ class ContinuousBatchingEngine:
             out = self._seg_out[n_steps] = torch.zeros(
                 (self.max_batch, n_steps + 1), dtype=torch.int32,
                 device=self.device)
+        self._prepare_segment()
         with torch.no_grad():
             self.programs.run(self._segment_key(n_steps, sampled),
                               lambda: self._segment(n_steps, out, sampled))
         return out
 
+    def _prepare_segment(self) -> None:
+        """What the gap owes the device before a decode program runs
+        (nothing here; the paged engine floors fresh pages' scales and
+        refreshes the device page table)."""
+
+    def _any_sampled(self) -> bool:
+        return any(self._cfg[rid].do_sample
+                   for rid in self._slot_req.values())
+
+    def _publish_segment(self, t0: float, emitted: int) -> float:
+        """The segment log and the tokens series, after a segment that
+        emitted ``emitted`` tokens; returns its seconds."""
+        dt = time.perf_counter() - t0
+        self._segment_log.append((dt, emitted))
+        if monitor.enabled():
+            self._tokens_counter().inc(emitted)
+            self._tokens_per_sec_gauge().labels(
+                engine=self._monitor_engine).set(
+                emitted / dt if dt > 0 else 0.0)
+        return dt
+
+    # -- speculative decoding (a per-slot capability) -------------------------
+    def _fwd_spec(self, inp, lens, live):
+        """The W-token verify forward at per-row offsets (cache layout
+        hook; the paged engine reads and writes its pools): (logits [B, W,
+        V], aux), aux None here, since a dense cache stores exact values and
+        a rejected row is plain garbage a later write replaces."""
+        logits, _ = self.model.forward_decode_spec(inp, self.caches, lens,
+                                                   live)
+        return logits, None
+
+    def _commit_spec_rows(self, aux, n_acc) -> None:
+        """After acceptance, on int8 pools: restore each layer's
+        pre-window snapshot (the touched pages and both scale tables) and
+        REPLAY only the accepted rows (``i < n_acc[b]``) one window
+        position at a time through the running-absmax store, so the pools
+        and scales are byte for byte what one-token steps storing the
+        accepted tokens would leave (the same scale growths, the same
+        re-quantizations): a rejected draft's absmax never stays in a
+        page's monotonic scale. Every write is in place; a row past
+        ``n_acc`` is aimed at the sink page. Nothing to do without aux."""
+        if aux is None or not any(a is not None for a in aux):
+            return
+        for (kp, vp, ks, vs), (snap_k, snap_v, snap_ks, snap_vs, kh, vh,
+                               page, offs) in zip(self.caches, aux):
+            flat = page.reshape(-1)
+            # duplicate pages in the snapshot hold the same pre-store
+            # bytes, so their copies back agree
+            kp.index_copy_(0, flat, snap_k)
+            vp.index_copy_(0, flat, snap_v)
+            ks.copy_(snap_ks)
+            vs.copy_(snap_vs)
+            sink = kp.shape[0] - 1
+            for i in range(page.shape[1]):
+                pg = torch.where(i < n_acc, page[:, i],
+                                 torch.full_like(page[:, i], sink))
+                quant_store_rows(kp, ks, pg, offs[:, i], kh[:, i])
+                quant_store_rows(vp, vs, pg, offs[:, i], vh[:, i])
+
+    def _accept(self, logits, drafts, lens, live, lim, sampled: bool):
+        """Acceptance of one verify step: the window's tokens [B, W] (the
+        model's own picks: position 0 greedy, or drawn for a sampled row at
+        position ``lens + 1``, the rest greedy) and how many of them each
+        row keeps, ``n_acc`` [B] int32: the leading draft/greedy matches
+        capped at the row's ``spec_k`` (0 for plain and sampled rows: one
+        token), plus one, capped by ``lim - lens`` (the row's absolute
+        limit: budget, page coverage, max_len, so every kept token has its
+        K/V written), and 0 for a dead row. Masks only, so one program
+        serves every acceptance pattern."""
+        k = drafts.shape[1]
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)     # [B, W]
+        g0 = (sample_rows(logits[:, 0], self.samp, lens + 1) if sampled
+              else greedy[:, 0])
+        toks = torch.cat([g0[:, None], greedy[:, 1:]], dim=1)
+        iw = torch.arange(k, device=lens.device)[None]
+        match = (drafts == greedy[:, :k]) & (iw < self.spec_k[:, None])
+        m = torch.cumprod(match.to(torch.int32), dim=1).sum(1)
+        n_acc = torch.minimum(m + 1, (lim - lens).clamp(min=0))
+        n_acc = torch.where(live, n_acc, torch.zeros_like(n_acc))
+        return toks, n_acc.to(torch.int32)
+
+    @staticmethod
+    def _advance(toks, n_acc, last):
+        """Each row's new last token: its last accepted one (``last`` where
+        it accepted none)."""
+        at = (n_acc.long() - 1).clamp(min=0)[:, None]
+        return torch.where(n_acc > 0, toks.gather(1, at)[:, 0], last)
+
+    def _spec_scratch(self, name: str, shape, dtype) -> torch.Tensor:
+        """A buffer of the spec programs, allocated once per (name, shape)
+        and written in place (a captured program holds its address)."""
+        key = (name, tuple(shape))
+        buf = self._spec_buf.get(key)
+        if buf is None:
+            buf = self._spec_buf[key] = torch.zeros(
+                shape, dtype=dtype, device=self.device)
+        return buf
+
+    @staticmethod
+    def _spec_key(k: int, sampled: bool):
+        return ("spec_step", k, "sampled") if sampled else ("spec_step", k)
+
+    def _spec_device_key(self, n_steps: int, sampled: bool):
+        key = ("spec_device", n_steps, self.draft_k, self.spec_draft)
+        return key + ("sampled",) if sampled else key
+
+    def _spec_step(self, sampled: bool) -> None:
+        """One host-mode verify step over every slot (the program of key
+        ``("spec_step", draft_k)``, or its sampled twin): each row's window
+        ``[last, drafts]`` at its own offset, acceptance, the int8 commit,
+        then ``last`` and ``lens`` advanced in place. Reads the drafts,
+        liveness and limits the host wrote into its input buffers; writes
+        the window's tokens and ``n_acc`` into its output buffer [B, W +
+        1], the step's one read."""
+        mb, k = self.max_batch, self.draft_k
+        drafts = self._spec_scratch("drafts", (mb, k), torch.int32)
+        live_in = self._spec_scratch("live", (mb,), torch.bool)
+        lim = self._spec_scratch("lim", (mb,), torch.int32)
+        out = self._spec_scratch("step_out", (mb, k + 2), torch.int32)
+        last, lens = self.last, self.lens
+        live = live_in & self.active_dev & (lens < self.max_len)
+        logits, aux = self._fwd_spec(torch.cat([last[:, None], drafts], 1),
+                                     lens, live)
+        toks, n_acc = self._accept(logits, drafts, lens, live, lim, sampled)
+        self._commit_spec_rows(aux, n_acc)
+        out[:, :k + 1] = toks
+        out[:, k + 1] = n_acc
+        last.copy_(self._advance(toks, n_acc, last))
+        lens.add_(n_acc)
+
+    def _run_spec_step(self, sampled: bool) -> torch.Tensor:
+        with torch.no_grad():
+            self.programs.run(self._spec_key(self.draft_k, sampled),
+                              lambda: self._spec_step(sampled))
+        self.verify_steps += 1
+        return self._spec_scratch("step_out",
+                                  (self.max_batch, self.draft_k + 2),
+                                  torch.int32)
+
+    def _spec_segment(self, n_steps: int, sampled: bool) -> None:
+        """``n_steps`` device-mode verify steps in one program (key
+        ``("spec_device", n_steps, draft_k, spec_draft)``, or its sampled
+        twin): propose from the history ring (``spec_draft="ngram"``; with
+        ``"self"`` the ring drafts the first step and each later step
+        drafts the previous verify's greedy tokens past the accepted
+        prefix), verify, accept, truncate at the first accepted eos,
+        commit, append the accepted tokens to the ring, all as masks and
+        gathers, with the budget and coverage caps read from the buffers
+        the host filled (``bud``, ``cov``: page growth happens only in the
+        gap, so coverage is fixed over a segment). Writes per step the
+        window's tokens, ``n_acc`` and liveness, and at the end the done
+        flags, into one output buffer [n_steps + 1, B, W + 2]: the
+        segment's one read."""
+        mb, k, H = self.max_batch, self.draft_k, self.spec_history
+        W, n_max = k + 1, self.ngram_max
+        dev = self.device
+        bud = self._spec_scratch("bud", (mb,), torch.int32)
+        cov = self._spec_scratch("cov", (mb,), torch.int32)
+        out = self._spec_scratch(f"seg_out_{n_steps}", (n_steps + 1, mb,
+                                                        W + 2), torch.int32)
+        self_draft = self.spec_draft == "self"
+        last, lens, done = self.last, self.lens, self.done_dev
+        hist, hl = self.hist, self.hist_len
+        iw = torch.arange(k, device=dev)[None]
+        jw = torch.arange(W, device=dev)[None]
+        jh = torch.arange(H, device=dev)[None]
+        emitted = torch.zeros_like(lens)
+        drafts = (propose_device(hist, hl, k, n_max) if self_draft
+                  else torch.zeros((mb, k), dtype=torch.int32, device=dev))
+        for s in range(n_steps):
+            live = (self.active_dev & ~done & (lens < self.max_len)
+                    & (emitted < bud))
+            if not self_draft:
+                drafts = propose_device(hist, hl, k, n_max)
+            logits, aux = self._fwd_spec(
+                torch.cat([last[:, None], drafts], 1), lens, live)
+            lim = torch.minimum(lens + (bud - emitted).clamp(min=0), cov)
+            toks, n_acc = self._accept(logits, drafts, lens, live, lim,
+                                       sampled)
+            # eos inside the accepted window: keep up to the FIRST one and
+            # freeze the row
+            hit = ((self.eos[:, None] >= 0) & (toks == self.eos[:, None])
+                   & (jw < n_acc[:, None]))
+            any_hit = hit.any(dim=1)
+            first_hit = torch.argmax(hit.to(torch.int32), dim=1) + 1
+            n_acc = torch.where(any_hit, first_hit.to(torch.int32), n_acc)
+            done = done | any_hit
+            self._commit_spec_rows(aux, n_acc)
+            last = self._advance(toks, n_acc, last)
+            lens = lens + n_acc
+            done = done | (lens >= self.max_len)
+            emitted = emitted + n_acc
+            # the ring takes each row's n_acc tokens at hl: a scatter into
+            # a widened row (a rejected column lands on the sink column H +
+            # W), then a per-row shift keeps the last H
+            cols = torch.where(jw < n_acc[:, None], hl[:, None].long() + jw,
+                               torch.full_like(jw, H + W))
+            ext = torch.cat([hist, torch.zeros((mb, W + 1), dtype=hist.dtype,
+                                               device=dev)], dim=1)
+            ext.scatter_(1, cols, toks)
+            shift = (hl + n_acc - H).clamp(min=0)
+            hist = ext.gather(1, jh + shift[:, None].long())
+            hl = torch.minimum(hl + n_acc, torch.full_like(hl, H))
+            if self_draft:
+                nxt = toks.gather(1, (n_acc[:, None].long() + iw).clamp(0, k))
+                drafts = torch.where(live[:, None], nxt, drafts)
+            out[s, :, :W] = toks
+            out[s, :, W] = n_acc
+            out[s, :, W + 1] = live.to(torch.int32)
+        out[n_steps] = 0
+        out[n_steps, :, 0] = done.to(torch.int32)
+        for dst, src in ((self.last, last), (self.lens, lens),
+                         (self.done_dev, done), (self.hist, hist),
+                         (self.hist_len, hl)):
+            dst.copy_(src)
+
+    def _decode_segment_spec(self, n_steps: int) -> int:
+        """A host-mode speculative segment: up to ``n_steps`` replays of
+        the verify step, the host between them proposing each speculating
+        slot's drafts from its proposer, reading acceptance back (one read a
+        step, ``spec_stats()["host_syncs"]``) and cutting at the budget and
+        at eos as the plain collection does. Plain and sampled slots ride
+        along at one token a step, so a mixed batch runs one program."""
+        t0 = time.perf_counter()
+        k, mb = self.draft_k, self.max_batch
+        sampled = self._any_sampled()
+        self._prepare_segment()
+        # one read of (lens, done) a segment; lens is then tracked here
+        both = torch.stack([self.lens, self.done_dev.to(torch.int32)])
+        lens_h, done_h = both.cpu().numpy()
+        lens_h = lens_h.astype(np.int64)
+        emitted = {rid: [] for rid in self._slot_req.values()}
+        finished = set()
+        forwards = proposed = accepted = slot_steps = 0
+        bufs = [self._spec_scratch(n, shape, dt) for n, shape, dt in (
+            ("drafts", (mb, k), torch.int32), ("live", (mb,), torch.bool),
+            ("lim", (mb,), torch.int32))]
+        for _ in range(n_steps):
+            drafts = np.zeros((mb, k), np.int32)
+            live = np.zeros(mb, bool)
+            lim = np.zeros(mb, np.int32)
+            for slot, rid in self._slot_req.items():
+                if rid in finished or done_h[slot]:
+                    continue
+                rem = self._budget[rid] - len(emitted[rid])
+                if rem <= 0 or lens_h[slot] >= self.max_len:
+                    continue
+                live[slot] = True
+                lim[slot] = min(lens_h[slot] + rem,
+                                self._coverage_limit(slot), self.max_len)
+                prop = self._spec.get(rid)
+                if prop is not None:
+                    d = prop.propose()
+                    drafts[slot, :len(d)] = d
+                    proposed += prop.k
+            if not live.any():
+                break
+            slot_steps += int(live.sum())
+            for buf, a in zip(bufs, (drafts, live, lim)):
+                buf.copy_(torch.from_numpy(a))
+            host = self._run_spec_step(sampled).cpu().numpy()
+            forwards += 1
+            for slot, rid in self._slot_req.items():
+                if not live[slot]:
+                    continue
+                na = int(host[slot, k + 1])
+                lens_h[slot] += na
+                seq = host[slot, :na].tolist()
+                eos = self._cfg[rid].eos_token_id
+                if eos is not None and eos in seq:
+                    # eos inside the accepted window: cut there and finish
+                    # (the device rows past it die with the slot)
+                    seq = seq[:seq.index(eos) + 1]
+                    finished.add(rid)
+                emitted[rid].extend(seq)
+                prop = self._spec.get(rid)
+                if prop is not None:
+                    prop.extend(seq)
+                    acc = max(len(seq) - 1, 0)
+                    prop.accepted += acc
+                    accepted += acc
+        total = 0
+        for slot, rid in list(self._slot_req.items()):
+            seq = emitted.get(rid, [])
+            self._tokens[rid].extend(seq)
+            self._budget[rid] -= len(seq)
+            total += len(seq)
+            if self._budget[rid] <= 0 or rid in finished or done_h[slot]:
+                self._retire(slot)
+        self._close_spec_segment(t0, "host", n_steps, forwards, proposed,
+                                 accepted, slot_steps, total, forwards)
+        return len(self._slot_req)
+
+    def _decode_segment_spec_device(self, n_steps: int) -> int:
+        """A device-mode speculative segment: ONE replay of the segment's
+        program, then ONE read of its packed output (no per-step host
+        read: ``host_syncs`` stays 0). The budget and coverage caps go to
+        the device as two vectors from host bookkeeping, and the
+        segment's accounting is derived from the packed per-step tallies,
+        so ``emitted == slot_steps + accepted`` holds in both modes."""
+        t0 = time.perf_counter()
+        mb, W = self.max_batch, self.draft_k + 1
+        sampled = self._any_sampled()
+        self._prepare_segment()
+        bud = np.zeros(mb, np.int32)
+        cov = np.zeros(mb, np.int32)
+        for slot, rid in self._slot_req.items():
+            bud[slot] = max(self._budget[rid], 0)
+            cov[slot] = min(self._coverage_limit(slot), self.max_len)
+        for name, a in (("bud", bud), ("cov", cov)):
+            self._spec_scratch(name, (mb,), torch.int32).copy_(
+                torch.from_numpy(a))
+        with torch.no_grad():
+            self.programs.run(self._spec_device_key(n_steps, sampled),
+                              lambda: self._spec_segment(n_steps, sampled))
+        self.verify_steps += n_steps
+        seg = self._spec_scratch(f"seg_out_{n_steps}", (n_steps + 1, mb,
+                                                        W + 2), torch.int32)
+        seg = seg.cpu().numpy()             # the segment's one read
+        done_h = seg[-1, :, 0].astype(bool)
+        total = proposed = accepted = slot_steps = 0
+        steps_live = np.zeros(n_steps, bool)
+        for slot, rid in list(self._slot_req.items()):
+            live_s = seg[:n_steps, slot, W + 1].astype(bool)
+            sk = self._spec_k_of(rid)
+            seq = []
+            for s in np.flatnonzero(live_s):
+                steps_live[s] = True
+                slot_steps += 1
+                proposed += sk
+                na = int(seg[s, slot, W])
+                seq.extend(int(t) for t in seg[s, slot, :na])
+                accepted += max(na - 1, 0)
+            self._tokens[rid].extend(seq)
+            self._budget[rid] -= len(seq)
+            total += len(seq)
+            if self._budget[rid] <= 0 or done_h[slot]:
+                self._retire(slot)
+        # forwards: verify steps that served a live row (the trailing
+        # all-dead steps of the program are masked no-ops)
+        self._close_spec_segment(t0, "device", n_steps,
+                                 int(steps_live.sum()), proposed, accepted,
+                                 slot_steps, total, 0)
+        return len(self._slot_req)
+
+    def _close_spec_segment(self, t0, mode, n_steps, forwards, proposed,
+                            accepted, slot_steps, total, host_syncs) -> None:
+        """A spec segment's accounting, series and trace event."""
+        for key, n in (("proposed", proposed), ("accepted", accepted),
+                       ("forwards", forwards), ("slot_steps", slot_steps),
+                       ("emitted", total), ("host_syncs", host_syncs)):
+            self._spec_totals[key] += n
+        dt = self._publish_segment(t0, total)
+        if monitor.enabled() and proposed:
+            c = self._spec_tokens_counter()
+            c.labels(engine=self._monitor_engine,
+                     outcome="proposed").inc(proposed)
+            # inc(0) still creates the series: the rate stays derivable
+            c.labels(engine=self._monitor_engine,
+                     outcome="accepted").inc(accepted)
+        if trace.enabled():
+            trace.record("engine.spec_segment", dur_ns=int(dt * 1e9),
+                         engine=self._monitor_engine, mode=mode,
+                         steps=n_steps, forwards=forwards, proposed=proposed,
+                         accepted=accepted, emitted=total,
+                         host_syncs=host_syncs)
+
+    def spec_stats(self) -> dict:
+        """Engine-lifetime speculative-decoding accounting, host-side:
+        ``proposed`` / ``accepted`` draft tokens, verify ``forwards``,
+        ``slot_steps`` (slot participations), ``emitted`` (the spec
+        segments' tokens; ``emitted == slot_steps + accepted``),
+        ``host_syncs`` (host mode's one read a verify step; 0 in device
+        mode), and the derived ``acceptance_rate``, ``tokens_per_forward``
+        (per slot: ``emitted / slot_steps``, 1.0 is the plain cadence) and
+        ``host_syncs_per_token``. ``reset_state()`` keeps them."""
+        t = dict(self._spec_totals)
+        t["acceptance_rate"] = (t["accepted"] / t["proposed"]
+                                if t["proposed"] else 0.0)
+        t["tokens_per_forward"] = (t["emitted"] / t["slot_steps"]
+                                   if t["slot_steps"] else 0.0)
+        t["host_syncs_per_token"] = (t["host_syncs"] / t["emitted"]
+                                     if t["emitted"] else 0.0)
+        return t
+
+    def _coverage_limit(self, slot: int) -> int:
+        """The absolute position up to which ``slot``'s cache writes land
+        (a dense slab: all of it; the paged engine: the mapped pages): the
+        spec step's acceptance cap, so a window past the coverage keeps
+        fewer tokens, never tokens whose K/V was dropped."""
+        return self.max_len
+
     def decode_segment(self, n_steps: int) -> int:
         """Run ``n_steps`` decode steps over every slot, collect each
         request's tokens and retire finished requests. Each request decodes
         under its own config; the sampled program runs only when a live
-        request samples. Returns the number of requests still active."""
+        request samples. While a live request speculates, the whole batch
+        rides the spec programs instead (plain and sampled rows at one
+        token a step): ``n_steps`` verify steps, fused into one program in
+        ``spec_mode="device"``. Returns the number of requests still
+        active."""
         if not self._slot_req:
             return 0
+        if self._spec:
+            if self.spec_mode == "device":
+                return self._decode_segment_spec_device(n_steps)
+            return self._decode_segment_spec(n_steps)
         n_live = len(self._slot_req)
         t0 = time.perf_counter()
-        sampled = any(self._cfg[rid].do_sample
-                      for rid in self._slot_req.values())
-        out = self._run_segment(n_steps, sampled)
+        out = self._run_segment(n_steps, self._any_sampled())
         self.decode_steps += n_steps
         host = out.cpu().numpy()     # the segment's one device -> host read
         toks_h, done_h = host[:, :n_steps], host[:, n_steps].astype(bool)
@@ -1113,13 +1828,7 @@ class ContinuousBatchingEngine:
             emitted += len(seq)
             if self._budget[rid] <= 0 or done_h[slot] or len(seq) < take:
                 self._retire(slot)
-        dt = time.perf_counter() - t0
-        self._segment_log.append((dt, emitted))
-        if monitor.enabled():
-            self._tokens_counter().inc(emitted)
-            self._tokens_per_sec_gauge().labels(
-                engine=self._monitor_engine).set(
-                emitted / dt if dt > 0 else 0.0)
+        dt = self._publish_segment(t0, emitted)
         if trace.enabled():
             trace.record("engine.segment", dur_ns=int(dt * 1e9),
                          engine=self._monitor_engine, steps=n_steps,
@@ -1130,12 +1839,14 @@ class ContinuousBatchingEngine:
         """Run every program a request can reach ahead of the requests, on
         an idle engine: the slot-state install; when ``segment_steps`` is
         given, the segment of that length, greedy and sampled, each
-        captured (with every slot inactive it changes nothing); one prefill
-        per bucket and, with ``prefill_chunk``, one chunk (cuBLAS's and the
-        kernels' first use at each width; prefill is not captured). A serve
-        with that segment length then captures nothing, whatever its
-        configs. Returns ``{program: seconds}``. Raises RuntimeError on a
-        busy engine."""
+        captured (with every slot inactive it changes nothing); the
+        speculative programs the knobs select (``draft_k > 0``: host mode's
+        verify step, or device mode's segment of ``segment_steps``, greedy
+        and sampled); one prefill per bucket and, with ``prefill_chunk``,
+        one chunk (cuBLAS's and the kernels' first use at each width;
+        prefill is not captured). A serve with that segment length then
+        captures nothing, whatever its configs. Returns ``{program:
+        seconds}``. Raises RuntimeError on a busy engine."""
         if self._slot_req:
             raise RuntimeError("warmup() needs an idle engine")
         t_all = time.perf_counter()
@@ -1146,15 +1857,36 @@ class ContinuousBatchingEngine:
                             False, GenerationConfig(max_new_tokens=1))
         self.active_dev[0] = False
         out["admit_state"] = time.perf_counter() - t0
-        if segment_steps is not None:
-            # the captures first: they empty PyTorch's allocator cache,
-            # which the prefills then fill for the requests to reuse
-            for sampled in (False, True):
+        # the captures first: they empty PyTorch's allocator cache, which
+        # the prefills then fill for the requests to reuse
+        for sampled in (False, True):
+            tag = "_sampled" if sampled else ""
+            if segment_steps is not None:
                 t0 = time.perf_counter()
                 self._run_segment(segment_steps, sampled)
-                name = f"segment_{segment_steps}" + ("_sampled" if sampled
-                                                     else "")
-                out[name] = time.perf_counter() - t0
+                out[f"segment_{segment_steps}{tag}"] = \
+                    time.perf_counter() - t0
+            # the spec programs the knobs select: with every slot inactive
+            # nothing is accepted and every write is dropped
+            if self.draft_k and self.spec_mode == "host":
+                t0 = time.perf_counter()
+                self._prepare_segment()
+                self._spec_scratch("live", (self.max_batch,),
+                                   torch.bool).zero_()
+                self._run_spec_step(sampled)
+                out[f"spec_step_{self.draft_k}{tag}"] = \
+                    time.perf_counter() - t0
+            if (self.draft_k and self.spec_mode == "device"
+                    and segment_steps is not None):
+                t0 = time.perf_counter()
+                self._prepare_segment()
+                with torch.no_grad():
+                    self.programs.run(
+                        self._spec_device_key(segment_steps, sampled),
+                        lambda: self._spec_segment(segment_steps, sampled))
+                self.verify_steps += segment_steps
+                out[f"spec_segment_{segment_steps}{tag}"] = \
+                    time.perf_counter() - t0
         for w in self.prefill_buckets or ():
             t0 = time.perf_counter()
             self._warm_prefill(w)
@@ -1355,7 +2087,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                  debug_pages: bool = False, kv_dtype: str = "bf16",
                  prefill_chunk: Optional[int] = None,
                  admission_mode: str = "reserved",
-                 kv_watermark: float = 0.9, prefix_cache: bool = False):
+                 kv_watermark: float = 0.9, prefix_cache: bool = False,
+                 draft_k: int = 0, ngram_max: int = 3,
+                 spec_mode: str = "host", spec_draft: str = "ngram",
+                 spec_history: int = 128):
         if admission_mode not in ADMISSION_MODES:
             raise ValueError(
                 f"admission_mode must be one of {ADMISSION_MODES}, got "
@@ -1391,7 +2126,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                                    kv_dtype=kv_dtype)
         super().__init__(model, max_batch, max_len=max_pages * page_size,
                          prefill_buckets=prefill_buckets,
-                         prefill_chunk=prefill_chunk)
+                         prefill_chunk=prefill_chunk, draft_k=draft_k,
+                         ngram_max=ngram_max, spec_mode=spec_mode,
+                         spec_draft=spec_draft, spec_history=spec_history)
         self._measure_quant_savings()
 
     def _init_decode_state(self) -> None:
@@ -1413,6 +2150,25 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         logits, _ = self.model.forward_decode_paged(
             tok, self.caches, self.page_table_dev, lens, live)
         return logits
+
+    def _fwd_spec(self, inp, lens, live):
+        snaps = None
+        if self.kv_dtype == "int8":
+            # the window's snapshot buffers, one set per layer, allocated
+            # once per window width ([B * W] pages and both scale tables)
+            n = inp.shape[0] * inp.shape[1]
+            snaps = [tuple(self._spec_scratch(f"snap{i}_{j}", (n,) + tuple(
+                t.shape[1:]) if j < 2 else tuple(t.shape), t.dtype)
+                for j, t in enumerate(entry))
+                for i, entry in enumerate(self.caches)]
+        logits, _, aux = self.model.forward_decode_spec_paged(
+            inp, self.caches, self.page_table_dev, lens, live, snaps)
+        return logits, aux
+
+    def _coverage_limit(self, slot: int) -> int:
+        # only tokens whose K/V landed in mapped pages may be accepted
+        # (writes past the coverage go to the sink)
+        return min(self.alloc.covered_tokens(slot), self.max_len)
 
     def _measure_quant_savings(self) -> None:
         """Price the int8 layout from the real pools: the bytes a page
@@ -1817,7 +2573,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         for slot, rid in sorted(self._slot_req.items(), key=lambda kv: kv[1]):
             if done[slot]:
                 continue       # a frozen row never writes
-            target = min(int(lens[slot]) + min(n_steps, self._budget[rid]),
+            # a speculating row may keep up to spec_k + 1 tokens a step, so
+            # its target scales by its window (still capped by the budget;
+            # the acceptance cap keeps it inside the coverage anyway)
+            w = self._spec_k_of(rid) + 1
+            target = min(int(lens[slot])
+                         + min(n_steps * w, self._budget[rid]),
                          self.max_len)
             if self.alloc.can_fit(slot, target):
                 self.alloc.ensure(slot, target)
@@ -1845,13 +2606,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self.alloc.count_preemption(reason)
         return out
 
-    def _run_segment(self, n_steps: int,
-                     sampled: bool = False) -> torch.Tensor:
+    def _prepare_segment(self) -> None:
         # pages claimed in the gap get their scales floored, and the
         # device table takes the gap's allocations, before the segment
         self._flush_fresh_scales()
         self._sync_table()
-        return super()._run_segment(n_steps, sampled)
 
     def decode_segment(self, n_steps: int) -> int:
         if not self._slot_req:
@@ -1882,7 +2641,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                                         self.caches[0][3])
             lens = self.lens.cpu().numpy()
             done = self.done_dev.cpu().numpy()
-            for slot in self._slot_req:
+            for slot, rid in self._slot_req.items():
                 if not done[slot]:
-                    self.alloc.check_coverage(slot, int(lens[slot]))
+                    # a speculating row's next writes span its window
+                    self.alloc.check_coverage(
+                        slot, int(lens[slot]),
+                        write_ahead=1 + self._spec_k_of(rid))
         return super().decode_segment(n_steps)

@@ -26,8 +26,11 @@ cache,
 ``forward_decode_ragged`` (per-row lengths over a dense cache) and
 ``forward_decode_paged`` over page pools in the model's dtype or in int8
 with per-(page, kv head) scales (quantize on store,
-``quantization/kv.py``; K4 dequantizes inside the kernel). Speculative
-verify, LoRA and tensor parallelism are not ported yet and are absent. Cache writes happen in place, so
+``quantization/kv.py``; K4 dequantizes inside the kernel), and the
+speculative verify steps ``forward_decode_spec`` (dense, one K7 call per
+window position) and ``forward_decode_spec_paged`` (K4 per window
+position, bf16 or int8 pools). LoRA and tensor parallelism are not ported
+yet and are absent. Cache writes happen in place, so
 a decode step reads and writes the same storage every time (what a
 captured CUDA graph needs).
 
@@ -279,6 +282,106 @@ class LlamaAttention(nn.Module):
                                lens + live.to(lens.dtype), *scales)
         return self._out(ctx[:, None]), cache
 
+    def _spec_qkv(self, x, cos_full, sin_full, lens, max_len):
+        """The verify window's projections, rotated per row at positions
+        ``lens[b] + i`` (clamped to the cache for the RoPE tables only);
+        returns (qh, kh, vh, pos, idx), pos / idx int64 [B, W]."""
+        w = x.shape[1]
+        pos = lens.long()[:, None] + torch.arange(w, device=lens.device)
+        idx = pos.clamp(max=max_len - 1)
+        c = cos_full[idx][:, :, None, :]            # [B, W, 1, d2] per row
+        sn = sin_full[idx][:, :, None, :]
+        qh, kh, vh = self._qkv(x, c, sn)
+        return qh, kh, vh, pos, idx
+
+    def forward_decode_spec(self, x, cos_full, sin_full, cache: Cache,
+                            lens, live):
+        """Speculative VERIFY step over the dense cache: W query positions
+        per row, position i of row b at ``lens[b] + i`` (x [B, W, h]). All
+        W tokens' K/V are written IN PLACE first, one window position at a
+        time; a write of a dead row or past the cache is dropped (the cell
+        is rewritten with what it holds, never clamped onto the last valid
+        one). Then each position runs the one-token step's K7 call with
+        its own length ``lens + live * (i + 1)``, so position i attends
+        exactly the history a sequential decode would, and where the input
+        tokens are the greedy continuation its logits are those of
+        ``forward_decode_ragged`` one token at a time. Rejected drafts
+        leave stale K/V past the accepted length: every read is length
+        masked and later writes overwrite it. Returns (out, cache)."""
+        b, w = x.shape[0], x.shape[1]
+        kc, vc = cache
+        max_len = kc.shape[1]
+        qh, kh, vh, pos, idx = self._spec_qkv(x, cos_full, sin_full, lens,
+                                              max_len)
+        ok = live[:, None] & (pos < max_len)
+        ar = torch.arange(b, device=idx.device)
+        for i in range(w):
+            at, keep = idx[:, i], ok[:, i, None, None]
+            kc[ar, at] = torch.where(keep, kh[:, i].to(kc.dtype), kc[ar, at])
+            vc[ar, at] = torch.where(keep, vh[:, i].to(vc.dtype), vc[ar, at])
+        lv = live.to(lens.dtype)
+        ctx = torch.stack([gqa_decode_attention(qh[:, i], kc, vc,
+                                                lens + lv * (i + 1))
+                           for i in range(w)], dim=1)     # [B, W, Hq, hd]
+        return self._out(ctx), cache
+
+    def forward_decode_spec_paged(self, x, cos_full, sin_full, cache,
+                                  page_table, lens, live, snapshot=None):
+        """Paged twin of :meth:`forward_decode_spec` (K4 per window
+        position). Writes of dead rows, unmapped pages or positions past
+        the table's width go to the sink page. Returns (out, cache, aux):
+        ``aux`` is None on pools in the model's dtype.
+
+        int8 pools store then attend one window position at a time through
+        the one-token step's running-absmax ``quant_store_rows``, so a
+        scale growth at position i re-quantizes the page before position
+        i + 1 reads it, as the sequential step would. The window's rows
+        are provisional (a rejected draft's absmax must not stay in a
+        page's monotonic scale), so the touched pages and both scale
+        tables are snapshotted BEFORE the first store, into ``snapshot``
+        (``(k_pages [B*W, ...], v_pages, k_scale, v_scale)``, written in
+        place) when given, and ``aux`` is ``(snap_k, snap_v, snap_ks,
+        snap_vs, kh, vh, page, offs)``: the engine restores the snapshot
+        after acceptance and replays only the accepted prefix."""
+        b, w = x.shape[0], x.shape[1]
+        kp, vp = cache[0], cache[1]
+        ps = kp.shape[1]
+        max_len = page_table.shape[1] * ps
+        qh, kh, vh, pos, idx = self._spec_qkv(x, cos_full, sin_full, lens,
+                                              max_len)
+        ar = torch.arange(b, device=idx.device)
+        page = page_table[ar[:, None], idx // ps]                # [B, W]
+        ok = live[:, None] & (page >= 0) & (pos < max_len)
+        page = torch.where(ok, page, kp.shape[0] - 1).long()
+        offs = idx % ps
+        lv = live.to(lens.dtype)
+        scales = cache[2:]
+        if not scales:
+            kp[page, offs] = kh.to(kp.dtype)
+            vp[page, offs] = vh.to(vp.dtype)
+            ctx = torch.stack([paged_decode_mha(qh[:, i], kp, vp, page_table,
+                                                lens + lv * (i + 1))
+                               for i in range(w)], dim=1)
+            return self._out(ctx), cache, None
+        ks, vs = scales
+        flat = page.reshape(-1)
+        if snapshot is None:
+            snap = (kp[flat], vp[flat], ks.clone(), vs.clone())
+        else:
+            snap = snapshot
+            torch.index_select(kp, 0, flat, out=snap[0])
+            torch.index_select(vp, 0, flat, out=snap[1])
+            snap[2].copy_(ks)
+            snap[3].copy_(vs)
+        ctxs = []
+        for i in range(w):
+            quant_store_rows(kp, ks, page[:, i], offs[:, i], kh[:, i])
+            quant_store_rows(vp, vs, page[:, i], offs[:, i], vh[:, i])
+            ctxs.append(paged_decode_mha(qh[:, i], kp, vp, page_table,
+                                         lens + lv * (i + 1), ks, vs))
+        return (self._out(torch.stack(ctxs, dim=1)), cache,
+                tuple(snap) + (kh, vh, page, offs))
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
@@ -328,6 +431,20 @@ class LlamaDecoderLayer(nn.Module):
             lens, live)
         x = x + attn
         return x + self.mlp(self.post_attention_layernorm(x)), cache
+
+    def forward_decode_spec(self, x, cos_full, sin_full, cache, lens, live):
+        attn, cache = self.self_attn.forward_decode_spec(
+            self.input_layernorm(x), cos_full, sin_full, cache, lens, live)
+        x = x + attn
+        return x + self.mlp(self.post_attention_layernorm(x)), cache
+
+    def forward_decode_spec_paged(self, x, cos_full, sin_full, cache,
+                                  page_table, lens, live, snapshot=None):
+        attn, cache, aux = self.self_attn.forward_decode_spec_paged(
+            self.input_layernorm(x), cos_full, sin_full, cache, page_table,
+            lens, live, snapshot)
+        x = x + attn
+        return x + self.mlp(self.post_attention_layernorm(x)), cache, aux
 
 
 class LlamaModel(nn.Module):
@@ -437,6 +554,30 @@ class LlamaModel(nn.Module):
             new_caches.append(cache)
         return self.norm(x), new_caches
 
+    def forward_decode_spec(self, input_ids, caches, lens, live):
+        x = self.embed_tokens(input_ids)
+        cos_full, sin_full = self._tables(caches[0][0].shape[1], x)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.forward_decode_spec(x, cos_full, sin_full,
+                                                 cache, lens, live)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
+
+    def forward_decode_spec_paged(self, input_ids, caches, page_table, lens,
+                                  live, snapshots=None):
+        x = self.embed_tokens(input_ids)
+        max_len = page_table.shape[1] * caches[0][0].shape[1]
+        cos_full, sin_full = self._tables(max_len, x)
+        new_caches, aux_rows = [], []
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
+            x, cache, aux = layer.forward_decode_spec_paged(
+                x, cos_full, sin_full, cache, page_table, lens, live,
+                None if snapshots is None else snapshots[i])
+            new_caches.append(cache)
+            aux_rows.append(aux)
+        return self.norm(x), new_caches, aux_rows
+
 
 class LlamaForCausalLM(nn.Module):
     """Llama causal LM. Built on ``device`` (default: the CUDA card, see
@@ -516,3 +657,23 @@ class LlamaForCausalLM(nn.Module):
         hidden, caches = self.model.forward_decode_paged(
             input_ids, caches, page_table, lens, live)
         return self.logits(hidden), caches
+
+    def forward_decode_spec(self, input_ids, caches, lens, live):
+        """(logits [B, W, V], caches): a speculative verify step of W
+        tokens per row at per-row offsets over dense caches (see
+        LlamaAttention.forward_decode_spec)."""
+        hidden, caches = self.model.forward_decode_spec(input_ids, caches,
+                                                        lens, live)
+        return self.logits(hidden), caches
+
+    def forward_decode_spec_paged(self, input_ids, caches, page_table, lens,
+                                  live, snapshots=None):
+        """(logits [B, W, V], caches, aux): a speculative verify step over
+        page pools; ``aux`` per layer is None on pools in the model's dtype
+        and the int8 window's snapshot and rows otherwise, for the engine's
+        post-acceptance commit (see
+        LlamaAttention.forward_decode_spec_paged; ``snapshots``, per layer,
+        are the buffers the snapshot is written into)."""
+        hidden, caches, aux = self.model.forward_decode_spec_paged(
+            input_ids, caches, page_table, lens, live, snapshots)
+        return self.logits(hidden), caches, aux

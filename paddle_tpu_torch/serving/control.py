@@ -28,10 +28,8 @@ signals that already exist and move levers that already exist:
       rung 3: disable speculative decoding on FUTURE admissions
       rung 4: pause prefix-cache admission (no new CoW/shared pages)
 
-  In the port, rung 3 acts on a feature its engines do not have yet:
-  ``spec_off`` does nothing until speculative decoding lands (ROADMAP
-  A7). The ladder still moves through it, so its decisions and its
-  ``/healthz`` block are the reference's. Rung 4 flips the paged
+  Rung 3 clears ``speculative`` on the configs of future admissions
+  (including the ``Server``'s default opt-in); rung 4 flips the paged
   engine's ``prefix_pause``.
 
   Engagement is immediate (overload is urgent: the ladder can jump
@@ -209,10 +207,7 @@ class ControlPlane:
         speculative decoding off. Returns ``cfg`` unchanged below rung
         2 (the common case allocates nothing); a degraded request gets
         a fresh config copy, so the client's object — and every
-        already-admitted request — is never mutated. The copy is built
-        from the config's own fields (``vars``): a config without a
-        ``speculative`` field (the port's, until ROADMAP A7) gets no such
-        field at rung 3."""
+        already-admitted request — is never mutated."""
         with self._lock:
             rung = self.rung
         if rung < 2:
@@ -221,7 +216,7 @@ class ControlPlane:
         if rung >= 2:
             kw["max_new_tokens"] = min(int(kw["max_new_tokens"]),
                                        self.policy.brownout_max_new)
-        if rung >= 3 and "speculative" in kw:
+        if rung >= 3:
             kw["speculative"] = False
         return type(cfg)(**kw)
 

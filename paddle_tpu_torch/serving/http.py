@@ -10,16 +10,16 @@ body fields and status codes:
        "max_new_tokens": 64, "temperature": 1.0, "top_k": 0,
        "top_p": 1.0, "do_sample": false, "eos_token_id": null,
        "seed": 0,                     # GenerationConfig fields
+       "speculative": false, "draft_k": null,  # spec-decode opt-in
        "tenant": null,                # quota bucket
        "priority": 0, "timeout_s": null,   # admission deadline
        "stream": false,
        "idem_key": null, "from_token": 0}  # exactly-once retry / resume
 
   Bodies are STRICT: an unknown field is a 400 naming it. The
-  reference's ``speculative``, ``draft_k`` and ``adapter`` fields are
-  known but not ported: ``null`` / ``false`` are accepted (they ask for
-  nothing), any other value is a 400 naming the ROADMAP item that brings
-  it (A7, A8).
+  reference's ``adapter`` field is known but not ported: ``null`` is
+  accepted (it asks for nothing), any other value is a 400 naming the
+  ROADMAP item that brings it (A8).
 
   Non-streaming: one JSON response
   ``{"request_id", "tokens", "n_tokens", "ttft_s"}``.
@@ -92,14 +92,13 @@ from .queue import (DeadlineExpired, RequestCancelled, RequestFailed,
 __all__ = ["serve_http"]
 
 _CFG_FIELDS = ("max_new_tokens", "temperature", "top_k", "top_p",
-               "do_sample", "eos_token_id", "seed")
+               "do_sample", "eos_token_id", "seed", "speculative",
+               "draft_k")
 
 # the reference's request fields for features the port has not yet: a
 # value that asks for nothing (null / false) is accepted, anything else
 # is a 400 naming the ROADMAP item
-_NOT_PORTED_FIELDS = {"speculative": "A7: speculative decoding",
-                      "draft_k": "A7: speculative decoding",
-                      "adapter": "A8: multi-tenant LoRA"}
+_NOT_PORTED_FIELDS = {"adapter": "A8: multi-tenant LoRA"}
 
 # every field a /generate body may carry. Unknown fields are a 400
 # NAMING the field, not silently ignored: a typo'd "adaptor" quietly

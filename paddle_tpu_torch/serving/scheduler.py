@@ -80,11 +80,10 @@ The watchdog thread only reads the heartbeat and flips flags.
 ``submit``/``cancel``/``drain``/``shutdown`` are thread-safe entry points
 that communicate through the queue, handle flags, and a wake event.
 
-What the port's engines lack fails at construction or at the call, never
-silently: ``draft_k``, ``spec_mode`` and ``speculative`` (speculative
-decoding, ROADMAP A7); :meth:`Server.load_adapter` / ``unload_adapter``
-(LoRA, A8); :meth:`Server.export_kv` / ``import_kv`` (the KV-page handoff,
-A10); :meth:`Server.profile` (the program ledger, A9b).
+What the port's engines lack fails at the call, never silently:
+:meth:`Server.load_adapter` / ``unload_adapter`` (LoRA, ROADMAP A8);
+:meth:`Server.export_kv` / ``import_kv`` (the KV-page handoff, A10);
+:meth:`Server.profile` (the program ledger, A9b).
 """
 from __future__ import annotations
 
@@ -98,9 +97,10 @@ import numpy as np
 from .. import monitor
 from .. import tracing as trace
 from ..monitor import slo as _slo
-from ..inference.generation import (ADMISSION_MODES, GenerationConfig,
-                                    PagePoolExhausted, _prompt_ids,
-                                    _prompt_len, classify_fault)
+from ..inference.generation import (ADMISSION_MODES, SPEC_MODES,
+                                    GenerationConfig, PagePoolExhausted,
+                                    _prompt_ids, _prompt_len,
+                                    classify_fault)
 from .control import RUNG_ACTIONS, ControlPlane, ControlPolicy
 from .queue import (CANCELLED, EXPIRED, FAILED, FINISHED, QueueFull,
                     RequestHandle, RequestQueue, RequestRejected)
@@ -203,9 +203,20 @@ class Server:
       level per ``age_after_s`` seconds queued, so low-priority work
       cannot starve forever under sustained high-priority load.
 
-    Speculative-decoding knobs (``draft_k``, ``spec_mode``,
-    ``speculative=True``) raise NotImplementedError at construction
-    (ROADMAP A7).
+    Speculative-decoding knobs (engines built with ``draft_k > 0``, or
+    given one here; see the engines' ``decode_segment``):
+
+    - ``draft_k`` — mirror of the engine's draft window (0 turns
+      speculation off), set on an idle engine so warmup captures the
+      verify program;
+    - ``spec_mode`` — mirror of the engine's execution mode, ``"host"``
+      (host proposers, one read a verify step) or ``"device"`` (one
+      program a segment, drafts from the per-slot history ring);
+    - ``speculative`` — True makes speculation the server's DEFAULT for
+      greedy requests (``submit`` copies the config with
+      ``speculative=True``); sampled requests decode plain, and a request
+      can always opt in with ``GenerationConfig.speculative``. Brownout
+      rung 3 (``spec_off``) clears it on future admissions.
 
     SLO & goodput (``paddle_tpu_torch.monitor.slo``, gated like every
     monitor seam on ``FLAGS_enable_monitor``):
@@ -297,9 +308,51 @@ class Server:
             raise ValueError("max_restarts/max_replays must be >= 0")
         if max_preemptions < 0:
             raise ValueError("max_preemptions must be >= 0")
-        if draft_k is not None or spec_mode is not None or speculative:
-            raise _not_ported("speculative decoding (draft_k, spec_mode, "
-                              "speculative)", "A7")
+        if draft_k is not None:
+            # convenience mirror of the engine's draft window, set before
+            # the scheduler thread starts so warmup captures the verify
+            # program. getattr/setattr so a FaultyEngine proxy routes to
+            # the wrapped engine.
+            if (isinstance(draft_k, bool) or not isinstance(draft_k, int)
+                    or not 0 <= draft_k <= 256):
+                raise ValueError(
+                    f"draft_k must be an int in [0, 256], got "
+                    f"{draft_k!r}")
+            if getattr(engine, "draft_k", None) is None:
+                raise ValueError(
+                    "draft_k needs a continuous-batching engine")
+            if getattr(engine, "_slot_req", None):
+                raise ValueError(
+                    "draft_k can only be set on an idle engine")
+            engine.draft_k = draft_k
+        if spec_mode is not None:
+            # convenience mirror of the engine's speculative execution
+            # mode: "device" runs propose, verify and accept for a whole
+            # segment in one program (drafts from the per-slot history
+            # ring), so the gap no longer drives per-step host proposals.
+            # Set before the scheduler thread starts so warmup captures
+            # the mode's program (the fused segment needs segment_steps,
+            # which warmup passes).
+            if spec_mode not in SPEC_MODES:
+                raise ValueError(
+                    f"spec_mode must be one of {SPEC_MODES}, got "
+                    f"{spec_mode!r}")
+            if getattr(engine, "spec_mode", None) is None:
+                raise ValueError(
+                    "spec_mode needs a continuous-batching engine")
+            if getattr(engine, "_slot_req", None):
+                raise ValueError(
+                    "spec_mode can only be set on an idle engine")
+            engine.spec_mode = spec_mode
+        if speculative and not getattr(engine, "draft_k", 0):
+            raise ValueError(
+                "speculative=True needs an engine built with "
+                "draft_k > 0 (or pass Server(draft_k=...))")
+        # speculative=True makes speculation the server's DEFAULT: every
+        # eligible (greedy, not explicitly opted) request decodes
+        # speculatively; a request's own GenerationConfig.speculative
+        # still opts it in on a server without the default
+        self.speculative = bool(speculative)
         if admission_mode is not None:
             # convenience mirror of the paged engine's knob: set it
             # here (before the scheduler thread starts) instead of at
@@ -509,6 +562,10 @@ class Server:
         IMMEDIATELY with the reason instead of queueing into a server
         that may never drain."""
         cfg = cfg or GenerationConfig()
+        if self.speculative and not cfg.do_sample and not cfg.speculative:
+            # the server's default opt-in: a copy, never the caller's
+            # config (vars() so every field carries over)
+            cfg = GenerationConfig(**dict(vars(cfg), speculative=True))
         plen = _prompt_len(prompt)
         if plen + cfg.max_new_tokens > self.engine.max_len:
             raise ValueError(
@@ -1888,8 +1945,8 @@ class Server:
                             wait_s=round(wait_s, 6))
             if self.control is not None:
                 # brownout rungs 2/3 degrade the request AT admission
-                # (cap max_new_tokens; rung 3's speculation strip waits
-                # for ROADMAP A7): the handle's cfg is replaced so a
+                # (cap max_new_tokens, strip speculation): the handle's
+                # cfg is replaced so a
                 # later replay uses the degraded budget — never the
                 # original. Already-admitted requests are untouched
                 # (rung transitions are bitwise-neutral for them); a

@@ -625,26 +625,24 @@ def test_warmup_then_no_capture(pair):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(draft_k=4), "A7"), (dict(spec_mode="device"), "A7"),
-    (dict(speculative=True), "A7"), (dict(max_preemptions=3), "A4c"),
+    (dict(speculative=True, draft_k=2), "A7"),
+    (dict(max_preemptions=3), "A4c"),
     (dict(admission_mode="optimistic"), "A4c")])
 def test_missing_features_fail_at_construction(kw, item):
-    """Speculative decoding (A7) fails at construction; the memory-pressure
-    knobs of A4c are ported and take effect on the engine."""
+    """The speculative-decoding knobs (A7) and the memory-pressure knobs of
+    A4c are ported: each takes effect on the engine (or the server) at
+    construction, and the others keep their defaults."""
     model, _ = tiny_model()
     eng = paged_engine(model)
-    if item == "A4c":
-        srv = Server(eng, start=False, **kw)
-        try:
-            assert srv.max_preemptions == kw.get("max_preemptions", 5)
-            assert eng.admission_mode == kw.get("admission_mode",
-                                                "reserved")
-        finally:
-            srv.shutdown(drain=False)
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"not ported yet \\(ROADMAP {item}"):
-        Server(eng, start=False, **kw)
-    assert eng.admission_mode == "reserved"
+    srv = Server(eng, start=False, **kw)
+    try:
+        assert srv.max_preemptions == kw.get("max_preemptions", 5)
+        assert eng.admission_mode == kw.get("admission_mode", "reserved")
+        assert eng.draft_k == kw.get("draft_k", 0)
+        assert eng.spec_mode == kw.get("spec_mode", "host")
+        assert srv.speculative is kw.get("speculative", False)
+    finally:
+        srv.shutdown(drain=False)
 
 
 @pytest.mark.parametrize("call,item", [
@@ -785,16 +783,34 @@ class TestHTTPFrontend:
     def test_request_fields_not_ported_are_400(self, field, value, item):
         """A value asking for a feature the port lacks is a 400 naming its
         ROADMAP item, and nothing is queued; ``null`` asks for nothing and
-        is served."""
-        srv, _, _ = _server(segment_steps=2)
+        is served. The speculative-decoding fields (A7) are ported: a
+        value is served (``speculative`` speculatively, on an engine with
+        a draft window) and a malformed ``draft_k`` is a 400 naming it."""
+        srv, eng, _ = _server(segment_steps=2, draft_k=3)
         httpd = serve_http(srv)
         url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
         try:
-            with pytest.raises(HTTPError) as ei:
-                urlopen(Request(url, data=json.dumps(
-                    {"prompt": [1], field: value}).encode()), timeout=30)
-            assert ei.value.code == 400
-            assert f"ROADMAP {item}" in json.load(ei.value)["error"]
+            if item == "A7":
+                with urlopen(Request(url, data=json.dumps(
+                        {"prompt": [1, 2, 1, 2], field: value,
+                         "max_new_tokens": 4}).encode()),
+                        timeout=WAIT) as r:
+                    assert json.load(r)["n_tokens"] == 4
+                assert (eng.spec_stats()["forwards"] > 0) is (
+                    field == "speculative")
+                with pytest.raises(HTTPError) as ei:
+                    urlopen(Request(url, data=json.dumps(
+                        {"prompt": [1], "draft_k": 0}).encode()),
+                        timeout=30)
+                assert ei.value.code == 400
+                assert "draft_k" in json.load(ei.value)["error"]
+            else:
+                with pytest.raises(HTTPError) as ei:
+                    urlopen(Request(url, data=json.dumps(
+                        {"prompt": [1], field: value}).encode()),
+                        timeout=30)
+                assert ei.value.code == 400
+                assert f"ROADMAP {item}" in json.load(ei.value)["error"]
             assert srv.queue.depth == 0 and srv.num_active() == 0
             with urlopen(Request(url, data=json.dumps(
                     {"prompt": [1], field: None,

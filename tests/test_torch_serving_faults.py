@@ -833,9 +833,8 @@ class TestControlPlaneUnit:
                        tenant_stats=None) is not None
 
     def test_degrade_cfg_and_quota_cap(self):
-        """Rung 2 caps the budget on a copy; rung 3 adds no
-        ``speculative`` field to the port's configs, which have none
-        (speculative decoding is ROADMAP A7)."""
+        """Rung 2 caps the budget on a copy; rung 3 also clears
+        ``speculative`` on it."""
         cp = ControlPlane(ControlPolicy(brownout_max_new=3,
                                         tick_interval_s=0.0))
         cfg = GenerationConfig(max_new_tokens=64, temperature=0.5)
@@ -849,9 +848,12 @@ class TestControlPlaneUnit:
         assert out is not cfg and out.max_new_tokens == 3
         assert out.temperature == 0.5 and cfg.max_new_tokens == 64
         cp.rung = 3
-        out = cp.degrade_cfg(cfg)
-        assert out.max_new_tokens == 3 and vars(out).keys() == \
-            vars(cfg).keys()
+        spec = GenerationConfig(max_new_tokens=64, speculative=True,
+                                draft_k=4)
+        out = cp.degrade_cfg(spec)
+        assert out.max_new_tokens == 3 and out.speculative is False
+        assert out.draft_k == 4 and spec.speculative is True
+        assert vars(out).keys() == vars(cfg).keys()
         assert cp.degrade_cfg(GenerationConfig(
             max_new_tokens=2)).max_new_tokens == 2
 
