@@ -95,7 +95,14 @@ Phases, each timed, none caught and passed over:
    tolerances; then the card's step once more
    from the same weights with ``FLAGS_flash_head_batched`` on: the route
    taken at every flash forward, and loss, gradients and parameters
-   bitwise those of the step without the flag; C-check-1: 30 AdamW steps of
+   bitwise those of the step without the flag; the eager twin: one
+   ``Model.fit`` step (AdamW, LinearWarmup, global-norm clip,
+   CrossEntropyLoss) on the card and on the CPU, loss and parameters
+   within the training tolerances, and an fp32 model decorated to fp16 at
+   O2 stepped under ``auto_cast(O2, float16)`` and a ``GradScaler``
+   (batch 1 x 128), then its scaled gradients again with an inf
+   injected: the loss within tolerance, the scales [1024, 512] and the
+   step skipped on both sides; C-check-1: 30 AdamW steps of
    that 2-layer model on the card and on the CPU from the same weights, a
    fresh batch each step, the per-step loss gap and whether it grows (a
    measurement); then fp32 on the card
@@ -165,6 +172,21 @@ Phases, each timed, none caught and passed over:
    the count the path implies; then one more step with
    ``FLAGS_flash_head_batched`` on, timed, its launch and route counts
    held against the path's;
+6b. the eager training surface, this slice's main path: phase 6's
+   configuration through ``Model(model).prepare(AdamW(LinearWarmup),
+   ClipGradByGlobalNorm, CrossEntropyLoss)`` and ``fit`` over 4 seeded
+   batches (step 0 warms up; step time, tokens/s and peak memory beside
+   phase 6's; every kernel's launches over the 3 timed steps held against
+   the path's; the optimizer's step alone, device and host ms; under
+   ``--profile`` the device busy share of a ``train_batch``); a
+   ``Model.save`` before step 3 loaded into a fresh model and optimizer,
+   whose step 3 must be bitwise the uninterrupted one's (else the cause
+   is recorded); ``MixPrecisionLayer`` + ``MixPrecisionOptimizer(AdamW)``
+   for 2 steps against the plain AdamW from the same weights (fp32
+   main_grad and masters, bf16 parameters, losses within a bf16 step);
+   ``build_train_step`` under remat "full", "attn_out" and "dots" from
+   one set of weights, loss and gradients against "full"'s, flash
+   forwards (2 L, L, 2 L), peak memory and step time each;
 7. fused transformer: ``incubate.nn.FusedMultiTransformer`` at the GPT-3
    6.7B widths (``FMT``: hidden 4096, 32 layers, 32 heads, FFN 16384,
    bf16): a 512-token context pass of batch 8 into caches of 1024, then
@@ -221,6 +243,20 @@ TRAIN = dict(preset="350m", overrides=dict(
     batch=8, seq=2048, lr=1e-4, clip=1.0)
 TRAIN_STEPS = 3                 # timed steps after one warm-up step
 TRAIN_E2E = dict(layers=2, batch=1, seq=512)   # phase 4's card-vs-CPU step
+# phase 6b, the eager training surface at the training configuration:
+# Model.fit over `batches` batches (step 0 warms up), LinearWarmup over
+# `warmup_steps` from lr / 10, AdamW's weight decay, the Model.save before
+# step `save_after` that a fresh model resumes from, `mix_steps` steps of
+# main-gradient mixed precision, and the remat policies held against "full"
+EAGER = dict(batches=4, warmup_steps=2, weight_decay=0.01, save_after=2,
+             mix_steps=2, remat=("full", "attn_out", "dots"))
+# phase 4's eager twin: the fp16 O2 step's initial loss scale (fp16
+# gradients of a loss near 10 scaled by 2^10 stay far from fp16's 65504)
+# and its sequence: the CPU side's fp16 GEMMs ran at about 0.8 GFLOP/s on
+# the card's host (21 s for one 512 x 1024 x 32000 product; the whole
+# step at 512 tokens took 118 s of CPU time), so the fp16 step takes 128
+# tokens of each row; the bf16 step keeps TRAIN_E2E's 512
+EAGER_E2E = dict(scale=1024.0, fp16_seq=128)
 # phase 5's dense-cache runs on the 7B model: CausalLMEngine.generate on
 # GEN["batch"] prompts of GEN["plen"] tokens, and the dense engine's slots
 GEN = dict(batch=8, plen=512, new=32, max_len=1024)
@@ -467,14 +503,20 @@ SPEC_PATHS = ("server_spec_host", "server_spec_device",
 PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
          "serve_sampled", "server", "serve_prefix",
          "server_pressure") + SPEC_PATHS + ("train", "fmt", "train_hb",
-                                             "ops", "f32")
-# the decode paths, which run K4 and K7 (phase 5's through captured graphs),
-# the chunked and sampled serves, the serving front's Server serve, the
-# prefix-cache and memory-pressure legs, and the speculative Server serves
-SLICE_PATHS = ("serve", "serve_int8", "generate", "dense_serve",
-               "serve_chunked", "serve_sampled", "server", "serve_prefix",
-               "server_pressure") + SPEC_PATHS + ("fmt",)
-EARLIER_PATHS = (("train", "f32"), ("ops", "train_hb"))
+                                             "ops", "f32", "eager_fit")
+# this slice's path: Model.fit's timed steps at the training configuration
+# (phase 6b), which run K1, K2, K3, K5 and K6
+SLICE_PATHS = ("eager_fit",)
+# earlier slices' paths, in the order their counts stand in for a kernel
+# this slice does not run: the decode paths, which run K4 and K7 (phase 5's
+# through captured graphs), the chunked and sampled serves, the serving
+# front's Server serve, the prefix-cache and memory-pressure legs, the
+# speculative Server serves and FMT (K8); then training; then the kernel
+# ops (K9, K10)
+EARLIER_PATHS = (("serve", "serve_int8", "generate", "dense_serve",
+                  "serve_chunked", "serve_sampled", "server",
+                  "serve_prefix", "server_pressure") + SPEC_PATHS
+                 + ("fmt",), ("train", "f32"), ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
 
@@ -3171,6 +3213,435 @@ def train_phase(torch, dev, np, seed, profile=False):
     return rec
 
 
+# -- phase 6b: the eager training surface at the training configuration ------
+
+def eager_batches(torch, np, cfg, n, seed, batch, seq, dev):
+    """``n`` (ids, labels) batches of next-token pairs from ``seed``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        tok = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                           (batch, seq + 1)))
+        out.append((tok[:, :-1].to(dev), tok[:, 1:].to(dev)))
+    return out
+
+
+def eager_prepare(torch, net):
+    """``Model(net).prepare`` as a PaddlePaddle user trains: AdamW under
+    LinearWarmup with the global-norm clip, and CrossEntropyLoss."""
+    from paddle_tpu_torch import Model, nn, optimizer
+
+    opt = optimizer.AdamW(
+        learning_rate=optimizer.lr.LinearWarmup(
+            TRAIN["lr"], EAGER["warmup_steps"], TRAIN["lr"] / 10,
+            TRAIN["lr"]),
+        parameters=net.parameters(), weight_decay=EAGER["weight_decay"],
+        grad_clip=nn.ClipGradByGlobalNorm(TRAIN["clip"]))
+    m = Model(net)
+    m.prepare(opt, nn.CrossEntropyLoss())
+    return m
+
+
+def eager_step_launches(counts, L, steps=1, flash=2):
+    """The launches of ``steps`` eager steps of L layers under full
+    recompute (``flash`` flash forwards a layer and step)."""
+    return expect(counts, rms_norm=steps * (4 * L + 1),
+                  fused_rope=steps * 6 * L, flash_fwd=steps * flash * L,
+                  flash_bwd_dq=steps * L, flash_bwd_dkv=steps * L)
+
+
+def loss_log(out: list):
+    """A ``Model.fit`` callback appending each train batch's loss to
+    ``out``."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class LossLog(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            out.append(logs["loss"])
+
+    return LossLog()
+
+
+def fit_probe(torch, ops, net, ckpt, n):
+    """A ``Model.fit`` callback: a step's time (synchronised on both
+    sides), the launch counts and peak memory over steps 1..n-1 (step 0
+    warms up), a checkpoint ``Model.save`` before step
+    EAGER["save_after"] (the state after that many steps) and the
+    parameters right after that step."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Probe(Callback):
+        def __init__(self):
+            super().__init__()
+            self.times, self.losses, self.after = [], [], None
+
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            if step == EAGER["save_after"]:
+                self.model.save(ckpt)
+            if step == 1:
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - self.t0)
+            self.losses.append(logs["loss"])
+            if step == EAGER["save_after"]:
+                self.after = {k: p.detach().clone()
+                              for k, p in net.named_parameters()}
+            if step == n - 1:
+                self.counts = ops.launch_counts()
+                self.peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    return Probe()
+
+
+def resume_check(torch, cfg, dev, seed, ckpt, batch, after, loss_after):
+    """A fresh model and optimizer (other weights) load the checkpoint and
+    run one ``train_batch`` on the batch the uninterrupted run took next:
+    the loss and every parameter against that run's, bitwise; where a
+    parameter differs, a second resumed run tells a non-deterministic step
+    (the two resumed runs differ) from state the checkpoint lost."""
+    from paddle_tpu_torch import LlamaForCausalLM
+
+    def resumed():
+        net = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+            dev).manual_seed(seed + 1))
+        m = eager_prepare(torch, net)
+        m.load(ckpt)
+        loss = m.train_batch([batch[0]], [batch[1]])[0]
+        return net, loss, m._optimizer
+
+    net, loss, opt = resumed()
+    rec = {"step": EAGER["save_after"] + 1, "loss": loss,
+           "loss_uninterrupted": loss_after,
+           "global_step": opt.state_dict()["global_step"]}
+    diff = {k: (p.detach() - after[k]).abs().max().item()
+            for k, p in net.named_parameters()
+            if not torch.equal(p.detach(), after[k])}
+    rec["bitwise"] = not diff and loss == loss_after
+    rec["differing"] = diff
+    if not rec["bitwise"]:
+        again = {k: p.detach().clone() for k, p in net.named_parameters()}
+        del net, opt
+        net2, loss2, _ = resumed()
+        rec["resumed_twice_equal"] = loss2 == loss and all(
+            torch.equal(p.detach(), again[k])
+            for k, p in net2.named_parameters())
+        rec["cause"] = ("the step itself is not deterministic"
+                        if not rec["resumed_twice_equal"]
+                        else "state the checkpoint does not carry")
+        log(f"  resume: NOT bitwise: {len(diff)} parameters differ "
+            f"({sorted(diff.items(), key=lambda kv: -kv[1])[:4]}), loss "
+            f"{loss} vs {loss_after}; {rec['cause']}")
+    return rec
+
+
+def mix_precision_leg(torch, np, cfg, dev, batches):
+    """MixPrecisionLayer + MixPrecisionOptimizer(AdamW) against the plain
+    AdamW from the same bf16 weights, EAGER["mix_steps"] steps on the same
+    batches: main_grad fp32 (and p.grad cleared), masters fp32, parameters
+    bf16; the first loss bitwise the plain one's, the later ones within a
+    bf16 step of theirs."""
+    from paddle_tpu_torch import LlamaForCausalLM, nn, optimizer
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        MixPrecisionLayer, MixPrecisionOptimizer)
+
+    def net():
+        return LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+            dev).manual_seed(21))
+
+    def adamw(model):
+        return optimizer.AdamW(
+            learning_rate=TRAIN["lr"], parameters=model.parameters(),
+            weight_decay=EAGER["weight_decay"],
+            grad_clip=nn.ClipGradByGlobalNorm(TRAIN["clip"]))
+
+    plain, mixed = net(), net()
+    po = adamw(plain)
+    layer = MixPrecisionLayer(mixed, dtype="bfloat16")
+    mo = MixPrecisionOptimizer(adamw(mixed))
+    ce = nn.CrossEntropyLoss()
+    losses = {"plain": [], "mixed": []}
+    for step in range(EAGER["mix_steps"]):
+        ids, labels = batches[step]
+        for name, model, opt in (("plain", plain, po), ("mixed", layer, mo)):
+            loss = ce(model(ids), labels)
+            loss.backward()
+            if name == "mixed":
+                for k, p in mixed.named_parameters():
+                    if p.grad is not None or p.main_grad is None or \
+                            p.main_grad.dtype != torch.float32:
+                        raise AssertionError(f"mix precision: {k} holds "
+                                             f"no fp32 main_grad alone")
+            opt.step()
+            opt.clear_grad()
+            losses[name].append(float(loss.detach()))
+    for k, p in mixed.named_parameters():
+        m = mo._masters[id(p)]
+        if p.dtype != torch.bfloat16 or m.dtype != torch.float32 or \
+                not torch.equal(p.detach(), m.to(torch.bfloat16)):
+            raise AssertionError(f"mix precision: {k} is {p.dtype} with a "
+                                 f"{m.dtype} master it does not round from")
+    gaps = [abs(a - b) for a, b in zip(losses["mixed"], losses["plain"])]
+    if not (np.isfinite(losses["mixed"]).all() and gaps[0] == 0.0 and all(
+            g <= BF16_STEP * abs(b) for g, b in zip(gaps, losses["plain"]))):
+        raise AssertionError(f"mix precision: losses {losses}")
+    rec = {"steps": EAGER["mix_steps"], "losses": losses, "loss_gaps": gaps,
+           "masters_gb": sum(m.numel() * 4 for m in mo._masters.values())
+           / 2 ** 30}
+    del plain, mixed, layer, po, mo
+    return rec
+
+
+def remat_leg(torch, np, cfg, dev, batch):
+    """``build_train_step`` under each of EAGER["remat"] from the same
+    weights and batch, one warm step and one measured step each: loss and
+    (clipped) gradients against "full"'s on this card, flash forwards
+    (2 L, L, 2 L), peak memory and step time."""
+    from paddle_tpu_torch import LlamaForCausalLM, build_train_step, ops
+
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(31))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    ids, labels = batch
+    rec, ref = {}, None
+    for policy in EAGER["remat"]:
+        step, init = build_train_step(cfg, lr=TRAIN["lr"],
+                                      clip_norm=TRAIN["clip"], remat=policy,
+                                      device=dev)
+        model.load_state_dict(start)
+        step(model, init(model), ids, labels)              # warm-up
+        model.load_state_dict(start)
+        state = init(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        loss = float(step(model, state, ids, labels))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = ops.launch_counts()
+        check_launches(counts, eager_step_launches(
+            counts, L, flash=1 if policy == "attn_out" else 2),
+            f"1 step of {L} layers, remat={policy!r}")
+        r = {"step_s": dt, "loss": loss, "launches": counts,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        if ref is None:
+            ref = (loss, {k: g.clone() for k, g in grads.items()})
+        else:
+            g_err = {k: rel_err(torch, g, ref[1][k]) for k, g in grads.items()}
+            worst = max(g_err, key=g_err.get)
+            r.update(loss_abs_err=abs(loss - ref[0]),
+                     grad_max_rel_err=g_err[worst], grad_worst=worst,
+                     bitwise=loss == ref[0] and all(
+                         torch.equal(g, ref[1][k])
+                         for k, g in grads.items()))
+            if not (np.isfinite(loss) and r["loss_abs_err"] <= TRAIN_LOSS_ATOL
+                    and g_err[worst] <= TRAIN_GRAD_RTOL):
+                raise AssertionError(f"remat={policy!r}: loss {loss} vs "
+                                     f"{ref[0]}, gradient of {worst} off "
+                                     f"by {g_err[worst]:.3g}")
+        rec[policy] = r
+        log(f"  remat={policy!r}: step {dt:.4f} s, peak {r['peak_mem_gb']:.2f}"
+            f" GiB, loss {loss}, bitwise full's: {r.get('bitwise', True)}")
+    del model, start, ref
+    return rec
+
+
+def eager_train_phase(torch, dev, np, seed, profile=False):
+    """Phase 6b: the training configuration at full depth through the
+    eager surface. ``Model.fit`` over EAGER["batches"] batches (AdamW,
+    LinearWarmup, global-norm clip, CrossEntropyLoss; step 0 warms up,
+    the others are timed), a resume from the ``Model.save`` taken after
+    step EAGER["save_after"], main-gradient mixed precision, and the remat
+    policies through ``build_train_step``."""
+    import tempfile
+
+    from paddle_tpu_torch import LlamaForCausalLM, llama_config, ops
+
+    cfg = train_config(llama_config)
+    L, B, S = cfg.num_hidden_layers, TRAIN["batch"], TRAIN["seq"]
+    n = EAGER["batches"]
+    batches = eager_batches(torch, np, cfg, n, seed, B, S, dev)
+    net = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed))
+    m = eager_prepare(torch, net)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "eager")
+        probe = fit_probe(torch, ops, net, ckpt, n)
+        ops.reset_launch_counts()
+        m.fit(batches, verbose=0, callbacks=[probe])
+        counts = probe.counts
+        check_launches(counts, eager_step_launches(counts, L, n - 1),
+                       f"Model.fit: {n - 1} steps of {L} layers")
+        losses = probe.losses
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"eager fit: non-finite loss in {losses}")
+        ckpt_gb = sum(os.path.getsize(ckpt + s) for s in (".pdparams",
+                                                          ".pdopt")) / 2 ** 30
+        t = time.perf_counter()
+        resume = resume_check(torch, cfg, dev, seed, ckpt,
+                              batches[EAGER["save_after"]], probe.after,
+                              losses[EAGER["save_after"]])
+        resume["s"] = time.perf_counter() - t
+        resume["checkpoint_gb"] = ckpt_gb
+    # the optimizer's step alone, on the fit model's next batch: host time
+    # to enqueue it and its time to the device's end
+    opt = m._optimizer
+    real = opt.step
+    step_t = {}
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real()
+        step_t["host_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        step_t["ms"] = (time.perf_counter() - t0) * 1e3
+
+    opt.step = timed_step
+    m.train_batch([batches[0][0]], [batches[0][1]])
+    opt.step = real
+    prof = (profile_run(torch, lambda: m.train_batch([batches[1][0]],
+                                                     [batches[1][1]]))
+            if profile else None)
+    step_s = statistics.median(probe.times[1:])
+    rec = {"config": f"{TRAIN['preset']} {TRAIN['overrides']}", "layers": L,
+           "batch": B, "seq": S, "batches": n, "losses": losses,
+           "step_s": probe.times, "step_s_median": step_s,
+           "tokens_per_s": B * S / step_s, "peak_mem_gb": probe.peak,
+           "launches": counts, "optimizer_step_ms": step_t["ms"],
+           "optimizer_step_host_ms": step_t["host_ms"], "resume": resume}
+    if prof:
+        rec["profile"] = prof
+    del m, net, opt, probe
+    torch.cuda.empty_cache()
+    rec["mix_precision"] = mix_precision_leg(torch, np, cfg, dev, batches)
+    torch.cuda.empty_cache()
+    rec["remat"] = remat_leg(torch, np, cfg, dev, batches[0])
+    torch.cuda.empty_cache()
+    return rec
+
+
+def eager_e2e_phase(torch, dev, np):
+    """Phase 4's eager twin: the training widths at 2 layers, on the card
+    and on the CPU from the same weights and batch: one ``Model.fit`` step
+    (bf16, AdamW, LinearWarmup, clip) at batch 1 x 512 and, from an fp32
+    model decorated to fp16 at O2, one ``auto_cast(O2, float16)`` step
+    under a ``GradScaler`` at 1 x EAGER_E2E["fp16_seq"], then the same
+    scaled gradients with one inf injected: the scaler skips the step and
+    halves its scale on both sides."""
+    from paddle_tpu_torch import LlamaForCausalLM, amp, llama_config, nn, ops
+    from paddle_tpu_torch.optimizer import AdamW
+
+    vocab = train_config(llama_config).vocab_size
+    rng = np.random.RandomState(41)
+    tok = rng.randint(0, vocab, (TRAIN_E2E["batch"], TRAIN_E2E["seq"] + 1))
+    ids = torch.from_numpy(tok[:, :-1].astype(np.int64))
+    labels = torch.from_numpy(tok[:, 1:].astype(np.int64))
+    L = TRAIN_E2E["layers"]
+    rec = {"layers": L, "batch": TRAIN_E2E["batch"], "seq": TRAIN_E2E["seq"],
+           "fp16_seq": EAGER_E2E["fp16_seq"]}
+
+    def twins(dtype, seed):
+        cfg = train_config(llama_config, num_hidden_layers=L, dtype=dtype)
+        gpu = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+            dev).manual_seed(seed))
+        cpu = LlamaForCausalLM(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        return gpu, cpu
+
+    def params_close(what, models):
+        return max(check_close(torch, f"{what}: updated {k}",
+                               p.detach().cpu(),
+                               models[1].get_parameter(k).detach(),
+                               TRAIN_PARAM_ATOL, BF16_STEP)
+                   for k, p in models[0].named_parameters())
+
+    # the eager Model.fit step, bf16
+    models = twins("bfloat16", 41)
+    losses = []
+    for net, d in zip(models, (dev, "cpu")):
+        m = eager_prepare(torch, net)
+        got = []
+        ops.reset_launch_counts()
+        m.fit([(ids.to(d), labels.to(d))], verbose=0,
+              callbacks=[loss_log(got)])
+        losses.append(got[0])
+        if d == dev:
+            counts = ops.launch_counts()
+            check_launches(counts, eager_step_launches(counts, L),
+                           f"1 eager step of {L} layers")
+    # the loss of bf16 logits is a bf16 tensor: one bf16 step more, as the
+    # Layer API's loss in train_e2e_phase
+    err = abs(losses[0] - losses[1])
+    if not (np.isfinite(losses).all()
+            and err <= TRAIN_LOSS_ATOL + BF16_STEP * abs(losses[1])):
+        raise AssertionError(f"eager fit step: loss {losses[0]} on the card, "
+                             f"{losses[1]} on the CPU")
+    rec["fit"] = {"loss_card": losses[0], "loss_cpu": losses[1],
+                  "loss_abs_err": err,
+                  "param_max_abs_err": params_close("eager fit step",
+                                                    models)}
+    del models
+    # fp16 O2 under a GradScaler, then the injected inf
+    models = twins("float32", 42)
+    runs = []
+    for net, d in zip(models, (dev, "cpu")):
+        amp.decorate(net, level="O2", dtype="float16")
+        opt = AdamW(learning_rate=TRAIN["lr"], parameters=net.parameters(),
+                    weight_decay=EAGER["weight_decay"],
+                    grad_clip=nn.ClipGradByGlobalNorm(TRAIN["clip"]))
+        sc = amp.GradScaler(init_loss_scaling=EAGER_E2E["scale"])
+        ops.reset_launch_counts()
+        n = EAGER_E2E["fp16_seq"]
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = nn.CrossEntropyLoss()(net(ids[:, :n].to(d)),
+                                         labels[:, :n].to(d))
+        sc.scale(loss).backward()
+        if d == dev:
+            counts = ops.launch_counts()
+            check_launches(counts, eager_step_launches(counts, L),
+                           f"1 fp16 O2 step of {L} layers")
+        scaled = [p.grad.clone() for p in net.parameters()]
+        dtypes = sorted({str(p.dtype) for p in net.parameters()})
+        sc.step(opt)
+        sc.update()
+        run = {"loss": float(loss.detach()), "loss_dtype": str(loss.dtype),
+               "scales": [sc.get_loss_scaling()], "param_dtypes": dtypes}
+        after = [p.detach().clone() for p in net.parameters()]
+        opt.clear_grad()
+        for p, g in zip(net.parameters(), scaled):
+            p.grad = g
+        scaled[0].view(-1)[0] = float("inf")
+        sc.step(opt)
+        sc.update()
+        run["scales"].append(sc.get_loss_scaling())
+        run["skipped"] = all(torch.equal(p.detach(), a)
+                             for p, a in zip(net.parameters(), after))
+        runs.append(run)
+        del opt, sc, scaled, after
+    card, cpu = runs
+    err = abs(card["loss"] - cpu["loss"])
+    want_scales = [EAGER_E2E["scale"], EAGER_E2E["scale"] / 2]
+    if not (np.isfinite([card["loss"], cpu["loss"]]).all()
+            and err <= TRAIN_LOSS_ATOL and card["scales"] == cpu["scales"]
+            == want_scales and card["skipped"] and cpu["skipped"]):
+        raise AssertionError(f"fp16 O2 GradScaler step: card {card}, CPU "
+                             f"{cpu}")
+    rec["fp16_o2"] = {"card": card, "cpu": cpu, "loss_abs_err": err,
+                      "param_max_abs_err": params_close("fp16 O2 step",
+                                                        models)}
+    del models
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phase 5: serve the 7B preset --------------------------------------------
 
 
@@ -4908,6 +5379,17 @@ def main(argv=None) -> int:
         f"{dr['gap_mean_first10']:.5f} over the first 10 and "
         f"{dr['gap_mean_last10']:.5f} over the last 10, grows: "
         f"{dr['grows']}  [{smi}]")
+    record["eager_e2e"] = eager_e2e_phase(torch, dev, np)
+    ee = record["eager_e2e"]
+    log(f"[e2e] eager twin at {ee['layers']} layers, {ee['batch']} x "
+        f"{ee['seq']}: Model.fit step loss {ee['fit']['loss_card']:.5f} on "
+        f"the card, {ee['fit']['loss_cpu']:.5f} on the CPU, parameters within "
+        f"{ee['fit']['param_max_abs_err']:.3g}; fp16 O2 GradScaler step (1 x "
+        f"{ee['fp16_seq']}) loss "
+        f"{ee['fp16_o2']['card']['loss']:.5f} / "
+        f"{ee['fp16_o2']['cpu']['loss']:.5f}, scales "
+        f"{ee['fp16_o2']['card']['scales']} on both, the injected inf "
+        f"skipped on both  [{smi}]")
     record["f32"] = f32_phase(torch, dev, np)
     record["phases"]["e2e"] = time.perf_counter() - t
     log(f"[e2e] fp32 {json.dumps(record['f32'])}")
@@ -5011,6 +5493,37 @@ def main(argv=None) -> int:
         f"{tr['attention_flops_model']:.4g} attention FLOPs), peak "
         f"{tr['peak_mem_gb']:.2f} GiB, losses {tr['losses']}  [{smi}]")
     log(f"[train] {record['phases']['train']:.1f}s")
+    # 6b. the eager training surface at the training configuration
+    t = time.perf_counter()
+    eg = eager_train_phase(torch, dev, np, args.seed, profile=args.profile)
+    record["eager"] = eg
+    record["phases"]["eager"] = time.perf_counter() - t
+    rs, mx = eg["resume"], eg["mix_precision"]
+    log(f"[eager] Model.fit {eg['config']} x{eg['layers']}, {eg['batch']}x"
+        f"{eg['seq']} tokens (AdamW, LinearWarmup, global-norm clip): step "
+        f"{eg['step_s_median']:.4f} s (steps {eg['step_s']}), "
+        f"{eg['tokens_per_s']:.1f} tokens/s, peak {eg['peak_mem_gb']:.2f} GiB"
+        f"; phase 6's functional step {tr['step_s_median']:.4f} s, "
+        f"{tr['tokens_per_s']:.1f} tokens/s, peak {tr['peak_mem_gb']:.2f} "
+        f"GiB; optimizer step {eg['optimizer_step_ms']:.2f} ms (host "
+        f"{eg['optimizer_step_host_ms']:.2f} ms); losses {eg['losses']}"
+        f"  [{smi}]")
+    if "profile" in eg:
+        log(f"[eager] device busy {eg['profile']['device_busy_share']:.1%} "
+            f"of a train_batch's wall time  [{smi}]")
+    log(f"[eager] resume after step {EAGER['save_after']} "
+        f"({rs['checkpoint_gb']:.2f} GiB, {rs['s']:.1f} s): the next step "
+        f"bitwise the uninterrupted one's: {rs['bitwise']}"
+        + ("" if rs["bitwise"] else f" ({rs['cause']})"))
+    log(f"[eager] MixPrecisionOptimizer: {mx['steps']} steps, losses "
+        f"{mx['losses']['mixed']} against plain AdamW's "
+        f"{mx['losses']['plain']}, fp32 masters {mx['masters_gb']:.2f} GiB")
+    for pol, r in eg["remat"].items():
+        log(f"[eager] remat={pol!r}: step {r['step_s']:.4f} s, peak "
+            f"{r['peak_mem_gb']:.2f} GiB, flash forwards "
+            f"{r['launches']['flash_fwd']}, bitwise full's: "
+            f"{r.get('bitwise', True)}  [{smi}]")
+    log(f"[eager] {record['phases']['eager']:.1f}s")
     # 7. the fused transformer at the 6.7B widths
     t = time.perf_counter()
     fm = fmt_phase(torch, dev, profile=args.profile)
@@ -5045,7 +5558,7 @@ def main(argv=None) -> int:
                 fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
-                f32=record["f32"])
+                f32=record["f32"], eager_fit=eg)
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

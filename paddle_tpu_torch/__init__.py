@@ -36,27 +36,39 @@ request trace ring and flight recorder (``tracing``) and deterministic
 fault injection (``testing``), switched by ``FLAGS_enable_monitor`` and
 ``FLAGS_enable_trace``.
 
-``serving``, ``monitor``, ``tracing``, ``testing`` and ``profiler`` load on
-first access (``paddle_tpu_torch.serving``), as in the reference; nothing
-imports ``http.server`` before ``serve_http`` is called.
+The eager training surface, as a PaddlePaddle user trains: the optimizers,
+LR schedulers and regularizers (``optimizer``, ``optimizer.lr``), the
+gradient clips and losses (``nn``, ``nn.functional``), AMP with the
+reference's op lists, ``GradScaler`` and the nan/inf checks (``amp``,
+``FLAGS_check_nan_inf``), main-gradient mixed precision
+(``distributed.fleet.utils``), ``save``/``load``, ``metric`` and ``Model``
+with its callbacks (``hapi``); ``build_train_step`` also takes the selective
+remat policies ``"attn_out"`` and ``"dots"``.
+
+``serving``, ``monitor``, ``tracing``, ``testing``, ``profiler``, ``amp``
+and ``metric`` load on first access (``paddle_tpu_torch.serving``), as in
+the reference; nothing imports ``http.server`` before ``serve_http`` is
+called.
 """
 import importlib as _importlib
 
 from .device import get_device
-from .framework import get_flags, set_flags
+from .framework import get_flags, load, save, set_flags
 from .inference.generation import (CausalLMEngine, ContinuousBatchingEngine,
                                    GenerationConfig,
                                    PagedContinuousBatchingEngine)
+from .hapi import Model
 from .models import (LlamaConfig, LlamaForCausalLM, build_train_step,
                      llama_config, load_paddle_params, load_stacked_params)
 
 __all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausalLM", "llama_config",
            "load_paddle_params", "load_stacked_params", "build_train_step",
            "GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
-           "PagedContinuousBatchingEngine"]
+           "PagedContinuousBatchingEngine", "save", "load", "Model"]
 
 # subpackages that load on first access (PEP 562), as the reference's do
-_LAZY_SUBMODULES = {"serving", "monitor", "tracing", "testing", "profiler"}
+_LAZY_SUBMODULES = {"serving", "monitor", "tracing", "testing", "profiler",
+                    "amp", "metric"}
 
 
 def __getattr__(name):

@@ -1,3 +1,4 @@
+from . import utils
 from .recompute import recompute
 
-__all__ = ["recompute"]
+__all__ = ["recompute", "utils"]

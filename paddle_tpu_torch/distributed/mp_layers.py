@@ -6,6 +6,12 @@ carry across as they are: embeddings ``[vocab, hidden]``, linear weights
 ``[in, out]`` applied as ``x @ W``. Sharding over a mesh (the reference's
 ``mp`` axis) is not ported yet: each layer holds and applies its whole
 weight.
+
+Under AMP the embedding casts its weight as the reference's ``embedding``
+op (gray), the linears their input and weight as ``linear`` (white) and the
+cross entropy its logits as ``c_softmax_with_cross_entropy`` (black), each
+output checked under ``FLAGS_check_nan_inf``
+(``framework/amp_state.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..framework.amp_state import cast_inputs, check_outputs
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy"]
@@ -29,7 +37,10 @@ class VocabParallelEmbedding(nn.Module):
             num_embeddings, embedding_dim, device=device, dtype=dtype))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.weight)
+        (w,) = cast_inputs("embedding", self.weight)
+        out = F.embedding(ids.long(), w)
+        check_outputs("embedding", out)
+        return out
 
 
 class _Linear(nn.Module):
@@ -47,8 +58,12 @@ class _Linear(nn.Module):
                                      dtype=dtype)) if has_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.weight)
-        return y if self.bias is None else y + self.bias
+        x, w, b = cast_inputs("linear", x, self.weight, self.bias)
+        y = torch.matmul(x, w)
+        if b is not None:
+            y = y + b
+        check_outputs("linear", y)
+        return y
 
 
 class ColumnParallelLinear(_Linear):
@@ -73,10 +88,13 @@ class ParallelCrossEntropy(nn.Module):
 
     def forward(self, logits: torch.Tensor,
                 label: torch.Tensor) -> torch.Tensor:
+        (logits,) = cast_inputs("c_softmax_with_cross_entropy", logits)
         ignored = label == self.ignore_index
         safe = torch.where(ignored, torch.zeros_like(label), label).long()
         gmax = logits.amax(-1, keepdim=True)
         gsum = torch.exp(logits - gmax).sum(-1, keepdim=True)
         tgt = torch.gather(logits, -1, safe[..., None])
         loss = torch.log(gsum) + gmax - tgt
-        return loss.masked_fill(ignored[..., None], 0.0)
+        loss = loss.masked_fill(ignored[..., None], 0.0)
+        check_outputs("c_softmax_with_cross_entropy", loss)
+        return loss

@@ -18,6 +18,8 @@ plain jnp in the reference. Every kernel wrapper on the training path is
 differentiable, so ``model(ids, labels).backward()`` reaches every
 parameter; ``config.recompute = "full"`` recomputes each decoder layer in
 the backward (``distributed.fleet.recompute``) while the model trains.
+Under ``amp.auto_cast`` its ops cast by the reference's op lists
+(``framework/amp_state.py``); the tied head is ``tied_lm_head`` (gray).
 
 Serving forwards ported: ``forward_with_cache`` as a fresh prefill
 (``pos == 0``), a chunk of a prefill at any ``pos`` (an int or a 0-d device
@@ -54,6 +56,7 @@ from ..distributed.fleet.recompute import recompute
 from ..distributed.mp_layers import (ColumnParallelLinear,
                                      ParallelCrossEntropy, RowParallelLinear,
                                      VocabParallelEmbedding)
+from ..framework.amp_state import cast_inputs
 from ..nn.layer.norm import RMSNorm
 from ..ops._decode import gqa_decode_attention
 from ..ops.attention import flash_attention, prefix_chunk_attention
@@ -618,7 +621,9 @@ class LlamaForCausalLM(nn.Module):
 
     def logits(self, hidden):
         if self.lm_head is None:
-            return torch.matmul(hidden, self.model.embed_tokens.weight.T)
+            hidden, w = cast_inputs("tied_lm_head", hidden,
+                                    self.model.embed_tokens.weight)
+            return torch.matmul(hidden, w.T)
         return self.lm_head(hidden)
 
     def forward(self, input_ids, labels=None):

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..framework.amp_state import cast_inputs, check_outputs
 from ..framework.flags import get_flags
 from .flash_attention_hb import flash_attention_bshd_hb, supports_hb
 from .flash_attention_kernel import FlashAttention, prefix_chunk_attention
@@ -47,9 +48,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (GQA: Hq a multiple of Hkv), bottom-right causal when ``causal``.
     ``dropout_p`` drops attention probabilities with the kernels' counter
     hash keyed by ``seed`` (default 0), the same mask in the forward and
-    the backward. Differentiable. Returns [B, Sq, Hq, D]."""
+    the backward. Differentiable. Returns [B, Sq, Hq, D]. White under
+    AMP (q, k, v go to the AMP dtype); under ``FLAGS_check_nan_inf`` the
+    output is checked."""
+    q, k, v = cast_inputs("flash_attention", q, k, v)
     if _use_hb(q, k, dropout_p):
-        return flash_attention_bshd_hb(q, k, v, causal=causal,
-                                       sm_scale=sm_scale)
-    return FlashAttention.apply(q, k, v, causal, sm_scale, float(dropout_p),
-                                0 if seed is None else int(seed))
+        out = flash_attention_bshd_hb(q, k, v, causal=causal,
+                                      sm_scale=sm_scale)
+    else:
+        out = FlashAttention.apply(q, k, v, causal, sm_scale,
+                                   float(dropout_p),
+                                   0 if seed is None else int(seed))
+    check_outputs("flash_attention", out)
+    return out

@@ -36,6 +36,7 @@ import functools
 
 import torch
 
+from ..framework.amp_state import cast_inputs, check_outputs
 from . import _build
 
 __all__ = ["rms_norm", "rms_norm_ref", "fused_layer_norm",
@@ -321,10 +322,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     """y = x / sqrt(mean(x^2, -1) + eps) * w over x [..., H] (K1: rows
     held in registers, a warp or a few a row). Differentiable in x and
     w; where no gradient is wanted (the decode paths run under no_grad)
-    the autograd Function and its host cost are skipped."""
+    the autograd Function and its host cost are skipped. Under AMP its
+    inputs go to fp32 (black list); under ``FLAGS_check_nan_inf`` its
+    output is checked."""
+    x, weight = cast_inputs("rms_norm", x, weight)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        return _RMSNorm.apply(x, weight, eps)
-    return _rms_norm_fwd(x, weight, eps)
+        y = _RMSNorm.apply(x, weight, eps)
+    else:
+        y = _rms_norm_fwd(x, weight, eps)
+    check_outputs("rms_norm", y)
+    return y
 
 
 rms_norm.launches = 0
@@ -547,10 +554,16 @@ def fused_rope(x: torch.Tensor, cos: torch.Tensor,
     [S, D/2] (K2: a team of threads a position, its table row loaded once
     for all its heads), reading x through its strides. Differentiable in
     x; the backward launches K2 with -sin. Where no gradient is wanted the
-    autograd Function and its host cost are skipped."""
+    autograd Function and its host cost are skipped. Gray under AMP (O2
+    casts x and the tables to the AMP dtype); under
+    ``FLAGS_check_nan_inf`` its output is checked."""
+    x, cos, sin = cast_inputs("fused_rope", x, cos, sin)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Rope.apply(x, cos, sin)
-    return _rope_fwd(x, cos, sin)
+        y = _Rope.apply(x, cos, sin)
+    else:
+        y = _rope_fwd(x, cos, sin)
+    check_outputs("fused_rope", y)
+    return y
 
 
 fused_rope.launches = 0

@@ -375,6 +375,66 @@ def test_serving_front_modules_are_checked(module):
         assert hasattr(mod, n), n
 
 
+TRAINING_SURFACE_MODULES = [
+    "paddle_tpu_torch/optimizer/lr.py",
+    "paddle_tpu_torch/optimizer/optimizer.py",
+    "paddle_tpu_torch/nn/clip.py",
+    "paddle_tpu_torch/nn/functional/loss.py",
+    "paddle_tpu_torch/nn/layer/loss.py",
+    "paddle_tpu_torch/framework/amp_state.py",
+    "paddle_tpu_torch/amp/__init__.py",
+    "paddle_tpu_torch/amp/amp_lists.py",
+    "paddle_tpu_torch/amp/auto_cast.py",
+    "paddle_tpu_torch/amp/grad_scaler.py",
+    "paddle_tpu_torch/amp/debugging.py",
+    "paddle_tpu_torch/distributed/fleet/utils/mix_precision_utils.py",
+    "paddle_tpu_torch/framework/io.py",
+    "paddle_tpu_torch/metric/__init__.py",
+    "paddle_tpu_torch/hapi/callbacks.py",
+    "paddle_tpu_torch/hapi/model.py"]
+
+
+@pytest.mark.parametrize("module", TRAINING_SURFACE_MODULES)
+def test_training_surface_modules_are_checked(module):
+    """The modules of the eager training surface are among the sources
+    the no-JAX checks read, and import nothing of ``ml_dtypes`` either."""
+    assert ROOT / module in _sources()
+    tree = ast.parse((ROOT / module).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(n.split(".")[0] == "ml_dtypes" for n in names)
+
+
+def test_a_jax_written_checkpoint_loads_with_the_reference_blocked(tmp_path):
+    """``paddle_tpu.save`` writes a state dict (fp32); an interpreter where
+    ``jax``, ``paddle_tpu`` and ``ml_dtypes`` are blocked loads it through
+    ``paddle_tpu_torch.load`` and imports none of them (the payload's class
+    path is mapped by name)."""
+    import numpy as np
+
+    import paddle_tpu
+
+    w = np.arange(12, dtype=np.float32).reshape(3, 4)
+    paddle_tpu.save({"w": paddle_tpu.to_tensor(w), "step": 7},
+                    str(tmp_path / "jax.pdparams"))
+    code = (_IMPORT_ALL.split("import paddle_tpu_torch")[0]
+            .replace("FORBIDDEN = %r", "FORBIDDEN = %r + ('ml_dtypes',)")
+            % (FORBIDDEN, str(ROOT)))
+    code += ("import paddle_tpu_torch as pt\n"
+             "sd = pt.load('jax.pdparams', device='cpu')\n"
+             "assert sd['step'] == 7 and sd['w'].shape == (3, 4)\n"
+             "print(float(sd['w'].sum()))\n"
+             "bad = sorted(m for m in sys.modules\n"
+             "             if m.split('.')[0] in FORBIDDEN)\n"
+             "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert float(out.stdout.split()[-1]) == float(w.sum())
+
+
 def test_serving_imports_lazily_and_without_http_server():
     """``paddle_tpu_torch.serving`` loads on first access and imports no
     ``http.server`` until ``serve_http`` is called; the serving modules

@@ -649,7 +649,8 @@ def test_flags_match_the_reference_registry(monkeypatch):
     jax_reg, port_reg = (_fresh(m)._REGISTRY for m in (jax_flags,
                                                         port_flags))
     assert set(port_reg) == {"FLAGS_flash_head_batched",
-                             "FLAGS_enable_monitor", "FLAGS_enable_trace"}
+                             "FLAGS_enable_monitor", "FLAGS_enable_trace",
+                             "FLAGS_check_nan_inf"}
     for name in port_reg:
         assert port_reg[name] == jax_reg[name]
     assert port_reg["FLAGS_flash_head_batched"] is False

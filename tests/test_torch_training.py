@@ -12,6 +12,9 @@
 - The slice as a whole: the port's ``build_train_step`` against JAX's
   (weights carried across in stacked form), and the Layer API's gradients
   with full recompute against ``jax.grad`` through ``functional_call``.
+- The selective remat policies of ``build_train_step`` ("attn_out",
+  "dots"): loss and gradients bitwise those of "full" on the CPU, with
+  their flash forwards counted, and allclose to the reference's policies.
 - The fault this slice repaired: a kernel's output has no ``grad_fn``; the
   autograd Functions must still route every gradient through the ported
   backward.
@@ -562,13 +565,74 @@ def test_train_step_raises_when_a_gradient_is_missing(monkeypatch):
 # -- options and carries -----------------------------------------------------
 
 
-@pytest.mark.parametrize("remat,exc", [("attn_out", NotImplementedError),
-                                       ("dots", NotImplementedError),
-                                       ("sometimes", ValueError)])
+@pytest.mark.parametrize("remat,exc", [("sometimes", ValueError)])
 def test_unported_remat_policies_raise(remat, exc):
     cfg = llama_config("tiny", num_hidden_layers=1)
     with pytest.raises(exc):
         build_train_step(cfg, remat=remat, device="cpu")
+
+
+def _remat_grads(model, policy, ids, labels, monkeypatch):
+    """(loss, {name: grad}, flash forwards) of one backward under
+    ``policy``."""
+    calls = []
+    real = fk.flash_attention_bshd
+    monkeypatch.setattr(fk, "flash_attention_bshd",
+                        lambda *a: calls.append(1) or real(*a))
+    model.zero_grad(set_to_none=True)
+    loss = llama_functional.build_loss_fn(model.config, remat=policy)(
+        model, ids, labels)
+    loss.backward()
+    monkeypatch.setattr(fk, "flash_attention_bshd", real)
+    return loss.detach(), {k: p.grad.clone()
+                           for k, p in model.named_parameters()}, len(calls)
+
+
+@pytest.mark.parametrize("policy,flash", [("attn_out", 1), ("dots", 2),
+                                          ("none", 1)])
+def test_selective_remat_gradients_are_full_remat_bitwise(policy, flash,
+                                                          monkeypatch):
+    """The selective policies recompute other parts of each layer, but the
+    same arithmetic: loss and every gradient bitwise those of "full" on
+    the CPU; flash forwards a layer and step: 1 ("attn_out" keeps K3's
+    output, "none"), 2 ("dots" recomputes K3, as "full" does)."""
+    model = LlamaForCausalLM(llama_config("tiny", num_hidden_layers=2,
+                                          num_key_value_heads=2),
+                             device="cpu")
+    ids, labels = (_t(a).long() for a in _batch(model.config, seed=7))
+    loss_f, grads_f, n_full = _remat_grads(model, "full", ids, labels,
+                                           monkeypatch)
+    loss, grads, n = _remat_grads(model, policy, ids, labels, monkeypatch)
+    assert (n_full, n) == (2 * 2, flash * 2)
+    assert torch.equal(loss, loss_f)
+    for k, g in grads.items():
+        assert torch.equal(g, grads_f[k]), k
+
+
+@pytest.mark.parametrize("policy", ["attn_out", "dots"])
+def test_selective_remat_matches_the_reference_policy(policy):
+    """Loss and gradients against ``jax.value_and_grad`` of the reference's
+    loss under the same remat policy (its scan over stacked layers)."""
+    jm, cfg = _jax_model(2, 2, seed=9)
+    named = {k: jnp.asarray(p.value) for k, p in jm.named_parameters()}
+    stacked, rest = jax_functional.stack_params(named, cfg)
+    ids, labels = _batch(cfg, seed=10)
+    jloss, (gs, gr) = jax.value_and_grad(
+        jax_functional.build_loss_fn(cfg, remat=policy), argnums=(0, 1))(
+            stacked, rest, jnp.asarray(ids), jnp.asarray(labels))
+    want = jax_functional.unstack_params(gs, gr)
+    model = LlamaForCausalLM(llama_config("tiny", num_hidden_layers=2,
+                                          num_key_value_heads=2),
+                             device="cpu")
+    load_stacked_params(model, {k: np.asarray(v) for k, v in stacked.items()},
+                        {k: np.asarray(v) for k, v in rest.items()})
+    loss = llama_functional.build_loss_fn(model.config, remat=policy)(
+        model, _t(ids).long(), _t(labels).long())
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
+    for k, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), _np(want[k]), **TOL,
+                                   err_msg=k)
 
 
 def test_recompute_option_is_checked():
