@@ -87,7 +87,17 @@ Phases, each timed, none caught and passed over:
    streams, so that drafts are accepted: captured against uncaptured
    bitwise, spec against plain on the card up to a near-tie, the card
    against the CPU, no capture after warmup, the decode kernel's launches
-   W times a layer a verify step);
+   W times a layer a verify step); multi-tenant LoRA at 2 layers (LORA:
+   the paged engine with bf16 and with int8 pools and the dense engine,
+   a bank of rank 16 on every target projection, one batch of a base row,
+   a rank-8 adapter zero-padded and a rank-16 one; the adapters hot-loaded
+   after ``warmup()`` with no capture and the bank unmoved, captured
+   streams bitwise uncaptured, each row bitwise served alone, the base row
+   bitwise a LoRA-free engine's, the card against the CPU up to a near-tie
+   under the row's adapter, the merged-weights oracle in fp32 within
+   MERGED_ATOL (and two faulty merges read above it),
+   and speculation in host and device mode with oracle drafts against the
+   plain LoRA streams, launches the path's);
    then the training
    configuration's widths at 2 layers, one Layer-API backward and one
    AdamW train step on the card and on the CPU from the same weights and
@@ -154,7 +164,20 @@ Phases, each timed, none caught and passed over:
    from 8 client threads: TTFT, TPOT, tokens per forward and the accepted
    share beside the plain ``Server``'s, where the streams part from its
    (failing at a top-2 margin of NEAR_TIE or more), K4's launches a
-   verify step held at layers x W.
+   verify step held at layers x W; and this slice's path, multi-tenant
+   LoRA through the serving front (LORA_SERVER: the chunked engine with a
+   bank of 4 slots of rank 16 on q/k/v/o, ``Server(segment_steps=8,
+   warmup=True)``, three adapters loaded through ``Server.load_adapter``):
+   base traffic alone (its streams the plain ``Server``'s, its TPOT the
+   bank's cost), then the 8 prompts from 8 client threads, 2 base and 2
+   under each adapter, a fourth adapter hot-loaded and one in use unloaded
+   (deferred, freed after the drain) while they decode (TTFT, TPOT and
+   tokens/s beside the plain ``Server``'s, launches the path's), each
+   adapter request alone against its mixed stream up to a near-tie,
+   ``serve_http``'s ``/adapters/unload``, ``/adapters/load`` from an npz
+   and ``/generate`` naming the adapter, ``/healthz``'s ``lora`` block; no
+   capture after warmup; then the LoRA ops of one decode step captured and
+   timed, their kernels counted.
    Each engine is built, then
    ``warmup()``-ed (``warmup(8)``: greedy and sampled segments;
    ``generate``'s engine ``warmup(batch=8)``: greedy and sampled steps),
@@ -219,7 +242,10 @@ MoE up and down GEMMs with fp32 and with bf16 out) and
 ``--norm-rope-times TREE`` (K1 and K2 at every main-path shape: device
 time and host time per call). Run
 for a parent and a change in turns (parent, change, change, parent), each
-in a fresh process, they compare two trees on one card.
+in a fresh process, they compare two trees on one card. ``--lora-times``
+runs only the LoRA legs (phase 4's at 2 layers, then a plain ``Server``
+and phase 5's LoRA ``Server`` leg twice at 7B) and prints one JSON line:
+their readings and their spread in one process.
 """
 from __future__ import annotations
 
@@ -303,6 +329,22 @@ SPEC = dict(draft_k=4, modes=(("host", "ngram"), ("device", "ngram"),
 # phase 5's sampled serve (and phase 4's sampled runs): each request's seed
 # is its index
 SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95)
+# multi-tenant LoRA. Phase 4 at 2 layers of the 7B widths: every target
+# projection, a bank of rank 16 with 3 slots, one adapter of rank 8 (zero
+# padded) and one of rank 16 (alpha 16: scales 2 and 1) beside a base row
+# in one batch of 3 prompts. Phase 5 at 32 layers: the reference's default
+# targets q/k/v/o, a bank of rank 16 with 4 slots (about 168 MB), adapters
+# of rank 16. Factors are seeded normals of std ``scale``: at the 7B widths
+# a delta of about a third of its projection's output, so adapter streams
+# part from the base ones
+LORA = dict(targets=("q", "k", "v", "o", "gate", "up", "down"), rank=16,
+            capacity=3, ranks=(8, 16), alpha=16, scale=0.04, seed=17,
+            prompts=(100, 37, 64), new=8)
+# lora_op_cost: eager steps of the LoRA ops profiled (after a warm-up one)
+LORA_PROFILE_STEPS = 4
+LORA_SERVER = dict(targets=("q", "k", "v", "o"), rank=16, capacity=4,
+                   alpha=16, seed=23,
+                   adapters=(None, None, "a0", "a0", "a1", "a1", "a2", "a2"))
 # phase 5's /metrics scraper beside a Server's warmup: a scrape every 10 ms
 # (back to back, each scrape's host time, about 2.6 ms on the 7B serve's
 # registry, holds the GIL the scheduler thread's capture needs)
@@ -431,6 +473,12 @@ LSE_ATOL = 1e-3                 # fp32 log-sum-exp, a few fp32 ulps of work
 # 2^-5 in bf16 and two layers of such rounding reach a few steps
 LOGIT_ATOL = 0.125
 NEAR_TIE = 2 * LOGIT_ATOL       # top-2 margin under which greedy may flip
+# LoRA's merged-weights oracle (phase 4), fp32 on both sides: W x + B (A x)
+# against (W + B A) x sums the same products in another order, a few fp32
+# ulps of each sum (logits near 5-8 through two layers: about 1e-4); the
+# faults it must catch (a wrong scale, a target left out) move the logits
+# by units, as LoRA itself does
+MERGED_ATOL = 1e-2
 # FusedMultiTransformer end to end (phase 4), bf16 on both sides: outputs
 # are the residual stream (|x| up to ~6 at 2 layers, std ~1.2), where a
 # bf16 step is 2^-5; two layers of bf16 rounding in another order reach a
@@ -502,21 +550,23 @@ SPEC_PATHS = ("server_spec_host", "server_spec_device",
               "server_spec_oracle_host", "server_spec_oracle_device")
 PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
          "serve_sampled", "server", "serve_prefix",
-         "server_pressure") + SPEC_PATHS + ("train", "fmt", "train_hb",
-                                             "ops", "f32", "eager_fit")
-# this slice's path: Model.fit's timed steps at the training configuration
-# (phase 6b), which run K1, K2, K3, K5 and K6
-SLICE_PATHS = ("eager_fit",)
+         "server_pressure") + SPEC_PATHS + ("server_lora", "train", "fmt",
+                                             "train_hb", "ops", "f32",
+                                             "eager_fit")
+# this slice's path: the multi-tenant LoRA Server's mixed serve at 7B
+# (phase 5), which runs K1, K2, K3 (one-shot and prefix-chunk) and K4
+SLICE_PATHS = ("server_lora",)
 # earlier slices' paths, in the order their counts stand in for a kernel
 # this slice does not run: the decode paths, which run K4 and K7 (phase 5's
 # through captured graphs), the chunked and sampled serves, the serving
 # front's Server serve, the prefix-cache and memory-pressure legs, the
-# speculative Server serves and FMT (K8); then training; then the kernel
-# ops (K9, K10)
+# speculative Server serves and FMT (K8); then training, the eager
+# Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
 EARLIER_PATHS = (("serve", "serve_int8", "generate", "dense_serve",
                   "serve_chunked", "serve_sampled", "server",
                   "serve_prefix", "server_pressure") + SPEC_PATHS
-                 + ("fmt",), ("train", "f32"), ("ops", "train_hb"))
+                 + ("fmt",), ("eager_fit", "train", "f32"),
+                 ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
 
 
@@ -2372,6 +2422,7 @@ def e2e_phase(torch, dev, np):
                             for name in ("greedy", "int8", "dense")})
     rec["chunked_sampled"] = chunk_sample_e2e(torch, np, gpu, cpu)
     rec["prefix_pressure"] = prefix_pressure_e2e(torch, np, gpu, cpu)
+    rec["lora"] = lora_e2e(torch, np, gpu, cpu)
     del gpu, cpu
     torch.cuda.empty_cache()
     return rec
@@ -2646,6 +2697,283 @@ def prefix_pressure_e2e(torch, np, gpu, cpu):
     rec["pressure_tokens_matched_cpu"] = matched_tokens(
         torch, np, cpu, prompts, pressed, c_pressed)
     rec["cpu_preemptions"] = c_preempts
+    return rec
+
+
+def lora_factors(np, model, targets, rank, seed, scale=None, per_layer=True):
+    """Seeded numpy LoRA factors ``{target: (A, B)}`` at ``model``'s widths
+    (``lora_shapes``): A ``[L, rank, d_in]``, B ``[L, d_out, rank]`` (or
+    one pair for every layer), normals of std ``scale``."""
+    L, shapes = model.lora_shapes(targets)
+    rng = np.random.RandomState(seed)
+    sd = LORA["scale"] if scale is None else scale
+    lead = (L,) if per_layer else ()
+    return {t: ((rng.standard_normal(lead + (rank, d_in)) * sd).astype(
+                np.float32),
+                (rng.standard_normal(lead + (d_out, rank)) * sd).astype(
+                np.float32))
+            for t, (d_in, d_out) in shapes.items()}
+
+
+def bank_ptrs(eng) -> list:
+    return [t.data_ptr() for ab in eng.adapters.bank.values() for t in ab]
+
+
+def lora_margin(torch, np, model, bank, aidx, prompt, stream, n) -> float:
+    """The top-2 margin of ``model``'s next-token logits after ``prompt``
+    and ``stream[:n]``, under the adapter at bank index ``aidx``."""
+    seq = np.concatenate([prompt, np.asarray(stream[:n])]).astype(np.int32)
+    dev = model.device
+    with torch.no_grad():
+        lg, _ = model.forward_with_cache(
+            torch.from_numpy(seq)[None].to(dev),
+            model.init_cache(1, len(seq)), 0,
+            lora=(bank, torch.tensor([aidx], dtype=torch.int32,
+                                     device=dev)))
+    top2 = lg[0, -1].float().topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def lora_splits(torch, np, model, bank, aidx, prompts, outs, ref_outs,
+                what, near_tie=NEAR_TIE):
+    """Per prompt, the first token where ``outs`` parts from ``ref_outs``
+    and the top-2 margin there under the row's adapter (``aidx[i]``,
+    ``bank``); raises where they part at a margin of ``near_tie`` or
+    more."""
+    splits, margins = [], []
+    for i, (p, o, r) in enumerate(zip(prompts, outs, ref_outs)):
+        n = next((j for j in range(len(r)) if o[j] != r[j]), len(r))
+        mg = (None if n == len(r) else
+              lora_margin(torch, np, model, bank, aidx[i], p, r, n))
+        if mg is not None and mg >= near_tie:
+            raise AssertionError(
+                f"{what}: stream {i} parts at token {n} where the top-2 "
+                f"margin under its adapter is {mg:.3g} >= {near_tie}")
+        splits.append(n)
+        margins.append(mg)
+    return splits, margins
+
+
+def merged_model(torch, np, model, params, scale):
+    """A copy of ``model`` with one adapter merged into its weights,
+    ``W + (B A)^T * scale`` per layer and target (in fp32, then the
+    model's dtype): the merged-weights oracle of a LoRA forward."""
+    from paddle_tpu_torch import LlamaForCausalLM
+
+    m = LlamaForCausalLM(model.config, device=model.device)
+    m.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        for i, layer in enumerate(m.model.layers):
+            at, mlp = layer.self_attn, layer.mlp
+            projs = {"q": at.q_proj, "k": at.k_proj, "v": at.v_proj,
+                     "o": at.o_proj, "gate": mlp.gate_proj,
+                     "up": mlp.up_proj, "down": mlp.down_proj}
+            for t, (a, b) in params.items():
+                w = projs[t].weight
+                delta = torch.from_numpy((b[i] @ a[i]).T * scale)
+                w.copy_((w.float() + delta.to(w.device)).to(w.dtype))
+    return m
+
+
+def merged_oracle(torch, np, model, make, lora_kw, params, prompt) -> dict:
+    """The merged-weights oracle of a LoRA prefill, in fp32 on the card, so
+    the two association orders' roundings lie far below what it must
+    catch: ``model``'s weights in fp32, an engine from ``make`` with
+    ``lora_kw`` and ``params`` loaded at index 1, its prefill's last
+    logits against a LoRA-free engine's over ``W + (B A)^T * alpha / r``,
+    within MERGED_ATOL. Two faulty merges are read beside it and must read
+    above the limit: the scale of the bank's rank (alpha / 16 in place of
+    alpha / r) and the merge without the ``down`` target."""
+    import dataclasses
+
+    from paddle_tpu_torch import LlamaForCausalLM
+
+    m32 = LlamaForCausalLM(dataclasses.replace(model.config, dtype="float32"),
+                           device=model.device)
+    m32.load_state_dict(model.state_dict())
+    eng = make(m32, **lora_kw)
+    eng.load_adapter("a1", params, alpha=LORA["alpha"])
+    ids = np.asarray([prompt], np.int32)
+    plen, width = ids.shape[1], eng._prefill_width(ids.shape[1])
+    rank = next(iter(params.values()))[0].shape[-2]
+
+    def last(e, m, **kw):
+        return e._run_prefill(ids, plen, m.init_cache(1, width),
+                              **kw)[0].float()
+
+    reads = {}
+    with torch.no_grad():
+        got = last(eng, m32, lora=(eng.adapters.bank, torch.ones(
+            1, dtype=torch.int32, device=model.device)))
+        moved = (got - last(eng, m32)).abs().max().item()
+        for what, p, scale in (
+                ("sound", params, LORA["alpha"] / rank),
+                ("bank_rank_scale", params, LORA["alpha"] / LORA["rank"]),
+                ("no_down", {t: ab for t, ab in params.items()
+                             if t != "down"}, LORA["alpha"] / rank)):
+            m = merged_model(torch, np, m32, p, scale)
+            reads[what] = (got - last(make(m), m)).abs().max().item()
+            del m
+    del eng, m32
+    torch.cuda.empty_cache()
+    if reads["sound"] > MERGED_ATOL:
+        raise AssertionError(
+            f"lora e2e: merged-weights oracle in fp32, last logits differ by "
+            f"{reads['sound']:.3g} > {MERGED_ATOL}")
+    weak = [w for w in ("bank_rank_scale", "no_down")
+            if reads[w] <= MERGED_ATOL]
+    if weak:
+        raise AssertionError(f"lora e2e: the faulty merges {weak} read "
+                             f"within the limit {MERGED_ATOL}: {reads}")
+    return {"adapter": "a1", "rank": rank, "prompt": plen,
+            "dtype": "float32", "max_abs_err": reads["sound"],
+            "faults": {w: reads[w] for w in ("bank_rank_scale", "no_down")},
+            "lora_moved_logits_by": moved, "atol": MERGED_ATOL}
+
+
+def lora_e2e(torch, np, gpu, cpu):
+    """Multi-tenant LoRA at 2 layers of the 7B widths (LORA): the paged
+    engine with bf16 and with int8 pools and the dense engine, each with a
+    bank of 3 slots of rank 16 on every target projection, serving one
+    batch of a base request and two adapter requests (rank 8, zero-padded,
+    and rank 16), 8 greedy tokens each. On the card: the engine run
+    uncaptured, then warmed and the adapters hot-loaded AFTER ``warmup()``
+    (no capture; the bank keeps its addresses), its streams bitwise the
+    uncaptured ones, each row bitwise the same request served alone, the
+    base row bitwise a LoRA-free engine's, launches the path's (LoRA adds
+    no kernel); the card's streams against the CPU's, failing at a
+    near-tie-free split under the row's adapter. The merged-weights
+    oracle (:func:`merged_oracle`, in fp32): the rank-8 adapter's prefill
+    logits within MERGED_ATOL of a LoRA-free engine over ``W + (B A)^T *
+    alpha / r``. Speculation: the
+    paged engine with ``draft_k=4`` in host and device mode with oracle
+    drafts (the LoRA streams), every row speculating, against the plain
+    LoRA streams up to a near-tie, drafts accepted, launches the path's."""
+    from paddle_tpu_torch import (ContinuousBatchingEngine, GenerationConfig,
+                                  PagedContinuousBatchingEngine, ops)
+
+    cfg = gpu.config
+    L, new, k = cfg.num_hidden_layers, LORA["new"], SPEC["draft_k"]
+    rng = np.random.RandomState(LORA["seed"])
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in LORA["prompts"]]
+    adapters = {f"a{i + 1}": lora_factors(np, gpu, LORA["targets"], r,
+                                          LORA["seed"] + 1 + i)
+                for i, r in enumerate(LORA["ranks"])}
+    names = (None,) + tuple(adapters)
+    aidx = list(range(len(names)))         # the load order's bank indices
+    cfgs = [GenerationConfig(max_new_tokens=new, adapter=a) for a in names]
+    base = [GenerationConfig(max_new_tokens=new)] * len(prompts)
+    lora_kw = dict(lora_capacity=LORA["capacity"], lora_rank=LORA["rank"],
+                   lora_targets=LORA["targets"])
+    makers = {
+        "paged": lambda m, **kw: PagedContinuousBatchingEngine(
+            m, max_batch=3, num_pages=48, page_size=16, max_pages=16, **kw),
+        "paged_int8": lambda m, **kw: PagedContinuousBatchingEngine(
+            m, max_batch=3, num_pages=48, page_size=16, max_pages=16,
+            kv_dtype="int8", **kw),
+        "dense": lambda m, **kw: ContinuousBatchingEngine(
+            m, max_batch=3, max_len=256, **kw)}
+
+    def loaded(e):
+        for name, params in adapters.items():
+            e.load_adapter(name, params, alpha=LORA["alpha"])
+        return e
+
+    rec = {"targets": LORA["targets"], "bank_rank": LORA["rank"],
+           "adapter_ranks": LORA["ranks"], "alpha": LORA["alpha"],
+           "prompts": [len(p) for p in prompts], "adapters": names,
+           "max_new_tokens": new}
+    t_card = t_cpu = 0.0
+    streams = {}
+    for kind, make in makers.items():
+        t0 = time.perf_counter()
+        decode = "decode_mha" if kind == "dense" else "paged_decode"
+        eager = loaded(make(gpu, **lora_kw))
+        eager.programs.capture = False
+        want = eager.serve(prompts, cfgs, segment_steps=4)
+        del eager
+        eng = make(gpu, **lora_kw)
+        warm = eng.warmup(4)
+        before, ptrs = dict(eng.programs.captures), bank_ptrs(eng)
+        loaded(eng)                        # hot loads after warmup
+        p0, s0 = eng.prefills, eng.decode_steps
+        got, counts = counted_run(torch, ops, eng, lambda: eng.serve(
+            prompts, cfgs, segment_steps=4))
+        check_serve_launches(counts, L, eng.prefills - p0,
+                             eng.decode_steps - s0, decode)
+        solo = [eng.serve([p], [c], segment_steps=4)[0]
+                for p, c in zip(prompts, cfgs)]
+        plain = make(gpu).serve(prompts, base, segment_steps=4)
+        for what, a, b in (("captured", got, want), ("solo", solo, got)):
+            if [o.tolist() for o in a] != [w.tolist() for w in b]:
+                raise AssertionError(
+                    f"lora e2e {kind}: the {what} streams {a} differ from "
+                    f"{b} on the card")
+        if got[0].tolist() != plain[0].tolist():
+            raise AssertionError(
+                f"lora e2e {kind}: the base row {got[0]} differs from the "
+                f"LoRA-free engine's {plain[0]}")
+        if [o.tolist() for o in got[1:]] == [o.tolist() for o in plain[1:]]:
+            raise AssertionError(f"lora e2e {kind}: the adapter rows are "
+                                 f"the base model's")
+        if eng.programs.captures != before or bank_ptrs(eng) != ptrs:
+            raise AssertionError(
+                f"lora e2e {kind}: captures {eng.programs.captures} after "
+                f"warmup's {before}, or the bank moved")
+        t_card += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ceng = loaded(make(cpu, **lora_kw))
+        cpu_outs = ceng.serve(prompts, cfgs, segment_steps=4)
+        splits, margins = lora_splits(torch, np, cpu, ceng.adapters.bank,
+                                      aidx, prompts, got, cpu_outs,
+                                      f"lora e2e {kind} card against CPU")
+        t_cpu += time.perf_counter() - t0
+        streams[kind] = got
+        rec[kind] = {"graphs": {str(key): n for key, n in before.items()},
+                     "lora_install_s": warm["lora_install"],
+                     "launches": counts, "tokens_matched_cpu": splits,
+                     "split_top2_margins_cpu": margins,
+                     "captures_after_warmup": 0}
+        if kind == "paged":
+            t0 = time.perf_counter()
+            rec["merged_oracle"] = merged_oracle(
+                torch, np, gpu, make, lora_kw, adapters["a1"], prompts[1])
+            t_card += time.perf_counter() - t0
+        del eng, ceng
+    t0 = time.perf_counter()
+    spec = [GenerationConfig(max_new_tokens=new, adapter=a, speculative=True)
+            for a in names]
+    for mode in ("host", "device"):
+        e = makers["paged"](gpu, draft_k=k, spec_mode=mode, **lora_kw)
+        restore = oracle_drafts(np, e, prompts, streams["paged"])
+        e.warmup(4)
+        before = dict(e.programs.captures)
+        loaded(e)
+        n0 = (e.prefills, e.decode_steps, e.verify_steps)
+        outs, counts = counted_run(torch, ops, e, lambda: e.serve(
+            prompts, spec, segment_steps=4))
+        n_pre, n_steps, n_verify = (a - b for a, b in zip(
+            (e.prefills, e.decode_steps, e.verify_steps), n0))
+        check_spec_launches(counts, L, k + 1, n_pre, n_steps, n_verify,
+                            "paged_decode", f"lora spec e2e ({mode})")
+        st = e.spec_stats()
+        restore()
+        if st["accepted"] < 1 or e.programs.captures != before:
+            raise AssertionError(f"lora spec e2e ({mode}): accepted "
+                                 f"{st['accepted']}, captures "
+                                 f"{e.programs.captures} against {before}")
+        splits, margins = lora_splits(
+            torch, np, gpu, e.adapters.bank, aidx, prompts, outs,
+            streams["paged"], f"lora spec e2e ({mode})")
+        rec[f"spec_{mode}_oracle"] = {
+            "verify_steps": n_verify, "launches": counts,
+            "tokens_per_forward": st["tokens_per_forward"],
+            "first_split_from_plain": splits, "split_top2_margins": margins}
+        del e
+    t_card += time.perf_counter() - t0
+    rec.update(card_s=t_card, cpu_s=t_cpu)
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3938,14 +4266,16 @@ def chunked_serve_phase(torch, np, model, prompts, paged_outs,
                                   server_outs, server_rec, profile)
     del eng
     torch.cuda.empty_cache()
-    return tuple(recs) + (server_rec,) + spec_recs
+    lora_rec = lora_server_phase(torch, np, model, prompts, server_outs,
+                                 server_rec, profile)
+    return tuple(recs) + (server_rec,) + spec_recs + (lora_rec,)
 
 
 def serve_clients(srv, prompts, cfg, wait_s=600.0, tolerate=()):
     """Submit every prompt from a client thread of its own, in prompt order
     (each thread after the one before it, so the queue's order, and with
     it the scheduler's history, is the same in every run), each streaming
-    its tokens at once. Returns (outputs, handles) in prompt order; raises
+    its tokens at once; ``cfg`` is one config or one per prompt. Returns (outputs, handles) in prompt order; raises
     what a client raised, or if one did not finish within ``wait_s``. A
     request failing with a cause of a type in ``tolerate`` is not raised:
     its output is None and its handle FAILED."""
@@ -3964,7 +4294,8 @@ def serve_clients(srv, prompts, cfg, wait_s=600.0, tolerate=()):
         try:
             turn[i].wait(wait_s)
             try:
-                handles[i] = srv.submit(prompts[i], cfg)
+                handles[i] = srv.submit(
+                    prompts[i], cfg[i] if isinstance(cfg, list) else cfg)
             finally:
                 turn[i + 1].set()
             outs[i] = np.asarray(list(handles[i].stream(timeout=wait_s)),
@@ -3990,9 +4321,10 @@ def serve_clients(srv, prompts, cfg, wait_s=600.0, tolerate=()):
 
 def handle_stats(handles, outs, vocab, n_new, seg0, eng) -> dict:
     """TTFT (submit to the first streamed token) and TPOT ((finish - first
-    token) / (n - 1)) from the handles' stamps, and the decode rate of the
-    engine's segments since ``seg0``; raises on an output of the wrong
-    length or outside the vocabulary."""
+    token) / (n - 1)) from the handles' stamps, the span from the first
+    token to the last finish, and the decode rate of the engine's segments
+    since ``seg0``; raises on an output of the wrong length or outside the
+    vocabulary."""
     for o in outs:
         if len(o) != n_new or not ((o >= 0) & (o < vocab)).all():
             raise AssertionError(f"server: bad output {o!r}")
@@ -4005,7 +4337,9 @@ def handle_stats(handles, outs, vocab, n_new, seg0, eng) -> dict:
             "ttft_max_s": max(ttft), "tpot_s": tpot,
             "tpot_p50_s": statistics.median(tpot),
             "decode_tokens_per_s": dec_n / dec_s, "decode_tokens": dec_n,
-            "decode_s": dec_s, "segments": len(segs)}
+            "decode_s": dec_s, "segments": len(segs),
+            "span_s": (max(h.finish_ts for h in handles)
+                       - min(h.first_token_ts for h in handles))}
 
 
 def http_json(url, body=None, timeout=300):
@@ -4346,6 +4680,366 @@ def spec_server_phase(torch, np, model, prompts, eng, plain_outs, plain_rec,
         recs.append(rec)
     eng.draft_k = 0
     return tuple(recs)
+
+
+def lora_op_cost(torch, eng, batch: int) -> dict:
+    """What the LoRA ops add to one decode step of ``eng`` (its bank, its
+    model's layers and target widths, ``batch`` rows spread over the bank's
+    indices): the per-layer, per-target gather, shrink and expand of
+    ``models/llama.py::_lora_add`` on random activations, captured as one
+    CUDA graph (as a decode segment replays them) and timed over 50
+    replays by CUDA events; the ops the code launches a step (``L x
+    targets x 5``: two gathers, two products, an add) beside the kernels
+    ``torch.profiler`` records a step over LORA_PROFILE_STEPS eager steps
+    after one warm-up step, and their device time a step (a lower bound
+    where it recorded fewer kernels than there are ops); and the
+    bound: the bank rows the step gathers (read once) plus the activations
+    in and out, over the memory rate."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from paddle_tpu_torch.models.llama import _lora_add, _lora_layer
+
+    reg, dev = eng.adapters, eng.device
+    L, dt = reg.num_layers, reg.dtype
+    idx = (torch.arange(batch, device=dev) % (reg.capacity + 1)).to(
+        torch.int32)
+    g = torch.Generator(dev).manual_seed(0)
+    xs = {t: torch.randn((batch, 1, d_in), generator=g, device=dev,
+                         dtype=dt) for t, (d_in, _) in reg.shapes.items()}
+    ys = {t: torch.randn((batch, 1, d_out), generator=g, device=dev,
+                         dtype=dt) for t, (_, d_out) in reg.shapes.items()}
+
+    def step():
+        for i in range(L):
+            lay = _lora_layer((reg.bank, idx), i)
+            for t in reg.targets:
+                _lora_add(xs[t], ys[t], lay, t)
+
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        n = LORA_PROFILE_STEPS
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n,
+                                       repeat=1)) as prof:
+            for _ in range(n + 1):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        profiled = sum(e.count for e in kernels) / n
+        dev_us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                     for e in kernels) / n
+        graph = torch.cuda.CUDAGraph()
+        gc.collect()         # no graph destroyed mid-capture (_graphs.py)
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                step()
+        finally:
+            gc.enable()
+        for _ in range(3):
+            graph.replay()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(50):
+            graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / 50
+    rows = len(set(idx.tolist()) - {0}) + 1
+    elt = torch.empty((), dtype=dt).element_size()
+    nbytes = L * sum(rows * reg.rank * (d_in + d_out) * elt
+                     + batch * (d_in + 2 * d_out) * elt
+                     for d_in, d_out in reg.shapes.values())
+    flops = 2 * L * batch * reg.rank * sum(d_in + d_out
+                                           for d_in, d_out in
+                                           reg.shapes.values())
+    bound_ms, bound_by = bound(nbytes, flops, 989e12)
+    return {"batch": batch, "layers": L, "targets": reg.targets,
+            "rank": reg.rank, "graph_ms_per_step": ms,
+            "ops_per_step": L * len(reg.targets) * 5,
+            "kernels_per_step_profiled": profiled,
+            "profiled_steps": n,
+            "kernel_names": sorted({e.key[:60] for e in kernels}),
+            "device_ms_per_step_eager": dev_us / 1e3,
+            "eager_ms_is_lower_bound":
+                profiled < L * len(reg.targets) * 5,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def step_split(stats, steps) -> dict:
+    """A serve's time a decode step, inside the decode segments (the
+    segment log's seconds) and outside them (the span from the first token
+    to the last finish, less the segments: the gaps, where admissions,
+    prefills and the host's bookkeeping run)."""
+    return {"decode_steps": steps,
+            "segment_ms": stats["decode_s"] * 1e3 / steps,
+            "gap_ms": (stats["span_s"] - stats["decode_s"]) * 1e3 / steps}
+
+
+def lora_server_phase(torch, np, model, prompts, plain_outs, plain_rec,
+                      profile=False):
+    """Multi-tenant LoRA through the serving front on the 7B model (this
+    slice's path): a paged engine configured as the Server leg's
+    (``prefill_chunk=PREFIX["chunk"]``) with a bank of 4 slots of rank 16 on
+    q/k/v/o (LORA_SERVER), behind ``Server(segment_steps=8,
+    warmup=True)``, three adapters loaded through ``Server.load_adapter``
+    after the warmup, then:
+
+    - base only: the 8 prompts from 8 client threads, no adapter: TPOT of
+      the LoRA engine on base traffic (the bank's cost in every captured
+      step), the streams equal to the plain Server leg's;
+    - mixed: the 8 prompts from 8 client threads, 2 base and 2 under each
+      adapter (this slice's counted path), and while they decode a fourth
+      adapter hot-loaded and ``unload_adapter`` of one in use, which must
+      answer deferred and free after the drain; TTFT, TPOT and decode
+      tokens/s beside the plain Server's; the base streams equal the plain
+      Server's; launches held against the path's; for the plain Server,
+      base only and mixed, the time a decode step inside the segments and
+      in the gaps (:func:`step_split`);
+    - solo: the unloaded adapter loaded again (its index recycled), each
+      adapter request served alone, its stream against its mixed one,
+      failing at a split of top-2 margin NEAR_TIE or more under its
+      adapter;
+    - HTTP: ``serve_http``, ``POST /adapters/unload`` of an idle adapter,
+      ``POST /adapters/load`` from an npz written to a temporary
+      directory, a ``POST /generate`` naming it (the tokens of the same
+      request through ``Server.submit``), ``GET /healthz``'s ``lora``
+      block.
+
+    No capture after the warmup and the bank's addresses unmoved, through
+    all of it. Every server and HTTP front is shut down before it returns;
+    then the LoRA ops' cost in one decode step (:func:`lora_op_cost`)."""
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch import (GenerationConfig,
+                                  PagedContinuousBatchingEngine, ops)
+    from paddle_tpu_torch.serving import Server, serve_http
+
+    cfg = model.config
+    L, n_new, vocab = cfg.num_hidden_layers, 32, cfg.vocab_size
+    ls = LORA_SERVER
+    eng = PagedContinuousBatchingEngine(
+        model, max_batch=8, num_pages=512, page_size=16, max_pages=64,
+        prefill_chunk=PREFIX["chunk"], lora_capacity=ls["capacity"],
+        lora_rank=ls["rank"], lora_targets=ls["targets"])
+    names = sorted({a for a in ls["adapters"] if a is not None}) + ["a3"]
+    t0 = time.perf_counter()
+    adapters = {n: lora_factors(np, model, ls["targets"], ls["rank"],
+                                ls["seed"] + i) for i, n in enumerate(names)}
+    factors_s = time.perf_counter() - t0
+    gen = GenerationConfig(max_new_tokens=n_new)
+    cfgs = [GenerationConfig(max_new_tokens=n_new, adapter=a)
+            for a in ls["adapters"]]
+    rec = {"engine": plain_rec["engine"] + f", lora_capacity="
+                     f"{ls['capacity']}, lora_rank={ls['rank']}, "
+                     f"lora_targets={ls['targets']}",
+           "server": "Server(eng, segment_steps=8, warmup=True)",
+           "clients": len(prompts), "adapters": ls["adapters"],
+           "bank_mb": sum(t.numel() * t.element_size()
+                          for ab in eng.adapters.bank.values()
+                          for t in ab) / 1e6,
+           "factors_s": factors_s,
+           "plain_ttft_p50_s": plain_rec["ttft_p50_s"],
+           "plain_tpot_p50_s": plain_rec["tpot_p50_s"],
+           "plain_decode_tokens_per_s": plain_rec["decode_tokens_per_s"]}
+    t0 = time.perf_counter()
+    srv = Server(eng, segment_steps=8, warmup=True)
+    httpd = None
+    try:
+        if not srv.wait_ready(600) or srv.status != "ok":
+            raise AssertionError(f"lora server warmup: status {srv.status}")
+        rec["warmup_s"] = time.perf_counter() - t0
+        caps, ptrs = dict(eng.programs.captures), bank_ptrs(eng)
+        t0 = time.perf_counter()
+        idx = {n: srv.load_adapter(n, adapters[n], alpha=ls["alpha"])
+               for n in names[:3]}
+        rec["load_s"] = (time.perf_counter() - t0) / 3
+
+        # -- base traffic only ----------------------------------------------
+        seg0, s0 = len(eng._segment_log), eng.decode_steps
+        base_outs, base_h = serve_clients(srv, prompts, gen)
+        rec["base_only"] = handle_stats(base_h, base_outs, vocab, n_new,
+                                        seg0, eng)
+        rec["base_only"]["decode_steps"] = eng.decode_steps - s0
+        for i, (a, b) in enumerate(zip(base_outs, plain_outs)):
+            if a.tolist() != b.tolist():
+                raise AssertionError(
+                    f"lora server: base stream {i} {a} differs from the "
+                    f"plain Server's {b}")
+
+        # -- mixed, with a hot load and a deferred unload mid-decode --------
+        n0 = (eng.prefills, eng.prefill_chunks, eng.decode_steps)
+        seg0 = len(eng._segment_log)
+        admin = {}
+
+        def mixed():
+            box, errors = {}, []
+
+            def clients():
+                try:
+                    box["r"] = serve_clients(srv, prompts, cfgs)
+                except BaseException as e:       # re-raised below
+                    errors.append(e)
+
+            th = threading.Thread(target=clients, daemon=True)
+            th.start()
+            refs = eng.adapters._refs
+            deadline = time.monotonic() + 600
+            # both requests under a0 live in their slots
+            while refs.get(idx["a0"], 0) < 2 and th.is_alive():
+                if time.monotonic() > deadline:
+                    raise AssertionError("lora server: a0 never ran")
+                time.sleep(0.001)
+            install = eng.adapters.install
+
+            def timed_install(*args):
+                # the gap's part of the hot load: the rows' copy alone
+                t2 = time.perf_counter()
+                try:
+                    return install(*args)
+                finally:
+                    admin["install_in_gap_s"] = time.perf_counter() - t2
+
+            eng.adapters.install = timed_install
+            t1 = time.perf_counter()
+            try:
+                admin["a3_index"] = srv.load_adapter("a3", adapters["a3"],
+                                                     alpha=ls["alpha"])
+            finally:
+                del eng.adapters.install
+            admin["hot_load_s"] = time.perf_counter() - t1
+            admin["unload_a0"] = srv.unload_adapter("a0")
+            admin["draining_after_unload"] = \
+                eng.adapters.resident()["draining"]
+            th.join(600)
+            if errors:
+                raise errors[0]
+            if th.is_alive():
+                raise AssertionError("lora server: clients did not finish")
+            return box["r"]
+
+        (outs, handles), counts = counted_run(torch, ops, eng, mixed)
+        n_pre, n_chunks, n_steps = (a - b for a, b in zip(
+            (eng.prefills, eng.prefill_chunks, eng.decode_steps), n0))
+        check_launches(counts, expect(
+            counts, rms_norm=(2 * L + 1) * (n_pre + n_chunks + n_steps),
+            fused_rope=2 * L * (n_pre + n_chunks), flash_fwd=L * n_pre,
+            flash_fwd_prefix=L * n_chunks, paged_decode=L * n_steps),
+            f"lora server: prefills {n_pre}, chunks {n_chunks}, decode "
+            f"steps {n_steps}, layers {L}")
+        res = eng.adapters.resident()
+        if (admin["unload_a0"] is not False
+                or admin["draining_after_unload"] != ["a0"]
+                or res["adapters"] != ["a1", "a2", "a3"]
+                or res["draining"] or res["free"] != 1):
+            raise AssertionError(f"lora server: the unload of a0 in use "
+                                 f"{admin}, afterwards {res}")
+        for i, a in enumerate(ls["adapters"]):
+            if a is None and outs[i].tolist() != plain_outs[i].tolist():
+                raise AssertionError(
+                    f"lora server: base stream {i} of the mixed batch "
+                    f"{outs[i]} differs from the plain Server's")
+        moved = [i for i, a in enumerate(ls["adapters"])
+                 if a is not None and outs[i].tolist() != plain_outs[i]
+                 .tolist()]
+        if not moved:
+            raise AssertionError("lora server: every adapter stream is "
+                                 "the base model's")
+        rec.update(handle_stats(handles, outs, vocab, n_new, seg0, eng),
+                   prefills=n_pre, chunks=n_chunks, decode_steps=n_steps,
+                   launches=counts, admin=admin, resident_after=res,
+                   adapter_streams_off_base=len(moved))
+        rec["step_split"] = {
+            "plain": step_split(plain_rec, plain_rec["decode_steps"]),
+            "base_only": step_split(rec["base_only"],
+                                    rec["base_only"]["decode_steps"]),
+            "mixed": step_split(rec, n_steps)}
+
+        # -- each adapter request alone --------------------------------------
+        idx["a0"] = srv.load_adapter("a0", adapters["a0"],
+                                     alpha=ls["alpha"])
+        idx["a3"] = admin["a3_index"]
+        solo = [None if a is None else np.asarray(
+                    srv.submit(p, c).result(timeout=600), np.int32)
+                for p, c, a in zip(prompts, cfgs, ls["adapters"])]
+        sel = [i for i, a in enumerate(ls["adapters"]) if a is not None]
+        splits, margins = lora_splits(
+            torch, np, model, eng.adapters.bank,
+            [idx[ls["adapters"][i]] for i in sel], [prompts[i] for i in sel],
+            [solo[i] for i in sel], [outs[i] for i in sel],
+            "lora server: mixed against solo")
+        rec.update(solo_first_split=splits, solo_split_top2_margins=margins,
+                   a0_index_recycled=idx["a0"])
+        if profile:
+            rec["profile"] = profile_run(
+                torch, lambda: serve_clients(srv, prompts, cfgs))
+
+        # -- HTTP ---------------------------------------------------------
+        httpd = serve_http(srv)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        code, raw = http_json(url + "/adapters/unload", {"name": "a3"})
+        body = json.loads(raw)
+        if code != 200 or body.get("unloaded") is not True:
+            raise AssertionError(f"POST /adapters/unload: {code} {body}")
+        web = lora_factors(np, model, ls["targets"], ls["rank"],
+                           ls["seed"] + 9, per_layer=False)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "web.npz")
+            np.savez(path, **{f"{t}.{h}": v for t, (a, b) in web.items()
+                              for h, v in (("a", a), ("b", b))})
+            code, raw = http_json(url + "/adapters/load",
+                                  {"name": "web", "path": path,
+                                   "alpha": ls["alpha"]})
+        body = json.loads(raw)
+        if code != 200 or "web" not in body["adapters"]["adapters"]:
+            raise AssertionError(f"POST /adapters/load: {code} {body}")
+        req = {"prompt": prompts[1].tolist(), "max_new_tokens": 16,
+               "adapter": "web"}
+        code, raw = http_json(url + "/generate", req)
+        toks = json.loads(raw).get("tokens")
+        want = srv.submit(prompts[1], GenerationConfig(
+            max_new_tokens=16, adapter="web")).result(timeout=600)
+        if code != 200 or toks != [int(t) for t in want]:
+            raise AssertionError(f"POST /generate with an adapter: {code} "
+                                 f"{toks} against {list(want)}")
+        code, raw = http_json(url + "/healthz")
+        health = json.loads(raw)
+        if code != 200 or "web" not in health.get("lora", {}).get(
+                "adapters", ()):
+            raise AssertionError(f"/healthz {code} {health}")
+        rec["http"] = {"web_index": body["index"], "tokens": toks,
+                       "healthz_lora": health["lora"]}
+        if eng.programs.captures != caps or bank_ptrs(eng) != ptrs:
+            raise AssertionError(
+                f"lora server: captures {eng.programs.captures} after "
+                f"warmup's {caps}, or the bank moved")
+        rec["captures_after_warmup"] = 0
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        srv.shutdown(drain=False, timeout=120)
+    if srv.status != "stopped":
+        raise AssertionError(f"lora server did not stop: {srv.status}")
+    # the LoRA ops of one decode step, with the server stopped
+    rec["lora_ops"] = lora_op_cost(torch, eng, 8)
+    rec["lora_ops"]["share_of_base_tpot"] = (
+        rec["lora_ops"]["graph_ms_per_step"]
+        / (rec["base_only"]["tpot_p50_s"] * 1e3))
+    del eng
+    torch.cuda.empty_cache()
+    return rec
 
 
 def shared_prefix_prompts(np, vocab, n=8):
@@ -4756,6 +5450,73 @@ def dense_serve_phase(torch, np, model, prompts, paged_outs, profile=False):
     del eng
     torch.cuda.empty_cache()
     return rec
+
+
+def lora_times(repeats: int = 2) -> dict:
+    """Only the LoRA legs, to read their spread in one process: phase 4's
+    :func:`lora_e2e` at 2 layers (its merged-weights oracle kept), then at
+    7B a plain ``Server`` serve over the chunked engine and phase 5's
+    :func:`lora_server_phase` ``repeats`` times against it (TTFT, TPOT,
+    tokens/s, the segment and gap time a step, the LoRA ops' cost and the
+    hot load's)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from paddle_tpu_torch import (GenerationConfig, LlamaForCausalLM,
+                                  PagedContinuousBatchingEngine, llama_config)
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import Server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"card": smi_line(), "build_s": _build.build_all()}
+    cfg = llama_config(PRESET, num_hidden_layers=2, dtype="bfloat16")
+    gpu = LlamaForCausalLM(cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(7))
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    out["merged_oracle"] = lora_e2e(torch, np, gpu, cpu)["merged_oracle"]
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    cfg = llama_config(PRESET, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=torch.Generator(dev).manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (100, 180, 260, 340, 420, 500, 600, 700)]
+    eng = PagedContinuousBatchingEngine(
+        model, max_batch=8, num_pages=512, page_size=16, max_pages=64,
+        prefill_chunk=PREFIX["chunk"])
+    srv = Server(eng, segment_steps=8, warmup=True)
+    try:
+        if not srv.wait_ready(600) or srv.status != "ok":
+            raise AssertionError(f"server warmup: status {srv.status}")
+        seg0, s0 = len(eng._segment_log), eng.decode_steps
+        outs, handles = serve_clients(srv, prompts,
+                                      GenerationConfig(max_new_tokens=32))
+        plain = handle_stats(handles, outs, cfg.vocab_size, 32, seg0, eng)
+        plain.update(decode_steps=eng.decode_steps - s0,
+                     engine="PagedContinuousBatchingEngine(max_batch=8, "
+                            "num_pages=512, page_size=16, max_pages=64, "
+                            f"prefill_chunk={PREFIX['chunk']})")
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    del eng, srv
+    torch.cuda.empty_cache()
+    keys = ("ttft_p50_s", "tpot_p50_s", "decode_tokens_per_s")
+    out["plain"] = {k: plain[k] for k in keys}
+    out["lora"] = []
+    for _ in range(repeats):
+        sl = lora_server_phase(torch, np, model, prompts, outs, plain)
+        out["lora"].append(dict(
+            {k: sl[k] for k in keys},
+            base_only_tpot_p50_s=sl["base_only"]["tpot_p50_s"],
+            step_split=sl["step_split"], admin=sl["admin"],
+            lora_ops={k: v for k, v in sl["lora_ops"].items()
+                      if k != "kernel_names"},
+            solo_first_split=sl["solo_first_split"]))
+    return out
 
 
 def serve_times(tree: str) -> dict:
@@ -5260,6 +6021,11 @@ def main(argv=None) -> int:
                          "flash forward of the checkout at TREE at the "
                          "training shape and print one JSON line (to "
                          "compare checkouts, run it for each in turns)")
+    ap.add_argument("--lora-times", action="store_true",
+                    help="only run the LoRA legs (phase 4's at 2 layers, "
+                         "then a plain Server and phase 5's LoRA Server "
+                         "leg twice at 7B) and print one JSON line (their "
+                         "spread in one process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5281,6 +6047,9 @@ def main(argv=None) -> int:
         return 0
     if args.norm_rope_times:
         log(json.dumps(norm_rope_times(args.norm_rope_times)))
+        return 0
+    if args.lora_times:
+        log(json.dumps(lora_times()))
         return 0
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -5396,12 +6165,13 @@ def main(argv=None) -> int:
     log(f"[e2e] {record['phases']['e2e']:.1f}s")
     # 5. serve the 7B preset
     t = time.perf_counter()
-    (sv, sq, gn, ds, sc, ss, sr, *spec_recs,
+    (sv, sq, gn, ds, sc, ss, sr, *spec_recs, sl,
      sp, sx) = serve_phase(torch, dev, np, profile=args.profile)
     spec_runs = dict(zip(SPEC_PATHS, spec_recs))
     record.update(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
                   serve_chunked=sc, serve_sampled=ss, server=sr,
-                  serve_prefix=sp, server_pressure=sx, **spec_runs)
+                  serve_prefix=sp, server_pressure=sx, server_lora=sl,
+                  **spec_runs)
     record["phases"]["serve"] = time.perf_counter() - t
     for what, r in (("paged", sv), ("paged int8-pool", sq), ("dense", ds),
                     ("paged chunked (gap loop)", sc),
@@ -5443,6 +6213,49 @@ def main(argv=None) -> int:
             f"streams part from the plain Server's at "
             f"{r['first_split_from_plain']} (of 32), top-2 margins "
             f"{r['split_top2_margins']}  [{smi}]")
+    lo = sl["lora_ops"]
+    log(f"[serve] LoRA Server ({sl['engine']}; bank {sl['bank_mb']:.1f} MB), "
+        f"{sl['clients']} client threads, adapters {sl['adapters']}: TTFT "
+        f"p50 {sl['ttft_p50_s'] * 1e3:.1f} ms (plain Server "
+        f"{sl['plain_ttft_p50_s'] * 1e3:.1f}), TPOT p50 "
+        f"{sl['tpot_p50_s'] * 1e3:.2f} ms (plain "
+        f"{sl['plain_tpot_p50_s'] * 1e3:.2f}; base traffic only on the LoRA "
+        f"engine {sl['base_only']['tpot_p50_s'] * 1e3:.2f}), decode "
+        f"{sl['decode_tokens_per_s']:.1f} tok/s (plain "
+        f"{sl['plain_decode_tokens_per_s']:.1f}); hot load "
+        f"{sl['admin']['hot_load_s'] * 1e3:.1f} ms (in the gap "
+        f"{sl['admin']['install_in_gap_s'] * 1e3:.1f}), unload in use "
+        f"deferred: "
+        f"{sl['admin']['unload_a0'] is False}; captures after warmup 0; "
+        f"solo streams part from the mixed ones at "
+        f"{sl['solo_first_split']} (of 32), top-2 margins "
+        f"{sl['solo_split_top2_margins']}  [{smi}]")
+    log("[serve] LoRA Server, ms a decode step in the segments / in the "
+        "gaps: " + ", ".join(
+            f"{leg} {v['segment_ms']:.3f} / {v['gap_ms']:.3f} "
+            f"({v['decode_steps']} steps)"
+            for leg, v in sl["step_split"].items()) + f"  [{smi}]")
+    log(f"[serve] LoRA ops of one decode step ({lo['layers']} layers x "
+        f"{len(lo['targets'])} targets, batch {lo['batch']}, rank "
+        f"{lo['rank']}): {lo['graph_ms_per_step']:.4f} ms graphed "
+        f"({lo['share_of_base_tpot']:.1%} of the base-only TPOT), "
+        f"{lo['ops_per_step']} ops launched "
+        f"({lo['kernels_per_step_profiled']:.2f} kernels recorded by the "
+        f"profiler a step over {lo['profiled_steps']}), "
+        f"{lo['device_ms_per_step_eager']:.4f} ms of kernels eager"
+        f"{' (a lower bound)' if lo['eager_ms_is_lower_bound'] else ''}, "
+        f"bound {lo['bound_ms']:.4f} ms ({lo['bound_by']})  [{smi}]")
+    le = record["e2e"]["lora"]
+    mo = le["merged_oracle"]
+    log(f"[serve] LoRA at 2 layers: merged-weights oracle in fp32 within "
+        f"{mo['max_abs_err']:.3g} of the limit {mo['atol']} (faulty merges "
+        f"read {mo['faults']}; LoRA moved the logits by "
+        f"{mo['lora_moved_logits_by']:.3g}); card "
+        f"against CPU, tokens matched: "
+        f"{ {k: le[k]['tokens_matched_cpu'] for k in ('paged', 'paged_int8', 'dense')} }"
+        f"; spec with oracle drafts, tokens a forward host "
+        f"{le['spec_host_oracle']['tokens_per_forward']:.2f}, device "
+        f"{le['spec_device_oracle']['tokens_per_forward']:.2f}  [{smi}]")
     hr, fr = sr["http"], sr["fault"]
     log(f"[serve] Server HTTP: /generate streamed == unstreamed (16 tokens), "
         f"/healthz ok, /metrics and /stats served; a second warmup "
@@ -5554,8 +6367,8 @@ def main(argv=None) -> int:
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
                 serve_chunked=sc, serve_sampled=ss, server=sr,
-                serve_prefix=sp, server_pressure=sx, **spec_runs, train=tr,
-                fmt=fm,
+                serve_prefix=sp, server_pressure=sx, **spec_runs,
+                server_lora=sl, train=tr, fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
                 f32=record["f32"], eager_fit=eg)

@@ -21,7 +21,11 @@ without running it; every later call replays. A failed capture raises:
 nothing retries eagerly. The capture runs in ``thread_local`` error mode, so
 another thread's CUDA calls (a metrics scrape beside a serving scheduler's
 warmup) cannot invalidate it; the calling thread owns the engine and makes
-no other CUDA call meanwhile. A CPU device is the caller asking for the CPU: the
+no other CUDA call meanwhile. Python's cyclic garbage collector is run
+before the capture and held off during it: an engine dropped in a
+reference cycle would otherwise have its graphs destroyed mid-capture by a
+collection the capture's own allocations set off, and a graph's
+destruction is a CUDA call that invalidates the capture. A CPU device is the caller asking for the CPU: the
 function runs eagerly on every call, and a key's first run counts as its
 capture, so the bookkeeping is the same on both devices.
 
@@ -32,6 +36,7 @@ counters: a capture runs nothing), and every replay credits them.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
@@ -102,6 +107,9 @@ class GraphCache:
         mem0 = torch.cuda.memory_reserved(dev)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: only this thread's CUDA calls can invalidate
             # the capture; the serving front's HTTP threads (a /metrics
@@ -109,6 +117,8 @@ class GraphCache:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 fn()
         finally:
+            if gc_on:
+                gc.enable()
             after = launch_counts()
             for name, n in before.items():
                 KERNELS[name].launches = n

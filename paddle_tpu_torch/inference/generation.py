@@ -66,8 +66,20 @@ Every emitted token is the model's own pick; drafts decide only how many a
 forward yields. ``spec_stats()`` and the ``paddle_tpu_spec_draft_tokens_total``
 series count them.
 
-Not ported yet: prefill capture, LoRA (ROADMAP A8, which salts the prefix
-hashes), the KV-page export and import (A10), tensor parallelism (A11).
+Multi-tenant LoRA (``lora_capacity > 0`` on the continuous engines): an
+:class:`~paddle_tpu_torch.serving.adapters.AdapterRegistry` owns the factor
+bank (``[L, K+1, r, d]`` per target projection, index 0 the base model,
+allocated once and written in place), and a per-slot adapter-index device
+vector picks each row's factors inside every decode, verify and prefill
+forward (the model's ``lora`` argument), so one captured program serves any
+mix of adapters and a hot ``load_adapter`` / ``unload_adapter`` between
+segments captures nothing. A request names its adapter in
+``GenerationConfig.adapter``; the paged engine's prefix cache hashes its
+blocks in the adapter's namespace (``name@generation``), so KV cached under
+one adapter, or an earlier load of the name, never serves another.
+
+Not ported yet: prefill capture, the KV-page export and import (A10),
+tensor parallelism (A11).
 """
 from __future__ import annotations
 
@@ -276,6 +288,12 @@ def _prompt_len(prompt) -> int:
     return _prompt_ids(prompt).shape[1]
 
 
+def _lora_kw(lora) -> dict:
+    """A serving forward's LoRA keyword: none at all without an adapter
+    input, so an engine without adapters calls its model as before."""
+    return {} if lora is None else {"lora": lora}
+
+
 def _is_int(x) -> bool:
     return not isinstance(x, bool) and isinstance(x, (int, np.integer))
 
@@ -301,13 +319,15 @@ class GenerationConfig:
     ``speculative=True`` opts a greedy request into speculative decoding on
     an engine built with ``draft_k > 0`` (a sampled request decodes plain:
     lossless acceptance needs the argmax target); ``draft_k`` caps this
-    request's draft window (None: the engine's). The reference's
-    ``adapter`` (LoRA, ROADMAP A8) is not ported and is not accepted."""
+    request's draft window (None: the engine's). ``adapter`` names the
+    LoRA adapter the request decodes under (None: the base model), on an
+    engine built with ``lora_capacity > 0``."""
 
     def __init__(self, max_new_tokens: int = 64, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0, do_sample: bool = False,
                  eos_token_id: Optional[int] = None, seed: int = 0,
-                 speculative: bool = False, draft_k: Optional[int] = None):
+                 speculative: bool = False, draft_k: Optional[int] = None,
+                 adapter: Optional[str] = None):
         if not _is_int(max_new_tokens) or not (1 <= max_new_tokens
                                                <= _INT32_MAX):
             raise ValueError(f"max_new_tokens must be an int in [1, 2**31), "
@@ -336,6 +356,12 @@ class GenerationConfig:
             # admission, never captures an absurd program
             raise ValueError(f"draft_k must be an int in [1, 256] or None "
                              f"(engine default), got {draft_k!r}")
+        if adapter is not None and (not isinstance(adapter, str)
+                                    or not adapter or len(adapter) > 256):
+            # a malformed name fails here, never in a shared segment
+            raise ValueError(
+                f"adapter must be a non-empty str (<= 256 chars) or "
+                f"None (base model), got {adapter!r}")
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -345,6 +371,7 @@ class GenerationConfig:
         self.seed = int(seed)
         self.speculative = bool(speculative)
         self.draft_k = None if draft_k is None else int(draft_k)
+        self.adapter = adapter
 
 
 class CausalLMEngine:
@@ -745,6 +772,17 @@ class ContinuousBatchingEngine:
     greedy one wherever the verify forward and the one-token step agree on
     the argmax. :meth:`spec_stats` holds the accounting.
 
+    Multi-tenant LoRA (``lora_capacity=K > 0``, ``lora_rank``,
+    ``lora_targets``): ``adapters`` is the engine's
+    :class:`~paddle_tpu_torch.serving.adapters.AdapterRegistry` (K resident
+    adapters, the bank on the model's device), :meth:`load_adapter` /
+    :meth:`unload_adapter` hot-load and unload between segments, and a
+    request's ``GenerationConfig.adapter`` picks its adapter: the slot's
+    entry of the ``adapter_idx`` device vector, read by every decode and
+    verify program, and its prefill runs under it. An unknown or draining
+    name, or an adapter on an engine without ``lora_capacity``, fails that
+    request's admission (ValueError). The program keys do not change.
+
     Host-side counters: ``prefills``, ``prefill_chunks``,
     ``decode_steps`` and ``verify_steps`` count the model forwards run
     (warmup's included;
@@ -760,7 +798,8 @@ class ContinuousBatchingEngine:
                  prefill_chunk: Optional[int] = None,
                  draft_k: int = 0, ngram_max: int = 3,
                  spec_mode: str = "host", spec_draft: str = "ngram",
-                 spec_history: int = 128):
+                 spec_history: int = 128, lora_capacity: int = 0,
+                 lora_rank: int = 8, lora_targets=("q", "k", "v", "o")):
         _check_draft_k(draft_k)
         _check_choice("spec_mode", spec_mode, SPEC_MODES)
         _check_choice("spec_draft", spec_draft, SPEC_DRAFTS)
@@ -771,6 +810,10 @@ class ContinuousBatchingEngine:
         if not _is_int(ngram_max) or ngram_max < 1:
             raise ValueError(
                 f"ngram_max must be a positive int, got {ngram_max!r}")
+        if not _is_int(lora_capacity) or lora_capacity < 0:
+            raise ValueError(
+                f"lora_capacity must be an int >= 0 (0 disables "
+                f"multi-tenant LoRA), got {lora_capacity!r}")
         self.model = model
         self.device = model.device
         self.max_batch = max_batch
@@ -813,16 +856,43 @@ class ContinuousBatchingEngine:
         # per-engine label: engines side by side publish their series
         # side by side
         self._monitor_engine = monitor.instance_label("engine")
+        # multi-tenant LoRA: the registry owns the factor bank; 0 disables
+        # it, and then every forward runs without a lora input, exactly as
+        # an engine without LoRA
+        self.lora_capacity = int(lora_capacity)
+        self.adapters = None
+        if self.lora_capacity:
+            shapes_fn = getattr(model, "lora_shapes", None)
+            if shapes_fn is None:
+                raise ValueError(
+                    f"lora_capacity needs a model exposing "
+                    f"lora_shapes(targets) (llama does); "
+                    f"{type(model).__name__} does not")
+            num_layers, shapes = shapes_fn(tuple(lora_targets))
+            # imported here: paddle_tpu_torch.serving imports this module
+            from ..serving.adapters import AdapterRegistry
+
+            self.adapters = AdapterRegistry(
+                self.lora_capacity, lora_rank, tuple(lora_targets),
+                num_layers, shapes, model.model.embed_tokens.weight.dtype,
+                self._monitor_engine, device=self.device)
+        # adapter indices around admissions: slot -> index while an
+        # admission is in flight (moved to the request by _register,
+        # released by _abort_admit), rid -> index while the request lives
+        # (released by _retire)
+        self._aidx_stash: Dict[int, int] = {}
+        self._rid_aidx: Dict[int, int] = {}
 
     def _init_decode_state(self) -> None:
         """Allocate the device-side decode state, once: caches, per-slot
         length, last token, done and active flags, eos id (-1 = none), the
-        per-slot sampling vectors, draft window (0: plain decode) and
-        token-history ring, and the chunk offset; and the free slots. The
-        ring holds each slot's LAST ``spec_history`` tokens of prompt and
-        output, left-aligned, ``hist_len`` of them valid (device mode's
-        draft source); it is allocated whatever the knobs, so switching
-        them on an idle engine needs no new state."""
+        per-slot sampling vectors, draft window (0: plain decode), LoRA
+        adapter index (0: the base model) and token-history ring, and the
+        chunk offset; and the free slots. The ring holds each slot's LAST
+        ``spec_history`` tokens of prompt and output, left-aligned,
+        ``hist_len`` of them valid (device mode's draft source); it is
+        allocated whatever the knobs, so switching them on an idle engine
+        needs no new state."""
         mb, dev = self.max_batch, self.device
         self.caches = self._make_caches()
         self.lens = torch.zeros(mb, dtype=torch.int32, device=dev)
@@ -832,6 +902,7 @@ class ContinuousBatchingEngine:
         self.eos = torch.full((mb,), -1, dtype=torch.int32, device=dev)
         self.samp = SlotSampling(mb, dev)
         self.spec_k = torch.zeros(mb, dtype=torch.int32, device=dev)
+        self.adapter_idx = torch.zeros(mb, dtype=torch.int32, device=dev)
         self.hist = torch.zeros((mb, self.spec_history), dtype=torch.int32,
                                 device=dev)
         self.hist_len = torch.zeros(mb, dtype=torch.int32, device=dev)
@@ -894,7 +965,10 @@ class ContinuousBatchingEngine:
         Captured graphs hold these tensors' addresses, so nothing is
         reallocated and the graphs are kept: a restart costs no capture.
         Request ids are not reused: ``_next_req`` carries on, and
-        ``spec_stats()`` keeps its engine-lifetime totals."""
+        ``spec_stats()`` keeps its engine-lifetime totals. Every adapter
+        reference goes with its slot (deferred unloads complete); the bank
+        and the adapter names stay, since adapters are weights and a
+        supervised restart replays requests under them."""
         with torch.no_grad():
             for entry in self.caches:
                 for t in entry[:2]:
@@ -902,8 +976,8 @@ class ContinuousBatchingEngine:
                 for t in entry[2:]:
                     t.fill_(KV_SCALE_FLOOR)
             for t in (self.lens, self.last, self.done_dev, self.active_dev,
-                      self._chunk_pos, self.spec_k, self.hist,
-                      self.hist_len):
+                      self._chunk_pos, self.spec_k, self.adapter_idx,
+                      self.hist, self.hist_len):
                 t.zero_()
             self.eos.fill_(-1)
             self.samp.reset()
@@ -914,8 +988,85 @@ class ContinuousBatchingEngine:
         self._cfg.clear()
         self._spec.clear()         # the proposers die with their slots
         self._finished.clear()
+        self._aidx_stash.clear()
+        self._rid_aidx.clear()
+        if self.adapters is not None:
+            self.adapters.release_all()
         if monitor.enabled():
             self._requests_counter().labels(event="engine_reset").inc()
+
+    # -- multi-tenant LoRA -----------------------------------------------------
+    def _lora(self) -> dict:
+        """The decode and verify programs' LoRA keyword: ``{"lora": (bank,
+        adapter_idx)}`` with the per-slot index vector, or ``{}`` on an
+        engine without adapters."""
+        return _lora_kw(None if self.adapters is None
+                        else (self.adapters.bank, self.adapter_idx))
+
+    def _lora_one(self, slot: int):
+        """The ``lora`` input of one admission's prefill (batch 1): its
+        stashed adapter index as a one-row vector, or None without
+        adapters."""
+        if self.adapters is None:
+            return None
+        return (self.adapters.bank,
+                torch.full((1,), self._aidx_stash.get(slot, 0),
+                           dtype=torch.int32, device=self.device))
+
+    def _acquire_adapter(self, cfg) -> int:
+        """The bank index of the request's adapter, with one live reference
+        taken (0 = the base model, no reference). Raises ValueError, a
+        REQUEST-scoped verdict at the admission seam, for an unknown or
+        draining name, or an adapter on an engine without
+        ``lora_capacity``."""
+        name = cfg.adapter
+        if name is None:
+            return 0
+        if self.adapters is None:
+            raise ValueError(
+                f"request names adapter {name!r} but the engine was "
+                f"built without lora_capacity")
+        return self.adapters.acquire(name)
+
+    def _release_adapter(self, aidx: int) -> None:
+        if aidx and self.adapters is not None:
+            # the last live reference completes a deferred unload
+            self.adapters.release(aidx)
+
+    def _adapter_salt(self, slot: int) -> bytes:
+        """Prefix-cache chain salt of the admission in flight on ``slot``
+        (b"": the base namespace). Cached KV is a function of the weights
+        that made it, so every adapter hashes its blocks in its own
+        namespace and a cross-adapter warm hit cannot happen."""
+        if self.adapters is None:
+            return b""
+        return self.adapters.salt(self._aidx_stash.get(slot, 0))
+
+    def load_adapter(self, name: str, params: dict, alpha=None) -> int:
+        """Hot-load one LoRA adapter into the bank; returns its index.
+        ``params`` maps target projections to ``(A, B)`` factor pairs (see
+        :meth:`~paddle_tpu_torch.serving.adapters.AdapterRegistry.load`).
+        Only bank ROWS are written, in place, so the captured programs stay
+        valid: after ``warmup()`` a load captures nothing. Call from the
+        thread driving the engine, between decode segments
+        (``Server.load_adapter`` marshals into the gap)."""
+        if self.adapters is None:
+            raise RuntimeError(
+                "engine built without lora_capacity; pass "
+                "lora_capacity=K at construction")
+        return self.adapters.load(name, params, alpha=alpha)
+
+    def unload_adapter(self, name: str) -> bool:
+        """Hot-unload an adapter. Returns True when its index freed at
+        once; False when live requests still decode under it: the unload
+        DEFERS (new requests naming it fail at admission) and the index
+        frees when the last of them retires. Same thread contract as
+        :meth:`load_adapter`."""
+        if self.adapters is None:
+            raise RuntimeError(
+                "engine built without lora_capacity; pass "
+                "lora_capacity=K at construction")
+        return self.adapters.unload(name)
 
     # -- cache layout hooks (dense here; the paged subclass replaces them) ---
     def _make_caches(self):
@@ -925,7 +1076,8 @@ class ContinuousBatchingEngine:
         """Prefill the prompt at its bucket width straight into the slot's
         rows of every layer cache; returns the last-position logits."""
         rows = [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.caches]
-        last_logits, _ = self._run_prefill(ids, plen, rows)
+        last_logits, _ = self._run_prefill(ids, plen, rows,
+                                           lora=self._lora_one(slot))
         return last_logits
 
     def _reserve_admit(self, slot: int, plen: int, cfg) -> None:
@@ -946,11 +1098,12 @@ class ContinuousBatchingEngine:
         slot 0, which is free, so its KV is dead weight that the next
         admission overwrites."""
         rows = [(k[:1], v[:1]) for k, v in self.caches]
-        self._prefill_forward(np.zeros((1, width), np.int32), width, rows)
+        self._prefill_forward(np.zeros((1, width), np.int32), width, rows,
+                              self._lora_one(0))
 
     def _fwd_decode(self, tok, lens, live):
         logits, _ = self.model.forward_decode_ragged(tok, self.caches, lens,
-                                                     live)
+                                                     live, **self._lora())
         return logits
 
     # -- admission / retirement (host-side, between segments) ---------------
@@ -965,11 +1118,13 @@ class ContinuousBatchingEngine:
     def load(self) -> dict:
         """Host-side load snapshot: ``{"free_slots", "active_slots",
         "max_batch", "max_len", "tp_degree"}`` plus, paged, ``{"free_pages",
-        "total_pages", "occupancy", "kv_dtype"}``. All host bookkeeping
-        kept between segments: no device sync, so a health endpoint can
-        read it while the scheduler thread is inside a decode segment.
-        The reference's ``tp`` and ``lora`` blocks come with tensor
-        parallelism and LoRA (ROADMAP A11, A8)."""
+        "total_pages", "occupancy", "kv_dtype"}``, and with adapters the
+        registry's snapshot under ``"lora"`` (``{"capacity", "resident",
+        "free", "adapters", "draining"}``). All host bookkeeping kept
+        between segments: no device sync, so a health endpoint can read it
+        while the scheduler thread is inside a decode segment. The
+        reference's ``tp`` block comes with tensor parallelism (ROADMAP
+        A11)."""
         out = {"free_slots": len(self._free),
                "active_slots": len(self._slot_req),
                "max_batch": self.max_batch,
@@ -980,6 +1135,8 @@ class ContinuousBatchingEngine:
             out["free_pages"] = alloc.free_pages
             out["total_pages"] = alloc.num_pages
             out["occupancy"] = round(alloc.occupancy, 4)
+        if self.adapters is not None:
+            out["lora"] = self.adapters.resident()
         return out
 
     def can_admit(self, prompt_len: int, cfg: GenerationConfig) -> bool:
@@ -996,7 +1153,9 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         ids = self._check_admit(prompt_ids, cfg)
         plen = ids.shape[1]
+        aidx = self._acquire_adapter(cfg)
         slot = heapq.heappop(self._free)
+        self._aidx_stash[slot] = aidx
         try:
             rid = self._next_req
             self._next_req += 1
@@ -1004,7 +1163,8 @@ class ContinuousBatchingEngine:
             first, tok_done = self._sample_first(slot, plen, last_logits, cfg)
             self._install_state(slot, plen, first, tok_done, cfg, ids)
         except BaseException:
-            # a failed admission must not leak the slot (or its pages)
+            # a failed admission must not leak the slot (or its pages, or
+            # its adapter reference)
             self._abort_admit(slot)
             raise
         self._init_spec(rid, ids, first, cfg)
@@ -1041,7 +1201,12 @@ class ContinuousBatchingEngine:
                 "prefill_chunk=<tokens>")
         ids = self._check_admit(prompt_ids, cfg)
         plen = ids.shape[1]
+        aidx = self._acquire_adapter(cfg)
         slot = heapq.heappop(self._free)
+        # the adapter reference is held for the WHOLE chunked admission (an
+        # unload defers while its chunks run); _register moves it to the
+        # request, _abort_admit releases it
+        self._aidx_stash[slot] = aidx
         try:
             mini, start = self._begin_admit_cache(slot, ids, plen, cfg)
         except BaseException:
@@ -1061,22 +1226,25 @@ class ContinuousBatchingEngine:
         self._reserve_admit(slot, plen, cfg)
         return self.model.init_cache(1, self.max_len), 0
 
-    def _offset_forward(self, ids: np.ndarray, mini, pos: int, r: int):
+    def _offset_forward(self, ids: np.ndarray, mini, pos: int, r: int,
+                        lora=None):
         """One fixed-shape prefill window ``ids`` [1, W] at offset ``pos``
         (on the device, in ``_chunk_pos``, so the program is the same at
-        every offset) into ``mini``; returns the logits at its last real
-        row ``r - 1`` [1, V]."""
+        every offset) into ``mini``, under ``lora`` (an admission's
+        adapter); returns the logits at its last real row ``r - 1`` [1,
+        V]."""
         self._chunk_pos.fill_(pos)
         with torch.no_grad():
             logits, _ = self.model.forward_with_cache(
                 torch.tensor(ids, device=self.device), mini,
-                self._chunk_pos)
+                self._chunk_pos, **_lora_kw(lora))
         return logits[:, r - 1]
 
-    def _run_chunk(self, chunk: np.ndarray, mini, pos: int, r: int):
+    def _run_chunk(self, chunk: np.ndarray, mini, pos: int, r: int,
+                   lora=None):
         """One prefill chunk [1, C] at offset ``pos`` into ``mini``;
         returns the logits at its last real row ``r - 1`` [1, V]."""
-        logits = self._offset_forward(chunk, mini, pos, r)
+        logits = self._offset_forward(chunk, mini, pos, r, lora)
         self.prefill_chunks += 1
         return logits
 
@@ -1093,7 +1261,8 @@ class ContinuousBatchingEngine:
             chunk = adm.ids[:, adm.off:adm.off + C]
             r = chunk.shape[1]
             adm.last_logits = self._run_chunk(_pad_ids(chunk, C), adm.mini,
-                                              adm.off, r)
+                                              adm.off, r,
+                                              self._lora_one(adm.slot))
             last = adm.off + r >= adm.plen
             adm.off += C
             if monitor.enabled():
@@ -1150,7 +1319,8 @@ class ContinuousBatchingEngine:
     def _install_state(self, slot: int, plen: int, first, tok_done,
                        cfg, ids=None) -> None:
         """The slot's device state for a new request: length, first token,
-        flags, eos, draft window and history ring. ``ids`` (the prompt,
+        flags, eos, draft window, adapter index (the admission's, from the
+        stash) and history ring. ``ids`` (the prompt,
         when the caller has it) seeds the ring with the prompt's last
         ``spec_history - 1`` tokens and the first token; a replayed request
         admits ``prompt + generated``, so its ring is rebuilt as its host
@@ -1161,6 +1331,8 @@ class ContinuousBatchingEngine:
         self.active_dev[slot] = True
         self.eos[slot] = -1 if cfg.eos_token_id is None else cfg.eos_token_id
         self.spec_k[slot] = self._spec_k_for(cfg)
+        if self.adapters is not None:
+            self.adapter_idx[slot] = self._aidx_stash.get(slot, 0)
         H = self.spec_history
         hrow = np.zeros(H, np.int32)
         hlen = 0
@@ -1205,7 +1377,10 @@ class ContinuousBatchingEngine:
                   t0: float) -> int:
         """Host-side tail of an admission: record the request, retire it
         at once when its first token already ends it, count the
-        admission (``t0``: when it began)."""
+        admission (``t0``: when it began). The admission's adapter
+        reference moves from the slot to the request (``_retire`` releases
+        it)."""
+        self._rid_aidx[rid] = self._aidx_stash.pop(slot, 0)
         self._slot_req[slot] = rid
         self._tokens[rid] = [int(first)]     # the admission's one host sync
         self._budget[rid] = cfg.max_new_tokens - 1
@@ -1235,10 +1410,11 @@ class ContinuousBatchingEngine:
                 ("engine", "bucket")).labels(
                 engine=self._monitor_engine, bucket=str(bucket)).inc()
 
-    def _run_prefill(self, ids: np.ndarray, plen: int, mini):
+    def _run_prefill(self, ids: np.ndarray, plen: int, mini, lora=None):
         """An admission's one-shot prefill: pad the prompt to its bucket
-        and prefill it into the dense ``mini`` cache, counted per bucket;
-        returns (last-position logits [1, V], mini)."""
+        and prefill it into the dense ``mini`` cache under ``lora`` (the
+        request's adapter), counted per bucket; returns (last-position
+        logits [1, V], mini)."""
         width = self._prefill_width(plen)
         self._count_prefill(width if self.prefill_buckets is not None
                             else "exact")
@@ -1246,18 +1422,20 @@ class ContinuousBatchingEngine:
             # the bucket CHOICE explains a prefill's latency class
             trace.event("engine.prefill", engine=self._monitor_engine,
                         plen=plen, bucket=width)
-        return self._prefill_forward(ids, plen, mini)
+        return self._prefill_forward(ids, plen, mini, lora)
 
-    def _prefill_forward(self, ids: np.ndarray, plen: int, mini):
+    def _prefill_forward(self, ids: np.ndarray, plen: int, mini, lora=None):
         """The prefill forward itself (admissions and warmup)."""
         width = self._prefill_width(plen)
         ids_t = torch.tensor(_pad_ids(ids, width), device=self.device)
         with torch.no_grad():
-            logits, mini = self.model.forward_with_cache(ids_t, mini, 0)
+            logits, mini = self.model.forward_with_cache(ids_t, mini, 0,
+                                                         **_lora_kw(lora))
         self.prefills += 1
         return logits[:, plen - 1], mini
 
     def _abort_admit(self, slot: int) -> None:
+        self._release_adapter(self._aidx_stash.pop(slot, 0))
         heapq.heappush(self._free, slot)
 
     def _retire(self, slot: int, event: str = "finished") -> None:
@@ -1266,7 +1444,10 @@ class ContinuousBatchingEngine:
         del self._budget[rid]
         self._cfg.pop(rid, None)
         self._spec.pop(rid, None)
+        self._release_adapter(self._rid_aidx.pop(rid, 0))
         self.active_dev[slot] = False
+        if self.adapters is not None:
+            self.adapter_idx[slot] = 0
         heapq.heappush(self._free, slot)   # lowest free slot admits first
         if monitor.enabled():
             self._requests_counter().labels(event=event).inc()
@@ -1351,6 +1532,8 @@ class ContinuousBatchingEngine:
         alloc = getattr(self, "alloc", None)
         if alloc is not None:
             alloc.close()
+        if self.adapters is not None:
+            self.adapters.close()
 
     def collect_finished(self) -> Dict[int, np.ndarray]:
         out, self._finished = self._finished, {}
@@ -1431,7 +1614,7 @@ class ContinuousBatchingEngine:
         V], aux), aux None here, since a dense cache stores exact values and
         a rejected row is plain garbage a later write replaces."""
         logits, _ = self.model.forward_decode_spec(inp, self.caches, lens,
-                                                   live)
+                                                   live, **self._lora())
         return logits, None
 
     def _commit_spec_rows(self, aux, n_acc) -> None:
@@ -1844,9 +2027,11 @@ class ContinuousBatchingEngine:
         verify step, or device mode's segment of ``segment_steps``, greedy
         and sampled); one prefill per bucket and, with ``prefill_chunk``,
         one chunk (cuBLAS's and the kernels' first use at each width;
-        prefill is not captured). A serve with that segment length then
-        captures nothing, whatever its configs. Returns ``{program:
-        seconds}``. Raises RuntimeError on a busy engine."""
+        prefill is not captured); with adapters, the bank's row install
+        (``lora_install``: a zero write into base row 0). A serve with that
+        segment length then captures nothing, whatever its configs and
+        adapters. Returns ``{program: seconds}``. Raises RuntimeError on a
+        busy engine."""
         if self._slot_req:
             raise RuntimeError("warmup() needs an idle engine")
         t_all = time.perf_counter()
@@ -1895,8 +2080,13 @@ class ContinuousBatchingEngine:
             # one chunk into a throwaway mini: the chunk program's first use
             t0 = time.perf_counter()
             self._run_chunk(np.zeros((1, self.prefill_chunk), np.int32),
-                            self.model.init_cache(1, self.max_len), 0, 1)
+                            self.model.init_cache(1, self.max_len), 0, 1,
+                            self._lora_one(0))
             out["prefill_chunk"] = time.perf_counter() - t0
+        if self.adapters is not None:
+            t0 = time.perf_counter()
+            self.adapters.warmup()
+            out["lora_install"] = time.perf_counter() - t0
         out.update(self._warmup_prefix())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -2090,7 +2280,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                  kv_watermark: float = 0.9, prefix_cache: bool = False,
                  draft_k: int = 0, ngram_max: int = 3,
                  spec_mode: str = "host", spec_draft: str = "ngram",
-                 spec_history: int = 128):
+                 spec_history: int = 128, lora_capacity: int = 0,
+                 lora_rank: int = 8, lora_targets=("q", "k", "v", "o")):
         if admission_mode not in ADMISSION_MODES:
             raise ValueError(
                 f"admission_mode must be one of {ADMISSION_MODES}, got "
@@ -2111,7 +2302,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.page_size = page_size
         self.kv_dtype = kv_dtype
         # slot -> warm-admission record ({"ids", "c_map", "hashes",
-        # "saved"}), staged between an admission's prefill and its install
+        # "saved", "salt"}), staged between an admission's prefill and its
+        # install
         self._prefix_stash: Dict[int, dict] = {}
         # the segment length a clean grow_for_segment covered:
         # decode_segment consumes it and skips its re-check
@@ -2128,7 +2320,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                          prefill_buckets=prefill_buckets,
                          prefill_chunk=prefill_chunk, draft_k=draft_k,
                          ngram_max=ngram_max, spec_mode=spec_mode,
-                         spec_draft=spec_draft, spec_history=spec_history)
+                         spec_draft=spec_draft, spec_history=spec_history,
+                         lora_capacity=lora_capacity, lora_rank=lora_rank,
+                         lora_targets=lora_targets)
         self._measure_quant_savings()
 
     def _init_decode_state(self) -> None:
@@ -2148,7 +2342,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def _fwd_decode(self, tok, lens, live):
         logits, _ = self.model.forward_decode_paged(
-            tok, self.caches, self.page_table_dev, lens, live)
+            tok, self.caches, self.page_table_dev, lens, live,
+            **self._lora())
         return logits
 
     def _fwd_spec(self, inp, lens, live):
@@ -2162,7 +2357,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 for j, t in enumerate(entry))
                 for i, entry in enumerate(self.caches)]
         logits, _, aux = self.model.forward_decode_spec_paged(
-            inp, self.caches, self.page_table_dev, lens, live, snaps)
+            inp, self.caches, self.page_table_dev, lens, live, snaps,
+            **self._lora())
         return logits, aux
 
     def _coverage_limit(self, slot: int) -> int:
@@ -2282,12 +2478,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def _lookup_degraded(self, slot: int, ids, plen: int, cfg):
         """The warm-admission preamble of both admission paths: the longest
-        resident cached prefix, degraded to full blocks when the pool
-        cannot spare the partial page's copy-on-write. Returns ``(pids,
-        c_map, hashes)``."""
-        pids, c_map, hashes = self.alloc.lookup_prefix(ids[0])
+        resident cached prefix IN THE ADMISSION'S ADAPTER NAMESPACE (the
+        chain hash is salted with the adapter's ``name@generation``, so a
+        base block never warm-hits an adapter's admission, nor one adapter's
+        another's), degraded to full blocks when the pool cannot spare the
+        partial page's copy-on-write. Returns ``(pids, c_map, hashes,
+        salt)``."""
+        salt = self._adapter_salt(slot)
+        pids, c_map, hashes = self.alloc.lookup_prefix(ids[0], salt=salt)
         pids, c_map = self._degrade_partial_hit(slot, plen, cfg, pids, c_map)
-        return pids, c_map, hashes
+        return pids, c_map, hashes, salt
 
     def _degrade_partial_hit(self, slot: int, plen: int, cfg, pids,
                              c_map: int):
@@ -2309,15 +2509,18 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         bucket width into a dense mini cache, the request's pages are
         claimed and the KV rows scattered into them."""
         if self.prefix_cache and not self.prefix_pause:
-            pids, c_map, hashes = self._lookup_degraded(slot, ids, plen, cfg)
+            pids, c_map, hashes, salt = self._lookup_degraded(slot, ids, plen,
+                                                              cfg)
             self._prefix_stash[slot] = {"ids": ids, "c_map": c_map,
                                         "hashes": hashes,
-                                        "saved": min(c_map, plen - 1)}
+                                        "saved": min(c_map, plen - 1),
+                                        "salt": salt}
             if c_map > 0:
                 return self._admit_cache_warm(slot, ids, plen, cfg, pids,
                                               c_map)
         mini = self.model.init_cache(1, self._prefill_width(plen))
-        last_logits, mini = self._run_prefill(ids, plen, mini)
+        last_logits, mini = self._run_prefill(ids, plen, mini,
+                                              lora=self._lora_one(slot))
         self._reserve_admit(slot, plen, cfg)
         self._install_mini(slot, mini, plen)
         return last_logits
@@ -2347,7 +2550,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             trace.event("engine.prefill", engine=self._monitor_engine,
                         plen=plen, bucket="warm", cached=c_cmp)
         last_logits = self._offset_forward(_pad_ids(ids[:, c_cmp:], wt),
-                                           mini, c_cmp, tail)
+                                           mini, c_cmp, tail,
+                                           self._lora_one(slot))
         self.prefills += 1
         self.warm_prefills += 1
         self.alloc.map_shared(slot, pids)
@@ -2411,8 +2615,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                                      width=width)
         if info is not None:
             ps = self.page_size
+            # the prompt's full private blocks become hits in the
+            # admission's adapter namespace
             self.alloc.register_blocks(slot, info["hashes"], info["ids"][0],
-                                       info["c_map"] // ps, plen // ps)
+                                       info["c_map"] // ps, plen // ps,
+                                       salt=info["salt"])
             if info["c_map"] > 0:
                 self.alloc.count_prefix_hit(info["saved"])
 
@@ -2455,11 +2662,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         installed."""
         if not self.prefix_cache or self.prefix_pause:
             return super()._begin_admit_cache(slot, ids, plen, cfg)
-        pids, c_map, hashes = self._lookup_degraded(slot, ids, plen, cfg)
+        pids, c_map, hashes, salt = self._lookup_degraded(slot, ids, plen,
+                                                          cfg)
         C = self.prefill_chunk
         start = (min(c_map, plen - 1) // C) * C
         self._prefix_stash[slot] = {"ids": ids, "c_map": c_map,
-                                    "hashes": hashes, "saved": start}
+                                    "hashes": hashes, "saved": start,
+                                    "salt": salt}
         self.alloc.map_shared(slot, pids)
         self._reserve_admit(slot, plen, cfg)
         p0 = c_map if c_map < plen else plen
@@ -2475,7 +2684,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         owns no pages, so every row of the install goes to the sink."""
         mini = self.model.init_cache(1, width)
         _, mini = self._prefill_forward(np.zeros((1, width), np.int32),
-                                        width, mini)
+                                        width, mini, self._lora_one(0))
         self._install_mini(0, mini, width)
 
     def _warmup_prefix(self) -> Dict[str, float]:
@@ -2503,7 +2712,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         pt = self.page_table_dev
         for w in self.prefill_buckets or ():
             t0 = time.perf_counter()
-            self._offset_forward(np.zeros((1, w), np.int32), mini, 0, 1)
+            self._offset_forward(np.zeros((1, w), np.int32), mini, 0, 1,
+                                 self._lora_one(0))
             with torch.no_grad():
                 for entry, (mk, mv) in zip(self.caches, mini):
                     if self.kv_dtype == "int8":

@@ -31,8 +31,10 @@ with per-(page, kv head) scales (quantize on store,
 ``quantization/kv.py``; K4 dequantizes inside the kernel), and the
 speculative verify steps ``forward_decode_spec`` (dense, one K7 call per
 window position) and ``forward_decode_spec_paged`` (K4 per window
-position, bf16 or int8 pools). LoRA and tensor parallelism are not ported
-yet and are absent. Cache writes happen in place, so
+position, bf16 or int8 pools). Every serving forward takes ``lora``, the
+per-row batched-adapter input of multi-tenant LoRA (:func:`_lora_add`);
+the training forward takes none, as in the reference. Tensor parallelism
+is not ported yet and is absent. Cache writes happen in place, so
 a decode step reads and writes the same storage every time (what a
 captured CUDA graph needs).
 
@@ -136,6 +138,47 @@ def _rope_cos_sin(seq_len: int, head_dim: int, theta: float,
     return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
 
 
+def _lora_add(x: torch.Tensor, y: torch.Tensor, lora, name: str
+              ) -> torch.Tensor:
+    """``y`` plus the per-row LoRA delta of target projection ``name``:
+    ``y + (x @ A[idx]^T) @ B[idx]^T``, each row's factors gathered by its
+    adapter index (the S-LoRA batched-adapter shape: one program serves any
+    mix of adapters, the weights picked per row from a device vector).
+
+    ``lora`` is ``(bank, idx)``: ``bank`` maps target names to THIS
+    layer's factor stacks ``A [K+1, r, d_in]`` / ``B [K+1, d_out, r]``
+    (index 0 is the base model, its rows zeros, so a base row's delta is
+    exactly 0.0 and the row is bit for bit what a LoRA-free forward gives);
+    ``idx`` is the per-row ``[B]`` int32 adapter index. ``x`` is ``[B, S,
+    d_in]`` for any S (prefill, decode 1, a verify window). The LoRA scaling
+    alpha / r is folded into B at install. Both products run in the model's
+    dtype, so ``t`` is rounded once and the delta is added to ``y`` after
+    its own rounding, as the reference's two einsums do (never folded into
+    ``y`` by ``baddbmm``, which would round ``y + delta`` inside the
+    product). ``lora is None`` (or a target the bank lacks) returns ``y``
+    itself: no op is added."""
+    if lora is None:
+        return y
+    bank, idx = lora
+    ab = bank.get(name)
+    if ab is None:
+        return y
+    A, B = ab
+    t = torch.bmm(x, A.index_select(0, idx).transpose(1, 2))      # [B, S, r]
+    return y + torch.bmm(t, B.index_select(0, idx).transpose(1, 2)).to(
+        y.dtype)
+
+
+def _lora_layer(lora, i: int):
+    """Layer ``i``'s slice of the engine-level LoRA input: the bank holds
+    per-layer stacks ``[L, K+1, r, d]`` and each decoder layer gathers from
+    its own ``[K+1, r, d]`` view."""
+    if lora is None:
+        return None
+    bank, idx = lora
+    return {t: (A[i], B[i]) for t, (A, B) in bank.items()}, idx
+
+
 def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor,
                      sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half RoPE of x [B, S, H, D]. ``cos``/``sin`` are either the
@@ -166,27 +209,31 @@ class LlamaAttention(nn.Module):
         self.o_proj = RowParallelLinear(self.num_heads * hd, h,
                                         has_bias=False, **kw)
 
-    def _qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    def _qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+             lora=None):
+        """The q/k/v projections, each with its LoRA delta added BEFORE the
+        rotation (the reference's ``_qkv_lora``, then RoPE)."""
         b, s = x.shape[0], x.shape[1]
         hd = self.config.head_dim
-        qh = apply_rotary_emb(self.q_proj(x).view(b, s, self.num_heads, hd),
-                              cos, sin)
-        kh = apply_rotary_emb(self.k_proj(x).view(b, s, self.kv_heads, hd),
-                              cos, sin)
-        vh = self.v_proj(x).view(b, s, self.kv_heads, hd)
-        return qh, kh, vh
+        q = _lora_add(x, self.q_proj(x), lora, "q")
+        k = _lora_add(x, self.k_proj(x), lora, "k")
+        v = _lora_add(x, self.v_proj(x), lora, "v")
+        qh = apply_rotary_emb(q.view(b, s, self.num_heads, hd), cos, sin)
+        kh = apply_rotary_emb(k.view(b, s, self.kv_heads, hd), cos, sin)
+        return qh, kh, v.view(b, s, self.kv_heads, hd)
 
-    def _out(self, ctx: torch.Tensor) -> torch.Tensor:
+    def _out(self, ctx: torch.Tensor, lora=None) -> torch.Tensor:
         b, s = ctx.shape[0], ctx.shape[1]
-        return self.o_proj(ctx.reshape(b, s, self.num_heads
-                                       * self.config.head_dim))
+        ctx = ctx.reshape(b, s, self.num_heads * self.config.head_dim)
+        return _lora_add(ctx, self.o_proj(ctx), lora, "o")
 
     def forward(self, x, cos, sin):
         # GQA stays grouped: K3 selects the shared kv head itself
         qh, kh, vh = self._qkv(x, cos, sin)
         return self._out(flash_attention(qh, kh, vh, causal=True))
 
-    def forward_with_cache(self, x, cos_full, sin_full, cache: Cache, pos):
+    def forward_with_cache(self, x, cos_full, sin_full, cache: Cache, pos,
+                           lora=None):
         """Attend over the dense cache ``(k, v)`` [B, S_max, Hkv, hd],
         writing this call's K/V IN PLACE at [pos, pos + S). S == 1 is a
         decode step at any ``pos`` (a Python int or a 0-d tensor): every
@@ -196,42 +243,45 @@ class LlamaAttention(nn.Module):
         stays on the device) is a chunk of a prefill: RoPE from the tables
         at ``pos + arange(S)``, K/V written at those rows, and
         :func:`prefix_chunk_attention` over the cache's written prefix (K3's
-        prefix-chunk instance). Returns (out, cache)."""
+        prefix-chunk instance). ``lora`` (here and on every serving forward
+        below) is the per-row batched-adapter input, see :func:`_lora_add`.
+        Returns (out, cache)."""
         b, s = x.shape[0], x.shape[1]
         kc, vc = cache
         if s == 1:
             if isinstance(pos, torch.Tensor):
                 at = pos.reshape(1).long().to(x.device)
                 qh, kh, vh = self._qkv(x, cos_full.index_select(0, at),
-                                       sin_full.index_select(0, at))
+                                       sin_full.index_select(0, at), lora)
                 kc.index_copy_(1, at, kh.to(kc.dtype))
                 vc.index_copy_(1, at, vh.to(vc.dtype))
                 lens = (at + 1).to(torch.int32).expand(b)
             else:
                 qh, kh, vh = self._qkv(x, cos_full[pos:pos + 1],
-                                       sin_full[pos:pos + 1])
+                                       sin_full[pos:pos + 1], lora)
                 kc[:, pos] = kh[:, 0].to(kc.dtype)
                 vc[:, pos] = vh[:, 0].to(vc.dtype)
                 lens = torch.full((b,), pos + 1, dtype=torch.int32,
                                   device=x.device)
             ctx = gqa_decode_attention(qh[:, 0], kc, vc, lens)
-            return self._out(ctx[:, None]), cache
+            return self._out(ctx[:, None], lora), cache
         if not (isinstance(pos, int) and pos == 0):
             p0 = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
             at = (p0.long() + torch.arange(s, device=x.device))
             qh, kh, vh = self._qkv(x, cos_full.index_select(0, at),
-                                   sin_full.index_select(0, at))
+                                   sin_full.index_select(0, at), lora)
             kc.index_copy_(1, at, kh.to(kc.dtype))
             vc.index_copy_(1, at, vh.to(vc.dtype))
             ctx = prefix_chunk_attention(qh, kc, vc, p0)
-            return self._out(ctx), cache
-        qh, kh, vh = self._qkv(x, cos_full[:s], sin_full[:s])
+            return self._out(ctx, lora), cache
+        qh, kh, vh = self._qkv(x, cos_full[:s], sin_full[:s], lora)
         kc[:, :s] = kh.to(kc.dtype)
         vc[:, :s] = vh.to(vc.dtype)
-        return self._out(flash_attention(qh, kh, vh, causal=True)), cache
+        return self._out(flash_attention(qh, kh, vh, causal=True),
+                         lora), cache
 
     def forward_decode_ragged(self, x, cos_full, sin_full, cache: Cache,
-                              lens, live):
+                              lens, live, lora=None):
         """One decode step with per-row lengths over the dense cache. x [B,
         1, h]; lens [B] int32 tokens already in each row's cache; live [B]
         bool. Row b rotates and writes its K/V at min(lens[b], S_max - 1)
@@ -242,7 +292,7 @@ class LlamaAttention(nn.Module):
         idx = lens.clamp(max=kc.shape[1] - 1).long()
         c = cos_full[idx][:, None, None, :]         # [B, 1, 1, d2] per row
         sn = sin_full[idx][:, None, None, :]
-        qh, kh, vh = self._qkv(x, c, sn)
+        qh, kh, vh = self._qkv(x, c, sn, lora)
         ar = torch.arange(b, device=idx.device)
         keep = live[:, None, None]
         kw = torch.where(keep, kh[:, 0].to(kc.dtype), kc[ar, idx])
@@ -251,10 +301,10 @@ class LlamaAttention(nn.Module):
         vc[ar, idx] = vw
         ctx = gqa_decode_attention(qh[:, 0], kc, vc,
                                    lens + live.to(lens.dtype))
-        return self._out(ctx[:, None]), cache
+        return self._out(ctx[:, None], lora), cache
 
     def forward_decode_paged(self, x, cos_full, sin_full, cache,
-                             page_table, lens, live):
+                             page_table, lens, live, lora=None):
         """One paged decode step. x [B, 1, h]; ``cache`` is this layer's
         (k, v) pools [num_pages + 1, page_size, Hkv, hd] (last page = sink),
         or (k, v, k_scale, v_scale) for int8 pools with scales
@@ -269,7 +319,7 @@ class LlamaAttention(nn.Module):
         idx = lens.clamp(max=page_table.shape[1] * ps - 1).long()
         c = cos_full[idx][:, None, None, :]         # [B, 1, 1, d2] per row
         sn = sin_full[idx][:, None, None, :]
-        qh, kh, vh = self._qkv(x, c, sn)
+        qh, kh, vh = self._qkv(x, c, sn, lora)
         page = page_table[torch.arange(b, device=idx.device), idx // ps]
         page = torch.where(live & (page >= 0), page,
                            kp.shape[0] - 1).long()
@@ -283,9 +333,9 @@ class LlamaAttention(nn.Module):
             vp[page, offs] = vh[:, 0].to(vp.dtype)
         ctx = paged_decode_mha(qh[:, 0], kp, vp, page_table,
                                lens + live.to(lens.dtype), *scales)
-        return self._out(ctx[:, None]), cache
+        return self._out(ctx[:, None], lora), cache
 
-    def _spec_qkv(self, x, cos_full, sin_full, lens, max_len):
+    def _spec_qkv(self, x, cos_full, sin_full, lens, max_len, lora=None):
         """The verify window's projections, rotated per row at positions
         ``lens[b] + i`` (clamped to the cache for the RoPE tables only);
         returns (qh, kh, vh, pos, idx), pos / idx int64 [B, W]."""
@@ -294,11 +344,11 @@ class LlamaAttention(nn.Module):
         idx = pos.clamp(max=max_len - 1)
         c = cos_full[idx][:, :, None, :]            # [B, W, 1, d2] per row
         sn = sin_full[idx][:, :, None, :]
-        qh, kh, vh = self._qkv(x, c, sn)
+        qh, kh, vh = self._qkv(x, c, sn, lora)
         return qh, kh, vh, pos, idx
 
     def forward_decode_spec(self, x, cos_full, sin_full, cache: Cache,
-                            lens, live):
+                            lens, live, lora=None):
         """Speculative VERIFY step over the dense cache: W query positions
         per row, position i of row b at ``lens[b] + i`` (x [B, W, h]). All
         W tokens' K/V are written IN PLACE first, one window position at a
@@ -315,7 +365,7 @@ class LlamaAttention(nn.Module):
         kc, vc = cache
         max_len = kc.shape[1]
         qh, kh, vh, pos, idx = self._spec_qkv(x, cos_full, sin_full, lens,
-                                              max_len)
+                                              max_len, lora)
         ok = live[:, None] & (pos < max_len)
         ar = torch.arange(b, device=idx.device)
         for i in range(w):
@@ -326,10 +376,11 @@ class LlamaAttention(nn.Module):
         ctx = torch.stack([gqa_decode_attention(qh[:, i], kc, vc,
                                                 lens + lv * (i + 1))
                            for i in range(w)], dim=1)     # [B, W, Hq, hd]
-        return self._out(ctx), cache
+        return self._out(ctx, lora), cache
 
     def forward_decode_spec_paged(self, x, cos_full, sin_full, cache,
-                                  page_table, lens, live, snapshot=None):
+                                  page_table, lens, live, snapshot=None,
+                                  lora=None):
         """Paged twin of :meth:`forward_decode_spec` (K4 per window
         position). Writes of dead rows, unmapped pages or positions past
         the table's width go to the sink page. Returns (out, cache, aux):
@@ -351,7 +402,7 @@ class LlamaAttention(nn.Module):
         ps = kp.shape[1]
         max_len = page_table.shape[1] * ps
         qh, kh, vh, pos, idx = self._spec_qkv(x, cos_full, sin_full, lens,
-                                              max_len)
+                                              max_len, lora)
         ar = torch.arange(b, device=idx.device)
         page = page_table[ar[:, None], idx // ps]                # [B, W]
         ok = live[:, None] & (page >= 0) & (pos < max_len)
@@ -365,7 +416,7 @@ class LlamaAttention(nn.Module):
             ctx = torch.stack([paged_decode_mha(qh[:, i], kp, vp, page_table,
                                                 lens + lv * (i + 1))
                                for i in range(w)], dim=1)
-            return self._out(ctx), cache, None
+            return self._out(ctx, lora), cache, None
         ks, vs = scales
         flat = page.reshape(-1)
         if snapshot is None:
@@ -382,7 +433,7 @@ class LlamaAttention(nn.Module):
             quant_store_rows(vp, vs, page[:, i], offs[:, i], vh[:, i])
             ctxs.append(paged_decode_mha(qh[:, i], kp, vp, page_table,
                                          lens + lv * (i + 1), ks, vs))
-        return (self._out(torch.stack(ctxs, dim=1)), cache,
+        return (self._out(torch.stack(ctxs, dim=1), lora), cache,
                 tuple(snap) + (kh, vh, page, offs))
 
 
@@ -395,8 +446,11 @@ class LlamaMLP(nn.Module):
         self.up_proj = ColumnParallelLinear(h, i, has_bias=False, **kw)
         self.down_proj = RowParallelLinear(i, h, has_bias=False, **kw)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, lora=None):
+        g = _lora_add(x, self.gate_proj(x), lora, "gate")
+        u = _lora_add(x, self.up_proj(x), lora, "up")
+        h = F.silu(g) * u
+        return _lora_add(h, self.down_proj(h), lora, "down")
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -414,40 +468,46 @@ class LlamaDecoderLayer(nn.Module):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin)
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def forward_with_cache(self, x, cos_full, sin_full, cache, pos):
+    def forward_with_cache(self, x, cos_full, sin_full, cache, pos,
+                           lora=None):
         attn, cache = self.self_attn.forward_with_cache(
-            self.input_layernorm(x), cos_full, sin_full, cache, pos)
+            self.input_layernorm(x), cos_full, sin_full, cache, pos, lora)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x)), cache
+        return x + self.mlp(self.post_attention_layernorm(x), lora), cache
 
     def forward_decode_ragged(self, x, cos_full, sin_full, cache, lens,
-                              live):
+                              live, lora=None):
         attn, cache = self.self_attn.forward_decode_ragged(
-            self.input_layernorm(x), cos_full, sin_full, cache, lens, live)
+            self.input_layernorm(x), cos_full, sin_full, cache, lens, live,
+            lora)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x)), cache
+        return x + self.mlp(self.post_attention_layernorm(x), lora), cache
 
     def forward_decode_paged(self, x, cos_full, sin_full, cache,
-                             page_table, lens, live):
+                             page_table, lens, live, lora=None):
         attn, cache = self.self_attn.forward_decode_paged(
             self.input_layernorm(x), cos_full, sin_full, cache, page_table,
-            lens, live)
+            lens, live, lora)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x)), cache
+        return x + self.mlp(self.post_attention_layernorm(x), lora), cache
 
-    def forward_decode_spec(self, x, cos_full, sin_full, cache, lens, live):
+    def forward_decode_spec(self, x, cos_full, sin_full, cache, lens, live,
+                            lora=None):
         attn, cache = self.self_attn.forward_decode_spec(
-            self.input_layernorm(x), cos_full, sin_full, cache, lens, live)
+            self.input_layernorm(x), cos_full, sin_full, cache, lens, live,
+            lora)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x)), cache
+        return x + self.mlp(self.post_attention_layernorm(x), lora), cache
 
     def forward_decode_spec_paged(self, x, cos_full, sin_full, cache,
-                                  page_table, lens, live, snapshot=None):
+                                  page_table, lens, live, snapshot=None,
+                                  lora=None):
         attn, cache, aux = self.self_attn.forward_decode_spec_paged(
             self.input_layernorm(x), cos_full, sin_full, cache, page_table,
-            lens, live, snapshot)
+            lens, live, snapshot, lora)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x)), cache, aux
+        return (x + self.mlp(self.post_attention_layernorm(x), lora), cache,
+                aux)
 
 
 class LlamaModel(nn.Module):
@@ -502,23 +562,25 @@ class LlamaModel(nn.Module):
         return self._new_kv((batch_size, max_len, cfg.kv_heads,
                              cfg.head_dim))
 
-    def forward_with_cache(self, input_ids, caches, pos):
+    def forward_with_cache(self, input_ids, caches, pos, lora=None):
         x = self.embed_tokens(input_ids)
         cos_full, sin_full = self._tables(caches[0][0].shape[1], x)
         new_caches = []
-        for layer, cache in zip(self.layers, caches):
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
             x, cache = layer.forward_with_cache(x, cos_full, sin_full, cache,
-                                                pos)
+                                                pos, _lora_layer(lora, i))
             new_caches.append(cache)
         return self.norm(x), new_caches
 
-    def forward_decode_ragged(self, input_ids, caches, lens, live):
+    def forward_decode_ragged(self, input_ids, caches, lens, live,
+                              lora=None):
         x = self.embed_tokens(input_ids)
         cos_full, sin_full = self._tables(caches[0][0].shape[1], x)
         new_caches = []
-        for layer, cache in zip(self.layers, caches):
-            x, cache = layer.forward_decode_ragged(x, cos_full, sin_full,
-                                                   cache, lens, live)
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
+            x, cache = layer.forward_decode_ragged(
+                x, cos_full, sin_full, cache, lens, live,
+                _lora_layer(lora, i))
             new_caches.append(cache)
         return self.norm(x), new_caches
 
@@ -546,29 +608,32 @@ class LlamaModel(nn.Module):
                             dtype=torch.float32, device=dev))
                 for _ in range(cfg.num_hidden_layers)]
 
-    def forward_decode_paged(self, input_ids, caches, page_table, lens, live):
+    def forward_decode_paged(self, input_ids, caches, page_table, lens, live,
+                             lora=None):
         x = self.embed_tokens(input_ids)
         max_len = page_table.shape[1] * caches[0][0].shape[1]
         cos_full, sin_full = self._tables(max_len, x)
         new_caches = []
-        for layer, cache in zip(self.layers, caches):
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
             x, cache = layer.forward_decode_paged(
-                x, cos_full, sin_full, cache, page_table, lens, live)
+                x, cos_full, sin_full, cache, page_table, lens, live,
+                _lora_layer(lora, i))
             new_caches.append(cache)
         return self.norm(x), new_caches
 
-    def forward_decode_spec(self, input_ids, caches, lens, live):
+    def forward_decode_spec(self, input_ids, caches, lens, live, lora=None):
         x = self.embed_tokens(input_ids)
         cos_full, sin_full = self._tables(caches[0][0].shape[1], x)
         new_caches = []
-        for layer, cache in zip(self.layers, caches):
-            x, cache = layer.forward_decode_spec(x, cos_full, sin_full,
-                                                 cache, lens, live)
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
+            x, cache = layer.forward_decode_spec(
+                x, cos_full, sin_full, cache, lens, live,
+                _lora_layer(lora, i))
             new_caches.append(cache)
         return self.norm(x), new_caches
 
     def forward_decode_spec_paged(self, input_ids, caches, page_table, lens,
-                                  live, snapshots=None):
+                                  live, snapshots=None, lora=None):
         x = self.embed_tokens(input_ids)
         max_len = page_table.shape[1] * caches[0][0].shape[1]
         cos_full, sin_full = self._tables(max_len, x)
@@ -576,7 +641,8 @@ class LlamaModel(nn.Module):
         for i, (layer, cache) in enumerate(zip(self.layers, caches)):
             x, cache, aux = layer.forward_decode_spec_paged(
                 x, cos_full, sin_full, cache, page_table, lens, live,
-                None if snapshots is None else snapshots[i])
+                None if snapshots is None else snapshots[i],
+                _lora_layer(lora, i))
             new_caches.append(cache)
             aux_rows.append(aux)
         return self.norm(x), new_caches, aux_rows
@@ -636,19 +702,48 @@ class LlamaForCausalLM(nn.Module):
     def init_cache(self, batch_size: int, max_len: int):
         return self.model.init_cache(batch_size, max_len)
 
-    def forward_with_cache(self, input_ids, caches, pos):
+    def lora_shapes(self, targets):
+        """The LoRA bank's geometry for the serving engines: ``(num_layers,
+        {target: (d_in, d_out)})`` for the requested target projections
+        (a subset of q/k/v/o and gate/up/down). The engine stacks every
+        resident adapter's factors into ``[L, K+1, r, d_in]`` / ``[L, K+1,
+        d_out, r]`` tensors per target and gathers each row's delta inside
+        the decode programs (see :func:`_lora_add`)."""
+        cfg = self.config
+        hd = cfg.head_dim
+        dims = {
+            "q": (cfg.hidden_size, cfg.num_attention_heads * hd),
+            "k": (cfg.hidden_size, cfg.kv_heads * hd),
+            "v": (cfg.hidden_size, cfg.kv_heads * hd),
+            "o": (cfg.num_attention_heads * hd, cfg.hidden_size),
+            "gate": (cfg.hidden_size, cfg.intermediate_size),
+            "up": (cfg.hidden_size, cfg.intermediate_size),
+            "down": (cfg.intermediate_size, cfg.hidden_size),
+        }
+        unknown = [t for t in targets if t not in dims]
+        if unknown:
+            raise ValueError(
+                f"unknown lora target(s) {unknown}; supported: "
+                f"{sorted(dims)}")
+        return cfg.num_hidden_layers, {t: dims[t] for t in targets}
+
+    def forward_with_cache(self, input_ids, caches, pos, lora=None):
         """(logits [B, S, V], caches): a fresh prefill (pos == 0), a chunk
         of a prefill at ``pos`` (an int or a 0-d device tensor, passed
         through unchanged) or a one-token step at ``pos`` (see
-        LlamaAttention.forward_with_cache)."""
-        hidden, caches = self.model.forward_with_cache(input_ids, caches, pos)
+        LlamaAttention.forward_with_cache). ``lora`` (every serving forward
+        below too) is the optional batched-adapter input ``(bank,
+        adapter_idx)``, see :func:`_lora_add`."""
+        hidden, caches = self.model.forward_with_cache(input_ids, caches, pos,
+                                                       lora)
         return self.logits(hidden), caches
 
-    def forward_decode_ragged(self, input_ids, caches, lens, live):
+    def forward_decode_ragged(self, input_ids, caches, lens, live,
+                              lora=None):
         """(logits [B, 1, V], caches): one decode step with per-row lengths
         over dense caches (see LlamaAttention.forward_decode_ragged)."""
         hidden, caches = self.model.forward_decode_ragged(input_ids, caches,
-                                                          lens, live)
+                                                          lens, live, lora)
         return self.logits(hidden), caches
 
     def init_paged_cache(self, num_pages: int, page_size: int,
@@ -656,23 +751,23 @@ class LlamaForCausalLM(nn.Module):
         return self.model.init_paged_cache(num_pages, page_size, kv_dtype)
 
     def forward_decode_paged(self, input_ids, caches, page_table, lens,
-                             live):
+                             live, lora=None):
         """(logits [B, 1, V], caches): one paged decode step (see
         LlamaAttention.forward_decode_paged)."""
         hidden, caches = self.model.forward_decode_paged(
-            input_ids, caches, page_table, lens, live)
+            input_ids, caches, page_table, lens, live, lora)
         return self.logits(hidden), caches
 
-    def forward_decode_spec(self, input_ids, caches, lens, live):
+    def forward_decode_spec(self, input_ids, caches, lens, live, lora=None):
         """(logits [B, W, V], caches): a speculative verify step of W
         tokens per row at per-row offsets over dense caches (see
         LlamaAttention.forward_decode_spec)."""
         hidden, caches = self.model.forward_decode_spec(input_ids, caches,
-                                                        lens, live)
+                                                        lens, live, lora)
         return self.logits(hidden), caches
 
     def forward_decode_spec_paged(self, input_ids, caches, page_table, lens,
-                                  live, snapshots=None):
+                                  live, snapshots=None, lora=None):
         """(logits [B, W, V], caches, aux): a speculative verify step over
         page pools; ``aux`` per layer is None on pools in the model's dtype
         and the int8 window's snapshot and rows otherwise, for the engine's
@@ -680,5 +775,5 @@ class LlamaForCausalLM(nn.Module):
         LlamaAttention.forward_decode_spec_paged; ``snapshots``, per layer,
         are the buffers the snapshot is written into)."""
         hidden, caches, aux = self.model.forward_decode_spec_paged(
-            input_ids, caches, page_table, lens, live, snapshots)
+            input_ids, caches, page_table, lens, live, snapshots, lora)
         return self.logits(hidden), caches, aux

@@ -20,7 +20,12 @@ is the layer a client talks to:
   recovery, tenant quotas, SLO digests and the overload control plane;
 - :func:`~paddle_tpu_torch.serving.http.serve_http` — stdlib HTTP front
   (``POST /generate`` with chunked ndjson streaming, ``GET /healthz``,
-  ``/metrics``, ``/metrics.json``, ``/stats``, ``/trace``);
+  ``/metrics``, ``/metrics.json``, ``/stats``, ``/trace``,
+  ``POST /adapters/load`` and ``/adapters/unload``);
+- :class:`~paddle_tpu_torch.serving.adapters.AdapterRegistry` — the
+  multi-tenant LoRA registry and its device bank (engines built with
+  ``lora_capacity > 0``; hot load / unload with deferral, per-load prefix
+  namespaces);
 - :mod:`~paddle_tpu_torch.serving.control` — the overload control plane
   (:class:`ControlPolicy`, :class:`ControlPlane`,
   :class:`ElasticController`).
@@ -51,11 +56,12 @@ CPU)::
     httpd.shutdown(); srv.shutdown()
 
 Not ported yet: the replica router and the remote replica / disaggregated
-front (ROADMAP A10) and the adapter registry (A8).
+front (ROADMAP A10).
 """
 from ..inference.generation import (EngineFault, PagePoolExhausted,
                                     RequestFault, classify_fault)
 from ..monitor.slo import SLOPolicy
+from .adapters import AdapterRegistry
 from .control import (RUNG_ACTIONS, ControlPlane, ControlPolicy,
                       ElasticController)
 from .http import serve_http
@@ -66,7 +72,8 @@ from .queue import (CANCELLED, EXPIRED, FAILED, FINISHED, QUEUED,
 from .scheduler import PreemptionBudgetExceeded, Server
 
 __all__ = [
-    "Server", "serve_http", "RequestHandle", "RequestQueue",
+    "Server", "serve_http", "AdapterRegistry", "RequestHandle",
+    "RequestQueue",
     "RequestRejected", "QueueFull", "RequestCancelled",
     "DeadlineExpired", "RequestFailed",
     "RequestFault", "EngineFault", "classify_fault",

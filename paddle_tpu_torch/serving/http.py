@@ -11,15 +11,16 @@ body fields and status codes:
        "top_p": 1.0, "do_sample": false, "eos_token_id": null,
        "seed": 0,                     # GenerationConfig fields
        "speculative": false, "draft_k": null,  # spec-decode opt-in
-       "tenant": null,                # quota bucket
+       "adapter": null,               # LoRA fine-tune (null = base)
+       "tenant": null,                # quota bucket (default: adapter)
        "priority": 0, "timeout_s": null,   # admission deadline
        "stream": false,
        "idem_key": null, "from_token": 0}  # exactly-once retry / resume
 
-  Bodies are STRICT: an unknown field is a 400 naming it. The
-  reference's ``adapter`` field is known but not ported: ``null`` is
-  accepted (it asks for nothing), any other value is a 400 naming the
-  ROADMAP item that brings it (A8).
+  Bodies are STRICT: an unknown field is a 400 naming it — a typo'd
+  ``adaptor`` must not silently serve base-model output. A request naming
+  an adapter the engine does not hold fails at admission (a 500 with the
+  cause).
 
   Non-streaming: one JSON response
   ``{"request_id", "tokens", "n_tokens", "ttft_s"}``.
@@ -50,7 +51,8 @@ body fields and status codes:
   |"draining"|"failed"|"stopped", "healthy", "queue_depth",
   "free_slots", "active_requests", "active_slots", "max_batch",
   "restarts"[, "free_pages", "total_pages", "occupancy", "kv_dtype",
-  "pressure"][, "slo"][, "control"][, "flight_dump"], "wire"}``. The
+  "pressure"][, "lora"][, "slo"][, "control"][, "flight_dump"], "wire"}``.
+  The
   HTTP code follows ``healthy``: 200 for "ok"/"draining", 503 otherwise
   ("warming" with a Retry-After).
 
@@ -71,10 +73,19 @@ body fields and status codes:
   buffered events (bounded). 404 with a reason while
   ``FLAGS_enable_trace`` is off.
 
+- ``POST /adapters/load`` / ``POST /adapters/unload`` — multi-tenant LoRA
+  admin (an engine built with ``lora_capacity``): hot load (inline
+  ``weights`` ``{target: {"a": [[...]], "b": [[...]]}}`` or an npz
+  ``path`` with ``<target>.a`` / ``<target>.b`` arrays, optional
+  ``alpha``) and unload (``{"name"}``), applied by the scheduler thread in
+  the inter-segment gap; an unload while live requests decode under the
+  adapter DEFERS (``"deferred": true``). 400 for validation errors and on
+  an engine without ``lora_capacity``; 503 while the server cannot apply
+  them. The registry snapshot rides ``/healthz`` under ``lora``.
+
 - Not ported yet, each a 501 naming its ROADMAP item: ``GET /profile``
-  (the program ledger, A9b), ``POST /adapters/load`` and
-  ``/adapters/unload`` (LoRA, A8), ``POST /kv/export`` and ``/kv/import``
-  (the KV-page handoff, A10).
+  (the program ledger, A9b), ``POST /kv/export`` and ``/kv/import`` (the
+  KV-page handoff, A10).
 """
 from __future__ import annotations
 
@@ -93,18 +104,13 @@ __all__ = ["serve_http"]
 
 _CFG_FIELDS = ("max_new_tokens", "temperature", "top_k", "top_p",
                "do_sample", "eos_token_id", "seed", "speculative",
-               "draft_k")
-
-# the reference's request fields for features the port has not yet: a
-# value that asks for nothing (null / false) is accepted, anything else
-# is a 400 naming the ROADMAP item
-_NOT_PORTED_FIELDS = {"adapter": "A8: multi-tenant LoRA"}
+               "draft_k", "adapter")
 
 # every field a /generate body may carry. Unknown fields are a 400
 # NAMING the field, not silently ignored: a typo'd "adaptor" quietly
 # serving BASE-model output to a fine-tune's customer is the silent
 # failure multi-tenant serving cannot afford
-_KNOWN_FIELDS = (frozenset(_CFG_FIELDS) | frozenset(_NOT_PORTED_FIELDS)
+_KNOWN_FIELDS = (frozenset(_CFG_FIELDS)
                  | {"prompt", "priority", "timeout_s", "stream", "tenant",
                     "idem_key", "from_token"})
 
@@ -116,7 +122,6 @@ MAX_BODY_BYTES = 8 << 20
 
 # routes the port does not serve yet: (prefix, ROADMAP item)
 _NOT_PORTED_ROUTES = (("/profile", "A9b: the program ledger"),
-                      ("/adapters/", "A8: multi-tenant LoRA"),
                       ("/kv/", "A10: the KV-page handoff"))
 
 
@@ -126,11 +131,6 @@ def _parse_request(body: dict):
         raise ValueError(
             f"unknown request field {unknown[0]!r} (allowed: "
             f"{', '.join(sorted(_KNOWN_FIELDS))})")
-    for k, item in _NOT_PORTED_FIELDS.items():
-        if body.get(k) not in (None, False):
-            raise ValueError(
-                f"{k!r} is not ported yet (ROADMAP {item}); send null or "
-                f"leave it out")
     prompt = body.get("prompt")
     if (not isinstance(prompt, list) or not prompt
             or not all(isinstance(t, int) and not isinstance(t, bool)
@@ -183,6 +183,55 @@ def _parse_request(body: dict):
             f"{from_token!r}")
     return (prompt, cfg, priority, timeout_s, stream, tenant,
             idem_key, from_token)
+
+
+def _adapter_weights(body: dict) -> dict:
+    """A ``/adapters/load`` body as the registry's params ``{target: (A,
+    B)}``: inline ``weights`` (nested lists) or an npz file ``path`` with
+    ``<target>.a`` / ``<target>.b`` arrays."""
+    import numpy as np
+
+    weights = body.get("weights")
+    path = body.get("path")
+    if (weights is None) == (path is None):
+        raise ValueError(
+            "exactly one of 'weights' (inline) or 'path' (npz file) "
+            "is required")
+    if path is not None:
+        if not isinstance(path, str):
+            raise ValueError(f"'path' must be a string, got {path!r}")
+        out = {}
+        with np.load(path) as data:
+            for key in data.files:
+                t, _, kind = key.rpartition(".")
+                if kind not in ("a", "A", "b", "B") or not t:
+                    raise ValueError(
+                        f"npz key {key!r} is not '<target>.a'/'<target>.b'")
+                out.setdefault(t, [None, None])[
+                    0 if kind in ("a", "A") else 1] = data[key]
+        bad = [t for t, ab in out.items() if ab[0] is None or ab[1] is None]
+        if bad:
+            raise ValueError(
+                f"npz missing the a or b half for target(s) {bad}")
+        return {t: (a, b) for t, (a, b) in out.items()}
+    if not isinstance(weights, dict) or not weights:
+        raise ValueError(
+            "'weights' must be a non-empty object "
+            "{target: {'a': [[...]], 'b': [[...]]}}")
+    out = {}
+    for t, ab in weights.items():
+        if not isinstance(ab, dict) or "a" not in ab or "b" not in ab:
+            raise ValueError(
+                f"weights[{t!r}] must be an object with 'a' and 'b' "
+                "factor arrays")
+        extra = sorted(k for k in ab if k not in ("a", "b"))
+        if extra:
+            raise ValueError(
+                f"weights[{t!r}] has unknown key {extra[0]!r} "
+                "(allowed: a, b)")
+        out[t] = (np.asarray(ab["a"], np.float32),
+                  np.asarray(ab["b"], np.float32))
+    return out
 
 
 def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
@@ -379,6 +428,9 @@ def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
         def do_POST(self):
             if self._not_ported():
                 return
+            if self.path.startswith("/adapters/"):
+                self._adapters_response()
+                return
             if not self.path.startswith("/generate"):
                 # body NOT consumed: drop the connection after replying
                 # or keep-alive would parse the body as the next request
@@ -484,6 +536,69 @@ def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
                 self._stream_response(handle, idem=idem_key)
             else:
                 self._block_response(handle)
+
+        def _adapters_response(self) -> None:
+            """The multi-tenant LoRA admin surface: ``POST /adapters/load``
+            ``{"name", "weights" | "path"[, "alpha"]}`` and ``POST
+            /adapters/unload`` ``{"name"}``, applied by the scheduler thread
+            in the inter-segment gap; 400 for validation errors (an unknown
+            target, a rank over the bank's, a duplicate name, a full
+            registry) and on an engine without ``lora_capacity``, 503 while
+            the server cannot apply them."""
+            op = self.path[len("/adapters/"):].split("?", 1)[0]
+            if op not in ("load", "unload"):
+                self.close_connection = True
+                self._json(404, {"error": f"no route {self.path}"},
+                           headers={"Connection": "close"})
+                return
+            if (getattr(server, "load_adapter", None) is None
+                    or getattr(getattr(server, "engine", None),
+                               "adapters", None) is None):
+                # permanently unsupported here: a 400, not a retryable 503
+                self.close_connection = True
+                self._json(400, {"error": "this endpoint fronts no "
+                                          "adapter-capable Server "
+                                          "(engine needs "
+                                          "lora_capacity > 0)"},
+                           headers={"Connection": "close"})
+                return
+            try:
+                body = self._read_body()
+                if body is None:
+                    return
+                # admin bodies are STRICT like /generate: a typo'd "aplha"
+                # silently installing scale-1.0 deltas is the same silent
+                # failure as the typo'd "adaptor"
+                allowed = ({"name"} if op == "unload"
+                           else {"name", "weights", "path", "alpha"})
+                unknown = sorted(k for k in body if k not in allowed)
+                if unknown:
+                    raise ValueError(
+                        f"unknown field {unknown[0]!r} (allowed: "
+                        f"{', '.join(sorted(allowed))})")
+                name = body.get("name")
+                if not isinstance(name, str) or not name:
+                    raise ValueError("'name' must be a non-empty string")
+                if op == "unload":
+                    freed = server.unload_adapter(name)
+                    out = {"name": name, "unloaded": bool(freed),
+                           "deferred": not freed}
+                else:
+                    params = _adapter_weights(body)
+                    idx = server.load_adapter(name, params,
+                                              alpha=body.get("alpha"))
+                    out = {"name": name, "index": idx}
+            except (TimeoutError, RequestRejected, RuntimeError) as e:
+                # transient: the scheduler could not apply it now (wedged,
+                # shutting down)
+                self._json(503, {"error": str(e)})
+                return
+            except (ValueError, TypeError, OSError) as e:
+                # OSError: an npz path that cannot be read
+                self._json(400, {"error": str(e)})
+                return
+            out["adapters"] = server.engine.adapters.resident()
+            self._json(200, out)
 
         def _block_response(self, handle) -> None:
             try:

@@ -80,10 +80,15 @@ The watchdog thread only reads the heartbeat and flips flags.
 ``submit``/``cancel``/``drain``/``shutdown`` are thread-safe entry points
 that communicate through the queue, handle flags, and a wake event.
 
+Multi-tenant LoRA: :meth:`Server.load_adapter` / ``unload_adapter`` are
+thread-safe; each is queued and applied by the scheduler thread as the first
+step of the next inter-segment gap (before cancellations and admissions,
+so a load is visible to that gap's admissions), and its result or error
+goes back to the caller. The engine needs ``lora_capacity > 0``.
+
 What the port's engines lack fails at the call, never silently:
-:meth:`Server.load_adapter` / ``unload_adapter`` (LoRA, ROADMAP A8);
-:meth:`Server.export_kv` / ``import_kv`` (the KV-page handoff, A10);
-:meth:`Server.profile` (the program ledger, A9b).
+:meth:`Server.export_kv` / ``import_kv`` (the KV-page handoff, ROADMAP
+A10); :meth:`Server.profile` (the program ledger, A9b).
 """
 from __future__ import annotations
 
@@ -225,9 +230,8 @@ class Server:
       digesting TTFT / TPOT / queue-wait / e2e per (metric, tenant)
       into mergeable fixed-log-bucket digests, plus per-tenant token
       and KV-page-second cost counters — tenant is the ``submit``
-      argument (the reference defaults it to the request's LoRA
-      adapter, which the port has not yet), untenanted traffic
-      aggregates under ``"-"``;
+      argument, defaulting to the request's LoRA ``cfg.adapter``;
+      untenanted traffic aggregates under ``"-"``;
     - ``slo_policy`` (an :class:`~paddle_tpu_torch.monitor.slo.SLOPolicy`)
       additionally scores every service-terminal request: **goodput**
       (fraction meeting the thresholds; FAILED requests miss by
@@ -498,6 +502,9 @@ class Server:
         #                                   threads)
         self._last_shed_dump = -1e18      # guarded-by: self._shed_lock
         self._fault_counts = {}           # guarded-by: self._lock
+        self._admin_ops = []              # guarded-by: self._lock
+        #                                   pending adapter load/unload
+        #                                   (op, args, event, result box)
         #                                   (kind, site) -> n, host-side
         #                                   (monitor-independent; see
         #                                   fault_stats())
@@ -548,10 +555,10 @@ class Server:
         ``<server_label>:<handle id>``) — the replica router passes its
         OWN stable key here so one request's timeline stays whole
         across a failover to a different replica. ``tenant`` names the
-        request's quota bucket (``Server(tenant_quotas=...)``); the
-        reference defaults it to the request's LoRA ``cfg.adapter``,
-        which the port's configs do not have yet (ROADMAP A8), so here
-        ``None`` leaves the request un-quotaed.
+        request's quota bucket (``Server(tenant_quotas=...)``); it
+        defaults to the request's LoRA ``cfg.adapter`` (the fine-tune is
+        the natural tenant), and a base request with no tenant is
+        un-quotaed.
 
         Raises :class:`RequestRejected` (reason ``queue_full`` /
         ``draining`` / ``degraded`` / ``shutdown`` / ``shed`` — the
@@ -573,8 +580,7 @@ class Server:
                 f"exceeds engine max_len({self.engine.max_len})")
         deadline = (None if timeout_s is None
                     else time.monotonic() + timeout_s)
-        eff_tenant = (tenant if tenant is not None
-                      else getattr(cfg, "adapter", None))
+        eff_tenant = tenant if tenant is not None else cfg.adapter
         if self.control is not None and eff_tenant is not None:
             # burn-rate admission control: a tenant whose fast-burn
             # window fired is shed AT THE DOOR for the rest of the
@@ -649,9 +655,12 @@ class Server:
                 raise
         self._count("queued")
         if trace.enabled():
+            attrs = {}
+            if cfg.adapter is not None:
+                attrs["adapter"] = cfg.adapter
             trace.event("queue.enqueue", rid=handle._trace_rid,
                         plen=plen, priority=priority,
-                        depth=self.queue.depth)
+                        depth=self.queue.depth, **attrs)
         self._depth_gauge()
         self._wake.set()
         return handle
@@ -786,17 +795,94 @@ class Server:
         with self._lock:
             return list(self._flight_dumps)
 
-    # -- features the port's engines lack -------------------------------------
+    # -- multi-tenant LoRA admin (thread-safe; applied in the gap) ------------
     def load_adapter(self, name: str, params: dict, alpha=None,
                      timeout: Optional[float] = 30.0) -> int:
-        """Hot-load a LoRA adapter: not ported yet (ROADMAP A8)."""
-        raise _not_ported("multi-tenant LoRA (load_adapter)", "A8")
+        """Hot-load a LoRA adapter into the engine's bank; returns its bank
+        index. Thread-safe: the factors are validated, padded, scaled and
+        converted here, on the caller's thread (``AdapterRegistry.stage``,
+        which reads no registry state); only the copy of their rows into
+        the bank is queued and APPLIED BY THE SCHEDULER THREAD in the next
+        inter-segment gap, then the result, or the registry's ValueError,
+        comes back here. Running requests are untouched; after ``warmup``
+        a load captures nothing. See ``engine.load_adapter`` for the
+        ``params`` format."""
+        self._require_adapters()
+        staged = self.engine.adapters.stage(name, params, alpha)
+        return self._admin_op("load", (name, staged), timeout)
 
     def unload_adapter(self, name: str,
                        timeout: Optional[float] = 30.0) -> bool:
-        """Hot-unload a LoRA adapter: not ported yet (ROADMAP A8)."""
-        raise _not_ported("multi-tenant LoRA (unload_adapter)", "A8")
+        """Hot-unload an adapter. Returns True when its index freed at
+        once, False when live requests still decode under it: the unload
+        DEFERS (new submissions naming it fail at admission; the index
+        frees when the last of them retires). Marshalled as
+        :meth:`load_adapter` is."""
+        self._require_adapters()
+        return self._admin_op("unload", (name,), timeout)
 
+    def _require_adapters(self) -> None:
+        if getattr(self.engine, "adapters", None) is None:
+            raise RuntimeError(
+                "engine built without lora_capacity; pass "
+                "lora_capacity=K at engine construction")
+
+    def _admin_op(self, op: str, args, timeout):
+        evt = threading.Event()
+        box: dict = {}
+        entry = (op, args, evt, box)
+        with self._lock:
+            if self._stopping or self._stopped.is_set():
+                raise RequestRejected(
+                    "shutdown", "server is shut down; admin ops no "
+                    "longer apply")
+            self._admin_ops.append(entry)
+        self._wake.set()
+        if not evt.wait(timeout):
+            # a timed-out op must not apply LATER with nobody waiting (the
+            # caller was told it failed, and a late apply would make its
+            # retry fail "already loaded"): withdraw it if the scheduler
+            # has not taken it yet
+            with self._lock:
+                try:
+                    self._admin_ops.remove(entry)
+                    withdrawn = True
+                except ValueError:
+                    withdrawn = False   # mid-apply: the result is imminent
+            if withdrawn:
+                raise TimeoutError(
+                    f"admin op {op} not applied within {timeout}s "
+                    "(withdrawn; is the scheduler wedged?)")
+            # the scheduler already owns it: a short grace, so the caller
+            # gets the REAL verdict
+            if not evt.wait(5.0):
+                raise TimeoutError(
+                    f"admin op {op} still applying after {timeout}s")
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    _ADMIN_DISPATCH = {
+        "load": lambda eng, name, staged: eng.adapters.install(name, staged),
+        "unload": lambda eng, name: eng.unload_adapter(name)}
+
+    def _apply_admin(self) -> None:
+        """Apply the pending admin ops (adapter load / unload) on the
+        scheduler thread, in the gap: the only place the registry may be
+        touched. A failed op reports its error to its waiting caller; the
+        engine and every running request are unharmed (a load is
+        all-or-nothing)."""
+        with self._lock:
+            ops, self._admin_ops = self._admin_ops, []
+        for op, args, evt, box in ops:
+            try:
+                box["result"] = self._ADMIN_DISPATCH[op](self.engine, *args)
+            except Exception as e:
+                box["error"] = e
+            finally:
+                evt.set()
+
+    # -- features the port's engines lack -------------------------------------
     def export_kv(self, tokens, salt: bytes = b"",
                   timeout: Optional[float] = 30.0) -> dict:
         """Export cached KV pages: not ported yet (ROADMAP A10, built on
@@ -1286,11 +1372,19 @@ class Server:
                         if trace.enabled() and self._active:
                             # batch-wide event: carries the live
                             # request set so each one's timeline()
-                            # includes its segments
+                            # includes its segments, and the adapter
+                            # mix decoding in it (which fine-tunes
+                            # shared this program run)
+                            ad = tuple(sorted(
+                                {h.cfg.adapter for h
+                                 in self._active.values()
+                                 if h.cfg.adapter is not None}))
+                            attrs = {"adapters": ad} if ad else {}
                             sp = trace.span(
                                 "segment", steps=self.segment_steps,
                                 rids=tuple(h._trace_rid for h
-                                           in self._active.values()))
+                                           in self._active.values()),
+                                **attrs)
                         with sp:
                             self._guard(
                                 "decode",
@@ -1372,6 +1466,15 @@ class Server:
             self._fatal = err
         wrapped = (RuntimeError(f"serving scheduler died: {err!r}")
                    if fail else None)
+        # pending adapter admin ops must not strand their callers in
+        # load_adapter()'s wait: they fail with the terminal state
+        with self._lock:
+            admin, self._admin_ops = self._admin_ops, []
+        for _op, _args, evt, box in admin:
+            box["error"] = (wrapped if fail else
+                            RuntimeError("server stopped before the "
+                                         "admin op applied"))
+            evt.set()
         if self._adm is not None:
             adm, h = self._adm
             self._adm = None
@@ -1603,6 +1706,10 @@ class Server:
         the engine's abort guards). Engine-scoped faults escalate via
         :meth:`_contain`."""
         chunk = getattr(self.engine, "prefill_chunk", None)
+        # the adapter rides every admission span: a multi-tenant timeline
+        # must say whose weights the prefill ran under
+        t_attrs = ({"adapter": cfg.adapter} if cfg.adapter is not None
+                   else {})
         if chunk is not None and plen > chunk:
             # long prompt: claim capacity now, prefill one fixed-shape
             # chunk per gap (decode segments run in between) instead of
@@ -1611,7 +1718,7 @@ class Server:
             if trace.enabled():
                 sp = trace.span("admit.begin", rid=h._trace_rid,
                                 plen=plen, chunk=chunk,
-                                replay=h._engine_base > 0)
+                                replay=h._engine_base > 0, **t_attrs)
             with sp:
                 try:
                     adm = self.engine.begin_admit(ids, cfg)
@@ -1626,7 +1733,7 @@ class Server:
             sp = trace.span("admit", rid=h._trace_rid, plen=plen,
                             bucket=(wfn(plen) if wfn is not None
                                     else plen),
-                            replay=h._engine_base > 0)
+                            replay=h._engine_base > 0, **t_attrs)
         with sp:
             try:
                 rid = self.engine.add_request(ids, cfg)
@@ -1757,9 +1864,10 @@ class Server:
             self._replay = still + pending + self._replay
 
     def _gap(self) -> None:  # lint: hot-path
-        """The inter-segment gap: cancellations first (they free
-        capacity), then ONE chunk of any in-flight chunked admission
-        (bounded gap work — decode segments run between chunks), then
+        """The inter-segment gap: adapter admin first (hot LoRA loads and
+        unloads), then cancellations (they free capacity), then ONE chunk
+        of any in-flight chunked admission (bounded gap work — decode
+        segments run between chunks), then
         expiry reaping, then replay re-admissions, then admission while
         the engine's capacity probe allows.
 
@@ -1793,6 +1901,13 @@ class Server:
         self._depth_gauge()
 
     def _gap_body(self) -> None:
+        # 0. adapter admin (hot load / unload) applies FIRST: "in the
+        #    inter-segment gap" is the registry's whole thread contract,
+        #    and a load must be visible to this gap's admissions (an
+        #    unlocked emptiness probe; _apply_admin swaps the list under
+        #    the lock)
+        if self._admin_ops:
+            self._apply_admin()
         # 1. cancellations of RUNNING requests retire their slots
         for rid, h in list(self._active.items()):
             if h._cancel_requested:

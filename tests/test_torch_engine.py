@@ -133,13 +133,13 @@ def test_admission_limits_and_unported_modes():
     with pytest.raises(RuntimeError):
         eng.add_request(np.zeros(9, np.int32), cfg)
     assert eng.free_slots() == 2 and eng.alloc.free_pages == 4
-    # the reference's LoRA setting is not an option of the port until its
-    # code is ported (sampling and speculative decoding are); the
-    # admission mode, the prefix cache and kv_dtype are, and take the
-    # reference's values only
+    # the reference's request options are the port's (sampling,
+    # speculative decoding, the LoRA adapter); the admission mode, the
+    # prefix cache and kv_dtype take the reference's values only
     assert GenerationConfig(max_new_tokens=2, speculative=True).speculative
-    with pytest.raises(TypeError):
-        GenerationConfig(max_new_tokens=2, adapter="a")
+    assert GenerationConfig(max_new_tokens=2, adapter="a").adapter == "a"
+    with pytest.raises(ValueError, match="adapter"):
+        GenerationConfig(max_new_tokens=2, adapter="")
     for kw in (dict(admission_mode="optimistic"), dict(prefix_cache=True)):
         e = PagedContinuousBatchingEngine(tm, max_batch=1, num_pages=4,
                                           page_size=4, max_pages=2, **kw)

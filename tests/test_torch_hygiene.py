@@ -338,7 +338,8 @@ SERVING_MODULES = {
     "paddle_tpu_torch/testing/faults.py": [
         "SITES", "FaultPlan", "FaultyEngine", "InjectedFault"],
     "paddle_tpu_torch/serving/__init__.py": [
-        "Server", "serve_http", "RequestHandle", "RequestQueue",
+        "Server", "serve_http", "AdapterRegistry", "RequestHandle",
+        "RequestQueue",
         "RequestRejected", "QueueFull", "RequestCancelled",
         "DeadlineExpired", "RequestFailed", "RequestFault", "EngineFault",
         "classify_fault", "PagePoolExhausted", "PreemptionBudgetExceeded",
@@ -352,6 +353,7 @@ SERVING_MODULES = {
     "paddle_tpu_torch/serving/scheduler.py": [
         "Server", "PreemptionBudgetExceeded"],
     "paddle_tpu_torch/serving/http.py": ["serve_http"],
+    "paddle_tpu_torch/serving/adapters.py": None,
 }
 
 

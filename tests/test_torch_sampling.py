@@ -79,10 +79,15 @@ def test_generation_config_values_and_unported_fields():
     for name in good:
         assert getattr(got, name) == getattr(want, name)
         assert type(getattr(got, name)) is type(getattr(want, name))
-    assert vars(GenerationConfig()) == {
-        k: v for k, v in vars(JaxGenCfg()).items() if k != "adapter"}
-    with pytest.raises(TypeError):
-        GenerationConfig(adapter="a")
+    assert vars(GenerationConfig()) == vars(JaxGenCfg())
+    assert (vars(GenerationConfig(adapter="a"))
+            == vars(JaxGenCfg(adapter="a")))
+    for bad in ("", "x" * 257, 3):
+        with pytest.raises(ValueError) as want:
+            JaxGenCfg(adapter=bad)
+        with pytest.raises(ValueError) as got:
+            GenerationConfig(adapter=bad)
+        assert str(got.value) == str(want.value)
 
 
 # -- the filter and the draw --------------------------------------------------

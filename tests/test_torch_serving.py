@@ -429,16 +429,19 @@ class TestServerOnline:
         srv, eng, cfg = _server(max_batch=1, num_pages=24, segment_steps=2)
         try:
             rng = np.random.RandomState(3)
+            # h1 holds the one slot for 56 tokens, far longer than h2's
+            # deadline even on an idle CPU, where a tiny step takes about
+            # half a millisecond
             h1 = srv.submit(rng.randint(0, cfg.vocab_size, (4,))
                             .astype(np.int32),
-                            GenerationConfig(max_new_tokens=48,
+                            GenerationConfig(max_new_tokens=56,
                                              eos_token_id=None))
             next(iter(h1.stream(timeout=WAIT)))
             h2 = srv.submit(rng.randint(0, cfg.vocab_size, (4,))
                             .astype(np.int32),
                             GenerationConfig(max_new_tokens=4,
                                              eos_token_id=None),
-                            timeout_s=0.05)
+                            timeout_s=0.005)
             with pytest.raises(DeadlineExpired):
                 h2.result(timeout=WAIT)
             assert h2.engine_rid is None
@@ -652,13 +655,21 @@ def test_missing_features_fail_at_construction(kw, item):
     (lambda s: s.import_kv({}), "A10"),
     (lambda s: s.profile(), "A9b")])
 def test_missing_features_fail_at_the_call(call, item):
+    """What the engine lacks fails at the call: the adapter admin ops (A8,
+    ported) on an engine built without ``lora_capacity`` raise the
+    reference's RuntimeError naming it; the features not ported yet raise
+    NotImplementedError naming their ROADMAP item."""
     model, _ = tiny_model()
     srv = Server(paged_engine(model), start=False,
                  admission_mode="reserved")
     try:
-        with pytest.raises(NotImplementedError,
-                           match=f"not ported yet \\(ROADMAP {item}"):
-            call(srv)
+        if item == "A8":
+            with pytest.raises(RuntimeError, match="lora_capacity"):
+                call(srv)
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=f"not ported yet \\(ROADMAP {item}"):
+                call(srv)
     finally:
         srv.shutdown(drain=False)
 
@@ -762,6 +773,11 @@ class TestHTTPFrontend:
         ("POST", "/adapters/unload", "A8"), ("POST", "/kv/export", "A10"),
         ("POST", "/kv/import", "A10")])
     def test_routes_not_ported_answer_501(self, method, path, item):
+        """The routes of features not ported yet answer 501 naming their
+        ROADMAP item. The adapter admin routes (A8) are ported: on an
+        engine built without ``lora_capacity`` they answer the reference's
+        400 naming it (permanently unsupported there, not a retryable
+        503)."""
         model, _ = tiny_model()
         srv = Server(paged_engine(model), start=False)
         httpd = serve_http(srv)
@@ -771,6 +787,10 @@ class TestHTTPFrontend:
                           data=b"{}" if method == "POST" else None)
             with pytest.raises(HTTPError) as ei:
                 urlopen(req, timeout=30)
+            if item == "A8":
+                assert ei.value.code == 400
+                assert "lora_capacity" in json.load(ei.value)["error"]
+                return
             assert ei.value.code == 501
             assert f"ROADMAP {item}" in json.load(ei.value)["error"]
         finally:
@@ -781,11 +801,15 @@ class TestHTTPFrontend:
         ("speculative", True, "A7"), ("draft_k", 4, "A7"),
         ("adapter", "ft", "A8")])
     def test_request_fields_not_ported_are_400(self, field, value, item):
-        """A value asking for a feature the port lacks is a 400 naming its
-        ROADMAP item, and nothing is queued; ``null`` asks for nothing and
-        is served. The speculative-decoding fields (A7) are ported: a
-        value is served (``speculative`` speculatively, on an engine with
-        a draft window) and a malformed ``draft_k`` is a 400 naming it."""
+        """The reference's request fields of features the port once lacked,
+        each now ported; ``null`` asks for nothing and is served. The
+        speculative-decoding fields (A7): a value is served
+        (``speculative`` speculatively, on an engine with a draft window)
+        and a malformed ``draft_k`` is a 400 naming it. The ``adapter``
+        field (A8): a name is admitted, and on this engine, built without
+        ``lora_capacity``, the request fails at admission (a 500 whose
+        cause names it, the reference's request-scoped verdict); a
+        malformed name is a 400 naming the field."""
         srv, eng, _ = _server(segment_steps=2, draft_k=3)
         httpd = serve_http(srv)
         url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
@@ -807,10 +831,16 @@ class TestHTTPFrontend:
             else:
                 with pytest.raises(HTTPError) as ei:
                     urlopen(Request(url, data=json.dumps(
-                        {"prompt": [1], field: value}).encode()),
+                        {"prompt": [1], field: value,
+                         "max_new_tokens": 2}).encode()), timeout=WAIT)
+                assert ei.value.code == 500
+                assert "lora_capacity" in json.load(ei.value)["error"]
+                with pytest.raises(HTTPError) as ei:
+                    urlopen(Request(url, data=json.dumps(
+                        {"prompt": [1], field: ""}).encode()),
                         timeout=30)
                 assert ei.value.code == 400
-                assert f"ROADMAP {item}" in json.load(ei.value)["error"]
+                assert "adapter" in json.load(ei.value)["error"]
             assert srv.queue.depth == 0 and srv.num_active() == 0
             with urlopen(Request(url, data=json.dumps(
                     {"prompt": [1], field: None,
