@@ -97,7 +97,17 @@ Phases, each timed, none caught and passed over:
    under the row's adapter, the merged-weights oracle in fp32 within
    MERGED_ATOL (and two faulty merges read above it),
    and speculation in host and device mode with oracle drafts against the
-   plain LoRA streams, launches the path's);
+   plain LoRA streams, launches the path's); the replica fleet at 2 layers
+   (FLEET_E2E: the KV-page handoff with bf16 and int8 pools, exported on
+   the card, framed and imported on the card and on the CPU with the
+   rows and scales byte for byte the exported ones, a re-ship deduped,
+   a flipped byte answered 400 naming its block with nothing installed,
+   an import past the pages the pool can reclaim leaving each indexed
+   page its own block's rows, the decode engine's continuation against
+   the colocated stream; a two-replica ``Router`` with one replica killed
+   mid-stream against a ``Server``; in fp32, ``DisaggregatedFront`` over
+   two ``Server`` replicas behind ``serve_http`` against a monolithic
+   ``Server``, token for token up to a near-tie of F32_NEAR_TIE);
    then the training
    configuration's widths at 2 layers, one Layer-API backward and one
    AdamW train step on the card and on the CPU from the same weights and
@@ -186,6 +196,31 @@ Phases, each timed, none caught and passed over:
    it (each replay credited with the launches
    its graph holds) is held against the count the path implies; the
    captures, their seconds and their pools' bytes are recorded;
+5b. the replica fleet, this slice's main path, at the ``"7b"`` preset
+   (FLEET: phase 5's chunked engine with ``prefix_cache=True`` behind
+   ``Server(segment_steps=8, warmup=True)``): first the ``disagg`` leg,
+   two ``python -m paddle_tpu_torch.serving.remote`` processes on the card
+   behind ``DisaggregatedFront`` (the prompts under 512 tokens from client
+   threads, each replica's kernel launches over that wave read from its
+   ``paddle_tpu_kernel_launches`` series and held against the kernels its
+   side must run; then fresh prompts of those lengths one at a time
+   through the replicas' public calls, per handoff its bytes, /kv/export
+   and /kv/import round trips and the decode side's TTFT beside the cold
+   prefill's; the 600-token prompt, over the reference's 256 MiB import
+   cap, ending FAILED with the 413 while both replicas serve on; a decode
+   process killed mid-stream, the request replayed on the prefill
+   replica); then the ``fleet`` leg, a single ``Server`` (the
+   reference streams and latencies, each short prompt continued over its
+   own pages, the handoff timed in process) and a ``Router`` of 2
+   replicas, replica 0 killed mid-stream, waves of the 8 prompts while
+   the supervisor rebuilds it, a wave under ``rolling_restart`` (zero
+   failed): TTFT, TPOT, failovers, recovery and rebuild seconds, peak
+   memory, launches over the routed traffic; the waves' streams against
+   the single ``Server``'s and the front's against its continuation,
+   token for token up to a split at a top-2 margin under NEAR_TIE; the
+   front's against the single ``Server``'s own streams up to a split
+   where the same weights in fp32 separate the two tokens by less than
+   NEAR_TIE (the bf16 and fp32 margins there recorded);
 6. train: the repo's training configuration (``bench.py``: llama 350m with
    8 heads of 128, 24 layers, bf16, batch 8 x 2048, full recompute, AdamW
    lr 1e-4, clip 1.0) through ``build_train_step``, one warm-up step and
@@ -348,6 +383,17 @@ LORA_SERVER = dict(targets=("q", "k", "v", "o"), rank=16, capacity=4,
 # phase 5's /metrics scraper beside a Server's warmup: a scrape every 10 ms
 # (back to back, each scrape's host time, about 2.6 ms on the 7B serve's
 # registry, holds the GIL the scheduler thread's capture needs)
+# the KV-page handoff and the router at 2 layers (phase 4): the prompts of
+# phase 4's engines, 8 new tokens
+FLEET_E2E = dict(prompts=(100, 37), new=8)
+# the replica fleet at full depth (phase 5): phase 5's chunked engine with
+# the prefix cache, 32 new tokens; replica 0 killed once a request of its
+# has streamed kill_after tokens; handoffs of prompts under handoff_max
+# tokens (the reference's 256 MiB /kv/import cap holds 31 full 7B blocks)
+FLEET = dict(new=32, kill_after=4, segment_steps=8, handoff_max=512,
+             engine=dict(max_batch=8, num_pages=512, page_size=16,
+                         max_pages=64, prefill_chunk=256))
+REPLICA_DEVICE = "cuda"         # the device the replica processes serve on
 SCRAPE_PAUSE_S = 0.01
 # C-check-1 (phase 4): train steps of the 2-layer bf16 model, card and CPU
 DRIFT_STEPS = 30
@@ -552,18 +598,23 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
          "serve_sampled", "server", "serve_prefix",
          "server_pressure") + SPEC_PATHS + ("server_lora", "train", "fmt",
                                              "train_hb", "ops", "f32",
-                                             "eager_fit")
-# this slice's path: the multi-tenant LoRA Server's mixed serve at 7B
-# (phase 5), which runs K1, K2, K3 (one-shot and prefix-chunk) and K4
-SLICE_PATHS = ("server_lora",)
+                                             "eager_fit", "fleet", "disagg")
+# this slice's paths: the replica fleet's routed traffic at 7B (phase 5's
+# fleet leg: two replicas, a kill, a rebuild under traffic, a rolling
+# restart) and the disaggregated front's wave (phase 5's disagg leg: its
+# two replica processes' launches, read from their
+# paddle_tpu_kernel_launches series), which run K1, K2, K3 (one-shot and
+# prefix-chunk) and K4
+SLICE_PATHS = ("fleet", "disagg")
 # earlier slices' paths, in the order their counts stand in for a kernel
-# this slice does not run: the decode paths, which run K4 and K7 (phase 5's
-# through captured graphs), the chunked and sampled serves, the serving
+# this slice does not run: the LoRA Server's serve, the decode paths, which
+# run K4 and K7 (phase 5's through captured graphs), the chunked and
+# sampled serves, the serving
 # front's Server serve, the prefix-cache and memory-pressure legs, the
 # speculative Server serves and FMT (K8); then training, the eager
 # Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
-EARLIER_PATHS = (("serve", "serve_int8", "generate", "dense_serve",
-                  "serve_chunked", "serve_sampled", "server",
+EARLIER_PATHS = (("server_lora", "serve", "serve_int8", "generate",
+                  "dense_serve", "serve_chunked", "serve_sampled", "server",
                   "serve_prefix", "server_pressure") + SPEC_PATHS
                  + ("fmt",), ("eager_fit", "train", "f32"),
                  ("ops", "train_hb"))
@@ -2423,6 +2474,7 @@ def e2e_phase(torch, dev, np):
     rec["chunked_sampled"] = chunk_sample_e2e(torch, np, gpu, cpu)
     rec["prefix_pressure"] = prefix_pressure_e2e(torch, np, gpu, cpu)
     rec["lora"] = lora_e2e(torch, np, gpu, cpu)
+    rec["fleet"] = fleet_e2e(torch, np, gpu, cpu)
     del gpu, cpu
     torch.cuda.empty_cache()
     return rec
@@ -4271,14 +4323,16 @@ def chunked_serve_phase(torch, np, model, prompts, paged_outs,
     return tuple(recs) + (server_rec,) + spec_recs + (lora_rec,)
 
 
-def serve_clients(srv, prompts, cfg, wait_s=600.0, tolerate=()):
+def serve_clients(srv, prompts, cfg, wait_s=600.0, tolerate=(), live=None):
     """Submit every prompt from a client thread of its own, in prompt order
     (each thread after the one before it, so the queue's order, and with
     it the scheduler's history, is the same in every run), each streaming
     its tokens at once; ``cfg`` is one config or one per prompt. Returns (outputs, handles) in prompt order; raises
     what a client raised, or if one did not finish within ``wait_s``. A
     request failing with a cause of a type in ``tolerate`` is not raised:
-    its output is None and its handle FAILED."""
+    its output is None and its handle FAILED. Each handle is appended to
+    ``live`` (a list) as it is submitted, for a caller that watches the
+    requests while they stream."""
     import threading
 
     import numpy as np
@@ -4296,6 +4350,8 @@ def serve_clients(srv, prompts, cfg, wait_s=600.0, tolerate=()):
             try:
                 handles[i] = srv.submit(
                     prompts[i], cfg[i] if isinstance(cfg, list) else cfg)
+                if live is not None:
+                    live.append(handles[i])
             finally:
                 turn[i + 1].set()
             outs[i] = np.asarray(list(handles[i].stream(timeout=wait_s)),
@@ -5040,6 +5096,853 @@ def lora_server_phase(torch, np, model, prompts, plain_outs, plain_rec,
     del eng
     torch.cuda.empty_cache()
     return rec
+
+
+def handoff_pages_equal(torch, eng, payload, prompt, salt=b""):
+    """Whether ``eng``'s pool rows (and int8 scales) at the pages its
+    prefix index maps for ``prompt``'s full blocks equal the payload's
+    arrays exactly; raises where they do not."""
+    pids, _, _ = eng.alloc.lookup_prefix(prompt, salt=salt)
+    n = len(payload["blocks"])
+    if len(pids) < n:
+        raise AssertionError(f"handoff: {len(pids)} pages resident for "
+                             f"{n} imported blocks")
+    idx = torch.as_tensor(pids[:n], dtype=torch.long).to(eng.device)
+    keys = ("k", "v", "k_scale", "v_scale")
+    for li, (entry, lay) in enumerate(zip(eng.caches, payload["layers"])):
+        for key, pool in zip(keys, entry):
+            got = pool.index_select(0, idx).cpu()
+            if not torch.equal(got, lay[key]):
+                raise AssertionError(f"handoff: layer {li} {key!r} rows "
+                                     "differ from the exported ones")
+
+
+def block_offset(raw: bytes, block: int) -> int:
+    """Offset in a framed payload of the first byte of ``block``'s rows in
+    layer 0's ``k`` array."""
+    n = int.from_bytes(raw[:4], "big")
+    meta = json.loads(raw[4:4 + n])["layers"][0]["k"]
+    row = 1
+    for s in meta["shape"][1:]:
+        row *= s
+    item = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}[
+        meta["dtype"]]
+    return 4 + n + block * row * item
+
+
+def overfull_import(torch, eng, payload) -> list:
+    """Import ``payload`` into ``eng`` (a fresh engine) with live rows
+    pinning all but half its blocks' pages, so its later blocks reclaim
+    pages the same import adopted: every page the prefix index then maps
+    for a block must hold that block's rows and scales exactly, and only
+    the last blocks stay resident. Returns the resident block indices."""
+    a = eng.alloc
+    nb = len(payload["blocks"])
+    spare = max(1, nb // 2)
+    left = a.free_pages - spare
+    for slot in range(a.page_table.shape[0]):
+        n = min(left, a.page_table.shape[1])
+        if n:
+            a.ensure(slot, n * eng.page_size)
+        left -= n
+    if left or a.free_pages != spare:
+        raise AssertionError(f"overfull import: {a.free_pages} pages left")
+    got = eng.import_kv_pages(payload)
+    if got["imported"] != nb:
+        raise AssertionError(f"overfull import: {got}")
+    a.check()
+    keys = ("k", "v", "k_scale", "v_scale")
+    resident = []
+    for b, blk in enumerate(payload["blocks"]):
+        pid = a._index.get(bytes.fromhex(blk["hash"]))
+        if pid is None:
+            continue
+        resident.append(b)
+        for li, (entry, lay) in enumerate(zip(eng.caches,
+                                              payload["layers"])):
+            for key, pool in zip(keys, entry):
+                if not torch.equal(pool[pid].cpu(), lay[key][b]):
+                    raise AssertionError(
+                        f"overfull import: page {pid} of block {b}, layer "
+                        f"{li} {key!r}, holds other rows")
+    if resident != list(range(nb - spare, nb)):
+        raise AssertionError(f"overfull import: blocks {resident} resident")
+    return resident
+
+
+def front_f32(torch, np, gpu, prompts, n_new) -> dict:
+    """C-check-3 in fp32 at 2 layers: ``gpu``'s weights in fp32, a
+    monolithic ``Server``, then ``DisaggregatedFront`` over a prefill and a
+    decode replica, each a ``Server`` behind ``serve_http`` in this process
+    reached through ``RemoteReplica`` (the wire, the codec and the /kv
+    routes a replica process serves). Every front stream must equal the
+    monolithic one token for token, a split failing at a top-2 margin of
+    F32_NEAR_TIE or more."""
+    from paddle_tpu_torch import GenerationConfig, PagedContinuousBatchingEngine
+    from paddle_tpu_torch.serving import (DisaggregatedFront, RemoteReplica,
+                                          Server, serve_http)
+
+    kw = dict(max_batch=2, num_pages=32, page_size=16, max_pages=16,
+              prefix_cache=True)
+    gen = GenerationConfig(max_new_tokens=n_new)
+    m32 = f32_twin(torch, gpu)
+    mono = Server(PagedContinuousBatchingEngine(m32, **kw), segment_steps=4)
+    try:
+        want = [np.asarray(mono.submit(p, gen).result(timeout=600), np.int32)
+                for p in prompts]
+    finally:
+        mono.shutdown(drain=False, timeout=60)
+    srvs, httpds, reps = [], [], []
+    try:
+        for m in (m32, f32_twin(torch, gpu)):
+            srvs.append(Server(PagedContinuousBatchingEngine(m, **kw),
+                               segment_steps=4))
+            httpds.append(serve_http(srvs[-1]))
+            reps.append(RemoteReplica(
+                f"http://127.0.0.1:{httpds[-1].server_address[1]}"))
+        front = DisaggregatedFront(*reps)
+        outs = [np.asarray(front.generate(p, gen).result(timeout=600),
+                           np.int32) for p in prompts]
+    finally:
+        for r in reps:
+            r.close()
+        for h in httpds:
+            h.shutdown()
+        for srv in srvs:
+            srv.shutdown(drain=False, timeout=60)
+    want_blocks = sum(len(p) // 16 for p in prompts)
+    if front.handoffs != want_blocks or front.failovers:
+        raise AssertionError(f"front fp32: {front.handoffs} blocks shipped "
+                             f"of {want_blocks}, {front.failovers} failovers")
+    splits, margins = first_splits(torch, np, m32, prompts, outs, want)
+    if any(mg is not None and mg >= F32_NEAR_TIE for mg in margins):
+        raise AssertionError(f"front fp32: streams part from the monolithic "
+                             f"Server's at {splits}, margins {margins}")
+    return {"blocks_shipped": front.handoffs, "first_split": splits,
+            "split_margins": margins}
+
+
+def run_to_end(eng, ids, cfg):
+    """One request through an engine's stepwise API; its stream."""
+    rid = eng.add_request(ids, cfg)
+    while eng.decode_segment(4):
+        pass
+    return eng.collect_finished()[rid]
+
+
+def fleet_e2e(torch, np, gpu, cpu):
+    """This slice's legs at 2 layers of the 7B widths (FLEET_E2E): the
+    KV-page handoff with bf16 and with int8 pools, card against CPU, and a
+    two-replica ``Router`` with one replica killed mid-stream.
+
+    Per pool dtype: a card engine (``prefix_cache=True``) serves a prompt
+    (the colocated stream), exports its pages; the payload goes through
+    ``encode_kv_payload`` / ``decode_kv_payload`` and ``import_kv_pages``
+    into a fresh card engine and a CPU engine: the imported rows and scales
+    equal the exported ones exactly on both; a re-ship imports 0 and
+    dedups every block. Through ``serve_http`` over a ``Server`` on a third
+    card engine: the framed bytes with one byte of block 1 flipped answer
+    400 ``integrity`` naming block 1 and install nothing, the good bytes
+    import every block, and the prompt plus the first token served there
+    continues the colocated stream token for token (a split only at a
+    top-2 margin under NEAR_TIE); the CPU engine's continuation against the
+    card's up to a near-tie. Then ``Router`` over two replicas of the same
+    weights, replica 0 behind ``FaultyEngine`` whose third decode segment
+    raises a fatal ``EngineFault`` (``max_restarts=0``): every stream
+    equals a single ``Server``'s (the margin rule), with a failover."""
+    from paddle_tpu_torch import (GenerationConfig, LlamaForCausalLM,
+                                  PagedContinuousBatchingEngine)
+    from paddle_tpu_torch.inference.generation import EngineFault
+    from paddle_tpu_torch.serving import (ReplicaSpec, Router, Server,
+                                          decode_kv_payload,
+                                          encode_kv_payload, serve_http)
+    from paddle_tpu_torch.testing import FaultPlan, FaultyEngine
+
+    cfg = gpu.config
+    rng = np.random.RandomState(17)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in FLEET_E2E["prompts"]]
+    prompt, n_new = prompts[0], FLEET_E2E["new"]
+    gen = GenerationConfig(max_new_tokens=n_new)
+    kw = dict(max_batch=2, num_pages=32, page_size=16, max_pages=16,
+              prefix_cache=True)
+    rec = {"prompt_lens": [len(p) for p in prompts], "new": n_new}
+    for kv in ("bf16", "int8"):
+        r = {}
+        colo = run_to_end(PagedContinuousBatchingEngine(gpu, kv_dtype=kv,
+                                                        **kw), prompt, gen)
+        src = PagedContinuousBatchingEngine(gpu, kv_dtype=kv, **kw)
+        run_to_end(src, prompt, GenerationConfig(max_new_tokens=1))
+        t0 = time.perf_counter()
+        payload = src.export_kv_pages(prompt)
+        torch.cuda.synchronize()
+        r["export_ms"] = (time.perf_counter() - t0) * 1e3
+        raw = encode_kv_payload(payload)
+        got = decode_kv_payload(raw)
+        nb = len(got["blocks"])
+        r.update(blocks=nb, bytes=len(raw))
+        rest = np.concatenate([prompt, colo[:1]])
+        cont = GenerationConfig(max_new_tokens=n_new - 1)
+        for name, m in (("card", gpu), ("cpu", cpu)):
+            dst = PagedContinuousBatchingEngine(m, kv_dtype=kv, **kw)
+            first = dst.import_kv_pages(got)
+            again = dst.import_kv_pages(got)
+            if (first != {"imported": nb, "deduped": 0, "coverage": nb * 16}
+                    or again["imported"] != 0 or again["deduped"] != nb):
+                raise AssertionError(f"handoff {kv} into the {name}: "
+                                     f"{first}, then {again}")
+            handoff_pages_equal(torch, dst, got, prompt)
+            dst.alloc.check()
+            r[f"{name}_continuation"] = run_to_end(dst, rest, cont)
+        r["overfull_resident"] = overfull_import(
+            torch, PagedContinuousBatchingEngine(gpu, kv_dtype=kv, **kw), got)
+        # over the wire into a Server: a flipped byte, then the good bytes
+        srv = Server(PagedContinuousBatchingEngine(gpu, kv_dtype=kv, **kw),
+                     segment_steps=4)
+        httpd = serve_http(srv)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            bad = bytearray(raw)
+            bad[block_offset(raw, 1)] ^= 0xFF
+            alloc = srv.engine.alloc
+            before = (alloc.free_pages, alloc.cached_pages)
+            status, body = http_raw(url + "/kv/import", bytes(bad))
+            body = json.loads(body)
+            if (status != 400 or body.get("reason") != "integrity"
+                    or "block 1" not in body.get("error", "")
+                    or (alloc.free_pages, alloc.cached_pages) != before):
+                raise AssertionError(f"handoff {kv}: a flipped byte of "
+                                     f"block 1 gave {status} {body}")
+            status, body = http_raw(url + "/kv/import", raw)
+            if status != 200 or json.loads(body)["imported"] != nb:
+                raise AssertionError(f"handoff {kv}: /kv/import {status} "
+                                     f"{body}")
+            h = srv.submit(rest, cont)
+            wire = np.asarray(h.result(timeout=600), np.int32)
+        finally:
+            httpd.shutdown()
+            srv.shutdown(drain=False, timeout=60)
+        splits, margins = check_streams(
+            torch, np, gpu, [rest], [wire], [colo[1:]],
+            f"handoff {kv}: the decode engine against the colocated one")
+        r.update(integrity_reject="400 naming block 1, nothing installed",
+                 wire_first_split=splits[0], wire_split_margin=margins[0],
+                 card_cpu_tokens_matched=matched_tokens(
+                     torch, np, cpu, [rest], [r.pop("card_continuation")],
+                     [r.pop("cpu_continuation")])[0])
+        rec[kv] = r
+
+    # the router: replica 0 dies mid-stream, the streams stay a Server's
+    def model():
+        return LlamaForCausalLM(
+            cfg, device=gpu.device,
+            generator=torch.Generator(gpu.device).manual_seed(7))
+
+    rkw = dict(max_batch=2, num_pages=32, page_size=16, max_pages=16)
+    skw = dict(segment_steps=2, idle_wait_s=0.005)
+    ref = Server(PagedContinuousBatchingEngine(model(), **rkw), **skw)
+    try:
+        want = [np.asarray(ref.submit(p, gen).result(timeout=600), np.int32)
+                for p in prompts]
+    finally:
+        ref.shutdown(drain=False, timeout=60)
+    plan = FaultPlan().raise_at("decode", nth=3,
+                                exc=EngineFault("injected replica death"))
+    builds = []
+
+    def factory():
+        eng = PagedContinuousBatchingEngine(model(), **rkw)
+        builds.append(eng)
+        return FaultyEngine(eng, plan) if len(builds) == 1 else eng
+
+    router = Router(ReplicaSpec(factory, server_kwargs=dict(
+        max_restarts=0, **skw)), replicas=2, monitor_interval_s=0.02)
+    try:
+        hs = [router.submit(p, gen) for p in prompts]
+        outs = [np.asarray(h.result(timeout=600), np.int32) for h in hs]
+        failovers = router.failovers
+        deadline = time.monotonic() + 600
+        while router.load()["replicas"][0]["status"] != "ok":
+            if time.monotonic() > deadline:
+                raise AssertionError("router e2e: replica 0 not rebuilt")
+            time.sleep(0.05)
+        restarts = router.load()["replicas"][0]["restarts"]
+    finally:
+        router.shutdown(drain=False, timeout=60)
+        del builds[0].__dict__["_run_prefill"]      # FaultyEngine's shadow
+    if failovers < 1 or plan.injected != [("decode", 3, "raise")]:
+        raise AssertionError(f"router e2e: failovers {failovers}, injected "
+                             f"{plan.injected}")
+    splits, margins = check_streams(torch, np, gpu, prompts, outs, want,
+                                    "router e2e: routed against a Server")
+    rec["router"] = {"replicas": 2, "failovers": failovers,
+                     "restarts": restarts, "first_split_from_server": splits,
+                     "split_top2_margins": margins}
+    rec["front_f32"] = front_f32(torch, np, gpu, prompts, n_new)
+    return rec
+
+
+def http_raw(url, data: bytes, timeout=600):
+    """(status, body bytes) of an octet-stream POST."""
+    from urllib.error import HTTPError
+    from urllib.request import Request, urlopen
+
+    req = Request(url, data=data,
+                  headers={"Content-Type": "application/octet-stream"})
+    try:
+        with urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except HTTPError as e:
+        return e.code, e.read()
+
+
+def phase5_prompts(np, vocab):
+    """Phase 5's 8 prompts (100-700 tokens, seeded)."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, vocab, (n,)).astype(np.int32)
+            for n in (100, 180, 260, 340, 420, 500, 600, 700)]
+
+
+def fleet_model(torch, dev):
+    """Phase 5's 7B model (the seeded weights every replica shares)."""
+    from paddle_tpu_torch import LlamaForCausalLM, llama_config
+
+    return LlamaForCausalLM(llama_config(PRESET, dtype="bfloat16"),
+                            device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+
+
+def fleet_engine(model):
+    from paddle_tpu_torch import PagedContinuousBatchingEngine
+
+    return PagedContinuousBatchingEngine(model, prefix_cache=True,
+                                         **FLEET["engine"])
+
+
+def latency(handles, outs) -> dict:
+    """TTFT and TPOT p50 of finished handles (their own stamps)."""
+    ttft = [h.first_token_ts - h.submit_ts for h in handles]
+    tpot = [(h.finish_ts - h.first_token_ts) / (len(o) - 1)
+            for h, o in zip(handles, outs)]
+    return {"ttft_p50_s": statistics.median(ttft), "ttft_s": ttft,
+            "tpot_p50_s": statistics.median(tpot), "tpot_s": tpot}
+
+
+def free_cuda(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def replica_errors(router) -> list:
+    """Each replica's status and, where its scheduler died, why."""
+    return [(rep.index, rep.server.status,
+             repr(getattr(rep.server, "_fatal", None)))
+            for rep in router._replicas]
+
+
+def fleet_phase(torch, np, dev):
+    """This slice's main path at full depth and width (``fleet`` leg): a
+    single ``Server(warmup=True)`` over the 7B model through
+    ``PagedContinuousBatchingEngine(prefix_cache=True, prefill_chunk=256)``
+    serves phase 5's 8 prompts from 8 client threads (the reference
+    streams, TTFT and TPOT), then times the KV-page handoff of every
+    prompt under 512 tokens in process (export, encode, decode, import
+    into the engine after ``reset_state``). Then ``Router`` over 2
+    replicas, each a fresh seeded 7B model and engine behind
+    ``Server(warmup=True, max_restarts=0)``, replica 0's first build
+    behind ``FaultyEngine``: the 8 prompts from 8 client threads, replica 0
+    killed (``FaultPlan.kill``) once one of its requests has streamed
+    FLEET["kill_after"] tokens; waves of the 8 prompts keep coming while
+    the supervisor rebuilds replica 0 (its warmup captures beside the
+    survivor's replays); then a wave during ``rolling_restart``. Every
+    stream must equal the single Server's (the margin rule, checked after
+    the leg); every kernel's launches over the router's traffic counted.
+    Returns (the record, the reference streams, the handoff payloads'
+    byte counts by prompt)."""
+    from paddle_tpu_torch import GenerationConfig, ops
+    from paddle_tpu_torch.serving import (ReplicaSpec, Router, Server,
+                                          decode_kv_payload,
+                                          encode_kv_payload)
+    from paddle_tpu_torch.testing import FaultPlan, FaultyEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = GenerationConfig(max_new_tokens=FLEET["new"])
+    model = fleet_model(torch, dev)
+    L = model.config.num_hidden_layers
+    prompts = phase5_prompts(np, model.config.vocab_size)
+    rec = {"preset": PRESET, "layers": L, "engine": FLEET["engine"],
+           "prompt_lens": [len(p) for p in prompts]}
+    eng = fleet_engine(model)
+    srv = Server(eng, segment_steps=FLEET["segment_steps"], warmup=True)
+    try:
+        if not srv.wait_ready(600) or srv.status != "ok":
+            raise AssertionError(f"fleet: single Server {srv.status}")
+        ref, handles = serve_clients(srv, prompts, gen)
+        # the handoff's protocol without the wire: each short prompt plus
+        # its first token again, continued from this Server's own cached
+        # pages (the decode replica runs the same admission over imported
+        # ones)
+        short = [p for p in prompts if len(p) < FLEET["handoff_max"]]
+        cont = serve_clients(
+            srv, [np.concatenate([p, r[:1]]) for p, r in zip(short, ref)],
+            GenerationConfig(max_new_tokens=FLEET["new"] - 1))[0]
+        local = [np.concatenate([r[:1], c]) for r, c in zip(ref, cont)]
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    rec["single"] = latency(handles, ref)
+    # the handoff in process: the engine's own costs at full width
+    payloads, inproc = [], []
+    for p in short:
+        t0 = time.perf_counter()
+        pay = eng.export_kv_pages(p)
+        t1 = time.perf_counter()
+        raw = encode_kv_payload(pay)
+        t2 = time.perf_counter()
+        payloads.append(decode_kv_payload(raw))
+        t3 = time.perf_counter()
+        inproc.append({"prompt": len(p), "blocks": len(pay["blocks"]),
+                       "bytes": len(raw), "export_ms": (t1 - t0) * 1e3,
+                       "encode_ms": (t2 - t1) * 1e3,
+                       "decode_ms": (t3 - t2) * 1e3})
+        del pay, raw
+    eng.reset_state()
+    for p, pay, r in zip(short, payloads, inproc):
+        t0 = time.perf_counter()
+        out = eng.import_kv_pages(pay)
+        torch.cuda.synchronize()
+        r["import_ms"] = (time.perf_counter() - t0) * 1e3
+        if out["imported"] != len(pay["blocks"]):
+            raise AssertionError(f"fleet: in-process import {out}")
+        handoff_pages_equal(torch, eng, pay, p)
+    rec["handoff_in_process"] = inproc
+    del srv, eng, model, payloads, handles
+    free_cuda(torch)
+
+    plan = FaultPlan()
+    builds = []            # build times only: a dead replica's memory must go
+
+    def factory():
+        e = fleet_engine(fleet_model(torch, dev))
+        builds.append(time.perf_counter())
+        return FaultyEngine(e, plan) if len(builds) == 1 else e
+
+    t0 = time.perf_counter()
+    router = Router(ReplicaSpec(factory, server_kwargs=dict(
+        segment_steps=FLEET["segment_steps"], warmup=True, max_restarts=0)),
+        replicas=2, monitor_interval_s=0.05)
+    checks, waves = [], []
+    try:
+        if not router.wait_ready(600) or router.status != "ok":
+            raise AssertionError(f"fleet: the replicas did not warm up: "
+                                 f"{replica_errors(router)}")
+        rec["fleet_ready_s"] = time.perf_counter() - t0
+        subs = []
+        ops.reset_launch_counts()
+        box = {}
+
+        def wave(tag, live=None):
+            w0 = time.perf_counter()
+            try:
+                outs, hs = serve_clients(router, prompts, gen, live=live)
+            except BaseException as e:      # raised by the main thread
+                box["error"] = e
+                raise
+            waves.append((tag, w0, time.perf_counter()))
+            checks.append((tag, outs))
+            # no handle is kept: one holds its replica's Server, and a
+            # replaced replica's memory must go
+            box[tag] = ([h.status for h in hs], latency(hs, outs))
+
+        import threading
+
+        first = threading.Thread(target=wave, args=("kill", subs),
+                                 daemon=True)
+        first.start()
+        deadline = time.monotonic() + 600
+        while not any(h.replica == 0 and len(h.tokens_so_far())
+                      >= FLEET["kill_after"] for h in list(subs)):
+            if time.monotonic() > deadline or not first.is_alive():
+                raise AssertionError(f"fleet: replica 0 streamed nothing "
+                                     f"({box.get('error')!r}; "
+                                     f"{replica_errors(router)})")
+            time.sleep(0.001)
+        victims = {id(h): len(h.tokens_so_far()) for h in list(subs)
+                   if h.replica == 0 and not h.done}
+        t_kill = time.perf_counter()
+        plan.kill("decode")
+        while any(id(h) in victims and not h.done
+                  and len(h.tokens_so_far()) <= victims[id(h)]
+                  for h in list(subs)):
+            time.sleep(0.001)
+        rec["recovery_s"] = time.perf_counter() - t_kill
+        subs.clear()
+        first.join(600)
+        if "kill" not in box:
+            raise AssertionError(f"fleet: the killed wave did not finish "
+                                 f"({box.get('error')!r})")
+        rec["failovers"] = router.failovers
+        if rec["failovers"] < 1:
+            raise AssertionError("fleet: no request failed over")
+        rec["wave1"] = box["kill"][1]
+        n = 0
+        while router.load()["replicas"][0]["status"] != "ok":
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: replica 0 was not rebuilt: "
+                                     f"{replica_errors(router)}")
+            wave(f"rebuild{n}")
+            n += 1
+        t_ok = time.perf_counter()
+        if len(builds) < 3:
+            raise AssertionError(f"fleet: {len(builds)} builds")
+        t_built = builds[2]
+        rec.update(rebuild_s=t_ok - t_kill, rebuild_build_s=t_built - t_kill,
+                   rebuild_warmup_s=t_ok - t_built, waves_during_rebuild=n,
+                   restarts=router.load()["replicas"][0]["restarts"])
+        if not any(w1 > t_built and w0 < t_ok for _, w0, w1 in waves):
+            raise AssertionError("fleet: no wave served while the rebuilt "
+                                 "replica warmed up")
+        # a rolling restart under traffic
+        roll = threading.Thread(target=wave, args=("rolling",), daemon=True)
+        roll.start()
+        t0 = time.perf_counter()
+        drained = router.rolling_restart(timeout=600)
+        rec["rolling_restart_s"] = time.perf_counter() - t0
+        roll.join(600)
+        if "error" in box:
+            raise box["error"]
+        if not drained or "rolling" not in box or any(
+                st != "finished" for st in box["rolling"][0]):
+            raise AssertionError(f"fleet: rolling restart drained "
+                                 f"{drained}, statuses {box.get('rolling')}")
+        torch.cuda.synchronize()
+        rec["launches"] = ops.launch_counts()
+        rec["builds"] = len(builds)
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["load"] = router.load()
+    finally:
+        router.shutdown(drain=False, timeout=120)
+    for name in ("rms_norm", "fused_rope", "paged_decode"):
+        if not rec["launches"].get(name):
+            raise AssertionError(f"fleet: {name} never launched")
+    if not (rec["launches"].get("flash_fwd")
+            or rec["launches"].get("flash_fwd_prefix")):
+        raise AssertionError("fleet: flash_fwd never launched")
+    rec["waves"] = [(tag, w1 - w0) for tag, w0, w1 in waves]
+    # every name that reaches a replica goes before the cache is emptied
+    del router, builds, box, subs, wave, first, roll
+    free_cuda(torch)
+    rec["allocated_after_gb"] = torch.cuda.memory_allocated() / 2 ** 30
+    return rec, prompts, ref, local, [(tag, outs) for tag, outs in checks]
+
+
+def replica_launches(rep) -> dict:
+    """A replica process's launches per kernel so far: its
+    ``paddle_tpu_kernel_launches`` series, read through ``GET
+    /metrics.json``."""
+    from urllib.request import urlopen
+
+    with urlopen(rep.base_url + "/metrics.json", timeout=60) as r:
+        snap = json.loads(r.read())
+    return {s["labels"]["kernel"]: int(s["value"]) for s in
+            snap["metrics"]["paddle_tpu_kernel_launches"]["samples"]}
+
+
+# the kernels each side of the front must launch on the leg's wave: the
+# prefill replica's cold prefills (K3 one-shot or, past a chunk, its
+# prefix-chunk instance), the decode replica's warm tail over imported
+# pages (K3's prefix-chunk instance) and its decode steps (K4)
+DISAGG_KERNELS = {"prefill": (("rms_norm",), ("fused_rope",),
+                              ("flash_fwd", "flash_fwd_prefix")),
+                  "decode": (("rms_norm",), ("fused_rope",),
+                             ("flash_fwd_prefix",), ("paged_decode",))}
+
+
+def disagg_phase(torch, np, prompts):
+    """The ``disagg`` leg: two ``spawn_replica`` processes on the same card
+    (the 7B model at full depth, ``--prefix-cache on --prefill-chunk 256
+    --warmup on``), a prefill and a decode replica behind
+    ``DisaggregatedFront``. Phase 5's prompts under FLEET["handoff_max"]
+    tokens from client threads at once, 32 tokens each, with each
+    replica's kernel launches over that wave (its
+    ``paddle_tpu_kernel_launches`` series before and after). Then, one at
+    a time through the replicas' public calls, fresh prompts of the same
+    lengths (seed 1): the prefill replica's cold budget-1 prefill (its
+    TTFT), ``/kv/export`` (export, encode and wire), ``/kv/import`` (wire,
+    decode, import) and the decode replica's continuation (its TTFT).
+    Then a prompt of FLEET["handoff_max"] tokens or more, whose import the
+    reference's 256 MiB cap refuses: its handle ends FAILED naming the 413
+    and both replicas keep serving (one more request through the front);
+    then the decode process killed mid-stream, the request replaying on
+    the prefill replica. Runs while this process holds nothing on the
+    card. Returns (record, streams): the streams as (tag, prompt indices,
+    outputs), checked by the caller against the single ``Server``'s and
+    against its continuations over its own pages."""
+    import threading
+    import types
+
+    from paddle_tpu_torch import GenerationConfig, llama_config
+    from paddle_tpu_torch.serving import DisaggregatedFront, RemoteReplica
+    from paddle_tpu_torch.serving.remote import spawn_replica
+    from paddle_tpu_torch.serving.http import MAX_KV_BODY_BYTES
+
+    gen = GenerationConfig(max_new_tokens=FLEET["new"])
+    cfg = llama_config(PRESET)
+    ps = FLEET["engine"]["page_size"]
+    args = ["--device", REPLICA_DEVICE, "--preset", PRESET, "--layers",
+            str(cfg.num_hidden_layers), "--dtype", "bfloat16",
+            "--model-seed", "0",
+            "--prefix-cache", "on", "--warmup", "on",
+            "--segment-steps", str(FLEET["segment_steps"])]
+    for k, v in FLEET["engine"].items():
+        args += ["--" + k.replace("_", "-"), str(v)]
+    reps, errs = [None, None], []
+
+    def start(i):
+        try:
+            proc, url = spawn_replica(args, startup_timeout_s=600,
+                                      stderr=None)
+            reps[i] = RemoteReplica(url, proc=proc, stream_timeout_s=600)
+        except BaseException as e:          # re-raised below
+            errs.append(e)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=start, args=(i,)) for i in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    rec = {"spawn_s": time.perf_counter() - t0}
+    checks = []
+    try:
+        if errs:
+            raise errs[0]
+        prefill, decode = reps
+        front = DisaggregatedFront(prefill, decode)
+        short = [(i, p) for i, p in enumerate(prompts)
+                 if len(p) < FLEET["handoff_max"]]
+        before = [replica_launches(r) for r in reps]
+        outs, hs = serve_clients(types.SimpleNamespace(submit=front.generate),
+                                 [p for _, p in short], gen)
+        after = [replica_launches(r) for r in reps]
+        by_rep = {side: {k: after[j][k] - before[j].get(k, 0)
+                         for k in after[j]}
+                  for j, side in enumerate(("prefill", "decode"))}
+        rec["launches_by_replica"] = by_rep
+        rec["launches"] = {k: by_rep["prefill"][k] + by_rep["decode"][k]
+                           for k in by_rep["prefill"]}
+        for side, need in DISAGG_KERNELS.items():
+            for names in need:
+                if not any(by_rep[side].get(k) for k in names):
+                    raise AssertionError(
+                        f"disagg: the {side} replica launched none of "
+                        f"{names} on the wave: {by_rep[side]}")
+        rec["wave"] = [{"index": i, "prompt": len(p),
+                        "ttft_s": h.first_token_ts - h.submit_ts}
+                       for (i, p), h in zip(short, hs)]
+        checks.append(("disagg", [i for i, _ in short], outs))
+        del hs
+        # per handoff, one at a time, through the public calls
+        fresh = np.random.RandomState(1)
+        hand = []
+        for _, p in short:
+            q = fresh.randint(0, cfg.vocab_size, (len(p),)).tolist()
+            h1 = prefill.submit(q, GenerationConfig(max_new_tokens=1))
+            first = int(h1.result(timeout=600)[0])
+            t = time.perf_counter()
+            raw = prefill.export_kv_raw(q)
+            t_exp = time.perf_counter() - t
+            t = time.perf_counter()
+            got = decode.import_kv_raw(raw)
+            t_imp = time.perf_counter() - t
+            if got["imported"] != len(q) // ps:
+                raise AssertionError(f"disagg: import of {len(q)} tokens "
+                                     f"{got}")
+            h2 = decode.submit(q + [first], GenerationConfig(
+                max_new_tokens=FLEET["new"] - 1))
+            if len(h2.result(timeout=600)) != FLEET["new"] - 1:
+                raise AssertionError("disagg: a short continuation")
+            hand.append({
+                "prompt": len(q), "bytes": len(raw),
+                "blocks": got["imported"],
+                "export_http_ms": t_exp * 1e3, "import_http_ms": t_imp * 1e3,
+                "cold_ttft_s": h1.first_token_ts - h1.submit_ts,
+                "decode_ttft_s": h2.first_token_ts - h2.submit_ts})
+            del raw
+        rec["handoffs"] = hand
+        # a prompt whose pages pass the import cap: FAILED with the 413
+        # (at the 7B widths; a narrower model's pages fit and must serve),
+        # and both replicas serve on
+        big = next(i for i, p in enumerate(prompts)
+                   if len(p) >= FLEET["handoff_max"])
+        page_bytes = (2 * cfg.num_hidden_layers * ps
+                      * cfg.num_key_value_heads
+                      * (cfg.hidden_size // cfg.num_attention_heads) * 2)
+        est = len(prompts[big]) // ps * page_bytes
+        h = front.generate(prompts[big], gen)
+        try:
+            out = np.asarray(h.result(timeout=600), np.int32)
+            cause = None
+        except Exception as e:              # the FAILED handle's error
+            cause = e.__cause__ or e
+        over = est > MAX_KV_BODY_BYTES
+        if over and (h.status != "failed" or "413" not in str(cause)):
+            raise AssertionError(f"disagg: over-cap handoff ({est} bytes of "
+                                 f"pages) {h.status} {cause!r}")
+        if not over:
+            if cause is not None:
+                raise cause
+            checks.append(("under_cap", [big], [out]))
+        rec["over_cap"] = {"prompt": len(prompts[big]), "page_bytes": est,
+                           "cap": MAX_KV_BODY_BYTES, "status": h.status,
+                           "error": None if cause is None
+                           else str(cause)[:300]}
+        for rep, name in ((prefill, "prefill"), (decode, "decode")):
+            rep.wait_ready(60)
+            if rep.status != "ok":
+                raise AssertionError(f"disagg: {name} replica {rep.status} "
+                                     "after the over-cap handoff")
+        h = front.generate(prompts[0], gen)
+        checks.append(("after_over_cap", [0],
+                       [np.asarray(h.result(timeout=600), np.int32)]))
+        # the decode process killed mid-stream
+        j = short[len(short) // 2][0]
+        h = front.generate(prompts[j], gen)
+        deadline = time.monotonic() + 600
+        while len(h.tokens_so_far()) < FLEET["kill_after"]:
+            if time.monotonic() > deadline or h.done:
+                raise AssertionError(f"disagg: no stream to cut ({h.status})")
+            time.sleep(0.001)
+        t_kill = time.perf_counter()
+        decode.proc.kill()
+        out = np.asarray(h.result(timeout=600), np.int32)
+        rec["decode_kill"] = {"prompt": len(prompts[j]),
+                              "tokens_at_kill": FLEET["kill_after"],
+                              "replay_s": time.perf_counter() - t_kill,
+                              "front_failovers": front.failovers}
+        if front.failovers < 1:
+            raise AssertionError("disagg: the decode kill did not fail over")
+        checks.append(("decode_kill", [j], [out]))
+        rec.update(handoffs_blocks=front.handoffs, dedups=front.dedups)
+    finally:
+        for rep in reps:
+            if rep is not None:
+                rep.shutdown(drain=False)
+    return rec, checks
+
+
+def f32_twin(torch, model):
+    """``model``'s weights in an fp32 model of the same configuration."""
+    import dataclasses
+
+    from paddle_tpu_torch import LlamaForCausalLM
+
+    m32 = LlamaForCausalLM(dataclasses.replace(model.config, dtype="float32"),
+                           device=model.device)
+    m32.load_state_dict(model.state_dict())
+    return m32
+
+
+def f32_gaps(torch, np, model, m32, prompts, outs, ref_outs):
+    """Per prompt, the first token where ``outs`` parts from ``ref_outs``
+    and, there (None where they agree throughout): the uncached bf16
+    model's top-2 margin, the fp32 twin's top-2 margin and its logit gap
+    between the two streams' tokens (``ref_outs``' minus ``outs``'), and
+    the bf16 forward's error on those two logits against the fp32 one.
+    TF32 is off, so the fp32 forward rounds only in fp32."""
+    splits = [next((i for i in range(len(d)) if d[i] != w[i]), len(d))
+              for d, w in zip(outs, ref_outs)]
+    rows = []
+    with torch.no_grad():
+        for p, d, w, n in zip(prompts, outs, ref_outs, splits):
+            if n == len(d):
+                rows.append(None)
+                continue
+            seq = torch.from_numpy(np.concatenate([p, w[:n]]).astype(
+                np.int64))[None].to(model.device)
+            l16 = model(seq)[0, -1].float()
+            l32 = m32(seq)[0, -1].float()
+            a, b = int(d[n]), int(w[n])
+            t16, t32 = l16.topk(2).values, l32.topk(2).values
+            rows.append({
+                "split": n, "token": a, "ref_token": b,
+                "bf16_margin": (t16[0] - t16[1]).item(),
+                "f32_margin": (t32[0] - t32[1]).item(),
+                "f32_gap": (l32[b] - l32[a]).item(),
+                "f32_top1": int(l32.argmax()),
+                "bf16_err": max(abs(l16[t] - l32[t]).item()
+                                for t in (a, b))})
+    return splits, rows
+
+
+def fleet_legs(torch, np, dev):
+    """Phase 5's disaggregated and fleet legs (the replica processes first,
+    while this process holds nothing on the card), their streams checked
+    after both. The fleet's waves against the single ``Server``'s streams;
+    the front's against the single ``Server``'s continuation of the same
+    requests (prompt plus its first token, after a budget-1 prefill) over
+    its own cached pages: the handoff without the wire. Each must match
+    token for token, a split failing at a top-2 margin of NEAR_TIE or more
+    (C-check-2). The front's streams against the single ``Server``'s own
+    (monolithic: its first token's KV decoded, where the front's decode
+    side prefills it; ROADMAP C-check-3): where one parts, the bf16
+    model's margin and, from the same weights in fp32, the gap between
+    the two streams' tokens (:func:`f32_gaps`); a split fails where that
+    fp32 gap is NEAR_TIE or more. A model is built only where a stream
+    parts."""
+    from paddle_tpu_torch import llama_config
+
+    prompts = phase5_prompts(np, llama_config(PRESET).vocab_size)
+    t0 = time.perf_counter()
+    dg, streams = disagg_phase(torch, np, prompts)
+    dg["leg_s"] = time.perf_counter() - t0
+    free_cuda(torch)
+    t0 = time.perf_counter()
+    fl, _, ref, local, fleet_checks = fleet_phase(torch, np, dev)
+    fl["leg_s"] = time.perf_counter() - t0
+    for r in dg["wave"]:
+        r["single_server_ttft_s"] = fl["single"]["ttft_s"][r["index"]]
+    everything = list(range(len(prompts)))
+    local = dict(zip(everything, local))    # by prompt index, short ones
+    checks = [(fl, tag, everything, outs, ref, "bf16")
+              for tag, outs in fleet_checks]
+    for tag, idx, outs in streams:
+        if tag == "under_cap":              # no local twin: past the cut
+            checks.append((dg, tag, idx, outs, [ref[i] for i in idx],
+                           "bf16"))
+            continue
+        checks.append((dg, tag, idx, outs, [local[i] for i in idx], "bf16"))
+        checks.append((dg, tag + "_monolithic", idx, outs,
+                       [ref[i] for i in idx], "f32"))
+    model = m32 = None
+    for rec, tag, idx, outs, want, rule in checks:
+        ps = [prompts[i] for i in idx]
+        if ([np.asarray(o).tolist() for o in outs]
+                == [np.asarray(w).tolist() for w in want]):
+            rec.setdefault("first_splits", {})[tag] = None
+            continue
+        if model is None:
+            model = fleet_model(torch, dev)
+        if rule == "bf16":
+            got = check_streams(torch, np, model, ps, outs, want,
+                                f"{tag}: against the single Server")
+            rec.setdefault("first_splits", {})[tag] = list(got)
+            continue
+        if m32 is None:
+            m32 = f32_twin(torch, model)
+        splits, rows = f32_gaps(torch, np, model, m32, ps, outs, want)
+        rec.setdefault("first_splits", {})[tag] = [
+            splits, [r and r["bf16_margin"] for r in rows]]
+        rec.setdefault("monolithic_f32", {})[tag] = rows
+        if any(r and abs(r["f32_gap"]) >= NEAR_TIE for r in rows):
+            raise AssertionError(f"{tag}: the front parts from the single "
+                                 f"Server where fp32 separates the two "
+                                 f"tokens by {NEAR_TIE} or more: {rows}")
+    del model, m32
+    free_cuda(torch)
+    return fl, dg
 
 
 def shared_prefix_prompts(np, vocab, n=8):
@@ -5983,6 +6886,69 @@ def kernel_entries(rows: dict, runs: dict) -> list:
     return out
 
 
+def log_fleet(fl, dg, fe, smi) -> None:
+    """The fleet legs' lines (phase 4's handoff and router at 2 layers,
+    phase 5's fleet and disaggregated legs)."""
+    for kv in ("bf16", "int8"):
+        r = fe[kv]
+        log(f"[fleet] 2-layer handoff {kv}: {r['blocks']} blocks, "
+            f"{r['bytes']} bytes, export {r['export_ms']:.2f} ms; bytes and "
+            f"scales exact card->card and card->CPU, re-ship dedups all, "
+            f"{r['integrity_reject']}; the decode engine's stream parts from "
+            f"the colocated one at {r['wire_first_split']} (margin "
+            f"{r['wire_split_margin']}), card/CPU tokens matched "
+            f"{r['card_cpu_tokens_matched']}")
+    ro, ff = fe["router"], fe["front_f32"]
+    log(f"[fleet] 2-layer router, replica 0 killed at its third segment: "
+        f"failovers {ro['failovers']}, streams part from a Server's at "
+        f"{ro['first_split_from_server']}")
+    log(f"[fleet] 2-layer fp32 front over 2 HTTP replicas: "
+        f"{ff['blocks_shipped']} blocks shipped, streams part from the "
+        f"monolithic Server's at {ff['first_split']} (margins "
+        f"{ff['split_margins']}); over-full imports kept blocks "
+        f"{fe['bf16']['overfull_resident']} (bf16), "
+        f"{fe['int8']['overfull_resident']} (int8)")
+    s, w = fl["single"], fl["wave1"]
+    log(f"[fleet] {PRESET} x{fl['layers']} Router of 2 replicas "
+        f"{fl['engine']}: ready in {fl['fleet_ready_s']:.1f} s; wave with "
+        f"the kill: TTFT p50 {w['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+        f"{w['tpot_p50_s'] * 1e3:.2f} ms (single Server "
+        f"{s['ttft_p50_s'] * 1e3:.1f} / {s['tpot_p50_s'] * 1e3:.2f} ms); "
+        f"failovers {fl['failovers']}, recovery {fl['recovery_s']:.3f} s, "
+        f"rebuild {fl['rebuild_s']:.1f} s (build "
+        f"{fl['rebuild_build_s']:.1f}, warmup {fl['rebuild_warmup_s']:.1f}) "
+        f"beside {fl['waves_during_rebuild']} waves; rolling restart "
+        f"{fl['rolling_restart_s']:.1f} s with 0 failed; peak "
+        f"{fl['peak_mem_gb']:.1f} GiB; streams' splits {fl['first_splits']}"
+        f"  [{smi}]")
+    for r in fl["handoff_in_process"]:
+        log(f"[fleet] in-process handoff of {r['prompt']} tokens: "
+            f"{r['blocks']} blocks, {r['bytes']} bytes, export "
+            f"{r['export_ms']:.1f} ms, encode {r['encode_ms']:.1f} ms, decode "
+            f"{r['decode_ms']:.1f} ms, import {r['import_ms']:.1f} ms  "
+            f"[{smi}]")
+    log(f"[disagg] 2 replica processes ready in {dg['spawn_s']:.1f} s")
+    log(f"[disagg] wave of {len(dg['wave'])} prompts through the front: "
+        f"TTFT " + ", ".join(f"{r['ttft_s'] * 1e3:.1f}" for r in dg["wave"])
+        + " ms (single Server " + ", ".join(
+            f"{r['single_server_ttft_s'] * 1e3:.1f}" for r in dg["wave"])
+        + f" ms); launches prefill {dg['launches_by_replica']['prefill']}, "
+        f"decode {dg['launches_by_replica']['decode']}")
+    for r in dg["handoffs"]:
+        log(f"[disagg] handoff of {r['prompt']} tokens: {r['bytes']} bytes, "
+            f"/kv/export {r['export_http_ms']:.1f} ms, /kv/import "
+            f"{r['import_http_ms']:.1f} ms, decode TTFT "
+            f"{r['decode_ttft_s'] * 1e3:.1f} ms (cold prefill TTFT "
+            f"{r['cold_ttft_s'] * 1e3:.1f} ms)  [{smi}]")
+    oc, dk = dg["over_cap"], dg["decode_kill"]
+    log(f"[disagg] {oc['prompt']} tokens ({oc['page_bytes']} bytes of pages, "
+        f"cap {oc['cap']}): {oc['status']} {oc['error']}; decode process "
+        f"killed after {dk['tokens_at_kill']} tokens: replayed on the "
+        f"prefill replica in {dk['replay_s']:.2f} s; streams' splits "
+        f"{dg['first_splits']}; against the single Server in fp32 "
+        f"{dg.get('monolithic_f32')}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--record", metavar="PATH",
@@ -6294,6 +7260,13 @@ def main(argv=None) -> int:
         f"{gn['decode_tokens_per_s']:.1f} tok/s, peak "
         f"{gn['peak_mem_gb']:.1f} GiB  [{smi}]")
     log(f"[serve] {record['phases']['serve']:.1f}s")
+    # 5b. the replica fleet at 7B: this slice's main path
+    t = time.perf_counter()
+    fl, dg = fleet_legs(torch, np, dev)
+    record.update(fleet=fl, disagg=dg)
+    record["phases"]["fleet"] = time.perf_counter() - t
+    log_fleet(fl, dg, record["e2e"]["fleet"], smi)
+    log(f"[fleet] {record['phases']['fleet']:.1f}s")
     # 6. train the 350m configuration
     t = time.perf_counter()
     tr = train_phase(torch, dev, np, args.seed, profile=args.profile)
@@ -6371,7 +7344,7 @@ def main(argv=None) -> int:
                 server_lora=sl, train=tr, fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
-                f32=record["f32"], eager_fit=eg)
+                f32=record["f32"], eager_fit=eg, fleet=fl, disagg=dg)
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

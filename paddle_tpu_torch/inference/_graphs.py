@@ -20,8 +20,13 @@ workspace, kernel builds, tables built at first use), then captures it
 without running it; every later call replays. A failed capture raises:
 nothing retries eagerly. The capture runs in ``thread_local`` error mode, so
 another thread's CUDA calls (a metrics scrape beside a serving scheduler's
-warmup) cannot invalidate it; the calling thread owns the engine and makes
-no other CUDA call meanwhile. Python's cyclic garbage collector is run
+warmup, another replica's replays and read-backs) cannot invalidate it; the
+calling thread owns the engine and makes no other CUDA call meanwhile.
+Captures are serialized process-wide (PyTorch supports one capture at a
+time: they share its capture stream), so replicas of a fleet in one process
+that warm up at once capture in turns; the device-wide synchronize and the
+cache release before a capture run under the same lock, where no capture of
+another thread can be under way. Python's cyclic garbage collector is run
 before the capture and held off during it: an engine dropped in a
 reference cycle would otherwise have its graphs destroyed mid-capture by a
 collection the capture's own allocations set off, and a graph's
@@ -30,21 +35,27 @@ function runs eagerly on every call, and a key's first run counts as its
 capture, so the bookkeeping is the same on both devices.
 
 Launch counts: each kernel wrapper adds one to its ``launches`` in Python
-where it launches, so a replay would count nothing. The capture records how
-many launches of each kernel the graph holds (and takes them back off the
-counters: a capture runs nothing), and every replay credits them.
+where it launches, so a replay would count nothing. The capture tallies the
+launches of each kernel the graph holds apart from the counters (a capture
+runs nothing, and another thread's launches meanwhile are not the graph's:
+``ops/_launches.py``), and every replay credits them.
 """
 from __future__ import annotations
 
 import gc
+import threading
 import time
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
-from ..ops import KERNELS, launch_counts
+from ..ops import KERNELS
+from ..ops._launches import capture_tally, credit
 
 __all__ = ["GraphCache"]
+
+# one capture at a time in the process (see the module docstring)
+_CAPTURE_LOCK = threading.Lock()
 
 
 class GraphCache:
@@ -84,10 +95,10 @@ class GraphCache:
         if entry is None:
             self._first_run(key, fn)
             return
-        graph, credit = entry
+        graph, launches = entry
         graph.replay()
-        for name, n in credit.items():
-            KERNELS[name].launches += n
+        for name, n in launches.items():
+            credit(KERNELS[name], n)
 
     def _built(self, key: Hashable, t0: float, pool_bytes: int) -> None:
         self.captures[key] = self.captures.get(key, 0) + 1
@@ -95,6 +106,10 @@ class GraphCache:
         self.pool_bytes[key] = pool_bytes
 
     def _first_run(self, key: Hashable, fn: Callable[[], None]) -> None:
+        with _CAPTURE_LOCK:
+            self._capture(key, fn)
+
+    def _capture(self, key: Hashable, fn: Callable[[], None]) -> None:
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -105,7 +120,6 @@ class GraphCache:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         mem0 = torch.cuda.memory_reserved(dev)
-        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         gc.collect()
         gc_on = gc.isenabled()
@@ -114,17 +128,15 @@ class GraphCache:
             # thread_local: only this thread's CUDA calls can invalidate
             # the capture; the serving front's HTTP threads (a /metrics
             # scrape during a Server's warmup) do not
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with capture_tally() as tally, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 fn()
         finally:
             if gc_on:
                 gc.enable()
-            after = launch_counts()
-            for name, n in before.items():
-                KERNELS[name].launches = n
-        self._graphs[key] = (graph, {name: after[name] - n
-                                     for name, n in before.items()
-                                     if after[name] != n})
+        self._graphs[key] = (graph, {name: tally[k]
+                                     for name, k in KERNELS.items()
+                                     if k in tally})
         self._built(key, t0, torch.cuda.memory_reserved(dev) - mem0)
 
     def clear(self) -> None:

@@ -78,8 +78,11 @@ segments captures nothing. A request names its adapter in
 blocks in the adapter's namespace (``name@generation``), so KV cached under
 one adapter, or an earlier load of the name, never serves another.
 
-Not ported yet: prefill capture, the KV-page export and import (A10),
-tensor parallelism (A11).
+The paged engine with ``prefix_cache=True`` also hands KV pages to another
+engine (``export_kv_pages`` / ``import_kv_pages``): full prompt blocks travel
+as raw pool rows (int8 with their scales) under their chain hashes, and the
+importer parks them in its prefix index, so its next admission of the prompt
+is a warm hit. Not ported yet: prefill capture, tensor parallelism (A11).
 """
 from __future__ import annotations
 
@@ -95,9 +98,10 @@ from .. import tracing as trace
 from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR, quant_store_rows
 from ._graphs import GraphCache
 from .ngram import NgramProposer, propose_device
-from .paged_cache import (PageAllocator, copy_page, copy_page_q,
-                          gather_pages, gather_pages_q, scatter_rows,
-                          scatter_rows_q)
+from .paged_cache import (PageAllocator, _block_hash, _chain_root,
+                          copy_page, copy_page_q, gather_pages,
+                          gather_pages_q, install_page, install_page_q,
+                          scatter_rows, scatter_rows_q)
 from .sampling import SlotSampling, sample_rows
 
 __all__ = ["GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
@@ -528,7 +532,9 @@ class CausalLMEngine:
                             0)
                 out["prefill_chunk"] = time.perf_counter() - t0
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # this thread's stream only: another replica in the process may
+            # be capturing a graph, which a device-wide sync would break
+            torch.cuda.current_stream(self.device).synchronize()
         out["total"] = time.perf_counter() - t_all
         return out
 
@@ -2089,7 +2095,9 @@ class ContinuousBatchingEngine:
             out["lora_install"] = time.perf_counter() - t0
         out.update(self._warmup_prefix())
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # this thread's stream only: another replica in the process may
+            # be capturing a graph, which a device-wide sync would break
+            torch.cuda.current_stream(self.device).synchronize()
         out["total"] = time.perf_counter() - t_all
         if monitor.enabled():
             monitor.gauge(
@@ -2437,6 +2445,136 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         out = super().load()
         out["kv_dtype"] = self.kv_dtype
         return out
+
+    # -- the KV-page handoff ---------------------------------------------------
+    _KV_KEYS = {"bf16": ("k", "v"), "int8": ("k", "v", "k_scale", "v_scale")}
+
+    def export_kv_pages(self, tokens, salt: bytes = b"") -> dict:
+        """The resident cached pages covering the longest FULL-BLOCK prefix
+        of a prompt: the read half of a page handoff between engines
+        (disaggregated prefill and decode). Returns ``{"version",
+        "kv_dtype", "page_size", "salt" (hex), "coverage", "blocks":
+        [{"hash", "parent", "tokens"}], "layers": [{"k", "v"[, "k_scale",
+        "v_scale"]}]}``, the arrays host tensors of the pools' dtypes with
+        one row per block: a page copy, never a format conversion. Each
+        pool is gathered once (``index_select``) and copied to the host in
+        one copy.
+
+        Runs on the thread that drives the engine (``Server.export_kv``
+        marshals it into the scheduler's gap): a replay may be writing the
+        pools on that thread's stream. A partial tail block never ships:
+        the importer parks blocks with no copy-on-write attached, so only
+        token-complete, hash-verified pages are safe to share."""
+        ids = np.ascontiguousarray(np.asarray(tokens).reshape(-1), np.int32)
+        pids, cov, hashes = self.alloc.lookup_prefix(ids, salt=salt)
+        ps = self.page_size
+        nfull = min(len(pids), cov // ps, len(hashes))
+        pids = pids[:nfull]
+        root = _chain_root(salt)
+        blocks = [{"hash": hashes[b].hex(),
+                   "parent": (hashes[b - 1] if b else root).hex(),
+                   "tokens": ids[b * ps:(b + 1) * ps].tolist()}
+                  for b in range(nfull)]
+        idx = torch.as_tensor(pids, dtype=torch.long).to(self.device)
+        keys = self._KV_KEYS[self.kv_dtype]
+        host = []
+        with torch.no_grad():
+            for j in range(len(keys)):
+                pool = self.caches[0][j]
+                buf = torch.empty((len(self.caches), nfull)
+                                  + tuple(pool.shape[1:]), dtype=pool.dtype,
+                                  device=pool.device)
+                for i, entry in enumerate(self.caches):
+                    torch.index_select(entry[j], 0, idx, out=buf[i])
+                host.append(buf.cpu())
+        layers = [{key: host[j][i] for j, key in enumerate(keys)}
+                  for i in range(len(self.caches))]
+        return {"version": 1, "kv_dtype": self.kv_dtype, "page_size": ps,
+                "salt": salt.hex(), "coverage": nfull * ps,
+                "blocks": blocks, "layers": layers}
+
+    def import_kv_pages(self, payload: dict) -> dict:
+        """Install exported pages into this engine's pools and prefix index:
+        the write half of the handoff. The whole geometry (dtype, page
+        size, layer count, every array's rows and shape) and every block's
+        chain hash, re-derived from (parent, tokens), are checked before a
+        single page is claimed, so a corrupt or mis-framed payload installs
+        nothing; an already-resident hash is a dedup no-op
+        (``PageAllocator.adopt_block``), so a replayed handoff is
+        idempotent. Imported pages PARK (refcount 0, LRU-reclaimable): the
+        next admission of the prompt maps them through the ordinary prefix
+        path. Each adopted page's rows land in place as it is adopted, so
+        a page the pool reclaims within the import holds its last block.
+        Same threading contract as :meth:`export_kv_pages`. Returns
+        ``{"imported", "deduped", "coverage"}``."""
+        if payload.get("kv_dtype") != self.kv_dtype:
+            raise ValueError(
+                f"kv_dtype mismatch: payload {payload.get('kv_dtype')!r} vs "
+                f"engine {self.kv_dtype!r}: a KV handoff is a page copy, "
+                "never a format conversion")
+        if int(payload.get("page_size", -1)) != self.page_size:
+            raise ValueError(
+                f"page_size mismatch: payload {payload.get('page_size')} vs "
+                f"engine {self.page_size}")
+        layers = payload.get("layers") or []
+        if len(layers) != len(self.caches):
+            raise ValueError(
+                f"layer count mismatch: payload {len(layers)} vs engine "
+                f"{len(self.caches)}")
+        blocks = payload.get("blocks") or []
+        keys = self._KV_KEYS[self.kv_dtype]
+        arrays = []
+        for lay, entry in zip(layers, self.caches):
+            row = []
+            for key, pool in zip(keys, entry):
+                arr = lay.get(key)
+                if arr is None or len(arr) != len(blocks):
+                    raise ValueError(
+                        f"payload layer missing/short {key!r} rows")
+                arr = torch.as_tensor(arr)
+                if (tuple(arr.shape[1:]) != tuple(pool.shape[1:])
+                        or arr.dtype != pool.dtype):
+                    raise ValueError(
+                        f"page geometry mismatch: payload {key!r} "
+                        f"{arr.dtype}{tuple(arr.shape[1:])} vs pool "
+                        f"{pool.dtype}{tuple(pool.shape[1:])}")
+                row.append(arr)
+            arrays.append(row)
+        chain = []
+        for b, blk in enumerate(blocks):
+            h = bytes.fromhex(blk["hash"])
+            parent = bytes.fromhex(blk["parent"])
+            toks = np.ascontiguousarray(
+                np.asarray(blk["tokens"]).reshape(-1), np.int32)
+            if _block_hash(parent, toks) != h:
+                raise ValueError(
+                    f"block {b}: chain hash does not match (parent, tokens): "
+                    "corrupted handoff rejected")
+            chain.append((h, parent, toks))
+        imported = deduped = 0
+        staged = None
+        with torch.no_grad():
+            for b, (h, parent, toks) in enumerate(chain):
+                pid = self.alloc.adopt_block(h, parent, toks)
+                if pid is None:
+                    deduped += 1
+                    continue
+                if staged is None:
+                    # one host-to-device copy an array, then a page at a
+                    # time in adoption order: a later block may reclaim a
+                    # page this import adopted, and its rows must win
+                    staged = [[a.to(self.device) for a in row]
+                              for row in arrays]
+                for entry, row in zip(self.caches, staged):
+                    if self.kv_dtype == "int8":
+                        install_page_q(*entry, pid, *(a[b] for a in row))
+                    else:
+                        install_page(*entry, pid, *(a[b] for a in row))
+                if self.kv_dtype == "int8":
+                    self.alloc.note_scale_copied(pid)
+                imported += 1
+        return {"imported": imported, "deduped": deduped,
+                "coverage": len(blocks) * self.page_size}
 
     # -- admission ------------------------------------------------------------
     def _reserved(self, plen: int, cfg) -> int:

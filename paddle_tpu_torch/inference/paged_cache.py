@@ -29,16 +29,17 @@ gathered page vector reads it. No page table ever maps the sink. int8
 scales are ``[num_pages + 1, Hkv]`` fp32 for the same reason; the sink's
 scale row takes the dropped rows' absmax and is never read as a real page.
 
-Not ported yet: ``install_page`` / ``install_page_q`` and
-:meth:`PageAllocator.adopt_block`, the import half of the KV-page handoff
-(ROADMAP A10).
+The KV-page handoff between engines (disaggregated prefill and decode)
+lands here too: :meth:`PageAllocator.adopt_block` indexes an imported full
+block as a parked page, and :func:`install_page` / :func:`install_page_q`
+copy its rows (and int8 scales) onto that page, in place.
 """
 from __future__ import annotations
 
 import hashlib
 import heapq
 from collections import OrderedDict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +50,8 @@ from ..quantization.kv import KV_DTYPES, dequantize_page, quant_store_rows
 
 __all__ = ["PageAllocator", "write_tokens", "write_tokens_q",
            "scatter_rows", "scatter_rows_q", "copy_page", "copy_page_q",
-           "gather_pages", "gather_pages_q", "gather_dense",
-           "gather_dense_q"]
+           "install_page", "install_page_q", "gather_pages",
+           "gather_pages_q", "gather_dense", "gather_dense_q"]
 
 # chain-hash root: the "parent" of a prompt's first block
 _ROOT = b"\x00" * 16
@@ -60,7 +61,7 @@ def _chain_root(salt: bytes) -> bytes:
     """Chain root of a (possibly salted) prefix namespace: the reference's
     LoRA path salts with the adapter id, so one adapter's blocks never
     parent-match another's. Byte-identical to the reference's: prefix keys
-    (and shipped KV, ROADMAP A10) depend on it."""
+    (and shipped KV pages) depend on it."""
     if not salt:
         return _ROOT
     return hashlib.blake2b(salt, digest_size=16).digest()
@@ -195,6 +196,30 @@ def copy_page_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
     copy_page(k_pool, v_pool, src, dst)
     k_scale[dst].copy_(k_scale[src])
     v_scale[dst].copy_(v_scale[src])
+    return k_pool, v_pool, k_scale, v_scale
+
+
+def install_page(k_pool: torch.Tensor, v_pool: torch.Tensor, dst: int,
+                 k_rows, v_rows) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one imported page's host or device rows onto page ``dst`` of
+    the pools, IN PLACE (the device half of a KV-page import, the mirror
+    of :func:`copy_page`: a pure copy in the pool dtype). Returns the
+    pools."""
+    k_pool[dst].copy_(torch.as_tensor(k_rows))
+    v_pool[dst].copy_(torch.as_tensor(v_rows))
+    return k_pool, v_pool
+
+
+def install_page_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                   k_scale: torch.Tensor, v_scale: torch.Tensor, dst: int,
+                   k_rows, v_rows, k_s, v_s):
+    """Quantizing :func:`install_page`: an imported int8 page carries its
+    per-(page, kv head) scale rows, which land with its rows (never a
+    re-quantization: the handoff is a page copy, not a format conversion).
+    Returns ``(k_pool, v_pool, k_scale, v_scale)``."""
+    install_page(k_pool, v_pool, dst, k_rows, v_rows)
+    k_scale[dst].copy_(torch.as_tensor(k_s))
+    v_scale[dst].copy_(torch.as_tensor(v_s))
     return k_pool, v_pool, k_scale, v_scale
 
 
@@ -676,9 +701,10 @@ class PageAllocator:
 
     def note_scale_copied(self, pid: int) -> None:
         """The engine copied scale rows onto ``pid`` (copy-on-write's
-        second half): its scales are established. Under ``debug`` the
-        post-CoW check runs here (:meth:`cow` cannot check itself: its
-        return value is the copy instruction)."""
+        second half, or an import's): its scales are established. Under
+        ``debug`` the post-copy check runs here (:meth:`cow` and
+        :meth:`adopt_block` cannot check themselves: their return value is
+        the copy instruction)."""
         if self.kv_dtype != "int8":
             return
         self._scaled.add(pid)
@@ -917,6 +943,49 @@ class PageAllocator:
             self._next.setdefault(parent, set()).add(pid)
         if self.debug:
             self.check()
+
+    def adopt_block(self, h: bytes, parent: bytes, tokens) -> Optional[int]:
+        """Adopt one IMPORTED full block into the prefix index as a PARKED
+        page (refcount 0, LRU-reclaimable): the bookkeeping half of a KV-page
+        import. The caller copies the rows onto the returned page
+        (:func:`install_page` / :func:`install_page_q`, then, int8,
+        :meth:`note_scale_copied`).
+
+        Idempotent by content address: a hash already resident returns
+        ``None`` and claims nothing, so a replayed handoff is a no-op.
+        ``parent`` is the previous block's chain hash (or the salted chain
+        root for block 0): recording it lets the partial-block child walk
+        find imported blocks as it finds local ones. Raises RuntimeError
+        when no page can be reclaimed."""
+        if not self.prefix_cache:
+            raise RuntimeError(
+                "adopt_block needs the prefix cache (an unindexed import "
+                "could never be found again: build the importing engine "
+                "with prefix_cache=True)")
+        toks = np.ascontiguousarray(np.asarray(tokens).reshape(-1), np.int32)
+        if len(toks) != self.page_size:
+            raise ValueError(
+                f"adopt_block takes exactly one FULL block "
+                f"({self.page_size} tokens), got {len(toks)}")
+        if h in self._index:
+            return None
+        pid = self._claim_page()
+        if self.kv_dtype == "int8":
+            # not a fresh-reset page: the import lands the source page's
+            # scale rows, so the engine's flush must not floor them; until
+            # note_scale_copied the page is deliberately un-established
+            self._fresh_scales.remove(pid)
+        self._index[h] = pid
+        self._hash_of[pid] = h
+        self._tok_of[pid] = toks.copy()
+        self._parent_of[pid] = parent
+        self._next.setdefault(parent, set()).add(pid)
+        self._parked[pid] = h
+        self._parked.move_to_end(pid)
+        self._publish_occupancy()
+        if self.debug and self.kv_dtype != "int8":
+            self.check()
+        return pid
 
     def clear_prefix_index(self) -> None:
         """Drop the whole content index and return parked pages to the

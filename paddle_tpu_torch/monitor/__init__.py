@@ -49,6 +49,14 @@ context that is already up, so a scrape never creates one. On the CPU (or
 before CUDA is initialized) the port reports neither series, where the
 reference reports a host live-array total.
 
+``paddle_tpu_kernel_launches`` has no counterpart in the reference (there a
+Pallas kernel runs inside a compiled program and nothing counts it): the
+launches of each of the port's hand-written kernels in this process so far
+(:func:`paddle_tpu_torch.ops.launch_counts`, a graph replay credited with
+the launches it captured), labelled ``kernel``. A scrape of a replica
+process reads which kernels its traffic ran; the difference of two scrapes
+is the launches between them.
+
 Not ported yet (ROADMAP A9b): ``monitored_jit`` (its counterpart here is
 the engines' ``programs``, :class:`~paddle_tpu_torch.inference._graphs.
 GraphCache`, which counts captures per program) and the per-op latency hook
@@ -455,6 +463,14 @@ def _collect_live_bytes():
             for i in _cuda_devices()]
 
 
+def _collect_launches():
+    """Each hand-written kernel's launches in this process."""
+    from .. import ops
+
+    return [({"kernel": name}, float(n))
+            for name, n in ops.launch_counts().items()]
+
+
 register_callback(
     "paddle_tpu_hbm_bytes",
     "PyTorch caching-allocator stats per CUDA device (absent on the "
@@ -465,6 +481,11 @@ register_callback(
     "bytes of live tensors per CUDA device (torch.cuda.memory_allocated; "
     "absent on the CPU)",
     _collect_live_bytes)
+register_callback(
+    "paddle_tpu_kernel_launches",
+    "launches of each hand-written kernel in this process "
+    "(ops.launch_counts)",
+    _collect_launches)
 
 
 # -- collection / export ----------------------------------------------------

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._launches import count
 
 __all__ = ["decode_mha", "decode_mha_ref", "kernel_for", "split_plan",
            "decode_partials_ref", "combine_partials_ref"]
@@ -245,7 +246,7 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             1.0 / math.sqrt(d), split,
             *[t if t is None else t.data_ptr() for t in part], stream)
     _build.check(lib, err, "decode_mha")
-    decode_mha.launches += 1
+    count(decode_mha)
     return out
 
 

@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._launches import count
 
 __all__ = ["flash_attention_bshd", "flash_attention_bshd_ref",
            "prefix_chunk_attention", "prefix_chunk_attention_ref",
@@ -428,7 +429,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr()], (b, sq, sk, hq, hkv, w),
             _strides(q, k, v, out), scale, causal, dropout_p, seed, q.device)
-    flash_attention_bshd.launches += 1
+    count(flash_attention_bshd)
     return _sliced(out, d), lse
 
 
@@ -464,7 +465,7 @@ def prefix_chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), pos.data_ptr()], (b, sq, sk, hq, hkv, w),
             _strides(q, k, v, out), scale, True, 0.0, 0, q.device)
-    prefix_chunk_attention.launches += 1
+    count(prefix_chunk_attention)
     return _sliced(out, d)
 
 
@@ -494,7 +495,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()],
             (b, sq, sk, hq, hkv, w), _strides(q, k, v, do, dq), scale,
             causal, dropout_p, seed, q.device)
-    flash_attention_bwd_dq.launches += 1
+    count(flash_attention_bwd_dq)
     return _sliced(dq, d)
 
 
@@ -525,7 +526,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
             (b, sq, sk, hq, hkv, w), _strides(q, k, v, do, dk, dv), scale,
             causal, dropout_p, seed, q.device)
-    flash_attention_bwd_dkv.launches += 1
+    count(flash_attention_bwd_dkv)
     return _sliced(dk, d), _sliced(dv, d)
 
 

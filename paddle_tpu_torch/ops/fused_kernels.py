@@ -38,6 +38,7 @@ import torch
 
 from ..framework.amp_state import cast_inputs, check_outputs
 from . import _build
+from ._launches import count
 
 __all__ = ["rms_norm", "rms_norm_ref", "fused_layer_norm",
            "fused_layer_norm_ref", "fused_rope", "fused_rope_ref",
@@ -93,6 +94,7 @@ _ROPE_THREADS = 256          # threads in a K2 block at most
 _THREADS_PER_SM = 2048
 _BLOCKS_PER_SM = 32
 _MAX_GRID_Y = 65535
+_MAX_BLOCK_Z = 64            # CUDA's bound on a block's z dimension
 _MAX_INDEX = 2 ** 31 - 1     # the vector paths count elements in 32 bits
 
 
@@ -182,17 +184,23 @@ def rope_plan(b: int, s: int, h: int, d: int, dtype: torch.dtype,
     path a thread takes one 16-byte chunk of each half of one head at one
     position: a block is (C, P, T), C the chunks of a half, P = min(h, 256
     / C) heads, halved once where the positions alone would leave SMs idle
-    (a decode step), T = min(s, 256 / (C P)) positions; the grid covers
+    (a decode step), T = min(s, 256 / (C P), 64) positions (64: CUDA's
+    bound on a block's z dimension); the grid covers
     every position and head once. The element-wise path (P = 0) takes a
     block of 256 threads a position, as many blocks as the positions need
     and at most what the SMs hold at once, striding over the rest."""
     if path == "vec":
         c = (d // 2) * dtype.itemsize // _CHUNK
+
+        def teams_for(per_block):
+            # positions a block: the z dimension of the block, at most 64
+            return max(1, min(s, _ROPE_THREADS // (c * per_block),
+                              _MAX_BLOCK_Z))
+
         per_block = min(h, max(1, _ROPE_THREADS // c))
-        if -(-s // max(1, min(s, _ROPE_THREADS // (c * per_block)))) * b \
-                < sms:
+        if -(-s // teams_for(per_block)) * b < sms:
             per_block = -(-per_block // 2)
-        teams = max(1, min(s, _ROPE_THREADS // (c * per_block)))
+        teams = teams_for(per_block)
         return (per_block, teams, -(-s // teams), b,
                 -(-h // per_block))
     cap = sms * min(_BLOCKS_PER_SM, _THREADS_PER_SM // _ROPE_THREADS)
@@ -286,7 +294,7 @@ def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
         _launch("rms_norm", x.device, x2.data_ptr(), w.data_ptr(),
                 y.data_ptr(), rows, h, stride, float(eps), code,
                 int(w.dtype != x.dtype), wr, n, blocks)
-        rms_norm.launches += 1
+        count(rms_norm)
     return y
 
 
@@ -422,7 +430,7 @@ def _layer_norm_fwd(x: torch.Tensor, residual, bias, gamma: torch.Tensor,
                 r2.stride(0), y.stride(0), h, float(eps),
                 HAS_RES=residual is not None, HAS_BIAS=bias is not None,
                 BLOCK=block, num_warps=min(max(block // 512, 1), 16))
-        fused_layer_norm.launches += 1
+        count(fused_layer_norm)
     return y.reshape(x.shape)
 
 
@@ -532,7 +540,7 @@ def _rope_fwd(x: torch.Tensor, cos: torch.Tensor,
         _launch("fused_rope", x.device, x.data_ptr(), cos.data_ptr(),
                 sin.data_ptr(), out.data_ptr(), b, s, h, d // 2, *xs, *ts,
                 code, int(tab != x.dtype), *plan)
-        fused_rope.launches += 1
+        count(fused_rope)
     return out
 
 

@@ -25,6 +25,7 @@ from typing import Sequence
 import torch
 
 from . import _build
+from ._launches import count
 
 __all__ = ["fused_linear_param_grad_add", "fused_linear_param_grad_add_ref",
            "kernel_for"]
@@ -134,7 +135,7 @@ def fused_linear_param_grad_add(x: torch.Tensor, dy: torch.Tensor,
     instance = kernel_for(x2.dtype, t, k, n, (x2.stride(0), dy2.stride(0)),
                           (x2.data_ptr(), dy2.data_ptr()))
     _launch(instance, x2, dy2, dw, out)
-    fused_linear_param_grad_add.launches += 1
+    count(fused_linear_param_grad_add)
     return out
 
 

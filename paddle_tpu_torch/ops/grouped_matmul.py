@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from ._launches import count
 
 __all__ = ["grouped_matmul", "grouped_matmul_ref", "kernel_for",
            "group_tile_schedule", "max_row_tiles", "tile_passes"]
@@ -213,7 +214,7 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
     sched = (None if instance == "mma_sync" else torch.empty(
         3 * max_row_tiles(m, g), dtype=torch.int32, device=lhs.device))
     _launch(instance, lhs, rhs, ends, out, sched)
-    grouped_matmul.launches += 1
+    count(grouped_matmul)
     return out
 
 

@@ -44,6 +44,7 @@ import torch
 
 from ..quantization.kv import KV_QMAX, KV_SCALE_FLOOR
 from . import _build
+from ._launches import count
 from .decode_attention import (_TILE, _sm_count, _workspace,
                                decode_partials_ref, split_plan)
 
@@ -256,7 +257,7 @@ def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
             maxp, *k_pool.stride()[:3], scale, cap, split,
             *[t if t is None else t.data_ptr() for t in part], stream)
     _build.check(lib, err, "paged_decode")
-    paged_decode_mha.launches += 1
+    count(paged_decode_mha)
     return out
 
 

@@ -28,7 +28,20 @@ is the layer a client talks to:
   namespaces);
 - :mod:`~paddle_tpu_torch.serving.control` — the overload control plane
   (:class:`ControlPolicy`, :class:`ControlPlane`,
-  :class:`ElasticController`).
+  :class:`ElasticController`);
+- :class:`~paddle_tpu_torch.serving.router.Router` — the replica fleet:
+  N Server-shaped replicas built from :class:`ReplicaSpec` s, least-loaded
+  routing with adapter affinity, per-replica circuit breakers, failover
+  replay (one stable request id and one stream across replicas), the
+  supervisor that rebuilds dead replicas, drain, ``rolling_restart`` and
+  elastic sizing;
+- :mod:`~paddle_tpu_torch.serving.remote` — replicas in other processes
+  (:class:`RemoteReplica`, :class:`RemoteReplicaSpec`, ``remote.spawn_replica``,
+  ``python -m paddle_tpu_torch.serving.remote``) and disaggregated
+  prefill/decode (:class:`DisaggregatedFront`): finished KV pages ship
+  from a prefill replica to a decode replica over ``POST /kv/export`` ->
+  ``/kv/import`` (``encode_kv_payload`` / ``decode_kv_payload``,
+  chain-hash keyed and integrity checked, :class:`KVIntegrityError`).
 
 Faults are classified by blast radius
 (:class:`~paddle_tpu_torch.inference.generation.RequestFault` /
@@ -54,9 +67,6 @@ CPU)::
     for tok in h.stream():
         ...
     httpd.shutdown(); srv.shutdown()
-
-Not ported yet: the replica router and the remote replica / disaggregated
-front (ROADMAP A10).
 """
 from ..inference.generation import (EngineFault, PagePoolExhausted,
                                     RequestFault, classify_fault)
@@ -69,6 +79,10 @@ from .queue import (CANCELLED, EXPIRED, FAILED, FINISHED, QUEUED,
                     RUNNING, DeadlineExpired, QueueFull,
                     RequestCancelled, RequestFailed, RequestHandle,
                     RequestQueue, RequestRejected)
+from .remote import (DisaggregatedFront, KVIntegrityError, RemoteReplica,
+                     RemoteReplicaSpec, decode_kv_payload, encode_kv_payload)
+from .router import (FailoverBudgetExceeded, FleetUnavailable, ReplicaSpec,
+                     Router, RouterHandle)
 from .scheduler import PreemptionBudgetExceeded, Server
 
 __all__ = [
@@ -77,7 +91,11 @@ __all__ = [
     "RequestRejected", "QueueFull", "RequestCancelled",
     "DeadlineExpired", "RequestFailed",
     "RequestFault", "EngineFault", "classify_fault",
-    "PagePoolExhausted", "PreemptionBudgetExceeded", "SLOPolicy",
+    "PagePoolExhausted", "PreemptionBudgetExceeded",
+    "Router", "ReplicaSpec", "RouterHandle",
+    "RemoteReplica", "RemoteReplicaSpec", "DisaggregatedFront",
+    "KVIntegrityError", "encode_kv_payload", "decode_kv_payload",
+    "FailoverBudgetExceeded", "FleetUnavailable", "SLOPolicy",
     "ControlPolicy", "ControlPlane", "ElasticController",
     "RUNG_ACTIONS",
     "QUEUED", "RUNNING", "FINISHED", "CANCELLED", "EXPIRED", "FAILED",

@@ -47,8 +47,8 @@ signals that already exist and move levers that already exist:
   replica (+ fleet burn). Decisions are rate-limited (one scale event
   per ``scale_cooldown_s``) and hysteretic (``scale_signals``
   CONSECUTIVE agreeing ticks required), and scale-down always drains:
-  never fail an in-flight handle. Its caller, the fleet router, is not
-  ported yet (ROADMAP A10); the controller's decisions are.
+  never fail an in-flight handle (the fleet router,
+  ``serving/router.py``, applies them).
 
 Everything here is plain host arithmetic on snapshot dicts: zero
 device work, zero new compiled programs, deterministic under an

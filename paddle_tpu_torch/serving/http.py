@@ -83,9 +83,22 @@ body fields and status codes:
   an engine without ``lora_capacity``; 503 while the server cannot apply
   them. The registry snapshot rides ``/healthz`` under ``lora``.
 
-- Not ported yet, each a 501 naming its ROADMAP item: ``GET /profile``
-  (the program ledger, A9b), ``POST /kv/export`` and ``/kv/import`` (the
-  KV-page handoff, A10).
+- ``POST /kv/export`` / ``POST /kv/import`` — the KV-page handoff between
+  replicas (disaggregated prefill/decode; a paged engine with
+  ``prefix_cache=True``). Export takes ``{"tokens": [...][, "salt":
+  "<hex>"]}`` and returns the resident full-block pages covering the
+  prompt's longest cached prefix as a framed octet-stream (a length-prefixed
+  JSON header with the chain hashes, parents, tokens, dtype and geometry,
+  then the raw page bytes; int8 rows ship with their per-page scales).
+  Import takes the same framing (at most ``MAX_KV_BODY_BYTES``, else 413)
+  and installs the pages into the pool and prefix index, chain-hash
+  verified and idempotent on replay. Both apply on the scheduler thread in
+  the inter-segment gap. 400 for validation errors (and with ``"reason":
+  "integrity"`` for a checksum mismatch), 503 while the scheduler cannot
+  apply them.
+
+- Not ported yet, a 501 naming its ROADMAP item: ``GET /profile`` (the
+  program ledger, A9b).
 """
 from __future__ import annotations
 
@@ -120,9 +133,16 @@ _KNOWN_FIELDS = (frozenset(_CFG_FIELDS)
 # holds the model and KV pool
 MAX_BODY_BYTES = 8 << 20
 
+# a /kv/import body carries real page bytes (layers x pages x rows);
+# still bounded — an unbounded Content-Length must not let a peer
+# buffer arbitrary bytes into the serving process
+MAX_KV_BODY_BYTES = 256 << 20
+# a refused /kv/import body up to this many times the cap is read and
+# dropped before the 413, so the shipper sees the status, not a reset
+_KV_DRAIN_FACTOR = 4
+
 # routes the port does not serve yet: (prefix, ROADMAP item)
-_NOT_PORTED_ROUTES = (("/profile", "A9b: the program ledger"),
-                      ("/kv/", "A10: the KV-page handoff"))
+_NOT_PORTED_ROUTES = (("/profile", "A9b: the program ledger"),)
 
 
 def _parse_request(body: dict):
@@ -302,6 +322,13 @@ def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
             self.wfile.write(b"\r\n")
             self.wfile.flush()
 
+        def _discard(self, n: int) -> None:
+            while n > 0:
+                piece = self.rfile.read(min(n, 1 << 20))
+                if not piece:
+                    return
+                n -= len(piece)
+
         def _not_ported(self) -> bool:
             """501 for a route of the reference the port lacks (the body,
             if any, is not read: the connection closes after the reply)."""
@@ -431,6 +458,9 @@ def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
             if self.path.startswith("/adapters/"):
                 self._adapters_response()
                 return
+            if self.path.startswith("/kv/"):
+                self._kv_response()
+                return
             if not self.path.startswith("/generate"):
                 # body NOT consumed: drop the connection after replying
                 # or keep-alive would parse the body as the next request
@@ -536,6 +566,121 @@ def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
                 self._stream_response(handle, idem=idem_key)
             else:
                 self._block_response(handle)
+
+        def _kv_response(self) -> None:
+            """Disaggregated prefill/decode page handoff: ``POST
+            /kv/export`` ``{"tokens": [...][, "salt": "<hex>"]}``
+            returns the resident full-block pages covering the prompt
+            as a framed octet-stream (JSON header + raw page bytes —
+            ``serving.remote.encode_kv_payload``); ``POST /kv/import``
+            takes the same framing back and installs the pages into
+            this server's pool + prefix index (chain-hash verified,
+            idempotent on replay). Both apply on the scheduler thread
+            in the inter-segment gap — a replay may be writing the pools
+            on that thread's stream, so no handler thread reads them. 400
+            for validation errors (strict bodies, geometry/dtype
+            mismatch, corrupt chain hash), 503 while the scheduler
+            cannot apply them."""
+            op = self.path[len("/kv/"):].split("?", 1)[0]
+            if op not in ("export", "import"):
+                self.close_connection = True
+                self._json(404, {"error": f"no route {self.path}"},
+                           headers={"Connection": "close"})
+                return
+            if (getattr(server, "export_kv", None) is None
+                    or not getattr(getattr(server, "engine", None),
+                                   "prefix_cache", False)):
+                # permanently unsupported here (a Router front, or an
+                # engine without the paged prefix cache) — a 400, not
+                # a retryable 503
+                self.close_connection = True
+                self._json(400, {"error": "this endpoint fronts no "
+                                          "KV-handoff-capable Server "
+                                          "(needs a paged engine with "
+                                          "prefix_cache=True)"},
+                           headers={"Connection": "close"})
+                return
+            from .remote import (KVIntegrityError, decode_kv_payload,
+                                 encode_kv_payload)
+            try:
+                if op == "export":
+                    body = self._read_body()
+                    if body is None:
+                        return
+                    # strict like /generate: a typo'd "token" must not
+                    # silently export an empty prefix
+                    allowed = {"tokens", "salt"}
+                    unknown = sorted(k for k in body
+                                     if k not in allowed)
+                    if unknown:
+                        raise ValueError(
+                            f"unknown field {unknown[0]!r} (allowed: "
+                            f"{', '.join(sorted(allowed))})")
+                    tokens = body.get("tokens")
+                    if (not isinstance(tokens, list) or not tokens
+                            or not all(isinstance(t, int)
+                                       and not isinstance(t, bool)
+                                       and 0 <= t < 2**31
+                                       for t in tokens)):
+                        raise ValueError(
+                            "'tokens' must be a non-empty list of "
+                            "int32 token ids")
+                    salt = body.get("salt", "")
+                    if not isinstance(salt, str):
+                        raise ValueError(
+                            f"'salt' must be a hex string, got "
+                            f"{salt!r}")
+                    payload = server.export_kv(
+                        np.asarray(tokens, np.int32),
+                        salt=bytes.fromhex(salt))
+                    raw = encode_kv_payload(payload)
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "application/octet-stream")
+                    self.send_header("Content-Length", str(len(raw)))
+                    self.end_headers()
+                    self.wfile.write(raw)
+                    return
+                n = int(self.headers.get("Content-Length", 0))
+                if n <= 0 or n > MAX_KV_BODY_BYTES:
+                    self.close_connection = True
+                    if n <= _KV_DRAIN_FACTOR * MAX_KV_BODY_BYTES:
+                        # read the refused body off the socket (in small
+                        # pieces, kept nowhere) before answering: a peer
+                        # still sending when the socket closes unread gets
+                        # a reset instead of the 413
+                        self._discard(n)
+                    self._json(
+                        400 if n <= 0 else 413,
+                        {"error": ("missing/empty body"
+                                   if n <= 0 else
+                                   f"body exceeds {MAX_KV_BODY_BYTES}"
+                                   f" bytes")},
+                        headers={"Connection": "close"})
+                    return
+                out = server.import_kv(
+                    decode_kv_payload(self.rfile.read(n)))
+            except KVIntegrityError as e:
+                # checksum mismatch: the decode raised BEFORE
+                # ``import_kv`` ran, so nothing installed — typed so
+                # the shipper can count it and re-ship (idempotent)
+                wire_stats["integrity_rejects"] += 1
+                if trace.enabled():
+                    trace.event("kv.integrity_reject", error=str(e))
+                self._json(400, {"error": str(e),
+                                 "reason": "integrity"})
+                return
+            except (ValueError, TypeError,
+                    json.JSONDecodeError) as e:
+                self._json(400, {"error": str(e)})
+                return
+            except (TimeoutError, RequestRejected,
+                    RuntimeError) as e:
+                # transient: the scheduler could not apply it right
+                # now (wedged / shutting down)
+                self._json(503, {"error": str(e)})
+                return
+            self._json(200, out)
 
         def _adapters_response(self) -> None:
             """The multi-tenant LoRA admin surface: ``POST /adapters/load``

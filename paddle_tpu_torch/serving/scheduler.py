@@ -86,9 +86,11 @@ step of the next inter-segment gap (before cancellations and admissions,
 so a load is visible to that gap's admissions), and its result or error
 goes back to the caller. The engine needs ``lora_capacity > 0``.
 
+KV-page handoff: :meth:`Server.export_kv` / ``import_kv`` are admin ops of
+the same kind, applied in the gap (a paged engine with ``prefix_cache=True``).
+
 What the port's engines lack fails at the call, never silently:
-:meth:`Server.export_kv` / ``import_kv`` (the KV-page handoff, ROADMAP
-A10); :meth:`Server.profile` (the program ledger, A9b).
+:meth:`Server.profile` (the program ledger, ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -864,14 +866,18 @@ class Server:
 
     _ADMIN_DISPATCH = {
         "load": lambda eng, name, staged: eng.adapters.install(name, staged),
-        "unload": lambda eng, name: eng.unload_adapter(name)}
+        "unload": lambda eng, name: eng.unload_adapter(name),
+        "kv_export": lambda eng, tokens, salt: eng.export_kv_pages(tokens,
+                                                                   salt),
+        "kv_import": lambda eng, payload: eng.import_kv_pages(payload)}
 
     def _apply_admin(self) -> None:
-        """Apply the pending admin ops (adapter load / unload) on the
-        scheduler thread, in the gap: the only place the registry may be
-        touched. A failed op reports its error to its waiting caller; the
-        engine and every running request are unharmed (a load is
-        all-or-nothing)."""
+        """Apply the pending admin ops (adapter load / unload, KV-page export
+        / import) on the scheduler thread, in the gap: the only place the
+        registry or the pools may be touched. A failed op reports its error
+        to its waiting caller; the engine and every running request are
+        unharmed (a load is all-or-nothing, and a rejected import adopts
+        nothing)."""
         with self._lock:
             ops, self._admin_ops = self._admin_ops, []
         for op, args, evt, box in ops:
@@ -882,17 +888,34 @@ class Server:
             finally:
                 evt.set()
 
-    # -- features the port's engines lack -------------------------------------
+    # -- KV-page handoff admin (thread-safe; applied in the gap) -------------
     def export_kv(self, tokens, salt: bytes = b"",
                   timeout: Optional[float] = 30.0) -> dict:
-        """Export cached KV pages: not ported yet (ROADMAP A10, built on
-        the prefix index)."""
-        raise _not_ported("the KV-page handoff (export_kv)", "A10")
+        """The resident cached pages covering ``tokens``' longest full-block
+        prefix (the ``engine.export_kv_pages`` payload). Thread-safe:
+        marshalled into the scheduler thread's gap as adapter admin is,
+        since a replay may be writing the pools on that thread's stream and
+        no other thread may read them. The read half of a disaggregated
+        prefill-to-decode handoff (``POST /kv/export``)."""
+        self._require_kv_handoff()
+        return self._admin_op("kv_export", (tokens, salt), timeout)
 
     def import_kv(self, payload: dict,
                   timeout: Optional[float] = 30.0) -> dict:
-        """Import KV pages: not ported yet (ROADMAP A10)."""
-        raise _not_ported("the KV-page handoff (import_kv)", "A10")
+        """Install an exported payload into this engine's pools and prefix
+        index (``engine.import_kv_pages``): chain-hash verified, idempotent
+        on replay (resident blocks dedup). Marshalled as :meth:`export_kv`
+        is. The write half of the handoff (``POST /kv/import``)."""
+        self._require_kv_handoff()
+        return self._admin_op("kv_import", (payload,), timeout)
+
+    def _require_kv_handoff(self) -> None:
+        if (getattr(self.engine, "export_kv_pages", None) is None
+                or not getattr(self.engine, "prefix_cache", False)):
+            raise RuntimeError(
+                "KV-page handoff needs a paged engine with "
+                "prefix_cache=True (the content index is what makes "
+                "the handoff idempotent)")
 
     def profile(self, top_k: Optional[int] = None) -> dict:
         """The program-ledger shard: not ported yet (ROADMAP A9b)."""
@@ -1483,17 +1506,17 @@ class Server:
                     self.engine.abort_admit(adm)
                 except Exception:
                     pass
-            h._finish(FAILED if fail else CANCELLED, wrapped)
             self._count("failed" if fail else "cancelled")
+            h._finish(FAILED if fail else CANCELLED, wrapped)
         for h in self._replay:
             # replays never reached the rebuilt engine — no capacity to
             # reclaim, just a terminal state so result() can't hang
-            h._finish(FAILED if fail else CANCELLED, wrapped)
             self._count("failed" if fail else "cancelled")
+            h._finish(FAILED if fail else CANCELLED, wrapped)
         self._replay = []
         for h in self.queue.drain_all():
-            h._finish(FAILED if fail else CANCELLED, wrapped)
             self._count("failed" if fail else "cancelled")
+            h._finish(FAILED if fail else CANCELLED, wrapped)
         for rid, h in list(self._active.items()):
             if not fail:
                 # engine state is coherent on a clean stop — reclaim
@@ -1501,8 +1524,8 @@ class Server:
                     self.engine.cancel_request(rid)
                 except Exception:
                     pass
-            h._finish(FAILED if fail else CANCELLED, wrapped)
             self._count("failed" if fail else "cancelled")
+            h._finish(FAILED if fail else CANCELLED, wrapped)
         self._active.clear()
 
     # -- fault containment ---------------------------------------------------
@@ -1536,8 +1559,8 @@ class Server:
             raise exc
         self._count_fault(kind, site)
         if kind == "request":
-            h._finish(FAILED, exc)
             self._count("failed")
+            h._finish(FAILED, exc)
             self._slo_fail(h)
             return
         # the handle now rides ONLY inside the signal until _recover
@@ -1661,8 +1684,8 @@ class Server:
                     f"{sig.cause!r}: {rebuild_err!r}") from rebuild_err
             for h in inflight:
                 if h._cancel_requested:
-                    h._finish(CANCELLED)
                     self._count("cancelled")
+                    h._finish(CANCELLED)
                     continue
                 h._replays += 1
                 if h._replays > self.max_replays:
@@ -1785,13 +1808,13 @@ class Server:
             while pending:
                 h = pending.pop(0)
                 if h._cancel_requested:
-                    h._finish(CANCELLED)
                     self._count("cancelled")
+                    h._finish(CANCELLED)
                     continue
                 if (h.engine_rid is None and h.deadline is not None
                         and time.monotonic() >= h.deadline):
-                    h._finish(EXPIRED)
                     self._count("expired")
+                    h._finish(EXPIRED)
                     continue
                 n_toks = h._n_pushed    # == len(h._tokens): scheduler-
                 #                         thread bookkeeping, O(1)
@@ -1799,8 +1822,8 @@ class Server:
                 if remaining < 1:
                     # fully emitted before the fault (retirement raced
                     # the crash) — it is simply finished
-                    h._finish(FINISHED)
                     self._count("completed")
+                    h._finish(FINISHED)
                     if monitor.enabled():
                         self._slo_finish(h, n_toks)
                     continue
@@ -1918,8 +1941,8 @@ class Server:
                 if toks is not None:
                     self._push_delta(
                         h, list(toks[h._n_pushed - h._engine_base:]))
-                h._finish(CANCELLED)
                 self._count("cancelled")
+                h._finish(CANCELLED)
         # 1b. advance the in-flight chunked admission by ONE fixed-shape
         #     chunk (or abandon it if its client cancelled / its
         #     admission deadline passed — chunked admission spans many
@@ -1936,9 +1959,9 @@ class Server:
                        and time.monotonic() >= h.deadline)
             if h._cancel_requested or expired:
                 self._adm = None
-                h._finish(CANCELLED if h._cancel_requested else EXPIRED)
                 self._count("cancelled" if h._cancel_requested
                             else "expired")
+                h._finish(CANCELLED if h._cancel_requested else EXPIRED)
                 # the handle is terminal first: if the abort itself
                 # faults, recovery reclaims capacity wholesale and the
                 # client is not stranded behind the engine's health
@@ -1980,11 +2003,11 @@ class Server:
                 trace.event("queue.expire", rid=h._trace_rid,
                             cancelled=h._cancel_requested)
             if h._cancel_requested:
-                h._finish(CANCELLED)
                 self._count("cancelled")
+                h._finish(CANCELLED)
             else:
-                h._finish(EXPIRED)
                 self._count("expired")
+                h._finish(EXPIRED)
         # 2b. replays surviving an engine restart re-admit before new
         #     queue work (their capacity claim predates the fault)
         if self._replay:
@@ -2259,8 +2282,8 @@ class Server:
         ``STORM_WINDOW_S`` when ``STORM_PREEMPTS`` preemptions land in
         one window."""
         if h._cancel_requested:
-            h._finish(CANCELLED)
             self._count("cancelled")
+            h._finish(CANCELLED)
             return
         h._preempts += 1
         self._count("preempted")
@@ -2317,8 +2340,8 @@ class Server:
                 continue
             self._push_delta(
                 h, list(seq[h._n_pushed - h._engine_base:]))
-            h._finish(FINISHED)
             self._count("completed")
+            h._finish(FINISHED)
             if monitor.enabled():
                 n = len(seq) + h._engine_base
                 if h.first_token_ts is not None and n > 1:

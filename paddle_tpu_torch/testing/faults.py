@@ -49,9 +49,6 @@ Usage::
     srv = Server(eng, ...)
     ...
     assert plan.injected == [("prefill", 2, "raise"), ...]
-
-Not ported yet: ``NetworkFaultPlan`` and ``NET_SITES``, the wire seams of
-the cross-process fleet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -61,9 +58,17 @@ from typing import List, Optional, Sequence
 
 from .. import tracing as trace
 
-__all__ = ["SITES", "FaultPlan", "FaultyEngine", "InjectedFault"]
+__all__ = ["SITES", "NET_SITES", "FaultPlan", "NetworkFaultPlan",
+           "FaultyEngine", "InjectedFault"]
 
 SITES = ("admit", "prefill", "chunk", "decode", "collect", "preempt")
+
+# network seams (cross-process serving, paddle_tpu_torch.serving.remote):
+# a SEPARATE namespace from the engine SITES — a RemoteReplica's
+# failure modes are the wire's (delay / drop / mid-stream half-close),
+# not the engine's, and the two plans never share counters
+NET_SITES = ("generate", "kv_import")
+
 
 class InjectedFault(RuntimeError):
     """Default exception an injection raises. Deliberately NOT a
@@ -74,11 +79,12 @@ class InjectedFault(RuntimeError):
 
 class _Rule:
     __slots__ = ("site", "first", "times", "action", "exc", "seconds",
-                 "rate", "rng", "fired")
+                 "rate", "rng", "fired", "after", "mode")
 
     def __init__(self, site: str, first: int, times: int, action: str,
                  exc=None, seconds: float = 0.0,
                  rate: Optional[float] = None, seed: int = 0,
+                 after: int = 0, mode: Optional[str] = None,
                  valid_sites: Sequence[str] = SITES):
         if site not in valid_sites:
             raise ValueError(
@@ -94,6 +100,8 @@ class _Rule:
         self.rate = rate          # probabilistic (chaos-soak) rule
         self.rng = random.Random(seed) if rate is not None else None
         self.fired = 0
+        self.after = after        # half_close/corrupt: lines to relay
+        self.mode = mode          # corrupt: "flip" | "truncate"
 
 
 class FaultPlan:
@@ -201,7 +209,8 @@ class FaultPlan:
     def _consume(self, site: str):
         """Count a call to ``site`` and consume the first matching
         un-retired rule: bump ``calls``, log to ``injected``, trace.
-        Returns ``(action, exc, seconds, n)`` or ``None``."""
+        Returns ``(action, exc, seconds, after, mode, n)`` or
+        ``None``."""
         with self._lock:
             self.calls[site] = self.calls.get(site, 0) + 1
             n = self.calls[site]
@@ -220,7 +229,8 @@ class FaultPlan:
                 return None
             rule.fired += 1
             self.injected.append((site, n, rule.action))
-            hit = (rule.action, rule.exc, rule.seconds, n)
+            hit = (rule.action, rule.exc, rule.seconds, rule.after,
+                   rule.mode, n)
         if trace.enabled():
             # injections are part of the story a flight dump tells: a
             # chaos postmortem must distinguish injected faults from
@@ -236,7 +246,7 @@ class FaultPlan:
         hit = self._consume(site)
         if hit is None:
             return
-        action, exc, seconds, n = hit
+        action, exc, seconds, _after, _mode, n = hit
         if action == "hang":
             # outside the lock: a hung scheduler must not also wedge
             # every other seam's bookkeeping
@@ -250,6 +260,142 @@ class FaultPlan:
             # should pass a class or zero-arg factory so every
             # injection gets a fresh instance (re-raising one object
             # chains tracebacks onto it forever)
+            raise exc
+        raise exc()   # class or zero-arg factory
+
+
+class NetworkFaultPlan(FaultPlan):
+    """Deterministic injections at the WIRE seams of a
+    :class:`~paddle_tpu_torch.serving.remote.RemoteReplica` — the failure
+    modes a cross-process fleet must absorb are the network's, not the
+    engine's, so they get their own site namespace (:data:`NET_SITES`)
+    and their own plan (never share counters with an engine-side
+    :class:`FaultPlan`).
+
+    Sites:
+
+    - ``"generate"``  — one ``POST /generate`` submission (counted at
+      the client, before the request hits the wire);
+    - ``"kv_import"`` — one ``POST /kv/import`` KV-page shipment (the
+      disaggregated prefill→decode handoff).
+
+    Actions, same nth/times discipline as the base plan:
+
+    - :meth:`delay_at` — bounded stall before the call proceeds
+      (releasable early via :meth:`release_hangs`, like a hang);
+    - :meth:`drop_at` — the connection never happens: raises
+      ``ConnectionResetError`` (or ``exc``) at the seam, which the
+      client surfaces exactly like a refused/reset socket;
+    - :meth:`half_close_at` — the INSIDIOUS one: the request goes
+      through, the server streams, and the client-side reader kills
+      the socket after relaying ``after`` stream lines — a mid-stream
+      half-close the router's failover replay must absorb without the
+      handle ever seeing a gap;
+    - :meth:`corrupt_at` — the payload arrives, but WRONG: a
+      deterministic byte-flip (well-framed, bit-rotted — only a
+      checksum can tell) or truncation of the KV ship / token stream.
+      The injection the integrity-checked wire is tested against.
+
+    The seam hook is :meth:`fire`, which unlike the base plan RETURNS
+    the half-close/corrupt spec (``{"action": "half_close", "after":
+    n}`` / ``{"action": "corrupt", "mode": m, "after": n}``) instead
+    of raising — the mangling happens later, inside the reader thread
+    or the payload path, not at the call site. ``delay`` blocks then
+    returns ``None``; ``drop`` raises. Inherited :meth:`raise_at` /
+    :meth:`hang_at` also work against :data:`NET_SITES` (validation is
+    class-driven)."""
+
+    VALID_SITES = NET_SITES
+
+    # -- schedule construction (chainable) -----------------------------------
+    def delay_at(self, site: str, nth: int = 1, seconds: float = 0.05,
+                 times: int = 1) -> "NetworkFaultPlan":
+        """Bounded network delay: block ``seconds`` at calls
+        ``nth .. nth+times-1`` to ``site``, then proceed normally.
+        :meth:`release_hangs` ends every delay early."""
+        with self._lock:
+            self._rules.append(
+                _Rule(site, nth, times, "delay", seconds=seconds,
+                      valid_sites=self.VALID_SITES))
+        return self
+
+    def drop_at(self, site: str, nth: int = 1, exc=None,
+                times: int = 1) -> "NetworkFaultPlan":
+        """Drop the connection at calls ``nth .. nth+times-1``:
+        raises ``ConnectionResetError`` (or ``exc``) at the seam."""
+        with self._lock:
+            self._rules.append(
+                _Rule(site, nth, times, "drop", exc,
+                      valid_sites=self.VALID_SITES))
+        return self
+
+    def half_close_at(self, site: str = "generate", nth: int = 1,
+                      after: int = 1,
+                      times: int = 1) -> "NetworkFaultPlan":
+        """Mid-stream half-close: the ``nth`` call to ``site``
+        proceeds, but the client tears the socket down after relaying
+        ``after`` stream lines (1-based; ``after=2`` lets two ndjson
+        lines through, then cuts)."""
+        if after < 1:
+            raise ValueError("after must be >= 1")
+        with self._lock:
+            self._rules.append(
+                _Rule(site, nth, times, "half_close", after=after,
+                      valid_sites=self.VALID_SITES))
+        return self
+
+    def corrupt_at(self, site: str, nth: int = 1, mode: str = "flip",
+                   after: int = 1,
+                   times: int = 1) -> "NetworkFaultPlan":
+        """Deterministic payload corruption at the wire seam — the
+        injection the KV integrity layer is tested against. Same
+        no-real-sockets discipline as the other actions: the bytes are
+        mangled at the client seam, never by a real middlebox.
+
+        - ``mode="flip"`` — a byte-flip that keeps the framing intact:
+          on ``kv_import`` the last payload byte (array bytes, past
+          the header) is XOR'd, so only the checksum can tell; on
+          ``generate`` the stream line after ``after`` relayed tokens
+          arrives garbled (the reader sees torn ndjson).
+        - ``mode="truncate"`` — the payload/stream ends early: on
+          ``kv_import`` the framed body loses its tail (the receiver's
+          geometry validation sees a truncated layer); on ``generate``
+          it behaves like a half-close after ``after`` lines."""
+        if mode not in ("flip", "truncate"):
+            raise ValueError(
+                f"mode must be 'flip' or 'truncate', got {mode!r}")
+        if after < 1:
+            raise ValueError("after must be >= 1")
+        with self._lock:
+            self._rules.append(
+                _Rule(site, nth, times, "corrupt", after=after,
+                      mode=mode, valid_sites=self.VALID_SITES))
+        return self
+
+    # -- the seam hook -------------------------------------------------------
+    def fire(self, site: str):
+        """Network-seam variant: ``delay`` blocks then returns
+        ``None``; ``drop`` (and inherited ``raise``) raises;
+        ``half_close`` / ``corrupt`` return their spec dict for the
+        caller to carry into the stream reader / payload path.
+        Returns ``None`` when no rule fires."""
+        hit = self._consume(site)
+        if hit is None:
+            return None
+        action, exc, seconds, after, mode, n = hit
+        if action in ("hang", "delay"):
+            self._release.wait(seconds)
+            return None
+        if action == "half_close":
+            return {"action": "half_close", "after": after}
+        if action == "corrupt":
+            return {"action": "corrupt", "mode": mode, "after": after}
+        if exc is None:
+            if action == "drop":
+                raise ConnectionResetError(
+                    f"injected network drop @ {site} (call {n})")
+            raise InjectedFault(f"injected fault @ {site} (call {n})")
+        if isinstance(exc, BaseException):
             raise exc
         raise exc()   # class or zero-arg factory
 

@@ -1,9 +1,10 @@
 """paddle_tpu_torch stands alone and keeps its device policy.
 
-- No module of the port, nor ``chip_smoke.py``, imports ``jax`` or
-  ``paddle_tpu``: checked on the sources (every import statement, nested
-  ones included) and by importing every module in a fresh interpreter
-  where both are blocked.
+- No module of the port, nor ``chip_smoke.py``, imports ``jax``,
+  ``paddle_tpu`` or ``ml_dtypes`` (the card has none; the port's KV wire
+  codec carries bf16 as its 16-bit patterns): checked on the sources (every
+  import statement, nested ones included) and by importing every module in
+  a fresh interpreter where they are blocked.
 - Entry points run on CUDA unless the caller passes ``device="cpu"``;
   without CUDA they raise instead of running on the CPU.
 - The kernel build module imports where there is no ``nvcc``, and a build
@@ -27,7 +28,7 @@ from paddle_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "paddle_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 _IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -335,8 +336,7 @@ SERVING_MODULES = {
     "paddle_tpu_torch/testing/__init__.py": [
         "SITES", "FaultPlan", "FaultyEngine", "InjectedFault",
         "retry_under_load"],
-    "paddle_tpu_torch/testing/faults.py": [
-        "SITES", "FaultPlan", "FaultyEngine", "InjectedFault"],
+    "paddle_tpu_torch/testing/faults.py": None,
     "paddle_tpu_torch/serving/__init__.py": [
         "Server", "serve_http", "AdapterRegistry", "RequestHandle",
         "RequestQueue",
@@ -345,8 +345,13 @@ SERVING_MODULES = {
         "classify_fault", "PagePoolExhausted", "PreemptionBudgetExceeded",
         "SLOPolicy", "ControlPolicy", "ControlPlane", "ElasticController",
         "RUNG_ACTIONS", "QUEUED", "RUNNING", "FINISHED", "CANCELLED",
-        "EXPIRED", "FAILED"],
+        "EXPIRED", "FAILED", "Router", "ReplicaSpec", "RouterHandle",
+        "RemoteReplica", "RemoteReplicaSpec", "DisaggregatedFront",
+        "KVIntegrityError", "encode_kv_payload", "decode_kv_payload",
+        "FailoverBudgetExceeded", "FleetUnavailable"],
     "paddle_tpu_torch/serving/queue.py": None,
+    "paddle_tpu_torch/serving/router.py": None,
+    "paddle_tpu_torch/serving/remote.py": None,
     "paddle_tpu_torch/serving/control.py": [
         "ControlPolicy", "ControlPlane", "ElasticController",
         "RUNG_ACTIONS", "max_burn"],

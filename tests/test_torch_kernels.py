@@ -168,6 +168,7 @@ def test_rope_plan_covers_every_position_once(rows_of, positions, heads, d,
         c = half * es // 16
         assert 0 < per_block <= heads and 0 < teams <= max(s, 1)
         assert c * per_block * teams <= 256 and grid_b == b
+        assert teams <= 64          # CUDA's bound on a block's z dimension
         taken = np.zeros((b, s, heads, c), int)
         for gs in range(grid_s):
             for t in range(teams):

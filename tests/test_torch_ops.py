@@ -689,3 +689,56 @@ def test_new_kernel_build_failure_raises(monkeypatch, tmp_path, name):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load(name)
+
+
+# -- launch counting across threads --------------------------------------------
+
+def test_launch_counts_survive_threads_and_captures():
+    """``ops._launches``: launches from many threads all land on the counts
+    (no lost update under a short switch interval), and a thread inside a
+    capture tally keeps its launches off the counts while another thread's
+    launches meanwhile still land on them (a graph's replay credit is its
+    own launches only)."""
+    import sys
+    import threading
+
+    from paddle_tpu_torch.ops import _launches
+
+    fn = ops.KERNELS["rms_norm"]
+    ops.reset_launch_counts()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [
+            _launches.count(fn) for _ in range(2000)]) for _ in range(16)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(old)
+    assert fn.launches == 16 * 2000
+    ops.reset_launch_counts()
+    inside, other = threading.Event(), threading.Event()
+
+    def capturing(box):
+        with _launches.capture_tally() as tally:
+            _launches.count(fn)
+            inside.set()
+            other.wait(60)
+            _launches.count(fn)
+        box.update(tally)
+
+    box = {}
+    t = threading.Thread(target=capturing, args=(box,))
+    t.start()
+    assert inside.wait(60)
+    _launches.count(fn)                 # another thread, mid-capture
+    other.set()
+    t.join(60)
+    assert not t.is_alive()
+    assert box == {fn: 2} and fn.launches == 1
+    _launches.credit(fn, 5)             # a replay of that graph
+    assert fn.launches == 6
+    ops.reset_launch_counts()

@@ -656,15 +656,18 @@ def test_missing_features_fail_at_construction(kw, item):
     (lambda s: s.profile(), "A9b")])
 def test_missing_features_fail_at_the_call(call, item):
     """What the engine lacks fails at the call: the adapter admin ops (A8,
-    ported) on an engine built without ``lora_capacity`` raise the
-    reference's RuntimeError naming it; the features not ported yet raise
-    NotImplementedError naming their ROADMAP item."""
+    ported) on an engine built without ``lora_capacity`` and the KV-page
+    handoff (A10, ported) on one without a prefix cache raise the
+    reference's RuntimeError naming what is missing; the features not
+    ported yet raise NotImplementedError naming their ROADMAP item."""
     model, _ = tiny_model()
     srv = Server(paged_engine(model), start=False,
                  admission_mode="reserved")
     try:
-        if item == "A8":
-            with pytest.raises(RuntimeError, match="lora_capacity"):
+        if item in ("A8", "A10"):
+            with pytest.raises(RuntimeError, match={
+                    "A8": "lora_capacity",
+                    "A10": "prefix_cache=True"}[item]):
                 call(srv)
         else:
             with pytest.raises(NotImplementedError,
@@ -774,10 +777,11 @@ class TestHTTPFrontend:
         ("POST", "/kv/import", "A10")])
     def test_routes_not_ported_answer_501(self, method, path, item):
         """The routes of features not ported yet answer 501 naming their
-        ROADMAP item. The adapter admin routes (A8) are ported: on an
-        engine built without ``lora_capacity`` they answer the reference's
-        400 naming it (permanently unsupported there, not a retryable
-        503)."""
+        ROADMAP item. The adapter admin routes (A8) and the KV-page handoff
+        routes (A10) are ported: on this engine, built without
+        ``lora_capacity`` and without a prefix cache, they answer the
+        reference's 400 naming what is missing (permanently unsupported
+        there, not a retryable 503)."""
         model, _ = tiny_model()
         srv = Server(paged_engine(model), start=False)
         httpd = serve_http(srv)
@@ -787,9 +791,10 @@ class TestHTTPFrontend:
                           data=b"{}" if method == "POST" else None)
             with pytest.raises(HTTPError) as ei:
                 urlopen(req, timeout=30)
-            if item == "A8":
+            if item in ("A8", "A10"):
                 assert ei.value.code == 400
-                assert "lora_capacity" in json.load(ei.value)["error"]
+                assert {"A8": "lora_capacity", "A10": "prefix_cache=True"}[
+                    item] in json.load(ei.value)["error"]
                 return
             assert ei.value.code == 501
             assert f"ROADMAP {item}" in json.load(ei.value)["error"]
