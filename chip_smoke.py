@@ -59,7 +59,10 @@ Phases, each timed, none caught and passed over:
    odd offset of a fully cached prompt, an offset clamped to max_len - C),
    held the same way; then each one's time
    beside its bound, its plain version's and a library call's where one
-   PyTorch call computes the same function;
+   PyTorch call computes the same function; and each kernel row's FLOPs
+   and bytes as its wrapper reports them to the program ledger
+   (``ops/_launches.py``) beside the counts its bound uses, on the same
+   calls, failing where they differ;
 4. kernel against plain, end to end: the 7B widths at 2 layers, on the card
    (kernels) and on the CPU (plain versions), same weights and prompts,
    through the paged engine with bf16 and with int8 pools,
@@ -108,6 +111,14 @@ Phases, each timed, none caught and passed over:
    mid-stream against a ``Server``; in fp32, ``DisaggregatedFront`` over
    two ``Server`` replicas behind ``serve_http`` against a monolithic
    ``Server``, token for token up to a near-tie of F32_NEAR_TIE);
+   the program ledger at 2 layers (LEDGER_E2E: the reference's
+   mixed-feature ledger traffic, chunked prefill, a prefix hit,
+   speculative decoding, int8 pools and LoRA, through a ``Server`` with
+   the ledger on, on the card and then on the CPU: the same streams, the
+   same programs with the same dispatches and FLOPs on both, every
+   program counted, compiled, its dispatch counter equal to its record;
+   then one decode-segment replay with the ledger on under
+   ``torch.cuda.set_sync_debug_mode("error")``);
    then the training
    configuration's widths at 2 layers, one Layer-API backward and one
    AdamW train step on the card and on the CPU from the same weights and
@@ -187,7 +198,18 @@ Phases, each timed, none caught and passed over:
    ``serve_http``'s ``/adapters/unload``, ``/adapters/load`` from an npz
    and ``/generate`` naming the adapter, ``/healthz``'s ``lora`` block; no
    capture after warmup; then the LoRA ops of one decode step captured and
-   timed, their kernels counted.
+   timed, their kernels counted; and this slice's path, the
+   ``server_ledger`` leg (after the ``Server`` legs, on their engine with
+   its graphs dropped): the program ledger and the monitor on before a
+   fresh ``Server(segment_steps=8, warmup=True)``, the 8 prompts from 8
+   client threads, 32 greedy tokens each: the streams those of the plain
+   ``server`` leg token for token, launches the path's, every program
+   counted (FLOPs above 0 but for the data-movement programs, bytes),
+   compiled and its dispatch counter equal to its record, its MFU at most
+   1.0 and its bandwidth utilization at most 1.05, the decode segments'
+   seconds 0.5-1.0x the engine's own segment time; the ``/profile`` body
+   over ``serve_http`` printed through ``tools/monitor_report.py
+   --profile``, TPOT beside the plain leg's.
    Each engine is built, then
    ``warmup()``-ed (``warmup(8)``: greedy and sampled segments;
    ``generate``'s engine ``warmup(batch=8)``: greedy and sampled steps),
@@ -196,7 +218,7 @@ Phases, each timed, none caught and passed over:
    it (each replay credited with the launches
    its graph holds) is held against the count the path implies; the
    captures, their seconds and their pools' bytes are recorded;
-5b. the replica fleet, this slice's main path, at the ``"7b"`` preset
+5b. the replica fleet at the ``"7b"`` preset
    (FLEET: phase 5's chunked engine with ``prefix_cache=True`` behind
    ``Server(segment_steps=8, warmup=True)``): first the ``disagg`` leg,
    two ``python -m paddle_tpu_torch.serving.remote`` processes on the card
@@ -220,7 +242,11 @@ Phases, each timed, none caught and passed over:
    token for token up to a split at a top-2 margin under NEAR_TIE; the
    front's against the single ``Server``'s own streams up to a split
    where the same weights in fp32 separate the two tokens by less than
-   NEAR_TIE (the bf16 and fp32 margins there recorded);
+   NEAR_TIE (the bf16 and fp32 margins there recorded); the replica
+   processes run with ``FLAGS_enable_ledger=1`` and serve non-empty
+   ``/profile`` shards; after the rolling restart one more wave with the
+   program ledger on, ``Router.profile()`` against ``merge_profiles`` over
+   the live replicas' ``Server.profile()`` shards;
 6. train: the repo's training configuration (``bench.py``: llama 350m with
    8 heads of 128, 24 layers, bf16, batch 8 x 2048, full recompute, AdamW
    lr 1e-4, clip 1.0) through ``build_train_step``, one warm-up step and
@@ -390,6 +416,9 @@ FLEET_E2E = dict(prompts=(100, 37), new=8)
 # the prefix cache, 32 new tokens; replica 0 killed once a request of its
 # has streamed kill_after tokens; handoffs of prompts under handoff_max
 # tokens (the reference's 256 MiB /kv/import cap holds 31 full 7B blocks)
+# phase 4's ledger leg at 2 layers: the reference's mixed-feature traffic
+# (tests/test_ledger.py) with its page geometry scaled to pages of 16
+LEDGER_E2E = dict(page=16, pages=64, max_pages=16, new=6)
 FLEET = dict(new=32, kill_after=4, segment_steps=8, handoff_max=512,
              engine=dict(max_batch=8, num_pages=512, page_size=16,
                          max_pages=64, prefill_chunk=256))
@@ -598,24 +627,24 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
          "serve_sampled", "server", "serve_prefix",
          "server_pressure") + SPEC_PATHS + ("server_lora", "train", "fmt",
                                              "train_hb", "ops", "f32",
-                                             "eager_fit", "fleet", "disagg")
-# this slice's paths: the replica fleet's routed traffic at 7B (phase 5's
-# fleet leg: two replicas, a kill, a rebuild under traffic, a rolling
-# restart) and the disaggregated front's wave (phase 5's disagg leg: its
-# two replica processes' launches, read from their
-# paddle_tpu_kernel_launches series), which run K1, K2, K3 (one-shot and
+                                             "eager_fit", "fleet", "disagg",
+                                             "server_ledger")
+# this slice's path: the Server serve at 7B with the program ledger on
+# (phase 5's server_ledger leg), which runs K1, K2, K3 (one-shot and
 # prefix-chunk) and K4
-SLICE_PATHS = ("fleet", "disagg")
+SLICE_PATHS = ("server_ledger",)
 # earlier slices' paths, in the order their counts stand in for a kernel
-# this slice does not run: the LoRA Server's serve, the decode paths, which
-# run K4 and K7 (phase 5's through captured graphs), the chunked and
+# this slice does not run: the replica fleet's routed traffic and the
+# disaggregated front's wave, the LoRA Server's serve, the decode paths,
+# which run K4 and K7 (phase 5's through captured graphs), the chunked and
 # sampled serves, the serving
 # front's Server serve, the prefix-cache and memory-pressure legs, the
 # speculative Server serves and FMT (K8); then training, the eager
 # Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
-EARLIER_PATHS = (("server_lora", "serve", "serve_int8", "generate",
-                  "dense_serve", "serve_chunked", "serve_sampled", "server",
-                  "serve_prefix", "server_pressure") + SPEC_PATHS
+EARLIER_PATHS = (("fleet", "disagg", "server_lora", "serve", "serve_int8",
+                  "generate", "dense_serve", "serve_chunked",
+                  "serve_sampled", "server", "serve_prefix",
+                  "server_pressure") + SPEC_PATHS
                  + ("fmt",), ("eager_fit", "train", "f32"),
                  ("ops", "train_hb"))
 ROUTE_PATHS = ("ops", "train_hb")           # the paths that take the routes
@@ -663,6 +692,31 @@ def bound(nbytes: float, flops: float, peak: float):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+COST_CHECKS = {}   # kernel -> the wrapper's reported and the bound's counts
+
+
+def cost_check(torch, name, fn, nbytes, flops) -> None:
+    """The kernel wrapper's reported cost (``ops/_launches.py``, what the
+    program ledger adds up) against the counts phase 3's bound uses, on the
+    same call: ``fn()`` once under a cost tally; raises unless the FLOPs
+    and bytes agree; both are added up under ``name`` for the row."""
+    from paddle_tpu_torch.ops import _launches
+
+    with _launches.cost_tally() as tally:
+        fn()
+    torch.cuda.synchronize()
+    got, want = (tally.flops, tally.bytes), (int(flops), int(nbytes))
+    if got != want:
+        raise AssertionError(
+            f"{name}: the wrapper reports {got[0]} FLOPs and {got[1]} "
+            f"bytes, the bound counts {want[0]} and {want[1]}")
+    rec = COST_CHECKS.setdefault(name, {"reported": [0, 0],
+                                        "counted": [0, 0]})
+    for i in (0, 1):
+        rec["reported"][i] += got[i]
+        rec["counted"][i] += want[i]
 
 
 def check_close(torch, name, got, want, atol, rtol, outside=0.0,
@@ -767,6 +821,8 @@ def kernel_phase(torch, dev, np):
             rows["flash_fwd"]["instances"][entry] = dict(
                 **timed, bound_ms=bms, bound_by=by, max_abs_err=err)
             continue
+        cost_check(torch, "flash_fwd", lambda: ops.flash_attention_bshd(
+            q, k, v, causal=True), nbytes, flops)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         rows["flash_fwd"] = dict(
             **timed, bound_ms=bms, bound_by=by,
@@ -799,6 +855,8 @@ def kernel_phase(torch, dev, np):
             nbytes = (tokens * hkv * D * 2 * 2 + 2 * q.numel() * 2
                       + table.numel() * 4 + b * 4)
             bms, by = bound(nbytes, 4 * D * tokens * NH, BF16_FLOPS)
+            cost_check(torch, "paged_decode", lambda: ops.paged_decode_mha(
+                q, kp, vp, table, lens), nbytes, 4 * D * tokens * NH)
             rows["paged_decode"] = dict(
                 shape=tag,
                 ms=time_ms(torch, lambda: ops.paged_decode_mha(
@@ -816,6 +874,10 @@ def kernel_phase(torch, dev, np):
     hb_route_cases(torch, ops, F, randn, rows, cases)
     for name in rows:
         rows[name]["max_abs_err"] = max(e for n, _, e in cases if n == name)
+    for name in SOURCES:
+        if name not in COST_CHECKS:
+            raise AssertionError(f"{name}: no cost check in phase 3")
+        rows[name]["cost_check"] = COST_CHECKS[name]
     for name, tag, err in cases:
         log(f"  {name:13s} {tag:66s} max|kernel-plain| {err:.3g} "
             f"(atol {TOL[name]['atol']:g}, rtol {TOL[name]['rtol']:.3g})")
@@ -870,6 +932,10 @@ def prefix_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
                     * qc.element_size()
                 flops = 4 * D * causal_pairs(c, pos + c) * NH
                 bms, by = bound(nbytes, flops, peak[dt])
+                if dt == bf:
+                    cost_check(torch, "flash_fwd_prefix",
+                               lambda: ops.prefix_chunk_attention(
+                                   qc, kc, vc, at), nbytes, flops)
                 timed = dict(
                     shape=tag, bound_ms=bms, bound_by=by, max_abs_err=err,
                     bitwise_one_shot=True,
@@ -1050,16 +1116,24 @@ def norm_rope_shapes(mc):
     return k1, k2
 
 
-def rms_bound(x, w):
+def rms_counts(x, w):
+    """K1's (bytes, operations) on x and w."""
     t = x.numel()
-    return bound(2 * t * x.element_size() + w.numel() * w.element_size(),
-                 4 * t, FP32_FLOPS)
+    return 2 * t * x.element_size() + w.numel() * w.element_size(), 4 * t
+
+
+def rope_counts(x, c):
+    """K2's (bytes, operations) on x and a table c."""
+    return (2 * x.numel() * x.element_size()
+            + 2 * c.numel() * c.element_size(), 3 * x.numel())
+
+
+def rms_bound(x, w):
+    return bound(*rms_counts(x, w), FP32_FLOPS)
 
 
 def rope_bound(x, c):
-    return bound(2 * x.numel() * x.element_size()
-                 + 2 * c.numel() * c.element_size(), 3 * x.numel(),
-                 FP32_FLOPS)
+    return bound(*rope_counts(x, c), FP32_FLOPS)
 
 
 def norm_rope_cases(torch, ops, F, randn, rows, cases, mc, dev):
@@ -1092,6 +1166,9 @@ def norm_rope_cases(torch, ops, F, randn, rows, cases, mc, dev):
         if timed is None:
             return
         bms, by = rms_bound(x, w)
+        if timed == "prefill":
+            cost_check(torch, "rms_norm", lambda: ops.rms_norm(x, w, 1e-5),
+                       *rms_counts(x, w))
         lib = (time_ms(torch, lambda: F.rms_norm(x, (x.shape[-1],), w, 1e-5))
                if hasattr(F, "rms_norm") else None)
         r = dict(shape=f"x {list(x.shape)} {str(x.dtype)[6:]} {path}",
@@ -1121,6 +1198,9 @@ def norm_rope_cases(torch, ops, F, randn, rows, cases, mc, dev):
         if timed is None:
             return
         bms, by = rope_bound(x, c)
+        if timed == "prefill":
+            cost_check(torch, "fused_rope", lambda: ops.fused_rope(x, c, sn),
+                       *rope_counts(x, c))
         r = dict(shape=f"x {list(x.shape)} {str(x.dtype)[6:]}, tables "
                        f"{list(c.shape)} {path}",
                  ms=time_ms(torch, lambda: ops.fused_rope(x, c, sn)),
@@ -1592,6 +1672,8 @@ def decode_mha_cases(torch, ops, F, randn, rows, cases, NH, D, dev):
         tokens = sum(lens_l)
         nbytes = tokens * hkv * D * 2 * 2 + 2 * q.numel() * 2 + b * 4
         bms, by = bound(nbytes, 4 * D * tokens * NH, BF16_FLOPS)
+        cost_check(torch, "decode_mha", lambda: ops.decode_mha(
+            q, k, v, lens), nbytes, 4 * D * tokens * NH)
         # the library's masked SDPA over [B, H, 1, S] (heads-first copies
         # made outside the timing)
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
@@ -1634,6 +1716,9 @@ def layer_norm_cases(torch, ops, F, randn, rows, cases, H):
         elif not (res or bias):
             bms, by = bound(2 * x.numel() * 2 + 2 * h * 2, 8 * x.numel(),
                             FP32_FLOPS)
+            cost_check(torch, "fused_layer_norm",
+                       lambda: ops.fused_layer_norm(*args),
+                       2 * x.numel() * 2 + 2 * h * 2, 8 * x.numel())
             rows["fused_layer_norm"] = dict(
                 shape=tag,
                 ms=time_ms(torch, lambda: ops.fused_layer_norm(*args)),
@@ -1731,6 +1816,10 @@ def grad_add_cases(torch, ops, randn, rows, cases, mc):
         del want
         bms, by = bound((t * k + t * n) * 2 + 2 * k * n * 4, 2 * t * k * n,
                         BF16_FLOPS)
+        for _ in range(count):
+            cost_check(torch, "grad_add",
+                       lambda: ops.fused_linear_param_grad_add(x, dy, dw),
+                       (t * k + t * n) * 2 + 2 * k * n * 4, 2 * t * k * n)
         lib = (None if lib_fn is None
                else time_ms(torch, lambda: lib_fn(dw, x2, dy2)))
         one = dict(
@@ -1999,6 +2088,10 @@ def grouped_matmul_cases(torch, np, ops, randn, rows, cases, dev):
             del l32, r32
         bms, by = bound(m * k * 2 + live * k * n * 2 + m * n * 4 + g * 4,
                         2 * m * k * n, BF16_FLOPS)
+        cost_check(torch, "grouped_matmul",
+                   lambda: ops.grouped_matmul(lhs, rhs, sizes),
+                   m * k * 2 + live * k * n * 2 + m * n * 4 + g * 4,
+                   2 * m * k * n)
         bms16, _ = bound(m * k * 2 + live * k * n * 2 + m * n * 2 + g * 4,
                          2 * m * k * n, BF16_FLOPS)
         lib, lib_what = grouped_matmul_library(torch, lhs, rhs, sizes,
@@ -2347,6 +2440,13 @@ def flash_bwd_cases(torch, ops, F, randn, rows, cases):
         plain_ms = time_ms(torch, lambda: ops.flash_attention_bwd_ref(
             q, k, v, out, lse, do, *args), reps=3, warmup=1)
         bms, by = bound(io + dq.numel() * 2, 6 * d * pairs, BF16_FLOPS)
+        cost_check(torch, "flash_bwd_dq", lambda: ops.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, *args), io + dq.numel() * 2,
+            6 * d * pairs)
+        cost_check(torch, "flash_bwd_dkv",
+                   lambda: ops.flash_attention_bwd_dkv(
+                       q, k, v, do, lse, delta, *args),
+                   io + (dk.numel() + dv.numel()) * 2, 8 * d * pairs)
         rows["flash_bwd_dq"] = dict(
             shape=tag, ms=time_ms(torch, lambda: ops.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, *args)),
@@ -2475,9 +2575,168 @@ def e2e_phase(torch, dev, np):
     rec["prefix_pressure"] = prefix_pressure_e2e(torch, np, gpu, cpu)
     rec["lora"] = lora_e2e(torch, np, gpu, cpu)
     rec["fleet"] = fleet_e2e(torch, np, gpu, cpu)
+    rec["ledger"] = ledger_e2e(torch, np, gpu, cpu)
     del gpu, cpu
     torch.cuda.empty_cache()
     return rec
+
+
+# the programs that only move data (copies, fills, masked fills): their
+# cost is counted, and it holds no arithmetic
+DATA_MOVEMENT = ("cb_admit_state", "cb_reset_scales", "lora_install")
+
+
+def check_programs(prof: dict, counter: dict, what: str) -> None:
+    """Every program of a ``profile()`` counted (FLOPs, above 0 but for
+    DATA_MOVEMENT's; bytes above 0), compiled at least once, its dispatch
+    counter (``counter``) equal to its record, its MFU at most 1.0 and its
+    bandwidth utilization at most 1.05 where it has a reading (above is a
+    counting fault)."""
+    for pid, r in prof["programs"].items():
+        ok = (r["flops"] is not None and r["bytes_accessed"]
+              and r["compiles"] >= 1 and counter.get(pid) == r["dispatches"]
+              and (r["flops"] == 0) == (r["name"] in DATA_MOVEMENT)
+              and (r.get("mfu") or 0.0) <= 1.0
+              and (r.get("bw_util") or 0.0) <= 1.05)
+        if not ok:
+            raise AssertionError(f"{what}: program {pid} {r} (dispatch "
+                                 f"counter {counter.get(pid)})")
+
+
+def ledger_mixed_run(torch, np, model, shared, adapter) -> tuple:
+    """The reference's mixed-feature ledger traffic (``tests/test_ledger.py``
+    ``test_acceptance_mixed_feature_run``) at LEDGER_E2E's sizes through a
+    ``Server`` over ``model``'s paged engine with the ledger (and the
+    monitor) on: two long prompts (chunked, the second a prefix hit), a
+    speculating one, one under an adapter, then the same mix again. Returns
+    (streams, the server's ``profile()``, the dispatch counter per program,
+    the engine), the engine closed if the profile fails."""
+    from paddle_tpu_torch import (GenerationConfig, monitor,
+                                  PagedContinuousBatchingEngine)
+    from paddle_tpu_torch.monitor import ledger
+    from paddle_tpu_torch.serving import Server
+
+    le = LEDGER_E2E
+    ps = le["page"]
+    eng = PagedContinuousBatchingEngine(
+        model, max_batch=4, num_pages=le["pages"], page_size=ps,
+        max_pages=le["max_pages"], prefill_chunk=2 * ps, prefix_cache=True,
+        kv_dtype="int8", draft_k=4, lora_capacity=2, lora_rank=2,
+        lora_targets=("q", "v"))
+    eng.load_adapter("la", adapter)
+    gen = dict(max_new_tokens=le["new"], eos_token_id=None)
+    waves = [[(np.concatenate([shared, shared[:ps]]), {}),
+              (np.concatenate([shared, shared[ps // 2:3 * ps // 2]]), {}),
+              (shared[:3 * ps // 2], dict(speculative=True, draft_k=4)),
+              (shared[:2 * ps], dict(adapter="la"))],
+             [(np.concatenate([shared, shared[:ps]]), {}),
+              (shared[:3 * ps // 2], dict(speculative=True, draft_k=4)),
+              (shared[:2 * ps], dict(adapter="la"))]]
+    srv = Server(eng, segment_steps=2)
+    outs = []
+    try:
+        for wave in waves:
+            hs = [srv.submit(p, GenerationConfig(**gen, **kw))
+                  for p, kw in wave]
+            outs += [np.asarray(h.result(timeout=600), np.int32)
+                     for h in hs]
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        prof = srv.profile()
+        m = monitor.snapshot()["metrics"].get(ledger.DISPATCH_COUNTER)
+        counter = {x["labels"]["program"]: x["value"]
+                   for x in (m or {}).get("samples", [])}
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    return outs, prof, counter, eng
+
+
+def ledger_e2e(torch, np, gpu, cpu):
+    """This slice's path at 2 layers of the 7B widths (LEDGER_E2E): the
+    reference's mixed-feature ledger traffic (chunked prefill, a prefix hit,
+    speculative decoding, int8 pools, LoRA) through a ``Server`` with the
+    program ledger on, on the card and on the CPU, from the same weights,
+    one after the other (the ledger is process-wide): the streams equal,
+    the same programs with the same dispatches, the same FLOPs per program
+    on both devices; every program as :func:`check_programs` holds it.
+    Then one decode-segment replay
+    of the card's engine with the ledger on under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.monitor import ledger
+
+    le = LEDGER_E2E
+    rng = np.random.RandomState(31)
+    shared = rng.randint(0, gpu.config.vocab_size,
+                         (3 * le["page"],)).astype(np.int32)
+    adapter = lora_factors(np, gpu, ("q", "v"), 2, seed=37,
+                           scale=LORA["scale"], per_layer=False)
+    runs = {}
+    monitor.enable()
+    try:
+        for name, model in (("card", gpu), ("cpu", cpu)):
+            monitor.reset()
+            ledger.reset()
+            ledger.enable()
+            outs, prof, counter, eng = ledger_mixed_run(
+                torch, np, model, shared, adapter)
+            try:
+                check_programs(prof, counter, f"ledger e2e, {name}")
+                runs[name] = {"outs": outs, "programs": {
+                    pid: (r["name"], r["dispatches"], r["flops"])
+                    for pid, r in prof["programs"].items()}}
+                if name == "card":
+                    runs[name]["sync_check"] = ledger_replay_sync(
+                        torch, eng)
+            finally:
+                eng.close()
+                del eng
+                ledger.disable()
+                ledger.reset()
+    finally:
+        monitor.reset()
+        monitor.disable()
+    card, plain = runs["card"], runs["cpu"]
+    matched = [next((i for i in range(len(b)) if a[i] != b[i]), len(b))
+               for a, b in zip(card["outs"], plain["outs"])]
+    if matched != [len(b) for b in plain["outs"]]:
+        raise AssertionError(f"ledger e2e: the card's streams part from the "
+                             f"CPU's at {matched}")
+    if card["programs"] != plain["programs"]:
+        raise AssertionError(
+            f"ledger e2e: the card's programs (name, dispatches, FLOPs) "
+            f"{card['programs']} differ from the CPU's {plain['programs']}")
+    return {"programs": {pid: list(v) for pid, v in card["programs"].items()},
+            "sync_check": card["sync_check"], "tokens_matched": matched}
+
+
+def ledger_replay_sync(torch, eng) -> dict:
+    """One replay of the idle engine's captured 2-step segment with the
+    ledger on, under ``torch.cuda.set_sync_debug_mode("error")``: the
+    events around the replay and the resolution of earlier pairs make no
+    host sync (a sync there raises). Returns the segment program's
+    dispatches before and after."""
+    from paddle_tpu_torch.monitor import ledger
+
+    key = eng._segment_key(2, False)
+    pid = ledger.program_id("cb_segment", key, eng.programs.signature)
+    if not eng.programs.built(key):
+        raise AssertionError(f"ledger e2e: {key} was never captured")
+    out = eng._seg_out[2]
+    torch.cuda.synchronize()
+    before = ledger.profile()["programs"][pid]["dispatches"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            eng.programs.run(key, lambda: eng._segment(2, out, False))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    after = ledger.profile()["programs"][pid]
+    if after["dispatches"] != before + 1 or not after["summary"]["count"]:
+        raise AssertionError(f"ledger e2e: the replay under sync debug "
+                             f"recorded {after}")
+    return {"program": pid, "dispatches": [before, after["dispatches"]]}
 
 
 def check_spec_launches(counts, L, W, n_pre, n_steps, n_verify, decode,
@@ -4314,6 +4573,8 @@ def chunked_serve_phase(torch, np, model, prompts, paged_outs,
     eng.reset_state()
     server_rec, server_outs = server_phase(torch, np, model, prompts, eng,
                                            gap_outs, recs[0], profile)
+    server_rec["ledger"] = server_ledger_phase(torch, np, model, prompts,
+                                               eng, server_outs, server_rec)
     spec_recs = spec_server_phase(torch, np, model, prompts, eng,
                                   server_outs, server_rec, profile)
     del eng
@@ -4630,6 +4891,124 @@ def server_phase(torch, np, model, prompts, eng, gap_outs, gap_rec,
                     "split_top2_margins": margins,
                     "captures_after_warmup": 0}
     return rec, outs
+
+
+def server_ledger_phase(torch, np, model, prompts, eng, plain_outs,
+                        plain_rec):
+    """This slice's path at 7B, the ``server_ledger`` leg: the ``Server``
+    legs' engine, reset and its graphs dropped; the program ledger and the
+    monitor turned on before a fresh ``Server(segment_steps=8,
+    warmup=True)`` (so its warmup counts every program's cost in its first
+    run, before any capture); the 8 prompts from 8 client threads, 32
+    greedy tokens each. The streams must equal the plain ``server`` leg's
+    token for token (the ledger changes no result), the launches the
+    path's; every program counted (FLOPs, above 0 but for DATA_MOVEMENT's;
+    bytes above 0), compiled at least once, its dispatch counter equal to
+    its record, its MFU at most 1.0 and its bandwidth utilization at most
+    1.05 (a reading above is a counting fault); the decode segments'
+    seconds 0.5-1.0x the engine's own segment time over the leg. The
+    ``/profile`` body, read over ``serve_http``, is printed through
+    ``tools/monitor_report.py --profile``; TPOT beside the plain leg's."""
+    from paddle_tpu_torch import GenerationConfig, monitor, ops
+    from paddle_tpu_torch.monitor import ledger
+    from paddle_tpu_torch.serving import Server, serve_http
+
+    cfg = model.config
+    L, n_new, vocab = cfg.num_hidden_layers, 32, cfg.vocab_size
+    gen = GenerationConfig(max_new_tokens=n_new)
+    eng.reset_state()
+    eng.programs.clear()
+    rec = {"server": "Server(eng, segment_steps=8, warmup=True), "
+                     "FLAGS_enable_ledger on", "clients": len(prompts)}
+    monitor.enable()
+    monitor.reset()
+    ledger.reset()
+    ledger.enable()
+    try:
+        t0 = time.perf_counter()
+        srv = Server(eng, segment_steps=8, warmup=True)
+        httpd = None
+        try:
+            if not srv.wait_ready(600) or srv.status != "ok":
+                raise AssertionError(f"server_ledger warmup: status "
+                                     f"{srv.status}")
+            rec["warmup_s"] = time.perf_counter() - t0
+            p0, c0, s0 = eng.prefills, eng.prefill_chunks, eng.decode_steps
+            seg0 = len(eng._segment_log)
+            (outs, handles), counts = counted_run(
+                torch, ops, eng, lambda: serve_clients(srv, prompts, gen))
+            n_pre, n_chunks = eng.prefills - p0, eng.prefill_chunks - c0
+            n_steps = eng.decode_steps - s0
+            check_launches(counts, expect(
+                counts, rms_norm=(2 * L + 1) * (n_pre + n_chunks + n_steps),
+                fused_rope=2 * L * (n_pre + n_chunks), flash_fwd=L * n_pre,
+                flash_fwd_prefix=L * n_chunks, paged_decode=L * n_steps),
+                f"server_ledger: prefills {n_pre}, chunks {n_chunks}, decode "
+                f"steps {n_steps}, layers {L}")
+            rec.update(handle_stats(handles, outs, vocab, n_new, seg0, eng),
+                       prefills=n_pre, chunks=n_chunks, decode_steps=n_steps,
+                       launches=counts)
+            del handles
+            httpd = serve_http(srv)
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            code, raw = http_json(url + "/profile")
+            if code != 200:
+                raise AssertionError(f"GET /profile: {code} {raw[:300]}")
+            prof = json.loads(raw)
+            m = monitor.snapshot()["metrics"].get(ledger.DISPATCH_COUNTER)
+            counter = {x["labels"]["program"]: x["value"]
+                       for x in (m or {}).get("samples", [])}
+            table = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "tools",
+                                              "monitor_report.py"),
+                 "--url", url, "--profile"], check=True, capture_output=True,
+                text=True, timeout=120).stdout
+        finally:
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+            srv.shutdown(drain=False, timeout=120)
+    finally:
+        ledger.disable()
+        ledger.reset()
+        monitor.reset()
+        monitor.disable()
+    log("  /profile through tools/monitor_report.py --profile:")
+    for line in table.splitlines():
+        log("    " + line)
+    if [o.tolist() for o in outs] != [o.tolist() for o in plain_outs]:
+        splits, margins = first_splits(torch, np, model, prompts, outs,
+                                       plain_outs)
+        raise AssertionError(f"server_ledger: the streams part from the "
+                             f"plain server leg's at {splits} (margins "
+                             f"{margins})")
+    check_programs(prof, counter, "server_ledger")
+    progs = prof["programs"]
+    seg_s = sum(r["total_seconds"] for r in progs.values()
+                if r["name"] == "cb_segment")
+    ratio = seg_s / rec["decode_s"]
+    if not 0.5 <= ratio <= 1.0:
+        raise AssertionError(f"server_ledger: the segment programs' "
+                             f"{seg_s:.4f} s are {ratio:.3f}x the engine's "
+                             f"segment time {rec['decode_s']:.4f} s")
+    total = prof["total_seconds"] or 1.0
+    rec.update(
+        programs=[{"program": pid, "name": progs[pid]["name"],
+                   "signature": progs[pid]["signature"],
+                   "share": progs[pid]["total_seconds"] / total,
+                   **{k: progs[pid].get(k) for k in (
+                       "total_seconds", "dispatches", "compiles",
+                       "compile_seconds", "flops", "bytes_accessed",
+                       "intensity", "mfu", "bw_util", "bound")},
+                   "p50_s": progs[pid]["summary"].get("p50")}
+                  for pid in sorted(progs, key=lambda p: -progs[p][
+                      "total_seconds"])],
+        peaks=prof["peaks"], total_seconds=prof["total_seconds"],
+        profile_table=table, segment_seconds=seg_s,
+        segment_over_decode_s=ratio,
+        plain_tpot_p50_s=plain_rec["tpot_p50_s"],
+        plain_ttft_p50_s=plain_rec["ttft_p50_s"])
+    return rec
 
 
 def spec_server_phase(torch, np, model, prompts, eng, plain_outs, plain_rec,
@@ -5463,6 +5842,7 @@ def fleet_phase(torch, np, dev):
     Returns (the record, the reference streams, the handoff payloads'
     byte counts by prompt)."""
     from paddle_tpu_torch import GenerationConfig, ops
+    from paddle_tpu_torch.monitor import ledger
     from paddle_tpu_torch.serving import (ReplicaSpec, Router, Server,
                                           decode_kv_payload,
                                           encode_kv_payload)
@@ -5622,7 +6002,30 @@ def fleet_phase(torch, np, dev):
         rec["builds"] = len(builds)
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         rec["load"] = router.load()
+        # the fleet's program ledger: one wave with the ledger on, then
+        # Router.profile against the merge of the live replicas' shards
+        ledger.reset()
+        ledger.enable()
+        wave("ledger")
+        if "error" in box:
+            raise box["error"]
+        torch.cuda.synchronize()
+        fleet_prof = router.profile()
+        want = ledger.merge_profiles([r.server.profile()
+                                      for r in router._replicas
+                                      if not r.dead])
+        if (not fleet_prof["programs"]
+                or fleet_prof["programs"] != want["programs"]
+                or fleet_prof["top"] != want["top"]):
+            raise AssertionError(f"fleet: Router.profile {fleet_prof} is "
+                                 f"not the merge of its replicas' shards "
+                                 f"{want}")
+        rec["ledger"] = {"replicas": fleet_prof["replicas"],
+                         "programs": len(fleet_prof["programs"]),
+                         "total_seconds": fleet_prof["total_seconds"]}
     finally:
+        ledger.disable()
+        ledger.reset()
         router.shutdown(drain=False, timeout=120)
     for name in ("rms_norm", "fused_rope", "paged_decode"):
         if not rec["launches"].get(name):
@@ -5703,6 +6106,7 @@ def disagg_phase(torch, np, prompts):
     def start(i):
         try:
             proc, url = spawn_replica(args, startup_timeout_s=600,
+                                      env={"FLAGS_enable_ledger": "1"},
                                       stderr=None)
             reps[i] = RemoteReplica(url, proc=proc, stream_timeout_s=600)
         except BaseException as e:          # re-raised below
@@ -5733,6 +6137,19 @@ def disagg_phase(torch, np, prompts):
         rec["launches_by_replica"] = by_rep
         rec["launches"] = {k: by_rep["prefill"][k] + by_rep["decode"][k]
                            for k in by_rep["prefill"]}
+        # each replica process's program-ledger shard (started with
+        # FLAGS_enable_ledger=1), through RemoteReplica.profile
+        rec["ledger"] = {}
+        for side, r in zip(("prefill", "decode"), reps):
+            shard = r.profile()
+            if not shard["programs"]:
+                raise AssertionError(f"disagg: the {side} replica's "
+                                     f"/profile shard is empty")
+            rec["ledger"][side] = {
+                "programs": len(shard["programs"]),
+                "names": sorted({p["name"]
+                                 for p in shard["programs"].values()}),
+                "total_seconds": shard["total_seconds"]}
         for side, need in DISAGG_KERNELS.items():
             for names in need:
                 if not any(by_rep[side].get(k) for k in names):
@@ -7072,6 +7489,12 @@ def main(argv=None) -> int:
         log(f"  {name:13s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}){host}  [{smi}]")
+        if "cost_check" in r:
+            cc = r["cost_check"]
+            log(f"  {name:13s} cost: the wrapper reports "
+                f"{cc['reported'][0]} FLOPs, {cc['reported'][1]} bytes; the "
+                f"bound counts {cc['counted'][0]} FLOPs, "
+                f"{cc['counted'][1]} bytes")
         for entry, ri in r.get("instances", {}).items():
             lib = ("" if ri.get("library_ms") is None
                    else f", library {ri['library_ms']:.4f} ms")
@@ -7114,6 +7537,11 @@ def main(argv=None) -> int:
         f"{dr['gap_mean_first10']:.5f} over the first 10 and "
         f"{dr['gap_mean_last10']:.5f} over the last 10, grows: "
         f"{dr['grows']}  [{smi}]")
+    le = record["e2e"]["ledger"]
+    log(f"[e2e] program ledger at 2 layers, card and CPU: the same "
+        f"{len(le['programs'])} programs, dispatches and FLOPs "
+        f"{le['programs']}; a segment replay under sync debug mode 'error' "
+        f"recorded {le['sync_check']}  [{smi}]")
     record["eager_e2e"] = eager_e2e_phase(torch, dev, np)
     ee = record["eager_e2e"]
     log(f"[e2e] eager twin at {ee['layers']} layers, {ee['batch']} x "
@@ -7222,6 +7650,23 @@ def main(argv=None) -> int:
         f"; spec with oracle drafts, tokens a forward host "
         f"{le['spec_host_oracle']['tokens_per_forward']:.2f}, device "
         f"{le['spec_device_oracle']['tokens_per_forward']:.2f}  [{smi}]")
+    lg = sr["ledger"]
+    log(f"[serve] server_ledger (the program ledger on, "
+        f"{lg['clients']} client threads): TTFT p50 "
+        f"{lg['ttft_p50_s'] * 1e3:.1f} ms (plain Server "
+        f"{lg['plain_ttft_p50_s'] * 1e3:.1f}), TPOT p50 "
+        f"{lg['tpot_p50_s'] * 1e3:.2f} ms (plain "
+        f"{lg['plain_tpot_p50_s'] * 1e3:.2f}), streams equal the plain "
+        f"leg's; segment programs {lg['segment_seconds']:.4f} s = "
+        f"{lg['segment_over_decode_s']:.3f}x the engine's segment time "
+        f"{lg['decode_s']:.4f} s; peaks {lg['peaks']['device_kind']} "
+        f"({lg['peaks']['source']})  [{smi}]")
+    for r in lg["programs"]:
+        log(f"[serve] server_ledger {r['program']} {r['signature']}: "
+            f"{r['share']:.1%} of {lg['total_seconds']:.4f} s, "
+            f"{r['dispatches']} dispatches ({r['compiles']} compiles), "
+            f"p50 {r['p50_s']} s, MFU {r['mfu']}, bw_util {r['bw_util']}, "
+            f"{r['bound']}  [{smi}]")
     hr, fr = sr["http"], sr["fault"]
     log(f"[serve] Server HTTP: /generate streamed == unstreamed (16 tokens), "
         f"/healthz ok, /metrics and /stats served; a second warmup "
@@ -7260,12 +7705,16 @@ def main(argv=None) -> int:
         f"{gn['decode_tokens_per_s']:.1f} tok/s, peak "
         f"{gn['peak_mem_gb']:.1f} GiB  [{smi}]")
     log(f"[serve] {record['phases']['serve']:.1f}s")
-    # 5b. the replica fleet at 7B: this slice's main path
+    # 5b. the replica fleet at 7B
     t = time.perf_counter()
     fl, dg = fleet_legs(torch, np, dev)
     record.update(fleet=fl, disagg=dg)
     record["phases"]["fleet"] = time.perf_counter() - t
     log_fleet(fl, dg, record["e2e"]["fleet"], smi)
+    log(f"[fleet] Router.profile over {fl['ledger']['replicas']} replicas "
+        f"equals the merge of their shards ({fl['ledger']['programs']} "
+        f"programs); the disagg replica processes' /profile shards: "
+        f"{ {k: v['names'] for k, v in dg['ledger'].items()} }")
     log(f"[fleet] {record['phases']['fleet']:.1f}s")
     # 6. train the 350m configuration
     t = time.perf_counter()
@@ -7344,7 +7793,8 @@ def main(argv=None) -> int:
                 server_lora=sl, train=tr, fmt=fm,
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
-                f32=record["f32"], eager_fit=eg, fleet=fl, disagg=dg)
+                f32=record["f32"], eager_fit=eg, fleet=fl, disagg=dg,
+                server_ledger=sr["ledger"])
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

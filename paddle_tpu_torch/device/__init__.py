@@ -5,6 +5,9 @@ Entry points (the model constructor, the serving engine through its model,
 with ``device="cpu"``. A machine without CUDA gets an error, never a quiet
 CPU run. Kernel wrappers follow their tensors: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor launches the kernel or raises.
+
+``device.peaks`` holds the card's peak compute and memory rates, the
+roofline the program ledger measures against.
 """
 from __future__ import annotations
 

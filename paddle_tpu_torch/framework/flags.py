@@ -5,16 +5,15 @@ overrides, parsed by the type of the default as the JAX package does.
 Only the flags the port reads are defined: ``FLAGS_flash_head_batched``
 (the head-batched flash route), ``FLAGS_enable_monitor`` (the metrics
 registry, ``paddle_tpu_torch.monitor``), ``FLAGS_enable_trace`` (the
-request trace ring, ``paddle_tpu_torch.tracing``) and
+request trace ring, ``paddle_tpu_torch.tracing``), ``FLAGS_enable_ledger``
+(the program ledger, ``paddle_tpu_torch.monitor.ledger``) and
 ``FLAGS_check_nan_inf`` (the ops' post-op nan/inf check,
-``framework/amp_state.py``); :func:`set_flags` pushes the last three to
+``framework/amp_state.py``); :func:`set_flags` pushes the last four to
 their modules, as the reference's does (the check to the calling thread's
 amp state). Unknown flags are accepted and stored, so scripts written
 against the reference's ``set_flags`` keep working, but nothing reads them:
-the reference's other flags (``FLAGS_use_pallas_kernels``,
-``FLAGS_enable_ledger`` and the rest) have no effect here yet, and neither
-has its ``set_flags`` push to the program ledger, a module the port does
-not have.
+the reference's other flags (``FLAGS_use_pallas_kernels`` and the rest)
+have no effect here.
 """
 from __future__ import annotations
 
@@ -50,6 +49,7 @@ define_flag("FLAGS_flash_head_batched", False)    # ops/attention.py
 define_flag("FLAGS_enable_monitor", False)        # monitor/__init__.py
 define_flag("FLAGS_enable_trace", False)          # tracing/__init__.py
 define_flag("FLAGS_check_nan_inf", False)         # framework/amp_state.py
+define_flag("FLAGS_enable_ledger", False)         # monitor/ledger.py
 
 
 def get_flags(flags: Union[str, List[str]]) -> Dict[str, Any]:
@@ -62,9 +62,10 @@ def get_flags(flags: Union[str, List[str]]) -> Dict[str, Any]:
 
 def set_flags(flags: Dict[str, Any]) -> None:
     """Store every ``name: value`` of ``flags``, and push
-    ``FLAGS_enable_monitor`` / ``FLAGS_enable_trace`` to the monitor and
-    the trace ring (their fast-path bools) and ``FLAGS_check_nan_inf`` to
-    this thread's amp state."""
+    ``FLAGS_enable_monitor`` / ``FLAGS_enable_trace`` /
+    ``FLAGS_enable_ledger`` to the monitor, the trace ring and the program
+    ledger (their fast-path bools) and ``FLAGS_check_nan_inf`` to this
+    thread's amp state."""
     for k, v in flags.items():
         _REGISTRY[k] = v
     if "FLAGS_enable_monitor" in flags:
@@ -79,3 +80,7 @@ def set_flags(flags: Dict[str, Any]) -> None:
         from .amp_state import amp_state
 
         amp_state.check_nan_inf = bool(flags["FLAGS_check_nan_inf"])
+    if "FLAGS_enable_ledger" in flags:
+        from ..monitor.ledger import _sync_enabled as _sync_ledger
+
+        _sync_ledger(bool(flags["FLAGS_enable_ledger"]))

@@ -39,6 +39,19 @@ where it launches, so a replay would count nothing. The capture tallies the
 launches of each kernel the graph holds apart from the counters (a capture
 runs nothing, and another thread's launches meanwhile are not the graph's:
 ``ops/_launches.py``), and every replay credits them.
+
+The program ledger: an engine names its keys' programs (``names``: the
+key's first element to the reference's program name, such as
+``"segment"`` to ``"cb_segment"``) and gives its owner label and static
+signature; its eager programs run through :meth:`GraphCache.eager` under
+the same owner and signature. With ``FLAGS_enable_ledger`` or
+``FLAGS_enable_monitor`` on, :meth:`GraphCache.run` goes through
+``monitor/_programs.py``: a key's first run is counted (its eager run,
+before the capture, never the capture) and charged to the program's
+compiles and to the monitor's per-program compile series, and every later
+run is timed by two CUDA events around the replay (the host clock on the
+CPU) into the program's digest, without a sync. With both off, a call pays
+one bool branch.
 """
 from __future__ import annotations
 
@@ -49,6 +62,8 @@ from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
+from .. import monitor
+from ..monitor import ledger as _ledger
 from ..ops import KERNELS
 from ..ops._launches import capture_tally, credit
 
@@ -56,6 +71,17 @@ __all__ = ["GraphCache"]
 
 # one capture at a time in the process (see the module docstring)
 _CAPTURE_LOCK = threading.Lock()
+
+
+def _eager(fn: Callable[[], None], count: bool) -> Optional[dict]:
+    """Run ``fn`` eagerly; with ``count``, under the program ledger's cost
+    counter, returning the cost."""
+    if not count:
+        fn()
+        return None
+    from ..monitor import _programs
+
+    return _programs.count_cost(fn)[1]
 
 
 class GraphCache:
@@ -67,10 +93,18 @@ class GraphCache:
     capture reserved for the graph's private pool (0 on the CPU).
     ``capture = False`` runs every call eagerly on the card as well: the
     uncaptured twin that ``chip_smoke.py`` holds the graphs' streams
-    against."""
+    against.
 
-    def __init__(self, device):
+    ``names``, ``owner`` and ``signature`` place the keys' programs in the
+    program ledger (``monitor/ledger.py``): a key whose first element is not
+    in ``names`` is not recorded."""
+
+    def __init__(self, device, names: Optional[Dict[str, str]] = None,
+                 owner: Optional[str] = None, signature: str = ""):
         self.device = torch.device(device)
+        self.names = dict(names or {})
+        self.owner = owner
+        self.signature = signature
         self.capture = True
         self.captures: Dict[Hashable, int] = {}
         self.capture_s: Dict[Hashable, float] = {}
@@ -82,39 +116,70 @@ class GraphCache:
     def run(self, key: Hashable, fn: Callable[[], None]) -> None:
         """Run ``fn`` as the program ``key``: replay its graph, or run it
         and capture it on the key's first call."""
+        if monitor._enabled or _ledger._enabled:
+            from ..monitor import _programs
+
+            _programs.graph_dispatch(self, key, fn)
+        else:
+            self._dispatch(key, fn)
+
+    def eager(self, name: str, key: Hashable, fn: Callable, *args,
+              **kwargs):
+        """Run ``fn(*args, **kwargs)`` as a dispatch of the engine's eager
+        program ``name`` at ``key`` (``monitor.monitored_eager``, under this
+        cache's owner, signature and device); returns its result."""
+        return monitor.monitored_eager(name, fn, *args, owner=self.owner,
+                                       signature=self.signature,
+                                       device=self.device, key=key,
+                                       **kwargs)
+
+    def program_name(self, key: Hashable) -> Optional[str]:
+        """The ledger's name of the key's program (None: not recorded)."""
+        return self.names.get(key[0] if isinstance(key, tuple) else key)
+
+    def built(self, key: Hashable) -> bool:
+        """Whether the key ran (the CPU) or was captured already."""
+        return key in self._graphs
+
+    def _dispatch(self, key: Hashable, fn: Callable[[], None],
+                  count: bool = False) -> Optional[dict]:
+        """:meth:`run` itself. On the key's first call with ``count``, its
+        eager run is counted and its cost returned."""
         if self.device.type != "cuda" or not self.capture:
             if key in self._graphs:
                 fn()
-                return
+                return None
             t0 = time.perf_counter()
-            fn()
+            cost = _eager(fn, count)
             self._graphs[key] = None
             self._built(key, t0, 0)
-            return
+            return cost
         entry = self._graphs.get(key)
         if entry is None:
-            self._first_run(key, fn)
-            return
+            return self._first_run(key, fn, count)
         graph, launches = entry
         graph.replay()
         for name, n in launches.items():
             credit(KERNELS[name], n)
+        return None
 
     def _built(self, key: Hashable, t0: float, pool_bytes: int) -> None:
         self.captures[key] = self.captures.get(key, 0) + 1
         self.capture_s[key] = time.perf_counter() - t0
         self.pool_bytes[key] = pool_bytes
 
-    def _first_run(self, key: Hashable, fn: Callable[[], None]) -> None:
+    def _first_run(self, key: Hashable, fn: Callable[[], None],
+                   count: bool = False) -> Optional[dict]:
         with _CAPTURE_LOCK:
-            self._capture(key, fn)
+            return self._capture(key, fn, count)
 
-    def _capture(self, key: Hashable, fn: Callable[[], None]) -> None:
+    def _capture(self, key: Hashable, fn: Callable[[], None],
+                 count: bool = False) -> Optional[dict]:
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            fn()
+            cost = _eager(fn, count)
         torch.cuda.current_stream(dev).wait_stream(side)
         t0 = time.perf_counter()
         torch.cuda.synchronize(dev)
@@ -138,6 +203,7 @@ class GraphCache:
                                      for name, k in KERNELS.items()
                                      if k in tally})
         self._built(key, t0, torch.cuda.memory_reserved(dev) - mem0)
+        return cost
 
     def clear(self) -> None:
         """Drop every graph (the tensors they hold were replaced); the next

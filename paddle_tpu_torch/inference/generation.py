@@ -95,6 +95,7 @@ import torch
 
 from .. import monitor
 from .. import tracing as trace
+from ..monitor import ledger
 from ..quantization.kv import KV_DTYPES, KV_SCALE_FLOOR, quant_store_rows
 from ._graphs import GraphCache
 from .ngram import NgramProposer, propose_device
@@ -292,6 +293,15 @@ def _prompt_len(prompt) -> int:
     return _prompt_ids(prompt).shape[1]
 
 
+def _model_signature(model, max_batch: int, max_len: int) -> str:
+    """The static part of an engine's program ids (``monitor/ledger.py``):
+    the model's class, configuration and dtype, the batch and the cache
+    length."""
+    dtype = next(model.parameters()).dtype
+    return (f"{type(model).__name__}|{model.config!r}|{dtype}|"
+            f"batch={max_batch}|max_len={max_len}")
+
+
 def _lora_kw(lora) -> dict:
     """A serving forward's LoRA keyword: none at all without an adapter
     input, so an engine without adapters calls its model as before."""
@@ -411,7 +421,13 @@ class CausalLMEngine:
     call to the first tokens on the host), ``decode_s`` (the rest of the
     call) and ``decode_steps``; ``programs`` (a
     :class:`~paddle_tpu_torch.inference._graphs.GraphCache`) counts the
-    captures per key."""
+    captures per key.
+
+    The program ledger sees the reference's four programs, ownerless as
+    there: ``lm_prefill`` (one per batch and bucket), ``lm_prefill_chunk``,
+    ``lm_decode`` and ``lm_spec_verify`` (one per window). The reference's
+    ``lm_decode`` is one program a call (its scan over the tokens); here it
+    is the step's graph, one dispatch a token."""
 
     def __init__(self, model, max_batch: int, max_len: int,
                  prefill_buckets="auto",
@@ -423,7 +439,9 @@ class CausalLMEngine:
         self.prefill_buckets = prefill_buckets_for(prefill_buckets, max_len)
         self.prefill_chunk = _normalize_prefill_chunk(prefill_chunk, max_len)
         self.generate_stats: Optional[dict] = None
-        self.programs = GraphCache(self.device)
+        self.programs = GraphCache(
+            self.device, names={"step": "lm_decode"},
+            signature=_model_signature(model, max_batch, max_len))
         dev, mb = self.device, max_batch
         self._caches = model.init_cache(mb, max_len)
         self._samp = SlotSampling(mb, dev)
@@ -442,7 +460,8 @@ class CausalLMEngine:
     def _prefill(self, ids: np.ndarray, width: int) -> torch.Tensor:
         """Prefill ``ids`` [b, plen] padded to ``width`` into the first b
         rows of the caches; returns the logits [b, width, V]."""
-        logits, _ = self.model.forward_with_cache(
+        logits, _ = self.programs.eager(
+            "lm_prefill", (ids.shape[0], width), self.model.forward_with_cache,
             torch.tensor(_pad_ids(ids, width), device=self.device),
             self._rows(ids.shape[0]), 0)
         return logits
@@ -453,7 +472,8 @@ class CausalLMEngine:
         the program is the same at every offset. Returns the logits [b, C,
         V]."""
         self._chunk_pos.fill_(pos)
-        logits, _ = self.model.forward_with_cache(
+        logits, _ = self.programs.eager(
+            "lm_prefill_chunk", chunk.shape, self.model.forward_with_cache,
             torch.tensor(chunk, device=self.device),
             self._rows(chunk.shape[0]), self._chunk_pos)
         return logits
@@ -607,7 +627,8 @@ class CausalLMEngine:
         A window of one token is the one-token step (K7), a wider one a
         prefill chunk at an offset (K3's prefix-chunk instance)."""
         self._spec_pos.fill_(pos)
-        logits, _ = self.model.forward_with_cache(
+        logits, _ = self.programs.eager(
+            "lm_spec_verify", (len(tokens),), self.model.forward_with_cache,
             torch.tensor([tokens], dtype=torch.int32, device=self.device),
             self._rows(1), self._spec_pos)
         return logits[0].argmax(-1).cpu().numpy()
@@ -797,7 +818,20 @@ class ContinuousBatchingEngine:
     ``serve_stats`` holds the timings of the last :meth:`serve`;
     :meth:`load` is the host-side snapshot a serving front reads.
     ``_monitor_engine`` labels this engine's monitor series; :meth:`close`
-    retires them."""
+    retires them, and its programs' rows in the program ledger.
+
+    The program ledger (``FLAGS_enable_ledger``) sees the reference's
+    programs under its names, owned by ``_monitor_engine``: ``cb_prefill``
+    (one per bucket), ``cb_prefill_chunk`` (one per chunk width: a chunk,
+    or a warm prefix-cache tail at its bucket), ``cb_admit_state`` (the
+    slot-state install), ``cb_admit`` (the dense engine's install of a
+    chunked admission's mini cache), ``cb_segment``, ``cb_spec_step``,
+    ``cb_spec_device_segment`` (one per graph key), the paged engine's
+    ``cb_reset_scales`` and the registry's ``lora_install``. Where the
+    boundaries differ: the dense one-shot admission here prefills straight
+    into its slot's rows, so it has no ``cb_admit`` dispatch (the
+    reference's prefills a mini cache and installs it); the paged install
+    is not a program in either."""
 
     def __init__(self, model, max_batch: int, max_len: int,
                  prefill_buckets="auto",
@@ -850,7 +884,14 @@ class ContinuousBatchingEngine:
         self.verify_steps = 0
         self.serve_stats: Optional[dict] = None
         self._segment_log: List[tuple] = []   # (seconds, tokens emitted)
-        self.programs = GraphCache(self.device)
+        # per-engine label: engines side by side publish their series
+        # side by side
+        self._monitor_engine = monitor.instance_label("engine")
+        self.programs = GraphCache(
+            self.device, names={"segment": "cb_segment",
+                                "spec_step": "cb_spec_step",
+                                "spec_device": "cb_spec_device_segment"},
+            owner=self._monitor_engine)
         self._seg_out: Dict[int, torch.Tensor] = {}
         self._init_decode_state()
         self._slot_req: Dict[int, int] = {}   # slot -> request id
@@ -859,9 +900,6 @@ class ContinuousBatchingEngine:
         self._cfg: Dict[int, GenerationConfig] = {}
         self._finished: Dict[int, np.ndarray] = {}
         self._next_req = 0
-        # per-engine label: engines side by side publish their series
-        # side by side
-        self._monitor_engine = monitor.instance_label("engine")
         # multi-tenant LoRA: the registry owns the factor bank; 0 disables
         # it, and then every forward runs without a lora input, exactly as
         # an engine without LoRA
@@ -888,6 +926,20 @@ class ContinuousBatchingEngine:
         # (released by _retire)
         self._aidx_stash: Dict[int, int] = {}
         self._rid_aidx: Dict[int, int] = {}
+        self._refresh_signature()
+
+    def _program_signature(self) -> str:
+        """The static part of this engine's program ids: the model, the
+        batch, the cache length, the draft window and the LoRA geometry."""
+        sig = (_model_signature(self.model, self.max_batch, self.max_len)
+               + f"|draft_k={self.draft_k}")
+        if self.adapters is not None:
+            a = self.adapters
+            sig += f"|lora={self.lora_capacity},{a.rank},{a.targets}"
+        return sig
+
+    def _refresh_signature(self) -> None:
+        self.programs.signature = self._program_signature()
 
     def _init_decode_state(self) -> None:
         """Allocate the device-side decode state, once: caches, per-slot
@@ -956,6 +1008,7 @@ class ContinuousBatchingEngine:
             raise RuntimeError(f"{name[1:]} can only be changed on an idle "
                                f"engine")
         setattr(self, name, value)
+        self._refresh_signature()
         # the spec programs captured under the old value go with their
         # scratch (their keys name the value, so nothing would replay them)
         self.programs.drop(lambda key: key[0] in ("spec_step",
@@ -1093,7 +1146,12 @@ class ContinuousBatchingEngine:
 
     def _install_mini(self, slot: int, mini, plen: int) -> None:
         """Copy a chunked admission's mini cache (its first ``plen`` rows)
-        into the slot's rows of every layer cache."""
+        into the slot's rows of every layer cache (the program
+        ``cb_admit``)."""
+        self.programs.eager("cb_admit", (), self._copy_mini, slot, mini,
+                            plen)
+
+    def _copy_mini(self, slot: int, mini, plen: int) -> None:
         with torch.no_grad():
             for (k, v), (mk, mv) in zip(self.caches, mini):
                 k[slot, :plen].copy_(mk[0, :plen])
@@ -1241,7 +1299,9 @@ class ContinuousBatchingEngine:
         V]."""
         self._chunk_pos.fill_(pos)
         with torch.no_grad():
-            logits, _ = self.model.forward_with_cache(
+            logits, _ = self.programs.eager(
+                "cb_prefill_chunk", (ids.shape[1], lora is not None),
+                self.model.forward_with_cache,
                 torch.tensor(ids, device=self.device), mini,
                 self._chunk_pos, **_lora_kw(lora))
         return logits[:, r - 1]
@@ -1330,7 +1390,12 @@ class ContinuousBatchingEngine:
         when the caller has it) seeds the ring with the prompt's last
         ``spec_history - 1`` tokens and the first token; a replayed request
         admits ``prompt + generated``, so its ring is rebuilt as its host
-        proposer's context is."""
+        proposer's context is. The program ``cb_admit_state``."""
+        self.programs.eager("cb_admit_state", (), self._set_slot_state,
+                            slot, plen, first, tok_done, cfg, ids)
+
+    def _set_slot_state(self, slot: int, plen: int, first, tok_done, cfg,
+                        ids) -> None:
         self.lens[slot] = plen
         self.last[slot] = first
         self.done_dev[slot] = tok_done
@@ -1435,8 +1500,10 @@ class ContinuousBatchingEngine:
         width = self._prefill_width(plen)
         ids_t = torch.tensor(_pad_ids(ids, width), device=self.device)
         with torch.no_grad():
-            logits, mini = self.model.forward_with_cache(ids_t, mini, 0,
-                                                         **_lora_kw(lora))
+            logits, mini = self.programs.eager(
+                "cb_prefill", (width, lora is not None),
+                self.model.forward_with_cache, ids_t, mini, 0,
+                **_lora_kw(lora))
         self.prefills += 1
         return logits[:, plen - 1], mini
 
@@ -1527,14 +1594,18 @@ class ContinuousBatchingEngine:
             "segment (includes host collect), per engine", ("engine",))
 
     def close(self) -> None:
-        """Retire this engine's per-instance monitor series (idempotent;
-        a dropped engine must not export its last tokens/sec forever)."""
+        """Retire this engine's per-instance monitor series and program
+        ledger rows (idempotent; a dropped engine must not export its last
+        tokens/sec forever)."""
         self._tokens_per_sec_gauge().remove(engine=self._monitor_engine)
         for name in ("paddle_tpu_prefill_requests_total",
                      "paddle_tpu_prefill_chunks_total",
                      "paddle_tpu_prefill_warmup_seconds",
                      "paddle_tpu_spec_draft_tokens_total"):
             monitor.remove_series(name, engine=self._monitor_engine)
+        # the program ledger's rows this engine owned, and their
+        # {program=...} series
+        ledger.release(self._monitor_engine)
         alloc = getattr(self, "alloc", None)
         if alloc is not None:
             alloc.close()
@@ -2399,7 +2470,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             return
         mask = torch.zeros((self.num_pages + 1, 1), dtype=torch.bool)
         mask[fresh] = True
-        mask = mask.to(self.device)
+        self.programs.eager("cb_reset_scales", (), self._reset_scales,
+                            mask.to(self.device))
+
+    def _reset_scales(self, mask) -> None:
+        """The program ``cb_reset_scales``: the masked fill itself."""
         with torch.no_grad():
             for entry in self.caches:
                 for sc in entry[2:]:
@@ -2430,6 +2505,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._gap_sync = None
         self.caches = self._make_caches()
         self._measure_quant_savings()
+        self._refresh_signature()
+
+    def _program_signature(self) -> str:
+        return (super()._program_signature()
+                + f"|pages={self.num_pages}x{self.page_size}"
+                + f"|kv={self.kv_dtype}")
 
     def kv_page_cost(self) -> dict:
         """Device bytes of one page under the current storage dtype, scales

@@ -57,10 +57,17 @@ the launches it captured), labelled ``kernel``. A scrape of a replica
 process reads which kernels its traffic ran; the difference of two scrapes
 is the launches between them.
 
-Not ported yet (ROADMAP A9b): ``monitored_jit`` (its counterpart here is
-the engines' ``programs``, :class:`~paddle_tpu_torch.inference._graphs.
-GraphCache`, which counts captures per program) and the per-op latency hook
-(``install_op_hook``; the port has no ``apply_op`` choke point).
+The program ledger (``monitor/ledger.py``, ``FLAGS_enable_ledger``) counts
+the engines' programs: the captured ones through
+:class:`~paddle_tpu_torch.inference._graphs.GraphCache` (the counterpart of
+the reference's ``monitored_jit`` cache: with the monitor on, its captures
+feed the reference's ``paddle_tpu_jit_cache_miss_total{fn,program}`` and
+``paddle_tpu_jit_compile_seconds_total{fn,program}``), and the eager ones
+(prefill buckets and chunks, slot-state installs, scale resets, LoRA row
+installs) through :func:`monitored_eager`.
+
+Not ported: the per-op latency hook (``install_op_hook``): the port has no
+``apply_op`` choke point.
 """
 from __future__ import annotations
 
@@ -77,7 +84,7 @@ __all__ = [
     "enable", "disable", "enabled",
     "snapshot", "render_prometheus", "write_jsonl", "reset",
     "remove_series",
-    "start_http_server", "http_payload",
+    "start_http_server", "http_payload", "monitored_eager",
     "instance_label",
 ]
 
@@ -416,6 +423,33 @@ def disable() -> None:
     set_flags({"FLAGS_enable_monitor": False})
 
 
+# -- eager programs -----------------------------------------------------------
+
+
+def monitored_eager(name: str, fn: Callable, *args,
+                    owner: Optional[str] = None, signature: str = "",
+                    device="cpu", key=(), **kwargs):
+    """Run ``fn(*args, **kwargs)`` as one dispatch of the eager program
+    ``name`` (code that runs op by op, not captured) for the program
+    ledger: the counterpart of the reference's ``monitored_jit``. ``key``
+    (a tuple of ints, strs and bools, such as a prefill's bucket width) and
+    the owning engine's ``signature`` go into the program id
+    (``ledger.program_id``); ``owner`` (an engine label) ties the program
+    to its engine, which ``ledger.release(owner)`` retires. The program's
+    first ledger-seen dispatch is counted (FLOPs and bytes, argument and
+    output bytes) and goes to ``compiles``; later ones are timed on
+    ``device`` (CUDA events on the card, the host clock on the CPU) into
+    its digest. A call inside another program, or while the thread
+    captures a graph, runs untouched. With ``FLAGS_enable_ledger`` off a
+    call pays one bool branch. Returns ``fn``'s result."""
+    if not _ledger._enabled:
+        return fn(*args, **kwargs)
+    from . import _programs
+
+    return _programs.run_eager(name, owner, signature, key, device, fn,
+                               args, kwargs)
+
+
 # -- built-in callback gauges: device memory ---------------------------------
 
 
@@ -687,3 +721,5 @@ def _init_from_flags():
 
 
 _init_from_flags()
+
+from . import ledger as _ledger  # noqa: E402 (it imports this package)

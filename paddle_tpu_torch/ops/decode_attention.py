@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._launches import count
+from ._launches import costed, count
 
 __all__ = ["decode_mha", "decode_mha_ref", "kernel_for", "split_plan",
            "decode_partials_ref", "combine_partials_ref"]
@@ -204,6 +204,18 @@ def _workspace(n: int, b: int, hq: int, d: int, device):
     return acc, ml[0], ml[1]
 
 
+def _decode_cost(q, k_cache, v_cache, seq_lens):
+    """K7's (FLOPs, bytes) on this run's lengths (``seq_lens`` read back):
+    4 D operations a live token a query head; each live token's K and V
+    rows read once, q read and out written once, the lengths read once."""
+    b, hq, d = q.shape
+    tokens = int(seq_lens.sum())
+    return 4 * d * tokens * hq, (
+        tokens * k_cache.shape[2] * d * k_cache.element_size() * 2
+        + 2 * q.numel() * q.element_size() + b * 4)
+
+
+@costed(_decode_cost)
 def decode_mha(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                seq_lens: torch.Tensor) -> torch.Tensor:
     """One decode step of attention over a dense KV cache (K7).

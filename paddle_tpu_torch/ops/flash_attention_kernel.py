@@ -48,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from ._launches import count
+from ._launches import costed, count
 
 __all__ = ["flash_attention_bshd", "flash_attention_bshd_ref",
            "prefix_chunk_attention", "prefix_chunk_attention_ref",
@@ -402,6 +402,70 @@ def _launch(source: str, entry: str, ptrs, shape, strides, scale, causal,
     _build.check(lib, err, entry)
 
 
+def causal_pairs(sq: int, sk: int) -> int:
+    """(query, key) pairs a bottom-right causal mask lets through: row i
+    sees min(sk, i + 1 + sk - sq) keys, none where that is negative."""
+    off = sk - sq
+    lo = min(max(-off, 0), sq)          # the rows that see no key
+    n = sq - lo
+    return n * (lo + 1 + off + sk) // 2 if n > 0 else 0
+
+
+def _pairs(sq: int, sk: int, causal: bool) -> int:
+    return causal_pairs(sq, sk) if causal else sq * sk
+
+
+def _fwd_cost(q, k, v, causal=False, sm_scale=None, dropout_p=0.0, seed=0):
+    """K3's (FLOPs, bytes): 4 D operations a (query, key) pair a head (the
+    two products); q, k and v read, out and the fp32 lse written once."""
+    b, sq, hq, d = q.shape
+    pairs = _pairs(sq, k.shape[1], causal)
+    return 4 * d * pairs * hq * b, (
+        (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        + b * hq * sq * 4)
+
+
+def _prefix_cost(q, k_cache, v_cache, pos, sm_scale=None):
+    """K3's prefix-chunk instance: the chunk's causal pairs at the offset
+    ``pos`` (read from the device: this run's data), q read and out written
+    once, the first ``pos + C`` rows of K and V read once."""
+    b, c, hq, d = q.shape
+    sk, hkv = k_cache.shape[1], k_cache.shape[2]
+    keys = min(int(pos) + c, sk)
+    return 4 * d * causal_pairs(c, keys) * hq * b, (
+        (2 * q.numel() + 2 * b * keys * hkv * d) * q.element_size())
+
+
+def _bwd_io(q, k, v, do, lse, causal):
+    b, sq, hq, d = q.shape
+    pairs = _pairs(sq, k.shape[1], causal) * hq * b
+    io = ((q.numel() + k.numel() + v.numel() + do.numel())
+          * q.element_size() + 2 * lse.numel() * 4)
+    return d * pairs, io
+
+
+def _dq_cost(q, k, v, do, lse, delta, causal=False, *args, **kwargs):
+    """K5's (FLOPs, bytes): 6 D operations a pair a head; q, k, v, dO,
+    lse and delta read, dq written once."""
+    dpairs, io = _bwd_io(q, k, v, do, lse, causal)
+    return 6 * dpairs, io + q.numel() * q.element_size()
+
+
+def _dkv_cost(q, k, v, do, lse, delta, causal=False, *args, **kwargs):
+    """K6's (FLOPs, bytes): 8 D operations a pair a head; the inputs of K5
+    read, dk and dv written once."""
+    dpairs, io = _bwd_io(q, k, v, do, lse, causal)
+    return 8 * dpairs, io + (k.numel() + v.numel()) * k.element_size()
+
+
+def _bwd_cost(q, k, v, out, lse, do, causal=False, *args, **kwargs):
+    """The whole backward: K5's and K6's costs."""
+    f5, b5 = _dq_cost(q, k, v, do, lse, None, causal)
+    f6, b6 = _dkv_cost(q, k, v, do, lse, None, causal)
+    return f5 + f6, b5 + b6
+
+
+@costed(_fwd_cost)
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = False,
                          sm_scale: Optional[float] = None,
@@ -436,6 +500,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bshd.launches = 0
 
 
+@costed(_prefix_cost)
 def prefix_chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, pos,
                            sm_scale: Optional[float] = None) -> torch.Tensor:
@@ -472,6 +537,7 @@ def prefix_chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
 prefix_chunk_attention.launches = 0
 
 
+@costed(_dq_cost)
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                            sm_scale: Optional[float] = None,
                            dropout_p: float = 0.0, seed: int = 0
@@ -502,6 +568,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
 flash_attention_bwd_dq.launches = 0
 
 
+@costed(_dkv_cost)
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                             sm_scale: Optional[float] = None,
                             dropout_p: float = 0.0, seed: int = 0
@@ -533,6 +600,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
 flash_attention_bwd_dkv.launches = 0
 
 
+@costed(_bwd_cost)
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
                         sm_scale: Optional[float] = None,
                         dropout_p: float = 0.0, seed: int = 0):

@@ -38,7 +38,7 @@ import torch
 
 from ..framework.amp_state import cast_inputs, check_outputs
 from . import _build
-from ._launches import count
+from ._launches import costed, count
 
 __all__ = ["rms_norm", "rms_norm_ref", "fused_layer_norm",
            "fused_layer_norm_ref", "fused_rope", "fused_rope_ref",
@@ -263,6 +263,15 @@ def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.float()).to(x.dtype)
 
 
+def _rms_norm_cost(x: torch.Tensor, weight: torch.Tensor, eps: float = 0.0):
+    """K1's (FLOPs, bytes): 4 operations an element (square, sum, scale,
+    weight); x read and y written once, the weight read once."""
+    t = x.numel()
+    return 4 * t, 2 * t * x.element_size() + weight.numel() * \
+        weight.element_size()
+
+
+@costed(_rms_norm_cost)
 def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
                   eps: float) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain version on a CPU tensor."""
@@ -405,6 +414,18 @@ def _rows(t: torch.Tensor, h: int) -> torch.Tensor:
     return t2 if t2.stride(-1) == 1 else t2.contiguous()
 
 
+def _layer_norm_cost(x: torch.Tensor, residual, bias, gamma: torch.Tensor,
+                     beta: torch.Tensor, eps: float = 0.0):
+    """K8's (FLOPs, bytes): 8 operations an element; x read and y written
+    once, gamma, beta, the residual and the bias read once."""
+    nbytes = 2 * x.numel() * x.element_size()
+    for t in (residual, bias, gamma, beta):
+        if t is not None:
+            nbytes += t.numel() * t.element_size()
+    return 8 * x.numel(), nbytes
+
+
+@costed(_layer_norm_cost)
 def _layer_norm_fwd(x: torch.Tensor, residual, bias, gamma: torch.Tensor,
                     beta: torch.Tensor, eps: float) -> torch.Tensor:
     """K8 on a CUDA tensor, its plain version on a CPU tensor."""
@@ -506,6 +527,14 @@ def fused_rope_ref(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def _rope_cost(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """K2's (FLOPs, bytes): 3 operations an element (two products and a
+    sum); x read and the output written once, both tables read once."""
+    return 3 * x.numel(), (2 * x.numel() * x.element_size()
+                           + 2 * cos.numel() * cos.element_size())
+
+
+@costed(_rope_cost)
 def _rope_fwd(x: torch.Tensor, cos: torch.Tensor,
               sin: torch.Tensor) -> torch.Tensor:
     """K2 on a CUDA tensor, its plain version on a CPU tensor."""

@@ -25,7 +25,7 @@ from typing import Sequence
 import torch
 
 from . import _build
-from ._launches import count
+from ._launches import costed, count
 
 __all__ = ["fused_linear_param_grad_add", "fused_linear_param_grad_add_ref",
            "kernel_for"]
@@ -106,6 +106,17 @@ def _launch(instance: str, x2: torch.Tensor, dy2: torch.Tensor,
     _build.check(lib, err, _ENTRIES[instance])
 
 
+def _grad_add_cost(x, dy, dweight):
+    """K9's (FLOPs, bytes): 2 T K N operations; x and dy read once, dweight
+    read and the fp32 result written once."""
+    k, n = x.shape[-1], dy.shape[-1]
+    t = x.numel() // k if k else 0
+    return 2 * t * k * n, (x.numel() * x.element_size()
+                           + dy.numel() * dy.element_size()
+                           + k * n * (dweight.element_size() + 4))
+
+
+@costed(_grad_add_cost)
 def fused_linear_param_grad_add(x: torch.Tensor, dy: torch.Tensor,
                                 dweight: torch.Tensor) -> torch.Tensor:
     """``dweight + x^T dy`` as a new fp32 [K, N] tensor (K9): x [..., K]

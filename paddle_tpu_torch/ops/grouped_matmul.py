@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from ._launches import count
+from ._launches import costed, count
 
 __all__ = ["grouped_matmul", "grouped_matmul_ref", "kernel_for",
            "group_tile_schedule", "max_row_tiles", "tile_passes"]
@@ -178,6 +178,19 @@ def _launch(instance: str, lhs: torch.Tensor, rhs: torch.Tensor,
     _build.check(lib, err, _ENTRIES[instance])
 
 
+def _gmm_cost(lhs, rhs, group_sizes, preferred_element_type=torch.float32):
+    """K10's (FLOPs, bytes) on this run's group sizes (read back): 2 M K N
+    operations; lhs read once, the weights of each non-empty group read
+    once, out written once, the group sizes read once."""
+    (m, k), (g, _, n) = lhs.shape, rhs.shape
+    live = int((group_sizes > 0).sum())
+    return 2 * m * k * n, (m * k * lhs.element_size()
+                           + live * k * n * rhs.element_size()
+                           + m * n * preferred_element_type.itemsize
+                           + g * group_sizes.element_size())
+
+
+@costed(_gmm_cost)
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
                    group_sizes: torch.Tensor,
                    preferred_element_type: torch.dtype = torch.float32

@@ -44,7 +44,7 @@ import torch
 
 from ..quantization.kv import KV_QMAX, KV_SCALE_FLOOR
 from . import _build
-from ._launches import count
+from ._launches import costed, count
 from .decode_attention import (_TILE, _sm_count, _workspace,
                                decode_partials_ref, split_plan)
 
@@ -187,6 +187,23 @@ def _bind(lib: ctypes.CDLL, entry: str, quant: bool):
     return fn
 
 
+def _paged_cost(q, k_pool, v_pool, page_table, seq_lens, k_scale=None,
+                v_scale=None, **kwargs):
+    """K4's (FLOPs, bytes) on this run's lengths (``seq_lens`` read back):
+    4 D operations a live token a query head; each live token's K and V
+    rows read once, q read and out written once, the page table, the
+    lengths and (int8) both scale tables read once."""
+    b, h, d = q.shape
+    tokens = int(seq_lens.sum())
+    nbytes = (tokens * k_pool.shape[2] * d * k_pool.element_size() * 2
+              + 2 * q.numel() * q.element_size()
+              + page_table.numel() * page_table.element_size() + b * 4)
+    if k_scale is not None:
+        nbytes += (k_scale.numel() + v_scale.numel()) * 4
+    return 4 * d * tokens * h, nbytes
+
+
+@costed(_paged_cost)
 def paged_decode_mha(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, page_table: torch.Tensor,
                      seq_lens: torch.Tensor,

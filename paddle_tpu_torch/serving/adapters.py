@@ -193,8 +193,16 @@ class AdapterRegistry:
     def _install(self, t: str, idx: int, a, b) -> None:
         """Write bank row ``idx`` of target ``t`` IN PLACE: the staged
         factors (host ``[L, r, d]`` in the bank's dtype), or zeros when
-        ``a`` is None."""
+        ``a`` is None. The program ``lora_install`` (one per target's bank
+        shapes, owned by the engine) in the program ledger."""
         A, B = self.bank[t]
+        monitor.monitored_eager(
+            "lora_install", self._write_row, A, B, idx, a, b,
+            owner=self._engine, signature=f"{self.dtype}",
+            device=self.device, key=(tuple(A.shape), tuple(B.shape)))
+
+    @staticmethod
+    def _write_row(A, B, idx: int, a, b) -> None:
         with torch.no_grad():
             if a is None:
                 A[:, idx].zero_()

@@ -97,8 +97,11 @@ body fields and status codes:
   "integrity"`` for a checksum mismatch), 503 while the scheduler cannot
   apply them.
 
-- Not ported yet, a 501 naming its ROADMAP item: ``GET /profile`` (the
-  program ledger, A9b).
+- ``GET /profile``: the program ledger's roofline table
+  (``monitor.ledger``): a ``Server`` serves its engine's shard, a
+  ``Router`` the exact merge of its replicas' shards. Empty ``programs``
+  (not a 404) while ``FLAGS_enable_ledger`` is off. Render it with
+  ``tools/monitor_report.py --profile``.
 """
 from __future__ import annotations
 
@@ -140,9 +143,6 @@ MAX_KV_BODY_BYTES = 256 << 20
 # a refused /kv/import body up to this many times the cap is read and
 # dropped before the 413, so the shipper sees the status, not a reset
 _KV_DRAIN_FACTOR = 4
-
-# routes the port does not serve yet: (prefix, ROADMAP item)
-_NOT_PORTED_ROUTES = (("/profile", "A9b: the program ledger"),)
 
 
 def _parse_request(body: dict):
@@ -329,22 +329,8 @@ def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
                     return
                 n -= len(piece)
 
-        def _not_ported(self) -> bool:
-            """501 for a route of the reference the port lacks (the body,
-            if any, is not read: the connection closes after the reply)."""
-            for prefix, item in _NOT_PORTED_ROUTES:
-                if self.path.startswith(prefix):
-                    self.close_connection = True
-                    self._json(501, {"error": f"{self.path} is not ported "
-                                              f"yet (ROADMAP {item})"},
-                               headers={"Connection": "close"})
-                    return True
-            return False
-
         # -- routes ----------------------------------------------------------
         def do_GET(self):
-            if self._not_ported():
-                return
             if self.path.startswith("/healthz"):
                 # ONE host-side snapshot: ``load()`` carries status,
                 # queue depth, slot/page capacity, the KV-pressure
@@ -390,6 +376,18 @@ def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
                     self._json(404, {
                         "error": "no /stats: this front exposes no "
                                  "SLO tracker"})
+                else:
+                    self._json(200, fn())
+            elif self.path.startswith("/profile"):
+                # the program ledger's roofline table: a Server serves its
+                # engine's shard, a Router merges every replica's shard
+                # exactly; empty "programs" (not a 404) while
+                # FLAGS_enable_ledger is off
+                fn = getattr(server, "profile", None)
+                if fn is None:
+                    self._json(404, {
+                        "error": "no /profile: this front exposes no "
+                                 "program ledger"})
                 else:
                     self._json(200, fn())
             elif self.path.startswith("/trace"):
@@ -453,8 +451,6 @@ def serve_http(server, port: int = 0, addr: str = "127.0.0.1",
             return body
 
         def do_POST(self):
-            if self._not_ported():
-                return
             if self.path.startswith("/adapters/"):
                 self._adapters_response()
                 return

@@ -5,7 +5,9 @@ from a replica is duck-typed (see ``router.py``: anything with ``build()``
 -> Server-shaped object routes), and everything a Server exposes is
 already on the wire: ``/generate`` streams tokens, ``/healthz`` is
 ``Server.load()`` verbatim, ``/stats?shard=1`` is the mergeable
-``digests_dict()`` shard. This module closes the loop with:
+``digests_dict()`` shard, ``/profile`` is the program-ledger shard (a
+replica process started with ``FLAGS_enable_ledger=1`` in its environment
+records its programs). This module closes the loop with:
 
 - :class:`RemoteReplica` — a Server-shaped **client**: ``submit()``
   POSTs a streaming ``/generate`` and relays the ndjson stream into a
@@ -592,6 +594,8 @@ class RemoteReplica:
         return [d] if d else []
 
     def profile(self) -> dict:
+        """The replica process's program-ledger shard (its ``GET
+        /profile``), which ``Router.profile`` merges."""
         status, body = _http_json("GET", self.base_url, "/profile",
                                   timeout=self.io_timeout_s)
         if status != 200:

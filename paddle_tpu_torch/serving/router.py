@@ -742,11 +742,31 @@ class Router:
         return out
 
     def profile(self, top_k: Optional[int] = None) -> dict:
-        """The fleet program-ledger rollup: not ported yet (ROADMAP A9b),
-        as ``Server.profile`` is not."""
-        raise NotImplementedError(
-            "the fleet program ledger (Router.profile) is not ported yet "
-            "(ROADMAP A9b)")
+        """The fleet program-ledger rollup (``GET /profile``), exact the
+        way :meth:`stats` is: every live replica's ``Server.profile`` shard
+        is merged per program id (digest buckets add, dispatch and compile
+        counters sum, the cost comes from the first shard that has it),
+        never an average of per-replica MFUs. Dead and mid-swap replicas
+        are skipped."""
+        from ..monitor import ledger as _ledger
+
+        with self._lock:
+            reps = list(self._replicas)
+        shards = []
+        for rep in reps:
+            if rep.dead:
+                continue
+            fn = getattr(rep.server, "profile", None)
+            if fn is None:
+                continue
+            try:
+                shards.append(fn())
+            except Exception:   # mid-swap replica: skip its shard
+                pass
+        out = _ledger.merge_profiles(shards, top_k=top_k)
+        out["router"] = self.monitor_router
+        out["replicas"] = len(shards)
+        return out
 
     # -- drain / rolling restart ---------------------------------------------
     def drain(self, index: Optional[int] = None,

@@ -89,8 +89,9 @@ goes back to the caller. The engine needs ``lora_capacity > 0``.
 KV-page handoff: :meth:`Server.export_kv` / ``import_kv`` are admin ops of
 the same kind, applied in the gap (a paged engine with ``prefix_cache=True``).
 
-What the port's engines lack fails at the call, never silently:
-:meth:`Server.profile` (the program ledger, ROADMAP A9b).
+The program ledger (``FLAGS_enable_ledger``): :meth:`Server.profile` is the
+engine's shard of ``monitor.ledger.profile`` (``GET /profile``), and
+:meth:`Server.load` carries a compact block of it.
 """
 from __future__ import annotations
 
@@ -103,6 +104,7 @@ import numpy as np
 
 from .. import monitor
 from .. import tracing as trace
+from ..monitor import ledger as _ledger
 from ..monitor import slo as _slo
 from ..inference.generation import (ADMISSION_MODES, SPEC_MODES,
                                     GenerationConfig, PagePoolExhausted,
@@ -120,12 +122,6 @@ class PreemptionBudgetExceeded(RuntimeError):
     its ``max_preemptions`` budget allows: it is THRASHING (admitted,
     preempted, replayed, preempted again...) and fails with this as its
     cause instead of cycling through the pool forever."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP {item}): the port's engines "
-        f"lack it")
 
 
 class _EngineFaultSignal(Exception):
@@ -918,8 +914,17 @@ class Server:
                 "the handoff idempotent)")
 
     def profile(self, top_k: Optional[int] = None) -> dict:
-        """The program-ledger shard: not ported yet (ROADMAP A9b)."""
-        raise _not_ported("the program ledger (profile)", "A9b")
+        """This server's program-ledger shard, the per-program roofline
+        table ``GET /profile`` serves and the fleet ``Router`` merges exactly
+        across replicas: ``{"programs": {pid: cost/compiles/digest/MFU/
+        bound}, "peaks", "top", "total_seconds", "server"}``. Scoped to the
+        programs this server's engine owns (the whole process's when the
+        engine has no monitor label). Empty while ``FLAGS_enable_ledger``
+        is off."""
+        own = getattr(self.engine, "_monitor_engine", None)
+        prof = _ledger.profile(owners=[own] if own else None, top_k=top_k)
+        prof["server"] = self.monitor_server
+        return prof
 
     def request_timeline(self, request_id: int):
         """Ordered trace-event timeline for one of THIS server's
@@ -955,7 +960,8 @@ class Server:
         ``{"status", "healthy", "server", "queue_depth",
         "active_requests", "restarts", "free_slots", "active_slots",
         "max_batch"[, "free_pages", "total_pages", "occupancy"]
-        [, "pressure"][, "slo"][, "control"][, "flight_dump"]}``
+        [, "pressure"][, "slo"][, "profile"][, "control"]
+        [, "flight_dump"]}``
 
         ``healthy`` is the HTTP readiness verdict (``status`` in
         ``ok``/``draining`` — what ``/healthz`` turns into 200 vs 503).
@@ -991,6 +997,19 @@ class Server:
             s = self.slo.snapshot()
             if s is not None:
                 snap["slo"] = s
+        if _ledger.enabled():
+            # compact program-ledger block: the top programs by total
+            # seconds (host dict walk; the full table is /profile)
+            prof = self.profile(top_k=5)
+            if prof["programs"]:
+                snap["profile"] = {
+                    "programs": len(prof["programs"]),
+                    "total_seconds": prof["total_seconds"],
+                    "top": [{k: prof["programs"][pid].get(k)
+                             for k in ("program", "total_seconds",
+                                       "dispatches", "mfu", "bound")}
+                            for pid in prof["top"]],
+                }
         if self.control is not None:
             # overload-control block (host dict walk under the plane's
             # own lock): active brownout rung + its action name, per-

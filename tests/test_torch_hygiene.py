@@ -325,8 +325,10 @@ SERVING_MODULES = {
         "Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
         "register_callback", "enable", "disable", "enabled", "snapshot",
         "render_prometheus", "write_jsonl", "reset", "remove_series",
-        "start_http_server", "http_payload", "instance_label"],
+        "start_http_server", "http_payload", "instance_label",
+        "monitored_eager"],
     "paddle_tpu_torch/monitor/slo.py": None,
+    "paddle_tpu_torch/monitor/ledger.py": None,
     "paddle_tpu_torch/monitor/provenance.py": ["env_stamp"],
     "paddle_tpu_torch/tracing/__init__.py": [
         "enable", "disable", "enabled", "configure", "clear", "event",
@@ -380,6 +382,22 @@ def test_serving_front_modules_are_checked(module):
     assert sorted(mod.__all__) == sorted(want)
     for n in mod.__all__:
         assert hasattr(mod, n), n
+
+
+def test_peaks_module_is_the_references_with_the_gpu_table():
+    """``device/peaks.py`` keeps the reference's public names, its table of
+    TPU generations replaced by one of CUDA cards (``GPU_PEAKS``), and its
+    record's keys."""
+    from paddle_tpu.device import peaks as ref
+    from paddle_tpu_torch.device import peaks
+
+    assert PORT / "device" / "peaks.py" in _sources()
+    assert sorted(peaks.__all__) == sorted(
+        "GPU_PEAKS" if n == "TPU_PEAKS" else n for n in ref.__all__)
+    assert {"device_kind", "platform", "peak_flops", "peak_bytes_per_s",
+            "machine_balance", "source"} == set(peaks.peaks())
+    row = next(r for r in peaks.GPU_PEAKS if r[0] in "NVIDIA H100 80GB HBM3")
+    assert row[1:] == (989.4e12, 3.35e12)
 
 
 TRAINING_SURFACE_MODULES = [

@@ -650,7 +650,7 @@ def test_flags_match_the_reference_registry(monkeypatch):
                                                         port_flags))
     assert set(port_reg) == {"FLAGS_flash_head_batched",
                              "FLAGS_enable_monitor", "FLAGS_enable_trace",
-                             "FLAGS_check_nan_inf"}
+                             "FLAGS_check_nan_inf", "FLAGS_enable_ledger"}
     for name in port_reg:
         assert port_reg[name] == jax_reg[name]
     assert port_reg["FLAGS_flash_head_batched"] is False

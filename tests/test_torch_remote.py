@@ -367,9 +367,52 @@ class TestWireFormatRollup:
         assert p50 is None or p50 > 0
 
     def test_profile_is_not_ported_across_the_wire(self, fleet):
+        """The program ledger is ported: a replica process started without
+        ``FLAGS_enable_ledger`` answers ``/profile`` with its empty shard."""
         pre, _ = fleet
-        with pytest.raises(RuntimeError, match="501"):
-            pre.profile()
+        shard = pre.profile()
+        assert shard["programs"] == {} and shard["server"]
+
+    def test_ledger_shards_merge_exactly_across_processes(self):
+        """Two replica processes started with ``FLAGS_enable_ledger=1``
+        serve non-empty ``/profile`` shards; the program ids agree across
+        the processes (no per-process hash), every record survives the
+        wire, and the merge of the two holds each shared program's
+        dispatches as the sum of the shards' (``tests/test_remote.py``'s
+        contract for the reference)."""
+        from paddle_tpu_torch.monitor.ledger import (_ProgramRecord,
+                                                     merge_profiles)
+
+        reps = []
+        try:
+            for _ in range(2):
+                proc, url = spawn_replica(
+                    REPLICA_ARGS, env=dict(REPLICA_ENV,
+                                           FLAGS_enable_ledger="1"))
+                reps.append(RemoteReplica(url, proc=proc))
+            assert all(r.wait_ready(WAIT) for r in reps)
+            for i, rep in enumerate(reps):
+                TestWireFormatRollup._drive(rep, 1 + i, 8)
+            s1, s2 = (r.profile() for r in reps)
+            assert s1["programs"] and s2["programs"]
+            for pid, rec in s1["programs"].items():
+                back = _ProgramRecord.from_dict(rec).to_dict()
+                for k in ("program", "dispatches", "compiles", "flops",
+                          "bytes_accessed"):
+                    assert back[k] == rec[k], k
+            common = set(s1["programs"]) & set(s2["programs"])
+            assert {s1["programs"][p]["name"] for p in common} >= {
+                "cb_prefill", "cb_segment", "cb_admit_state"}
+            out = merge_profiles([s1, s2])
+            for pid in common:
+                assert (out["programs"][pid]["dispatches"]
+                        == s1["programs"][pid]["dispatches"]
+                        + s2["programs"][pid]["dispatches"])
+                assert out["programs"][pid]["flops"] == \
+                    s1["programs"][pid]["flops"]
+        finally:
+            for r in reps:
+                r.shutdown(drain=False)
 
 
 class TestStrictBodies:

@@ -748,9 +748,12 @@ class TestRouterAffinity:
 
 class TestPortSurface:
     def test_profile_not_ported_and_devices_passed_through(self):
-        """``Router.profile`` names its ROADMAP item; a spec pinned to a
-        device list hands it to its factory (one card: the same device for
-        every replica)."""
+        """``Router.profile`` (ported, A9b) is the exact merge of its live
+        replicas' ``Server.profile`` shards, as the reference's; a spec
+        pinned to a device list hands it to its factory (one card: the same
+        device for every replica)."""
+        from paddle_tpu_torch.monitor import ledger
+
         seen = []
 
         def factory(devices):
@@ -758,16 +761,25 @@ class TestPortSurface:
             return make_engine()
 
         dev = [torch.device("cpu")]
+        ledger.reset()
+        ledger.enable()
         r = Router([ReplicaSpec(factory, devices=dev),
                     ReplicaSpec(factory, devices=dev)],
                    monitor_interval_s=0.02)
         try:
             assert seen == [dev, dev]
-            with pytest.raises(NotImplementedError, match="A9b"):
-                r.profile()
             h = r.submit(PROMPT, GenerationConfig(max_new_tokens=4))
             assert len(h.result(timeout=120)) == 4
+            fleet = r.profile()
+            shards = [rep.server.profile() for rep in r._replicas]
+            want = ledger.merge_profiles(shards)
+            assert fleet["replicas"] == 2
+            assert fleet["programs"] and fleet["programs"] == \
+                want["programs"]
+            assert fleet["top"] == want["top"]
         finally:
             r.shutdown(drain=False, timeout=30)
+            ledger.disable()
+            ledger.reset()
         with pytest.raises(ValueError, match="non-empty"):
             ReplicaSpec(factory, devices=[])

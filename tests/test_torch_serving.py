@@ -658,8 +658,10 @@ def test_missing_features_fail_at_the_call(call, item):
     """What the engine lacks fails at the call: the adapter admin ops (A8,
     ported) on an engine built without ``lora_capacity`` and the KV-page
     handoff (A10, ported) on one without a prefix cache raise the
-    reference's RuntimeError naming what is missing; the features not
-    ported yet raise NotImplementedError naming their ROADMAP item."""
+    reference's RuntimeError naming what is missing. The program ledger
+    (A9b, ported) is what every engine has: with ``FLAGS_enable_ledger``
+    off ``profile()`` answers, as the reference's does, a shard with no
+    programs, named after its server."""
     model, _ = tiny_model()
     srv = Server(paged_engine(model), start=False,
                  admission_mode="reserved")
@@ -670,9 +672,9 @@ def test_missing_features_fail_at_the_call(call, item):
                     "A10": "prefix_cache=True"}[item]):
                 call(srv)
         else:
-            with pytest.raises(NotImplementedError,
-                               match=f"not ported yet \\(ROADMAP {item}"):
-                call(srv)
+            prof = call(srv)
+            assert prof["programs"] == {} and prof["top"] == []
+            assert prof["server"] == srv.monitor_server
     finally:
         srv.shutdown(drain=False)
 
@@ -776,12 +778,13 @@ class TestHTTPFrontend:
         ("POST", "/adapters/unload", "A8"), ("POST", "/kv/export", "A10"),
         ("POST", "/kv/import", "A10")])
     def test_routes_not_ported_answer_501(self, method, path, item):
-        """The routes of features not ported yet answer 501 naming their
-        ROADMAP item. The adapter admin routes (A8) and the KV-page handoff
-        routes (A10) are ported: on this engine, built without
-        ``lora_capacity`` and without a prefix cache, they answer the
-        reference's 400 naming what is missing (permanently unsupported
-        there, not a retryable 503)."""
+        """The routes of the features the port once lacked, each now ported.
+        The adapter admin routes (A8) and the KV-page handoff routes (A10):
+        on this engine, built without ``lora_capacity`` and without a
+        prefix cache, they answer the reference's 400 naming what is
+        missing (permanently unsupported there, not a retryable 503).
+        ``GET /profile`` (A9b) answers the reference's 200 with no programs
+        while ``FLAGS_enable_ledger`` is off (not a 404)."""
         model, _ = tiny_model()
         srv = Server(paged_engine(model), start=False)
         httpd = serve_http(srv)
@@ -789,15 +792,16 @@ class TestHTTPFrontend:
             req = Request(f"http://127.0.0.1:{httpd.server_address[1]}"
                           f"{path}", method=method,
                           data=b"{}" if method == "POST" else None)
+            if item == "A9b":
+                with urlopen(req, timeout=30) as r:
+                    assert r.status == 200
+                    assert json.load(r)["programs"] == {}
+                return
             with pytest.raises(HTTPError) as ei:
                 urlopen(req, timeout=30)
-            if item in ("A8", "A10"):
-                assert ei.value.code == 400
-                assert {"A8": "lora_capacity", "A10": "prefix_cache=True"}[
-                    item] in json.load(ei.value)["error"]
-                return
-            assert ei.value.code == 501
-            assert f"ROADMAP {item}" in json.load(ei.value)["error"]
+            assert ei.value.code == 400
+            assert {"A8": "lora_capacity", "A10": "prefix_cache=True"}[
+                item] in json.load(ei.value)["error"]
         finally:
             httpd.shutdown()
             srv.shutdown(drain=False)
