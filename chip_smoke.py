@@ -285,7 +285,24 @@ Phases, each timed, none caught and passed over:
    ``paged_attention`` and one attention forward and backward at the
    training shape under ``FLAGS_flash_head_batched``; launch and route
    counts held against the path's, K9 and K10 on their Hopper instances,
-   outputs finite and held against the plain versions.
+   outputs finite and held against the plain versions;
+9. the tensor surface on the card, this slice's main path, on the default
+   place (``set_device`` untouched): every op of the seven ops modules but
+   the random ones on CUDA tensors against the same op on CPU copies
+   (elementwise ops, reductions and manipulation at [64, 257], sort, search
+   and top-k over [8, 32000] fp32 logits, linalg at 256 x 256 and a batch
+   of 64 of 32 x 32 with a rank-deficient ``lstsq``; the factors held by
+   reconstruction; the gradient sweep's names by their gradients too;
+   every output on cuda:0); every random op twice after ``seed``, bitwise
+   equal, its moments at 2^24 draws within bounds and torch's generators
+   untouched; a ``PyLayer`` with a hand-written backward against the plain
+   function's gradient; the ``paddle.device`` CUDA calls; a Llama-2-7B
+   decoder layer (bf16, [1, 512] tokens, weights from ``--seed``) written
+   with the tensor API against the port's own layer (K1, K2 and K3
+   forward, K5 and K6 backward, launches counted), each held against the
+   tensor-API layer in fp32: the output's and the input gradient's error
+   of the tensor-API route at most twice the kernel route's plus one bf16
+   step; both routes' times printed beside each other.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -628,20 +645,23 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
          "server_pressure") + SPEC_PATHS + ("server_lora", "train", "fmt",
                                              "train_hb", "ops", "f32",
                                              "eager_fit", "fleet", "disagg",
-                                             "server_ledger")
-# this slice's path: the Server serve at 7B with the program ledger on
-# (phase 5's server_ledger leg), which runs K1, K2, K3 (one-shot and
-# prefix-chunk) and K4
-SLICE_PATHS = ("server_ledger",)
+                                             "server_ledger",
+                                             "tensor_surface")
+# this slice's path: phase 9's comparison route, the port's own Llama-2-7B
+# decoder layer forward and backward beside the tensor-API layer, which
+# runs K1, K2 and K3 forward and K5 and K6 backward
+SLICE_PATHS = ("tensor_surface",)
 # earlier slices' paths, in the order their counts stand in for a kernel
-# this slice does not run: the replica fleet's routed traffic and the
+# this slice does not run: the Server serve with the program ledger on,
+# the replica fleet's routed traffic and the
 # disaggregated front's wave, the LoRA Server's serve, the decode paths,
 # which run K4 and K7 (phase 5's through captured graphs), the chunked and
 # sampled serves, the serving
 # front's Server serve, the prefix-cache and memory-pressure legs, the
 # speculative Server serves and FMT (K8); then training, the eager
 # Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
-EARLIER_PATHS = (("fleet", "disagg", "server_lora", "serve", "serve_int8",
+EARLIER_PATHS = (("server_ledger", "fleet", "disagg", "server_lora", "serve",
+                  "serve_int8",
                   "generate", "dense_serve", "serve_chunked",
                   "serve_sampled", "server", "serve_prefix",
                   "server_pressure") + SPEC_PATHS
@@ -7132,6 +7152,914 @@ def ops_phase(torch, dev, np):
     return rec
 
 
+# -- phase 9: the tensor surface on the card ---------------------------------
+
+# the sweep's shapes: elementwise ops, reductions and manipulation at an odd
+# width; sort, search and top-k over fp32 logits of the Llama vocabulary;
+# linalg at one 256 x 256 matrix and a batch of 64 of 32 x 32
+SWEEP = dict(rows=64, cols=257, logits=(8, 32000), mat=256, batch=(64, 32),
+             rank=200)
+# the card against its CPU twin, |card - cpu| <= atol + rtol |cpu|: fp32 as
+# the CPU tests (rtol 1e-5, atol 1e-6), special functions rtol 1e-4, atol
+# 1e-5; a sum, scan or product over K terms adds K fp32 roundings of the
+# largest output to atol and rtol (the two devices add in other orders);
+# linalg at K = the matrix size, its factors by reconstruction
+SWEEP_TOL = dict(rtol=1e-5, atol=1e-6)
+SWEEP_SPECIAL = dict(rtol=1e-4, atol=1e-5)
+FP32_EPS = 2.0 ** -23
+# histc's bin of a value on a bin edge may differ between the devices
+HIST_ATOL = 2
+# the names the gradient sweep (tests/test_check_grad_sweep.py) checks: the
+# card's gradient is held against the CPU twin's as well
+SWEEP_GRAD = set("""
+abs absolute acos acosh add add_n addmm amax amin angle as_real asin
+asinh assign atan atan2 atanh bmm broadcast_to cdist ceil cholesky
+cholesky_solve chunk clip clone concat cond conj copysign corrcoef cos
+cosh cov crop cross cummax cummin cumprod cumsum cumulative_trapezoid
+deg2rad det diag diagflat diagonal diff digamma dist divide
+divide_no_nan dot eigh eigvalsh einsum erf erfinv exp expand expand_as
+expm1 flatten flip floor floor_divide floor_mod fmax fmin frac gather
+gather_nd heaviside hypot i0 i0e i1 i1e imag increment index_add
+index_fill index_put index_sample index_select inner inv inverse kron
+kthvalue ldexp lerp lgamma log log10 log1p log2 logaddexp logcumsumexp
+logit logsumexp masked_fill masked_select matmul matrix_power max
+maximum mean median meshgrid min minimum mm mod moveaxis multi_dot
+multiplex multiply mv nan_to_num nanmean nanquantile nansum neg negative
+norm outer pad pinv polygamma pow prod put_along_axis qr quantile
+rad2deg real reciprocal remainder renorm repeat_interleave reshape
+reverse roll rot90 round rsqrt scale scatter scatter_nd scatter_nd_add
+sgn sigmoid sign sin sinh slice slogdet solve sort split sqrt square
+squeeze stack stanh std strided_slice subtract sum svd swapaxes t take
+take_along_axis tan tanh tensor_split tensordot tile topk trace
+transpose trapezoid triangular_solve tril triu trunc unflatten unfold
+unsqueeze vander var vsplit where""".split())
+SPECIAL_FNS = {"digamma", "lgamma", "polygamma", "erfinv", "i0", "i0e",
+               "i1", "i1e", "erf", "logit", "atanh", "acosh", "asinh"}
+# 2^24 draws of each random op on the card; moments within 6 standard
+# errors (mean) and 1% (standard deviation)
+RANDOM_N = 1 << 24
+# the tensor-API decoder layer at Llama-2-7B's widths against the port's
+# kernel layer, over [1, 512] tokens
+TENSOR_LAYER = dict(preset="7b", batch=1, seq=512, reps=3)
+
+
+def surface_cases(torch, pt, np):
+    """name -> [(fn(P, *args), args, tol)]: a case of every op of the seven
+    ops modules but the random ones, on CPU tensors made from a fixed seed
+    (the card runs them on copies). ``tol`` is None (fp32), "special", an
+    int K (a sum of K terms), "exact", "hist" (counts within HIST_ATOL) or
+    "recon" (a factorization's reconstruction and invariants, within 1e-4
+    of the largest magnitude)."""
+    g = torch.Generator().manual_seed(91)
+    R, C = SWEEP["rows"], SWEEP["cols"]
+    V, L = SWEEP["logits"]
+    M, (NB, NM) = SWEEP["mat"], SWEEP["batch"]
+
+    def nrm(*s, scale=1.0):
+        return torch.randn(*s, generator=g) * scale
+
+    def uni(*s, lo=0.1, hi=0.9):
+        return torch.rand(*s, generator=g) * (hi - lo) + lo
+
+    def ints(*s, lo=0, hi=6):
+        return torch.randint(lo, hi, s, generator=g)
+
+    def well(n, *batch):
+        """A well-conditioned general matrix: I + G / (2 sqrt(n))."""
+        return torch.eye(n) + nrm(*batch, n, n) / (2 * n ** 0.5)
+
+    def spd(n, *batch):
+        a = nrm(*batch, n, n) / n ** 0.5
+        return a @ a.transpose(-1, -2) + torch.eye(n)
+
+    x, y, yb = uni(R, C), uni(R, C, lo=0.5, hi=1.5), uni(C, lo=0.5, hi=1.5)
+    s = nrm(R, C) * 3
+    logits = nrm(V, L) * 4
+    idx = ints(50, hi=R)
+    mask = nrm(R, C) > 0
+    cases = {}
+
+    def add(name, fn, args, tol=None):
+        cases.setdefault(name, []).append((fn, args, tol))
+
+    unary_signed = {"abs", "absolute", "neg", "negative", "sign", "sgn",
+                    "round", "floor", "ceil", "trunc", "frac", "square",
+                    "exp", "expm1", "sin", "cos", "tan", "atan", "sinh",
+                    "cosh", "tanh", "asinh", "sigmoid", "erf", "deg2rad",
+                    "rad2deg", "angle", "conj", "real", "imag", "i0", "i1",
+                    "i0e", "i1e", "stanh"}
+    unary_pos = {"log", "log2", "log10", "log1p", "sqrt", "rsqrt",
+                 "reciprocal", "acos", "asin", "atanh", "erfinv",
+                 "digamma", "lgamma", "logit"}
+    for name in sorted(unary_signed | unary_pos):
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t),
+            [s if name in unary_signed else x],
+            "special" if name in SPECIAL_FNS else None)
+    add("acosh", lambda P, t: P.acosh(t), [x + 1.5], "special")
+    add("polygamma", lambda P, t: P.polygamma(t, 1), [x + 1.0], "special")
+    for name in ("add", "subtract", "multiply", "divide", "maximum",
+                 "minimum", "fmax", "fmin", "atan2", "hypot", "logaddexp",
+                 "copysign", "pow", "heaviside", "divide_no_nan", "mod",
+                 "remainder", "floor_mod", "floor_divide", "nextafter"):
+        add(name, lambda P, a, b, _n=name: getattr(P, _n)(a, b), [s, yb],
+            R)                        # yb's gradient sums R rows
+        add(name, lambda P, a, b, _n=name: getattr(P, _n)(a, b),
+            [x, y] if name != "pow" else [y, x])
+    for name in ("gcd", "lcm"):
+        add(name, lambda P, a, b, _n=name: getattr(P, _n)(a, b),
+            [ints(R, C, lo=1, hi=90), ints(C, lo=1, hi=60)], "exact")
+    add("ldexp", lambda P, a, b: P.ldexp(a, b), [s, ints(R, C, lo=-3, hi=4)])
+    add("lerp", lambda P, a, b: P.lerp(a, b, 0.3), [s, y])
+    add("scale", lambda P, t: P.scale(t, 2.0, 0.5), [s])
+    add("clip", lambda P, t: P.clip(t, -1.0, 2.0), [s])
+    add("stanh", lambda P, t: P.stanh(t, 0.5, 2.0), [s])
+    add("multiplex", lambda P, a, b, i: P.multiplex([a, b], i),
+        [s, y, ints(R, 1, hi=2)])
+    add("frexp", lambda P, t: P.frexp(t), [s * 100], "exact")
+    add("nan_to_num", lambda P, t: P.nan_to_num(
+        P.where(t > 2.0, P.full_like(t, float("nan")), t), nan=0.5), [s])
+    add("increment", lambda P, t: P.increment(P.clone(t), 2.0), [s])
+    add("vander", lambda P, t: P.vander(t, 8), [uni(C)], 8)
+    add("renorm", lambda P, t: P.renorm(t, 2.0, 0, 5.0), [s], C)
+    for name in ("sum", "mean", "max", "min", "amax", "amin", "nansum",
+                 "nanmean", "logsumexp"):
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t, axis=-1,
+                                                       keepdim=True), [s], C)
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t), [s], R * C)
+    add("prod", lambda P, t: P.prod(t, axis=0), [uni(R, C, lo=0.9, hi=1.1)],
+        R)
+    for name in ("all", "any"):
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t, axis=-1), [s > -3])
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t), [s > -3])
+    add("count_nonzero", lambda P, t: P.count_nonzero(t, axis=0),
+        [ints(R, C, hi=3)], "exact")
+    for name in ("std", "var"):
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t, axis=-1), [s], C)
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t, unbiased=False),
+            [s], R * C)
+    for name in ("median", "nanmedian"):
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t, axis=-1), [s])
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t[:, :-1], axis=-1),
+            [s])                                  # an even count
+    add("quantile", lambda P, t: P.quantile(t, [0.1, 0.5, 0.9], axis=-1),
+        [s])
+    add("nanquantile", lambda P, t: P.nanquantile(t, 0.3, axis=0), [s])
+    for name in ("cumsum", "logcumsumexp"):
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t, axis=-1), [s], C)
+    add("cumprod", lambda P, t: P.cumprod(t, dim=1),
+        [uni(R, C, lo=0.95, hi=1.05)], C)
+    for name in ("cummax", "cummin"):
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t, axis=-1), [s])
+    add("addmm", lambda P, i, a, b: P.addmm(i, a, b), [nrm(R, R), s, s.T], C)
+    add("inner", lambda P, a, b: P.inner(a, b), [s, y], C)
+    add("outer", lambda P, a, b: P.outer(a, b), [s[0], y[0]], C)
+    add("kron", lambda P, a, b: P.kron(a, b), [s[:8, :8], y[:4, :4]], R)
+    add("trace", lambda P, t: P.trace(t, offset=3), [s], R)
+    add("diff", lambda P, t: P.diff(t, axis=-1), [s], 4)
+    add("diff", lambda P, t: P.diff(t, n=2, axis=0, prepend=1.0), [s], 4)
+    add("trapezoid", lambda P, t: P.trapezoid(t, axis=-1), [s], C)
+    add("cumulative_trapezoid", lambda P, t: P.cumulative_trapezoid(
+        t, axis=-1), [s], C)
+    add("add_n", lambda P, a, b: P.add_n([a, b, a]), [s, y])
+    # creation, on the default place (the card) and its CPU twin
+    add("zeros", lambda P: P.zeros([R, C]), [])
+    add("ones", lambda P: P.ones([R, C], dtype="int32"), [])
+    add("full", lambda P: P.full([R, C], 1.5), [])
+    add("empty", lambda P: P.empty([R, C]).shape, [], "exact")
+    add("zeros_like", lambda P, t: P.zeros_like(t), [s])
+    add("ones_like", lambda P, t: P.ones_like(t, dtype="bfloat16"), [s])
+    add("full_like", lambda P, t: P.full_like(t, 7), [s])
+    add("empty_like", lambda P, t: P.empty_like(t).shape, [s], "exact")
+    add("arange", lambda P: P.arange(0, C, 3), [])
+    add("arange", lambda P: P.arange(0.0, 1.0, 0.125), [])
+    add("linspace", lambda P: P.linspace(-1, 1, C), [])
+    add("logspace", lambda P: P.logspace(0, 3, 17, base=2.0), [])
+    add("eye", lambda P: P.eye(R, C), [])
+    add("diag", lambda P, t: P.diag(t), [s])
+    add("diag", lambda P, t: P.diag(t, offset=1, padding_value=2.0), [s[0]])
+    add("diagflat", lambda P, t: P.diagflat(t), [s[0]])
+    add("tril", lambda P, t: P.tril(t, -1), [s])
+    add("triu", lambda P, t: P.triu(t, 2), [s])
+    add("meshgrid", lambda P, a, b: P.meshgrid(a, b), [s[0], y[0]], C)
+    add("assign", lambda P, t: P.assign(t), [s])
+    add("clone", lambda P, t: P.clone(t), [s])
+    add("to_tensor", lambda P: P.to_tensor([[1.5, 2.0], [3.0, 4.0]]), [])
+    add("tril_indices", lambda P: P.tril_indices(R, C, 1), [], "exact")
+    add("triu_indices", lambda P: P.triu_indices(R, C, -1), [], "exact")
+    add("one_hot", lambda P, t: P.one_hot(t, C), [ints(R, hi=C)])
+    add("complex", lambda P, a, b: P.complex(a, b), [s, y])
+    add("polar", lambda P, a, b: P.polar(a, b), [y, s])
+    add("create_tensor", lambda P: P.create_tensor("float32"), [])
+    # manipulation
+    v3 = nrm(4, 16, C)
+    add("reshape", lambda P, t: P.reshape(t, [C, -1]), [s])
+    add("reshape_", lambda P, t: P.reshape_(P.clone(t), [-1]), [s])
+    add("flatten", lambda P, t: P.flatten(t, 1, -1), [v3])
+    add("unflatten", lambda P, t: P.unflatten(t, 0, [8, 8]), [s])
+    add("squeeze", lambda P, t: P.squeeze(P.unsqueeze(t, [0, -1]), [0, -1]),
+        [s])
+    add("unsqueeze", lambda P, t: P.unsqueeze(t, [-1, 0]), [s])
+    add("transpose", lambda P, t: P.transpose(t, [2, 0, 1]), [v3])
+    add("moveaxis", lambda P, t: P.moveaxis(t, -1, 0), [v3])
+    add("swapaxes", lambda P, t: P.swapaxes(t, 0, -1), [v3])
+    add("t", lambda P, t: P.t(t), [s])
+    add("concat", lambda P, a, b: P.concat([a, b], axis=-1), [s, y])
+    add("stack", lambda P, a, b: P.stack([a, b], axis=-1), [s, y])
+    add("unstack", lambda P, t: P.unstack(t, axis=1), [v3])
+    add("unbind", lambda P, t: P.unbind(t, axis=0), [v3])
+    add("split", lambda P, t: P.split(t, [100, -1, 7], axis=-1), [s])
+    add("chunk", lambda P, t: P.chunk(t, 4, axis=0), [s])
+    add("tensor_split", lambda P, t: P.tensor_split(t, 3, axis=-1), [s])
+    add("vsplit", lambda P, t: P.vsplit(t, 2), [s])
+    add("tile", lambda P, t: P.tile(t, [2, 1]), [s], 2)
+    add("expand", lambda P, t: P.expand(t, [3, R, C]), [s], 3)
+    add("expand_as", lambda P, a, b: P.expand_as(a, b), [yb, s], R)
+    add("broadcast_to", lambda P, t: P.broadcast_to(t, [R, C]), [yb], R)
+    add("broadcast_tensors", lambda P, a, b: P.broadcast_tensors([a, b]),
+        [s[:, :1], yb])
+    add("broadcast_shape", lambda P: P.broadcast_shape([R, 1], [1, C]), [],
+        "exact")
+    add("flip", lambda P, t: P.flip(t, [0, -1]), [s])
+    add("reverse", lambda P, t: P.reverse(t, 1), [s])
+    add("rot90", lambda P, t: P.rot90(t, 3), [s])
+    add("roll", lambda P, t: P.roll(t, 5, axis=-1), [s])
+    add("gather", lambda P, t, i: P.gather(t, i, axis=0), [s, idx], 50)
+    add("gather_nd", lambda P, t, i: P.gather_nd(t, i),
+        [s, torch.stack([ints(40, hi=R), ints(40, hi=C)], -1)], 40)
+    add("scatter", lambda P, t, i, u: P.scatter(t, i, u),
+        [s, torch.randperm(R, generator=g)[:20], nrm(20, C)])
+    add("scatter", lambda P, t, i, u: P.scatter(t, i, u, overwrite=False),
+        [s, idx, nrm(50, C)], 50)
+    add("scatter_nd_add", lambda P, t, i, u: P.scatter_nd_add(t, i, u),
+        [s, idx[:, None], nrm(50, C)], 50)
+    add("scatter_nd", lambda P, i, u: P.scatter_nd(i, u, [R, C]),
+        [idx[:, None], nrm(50, C)], 50)
+    add("index_select", lambda P, t, i: P.index_select(t, i, axis=-1),
+        [s, ints(30, hi=C)], 30)
+    add("index_sample", lambda P, t, i: P.index_sample(t, i),
+        [s, ints(R, 9, hi=C)], 9)
+    add("index_add", lambda P, t, i, u: P.index_add(t, i, 0, u),
+        [s, idx, nrm(50, C)], 50)
+    add("index_put", lambda P, t, i, u: P.index_put(t, [i], u, True),
+        [s, idx, nrm(50, C)], 50)
+    add("index_fill", lambda P, t, i: P.index_fill(t, i, 1, -2.0),
+        [s, ints(10, hi=C)])
+    add("index_fill_", lambda P, t, i: P.index_fill_(P.clone(t), i, 0, 3.0),
+        [s, idx])
+    add("take_along_axis", lambda P, t, i: P.take_along_axis(t, i, axis=-1),
+        [s, ints(R, 11, hi=C)], 11)
+    add("put_along_axis", lambda P, t, i, u: P.put_along_axis(
+        t, i, u, axis=-1), [s, torch.argsort(nrm(R, C), -1)[:, :11],
+                            nrm(R, 11)])
+    add("put_along_axis", lambda P, t, i: P.put_along_axis(
+        t, i, 1.0, axis=0, reduce="add"), [s, ints(5, C, hi=R)], 5)
+    add("slice", lambda P, t: P.slice(t, [0, 1], [3, -100], [40, 250]), [s])
+    add("strided_slice", lambda P, t: P.strided_slice(
+        t, [0, 1], [R - 1, 200], [0, 3], [-2, -5]), [s])
+    add("crop", lambda P, t: P.crop(t, [10, -1], [5, 100]), [s])
+    add("pad", lambda P, t: P.pad(t, [1, 2, 3, 4]), [s])
+    add("pad", lambda P, t: P.pad(t, [2, 3], mode="reflect"), [v3], 4)
+    add("pad", lambda P, t: P.pad(t, [1, 1, 2, 2], mode="replicate"),
+        [v3[None]], 4)
+    add("pad", lambda P, t: P.pad(t, [3, 1], mode="circular",
+                                  data_format="NLC"), [v3], 4)
+    add("repeat_interleave", lambda P, t: P.repeat_interleave(t, 3, 0), [s],
+        3)
+    add("as_strided", lambda P, t: _raises(NotImplementedError, P.as_strided,
+                                           t, [2], [1]), [s], "exact")
+    add("view", lambda P, t: P.view(t, [C, R]), [s])
+    add("view", lambda P, t: P.view(t, "int32"), [s], "exact")
+    add("view_as", lambda P, a, b: P.view_as(a, b), [s, s.T])
+    add("unfold", lambda P, t: P.unfold(t, 1, 16, 8), [s], 2)
+    add("masked_fill", lambda P, t, m: P.masked_fill(t, m, 0.5), [s, mask])
+    add("masked_select", lambda P, t, m: P.masked_select(t, m), [s, mask])
+    add("where", lambda P, c, a, b: P.where(c, a, b), [mask, s, yb], R)
+    add("where", lambda P, c: P.where(c), [mask], "exact")
+    add("numel", lambda P, t: P.numel(t), [s], "exact")
+    add("rank", lambda P, t: P.rank(t), [v3], "exact")
+    add("shape", lambda P, t: P.shape(t), [v3], "exact")
+    add("shard_index", lambda P, t: P.shard_index(t, 32000, 4, 2),
+        [ints(R, C, hi=32000)], "exact")
+    add("cast", lambda P, t: P.cast(t, "bfloat16"), [s])
+    add("cast", lambda P, t: P.cast(t, "int64"), [s * 10], "exact")
+    add("take", lambda P, t, i: P.take(t, i, mode="wrap"),
+        [s, ints(100, lo=-R * C, hi=2 * R * C)], 100)
+    add("diagonal", lambda P, t: P.diagonal(t, 2, 0, -1), [v3])
+    add("as_complex", lambda P, t: P.as_complex(t),
+        [s[:, :2 * (C // 2)].reshape(R, -1, 2)])
+    add("as_real", lambda P, a, b: P.as_real(P.complex(a, b)), [s, y])
+    # logic
+    for name in ("equal", "not_equal", "greater_than", "greater_equal",
+                 "less_than", "less_equal"):
+        add(name, lambda P, a, b, _n=name: getattr(P, _n)(a, b),
+            [torch.round(s), torch.round(yb)], "exact")
+    for name in ("logical_and", "logical_or", "logical_xor"):
+        add(name, lambda P, a, b, _n=name: getattr(P, _n)(a, b),
+            [mask, yb > 1], "exact")
+    for name in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        add(name, lambda P, a, b, _n=name: getattr(P, _n)(a, b),
+            [ints(R, C, hi=1 << 20), ints(C, hi=1 << 20)], "exact")
+    add("logical_not", lambda P, t: P.logical_not(t), [mask], "exact")
+    add("bitwise_not", lambda P, t: P.bitwise_not(t), [ints(R, C, hi=99)],
+        "exact")
+    inf = torch.where(mask, s, torch.tensor([float("inf"), float("nan"),
+                                             -float("inf")]).repeat(C)[:C])
+    for name in ("isnan", "isinf", "isfinite"):
+        add(name, lambda P, t, _n=name: getattr(P, _n)(t), [inf], "exact")
+    add("equal_all", lambda P, a, b: (P.equal_all(a, b), P.equal_all(a, a)),
+        [s, y], "exact")
+    add("allclose", lambda P, a, b: P.allclose(a, a + 1e-7), [s, y], "exact")
+    add("isclose", lambda P, a, b: P.isclose(a, b, atol=0.5), [s, y],
+        "exact")
+    add("is_empty", lambda P, t: (P.is_empty(t), P.is_empty(t[:0])), [s],
+        "exact")
+    add("isin", lambda P, a, b: P.isin(a, b),
+        [ints(R, C, hi=500), ints(100, hi=500)], "exact")
+    add("is_complex", lambda P, t: P.is_complex(t), [s], "exact")
+    add("is_floating_point", lambda P, t: P.is_floating_point(t), [s],
+        "exact")
+    add("is_integer", lambda P, t: P.is_integer(t), [idx], "exact")
+    # search, sort and top-k over the vocabulary's logits
+    add("argmax", lambda P, t: P.argmax(t, axis=-1), [logits], "exact")
+    add("argmax", lambda P, t: P.argmax(t), [logits], "exact")
+    add("argmin", lambda P, t: P.argmin(t, axis=-1, keepdim=True), [logits],
+        "exact")
+    add("argsort", lambda P, t: P.argsort(t, descending=True), [logits],
+        "exact")
+    add("sort", lambda P, t: P.sort(t, axis=-1), [logits])
+    add("topk", lambda P, t: P.topk(t, 50), [logits])
+    add("topk", lambda P, t: P.topk(t, 20, largest=False), [logits])
+    add("kthvalue", lambda P, t: P.kthvalue(t, 1000, axis=-1), [logits])
+    add("mode", lambda P, t: P.mode(P.round(t), axis=-1), [logits])
+    add("nonzero", lambda P, t: P.nonzero(t > 9.0), [logits], "exact")
+    add("masked_select", lambda P, t: P.masked_select(t, t > 9.0), [logits])
+    srt = torch.sort(logits[0]).values
+    add("searchsorted", lambda P, a, b: P.searchsorted(a, b, right=True),
+        [srt, logits[1:]], "exact")
+    add("bucketize", lambda P, a, b: P.bucketize(a, b), [logits, srt],
+        "exact")
+    add("unique", lambda P, t: P.unique(P.round(t), return_index=True,
+                                        return_inverse=True,
+                                        return_counts=True), [logits],
+        "exact")
+    add("unique_consecutive", lambda P, t: P.unique_consecutive(
+        P.round(t), return_inverse=True, return_counts=True), [logits],
+        "exact")
+    # linalg: [256, 256] and a batch [64, 32, 32]
+    A, B = well(M), nrm(M, 8)
+    Ab, Bb = well(NM, NB), nrm(NB, NM, 4)
+    S, Sb = spd(M), spd(NM, NB)
+    for a, b, k in ((A, B, M), (Ab, Bb, NM)):
+        add("matmul", lambda P, p, q: P.matmul(p, q, transpose_x=True),
+            [a, a], k)
+        add("mm", lambda P, p, q: P.mm(p, q), [a, b], k)
+        add("bmm", lambda P, p, q: P.bmm(p, q), [a, b], k)
+        add("solve", lambda P, p, q: P.solve(p, q), [a, b], k)
+        add("inverse", lambda P, p: P.inverse(p), [a], k)
+        add("inv", lambda P, p: P.inv(p), [a], k)
+        add("det", lambda P, p: P.det(p), [a], k)
+        add("slogdet", lambda P, p: P.slogdet(p), [a], k)
+        add("matrix_power", lambda P, p: P.matrix_power(p, 3), [a], k)
+        add("pinv", lambda P, p: P.pinv(p), [a], k)
+        add("cond", lambda P, p: P.cond(p), [a], k)
+        add("matrix_rank", lambda P, p: P.matrix_rank(p), [a], "exact")
+        add("norm", lambda P, p: P.norm(p, p="fro", axis=[-2, -1]), [a], k)
+        add("norm", lambda P, p: P.norm(p, p=2, axis=[-2, -1]), [a], k)
+        add("cholesky", lambda P, p: P.cholesky(p), [S if k == M else Sb], k)
+        add("cholesky_solve", lambda P, q, p: P.cholesky_solve(
+            q, P.cholesky(p)), [b, S if k == M else Sb], k)
+        add("triangular_solve", lambda P, p, q: P.triangular_solve(
+            P.triu(p), q), [a, b], k)
+        add("eigvalsh", lambda P, p: P.eigvalsh(p), [S if k == M else Sb], k)
+        add("lu", lambda P, p: P.lu(p), [a], k)
+        add("householder_product", lambda P, p, q: P.householder_product(
+            p, q), [a[:, :8] if k == M else a,
+                    uni(8, lo=0.0, hi=1.0) if k == M else uni(NB, NM,
+                                                               lo=0.0,
+                                                               hi=1.0)], k)
+        for name in ("qr", "svd", "eigh", "eig", "eigvals", "lu_unpack"):
+            add(name, _recon(name), [S if name == "eigh" and k == M else
+                                     Sb if name == "eigh" else a], "recon")
+    add("dot", lambda P, p, q: P.dot(p, q), [s, y], C)
+    add("mv", lambda P, p, q: P.mv(p, q), [A, B[:, 0]], M)
+    add("multi_dot", lambda P, p, q, r: P.multi_dot([p, q, r]),
+        [A, A, B], 2 * M)
+    add("einsum", lambda P, p, q: P.einsum("bij,bjk->bik", p, q),
+        [Ab, Bb], NM)
+    add("tensordot", lambda P, p, q: P.tensordot(p, q, 1), [A, B], M)
+    add("norm", lambda P, t: P.norm(t, p=3, axis=-1), [s], C)
+    add("dist", lambda P, p, q: P.dist(p, q, 1), [s, y], R * C)
+    add("cross", lambda P, p, q: P.cross(p, q, axis=-1), [nrm(R, 3),
+                                                          nrm(R, 3)])
+    add("cdist", lambda P, p, q: P.cdist(p, q), [nrm(R, 16), nrm(40, 16)], 16)
+    add("histogram", lambda P, t: P.histogram(t, bins=32), [s], "hist")
+    add("bincount", lambda P, t: P.bincount(t, minlength=100),
+        [ints(R * C, hi=90)], "exact")
+    add("corrcoef", lambda P, t: P.corrcoef(t), [s[:16]], C)
+    add("cov", lambda P, t: P.cov(t, rowvar=False), [s[:, :16]], R)
+    # rank 200: singular values in [1, 2] and 56 zeros
+    r = SWEEP["rank"]
+    qa, _ = torch.linalg.qr(nrm(M, M))
+    qb, _ = torch.linalg.qr(nrm(M, M))
+    rd = (qa[:, :r] * uni(r, lo=1.0, hi=2.0)) @ qb[:, :r].T
+    add("lstsq", lambda P, p, q: P.lstsq(p, q), [rd, nrm(M, 4)], "recon")
+    add("lstsq", lambda P, p, q: P.lstsq(p, q), [A, B], "recon")
+    return cases
+
+
+def _raises(exc, fn, *args):
+    try:
+        fn(*args)
+    except exc:
+        return True
+    return False
+
+
+def _recon(name):
+    """A factorization whose factors are free up to signs, phases or
+    order, as a function returning what is unique: the reconstruction of
+    the input from the factors and the factors' invariants."""
+    def fn(P, a):
+        import torch
+
+        if name == "qr":
+            q, r = P.qr(a)
+            return q @ r, q.transpose(-1, -2) @ q, torch.abs(
+                torch.diagonal(r, dim1=-2, dim2=-1))
+        if name == "svd":
+            u, s, vh = P.svd(a)
+            return (u * s[..., None, :]) @ vh, u.transpose(-1, -2) @ u, s
+        if name == "eigh":
+            w, v = P.eigh(a)
+            return a @ v - v * w[..., None, :], w
+        if name == "eig":
+            w, v = P.eig(a)
+            ac = a.to(v.dtype)
+            return torch.abs(ac @ v - v * w[..., None, :]), \
+                torch.sort(torch.abs(w), -1).values
+        if name == "eigvals":
+            return torch.sort(torch.abs(P.eigvals(a)), -1).values
+        p, l_, u = P.lu_unpack(*P.lu(a))
+        return p @ l_ @ u
+    return fn
+
+
+def _tensors(x):
+    """Every tensor in a nested output, in order; other leaves as they
+    are."""
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return [x]
+
+
+def _sweep_tol(tol, want):
+    scale = max(float(want.abs().max()), 1.0)
+    if tol == "special":
+        return SWEEP_SPECIAL
+    if tol == "recon":
+        return dict(rtol=1e-4, atol=1e-4 * scale)
+    if isinstance(tol, int):
+        return dict(rtol=max(1e-5, 4 * tol * FP32_EPS),
+                    atol=1e-6 + 4 * tol * FP32_EPS * scale)
+    return SWEEP_TOL
+
+
+def sweep_compare(torch, name, got, want, tol, dev):
+    """The card's output against the CPU twin's; raises unless every
+    tensor of it lies on ``dev``. Returns the largest |error| of a float
+    output (0 for exact ones)."""
+    g, w = _tensors(got), _tensors(want)
+    if len(g) != len(w):
+        raise AssertionError(f"sweep {name}: {len(g)} outputs on the card, "
+                             f"{len(w)} on the CPU")
+    worst = 0.0
+    for a, b in zip(g, w):
+        if not isinstance(a, torch.Tensor):
+            if a != b:
+                raise AssertionError(f"sweep {name}: {a!r} != {b!r}")
+            continue
+        if a.device != dev:
+            raise AssertionError(f"sweep {name}: an output on {a.device}, "
+                                 f"not {dev}")
+        a, b = a.detach().cpu(), b.detach()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"sweep {name}: {a.shape} {a.dtype} on the "
+                                 f"card, {b.shape} {b.dtype} on the CPU")
+        if tol == "hist":
+            if a.numel() and float((a - b).abs().max()) > HIST_ATOL:
+                raise AssertionError(f"sweep {name}: counts differ by more "
+                                     f"than {HIST_ATOL}")
+            continue
+        if not (a.is_floating_point() or a.is_complex()) or tol == "exact":
+            if not torch.equal(a, b):
+                raise AssertionError(f"sweep {name}: exact outputs differ")
+            continue
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        a, b = a.double(), b.double()
+        if a.numel() == 0:
+            continue
+        t = _sweep_tol(tol, b)
+        nan = torch.isnan(a) | torch.isnan(b)
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"sweep {name}: NaNs differ")
+        err = (a - b).abs().masked_fill(nan, 0)
+        inf_same = torch.isinf(b) & (a == b)
+        err = err.masked_fill(inf_same, 0)
+        bad = err > t["atol"] + t["rtol"] * b.abs().masked_fill(nan, 0)
+        if bad.any():
+            raise AssertionError(
+                f"sweep {name}: {int(bad.sum())} elements past atol "
+                f"{t['atol']:.3g} + rtol {t['rtol']:.3g} |cpu|, max |err| "
+                f"{float(err.max()):.3g}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+class _cpu_place:
+    """Make the CPU the current place for a CPU twin's creation ops and put
+    the card's default back after."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.core import place
+
+        self.prev = place._current[0]
+        place.set_device("cpu")
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.core import place
+
+        place._current[0] = self.prev
+        return False
+
+
+def _leaves(torch, args, dev, grad):
+    out = []
+    for a in args:
+        t = a.to(dev) if isinstance(a, torch.Tensor) else a
+        if grad and isinstance(t, torch.Tensor) and t.is_floating_point():
+            t = t.clone().requires_grad_()
+        out.append(t)
+    return out
+
+
+def _grads(torch, pt, out, leaves):
+    """The gradients of sum(out * w) (w a fixed ramp) with respect to the
+    float leaves; zeros for a leaf the graph leaves unused."""
+    ts = [t for t in _tensors(out) if isinstance(t, torch.Tensor)]
+    out = ts[0]
+    if not (out.is_floating_point() and out.requires_grad):
+        return None
+    w = torch.linspace(-1, 1, out.numel(), dtype=out.dtype,
+                       device=out.device).reshape(out.shape)
+    fl = [t for t in leaves if isinstance(t, torch.Tensor)
+          and t.requires_grad]
+    gs = pt.grad(pt.sum(out * w), fl, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(fl, gs)]
+
+
+def surface_sweep(torch, pt, np, dev):
+    """Every op of the seven ops modules but the random ones, on CUDA
+    tensors on the default place, against the same op on CPU copies (the
+    CPU twin's creation ops under ``set_device("cpu")``); the gradient sweep's
+    names by their gradients as well. Returns counts, the largest errors by
+    name and the seconds."""
+    from paddle_tpu_torch.ops import (creation, linalg, logic, manipulation,
+                                      math, random, search)
+
+    t0 = time.perf_counter()
+    cases = surface_cases(torch, pt, np)
+    names = {n for m in (creation, math, manipulation, logic, search, linalg)
+             for n in m.__all__} - {"pca_lowrank"}
+    missing = sorted(names - set(cases))
+    if missing or set(cases) - names:
+        raise AssertionError(f"sweep: no case for {missing}, or cases of "
+                             f"unknown ops {sorted(set(cases) - names)}")
+    worst, n_cases, n_grads = {}, 0, 0
+    for name in sorted(cases):
+        for i, (fn, args, tol) in enumerate(cases[name]):
+            grad = name in SWEEP_GRAD and tol not in ("exact", "recon")
+            card_in = _leaves(torch, args, dev, grad)
+            got = fn(pt, *card_in)
+            with _cpu_place():
+                cpu_in = _leaves(torch, args, torch.device("cpu"), grad)
+                want = fn(pt, *cpu_in)
+            err = sweep_compare(torch, f"{name}[{i}]", got, want, tol, dev)
+            if grad:
+                g_card = _grads(torch, pt, got, card_in)
+                g_cpu = _grads(torch, pt, want, cpu_in)
+                if (g_card is None) != (g_cpu is None):
+                    raise AssertionError(f"sweep {name}[{i}]: a gradient on "
+                                         f"one device only")
+                if g_card is not None:
+                    err = max(err, sweep_compare(
+                        torch, f"{name}[{i}] grad", g_card, g_cpu,
+                        tol if tol is not None else 1, dev))
+                    n_grads += 1
+            worst[name] = max(worst.get(name, 0.0), err)
+            n_cases += 1
+    torch.cuda.synchronize()
+    return {"ops": len(cases), "cases": n_cases, "grad_cases": n_grads,
+            "max_abs_err": worst, "s": time.perf_counter() - t0}
+
+
+RANDOM_OPS = {
+    # name: (draw, mean, std) of the distribution drawn
+    "rand": (lambda pt, n: pt.rand([n]), 0.5, (1 / 12) ** 0.5),
+    "randn": (lambda pt, n: pt.randn([n]), 0.0, 1.0),
+    "standard_normal": (lambda pt, n: pt.standard_normal([n]), 0.0, 1.0),
+    "uniform": (lambda pt, n: pt.uniform([n], min=-2.0, max=3.0), 0.5,
+                (25 / 12) ** 0.5),
+    "uniform_": (lambda pt, n: pt.uniform_(pt.zeros([n]), 0.0, 2.0), 1.0,
+                 (4 / 12) ** 0.5),
+    "normal": (lambda pt, n: pt.normal(1.0, 2.0, [n]), 1.0, 2.0),
+    "normal_like": (lambda pt, n: pt.normal_like(pt.zeros([n]), -1.0, 0.5),
+                    -1.0, 0.5),
+    "rand_like": (lambda pt, n: pt.rand_like(pt.zeros([n])), 0.5,
+                  (1 / 12) ** 0.5),
+    "randn_like": (lambda pt, n: pt.randn_like(pt.zeros([n])), 0.0, 1.0),
+    "exponential_": (lambda pt, n: pt.exponential_(pt.zeros([n]), 2.0), 0.5,
+                     0.5),
+    "randint": (lambda pt, n: pt.randint(0, 10, [n]), 4.5, (99 / 12) ** 0.5),
+    "randint_like": (lambda pt, n: pt.randint_like(pt.zeros([n]), 0, 10),
+                     4.5, (99 / 12) ** 0.5),
+    "randperm": (lambda pt, n: pt.randperm(n), None, None),
+    "poisson": (lambda pt, n: pt.poisson(pt.full([n], 3.0)), 3.0, 3 ** 0.5),
+    "bernoulli": (lambda pt, n: pt.bernoulli(pt.full([n], 0.3)), 0.3,
+                  (0.21) ** 0.5),
+    "multinomial": (lambda pt, n: pt.multinomial(
+        pt.to_tensor([0.1, 0.2, 0.7]), n // 16, replacement=True), 1.6,
+        (0.44) ** 0.5),
+    "pca_lowrank": (lambda pt, n: pt.pca_lowrank(pt.randn([512, 64]), q=8)[1],
+                    None, None),
+}
+
+
+def random_on_card(torch, pt, dev):
+    """Each random op twice after ``seed``: bitwise equal draws, on the
+    card; 2^24 draws (2^20 for multinomial) with the mean within 6 standard
+    errors and the standard deviation within 1% of the distribution's."""
+    from paddle_tpu_torch.ops import random as rmod
+
+    t0 = time.perf_counter()
+    if set(RANDOM_OPS) != set(rmod.__all__) | {"pca_lowrank"}:
+        raise AssertionError("random: the checked ops are not the module's")
+    before = torch.cuda.get_rng_state()
+    moments = {}
+    for name, (draw, mean, std) in sorted(RANDOM_OPS.items()):
+        pt.seed(2024)
+        a = draw(pt, RANDOM_N)
+        pt.seed(2024)
+        b = draw(pt, RANDOM_N)
+        if a.device != dev or not torch.equal(a, b):
+            raise AssertionError(f"random {name}: on {a.device}, or two "
+                                 f"draws after one seed differ")
+        if name == "randperm":
+            if not torch.equal(torch.sort(a).values,
+                               torch.arange(RANDOM_N, device=dev)):
+                raise AssertionError("randperm: not a permutation")
+            continue
+        if mean is None:
+            continue
+        v = a.double()
+        m, sd = float(v.mean()), float(v.std())
+        se = std / v.numel() ** 0.5
+        moments[name] = {"mean": m, "std": sd}
+        if abs(m - mean) > 6 * se or abs(sd / std - 1) > 0.01:
+            raise AssertionError(f"random {name}: mean {m} std {sd}, the "
+                                 f"distribution's {mean} and {std}")
+    if not torch.equal(torch.cuda.get_rng_state(), before):
+        raise AssertionError("random: seed moved torch's CUDA generator")
+    torch.cuda.synchronize()
+    return {"draws": RANDOM_N, "moments": moments,
+            "s": time.perf_counter() - t0}
+
+
+def _decoder_layer(P, x, w, cos, sin, n_heads, eps):
+    """One Llama decoder layer with only the tensor surface's names (the
+    CPU test's ``decoder_layer``, tests/test_torch_tensor_core.py): RMSNorm,
+    RoPE and the softmax in fp32, the products in x's dtype."""
+    dt = x.dtype
+    b, s, h = x.shape
+    d = h // n_heads
+
+    def rms(t, g):
+        tf = P.cast(t, "float32")
+        y = tf * P.rsqrt(P.mean(P.multiply(tf, tf), axis=-1, keepdim=True)
+                         + eps)
+        return P.cast(y * P.cast(g, "float32"), dt)
+
+    def rope(t):
+        t1, t2 = P.split(P.cast(t, "float32"), 2, axis=-1)
+        c = P.reshape(P.cast(cos, "float32"), [1, s, 1, d // 2])
+        sn = P.reshape(P.cast(sin, "float32"), [1, s, 1, d // 2])
+        return P.cast(P.concat([t1 * c - t2 * sn, t2 * c + t1 * sn],
+                               axis=-1), dt)
+
+    def heads(t):
+        return P.transpose(P.reshape(t, [b, s, n_heads, d]), [0, 2, 1, 3])
+
+    hn = rms(x, w["ln1"])
+    q = rope(P.reshape(P.matmul(hn, w["wq"]), [b, s, n_heads, d]))
+    k = rope(P.reshape(P.matmul(hn, w["wk"]), [b, s, n_heads, d]))
+    q, k = P.transpose(q, [0, 2, 1, 3]), P.transpose(k, [0, 2, 1, 3])
+    v = heads(P.matmul(hn, w["wv"]))
+    scores = P.matmul(P.cast(q, "float32"), P.cast(k, "float32"),
+                      transpose_y=True) * (1.0 / float(d) ** 0.5)
+    causal = P.cast(P.tril(P.ones([s, s], dtype="float32")), "bool")
+    scores = P.where(causal, scores, P.full([s, s], -1e30, dtype="float32"))
+    e = P.exp(scores - P.max(scores, axis=-1, keepdim=True))
+    p = P.cast(e / P.sum(e, axis=-1, keepdim=True), dt)
+    ctx = P.reshape(P.transpose(P.matmul(p, v), [0, 2, 1, 3]), [b, s, h])
+    x = x + P.matmul(ctx, w["wo"])
+    hn = rms(x, w["ln2"])
+    g = P.matmul(hn, w["wg"])
+    act = P.multiply(P.multiply(g, P.sigmoid(g)), P.matmul(hn, w["wu"]))
+    return x + P.matmul(act, w["wd"])
+
+
+def _event_ms(torch, fn, reps):
+    """Median device ms of ``fn`` over ``reps`` calls after one warm-up,
+    each between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def tensor_layer(torch, pt, dev, seed):
+    """A Llama-2-7B decoder layer (hidden 4096, 32 heads of 128, FFN 11008,
+    bf16) from random weights made from ``seed``, over [1, 512] tokens, two
+    ways: the tensor-API layer (``_decoder_layer``, plain torch ops) and the
+    port's own LlamaForCausalLM layer (K1, K2 and K3 forward, K5 and K6
+    backward); the tensor-API layer in fp32 on the same weights is the
+    yardstick of both. Output and input gradient (``paddle_tpu_torch.grad``
+    of sum(out * w)): the tensor-API route's max error against the yardstick
+    must be at most twice the kernel route's plus one bf16 step (2^-7 of
+    the yardstick's largest magnitude). The kernel route's launches are
+    counted; the tensor-API route must launch none."""
+    from paddle_tpu_torch import LlamaForCausalLM, llama_config, ops
+
+    cfg = llama_config(TENSOR_LAYER["preset"], num_hidden_layers=1,
+                       dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device=dev, generator=gen)
+    layer = model.model.layers[0]
+    with torch.no_grad():
+        for norm in (layer.input_layernorm, layer.post_attention_layernorm):
+            norm.weight.add_(0.1 * torch.randn(norm.weight.shape,
+                                               generator=gen, device=dev))
+    parts = {"wq": layer.self_attn.q_proj, "wk": layer.self_attn.k_proj,
+             "wv": layer.self_attn.v_proj, "wo": layer.self_attn.o_proj,
+             "wg": layer.mlp.gate_proj, "wu": layer.mlp.up_proj,
+             "wd": layer.mlp.down_proj, "ln1": layer.input_layernorm,
+             "ln2": layer.post_attention_layernorm}
+    w16 = {k: m.weight.detach() for k, m in parts.items()}
+    w32 = {k: v.float() for k, v in w16.items()}
+    b, s = TENSOR_LAYER["batch"], TENSOR_LAYER["seq"]
+    x16 = torch.randn(b, s, cfg.hidden_size, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    gw = torch.randn(b, s, cfg.hidden_size, generator=gen, device=dev)
+    cos, sin = model.model._tables(s, x16)
+    nh, eps = cfg.num_attention_heads, cfg.rms_norm_eps
+
+    def api(xin, w):
+        return _decoder_layer(pt, xin, w, cos, sin, nh, eps)
+
+    def run(route, xin, w=None):
+        xin = xin.detach().requires_grad_()
+        out = (api(xin, w) if route == "api"
+               else layer(xin, cos, sin))
+        (g,) = pt.grad(pt.sum(out.float() * gw), [xin])
+        return out.detach().float(), g.float()
+
+    ref_out, ref_g = run("api", x16.float(), w32)
+    ops.reset_launch_counts()
+    api_out, api_g = run("api", x16, w16)
+    api_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    k_out, k_g = run("kernel", x16)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    if any(api_counts.values()):
+        raise AssertionError(f"tensor layer: the tensor-API route launched "
+                             f"{api_counts}")
+    check_launches(counts, expect(counts, rms_norm=2, fused_rope=4,
+                                  flash_fwd=1, flash_bwd_dq=1,
+                                  flash_bwd_dkv=1),
+                   "the kernel layer, forward and backward")
+    rec = {"config": f"{TENSOR_LAYER['preset']} x1 bf16, {b} x {s} tokens",
+           "launches": counts}
+    for what, ref, a, k in (("output", ref_out, api_out, k_out),
+                            ("input_grad", ref_g, api_g, k_g)):
+        if not (torch.isfinite(a).all() and torch.isfinite(k).all()):
+            raise AssertionError(f"tensor layer {what}: non-finite")
+        step = BF16_STEP * float(ref.abs().max())
+        e_api = float((a - ref).abs().max())
+        e_k = float((k - ref).abs().max())
+        rec[what] = {"api_max_abs_err": e_api, "kernel_max_abs_err": e_k,
+                     "bf16_step": step}
+        if e_api > 2 * e_k + step:
+            raise AssertionError(
+                f"tensor layer {what}: the tensor-API route's max |err| "
+                f"{e_api:.4g} against the fp32 yardstick exceeds twice the "
+                f"kernel route's {e_k:.4g} plus one bf16 step {step:.4g}")
+    reps = TENSOR_LAYER["reps"]
+    rec["api_ms"] = _event_ms(torch, lambda: run("api", x16, w16), reps)
+    rec["kernel_ms"] = _event_ms(torch, lambda: run("kernel", x16), reps)
+    del model, layer, w16, w32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pylayer_on_card(torch, pt, dev):
+    """A PyLayer with a hand-written backward on CUDA tensors against the
+    gradient of the plain function."""
+    class Swish(pt.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x, beta):
+            sg = torch.sigmoid(beta * x)
+            ctx.save_for_backward(x, sg)
+            ctx.beta = beta
+            return x * sg
+
+        @staticmethod
+        def backward(ctx, g):
+            x, sg = ctx.saved_tensor()
+            return g * (sg + ctx.beta * x * sg * (1 - sg))
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(SWEEP["rows"], SWEEP["cols"], generator=gen, device=dev)
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    out = Swish.apply(a, 1.7)
+    (ga,) = pt.grad(pt.sum(out * out), [a])
+    plain = b * torch.sigmoid(1.7 * b)
+    (gb,) = pt.grad(pt.sum(plain * plain), [b])
+    if out.device != dev or ga.device != dev:
+        raise AssertionError("PyLayer: an output off the card")
+    return {"out_max_abs_err": check_close(torch, "PyLayer forward", out,
+                                           plain, **SWEEP_TOL),
+            "grad_max_abs_err": check_close(torch, "PyLayer grad", ga, gb,
+                                            **SWEEP_SPECIAL)}
+
+
+def device_api_on_card(torch, pt, dev):
+    """paddle.device's CUDA calls on the card: streams, events, the memory
+    counters and the properties."""
+    c = pt.device.cuda
+    s = c.Stream()
+    with c.stream_guard(s):
+        y = pt.ones([1024, 1024]) * 2
+        ev = c.Event(enable_timing=True)
+        ev.record()
+    ev.synchronize()
+    c.synchronize()
+    pt.device.synchronize()
+    rec = {"name": c.get_device_name(), "capability": c.get_device_capability(),
+           "sm": c.get_device_properties().multi_processor_count,
+           "allocated": c.memory_allocated(), "reserved": c.memory_reserved(),
+           "peak": c.max_memory_allocated(),
+           "current_stream_is_default": c.current_stream() ==
+           torch.cuda.default_stream(), "device_count": c.device_count(),
+           "get_device": pt.get_device()}
+    if not (float(y.sum()) == 2 * 1024 * 1024 and rec["allocated"] > 0
+            and rec["name"] == torch.cuda.get_device_name(0)
+            and rec["get_device"] == "gpu:0"):
+        raise AssertionError(f"device API on the card: {rec}")
+    return rec
+
+
+def tensor_phase(torch, dev, np, seed):
+    """Phase 9: the tensor surface on the card (default place, set_device
+    untouched): the sweep, random repeatability and moments, PyLayer, the
+    device API, and the 7B-width decoder layer of the tensor API against
+    the port's kernel layer; the kernel route's launch counts are this
+    slice's path."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)      # every output must land there
+    rec = {"sweep": surface_sweep(torch, pt, np, dev),
+           "random": random_on_card(torch, pt, dev),
+           "pylayer": pylayer_on_card(torch, pt, dev),
+           "device_api": device_api_on_card(torch, pt, dev)}
+    rec["layer"] = tensor_layer(torch, pt, dev, seed)
+    rec["launches"] = rec["layer"]["launches"]
+    from paddle_tpu_torch import ops
+
+    rec["route_calls"] = {name: 0 for name in ops.ROUTES}
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
 # kernel name fragments -> where the device time goes
 _CATEGORIES = [("rms_norm", ("rms_norm_vec_kernel", "rms_norm_elem_kernel")),
                ("fused_layer_norm", ("_layer_norm_kernel",)),
@@ -7785,6 +8713,33 @@ def main(argv=None) -> int:
         f"fwd+bwd {op['attention_s'] * 1e3:.1f} ms (host clock); max errors "
         f"{op['max_abs_err']}  [{smi}]")
     log(f"[ops] {record['phases']['ops']:.1f}s")
+    # 9. the tensor surface on the card: this slice's main path
+    t = time.perf_counter()
+    tp = tensor_phase(torch, dev, np, args.seed)
+    record["tensor"] = tp
+    record["phases"]["tensor"] = time.perf_counter() - t
+    sw, rd, ly = tp["sweep"], tp["random"], tp["layer"]
+    log(f"[tensor] sweep: {sw['ops']} ops, {sw['cases']} cases ("
+        f"{sw['grad_cases']} with gradients) on cuda:0 against their CPU "
+        f"twins in {sw['s']:.1f} s; largest errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(
+            sw["max_abs_err"].items(), key=lambda kv: -kv[1])[:6]))
+    log(f"[tensor] random: {len(RANDOM_OPS)} ops, two draws after one seed "
+        f"bitwise equal, {rd['draws']} draws within the moments, torch's "
+        f"generators untouched ({rd['s']:.1f} s); PyLayer forward "
+        f"{tp['pylayer']['out_max_abs_err']:.3g}, gradient "
+        f"{tp['pylayer']['grad_max_abs_err']:.3g}; device API "
+        f"{tp['device_api']['get_device']} {tp['device_api']['name']}")
+    for what in ("output", "input_grad"):
+        r = ly[what]
+        log(f"[tensor] {ly['config']} layer {what}: max |err| against the "
+            f"fp32 yardstick, tensor API {r['api_max_abs_err']:.4g}, kernel "
+            f"layer {r['kernel_max_abs_err']:.4g} (bf16 step "
+            f"{r['bf16_step']:.4g})")
+    log(f"[tensor] {ly['config']} layer forward + backward: tensor API "
+        f"{ly['api_ms']:.3f} ms, kernel layer {ly['kernel_ms']:.3f} ms "
+        f"(CUDA events, median of {TENSOR_LAYER['reps']})  [{smi}]")
+    log(f"[tensor] {record['phases']['tensor']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
@@ -7794,7 +8749,7 @@ def main(argv=None) -> int:
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
                 f32=record["f32"], eager_fit=eg, fleet=fl, disagg=dg,
-                server_ledger=sr["ledger"])
+                server_ledger=sr["ledger"], tensor_surface=tp)
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

@@ -7,9 +7,9 @@ plain elementwise pass or row reduction), each beside a plain PyTorch
 version with the same arithmetic.
 
 Device policy: entry points run on the CUDA card unless the caller passes
-``device="cpu"`` (:func:`get_device`); without CUDA they raise. A kernel
-wrapper takes its plain version only for CPU tensors; for CUDA tensors it
-launches its kernel or raises.
+``device="cpu"`` or calls ``set_device("cpu")`` (``device.resolve_device``);
+without CUDA they raise. A kernel wrapper takes its plain version only for
+CPU tensors; for CUDA tensors it launches its kernel or raises.
 
 Ported so far: inference of the Llama causal LM (``models.llama``,
 ``inference.generation``: the offline ``CausalLMEngine.generate`` and the
@@ -45,14 +45,31 @@ reference's op lists, ``GradScaler`` and the nan/inf checks (``amp``,
 with its callbacks (``hapi``); ``build_train_step`` also takes the selective
 remat policies ``"attn_out"`` and ``"dots"``.
 
-``serving``, ``monitor``, ``tracing``, ``testing``, ``profiler``, ``amp``
-and ``metric`` load on first access (``paddle_tpu_torch.serving``), as in
-the reference; nothing imports ``http.server`` before ``serve_http`` is
-called.
+The ``paddle.*`` tensor surface: the dtypes (``float32``, ``int64``, ...,
+64-bit names really 64-bit), places and ``set_device`` / ``get_device``,
+``seed`` and the generator the random ops draw from (``core``),
+``to_tensor``, the gradient switches and the autograd API (``grad``,
+``jacobian``, ``hessian``, ``PyLayer``: ``autograd``), and the tensor ops
+of creation, math, manipulation, logic, search, random and linalg
+(``ops``; ``linalg``), with ``framework.compat``. The tensor is
+``torch.Tensor`` and its methods are torch's: the surface is functions.
+
+``serving``, ``monitor``, ``tracing``, ``testing``, ``profiler``, ``amp``,
+``metric`` and ``autograd`` load on first access
+(``paddle_tpu_torch.serving``), as in the reference; nothing imports
+``http.server`` before ``serve_http`` is called.
 """
 import importlib as _importlib
 
-from .device import get_device
+from .core.autograd import (enable_grad, is_grad_enabled, no_grad,
+                            set_grad_enabled)
+from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
+                         float32, float64, get_default_dtype, int8, int16,
+                         int32, int64, set_default_dtype, uint8)
+from .core.random import get_rng_state, seed, set_rng_state
+from .core.tensor import Tensor, is_tensor, to_tensor
+from .device import (CPUPlace, CUDAPlace, TPUPlace, device_count, get_device,
+                     is_compiled_with_cuda, is_compiled_with_tpu, set_device)
 from .framework import get_flags, load, save, set_flags
 from .inference.generation import (CausalLMEngine, ContinuousBatchingEngine,
                                    GenerationConfig,
@@ -61,6 +78,17 @@ from .hapi import Model
 from .models import (LlamaConfig, LlamaForCausalLM, build_train_step,
                      llama_config, load_paddle_params, load_stacked_params)
 
+# the tensor ops; from here on max, min, sum, abs, round, pow, all and any
+# are the ops, not the builtins
+from .ops.creation import *  # noqa: E402,F401,F403
+from .ops.math import *  # noqa: E402,F401,F403
+from .ops.manipulation import *  # noqa: E402,F401,F403
+from .ops.linalg import *  # noqa: E402,F401,F403
+from .ops.logic import *  # noqa: E402,F401,F403
+from .ops.search import *  # noqa: E402,F401,F403
+from .ops.random import *  # noqa: E402,F401,F403
+from .ops import linalg  # noqa: E402
+
 __all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausalLM", "llama_config",
            "load_paddle_params", "load_stacked_params", "build_train_step",
            "GenerationConfig", "CausalLMEngine", "ContinuousBatchingEngine",
@@ -68,10 +96,45 @@ __all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausa
 
 # subpackages that load on first access (PEP 562), as the reference's do
 _LAZY_SUBMODULES = {"serving", "monitor", "tracing", "testing", "profiler",
-                    "amp", "metric"}
+                    "amp", "metric", "autograd"}
+
+# names that load their module on first access, as the reference's do
+_LAZY_ATTRS = {
+    "grad": ("paddle_tpu_torch.autograd", "grad"),
+    "finfo": ("paddle_tpu_torch.core.dtype", "finfo"),
+    "iinfo": ("paddle_tpu_torch.core.dtype", "iinfo"),
+    "dtype": ("paddle_tpu_torch.framework.compat", "dtype"),
+    "bool": ("paddle_tpu_torch.core.dtype", "bool_"),
+    "CUDAPinnedPlace": ("paddle_tpu_torch.core.place", "CUDAPinnedPlace"),
+    "batch": ("paddle_tpu_torch.framework.compat", "batch"),
+    "LazyGuard": ("paddle_tpu_torch.framework.compat", "LazyGuard"),
+    "check_shape": ("paddle_tpu_torch.framework.compat", "check_shape"),
+    "disable_signal_handler": ("paddle_tpu_torch.framework.compat",
+                               "disable_signal_handler"),
+    "set_printoptions": ("paddle_tpu_torch.framework.compat",
+                         "set_printoptions"),
+    "tolist": ("paddle_tpu_torch.framework.compat", "tolist"),
+    "get_cuda_rng_state": ("paddle_tpu_torch.core.random", "get_rng_state"),
+    "set_cuda_rng_state": ("paddle_tpu_torch.core.random", "set_rng_state"),
+    "pow_": ("paddle_tpu_torch.framework.compat", "pow_"),
+    "index_add_": ("paddle_tpu_torch.framework.compat", "index_add_"),
+    "index_put_": ("paddle_tpu_torch.framework.compat", "index_put_"),
+    "scatter_": ("paddle_tpu_torch.framework.compat", "scatter_"),
+    "squeeze_": ("paddle_tpu_torch.framework.compat", "squeeze_"),
+    "tanh_": ("paddle_tpu_torch.framework.compat", "tanh_"),
+    "unsqueeze_": ("paddle_tpu_torch.framework.compat", "unsqueeze_"),
+    "synchronize": ("paddle_tpu_torch.device", "synchronize"),
+}
 
 
 def __getattr__(name):
     if name in _LAZY_SUBMODULES:
         return _importlib.import_module(f".{name}", __name__)
+    if name in _LAZY_ATTRS:
+        mod_name, attr = _LAZY_ATTRS[name]
+        return getattr(_importlib.import_module(mod_name), attr)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | _LAZY_SUBMODULES | set(_LAZY_ATTRS))

@@ -18,8 +18,8 @@ and the JAX package's.
   JAX-written bf16 array is read where ``ml_dtypes`` imports; elsewhere
   ``load`` raises and says so.
 
-``load`` returns torch tensors on ``device`` (:func:`get_device`: the CUDA
-card unless ``device="cpu"``), each with ``requires_grad`` set from the
+``load`` returns torch tensors on ``device`` (:func:`resolve_device`: the
+current place, the CUDA card unless ``device="cpu"``), each with ``requires_grad`` set from the
 payload's trainable flag where its dtype allows one, or, with
 ``return_numpy=True``, numpy arrays (a bf16 tensor as fp32, the same
 values).
@@ -33,7 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..device import get_device
+from ..device import resolve_device
 
 __all__ = ["save", "load"]
 
@@ -145,9 +145,9 @@ def save(obj: Any, path, protocol: int = _PROTOCOL, **configs):
 def load(path, **configs) -> Any:
     """Read what :func:`save` (or the JAX package's ``save``) wrote.
     ``configs``: ``return_numpy`` (default False) and ``device`` (default:
-    the CUDA card, see :func:`get_device`)."""
+    the CUDA card, see :func:`resolve_device`)."""
     return_numpy = configs.get("return_numpy", False)
-    device = None if return_numpy else get_device(configs.get("device"))
+    device = None if return_numpy else resolve_device(configs.get("device"))
     with open(path, "rb") if isinstance(path, str) else path as f:
         payload = _Unpickler(f).load()
     return _from_saved(payload, device, return_numpy)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ....device import get_device
+from ....device import resolve_device
 from ....ops.attention import flash_attention
 from .. import functional as incubate_F
 
@@ -72,7 +72,8 @@ class FusedBiasDropoutResidualLayerNorm(nn.Module):
                  epsilon: float = 1e-5, *, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        kw = dict(device=get_device(device), dtype=dtype or torch.float32)
+        kw = dict(device=resolve_device(device),
+                  dtype=dtype or torch.float32)
         self.embed_dim = embed_dim
         self._dropout_rate = dropout_rate
         self._epsilon = epsilon
@@ -132,7 +133,7 @@ class FusedMultiTransformer(nn.Module):
                              f"{activation!r}")
         if num_layers < 1:
             raise ValueError(f"num_layers must be >= 1, got {num_layers}")
-        dev = get_device(device)
+        dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype or torch.float32)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -241,7 +242,7 @@ class FusedMultiTransformer(nn.Module):
                     device=None) -> List[tuple]:
         """Per-layer zero caches (k, v) [batch, max_seq, num_heads,
         head_dim] on ``device`` (default: the CUDA card)."""
-        kw = dict(dtype=dtype, device=get_device(device))
+        kw = dict(dtype=dtype, device=resolve_device(device))
         shape = (batch, max_seq, num_heads, head_dim)
         return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
                 for _ in range(num_layers)]

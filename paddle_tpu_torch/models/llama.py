@@ -53,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import get_device
+from ..device import resolve_device
 from ..distributed.fleet.recompute import recompute
 from ..distributed.mp_layers import (ColumnParallelLinear,
                                      ParallelCrossEntropy, RowParallelLinear,
@@ -649,10 +649,12 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Llama causal LM. Built on ``device`` (default: the CUDA card, see
-    :func:`paddle_tpu_torch.get_device`) in ``config.dtype``, with weights
-    drawn from ``generator`` (default: seed 0 on that device): normal with
-    std 0.02 (Llama-2's published initializer range), norm weights 1."""
+    """Llama causal LM. Built on ``device`` (default: the current place,
+    the CUDA card unless set otherwise, see
+    :func:`paddle_tpu_torch.device.resolve_device`) in ``config.dtype``,
+    with weights drawn from ``generator`` (default: seed 0 on that
+    device): normal with std 0.02 (Llama-2's published initializer range),
+    norm weights 1."""
 
     IGNORE_INDEX = IGNORE_INDEX
 
@@ -660,7 +662,7 @@ class LlamaForCausalLM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
-        dev = get_device(device)
+        dev = resolve_device(device)
         kw = dict(device=dev, dtype=config.torch_dtype)
         self.model = LlamaModel(config, **kw)
         self.lm_head = (None if config.tie_word_embeddings else

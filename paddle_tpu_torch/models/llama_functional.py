@@ -43,7 +43,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..device import get_device
+from ..device import resolve_device
 from ..distributed.fleet.recompute import amp_contexts, recompute
 from ..ops.attention import flash_attention
 from ..optimizer.functional import (AdamWState, adamw_init, adamw_update,
@@ -143,8 +143,8 @@ def build_train_step(cfg: LlamaConfig, lr: float = 1e-4,
     forward, backward, the global-norm clip and AdamW, updating the
     parameters and ``state`` in place, and returns the loss (fp32, before
     the update). The model must live on ``device`` (default: the CUDA
-    card, see :func:`~paddle_tpu_torch.get_device`)."""
-    dev = get_device(device)
+    card, see :func:`~paddle_tpu_torch.device.resolve_device`)."""
+    dev = resolve_device(device)
     loss_fn = build_loss_fn(cfg, remat)
 
     def _params(model):

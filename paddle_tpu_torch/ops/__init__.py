@@ -1,4 +1,6 @@
-"""The port's kernels and the plain PyTorch versions beside them.
+"""The port's kernels and the plain PyTorch versions beside them, and the
+tensor surface's ops (``creation``, ``math``, ``manipulation``, ``logic``,
+``search``, ``random`` and ``linalg``: the ``paddle.*`` tensor functions).
 
 Every kernel wrapper carries a ``launches`` integer that it increments
 where it launches its kernel and nowhere else; ``KERNELS`` names them.
@@ -10,6 +12,13 @@ from __future__ import annotations
 
 from typing import Dict
 
+from . import creation as _creation
+from . import linalg as _linalg
+from . import logic as _logic
+from . import manipulation as _manipulation
+from . import math as _math
+from . import random as _random
+from . import search as _search
 from ._decode import gqa_decode_attention
 from .attention import flash_attention
 from .decode_attention import decode_mha, decode_mha_ref
@@ -46,6 +55,13 @@ __all__ = ["KERNELS", "ROUTES", "launch_counts", "reset_launch_counts",
            "fused_layer_norm_ref", "fused_linear_param_grad_add",
            "fused_linear_param_grad_add_ref", "grouped_matmul",
            "grouped_matmul_ref"]
+
+# the tensor surface beside the kernel wrappers (no name is shared); from
+# here on max, min, sum, abs, round, pow, all and any are the ops
+for _mod in (_creation, _math, _manipulation, _linalg, _logic, _search,
+             _random):
+    globals().update({n: getattr(_mod, n) for n in _mod.__all__})
+    __all__ += _mod.__all__
 
 KERNELS = {
     "rms_norm": rms_norm,

@@ -41,7 +41,7 @@ import torch
 
 from .. import monitor
 from .. import tracing as trace
-from ..device import get_device
+from ..device import resolve_device
 
 __all__ = ["AdapterRegistry"]
 
@@ -82,7 +82,7 @@ class AdapterRegistry:
         self.num_layers = int(num_layers)
         self.shapes = {t: shapes[t] for t in targets}
         self.dtype = dtype
-        self.device = get_device(device)
+        self.device = resolve_device(device)
         self._engine = engine_label
         K, L = self.capacity, self.num_layers
         # allocated once and only ever written in place (see the module

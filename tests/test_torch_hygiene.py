@@ -24,6 +24,7 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch import (LlamaForCausalLM, PagedContinuousBatchingEngine,
                               get_device, llama_config)
+from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -94,11 +95,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_device()
     with pytest.raises(RuntimeError):
-        get_device("cuda")
+        resolve_device("cuda")
     with pytest.raises(RuntimeError):
         LlamaForCausalLM(cfg)
     with pytest.raises(ValueError):
-        get_device("meta")
+        resolve_device("meta")
     model = LlamaForCausalLM(cfg, device="cpu")
     assert model.device == torch.device("cpu")
     eng = PagedContinuousBatchingEngine(model, max_batch=1, num_pages=2,
@@ -476,3 +477,72 @@ def test_serving_imports_lazily_and_without_http_server():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-1] == "paddle_tpu_torch.serving.scheduler"
+
+
+# the tensor surface's modules: each one's public names are the reference
+# module's minus the names the port leaves out (ROADMAP A14)
+TENSOR_SURFACE_MODULES = {
+    "paddle_tpu_torch/autograd/__init__.py": (),
+    "paddle_tpu_torch/autograd/functional.py": None,
+    "paddle_tpu_torch/autograd/py_layer.py": None,
+    "paddle_tpu_torch/core/__init__.py": ("run_backward",),
+    "paddle_tpu_torch/core/dtype.py": None,
+    "paddle_tpu_torch/core/place.py": None,
+    "paddle_tpu_torch/core/random.py": ("trace_key_scope",),
+    "paddle_tpu_torch/core/tensor.py": (),
+    "paddle_tpu_torch/core/autograd.py": ("GradNode", "apply_op",
+                                          "run_backward"),
+    "paddle_tpu_torch/device/__init__.py": (),
+    "paddle_tpu_torch/device/cuda/__init__.py": (),
+    "paddle_tpu_torch/device/xpu/__init__.py": (),
+    "paddle_tpu_torch/framework/compat.py": (),
+    "paddle_tpu_torch/ops/_helpers.py": None,
+    "paddle_tpu_torch/ops/creation.py": ("create_parameter",),
+    "paddle_tpu_torch/ops/math.py": (),
+    "paddle_tpu_torch/ops/manipulation.py": (),
+    "paddle_tpu_torch/ops/logic.py": (),
+    "paddle_tpu_torch/ops/search.py": (),
+    "paddle_tpu_torch/ops/random.py": (),
+    "paddle_tpu_torch/ops/linalg.py": (),
+}
+
+
+@pytest.mark.parametrize("module", sorted(TENSOR_SURFACE_MODULES))
+def test_tensor_surface_modules_are_checked(module):
+    """The modules of the tensor-surface slice are among the sources the
+    no-JAX checks read; where the reference module has an ``__all__``, the
+    port's is the same minus the left-out names (None: no such pin)."""
+    import importlib
+
+    assert ROOT / module in _sources()
+    left = TENSOR_SURFACE_MODULES[module]
+    if left is None:
+        return
+    name = module[:-3].replace("/", ".").removesuffix(".__init__")
+    mod = importlib.import_module(name)
+    ref = importlib.import_module(name.replace("paddle_tpu_torch",
+                                               "paddle_tpu"))
+    assert sorted(mod.__all__) == sorted(set(ref.__all__) - set(left))
+    for n in mod.__all__:
+        assert hasattr(mod, n), n
+
+
+def test_nothing_is_attached_to_torch_tensor():
+    """Importing the surface binds no method on ``torch.Tensor``: the
+    tensor's methods stay torch's (``x.split(2)`` splits into parts of 2,
+    ``x.max(0)`` returns values and indices)."""
+    code = ("import sys, torch\n"
+            "before = {k: v for k, v in vars(torch.Tensor).items()}\n"
+            "sys.path.insert(0, %r)\n"
+            "import paddle_tpu_torch as pt, paddle_tpu_torch.autograd\n"
+            "import paddle_tpu_torch.framework.compat\n"
+            "after = dict(vars(torch.Tensor))\n"
+            "changed = sorted(k for k in set(before) | set(after)\n"
+            "                 if before.get(k) is not after.get(k))\n"
+            "assert not changed, changed\n"
+            "x = torch.arange(6.0)\n"
+            "assert [len(p) for p in x.split(2)] == [2, 2, 2]\n"
+            "print('ok')" % str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-3000:]
