@@ -302,7 +302,23 @@ Phases, each timed, none caught and passed over:
    forward, K5 and K6 backward, launches counted), each held against the
    tensor-API layer in fp32: the output's and the input gradient's error
    of the tensor-API route at most twice the kernel route's plus one bf16
-   step; both routes' times printed beside each other.
+   step; both routes' times printed beside each other;
+10. ``paddle.nn`` and ``paddle.io`` on the card, this slice's main path:
+   every function of ``nn.functional``'s activation, common, norm,
+   extension and attention modules and every layer of the activation,
+   common, norm and container modules on cuda:0 against its CPU twin
+   (the layer's weights carried by ``set_state_dict``), fp32 and bf16,
+   forward and gradients; dropout's mask repeated after ``seed``; phase
+   9's 7B decoder layer written with ``paddle.nn`` (``Linear`` without
+   bias, ``RMSNorm``, ``F.flash_attention(causal=True)``, ``F.silu``; RoPE
+   through the tensor ops), phase 9's weights carried in by
+   ``set_state_dict``, forward and backward: its error against phase 9's
+   fp32 yardstick at most twice the kernel route's plus one bf16 step, its
+   K1, K3, K5 and K6 launches counted, its time beside phase 9's routes';
+   ``Model.fit`` at phase 6b's configuration over an ``io.TensorDataset``
+   of 3 seeded batches through ``io.DataLoader``, its losses bitwise those
+   of ``fit`` over the same batches as a list, and the loader with two
+   worker processes giving the same batches in order.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -646,11 +662,13 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
                                              "train_hb", "ops", "f32",
                                              "eager_fit", "fleet", "disagg",
                                              "server_ledger",
-                                             "tensor_surface")
-# this slice's path: phase 9's comparison route, the port's own Llama-2-7B
+                                             "tensor_surface", "nn")
+# this slice's paths: phase 9's comparison route, the port's own Llama-2-7B
 # decoder layer forward and backward beside the tensor-API layer, which
-# runs K1, K2 and K3 forward and K5 and K6 backward
-SLICE_PATHS = ("tensor_surface",)
+# runs K1, K2 and K3 forward and K5 and K6 backward; and phase 10's nn
+# route, the same layer written with paddle.nn (K1, K3 forward, K5 and K6
+# backward; RoPE through the tensor ops)
+SLICE_PATHS = ("tensor_surface", "nn")
 # earlier slices' paths, in the order their counts stand in for a kernel
 # this slice does not run: the Server serve with the program ledger on,
 # the replica fleet's routed traffic and the
@@ -7350,6 +7368,9 @@ def surface_cases(torch, pt, np):
     add("complex", lambda P, a, b: P.complex(a, b), [s, y])
     add("polar", lambda P, a, b: P.polar(a, b), [y, s])
     add("create_tensor", lambda P: P.create_tensor("float32"), [])
+    add("create_parameter", lambda P: P.create_parameter(
+        [R, C], "float32",
+        default_initializer=P.nn.initializer.Constant(0.5)), [], "exact")
     # manipulation
     v3 = nrm(4, 16, C)
     add("reshape", lambda P, t: P.reshape(t, [C, -1]), [s])
@@ -7614,6 +7635,9 @@ def _tensors(x):
 
 def _sweep_tol(tol, want):
     scale = max(float(want.abs().max()), 1.0)
+    if tol == "bf16":
+        return dict(rtol=NN_BF16_REL,
+                    atol=NN_BF16_TOP * float(want.abs().max()))
     if tol == "special":
         return SWEEP_SPECIAL
     if tol == "recon":
@@ -7895,18 +7919,11 @@ def _event_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def tensor_layer(torch, pt, dev, seed):
-    """A Llama-2-7B decoder layer (hidden 4096, 32 heads of 128, FFN 11008,
-    bf16) from random weights made from ``seed``, over [1, 512] tokens, two
-    ways: the tensor-API layer (``_decoder_layer``, plain torch ops) and the
-    port's own LlamaForCausalLM layer (K1, K2 and K3 forward, K5 and K6
-    backward); the tensor-API layer in fp32 on the same weights is the
-    yardstick of both. Output and input gradient (``paddle_tpu_torch.grad``
-    of sum(out * w)): the tensor-API route's max error against the yardstick
-    must be at most twice the kernel route's plus one bf16 step (2^-7 of
-    the yardstick's largest magnitude). The kernel route's launches are
-    counted; the tensor-API route must launch none."""
-    from paddle_tpu_torch import LlamaForCausalLM, llama_config, ops
+def layer_setup(torch, dev, seed):
+    """Phase 9's Llama-2-7B decoder layer: the port's model layer from
+    random weights made from ``seed`` (RMSNorm gains moved off 1), the
+    bf16 input [1, 512], the gradient weight and the RoPE tables."""
+    from paddle_tpu_torch import LlamaForCausalLM, llama_config
 
     cfg = llama_config(TENSOR_LAYER["preset"], num_hidden_layers=1,
                        dtype="bfloat16")
@@ -7923,12 +7940,34 @@ def tensor_layer(torch, pt, dev, seed):
              "wd": layer.mlp.down_proj, "ln1": layer.input_layernorm,
              "ln2": layer.post_attention_layernorm}
     w16 = {k: m.weight.detach() for k, m in parts.items()}
-    w32 = {k: v.float() for k, v in w16.items()}
     b, s = TENSOR_LAYER["batch"], TENSOR_LAYER["seq"]
     x16 = torch.randn(b, s, cfg.hidden_size, generator=gen,
                       device=dev).to(torch.bfloat16)
     gw = torch.randn(b, s, cfg.hidden_size, generator=gen, device=dev)
     cos, sin = model.model._tables(s, x16)
+    return dict(cfg=cfg, model=model, layer=layer, w16=w16, x16=x16, gw=gw,
+                cos=cos, sin=sin)
+
+
+def tensor_layer(torch, pt, dev, seed):
+    """A Llama-2-7B decoder layer (hidden 4096, 32 heads of 128, FFN 11008,
+    bf16) from random weights made from ``seed``, over [1, 512] tokens, two
+    ways: the tensor-API layer (``_decoder_layer``, plain torch ops) and the
+    port's own LlamaForCausalLM layer (K1, K2 and K3 forward, K5 and K6
+    backward); the tensor-API layer in fp32 on the same weights is the
+    yardstick of both. Output and input gradient (``paddle_tpu_torch.grad``
+    of sum(out * w)): the tensor-API route's max error against the yardstick
+    must be at most twice the kernel route's plus one bf16 step (2^-7 of
+    the yardstick's largest magnitude). The kernel route's launches are
+    counted; the tensor-API route must launch none."""
+    from paddle_tpu_torch import ops
+
+    st = layer_setup(torch, dev, seed)
+    cfg, model, layer = st["cfg"], st["model"], st["layer"]
+    w16, x16, gw, cos, sin = (st[k] for k in ("w16", "x16", "gw", "cos",
+                                              "sin"))
+    w32 = {k: v.float() for k, v in w16.items()}
+    b, s = TENSOR_LAYER["batch"], TENSOR_LAYER["seq"]
     nh, eps = cfg.num_attention_heads, cfg.rms_norm_eps
 
     def api(xin, w):
@@ -7975,7 +8014,7 @@ def tensor_layer(torch, pt, dev, seed):
     reps = TENSOR_LAYER["reps"]
     rec["api_ms"] = _event_ms(torch, lambda: run("api", x16, w16), reps)
     rec["kernel_ms"] = _event_ms(torch, lambda: run("kernel", x16), reps)
-    del model, layer, w16, w32
+    del st, model, layer, w16, w32
     torch.cuda.empty_cache()
     return rec
 
@@ -8053,6 +8092,582 @@ def tensor_phase(torch, dev, np, seed):
            "device_api": device_api_on_card(torch, pt, dev)}
     rec["layer"] = tensor_layer(torch, pt, dev, seed)
     rec["launches"] = rec["layer"]["launches"]
+    from paddle_tpu_torch import ops
+
+    rec["route_calls"] = {name: 0 for name in ops.ROUTES}
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+# -- phase 10: paddle.nn and paddle.io on the card ---------------------------
+
+# the nn sweep's inputs: a spec is a shape (normal floats), ("pos", shape)
+# (floats in [0.5, 1.5]), ("const", shape) (normal floats taking no
+# gradient), ("ids", shape, hi) (int64 in [0, hi)) or an array as it is
+S3 = (2, 3, 4)
+# every function of nn.functional's activation, common, norm, extension and
+# flash_attention modules: name -> [call(F, *tensors), specs]; the random
+# ones in their deterministic mode (training=False), class_center_sample
+# and sdp_kernel by themselves
+NN_FUNCTIONS = {
+    "relu": (lambda F, x: F.relu(x), [S3]),
+    "relu_": (lambda F, x: F.relu_(x), [S3]),
+    "relu6": (lambda F, x: F.relu6(x * 4), [S3]),
+    "elu": (lambda F, x: F.elu(x, 0.7), [S3]),
+    "elu_": (lambda F, x: F.elu_(x), [S3]),
+    "selu": (lambda F, x: F.selu(x), [S3]),
+    "celu": (lambda F, x: F.celu(x, 0.8), [S3]),
+    "gelu": (lambda F, x: F.gelu(x, True) + F.gelu(x), [S3]),
+    "silu": (lambda F, x: F.silu(x), [S3]),
+    "swish": (lambda F, x: F.swish(x), [S3]),
+    "sigmoid": (lambda F, x: F.sigmoid(x), [S3]),
+    "hardsigmoid": (lambda F, x: F.hardsigmoid(x * 4), [S3]),
+    "hardswish": (lambda F, x: F.hardswish(x * 4), [S3]),
+    "hardtanh": (lambda F, x: F.hardtanh(x, -0.5, 0.7), [S3]),
+    "hardshrink": (lambda F, x: F.hardshrink(x, 0.4), [S3]),
+    "softshrink": (lambda F, x: F.softshrink(x, 0.3), [S3]),
+    "tanhshrink": (lambda F, x: F.tanhshrink(x), [S3]),
+    "leaky_relu": (lambda F, x: F.leaky_relu(x, 0.1), [S3]),
+    "log_sigmoid": (lambda F, x: F.log_sigmoid(x), [S3]),
+    "log_softmax": (lambda F, x: F.log_softmax(x, 1), [S3]),
+    "maxout": (lambda F, x: F.maxout(x, 2, 1), [(2, 4, 3, 3)]),
+    "prelu": (lambda F, x, w: F.prelu(x, w), [(2, 3, 4, 4), (3,)]),
+    "rrelu": (lambda F, x: F.rrelu(x, 0.1, 0.3), [S3]),
+    "softmax": (lambda F, x: F.softmax(x, 1), [S3]),
+    "softmax_": (lambda F, x: F.softmax_(x, -1), [S3]),
+    "softplus": (lambda F, x: F.softplus(x * 5, 2.0, 3.0), [S3]),
+    "softsign": (lambda F, x: F.softsign(x), [S3]),
+    "mish": (lambda F, x: F.mish(x), [S3]),
+    "tanh": (lambda F, x: F.tanh(x), [S3]),
+    "tanh_": (lambda F, x: F.tanh_(x), [S3]),
+    "thresholded_relu": (lambda F, x: F.thresholded_relu(x, 0.5), [S3]),
+    "glu": (lambda F, x: F.glu(x, -1), [(2, 3, 8)]),
+    "gumbel_softmax": (lambda F, x: F.gumbel_softmax(x * 1e4, 0.5, True),
+                       [S3]),
+    "linear": (lambda F, x, w, b: F.linear(x, w, b), [S3, (4, 5), (5,)]),
+    "dropout": (lambda F, x: F.dropout(x, 0.3, training=False,
+                                       mode="downscale_in_infer"), [S3]),
+    "dropout2d": (lambda F, x: F.dropout2d(x, training=False),
+                  [(2, 3, 4, 4)]),
+    "dropout3d": (lambda F, x: F.dropout3d(x, training=False),
+                  [(2, 3, 2, 2, 2)]),
+    "alpha_dropout": (lambda F, x: F.alpha_dropout(x, 0.3, training=False),
+                      [S3]),
+    "embedding": (lambda F, i, w: F.embedding(i, w, 2),
+                  [("ids", (2, 5), 6), (6, 4)]),
+    "one_hot": (lambda F, i: F.one_hot(i, 7), [("ids", (2, 5), 7)]),
+    "pad": (lambda F, x: F.pad(x, [1, 2, 0, 1], value=0.5) .sum()
+            + F.pad(x, [2, 1, 1, 0], mode="reflect").sum()
+            + F.pad(x, [1, 1, 1, 1], mode="circular").sum()
+            + F.pad(x, [1, 0, 2, 1], mode="replicate").sum(),
+            [(1, 2, 3, 4)]),
+    "zeropad2d": (lambda F, x: F.zeropad2d(x, [1, 0, 0, 2]), [(1, 2, 3, 3)]),
+    "interpolate": (lambda F, x: F.interpolate(x, size=[5, 7]).sum()
+                    + F.interpolate(x, size=[6, 9], mode="bilinear").sum()
+                    + F.interpolate(x, scale_factor=2, mode="bicubic",
+                                    align_corners=True).sum()
+                    + F.interpolate(x, size=[2, 3], mode="area").sum(),
+                    [(1, 2, 3, 4)]),
+    "upsample": (lambda F, x: F.upsample(x, scale_factor=2), [(1, 2, 3, 4)]),
+    "bilinear": (lambda F, a, b, w, c: F.bilinear(a, b, w, c),
+                 [(2, 3), (2, 4), (5, 3, 4), (5,)]),
+    "cosine_similarity": (lambda F, a, b: F.cosine_similarity(a, b, 1),
+                          [(3, 5), (3, 5)]),
+    "pixel_shuffle": (lambda F, x: F.pixel_shuffle(x, 2), [(1, 8, 3, 3)]),
+    "pixel_unshuffle": (lambda F, x: F.pixel_unshuffle(x, 2),
+                        [(1, 2, 4, 6)]),
+    "channel_shuffle": (lambda F, x: F.channel_shuffle(x, 2),
+                        [(1, 4, 3, 3)]),
+    "label_smooth": (lambda F, x: F.label_smooth(x, epsilon=0.2), [(2, 5)]),
+    "unfold": (lambda F, x: F.unfold(x, [2, 3], 1, [1, 0, 0, 1]),
+               [(1, 2, 4, 5)]),
+    "fold": (lambda F, x: F.fold(x, [3, 3], 2, 1, 1), [(1, 8, 16)]),
+    "batch_norm": (lambda F, x, m, v, w, b: F.batch_norm(
+        x, m, v, w, b, training=True), [(4, 3, 2, 2), ("const", (3,)),
+                                        ("pos", (3,)), (3,), (3,)]),
+    "layer_norm": (lambda F, x, w, b: F.layer_norm(x, [3, 4], w, b),
+                   [S3, (3, 4), (3, 4)]),
+    "instance_norm": (lambda F, x, w, b: F.instance_norm(x, weight=w,
+                                                         bias=b),
+                      [(2, 3, 4, 4), (3,), (3,)]),
+    "group_norm": (lambda F, x, w, b: F.group_norm(x, 2, 1e-5, w, b),
+                   [(2, 4, 3, 3), (4,), (4,)]),
+    "local_response_norm": (lambda F, x: F.local_response_norm(x, 3),
+                            [(2, 5, 3, 3)]),
+    "normalize": (lambda F, x: F.normalize(x), [(3, 5)]),
+    "pairwise_distance": (lambda F, a, b: F.pairwise_distance(a, b),
+                          [(3, 5), (3, 5)]),
+    "pdist": (lambda F, x: F.pdist(x), [(4, 3)]),
+    "sequence_mask": (lambda F, x: F.sequence_mask(x, 6),
+                      [("ids", (2, 3), 6)]),
+    "diag_embed": (lambda F, x: F.diag_embed(x, 1), [(2, 3)]),
+    "temporal_shift": (lambda F, x: F.temporal_shift(x, 2, 0.25),
+                       [(4, 4, 2, 2)]),
+    "affine_grid": (lambda F, t: F.affine_grid(t, [2, 1, 3, 4]), [(2, 2, 3)]),
+    "grid_sample": (lambda F, x, g: F.grid_sample(x, g * 0.6)
+                    + F.grid_sample(x, g * 0.8, mode="nearest",
+                                    padding_mode="reflection",
+                                    align_corners=False),
+                    [(1, 2, 4, 5), (1, 3, 3, 2)]),
+    "npair_loss": (lambda F, a, p, l: F.npair_loss(a, p, l),
+                   [(4, 3), (4, 3), ("ids", (4,), 2)]),
+    "flash_attention": (lambda F, q, k, v: F.flash_attention(
+        q, k, v, causal=True)[0],
+        [(2, 8, 4, 16), (2, 16, 2, 16), (2, 16, 2, 16)]),
+    "flash_attn_unpadded": (lambda F, q, k, v: F.flash_attn_unpadded(
+        q, k, v, torch_cu(q, [0, 4, 9]), torch_cu(q, [0, 4, 9]), 5, 5, 0.3,
+        causal=True)[0], [(9, 2, 8), (9, 2, 8), (9, 2, 8)]),
+    "scaled_dot_product_attention": (
+        lambda F, q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, m, is_causal=True),
+        [(2, 6, 2, 8), (2, 6, 2, 8), (2, 6, 2, 8), ("const", (2, 1, 6, 6))]),
+    "sparse_attention": (lambda F, q, k, v: F.sparse_attention(
+        q, k, v, torch_cu(q, list(range(0, 33, 2))).reshape(1, 1, 17),
+        torch_cu(q, [c for i in range(16) for c in (i, (i + 3) % 16)])
+        .reshape(1, 1, 32)), [(1, 1, 16, 8), (1, 1, 16, 8), (1, 1, 16, 8)]),
+}
+# every layer of nn.layer's activation, common, norm and container
+# modules: name -> (ctor args, ctor kwargs, input specs, eval mode)
+NN_LAYERS = {
+    "CELU": ((0.8,), {}, [S3]), "ELU": ((0.7,), {}, [S3]),
+    "GELU": ((), {}, [S3]), "GLU": ((-1,), {}, [(2, 3, 8)]),
+    "Hardshrink": ((0.4,), {}, [S3]), "Hardsigmoid": ((), {}, [S3]),
+    "Hardswish": ((), {}, [S3]), "Hardtanh": ((-0.5, 0.7), {}, [S3]),
+    "LeakyReLU": ((0.1,), {}, [S3]), "LogSigmoid": ((), {}, [S3]),
+    "LogSoftmax": ((1,), {}, [S3]), "Maxout": ((2, 1), {}, [(2, 4, 3, 3)]),
+    "Mish": ((), {}, [S3]), "PReLU": ((3, 0.2), {}, [(2, 3, 4, 4)]),
+    "ReLU": ((), {}, [S3]), "ReLU6": ((), {}, [S3]),
+    "RReLU": ((0.1, 0.3), {}, [S3], "eval"), "SELU": ((), {}, [S3]),
+    "Sigmoid": ((), {}, [S3]), "Silu": ((), {}, [S3]),
+    "Softmax": ((1,), {}, [S3]), "Softplus": ((2.0, 3.0), {}, [S3]),
+    "Softshrink": ((0.3,), {}, [S3]), "Softsign": ((), {}, [S3]),
+    "Swish": ((), {}, [S3]), "Tanh": ((), {}, [S3]),
+    "Tanhshrink": ((), {}, [S3]), "ThresholdedReLU": ((0.5,), {}, [S3]),
+    "Softmax2D": ((), {}, [(2, 3, 4, 4)]),
+    "Linear": ((4, 6), {}, [S3]), "LinearCompress": ((4, 6), {}, [S3]),
+    "Dropout": ((0.3,), {}, [S3], "eval"),
+    "Dropout2D": ((0.3,), {}, [(2, 3, 4, 4)], "eval"),
+    "Dropout3D": ((0.3,), {}, [(2, 3, 2, 2, 2)], "eval"),
+    "AlphaDropout": ((0.3,), {}, [S3], "eval"),
+    "Embedding": ((10, 4), {"padding_idx": 1}, [("ids", (2, 5), 10)]),
+    "Flatten": ((), {}, [S3]), "Unflatten": ((1, [2, 3]), {}, [(2, 6, 4)]),
+    "Identity": ((), {}, [(2, 3)]),
+    "Upsample": ((), {"size": [6, 7], "mode": "bilinear"}, [(1, 2, 3, 4)]),
+    "UpsamplingBilinear2D": ((), {"scale_factor": 2}, [(1, 2, 3, 4)]),
+    "UpsamplingNearest2D": ((), {"scale_factor": 2}, [(1, 2, 3, 4)]),
+    "Pad1D": (([1, 2],), {"mode": "reflect"}, [(2, 3, 5)]),
+    "Pad2D": (([1, 0, 2, 1],), {"mode": "replicate"}, [(1, 2, 4, 5)]),
+    "Pad3D": ((1,), {"mode": "circular"}, [(1, 1, 3, 3, 3)]),
+    "ZeroPad2D": (([1, 1, 2, 0],), {}, [(1, 2, 3, 3)]),
+    "Bilinear": ((3, 4, 5), {}, [(2, 3), (2, 4)]),
+    "CosineSimilarity": ((), {"axis": 1}, [(3, 5), (3, 5)]),
+    "PairwiseDistance": ((), {}, [(3, 5), (3, 5)]),
+    "PixelShuffle": ((2,), {}, [(1, 8, 3, 3)]),
+    "PixelUnshuffle": ((2,), {}, [(1, 2, 4, 6)]),
+    "ChannelShuffle": ((2,), {}, [(1, 4, 3, 3)]),
+    "Fold": (([4, 5], 2), {}, [(1, 12, 12)]),
+    "Unfold": ((2,), {"paddings": 1}, [(1, 2, 4, 4)]),
+    "BatchNorm": ((3,), {}, [(4, 3, 2, 2)]),
+    "BatchNorm1D": ((3,), {}, [(4, 3, 5)]),
+    "BatchNorm2D": ((3,), {}, [(4, 3, 2, 2)]),
+    "BatchNorm3D": ((3,), {}, [(2, 3, 2, 2, 2)]),
+    "SyncBatchNorm": ((3,), {}, [(4, 3, 2, 2)]),
+    "LayerNorm": (([4],), {}, [S3]), "GroupNorm": ((2, 4), {}, [(2, 4, 3, 3)]),
+    "InstanceNorm1D": ((3,), {}, [(2, 3, 6)]),
+    "InstanceNorm2D": ((3,), {}, [(2, 3, 4, 4)]),
+    "InstanceNorm3D": ((3,), {}, [(2, 3, 2, 3, 3)]),
+    "LocalResponseNorm": ((3,), {}, [(2, 5, 3, 3)]),
+    "SpectralNorm": (([4, 6],), {"power_iters": 2}, [(4, 6)]),
+    "RMSNorm": ((4,), {}, [S3]),
+    "Sequential": ("seq", {}, [S3]), "LayerList": ("list", {}, [S3]),
+    "LayerDict": ("dict", {}, [S3]), "ParameterList": ("params", {}, [S3]),
+}
+# the card against its CPU twin: fp32 as phase 9's sums over K = 64 terms;
+# bf16 rtol 2^-6 and atol 2^-4 of the compared tensor's largest magnitude:
+# the two devices round a bf16 chain's intermediates in other places, and
+# a gradient through a normalization sums products that cancel, so one
+# element of InstanceNorm2D's bf16 input gradient moved by 2^-5 of the top
+# on an H100, where a wrong formula moves elements by the top
+NN_K = 64
+NN_BF16_REL = 2.0 ** -6
+NN_BF16_TOP = 2.0 ** -4
+# the nn route's 7B layer (phase 9's weights and input) and phase 10's
+# Model.fit through io.DataLoader (phase 6b's configuration, 3 batches;
+# the worker pass waits at most `timeout` seconds a batch)
+NN_IO = dict(batches=3, workers=2, timeout=300)
+
+
+def torch_cu(like, values):
+    import torch
+
+    return torch.tensor(values, dtype=torch.int64, device=like.device)
+
+
+def nn_inputs(torch, np, specs, seed, dtype):
+    """(tensor, differentiable) per spec, on the CPU."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for s in specs:
+        if isinstance(s, tuple) and s and s[0] == "ids":
+            out.append((torch.from_numpy(rng.randint(0, s[2], s[1])), False))
+            continue
+        kind, shape = (s[0], s[1]) if isinstance(s[0], str) else ("n", s)
+        a = rng.rand(*shape) + 0.5 if kind == "pos" else rng.randn(*shape)
+        out.append((torch.from_numpy(a.astype(np.float32)).to(dtype),
+                    kind != "const"))
+    return out
+
+
+def _nn_container(nn, kind):
+    if kind == "seq":
+        return nn.Sequential(nn.Linear(4, 5), nn.GELU(), nn.Linear(5, 2))
+    if kind == "list":
+        class Stack(nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.layers = nn.LayerList([nn.Linear(4, 4) for _ in range(2)])
+
+            def forward(self, x):
+                for layer in self.layers:
+                    x = layer(x)
+                return x
+        return Stack()
+    if kind == "dict":
+        class Heads(nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.heads = nn.LayerDict({"a": nn.Linear(4, 3),
+                                           "b": nn.Linear(4, 3)})
+
+            def forward(self, x):
+                return self.heads["a"](x) * self.heads["b"](x)
+        return Heads()
+
+    class Scaled(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ws = nn.ParameterList(
+                [self.create_parameter([4]) for _ in range(2)])
+
+        def forward(self, x):
+            return x * self.ws[0] + self.ws[1]
+    return Scaled()
+
+
+def _nn_layer(pt, name, spec, dtype):
+    """A layer of NN_LAYERS built in ``dtype`` on the current place."""
+    args, kwargs = spec[0], spec[1]
+    prev = pt.get_default_dtype()
+    pt.set_default_dtype(dtype)
+    try:
+        if isinstance(args, str):
+            layer = _nn_container(pt.nn, args)
+        elif name == "RMSNorm":
+            from paddle_tpu_torch.core.place import resolve_device
+
+            layer = pt.nn.RMSNorm(*args, device=resolve_device(),
+                                  dtype=pt.get_default_dtype())
+        else:
+            layer = getattr(pt.nn, name)(*args, **kwargs)
+    finally:
+        pt.set_default_dtype(prev)
+    if len(spec) > 3:
+        layer.eval()
+    return layer
+
+
+def _nn_tol(dtype, k=NN_K):
+    return "bf16" if dtype == "bfloat16" else k
+
+
+def nn_sweep(torch, pt, np, dev):
+    """Every function and layer of this slice on ``dev`` against its CPU
+    twin, fp32 and bf16, forward and the gradients of sum(out * w) for
+    every float input (and, for a layer, every parameter: the card's layer
+    takes the CPU twin's weights through ``set_state_dict``)."""
+    import copy
+
+    F = pt.nn.functional
+    t0 = time.perf_counter()
+    fn_names = {n for m in ("activation", "common", "norm", "extension",
+                            "flash_attention")
+                for n in importlib.import_module(
+                    f"paddle_tpu_torch.nn.functional.{m}").__all__}
+    missing = fn_names - set(NN_FUNCTIONS) - {"class_center_sample",
+                                              "sdp_kernel"}
+    layer_names = {n for m in ("activation", "common", "norm", "container")
+                   for n in importlib.import_module(
+                       f"paddle_tpu_torch.nn.layer.{m}").__all__}
+    missing |= layer_names - set(NN_LAYERS)
+    if missing:
+        raise AssertionError(f"nn sweep: no case for {sorted(missing)}")
+    worst, n_cases = {}, 0
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for i, name in enumerate(sorted(NN_FUNCTIONS) + sorted(NN_LAYERS)):
+            is_layer = name in NN_LAYERS
+            call, specs = ((None, NN_LAYERS[name][2]) if is_layer
+                           else NN_FUNCTIONS[name])
+            ins = nn_inputs(torch, np, specs, i, tdt)
+            with _cpu_place():
+                layer = _nn_layer(pt, name, NN_LAYERS[name], dtype) \
+                    if is_layer else None
+            if is_layer and name == "RMSNorm":
+                card = copy.deepcopy(layer).to(dev)
+            elif is_layer:
+                card = _nn_layer(pt, name, NN_LAYERS[name], dtype)
+                card.set_state_dict(layer.state_dict())
+            outs = {}
+            for where, model in (("card", card if is_layer else None),
+                                 ("cpu", layer)):
+                d = dev if where == "card" else torch.device("cpu")
+                xs = [t.to(d).requires_grad_() if g else t.to(d)
+                      for t, g in ins]
+                out = model(*xs) if is_layer else call(F, *xs)
+                leaves = [x for x in xs if x.requires_grad]
+                if is_layer:
+                    leaves += [p for p in model.parameters()
+                               if p.requires_grad]
+                grads = (_grads(torch, pt, out, leaves)
+                         if leaves and out.is_floating_point() else None)
+                outs[where] = (out, grads)
+            (got, g_card), (want, g_cpu) = outs["card"], outs["cpu"]
+            what = f"{name} {dtype}"
+            err = sweep_compare(torch, what, got, want, _nn_tol(dtype), dev)
+            if g_card is not None:
+                err = max(err, sweep_compare(torch, f"{what} grad", g_card,
+                                             g_cpu, _nn_tol(dtype), dev))
+            worst[what] = err
+            n_cases += 1
+    torch.cuda.synchronize()
+    return {"functions": len(NN_FUNCTIONS), "layers": len(NN_LAYERS),
+            "cases": n_cases, "max_abs_err": worst,
+            "s": time.perf_counter() - t0}
+
+
+def nn_random_on_card(torch, pt, dev):
+    """The random functions on the card: a dropout mask repeats after the
+    same seed and drops its share; class_center_sample keeps every
+    positive; sdp_kernel is a no-op context."""
+    F = pt.nn.functional
+    x = torch.randn(1024, 1024, device=dev)
+    pt.seed(3)
+    a = F.dropout(x, 0.25)
+    pt.seed(3)
+    b = F.dropout(x, 0.25)
+    share = float((a == 0).float().mean())
+    label = torch.tensor([3, 7, 3, 9], device=dev)
+    remapped, centers = F.class_center_sample(label, 100, 8)
+    with F.sdp_kernel():
+        pass
+    ok = (torch.equal(a, b) and abs(share - 0.25) < 0.01
+          and remapped.device == dev
+          and torch.equal(centers[remapped], label) and len(centers) == 8)
+    if not ok:
+        raise AssertionError(f"nn random ops on the card: dropout share "
+                             f"{share}, class centers {centers.tolist()}")
+    return {"dropout_share": share}
+
+
+def nn_decoder_layer(pt, cfg):
+    """A Llama decoder layer written with ``paddle.nn``: ``Linear`` without
+    bias ([in, out] weights), ``RMSNorm``, RoPE through the tensor ops,
+    ``F.flash_attention(causal=True)`` and ``F.silu``; built on the current
+    place in the default dtype."""
+    nn, F = pt.nn, pt.nn.functional
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    nh = cfg.num_attention_heads
+    d = h // nh
+
+    class DecoderLayer(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            for name, (i, o) in (("q_proj", (h, h)), ("k_proj", (h, h)),
+                                 ("v_proj", (h, h)), ("o_proj", (h, h)),
+                                 ("gate_proj", (h, f)), ("up_proj", (h, f)),
+                                 ("down_proj", (f, h))):
+                setattr(self, name, nn.Linear(i, o, bias_attr=False))
+            from paddle_tpu_torch.core.place import resolve_device
+
+            kw = dict(device=resolve_device(), dtype=pt.get_default_dtype())
+            self.input_layernorm = nn.RMSNorm(h, cfg.rms_norm_eps, **kw)
+            self.post_attention_layernorm = nn.RMSNorm(h, cfg.rms_norm_eps,
+                                                       **kw)
+
+        def forward(self, x, cos, sin):
+            b, s, _ = x.shape
+
+            def rope(t):
+                t1, t2 = pt.split(pt.cast(t, "float32"), 2, axis=-1)
+                c = pt.reshape(pt.cast(cos, "float32"), [1, s, 1, d // 2])
+                sn = pt.reshape(pt.cast(sin, "float32"), [1, s, 1, d // 2])
+                return pt.cast(pt.concat([t1 * c - t2 * sn, t2 * c + t1 * sn],
+                                         axis=-1), x.dtype)
+
+            hn = self.input_layernorm(x)
+            q = rope(pt.reshape(self.q_proj(hn), [b, s, nh, d]))
+            k = rope(pt.reshape(self.k_proj(hn), [b, s, nh, d]))
+            v = pt.reshape(self.v_proj(hn), [b, s, nh, d])
+            ctx, _ = F.flash_attention(q, k, v, causal=True)
+            x = x + self.o_proj(pt.reshape(ctx, [b, s, h]))
+            hn = self.post_attention_layernorm(x)
+            return x + self.down_proj(F.silu(self.gate_proj(hn))
+                                      * self.up_proj(hn))
+
+    return DecoderLayer()
+
+
+NN_LAYER_KEYS = {"q_proj.weight": "wq", "k_proj.weight": "wk",
+                 "v_proj.weight": "wv", "o_proj.weight": "wo",
+                 "gate_proj.weight": "wg", "up_proj.weight": "wu",
+                 "down_proj.weight": "wd", "input_layernorm.weight": "ln1",
+                 "post_attention_layernorm.weight": "ln2"}
+
+
+def nn_layer(torch, pt, dev, seed, tensor_rec):
+    """The nn route at full width: phase 9's 7B decoder layer written with
+    ``paddle.nn`` (bf16, [1, 512]), its weights carried in from phase 9's
+    routes by ``set_state_dict``, forward and backward; its max error
+    against phase 9's fp32 yardstick (the tensor-API layer in fp32) at most
+    twice the kernel route's plus one bf16 step, its K1, K3, K5 and K6
+    launches held against the path's, its time by CUDA events."""
+    from paddle_tpu_torch import ops
+
+    st = layer_setup(torch, dev, seed)
+    cfg, w16, x16, gw = st["cfg"], st["w16"], st["x16"], st["gw"]
+    cos, sin = st["cos"], st["sin"]
+    w32 = {k: v.float() for k, v in w16.items()}
+    prev = pt.get_default_dtype()
+    pt.set_default_dtype("bfloat16")
+    try:
+        layer = nn_decoder_layer(pt, cfg)
+    finally:
+        pt.set_default_dtype(prev)
+    missing, unexpected = layer.set_state_dict(
+        {k: w16[v] for k, v in NN_LAYER_KEYS.items()})
+    if missing or unexpected:
+        raise AssertionError(f"nn layer: state dict keys {missing} "
+                             f"{unexpected}")
+    nh, eps = cfg.num_attention_heads, cfg.rms_norm_eps
+
+    def run(route, xin):
+        xin = xin.detach().requires_grad_()
+        out = (_decoder_layer(pt, xin, w32, cos, sin, nh, eps)
+               if route == "yardstick" else layer(xin, cos, sin))
+        (g,) = pt.grad(pt.sum(out.float() * gw), [xin])
+        return out.detach().float(), g.float()
+
+    ref_out, ref_g = run("yardstick", x16.float())
+    ops.reset_launch_counts()
+    out, g = run("nn", x16)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    check_launches(counts, expect(counts, rms_norm=2, flash_fwd=1,
+                                  flash_bwd_dq=1, flash_bwd_dkv=1),
+                   "the nn layer, forward and backward")
+    rec = {"config": tensor_rec["config"], "launches": counts}
+    for what, ref, got in (("output", ref_out, out), ("input_grad", ref_g, g)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"nn layer {what}: non-finite")
+        step = BF16_STEP * float(ref.abs().max())
+        e_nn = float((got - ref).abs().max())
+        e_k = tensor_rec[what]["kernel_max_abs_err"]
+        rec[what] = {"nn_max_abs_err": e_nn, "bf16_step": step,
+                     "api_max_abs_err": tensor_rec[what]["api_max_abs_err"],
+                     "kernel_max_abs_err": e_k}
+        if e_nn > 2 * e_k + step:
+            raise AssertionError(
+                f"nn layer {what}: max |err| {e_nn:.4g} against the fp32 "
+                f"yardstick exceeds twice the kernel route's {e_k:.4g} plus "
+                f"one bf16 step {step:.4g}")
+    rec["nn_ms"] = _event_ms(torch, lambda: run("nn", x16),
+                             TENSOR_LAYER["reps"])
+    del st, layer, w16, w32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def io_fit(torch, np, dev, seed):
+    """``Model.fit`` at phase 6b's configuration over an ``io.TensorDataset``
+    of NN_IO["batches"] seeded batches through ``io.DataLoader(batch_size=
+    B)``, against ``Model.fit`` over the same batches passed as a list,
+    each from the same initial weights and a fresh optimizer: the losses
+    bitwise equal and the launch counts equal; then the DataLoader with
+    NN_IO["workers"] worker processes yields the batches of
+    ``num_workers=0`` in the same order."""
+    from paddle_tpu_torch import LlamaForCausalLM, io, llama_config, ops
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    cfg = train_config(llama_config)
+    B, S, n = TRAIN["batch"], TRAIN["seq"], NN_IO["batches"]
+    net = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed))
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    tok = torch.from_numpy(np.random.RandomState(seed + 1).randint(
+        0, cfg.vocab_size, (n * B, S + 1)))
+    ids, labels = tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+    ds = io.TensorDataset([ids, labels])
+
+    class Losses(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    def fit(data):
+        net.load_state_dict(init)
+        m = eager_prepare(torch, net)
+        cb = Losses()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        m.fit(data, batch_size=B, shuffle=False, verbose=0, callbacks=[cb])
+        torch.cuda.synchronize()
+        return cb.losses, ops.launch_counts(), time.perf_counter() - t
+
+    l_ds, c_ds, s_ds = fit(ds)
+    l_it, c_it, s_it = fit([(ids[i * B:(i + 1) * B], labels[i * B:(i + 1) * B])
+                            for i in range(n)])
+    if l_ds != l_it or c_ds != c_it or len(l_ds) != n:
+        raise AssertionError(f"io: Model.fit over a Dataset {l_ds} {c_ds}, "
+                             f"over the batches {l_it} {c_it}")
+    if not np.isfinite(np.asarray(l_ds, np.float64)).all():
+        raise AssertionError(f"io: non-finite loss in {l_ds}")
+    t = time.perf_counter()
+    plain = list(io.DataLoader(ds, batch_size=B))
+    workers = list(io.DataLoader(ds, batch_size=B,
+                                 num_workers=NN_IO["workers"],
+                                 timeout=NN_IO["timeout"]))
+    workers_s = time.perf_counter() - t
+    if len(plain) != n or len(workers) != n or not all(
+            torch.equal(a, b) for p, w in zip(plain, workers)
+            for a, b in zip(p, w)):
+        raise AssertionError("io: the worker processes' batches differ from "
+                             "num_workers=0's")
+    del net, init
+    torch.cuda.empty_cache()
+    return {"config": f"{TRAIN['preset']} {TRAIN['overrides']}",
+            "layers": cfg.num_hidden_layers, "batch": B, "seq": S,
+            "losses": l_ds, "launches": c_ds, "fit_dataset_s": s_ds,
+            "fit_batches_s": s_it, "workers_s": workers_s}
+
+
+def nn_phase(torch, dev, np, seed, tensor_rec):
+    """Phase 10: paddle.nn and paddle.io on the card (default place): the
+    sweep of every layer and function against its CPU twin, the random
+    functions, the 7B nn-route layer (this slice's path) and Model.fit
+    through io.DataLoader."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":         # every output must land on this device
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rec = {"sweep": nn_sweep(torch, pt, np, dev),
+           "random": nn_random_on_card(torch, pt, dev)}
+    rec["layer"] = nn_layer(torch, pt, dev, seed, tensor_rec)
+    rec["launches"] = rec["layer"]["launches"]
+    rec["io"] = io_fit(torch, np, dev, seed)
     from paddle_tpu_torch import ops
 
     rec["route_calls"] = {name: 0 for name in ops.ROUTES}
@@ -8740,6 +9355,35 @@ def main(argv=None) -> int:
         f"{ly['api_ms']:.3f} ms, kernel layer {ly['kernel_ms']:.3f} ms "
         f"(CUDA events, median of {TENSOR_LAYER['reps']})  [{smi}]")
     log(f"[tensor] {record['phases']['tensor']:.1f}s")
+    # 10. paddle.nn and paddle.io on the card: this slice's main path
+    t = time.perf_counter()
+    nnp = nn_phase(torch, dev, np, args.seed, ly)
+    record["nn"] = nnp
+    record["phases"]["nn"] = time.perf_counter() - t
+    sw, nl, fio = nnp["sweep"], nnp["layer"], nnp["io"]
+    log(f"[nn] sweep: {sw['functions']} functions and {sw['layers']} layers "
+        f"in fp32 and bf16 ({sw['cases']} cases, forward and gradients) on "
+        f"cuda:0 against their CPU twins in {sw['s']:.1f} s; largest errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(
+            sw["max_abs_err"].items(), key=lambda kv: -kv[1])[:6]))
+    for what in ("output", "input_grad"):
+        r = nl[what]
+        log(f"[nn] {nl['config']} layer {what}: max |err| against the fp32 "
+            f"yardstick, nn route {r['nn_max_abs_err']:.4g}, tensor API "
+            f"{r['api_max_abs_err']:.4g}, kernel layer "
+            f"{r['kernel_max_abs_err']:.4g} (bf16 step {r['bf16_step']:.4g})")
+    log(f"[nn] {nl['config']} layer forward + backward: nn route "
+        f"{nl['nn_ms']:.3f} ms, tensor API {ly['api_ms']:.3f} ms, kernel "
+        f"layer {ly['kernel_ms']:.3f} ms (CUDA events, median of "
+        f"{TENSOR_LAYER['reps']})  [{smi}]")
+    log(f"[nn] io: Model.fit {fio['config']} x{fio['layers']}, "
+        f"{fio['batch']}x{fio['seq']} tokens, over an io.TensorDataset "
+        f"through io.DataLoader: losses {fio['losses']}, bitwise those of "
+        f"fit over the same batches as a list ({fio['fit_dataset_s']:.1f} s "
+        f"and {fio['fit_batches_s']:.1f} s); {NN_IO['workers']} worker "
+        f"processes gave the same batches in order ({fio['workers_s']:.1f} "
+        f"s)  [{smi}]")
+    log(f"[nn] {record['phases']['nn']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
@@ -8749,7 +9393,7 @@ def main(argv=None) -> int:
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
                 f32=record["f32"], eager_fit=eg, fleet=fl, disagg=dg,
-                server_ledger=sr["ledger"], tensor_surface=tp)
+                server_ledger=sr["ledger"], tensor_surface=tp, nn=nnp)
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

@@ -96,7 +96,7 @@ __all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausa
 
 # subpackages that load on first access (PEP 562), as the reference's do
 _LAZY_SUBMODULES = {"serving", "monitor", "tracing", "testing", "profiler",
-                    "amp", "metric", "autograd"}
+                    "amp", "metric", "autograd", "io"}
 
 # names that load their module on first access, as the reference's do
 _LAZY_ATTRS = {
@@ -124,6 +124,7 @@ _LAZY_ATTRS = {
     "tanh_": ("paddle_tpu_torch.framework.compat", "tanh_"),
     "unsqueeze_": ("paddle_tpu_torch.framework.compat", "unsqueeze_"),
     "synchronize": ("paddle_tpu_torch.device", "synchronize"),
+    "ParamAttr": ("paddle_tpu_torch.nn.param_attr", "ParamAttr"),
 }
 
 

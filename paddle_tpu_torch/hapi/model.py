@@ -11,10 +11,11 @@ loss's ``float()``, as in the reference.
 
 The model follows its network's device: inputs and labels are moved to the
 device of the network's first parameter. ``fit``, ``evaluate`` and
-``predict`` take iterables of batches; a ``Dataset``, which the reference
-wraps in its ``io.DataLoader``, raises, as do ``save(training=False)``
-(an inference export through ``jit``) and ``summary``: those are not
-ported yet (ROADMAP A14).
+``predict`` take a ``DataLoader``, a ``Dataset`` (wrapped in an
+``io.DataLoader`` of ``batch_size``, ``shuffle`` and ``num_workers``, as
+the reference wraps it) or any iterable of batches. ``save(training=False)``
+(an inference export through ``jit``) and ``summary`` raise: those are not
+ported yet (ROADMAP A14d).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from .callbacks import config_callbacks
 
 __all__ = ["Model"]
 
-_NOT_PORTED = "not ported yet (ROADMAP A14, {})"
+_NOT_PORTED = "not ported yet (ROADMAP A14d, {})"
 
 
 def _to_list(x):
@@ -155,14 +156,12 @@ class Model:
 
     # -- loops --------------------------------------------------------------
     def _make_loader(self, data, batch_size, shuffle, num_workers):
-        if data is None:
-            return None
-        if any(c.__name__ == "Dataset" for c in type(data).__mro__):
-            raise NotImplementedError(
-                "a Dataset for fit/evaluate/predict is "
-                + _NOT_PORTED.format("io.DataLoader") + "; pass an "
-                "iterable of batches")
-        return data  # an iterable of batches
+        from ..io import DataLoader, Dataset
+
+        if isinstance(data, Dataset):
+            return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
+                              num_workers=num_workers)
+        return data  # None, a DataLoader or an iterable of batches
 
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,

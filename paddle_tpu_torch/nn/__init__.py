@@ -1,11 +1,17 @@
-"""``paddle.nn``: ``RMSNorm``, the loss layers, the gradient clips and
-``nn.functional``."""
-from . import functional
+"""``paddle.nn`` (port of ``paddle_tpu/nn``): ``Layer`` and its
+containers, ``Parameter`` and ``ParamAttr``, the initializers, the
+activation, common, norm and loss layers, ``nn.functional``, the gradient
+clips and ``nn.utils``. The convolution, pooling, recurrent and transformer
+layers and the decoders are not ported yet (ROADMAP A14b)."""
+from . import functional, initializer, utils
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_, clip_grad_value_)
 from .layer import *  # noqa: F401,F403
 from .layer import __all__ as _layer_all
+from .param_attr import ParamAttr
+from .parameter import Parameter
 
-__all__ = (["functional", "ClipGradByValue", "ClipGradByNorm",
-            "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_"]
+__all__ = (["functional", "initializer", "utils", "ClipGradByValue",
+            "ClipGradByNorm", "ClipGradByGlobalNorm", "clip_grad_norm_",
+            "clip_grad_value_", "ParamAttr", "Parameter"]
            + [n for n in _layer_all if n != "loss"])

@@ -1,7 +1,20 @@
-"""``paddle.nn.functional``: the losses (port of
-``paddle_tpu/nn/functional/loss.py``)."""
+"""``paddle.nn.functional``: activations, common functions, norms,
+attention, the extension functions and the losses (ports of
+``paddle_tpu/nn/functional/``). The convolution, pooling and sequence-loss
+functions are not ported yet (ROADMAP A14b)."""
 from . import loss
+from .activation import *  # noqa: F401,F403
+from .activation import __all__ as _activation_all
+from .common import *  # noqa: F401,F403
+from .common import __all__ as _common_all
+from .extension import *  # noqa: F401,F403
+from .extension import __all__ as _extension_all
+from .flash_attention import *  # noqa: F401,F403
+from .flash_attention import __all__ as _attention_all
 from .loss import *  # noqa: F401,F403
 from .loss import __all__ as _loss_all
+from .norm import *  # noqa: F401,F403
+from .norm import __all__ as _norm_all
 
-__all__ = ["loss"] + list(_loss_all)
+__all__ = (["loss"] + _activation_all + _common_all + _norm_all + _loss_all
+           + _extension_all + _attention_all)

@@ -1,12 +1,11 @@
-"""Loss layers (port of ``paddle_tpu/nn/layer/loss.py``): ``nn.Module``
+"""Loss layers (port of ``paddle_tpu/nn/layer/loss.py``): ``Layer``
 wrappers of ``nn.functional.loss``. The reference's ``CTCLoss``,
 ``HSigmoidLoss``, ``MultiMarginLoss`` and ``RNNTLoss``, whose functions the
 port does not have yet, are not ported."""
 from __future__ import annotations
 
-from torch.nn import Module as Layer
-
 from ..functional import loss as F
+from .layers import Layer
 
 __all__ = [
     "CrossEntropyLoss", "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "MSELoss",

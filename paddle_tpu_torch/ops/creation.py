@@ -1,6 +1,6 @@
 """Creation ops (port of ``paddle_tpu/ops/creation.py``): new tensors on
 the current place (``set_device``), in the default dtype unless a dtype is
-given."""
+given, and ``create_parameter`` over ``nn``'s ``Layer.create_parameter``."""
 from __future__ import annotations
 
 import builtins
@@ -17,7 +17,7 @@ __all__ = ["zeros", "ones", "full", "empty", "zeros_like", "ones_like",
            "full_like", "empty_like", "arange", "linspace", "logspace", "eye",
            "diag", "diagflat", "tril", "triu", "meshgrid", "assign", "clone",
            "to_tensor", "tril_indices", "triu_indices", "one_hot", "complex",
-           "polar", "create_tensor"]
+           "polar", "create_parameter", "create_tensor"]
 
 
 def _scalar(v):
@@ -172,6 +172,18 @@ def complex(real, imag, name=None):
 def polar(abs, angle, name=None):
     """abs * e^(i angle)."""
     return torch.polar(tensor(abs), tensor(angle))
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """paddle.create_parameter parity: a free-standing ``nn.Parameter``
+    made as ``Layer.create_parameter`` makes one (``attr``, the global
+    initializer, ``default_initializer``), on the current place."""
+    from ..nn.layer.layers import Layer
+
+    return Layer(dtype=dtype).create_parameter(
+        list(shape), attr=attr, dtype=dtype, is_bias=is_bias,
+        default_initializer=default_initializer)
 
 
 def create_tensor(dtype, name=None, persistable=False):

@@ -46,6 +46,17 @@ DENSE = dict(max_batch=2, max_len=64)
 C = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _val(x):
     return np.asarray(getattr(x, "value", x), np.float32)
 

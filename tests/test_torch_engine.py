@@ -27,6 +27,17 @@ from test_torch_llama import make_pair
 MARGIN = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _prompts(seed, lens, vocab=256):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, vocab, (n,)).astype(np.int32) for n in lens]

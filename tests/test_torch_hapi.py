@@ -478,15 +478,6 @@ def test_what_is_not_ported_raises(tmp_path):
     m.prepare(topt.SGD(parameters=model.parameters()),
               tloss.CrossEntropyLoss())
 
-    class Dataset(torch.utils.data.Dataset):
-        def __getitem__(self, i):
-            return _batches(1)[0]
-
-        def __len__(self):
-            return 1
-
-    with pytest.raises(NotImplementedError, match="A14"):
-        m.fit(Dataset(), verbose=0)
     with pytest.raises(NotImplementedError, match="A14"):
         m.save(str(tmp_path / "x"), training=False)
     with pytest.raises(NotImplementedError, match="A14"):

@@ -56,6 +56,17 @@ print("imported", len(names))
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -479,8 +490,10 @@ def test_serving_imports_lazily_and_without_http_server():
     assert out.stdout.split()[-1] == "paddle_tpu_torch.serving.scheduler"
 
 
-# the tensor surface's modules: each one's public names are the reference
-# module's minus the names the port leaves out (ROADMAP A14)
+# the tensor surface's modules and nn's and io's: each one's public names
+# are the reference module's minus the names the port leaves out (ROADMAP
+# A14b and A14d); None where the reference module has no ``__all__`` or
+# there is no reference module
 TENSOR_SURFACE_MODULES = {
     "paddle_tpu_torch/autograd/__init__.py": (),
     "paddle_tpu_torch/autograd/functional.py": None,
@@ -497,13 +510,41 @@ TENSOR_SURFACE_MODULES = {
     "paddle_tpu_torch/device/xpu/__init__.py": (),
     "paddle_tpu_torch/framework/compat.py": (),
     "paddle_tpu_torch/ops/_helpers.py": None,
-    "paddle_tpu_torch/ops/creation.py": ("create_parameter",),
+    "paddle_tpu_torch/ops/creation.py": (),
     "paddle_tpu_torch/ops/math.py": (),
     "paddle_tpu_torch/ops/manipulation.py": (),
     "paddle_tpu_torch/ops/logic.py": (),
     "paddle_tpu_torch/ops/search.py": (),
     "paddle_tpu_torch/ops/random.py": (),
     "paddle_tpu_torch/ops/linalg.py": (),
+    "paddle_tpu_torch/nn/__init__.py": None,
+    "paddle_tpu_torch/nn/param_attr.py": (),
+    "paddle_tpu_torch/nn/parameter.py": (),
+    "paddle_tpu_torch/nn/initializer.py": (),
+    "paddle_tpu_torch/nn/functional_call.py": (),
+    "paddle_tpu_torch/nn/clip.py": (),
+    "paddle_tpu_torch/nn/layer/__init__.py": None,
+    "paddle_tpu_torch/nn/layer/layers.py": (),
+    "paddle_tpu_torch/nn/layer/container.py": (),
+    "paddle_tpu_torch/nn/layer/activation.py": (),
+    "paddle_tpu_torch/nn/layer/common.py": (),
+    "paddle_tpu_torch/nn/layer/norm.py": (),
+    "paddle_tpu_torch/nn/layer/loss.py": ("CTCLoss", "HSigmoidLoss",
+                                          "MultiMarginLoss", "RNNTLoss"),
+    "paddle_tpu_torch/nn/functional/__init__.py": None,
+    "paddle_tpu_torch/nn/functional/_op.py": None,
+    "paddle_tpu_torch/nn/functional/activation.py": (),
+    "paddle_tpu_torch/nn/functional/common.py": (),
+    "paddle_tpu_torch/nn/functional/norm.py": (),
+    "paddle_tpu_torch/nn/functional/extension.py": (),
+    "paddle_tpu_torch/nn/functional/flash_attention.py": (),
+    "paddle_tpu_torch/nn/functional/loss.py": ("ctc_loss",),
+    "paddle_tpu_torch/nn/utils/__init__.py": (),
+    "paddle_tpu_torch/nn/utils/utils.py": (),
+    "paddle_tpu_torch/io/__init__.py": None,
+    "paddle_tpu_torch/io/dataset.py": (),
+    "paddle_tpu_torch/io/sampler.py": (),
+    "paddle_tpu_torch/io/dataloader.py": (),
 }
 
 

@@ -35,6 +35,17 @@ port_paged = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x, np.float32)
 

@@ -45,6 +45,17 @@ FLOOR = port_kv.KV_SCALE_FLOOR
 port_paged = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _j(x):
     return np.asarray(getattr(x, "value", x))
 

@@ -26,6 +26,17 @@ from paddle_tpu_torch.models import llama as port_llama
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _val(x):
     return np.asarray(getattr(x, "value", x))
 

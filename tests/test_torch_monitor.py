@@ -24,6 +24,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu.monitor as jmon
 import paddle_tpu.tracing as jtrace
@@ -48,6 +49,17 @@ from test_torch_llama import make_pair
 
 PREFIX = "paddle_tpu_parity_"
 DEVICE_COLLECTORS = ("paddle_tpu_hbm_bytes", "paddle_tpu_live_array_bytes")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture()

@@ -64,6 +64,17 @@ BAD_CONFIGS = [
     dict(seed="0")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("bad", BAD_CONFIGS, ids=str)
 def test_generation_config_rejects_what_the_reference_rejects(bad):
     with pytest.raises(ValueError):

@@ -48,6 +48,17 @@ from test_torch_llama import make_pair
 WAIT = 120          # seconds any one wait may take before the test fails
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny_model(layers=1, seed=0):
     torch.manual_seed(seed)
     cfg = llama_config("tiny", num_hidden_layers=layers)
@@ -747,6 +758,17 @@ class TestHTTPFrontend:
             with pytest.raises(HTTPError) as ei:
                 urlopen(f"http://127.0.0.1:{port}/nope", timeout=30)
             assert ei.value.code == 404
+            # the blockers hold every slot past the queued request's 0.05 s
+            # admission deadline: each decode segment takes at least 0.05 s
+            # (one intra-op thread decodes the tiny model's 47 tokens in
+            # less than that on a fast host)
+            real_decode = eng.decode_segment
+
+            def slow_decode(*a, **k):
+                time.sleep(0.05)
+                return real_decode(*a, **k)
+
+            eng.decode_segment = slow_decode
             rng = np.random.RandomState(9)
             blocker = [srv.submit(rng.randint(0, cfg.vocab_size, (4,))
                                   .astype(np.int32),

@@ -54,6 +54,17 @@ from paddle_tpu_torch.testing.faults import (SITES, FaultPlan, FaultyEngine,
 WAIT = 120
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny_model(layers=1, seed=0):
     torch.manual_seed(seed)
     cfg = llama_config("tiny", num_hidden_layers=layers)

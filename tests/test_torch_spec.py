@@ -224,14 +224,12 @@ def test_engine_knobs_defaults_eligibility_and_idle_only():
 
 def test_cpu_matmul_rows_differ_across_m():
     """Why the spec streams are held token for token and not logit for
-    logit: the CPU's matmul gives a row other bits at M = 12 than at M = 3
-    (the verify window's M against the one-token step's), so the verify
-    forward's position 0 is the one-token step's only to rounding, while
-    its argmax is the same."""
-    g = torch.Generator().manual_seed(0)
-    w = torch.randn(64, 176, generator=g) * 0.02
-    x = torch.randn(3, 4, 64, generator=g)
-    assert not torch.equal((x @ w)[:, :1], x[:, :1] @ w)
+    logit. The premise: a BLAS may give a row other bits at M = 12 than at
+    M = 3 (the verify window's M against the one-token step's), and many
+    do. So the verify forward's position 0 is held to the one-token step's
+    only to rounding, and its argmax must be the same; the streams' top-2
+    margin guard rests on that. Whether this host's BLAS rounds the two
+    alike is not the port's to assert."""
     _, tm = pair()
     lens = torch.tensor([5, 30, 0], dtype=torch.int32)
     live = torch.tensor([True, True, False])
@@ -242,7 +240,7 @@ def test_cpu_matmul_rows_differ_across_m():
         one, _ = tm.forward_decode_ragged(ids[:, :1], tm.init_cache(3, 32),
                                           lens, live)
     diff = (spec[:, 0] - one[:, 0]).abs().max().item()
-    assert 0 < diff < 1e-5
+    assert diff < 1e-5
     assert torch.equal(spec[:, 0].argmax(-1), one[:, 0].argmax(-1))
 
 

@@ -8,7 +8,7 @@ decoder layer written once with the surface's names.
   ``autograd`` and ``framework.compat``, and the ``device`` names of this
   slice falls into exactly one of HELD, GRAD, RANDOM and LEFT
   (``tests/torch_surface_cases.py``); a new or missing name fails. LEFT is
-  the list ROADMAP's A14 keeps, each name there.
+  the list ROADMAP's long-tail item keeps, each name there.
 - (c) The dtype map: the paddle names and aliases are torch dtypes; the
   64-bit names are 64-bit in the port, 32-bit in the JAX package (x64 off):
   ``float64``, ``int64`` and ``complex128``, and what ``to_tensor`` infers
@@ -31,6 +31,7 @@ fp32 tolerance: rtol 1e-5, atol 1e-6; the decoder layer atol 1e-5 (its
 attention sums 16 keys in other orders: the port's flash tiles, softmax).
 """
 import inspect
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -135,10 +136,21 @@ def test_every_name_but_left_is_in_the_port():
                            name), q
 
 
-def test_left_is_the_roadmaps_list():
+def _roadmap_item(text):
+    """The item of ROADMAP's queue A (a block that starts with its number,
+    as ``A14d. **``) that mentions ``text``: found by its content, so a
+    re-anchor that renumbers the queue does not move it."""
     roadmap = (ROOT / "ROADMAP.md").read_text()
-    a14 = roadmap[roadmap.index("A14. **Long tail"):]
-    a14 = a14[:a14.index("\n### ")]
+    queue = roadmap[roadmap.index("\n### A. "):]
+    queue = queue[:queue.index("\n### ", 1)]
+    items = re.split(r"\n(?=A\d+[a-z]?\. \*\*)", queue)
+    found = [item for item in items if text in item]
+    assert len(found) == 1, (text, len(found))
+    return found[0]
+
+
+def test_left_is_the_roadmaps_list():
+    a14 = _roadmap_item("`ops/_methods.py`")
     for q, reason in cases.LEFT.items():
         assert q.split(":")[1] in a14, q
         assert reason
@@ -156,7 +168,8 @@ def test_top_level_names():
             "batch", "LazyGuard", "check_shape", "disable_signal_handler",
             "set_printoptions", "tolist", "get_cuda_rng_state",
             "set_cuda_rng_state", "pow_", "index_add_", "index_put_",
-            "scatter_", "squeeze_", "tanh_", "unsqueeze_", "synchronize"}
+            "scatter_", "squeeze_", "tanh_", "unsqueeze_", "synchronize",
+            "ParamAttr"}
     assert lazy <= set(paddle_tpu._LAZY_ATTRS)
     core = {"bfloat16", "bool_", "complex64", "complex128", "float16",
             "float32", "float64", "get_default_dtype", "int8", "int16",
@@ -166,7 +179,7 @@ def test_top_level_names():
             "get_rng_state", "seed", "set_rng_state", "Tensor", "is_tensor",
             "to_tensor", "enable_grad", "no_grad", "set_grad_enabled",
             "is_grad_enabled", "linalg"}
-    for n in sorted((ops - {"create_parameter"}) | lazy | core):
+    for n in sorted(ops | lazy | core):
         assert hasattr(paddle_tpu, n), n
         assert getattr(pt, n) is not None, n
     assert pt.linalg.lstsq is pt.lstsq
@@ -662,6 +675,36 @@ def check_cuda_api(name):
     assert callable(getattr(c, name, None) or getattr(pt.device, name))
 
 
+def check_create_parameter(name):
+    """The same attr resolution as the reference's: the attr's
+    initializer and flags, the default initializer, zeros for a bias,
+    ``attr=False`` for none; the port's is an ``nn.Parameter`` on the
+    current place."""
+    def made(P, **kw):
+        return P.create_parameter([2, 3], "float32", **kw)
+
+    for kw in ({"default_initializer": "Constant"}, {"is_bias": True},
+               {"attr": "ParamAttr"}):
+        out = []
+        for P in (pt, paddle_tpu):
+            k = dict(kw)
+            if k.get("default_initializer"):
+                k["default_initializer"] = P.nn.initializer.Constant(0.7)
+            if k.get("attr"):
+                k["attr"] = P.ParamAttr(
+                    name="cp", initializer=P.nn.initializer.Constant(-1.5),
+                    trainable=False, learning_rate=0.5)
+            p = made(P, **k)
+            out.append((np.asarray(p.detach() if P is pt else p.value),
+                        p.trainable, p.optimize_attr["learning_rate"]))
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+        assert out[0][1:] == out[1][1:]
+    p = made(pt, attr=pt.ParamAttr(name="named"))
+    assert isinstance(p, pt.nn.Parameter) and p.name == "named"
+    assert p.device.type == "cpu" and p.requires_grad
+    assert made(pt, attr=False) is None
+
+
 CORE_CHECKS = {
     ("core.dtype", " ".join(_DTYPES)): check_dtype_names,
     ("core.dtype", "FLOATING_DTYPES INTEGER_DTYPES"): check_dtype_tuples,
@@ -710,6 +753,7 @@ CORE_CHECKS = {
                     "get_device_properties get_device_name "
                     "get_device_capability"): check_cuda_api,
     ("device.xpu", "synchronize"): check_device_api,
+    ("ops.creation", "create_parameter"): check_create_parameter,
 }
 
 

@@ -18,6 +18,7 @@ check (phase 4).
 """
 import numpy as np
 import pytest
+import torch
 
 from paddle_tpu.inference.generation import CausalLMEngine as JaxLMEngine
 from paddle_tpu.inference.generation import \
@@ -42,6 +43,17 @@ KINDS = {
     "dense": (ContinuousBatchingEngine, JaxDenseEngine, DENSE, 10),
 }
 LENS = [5, 17, 9, 30, 3, 12]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module runs: its models and ops are
+    tiny, and a thread pool on a machine whose cores other test workers
+    hold waits for its threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _prompts(seed, lens, vocab=256):

@@ -20,7 +20,7 @@ floats within ``TOL`` unless the case states its own.
 - ``RANDOM``: the random ops, checked for repeatability and for their
   distributions (``test_torch_tensor_linalg.py``).
 - ``LEFT``: names of the JAX package the port leaves out, each with its
-  reason (the same list as ROADMAP's A14).
+  reason (the same list as ROADMAP's long-tail item, A14d).
 """
 from __future__ import annotations
 
@@ -582,11 +582,9 @@ RANDOM = ("rand", "randn", "randint", "randint_like", "randperm", "uniform",
           "exponential_", "rand_like", "randn_like", "normal_like",
           "uniform_", "pca_lowrank")
 
-# names of the JAX package the port leaves out, with the reason (ROADMAP
-# A14 lists the same)
+# names of the JAX package the port leaves out, with the reason (ROADMAP's
+# long-tail item, A14d, lists the same)
 LEFT = {
-    "ops.creation:create_parameter":
-        "needs nn's ParamAttr and initializers: waits for the nn slice",
     "core.random:trace_key_scope":
         "a traced key for paddle_tpu.jit: belongs to the jit port",
     "core.autograd:GradNode":
