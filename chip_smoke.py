@@ -318,7 +318,29 @@ Phases, each timed, none caught and passed over:
    ``Model.fit`` at phase 6b's configuration over an ``io.TensorDataset``
    of 3 seeded batches through ``io.DataLoader``, its losses bitwise those
    of ``fit`` over the same batches as a list, and the loader with two
-   worker processes giving the same batches in order.
+   worker processes giving the same batches in order;
+11. the GPT and ERNIE-MoE families, this slice's main path: GPT-3 1.3B
+   (``gpt_config("1b3")``: hidden 2048, 24 layers, 16 heads of 128, FFN
+   8192, vocab 50304; bf16, full recompute) at batch 8 x 2048 and
+   ERNIE-MoE base (``ernie_moe_config("base")``: hidden 768, 12 layers, 12
+   heads of 64, 8 experts top-2 on every 2nd layer, vocab 40000; bf16) at
+   16 x 512 with 15% of the positions labelled, at full depth and width,
+   random weights and one batch from ``--seed``, each trained by
+   ``loss.backward(); opt.step(); opt.clear_grad()`` with the paddle-style
+   ``AdamW`` (lr 1e-4, weight decay 0.01, global-norm clip 1.0): a warm-up
+   step and 3 timed ones (step time, tokens/s, MFU, peak memory; ERNIE's
+   aux loss, each MoE layer's per-expert load, the share dropped by
+   capacity and the dispatch mode), K3/K5/K6 launches held exact (GPT:
+   K3 twice and K5, K6 once a layer; ERNIE: each once a layer, non-causal
+   at head dim 64); both cut to 2 layers (1 x 512, 2 x 128) on the card
+   and on the CPU from the same weights, GShard's random routing off: loss
+   and every gradient within phase 4's training tolerances, the GShard
+   choices equal up to near-ties (GATE_NEAR_TIE), where the CPU follows the
+   card's; and the incubate leg: ``fused_rms_norm`` (K1),
+   ``fused_rotary_position_embedding`` (K2) and
+   ``memory_efficient_attention`` (K3 non-causal, K5/K6) on cuda:0
+   against their CPU twins, forward and backward, within their kernels'
+   tolerances, launches counted.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -662,15 +684,17 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
                                              "train_hb", "ops", "f32",
                                              "eager_fit", "fleet", "disagg",
                                              "server_ledger",
-                                             "tensor_surface", "nn")
-# this slice's paths: phase 9's comparison route, the port's own Llama-2-7B
-# decoder layer forward and backward beside the tensor-API layer, which
-# runs K1, K2 and K3 forward and K5 and K6 backward; and phase 10's nn
-# route, the same layer written with paddle.nn (K1, K3 forward, K5 and K6
-# backward; RoPE through the tensor ops)
-SLICE_PATHS = ("tensor_surface", "nn")
+                                             "tensor_surface", "nn", "gpt",
+                                             "ernie", "incubate")
+# this slice's paths: phase 11's GPT-3 1.3B training steps (K3 causal at
+# head dim 128 twice a layer under full recompute, K5 and K6 once), the
+# ERNIE-MoE base steps (K3, K5 and K6 non-causal at head dim 64, once a
+# layer each) and the incubate leg (K1, K2 on q and k and their backward,
+# K3 non-causal with K5 and K6)
+SLICE_PATHS = ("gpt", "ernie", "incubate")
 # earlier slices' paths, in the order their counts stand in for a kernel
-# this slice does not run: the Server serve with the program ledger on,
+# this slice does not run: phase 9's comparison route and phase 10's nn
+# route (K1, K2); the Server serve with the program ledger on,
 # the replica fleet's routed traffic and the
 # disaggregated front's wave, the LoRA Server's serve, the decode paths,
 # which run K4 and K7 (phase 5's through captured graphs), the chunked and
@@ -678,7 +702,8 @@ SLICE_PATHS = ("tensor_surface", "nn")
 # front's Server serve, the prefix-cache and memory-pressure legs, the
 # speculative Server serves and FMT (K8); then training, the eager
 # Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
-EARLIER_PATHS = (("server_ledger", "fleet", "disagg", "server_lora", "serve",
+EARLIER_PATHS = (("tensor_surface", "nn"),
+                 ("server_ledger", "fleet", "disagg", "server_lora", "serve",
                   "serve_int8",
                   "generate", "dense_serve", "serve_chunked",
                   "serve_sampled", "server", "serve_prefix",
@@ -8675,6 +8700,416 @@ def nn_phase(torch, dev, np, seed, tensor_rec):
     return rec
 
 
+# -- phase 11: the GPT and ERNIE-MoE families, and the incubate entry points --
+
+# the two families at full depth and width (paddle_tpu/models/gpt.py:54,
+# "1b3": GPT-3 1.3B; paddle_tpu/models/ernie.py:58, "base": ERNIE-MoE base),
+# bf16, random weights from --seed, one batch from --seed: GPT causal LM
+# batches of next tokens, ERNIE MLM batches with MASK_SHARE of the positions
+# labelled and two segments of token types. Each trains through the loop a
+# PaddlePaddle user writes (loss.backward(); opt.step(); opt.clear_grad())
+# with the paddle-style AdamW at FAMILY_OPT; one warm-up step, then
+# TRAIN_STEPS timed ones
+FAMILIES = {
+    "gpt": dict(preset="1b3", overrides=dict(dtype="bfloat16",
+                                             recompute="full"),
+                batch=8, seq=2048),
+    "ernie": dict(preset="base", overrides=dict(dtype="bfloat16"),
+                  batch=16, seq=512),
+}
+FAMILY_OPT = dict(lr=1e-4, weight_decay=0.01, clip=1.0)
+MASK_SHARE = 0.15
+# the card-against-CPU twins: each family cut to 2 layers, batches (rows,
+# tokens), the same weights, GShard's random routing off on both sides (a
+# CUDA and a CPU generator draw different numbers)
+FAMILY_E2E = dict(layers=2, gpt=(1, 512), ernie=(2, 128))
+# a GShard choice may differ between the card and the CPU only where the
+# CPU's gate scores of the two experts involved are within GATE_NEAR_TIE:
+# the scores (|s| up to about 2 at these widths) are bf16 outputs of a
+# 768-term dot product whose inputs differ between the two sides by a bf16
+# step in a few elements, so they differ by one or two bf16 steps of the
+# score (2^-8 to 2^-6); 2^-5 is two steps at |s| in [1, 2). A wrong top-k,
+# gate or dispatch flips choices at gaps of order 0.3 (the scores' spread)
+GATE_NEAR_TIE = 2.0 ** -5
+# the incubate leg: fused_rms_norm at GPT-3 1.3B's hidden over one
+# 2048-token row, fused_rotary_position_embedding on its q and k (16 heads
+# of 128), memory_efficient_attention at ERNIE-MoE base's attention (12
+# heads of 64, 512 tokens, non-causal), batch 1, bf16, forward and backward
+INCUBATE = dict(tokens=2048, hidden=2048, heads=16, head_dim=128,
+                mea=(1, 512, 12, 64))
+
+
+def family_config(kind, **over):
+    from paddle_tpu_torch.models import ernie_moe_config, gpt_config
+
+    spec = FAMILIES[kind]
+    make = gpt_config if kind == "gpt" else ernie_moe_config
+    return make(spec["preset"], **{**spec["overrides"], **over})
+
+
+def family_model(torch, kind, cfg, dev, seed):
+    from paddle_tpu_torch.models import ErnieMoEForMaskedLM, GPTForCausalLM
+
+    cls = GPTForCausalLM if kind == "gpt" else ErnieMoEForMaskedLM
+    return cls(cfg, device=dev,
+               generator=torch.Generator(dev).manual_seed(seed))
+
+
+def family_batch(torch, np, kind, cfg, rows, seq, seed, dev):
+    """GPT: (ids, next-token labels); ERNIE: (ids, MLM labels with
+    MASK_SHARE of the positions kept, token types of two segments)."""
+    rng = np.random.RandomState(seed)
+    if kind == "gpt":
+        tok = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                           (rows, seq + 1)))
+        return tok[:, :-1].to(dev), tok[:, 1:].to(dev)
+    ids = rng.randint(0, cfg.vocab_size, (rows, seq))
+    labels = np.where(rng.rand(rows, seq) < MASK_SHARE, ids, -100)
+    types = (np.arange(seq)[None, :] >= seq // 2).repeat(rows, 0)
+    return tuple(torch.from_numpy(a.astype(np.int64)).to(dev)
+                 for a in (ids, labels, types))
+
+
+def family_loss(kind, model, batch):
+    return model(*batch) if kind == "gpt" else model(*batch)[0]
+
+
+def routing_off(model) -> None:
+    for moe in model.ernie.moe_layers():
+        moe.gate.random_routing = False
+
+
+def routing_stats(torch, model) -> list:
+    """Per MoE layer of the latest forward: the dispatch mode, the
+    capacity, each expert's assignments (the gate's choices after its
+    random drop) and the share of them dropped by capacity."""
+    out = []
+    for moe in model.ernie.moe_layers():
+        r = moe.last_routing
+        idx = r["idx"].reshape(-1)
+        load = torch.bincount(idx[idx >= 0], minlength=moe.num_expert)
+        dropped = (load - r["capacity"]).clamp_min(0).sum().item()
+        out.append({"mode": r["mode"], "capacity": r["capacity"],
+                    "load": load.tolist(),
+                    "dropped_share": dropped / max(int(load.sum()), 1)})
+    return out
+
+
+def family_train(torch, np, dev, seed, kind, profile=False):
+    """One family at full depth and width: a warm-up step, then
+    TRAIN_STEPS timed ones, launches held exact; with ``profile`` one more
+    step under ``torch.profiler``."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    spec = FAMILIES[kind]
+    cfg = family_config(kind)
+    L, B, S = cfg.num_hidden_layers, spec["batch"], spec["seq"]
+    # what earlier phases still hold on the card, inside the peak below
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    model = family_model(torch, kind, cfg, dev, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model.train()
+    opt = AdamW(learning_rate=FAMILY_OPT["lr"],
+                parameters=model.parameters(),
+                weight_decay=FAMILY_OPT["weight_decay"],
+                grad_clip=ClipGradByGlobalNorm(FAMILY_OPT["clip"]))
+    batch = family_batch(torch, np, kind, cfg, B, S, seed, dev)
+
+    def step():
+        loss = family_loss(kind, model, batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    losses = [step()]                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = TRAIN_STEPS
+    fwd = 2 if getattr(cfg, "recompute", "none") == "full" else 1
+    check_launches(counts, expect(
+        counts, flash_fwd=n * fwd * L, flash_bwd_dq=n * L,
+        flash_bwd_dkv=n * L), f"{kind}: {n} steps of {L} layers")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{kind}: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{kind}: the loss did not fall: {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = B * S
+    step_s = statistics.median(times)
+    rec = {"config": f"{spec['preset']} {spec['overrides']}", "layers": L,
+           "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
+           "head_dim": cfg.head_dim, "batch": B, "seq": S,
+           "params": n_params, "model_init_s": init_s, "losses": losses,
+           "step_s": times, "step_s_median": step_s,
+           "tokens_per_s": tokens / step_s, "peak_mem_gb": peak,
+           "base_mem_gb": base, "launches": counts,
+           "route_calls": ops.route_calls()}
+    if kind == "gpt":
+        pairs = causal_pairs(S, S) * cfg.num_attention_heads * B * L
+        attn = 3 * 4 * cfg.head_dim * pairs     # QK and PV, forward x3
+        rec.update(mfu=6 * n_params * tokens / step_s / BF16_FLOPS,
+                   mfu_with_attention=(6 * n_params * tokens + attn)
+                   / step_s / BF16_FLOPS, attention_flops_model=attn)
+    else:
+        moe = model.ernie.moe_layers()
+        expert = sum(p.numel() for p in moe[0].experts[0].parameters())
+        # a token runs top_k experts, not all of them
+        active = n_params - len(moe) * (cfg.num_experts - cfg.top_k) * expert
+        rec.update(routing=routing_stats(torch, model), params_active=active,
+                   mfu_active=6 * active * tokens / step_s / BF16_FLOPS)
+        with torch.no_grad():
+            model(batch[0], None, batch[2])
+            rec["aux_loss"] = [m.gate.get_loss().item() for m in moe]
+        for r in rec["routing"]:
+            # the reference's policy: the sort plan past 2^24 elements of
+            # the dense [T, E, C] form
+            want = ("sort" if tokens * cfg.num_experts * r["capacity"]
+                    > 1 << 24 else "dense")
+            if r["mode"] != want:
+                raise AssertionError(f"ernie: auto dispatch took "
+                                     f"{r['mode']} at T = {tokens}, C = "
+                                     f"{r['capacity']}, not {want}")
+    if profile:
+        rec["profile"] = profile_run(torch, step)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def follow_card_routing(torch, gpu, cpu) -> dict:
+    """Hooks on the CPU twin's GShard gates that hold each choice equal to
+    the card's latest one (``gpu``'s forward has run): where the two
+    differ, the CPU's scores of the two experts involved must be within
+    GATE_NEAR_TIE, else it raises; there the CPU takes the card's expert,
+    its weight the CPU's own probability of that expert, so both sides
+    dispatch each token alike and the loss and gradients compare the
+    kernels, not a near-tie's two outcomes (as greedy streams are compared
+    up to a near-tie). Returns the tally the hooks fill."""
+    tally = {"choices": 0, "near_tie_flips": 0, "flip_max_score_gap": 0.0}
+
+    def hook(i, card_idx):
+        def follow(gate, inputs, out):
+            val, idx = out
+            tally["choices"] += int((idx >= 0).sum())
+            flipped = (idx != card_idx).nonzero().tolist()
+            if not flipped:
+                return None
+            scores = gate.gate(inputs[0]).float()
+            s = scores.detach()
+            for t, j in flipped:
+                a, b = int(card_idx[t, j]), int(idx[t, j])
+                gap = (s[t, a] - s[t, b]).abs().item()
+                if min(a, b) < 0 or gap > GATE_NEAR_TIE:
+                    raise AssertionError(
+                        f"ernie twin: MoE layer {i} token {t} choice {j}: "
+                        f"expert {a} on the card, {b} on the CPU, score "
+                        f"gap {gap:.4g} > {GATE_NEAR_TIE}")
+                tally["near_tie_flips"] += 1
+                tally["flip_max_score_gap"] = max(
+                    tally["flip_max_score_gap"], gap)
+            probs = torch.softmax(scores, dim=-1)
+            return probs.gather(-1, card_idx), card_idx
+        return follow
+
+    for i, (mg, mc) in enumerate(zip(gpu.ernie.moe_layers(),
+                                     cpu.ernie.moe_layers())):
+        mc.gate.register_forward_hook(
+            hook(i, mg.last_routing["idx"].cpu()))
+    return tally
+
+
+def family_e2e(torch, np, dev, kind):
+    """One family at FAMILY_E2E["layers"] layers on the card (kernels) and
+    on the CPU (plain versions) from the same bf16 weights and batch: the
+    Layer API's loss and gradients within phase 6's tolerances, the card's
+    launches exact; ERNIE's GShard choices equal on both sides up to
+    near-ties, where the CPU follows the card's (``follow_card_routing``)."""
+    from paddle_tpu_torch import ops
+
+    L = FAMILY_E2E["layers"]
+    rows, seq = FAMILY_E2E[kind]
+    cfg = family_config(kind, num_hidden_layers=L)
+    gpu = family_model(torch, kind, cfg, dev, 11)
+    cpu = family_model(torch, kind, cfg, "cpu", 11)
+    cpu.set_state_dict({k: v.detach().cpu()
+                        for k, v in gpu.named_parameters()})
+    if kind == "ernie":
+        for m in (gpu, cpu):
+            routing_off(m)
+    batch = family_batch(torch, np, kind, cfg, rows, seq, 11, "cpu")
+    losses, routing = [], None
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        m.train()
+        if m is cpu and kind == "ernie":
+            routing = follow_card_routing(torch, gpu, cpu)
+        ops.reset_launch_counts()
+        loss = family_loss(kind, m, tuple(t.to(d) for t in batch))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        if m is gpu:
+            counts = ops.launch_counts()
+    fwd = 2 if kind == "gpt" else 1           # GPT recomputes its layers
+    check_launches(counts, expect(counts, flash_fwd=fwd * L, flash_bwd_dq=L,
+                                  flash_bwd_dkv=L),
+                   f"{kind} twin: one step of {L} layers")
+    err = abs(losses[0] - losses[1])
+    # the loss is a bf16 tensor on both sides: one bf16 step more
+    if not (np.isfinite(losses).all()
+            and err <= TRAIN_LOSS_ATOL + BF16_STEP * abs(losses[1])):
+        raise AssertionError(f"{kind} twin: loss {losses[0]} on the card, "
+                             f"{losses[1]} on the CPU")
+    g = {k: rel_err(torch, p.grad.cpu(), cpu.get_parameter(k).grad)
+         for k, p in gpu.named_parameters()}
+    worst = max(g, key=g.get)
+    if g[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"{kind} twin: gradient of {worst} differs by "
+                             f"{g[worst]:.3g} of its norm")
+    rec = {"layers": L, "batch": rows, "seq": seq, "loss_card": losses[0],
+           "loss_cpu": losses[1], "loss_abs_err": err,
+           "grad_max_rel_err": g[worst], "grad_worst": worst,
+           "launches": counts}
+    if routing is not None:
+        rec["routing"] = routing
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def incubate_leg(torch, np, dev):
+    """incubate.nn.functional's kernel entry points on cuda:0 against
+    their CPU twins, forward and backward: ``fused_rms_norm`` (K1),
+    ``fused_rotary_position_embedding`` (K2 on q and k),
+    ``memory_efficient_attention`` (K3 non-causal, K5/K6 in its backward),
+    each within its kernel's tolerance, launches counted."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.incubate.nn import memory_efficient_attention
+
+    g = torch.Generator().manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(bf)
+
+    T, H, NH, D = (INCUBATE[k] for k in ("tokens", "hidden", "heads",
+                                          "head_dim"))
+    inv = 1.0 / (10000 ** (torch.arange(0, D, 2).double() / D))
+    ang = torch.outer(torch.arange(T).double(), inv)
+    cos, sin = ang.cos().to(bf), ang.sin().to(bf)
+    mb, ms, mh, md = INCUBATE["mea"]
+    # (function, inputs, the outputs' limit, the gradients' limit): K1's
+    # and K2's backward run their forward's arithmetic (RMSNorm's plain
+    # fp32 backward on both sides, K2 with -sin), the flash backward K5/K6
+    cases = {
+        "fused_rms_norm": (lambda x, w: IF.fused_rms_norm(x, w, 1e-5),
+                           [rand(1, T, H), 1.0 + rand(H, scale=0.1)],
+                           TOL["rms_norm"], TOL["rms_norm"]),
+        "fused_rotary_position_embedding": (
+            lambda q, k: IF.fused_rotary_position_embedding(
+                q, k, None, sin=sin.to(q.device), cos=cos.to(q.device))[:2],
+            [rand(1, T, NH, D), rand(1, T, NH, D)], TOL["fused_rope"],
+            TOL["fused_rope"]),
+        "memory_efficient_attention": (
+            memory_efficient_attention,
+            [rand(mb, ms, mh, md) for _ in range(3)], TOL["flash_fwd"],
+            TOL["flash_bwd_dq"]),
+    }
+    rec = {"max_abs_err": {}}
+    ops.reset_launch_counts()
+    for name, (fn, args, tol_out, tol_grad) in cases.items():
+        outs = {}
+        for d in (dev, "cpu"):
+            xs = [a.to(d).requires_grad_() for a in args]
+            out = fn(*xs)
+            out = out if isinstance(out, tuple) else (out,)
+            ct = torch.Generator().manual_seed(SEED + 1)
+            sum((o.float() * torch.randn(o.shape, generator=ct).to(d)).sum()
+                for o in out).backward()
+            outs[d] = ([(o.detach().cpu(), tol_out) for o in out]
+                       + [(x.grad.cpu(), tol_grad) for x in xs])
+            if d == dev:
+                counts = ops.launch_counts()
+        rec["max_abs_err"][name] = max(
+            check_close(torch, f"incubate {name} [{i}]", got, want,
+                        tol["atol"], tol["rtol"], tol.get("outside", 0.0),
+                        tol.get("cap"))
+            for i, ((got, tol), (want, _)) in enumerate(
+                zip(outs[dev], outs["cpu"])))
+    check_launches(counts, expect(counts, rms_norm=1, fused_rope=4,
+                                  flash_fwd=1, flash_bwd_dq=1,
+                                  flash_bwd_dkv=1),
+                   "the incubate leg, forward and backward")
+    rec.update(launches=counts, route_calls=ops.route_calls())
+    return rec
+
+
+def log_families(fam, smi) -> None:
+    """Phase 11's lines: each family's training steps, its twin against
+    the CPU, the incubate leg."""
+    for kind in ("gpt", "ernie"):
+        r = fam[kind]
+        rate = (f"MFU {r['mfu']:.4f} (6 N tokens; {r['mfu_with_attention']:.4f}"
+                f" with {r['attention_flops_model']:.4g} attention FLOPs)"
+                if kind == "gpt" else
+                f"MFU on the active parameters {r['mfu_active']:.4f} "
+                f"({r['params_active']} active a token)")
+        log(f"[families] {kind} {r['config']} x{r['layers']}, {r['batch']}x"
+            f"{r['seq']} tokens, {r['params']} params: step "
+            f"{r['step_s_median']:.4f} s (steps {r['step_s']}), "
+            f"{r['tokens_per_s']:.1f} tokens/s, {rate}, peak "
+            f"{r['peak_mem_gb']:.2f} GiB ({r['base_mem_gb']:.2f} of it held "
+            f"before the phase), losses {r['losses']}, init "
+            f"{r['model_init_s']:.1f} s  [{smi}]")
+        if "profile" in r:
+            log(f"[families] {kind} step under the profiler: device busy "
+                f"{r['profile']['device_busy_share']:.1%} of "
+                f"{r['profile']['wall_ms']:.1f} ms, by category "
+                f"{ {k: round(v, 2) for k, v in r['profile']['categories_ms'].items() if v} }"
+                f"  [{smi}]")
+        e = fam[f"{kind}_e2e"]
+        log(f"[families] {kind} at {e['layers']} layers, {e['batch']}x"
+            f"{e['seq']}: loss {e['loss_card']:.5f} on the card, "
+            f"{e['loss_cpu']:.5f} on the CPU, gradients within "
+            f"{e['grad_max_rel_err']:.3g} of their norm ({e['grad_worst']})"
+            + (f"; GShard choices {e['routing']}" if "routing" in e else ""))
+    for i, (r, aux) in enumerate(zip(fam["ernie"]["routing"],
+                                     fam["ernie"]["aux_loss"])):
+        log(f"[families] ernie MoE layer {i}: {r['mode']} dispatch, capacity "
+            f"{r['capacity']}, load {r['load']}, dropped by capacity "
+            f"{r['dropped_share']:.4f}, aux loss {aux:.5f}")
+    inc = fam["incubate"]
+    log(f"[families] incubate leg: max |err| {inc['max_abs_err']}, "
+        f"launches {inc['launches']}")
+
+
+def family_phase(torch, dev, np, seed, profile=False):
+    """Phase 11: GPT-3 1.3B and ERNIE-MoE base trained at full width and
+    depth (this slice's paths), their 2-layer twins against the CPU, and
+    the incubate leg."""
+    t0 = time.perf_counter()
+    rec = {"gpt": family_train(torch, np, dev, seed, "gpt", profile),
+           "ernie": family_train(torch, np, dev, seed, "ernie", profile),
+           "gpt_e2e": family_e2e(torch, np, dev, "gpt"),
+           "ernie_e2e": family_e2e(torch, np, dev, "ernie"),
+           "incubate": incubate_leg(torch, np, dev)}
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
 # kernel name fragments -> where the device time goes
 _CATEGORIES = [("rms_norm", ("rms_norm_vec_kernel", "rms_norm_elem_kernel")),
                ("fused_layer_norm", ("_layer_norm_kernel",)),
@@ -9384,6 +9819,14 @@ def main(argv=None) -> int:
         f"processes gave the same batches in order ({fio['workers_s']:.1f} "
         f"s)  [{smi}]")
     log(f"[nn] {record['phases']['nn']:.1f}s")
+    # 11. the GPT and ERNIE-MoE families and the incubate entry points:
+    # this slice's main path
+    t = time.perf_counter()
+    fam = family_phase(torch, dev, np, args.seed, profile=args.profile)
+    record["families"] = fam
+    record["phases"]["families"] = time.perf_counter() - t
+    log_families(fam, smi)
+    log(f"[families] {record['phases']['families']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
@@ -9393,7 +9836,8 @@ def main(argv=None) -> int:
                 ops=op, train_hb=dict(launches=tr["hb_launches"],
                                       route_calls=tr["hb_route_calls"]),
                 f32=record["f32"], eager_fit=eg, fleet=fl, disagg=dg,
-                server_ledger=sr["ledger"], tensor_surface=tp, nn=nnp)
+                server_ledger=sr["ledger"], tensor_surface=tp, nn=nnp,
+                gpt=fam["gpt"], ernie=fam["ernie"], incubate=fam["incubate"])
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

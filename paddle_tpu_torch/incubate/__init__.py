@@ -1,5 +1,6 @@
-"""paddle.incubate counterpart (port of ``paddle_tpu/incubate``): only what
-the ``FusedMultiTransformer`` path uses, under ``incubate.nn``."""
-from . import nn
+"""paddle.incubate counterpart (port of ``paddle_tpu/incubate``): the
+fused layers and functions under ``incubate.nn`` and the MoE layer under
+``incubate.distributed.models.moe``."""
+from . import distributed, nn
 
-__all__ = ["nn"]
+__all__ = ["distributed", "nn"]

@@ -5,7 +5,11 @@ The JAX side exports them as plain numpy arrays::
     named = {k: np.asarray(p.value) for k, p in model.named_parameters()}
 
 and because the port keeps the reference's parameter names and layouts
-(linear weights ``[in, out]``), loading is an identity up to the dtype.
+(linear weights ``[in, out]``, embeddings ``[vocab, hidden]``, LayerNorm
+scales and biases ``[hidden]``), loading is an identity up to the dtype,
+for each family: Llama, GPT (``models/gpt.py``) and ERNIE-MoE
+(``models/ernie.py``, its experts and gates by their ``ffn.experts.E.*``
+and ``ffn.gate.gate.*`` names).
 Weights of the reference's scan-over-layers training
 (``paddle_tpu/models/llama_functional.py::stack_params``: per-layer
 parameters stacked into leading-[L] arrays, the rest by name) load through

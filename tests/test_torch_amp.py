@@ -43,6 +43,7 @@ from paddle_tpu_torch.distributed.mp_layers import (ColumnParallelLinear,
 from paddle_tpu_torch.models._utils import masked_lm_loss
 from paddle_tpu_torch.ops import flash_attention, fused_rope, rms_norm
 from paddle_tpu_torch.optimizer import optimizer as topt
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 BF16_LOSS_RTOL = 2e-2
 JAX_DTYPES = {jnp.dtype(jnp.float32): torch.float32,

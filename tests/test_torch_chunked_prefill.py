@@ -36,6 +36,7 @@ from paddle_tpu_torch import (CausalLMEngine, ContinuousBatchingEngine,
 
 from test_torch_engine import _assert_margins, _prompts
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2.0 ** -6, rtol=2.0 ** -6)

@@ -23,6 +23,7 @@ from paddle_tpu_torch.inference.generation import prefill_buckets_for
 from paddle_tpu_torch.inference.paged_cache import PageAllocator, write_tokens
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 MARGIN = 1e-4
 

@@ -52,6 +52,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import loss as tloss
 from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.optimizer import optimizer as topt
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -47,6 +47,7 @@ from paddle_tpu_torch.serving import (KVIntegrityError, decode_kv_payload,
                                       encode_kv_payload)
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 torch.set_num_threads(1)
 

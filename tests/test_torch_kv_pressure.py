@@ -51,6 +51,7 @@ from paddle_tpu_torch.serving.queue import (DeadlineExpired, RequestHandle,
                                             RequestQueue)
 from paddle_tpu_torch.serving.scheduler import PreemptionBudgetExceeded
 from paddle_tpu_torch.testing.faults import FaultPlan, FaultyEngine
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 WAIT = 180
 _MODEL = None

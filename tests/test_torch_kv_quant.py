@@ -39,6 +39,7 @@ from paddle_tpu_torch.inference.paged_cache import (PageAllocator,
 from paddle_tpu_torch.quantization import kv as port_kv
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 MARGIN = 1e-3
 FLOOR = port_kv.KV_SCALE_FLOOR

@@ -39,6 +39,7 @@ from paddle_tpu_torch.device import peaks as peaks_mod
 from paddle_tpu_torch.inference._graphs import GraphCache
 from paddle_tpu_torch.monitor import _programs, ledger
 from paddle_tpu_torch.serving import Server, serve_http
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 WAIT = 120

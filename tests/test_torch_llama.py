@@ -22,6 +22,7 @@ from paddle_tpu.models import llama_config as jax_config
 from paddle_tpu_torch import LlamaForCausalLM, llama_config, load_paddle_params
 from paddle_tpu_torch.inference.paged_cache import write_tokens
 from paddle_tpu_torch.models import llama as port_llama
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

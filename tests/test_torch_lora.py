@@ -34,6 +34,7 @@ from paddle_tpu_torch import (ContinuousBatchingEngine, GenerationConfig,
 from paddle_tpu_torch.serving import AdapterRegistry
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 MARGIN = 1e-4

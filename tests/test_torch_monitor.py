@@ -46,6 +46,7 @@ from paddle_tpu_torch.serving import queue as tqueue
 from paddle_tpu_torch.testing import faults as tfaults
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 PREFIX = "paddle_tpu_parity_"
 DEVICE_COLLECTORS = ("paddle_tpu_hbm_bytes", "paddle_tpu_live_array_bytes")

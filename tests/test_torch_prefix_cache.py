@@ -56,6 +56,7 @@ from paddle_tpu_torch.quantization.kv import KV_SCALE_FLOOR
 from paddle_tpu_torch.serving import Server
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 MARGIN = 1e-4
 _MODELS = {}

@@ -31,6 +31,7 @@ from paddle_tpu_torch.serving import (FailoverBudgetExceeded, ReplicaSpec,
                                       RequestFailed, RequestRejected,
                                       Router, Server, serve_http)
 from paddle_tpu_torch.testing.faults import FaultPlan, FaultyEngine
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 CFG = llama_config("tiny", num_hidden_layers=1)
 PROMPT = np.arange(1, 9, dtype=np.int32)

@@ -30,6 +30,7 @@ from paddle_tpu_torch.inference.sampling import (SlotSampling, _uniform,
 
 from test_torch_engine import _prompts
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 N_DRAWS = 4000
 P_MIN = 1e-3

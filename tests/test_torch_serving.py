@@ -44,6 +44,7 @@ from paddle_tpu_torch.serving import (DeadlineExpired, QueueFull,
                                       RequestRejected, Server, serve_http)
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 WAIT = 120          # seconds any one wait may take before the test fails
 

@@ -50,6 +50,7 @@ from paddle_tpu_torch.serving import (ControlPlane, ControlPolicy,
                                       serve_http)
 from paddle_tpu_torch.testing.faults import (SITES, FaultPlan, FaultyEngine,
                                              InjectedFault)
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 WAIT = 120
 

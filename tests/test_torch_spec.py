@@ -38,6 +38,7 @@ from paddle_tpu_torch import (CausalLMEngine, ContinuousBatchingEngine,
 from paddle_tpu_torch.inference import ngram
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 MARGIN = 1e-4
 REP = np.tile(np.array([5, 6, 7, 8], np.int32), 6)       # drafts accepted

@@ -52,6 +52,7 @@ from paddle_tpu_torch.ops import attention
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
 from paddle_tpu_torch.ops import fused_kernels
 from paddle_tpu_torch.optimizer import functional as opt
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PARAM_TOL = dict(atol=5e-5, rtol=1e-5)

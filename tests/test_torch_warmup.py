@@ -30,6 +30,7 @@ from paddle_tpu_torch import (CausalLMEngine, ContinuousBatchingEngine,
                               GenerationConfig, PagedContinuousBatchingEngine)
 
 from test_torch_llama import make_pair
+from torch_jax_state import jax_reference_state  # noqa: F401
 
 PAGED = dict(max_batch=2, num_pages=16, page_size=8, max_pages=8)
 DENSE = dict(max_batch=2, max_len=64)
