@@ -340,7 +340,32 @@ Phases, each timed, none caught and passed over:
    ``fused_rotary_position_embedding`` (K2) and
    ``memory_efficient_attention`` (K3 non-causal, K5/K6) on cuda:0
    against their CPU twins, forward and backward, within their kernels'
-   tolerances, launches counted.
+   tolerances, launches counted;
+12. the rest of ``paddle.nn`` and ``vision.models``, this slice's main
+   path: ResNet-50 v1.5 (1000 classes) trained through ``Model.fit`` at
+   256 x 3 x 224 x 224 over a seeded ``io.TensorDataset`` (Momentum 0.1 /
+   0.9, ``L2Decay(1e-4)``, ``auto_cast`` O1 bf16; a warm-up step and 3
+   timed ones: images/s, step time, peak memory, MFU from the
+   convolutions' and the linear's FLOPs), then 3 steps on a batch already
+   on the card; every model function of ``resnet.py`` and ``classic.py``
+   forward and backward at 2 x 3 x 224 x 224 on the card against its CPU twin in
+   fp32 (TF32 convolutions, VISION_TF32_RTOL and VISION_TF32_JOINT);
+   ResNet-50 at 2 x 3 x 64 x
+   64, one Momentum step on the card (twice) and on the CPU, with TF32 and
+   without (loss, every gradient, every batch norm's running statistics),
+   and an fp32 ResNet-50 step timed with TF32 on and off;
+   ``nn.Transformer`` at the base widths (512, 8 heads, 6 + 6 layers, FFN
+   2048, a 37,000-token vocabulary) trained with AdamW under O1 bf16 at 32
+   x 128 source and target tokens (tokens/s), greedy decoding of 32 tokens
+   through ``Cache`` / ``StaticCache`` held against full decoder passes,
+   and a 2-layer fp32 twin against the CPU; ``nn.LSTM`` and ``nn.GRU``
+   (512 -> 1024, 2 layers, both ways) at 64 x 128 ragged steps, forward and
+   backward in fp32 and bf16 (ms per step), the fp32 LSTM against the CPU,
+   ``BeamSearchDecoder`` over an ``LSTMCell`` (beam 4, 32 steps) equal on
+   the card and the CPU; and the sweep of every function and layer of the
+   convolution, pooling, sequence-loss, recurrent and transformer modules
+   on cuda:0 against its CPU twin, fp32 and bf16. These paths launch no
+   kernel of the port; the kernels line counts the earlier paths.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -685,15 +710,20 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
                                              "eager_fit", "fleet", "disagg",
                                              "server_ledger",
                                              "tensor_surface", "nn", "gpt",
-                                             "ernie", "incubate")
-# this slice's paths: phase 11's GPT-3 1.3B training steps (K3 causal at
-# head dim 128 twice a layer under full recompute, K5 and K6 once), the
-# ERNIE-MoE base steps (K3, K5 and K6 non-causal at head dim 64, once a
-# layer each) and the incubate leg (K1, K2 on q and k and their backward,
-# K3 non-causal with K5 and K6)
-SLICE_PATHS = ("gpt", "ernie", "incubate")
+                                             "ernie", "incubate", "resnet",
+                                             "vision", "transformer", "rnn")
+# this slice's paths: phase 12's ResNet-50 training through Model.fit, the
+# vision models against the CPU, nn.Transformer's training and cached
+# decoding, and the LSTM / GRU leg. They launch no kernel of the port (the
+# convolutions, pooling, batch norms, recurrences and the attention
+# composition are torch ops, as the reference's are XLA ops), so each
+# kernel's count in the kernels line comes from the earlier paths below
+SLICE_PATHS = ("resnet", "vision", "transformer", "rnn")
 # earlier slices' paths, in the order their counts stand in for a kernel
-# this slice does not run: phase 9's comparison route and phase 10's nn
+# this slice does not run: phase 11's GPT-3 1.3B training steps (K3 causal
+# at head dim 128 twice a layer under full recompute, K5 and K6 once), the
+# ERNIE-MoE base steps and the incubate leg (K1, K2, K3, K5, K6); phase 9's
+# comparison route and phase 10's nn
 # route (K1, K2); the Server serve with the program ledger on,
 # the replica fleet's routed traffic and the
 # disaggregated front's wave, the LoRA Server's serve, the decode paths,
@@ -702,7 +732,7 @@ SLICE_PATHS = ("gpt", "ernie", "incubate")
 # front's Server serve, the prefix-cache and memory-pressure legs, the
 # speculative Server serves and FMT (K8); then training, the eager
 # Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
-EARLIER_PATHS = (("tensor_surface", "nn"),
+EARLIER_PATHS = (("gpt", "ernie", "incubate"), ("tensor_surface", "nn"),
                  ("server_ledger", "fleet", "disagg", "server_lora", "serve",
                   "serve_int8",
                   "generate", "dense_serve", "serve_chunked",
@@ -7667,6 +7697,9 @@ def _sweep_tol(tol, want):
         return SWEEP_SPECIAL
     if tol == "recon":
         return dict(rtol=1e-4, atol=1e-4 * scale)
+    if tol == "tf32":
+        return dict(rtol=TF32_SWEEP["rtol"],
+                    atol=TF32_SWEEP["top"] * float(want.abs().max()))
     if isinstance(tol, int):
         return dict(rtol=max(1e-5, 4 * tol * FP32_EPS),
                     atol=1e-6 + 4 * tol * FP32_EPS * scale)
@@ -9110,6 +9143,1265 @@ def family_phase(torch, dev, np, seed, profile=False):
     return rec
 
 
+# -- phase 12: the rest of paddle.nn and vision.models ------------------------
+
+# ResNet-50 v1.5 at full width and depth (paddle_tpu/vision/models/
+# resnet.py:178), 1000 classes, random weights from --seed, trained through
+# hapi.Model.fit over an io.TensorDataset of seeded 224 x 224 images and
+# labels: the per-GPU batch of NVIDIA's public ResNet-50 v1.5 AMP recipe for
+# 80 GB cards (256), Momentum (lr 0.1, momentum 0.9, L2Decay 1e-4),
+# CrossEntropyLoss, auto_cast O1 bf16, batch norms in training mode; one
+# warm-up step, then TRAIN_STEPS timed ones
+RESNET = dict(batch=256, image=224, classes=1000, lr=0.1, momentum=0.9,
+              weight_decay=1e-4)
+# every model function of resnet.py and classic.py, one forward and
+# backward at 2 x 3 x 224 x 224 (LeNet 2 x 1 x 28 x 28) on the card against its CPU twin
+# in fp32: the ResNets in training mode, the classic families (which hold
+# dropout) in eval mode
+VISION_MODELS = (
+    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+    "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
+    "resnext101_64x4d", "resnext101_32x8d", "resnext152_32x4d",
+    "resnext152_64x4d", "wide_resnet50_2", "wide_resnet101_2", "LeNet",
+    "alexnet", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn",
+    "mobilenet_v1", "mobilenet_v2", "squeezenet1_0", "squeezenet1_1")
+VISION_TWIN = dict(batch=2, image=224)
+# fp32 convolutions run in TF32 on the card (the port's policy: cuDNN's
+# default, nn/functional/conv.py). The models run in eval mode (the
+# classic families hold dropout; in training mode a batch norm over a batch
+# of 2 makes the gradients ill-conditioned, which the ResNet-50 twin below
+# handles). With TF32 each product carries up to 2^-10 of relative error,
+# which a layer's sums average down: on an H100 the outputs lay at most
+# 9.4e-4 of their largest magnitude from the CPU's (VGG-19; ResNet-152
+# 3.8e-4) and all the gradients together at most 5.3e-2 of their joint
+# norm (VGG-11 with batch norm; the ResNets 5.2e-3 to 7.2e-3), so outputs
+# are held within VISION_TF32_RTOL (5.3 times the worst reading) and the
+# joint gradients within VISION_TF32_JOINT (2.8 times); each tensor's
+# gradient distance is recorded: single tensors at the end of the
+# backward chain read up to 0.17 of their norm (MobileNetV1's
+# features.1.pw.1.bias; VGG-19's features.0.bias 0.15), as on the CPU
+# fp32 against fp64 already moves ResNet-152's gradients by 1.4e-5 of
+# their joint norm, 235 fp32 epsilons, which at TF32's 2^-11 is about
+# 0.1. With TF32 off the card computes in fp32 in other orders,
+# and cuDNN may pick its Winograd or FFT algorithms, whose transforms add
+# rounding: the output within F32_GRAD_RTOL of its top and all the
+# gradients within 1e-3 of their joint norm (1.4e-5 fp32 against fp64 on
+# the CPU; the card against the CPU 1.26e-4 on ResNet-34, an H100). Each
+# tensor's distance is recorded, not held: where the signal fades with
+# depth (VGG has no batch norm; its logits are of order 1e-6 at
+# initialization) an early layer's gradient is a small remainder, and fp32
+# on the CPU already lies 4.8e-3 of its norm from fp64 (VGG-19's
+# features.2.bias)
+VISION_TF32_RTOL = 5e-3
+VISION_TF32_JOINT = 0.15
+VISION_F32_JOINT = 1e-3
+# the ResNet-50 twin in training mode is held against an fp64 twin on the
+# CPU: with TF32 off the card's loss within TWIN_F32_LOSS_ATOL of it (the
+# CPU's fp32 1.9e-5, the card's 9.8e-5 on an H100, cuDNN's fp32
+# algorithms adding rounding), and its gradients (jointly) and every
+# running statistic at most TWIN_FACTOR times as far from it as the CPU's
+# fp32 twin is, plus 1e-6
+# (ResNet-50's gradients at initialization are ill-conditioned: fp32 on
+# the CPU lies 1.1e-2 of their joint norm from fp64 at 2 x 3 x 64 x 64,
+# 1.3e-2 at 8 x 3 x 64 x 64); with TF32 the loss within TF32_TWIN_LOSS_ATOL
+# (the last stage normalizes 8 values a channel, which amplifies TF32's
+# errors of the forward), the rest recorded
+TWIN_FACTOR = 3.0
+TWIN_F32_LOSS_ATOL = 1e-3
+TF32_TWIN_LOSS_ATOL = 0.125
+# ResNet-50 at 2 x 3 x 64 x 64 in fp32 on the card against the CPU, one
+# Momentum step: the loss, every gradient by relative norm, every batch
+# norm's running statistics; twice on the card (cuDNN's backward may add
+# in another order each run: the gap is recorded, not required to be 0);
+# then the TF32 effect: the same twin with TF32 off, and a ResNet-50 fp32
+# training step at `tf32_batch` timed both ways
+RESNET_TWIN = dict(batch=2, image=64, tf32_batch=64, reps=3)
+# nn.Transformer at the base widths of Vaswani et al. 2017 (d_model 512, 8
+# heads, 6 + 6 layers, FFN 2048, dropout 0.1), token embeddings shared by
+# source and target over a 37,000-token vocabulary and an untied output
+# Linear, sinusoidal positions; 32 x 128 source tokens (ragged lengths
+# 64-128, padding masked) and 32 x 128 target tokens (causal), auto_cast O1
+# bf16, AdamW; then greedy decoding of `decode` tokens through the
+# decoder's Cache / StaticCache, each token held against a full decoder
+# pass over the prefix; a `twin_layers`-layer twin in fp32 against the CPU
+# (dropout 0, batch `twin`)
+TRANSFORMER = dict(d_model=512, heads=8, layers=6, ffn=2048, dropout=0.1,
+                   vocab=37000, batch=32, src=128, tgt=128, src_min=64,
+                   lr=1e-4, weight_decay=0.01, decode=32, twin_layers=2,
+                   twin=(2, 32))
+# the recurrent layers: LSTM and GRU, 512 -> 1024, 2 layers, both ways, at
+# batch 64 x 128 steps with ragged lengths 64-128, forward and backward in
+# fp32 and bf16 (CUDA events, median of `reps`); the fp32 LSTM's forward
+# against its CPU twin; BeamSearchDecoder over an LSTMCell (beam 4, 32
+# steps) on the card against the CPU
+RNN = dict(input=512, hidden=1024, layers=2, batch=64, steps=128, min_len=64,
+           reps=3)
+BEAM = dict(beam=4, steps=32, batch=8, vocab=1000, embed=256, hidden=512)
+# the fp32 LSTM twin: fp32 matmuls both sides (TF32 off for them) through
+# 128 contracting steps, |h| < 1
+RNN_F32_ATOL = 1e-4
+# the sweep's fp32 tolerance where a convolution runs: TF32 products
+# (2^-10 each) summed over up to ~128 terms with random signs move a sum
+# by about sqrt(128) 2^-10 = 2^-6.5 of its terms' scale
+TF32_SWEEP = dict(rtol=2.0 ** -8, top=2.0 ** -6)
+# a greedy step may take another token than the full pass only where the
+# full pass's top-2 margin is under this (bf16 logits of |z| ~ 10: a few
+# bf16 steps)
+DECODE_NEAR_TIE = 2.0 ** -3
+# the sweep's transformer layers keep ReLU in bf16: where a pre-activation
+# lies within a rounding of 0 the two devices can take opposite sides of
+# the kink, which switches that unit's gradient (one element past the bf16
+# limit in the 2-layer encoder and decoder on an H100). The CPU twin
+# follows the card's side wherever the two differ, and each such unit must
+# be a near-tie: its CPU pre-activation within RELU_NEAR_TIE of the call's
+# largest magnitude (the bf16 sweep allows NN_BF16_TOP = 2^-4 of the top;
+# 2^-5 is eight bf16 steps at the top), and at most RELU_FLIP_SHARE of a
+# case's units. A wrong activation or projection flips units far from 0,
+# or many of them
+RELU_NEAR_TIE = 2.0 ** -5
+RELU_FLIP_SHARE = 2.0 ** -6
+
+
+def _vision_model(M, name):
+    if name == "vgg11_bn":
+        return lambda: M.vgg11(batch_norm=True)
+    return getattr(M, name)
+
+
+def conv_flops(torch, model, shape, dev):
+    """Forward FLOPs of one input of ``shape`` [1, C, H, W] from the
+    convolutions' and the linears' shapes (2 per multiply-add), read with
+    forward hooks on one no-grad forward in eval mode."""
+    from paddle_tpu_torch import nn
+
+    total = [0]
+
+    def conv_hook(m, inp, out):
+        k = 1
+        for s in m.weight.shape[1:]:
+            k *= s
+        total[0] += 2 * out.numel() * k
+
+    def linear_hook(m, inp, out):
+        total[0] += 2 * out.numel() * m.weight.shape[0]
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.sublayers()
+             if isinstance(m, (nn.Conv1D, nn.Conv2D, nn.Conv3D))]
+    hooks += [m.register_forward_hook(linear_hook) for m in model.sublayers()
+              if isinstance(m, nn.Linear)]
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(shape, device=dev))
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def resnet_train(torch, np, dev, seed, profile=False):
+    """ResNet-50 trained through Model.fit at RESNET over an
+    io.TensorDataset in host memory (the loader stacks each batch on the
+    host, and train_batch moves it to the card, as a user's fit does): the
+    step time (from the callbacks' batch begin to its end: the batch's copy
+    to the card, forward, backward, the Momentum step), images/s, peak
+    memory, MFU (3x the forward FLOPs of the convolutions and the linear,
+    against the card's bf16 peak from device.peaks); then TRAIN_STEPS more
+    steps through Model.train_batch on a batch already on the card."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io, ops
+    from paddle_tpu_torch.device.peaks import peaks
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.vision import models
+
+    B, S = RESNET["batch"], RESNET["image"]
+    n = 1 + TRAIN_STEPS
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    pt.seed(seed)
+    t0 = time.perf_counter()
+    net = models.resnet50(num_classes=RESNET["classes"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    flops_image = conv_flops(torch, net, (1, 3, S, S), dev)
+    g = torch.Generator().manual_seed(seed)
+    images = torch.randn(n * B, 3, S, S, generator=g)
+    labels = torch.randint(0, RESNET["classes"], (n * B,), generator=g)
+    ds = io.TensorDataset([images, labels])
+    opt = pt.optimizer.Momentum(
+        learning_rate=RESNET["lr"], momentum=RESNET["momentum"],
+        parameters=net.parameters(),
+        weight_decay=pt.optimizer.L2Decay(RESNET["weight_decay"]))
+    model = pt.Model(net)
+    model.prepare(opt, pt.nn.CrossEntropyLoss(),
+                  amp_configs={"level": "O1", "dtype": "bfloat16"})
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.times, self.t = [], [], None
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == 1:
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+            self.t = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - self.t)
+            self.losses.append(float(np.asarray(logs["loss"]).reshape(-1)[0]))
+
+    cb = Steps()
+    model.fit(ds, batch_size=B, shuffle=False, verbose=0, callbacks=[cb])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = cb.losses
+    if len(losses) != n or not np.isfinite(losses).all():
+        raise AssertionError(f"resnet: {len(losses)} steps, losses {losses}")
+    ins, labs = images[:B].to(dev), labels[:B].to(dev)
+    staged = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = model.train_batch([ins], [labs])[0]
+        torch.cuda.synchronize()
+        staged.append(time.perf_counter() - t)
+        losses.append(float(np.asarray(loss).reshape(-1)[0]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"resnet: losses {losses}")
+    step_s = statistics.median(cb.times[1:])
+    staged_s = statistics.median(staged)
+    pk = peaks()
+    flops_step = 3 * flops_image * B
+    rec = {"config": "resnet50 v1.5, 1000 classes, O1 bf16", "batch": B,
+           "image": S, "params": sum(p.numel() for p in net.parameters()),
+           "model_init_s": init_s, "losses": losses, "step_s": cb.times,
+           "step_s_median": step_s, "images_per_s": B / step_s,
+           "staged_step_s": staged, "staged_step_s_median": staged_s,
+           "staged_images_per_s": B / staged_s,
+           "flops_per_image_fwd": flops_image, "flops_per_step": flops_step,
+           "mfu": flops_step / step_s / pk["peak_flops"],
+           "staged_mfu": flops_step / staged_s / pk["peak_flops"],
+           "peak_flops": pk["peak_flops"], "peak_source": pk["source"],
+           "peak_mem_gb": peak, "base_mem_gb": base, "launches": counts,
+           "route_calls": ops.route_calls()}
+    if profile:
+        rec["profile"] = profile_run(
+            torch, lambda: model.train_batch([ins], [labs]))
+    del model, net, opt, ds, images, labels, ins, labs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _twin_pair(torch, make, dev, seed):
+    """A model built on the CPU from ``seed`` and its copy on ``dev``."""
+    import copy
+
+    import paddle_tpu_torch as pt
+
+    with _cpu_place():
+        pt.seed(seed)
+        cpu = make()
+    return copy.deepcopy(cpu).to(dev), cpu
+
+
+def _fwd_bwd(torch, model, x, dev):
+    """Output and gradients (input first, then the parameters by name) of
+    sum(out * w), w a fixed ramp, for ``x`` moved to ``dev``."""
+    xs = x.detach().to(dev).requires_grad_()
+    out = model(xs)
+    w = torch.linspace(-1, 1, out.numel(), device=out.device).reshape(
+        out.shape)
+    (out.float() * w).sum().backward()
+    grads = {"input": xs.grad.detach().cpu()}
+    grads.update({k: p.grad.detach().cpu()
+                  for k, p in model.named_parameters()})
+    return out.detach().cpu(), grads
+
+
+def _rel_max(torch, got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / max(float(want.float().abs().max()), 1e-30))
+
+
+def _grad_errs(torch, got, want):
+    """Each tensor's gradient error relative to its norm, the worst one,
+    and all the gradients' together relative to their joint norm."""
+    errs = {k: rel_err(torch, got[k], want[k]) for k in want}
+    worst = max(errs, key=errs.get)
+    num = sum(float((got[k].float() - want[k].float()).norm()) ** 2
+              for k in want)
+    den = sum(float(want[k].float().norm()) ** 2 for k in want)
+    return errs[worst], worst, (num / den) ** 0.5 if den else 0.0
+
+
+def vision_twins(torch, np, dev):
+    """Every model function of resnet.py and classic.py in eval mode, fp32,
+    on the card against its CPU twin: with TF32 convolutions (the port's policy)
+    the output within VISION_TF32_RTOL of its largest magnitude and all
+    the gradients together within VISION_TF32_JOINT of their joint norm,
+    each tensor's distance recorded; with TF32 off the output within
+    F32_GRAD_RTOL and all the gradients (input and parameters) together
+    within VISION_F32_JOINT of their joint norm, each tensor's distance
+    recorded."""
+    from paddle_tpu_torch.vision import models
+
+    t0 = time.perf_counter()
+    rec = {}
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for i, name in enumerate(VISION_MODELS):
+            gpu, cpu = _twin_pair(torch, _vision_model(models, name), dev,
+                                  i)
+            for m in (gpu, cpu):
+                m.eval()
+            b = VISION_TWIN["batch"]
+            shape = ((b, 1, 28, 28) if name == "LeNet"
+                     else (b, 3, VISION_TWIN["image"], VISION_TWIN["image"]))
+            x = torch.randn(shape, generator=torch.Generator().manual_seed(i))
+            want, g_cpu = _fwd_bwd(torch, cpu, x, "cpu")
+            r = {"params": sum(p.numel() for p in cpu.parameters())}
+            for mode, tf32 in (("tf32", True), ("ieee", False)):
+                torch.backends.cudnn.allow_tf32 = tf32
+                gpu.zero_grad(set_to_none=True)
+                got, g_gpu = _fwd_bwd(torch, gpu, x, dev)
+                out_err = _rel_max(torch, got, want)
+                worst_err, worst, total = _grad_errs(torch, g_gpu, g_cpu)
+                bad = (out_err > VISION_TF32_RTOL
+                       or total > VISION_TF32_JOINT if tf32 else
+                       out_err > F32_GRAD_RTOL or total > VISION_F32_JOINT)
+                if bad or not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"vision {name} ({mode}): output off by "
+                        f"{out_err:.3g} of its top, gradients by {total:.3g}"
+                        f" of their norm, {worst} by {worst_err:.3g} of its "
+                        f"norm")
+                r[mode] = {"out_rel_err": out_err, "grad_rel_err": total,
+                           "grad_max_rel_err": worst_err,
+                           "grad_worst": worst}
+            rec[name] = r
+            del gpu, cpu
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    torch.cuda.empty_cache()
+    return {"models": rec, "s": time.perf_counter() - t0}
+
+
+def _momentum_step(torch, model, x, y, dev):
+    """One fp32 training step of ``model`` on ``dev``: (loss, gradients by
+    name, the batch norms' running statistics after a Momentum step)."""
+    import paddle_tpu_torch as pt
+
+    model.train()
+    opt = pt.optimizer.Momentum(
+        learning_rate=RESNET["lr"], momentum=RESNET["momentum"],
+        parameters=model.parameters(),
+        weight_decay=pt.optimizer.L2Decay(RESNET["weight_decay"]))
+    loss = pt.nn.CrossEntropyLoss()(model(x.to(dev)), y.to(dev))
+    loss.backward()
+    grads = {k: p.grad.detach().cpu().clone()
+             for k, p in model.named_parameters()}
+    opt.step()
+    stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+             if k.endswith(("_mean", "_variance"))}
+    return float(loss.detach()), grads, stats
+
+
+def _step_errs(torch, a, b):
+    gw_err, gw, g_all = _grad_errs(torch, a[1], b[1])
+    s = {k: rel_err(torch, a[2][k], b[2][k]) for k in b[2]}
+    sw = max(s, key=s.get)
+    return {"loss_abs_err": abs(a[0] - b[0]), "grad_rel_err": g_all,
+            "grad_max_rel_err": gw_err, "grad_worst": gw,
+            "stats_max_rel_err": s[sw], "stats_worst": sw}
+
+
+def resnet_twin(torch, np, dev):
+    """ResNet-50 at RESNET_TWIN, one Momentum step in training mode on the
+    card (twice) and on the CPU in fp32 and fp64 from the same weights and
+    batch: with TF32 off the card's loss within TWIN_F32_LOSS_ATOL of the
+    fp64 twin's, its gradients and running statistics at most TWIN_FACTOR times
+    as far from the fp64 twin as the CPU's fp32 twin is; with TF32 (the
+    policy) the loss within TF32_TWIN_LOSS_ATOL, the distances recorded.
+    Then an fp32 training step at ``tf32_batch`` timed with TF32 on and
+    off."""
+    import copy
+
+    from paddle_tpu_torch.vision import models
+
+    t0 = time.perf_counter()
+    gpu0, cpu = _twin_pair(torch, models.resnet50, dev, 21)
+    b, s = RESNET_TWIN["batch"], RESNET_TWIN["image"]
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(b, 3, s, s, generator=g)
+    y = torch.randint(0, RESNET["classes"], (b,), generator=g)
+    exact = _momentum_step(torch, copy.deepcopy(cpu).double(), x.double(), y,
+                           "cpu")
+    base = _step_errs(torch, _momentum_step(torch, cpu, x, y, "cpu"), exact)
+    prev = torch.backends.cudnn.allow_tf32
+    rec = {"batch": b, "image": s, "cpu_f32": base, "loss_f64": exact[0]}
+    try:
+        for mode, tf32 in (("tf32", True), ("ieee", False)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            runs = [_momentum_step(torch, copy.deepcopy(gpu0), x, y, dev)
+                    for _ in range(2)]
+            e = _step_errs(torch, runs[0], exact)
+            if tf32:
+                bad = e["loss_abs_err"] > TF32_TWIN_LOSS_ATOL
+            else:
+                bad = (e["loss_abs_err"] > TWIN_F32_LOSS_ATOL
+                       or e["grad_rel_err"] > TWIN_FACTOR
+                       * base["grad_rel_err"] + 1e-6
+                       or e["stats_max_rel_err"] > TWIN_FACTOR
+                       * base["stats_max_rel_err"] + 1e-6)
+            if bad or not all(torch.isfinite(v).all()
+                              for v in runs[0][1].values()):
+                raise AssertionError(
+                    f"resnet twin ({mode}): loss {runs[0][0]} on the card, "
+                    f"{exact[0]} in fp64; {e}; the CPU's fp32: {base}")
+            rec[mode] = dict(e, loss_card=runs[0][0],
+                             rerun_gap=_step_errs(torch, runs[1], runs[0]))
+        rec["tf32_time"] = tf32_step_times(torch, dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    del gpu0, cpu
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def tf32_step_times(torch, dev):
+    """A ResNet-50 fp32 training step (forward, backward) at
+    RESNET_TWIN["tf32_batch"] x 3 x RESNET["image"]^2, CUDA events, median of
+    RESNET_TWIN["reps"] after a warm-up, with cuDNN's TF32 on and off."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import models
+
+    pt.seed(5)
+    net = models.resnet50()
+    net.train()
+    b, S = RESNET_TWIN["tf32_batch"], RESNET["image"]
+    x = torch.randn(b, 3, S, S, device=dev)
+    y = torch.randint(0, 1000, (b,), device=dev)
+    loss_fn = pt.nn.CrossEntropyLoss()
+
+    def step():
+        loss_fn(net(x), y).backward()
+        net.clear_gradients()
+
+    out = {"batch": b}
+    for mode, tf32 in (("tf32", True), ("ieee", False)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        out[f"{mode}_ms"] = _event_ms(torch, step, RESNET_TWIN["reps"])
+        out[f"{mode}_images_per_s"] = b / out[f"{mode}_ms"] * 1e3
+    del net, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq2seq(pt, cfg, layers, dropout):
+    """nn.Transformer with shared token embeddings, sinusoidal positions
+    and an untied output Linear, on the current place."""
+    import math
+
+    import torch
+
+    nn = pt.nn
+    d = cfg["d_model"]
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(cfg["vocab"], d)
+            self.transformer = nn.Transformer(d, cfg["heads"], layers, layers,
+                                              cfg["ffn"], dropout)
+            self.proj = nn.Linear(d, cfg["vocab"])
+            pos = torch.arange(1024, dtype=torch.float64)[:, None]
+            inv = torch.exp(torch.arange(0, d, 2, dtype=torch.float64)
+                            * (-math.log(10000.0) / d))
+            pe = torch.zeros(1024, d, dtype=torch.float64)
+            pe[:, 0::2], pe[:, 1::2] = torch.sin(pos * inv), torch.cos(
+                pos * inv)
+            self.register_buffer("pos", pe.float().to(
+                self.embed.weight.device), persistable=False)
+
+        def emb(self, ids, start=0):
+            x = self.embed(ids) * math.sqrt(d)
+            return x + self.pos[start:start + ids.shape[1]].to(x.dtype)
+
+        def encode(self, src, src_mask):
+            return self.transformer.encoder(self.emb(src), src_mask)
+
+        def decode(self, tgt, memory, src_mask, start=0, cache=None):
+            y = self.emb(tgt, start)
+            causal = None
+            if cache is None:
+                causal = self.transformer.generate_square_subsequent_mask(
+                    tgt.shape[1]).to(y.device)
+            out = self.transformer.decoder(y, memory, causal, src_mask,
+                                           cache)
+            if cache is None:
+                return self.proj(out)
+            return self.proj(out[0]), out[1]
+
+        def forward(self, src, tgt, src_mask):
+            return self.decode(tgt, self.encode(src, src_mask), src_mask)
+
+    return Seq2Seq()
+
+
+def _seq2seq_batch(torch, cfg, rows, src_len, tgt_len, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    src = torch.randint(3, cfg["vocab"], (rows, src_len), generator=g)
+    tgt = torch.randint(3, cfg["vocab"], (rows, tgt_len + 1), generator=g)
+    tgt[:, 0] = 1                                   # BOS
+    lo = min(cfg["src_min"], src_len)
+    lens = torch.randint(lo, src_len + 1, (rows,), generator=g)
+    lens[0] = src_len
+    keep = torch.arange(src_len)[None, :] < lens[:, None]
+    src = torch.where(keep, src, torch.zeros_like(src))   # PAD 0
+    mask = keep[:, None, None, :]
+    return src.to(dev), tgt.to(dev), mask.to(dev), lens
+
+
+def transformer_leg(torch, np, dev, seed, profile=False):
+    """nn.Transformer at TRANSFORMER: AdamW steps under auto_cast O1 bf16
+    (tokens/s, step time), greedy decoding through the caches held against
+    full decoder passes, the fp32 twin against the CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import ops
+
+    cfg = TRANSFORMER
+    F = pt.nn.functional
+    pt.seed(seed)
+    model = _seq2seq(pt, cfg, cfg["layers"], cfg["dropout"])
+    opt = pt.optimizer.AdamW(learning_rate=cfg["lr"],
+                             parameters=model.parameters(),
+                             weight_decay=cfg["weight_decay"])
+    B, S, T = cfg["batch"], cfg["src"], cfg["tgt"]
+    src, tgt, mask, lens = _seq2seq_batch(torch, cfg, B, S, T, seed, dev)
+
+    def step():
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            logits = model(src, tgt[:, :-1], mask)
+            loss = F.cross_entropy(logits.reshape(-1, cfg["vocab"]),
+                                   tgt[:, 1:].reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    model.train()
+    losses = [step()]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = ops.launch_counts()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"transformer: losses {losses}")
+    step_s = statistics.median(times)
+    rec = {"config": (f"d_model {cfg['d_model']}, {cfg['heads']} heads, "
+                      f"{cfg['layers']}+{cfg['layers']} layers, FFN "
+                      f"{cfg['ffn']}, vocab {cfg['vocab']}, O1 bf16"),
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": B, "src": S, "tgt": T,
+           "src_tokens": int(lens.sum()), "losses": losses, "step_s": times,
+           "step_s_median": step_s, "tgt_tokens_per_s": B * T / step_s,
+           "tokens_per_s": (int(lens.sum()) + B * T) / step_s,
+           "launches": counts, "route_calls": ops.route_calls()}
+    if profile:
+        rec["profile"] = profile_run(torch, step)
+    rec["decode"] = greedy_decode(torch, model, src, mask, cfg)
+    del model, opt
+    torch.cuda.empty_cache()
+    rec["twin"] = transformer_twin(torch, np, dev)
+    return rec
+
+
+def greedy_decode(torch, model, src, mask, cfg):
+    """``cfg["decode"]`` greedy tokens through the decoder's Cache (self
+    attention) and StaticCache (cross attention, from ``gen_cache``), in
+    eval mode under auto_cast O1 bf16; at every step the full decoder pass
+    over the prefix so far must pick the same token, or the full pass's
+    top-2 margin there is under DECODE_NEAR_TIE."""
+    import paddle_tpu_torch as pt
+
+    model.eval()
+    B = src.shape[0]
+    tok = torch.ones(B, 1, dtype=torch.long, device=src.device)   # BOS
+    near, worst_gap = 0, 0.0
+    t0 = time.perf_counter()
+    with torch.no_grad(), pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+        memory = model.encode(src, mask)
+        cache = model.transformer.decoder.gen_cache(memory)
+        cache_s = 0.0
+        for t in range(cfg["decode"]):
+            ts = time.perf_counter()
+            logits, cache = model.decode(tok[:, -1:], memory, mask, t, cache)
+            nxt = logits[:, -1].float().argmax(-1)
+            torch.cuda.synchronize()
+            cache_s += time.perf_counter() - ts
+            full = model.decode(tok, memory, mask)[:, -1].float()
+            pick = full.argmax(-1)
+            top2 = full.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            diff = pick != nxt
+            if diff.any():
+                gap = float(margin[diff].max())
+                if gap > DECODE_NEAR_TIE:
+                    raise AssertionError(
+                        f"transformer decode step {t}: the cached step took "
+                        f"another token than the full pass at a top-2 "
+                        f"margin of {gap:.4g}")
+                near += int(diff.sum())
+                worst_gap = max(worst_gap, gap)
+            tok = torch.cat([tok, nxt[:, None]], 1)
+    model.train()
+    return {"tokens": cfg["decode"], "rows": B, "near_tie_flips": near,
+            "flip_max_margin": worst_gap, "cached_s": cache_s,
+            "cached_ms_per_token": cache_s / cfg["decode"] * 1e3,
+            "s": time.perf_counter() - t0,
+            "cache_len": int(cache[0][0].k.shape[1])}
+
+
+def transformer_twin(torch, np, dev):
+    """The Seq2Seq model at ``twin_layers`` layers, dropout 0, fp32, one
+    forward and backward on the card and on the CPU from the same weights
+    and batch: the loss within F32_ATOL, every gradient within
+    F32_GRAD_RTOL of its norm (fp32 matmuls both sides)."""
+    import paddle_tpu_torch as pt
+
+    cfg = TRANSFORMER
+    rows, n = cfg["twin"]
+    gpu, cpu = _twin_pair(torch, lambda: _seq2seq(
+        pt, cfg, cfg["twin_layers"], 0.0), dev, 31)
+    src, tgt, mask, _ = _seq2seq_batch(torch, dict(cfg, src_min=n // 2),
+                                       rows, n, n, 31, "cpu")
+    losses = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        m.train()
+        logits = m(src.to(d), tgt[:, :-1].to(d), mask.to(d))
+        loss = pt.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg["vocab"]), tgt[:, 1:].reshape(-1).to(d))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    # the key projection's bias has a gradient of 0 (a shift of every key
+    # moves a query's scores alike, which the softmax cancels): both sides'
+    # values are rounding noise, held against its weight's gradient
+    g = {}
+    for k, p in gpu.named_parameters():
+        got, want = p.grad.cpu(), cpu.get_parameter(k).grad
+        g[k] = (float((got - want).norm()) / float(cpu.get_parameter(
+            k[:-4] + "weight").grad.norm()) if k.endswith("k_proj.bias")
+                else rel_err(torch, got, want))
+    worst = max(g, key=g.get)
+    err = abs(losses[0] - losses[1])
+    if err > F32_ATOL or g[worst] > F32_GRAD_RTOL:
+        raise AssertionError(f"transformer twin: loss {losses}, gradient of "
+                             f"{worst} off by {g[worst]:.3g} of its norm")
+    del gpu, cpu
+    return {"layers": cfg["twin_layers"], "rows": rows, "tokens": n,
+            "loss_card": losses[0], "loss_cpu": losses[1],
+            "loss_abs_err": err, "grad_max_rel_err": g[worst],
+            "grad_worst": worst}
+
+
+def rnn_leg(torch, np, dev):
+    """LSTM and GRU at RNN in fp32 and bf16: forward + backward time
+    (CUDA events), the padding's outputs zero, finite gradients; the fp32
+    LSTM's forward against its CPU twin; the beam search leg."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import ops
+
+    c = RNN
+    B, T = c["batch"], c["steps"]
+    g = torch.Generator().manual_seed(41)
+    lens = torch.randint(c["min_len"], T + 1, (B,), generator=g)
+    lens[0] = T
+    pad = torch.arange(T)[None, :] >= lens[:, None]
+    x32 = torch.randn(B, T, c["input"], generator=g)
+    rec = {"batch": B, "steps": T, "input": c["input"],
+           "hidden": c["hidden"], "layers": c["layers"]}
+    ops.reset_launch_counts()
+    for kind in ("LSTM", "GRU"):
+        for dtype in ("float32", "bfloat16"):
+            pt.seed(41)
+            prev = pt.get_default_dtype()
+            pt.set_default_dtype(dtype)
+            try:
+                layer = getattr(pt.nn, kind)(c["input"], c["hidden"],
+                                             c["layers"],
+                                             direction="bidirect")
+            finally:
+                pt.set_default_dtype(prev)
+            x = x32.to(dev, getattr(torch, dtype)).requires_grad_()
+            sl = lens.to(dev)
+
+            def fwd():
+                return layer(x, None, sl)
+
+            def fwd_bwd():
+                out, _ = fwd()
+                out.float().sum().backward()
+
+            out, st = fwd()
+            if bool(out[pad.to(dev)].any()) or not torch.isfinite(
+                    out.float()).all():
+                raise AssertionError(f"rnn {kind} {dtype}: a padded step's "
+                                     f"output is not 0, or non-finite")
+            fb_ms = _event_ms(torch, fwd_bwd, c["reps"])
+            if not all(torch.isfinite(p.grad.float()).all()
+                       for p in layer.parameters()):
+                raise AssertionError(f"rnn {kind} {dtype}: non-finite grad")
+            with torch.no_grad():
+                f_ms = _event_ms(torch, fwd, c["reps"])
+            rec[f"{kind}_{dtype}"] = {
+                "fwd_ms": f_ms, "fwd_bwd_ms": fb_ms,
+                "fwd_bwd_ms_per_step": fb_ms / T}
+            if kind == "LSTM" and dtype == "float32":
+                cpu = copy.deepcopy(layer).to("cpu")
+                with torch.no_grad():
+                    want, _ = cpu(x32, None, lens)
+                err = float((out.detach().cpu() - want).abs().max())
+                if err > RNN_F32_ATOL:
+                    raise AssertionError(f"rnn LSTM fp32: card against CPU "
+                                         f"{err:.3g} > {RNN_F32_ATOL}")
+                rec["lstm_f32_max_abs_err"] = err
+            del layer, x, out, st
+    rec["launches"] = ops.launch_counts()
+    rec["route_calls"] = ops.route_calls()
+    rec["beam"] = beam_leg(torch, np, dev)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def beam_leg(torch, np, dev):
+    """BeamSearchDecoder over an LSTMCell with an embedding and an output
+    Linear, through dynamic_decode at BEAM, on the card and on the CPU from
+    the same weights and initial states: the ids and the lengths equal."""
+    import paddle_tpu_torch as pt
+
+    c = BEAM
+    nn = pt.nn
+
+    def make():
+        return nn.LayerList([nn.LSTMCell(c["embed"], c["hidden"]),
+                             nn.Embedding(c["vocab"], c["embed"]),
+                             nn.Linear(c["hidden"], c["vocab"])])
+
+    gpu, cpu = _twin_pair(torch, make, dev, 51)
+    g = torch.Generator().manual_seed(51)
+    h0, c0 = (torch.randn(c["batch"], c["hidden"], generator=g)
+              for _ in range(2))
+    outs = {}
+    t0 = time.perf_counter()
+    for where, (cell, emb, proj), d in (("card", gpu, dev),
+                                        ("cpu", cpu, "cpu")):
+        dec = nn.BeamSearchDecoder(cell, start_token=0, end_token=1,
+                                   beam_size=c["beam"], embedding_fn=emb,
+                                   output_fn=proj)
+        with torch.no_grad():
+            ids, lengths = nn.dynamic_decode(dec, (h0.to(d), c0.to(d)),
+                                             max_step_num=c["steps"],
+                                             return_length=True)
+        outs[where] = (ids.cpu(), lengths.cpu())
+    if not (torch.equal(outs["card"][0], outs["cpu"][0])
+            and torch.equal(outs["card"][1], outs["cpu"][1])):
+        raise AssertionError("beam search: the card's ids or lengths differ "
+                             "from the CPU's")
+    return {"beam": c["beam"], "steps": int(outs["card"][0].shape[1]),
+            "batch": c["batch"], "s": time.perf_counter() - t0}
+
+
+# this slice's functions and layers (A14b) on the card against their CPU
+# twins: name -> (call(F, *tensors), input specs) / (ctor args, kwargs,
+# input specs[, call(layer, *tensors)])
+def _ctc(F, x):
+    return F.ctc_loss(x, torch_cu(x, [[1, 2, 2], [3, 1, 0]]),
+                      torch_cu(x, [8, 6]), torch_cu(x, [3, 2]))
+
+
+def _rnnt(F, x):
+    return F.rnnt_loss(x, torch_cu(x, [[1, 2, 3], [4, 5, 0]]),
+                       torch_cu(x, [5, 4]), torch_cu(x, [3, 2]))
+
+
+A14B_FUNCTIONS = {
+    "conv1d": (lambda F, x, w, b: F.conv1d(x, w, b, 2, 1),
+               [(2, 3, 9), (4, 3, 3), (4,)]),
+    "conv1d_nlc": (lambda F, x, w: F.conv1d(x, w, padding=[1, 2],
+                                            data_format="NLC"),
+                   [(2, 9, 3), (4, 3, 3)]),
+    "conv2d": (lambda F, x, w, b: F.conv2d(x, w, b, 1, [1, 2], 2, 2),
+               [(2, 4, 7, 8), (6, 2, 3, 3), (6,)]),
+    "conv2d_same_stride2": (lambda F, x, w: F.conv2d(
+        x, w, stride=2, padding="SAME"), [(1, 3, 9, 8), (4, 3, 3, 3)]),
+    "conv2d_nhwc": (lambda F, x, w: F.conv2d(
+        x, w, padding=[0, 1, 1, 2], data_format="NHWC"),
+        [(1, 6, 7, 3), (4, 3, 3, 3)]),
+    "conv2d_depthwise": (lambda F, x, w: F.conv2d(
+        x, w, stride=2, padding=1, groups=4), [(1, 4, 7, 7), (4, 1, 3, 3)]),
+    "conv3d": (lambda F, x, w: F.conv3d(x, w, None, (1, 2, 2), 1),
+               [(1, 2, 4, 5, 5), (3, 2, 2, 3, 3)]),
+    "conv3d_ndhwc_same": (lambda F, x, w: F.conv3d(
+        x, w, stride=2, padding="SAME", data_format="NDHWC"),
+        [(1, 5, 4, 5, 2), (3, 2, 3, 2, 3)]),
+    "conv1d_transpose": (lambda F, x, w, b: F.conv1d_transpose(
+        x, w, b, 2, 1, 1), [(2, 4, 5), (4, 3, 3), (3,)]),
+    "conv2d_transpose": (lambda F, x, w, b: F.conv2d_transpose(
+        x, w, b, 2, [1, 0], 1, 2), [(1, 4, 4, 5), (4, 2, 3, 3), (4,)]),
+    "conv2d_transpose_same": (lambda F, x, w: F.conv2d_transpose(
+        x, w, stride=2, padding="SAME", dilation=2, data_format="NHWC"),
+        [(1, 4, 4, 3), (3, 2, 3, 3)]),
+    "conv3d_transpose": (lambda F, x, w: F.conv3d_transpose(x, w, None, 2,
+                                                            1, 1),
+                         [(1, 2, 3, 3, 3), (2, 3, 3, 3, 3)]),
+    "avg_pool1d_ceil": (lambda F, x: F.avg_pool1d(x, 3, 2, 1,
+                                                  ceil_mode=True),
+                        [(2, 3, 10)]),
+    "avg_pool2d_inclusive": (lambda F, x: F.avg_pool2d(
+        x, 3, 2, 1, exclusive=False), [(2, 3, 7, 7)]),
+    "avg_pool2d_ceil_exclusive": (lambda F, x: F.avg_pool2d(
+        x, 3, 2, [1, 0], ceil_mode=True), [(1, 3, 8, 7)]),
+    "avg_pool2d_divisor_nhwc": (lambda F, x: F.avg_pool2d(
+        x, 2, 1, 1, divisor_override=3, data_format="NHWC"),
+        [(1, 5, 5, 2)]),
+    "avg_pool3d": (lambda F, x: F.avg_pool3d(x, 2, 2, 1, ceil_mode=True),
+                   [(1, 2, 5, 4, 5)]),
+    "max_pool1d": (lambda F, x: F.max_pool1d(x, 3, 2, 1), [(2, 3, 9)]),
+    "max_pool2d_mask": (lambda F, x: F.max_pool2d(x, 3, 2, 1,
+                                                  return_mask=True),
+                        [(2, 3, 7, 7)]),
+    "max_pool2d_ceil_same": (lambda F, x: F.max_pool2d(x, 3, 2, 0,
+                                                       ceil_mode=True)
+                             + 0 * F.max_pool2d(x, 3, 2, "SAME").sum(),
+                             [(1, 3, 8, 6)]),
+    "max_pool3d_mask": (lambda F, x: F.max_pool3d(x, 2, 2, 1,
+                                                  return_mask=True),
+                        [(1, 2, 4, 5, 4)]),
+    "adaptive_avg_pool1d": (lambda F, x: F.adaptive_avg_pool1d(x, 4),
+                            [(2, 3, 9)]),
+    "adaptive_avg_pool2d_nhwc": (lambda F, x: F.adaptive_avg_pool2d(
+        x, 3, "NHWC"), [(1, 5, 7, 2)]),
+    "adaptive_avg_pool3d": (lambda F, x: F.adaptive_avg_pool3d(x, [2, 3, 1]),
+                            [(1, 2, 4, 5, 3)]),
+    "adaptive_max_pool1d": (lambda F, x: F.adaptive_max_pool1d(x, 4),
+                            [(2, 3, 10)]),
+    "adaptive_max_pool2d": (lambda F, x: F.adaptive_max_pool2d(x, [3, 4]),
+                            [(1, 3, 7, 8)]),
+    "adaptive_max_pool3d": (lambda F, x: F.adaptive_max_pool3d(x, 2),
+                            [(1, 2, 5, 4, 3)]),
+    "max_unpool1d": (lambda F, x: F.max_unpool1d(
+        *F.max_pool1d(x, 2, return_mask=True), 2), [(2, 3, 8)]),
+    "max_unpool2d": (lambda F, x: F.max_unpool2d(
+        *F.max_pool2d(x, 2, return_mask=True), 2, output_size=[6, 6]),
+        [(1, 2, 6, 6)]),
+    "max_unpool3d": (lambda F, x: F.max_unpool3d(
+        *F.max_pool3d(x, 2, return_mask=True), 2), [(1, 2, 4, 4, 4)]),
+    "gather_tree": (lambda F, i, p: F.gather_tree(i, p),
+                    [("ids", (5, 2, 3), 9), ("ids", (5, 2, 3), 3)]),
+    "hsigmoid_loss": (lambda F, x, y, w, b: F.hsigmoid_loss(x, y, 7, w, b),
+                      [(4, 6), ("ids", (4,), 7), (6, 6), (6,)]),
+    "rnnt_loss": (_rnnt, [(2, 5, 4, 6)]),
+    "multi_margin_loss": (lambda F, x, y: F.multi_margin_loss(
+        x, y, p=2, margin=0.5), [(4, 5), ("ids", (4,), 5)]),
+    "margin_cross_entropy": (lambda F, x, y: F.margin_cross_entropy(
+        x.tanh() * 0.9, y, 1.0, 0.3, 0.1, 8.0), [(4, 6), ("ids", (4,), 6)]),
+    "ctc_loss": (_ctc, [(8, 2, 5)]),
+}
+
+
+def _rnn_out(layer, x, lens):
+    return layer(x, None, lens)
+
+
+def _mha_cache(layer, q, kv):
+    cache = layer.gen_cache(q)
+    out1, cache = layer(q, q, q, None, cache)
+    out2, cache = layer(kv, kv, kv, None, cache)
+    return out1, out2, cache.k, cache.v
+
+
+def _mha_static(layer, q, mem):
+    out, cache = layer(q, mem, mem, None,
+                       layer.gen_cache(mem, mem, type=layer.StaticCache))
+    return out, cache.k
+
+
+def _decoder_cached(layer, tgt, mem):
+    cache = layer.gen_cache(mem)
+    out1, cache = layer(tgt[:, :2], mem, None, None, cache)
+    out2, _ = layer(tgt[:, 2:], mem, None, None, cache)
+    return out1, out2
+
+
+A14B_LAYERS = {
+    "Conv1D": ((3, 4, 3), {"stride": 2, "padding": 1}, [(2, 3, 9)]),
+    "Conv2D": ((4, 6, 3), {"padding": "SAME", "stride": 2, "groups": 2,
+                           "data_format": "NHWC"}, [(1, 7, 6, 4)]),
+    "Conv3D": ((2, 3, [2, 3, 3]), {"padding": 1, "bias_attr": False},
+               [(1, 2, 4, 6, 5)]),
+    "Conv1DTranspose": ((4, 3, 3), {"stride": 2, "padding": 1,
+                                    "output_padding": 1}, [(2, 4, 5)]),
+    "Conv2DTranspose": ((4, 6, 3), {"stride": 2, "groups": 2},
+                        [(1, 4, 4, 5)]),
+    "Conv3DTranspose": ((2, 3, 2), {"stride": 2}, [(1, 2, 3, 2, 3)]),
+    "AvgPool1D": ((3, 2, 1), {"ceil_mode": True}, [(2, 3, 10)]),
+    "AvgPool2D": ((3, 2, 1), {"exclusive": False}, [(2, 3, 7, 7)]),
+    "AvgPool3D": ((2, 2), {"divisor_override": 3}, [(1, 2, 4, 4, 4)]),
+    "MaxPool1D": ((3, 2, 1), {"return_mask": True}, [(2, 3, 9)]),
+    "MaxPool2D": ((3, 2, 1), {"ceil_mode": True}, [(1, 3, 8, 8)]),
+    "MaxPool3D": ((2,), {}, [(1, 2, 4, 4, 4)]),
+    "AdaptiveAvgPool1D": ((4,), {}, [(2, 3, 9)]),
+    "AdaptiveAvgPool2D": (((1, 1),), {}, [(2, 8, 7, 7)]),
+    "AdaptiveAvgPool3D": ((2,), {}, [(1, 2, 5, 4, 3)]),
+    "AdaptiveMaxPool1D": ((3,), {}, [(2, 3, 8)]),
+    "AdaptiveMaxPool2D": (([3, 2],), {}, [(1, 3, 7, 5)]),
+    "AdaptiveMaxPool3D": ((2,), {}, [(1, 2, 4, 5, 3)]),
+    "MaxUnPool1D": ((2,), {}, [(2, 3, 8)],
+                    lambda l, x: l(*pt_functional().max_pool1d(
+                        x, 2, return_mask=True))),
+    "MaxUnPool2D": ((2,), {"output_size": [6, 6]}, [(1, 2, 6, 6)],
+                    lambda l, x: l(*pt_functional().max_pool2d(
+                        x, 2, return_mask=True))),
+    "MaxUnPool3D": ((2, 2), {}, [(1, 2, 4, 4, 4)],
+                    lambda l, x: l(*pt_functional().max_pool3d(
+                        x, 2, return_mask=True))),
+    "CTCLoss": ((), {}, [(8, 2, 5)], lambda l, x: l(
+        x, torch_cu(x, [[1, 2, 2], [3, 1, 0]]), torch_cu(x, [8, 6]),
+        torch_cu(x, [3, 2]))),
+    "HSigmoidLoss": ((6, 7), {}, [(4, 6), ("ids", (4,), 7)]),
+    "MultiMarginLoss": ((), {"margin": 0.7}, [(4, 5), ("ids", (4,), 5)]),
+    "RNNTLoss": ((), {"fastemit_lambda": 0.01}, [(2, 5, 4, 6)],
+                 lambda l, x: l(x, torch_cu(x, [[1, 2, 3], [4, 5, 0]]),
+                                torch_cu(x, [5, 4]), torch_cu(x, [3, 2]))),
+    "SimpleRNNCell": ((5, 7), {}, [(3, 5), (3, 7)]),
+    "LSTMCell": ((5, 7), {}, [(3, 5), (3, 7), (3, 7)],
+                 lambda l, x, h, c: l(x, (h, c))),
+    "GRUCell": ((5, 7), {}, [(3, 5), (3, 7)]),
+    "RNN": ("rnn", {}, [(3, 6, 5), ("ids", (3,), 7)], _rnn_out),
+    "BiRNN": ("birnn", {}, [(3, 6, 5), ("ids", (3,), 7)], _rnn_out),
+    "SimpleRNN": ((5, 7, 2), {"activation": "relu"}, [(3, 6, 5)]),
+    "LSTM": ((5, 7, 2), {"direction": "bidirect"},
+             [(3, 6, 5), ("ids", (3,), 7)], _rnn_out),
+    "GRU": ((5, 7, 2), {"direction": "bidirectional", "time_major": True},
+            [(6, 3, 5)]),
+    "MultiHeadAttention": ((16, 4), {}, [(2, 3, 16), (2, 1, 16)],
+                           _mha_cache),
+    "MultiHeadAttention_static": ((16, 4), {"kdim": 16}, [(2, 4, 16),
+                                                          (2, 6, 16)],
+                                  _mha_static),
+    "TransformerEncoderLayer": ((16, 4, 32, 0.0), {"normalize_before": True},
+                                [(2, 7, 16)]),
+    "TransformerEncoder": ("encoder", {}, [(2, 7, 16)]),
+    "TransformerDecoderLayer": ((16, 4, 32, 0.0), {}, [(2, 4, 16),
+                                                       (2, 6, 16)],
+                                _decoder_cached),
+    "TransformerDecoder": ("decoder", {}, [(2, 5, 16), (2, 7, 16)]),
+    "Transformer": ((16, 4, 1, 1, 32, 0.0), {}, [(2, 7, 16), (2, 5, 16)]),
+}
+# the sweep's cases that run a convolution (TF32 in fp32 on the card)
+A14B_TF32 = {n for n in list(A14B_FUNCTIONS) + list(A14B_LAYERS)
+             if n.lower().startswith("conv")}
+
+
+def pt_functional():
+    import paddle_tpu_torch as pt
+
+    return pt.nn.functional
+
+
+def _a14b_layer(pt, name, spec, dtype):
+    """A layer of A14B_LAYERS built in ``dtype`` on the current place."""
+    nn = pt.nn
+    args, kwargs = spec[0], spec[1]
+    prev = pt.get_default_dtype()
+    pt.set_default_dtype(dtype)
+    try:
+        if args == "rnn":
+            return nn.RNN(nn.GRUCell(5, 7), is_reverse=True)
+        if args == "birnn":
+            return nn.BiRNN(nn.LSTMCell(5, 7), nn.LSTMCell(5, 7))
+        if args == "encoder":
+            return nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(16, 4, 32, 0.0), 2,
+                nn.LayerNorm(16))
+        if args == "decoder":
+            return nn.TransformerDecoder(
+                nn.TransformerDecoderLayer(16, 4, 32, 0.0,
+                                           normalize_before=True), 2)
+        return getattr(nn, name.split("_")[0])(*args, **kwargs)
+    finally:
+        pt.set_default_dtype(prev)
+
+
+def follow_card_relu(torch, F, card, cpu) -> dict:
+    """Wraps the ReLU activations of ``card``'s sublayers and of their
+    twins in ``cpu`` (the same layer on the CPU). The card's wrapper runs
+    F.relu and records which units each call passes; the CPU's, called in
+    the same order, passes the card's units: where the two sides differ,
+    the CPU's pre-activation must lie within RELU_NEAR_TIE of the call's
+    largest magnitude, else it raises. So both sides take the same side of
+    the kink, and the gradients compare the layers, not a near-tie's two
+    outcomes. Returns the tally the wrappers fill (``sites``: the ReLUs
+    wrapped)."""
+    tally = {"sites": 0, "units": 0, "flips": 0, "flip_max_pre": 0.0,
+             "left": []}
+
+    def wrap(a, b, where):
+        masks = []
+
+        def record(x):
+            masks.append((x > 0).detach().cpu())
+            return F.relu(x)
+
+        def follow(x):
+            if not masks:
+                raise AssertionError(f"{where}: ReLU called more often on "
+                                     f"the CPU than on the card")
+            keep = masks.pop(0)
+            pre = x.detach().float().abs()
+            flipped = keep != (x.detach() > 0)
+            tally["units"] += x.numel()
+            if bool(flipped.any()):
+                top = float(pre.max())
+                far = float(pre[flipped].max())
+                if far > RELU_NEAR_TIE * top:
+                    raise AssertionError(
+                        f"{where}: ReLU passes other units on the card and "
+                        f"the CPU, at a CPU pre-activation of {far:.4g} "
+                        f"> {RELU_NEAR_TIE} x {top:.4g}")
+                tally["flips"] += int(flipped.sum())
+                tally["flip_max_pre"] = max(tally["flip_max_pre"],
+                                            far / top)
+            return torch.where(keep, x, torch.zeros_like(x))
+
+        a.activation, b.activation = record, follow
+        tally["left"].append(masks)
+
+    for (n, a), (_, b) in zip(card.named_sublayers(include_self=True),
+                              cpu.named_sublayers(include_self=True)):
+        if getattr(a, "activation", None) is F.relu:
+            wrap(a, b, n or type(a).__name__)
+            tally["sites"] += 1
+    return tally
+
+
+def a14b_sweep(torch, pt, np, dev):
+    """Every function and layer of this slice's nn modules on ``dev``
+    against its CPU twin, fp32 and bf16, forward and the gradients of
+    sum(out * w) for every float input and parameter, as nn_sweep does;
+    fp32 cases that run a convolution within TF32_SWEEP. The transformer
+    layers keep their default ReLU; the CPU follows the card's side of
+    its kink up to RELU_NEAR_TIE (follow_card_relu), at most
+    RELU_FLIP_SHARE of the units a case."""
+    F = pt.nn.functional
+    t0 = time.perf_counter()
+    fns = {n for m in ("conv", "pooling", "sequence_loss")
+           for n in importlib.import_module(
+               f"paddle_tpu_torch.nn.functional.{m}").__all__} | {"ctc_loss"}
+    have = {n.split("_")[0] if n[0].isupper() else n for n in A14B_LAYERS}
+    have |= {re.sub(r"_(nlc|nhwc|same.*|stride2|depthwise|ndhwc.*|"
+                    r"inclusive|ceil.*|divisor.*|mask)$", "", n)
+             for n in A14B_FUNCTIONS}
+    layers = {n for m in ("conv", "pooling", "rnn", "transformer")
+              for n in importlib.import_module(
+                  f"paddle_tpu_torch.nn.layer.{m}").__all__}
+    layers |= {"CTCLoss", "HSigmoidLoss", "MultiMarginLoss", "RNNTLoss"}
+    missing = (fns | layers) - have - {"RNNCellBase"}
+    if missing:
+        raise AssertionError(f"A14b sweep: no case for {sorted(missing)}")
+    worst, n_cases, failed, relu_flips = {}, 0, [], {}
+    names = sorted(A14B_FUNCTIONS) + sorted(A14B_LAYERS)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for i, name in enumerate(names):
+            is_layer = name in A14B_LAYERS
+            if is_layer:
+                spec = A14B_LAYERS[name]
+                specs = spec[2]
+                call = spec[3] if len(spec) > 3 else (lambda l, *xs: l(*xs))
+            else:
+                fcall, specs = A14B_FUNCTIONS[name]
+            ins = nn_inputs(torch, np, specs, i, tdt)
+            if is_layer:
+                with _cpu_place():
+                    layer = _a14b_layer(pt, name, spec, dtype)
+                card = _a14b_layer(pt, name, spec, dtype)
+                card.set_state_dict(layer.state_dict())
+                for m in (layer, card):
+                    m.eval()
+                relu = follow_card_relu(torch, F, card, layer)
+                if name.startswith("Transformer") and not relu["sites"]:
+                    raise AssertionError(f"A14b sweep: {name} runs no ReLU")
+            outs = {}
+            for where, model in (("card", card if is_layer else None),
+                                 ("cpu", layer if is_layer else None)):
+                d = dev if where == "card" else torch.device("cpu")
+                xs = [t.to(d).requires_grad_() if g else t.to(d)
+                      for t, g in ins]
+                out = call(model, *xs) if is_layer else fcall(F, *xs)
+                leaves = [x for x in xs if x.requires_grad]
+                if is_layer:
+                    # the key projection's bias has a gradient of 0 (the
+                    # softmax cancels a shift of every key): its values are
+                    # rounding noise on both sides, and its forward is held
+                    # through the outputs
+                    leaves += [p for n, p in model.named_parameters()
+                               if p.requires_grad
+                               and not n.endswith("k_proj.bias")]
+                first = _tensors(out)[0]
+                grads = (_grads(torch, pt, out, leaves)
+                         if leaves and first.is_floating_point() else None)
+                outs[where] = (out, grads)
+            (got, g_card), (want, g_cpu) = outs["card"], outs["cpu"]
+            tol = ("tf32" if dtype == "float32" and name in A14B_TF32
+                   else _nn_tol(dtype))
+            what = f"{name} {dtype}"
+            if is_layer and relu["sites"]:
+                if any(relu.pop("left")) or relu["flips"] > (
+                        RELU_FLIP_SHARE * relu["units"]):
+                    failed.append(f"{what}: ReLU calls or flips off: {relu}")
+                    continue
+                relu_flips[what] = relu
+            try:
+                err = sweep_compare(torch, what, got, want, tol, dev)
+                if g_card is not None:
+                    err = max(err, sweep_compare(torch, f"{what} grad",
+                                                 g_card, g_cpu, tol, dev))
+            except AssertionError as e:     # every case runs, then raise
+                failed.append(str(e))
+                continue
+            worst[what] = err
+            n_cases += 1
+    torch.cuda.synchronize()
+    if failed:
+        raise AssertionError(f"A14b sweep: {len(failed)} cases failed: "
+                             + "; ".join(failed))
+    return {"functions": len(A14B_FUNCTIONS), "layers": len(A14B_LAYERS),
+            "cases": n_cases, "max_abs_err": worst, "relu": relu_flips,
+            "s": time.perf_counter() - t0}
+
+
+def nn_vision_phase(torch, dev, np, seed, profile=False):
+    """Phase 12: ResNet-50 trained at full width and depth, every vision
+    model against its CPU twin, the ResNet-50 twin and the TF32 effect,
+    nn.Transformer at the base widths with cached greedy decoding, the
+    LSTM / GRU leg with beam search, and the A14b sweep."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rec = {"resnet": resnet_train(torch, np, dev, seed, profile)}
+    rec["vision"] = vision_twins(torch, np, dev)
+    rec["resnet_twin"] = resnet_twin(torch, np, dev)
+    rec["transformer"] = transformer_leg(torch, np, dev, seed, profile)
+    rec["rnn"] = rnn_leg(torch, np, dev)
+    from paddle_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    rec["sweep"] = a14b_sweep(torch, pt, np, dev)
+    # the vision leg and the sweep run no kernel of the port: their counts
+    rec["vision"].update(launches=ops.launch_counts(),
+                         route_calls=ops.route_calls())
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def log_nn_vision(rec, smi) -> None:
+    """Phase 12's lines."""
+    r = rec["resnet"]
+    log(f"[nn-vision] resnet50 {r['batch']}x3x{r['image']}x{r['image']} "
+        f"({r['config']}, {r['params']} params) through Model.fit: step "
+        f"{r['step_s_median']:.4f} s (steps {r['step_s']}), "
+        f"{r['images_per_s']:.1f} images/s, MFU {r['mfu']:.4f}; on a batch "
+        f"already on the card {r['staged_step_s_median']:.4f} s, "
+        f"{r['staged_images_per_s']:.1f} images/s, MFU "
+        f"{r['staged_mfu']:.4f} "
+        f"({r['flops_per_image_fwd'] / 1e9:.3f} GFLOPs forward per image, "
+        f"3x for a step, against {r['peak_flops'] / 1e12:.1f} TFLOP/s "
+        f"{r['peak_source']}), peak {r['peak_mem_gb']:.2f} GiB "
+        f"({r['base_mem_gb']:.2f} held before), losses {r['losses']}, init "
+        f"{r['model_init_s']:.1f} s  [{smi}]")
+    if "profile" in r:
+        log(f"[nn-vision] resnet50 step under the profiler: device busy "
+            f"{r['profile']['device_busy_share']:.1%} of "
+            f"{r['profile']['wall_ms']:.1f} ms  [{smi}]")
+    v = rec["vision"]
+    for mode in ("tf32", "ieee"):
+        worst = sorted(v["models"].items(),
+                       key=lambda kv: -kv[1][mode]["grad_rel_err"])[:4]
+        out_errs = [m[mode]["out_rel_err"] for m in v["models"].values()]
+        log(f"[nn-vision] {len(v['models'])} vision models in eval mode, "
+            f"fp32 ({mode} convolutions) on the card against the CPU: "
+            f"largest output error {max(out_errs):.3g} of the top; "
+            f"largest gradient errors " + ", ".join(
+                f"{k} {m[mode]['grad_rel_err']:.3g} (worst tensor "
+                f"{m[mode]['grad_max_rel_err']:.3g})" for k, m in worst)
+            + f" ({v['s']:.1f} s both)")
+    t = rec["resnet_twin"]
+    c = t["cpu_f32"]
+    log(f"[nn-vision] resnet50 twin {t['batch']}x3x{t['image']}x"
+        f"{t['image']}, training mode, one Momentum step, against fp64 on "
+        f"the CPU: the CPU's fp32 loss off by {c['loss_abs_err']:.3g}, "
+        f"gradients {c['grad_rel_err']:.3g} of their norm, statistics "
+        f"{c['stats_max_rel_err']:.3g}")
+    for mode in ("tf32", "ieee"):
+        e = t[mode]
+        log(f"[nn-vision] resnet50 twin ({mode}): loss {e['loss_card']:.6f} "
+            f"on the card ({t['loss_f64']:.6f} fp64), off by "
+            f"{e['loss_abs_err']:.3g}; gradients {e['grad_rel_err']:.3g} of "
+            f"their norm (worst tensor {e['grad_max_rel_err']:.3g}, "
+            f"{e['grad_worst']}), statistics {e['stats_max_rel_err']:.3g}; "
+            f"a second card run: loss gap "
+            f"{e['rerun_gap']['loss_abs_err']:.3g}, gradients "
+            f"{e['rerun_gap']['grad_rel_err']:.3g}")
+    tt = t["tf32_time"]
+    log(f"[nn-vision] resnet50 fp32 step at batch {tt['batch']}: TF32 "
+        f"{tt['tf32_ms']:.2f} ms ({tt['tf32_images_per_s']:.1f} images/s), "
+        f"IEEE {tt['ieee_ms']:.2f} ms ({tt['ieee_images_per_s']:.1f} "
+        f"images/s)  [{smi}]")
+    tr = rec["transformer"]
+    d, tw = tr["decode"], tr["twin"]
+    log(f"[nn-vision] transformer ({tr['config']}, {tr['params']} params), "
+        f"{tr['batch']}x{tr['src']} source ({tr['src_tokens']} real) + "
+        f"{tr['batch']}x{tr['tgt']} target tokens: step "
+        f"{tr['step_s_median']:.4f} s (steps {tr['step_s']}), "
+        f"{tr['tgt_tokens_per_s']:.1f} target tokens/s, "
+        f"{tr['tokens_per_s']:.1f} tokens/s, losses {tr['losses']}; greedy "
+        f"decode of {d['tokens']} tokens x {d['rows']} rows through the "
+        f"caches {d['cached_ms_per_token']:.2f} ms/token, equal to the full "
+        f"passes but {d['near_tie_flips']} near-tie flips; {tw['layers']}"
+        f"-layer fp32 twin: loss {tw['loss_card']:.6f} / {tw['loss_cpu']:.6f},"
+        f" gradients within {tw['grad_max_rel_err']:.3g}  [{smi}]")
+    rn = rec["rnn"]
+    for kind in ("LSTM", "GRU"):
+        for dt in ("float32", "bfloat16"):
+            x = rn[f"{kind}_{dt}"]
+            log(f"[nn-vision] {kind} {rn['input']}->{rn['hidden']} x"
+                f"{rn['layers']} bidirect, {rn['batch']}x{rn['steps']} "
+                f"ragged, {dt}: forward {x['fwd_ms']:.2f} ms, forward + "
+                f"backward {x['fwd_bwd_ms']:.2f} ms "
+                f"({x['fwd_bwd_ms_per_step']:.3f} ms a step)  [{smi}]")
+    log(f"[nn-vision] LSTM fp32 forward against the CPU "
+        f"{rn['lstm_f32_max_abs_err']:.3g}; beam search ({rn['beam']['beam']}"
+        f" beams, {rn['beam']['steps']} steps, batch {rn['beam']['batch']}) "
+        f"ids equal on the card and the CPU")
+    sw = rec["sweep"]
+    log(f"[nn-vision] A14b sweep: {sw['functions']} functions and "
+        f"{sw['layers']} layers in fp32 and bf16 ({sw['cases']} cases) in "
+        f"{sw['s']:.1f} s; largest errors " + ", ".join(
+            f"{k} {v:.3g}" for k, v in sorted(
+                sw["max_abs_err"].items(), key=lambda kv: -kv[1])[:6]))
+
+
 # kernel name fragments -> where the device time goes
 _CATEGORIES = [("rms_norm", ("rms_norm_vec_kernel", "rms_norm_elem_kernel")),
                ("fused_layer_norm", ("_layer_norm_kernel",)),
@@ -9827,6 +11119,13 @@ def main(argv=None) -> int:
     record["phases"]["families"] = time.perf_counter() - t
     log_families(fam, smi)
     log(f"[families] {record['phases']['families']:.1f}s")
+    # 12. the rest of paddle.nn and vision.models: this slice's main path
+    t = time.perf_counter()
+    nv = nn_vision_phase(torch, dev, np, args.seed, profile=args.profile)
+    record["nn_vision"] = nv
+    record["phases"]["nn_vision"] = time.perf_counter() - t
+    log_nn_vision(nv, smi)
+    log(f"[nn-vision] {record['phases']['nn_vision']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
@@ -9837,7 +11136,9 @@ def main(argv=None) -> int:
                                       route_calls=tr["hb_route_calls"]),
                 f32=record["f32"], eager_fit=eg, fleet=fl, disagg=dg,
                 server_ledger=sr["ledger"], tensor_surface=tp, nn=nnp,
-                gpt=fam["gpt"], ernie=fam["ernie"], incubate=fam["incubate"])
+                gpt=fam["gpt"], ernie=fam["ernie"], incubate=fam["incubate"],
+                resnet=nv["resnet"], vision=nv["vision"],
+                transformer=nv["transformer"], rnn=nv["rnn"])
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

@@ -54,8 +54,11 @@ of creation, math, manipulation, logic, search, random and linalg
 (``ops``; ``linalg``), with ``framework.compat``. The tensor is
 ``torch.Tensor`` and its methods are torch's: the surface is functions.
 
+``paddle.nn`` whole (layers, functions, losses, the decoders) and
+``vision.models``' ResNet and classic families (``vision``).
+
 ``serving``, ``monitor``, ``tracing``, ``testing``, ``profiler``, ``amp``,
-``metric`` and ``autograd`` load on first access
+``metric``, ``autograd``, ``io`` and ``vision`` load on first access
 (``paddle_tpu_torch.serving``), as in the reference; nothing imports
 ``http.server`` before ``serve_http`` is called.
 """
@@ -96,7 +99,7 @@ __all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausa
 
 # subpackages that load on first access (PEP 562), as the reference's do
 _LAZY_SUBMODULES = {"serving", "monitor", "tracing", "testing", "profiler",
-                    "amp", "metric", "autograd", "io"}
+                    "amp", "metric", "autograd", "io", "vision"}
 
 # names that load their module on first access, as the reference's do
 _LAZY_ATTRS = {

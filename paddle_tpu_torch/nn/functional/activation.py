@@ -4,7 +4,10 @@ The reference's formulas as plain torch ops, differentiable in ``x`` (and
 in ``prelu``'s weight). ``rrelu`` in training and ``gumbel_softmax`` draw
 from the port's generator (``core.random``). The in-place names
 (``relu_``, ``elu_``, ``softmax_``, ``tanh_``) return new tensors, as the
-reference's do.
+reference's do. The clipping activations (``relu6``, ``hardtanh``,
+``hardsigmoid``, ``hardswish``) clip as ``jnp.clip`` does, by a maximum
+then a minimum, so an input exactly on a bound takes half the gradient,
+as in the reference (``torch.clamp`` gives it all).
 """
 from __future__ import annotations
 
@@ -60,9 +63,16 @@ def log_sigmoid(x, name=None):
     return F.logsigmoid(x)
 
 
+def _clip(x, lo, hi):
+    """``jnp.clip``'s values and gradients: half the gradient on a bound
+    (torch's binary maximum and minimum split a tie evenly)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 @amp_op("relu6")
 def relu6(x, name=None):
-    return x.clamp(0.0, 6.0)
+    return _clip(x, 0.0, 6.0)
 
 
 @amp_op("elu")
@@ -95,17 +105,17 @@ def swish(x, name=None):
 
 @amp_op("hardsigmoid")
 def hardsigmoid(x, slope: float = 0.1666667, offset: float = 0.5, name=None):
-    return (slope * x + offset).clamp(0.0, 1.0)
+    return _clip(slope * x + offset, 0.0, 1.0)
 
 
 @amp_op("hardswish")
 def hardswish(x, name=None):
-    return x * (x + 3.0).clamp(0.0, 6.0) / 6.0
+    return x * _clip(x + 3.0, 0.0, 6.0) / 6.0
 
 
 @amp_op("hardtanh")
 def hardtanh(x, min: float = -1.0, max: float = 1.0, name=None):
-    return x.clamp(min, max)
+    return _clip(x, min, max)
 
 
 @amp_op("hardshrink")

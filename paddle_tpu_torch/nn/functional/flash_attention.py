@@ -119,7 +119,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal: bool = False,
                                  training: bool = True, name=None):
     """[B, S, H, D]; ``attn_mask`` broadcasts to [B, H, Sq, Sk] (bool:
-    keep where true; float: added to the scores)."""
+    keep where true; float: added to the scores). Inputs of mixed float
+    dtypes compute in their promoted dtype, as jnp promotes them (an
+    incremental cache made in fp32 and extended in bf16 under AMP)."""
+    dt = torch.promote_types(torch.promote_types(query.dtype, key.dtype),
+                             value.dtype)
+    query, key, value = (t.to(dt) for t in (query, key, value))
     return _sdpa_ref(query, key, value, mask=attn_mask, causal=is_causal,
                      dropout_p=dropout_p if training else 0.0)
 

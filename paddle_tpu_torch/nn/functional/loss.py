@@ -7,7 +7,8 @@ enters the AMP policy under the reference's op name (``cross_entropy``,
 ``nll_loss``, ``kl_div`` and ``binary_cross_entropy`` are on the black
 list, so they compute in fp32 under ``auto_cast``; the rest are gray, cast
 to the AMP dtype only at O2) and its output is checked under
-``FLAGS_check_nan_inf``. ``ctc_loss`` (a scan over time) is not ported yet.
+``FLAGS_check_nan_inf``. ``ctc_loss`` is the reference's alpha recursion
+in log space, its ``lax.scan`` over time a loop on device tensors.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ __all__ = [
     "cross_entropy", "softmax_with_cross_entropy", "binary_cross_entropy",
     "binary_cross_entropy_with_logits", "nll_loss", "l1_loss", "mse_loss",
     "smooth_l1_loss", "kl_div", "margin_ranking_loss", "hinge_embedding_loss",
-    "cosine_embedding_loss", "triplet_margin_loss",
+    "cosine_embedding_loss", "ctc_loss", "triplet_margin_loss",
     "triplet_margin_with_distance_loss", "multi_label_soft_margin_loss",
     "soft_margin_loss", "sigmoid_focal_loss", "dice_loss", "log_loss",
     "square_error_cost", "poisson_nll_loss", "gaussian_nll_loss",
@@ -356,3 +357,49 @@ def gaussian_nll_loss(input, label, variance, full: bool = False,
         return _reduce(loss, reduction)
 
     return _op("gaussian_nll_loss", f, input, label, variance)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank: int = 0,
+             reduction: str = "mean", norm_by_times: bool = False):
+    """CTC over ``log_probs`` [T, B, C], which are UNNORMALIZED logits as
+    in paddle (warpctc's contract: the softmax is taken here); ``labels``
+    [B, S] and the lengths are constants. ``"mean"`` divides each row's
+    loss by its label length (at least 1) before the mean."""
+    return _op("ctc_loss", lambda lp: _ctc(lp, labels, input_lengths,
+                                           label_lengths, blank, reduction),
+               log_probs)
+
+
+def _ctc(lp, labels, input_lengths, label_lengths, blank, reduction):
+    dev = lp.device
+    lp = torch.log_softmax(lp, dim=-1)
+    T, B, _ = lp.shape
+    lbl = torch.as_tensor(labels, device=dev).long()
+    in_len = torch.as_tensor(input_lengths, device=dev).long()
+    lb_len = torch.as_tensor(label_lengths, device=dev).long()
+    S = lbl.shape[1]
+    ext = torch.full((B, 2 * S + 1), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = lbl
+    L = 2 * lb_len + 1
+    neg = torch.full((), -1e30, dtype=lp.dtype, device=dev)
+    rows = torch.arange(B, device=dev)
+    alpha = torch.full((B, 2 * S + 1), -1e30, dtype=lp.dtype, device=dev)
+    alpha = torch.cat([lp[0, :, blank][:, None],
+                       torch.where(lb_len > 0, lp[0][rows, ext[:, 1]],
+                                   neg)[:, None], alpha[:, 2:]], 1)
+    same = torch.cat([torch.ones(B, 2, dtype=torch.bool, device=dev),
+                      ext[:, 2:] == ext[:, :-2]], 1)
+    pad1 = torch.full((B, 1), -1e30, dtype=lp.dtype, device=dev)
+    for t in range(1, T):
+        shift1 = torch.cat([pad1, alpha[:, :-1]], 1)
+        shift2 = torch.where(same, neg, torch.cat([pad1, pad1,
+                                                   alpha[:, :-2]], 1))
+        merged = torch.logaddexp(torch.logaddexp(alpha, shift1), shift2)
+        new = merged + lp[t].gather(1, ext)
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+    last = alpha.gather(1, (L - 1).clamp(0, 2 * S)[:, None])[:, 0]
+    prev = alpha.gather(1, (L - 2).clamp(0, 2 * S)[:, None])[:, 0]
+    loss = -torch.logaddexp(last, prev)
+    if reduction == "mean":
+        return (loss / lb_len.to(lp.dtype).clamp(min=1.0)).mean()
+    return _reduce(loss, reduction)

@@ -1,10 +1,11 @@
 """Loss layers (port of ``paddle_tpu/nn/layer/loss.py``): ``Layer``
-wrappers of ``nn.functional.loss``. The reference's ``CTCLoss``,
-``HSigmoidLoss``, ``MultiMarginLoss`` and ``RNNTLoss``, whose functions the
-port does not have yet, are not ported."""
+wrappers of ``nn.functional``'s losses and sequence losses.
+``HSigmoidLoss`` owns the ``[num_classes - 1, feature_size]`` weights of
+the tree's inner nodes (and their bias unless ``bias_attr=False``)."""
 from __future__ import annotations
 
 from ..functional import loss as F
+from ..functional import sequence_loss as S
 from .layers import Layer
 
 __all__ = [
@@ -13,7 +14,8 @@ __all__ = [
     "HingeEmbeddingLoss", "CosineEmbeddingLoss",
     "TripletMarginLoss", "TripletMarginWithDistanceLoss",
     "MultiLabelSoftMarginLoss", "SoftMarginLoss", "PoissonNLLLoss",
-    "GaussianNLLLoss",
+    "GaussianNLLLoss", "CTCLoss", "HSigmoidLoss", "MultiMarginLoss",
+    "RNNTLoss",
 ]
 
 
@@ -181,3 +183,62 @@ class GaussianNLLLoss(Layer):
     def forward(self, input, label, variance):
         return F.gaussian_nll_loss(input, label, variance, self.full,
                                    self.epsilon, self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank, self.reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)
+
+
+class HSigmoidLoss(Layer):
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None):
+        super().__init__()
+        if num_classes < 2:
+            raise ValueError("num_classes must be >= 2")
+        self.num_classes = num_classes
+        self.is_custom = is_custom
+        self.weight = self.create_parameter(
+            shape=[num_classes - 1, feature_size], attr=weight_attr)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            shape=[num_classes - 1], attr=bias_attr, is_bias=True)
+
+    def forward(self, input, label, path_table=None, path_code=None):
+        return S.hsigmoid_loss(input, label, self.num_classes, self.weight,
+                               self.bias, path_table=path_table,
+                               path_code=path_code)
+
+
+class MultiMarginLoss(Layer):
+    def __init__(self, p: int = 1, margin: float = 1.0, weight=None,
+                 reduction: str = "mean", name=None):
+        super().__init__()
+        self.p, self.margin = p, margin
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):
+        return S.multi_margin_loss(input, label, p=self.p, margin=self.margin,
+                                   weight=self.weight,
+                                   reduction=self.reduction)
+
+
+class RNNTLoss(Layer):
+    def __init__(self, blank=0, fastemit_lambda=0.001, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.blank = blank
+        self.fastemit_lambda = fastemit_lambda
+        self.reduction = reduction
+
+    def forward(self, input, label, input_lengths, label_lengths):
+        return S.rnnt_loss(input, label, input_lengths, label_lengths,
+                           blank=self.blank,
+                           fastemit_lambda=self.fastemit_lambda,
+                           reduction=self.reduction)

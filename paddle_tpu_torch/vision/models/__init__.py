@@ -1,0 +1,13 @@
+"""``paddle.vision.models`` (port of ``paddle_tpu/vision/models/``): the
+ResNet family (``resnet.py``) and the classic families (``classic.py``).
+``classic2.py``'s DenseNet, GoogLeNet, InceptionV3, MobileNetV3 and
+ShuffleNetV2 are not ported yet (ROADMAP A14d)."""
+from . import classic, resnet
+from .classic import *  # noqa: F401,F403
+from .resnet import *  # noqa: F401,F403
+from .resnet import (BasicBlock, BottleneckBlock, resnext50_64x4d,
+                     resnext101_32x4d, resnext101_64x4d, resnext152_32x4d)
+
+__all__ = (classic.__all__ + resnet.__all__
+           + ["BasicBlock", "BottleneckBlock", "resnext50_64x4d",
+              "resnext101_32x4d", "resnext101_64x4d", "resnext152_32x4d"])

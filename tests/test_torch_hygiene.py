@@ -492,8 +492,9 @@ def test_serving_imports_lazily_and_without_http_server():
 
 # the tensor surface's modules and nn's and io's: each one's public names
 # are the reference module's minus the names the port leaves out (ROADMAP
-# A14b and A14d); None where the reference module has no ``__all__`` or
-# there is no reference module
+# A14d); None where the reference module has no ``__all__``, where there
+# is no reference module, or where the port's package holds a part of the
+# reference's (``vision``)
 TENSOR_SURFACE_MODULES = {
     "paddle_tpu_torch/autograd/__init__.py": (),
     "paddle_tpu_torch/autograd/functional.py": None,
@@ -529,8 +530,12 @@ TENSOR_SURFACE_MODULES = {
     "paddle_tpu_torch/nn/layer/activation.py": (),
     "paddle_tpu_torch/nn/layer/common.py": (),
     "paddle_tpu_torch/nn/layer/norm.py": (),
-    "paddle_tpu_torch/nn/layer/loss.py": ("CTCLoss", "HSigmoidLoss",
-                                          "MultiMarginLoss", "RNNTLoss"),
+    "paddle_tpu_torch/nn/layer/loss.py": (),
+    "paddle_tpu_torch/nn/layer/conv.py": (),
+    "paddle_tpu_torch/nn/layer/pooling.py": (),
+    "paddle_tpu_torch/nn/layer/rnn.py": (),
+    "paddle_tpu_torch/nn/layer/transformer.py": (),
+    "paddle_tpu_torch/nn/decode.py": (),
     "paddle_tpu_torch/nn/functional/__init__.py": None,
     "paddle_tpu_torch/nn/functional/_op.py": None,
     "paddle_tpu_torch/nn/functional/activation.py": (),
@@ -538,7 +543,14 @@ TENSOR_SURFACE_MODULES = {
     "paddle_tpu_torch/nn/functional/norm.py": (),
     "paddle_tpu_torch/nn/functional/extension.py": (),
     "paddle_tpu_torch/nn/functional/flash_attention.py": (),
-    "paddle_tpu_torch/nn/functional/loss.py": ("ctc_loss",),
+    "paddle_tpu_torch/nn/functional/loss.py": (),
+    "paddle_tpu_torch/nn/functional/conv.py": (),
+    "paddle_tpu_torch/nn/functional/pooling.py": (),
+    "paddle_tpu_torch/nn/functional/sequence_loss.py": (),
+    "paddle_tpu_torch/vision/__init__.py": None,
+    "paddle_tpu_torch/vision/models/__init__.py": None,
+    "paddle_tpu_torch/vision/models/resnet.py": (),
+    "paddle_tpu_torch/vision/models/classic.py": (),
     "paddle_tpu_torch/nn/utils/__init__.py": (),
     "paddle_tpu_torch/nn/utils/utils.py": (),
     "paddle_tpu_torch/io/__init__.py": None,

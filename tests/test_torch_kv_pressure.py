@@ -30,6 +30,7 @@ validator is armed at every page op and every gap. Every Server is shut
 down in ``finally``.
 """
 import json
+import threading
 import time
 import types
 import urllib.request
@@ -114,6 +115,31 @@ def _assert_no_leaks(eng):
 
 
 # -- allocator invariant validator ---------------------------------------------
+class _HoldAfterPreempt(FaultyEngine):
+    """``FaultyEngine`` over an empty plan that, after the engine's first
+    preemption, holds the scheduler thread at its next ``decode_segment``
+    seam: ``holding`` is set there, and the thread waits (at most WAIT
+    seconds) until ``go`` is set. The scheduler parks a victim in the gap
+    before that decode and re-admits it only in the gap after, so a test
+    acts on a parked handle while the hold lasts."""
+
+    def __init__(self, engine, plan):
+        super().__init__(engine, plan)
+        for name in ("preempted", "holding", "go"):
+            object.__setattr__(self, name, threading.Event())
+
+    def preempt_request(self, *a, **kw):
+        out = super().preempt_request(*a, **kw)
+        self.preempted.set()
+        return out
+
+    def decode_segment(self, *a, **kw):
+        if self.preempted.is_set() and not self.go.is_set():
+            self.holding.set()
+            self.go.wait(WAIT)
+        return super().decode_segment(*a, **kw)
+
+
 class TestAllocatorCheck:
     def _alloc(self, debug=False):
         return PageAllocator(num_pages=8, page_size=4, max_batch=2,
@@ -409,26 +435,31 @@ class TestServerPreemption:
 
     def test_preempt_then_cancel(self):
         """A preempted handle parked for replay is cancelled: it finishes
-        CANCELLED once, never re-admits, and nothing leaks."""
+        CANCELLED once, never re-admits, and nothing leaks. The scheduler
+        is held at the first decode seam after the preemption (the victim
+        is parked by then, and its replay comes only in the next gap)
+        until the cancel is in, so the replay cannot win the race."""
         model, mcfg = tiny_model()
         eng = paged_engine(model, num_pages=10, admission_mode="optimistic",
                            kv_watermark=1.0)
-        srv = Server(eng, segment_steps=4, max_preemptions=50)
+        held = _HoldAfterPreempt(eng, FaultPlan())
+        srv = Server(held, segment_steps=4, max_preemptions=50)
         try:
             p = _prompts(mcfg, 2)
             h_old = srv.submit(p[0], _greedy(24))
             h_vic = srv.submit(p[1], _greedy(24))
-            deadline = time.monotonic() + WAIT
-            while h_vic._preempts == 0 and time.monotonic() < deadline:
-                time.sleep(0.01)
+            assert held.holding.wait(WAIT)
             assert h_vic._preempts >= 1
             h_vic.cancel()
+            held.go.set()
             with pytest.raises(RequestCancelled):
                 h_vic.result(timeout=WAIT)
+            assert h_vic._preempts == 1
             assert len(h_old.result(timeout=WAIT)) == 24
             assert srv.drain(timeout=30)
             _assert_no_leaks(eng)
         finally:
+            held.go.set()
             srv.shutdown()
 
     def test_preempt_then_engine_restart_composes(self):

@@ -291,7 +291,10 @@ def test_every_reference_function_has_a_case():
         assert set(ref.__all__) <= set(TF.__all__)
     for m in ("conv", "pooling", "sequence_loss"):    # A14b's
         ref = importlib.import_module(f"paddle_tpu.nn.functional.{m}")
-        assert not set(ref.__all__) & set(dir(TF)), m
+        port = importlib.import_module(f"paddle_tpu_torch.nn.functional.{m}")
+        assert sorted(port.__all__) == sorted(ref.__all__), m
+        assert set(ref.__all__) <= set(TF.__all__), m
+    assert "ctc_loss" in TF.__all__
 
 
 def _run(case_id, dtype="float32"):
@@ -424,6 +427,29 @@ def test_dropout_functions_in_training():
     assert abs(ch.float().mean().item() - 0.5) < 0.05
     y = TF.alpha_dropout(torch.randn(400, 400), 0.2)
     assert abs(y.mean().item()) < 0.02 and abs(y.std().item() - 1) < 0.02
+
+
+# inputs exactly on the clipping activations' bounds (and past them)
+TIES = np.array([-6, -3, -2.5, -1, -0.5, 0, 0.5, 0.7, 1, 2.5, 3, 6, 20],
+                np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fn,kw", [("relu6", {}), ("hardtanh", {}),
+                                   ("hardtanh", {"min": -0.5, "max": 0.7}),
+                                   ("hardswish", {}),
+                                   ("hardsigmoid", {"slope": 0.5,
+                                                    "offset": 0.5})])
+def test_clip_activations_split_ties_like_reference(fn, kw, dtype):
+    """On a bound the reference's ``jnp.clip`` gives half the gradient;
+    the port must give the same (``torch.clamp`` gives all), within the
+    file's tolerances."""
+    want, (wg,), _ = C.run_jax(lambda t: getattr(JF, fn)(t, **kw), [TIES],
+                               0, dtype=dtype)
+    got, (gg,), _ = C.run_port(lambda t: getattr(TF, fn)(t, **kw), [TIES],
+                               0, dtype=getattr(torch, dtype))
+    C.close(got, want, dtype, what="out")
+    C.close(gg, wg, dtype, what="grad")
 
 
 def test_random_activations_in_training():

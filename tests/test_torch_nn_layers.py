@@ -453,21 +453,23 @@ def test_existing_tests_oracles_on_the_port():
 
 
 def test_nn_top_level_names():
-    """Every public name of the reference's ``paddle.nn`` is the port's but
-    those of the modules ROADMAP A14b leaves (convolution, pooling,
-    recurrent and transformer layers, the decoders, four loss layers)."""
+    """Every public name of the reference's ``paddle.nn`` is the port's,
+    the convolution, pooling, recurrent and transformer layers, the
+    decoders (and the ``decode`` module) and the four sequence-loss
+    layers included (ROADMAP A14b): nothing is left out."""
     import importlib
 
-    left = {"BeamSearchDecoder", "dynamic_decode", "CTCLoss", "HSigmoidLoss",
-            "MultiMarginLoss", "RNNTLoss", "decode"}
     for m in ("conv", "pooling", "rnn", "transformer"):
-        left |= set(importlib.import_module(
+        names = set(importlib.import_module(
             f"paddle_tpu.nn.layer.{m}").__all__)
+        assert names <= set(nn.__all__), m
+    for n in ("BeamSearchDecoder", "dynamic_decode", "CTCLoss",
+              "HSigmoidLoss", "MultiMarginLoss", "RNNTLoss", "decode"):
+        assert hasattr(nn, n), n
     ref = {n for n in dir(paddle_tpu.nn) if not n.startswith("_")}
     ref -= {"layer", "clip", "param_attr", "parameter", "functional_call"}
-    missing = sorted(n for n in ref - left if not hasattr(nn, n))
+    missing = sorted(n for n in ref if not hasattr(nn, n))
     assert not missing, missing
-    assert not [n for n in left if hasattr(nn, n)]
     assert set(nn.__all__) <= {n for n in dir(nn)}
 
 
