@@ -365,7 +365,28 @@ Phases, each timed, none caught and passed over:
    the card and the CPU; and the sweep of every function and layer of the
    convolution, pooling, sequence-loss, recurrent and transformer modules
    on cuda:0 against its CPU twin, fp32 and bf16. These paths launch no
-   kernel of the port; the kernels line counts the earlier paths.
+   kernel of the port;
+13. the rest of ``paddle.vision``, ``summary`` / ``flops`` and
+   ``paddle.text``, this slice's main path: every model function of
+   ``classic2.py`` (DenseNet, GoogLeNet, InceptionV3 at 299, MobileNetV3,
+   ShuffleNetV2) in eval mode, fp32, forward and backward at 2 x 3 x 224
+   x 224 on the card against its CPU twin (the logits by the tests'
+   ``near()`` against the CPU twin in fp64, the gradients jointly); one
+   model of each family trained for 3 timed steps at batch 64 under O1
+   bf16; ``summary`` and ``flops`` of ResNet-50 and MobileNetV3-Large on
+   the card equal to the CPU's; MobileNetV3-Large trained through
+   ``Model.fit`` over a ``DatasetFolder`` of 1024 seeded ``.npy`` images
+   with the ImageNet train transforms and ``DataLoader(num_workers=8)``
+   (images/s, the loader's wait a batch, then steps on a batch already on
+   the card); the detection operators at published detectors' widths
+   (Faster R-CNN's RPN proposals, the R50-C4 RoIAlign / RoIPool /
+   PSRoIPool head, FPN's level assignment, YOLOv3's three heads with
+   ``yolo_box``, ``yolo_loss``, ``matrix_nms`` and ``nms``, DCNv2 at
+   ResNet-50's stage 5, SSD300's priors and box coding), each against its
+   CPU twin, forward and backward, with device and host milliseconds; and
+   ``viterbi_decode`` at a CoNLL-2003 tagger's shape, bitwise the CPU's.
+   These paths launch no kernel of the port either; the kernels line counts
+   the earlier paths.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -711,16 +732,20 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
                                              "server_ledger",
                                              "tensor_surface", "nn", "gpt",
                                              "ernie", "incubate", "resnet",
-                                             "vision", "transformer", "rnn")
-# this slice's paths: phase 12's ResNet-50 training through Model.fit, the
-# vision models against the CPU, nn.Transformer's training and cached
-# decoding, and the LSTM / GRU leg. They launch no kernel of the port (the
-# convolutions, pooling, batch norms, recurrences and the attention
-# composition are torch ops, as the reference's are XLA ops), so each
-# kernel's count in the kernels line comes from the earlier paths below
-SLICE_PATHS = ("resnet", "vision", "transformer", "rnn")
+                                             "vision", "transformer", "rnn",
+                                             "classic2", "pipeline",
+                                             "detection", "text")
+# this slice's paths: phase 13's classic2 models (their twins, training
+# steps, summary and flops), MobileNetV3-Large through the input pipeline,
+# the detection operators and Viterbi decoding. They launch no kernel of
+# the port (the convolutions, pooling, batch norms, gathers, selections and
+# the Viterbi loop are torch ops and host numpy, as the reference's are
+# XLA ops and numpy), so each kernel's count in the kernels line comes from
+# the earlier paths below
+SLICE_PATHS = ("classic2", "pipeline", "detection", "text")
 # earlier slices' paths, in the order their counts stand in for a kernel
-# this slice does not run: phase 11's GPT-3 1.3B training steps (K3 causal
+# this slice does not run: phase 12's ResNet-50, vision, transformer and
+# RNN legs (no kernel either); phase 11's GPT-3 1.3B training steps (K3 causal
 # at head dim 128 twice a layer under full recompute, K5 and K6 once), the
 # ERNIE-MoE base steps and the incubate leg (K1, K2, K3, K5, K6); phase 9's
 # comparison route and phase 10's nn
@@ -732,7 +757,8 @@ SLICE_PATHS = ("resnet", "vision", "transformer", "rnn")
 # front's Server serve, the prefix-cache and memory-pressure legs, the
 # speculative Server serves and FMT (K8); then training, the eager
 # Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
-EARLIER_PATHS = (("gpt", "ernie", "incubate"), ("tensor_surface", "nn"),
+EARLIER_PATHS = (("resnet", "vision", "transformer", "rnn"),
+                 ("gpt", "ernie", "incubate"), ("tensor_surface", "nn"),
                  ("server_ledger", "fleet", "disagg", "server_lora", "serve",
                   "serve_int8",
                   "generate", "dense_serve", "serve_chunked",
@@ -9405,8 +9431,10 @@ def _twin_pair(torch, make, dev, seed):
 
 
 def _fwd_bwd(torch, model, x, dev):
-    """Output and gradients (input first, then the parameters by name) of
-    sum(out * w), w a fixed ramp, for ``x`` moved to ``dev``."""
+    """Output and gradients (input first, then the parameters by name; a
+    parameter the forward does not use, such as GoogLeNet's auxiliary
+    heads in eval mode, has none) of sum(out * w), w a fixed ramp, for
+    ``x`` moved to ``dev``."""
     xs = x.detach().to(dev).requires_grad_()
     out = model(xs)
     w = torch.linspace(-1, 1, out.numel(), device=out.device).reshape(
@@ -9414,7 +9442,7 @@ def _fwd_bwd(torch, model, x, dev):
     (out.float() * w).sum().backward()
     grads = {"input": xs.grad.detach().cpu()}
     grads.update({k: p.grad.detach().cpu()
-                  for k, p in model.named_parameters()})
+                  for k, p in model.named_parameters() if p.grad is not None})
     return out.detach().cpu(), grads
 
 
@@ -10402,6 +10430,896 @@ def log_nn_vision(rec, smi) -> None:
                 sw["max_abs_err"].items(), key=lambda kv: -kv[1])[:6]))
 
 
+# phase 13: the rest of paddle.vision, hapi's summary and flops and
+# paddle.text. Every model function of classic2.py in eval mode, fp32, on
+# the card against its CPU twin at CLASSIC2_TWIN (InceptionV3 at 299): the
+# logits held by the tests' near() rule against the CPU twin in fp64 (the
+# card and the CPU's fp32 each at most TWIN_FACTOR times as far from it as
+# the other, plus 1e-6 of its largest magnitude), all the gradients (the
+# input's and every parameter's) within VISION_F32_JOINT of their joint
+# norm; one model of each family trained for CLASSIC2_TRAIN["steps"] timed
+# steps at batch 64 under O1 bf16 (Momentum, as phase 12's ResNet-50);
+# summary and flops of SUMMARY_MODELS on the card equal to the CPU's
+CLASSIC2_TWIN = dict(batch=2, image=224, inception=299)
+CLASSIC2_TRAIN = dict(batch=64, steps=3, lr=0.1, momentum=0.9,
+                      weight_decay=1e-4,
+                      models=("densenet121", "googlenet", "inception_v3",
+                              "mobilenet_v3_small", "shufflenet_v2_x1_0"))
+GOOGLENET_AUX = 0.3         # the auxiliary losses' weight, Szegedy et al. 2015
+SUMMARY_MODELS = ("resnet50", "mobilenet_v3_large")
+# MobileNetV3-Large through the ImageNet input pipeline: the per-GPU batch,
+# RMSProp's learning rate, momentum, decay rate (alpha 0.9) and epsilon
+# (0.0316, torchvision's train.py for RMSProp) and the weight decay of
+# torchvision's public MobileNetV3-Large recipe; a DatasetFolder of seeded
+# uint8 .npy images in class folders; the train transforms in PaddleClas's
+# order (RandomResizedCrop, RandomHorizontalFlip, then CHW and the
+# ImageNet mean and std in 0-255 units); DataLoader with 8 worker
+# processes into Model.fit (a warm-up batch and `timed` ones), then
+# `staged` steps on a batch already on the card
+PIPELINE = dict(batch=128, images=1024, classes=8, side=(300, 500),
+                workers=8, timed=6, staged=3, lr=0.064,
+                momentum=0.9, rho=0.9, epsilon=0.0316, weight_decay=1e-5,
+                mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375])
+# the detection operators at published detectors' widths, each on the card
+# against its CPU twin on the same inputs: Faster R-CNN's RPN at
+# py-faster-rcnn's test configuration (two 800 x 1333 images, a stride-16
+# feature of 50 x 84, 9 anchors of scales 128 / 256 / 512 and ratios 0.5 /
+# 1 / 2, 6000 boxes before NMS and 300 after at IoU 0.7, RPN_MIN_SIZE 16);
+# the R50-C4 RoI head (Detectron's e2e_faster_rcnn_R-50-C4: 1024 channels,
+# RoIAlign to 14 x 14 at 1/16, sampling_ratio 0, aligned) over those
+# proposals, RoIPool and PSRoIPool (490 = 10 x 7 x 7 channels to 7 x 7)
+# at its shapes, the CPU twins over the first `twin_rois` proposals of
+# each image (the card runs and times all of them); FPN's level
+# assignment (Lin et al. 2017, eq. 1); YOLOv3 at 608 (Redmon & Farhadi
+# 2018: 80 classes, the nine COCO anchors, masks 6-8 / 3-5 / 0-2 at strides
+# 32 / 16 / 8) at batch 8, 50 ground-truth rows an image of which a seeded
+# share is padding, and matrix_nms and nms over the decoded boxes; DCNv2
+# (Zhu et al. 2019) as ResNet-50's stage-5 3x3 at an 800 x 1333 input;
+# SSD300's conv4_3 priors and box coding
+RPN = dict(images=2, height=800, width=1333, stride=16,
+           scales=(128, 256, 512), ratios=(0.5, 1.0, 2.0),
+           pre_nms_top_n=6000, post_nms_top_n=300, nms_thresh=0.7,
+           min_size=16.0)
+ROI_HEAD = dict(channels=1024, output=14, ps_channels=490, ps_output=7,
+                twin_rois=32)
+FPN = dict(rois=1000, min_level=2, max_level=5, refer_level=4,
+           refer_scale=224)
+YOLO = dict(batch=8, image=608, classes=80,
+            anchors=[10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116,
+                     90, 156, 198, 373, 326],
+            masks=((6, 7, 8), (3, 4, 5), (0, 1, 2)), strides=(32, 16, 8),
+            conf_thresh=0.005, ignore_thresh=0.7, gt=50, pad_share=0.4,
+            nms_boxes=2000, nms_iou=0.45, nms_keep=100, score_keep=0.05,
+            matrix=dict(score_threshold=0.01, post_threshold=0.01,
+                        nms_top_k=400, keep_top_k=100, background_label=-1))
+DCN = dict(batch=8, channels=512, height=25, width=42)
+SSD = dict(feature=38, channels=512, image=300, min_size=30.0,
+           max_size=60.0, ratio=2.0, gt=50, batch=8)
+# a CoNLL-2003 NER tagger's decoding: 9 BIO tags plus BOS and EOS, 64
+# sentences of 20-128 tokens padded to 128
+TEXT = dict(tags=9, batch=64, length=128, min_len=20, reps=5)
+# the detection operators' fp32 tolerance against the CPU: 1e-5 of the
+# output's largest magnitude plus 1e-5 of each element (the same formulas
+# summed in other orders: atomics in the gathers' backward, cuBLAS in
+# deform_conv2d's contraction); the selections (indices, RoIs, levels,
+# counts, the Viterbi paths and scores) bitwise
+DET_REL = 1e-5
+
+
+def _near_twin(torch, got, ref, exact):
+    """The tests' near(): ``got`` and ``ref`` each at most TWIN_FACTOR
+    times as far from ``exact`` as the other (max norm), plus 1e-6 of
+    ``exact``'s largest magnitude. Returns the two distances and whether
+    they pass."""
+    exact = exact.double()
+    e_got = float((got.double() - exact).abs().max())
+    e_ref = float((ref.double() - exact).abs().max())
+    floor = 1e-6 * max(float(exact.abs().max()), 1e-30)
+    ok = (e_got <= TWIN_FACTOR * e_ref + floor
+          and e_ref <= TWIN_FACTOR * e_got + floor)
+    return e_got, e_ref, ok
+
+
+def classic2_twins(torch, np, dev):
+    """Every classic2 model function in eval mode, fp32 (TF32 off), forward
+    and backward of sum(out * ramp) on the card and on the CPU, the fp64
+    CPU twin's forward as the yardstick."""
+    import copy
+
+    from paddle_tpu_torch.vision.models import classic2
+
+    t0 = time.perf_counter()
+    rec = {}
+    for i, name in enumerate(n for n in classic2.__all__ if n[0].islower()):
+        gpu, cpu = _twin_pair(torch, getattr(classic2, name), dev, 100 + i)
+        for m in (gpu, cpu):
+            m.eval()
+        s = CLASSIC2_TWIN["inception" if name == "inception_v3" else "image"]
+        x = torch.randn(CLASSIC2_TWIN["batch"], 3, s, s,
+                        generator=torch.Generator().manual_seed(100 + i))
+        want, g_cpu = _fwd_bwd(torch, cpu, x, "cpu")
+        got, g_gpu = _fwd_bwd(torch, gpu, x, dev)
+        with torch.no_grad():
+            exact = copy.deepcopy(cpu).double()(x.double())
+        e_card, e_cpu, ok = _near_twin(torch, got, want, exact)
+        worst_err, worst, total = _grad_errs(torch, g_gpu, g_cpu)
+        if (not ok or total > VISION_F32_JOINT
+                or not torch.isfinite(got).all()):
+            raise AssertionError(
+                f"classic2 {name}: logits {e_card:.3g} from fp64 on the "
+                f"card, {e_cpu:.3g} on the CPU; gradients {total:.3g} of "
+                f"their norm ({worst} {worst_err:.3g})")
+        rec[name] = {"image": s, "out_err_card": e_card,
+                     "out_err_cpu": e_cpu,
+                     "out_scale": float(exact.abs().max()),
+                     "grad_rel_err": total, "grad_max_rel_err": worst_err,
+                     "grad_worst": worst,
+                     "params": sum(p.numel() for p in cpu.parameters())}
+        del gpu, cpu
+    torch.cuda.empty_cache()
+    return {"models": rec, "s": time.perf_counter() - t0}
+
+
+def _googlenet_loss(pt):
+    """GoogLeNet's training loss: the main cross entropy plus GOOGLENET_AUX
+    times each auxiliary head's."""
+    ce = pt.nn.CrossEntropyLoss()
+
+    class Loss(pt.nn.Layer):
+        def forward(self, out, aux1, aux2, label):
+            return ce(out, label) + GOOGLENET_AUX * (ce(aux1, label)
+                                                     + ce(aux2, label))
+
+    return Loss()
+
+
+def classic2_train(torch, np, dev, seed):
+    """One model of each classic2 family: a warm-up step and
+    CLASSIC2_TRAIN["steps"] timed ones through Model.train_batch at batch
+    64 on a batch already on the card, O1 bf16, Momentum."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import models
+
+    rec = {}
+    b = CLASSIC2_TRAIN["batch"]
+    for name in CLASSIC2_TRAIN["models"]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pt.seed(seed)
+        net = getattr(models, name)()
+        s = CLASSIC2_TWIN["inception" if name == "inception_v3" else "image"]
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn(b, 3, s, s, generator=g).to(dev)
+        y = torch.randint(0, 1000, (b,), generator=g).to(dev)
+        opt = pt.optimizer.Momentum(
+            learning_rate=CLASSIC2_TRAIN["lr"],
+            momentum=CLASSIC2_TRAIN["momentum"], parameters=net.parameters(),
+            weight_decay=pt.optimizer.L2Decay(CLASSIC2_TRAIN["weight_decay"]))
+        model = pt.Model(net)
+        loss = (_googlenet_loss(pt) if name == "googlenet"
+                else pt.nn.CrossEntropyLoss())
+        model.prepare(opt, loss,
+                      amp_configs={"level": "O1", "dtype": "bfloat16"})
+        losses, times = [], []
+        for _ in range(1 + CLASSIC2_TRAIN["steps"]):
+            t = time.perf_counter()
+            losses.append(model.train_batch([x], [y])[0])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"classic2 {name}: losses {losses}")
+        step = statistics.median(times[1:])
+        rec[name] = {"image": s, "batch": b, "losses": losses,
+                     "step_s": times, "step_s_median": step,
+                     "images_per_s": b / step,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "params": sum(p.numel() for p in net.parameters())}
+        del model, net, opt, x, y
+    torch.cuda.empty_cache()
+    return rec
+
+
+def summary_flops(torch, dev):
+    """``summary`` and ``flops`` of SUMMARY_MODELS at 1 x 3 x 224 x 224 on
+    the card and on the CPU (their tables printed into a buffer): equal
+    totals, equal tables."""
+    import contextlib
+    import copy
+    import io
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import models
+
+    rec = {}
+    size = (1, 3, 224, 224)
+    for name in SUMMARY_MODELS:
+        pt.seed(0)
+        gpu = getattr(models, name)()
+        cpu = copy.deepcopy(gpu).to("cpu")
+        out = {}
+        for where, net in (("card", gpu), ("cpu", cpu)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                s = pt.summary(net, size)
+            out[where] = (s, buf.getvalue(), pt.flops(net, list(size)))
+        if out["card"] != out["cpu"] or out["card"][2] <= 0:
+            raise AssertionError(f"summary/flops {name}: card "
+                                 f"{out['card'][0]} {out['card'][2]}, CPU "
+                                 f"{out['cpu'][0]} {out['cpu'][2]}")
+        rec[name] = dict(out["card"][0], flops=out["card"][2],
+                         table_rows=len(out["card"][1].splitlines()) - 8)
+        del gpu, cpu
+    return rec
+
+
+def classic2_leg(torch, np, dev, seed):
+    from paddle_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    rec = {"twins": classic2_twins(torch, np, dev),
+           "train": classic2_train(torch, np, dev, seed),
+           "summary": summary_flops(torch, dev)}
+    rec.update(launches=ops.launch_counts(), route_calls=ops.route_calls())
+    return rec
+
+
+def write_image_folder(np, root, seed):
+    """PIPELINE["images"] seeded uint8 HWC images of 300-500 x 300-500 as
+    .npy files in PIPELINE["classes"] class folders under ``root``."""
+    rng = np.random.RandomState(seed)
+    lo, hi = PIPELINE["side"]
+    nbytes = 0
+    for i in range(PIPELINE["images"]):
+        d = os.path.join(root, f"class_{i % PIPELINE['classes']:02d}")
+        os.makedirs(d, exist_ok=True)
+        h, w = rng.randint(lo, hi + 1, 2)
+        arr = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        np.save(os.path.join(d, f"{i:05d}.npy"), arr)
+        nbytes += arr.nbytes
+    return nbytes
+
+
+def pipeline_leg(torch, np, dev, seed, profile=False):
+    """MobileNetV3-Large trained through the ImageNet input pipeline
+    (PIPELINE): Model.fit over a DataLoader of 8 worker processes, the
+    step time from the callbacks (the batch's copy to the card, forward,
+    backward, RMSProp), the consumer's wait for each batch (the
+    loader's paddle_tpu_dataloader_wait_seconds histogram, the monitor
+    on), images/s; then steps on a batch already on the card; the image
+    folder is written to a temporary directory and removed after."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io, monitor, ops
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.vision import datasets, models
+    from paddle_tpu_torch.vision import transforms as T
+
+    P = PIPELINE
+    root = tempfile.mkdtemp(prefix="chip_smoke_images_")
+    try:
+        t = time.perf_counter()
+        nbytes = write_image_folder(np, root, seed)
+        write_s = time.perf_counter() - t
+        ds = datasets.DatasetFolder(root, transform=T.Compose([
+            T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+            T.Transpose(), T.Normalize(P["mean"], P["std"])]))
+        pt.seed(seed)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = models.mobilenet_v3_large()
+        opt = pt.optimizer.RMSProp(
+            learning_rate=P["lr"], rho=P["rho"], epsilon=P["epsilon"],
+            momentum=P["momentum"], parameters=net.parameters(),
+            weight_decay=pt.optimizer.L2Decay(P["weight_decay"]))
+        model = pt.Model(net)
+        model.prepare(opt, pt.nn.CrossEntropyLoss(),
+                      amp_configs={"level": "O1", "dtype": "bfloat16"})
+        loader = io.DataLoader(ds, batch_size=P["batch"], shuffle=True,
+                               drop_last=True, num_workers=P["workers"],
+                               timeout=600)
+
+        class Steps(Callback):
+            def __init__(self):
+                super().__init__()
+                self.times, self.waits, self.losses = [], [], []
+                self.t = self.end = None
+
+            def on_train_batch_begin(self, step, logs=None):
+                self.t = time.perf_counter()
+                if self.end is not None:
+                    self.waits.append(self.t - self.end)
+
+            def on_train_batch_end(self, step, logs=None):
+                torch.cuda.synchronize()
+                self.end = time.perf_counter()
+                self.times.append(self.end - self.t)
+                self.losses.append(float(np.asarray(logs["loss"]).reshape(
+                    -1)[0]))
+
+        cb = Steps()
+        monitor.reset()
+        monitor.enable()
+        ops.reset_launch_counts()
+        try:
+            t = time.perf_counter()
+            model.fit(loader, epochs=1, verbose=0, callbacks=[cb],
+                      num_iters=1 + P["timed"])
+            fit_s = time.perf_counter() - t
+            wait = monitor.histogram(
+                "paddle_tpu_dataloader_wait_seconds").value
+        finally:
+            monitor.disable()
+        counts, routes = ops.launch_counts(), ops.route_calls()
+        n = 1 + P["timed"]
+        if len(cb.losses) != n or not np.isfinite(cb.losses).all():
+            raise AssertionError(f"pipeline: {len(cb.losses)} steps, losses "
+                                 f"{cb.losses}")
+        timed = cb.times[1:]
+        images, labels = io.default_collate_fn(
+            [ds[i] for i in range(P["batch"])])
+        ins, labs = images.to(dev), labels.to(dev)
+        staged = []
+        for _ in range(P["staged"]):
+            t = time.perf_counter()
+            cb.losses.append(model.train_batch([ins], [labs])[0])
+            torch.cuda.synchronize()
+            staged.append(time.perf_counter() - t)
+        step_s = statistics.median(timed)
+        # the waits are the gaps before steps 1..n-1: with one warm-up
+        # step, the timed steps' own
+        timed_wall = sum(timed) + sum(cb.waits)
+        rec = {"config": "mobilenet_v3_large, 1000 classes, O1 bf16, "
+                         "RMSProp", "batch": P["batch"],
+               "images": P["images"], "workers": P["workers"],
+               "dataset_gb": nbytes / 2 ** 30, "write_s": write_s,
+               "fit_s": fit_s, "losses": cb.losses, "step_s": cb.times,
+               "step_s_median": step_s, "waits_s": cb.waits,
+               "loader_wait_s_mean": wait["sum"] / max(wait["count"], 1),
+               "loader_wait_count": wait["count"],
+               "loader_wait_sum_s": wait["sum"],
+               "images_per_s": P["batch"] * P["timed"] / timed_wall,
+               "images_per_s_step_only": P["batch"] / step_s,
+               "staged_step_s": staged,
+               "staged_images_per_s": P["batch"] / statistics.median(staged),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "params": sum(p.numel() for p in net.parameters()),
+               "launches": counts, "route_calls": routes}
+        if profile:
+            rec["profile"] = profile_run(
+                torch, lambda: model.train_batch([ins], [labs]))
+        del model, net, opt, ins, labs
+        torch.cuda.empty_cache()
+        return rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def op_times(torch, fn, reps=3, warmup=True, windows=3):
+    """``fn`` (which ends its work on the card) timed after a warm-up: the
+    host clock over the call and a synchronize (median of ``reps``), and
+    the device time of its kernels under torch.profiler, one call a
+    window: the median over ``windows`` of those that recorded the most
+    kernels (a profile now and then comes back with some of the device's
+    events missing, as ``kernel_ms`` finds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
+    host = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t)
+    seen = []           # (kernels recorded, device us)
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                v = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if v is None else v
+                count += e.count
+        seen.append((count, us))
+    most = max(c for c, _ in seen)
+    return {"host_ms": statistics.median(host) * 1e3,
+            "device_ms": statistics.median(
+                us for c, us in seen if c == most) / 1e3,
+            "kernels": most}
+
+
+def _det_close(torch, what, got, want):
+    """fp32 within DET_REL of the output's largest magnitude plus DET_REL
+    of each element; returns the largest error over that scale."""
+    got = got.detach().cpu().double()
+    want = want.detach().cpu().double()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} on the card, "
+                             f"{tuple(want.shape)} on the CPU")
+    scale = max(float(want.abs().max()), 1e-30) if want.numel() else 1.0
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or bool(
+            (err > DET_REL * scale + DET_REL * want.abs()).any()):
+        raise AssertionError(f"{what}: max |err| {float(err.max()):.3g} at "
+                             f"a scale of {scale:.3g}")
+    return float(err.max()) / scale if err.numel() else 0.0
+
+
+def _det_equal(torch, what, got, want):
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{what}: card and CPU differ ({tuple(got.shape)}"
+                             f" / {tuple(want.shape)})")
+
+
+def _ramp(torch, shape):
+    """The backward's fixed cotangent: a ramp over [-1, 1], made on the
+    host so the card and the CPU share it bitwise."""
+    n = 1
+    for s in shape:
+        n *= s
+    return torch.linspace(-1, 1, n).reshape(shape)
+
+
+def _fwd_grads(torch, op, inputs, dev, wrt=(0,)):
+    """``op(*inputs)`` on ``dev`` and the gradients of sum(out * ramp) in
+    the inputs ``wrt`` names."""
+    xs = [t.detach().to(dev).requires_grad_() if i in wrt else t.to(dev)
+          for i, t in enumerate(inputs)]
+    out = op(*xs)
+    (out.float() * _ramp(torch, out.shape).to(out.device)).sum().backward()
+    return out.detach(), [xs[i].grad for i in wrt]
+
+
+def _twin_check(torch, what, op, inputs, dev, rec, time_grad=True,
+                wrt=(0,)):
+    """``op`` with the gradients in the inputs ``wrt`` names on the card and
+    on the CPU from the same inputs, held by _det_close; its forward and
+    forward + backward timed on the card."""
+    got, g_card = _fwd_grads(torch, op, inputs, dev, wrt)
+    want, g_cpu = _fwd_grads(torch, op, inputs, torch.device("cpu"), wrt)
+    r = {"shape": list(got.shape),
+         "max_rel_err": _det_close(torch, what, got, want),
+         "grad_max_rel_err": max((_det_close(torch, f"{what} grad {i}", g,
+                                             w)
+                                  for i, (g, w) in enumerate(zip(g_card,
+                                                                 g_cpu))),
+                                 default=0.0)}
+    card = [t.to(dev) for t in inputs]
+    with torch.no_grad():
+        r["fwd"] = op_times(torch, lambda: op(*card))
+    if time_grad:
+        r["fwd_bwd"] = op_times(torch, lambda: _fwd_grads(torch, op, card,
+                                                          dev, wrt))
+    rec[what] = r
+    return got
+
+
+def rpn_inputs(torch, np, seed):
+    """Tie-free RPN scores [N, 9, H, W], deltas [N, 36, H, W], the image
+    sizes, the anchors [H, W, 9, 4] (py-faster-rcnn's: centred on each
+    stride cell, area scale^2 at each ratio) and unit variances."""
+    P = RPN
+    H, W = -(-P["height"] // P["stride"]), -(-P["width"] // P["stride"])
+    a = len(P["scales"]) * len(P["ratios"])
+    n = P["images"] * a * H * W
+    rng = np.random.RandomState(seed)
+    scores = ((rng.permutation(n) + 0.5) / n).astype(np.float32)
+    if len(np.unique(scores)) != n:
+        raise AssertionError("rpn: the scores have ties")
+    deltas = (rng.randn(P["images"], 4 * a, H, W) * 0.1).astype(np.float32)
+    sizes = [(np.sqrt(s * s / r), np.sqrt(s * s / r) * r)
+             for r in P["ratios"] for s in P["scales"]]
+    cy, cx = np.meshgrid((np.arange(H) + 0.5) * P["stride"],
+                         (np.arange(W) + 0.5) * P["stride"], indexing="ij")
+    anchors = np.stack([np.stack([cx - w / 2, cy - h / 2, cx + w / 2,
+                                  cy + h / 2], -1) for w, h in sizes], 2)
+    img = np.asarray([[P["height"], P["width"]]] * P["images"], np.float32)
+    return [torch.from_numpy(v) for v in (
+        scores.reshape(P["images"], a, H, W), deltas, img,
+        anchors.astype(np.float32), np.ones_like(anchors, np.float32))]
+
+
+def rpn_leg(torch, np, dev, seed, rec):
+    from paddle_tpu_torch.vision import ops as V
+
+    P = RPN
+    inputs = rpn_inputs(torch, np, seed)
+    kw = dict(pre_nms_top_n=P["pre_nms_top_n"],
+              post_nms_top_n=P["post_nms_top_n"],
+              nms_thresh=P["nms_thresh"], min_size=P["min_size"],
+              return_rois_num=True)
+    card = [t.to(dev) for t in inputs]
+    got = V.generate_proposals(*card, **kw)
+    want = V.generate_proposals(*inputs, **kw)
+    for what, g, w in zip(("rois", "scores", "rois_num"), got, want):
+        _det_equal(torch, f"generate_proposals {what}", g, w)
+        if g.device.type != dev.type:
+            raise AssertionError(f"generate_proposals {what} on {g.device}")
+    r = op_times(torch, lambda: V.generate_proposals(*card, **kw))
+    rec["generate_proposals"] = dict(
+        r, shape=list(got[0].shape), rois_num=got[2].tolist())
+    return got[0], got[2]
+
+
+def roi_head_leg(torch, np, dev, seed, rois, rois_num, rec):
+    """RoIAlign, RoIPool and PSRoIPool over the proposals: every RoI on the
+    card (timed, finite), the CPU twin over the first ROI_HEAD["twin_rois"]
+    of each image, forward and the gradient into x."""
+    from paddle_tpu_torch.vision import ops as V
+
+    P = ROI_HEAD
+    H, W = -(-RPN["height"] // RPN["stride"]), -(-RPN["width"] // RPN["stride"])
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(RPN["images"], P["channels"], H, W, generator=g)
+    xps = torch.randn(RPN["images"], P["ps_channels"], H, W, generator=g)
+    nums = rois_num.cpu().tolist()
+    starts = np.cumsum([0] + nums[:-1])
+    k = P["twin_rois"]
+    sub = torch.cat([rois.cpu()[s:s + min(k, n)]
+                     for s, n in zip(starts, nums)])
+    sub_num = torch.tensor([min(k, n) for n in nums], dtype=torch.int32)
+    scale = 1.0 / RPN["stride"]
+    cases = {
+        "roi_align": (x, lambda a, b, c: V.roi_align(
+            a, b, c, P["output"], scale, sampling_ratio=0, aligned=True)),
+        "roi_pool": (x, lambda a, b, c: V.roi_pool(a, b, c, P["output"],
+                                                   scale)),
+        "psroi_pool": (xps, lambda a, b, c: V.psroi_pool(
+            a, b, c, P["ps_output"], scale)),
+    }
+    for name, (feat, op) in cases.items():
+        _twin_check(torch, f"{name}_twin", op, [feat, sub, sub_num], dev,
+                    rec, time_grad=False)
+        full = [feat.to(dev), rois, rois_num]
+        out, _ = _fwd_grads(torch, op, full, dev)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: non-finite output")
+        with torch.no_grad():
+            r = {"fwd": op_times(torch, lambda: op(*full))}
+        r["fwd_bwd"] = op_times(torch, lambda: _fwd_grads(torch, op, full,
+                                                          dev))
+        rec[name] = dict(r, shape=list(out.shape))
+
+
+def fpn_leg(torch, np, dev, seed, rec):
+    from paddle_tpu_torch.vision import ops as V
+
+    P = FPN
+    rng = np.random.RandomState(seed)
+    n = P["rois"] * RPN["images"]
+    xy = rng.uniform(0, 1, (n, 2)) * [RPN["width"], RPN["height"]]
+    wh = np.exp(rng.uniform(np.log(8), np.log(800), (n, 2)))
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(
+        np.float32))
+    num = torch.tensor([P["rois"]] * RPN["images"], dtype=torch.int32)
+    kw = {k: P[k] for k in ("min_level", "max_level", "refer_level",
+                            "refer_scale")}
+    got = V.distribute_fpn_proposals(rois.to(dev), rois_num=num.to(dev), **kw)
+    want = V.distribute_fpn_proposals(rois, rois_num=num, **kw)
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        _det_equal(torch, f"distribute_fpn_proposals level {i}", g, w)
+    _det_equal(torch, "distribute_fpn_proposals restore", got[1], want[1])
+    for g, w in zip(got[2], want[2]):
+        _det_equal(torch, "distribute_fpn_proposals counts", g, w)
+    card = [rois.to(dev), num.to(dev)]
+    rec["distribute_fpn_proposals"] = dict(
+        op_times(torch, lambda: V.distribute_fpn_proposals(
+            card[0], rois_num=card[1], **kw)),
+        per_level=[len(g) for g in got[0]])
+
+
+def _yolo_truth(torch, np, rng):
+    """Ground truth [B, gt, 4] (normalized cx, cy, w, h) with a seeded
+    share of each image's rows zero (padding, at the end), and labels."""
+    P = YOLO
+    b, n = P["batch"], P["gt"]
+    gt = np.concatenate([rng.uniform(0.05, 0.95, (b, n, 2)),
+                         np.exp(rng.uniform(np.log(0.02), np.log(0.8),
+                                            (b, n, 2)))], -1)
+    pads = rng.binomial(n, P["pad_share"], b)
+    for i, p in enumerate(pads):
+        gt[i, n - p:] = 0.0
+    labels = rng.randint(0, P["classes"], (b, n))
+    return (torch.from_numpy(gt.astype(np.float32)),
+            torch.from_numpy(labels.astype(np.int32)), int(pads.sum()))
+
+
+def yolo_leg(torch, np, dev, seed, rec):
+    """YOLOv3's three heads: yolo_box and yolo_loss (forward and the
+    gradient in x) against the CPU; then matrix_nms over every decoded box
+    and nms over an image's best YOLO["nms_boxes"], both with tie-free
+    scores drawn from the seed."""
+    from paddle_tpu_torch.vision import ops as V
+
+    P = YOLO
+    rng = np.random.RandomState(seed)
+    g = torch.Generator().manual_seed(seed)
+    gt, labels, pads = _yolo_truth(torch, np, rng)
+    img = torch.tensor([[P["image"]] * 2] * P["batch"], dtype=torch.int32)
+    boxes, scores = [], []
+    for h, (mask, stride) in enumerate(zip(P["masks"], P["strides"])):
+        side = P["image"] // stride
+        x = torch.randn(P["batch"], len(mask) * (5 + P["classes"]), side,
+                        side, generator=g)
+        anchors = [v for m in mask for v in P["anchors"][2 * m:2 * m + 2]]
+        bkw = dict(anchors=anchors, class_num=P["classes"],
+                   conf_thresh=P["conf_thresh"], downsample_ratio=stride)
+        got = V.yolo_box(x.to(dev), img.to(dev), **bkw)
+        want = V.yolo_box(x, img, **bkw)
+        _det_close(torch, f"yolo_box head {h} boxes", got[0], want[0])
+        _det_close(torch, f"yolo_box head {h} scores", got[1], want[1])
+        card = [x.to(dev), img.to(dev)]
+        with torch.no_grad():
+            rec[f"yolo_box_{side}"] = dict(
+                op_times(torch, lambda: V.yolo_box(*card, **bkw)),
+                shape=list(got[0].shape))
+        boxes.append(got[0])
+        scores.append(got[1])
+
+        def loss(xv, _mask=mask, _stride=stride):
+            return V.yolo_loss(xv, gt.to(xv.device), labels.to(xv.device),
+                               P["anchors"], list(_mask), P["classes"],
+                               P["ignore_thresh"], _stride)
+
+        out = _twin_check(torch, f"yolo_loss_{side}", loss, [x], dev, rec)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"yolo_loss head {h}: {out}")
+    bboxes = torch.cat(boxes, 1)                           # [B, M, 4]
+    m = bboxes.shape[1]
+    # tie-free scores: a permutation a (image, class), most cells below
+    # the score threshold (zeros, excluded before any ordering)
+    vals = (np.stack([rng.permutation(m) for _ in range(
+        P["batch"] * P["classes"])]) + 1.0) / (m + 1.0)
+    vals *= rng.rand(*vals.shape) < P["score_keep"]
+    ms = torch.from_numpy(vals.astype(np.float32).reshape(
+        P["batch"], P["classes"], m))
+    for row in ms.reshape(-1, m):
+        kept = row[row > P["matrix"]["score_threshold"]]
+        if kept.numel() != kept.unique().numel():
+            raise AssertionError("matrix_nms: the scores have ties")
+    mkw = dict(P["matrix"], return_index=True)
+    got = V.matrix_nms(bboxes, ms.to(dev), **mkw)
+    want = V.matrix_nms(bboxes.cpu(), ms, **mkw)
+    for what, gv, wv in zip(("rows", "index", "rois_num"), got, want):
+        _det_equal(torch, f"matrix_nms {what}", gv, wv)
+    card_ms = ms.to(dev)
+    rec["matrix_nms"] = dict(op_times(torch, lambda: V.matrix_nms(
+        bboxes, card_ms, **mkw), reps=1, warmup=False, windows=1),
+        rois_num=got[2].tolist())
+    best = torch.cat(scores, 1)[0].max(-1)
+    top = best.values.argsort(descending=True)[:P["nms_boxes"]]
+    nb = bboxes[0, top]
+    cats = best.indices[top]
+    ns = torch.from_numpy(((rng.permutation(len(top)) + 0.5)
+                           / len(top)).astype(np.float32))
+    if ns.unique().numel() != ns.numel():
+        raise AssertionError("nms: the scores have ties")
+    nkw = dict(iou_threshold=P["nms_iou"], top_k=P["nms_keep"])
+    got = V.nms(nb, scores=ns.to(dev), category_idxs=cats, **nkw)
+    want = V.nms(nb.cpu(), scores=ns, category_idxs=cats.cpu(), **nkw)
+    _det_equal(torch, "nms", got, want)
+    card_ns = ns.to(dev)
+    rec["nms"] = dict(op_times(torch, lambda: V.nms(
+        nb, scores=card_ns, category_idxs=cats, **nkw)), kept=len(got),
+        boxes=len(top))
+    rec["yolo_padding_rows"] = pads
+
+
+def dcn_leg(torch, np, dev, seed, rec):
+    """DCNv2 at ResNet-50's stage-5 3x3: offsets and masks from a seeded
+    Conv2D(C, 27, 3, padding=1) (18 offsets, 9 sigmoid masks), then
+    DeformConv2D(C, C, 3, padding=1), forward and the gradients in x, the
+    offsets, the masks, the weight and the bias, against the CPU."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import ops as V
+
+    P = DCN
+    c = P["channels"]
+    with _cpu_place():
+        pt.seed(seed)
+        om_conv = pt.nn.Conv2D(c, 27, 3, padding=1)
+        layer = V.DeformConv2D(c, c, 3, padding=1)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(P["batch"], c, P["height"], P["width"], generator=g)
+    with torch.no_grad():
+        om = om_conv(x)
+    offset, mask = om[:, :18].contiguous(), torch.sigmoid(om[:, 18:])
+    gpu = copy.deepcopy(layer).to(dev)
+    runs = []
+    for net in (gpu, layer):
+        d = net.weight.device
+        ins = [t.detach().to(d).requires_grad_() for t in (x, offset, mask)]
+        out = net(*ins)
+        (out * _ramp(torch, out.shape).to(d)).sum().backward()
+        runs.append((out.detach(), [t.grad for t in ins]
+                     + [net.weight.grad, net.bias.grad]))
+    (o_card, g_card), (o_cpu, g_cpu) = runs
+    r = {"shape": list(o_card.shape),
+         "max_rel_err": _det_close(torch, "deform_conv2d", o_card, o_cpu),
+         "grad_max_rel_err": max(
+             _det_close(torch, f"deform_conv2d grad {n}", a, b)
+             for n, a, b in zip(("x", "offset", "mask", "weight", "bias"),
+                                g_card, g_cpu))}
+    card = [t.to(dev) for t in (x, offset, mask)]
+    with torch.no_grad():
+        r["fwd"] = op_times(torch, lambda: gpu(*card))
+
+    def fwd_bwd():
+        ins = [t.detach().requires_grad_() for t in card]
+        gpu(*ins).sum().backward()
+
+    r["fwd_bwd"] = op_times(torch, fwd_bwd)
+    rec["deform_conv2d"] = r
+    del gpu
+
+
+def ssd_leg(torch, np, dev, seed, rec):
+    """SSD300's conv4_3 priors (38 x 38, min 30, max 60, ratio 2 flipped,
+    clipped) on the card and on the CPU; box_coder encoding ground truth
+    against them and decoding seeded deltas (and its gradient)."""
+    from paddle_tpu_torch.vision import ops as V
+
+    P = SSD
+    feat = torch.zeros(1, P["channels"], P["feature"], P["feature"])
+    image = torch.zeros(1, 3, P["image"], P["image"])
+    kw = dict(min_sizes=[P["min_size"]], max_sizes=[P["max_size"]],
+              aspect_ratios=[P["ratio"]], flip=True, clip=True)
+    got = V.prior_box(feat.to(dev), image.to(dev), **kw)
+    with _cpu_place():
+        want = V.prior_box(feat, image, **kw)
+    for what, a, b in zip(("boxes", "variances"), got, want):
+        _det_equal(torch, f"prior_box {what}", a, b)
+        if a.device.type != dev.type:
+            raise AssertionError(f"prior_box {what} on {a.device}")
+    rec["prior_box"] = dict(op_times(torch, lambda: V.prior_box(
+        feat, image, **kw)), shape=list(got[0].shape))
+    prior, var = (t.reshape(-1, 4).cpu() for t in want)
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, 0.8, (P["gt"], 2))
+    gt = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(0.05, 0.2, (P["gt"], 2))], 1).astype(
+            np.float32))
+    deltas = torch.from_numpy((rng.randn(P["batch"], len(prior), 4)
+                               * 0.5).astype(np.float32))
+    _twin_check(torch, "box_coder_encode", lambda p, v, t: V.box_coder(
+        p, v, t, "encode_center_size"), [prior, var, gt], dev, rec,
+        time_grad=False, wrt=(2,))
+    _twin_check(torch, "box_coder_decode", lambda p, v, t: V.box_coder(
+        p, v, t, "decode_center_size"), [prior, var, deltas], dev, rec,
+        wrt=(2,))
+
+
+def detection_leg(torch, np, dev, seed):
+    from paddle_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    rec = {}
+    rois, rois_num = rpn_leg(torch, np, dev, seed, rec)
+    roi_head_leg(torch, np, dev, seed, rois, rois_num, rec)
+    fpn_leg(torch, np, dev, seed, rec)
+    yolo_leg(torch, np, dev, seed, rec)
+    dcn_leg(torch, np, dev, seed, rec)
+    ssd_leg(torch, np, dev, seed, rec)
+    torch.cuda.empty_cache()
+    rec.update(launches=ops.launch_counts(), route_calls=ops.route_calls(),
+               s=time.perf_counter() - t0)
+    return rec
+
+
+def text_leg(torch, np, dev, seed):
+    """viterbi_decode at TEXT with BOS/EOS tags on the card and the CPU:
+    scores and paths bitwise equal; the card's time."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.text import ViterbiDecoder, viterbi_decode
+
+    P = TEXT
+    ops.reset_launch_counts()
+    n = P["tags"] + 2
+    g = torch.Generator().manual_seed(seed)
+    pot = torch.randn(P["batch"], P["length"], n, generator=g)
+    trans = torch.randn(n, n, generator=g)
+    lens = torch.randint(P["min_len"], P["length"] + 1, (P["batch"],),
+                         generator=g)
+    lens[0] = P["length"]
+    got = ViterbiDecoder(trans.to(dev))(pot.to(dev), lens.to(dev))
+    want = viterbi_decode(pot, trans, lens)
+    for what, a, b in zip(("scores", "paths"), got, want):
+        _det_equal(torch, f"viterbi_decode {what}", a, b)
+    card = [pot.to(dev), trans.to(dev), lens.to(dev)]
+    r = op_times(torch, lambda: viterbi_decode(*card), reps=P["reps"])
+    return dict(r, tags=n, batch=P["batch"], length=P["length"],
+                path_shape=list(got[1].shape),
+                tokens=int(lens.sum()), launches=ops.launch_counts(),
+                route_calls=ops.route_calls())
+
+
+def vision2_phase(torch, dev, np, seed, profile=False):
+    """Phase 13: the classic2 models (twins, training steps, summary and
+    flops), MobileNetV3-Large through the input pipeline, the detection
+    operators at published widths and Viterbi decoding."""
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rec = {"classic2": classic2_leg(torch, np, dev, seed)}
+    rec["pipeline"] = pipeline_leg(torch, np, dev, seed, profile)
+    rec["detection"] = detection_leg(torch, np, dev, seed)
+    rec["text"] = text_leg(torch, np, dev, seed)
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def log_vision2(rec, smi) -> None:
+    """Phase 13's lines."""
+    c = rec["classic2"]
+    tw = c["twins"]
+    worst = sorted(tw["models"].items(),
+                   key=lambda kv: -kv[1]["grad_rel_err"])[:4]
+    log(f"[vision2] {len(tw['models'])} classic2 models in eval mode, fp32 "
+        f"on the card against the CPU (near() to fp64, logits): largest "
+        f"card / CPU distances " + ", ".join(
+            f"{k} {m['out_err_card']:.3g} / {m['out_err_cpu']:.3g}"
+            for k, m in sorted(tw["models"].items(),
+                               key=lambda kv: -kv[1]["out_err_card"])[:3])
+        + "; gradients " + ", ".join(
+            f"{k} {m['grad_rel_err']:.3g}" for k, m in worst)
+        + f" of their norm ({tw['s']:.1f} s)")
+    for name, r in c["train"].items():
+        log(f"[vision2] {name} {r['batch']}x3x{r['image']}x{r['image']} O1 "
+            f"bf16 ({r['params']} params): step {r['step_s_median']:.4f} s "
+            f"(steps {r['step_s']}), {r['images_per_s']:.1f} images/s, peak "
+            f"{r['peak_mem_gb']:.2f} GiB, losses {r['losses']}  [{smi}]")
+    for name, r in c["summary"].items():
+        log(f"[vision2] summary/flops {name} 1x3x224x224 on the card = the "
+            f"CPU's: {r['total_params']} params ({r['trainable_params']} "
+            f"trainable), {r['flops']} FLOPs, {r['table_rows']} rows")
+    p = rec["pipeline"]
+    log(f"[vision2] pipeline {p['config']}, {p['batch']}x3x224x224 from "
+        f"{p['images']} .npy images ({p['dataset_gb']:.2f} GiB written in "
+        f"{p['write_s']:.1f} s) through {p['workers']} loader workers: "
+        f"{p['images_per_s']:.1f} images/s (steps alone "
+        f"{p['images_per_s_step_only']:.1f}); step {p['step_s_median']:.4f} "
+        f"s, the loader's wait a batch {p['loader_wait_s_mean']:.4f} s "
+        f"(waits {[round(w, 4) for w in p['waits_s']]}); on a batch already "
+        f"on the card {p['staged_images_per_s']:.1f} images/s; peak "
+        f"{p['peak_mem_gb']:.2f} GiB; fit {p['fit_s']:.1f} s; losses "
+        f"{p['losses']}  [{smi}]")
+    if "profile" in p:
+        log(f"[vision2] pipeline step under the profiler: device busy "
+            f"{p['profile']['device_busy_share']:.1%} of "
+            f"{p['profile']['wall_ms']:.1f} ms  [{smi}]")
+    d = rec["detection"]
+    for name, r in d.items():
+        if not isinstance(r, dict) or "fwd" not in r and "host_ms" not in r:
+            continue
+        parts = []
+        for k in ("fwd", "fwd_bwd"):
+            if k in r:
+                parts.append(f"{k} device {r[k]['device_ms']:.3f} ms, host "
+                             f"{r[k]['host_ms']:.3f} ms")
+        if "host_ms" in r:
+            parts.append(f"device {r['device_ms']:.3f} ms, host "
+                         f"{r['host_ms']:.3f} ms")
+        errs = "".join(f", {k} {r[k]:.3g}" for k in ("max_rel_err",
+                                                     "grad_max_rel_err")
+                       if k in r)
+        log(f"[vision2] {name} {r.get('shape', '')}: " + "; ".join(parts)
+            + errs + f"  [{smi}]")
+    t = rec["text"]
+    log(f"[vision2] viterbi_decode {t['batch']}x{t['length']}x{t['tags']} "
+        f"({t['tokens']} tokens): device {t['device_ms']:.3f} ms, host "
+        f"{t['host_ms']:.3f} ms, equal to the CPU's  [{smi}]")
+
+
 # kernel name fragments -> where the device time goes
 _CATEGORIES = [("rms_norm", ("rms_norm_vec_kernel", "rms_norm_elem_kernel")),
                ("fused_layer_norm", ("_layer_norm_kernel",)),
@@ -11126,6 +12044,14 @@ def main(argv=None) -> int:
     record["phases"]["nn_vision"] = time.perf_counter() - t
     log_nn_vision(nv, smi)
     log(f"[nn-vision] {record['phases']['nn_vision']:.1f}s")
+    # 13. the rest of paddle.vision, summary and flops, paddle.text: this
+    # slice's main path
+    t = time.perf_counter()
+    v2 = vision2_phase(torch, dev, np, args.seed, profile=args.profile)
+    record["vision2"] = v2
+    record["phases"]["vision2"] = time.perf_counter() - t
+    log_vision2(v2, smi)
+    log(f"[vision2] {record['phases']['vision2']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
@@ -11138,7 +12064,9 @@ def main(argv=None) -> int:
                 server_ledger=sr["ledger"], tensor_surface=tp, nn=nnp,
                 gpt=fam["gpt"], ernie=fam["ernie"], incubate=fam["incubate"],
                 resnet=nv["resnet"], vision=nv["vision"],
-                transformer=nv["transformer"], rnn=nv["rnn"])
+                transformer=nv["transformer"], rnn=nv["rnn"],
+                classic2=v2["classic2"], pipeline=v2["pipeline"],
+                detection=v2["detection"], text=v2["text"])
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

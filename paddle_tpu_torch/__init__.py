@@ -54,12 +54,15 @@ of creation, math, manipulation, logic, search, random and linalg
 (``ops``; ``linalg``), with ``framework.compat``. The tensor is
 ``torch.Tensor`` and its methods are torch's: the surface is functions.
 
-``paddle.nn`` whole (layers, functions, losses, the decoders) and
-``vision.models``' ResNet and classic families (``vision``).
+``paddle.nn`` whole (layers, functions, losses, the decoders),
+``paddle.vision`` whole (the model families, the detection operators,
+``transforms``, ``datasets`` and the image backend: ``vision``),
+``summary`` and ``flops`` (``hapi``) and ``paddle.text`` (Viterbi
+decoding and the text datasets: ``text``).
 
 ``serving``, ``monitor``, ``tracing``, ``testing``, ``profiler``, ``amp``,
-``metric``, ``autograd``, ``io`` and ``vision`` load on first access
-(``paddle_tpu_torch.serving``), as in the reference; nothing imports
+``metric``, ``autograd``, ``io``, ``vision`` and ``text`` load on first
+access (``paddle_tpu_torch.serving``), as in the reference; nothing imports
 ``http.server`` before ``serve_http`` is called.
 """
 import importlib as _importlib
@@ -99,7 +102,7 @@ __all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausa
 
 # subpackages that load on first access (PEP 562), as the reference's do
 _LAZY_SUBMODULES = {"serving", "monitor", "tracing", "testing", "profiler",
-                    "amp", "metric", "autograd", "io", "vision"}
+                    "amp", "metric", "autograd", "io", "vision", "text"}
 
 # names that load their module on first access, as the reference's do
 _LAZY_ATTRS = {
@@ -128,6 +131,8 @@ _LAZY_ATTRS = {
     "unsqueeze_": ("paddle_tpu_torch.framework.compat", "unsqueeze_"),
     "synchronize": ("paddle_tpu_torch.device", "synchronize"),
     "ParamAttr": ("paddle_tpu_torch.nn.param_attr", "ParamAttr"),
+    "summary": ("paddle_tpu_torch.hapi.model_summary", "summary"),
+    "flops": ("paddle_tpu_torch.hapi.dynamic_flops", "flops"),
 }
 
 

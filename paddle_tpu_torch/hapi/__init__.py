@@ -1,7 +1,8 @@
-"""``paddle.hapi`` (port of ``paddle_tpu/hapi``): ``Model`` and the
-callbacks. ``summary`` and ``flops`` (``dynamic_flops``) are not ported
-yet (ROADMAP A14d)."""
+"""``paddle.hapi`` (port of ``paddle_tpu/hapi``): ``Model``, the callbacks,
+``summary`` and ``flops``."""
 from . import callbacks
+from .dynamic_flops import flops
 from .model import Model
+from .model_summary import summary
 
-__all__ = ["Model", "callbacks"]
+__all__ = ["Model", "summary", "flops", "callbacks"]

@@ -13,9 +13,10 @@ The model follows its network's device: inputs and labels are moved to the
 device of the network's first parameter. ``fit``, ``evaluate`` and
 ``predict`` take a ``DataLoader``, a ``Dataset`` (wrapped in an
 ``io.DataLoader`` of ``batch_size``, ``shuffle`` and ``num_workers``, as
-the reference wraps it) or any iterable of batches. ``save(training=False)``
-(an inference export through ``jit``) and ``summary`` raise: those are not
-ported yet (ROADMAP A14d).
+the reference wraps it) or any iterable of batches. ``summary`` is
+``hapi.summary`` of the network. ``save(training=False)`` (an inference
+export through ``jit``) raises: ``jit`` is not ported yet (ROADMAP
+A14d).
 """
 from __future__ import annotations
 
@@ -317,5 +318,6 @@ class Model:
         return self.network.parameters(*args, **kwargs)
 
     def summary(self, input_size=None, dtype=None):
-        raise NotImplementedError("Model.summary is "
-                                  + _NOT_PORTED.format("hapi.model_summary"))
+        from .model_summary import summary
+
+        return summary(self.network, input_size, dtypes=dtype)

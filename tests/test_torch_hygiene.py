@@ -490,11 +490,10 @@ def test_serving_imports_lazily_and_without_http_server():
     assert out.stdout.split()[-1] == "paddle_tpu_torch.serving.scheduler"
 
 
-# the tensor surface's modules and nn's and io's: each one's public names
-# are the reference module's minus the names the port leaves out (ROADMAP
-# A14d); None where the reference module has no ``__all__``, where there
-# is no reference module, or where the port's package holds a part of the
-# reference's (``vision``)
+# the tensor surface's modules, nn's, io's, vision's, hapi's and text's:
+# each one's public names are the reference module's minus the names the
+# port leaves out (ROADMAP A14d); None where the reference module has no
+# ``__all__`` or where there is no reference module
 TENSOR_SURFACE_MODULES = {
     "paddle_tpu_torch/autograd/__init__.py": (),
     "paddle_tpu_torch/autograd/functional.py": None,
@@ -547,10 +546,21 @@ TENSOR_SURFACE_MODULES = {
     "paddle_tpu_torch/nn/functional/conv.py": (),
     "paddle_tpu_torch/nn/functional/pooling.py": (),
     "paddle_tpu_torch/nn/functional/sequence_loss.py": (),
-    "paddle_tpu_torch/vision/__init__.py": None,
+    "paddle_tpu_torch/vision/__init__.py": (),
     "paddle_tpu_torch/vision/models/__init__.py": None,
     "paddle_tpu_torch/vision/models/resnet.py": (),
     "paddle_tpu_torch/vision/models/classic.py": (),
+    "paddle_tpu_torch/vision/models/classic2.py": (),
+    "paddle_tpu_torch/vision/ops.py": (),
+    "paddle_tpu_torch/vision/transforms.py": (),
+    "paddle_tpu_torch/vision/datasets.py": (),
+    "paddle_tpu_torch/vision/image.py": (),
+    "paddle_tpu_torch/hapi/__init__.py": (),
+    "paddle_tpu_torch/hapi/model_summary.py": (),
+    "paddle_tpu_torch/hapi/dynamic_flops.py": (),
+    "paddle_tpu_torch/text/__init__.py": (),
+    "paddle_tpu_torch/text/viterbi_decode.py": (),
+    "paddle_tpu_torch/text/datasets.py": (),
     "paddle_tpu_torch/nn/utils/__init__.py": (),
     "paddle_tpu_torch/nn/utils/utils.py": (),
     "paddle_tpu_torch/io/__init__.py": None,
