@@ -131,9 +131,9 @@ Phases, each timed, none caught and passed over:
    CrossEntropyLoss) on the card and on the CPU, loss and parameters
    within the training tolerances, and an fp32 model decorated to fp16 at
    O2 stepped under ``auto_cast(O2, float16)`` and a ``GradScaler``
-   (batch 1 x 128), then its scaled gradients again with an inf
+   (batch 1 x 32), then its scaled gradients again with an inf
    injected: the loss within tolerance, the scales [1024, 512] and the
-   step skipped on both sides; C-check-1: 30 AdamW steps of
+   step skipped on both sides; C-check-1: 20 AdamW steps of
    that 2-layer model on the card and on the CPU from the same weights, a
    fresh batch each step, the per-step loss gap and whether it grows (a
    measurement); then fp32 on the card
@@ -387,6 +387,29 @@ Phases, each timed, none caught and passed over:
    ``viterbi_decode`` at a CoNLL-2003 tagger's shape, bitwise the CPU's.
    These paths launch no kernel of the port either; the kernels line counts
    the earlier paths.
+14. ``jit``, the deploy path and incubate's rest, this slice's main path,
+   on the training configuration (350m/h128, 24 layers, bf16) built once:
+   the Layer-API step (loss, backward, AdamW) eagerly and through
+   ``jit.to_static`` (inductor) from the same weights over the same
+   batches (a warm-up step and 3 timed ones each): step time, tokens/s,
+   MFU, peak memory, compile seconds, one graph, no graph break, no
+   recompile after the warm-up, the compiled step's launches equal to the
+   eager step's, its losses and parameters within the stated limits of
+   the eager ones, and both steps under the profiler; ``jit.save`` with a
+   ``[None, None]`` int64 spec (a ``.pt2`` holding no tensor beside the
+   weights' ``.pdiparams``), ``create_predictor`` and ``run`` at 1 x 512 and
+   8 x 2048 from one program whose graph holds K1, K2 and K3 as
+   ``paddle_tpu::`` nodes, their launches counted and the logits held
+   against the eager forward; ``Model.save(training=False)`` and
+   ``onnx.export`` round trips of a 2-layer twin and ``inference.aot`` of
+   one decoder layer; ``asp.prune_model`` (2:4) over the decoder's linears
+   through 2 ``asp.decorate(DistributedFusedLamb)`` steps, every mask
+   holding; ``DistributedFusedLamb`` against ``Lamb`` on the same
+   gradients; ``send_u_recv`` and the segment ops at ogbn-arxiv's size,
+   forward and backward, against their CPU twins; ``graph_khop_sampler``
+   with GraphSAGE's fanouts; the fused softmaxes at GPT-3 1.3B's scores;
+   ``incubate.autograd`` at width 1024 and ``LookAhead`` / ``ModelAverage``
+   against the CPU.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -407,7 +430,9 @@ for a parent and a change in turns (parent, change, change, parent), each
 in a fresh process, they compare two trees on one card. ``--lora-times``
 runs only the LoRA legs (phase 4's at 2 layers, then a plain ``Server``
 and phase 5's LoRA ``Server`` leg twice at 7B) and prints one JSON line:
-their readings and their spread in one process.
+their readings and their spread in one process. ``--jit-deploy`` builds
+the kernels and runs only phase 14, printing its lines and its record as
+one JSON line.
 """
 from __future__ import annotations
 
@@ -442,9 +467,10 @@ EAGER = dict(batches=4, warmup_steps=2, weight_decay=0.01, save_after=2,
 # gradients of a loss near 10 scaled by 2^10 stay far from fp16's 65504)
 # and its sequence: the CPU side's fp16 GEMMs ran at about 0.8 GFLOP/s on
 # the card's host (21 s for one 512 x 1024 x 32000 product; the whole
-# step at 512 tokens took 118 s of CPU time), so the fp16 step takes 128
-# tokens of each row; the bf16 step keeps TRAIN_E2E's 512
-EAGER_E2E = dict(scale=1024.0, fp16_seq=128)
+# step at 512 tokens took 118 s of CPU time), so the fp16 step takes 32
+# tokens of each row (the scaler's checks need no longer a row); the bf16
+# step keeps TRAIN_E2E's 512
+EAGER_E2E = dict(scale=1024.0, fp16_seq=32)
 # phase 5's dense-cache runs on the 7B model: CausalLMEngine.generate on
 # GEN["batch"] prompts of GEN["plen"] tokens, and the dense engine's slots
 GEN = dict(batch=8, plen=512, new=32, max_len=1024)
@@ -526,7 +552,9 @@ FLEET = dict(new=32, kill_after=4, segment_steps=8, handoff_max=512,
 REPLICA_DEVICE = "cuda"         # the device the replica processes serve on
 SCRAPE_PAUSE_S = 0.01
 # C-check-1 (phase 4): train steps of the 2-layer bf16 model, card and CPU
-DRIFT_STEPS = 30
+# (the CPU side about 2.7 s a step on the card's host); 20 keeps the first
+# and the last 10 steps, which the check compares, apart
+DRIFT_STEPS = 20
 # GPT-3 6.7B widths (paddle_tpu/models/gpt.py:54, preset "6b7": hidden
 # 4096, 32 layers, 32 heads, FFN 4 x hidden) as a FusedMultiTransformer,
 # with phase 7's batch, context, cache length and decode steps
@@ -734,18 +762,19 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
                                              "ernie", "incubate", "resnet",
                                              "vision", "transformer", "rnn",
                                              "classic2", "pipeline",
-                                             "detection", "text")
-# this slice's paths: phase 13's classic2 models (their twins, training
-# steps, summary and flops), MobileNetV3-Large through the input pipeline,
-# the detection operators and Viterbi decoding. They launch no kernel of
-# the port (the convolutions, pooling, batch norms, gathers, selections and
-# the Viterbi loop are torch ops and host numpy, as the reference's are
-# XLA ops and numpy), so each kernel's count in the kernels line comes from
-# the earlier paths below
-SLICE_PATHS = ("classic2", "pipeline", "detection", "text")
+                                             "detection", "text",
+                                             "to_static", "deploy",
+                                             "incubate_rest")
+# this slice's paths: phase 14's compiled to_static steps (K1, K2, K3, K5
+# and K6 as paddle_tpu:: library ops inside the inductor program, over the
+# timed steps), the Predictor's runs of the exported program (K1, K2, K3)
+# and the asp-decorated DistributedFusedLamb steps (eager: K1-K3, K5, K6)
+SLICE_PATHS = ("to_static", "deploy", "incubate_rest")
 # earlier slices' paths, in the order their counts stand in for a kernel
-# this slice does not run: phase 12's ResNet-50, vision, transformer and
-# RNN legs (no kernel either); phase 11's GPT-3 1.3B training steps (K3 causal
+# this slice does not run: phase 13's classic2 models, the input pipeline,
+# the detection operators and Viterbi decoding, and phase 12's ResNet-50,
+# vision, transformer and RNN legs (no kernel of the port: torch ops and
+# host numpy, as the reference's are XLA ops and numpy); phase 11's GPT-3 1.3B training steps (K3 causal
 # at head dim 128 twice a layer under full recompute, K5 and K6 once), the
 # ERNIE-MoE base steps and the incubate leg (K1, K2, K3, K5, K6); phase 9's
 # comparison route and phase 10's nn
@@ -757,7 +786,8 @@ SLICE_PATHS = ("classic2", "pipeline", "detection", "text")
 # front's Server serve, the prefix-cache and memory-pressure legs, the
 # speculative Server serves and FMT (K8); then training, the eager
 # Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
-EARLIER_PATHS = (("resnet", "vision", "transformer", "rnn"),
+EARLIER_PATHS = (("classic2", "pipeline", "detection", "text", "resnet",
+                  "vision", "transformer", "rnn"),
                  ("gpt", "ernie", "incubate"), ("tensor_surface", "nn"),
                  ("server_ledger", "fleet", "disagg", "server_lora", "serve",
                   "serve_int8",
@@ -11320,6 +11350,693 @@ def log_vision2(rec, smi) -> None:
         f"{t['host_ms']:.3f} ms, equal to the CPU's  [{smi}]")
 
 
+# -- phase 14: jit, the deploy path and incubate's rest -----------------------
+
+# the to_static leg: the Layer-API step (loss, backward, AdamW) eagerly, then
+# compiled by jit.to_static (inductor), from the same weights over the same
+# batches: one warm-up step and TRAIN_STEPS timed ones each. The compiled
+# step against the eager one on the same card: inductor fuses the
+# elementwise passes the eager step runs one by one (RMSNorm's plain
+# backward, SwiGLU, the loss) and keeps fp32 inside a fused kernel where
+# eager rounds each op's output to bf16, so the two part by bf16 rounding:
+# losses within TRAIN_LOSS_ATOL (phase 4's card-vs-CPU limit). Parameters
+# after the 4 AdamW steps at lr 1e-4: an element moves by at most about lr a
+# step (Adam's normalized update in its first steps), so two runs whose
+# gradients differ in sign part by at most 2 lr a step, 8 lr in all; and
+# each step rounds the bf16 parameter once in each run (up to half a bf16
+# step each), four bf16 steps of the parameter in all (rtol 4 x 2^-7)
+STATIC_PARAM_ATOL = 8 * TRAIN["lr"]
+STATIC_PARAM_RTOL = 4 * 2.0 ** -7
+# the deploy leg: jit.save with a [None, None] int64 spec, one Predictor run
+# at each shape from one program; the exported program runs the eager
+# forward's ops (the same kernels, the same cuBLAS GEMMs) op by op, held to
+# phase 4's logit limit LOGIT_ATOL; Model.save(training=False) and
+# onnx.export round-trip a 2-layer twin at the same widths (DEPLOY_TWIN
+# layers), which keeps three exports of the 24-layer model out of the phase
+DEPLOY_SHAPES = ((1, 512), (8, 2048))
+DEPLOY_TWIN = 2
+# incubate's rest: ogbn-arxiv's size (Hu et al. 2020, OGB: 169,343 nodes,
+# 1,166,243 edges, 128 features) for message passing; GraphSAGE's fanouts
+# [25, 10] over 1,024 seed nodes for the k-hop sampler; GPT-3 1.3B's
+# attention scores [8, 16, 2048, 2048] for the fused softmaxes, twinned on
+# the CPU at [2, 4, 256, 256]; a 2-layer MLP at width 1024 for the autograd
+# functionals
+OGBN_ARXIV = dict(nodes=169_343, edges=1_166_243, features=128)
+KHOP = dict(fanouts=(25, 10), seeds=1024)
+SOFTMAX_SCORES = (8, 16, 2048, 2048)
+SOFTMAX_TWIN = (2, 4, 256, 256)
+MLP_WIDTH = 1024
+# the softmaxes in bf16, card against CPU: probabilities in [0, 1], each
+# side rounding its exp and its quotient once; two bf16 steps at 1 (2^-7)
+SOFTMAX_ATOL = 2.0 ** -7
+# the autograd functionals in fp32 (TF32 off): Jacobians and Hessians of a
+# width-1024 MLP sum 1024 products in another order on each side
+AUTOGRAD_TOL = dict(atol=1e-5, rtol=1e-4)
+OPT_TWIN = dict(width=256, steps=3, lr=0.05)
+
+
+def _static_steps(torch, model, batches, fwd):
+    """Layer-API steps over ``batches`` (loss, backward, AdamW at TRAIN's
+    lr, clear_grad) from the model's weights: losses, seconds and launches
+    of each step, the seconds of each step's optimizer part (AdamW and
+    clear_grad, after a synchronize that ends the backward), and the peak
+    memory of the steps after the first."""
+    from paddle_tpu_torch import ops, optimizer
+
+    opt = optimizer.AdamW(learning_rate=TRAIN["lr"],
+                          parameters=model.parameters(),
+                          weight_decay=EAGER["weight_decay"])
+    losses, times, opt_times, launches = [], [], [], []
+    for i, (ids, labels) in enumerate(batches):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        loss = fwd(ids, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        t_opt = time.perf_counter()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        opt_times.append(time.perf_counter() - t_opt)
+        launches.append(ops.launch_counts())
+        losses.append(float(loss.detach()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return losses, times, opt_times, launches, peak
+
+
+def _step_fwd_bwd(model, fwd, ids, labels):
+    """A forward and backward of the Layer-API step (for the profiler),
+    the gradients dropped after."""
+    def run():
+        fwd(ids, labels).backward()
+        model.zero_grad(set_to_none=True)
+    return run
+
+
+def to_static_leg(torch, np, dev, cfg, model, batches, n_params):
+    """Phase 14's first leg: the eager Layer-API step, then the same step
+    through ``jit.to_static``, from one set of weights."""
+    from torch._dynamo.utils import counters
+
+    from paddle_tpu_torch import jit
+
+    L, B, S = cfg.num_hidden_layers, TRAIN["batch"], TRAIN["seq"]
+    tokens = B * S
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.train()
+    e_loss, e_times, e_opt, e_launch, e_peak = _static_steps(
+        torch, model, batches, model)
+    eager_params = {k: p.detach().clone()
+                    for k, p in model.named_parameters()}
+    one = eager_step_launches(e_launch[0], L)
+    for i, c in enumerate(e_launch):
+        check_launches(c, one, f"eager step {i} of {L} layers")
+    e_prof = profile_run(torch, _step_fwd_bwd(model, model, *batches[0]))
+    model.load_state_dict(init)
+    del init
+    breaks0 = sum(counters["graph_break"].values())
+    static = jit.to_static(model)
+    sf = model.forward
+    s_loss, s_times, s_opt, s_launch, s_peak = _static_steps(
+        torch, model, batches, model)
+    graphs = sf.compiles
+    for i, c in enumerate(s_launch):
+        check_launches(c, e_launch[i], f"compiled step {i}: the eager "
+                                       f"step's launches")
+    worst_param, rel = 0.0, 0.0
+    for k, p in model.named_parameters():
+        want = eager_params[k].float()
+        err = (p.detach().float() - want).abs()
+        lim = STATIC_PARAM_ATOL + STATIC_PARAM_RTOL * want.abs()
+        if bool((err > lim).any()):
+            i = int((err - lim).argmax())
+            raise AssertionError(
+                f"to_static: parameter {k} parts from the eager step's by "
+                f"{float(err.flatten()[i]):.3g} at a weight of "
+                f"{float(want.flatten()[i]):.3g} after {len(batches)} steps")
+        worst_param = max(worst_param, float(err.max()))
+        rel = max(rel, rel_err(torch, p.detach(), eager_params[k]))
+    del eager_params
+    loss_gap = max(abs(a - b) for a, b in zip(s_loss, e_loss))
+    if not loss_gap <= TRAIN_LOSS_ATOL:
+        raise AssertionError(f"to_static: losses {s_loss} against eager "
+                             f"{e_loss}")
+    s_prof = profile_run(torch, _step_fwd_bwd(model, static, *batches[0]))
+    breaks = sum(counters["graph_break"].values()) - breaks0
+    recompiles = sf.compiles - graphs
+    if breaks or recompiles or graphs != 1:
+        raise AssertionError(f"to_static: {graphs} graphs, {breaks} graph "
+                             f"breaks, {recompiles} recompiles after the "
+                             f"warm-up")
+    del model.forward                   # the eager forward again
+    # what the routing adds to an eager kernel call: the wrappers ask
+    # torch.compiler.is_compiling() once a call
+    routing_us = host_us(torch, torch.compiler.is_compiling, n=10000)
+    e_med, s_med = (statistics.median(t[1:]) for t in (e_times, s_times))
+    mfu = 6 * n_params * tokens / BF16_FLOPS
+    return {"layers": L, "batch": B, "seq": S, "params": n_params,
+            "eager": {"losses": e_loss, "step_s": e_times,
+                      "step_s_median": e_med, "opt_s": e_opt,
+                      "tokens_per_s": tokens / e_med,
+                      "mfu": mfu / e_med, "peak_mem_gb": e_peak,
+                      "profile": e_prof},
+            "compiled": {"losses": s_loss, "step_s": s_times,
+                         "step_s_median": s_med, "opt_s": s_opt,
+                         "tokens_per_s": tokens / s_med, "mfu": mfu / s_med,
+                         "peak_mem_gb": s_peak,
+                         "compile_s": s_times[0] - s_med,
+                         "graphs": graphs, "graph_breaks": breaks,
+                         "recompiles_after_warmup": recompiles,
+                         "profile": s_prof},
+            "launches_per_step": s_launch[-1],
+            "launches": {k: sum(c[k] for c in s_launch[1:])
+                         for k in s_launch[0]},
+            "loss_max_gap": loss_gap, "param_max_abs_err": worst_param,
+            "param_max_rel_err": rel, "routing_host_us": routing_us}
+
+
+def _op_nodes(ep) -> dict:
+    out = {}
+    for n in ep.graph.nodes:
+        if n.op == "call_function" and str(n.target).startswith(
+                "paddle_tpu."):
+            name = str(n.target).split(".")[1]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _predict(torch, pred, ids):
+    """One ``run`` through the input handle (the logits stay on the card:
+    the predictor's outputs before ``copy_to_cpu``), its seconds."""
+    pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(ids)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pred.run()
+    torch.cuda.synchronize()
+    return pred._outputs[0], time.perf_counter() - t
+
+
+def deploy_leg(torch, np, dev, cfg, model, seed):
+    """Phase 14's second leg: jit.save of the 24-layer model, a Predictor at
+    two shapes from one program, Model.save / onnx.export round trips of a
+    2-layer twin and inference.aot of one decoder layer."""
+    import tempfile
+    import warnings
+
+    from paddle_tpu_torch import (LlamaForCausalLM, Model, inference, jit,
+                                  llama_config, onnx, ops)
+    from paddle_tpu_torch.inference import aot
+    from paddle_tpu_torch.static import InputSpec
+
+    L = cfg.num_hidden_layers
+    model.eval()
+    spec = [InputSpec([None, None], "int64")]
+    rng = np.random.RandomState(seed + 14)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    rec = {"layers": L, "weights_gb": weights / 2 ** 30}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "llama")
+        t = time.perf_counter()
+        jit.save(model, path, input_spec=spec)
+        rec["save_s"] = time.perf_counter() - t
+        rec["pt2_mb"] = os.path.getsize(path + ".pt2") / 2 ** 20
+        rec["pdiparams_mb"] = os.path.getsize(path + ".pdiparams") / 2 ** 20
+        t = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(path))
+        rec["load_s"] = time.perf_counter() - t
+        ep = pred._exported
+        rec["program_tensor_bytes"] = sum(
+            v.numel() * v.element_size()
+            for v in list(ep.state_dict.values()) + list(ep.constants.values())
+            if isinstance(v, torch.Tensor))
+        if rec["program_tensor_bytes"] or not (
+                rec["pt2_mb"] * 2 ** 20 < weights / 2):
+            raise AssertionError(f"deploy: the program ({rec['pt2_mb']:.1f} "
+                                 f"MB) holds {rec['program_tensor_bytes']} "
+                                 f"bytes of tensors: the weights belong to "
+                                 f".pdiparams")
+        rec["nodes"] = _op_nodes(pred._exported)
+        want_nodes = {"rms_norm": 2 * L + 1, "fused_rope": 2 * L,
+                      "flash_fwd": L}
+        if rec["nodes"] != want_nodes:
+            raise AssertionError(f"deploy: the program's paddle_tpu:: nodes "
+                                 f"{rec['nodes']} != {want_nodes}")
+        rec["runs"] = []
+        total = None
+        first = None
+        for b, s in DEPLOY_SHAPES:
+            ids = rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int64)
+            ops.reset_launch_counts()
+            got, run_s = _predict(torch, pred, ids)
+            counts = ops.launch_counts()
+            check_launches(counts, expect(counts, rms_norm=2 * L + 1,
+                                          fused_rope=2 * L, flash_fwd=L),
+                           f"Predictor.run at {b} x {s}")
+            total = counts if total is None else {
+                k: total[k] + counts[k] for k in counts}
+            _, again_s = _predict(torch, pred, ids)
+            with torch.no_grad():
+                want = model(torch.from_numpy(ids).to(dev))
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= LOGIT_ATOL:
+                raise AssertionError(f"deploy: Predictor logits at {b} x {s} "
+                                     f"differ from eager by {err:.3g}")
+            if first is None:
+                first = (ids, got.clone())
+            rec["runs"].append({"shape": [b, s], "run_s": run_s,
+                                "again_s": again_s,
+                                "logit_max_abs_err": err})
+            del got, want
+        rec["launches"] = total
+        del pred
+        torch.cuda.empty_cache()
+        # Model.save(training=False) and onnx.export of a 2-layer twin
+        tcfg = train_config(llama_config, num_hidden_layers=DEPLOY_TWIN)
+        twin = LlamaForCausalLM(tcfg, device=dev, generator=torch.Generator(
+            dev).manual_seed(seed))
+        twin.eval()
+        ids = first[0]
+        with torch.no_grad():
+            want = twin(torch.from_numpy(ids).to(dev))
+        p2 = os.path.join(tmp, "model")
+        Model(twin, inputs=spec).save(p2, training=False)
+        got, _ = _predict(torch, inference.create_predictor(
+            inference.Config(p2)), ids)
+        rec["model_save_logit_max_abs_err"] = (
+            got.float() - want.float()).abs().max().item()
+        p3 = os.path.join(tmp, "onnx")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            onnx.export(twin, p3, input_spec=spec)
+        if not any("NOT a .onnx file" in str(w.message) for w in caught):
+            raise AssertionError("onnx.export: no warning that its artifact "
+                                 "is not ONNX")
+        if os.path.exists(p3 + ".onnx") or not os.path.exists(p3 + ".pt2"):
+            raise AssertionError("onnx.export: not the jit.save artifact")
+        got3, _ = _predict(torch, inference.create_predictor(
+            inference.Config(p3)), ids)
+        rec["onnx_equal_model_save"] = bool(torch.equal(got3, got))
+        for what, e in (("Model.save", rec["model_save_logit_max_abs_err"]),
+                        ("onnx.export", (got3.float() - want.float()).abs()
+                         .max().item())):
+            if not e <= LOGIT_ATOL:
+                raise AssertionError(f"deploy: {what} Predictor logits "
+                                     f"differ from eager by {e:.3g}")
+        del twin, got, got3, want
+        # inference.aot of one decoder layer of the 24-layer model
+        layer = model.model.layers[0]
+        x = torch.randn(1, DEPLOY_SHAPES[0][1], cfg.hidden_size, device=dev,
+                        dtype=torch.bfloat16, generator=torch.Generator(
+                            dev).manual_seed(seed))
+        cos, sin = model.model._tables(x.shape[1], x)
+        p4 = os.path.join(tmp, "layer.pt2")
+        with torch.no_grad():
+            aot.save_exported(aot.export_fn(layer, x, cos, sin), p4)
+            ep = aot.load_exported(p4)
+            got = ep.module()(x, cos, sin)
+            want = layer(x, cos, sin)
+        rec["aot_layer"] = {"nodes": _op_nodes(ep), "max_abs_err": (
+            got.float() - want.float()).abs().max().item(),
+            "pt2_kb": os.path.getsize(p4) / 2 ** 10}
+        if rec["aot_layer"]["nodes"] != {"rms_norm": 2, "fused_rope": 2,
+                                         "flash_fwd": 1}:
+            raise AssertionError(f"aot: layer nodes {rec['aot_layer']}")
+        if not rec["aot_layer"]["max_abs_err"] <= LOGIT_ATOL:
+            raise AssertionError(f"aot: layer output {rec['aot_layer']}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _graph_close(torch, what, got, want):
+    """_det_close over the finite elements; the infinite ones (empty
+    segments of a max or min) equal on both sides."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(
+            got[~fin], want[~fin]):
+        raise AssertionError(f"{what}: the empty segments differ")
+    return _det_close(torch, what, got[fin], want[fin])
+
+
+def _graph_twin(torch, what, op, inputs, dev, rec):
+    """``op`` forward and backward on the card and on the CPU from the same
+    inputs (the gradient in input 0), held by _graph_close; the forward and
+    forward + backward (the cotangent already on the card) timed by CUDA
+    events (``time_ms``), with the host's seconds a call (``host_us``)."""
+    got, g_card = _fwd_grads(torch, op, inputs, dev)
+    want, g_cpu = _fwd_grads(torch, op, inputs, torch.device("cpu"))
+    r = {"max_rel_err": _graph_close(torch, what, got, want),
+         "grad_max_rel_err": _graph_close(torch, f"{what} grad", g_card[0],
+                                          g_cpu[0])}
+    x = inputs[0].detach().to(dev).requires_grad_()
+    rest = [t.to(dev) for t in inputs[1:]]
+    ct = _ramp(torch, got.shape).to(dev)
+
+    def fwd():
+        with torch.no_grad():
+            op(x, *rest)
+
+    def fwd_bwd():
+        x.grad = None
+        torch.autograd.backward(op(x, *rest), ct)
+
+    r["fwd_ms"] = time_ms(torch, fwd, reps=10, warmup=2)
+    r["fwd_bwd_ms"] = time_ms(torch, fwd_bwd, reps=10, warmup=2)
+    r["fwd_host_us"] = host_us(torch, fwd, n=20, rounds=3, warmup=2)
+    rec[what] = r
+
+
+def incubate_rest_leg(torch, np, dev, cfg, model, batches, seed):
+    """Phase 14's third leg: ASP over the 24-layer model's linears through
+    DistributedFusedLamb steps, DistributedFusedLamb against Lamb, message
+    passing at ogbn-arxiv's size, the k-hop sampler, the fused softmaxes,
+    the autograd functionals, LookAhead and ModelAverage."""
+    from paddle_tpu_torch import geometric, incubate, nn, ops, optimizer
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate import autograd as iag
+    from paddle_tpu_torch.incubate.optimizer import DistributedFusedLamb
+
+    L = cfg.num_hidden_layers
+    rec = {}
+    model.train()
+    # ASP: 2:4 masks on the decoder's linears, held through 2 steps
+    asp.set_excluded_layers(model, ["embed_tokens", "lm_head"])
+    t = time.perf_counter()
+    masks = asp.prune_model(model, 2, 4)
+    rec["asp"] = {"prune_s": time.perf_counter() - t, "weights": len(masks),
+                  "elements": int(sum(m.size for m in masks.values()))}
+    if len(masks) != 7 * L:
+        raise AssertionError(f"asp: {len(masks)} weights pruned, the "
+                             f"{L} layers hold {7 * L} linears")
+    dfl = asp.decorate(DistributedFusedLamb(learning_rate=TRAIN["lr"],
+                                            parameters=model.parameters()),
+                       model)
+    params = dict(model.named_parameters())
+    ops.reset_launch_counts()
+    densities = []
+    from concurrent.futures import ThreadPoolExecutor
+
+    def held(k):
+        """(check_sparsity, density) of one pruned weight (host numpy)."""
+        w = params[k].detach().float().cpu().numpy()
+        return asp.check_sparsity(w, n=2, m=4), asp.calculate_density(w)
+
+    for ids, labels in batches[:2]:
+        model(ids, labels).backward()
+        dfl.step()
+        dfl.clear_grad()
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            checks = dict(zip(masks, ex.map(held, masks)))
+        bad = [k for k, (ok, _) in checks.items() if not ok]
+        d = [dens for _, dens in checks.values()]
+        if bad or max(d) > 0.5:
+            raise AssertionError(f"asp: after a step {len(bad)} weights "
+                                 f"fail check_sparsity, densities up to "
+                                 f"{max(d)}")
+        densities.append([min(d), max(d)])
+    counts = ops.launch_counts()
+    check_launches(counts, eager_step_launches(counts, L, 2),
+                   f"2 asp-decorated DistributedFusedLamb steps of {L} "
+                   f"layers")
+    rec["asp"].update(densities=densities, launches=counts)
+    object.__delattr__(model, "_asp_masks")
+    # DistributedFusedLamb against Lamb on the same gradients
+    model(*batches[2]).backward()
+    plist = list(model.parameters())
+    shadow = [p.detach().clone().requires_grad_() for p in plist]
+    for s_, p in zip(shadow, plist):
+        s_.grad = p.grad.detach().clone()
+    DistributedFusedLamb(learning_rate=TRAIN["lr"], parameters=plist).step()
+    optimizer.Lamb(learning_rate=TRAIN["lr"], parameters=shadow).step()
+    rec["dfl_equal_lamb"] = all(torch.equal(p, s_)
+                                for p, s_ in zip(plist, shadow))
+    if not rec["dfl_equal_lamb"]:
+        raise AssertionError("DistributedFusedLamb's step differs from "
+                             "Lamb's on the same gradients")
+    model.zero_grad(set_to_none=True)
+    del shadow
+    torch.cuda.empty_cache()
+    # message passing and the segment ops at ogbn-arxiv's size
+    g = OGBN_ARXIV
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(g["nodes"], g["features"]).astype(
+        np.float32))
+    src = torch.from_numpy(rng.randint(0, g["nodes"], g["edges"]))
+    dst = torch.from_numpy(rng.randint(0, g["nodes"], g["edges"]))
+    graph = {"nodes": g["nodes"], "edges": g["edges"],
+             "features": g["features"]}
+    for op in ("sum", "mean", "max"):
+        _graph_twin(torch, f"send_u_recv_{op}",
+                    lambda a, s, d, op=op: geometric.send_u_recv(a, s, d, op),
+                    [x, src, dst], dev, graph)
+    msg = x[src]
+    for op in ("sum", "mean", "max", "min"):
+        fn = getattr(geometric, f"segment_{op}")
+        _graph_twin(torch, f"segment_{op}", lambda d, i, fn=fn: fn(d, i),
+                    [msg, dst], dev, graph)
+    rec["graph"] = graph
+    del msg
+    # the k-hop sampler over the same graph (CSC: the sources of each
+    # destination, sorted by destination)
+    order = np.argsort(dst.numpy(), kind="stable")
+    row = src.numpy()[order]
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(
+        dst.numpy(), minlength=g["nodes"]))]).astype(np.int64)
+    seeds = torch.from_numpy(rng.choice(g["nodes"], KHOP["seeds"],
+                                        replace=False)).to(dev)
+    t = time.perf_counter()
+    s_src, s_dst, nodes = incubate.graph_khop_sampler(
+        torch.from_numpy(row), torch.from_numpy(colptr), seeds,
+        list(KHOP["fanouts"]))
+    rec["khop"] = {"host_ms": (time.perf_counter() - t) * 1e3,
+                   "edges": int(s_src.numel()), "nodes": int(nodes.numel()),
+                   "fanouts": list(KHOP["fanouts"]), "seeds": KHOP["seeds"]}
+    if not (torch.equal(nodes[:KHOP["seeds"]], seeds)
+            and s_src.numel() == s_dst.numel()
+            and int(s_src.max()) < nodes.numel()):
+        raise AssertionError(f"graph_khop_sampler: {rec['khop']}")
+    # the fused softmaxes at GPT-3 1.3B's scores, twinned at a cut size
+    sm = {}
+    gen = torch.Generator(dev).manual_seed(seed)
+    scores = torch.randn(SOFTMAX_SCORES, device=dev, dtype=torch.bfloat16,
+                         generator=gen)
+    mask = torch.where(torch.rand((SOFTMAX_SCORES[0], 1) + SOFTMAX_SCORES[2:],
+                                  device=dev, generator=gen) < 0.1,
+                       -1e4, 0.0).to(torch.bfloat16)
+    for name, fn in (("softmax_mask_fuse",
+                      lambda: incubate.softmax_mask_fuse(scores, mask)),
+                     ("softmax_mask_fuse_upper_triangle",
+                      lambda: incubate.softmax_mask_fuse_upper_triangle(
+                          scores))):
+        sm[name] = {"shape": list(SOFTMAX_SCORES),
+                    "ms": time_ms(torch, fn, reps=5, warmup=1)}
+    del scores, mask
+    torch.cuda.empty_cache()
+    tw = torch.randn(SOFTMAX_TWIN, generator=torch.Generator().manual_seed(
+        seed)).to(torch.bfloat16)
+    tmask = torch.where(torch.arange(SOFTMAX_TWIN[-1]) % 7 == 0, -1e4,
+                        0.0).to(torch.bfloat16).expand(SOFTMAX_TWIN)
+    for name, fn in (("softmax_mask_fuse",
+                      lambda a: incubate.softmax_mask_fuse(a, tmask.to(
+                          a.device))),
+                     ("softmax_mask_fuse_upper_triangle",
+                      incubate.softmax_mask_fuse_upper_triangle)):
+        err = (fn(tw.to(dev)).float().cpu() - fn(tw).float()).abs().max()
+        sm[name]["twin_shape"] = list(SOFTMAX_TWIN)
+        sm[name]["twin_max_abs_err"] = float(err)
+        if not float(err) <= SOFTMAX_ATOL:
+            raise AssertionError(f"{name}: card against CPU {float(err)}")
+    rec["softmax"] = sm
+    # the autograd functionals of a 2-layer MLP at width 1024, fp32
+    w = MLP_WIDTH
+    gcpu = torch.Generator().manual_seed(seed)
+    W1, W2 = (torch.randn(w, w, generator=gcpu) / w ** 0.5 for _ in "12")
+    xv, tv = torch.randn(w, generator=gcpu), torch.randn(w, generator=gcpu)
+
+    def fns(d):
+        a, b = W1.to(d), W2.to(d)
+
+        def mlp(v):
+            return torch.tanh(v @ a) @ b
+
+        def scalar(v):
+            return (torch.tanh(v @ a) @ b).pow(2).sum()
+        return mlp, scalar
+
+    ag = {}
+    for name, run in (
+            ("jacobian", lambda d: iag.Jacobian(fns(d)[0], xv.to(d))[:]),
+            ("hessian", lambda d: iag.Hessian(fns(d)[1], xv.to(d))[:]),
+            ("jvp", lambda d: iag.jvp(fns(d)[0], xv.to(d), tv.to(d))[1]),
+            ("vjp", lambda d: iag.vjp(fns(d)[0], xv.to(d), tv.to(d))[1])):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = run(dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        want = run(torch.device("cpu"))
+        bad = ((got.cpu() - want).abs() > AUTOGRAD_TOL["atol"]
+               + AUTOGRAD_TOL["rtol"] * want.abs())
+        ag[name] = {"shape": list(got.shape), "card_s": card_s,
+                    "max_abs_err": float((got.cpu() - want).abs().max())}
+        if bool(bad.any()):
+            raise AssertionError(f"incubate.autograd {name}: {ag[name]}")
+    rec["autograd"] = ag
+    # LookAhead and ModelAverage over 3 SGD steps, card against CPU
+    ow = OPT_TWIN["width"]
+    xs = torch.randn(32, ow, generator=gcpu)
+    ys = torch.randn(32, ow, generator=gcpu)
+    opt_rec = {}
+    for wrap in ("LookAhead", "ModelAverage"):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            lin = nn.Linear(ow, ow)
+            lin.to(d)
+            with torch.no_grad():
+                lin.weight.copy_(W1[:ow, :ow])
+                lin.bias.zero_()
+            sgd = optimizer.SGD(learning_rate=OPT_TWIN["lr"],
+                                parameters=lin.parameters())
+            opt = (incubate.LookAhead(sgd, alpha=0.5, k=2)
+                   if wrap == "LookAhead" else sgd)
+            avg = (incubate.ModelAverage(0.15,
+                                         parameters=list(lin.parameters()))
+                   if wrap == "ModelAverage" else None)
+            for _ in range(OPT_TWIN["steps"]):
+                ((lin(xs.to(d)) - ys.to(d)) ** 2).mean().backward()
+                opt.step()
+                opt.clear_grad()
+                if avg is not None:
+                    avg.step()
+            if avg is not None:
+                with avg.apply():
+                    outs.append(lin.weight.detach().cpu().clone())
+            else:
+                outs.append(lin.weight.detach().cpu().clone())
+        err = float((outs[0] - outs[1]).abs().max())
+        opt_rec[wrap] = {"steps": OPT_TWIN["steps"], "max_abs_err": err}
+        if not err <= AUTOGRAD_TOL["atol"]:
+            raise AssertionError(f"{wrap}: card against CPU {err}")
+    rec["optimizers"] = opt_rec
+    return rec
+
+
+def jit_deploy_phase(torch, dev, np, seed, profile=False):
+    """Phase 14: jit.to_static training, the deploy path and incubate's rest
+    at the training configuration (bench.py:117-124), on one model built
+    once."""
+    from paddle_tpu_torch import LlamaForCausalLM, llama_config
+
+    t0 = time.perf_counter()
+    cfg = train_config(llama_config)
+    model = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = eager_batches(torch, np, cfg, 1 + TRAIN_STEPS, seed,
+                            TRAIN["batch"], TRAIN["seq"], dev)
+    rec = {"config": f"{TRAIN['preset']} {TRAIN['overrides']}"}
+    t = time.perf_counter()
+    rec["to_static"] = to_static_leg(torch, np, dev, cfg, model, batches,
+                                     n_params)
+    rec["to_static"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["deploy"] = deploy_leg(torch, np, dev, cfg, model, seed)
+    rec["deploy"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["incubate_rest"] = incubate_rest_leg(torch, np, dev, cfg, model,
+                                             batches, seed)
+    rec["incubate_rest"]["s"] = time.perf_counter() - t
+    del model, batches
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def log_jit_deploy(rec, smi) -> None:
+    """Phase 14's lines."""
+    ts = rec["to_static"]
+    e, c = ts["eager"], ts["compiled"]
+    log(f"[jit] {rec['config']} x{ts['layers']}, {ts['batch']}x{ts['seq']} "
+        f"tokens, Layer-API step (loss, backward, AdamW): eager "
+        f"{e['step_s_median']:.4f} s (steps {e['step_s']}; AdamW and "
+        f"clear_grad {[round(x, 4) for x in e['opt_s']]}), "
+        f"{e['tokens_per_s']:.1f} tokens/s, MFU {e['mfu']:.4f}, peak "
+        f"{e['peak_mem_gb']:.2f} GiB; to_static {c['step_s_median']:.4f} s "
+        f"(steps {c['step_s']}; AdamW and clear_grad "
+        f"{[round(x, 4) for x in c['opt_s']]}), {c['tokens_per_s']:.1f} "
+        f"tokens/s, MFU "
+        f"{c['mfu']:.4f}, peak {c['peak_mem_gb']:.2f} GiB; compile "
+        f"{c['compile_s']:.1f} s, {c['graphs']} graph, {c['graph_breaks']} "
+        f"graph breaks, {c['recompiles_after_warmup']} recompiles after the "
+        f"warm-up  [{smi}]")
+    log(f"[jit] launches a step, compiled = eager: {ts['launches_per_step']}"
+        f"; losses {c['losses']} against eager {e['losses']} (max gap "
+        f"{ts['loss_max_gap']:.3g}, limit {TRAIN_LOSS_ATOL}); parameters "
+        f"after {len(c['losses'])} steps within {ts['param_max_abs_err']:.3g}"
+        f" (limit {STATIC_PARAM_ATOL:g} + 2^-5 |w|), relative "
+        f"{ts['param_max_rel_err']:.3g}; the eager wrappers' routing "
+        f"(is_compiling) {ts['routing_host_us']:.3f} us a call  [{smi}]")
+    for what, p in (("eager", e["profile"]), ("to_static", c["profile"])):
+        log(f"[jit] {what} forward + backward under the profiler: wall "
+            f"{p['wall_ms']:.1f} ms, device busy {p['device_busy_ms']:.1f} ms"
+            f" ({p['device_busy_share']:.1%}): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in sorted(
+                    p["categories_ms"].items(), key=lambda kv: -kv[1])
+                if v) + f" ms  [{smi}]")
+    d = rec["deploy"]
+    log(f"[deploy] jit.save {d['save_s']:.1f} s (.pt2 {d['pt2_mb']:.2f} MB "
+        f"holding {d['program_tensor_bytes']} bytes of tensors, .pdiparams "
+        f"{d['pdiparams_mb']:.1f} MB of {d['weights_gb']:.2f} GiB weights), "
+        f"create_predictor {d['load_s']:.1f} s, paddle_tpu:: nodes "
+        f"{d['nodes']}; " + "; ".join(
+            f"run {r['shape'][0]} x {r['shape'][1]} {r['run_s'] * 1e3:.1f} "
+            f"ms (again {r['again_s'] * 1e3:.1f}), logits within "
+            f"{r['logit_max_abs_err']:.3g} of eager" for r in d["runs"])
+        + f"; launches {d['launches']}  [{smi}]")
+    log(f"[deploy] Model.save(training=False) -> Predictor at "
+        f"{DEPLOY_TWIN} layers within {d['model_save_logit_max_abs_err']:.3g}"
+        f" of eager, onnx.export warned and wrote the same artifact "
+        f"(logits equal: {d['onnx_equal_model_save']}); aot of one decoder "
+        f"layer: nodes {d['aot_layer']['nodes']}, {d['aot_layer']['pt2_kb']:.1f}"
+        f" KB, within {d['aot_layer']['max_abs_err']:.3g}  [{smi}]")
+    ir = rec["incubate_rest"]
+    a = ir["asp"]
+    log(f"[incubate] asp.prune_model 2:4 over {a['weights']} linears "
+        f"({a['elements']} elements) in {a['prune_s']:.1f} s; densities "
+        f"after each DistributedFusedLamb step {a['densities']}; its step "
+        f"equal to Lamb's: {ir['dfl_equal_lamb']}  [{smi}]")
+    g = ir["graph"]
+    for name in ("send_u_recv_sum", "send_u_recv_mean", "send_u_recv_max",
+                 "segment_sum", "segment_mean", "segment_max",
+                 "segment_min"):
+        r = g[name]
+        log(f"[incubate] {name} at {g['nodes']} nodes, {g['edges']} edges, "
+            f"{g['features']} features: {r['fwd_ms']:.3f} ms (host "
+            f"{r['fwd_host_us']:.1f} us a call), with the backward "
+            f"{r['fwd_bwd_ms']:.3f} ms; against the CPU "
+            f"{r['max_rel_err']:.3g}, gradient {r['grad_max_rel_err']:.3g}"
+            f"  [{smi}]")
+    k = ir["khop"]
+    log(f"[incubate] graph_khop_sampler fanouts {k['fanouts']} over "
+        f"{k['seeds']} seeds: {k['host_ms']:.1f} ms on the host, "
+        f"{k['edges']} edges, {k['nodes']} nodes  [{smi}]")
+    for name, r in ir["softmax"].items():
+        log(f"[incubate] {name} {r['shape']} bf16: {r['ms']:.3f} ms; at "
+            f"{r['twin_shape']} within {r['twin_max_abs_err']:.3g} of the "
+            f"CPU  [{smi}]")
+    log(f"[incubate] autograd at width {MLP_WIDTH}: " + ", ".join(
+        f"{k} {v['shape']} {v['card_s'] * 1e3:.1f} ms, within "
+        f"{v['max_abs_err']:.3g}" for k, v in ir["autograd"].items())
+        + "; " + ", ".join(f"{k} {v['steps']} steps within "
+                           f"{v['max_abs_err']:.3g}"
+                           for k, v in ir["optimizers"].items())
+        + f"  [{smi}]")
+
+
 # kernel name fragments -> where the device time goes
 _CATEGORIES = [("rms_norm", ("rms_norm_vec_kernel", "rms_norm_elem_kernel")),
                ("fused_layer_norm", ("_layer_norm_kernel",)),
@@ -11592,6 +12309,10 @@ def main(argv=None) -> int:
                          "flash forward of the checkout at TREE at the "
                          "training shape and print one JSON line (to "
                          "compare checkouts, run it for each in turns)")
+    ap.add_argument("--jit-deploy", action="store_true",
+                    help="only build the kernels and run phase 14 (jit."
+                         "to_static training, the deploy path, incubate's "
+                         "rest) and print its lines and one JSON line")
     ap.add_argument("--lora-times", action="store_true",
                     help="only run the LoRA legs (phase 4's at 2 layers, "
                          "then a plain Server and phase 5's LoRA Server "
@@ -11621,6 +12342,21 @@ def main(argv=None) -> int:
         return 0
     if args.lora_times:
         log(json.dumps(lora_times()))
+        return 0
+    if args.jit_deploy:
+        sys.path.insert(0, ROOT)
+        import numpy as np
+
+        from paddle_tpu_torch.ops import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        smi = smi_line()
+        log(smi)
+        log(f"[build] nvcc {_build.build_all():.2f}s")
+        jd = jit_deploy_phase(torch, torch.device("cuda"), np, args.seed)
+        log_jit_deploy(jd, smi)
+        log(json.dumps(jd, default=str))
         return 0
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -12052,6 +12788,14 @@ def main(argv=None) -> int:
     record["phases"]["vision2"] = time.perf_counter() - t
     log_vision2(v2, smi)
     log(f"[vision2] {record['phases']['vision2']:.1f}s")
+    # 14. jit.to_static, the deploy path and incubate's rest: this slice's
+    # main path
+    t = time.perf_counter()
+    jd = jit_deploy_phase(torch, dev, np, args.seed, profile=args.profile)
+    record["jit_deploy"] = jd
+    record["phases"]["jit_deploy"] = time.perf_counter() - t
+    log_jit_deploy(jd, smi)
+    log(f"[jit-deploy] {record['phases']['jit_deploy']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
@@ -12066,7 +12810,9 @@ def main(argv=None) -> int:
                 resnet=nv["resnet"], vision=nv["vision"],
                 transformer=nv["transformer"], rnn=nv["rnn"],
                 classic2=v2["classic2"], pipeline=v2["pipeline"],
-                detection=v2["detection"], text=v2["text"])
+                detection=v2["detection"], text=v2["text"],
+                to_static=jd["to_static"], deploy=jd["deploy"],
+                incubate_rest=jd["incubate_rest"]["asp"])
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

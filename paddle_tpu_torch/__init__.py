@@ -60,8 +60,17 @@ of creation, math, manipulation, logic, search, random and linalg
 ``summary`` and ``flops`` (``hapi``) and ``paddle.text`` (Viterbi
 decoding and the text datasets: ``text``).
 
+Compile and deploy: ``jit`` (``to_static`` over ``torch.compile`` with the
+dy2static pass, ``save`` / ``load``), ``static.InputSpec``, the Predictor
+(``inference.Config``, ``create_predictor``, ``inference.aot`` over
+``torch.export``) and ``onnx.export``; the kernels K1, K2, K3, K5 and K6
+enter compiled and exported programs as ``paddle_tpu::`` library ops.
+``geometric`` (message passing and sampling) and incubate's ``asp``,
+``autograd``, ``optimizer`` and top-level functions.
+
 ``serving``, ``monitor``, ``tracing``, ``testing``, ``profiler``, ``amp``,
-``metric``, ``autograd``, ``io``, ``vision`` and ``text`` load on first
+``metric``, ``autograd``, ``io``, ``vision``, ``text``, ``jit``,
+``static``, ``onnx``, ``geometric`` and ``incubate`` load on first
 access (``paddle_tpu_torch.serving``), as in the reference; nothing imports
 ``http.server`` before ``serve_http`` is called.
 """
@@ -102,7 +111,8 @@ __all__ = ["get_device", "get_flags", "set_flags", "LlamaConfig", "LlamaForCausa
 
 # subpackages that load on first access (PEP 562), as the reference's do
 _LAZY_SUBMODULES = {"serving", "monitor", "tracing", "testing", "profiler",
-                    "amp", "metric", "autograd", "io", "vision", "text"}
+                    "amp", "metric", "autograd", "io", "vision", "text",
+                    "jit", "static", "onnx", "geometric", "incubate"}
 
 # names that load their module on first access, as the reference's do
 _LAZY_ATTRS = {
@@ -133,6 +143,7 @@ _LAZY_ATTRS = {
     "ParamAttr": ("paddle_tpu_torch.nn.param_attr", "ParamAttr"),
     "summary": ("paddle_tpu_torch.hapi.model_summary", "summary"),
     "flops": ("paddle_tpu_torch.hapi.dynamic_flops", "flops"),
+    "to_static": ("paddle_tpu_torch.jit", "to_static"),
 }
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 
+import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...core.random import default_generator
@@ -53,6 +54,13 @@ def amp_contexts(inner=None):
 
 def recompute(function, *args, **kwargs):
     """``function(*args, **kwargs)`` with its activations recomputed in the
-    backward instead of kept."""
+    backward instead of kept. While compiling (``jit.to_static``,
+    ``torch.compile``) it is the plain non-reentrant checkpoint: the
+    compiler records the region once, so its recomputation replays the
+    traced ops under the AMP policy the trace saw, and the random draws of
+    a compiled program come from the seed it is given, not from the
+    generator's state (``core.random.traced_uniform``)."""
+    if torch.compiler.is_compiling():
+        return checkpoint(function, *args, use_reentrant=False, **kwargs)
     return checkpoint(function, *args, use_reentrant=False,
                       context_fn=amp_contexts, **kwargs)

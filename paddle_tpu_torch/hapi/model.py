@@ -14,9 +14,8 @@ device of the network's first parameter. ``fit``, ``evaluate`` and
 ``predict`` take a ``DataLoader``, a ``Dataset`` (wrapped in an
 ``io.DataLoader`` of ``batch_size``, ``shuffle`` and ``num_workers``, as
 the reference wraps it) or any iterable of batches. ``summary`` is
-``hapi.summary`` of the network. ``save(training=False)`` (an inference
-export through ``jit``) raises: ``jit`` is not ported yet (ROADMAP
-A14d).
+``hapi.summary`` of the network. ``save(training=False)`` is the
+inference export through ``jit.save`` with the Model's ``inputs``.
 """
 from __future__ import annotations
 
@@ -31,8 +30,6 @@ from ..metric import Metric
 from .callbacks import config_callbacks
 
 __all__ = ["Model"]
-
-_NOT_PORTED = "not ported yet (ROADMAP A14d, {})"
 
 
 def _to_list(x):
@@ -287,12 +284,15 @@ class Model:
 
     # -- io ------------------------------------------------------------------
     def save(self, path: str, training: bool = True):
-        """The network's parameters to ``path.pdparams`` and the optimizer's
-        state to ``path.pdopt``."""
+        """``training=True``: the network's parameters to ``path.pdparams``
+        and the optimizer's state to ``path.pdopt``. ``training=False``:
+        the inference artifact through ``jit.save`` with the Model's
+        ``inputs`` specs (``path.pt2`` + ``path.pdiparams``)."""
         if not training:
-            raise NotImplementedError(
-                "Model.save(training=False), an inference export through "
-                "jit, is " + _NOT_PORTED.format("jit"))
+            from .. import jit
+
+            jit.save(self.network, path, input_spec=self._inputs)
+            return
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)

@@ -529,10 +529,14 @@ class LlamaModel(nn.Module):
         step. They are built at first use, so a decode step runs once
         eagerly before it is captured into a CUDA graph (the engines'
         ``inference/_graphs.py`` does), and a replay reads the same
-        tables."""
+        tables. While compiling they are computed in the program, not
+        cached: under ``torch.export`` ``n`` is a symbolic length."""
+        cfg = self.config
+        if torch.compiler.is_compiling():
+            return _rope_cos_sin(n, cfg.head_dim, cfg.rope_theta, like.dtype,
+                                 like.device)
         key = (n, like.dtype, like.device)
         if key not in self._rope:
-            cfg = self.config
             self._rope[key] = _rope_cos_sin(n, cfg.head_dim, cfg.rope_theta,
                                             like.dtype, like.device)
         return self._rope[key]

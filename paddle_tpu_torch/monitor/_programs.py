@@ -146,7 +146,8 @@ class _CostMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not _launches.in_kernel():
+        # a paddle_tpu:: library op is a kernel: its wrapper reports it
+        if not _launches.in_kernel() and func.namespace != "paddle_tpu":
             formula = _formulas().get(func.overloadpacket)
             if formula is not None:
                 try:

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...core.random import default_generator
+from ...core.random import default_generator, uniform
 from ._op import amp_op
 
 __all__ = [
@@ -45,8 +45,7 @@ def linear(x, weight, bias=None, name=None):
 
 
 def _keep_mask(x, p, shape):
-    u = torch.rand(shape, generator=default_generator.generator(x.device),
-                   device=x.device)
+    u = uniform(shape, x.device)
     return u < (1.0 - p)
 
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.random import default_generator
+from ...core.random import draw_seed, uniform
 from ...ops.attention import flash_attention as _flash
 
 __all__ = ["flash_attention", "flash_attn_unpadded",
@@ -55,8 +55,7 @@ def _sdpa_ref(q, k, v, mask=None, causal=False, dropout_p=0.0, scale=None):
             scores = scores + mask.to(scores.dtype)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     if dropout_p > 0.0:
-        u = torch.rand(probs.shape, generator=default_generator.generator(
-            q.device), device=q.device)
+        u = uniform(probs.shape, q.device)
         probs = torch.where(u < 1.0 - dropout_p, probs / (1.0 - dropout_p),
                             torch.zeros((), dtype=probs.dtype,
                                         device=q.device))
@@ -65,9 +64,14 @@ def _sdpa_ref(q, k, v, mask=None, causal=False, dropout_p=0.0, scale=None):
 
 def _seed(fixed_seed_offset) -> int:
     if fixed_seed_offset is None:
-        return int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                 generator=default_generator
-                                 .generator("cpu")).item())
+        if torch.compiler.is_compiling():
+            # the kernels take their seed as a launch argument: a drawn
+            # one would be a constant of the compiled program
+            raise ValueError(
+                "flash_attention: dropout inside a compiled program needs "
+                "fixed_seed_offset (the kernels' seed is a launch argument, "
+                "a draw would be frozen into the program)")
+        return draw_seed()
     if isinstance(fixed_seed_offset, torch.Tensor):
         return int(fixed_seed_offset.reshape(-1)[0].item())
     return int(fixed_seed_offset)

@@ -6,7 +6,8 @@ back to ``_chunked_attention`` (without dropout) where its block sizes do
 not divide the lengths. Here the kernels read ``[B, S, H, D]`` through
 their strides and take any length, so the dispatch is only the device rule:
 the CPU runs the plain versions, CUDA runs K3 forward and the two backward
-kernels, through :class:`~.flash_attention_kernel.FlashAttention`.
+kernels, through :class:`~.flash_attention_kernel.FlashAttention` (the
+library op ``paddle_tpu::flash_fwd`` while compiling).
 
 Under ``FLAGS_flash_head_batched`` the router takes the head-batched route
 (``flash_attention_hb.py``) where :func:`supports_hb` holds, and only on
@@ -26,7 +27,8 @@ import torch
 from ..framework.amp_state import cast_inputs, check_outputs
 from ..framework.flags import get_flags
 from .flash_attention_hb import flash_attention_bshd_hb, supports_hb
-from .flash_attention_kernel import FlashAttention, prefix_chunk_attention
+from .flash_attention_kernel import (flash_attention_apply,
+                                     prefix_chunk_attention)
 
 __all__ = ["flash_attention", "prefix_chunk_attention"]
 
@@ -56,8 +58,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = flash_attention_bshd_hb(q, k, v, causal=causal,
                                       sm_scale=sm_scale)
     else:
-        out = FlashAttention.apply(q, k, v, causal, sm_scale,
-                                   float(dropout_p),
-                                   0 if seed is None else int(seed))
+        out = flash_attention_apply(q, k, v, causal, sm_scale,
+                                    float(dropout_p),
+                                    0 if seed is None else int(seed))
     check_outputs("flash_attention", out)
     return out

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention_kernel import FlashAttention, _check_shapes
+from .flash_attention_kernel import _check_shapes, flash_attention_apply
 
 __all__ = ["flash_attention_bshd_hb", "supports_hb"]
 
@@ -68,7 +68,7 @@ def flash_attention_bshd_hb(q: torch.Tensor, k: torch.Tensor,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     flash_attention_bshd_hb.calls += 1
-    return FlashAttention.apply(q, k, v, causal, float(sm_scale), 0.0, 0)
+    return flash_attention_apply(q, k, v, causal, float(sm_scale), 0.0, 0)
 
 
 flash_attention_bshd_hb.calls = 0

@@ -38,6 +38,15 @@ prompt, on the card and in the plain versions.
 
 The wrappers take the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
+
+K3, K5 and K6 are also the library ops ``paddle_tpu::flash_fwd``,
+``paddle_tpu::flash_bwd_dq`` and ``paddle_tpu::flash_bwd_dkv``
+(``torch.library.custom_op``: the CUDA implementation is the launch, the
+CPU one the plain version, a fake that gives shapes and dtypes only; the
+forward's gradient is the two backward ops). :func:`flash_attention_apply`
+goes through them only while ``torch.compiler.is_compiling()``, so a
+compiled or exported program holds each kernel as one node, and an eager
+call is :class:`FlashAttention` as before.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.random import _mix
 from . import _build
 from ._launches import costed, count
 
@@ -54,7 +64,7 @@ __all__ = ["flash_attention_bshd", "flash_attention_bshd_ref",
            "prefix_chunk_attention", "prefix_chunk_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "FlashAttention", "kernel_for"]
+           "FlashAttention", "flash_attention_apply", "kernel_for"]
 
 _NEG = -1e30            # the kernels' mask value: no inf - inf NaNs
 _U32 = 0xFFFFFFFF
@@ -85,14 +95,6 @@ _ENTRIES = {
 # Dropout: the counter hash (uint32 arithmetic in int64, masked after every
 # multiply: the low 32 bits of a product survive int64 wrap-around)
 # ---------------------------------------------------------------------------
-
-
-def _mix(x: torch.Tensor) -> torch.Tensor:
-    x = x ^ (x >> 16)
-    x = (x * 0x85EBCA6B) & _U32
-    x = x ^ (x >> 13)
-    x = (x * 0xC2B2AE35) & _U32
-    return x ^ (x >> 16)
 
 
 def _threshold(dropout_p: float) -> int:
@@ -268,12 +270,20 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = False,
     Returns (dq, dk, dv) in the dtypes of q, k, v."""
     _check_shapes(q, k, v)
     _check_dropout(dropout_p)
+    return _bwd_ref(q, k, v, do, lse, _delta(out, do), causal, sm_scale,
+                    dropout_p, seed)
+
+
+def _bwd_ref(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed,
+             want_dq: bool = True, want_dkv: bool = True):
+    """:func:`flash_attention_bwd_ref` from ``delta`` = rowsum(dO * O)
+    [B, Hq, Sq]: (dq, dk, dv), each None where it is not wanted (the plain
+    versions of K5 alone and of K6 alone)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dev = q.device
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     qt, kt, vt, dot = _bhsd(q, hq), _bhsd(k, hq), _bhsd(v, hq), _bhsd(do, hq)
-    delta = _delta(out, do)
     dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=dev)
     dk = torch.zeros((b, hq, sk, d), dtype=torch.float32, device=dev)
     dv = torch.zeros((b, hq, sk, d), dtype=torch.float32, device=dev)
@@ -296,16 +306,20 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = False,
         else:
             pd = p
             ds = p * (dp - dl)
-        dq[:, :, r0:r1] = torch.einsum(
-            "bhqk,bhkd->bhqd", _rounded(ds, k.dtype), kt) * scale
-        dk += torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype),
-                           qc) * scale
-        dv += torch.einsum("bhqk,bhqd->bhkd", _rounded(pd, do.dtype), doc)
+        if want_dq:
+            dq[:, :, r0:r1] = torch.einsum(
+                "bhqk,bhkd->bhqd", _rounded(ds, k.dtype), kt) * scale
+        if want_dkv:
+            dk += torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype),
+                               qc) * scale
+            dv += torch.einsum("bhqk,bhqd->bhkd", _rounded(pd, do.dtype),
+                               doc)
     g = hq // hkv
     dk = dk.view(b, hkv, g, sk, d).sum(2)
     dv = dv.view(b, hkv, g, sk, d).sum(2)
-    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
-            dv.transpose(1, 2).to(v.dtype))
+    return (dq.transpose(1, 2).to(q.dtype) if want_dq else None,
+            dk.transpose(1, 2).to(k.dtype) if want_dkv else None,
+            dv.transpose(1, 2).to(v.dtype) if want_dkv else None)
 
 
 # ---------------------------------------------------------------------------
@@ -646,3 +660,122 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, *ctx.args)
         return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# K3, K5 and K6 as library ops (the path of compiled and exported programs)
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("paddle_tpu::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, sm_scale: Optional[float], dropout_p: float,
+                  seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 as a library op: ``(out, lse)``, the plain version on the CPU."""
+    out, lse = flash_attention_bshd_ref(q, k, v, causal, sm_scale,
+                                        dropout_p, seed)
+    return out.contiguous(), lse.contiguous()
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _(q, k, v, causal, sm_scale, dropout_p, seed):
+    out, lse = flash_attention_bshd(q, k, v, causal, sm_scale, dropout_p,
+                                    seed)
+    return out.contiguous(), lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, sm_scale, dropout_p, seed):
+    b, sq, hq, _ = q.shape
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((b, hq, sq), dtype=torch.float32, device=q.device))
+
+
+@torch.library.custom_op("paddle_tpu::flash_bwd_dq", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor,
+                     delta: torch.Tensor, causal: bool,
+                     sm_scale: Optional[float], dropout_p: float,
+                     seed: int) -> torch.Tensor:
+    """K5 as a library op: dq, the plain backward's dq on the CPU."""
+    dq, _, _ = _bwd_ref(q, k, v, do, lse, delta, causal, sm_scale,
+                        dropout_p, seed, want_dkv=False)
+    return dq.contiguous()
+
+
+@_flash_bwd_dq_op.register_kernel("cuda")
+def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed):
+    return flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
+                                  dropout_p, seed).contiguous()
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@torch.library.custom_op("paddle_tpu::flash_bwd_dkv", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, causal: bool,
+                      sm_scale: Optional[float], dropout_p: float,
+                      seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 as a library op: (dk, dv), the plain backward's on the CPU."""
+    _, dk, dv = _bwd_ref(q, k, v, do, lse, delta, causal, sm_scale,
+                         dropout_p, seed, want_dq=False)
+    return dk.contiguous(), dv.contiguous()
+
+
+@_flash_bwd_dkv_op.register_kernel("cuda")
+def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed):
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                     sm_scale, dropout_p, seed)
+    return dk.contiguous(), dv.contiguous()
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed):
+    return (torch.empty(k.shape, dtype=k.dtype, device=k.device),
+            torch.empty(v.shape, dtype=v.dtype, device=v.device))
+
+
+def _flash_fwd_op_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale, dropout_p, seed = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.args = (causal, sm_scale, dropout_p, seed)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_op_bwd(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    delta = _delta(out, do)
+    dq = torch.ops.paddle_tpu.flash_bwd_dq(q, k, v, do, lse, delta,
+                                           *ctx.args)
+    dk, dv = torch.ops.paddle_tpu.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                *ctx.args)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_fwd_op_bwd,
+                                setup_context=_flash_fwd_op_setup)
+
+
+def flash_attention_apply(q, k, v, causal: bool,
+                          sm_scale: Optional[float], dropout_p: float,
+                          seed: int) -> torch.Tensor:
+    """Differentiable flash attention, the output alone: eagerly
+    :class:`FlashAttention`; while compiling (``torch.compile``,
+    ``torch.export``) the op ``paddle_tpu::flash_fwd``, whose gradient is
+    the ops ``paddle_tpu::flash_bwd_dq`` and ``paddle_tpu::flash_bwd_dkv``
+    with delta = rowsum(dO * O) between them, as the eager backward
+    computes it."""
+    if torch.compiler.is_compiling():
+        return torch.ops.paddle_tpu.flash_fwd(
+            q, k, v, bool(causal),
+            None if sm_scale is None else float(sm_scale), float(dropout_p),
+            int(seed))[0]
+    return FlashAttention.apply(q, k, v, causal, sm_scale, dropout_p, seed)

@@ -28,6 +28,17 @@ package, so no kernel is owed; the RoPE backward runs K2 again on (dO, cos,
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises. ``triton`` is imported inside K8's launch,
 so this module imports where Triton is absent.
+
+K1 and K2 are also the library ops ``paddle_tpu::rms_norm`` and
+``paddle_tpu::fused_rope`` (``torch.library.custom_op``: the CUDA
+implementation is the launch above, the CPU one the plain version, a fake
+that gives shapes and dtypes only, the gradient through
+``register_autograd``). The wrappers go through them only while
+``torch.compiler.is_compiling()`` (``torch.compile``, ``torch.export``), so
+that a compiled or exported program holds each kernel as one node that
+launches it; an eager call takes the path above, as before. The host logic
+that reads shapes (the dispatch and the plans) runs inside the ops'
+implementations, where the shapes are concrete.
 """
 from __future__ import annotations
 
@@ -320,6 +331,41 @@ def _rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
+@torch.library.custom_op("paddle_tpu::rms_norm", mutates_args=(),
+                         device_types="cpu")
+def _rms_norm_op(x: torch.Tensor, weight: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """K1 as a library op: the plain version on the CPU (a contiguous
+    result, as the kernel's)."""
+    return _rms_norm_fwd(x, weight, eps).contiguous()
+
+
+@_rms_norm_op.register_kernel("cuda")
+def _(x, weight, eps):
+    return _rms_norm_fwd(x, weight, eps)
+
+
+@_rms_norm_op.register_fake
+def _(x, weight, eps):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _rms_norm_op_setup(ctx, inputs, output):
+    x, weight, eps = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.eps = eps
+
+
+def _rms_norm_op_bwd(ctx, g):
+    x, w = ctx.saved_tensors
+    dx, dw = _rms_norm_bwd(x, w, g, ctx.eps)
+    return dx, dw, None
+
+
+_rms_norm_op.register_autograd(_rms_norm_op_bwd,
+                               setup_context=_rms_norm_op_setup)
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, eps):
@@ -339,11 +385,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     """y = x / sqrt(mean(x^2, -1) + eps) * w over x [..., H] (K1: rows
     held in registers, a warp or a few a row). Differentiable in x and
     w; where no gradient is wanted (the decode paths run under no_grad)
-    the autograd Function and its host cost are skipped. Under AMP its
+    the autograd Function and its host cost are skipped; while compiling
+    it is the op ``paddle_tpu::rms_norm``. Under AMP its
     inputs go to fp32 (black list); under ``FLAGS_check_nan_inf`` its
     output is checked."""
     x, weight = cast_inputs("rms_norm", x, weight)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+    if torch.compiler.is_compiling():
+        y = torch.ops.paddle_tpu.rms_norm(x, weight, float(eps))
+    elif torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         y = _RMSNorm.apply(x, weight, eps)
     else:
         y = _rms_norm_fwd(x, weight, eps)
@@ -573,6 +622,37 @@ def _rope_fwd(x: torch.Tensor, cos: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("paddle_tpu::fused_rope", mutates_args=(),
+                         device_types="cpu")
+def _rope_op(x: torch.Tensor, cos: torch.Tensor,
+             sin: torch.Tensor) -> torch.Tensor:
+    """K2 as a library op: the plain version on the CPU."""
+    return _rope_fwd(x, cos, sin).contiguous()
+
+
+@_rope_op.register_kernel("cuda")
+def _(x, cos, sin):
+    return _rope_fwd(x, cos, sin)
+
+
+@_rope_op.register_fake
+def _(x, cos, sin):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _rope_op_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[1], inputs[2])
+
+
+def _rope_op_bwd(ctx, g):
+    cos, sin = ctx.saved_tensors
+    # K2 with -sin: one more node of the same op in the backward
+    return torch.ops.paddle_tpu.fused_rope(g, cos, -sin), None, None
+
+
+_rope_op.register_autograd(_rope_op_bwd, setup_context=_rope_op_setup)
+
+
 class _Rope(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, cos, sin):
@@ -591,11 +671,14 @@ def fused_rope(x: torch.Tensor, cos: torch.Tensor,
     [S, D/2] (K2: a team of threads a position, its table row loaded once
     for all its heads), reading x through its strides. Differentiable in
     x; the backward launches K2 with -sin. Where no gradient is wanted the
-    autograd Function and its host cost are skipped. Gray under AMP (O2
+    autograd Function and its host cost are skipped; while compiling it is
+    the op ``paddle_tpu::fused_rope``. Gray under AMP (O2
     casts x and the tables to the AMP dtype); under
     ``FLAGS_check_nan_inf`` its output is checked."""
     x, cos, sin = cast_inputs("fused_rope", x, cos, sin)
-    if torch.is_grad_enabled() and x.requires_grad:
+    if torch.compiler.is_compiling():
+        y = torch.ops.paddle_tpu.fused_rope(x, cos, sin)
+    elif torch.is_grad_enabled() and x.requires_grad:
         y = _Rope.apply(x, cos, sin)
     else:
         y = _rope_fwd(x, cos, sin)

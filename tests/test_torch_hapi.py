@@ -479,8 +479,18 @@ def test_what_is_not_ported_raises(tmp_path):
     m.prepare(topt.SGD(parameters=model.parameters()),
               tloss.CrossEntropyLoss())
 
-    with pytest.raises(NotImplementedError, match="A14"):
-        m.save(str(tmp_path / "x"), training=False)
+    # ``save(training=False)`` is ported now: jit.save without the Model's
+    # ``inputs`` writes the weights and no program, which no Predictor
+    # takes, as in the reference
+    m.save(str(tmp_path / "x"), training=False)
+    assert (tmp_path / "x.pdiparams").exists()
+    assert not (tmp_path / "x.pt2").exists()
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    cfg = Config(str(tmp_path / "x"))
+    cfg.disable_gpu()
+    with pytest.raises(FileNotFoundError, match="input_spec"):
+        create_predictor(cfg)
     # ``summary`` is ported now: it tabulates the network
     n = sum(p.numel() for p in model.parameters())
     assert m.summary((2, 4), "int64") == {"total_params": n,

@@ -609,3 +609,69 @@ def test_nothing_is_attached_to_torch_tensor():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-3000:]
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch/jit/__init__.py",
+    "paddle_tpu_torch/jit/dy2static.py",
+    "paddle_tpu_torch/static/__init__.py",
+    "paddle_tpu_torch/inference/aot.py",
+    "paddle_tpu_torch/inference/predictor.py",
+    "paddle_tpu_torch/onnx/__init__.py",
+    "paddle_tpu_torch/geometric/__init__.py",
+    "paddle_tpu_torch/incubate/_api.py",
+    "paddle_tpu_torch/incubate/asp/__init__.py",
+    "paddle_tpu_torch/incubate/autograd/__init__.py",
+    "paddle_tpu_torch/incubate/optimizer/__init__.py",
+    "paddle_tpu_torch/incubate/optimizer/distributed_fused_lamb.py"])
+def test_compile_deploy_and_incubate_modules_are_checked(module):
+    """The modules of the compile-and-deploy slice and incubate's rest are
+    among the sources the no-JAX checks read."""
+    assert ROOT / module in _sources()
+
+
+_LOAD_PT2 = r"""
+import sys, torch
+sys.path.insert(0, %r)
+if %r:
+    import paddle_tpu_torch
+ep = torch.export.load(%r)
+print(sorted({str(n.target) for n in ep.graph.nodes
+              if str(n.target).startswith("paddle_tpu.")}))
+"""
+
+
+def test_a_program_with_kernel_ops_loads_after_the_package(tmp_path):
+    """A ``.pt2`` program holding ``paddle_tpu::`` ops loads in a process
+    that imported ``paddle_tpu_torch`` (which registers them) and in no
+    other: the library ops are the port's, and nothing else defines
+    them."""
+    from paddle_tpu_torch.inference import aot
+
+    x = torch.randn(2, 3, 8)
+    w = torch.ones(8)
+    path = str(tmp_path / "rms.pt2")
+    aot.save_exported(aot.export_fn(
+        lambda a, b: torch.ops.paddle_tpu.rms_norm(a, b, 1e-6), x, w), path)
+    runs = {}
+    for with_package in (True, False):
+        runs[with_package] = subprocess.run(
+            [sys.executable, "-c", _LOAD_PT2 % (str(ROOT), with_package,
+                                                path)],
+            cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert runs[True].returncode == 0, runs[True].stderr[-3000:]
+    assert "paddle_tpu.rms_norm.default" in runs[True].stdout
+    assert runs[False].returncode != 0
+
+
+def test_predictor_config_follows_the_device_policy(monkeypatch):
+    """Without CUDA, the Predictor's Config picks the CPU (the JAX package
+    picks its TPU the same way) and raises when asked for the card."""
+    from paddle_tpu_torch import inference
+
+    _no_cuda(monkeypatch)
+    cfg = inference.Config()
+    assert cfg.device == torch.device("cpu") and not cfg.use_gpu()
+    cfg.enable_use_gpu()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cfg.device

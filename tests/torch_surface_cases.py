@@ -586,7 +586,8 @@ RANDOM = ("rand", "randn", "randint", "randint_like", "randperm", "uniform",
 # long-tail item, A14d, lists the same)
 LEFT = {
     "core.random:trace_key_scope":
-        "a traced key for paddle_tpu.jit: belongs to the jit port",
+        "a traced key for paddle_tpu.jit: the port's jit.to_static hands "
+        "its program a seed a call instead (core.random.push_trace_seed)",
     "core.autograd:GradNode":
         "the JAX eager tape's node: torch's autograd is the port's tape",
     "core.autograd:apply_op":
