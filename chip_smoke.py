@@ -131,9 +131,9 @@ Phases, each timed, none caught and passed over:
    CrossEntropyLoss) on the card and on the CPU, loss and parameters
    within the training tolerances, and an fp32 model decorated to fp16 at
    O2 stepped under ``auto_cast(O2, float16)`` and a ``GradScaler``
-   (batch 1 x 32), then its scaled gradients again with an inf
+   (batch 1 x 16), then its scaled gradients again with an inf
    injected: the loss within tolerance, the scales [1024, 512] and the
-   step skipped on both sides; C-check-1: 20 AdamW steps of
+   step skipped on both sides; C-check-1: 10 AdamW steps of
    that 2-layer model on the card and on the CPU from the same weights, a
    fresh batch each step, the per-step loss gap and whether it grows (a
    measurement); then fp32 on the card
@@ -409,7 +409,31 @@ Phases, each timed, none caught and passed over:
    forward and backward, against their CPU twins; ``graph_khop_sampler``
    with GraphSAGE's fanouts; the fused softmaxes at GPT-3 1.3B's scores;
    ``incubate.autograd`` at width 1024 and ``LookAhead`` / ``ModelAverage``
-   against the CPU.
+   against the CPU;
+15. static mode, the profiler, the monitor's op hook and quantization,
+   this slice's main path: phase 14's configuration without recompute
+   built under ``static.enable_static()``, its loss recorded as a Program
+   (``static.data`` ids and labels, 8 x 2048) and trained by
+   ``AdamW.minimize`` and ``Executor.run`` (a warm-up step and 3 timed
+   ones) against the Layer-API step from the same weights over the same
+   batches: the static step's launches equal to the eager step's (K1 49,
+   K2 96, K3, K5 and K6 24 a step), its losses and parameters bitwise the
+   eager step's, its time, host time and peak memory beside the eager
+   step's and the record time; ``profiler.Profiler(targets=[CPU, GPU],
+   scheduler=(1, 2))`` around two static steps, its exported Chrome trace
+   holding the recorded step's kernels as many times as they launched and
+   its host op spans under the ported names; one eager step with the
+   monitor on, ``paddle_tpu_op_latency_seconds`` counting each kernel op's
+   forward calls and the step's launches unchanged, no hook left once it
+   is off; a 2-layer twin at the same widths (1 x 256) on the card against
+   the CPU: ``QAT`` over its linears (2 AdamW steps), ``PTQ`` calibrated on
+   one forward, and ``static.quantization.quant_aware`` / ``convert`` over
+   its recorded program, losses within QUANT_LOSS_ATOL; and
+   ``jit.to_static`` of ``F.flash_attention`` with dropout at the training
+   shape (C-port-7): fresh masks each call, a repeat under ``seed`` equal,
+   the forward bitwise the eager kernel's at the seed the program derives
+   and the gradients within FLASH_DROPOUT_GRAD_RTOL of the eager kernels'
+   there (ten times further from those at another seed).
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--record PATH`` also
@@ -432,7 +456,7 @@ runs only the LoRA legs (phase 4's at 2 layers, then a plain ``Server``
 and phase 5's LoRA ``Server`` leg twice at 7B) and prints one JSON line:
 their readings and their spread in one process. ``--jit-deploy`` builds
 the kernels and runs only phase 14, printing its lines and its record as
-one JSON line.
+one JSON line; ``--static`` does the same for phase 15.
 """
 from __future__ import annotations
 
@@ -467,10 +491,10 @@ EAGER = dict(batches=4, warmup_steps=2, weight_decay=0.01, save_after=2,
 # gradients of a loss near 10 scaled by 2^10 stay far from fp16's 65504)
 # and its sequence: the CPU side's fp16 GEMMs ran at about 0.8 GFLOP/s on
 # the card's host (21 s for one 512 x 1024 x 32000 product; the whole
-# step at 512 tokens took 118 s of CPU time), so the fp16 step takes 32
-# tokens of each row (the scaler's checks need no longer a row); the bf16
-# step keeps TRAIN_E2E's 512
-EAGER_E2E = dict(scale=1024.0, fp16_seq=32)
+# step at 512 tokens took 118 s of CPU time), so the fp16 step takes 16
+# tokens of each row (the scaler's checks need no longer a row; 32 until
+# phase 15 needed the room); the bf16 step keeps TRAIN_E2E's 512
+EAGER_E2E = dict(scale=1024.0, fp16_seq=16)
 # phase 5's dense-cache runs on the 7B model: CausalLMEngine.generate on
 # GEN["batch"] prompts of GEN["plen"] tokens, and the dense engine's slots
 GEN = dict(batch=8, plen=512, new=32, max_len=1024)
@@ -552,9 +576,11 @@ FLEET = dict(new=32, kill_after=4, segment_steps=8, handoff_max=512,
 REPLICA_DEVICE = "cuda"         # the device the replica processes serve on
 SCRAPE_PAUSE_S = 0.01
 # C-check-1 (phase 4): train steps of the 2-layer bf16 model, card and CPU
-# (the CPU side about 2.7 s a step on the card's host); 20 keeps the first
-# and the last 10 steps, which the check compares, apart
-DRIFT_STEPS = 20
+# (the CPU side about 2.7 s a step on the card's host); 10 keeps the first
+# and the last DRIFT_WINDOW steps, which the check compares, apart (20 and
+# 10 until phase 15 needed the room)
+DRIFT_STEPS = 10
+DRIFT_WINDOW = DRIFT_STEPS // 2
 # GPT-3 6.7B widths (paddle_tpu/models/gpt.py:54, preset "6b7": hidden
 # 4096, 32 layers, 32 heads, FFN 4 x hidden) as a FusedMultiTransformer,
 # with phase 7's batch, context, cache length and decode steps
@@ -764,14 +790,15 @@ PATHS = ("serve", "serve_int8", "generate", "dense_serve", "serve_chunked",
                                              "classic2", "pipeline",
                                              "detection", "text",
                                              "to_static", "deploy",
-                                             "incubate_rest")
-# this slice's paths: phase 14's compiled to_static steps (K1, K2, K3, K5
-# and K6 as paddle_tpu:: library ops inside the inductor program, over the
-# timed steps), the Predictor's runs of the exported program (K1, K2, K3)
-# and the asp-decorated DistributedFusedLamb steps (eager: K1-K3, K5, K6)
-SLICE_PATHS = ("to_static", "deploy", "incubate_rest")
+                                             "incubate_rest", "static")
+# this slice's path: phase 15's static program's timed Executor.run steps
+# (K1, K2, K3, K5 and K6 through their eager wrappers)
+SLICE_PATHS = ("static",)
 # earlier slices' paths, in the order their counts stand in for a kernel
-# this slice does not run: phase 13's classic2 models, the input pipeline,
+# this slice does not run: phase 14's compiled to_static steps (the
+# paddle_tpu:: library ops inside the inductor program), the Predictor's
+# runs of the exported program (K1, K2, K3) and the asp-decorated
+# DistributedFusedLamb steps; phase 13's classic2 models, the input pipeline,
 # the detection operators and Viterbi decoding, and phase 12's ResNet-50,
 # vision, transformer and RNN legs (no kernel of the port: torch ops and
 # host numpy, as the reference's are XLA ops and numpy); phase 11's GPT-3 1.3B training steps (K3 causal
@@ -786,7 +813,8 @@ SLICE_PATHS = ("to_static", "deploy", "incubate_rest")
 # front's Server serve, the prefix-cache and memory-pressure legs, the
 # speculative Server serves and FMT (K8); then training, the eager
 # Model.fit steps among it (K5, K6); then the kernel ops (K9, K10)
-EARLIER_PATHS = (("classic2", "pipeline", "detection", "text", "resnet",
+EARLIER_PATHS = (("to_static", "deploy", "incubate_rest"),
+                 ("classic2", "pipeline", "detection", "text", "resnet",
                   "vision", "transformer", "rnn"),
                  ("gpt", "ernie", "incubate"), ("tensor_surface", "nn"),
                  ("server_ledger", "fleet", "disagg", "server_lora", "serve",
@@ -3717,9 +3745,9 @@ def train_drift(torch, np, models, cfg, start):
     same weights, a fresh seeded batch each step, on the card (kernels, with
     their bf16 roundings of P, dS and P_drop) and on the CPU (plain
     versions). Per step the loss on each side and their gap; whether the
-    gap grows (its mean over the last 10 steps above twice the first 10's
-    and above TRAIN_LOSS_ATOL); the parameters' largest relative gap at
-    the end. A measurement, not a gate: only a non-finite loss fails."""
+    gap grows (its mean over the last DRIFT_WINDOW steps above twice the
+    first DRIFT_WINDOW's and above TRAIN_LOSS_ATOL); the parameters'
+    largest relative gap at the end. A measurement, not a gate: only a non-finite loss fails."""
     from paddle_tpu_torch import build_train_step
 
     losses = ([], [])
@@ -3740,7 +3768,8 @@ def train_drift(torch, np, models, cfg, start):
     gap = [abs(a - b) for a, b in zip(*losses)]
     if not np.isfinite(losses).all():
         raise AssertionError(f"C-check-1: losses {losses}")
-    first, last = float(np.mean(gap[:10])), float(np.mean(gap[-10:]))
+    first = float(np.mean(gap[:DRIFT_WINDOW]))
+    last = float(np.mean(gap[-DRIFT_WINDOW:]))
     slope = float(np.polyfit(np.arange(len(gap)), gap, 1)[0])
     params = {k: rel_err(torch, p.detach().cpu(),
                          models[1].get_parameter(k).detach())
@@ -3748,12 +3777,14 @@ def train_drift(torch, np, models, cfg, start):
     worst = max(params, key=params.get)
     rec = {"steps": DRIFT_STEPS, "loss_card": losses[0],
            "loss_cpu": losses[1], "loss_gap": gap,
-           "gap_mean_first10": first, "gap_mean_last10": last,
+           "window": DRIFT_WINDOW, "gap_mean_first": first,
+           "gap_mean_last": last,
            "gap_slope_per_step": slope,
            "grows": bool(last > 2 * first and last > TRAIN_LOSS_ATOL),
            "param_max_rel_err": params[worst], "param_worst": worst}
     log(f"  C-check-1: {DRIFT_STEPS} steps, loss gap per step "
-        f"{[round(x, 5) for x in gap]}; mean first 10 {first:.5f}, last 10 "
+        f"{[round(x, 5) for x in gap]}; mean first {DRIFT_WINDOW} "
+        f"{first:.5f}, last {DRIFT_WINDOW} "
         f"{last:.5f}, slope {slope:.2e}/step, grows: {rec['grows']}; "
         f"parameters' largest relative gap {params[worst]:.3g} ({worst})")
     return rec
@@ -12037,6 +12068,562 @@ def log_jit_deploy(rec, smi) -> None:
         + f"  [{smi}]")
 
 
+# -- phase 15: static mode, the profiler, the monitor's op hook, quantization
+
+# the static leg: phase 14's configuration without recompute (the record
+# point records no recompute region), built under enable_static() from the
+# seed, AdamW.minimize, one warm-up Executor.run step and STATIC["steps"]
+# timed ones, against the Layer-API step (loss, backward, AdamW, clear_grad)
+# from the same weights over the same batches. The replay runs the eager
+# step's ops and launches in the eager order, so its losses and its
+# parameters after the steps are held bitwise equal to the eager step's.
+STATIC = dict(steps=3)
+# C-port-7 at the training shape: to_static of F.flash_attention with this
+# dropout, causal
+STATIC_DROPOUT = 0.1
+# the quantization leg: a QUANT["layers"]-layer twin at the training widths
+# on the card and on the CPU, QUANT["batch"] x QUANT["seq"] tokens: QAT over
+# every linear (QUANT["qat_steps"] AdamW steps), PTQ calibrated on one
+# forward, and static.quantization's passes over its recorded program
+QUANT = dict(layers=2, batch=1, seq=256, qat_steps=2)
+# QAT / PTQ / the quantized programs, card against CPU: both sides' bf16
+# matmuls sum in another order, so an activation within a rounding of a
+# boundary of the int8 grid lands a grid step (absmax / 127) away on one
+# side; over a 2-layer model that moves the loss by much less than twice
+# the plain model's card-against-CPU limit
+QUANT_LOSS_ATOL = 2 * TRAIN_LOSS_ATOL
+# C-port-7's gradients against the eager kernels' at the same seed, as a
+# share of their norm (rel_err): the compiled backward's delta is summed
+# in another order, which moves dq, dk and dv by fp32 rounding carried
+# through the bf16 kernels (phase 4's gradient limit)
+FLASH_DROPOUT_GRAD_RTOL = TRAIN_GRAD_RTOL
+# the kernels of the static step
+STATIC_KERNELS = ("rms_norm", "fused_rope", "flash_fwd", "flash_bwd_dq",
+                  "flash_bwd_dkv")
+
+
+def static_config(llama_config, **over):
+    return train_config(llama_config, recompute="none", **over)
+
+
+def static_step_launches(counts, L):
+    """One training step of L layers without recompute: K1 twice a layer
+    and the final norm (its backward is the plain one), K2 on q and k
+    forward and backward, K3, K5 and K6 once a layer."""
+    return expect(counts, rms_norm=2 * L + 1, fused_rope=4 * L, flash_fwd=L,
+                  flash_bwd_dq=L, flash_bwd_dkv=L)
+
+
+def _timed_steps(torch, step, batches):
+    """``step(ids, labels)`` over ``batches``: each step's loss tensor,
+    seconds, host seconds (until the step's last call returned) and
+    launches."""
+    from paddle_tpu_torch import ops
+
+    out = {"losses": [], "step_s": [], "host_s": [], "launches": []}
+    for ids, labels in batches:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        loss = step(ids, labels)
+        out["host_s"].append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t)
+        out["launches"].append(ops.launch_counts())
+        out["losses"].append(loss.detach())
+    return out
+
+
+def _layer_api_step(model, opt):
+    def step(ids, labels):
+        loss = model(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return step
+
+
+def _flash_dropout(q, k, v):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.flash_attention(q, k, v, dropout=STATIC_DROPOUT,
+                             causal=True)[0]
+
+
+def static_profiler_leg(torch, exe, main, loss, batches):
+    """``Profiler(targets=[CPU, GPU], scheduler=(1, 2))`` around two static
+    steps (the second recorded), exported with ``export_chrome_tracing``
+    and read back: the trace's kernel events by kernel against the launch
+    counters of the recorded step, and its host op spans by name."""
+    import tempfile
+
+    from paddle_tpu_torch import ops, profiler
+
+    counts = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        p = profiler.Profiler(
+            targets=[profiler.ProfilerTarget.CPU,
+                     profiler.ProfilerTarget.GPU],
+            scheduler=(1, 2),
+            on_trace_ready=profiler.export_chrome_tracing(out_dir, "static"))
+        p.start()
+        try:
+            for ids, labels in batches:
+                ops.reset_launch_counts()
+                exe.run(main, feed={"ids": ids, "labels": labels},
+                        fetch_list=[loss], return_numpy=False)
+                torch.cuda.synchronize()
+                counts.append(ops.launch_counts())
+                p.step()
+        finally:
+            p.stop()
+        doc = profiler.load_profiler_result(p.last_export)
+        trace = os.path.basename(p.last_export)
+        trace_kb = os.path.getsize(p.last_export) / 1024
+    kernels = {name: 0 for name, _ in _CATEGORIES}
+    spans = {}
+    for ev in doc["traceEvents"]:
+        if ev["cat"] == "kernel":
+            low = ev["name"].lower()
+            kernels[next(n for n, keys in _CATEGORIES
+                         if any(k in low for k in keys))] += 1
+        elif ev["cat"] == "op":
+            name = ev["name"][len("op::"):]
+            spans[name] = spans.get(name, 0) + 1
+    recorded = counts[1]
+    traced = {k: kernels[k] for k in STATIC_KERNELS}
+    if traced != {k: recorded[k] for k in STATIC_KERNELS}:
+        raise AssertionError(f"profiler: the trace's kernels {traced} != "
+                             f"the recorded step's launches {recorded}")
+    want = {"rms_norm": recorded["rms_norm"],
+            "fused_rope": recorded["fused_rope"] // 2,
+            "flash_attention": recorded["flash_fwd"]}
+    got = {k: spans.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"profiler: host op spans {got} != the forward "
+                             f"kernel calls {want}")
+    return {"trace": trace, "trace_kb": trace_kb,
+            "kernel_events": traced, "recorded_launches": recorded,
+            "op_spans": dict(sorted(spans.items(), key=lambda kv: -kv[1])),
+            "events": len(doc["traceEvents"])}
+
+
+def static_monitor_leg(torch, model, batch, L):
+    """One eager step with the monitor on: the latency histogram's counts
+    of the kernel ops against the step's forward launches, the step's
+    launches those of a step with the monitor off, and no hook (and
+    nothing on torch's mode stack) once the monitor is off again."""
+    from paddle_tpu_torch import monitor, ops, optimizer
+    from paddle_tpu_torch.core import op_hooks
+
+    opt = optimizer.AdamW(learning_rate=TRAIN["lr"],
+                          parameters=model.parameters(),
+                          weight_decay=EAGER["weight_decay"])
+    monitor.enable()
+    monitor.reset()
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        loss = model(*batch)
+        fwd = ops.launch_counts()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        step = ops.launch_counts()
+        snap = monitor.snapshot()["metrics"]
+        hist = {}
+        for s in snap["paddle_tpu_op_latency_seconds"]["samples"]:
+            op = s["labels"]["op"]
+            hist[op] = hist.get(op, 0) + s["count"]
+    finally:
+        monitor.reset()
+        monitor.disable()
+    if op_hooks.op_span_hook is not None \
+            or torch._C._len_torch_function_stack():
+        raise AssertionError("monitor off: the op hook or the record "
+                             "point's mode is still installed")
+    check_launches(step, static_step_launches(step, L),
+                   "an eager step with the monitor on")
+    want = {"rms_norm": fwd["rms_norm"], "fused_rope": fwd["fused_rope"],
+            "flash_attention": fwd["flash_fwd"]}
+    got = {k: hist.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"monitor: op counts {got} != the forward's "
+                             f"kernel calls {want}")
+    return {"op_counts": got, "forward_launches": fwd,
+            "ops_observed": len(hist),
+            "observations": sum(hist.values())}
+
+
+def static_leg(torch, np, dev, cfg, seed, batches):
+    """The 350m/h128 step as a static program against its eager twin."""
+    from paddle_tpu_torch import CUDAPlace, LlamaForCausalLM, optimizer, static
+
+    L = cfg.num_hidden_layers
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    eager = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed))
+    init = {k: v.detach().clone() for k, v in eager.state_dict().items()}
+    eager.train()
+    opt = optimizer.AdamW(learning_rate=TRAIN["lr"],
+                          parameters=eager.parameters(),
+                          weight_decay=EAGER["weight_decay"])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    e = _timed_steps(torch, _layer_api_step(eager, opt), batches)
+    e["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    e["step_mem_gb"] = e["peak_mem_gb"] - base
+    one = static_step_launches(e["launches"][0], L)
+    for i, c in enumerate(e["launches"]):
+        check_launches(c, one, f"eager step {i} of {L} layers, no recompute")
+
+    static.enable_static()
+    try:
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            ids = static.data("ids", [B, S], "int64")
+            labels = static.data("labels", [B, S], "int64")
+            model = LlamaForCausalLM(cfg, device=dev, generator=(
+                torch.Generator(dev).manual_seed(seed)))
+            for k, v in model.state_dict().items():
+                if not torch.equal(v, init[k]):
+                    raise AssertionError(f"static: {k} built unlike the "
+                                         f"eager twin's")
+            del init
+            model.train()
+            t = time.perf_counter()
+            loss = model(ids, labels)
+            record_s = time.perf_counter() - t
+            optimizer.AdamW(learning_rate=TRAIN["lr"],
+                            weight_decay=EAGER["weight_decay"]).minimize(loss)
+        # the first recording in a process also loads torch's meta
+        # kernels; a second one (into a program left unrun) reads the
+        # recording's own cost
+        with static.program_guard(static.Program(), static.Program()):
+            t = time.perf_counter()
+            model(static.data("ids", [B, S], "int64"),
+                  static.data("labels", [B, S], "int64"))
+            record_again_s = time.perf_counter() - t
+        exe = static.Executor(CUDAPlace(dev.index or 0))
+        exe.run(startup)
+        torch.cuda.reset_peak_memory_stats()
+        # the eager twin's model and AdamW state stay allocated (for the
+        # bitwise check): each leg's steps are read above what was
+        # allocated before them
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        s = _timed_steps(torch, lambda i, l: exe.run(
+            main, feed={"ids": i, "labels": l}, fetch_list=[loss],
+            return_numpy=False)[0], batches)
+        s["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        s["step_mem_gb"] = s["peak_mem_gb"] - base
+        for i, c in enumerate(s["launches"]):
+            check_launches(c, e["launches"][i], f"static step {i}: the eager "
+                                                f"step's launches")
+        for i, (a, b) in enumerate(zip(s["losses"], e["losses"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"static step {i}: loss {float(a)!r} "
+                                     f"against eager {float(b)!r}")
+        worst, where = 0.0, None
+        for k, p in model.named_parameters():
+            d = float((p.detach().float()
+                       - eager.get_parameter(k).detach().float()).abs().max())
+            if d > worst:
+                worst, where = d, k
+        if where is not None:
+            raise AssertionError(f"static: parameters part from the eager "
+                                 f"step's after {len(batches)} steps, most "
+                                 f"at {where} by {worst:.3g}")
+        prof = static_profiler_leg(torch, exe, main, loss, batches[1:3])
+    finally:
+        static.disable_static()
+    mon = static_monitor_leg(torch, eager, batches[0], L)
+    tokens = B * S
+    e_med, s_med = (statistics.median(r["step_s"][1:]) for r in (e, s))
+    rec = {"layers": L, "batch": B, "seq": S, "nodes": len(main.nodes),
+           "params": len(main.param_vars), "record_s": record_s,
+           "record_again_s": record_again_s,
+           "eager": {k: e[k] for k in ("step_s", "host_s", "peak_mem_gb",
+                                       "step_mem_gb")},
+           "static": {k: s[k] for k in ("step_s", "host_s", "peak_mem_gb",
+                                        "step_mem_gb")},
+           "losses": [float(x) for x in s["losses"]],
+           "bitwise": True,
+           "launches_per_step": s["launches"][-1],
+           "launches": {k: sum(c[k] for c in s["launches"][1:])
+                        for k in s["launches"][0]},
+           "profiler": prof, "monitor": mon}
+    rec["eager"].update(step_s_median=e_med, tokens_per_s=tokens / e_med,
+                        host_s_median=statistics.median(e["host_s"][1:]))
+    rec["static"].update(step_s_median=s_med, tokens_per_s=tokens / s_med,
+                         host_s_median=statistics.median(s["host_s"][1:]))
+    del model, eager, opt, exe, main
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _quant_losses(torch, make, ids, labels, steps):
+    """``make()``'s model trained ``steps`` AdamW steps: the loss of each."""
+    from paddle_tpu_torch import optimizer
+
+    m = make()
+    opt = optimizer.AdamW(learning_rate=TRAIN["lr"],
+                          parameters=m.parameters(),
+                          weight_decay=EAGER["weight_decay"])
+    out = []
+    for _ in range(steps):
+        loss = m(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        out.append(float(loss.detach()))
+    return out
+
+
+def _static_quant(torch, model, ids, labels, place):
+    """``static.quantization`` over ``model``'s recorded forward with the
+    loss: the plain, the quant-aware and the frozen program's losses, and
+    the fake-quant nodes inserted."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static.quantization import convert, quant_aware
+
+    static.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main, static.Program()):
+            i = static.data("ids", list(ids.shape), "int64")
+            l = static.data("labels", list(labels.shape), "int64")
+            loss = model(i, l)
+        exe = static.Executor(place)
+        feed = {"ids": ids, "labels": labels}
+        qprog = quant_aware(main)
+        out = {"plain": exe.run(main, feed=feed, fetch_list=[loss])[0],
+               "quant_aware": exe.run(qprog, feed=feed,
+                                      fetch_list=[loss])[0]}
+        fprog = convert(qprog)
+        out["frozen"] = exe.run(fprog, feed=feed, fetch_list=[loss])[0]
+    finally:
+        static.disable_static()
+    return {k: float(v) for k, v in out.items()}, qprog._quant_inserted
+
+
+def quant_leg(torch, np, dev, seed):
+    """QAT, PTQ and static.quantization on a 2-layer twin at the training
+    widths, on the card and on the CPU from the same weights."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, LlamaForCausalLM, \
+        llama_config
+    from paddle_tpu_torch import quantization as q
+
+    cfg = static_config(llama_config, num_hidden_layers=QUANT["layers"])
+    card = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed + 1))
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.RandomState(seed + 1)
+    tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (
+        QUANT["batch"], QUANT["seq"] + 1)).astype(np.int64))
+    sides = ((card, tok[:, :-1].to(dev), tok[:, 1:].to(dev),
+              CUDAPlace(dev.index or 0)),
+             (cpu, tok[:, :-1], tok[:, 1:], CPUPlace()))
+    rec = {"layers": cfg.num_hidden_layers, "batch": QUANT["batch"],
+           "seq": QUANT["seq"], "atol": QUANT_LOSS_ATOL}
+
+    def close(what, a, b):
+        a, b = np.atleast_1d(a), np.atleast_1d(b)
+        err = float(np.abs(a - b).max())
+        if not (np.isfinite(a).all() and np.isfinite(b).all()
+                and err <= QUANT_LOSS_ATOL):
+            raise AssertionError(f"{what}: card {a.tolist()}, CPU "
+                                 f"{b.tolist()}")
+        return {"card": a.tolist(), "cpu": b.tolist(), "max_abs_err": err}
+
+    t = time.perf_counter()
+    qat = [_quant_losses(torch, lambda m=m: q.QAT(q.QuantConfig()).quantize(
+        m), ids, labels, QUANT["qat_steps"]) for m, ids, labels, _ in sides]
+    rec["qat"] = close("QAT losses", *qat)
+    rec["qat"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ptq = []
+    for m, ids, labels, _ in sides:
+        drv = q.PTQ()
+        qm = drv.quantize(m)
+        with torch.no_grad():
+            qm(ids)
+            conv = drv.convert(qm)
+            ptq.append((float(conv(ids, labels)),
+                        [o._max for o in drv._observers]))
+    rec["ptq"] = close("PTQ loss", ptq[0][0], ptq[1][0])
+    scales = np.array([ptq[0][1], ptq[1][1]])
+    rec["ptq"]["observers"] = len(ptq[0][1])
+    rec["ptq"]["scale_max_rel_err"] = float(
+        np.abs(scales[0] - scales[1]).max() / np.abs(scales[1]).max())
+    rec["ptq"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    progs = [_static_quant(torch, m, ids, labels, place)
+             for m, ids, labels, place in sides]
+    if progs[0][1] != progs[1][1]:
+        raise AssertionError(f"quant_aware inserted {progs[0][1]} nodes on "
+                             f"the card, {progs[1][1]} on the CPU")
+    rec["static"] = {k: close(f"static.quantization {k} loss",
+                              progs[0][0][k], progs[1][0][k])
+                     for k in progs[0][0]}
+    rec["static"]["inserted"] = progs[0][1]
+    rec["static"]["s"] = time.perf_counter() - t
+    del card, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flash_dropout_leg(torch, dev, seed):
+    """C-port-7: ``jit.to_static`` of ``F.flash_attention`` with dropout at
+    the training shape (inductor). Two calls draw different masks, a call
+    after the same ``paddle.seed`` repeats, the compiled forward is
+    bitwise the eager kernel's at the seed the program derives
+    (``derive_seed(its call's draw, 0)``), and its gradients are within
+    FLASH_DROPOUT_GRAD_RTOL of the eager kernels' at that seed and ten
+    times further from those at another: the forward's mask reached the
+    backward ops."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.core.random import derive_seed, draw_seed
+    from paddle_tpu_torch.ops import attention
+
+    B, S, H, D = TRAIN["batch"], TRAIN["seq"], 8, 128
+    g = torch.Generator(dev).manual_seed(seed + 2)
+    q, k, v, do = (torch.randn(B, S, H, D, device=dev, generator=g,
+                               dtype=torch.bfloat16) for _ in range(4))
+    f = jit.to_static(_flash_dropout)
+
+    def call(fn, *extra):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs, *extra)
+        out.backward(do)
+        torch.cuda.synchronize()
+        return out.detach(), [x.grad for x in xs]
+
+    t = time.perf_counter()
+    pt.seed(seed)
+    a, ga = call(f)
+    compile_s = time.perf_counter() - t
+    b, _ = call(f)
+    pt.seed(seed)
+    a2, _ = call(f)
+    pt.seed(seed)
+    want_seed = derive_seed(draw_seed(), 0)
+
+    def eager(s):
+        return call(lambda x, y, z: attention.flash_attention(
+            x, y, z, causal=True, dropout_p=STATIC_DROPOUT, seed=s))
+
+    e, ge = eager(want_seed)
+    _, go = eager(want_seed + 1)
+    # the compiled backward computes delta = rowsum(dO * O) in a fused
+    # kernel of its own, so its gradients part from the eager kernels' by
+    # fp32 rounding; another mask moves them by far more
+    same = max(rel_err(torch, x, y) for x, y in zip(ga, ge))
+    other = min(rel_err(torch, x, y) for x, y in zip(ga, go))
+    checks = {"repeats_under_seed": torch.equal(a, a2),
+              "fresh_each_call": not torch.equal(a, b),
+              "forward_equals_eager": torch.equal(a, e),
+              "grads_follow_the_mask": (same <= FLASH_DROPOUT_GRAD_RTOL
+                                        and other > 10 * same),
+              "one_graph": f.compiles == 1}
+    if not all(checks.values()):
+        raise AssertionError(f"C-port-7 on the card: {checks}, gradients "
+                             f"within {same:.3g} of the eager kernels' at "
+                             f"the derived seed, {other:.3g} at another")
+    t = time.perf_counter()
+    for _ in range(3):
+        call(f)
+    return {"shape": [B, S, H, D], "dropout": STATIC_DROPOUT,
+            "compile_s": compile_s, "call_s": (time.perf_counter() - t) / 3,
+            "grad_rel_err_same_seed": same,
+            "grad_rel_err_other_seed": other, **checks}
+
+
+def static_phase(torch, dev, np, seed):
+    """Phase 15: static mode, the profiler, the monitor's op hook,
+    quantization and C-port-7 on the card."""
+    from paddle_tpu_torch import llama_config
+
+    t0 = time.perf_counter()
+    cfg = static_config(llama_config)
+    batches = eager_batches(torch, np, cfg, 1 + STATIC["steps"], seed,
+                            TRAIN["batch"], TRAIN["seq"], dev)
+    rec = {"config": f"{TRAIN['preset']} {TRAIN['overrides']}, recompute "
+                     f"none"}
+    t = time.perf_counter()
+    rec["static"] = static_leg(torch, np, dev, cfg, seed, batches)
+    rec["static"]["s"] = time.perf_counter() - t
+    del batches
+    t = time.perf_counter()
+    rec["quant"] = quant_leg(torch, np, dev, seed)
+    rec["quant"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["flash_dropout"] = flash_dropout_leg(torch, dev, seed)
+    rec["flash_dropout"]["s"] = time.perf_counter() - t
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def log_static(rec, smi) -> None:
+    """Phase 15's lines."""
+    st = rec["static"]
+    e, s = st["eager"], st["static"]
+    log(f"[static] {rec['config']} x{st['layers']}, {st['batch']}x"
+        f"{st['seq']} tokens, AdamW: static program of {st['nodes']} nodes "
+        f"({st['params']} parameters) recorded in {st['record_s']:.3f} s "
+        f"(again {st['record_again_s']:.3f} s); "
+        f"Executor.run step {s['step_s_median']:.4f} s (steps "
+        f"{[round(x, 4) for x in s['step_s']]}, host "
+        f"{s['host_s_median'] * 1e3:.1f} ms a step), "
+        f"{s['tokens_per_s']:.1f} tokens/s, peak {s['peak_mem_gb']:.2f} GiB "
+        f"({s['step_mem_gb']:.2f} above what was allocated before the "
+        f"steps); eager step {e['step_s_median']:.4f} s (host "
+        f"{e['host_s_median'] * 1e3:.1f} ms), {e['tokens_per_s']:.1f} "
+        f"tokens/s, peak {e['peak_mem_gb']:.2f} GiB "
+        f"({e['step_mem_gb']:.2f} above)  [{smi}]")
+    log(f"[static] launches a step, static = eager: "
+        f"{st['launches_per_step']}; losses {st['losses']} and the "
+        f"parameters after {len(st['losses'])} steps bitwise the eager "
+        f"step's  [{smi}]")
+    p = st["profiler"]
+    log(f"[static] profiler (CPU + GPU, scheduler (1, 2)) over 2 static "
+        f"steps: {p['events']} events in {p['trace']} ({p['trace_kb']:.0f} "
+        f"KB); kernel events {p['kernel_events']} = the recorded step's "
+        f"launches; host op spans, most frequent: "
+        + ", ".join(f"{k} {v}" for k, v in list(p["op_spans"].items())[:8])
+        + f"  [{smi}]")
+    m = st["monitor"]
+    log(f"[static] monitor on, one eager step: paddle_tpu_op_latency_seconds "
+        f"counts {m['op_counts']} = the forward's kernel calls, "
+        f"{m['observations']} observations of {m['ops_observed']} ops; off "
+        f"again: no hook, nothing on torch's mode stack  [{smi}]")
+    qr = rec["quant"]
+    log(f"[static] quantization at {qr['layers']} layers, {qr['batch']}x"
+        f"{qr['seq']} tokens, card against CPU (limit {qr['atol']}): QAT "
+        f"losses {qr['qat']['card']} / {qr['qat']['cpu']}; PTQ loss "
+        f"{qr['ptq']['card']} / {qr['ptq']['cpu']} ({qr['ptq']['observers']} "
+        f"observers, scales within {qr['ptq']['scale_max_rel_err']:.3g}); "
+        f"static.quantization ({qr['static']['inserted']} fake-quant nodes) "
+        + ", ".join(f"{k} {qr['static'][k]['card']} / {qr['static'][k]['cpu']}"
+                    for k in ("plain", "quant_aware", "frozen"))
+        + f"  [{smi}]")
+    fd = rec["flash_dropout"]
+    log(f"[static] C-port-7: to_static of F.flash_attention(dropout="
+        f"{fd['dropout']}, causal) at {fd['shape']}: compiled in "
+        f"{fd['compile_s']:.1f} s, {fd['call_s'] * 1e3:.2f} ms a forward and "
+        f"backward; fresh each call, repeats under seed, forward bitwise the "
+        f"eager kernel's at the derived seed, gradients within "
+        f"{fd['grad_rel_err_same_seed']:.3g} of the eager kernels' there "
+        f"(limit {FLASH_DROPOUT_GRAD_RTOL}; "
+        f"{fd['grad_rel_err_other_seed']:.3g} at another seed)  [{smi}]")
+    log(f"[static] seconds: static leg {st['s']:.1f}, quantization "
+        f"{qr['s']:.1f}, C-port-7 {fd['s']:.1f}, phase {rec['s']:.1f}  "
+        f"[{smi}]")
+
+
 # kernel name fragments -> where the device time goes
 _CATEGORIES = [("rms_norm", ("rms_norm_vec_kernel", "rms_norm_elem_kernel")),
                ("fused_layer_norm", ("_layer_norm_kernel",)),
@@ -12313,6 +12900,11 @@ def main(argv=None) -> int:
                     help="only build the kernels and run phase 14 (jit."
                          "to_static training, the deploy path, incubate's "
                          "rest) and print its lines and one JSON line")
+    ap.add_argument("--static", action="store_true",
+                    help="build the kernels and run only phase 15 (static "
+                         "mode, the profiler, the monitor's op hook, "
+                         "quantization), printing its lines and its record "
+                         "as one JSON line")
     ap.add_argument("--lora-times", action="store_true",
                     help="only run the LoRA legs (phase 4's at 2 layers, "
                          "then a plain Server and phase 5's LoRA Server "
@@ -12357,6 +12949,21 @@ def main(argv=None) -> int:
         jd = jit_deploy_phase(torch, torch.device("cuda"), np, args.seed)
         log_jit_deploy(jd, smi)
         log(json.dumps(jd, default=str))
+        return 0
+    if args.static:
+        sys.path.insert(0, ROOT)
+        import numpy as np
+
+        from paddle_tpu_torch.ops import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        smi = smi_line()
+        log(smi)
+        log(f"[build] nvcc {_build.build_all():.2f}s")
+        sp = static_phase(torch, torch.device("cuda"), np, args.seed)
+        log_static(sp, smi)
+        log(json.dumps(sp, default=str))
         return 0
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -12458,8 +13065,8 @@ def main(argv=None) -> int:
     log(f"[e2e] train {json.dumps(record['train_e2e'])}")
     dr = record["train_e2e"]["drift"]
     log(f"[e2e] C-check-1: {dr['steps']} steps of 2 layers, loss gap mean "
-        f"{dr['gap_mean_first10']:.5f} over the first 10 and "
-        f"{dr['gap_mean_last10']:.5f} over the last 10, grows: "
+        f"{dr['gap_mean_first']:.5f} over the first {dr['window']} and "
+        f"{dr['gap_mean_last']:.5f} over the last {dr['window']}, grows: "
         f"{dr['grows']}  [{smi}]")
     le = record["e2e"]["ledger"]
     log(f"[e2e] program ledger at 2 layers, card and CPU: the same "
@@ -12796,6 +13403,14 @@ def main(argv=None) -> int:
     record["phases"]["jit_deploy"] = time.perf_counter() - t
     log_jit_deploy(jd, smi)
     log(f"[jit-deploy] {record['phases']['jit_deploy']:.1f}s")
+    # 15. static mode, the profiler, the monitor's op hook and
+    # quantization: this slice's main path
+    t = time.perf_counter()
+    st = static_phase(torch, dev, np, args.seed)
+    record["static"] = st
+    record["phases"]["static"] = time.perf_counter() - t
+    log_static(st, smi)
+    log(f"[static] {record['phases']['static']:.1f}s")
     record["total_s"] = time.perf_counter() - t_all
 
     runs = dict(serve=sv, serve_int8=sq, generate=gn, dense_serve=ds,
@@ -12812,7 +13427,8 @@ def main(argv=None) -> int:
                 classic2=v2["classic2"], pipeline=v2["pipeline"],
                 detection=v2["detection"], text=v2["text"],
                 to_static=jd["to_static"], deploy=jd["deploy"],
-                incubate_rest=jd["incubate_rest"]["asp"])
+                incubate_rest=jd["incubate_rest"]["asp"],
+                static=st["static"])
     kernels = kernel_entries(rows, runs)
     record["kernels"] = kernels
     if args.record:

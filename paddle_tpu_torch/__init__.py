@@ -68,6 +68,14 @@ enter compiled and exported programs as ``paddle_tpu::`` library ops.
 ``geometric`` (message passing and sampling) and incubate's ``asp``,
 ``autograd``, ``optimizer`` and top-level functions.
 
+The op record point (``core/dispatch.py``, the counterpart of the JAX
+package's ``apply_op``) and what stands on it: static mode
+(``enable_static``, ``static.Program``, ``static.Executor``,
+``append_backward``, ``static.amp``, ``static.quantization``), the
+``profiler`` (host op spans and the card's kernels through
+``torch.profiler``), the monitor's per-op latency hook and
+``monitored_jit``; and ``quantization``'s QAT and PTQ.
+
 ``serving``, ``monitor``, ``tracing``, ``testing``, ``profiler``, ``amp``,
 ``metric``, ``autograd``, ``io``, ``vision``, ``text``, ``jit``,
 ``static``, ``onnx``, ``geometric`` and ``incubate`` load on first
@@ -145,6 +153,26 @@ _LAZY_ATTRS = {
     "flops": ("paddle_tpu_torch.hapi.dynamic_flops", "flops"),
     "to_static": ("paddle_tpu_torch.jit", "to_static"),
 }
+
+
+def enable_static():
+    """Enter static (record-then-replay) mode: see
+    ``paddle_tpu_torch.static``."""
+    from .static import enable_static as _e
+
+    return _e()
+
+
+def disable_static(place=None):
+    from .static import disable_static as _d
+
+    return _d()
+
+
+def in_dynamic_mode() -> bool:
+    from .static.program import in_static_mode
+
+    return not in_static_mode()
 
 
 def __getattr__(name):

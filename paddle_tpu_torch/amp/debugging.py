@@ -1,11 +1,12 @@
 """AMP numerical debugging (port of ``paddle_tpu/amp/debugging.py``).
 
 The reference collects per-op statistics and checks for nan/inf through a
-hook in its single eager dispatcher. The port has no dispatcher (a
-``TorchDispatchMode`` would see aten ops but not the kernel launches), so
-the hook is ``framework.amp_state.checker``, which the port's ops call on
-their own outputs (``check_outputs``) when a checker is installed or
-``FLAGS_check_nan_inf`` is on, and nowhere else: nothing is installed by
+hook in its single eager dispatcher (``apply_op``). The port's counterpart
+of that dispatcher, the record point (``core/dispatch.py``), carries the op
+hook for spans and static recording; the checks stay where the port's ops
+already call them, on their own outputs: ``framework.amp_state.checker``
+(``check_outputs``), called when a checker is installed or
+``FLAGS_check_nan_inf`` is on, and nowhere else. Nothing is installed by
 default, and nothing runs while a CUDA graph is captured.
 """
 from __future__ import annotations

@@ -30,6 +30,8 @@ from typing import Dict, List
 
 import torch
 
+from . import dispatch
+
 # the reference's names; the compiled programs' seed helpers below are the
 # port's own and stay out of the surface
 __all__ = ["Generator", "default_generator", "seed", "get_rng_state",
@@ -97,12 +99,20 @@ def set_rng_state(state) -> None:
     default_generator.set_state(state[0])
 
 
+def _uniform_meta(shape, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device="meta")
+
+
+@dispatch.op("uniform", meta=_uniform_meta)
 def uniform(shape, device) -> torch.Tensor:
     """fp32 uniforms in [0, 1) of ``shape`` on ``device``: from
     :data:`default_generator`, or while compiling from the program's seed
-    (:func:`traced_uniform`)."""
+    (:func:`traced_uniform`). A program being recorded records the draw
+    (the meta device), so every run of it draws anew."""
     if torch.compiler.is_compiling():
         return traced_uniform(shape, device)
+    if torch.device(device).type == "meta":
+        return _uniform_meta(shape, device)
     return torch.rand(shape, generator=default_generator.generator(device),
                       device=device)
 
@@ -140,6 +150,35 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 13)
     x = (x * 0xC2B2AE35) & _M32
     return x ^ (x >> 16)
+
+
+def traced_seed():
+    """``(seed tensor, place)``: the seed of the program being traced and
+    this draw's place among the program's draws, for a kernel that takes
+    its seed as an input (``F.flash_attention``'s dropout:
+    ``derive_seed`` of the two is its seed, computed when the kernel runs,
+    so it is fresh on every call of the compiled program)."""
+    if not _trace_seeds:
+        raise RuntimeError(
+            "a random draw while compiling needs the seed that "
+            "paddle_tpu_torch.jit.to_static hands its program; compile "
+            "through jit.to_static, or draw outside the compiled region")
+    slot = _trace_seeds[-1]
+    site = slot[1]
+    slot[1] = site + 1
+    return slot[0], site
+
+
+def derive_seed(seed: int, site: int) -> int:
+    """A kernel seed in [0, 2^31) from a program's seed and a draw's place
+    in it: :func:`_mix` on host ints."""
+    x = (seed & _M32) ^ ((site * 0x9E3779B9) & _M32)
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _M32
+    x ^= x >> 16
+    return x & 0x7FFFFFFF
 
 
 def traced_uniform(shape, device) -> torch.Tensor:

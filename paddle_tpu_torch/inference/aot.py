@@ -35,9 +35,13 @@ def export_fn(fn: Callable, *example_args, dynamic_shapes=None):
     """``torch.export`` of ``fn`` (a function or a module) at the example
     arguments' shapes (``dynamic_shapes`` as ``torch.export.export`` takes
     them). Returns the ``ExportedProgram``; call it through ``.module()``."""
+    from ..core import dispatch
+
     mod = fn if isinstance(fn, torch.nn.Module) else _Fn(fn)
-    return torch.export.export(mod, tuple(example_args),
-                               dynamic_shapes=dynamic_shapes, strict=False)
+    with dispatch.suspended():
+        return torch.export.export(mod, tuple(example_args),
+                                   dynamic_shapes=dynamic_shapes,
+                                   strict=False)
 
 
 def serialize_exported(exported) -> bytes:

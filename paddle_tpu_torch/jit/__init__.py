@@ -11,7 +11,9 @@ never as a silent graph break. Autograd flows through the compiled forward
 into ``loss.backward()`` (a compiled backward), buffers (BatchNorm's running
 statistics) update as in eager, and every compile, the first and each
 recompile, is counted (``StaticFunction.compiles`` and, with the monitor on,
-``paddle_tpu_jit_cache_miss_total{fn="to_static:<name>"}``).
+``paddle_tpu_jit_cache_miss_total{fn="to_static:<name>"}``): the program
+compiles through ``monitor.monitored_jit``, which also runs it with the
+record point suspended.
 
 The kernels K1, K2, K3, K5 and K6 enter a compiled program as the library
 ops ``paddle_tpu::rms_norm``, ``fused_rope``, ``flash_fwd``,
@@ -85,7 +87,6 @@ class StaticFunction:
         self._input_spec = input_spec
         self._backend = _backend(backend)
         self._compiled = None
-        self.compiles = 0
         functools.update_wrapper(self, function,
                                  assigned=("__name__", "__doc__",
                                            "__qualname__"),
@@ -95,22 +96,15 @@ class StaticFunction:
     def _label(self) -> str:
         return "to_static:" + getattr(self._raw_fn, "__name__", "fn")
 
-    def _count_compile(self, gm, example_inputs):
-        """The backend the program compiles through: counts the compile,
-        then hands the graph to the real backend."""
-        self.compiles += 1
-        from .. import monitor
-
-        if monitor.enabled():
-            monitor.counter(
-                "paddle_tpu_jit_cache_miss_total",
-                "jit traces+compiles (cache misses) per entry point and "
-                "program", ("fn", "program")).labels(
-                    fn=self._label, program=self._label).inc()
-        return self._backend(gm, example_inputs)
+    @property
+    def compiles(self) -> int:
+        """Programs compiled so far (the first and each recompile)."""
+        return self._compiled.compiles if self._compiled is not None else 0
 
     def _program(self):
         if self._compiled is None:
+            from ..monitor import monitored_jit
+
             fn = self._fn
 
             def program(seed, args, kwargs):
@@ -127,8 +121,9 @@ class StaticFunction:
             program = types.FunctionType(
                 program.__code__.replace(co_name=name, co_qualname=name),
                 program.__globals__, name, None, program.__closure__)
-            self._compiled = torch.compile(program, fullgraph=True,
-                                           backend=self._count_compile)
+            self._compiled = monitored_jit(program, name=self._label,
+                                           fullgraph=True,
+                                           backend=self._backend)
         return self._compiled
 
     def __call__(self, *args, **kwargs):
@@ -260,7 +255,9 @@ def export_program(layer, input_spec, device=None):
     dev = device or next(iter(params.values())).device
     examples, dims = _example_and_dims(input_spec, dev)
     param_dims = {k: None for k in params}
-    with torch.no_grad():
+    from ..core import dispatch
+
+    with dispatch.suspended(), torch.no_grad():
         ep = torch.export.export(
             _Program(layer), (params, *examples),
             dynamic_shapes=(param_dims, tuple(dims)), strict=False)

@@ -530,9 +530,11 @@ class LlamaModel(nn.Module):
         eagerly before it is captured into a CUDA graph (the engines'
         ``inference/_graphs.py`` does), and a replay reads the same
         tables. While compiling they are computed in the program, not
-        cached: under ``torch.export`` ``n`` is a symbolic length."""
+        cached: under ``torch.export`` ``n`` is a symbolic length; so are
+        they in a static program being recorded (``like`` symbolic), which
+        computes them on each run."""
         cfg = self.config
-        if torch.compiler.is_compiling():
+        if torch.compiler.is_compiling() or like.is_meta:
             return _rope_cos_sin(n, cfg.head_dim, cfg.rope_theta, like.dtype,
                                  like.device)
         key = (n, like.dtype, like.device)

@@ -66,17 +66,28 @@ feed the reference's ``paddle_tpu_jit_cache_miss_total{fn,program}`` and
 (prefill buckets and chunks, slot-state installs, scale resets, LoRA row
 installs) through :func:`monitored_eager`.
 
-Not ported: the per-op latency hook (``install_op_hook``): the port has no
-``apply_op`` choke point.
+The per-op latency histogram ``paddle_tpu_op_latency_seconds{op}``
+(:func:`install_op_hook`, installed while the monitor is on) hangs on the
+port's record point (``core/dispatch.py``), the counterpart of the
+reference's ``apply_op``: one observation per outermost op, named as the
+reference names it, chained with the profiler's span hook in either order
+(``core/op_hooks.py``). :func:`monitored_jit` is the reference's compile
+tracker over ``torch.compile``: cache misses and compile seconds per
+program (``paddle_tpu_jit_cache_miss_total{fn,program}``,
+``paddle_tpu_jit_compile_seconds_total{fn,program}``) and ledger rows while
+the ledger is on; ``jit.to_static`` registers its programs through it.
 """
 from __future__ import annotations
 
 import bisect
+import functools
 import itertools
 import json
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..core import op_hooks as _op_hooks  # dependency-free leaf module
 
 __all__ = [
     "Counter", "Gauge", "Histogram",
@@ -85,7 +96,8 @@ __all__ = [
     "snapshot", "render_prometheus", "write_jsonl", "reset",
     "remove_series",
     "start_http_server", "http_payload", "monitored_eager",
-    "instance_label",
+    "instance_label", "monitored_jit", "install_op_hook",
+    "uninstall_op_hook",
 ]
 
 _instance_counters: Dict[str, "itertools.count"] = {}
@@ -404,9 +416,13 @@ def enabled() -> bool:
 
 def _sync_enabled(value: bool) -> None:
     """Flag push target (framework.flags.set_flags): flips the fast-path
-    bool."""
+    bool and installs/uninstalls the per-op hook."""
     global _enabled
     _enabled = bool(value)
+    if _enabled:
+        install_op_hook()
+    else:
+        uninstall_op_hook()
 
 
 def enable() -> None:
@@ -421,6 +437,169 @@ def disable() -> None:
     from ..framework.flags import set_flags
 
     set_flags({"FLAGS_enable_monitor": False})
+
+
+# -- per-op instrumentation (the record point's op_hooks slot) ---------------
+
+_op_hist: Optional["Histogram"] = None
+_op_children: Dict[str, "_Bound"] = {}  # op name -> bound series (fast path)
+_chained_prev: Optional[Callable[[str, int, int], None]] = None
+_in_chain = False  # True while _op_span_hook is reachable from the slot
+
+
+def _op_span_hook(name: str, start_ns: int, end_ns: int) -> None:
+    prev = _chained_prev
+    if _enabled:
+        if _op_hist is not None:
+            # the bound series cached per op: this runs on every op
+            child = _op_children.get(name)
+            if child is None:
+                child = _op_children.setdefault(
+                    name, _op_hist.labels(op=name))
+            child.observe((end_ns - start_ns) / 1e9)
+    elif _op_hooks.op_span_hook is _op_span_hook:
+        # disabled but still in the slot (a profiler's stop() restored us
+        # after disable() could not reach us): leave now, so the slot
+        # converges to None; prev was read above, so the event still
+        # reaches the chain below us
+        uninstall_op_hook()
+    if prev is not None:
+        prev(name, start_ns, end_ns)
+
+
+def install_op_hook() -> None:
+    """Install the per-op latency histogram on the record point, chaining
+    to whatever hook was already there (the profiler chains the same way,
+    so spans and histograms fan out from one op).
+
+    Idempotent through ``_in_chain``: once our hook is reachable from the
+    slot, even under a profiler hook that captured it as its prev,
+    installing again is a no-op, or we would chain to a hook that already
+    chains to us and every op would recurse forever."""
+    global _op_hist, _chained_prev, _in_chain
+    if _in_chain or _op_hooks.op_span_hook is _op_span_hook:
+        return
+    if _op_hist is None:
+        _op_hist = histogram(
+            "paddle_tpu_op_latency_seconds",
+            "eager apply_op dispatch latency (host wall time) per op",
+            ("op",))
+    _chained_prev = _op_hooks.skip_dead(_op_hooks.op_span_hook)
+    _in_chain = True
+    _op_hooks.op_span_hook = _op_span_hook
+
+
+def uninstall_op_hook() -> None:
+    """Remove the monitor hook when the slot is ours. If another consumer
+    (the profiler) installed on top of us, the chain is left intact: our
+    hook no-ops while disabled and keeps forwarding to the hook below, and a
+    later enable() just flips the bool back (``_in_chain`` stays True)."""
+    global _chained_prev, _in_chain
+    if _op_hooks.op_span_hook is _op_span_hook:
+        # restore the chain below us, minus hooks of profiler windows that
+        # stopped while we sat on top of them
+        prev = _op_hooks.skip_dead(_chained_prev)
+        _chained_prev = None
+        _in_chain = False
+        _op_hooks.op_span_hook = prev
+
+
+# -- compiled programs ----------------------------------------------------------
+
+
+def _arg_key(args, kwargs) -> tuple:
+    """A program key of a call's arguments: each tensor's shape and dtype,
+    each plain value itself (ints, strs, bools as ``program_id`` takes
+    them)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    out = []
+    for x in pytree.tree_leaves((args, kwargs)):
+        if isinstance(x, torch.Tensor):
+            out.append(str((tuple(x.shape), str(x.dtype).removeprefix(
+                "torch."))))
+        elif isinstance(x, (int, float, bool, str, type(None))):
+            out.append(repr(x))
+        else:
+            out.append(type(x).__name__)
+    return tuple(out)
+
+
+def monitored_jit(fn: Optional[Callable] = None, *, name: Optional[str] = None,
+                  owner: Optional[str] = None, **compile_kwargs):
+    """``torch.compile`` that counts cache misses and compile seconds per
+    PROGRAM and feeds the program ledger (the reference's wrapper over
+    ``jax.jit``).
+
+    A miss is a call whose graph reached the compile backend (torch
+    compiles when the guards of every cached graph fail); the call's wall
+    time (trace, compile, run) goes to
+    ``paddle_tpu_jit_compile_seconds_total``. Both miss counters carry a
+    ``program`` label beside ``fn``: one entry point compiles many
+    programs (one per shape signature). The program id is
+    ``ledger.program_id(name, <shapes and dtypes of the arguments>)``. With
+    the monitor and the ledger off a call pays one bool test over plain
+    ``torch.compile``. Calls run with the record point suspended
+    (``core.dispatch.suspended``), so no op hook or recording enters the
+    graph. ``owner`` ties the programs to an engine label for
+    ``ledger.release``; ``compile_kwargs`` go to ``torch.compile``
+    (``backend`` a name or a callable, default inductor). Usable as a
+    decorator or called directly; ``name`` defaults to the function's
+    ``__name__``. The wrapper's ``compiles`` counts its misses."""
+    def wrap(fn):
+        import torch
+
+        from ..core import dispatch
+
+        label = name or getattr(fn, "__name__", "jit")
+        missed = threading.local()
+        kw = dict(compile_kwargs)
+        real = kw.pop("backend", None)
+        if real is None or isinstance(real, str):
+            real = torch._dynamo.lookup_backend(real or "inductor")
+
+        def backend(gm, example_inputs):
+            missed.flag = True
+            call.compiles += 1
+            return real(gm, example_inputs)
+
+        compiled = torch.compile(fn, backend=backend, **kw)
+
+        @functools.wraps(fn)
+        def call(*a, **k):
+            with dispatch.suspended():
+                if not (_enabled or _ledger._enabled):
+                    return compiled(*a, **k)
+                missed.flag = False
+                t0 = time.perf_counter()
+                out = compiled(*a, **k)
+                was_miss = missed.flag
+                led = _ledger._enabled
+                if not (was_miss or led):
+                    return out
+                dt = time.perf_counter() - t0
+                pid = _ledger.program_id(label, _arg_key(a, k))
+                if was_miss and _enabled:
+                    counter("paddle_tpu_jit_cache_miss_total",
+                            "jit traces+compiles (cache misses) per entry "
+                            "point and program",
+                            ("fn", "program")).labels(
+                                fn=label, program=pid).inc()
+                    counter("paddle_tpu_jit_compile_seconds_total",
+                            "wall seconds spent tracing+compiling per entry "
+                            "point and program",
+                            ("fn", "program")).labels(
+                                fn=label, program=pid).inc(dt)
+                if led:
+                    _ledger.record(pid, label, owner, dt, was_miss)
+                return out
+
+        call.compiles = 0
+        call._compiled = compiled  # escape hatch: the torch.compile object
+        return call
+
+    return wrap(fn) if fn is not None else wrap
 
 
 # -- eager programs -----------------------------------------------------------

@@ -3,11 +3,14 @@ dispatcher by op name; each op here is wrapped by :func:`amp_op` with the
 reference's name, which casts its positional tensor arguments by the
 active policy and checks its outputs under ``FLAGS_check_nan_inf``
 (``framework.amp_state``). With AMP and the check off, a call costs two
-attribute reads."""
+attribute reads. Each such op is also one op of the record point
+(``core/dispatch.py``) under the same name: one span for the op hook, one
+node of a program being recorded."""
 from __future__ import annotations
 
 import functools
 
+from ...core import dispatch
 from ...framework.amp_state import amp_state, cast_inputs, check_outputs
 
 
@@ -22,5 +25,5 @@ def amp_op(op_name: str):
                 check_outputs(op_name,
                               *(out if isinstance(out, tuple) else (out,)))
             return out
-        return op
+        return dispatch.op(op_name)(op)
     return wrap

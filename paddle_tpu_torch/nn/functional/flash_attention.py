@@ -11,8 +11,9 @@ layout.
   flash kernel on the TPU and, with dropout, in interpret mode elsewhere.
   The dropout seed is ``fixed_seed_offset`` where the caller gives one (an
   int, or a tensor whose first element is the seed), else one draw from
-  the port's generator; at the same seed the dropped positions are the
-  Pallas kernel's.
+  the port's generator, per call also in compiled and recorded programs
+  (:func:`_seed`); at the same seed the dropped positions are the Pallas
+  kernel's.
 - :func:`scaled_dot_product_attention`, :func:`flash_attn_unpadded` and
   :func:`sparse_attention` are the reference's own compositions in torch
   ops (``_sdpa_ref``, the segment mask, the CSR gather): the reference
@@ -24,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from ...core.random import draw_seed, uniform
+from ...core.dispatch import is_symbolic, recording
+from ...core.random import draw_seed, traced_seed, uniform
 from ...ops.attention import flash_attention as _flash
 
 __all__ = ["flash_attention", "flash_attn_unpadded",
@@ -62,15 +64,21 @@ def _sdpa_ref(q, k, v, mask=None, causal=False, dropout_p=0.0, scale=None):
     return torch.matmul(probs, vt).transpose(1, 2)
 
 
-def _seed(fixed_seed_offset) -> int:
+def _seed(fixed_seed_offset, query):
+    """The dropout seed: ``fixed_seed_offset`` where the caller gives one
+    (an int, or a tensor whose first element is the seed); else one draw
+    from the port's generator, made where the attention runs: eagerly on
+    the host now; in a compiled program from the seed ``to_static`` hands
+    each call (``core.random.traced_seed``), an input of the kernel op; in
+    a program being recorded as a recorded draw, fresh on each
+    ``Executor.run``."""
     if fixed_seed_offset is None:
         if torch.compiler.is_compiling():
-            # the kernels take their seed as a launch argument: a drawn
-            # one would be a constant of the compiled program
-            raise ValueError(
-                "flash_attention: dropout inside a compiled program needs "
-                "fixed_seed_offset (the kernels' seed is a launch argument, "
-                "a draw would be frozen into the program)")
+            return traced_seed()
+        if recording() and is_symbolic(query):
+            from ...static.record import symbolic_seed
+
+            return symbolic_seed()
         return draw_seed()
     if isinstance(fixed_seed_offset, torch.Tensor):
         return int(fixed_seed_offset.reshape(-1)[0].item())
@@ -83,7 +91,7 @@ def flash_attention(query, key, value, dropout: float = 0.0,
                     training: bool = True, name=None):
     """paddle.nn.functional.flash_attention parity: ``(out, None)``."""
     p = dropout if training else 0.0
-    seed = _seed(fixed_seed_offset) if p > 0.0 else None
+    seed = _seed(fixed_seed_offset, query) if p > 0.0 else None
     out = _flash(query, key, value, causal=causal, dropout_p=p, seed=seed)
     return out, None
 

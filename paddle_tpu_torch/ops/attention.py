@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..core import dispatch
 from ..framework.amp_state import cast_inputs, check_outputs
 from ..framework.flags import get_flags
 from .flash_attention_hb import flash_attention_bshd_hb, supports_hb
@@ -42,15 +43,27 @@ def _use_hb(q: torch.Tensor, k: torch.Tensor, dropout_p: float) -> bool:
             and supports_hb(q.shape, k.shape, dropout_p))
 
 
+def _flash_meta(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
+                seed=None):
+    """The output's shape and dtype, from ``paddle_tpu::flash_fwd``'s
+    registered fake (a program being recorded)."""
+    q, k, v = cast_inputs("flash_attention", q, k, v)
+    return torch.ops.paddle_tpu.flash_fwd(q, k, v, bool(causal), sm_scale,
+                                          float(dropout_p), 0)[0]
+
+
+@dispatch.op("flash_attention", meta=_flash_meta)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, sm_scale: Optional[float] = None,
-                    dropout_p: float = 0.0,
-                    seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_p: float = 0.0, seed=None) -> torch.Tensor:
     """Softmax attention of q [B, Sq, Hq, D] over k/v [B, Sk, Hkv, D]
     (GQA: Hq a multiple of Hkv), bottom-right causal when ``causal``.
     ``dropout_p`` drops attention probabilities with the kernels' counter
-    hash keyed by ``seed`` (default 0), the same mask in the forward and
-    the backward. Differentiable. Returns [B, Sq, Hq, D]. White under
+    hash keyed by ``seed`` (default 0; an int, a recorded program's
+    per-run seed tensor, or a compiled program's ``(seed tensor, place)``,
+    ``flash_attention_kernel._seed_parts``), the same mask in the forward
+    and the backward. Differentiable. One op of the record point
+    (``flash_attention``). Returns [B, Sq, Hq, D]. White under
     AMP (q, k, v go to the AMP dtype); under ``FLAGS_check_nan_inf`` the
     output is checked."""
     q, k, v = cast_inputs("flash_attention", q, k, v)
@@ -60,6 +73,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out = flash_attention_apply(q, k, v, causal, sm_scale,
                                     float(dropout_p),
-                                    0 if seed is None else int(seed))
+                                    0 if seed is None else seed)
     check_outputs("flash_attention", out)
     return out

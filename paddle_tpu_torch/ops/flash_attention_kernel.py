@@ -56,7 +56,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.random import _mix
+from ..core.random import _mix, derive_seed
 from . import _build
 from ._launches import costed, count
 
@@ -671,22 +671,26 @@ class FlashAttention(torch.autograd.Function):
                          device_types="cpu")
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, sm_scale: Optional[float], dropout_p: float,
-                  seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 as a library op: ``(out, lse)``, the plain version on the CPU."""
+                  seed: int, seed_t: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 as a library op: ``(out, lse)``, the plain version on the CPU.
+    The dropout seed is ``seed``, or with ``seed_t`` (a host int64 scalar,
+    a compiled program's per-call seed) the one :func:`op_seed` derives
+    from both."""
     out, lse = flash_attention_bshd_ref(q, k, v, causal, sm_scale,
-                                        dropout_p, seed)
+                                        dropout_p, op_seed(seed, seed_t))
     return out.contiguous(), lse.contiguous()
 
 
 @_flash_fwd_op.register_kernel("cuda")
-def _(q, k, v, causal, sm_scale, dropout_p, seed):
+def _(q, k, v, causal, sm_scale, dropout_p, seed, seed_t=None):
     out, lse = flash_attention_bshd(q, k, v, causal, sm_scale, dropout_p,
-                                    seed)
+                                    op_seed(seed, seed_t))
     return out.contiguous(), lse
 
 
 @_flash_fwd_op.register_fake
-def _(q, k, v, causal, sm_scale, dropout_p, seed):
+def _(q, k, v, causal, sm_scale, dropout_p, seed, seed_t=None):
     b, sq, hq, _ = q.shape
     return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
             torch.empty((b, hq, sq), dtype=torch.float32, device=q.device))
@@ -698,21 +702,25 @@ def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      do: torch.Tensor, lse: torch.Tensor,
                      delta: torch.Tensor, causal: bool,
                      sm_scale: Optional[float], dropout_p: float,
-                     seed: int) -> torch.Tensor:
+                     seed: int, seed_t: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """K5 as a library op: dq, the plain backward's dq on the CPU."""
     dq, _, _ = _bwd_ref(q, k, v, do, lse, delta, causal, sm_scale,
-                        dropout_p, seed, want_dkv=False)
+                        dropout_p, op_seed(seed, seed_t), want_dkv=False)
     return dq.contiguous()
 
 
 @_flash_bwd_dq_op.register_kernel("cuda")
-def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed):
+def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed,
+      seed_t=None):
     return flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
-                                  dropout_p, seed).contiguous()
+                                  dropout_p, op_seed(seed, seed_t)
+                                  ).contiguous()
 
 
 @_flash_bwd_dq_op.register_fake
-def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed):
+def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed,
+      seed_t=None):
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
@@ -722,31 +730,37 @@ def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, lse: torch.Tensor,
                       delta: torch.Tensor, causal: bool,
                       sm_scale: Optional[float], dropout_p: float,
-                      seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      seed: int, seed_t: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 as a library op: (dk, dv), the plain backward's on the CPU."""
     _, dk, dv = _bwd_ref(q, k, v, do, lse, delta, causal, sm_scale,
-                         dropout_p, seed, want_dq=False)
+                         dropout_p, op_seed(seed, seed_t), want_dq=False)
     return dk.contiguous(), dv.contiguous()
 
 
 @_flash_bwd_dkv_op.register_kernel("cuda")
-def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed):
+def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed,
+      seed_t=None):
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
-                                     sm_scale, dropout_p, seed)
+                                     sm_scale, dropout_p,
+                                     op_seed(seed, seed_t))
     return dk.contiguous(), dv.contiguous()
 
 
 @_flash_bwd_dkv_op.register_fake
-def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed):
+def _(q, k, v, do, lse, delta, causal, sm_scale, dropout_p, seed,
+      seed_t=None):
     return (torch.empty(k.shape, dtype=k.dtype, device=k.device),
             torch.empty(v.shape, dtype=v.dtype, device=v.device))
 
 
 def _flash_fwd_op_setup(ctx, inputs, output):
-    q, k, v, causal, sm_scale, dropout_p, seed = inputs
+    q, k, v, causal, sm_scale, dropout_p, seed, seed_t = inputs
     out, lse = output
     ctx.save_for_backward(q, k, v, out, lse)
-    ctx.args = (causal, sm_scale, dropout_p, seed)
+    # the same seed (and per-call seed tensor) reaches the backward ops,
+    # so they regenerate the forward's mask
+    ctx.args = (causal, sm_scale, dropout_p, seed, seed_t)
     ctx.mark_non_differentiable(lse)
 
 
@@ -757,25 +771,54 @@ def _flash_fwd_op_bwd(ctx, do, _dlse):
                                            *ctx.args)
     dk, dv = torch.ops.paddle_tpu.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                 *ctx.args)
-    return dq, dk, dv, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None
 
 
 _flash_fwd_op.register_autograd(_flash_fwd_op_bwd,
                                 setup_context=_flash_fwd_op_setup)
 
 
+def op_seed(seed: int, seed_t: Optional[torch.Tensor] = None) -> int:
+    """The dropout seed the kernels take: ``seed``; with ``seed_t``, its
+    value where ``seed`` is negative, else a hash of (its value, ``seed``
+    as the draw's place in its program), ``core.random.derive_seed``."""
+    if seed_t is None:
+        return int(seed)
+    if seed < 0:
+        return int(seed_t)
+    return derive_seed(int(seed_t), int(seed))
+
+
+def _seed_parts(seed) -> Tuple[int, Optional[torch.Tensor]]:
+    """(int seed, seed tensor) of a seed given as an int, a 0-d host int64
+    tensor (a recorded program's per-run draw) or ``(tensor, place)``
+    (a compiled program's per-call seed and the draw's place in it)."""
+    if isinstance(seed, tuple):
+        return int(seed[1]), seed[0]
+    if isinstance(seed, torch.Tensor):
+        if torch.compiler.is_compiling():
+            return -1, seed
+        return int(seed), None
+    return int(seed), None
+
+
 def flash_attention_apply(q, k, v, causal: bool,
                           sm_scale: Optional[float], dropout_p: float,
-                          seed: int) -> torch.Tensor:
+                          seed) -> torch.Tensor:
     """Differentiable flash attention, the output alone: eagerly
     :class:`FlashAttention`; while compiling (``torch.compile``,
     ``torch.export``) the op ``paddle_tpu::flash_fwd``, whose gradient is
     the ops ``paddle_tpu::flash_bwd_dq`` and ``paddle_tpu::flash_bwd_dkv``
     with delta = rowsum(dO * O) between them, as the eager backward
-    computes it."""
+    computes it. ``seed``: see :func:`_seed_parts`; a compiled program's
+    seed reaches the ops as a tensor input, so it is a value of the
+    program, fresh on each call, not a constant frozen into it."""
+    s, seed_t = _seed_parts(seed)
     if torch.compiler.is_compiling():
         return torch.ops.paddle_tpu.flash_fwd(
             q, k, v, bool(causal),
             None if sm_scale is None else float(sm_scale), float(dropout_p),
-            int(seed))[0]
-    return FlashAttention.apply(q, k, v, causal, sm_scale, dropout_p, seed)
+            s, seed_t)[0]
+    if seed_t is not None:
+        s = op_seed(s, seed_t)
+    return FlashAttention.apply(q, k, v, causal, sm_scale, dropout_p, s)

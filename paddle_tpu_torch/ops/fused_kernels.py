@@ -47,6 +47,7 @@ import functools
 
 import torch
 
+from ..core import dispatch
 from ..framework.amp_state import cast_inputs, check_outputs
 from . import _build
 from ._launches import costed, count
@@ -380,6 +381,14 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dw, None
 
 
+def _rms_norm_meta(x, weight, eps=1e-6):
+    """The output's shape and dtype, from ``paddle_tpu::rms_norm``'s
+    registered fake (a program being recorded)."""
+    x, weight = cast_inputs("rms_norm", x, weight)
+    return torch.ops.paddle_tpu.rms_norm(x, weight, float(eps))
+
+
+@dispatch.op("rms_norm", meta=_rms_norm_meta)
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """y = x / sqrt(mean(x^2, -1) + eps) * w over x [..., H] (K1: rows
@@ -665,6 +674,14 @@ class _Rope(torch.autograd.Function):
         return _rope_fwd(g, cos, -sin), None, None   # no table gradient
 
 
+def _rope_meta(x, cos, sin):
+    """The output's shape and dtype, from ``paddle_tpu::fused_rope``'s
+    registered fake (a program being recorded)."""
+    return torch.ops.paddle_tpu.fused_rope(
+        *cast_inputs("fused_rope", x, cos, sin))
+
+
+@dispatch.op("fused_rope", meta=_rope_meta)
 def fused_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """Rotary embedding of x [B, S, H, D] by shared position tables cos/sin

@@ -34,8 +34,10 @@ keys are ``f"{name}_{accumulator}"`` as in the reference, and AdamW's
 ``"params"``) are flattened in order; as in the reference their other keys
 are not read.
 
-``minimize`` runs the eager branch (``loss.backward(); step()``): the port
-has no static mode.
+``minimize`` runs the eager branch (``loss.backward(); step()``), or in
+static mode marks the program for training: ``static.Executor.run`` then
+runs ``backward`` and ``step()`` over the program's parameters, keyed by
+their program names.
 """
 from __future__ import annotations
 
@@ -261,9 +263,24 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
+        from ..static.program import default_main_program, in_static_mode
+
+        if in_static_mode():
+            # static path: mark the program for training; Executor.run
+            # replays its forward, runs backward and then step() over the
+            # scope's parameters (the reference appends the backward and
+            # optimizer ops to the ProgramDesc)
+            default_main_program().train_config = (self, id(loss))
+            return None, None
         loss.backward()
         self.step()
         return None, None
+
+    def _static_bind(self, params: Dict[str, torch.Tensor]) -> None:
+        """Step ``params`` (name -> tensor, a static program's parameters
+        as its scope holds them), keyed by their program names."""
+        self._parameter_list = list(params.values())
+        self._names = {id(t): n for n, t in params.items()}
 
     def clear_grad(self, set_to_zero: bool = False):
         for p in self._parameter_list or []:

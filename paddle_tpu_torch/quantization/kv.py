@@ -29,7 +29,8 @@ from typing import Tuple
 import torch
 
 __all__ = ["KV_DTYPES", "KV_QMAX", "KV_SCALE_FLOOR", "dequant_scale",
-           "quantize_page", "dequantize_page", "quant_store_rows"]
+           "quantize_page", "dequantize_page", "quant_store_rows",
+           "max_logit_divergence"]
 
 # pool storage the paged engine takes: "bf16" keeps the pools in the
 # model's own dtype, "int8" stores int8 pages with per-page-per-head scales
@@ -92,3 +93,69 @@ def quant_store_rows(pool: torch.Tensor, scales: torch.Tensor,
     pool[pages, offs.long()] = quantize_page(rows, new[pages])
     scales.copy_(new)
     return pool, scales
+
+
+def max_logit_divergence(eng_a, eng_b, prompts, cfg=None,
+                         steps: int = 16):
+    """Plain-vs-quantized logit-divergence probe (the reference's): admit
+    the same prompts (greedy) into two IDLE continuous-batching engines,
+    step them one decode token at a time, and before each step compare the
+    next-token logits both engines would take. Returns ``{"max_logit_div",
+    "mean_logit_div", "token_flips", "tokens"}``.
+
+    Both engines run their public admission and segment path, so the probe
+    exercises the real store and read pipeline (quantize on store, the
+    fused dequant); the extra logit read a step is one more decode forward,
+    whose cache writes are the ones the step itself makes next. Once a
+    slot's argmax flips, the two trajectories feed themselves different
+    tokens, so a flipped slot is counted once and left out of later
+    comparisons."""
+    import numpy as np
+
+    from ..inference.generation import GenerationConfig
+
+    cfg = cfg or GenerationConfig(max_new_tokens=steps)
+    for eng in (eng_a, eng_b):
+        if eng._slot_req:
+            raise RuntimeError("max_logit_divergence needs idle engines")
+    for p in prompts:
+        eng_a.add_request(p, cfg)
+        eng_b.add_request(p, cfg)
+
+    def logits(eng):
+        with torch.no_grad():
+            out = eng._fwd_decode(eng.last[:, None], eng.lens,
+                                  eng.active_dev)
+        return out[:, 0].float().cpu().numpy()
+
+    max_div = sum_div = 0.0
+    flips = tokens = n = 0
+    dead = set()                      # slots whose trajectories split
+    for _ in range(steps):
+        if not (eng_a._slot_req and eng_b._slot_req):
+            break
+        la, lb = logits(eng_a), logits(eng_b)
+        live = (eng_a.active_dev & eng_b.active_dev).cpu().numpy()
+        for s in np.nonzero(live)[0]:
+            if int(s) in dead:
+                continue
+            d = float(np.max(np.abs(la[s] - lb[s])))
+            max_div = max(max_div, d)
+            sum_div += d
+            n += 1
+            tokens += 1
+            if int(la[s].argmax()) != int(lb[s].argmax()):
+                flips += 1
+                dead.add(int(s))
+        eng_a.decode_segment(1)
+        eng_b.decode_segment(1)
+    # drain so the engines come back idle for the caller
+    while eng_a.decode_segment(4):
+        pass
+    while eng_b.decode_segment(4):
+        pass
+    eng_a.collect_finished()
+    eng_b.collect_finished()
+    return {"max_logit_div": max_div,
+            "mean_logit_div": (sum_div / n if n else 0.0),
+            "token_flips": flips, "tokens": tokens}

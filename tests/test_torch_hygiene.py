@@ -338,7 +338,8 @@ SERVING_MODULES = {
         "register_callback", "enable", "disable", "enabled", "snapshot",
         "render_prometheus", "write_jsonl", "reset", "remove_series",
         "start_http_server", "http_payload", "instance_label",
-        "monitored_eager"],
+        "monitored_eager", "monitored_jit", "install_op_hook",
+        "uninstall_op_hook"],
     "paddle_tpu_torch/monitor/slo.py": None,
     "paddle_tpu_torch/monitor/ledger.py": None,
     "paddle_tpu_torch/monitor/provenance.py": ["env_stamp"],
@@ -346,7 +347,7 @@ SERVING_MODULES = {
         "enable", "disable", "enabled", "configure", "clear", "event",
         "span", "record", "events", "timeline", "export_chrome", "dump",
         "NULL_SPAN", "DEFAULT_CAPACITY"],
-    "paddle_tpu_torch/profiler/__init__.py": ["write_chrome_trace"],
+    "paddle_tpu_torch/profiler/__init__.py": None,
     "paddle_tpu_torch/testing/__init__.py": [
         "SITES", "FaultPlan", "FaultyEngine", "InjectedFault",
         "retry_under_load"],
@@ -675,3 +676,41 @@ def test_predictor_config_follows_the_device_policy(monkeypatch):
     cfg.enable_use_gpu()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cfg.device
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch/core/op_hooks.py",
+    "paddle_tpu_torch/core/dispatch.py",
+    "paddle_tpu_torch/static/program.py",
+    "paddle_tpu_torch/static/record.py",
+    "paddle_tpu_torch/static/executor.py",
+    "paddle_tpu_torch/static/amp.py",
+    "paddle_tpu_torch/static/quantization.py",
+    "paddle_tpu_torch/profiler/__init__.py",
+    "paddle_tpu_torch/quantization/__init__.py",
+    "paddle_tpu_torch/monitor/__init__.py"])
+def test_record_point_and_static_modules_are_checked(module):
+    """The record point and the modules standing on it (static mode, the
+    profiler, the monitor's op hook, quantization) are among the sources
+    the no-JAX checks read."""
+    assert ROOT / module in _sources()
+
+
+def test_record_point_is_off_after_import():
+    """Importing the package (every module) puts nothing on torch's
+    function-mode stack and installs no op hook: with the monitor and
+    static mode off, ops pay nothing for the record point."""
+    code = ("import sys, pkgutil, importlib, torch\n"
+            "sys.path.insert(0, %r)\n"
+            "import paddle_tpu_torch as pt\n"
+            "for m in pkgutil.walk_packages(pt.__path__, 'paddle_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "from paddle_tpu_torch.core import dispatch, op_hooks\n"
+            "assert torch._C._len_torch_function_stack() == 0\n"
+            "assert op_hooks.op_span_hook is None and not dispatch._active\n"
+            "print('ok')" % str(ROOT))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FLAGS_enable_monitor",)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-3000:]

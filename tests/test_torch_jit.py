@@ -434,6 +434,65 @@ def test_dropout_reproducible_fresh_and_at_rate():
     assert d.forward.compiles == 1            # no recompile per seed
 
 
+def _flash_dropout(q, k, v):
+    return pt.nn.functional.flash_attention(q, k, v, dropout=0.25,
+                                            causal=True)[0]
+
+
+def _flash_dropout_ref(q, k, v):
+    return paddle.nn.functional.flash_attention(q, k, v, dropout=0.25,
+                                                causal=True)[0]
+
+
+def _causal_kept(out):
+    """The kept share of the causal positions of ``out`` = P_drop (v the
+    identity over the keys)."""
+    s = out.shape[1]
+    causal = np.tril(np.ones((s, s), bool))[None, :, None, :]
+    causal = np.broadcast_to(causal, out.shape)
+    return float((out[causal] != 0).mean())
+
+
+def test_flash_dropout_compiles_fresh_and_at_rate():
+    """C-port-7: the flash kernels' dropout seed is a value of the compiled
+    program (from the seed to_static hands each call), not a constant
+    frozen into it. With v the identity over the 64 keys the output is
+    P_drop itself: masks repeat under seed, differ from call to call, and
+    dv = P_drop^T dO shows the backward ops regenerate the forward's mask.
+    The JAX package's to_static of the same function keeps the same share
+    (threefry is not Philox: distributions, not masks)."""
+    rng = np.random.RandomState(0)
+    q = rng.randn(1, 64, 2, 64).astype(np.float32)
+    k = rng.randn(1, 64, 2, 64).astype(np.float32)
+    eye = np.broadcast_to(np.eye(64, dtype=np.float32)[None, :, None, :],
+                          (1, 64, 2, 64)).copy()
+    g = rng.randn(1, 64, 2, 64).astype(np.float32)
+    f = tjit.to_static(_flash_dropout, backend=BACKEND)
+
+    def call():
+        v = torch.from_numpy(eye).requires_grad_(True)
+        out = f(torch.from_numpy(q), torch.from_numpy(k), v)
+        out.backward(torch.from_numpy(g))
+        return out.detach(), v.grad
+
+    pt.seed(11)
+    (a, dva), (b, _) = call(), call()
+    pt.seed(11)
+    a2, _ = call()
+    assert torch.equal(a, a2)                       # repeats under seed
+    assert not torch.equal(a == 0, b == 0)          # fresh on every call
+    want = torch.einsum("bqhk,bqhd->bkhd", a, torch.from_numpy(g))
+    torch.testing.assert_close(dva, want, rtol=1e-5, atol=1e-5)
+    assert f.compiles == 1                          # no recompile per seed
+    kept = [_causal_kept(x.numpy()) for x in (a, b)]
+    jf = jax_to_static(_flash_dropout_ref)
+    paddle.seed(11)
+    ref = [_causal_kept(_np(jf(_j(q), _j(k), _j(eye)))) for _ in range(2)]
+    # 2 x 2080 causal draws a call: 4 sigma of the kept share is ~0.038
+    for share in kept + ref:
+        assert abs(share - 0.75) < 0.04, (kept, ref)
+
+
 # -- the rest of the surface ----------------------------------------------------------
 
 
